@@ -1,0 +1,50 @@
+"""Carry parameters over from the JAX package.
+
+The JAX package keeps parameters as a nested dict whose paths mirror HF
+module names; the port keeps the same leaves, flattened with dots. A caller
+flattens the JAX tree to ``{"model.layers.0.self_attn.q_proj.kernel":
+np.ndarray, ...}`` (``jax.device_get`` then a dict walk) and hands it here;
+this module itself never imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
+from llm_fine_tune_distributed_tpu_torch.models.transformer import check_supported
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> Dict[str, object]:
+    """Nested dict -> {"a.b.c": leaf} (the port's parameter naming)."""
+    out: Dict[str, object] = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def params_from_jax(flat: Dict[str, np.ndarray], config: ModelConfig, device="cpu",
+                    dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """JAX parameters as numpy arrays, by flat name -> the port's parameters
+    on ``device`` in ``dtype``. Layouts match leaf for leaf ([in, out]
+    kernels), so this is a copy and a cast; a leaf the port has no use for
+    (LoRA, int8 or NF4 siblings) raises."""
+    check_supported(config)
+    out = {}
+    for name, arr in flat.items():
+        leaf = name.rpartition(".")[2]
+        if leaf not in ("kernel", "weight", "bias"):
+            raise NotImplementedError(
+                f"{name}: only kernel/weight/bias leaves are ported "
+                "(LoRA, int8 and NF4 leaves live in the JAX package)"
+            )
+        t = torch.from_numpy(np.asarray(arr, dtype=np.float32).copy())
+        out[name] = t.to(device=device, dtype=dtype)
+    return out

@@ -1,0 +1,292 @@
+"""Llama-family decoder-only transformer as plain functions over a flat
+parameter dict (counterpart of the JAX ``models/transformer.py``).
+
+Parameters keep the JAX package's names and layouts, flattened with dots:
+``model.layers.0.self_attn.q_proj.kernel`` is the ``[in, out]`` kernel
+(``x @ W``), norms and the embedding are ``...weight`` in torch layout. So a
+parity test or a safetensors file maps one to the other by name.
+
+Ported branches: the dense SwiGLU model (SmolLM3, Llama) with optional
+linear biases, RoPE with SmolLM3's NoPE layers and rope scaling, the
+no-cache forward, and the block-paged KV cache in bf16 or int8
+(``init_paged_cache``). Other branches raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
+from llm_fine_tune_distributed_tpu_torch.ops.attention import xla_attention
+from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import paged_decode_attention
+from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
+    KV_QUANT_MODES,
+    dequantize_kv_gather,
+    quantize_kv_write,
+)
+from llm_fine_tune_distributed_tpu_torch.ops.norms import rms_norm
+from llm_fine_tune_distributed_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+Params = Dict[str, torch.Tensor]
+
+_JAX_FORWARD = "llm_fine_tune_distributed_tpu.models.transformer.forward"
+
+
+def check_supported(config: ModelConfig) -> None:
+    """Raise for architecture knobs whose branches are not ported."""
+    unported = {
+        "num_experts": config.num_experts > 0,
+        "sliding_window": config.sliding_window is not None,
+        "attn_logit_softcap": config.attn_logit_softcap is not None,
+        "final_logit_softcap": config.final_logit_softcap is not None,
+        "sandwich_norms": config.sandwich_norms,
+        "zero_centered_norm": config.zero_centered_norm,
+        "embed_scale": config.embed_scale,
+        "qk_norm": config.qk_norm,
+        "query_pre_attn_scalar": config.query_pre_attn_scalar is not None,
+        f"hidden_act={config.hidden_act}": config.hidden_act != "silu",
+    }
+    missing = [k for k, on in unported.items() if on]
+    if missing:
+        raise NotImplementedError(
+            f"{config.name}: {', '.join(missing)} not ported ({_JAX_FORWARD} has them)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
+                dtype=torch.float32) -> Params:
+    """Random init (normal 0.02, HF convention) from an explicit generator
+    seeded with ``seed``. Norm weights start at 1, biases at 0."""
+    check_supported(config)
+    h = config.hidden_size
+    d = config.resolved_head_dim
+    qd, kvd = config.num_heads * d, config.num_kv_heads * d
+    f, v = config.intermediate_size, config.vocab_size
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(shape):
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return w.mul_(0.02).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, device=device, dtype=dtype)
+
+    def zeros(n):
+        return torch.zeros(n, device=device, dtype=dtype)
+
+    params: Params = {}
+    for i in range(config.num_layers):
+        p = f"model.layers.{i}."
+        params[p + "input_layernorm.weight"] = ones(h)
+        for name, shape in (("q_proj", (h, qd)), ("k_proj", (h, kvd)),
+                            ("v_proj", (h, kvd)), ("o_proj", (qd, h))):
+            params[p + f"self_attn.{name}.kernel"] = dense(shape)
+        if config.attention_bias:
+            params[p + "self_attn.q_proj.bias"] = zeros(qd)
+            params[p + "self_attn.k_proj.bias"] = zeros(kvd)
+            params[p + "self_attn.v_proj.bias"] = zeros(kvd)
+            if config.attention_out_bias:
+                params[p + "self_attn.o_proj.bias"] = zeros(h)
+        params[p + "post_attention_layernorm.weight"] = ones(h)
+        for name, shape in (("gate_proj", (h, f)), ("up_proj", (h, f)), ("down_proj", (f, h))):
+            params[p + f"mlp.{name}.kernel"] = dense(shape)
+        if config.mlp_bias:
+            params[p + "mlp.gate_proj.bias"] = zeros(f)
+            params[p + "mlp.up_proj.bias"] = zeros(f)
+            params[p + "mlp.down_proj.bias"] = zeros(h)
+    params["model.embed_tokens.weight"] = dense((v, h))
+    params["model.norm.weight"] = ones(h)
+    if not config.tie_word_embeddings:
+        params["lm_head.kernel"] = dense((h, v))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype) -> torch.Tensor:
+    """x @ kernel (+ bias) in ``compute_dtype``."""
+    kernel = params.get(name + ".kernel")
+    if kernel is None or name + ".lora_a" in params:
+        raise NotImplementedError(
+            f"{name}: only plain kernels (+ bias) are ported; LoRA, int8 and "
+            "NF4 weights are in llm_fine_tune_distributed_tpu.models.transformer._linear"
+        )
+    y = x @ kernel.to(compute_dtype)
+    bias = params.get(name + ".bias")
+    if bias is not None:
+        y = y + bias.to(compute_dtype)
+    return y
+
+
+def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
+           block_tables, *, config: ModelConfig, compute_dtype, decode_attention):
+    """One transformer block; updates a paged cache ``entry`` in place."""
+    b, s, _ = x.shape
+    d = config.resolved_head_dim
+    eps = config.rms_norm_eps
+    p = f"model.layers.{i}."
+
+    hid = rms_norm(x, params[p + "input_layernorm.weight"], eps)
+    q = _linear(hid, params, p + "self_attn.q_proj", compute_dtype).reshape(b, s, config.num_heads, d)
+    k = _linear(hid, params, p + "self_attn.k_proj", compute_dtype).reshape(b, s, config.num_kv_heads, d)
+    v = _linear(hid, params, p + "self_attn.v_proj", compute_dtype).reshape(b, s, config.num_kv_heads, d)
+    if config.uses_rope(i):
+        q, k = apply_rope(q, k, cos, sin)
+
+    out = None
+    if entry is not None:
+        # Paged cache: the entry is the global pool [num_blocks, L, hkv, d];
+        # row r's logical position p lives in cell (table[r, p // L], p % L).
+        # A position past the table view clips into its last entry, as in
+        # the JAX version; the engine sizes tables so that never happens.
+        L = entry["k"].shape[1]
+        nb = block_tables.shape[1]
+        blk = torch.gather(block_tables.long(), 1, torch.clamp(positions // L, 0, nb - 1))
+        off = positions % L
+        if "k_scale" in entry:
+            # the blocks a row's s consecutive positions span (at most
+            # (s + L - 2) // L + 1 of them, the last repeated to fill), so a
+            # chunk rescales each block once instead of once per token
+            span = torch.arange((s + L - 2) // L + 1, device=x.device)
+            idx = torch.minimum(positions[:, :1] // L + span, positions[:, -1:] // L)
+            touched = torch.gather(block_tables.long(), 1, torch.clamp(idx, 0, nb - 1))
+            quantize_kv_write(entry["k"], entry["k_scale"], blk, off, k, touched)
+            quantize_kv_write(entry["v"], entry["v_scale"], blk, off, v, touched)
+            if s == 1:
+                # decode: the fused kernel reads the int8 blocks in place
+                out = decode_attention(
+                    q, entry["k"], entry["v"], entry["k_scale"], entry["v_scale"],
+                    block_tables, lengths=(positions[:, 0] + 1).to(torch.int32),
+                    scale=float(d) ** -0.5,
+                )
+            else:
+                k = dequantize_kv_gather(entry["k"], entry["k_scale"], block_tables, compute_dtype)
+                v = dequantize_kv_gather(entry["v"], entry["v_scale"], block_tables, compute_dtype)
+        else:
+            entry["k"][blk, off] = k.to(entry["k"].dtype)  # in place
+            entry["v"][blk, off] = v.to(entry["v"].dtype)
+            flat = block_tables.reshape(-1).long()
+            k = entry["k"][flat].reshape(b, nb * L, config.num_kv_heads, d)
+            v = entry["v"][flat].reshape(b, nb * L, config.num_kv_heads, d)
+    if out is None:
+        if explicit_mask is not None:
+            out = xla_attention(q, k, v, mask=explicit_mask, causal=False)
+        else:
+            out = xla_attention(q, k, v, causal=True)
+
+    out = out.reshape(b, s, config.num_heads * d)
+    x = x + _linear(out, params, p + "self_attn.o_proj", compute_dtype)
+    hid = rms_norm(x, params[p + "post_attention_layernorm.weight"], eps)
+    gate = _linear(hid, params, p + "mlp.gate_proj", compute_dtype)
+    up = _linear(hid, params, p + "mlp.up_proj", compute_dtype)
+    return x + _linear(F.silu(gate) * up, params, p + "mlp.down_proj", compute_dtype)
+
+
+def forward(
+    params: Params,
+    input_ids: torch.Tensor,
+    config: ModelConfig,
+    *,
+    cache: Optional[dict] = None,
+    cache_pos=0,
+    block_tables: Optional[torch.Tensor] = None,
+    compute_dtype=torch.bfloat16,
+    logits_dtype=torch.float32,
+    output_hidden: bool = False,
+    decode_attention=paged_decode_attention,
+):
+    """Run the model.
+
+    ``input_ids`` int [batch, seq]. Without ``cache``: causal attention over
+    the sequence. With ``cache`` (``init_paged_cache``) and ``block_tables``
+    [batch, nb] int32: the chunk is written into the pool at positions
+    ``cache_pos + arange(seq)`` (``cache_pos`` a scalar or a [batch] tensor)
+    and attends through each row's table to every position <= its own. An
+    int8 pool's one-token decode goes through ``decode_attention``, the
+    paged decode kernel's wrapper unless the caller passes another function
+    of the same signature (its plain version, for a comparison).
+
+    Returns ``(logits [batch, seq, vocab] in logits_dtype, cache)``, or the
+    final-norm hidden states in ``compute_dtype`` with ``output_hidden``.
+    The cache is updated in place and returned.
+    """
+    check_supported(config)
+    if cache is not None and block_tables is None:
+        raise NotImplementedError(
+            f"the dense KV cache is not ported ({_JAX_FORWARD} with "
+            "init_cache has it); pass block_tables with init_paged_cache"
+        )
+    b, s = input_ids.shape
+    device = input_ids.device
+    offset = cache_pos[:, None] if torch.is_tensor(cache_pos) and cache_pos.dim() == 1 else cache_pos
+    positions = (torch.arange(s, device=device)[None, :] + offset).expand(b, s).long()
+
+    x = F.embedding(input_ids, params["model.embed_tokens.weight"]).to(compute_dtype)
+    cos, sin = rope_cos_sin(positions, config.resolved_head_dim, config.rope_theta, config=config)
+
+    explicit_mask = None
+    if cache is not None:
+        # gathered view index == logical position, so key j is visible to
+        # query i iff j <= position(i)
+        kv_len = block_tables.shape[1] * cache["layers"]["0"]["k"].shape[1]
+        k_pos = torch.arange(kv_len, device=device)[None, None, :]
+        explicit_mask = k_pos <= positions[:, :, None]
+
+    for i in range(config.num_layers):
+        entry = cache["layers"][str(i)] if cache is not None else None
+        x = _block(
+            params, i, x, cos, sin, explicit_mask, entry, positions, block_tables,
+            config=config, compute_dtype=compute_dtype, decode_attention=decode_attention,
+        )
+    x = rms_norm(x, params["model.norm.weight"], config.rms_norm_eps)
+    if output_hidden:
+        return x.to(compute_dtype), cache
+    return unembed(params, x, config, compute_dtype=compute_dtype, logits_dtype=logits_dtype), cache
+
+
+def unembed(params: Params, hidden: torch.Tensor, config: ModelConfig, *,
+            compute_dtype=torch.bfloat16, logits_dtype=torch.float32) -> torch.Tensor:
+    """hidden [..., hidden] -> logits [..., vocab], tied or not."""
+    h = hidden.to(compute_dtype)
+    if config.tie_word_embeddings:
+        logits = h @ params["model.embed_tokens.weight"].to(compute_dtype).T
+    else:
+        logits = h @ params["lm_head.kernel"].to(compute_dtype)
+    return logits.to(logits_dtype)
+
+
+def init_paged_cache(config: ModelConfig, num_blocks: int, block_len: int, *,
+                     dtype=torch.bfloat16, kv_quant: str = "none", device="cpu") -> dict:
+    """Global paged KV pool: per layer one [num_blocks, block_len, kv_heads,
+    head_dim] buffer shared by every decode slot. Block 0 is the null block.
+    ``kv_quant="int8"`` stores int8 codes plus f32 absmax scales
+    [num_blocks, kv_heads] that start at 0 ("never written")."""
+    if kv_quant not in KV_QUANT_MODES:
+        raise ValueError(f"unknown kv_quant mode {kv_quant!r} (expected one of {KV_QUANT_MODES})")
+    shape = (num_blocks, block_len, config.num_kv_heads, config.resolved_head_dim)
+
+    def entry():
+        if kv_quant == "int8":
+            return {
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros((num_blocks, config.num_kv_heads), dtype=torch.float32, device=device),
+                "v_scale": torch.zeros((num_blocks, config.num_kv_heads), dtype=torch.float32, device=device),
+            }
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+
+    return {"layers": {str(i): entry() for i in range(config.num_layers)}}

@@ -1,0 +1,72 @@
+"""Plain masked attention with GQA and an f32 softmax (counterpart of the JAX
+``ops/attention.xla_attention``).
+
+Layout: q [batch, q_len, num_heads, head_dim], k/v [batch, kv_len,
+num_kv_heads, head_dim]. Masked scores take a large finite negative rather
+than -inf, so a fully masked row softmaxes to a uniform average instead of
+NaN, exactly as the JAX version does. That is why this is not
+``scaled_dot_product_attention``: prefill chunks must match the JAX masking.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+_NEG_INF = -2.0e38
+
+
+def _causal_mask(q_len: int, kv_len: int, device) -> torch.Tensor:
+    """[q_len, kv_len] bool, True = attend; the queries are the last q_len
+    positions of kv_len."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + (kv_len - q_len)
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    return k_pos <= q_pos
+
+
+def xla_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    padding_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    sliding_window: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Reference masked attention. ``padding_mask`` [b, kv_len] (1 = real),
+    ``segment_ids`` [b, kv_len] (attend within equal ids), ``mask`` [b, q_len,
+    kv_len] bool replaces the causal mask. Returns [b, q_len, hq, d] in q's
+    dtype."""
+    if sliding_window is not None or logit_softcap is not None:
+        raise NotImplementedError(
+            "sliding window and logit softcap are not ported "
+            "(llm_fine_tune_distributed_tpu.ops.attention.xla_attention has them)"
+        )
+    b, q_len, num_heads, head_dim = q.shape
+    kv_len, num_kv = k.shape[1], k.shape[2]
+    groups = num_heads // num_kv
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    qg = q.reshape(b, q_len, num_kv, groups, head_dim).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=q.device)
+    if mask is not None:
+        scores = torch.where(mask[:, None, None], scores, neg)
+    elif causal:
+        cmask = _causal_mask(q_len, kv_len, q.device)
+        scores = torch.where(cmask[None, None, None], scores, neg)
+    if padding_mask is not None:
+        pm = padding_mask.bool()[:, None, None, None, :]
+        scores = torch.where(pm, scores, neg)
+    if segment_ids is not None:
+        same = segment_ids[:, None, :] == segment_ids[:, :, None]  # [b, q, kv]
+        scores = torch.where(same[:, None, None], scores, neg)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, q_len, num_heads, head_dim).to(q.dtype)
