@@ -6,20 +6,30 @@ It drives ``llm_fine_tune_distributed_tpu_torch`` (never JAX) phase by phase
 and stops with a non-zero exit at the first failure:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. builds the port's CUDA kernels from ``csrc/`` with nvcc;
-3. holds each kernel against its plain PyTorch version on the card, at
-   SmolLM3-3B's attention shapes, and times both with CUDA events;
+2. builds the port's CUDA kernels from ``csrc/`` with nvcc, one process per
+   source, all at once;
+3. holds the paged decode kernel against its plain PyTorch version on the
+   card, at SmolLM3-3B's attention shapes, and times both with CUDA events;
 4. serves SmolLM3-3B at full width (random bf16 weights from a seed) over
    HTTP from an int8 block-paged KV pool: one request, then 4 concurrent
    ones; every decode step must go through the kernel;
 5. one full-width decode step in f32 through ``forward``, with the kernel
    and with its plain version, to a relative logit bound;
 6. where a decode step's time goes at the main path's occupancy
-   (``torch.profiler`` over a few steps, device kernels grouped by name).
+   (``torch.profiler`` over a few steps, device kernels grouped by name);
+7. holds the flash-attention forward, dq and dk/dv kernels against their
+   plain versions (f32 and bf16, ragged and packed segments) and times them
+   beside ``scaled_dot_product_attention`` at the training shapes;
+8. trains SmolLM3-3B at full width (random weights from a seed) for 3
+   optimizer steps through ``SFTTrainer`` with the reference recipe: every
+   attention must go through the flash kernels, frozen leaves stay
+   bit-equal, ``best_model/`` loads back; then profiles one microbatch;
+9. one full-width f32 microbatch through the loss function, with the
+   kernels and with their plain versions: the loss and every gradient.
 
 Its last three lines are JSON: a summary of the run, ``{"kernels": [...]}``
-(one entry per kernel of the path) and ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero before
-printing either.
+(one entry per kernel of the paths) and ``{"ok": true, "device": {...}}``.
+Without a GPU it exits non-zero before printing either.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 DEVICE = "cuda"
@@ -470,11 +481,433 @@ def profile_phase(generator, prompts, steps=5):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# the training smoke's attention shapes: SmolLM3-3B heads at seq 1024, one
+# microbatch of 8 rows with ragged lengths, and one packed case
+FLASH_SHAPE = dict(b=8, s=1024, hq=16, hkv=4, d=128)
+FLASH_LENGTHS = (1024, 1000, 700, 513, 512, 300, 129, 1)
+# f32: the JAX package's own bands (tests/test_flash_attention.py); bf16:
+# both sides compute in f32 (so differ by at most the f32 band) and round
+# once to bf16, one ulp <= 2**-7 of the value
+FLASH_F32_TOL = {"o": 2e-5, "lse": 2e-5, "dq": 5e-5, "dk": 5e-5, "dv": 5e-5}
+FLASH_TOLERANCE = ("f32 max|d| <= 2e-5 (O, LSE), 5e-5 (dq, dk, dv); bf16 |d| <= "
+                   "the f32 band + 2**-7 x |plain|")
+
+
+def flash_segments_case(kind, b, s):
+    """int32 [b, s] segments: "ragged" is the right-padding mask of
+    FLASH_LENGTHS; "packed" gives each row a few packed segments (ids
+    1, 2, ...) and a pad tail (0)."""
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    gen = torch.Generator().manual_seed(7)
+    for r in range(b):
+        if kind == "ragged":
+            seg[r, : FLASH_LENGTHS[r % len(FLASH_LENGTHS)]] = 1
+        else:
+            pos, sid = 0, 1
+            end = s - int(torch.randint(0, s // 4, (1,), generator=gen))
+            while pos < end:
+                n = int(torch.randint(1, s // 3, (1,), generator=gen))
+                seg[r, pos: min(pos + n, end)] = sid
+                pos, sid = pos + n, sid + 1
+    return seg.to(DEVICE)
+
+
+def flash_inputs(dtype, seed=0, b=None):
+    shape = dict(FLASH_SHAPE, **({"b": b} if b else {}))
+    b, s, hq, hkv, d = (shape[k] for k in ("b", "s", "hq", "hkv", "d"))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(b, s, hq, d, generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=DEVICE).to(dtype)
+    do = torch.randn(b, s, hq, d, generator=gen, device=DEVICE).to(dtype)
+    return q, k, v, do
+
+
+def visible_pairs(seg):
+    """(query, key) pairs the mask lets through: sum over rows and queries
+    of the keys at or before the query with its segment id."""
+    total = 0
+    for row in seg.tolist():
+        counts: dict = {}
+        for sid in row:
+            counts[sid] = counts.get(sid, 0) + 1
+            total += counts[sid]
+    return total
+
+
+def flash_bounds(q, k, seg, peaks):
+    """{kernel: (bound_ms, bound_by)} for this run's inputs: flops 4d per
+    visible pair and query head for the forward (q k^T and p V), 6d for dq
+    (q k^T, dO V^T, ds K), 8d for dk/dv (those and ds^T q, p^T dO); bytes
+    each input read once and each output written once."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    e = q.element_size()
+    pairs = visible_pairs(seg) * hq
+    qb, kvb, segb, statb = b * s * hq * d * e, b * s * hkv * d * e, b * s * 4, b * hq * s * 4
+    mem_rate, bf16_rate, f32_rate = peaks
+    rate = bf16_rate if q.dtype == torch.bfloat16 else f32_rate
+    work = {
+        "flash_fwd": (4 * d * pairs, qb + 2 * kvb + segb + qb + statb),
+        "flash_bwd_dq": (6 * d * pairs, 2 * qb + 2 * kvb + segb + 2 * statb + qb),
+        "flash_bwd_dkv": (8 * d * pairs, 2 * qb + 2 * kvb + segb + 2 * statb + 2 * kvb),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / rate, nbytes / mem_rate
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+                     flops, nbytes)
+    return out
+
+
+def flash_check(fa, dtype, kind):
+    """Each flash kernel against its plain version on the same inputs (the
+    backward kernels get the plain forward's LSE and delta); returns
+    {output: max|d|} and fails beyond FLASH_F32_TOL / the bf16 bound."""
+    q, k, v, do = flash_inputs(dtype, seed=1 if kind == "packed" else 0)
+    seg = flash_segments_case(kind, q.shape[0], q.shape[1])
+    o, lse = fa.flash_fwd(q, k, v, seg)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, seg)
+    delta = fa.flash_delta(o_ref, do)
+    dq = fa.flash_bwd_dq(q, k, v, seg, lse_ref, delta, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, seg, lse_ref, delta, do)
+    torch.cuda.synchronize()
+    dq_ref = fa.flash_bwd_dq_reference(q, k, v, seg, lse_ref, delta, do)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, seg, lse_ref, delta, do)
+    errs = {}
+    for name, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
+                           ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        check(bool(torch.isfinite(got).all()), f"flash {kind} {dtype} {name}: not finite")
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        band = FLASH_F32_TOL[name]
+        if got.dtype == torch.float32:
+            check(err <= band, f"flash {kind} f32 {name}: max|kernel-plain| {err:.3e} > {band}")
+        else:
+            over = (diff > band + 2.0**-7 * ref.float().abs()).sum().item()
+            check(over == 0, f"flash {kind} bf16 {name}: {over} elements beyond {band} + "
+                             f"2**-7 x |plain| (max|d| {err:.3e})")
+        errs[name] = err
+        phase(7, f"{kind} {str(dtype).split('.')[-1]} {name}: max|kernel-plain| {err:.3e}, "
+                 f"max|plain| {ref.float().abs().max().item():.3e}")
+    return errs
+
+
+def sdpa_times(q, k, v, do, seg):
+    """The library yardstick, never called by the port:
+    ``scaled_dot_product_attention`` with the same boolean mask, forward and
+    (under autograd) its backward, on head-major copies of the inputs."""
+    import torch.nn.functional as F
+
+    groups = q.shape[2] // k.shape[2]
+    s = q.shape[1]
+    causal = torch.ones(s, s, dtype=torch.bool, device=DEVICE).tril()
+    mask = (causal & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    qh = q.transpose(1, 2).contiguous().requires_grad_()
+    kh = k.transpose(1, 2).repeat_interleave(groups, dim=1).contiguous().requires_grad_()
+    vh = v.transpose(1, 2).repeat_interleave(groups, dim=1).contiguous().requires_grad_()
+    doh = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))
+    return fwd_ms, bwd_ms
+
+
+def flash_kernel_phase(fa, peaks):
+    """Phase 7: correctness in f32 and bf16 on ragged and packed segments,
+    then times at the training smoke's shapes in bf16 (ragged)."""
+    errs = {torch.float32: {}, torch.bfloat16: {}}
+    for dtype in errs:
+        for kind in ("ragged", "packed"):
+            for name, err in flash_check(fa, dtype, kind).items():
+                errs[dtype][name] = max(errs[dtype].get(name, 0.0), err)
+    q, k, v, do = flash_inputs(torch.bfloat16)
+    seg = flash_segments_case("ragged", q.shape[0], q.shape[1])
+    o, lse = fa.flash_fwd(q, k, v, seg)
+    delta = fa.flash_delta(o, do)
+    timed = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, seg),
+                      lambda: fa.flash_attention_fwd_reference(q, k, v, seg)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, seg, lse, delta, do),
+                         lambda: fa.flash_bwd_dq_reference(q, k, v, seg, lse, delta, do)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, seg, lse, delta, do),
+                          lambda: fa.flash_bwd_dkv_reference(q, k, v, seg, lse, delta, do)),
+    }
+    bounds = flash_bounds(q, k, seg, peaks)
+    sdpa_fwd_ms, sdpa_bwd_ms = sdpa_times(q, k, v, do, seg)
+    record = {}
+    for name, (kernel, plain) in timed.items():
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        bound_ms, bound_by, flops, nbytes = bounds[name]
+        library_ms = sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms
+        outputs = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
+                   "flash_bwd_dkv": ("dk", "dv")}[name]
+        err = {dtype: max(e[o] for o in outputs) for dtype, e in errs.items()}
+        record[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms,
+                        "max_abs_err": err[torch.bfloat16], "max_abs_err_f32": err[torch.float32],
+                        "flops": flops, "bytes": nbytes}
+        phase(7, f"{name} bf16 b=8 s=1024 hq=16 hkv=4 d=128 ragged: kernel {ms:.3f} ms, "
+                 f"plain {plain_ms:.3f} ms, SDPA {'forward' if name == 'flash_fwd' else 'backward'} "
+                 f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                 f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
+                 f"{ms / library_ms:.1f}x SDPA")
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: SFT training of SmolLM3-3B through the port's trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_ROWS = 120  # -> 108 train rows, 12 validation rows, 3 steps of 32
+TRAIN_PROMPT = "You are a wilderness survival expert."
+# full-width f32 microbatch, kernels against plain versions: the loss to
+# 1e-5 relative, each trainable leaf's gradient to 1e-4 of its largest entry
+LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-4
+
+
+def flash_counters(fa):
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv}
+
+
+def train_phase(fa, workdir):
+    """The main training path: ``SFTTrainer`` on SmolLM3-3B at full width
+    (random weights from a seed), the reference recipe, 3 optimizer steps
+    over 120 rows of the repo's dataset. Returns (record, trainer)."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
+    from llm_fine_tune_distributed_tpu_torch.infer.generate import load_model_dir
+    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    data_dir = os.path.join(workdir, "data")
+    os.makedirs(data_dir)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "final_qa_data_unique.jsonl")) as f:
+        lines = [next(f) for _ in range(TRAIN_ROWS)]
+    with open(os.path.join(data_dir, "final_qa_data_unique.jsonl"), "w") as f:
+        f.writelines(lines)
+    out_dir = os.path.join(workdir, "out")
+    config = TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
+                         tokenizer_path="byte-chatml", data_dir=data_dir, output_dir=out_dir,
+                         epochs=1, system_prompt=TRAIN_PROMPT, logging_steps=1)
+    t0 = time.monotonic()
+    trainer = SFTTrainer(config, device=DEVICE)
+    torch.cuda.synchronize()
+    mc = trainer.model_config
+    phase(8, f"SFTTrainer ready in {time.monotonic() - t0:.1f} s: {mc.name}, "
+             f"{trainer.trainable_report}, {trainer.n_train} train / {trainer.n_val} validation "
+             f"rows, {trainer.total_steps} steps, remat "
+             f"{config.resolved_remat_policy(mc)}")
+    frozen_before = {k: v.clone() for k, v in trainer.state.frozen.items()}
+    trainable_before = {k: v.detach().clone() for k, v in trainer.state.trainable.items()}
+    real_rows = trainer.train_arrays["attention_mask"].sum(axis=1)
+    phase(8, f"train rows: {int(real_rows.min())}..{int(real_rows.max())} real tokens of "
+             f"{config.max_seq_length}, {int((real_rows < config.max_seq_length).sum())} of "
+             f"{len(real_rows)} padded")
+
+    counters = flash_counters(fa)
+    for fn in counters.values():  # count the main path's launches only
+        fn.launches = 0
+    t0 = time.monotonic()
+    summary = trainer.train()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    phase(8, f"train() returned in {time.monotonic() - t0:.1f} s (artifacts included)")
+
+    history = trainer.metrics.history
+    meter = trainer.throughput
+    losses = [h["loss"] for h in history]
+    grad_norms = [h["grad_norm"] for h in history]
+    check(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)), f"non-finite loss {losses}")
+    check(np.isfinite(summary["final_eval_loss"]), f"eval loss {summary['final_eval_loss']}")
+    for k, v in trainer.state.frozen.items():
+        check(torch.equal(v, frozen_before[k]), f"frozen leaf {k} changed")
+    for k, v in trainer.state.trainable.items():
+        check(not torch.equal(v.detach(), trainable_before[k]), f"trainable leaf {k} did not move")
+    phase(8, f"{len(frozen_before)} frozen leaves bit-unchanged, {len(trainable_before)} "
+             "trainable leaves moved")
+    del frozen_before, trainable_before
+
+    # launches: layers x microbatches x (forward + its remat replay) per
+    # step, plus one forward per layer for each eval batch
+    layers, accum, steps = mc.num_layers, config.gradient_accumulation_steps, len(meter.step_s)
+    eval_batches = -(-trainer.n_val // (config.eval_batch_size or config.per_device_batch_size))
+    evals = 1 + (steps // config.eval_steps if config.eval_steps else 0)
+    replays = 1 if config.gradient_checkpointing else 0
+    expected = {
+        "flash_fwd": layers * accum * steps * (1 + replays) + layers * eval_batches * evals,
+        "flash_bwd_dq": layers * accum * steps,
+        "flash_bwd_dkv": layers * accum * steps,
+    }
+    phase(8, f"kernel launches {launches}, derived {expected} = {layers} layers x {accum} "
+             f"microbatches x {steps} steps x (1 + {replays} remat replay) forwards + {layers} x "
+             f"{eval_batches} eval batches x {evals} eval(s); backward {layers} x {accum} x {steps}")
+    check(launches == expected, f"launches {launches} != derived {expected}")
+
+    best_dir = os.path.join(out_dir, "best_model")
+    for name in ("training_history.json", "training_summary.json"):
+        check(os.path.exists(os.path.join(out_dir, name)), f"{name} missing")
+    loaded, loaded_config = load_model_dir(best_dir, device=DEVICE)
+    check(loaded_config == mc, "best_model/config.json does not give the trained config")
+    state = {**trainer.state.trainable, **trainer.state.frozen}
+    check(set(loaded) == set(state), "best_model/ leaves differ from the trained state")
+    for k, v in state.items():
+        check(torch.equal(loaded[k], v.detach().to(torch.bfloat16)), f"best_model/{k} differs")
+    del loaded
+    phase(8, f"best_model/ loads through load_model_dir: {len(state)} leaves equal the trained "
+             "state in bf16")
+
+    steady = slice(1, None)  # steps 2-3: the first step pays first-use costs
+    step_s = meter.step_s[steady]
+    step_ms = statistics.median(step_s) * 1e3
+    samples_per_s = config.per_device_batch_size * accum * len(step_s) / sum(step_s)
+    real_tokens_per_s = sum(meter.step_real_tokens[steady]) / sum(step_s)
+    peak = torch.cuda.max_memory_allocated()
+    record = {
+        "losses": losses, "grad_norms": grad_norms, "logged_steps": [h["step"] for h in history],
+        "eval_loss": summary["final_eval_loss"],
+        "eval_loss_answer": trainer._last_eval_answer,
+        "step_s": meter.step_s, "step_ms_median_steps_2_3": step_ms,
+        "samples_per_s_per_card": samples_per_s, "real_tokens_per_s_per_card": real_tokens_per_s,
+        "padded_tokens_per_s_per_card": samples_per_s * config.max_seq_length,
+        "max_memory_allocated_bytes": peak, "launches": launches, "expected_launches": expected,
+        "summary": summary,
+    }
+    phase(8, f"losses {[round(x, 4) for x in losses]} at steps {record['logged_steps']}, "
+             f"grad_norm {[round(x, 4) for x in grad_norms]}, eval_loss "
+             f"{summary['final_eval_loss']:.4f}")
+    phase(8, f"steps 2-3: median step {step_ms:.1f} ms, {samples_per_s:.2f} samples/s/card, "
+             f"{real_tokens_per_s:.0f} real tokens/s/card, max_memory_allocated "
+             f"{peak / 1e9:.2f} GB")
+    return record, trainer
+
+
+def f32_microbatch_phase(trainer, fa):
+    """One full-width microbatch (batch 2, seq 1024) in f32 through the same
+    loss function, with the flash kernels and with their plain versions:
+    the loss and every trainable leaf's gradient."""
+    import dataclasses
+
+    from llm_fine_tune_distributed_tpu_torch.ops.attention import attention, attention_plain
+    from llm_fine_tune_distributed_tpu_torch.train.step import make_loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    config = dataclasses.replace(trainer.config, compute_dtype="float32")
+    mc = trainer.model_config
+    frozen = {k: v.float() for k, v in trainer.state.frozen.items()}
+    trainable = {k: v.detach().float().clone().requires_grad_() for k, v in trainer.state.trainable.items()}
+    arrays = trainer.train_arrays
+    batch = {k: torch.from_numpy(arrays[k][:2]).to(DEVICE)
+             for k in ("input_ids", "loss_mask", "attention_mask")}
+    out = {}
+    for name, fn in (("kernel", attention), ("plain", attention_plain)):
+        before = {n: c.launches for n, c in flash_counters(fa).items()}
+        loss, _ = make_loss_fn(mc, config, attention_fn=fn)(trainable, frozen, batch)
+        grads = torch.autograd.grad(loss, list(trainable.values()))
+        torch.cuda.synchronize()
+        out[name] = (loss.detach(), grads)
+        ran = {n: c.launches - before[n] for n, c in flash_counters(fa).items()}
+        check((min(ran.values()) > 0) == (name == "kernel"), f"{name} run launched {ran}")
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    check(bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk),
+          "f32 microbatch: non-finite loss or gradient")
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    check(loss_rel <= LOSS_REL_TOL, f"f32 microbatch loss {lk.item()} vs plain {lp.item()}")
+    worst = 0.0
+    for name, a, b in zip(trainable, gk, gp):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        check(err <= GRAD_REL_TOL * scale, f"f32 grad {name}: max|d| {err:.3e} > "
+                                           f"{GRAD_REL_TOL} x {scale:.3e}")
+        worst = max(worst, err / scale)
+    phase(9, f"f32 microbatch b=2 s=1024 at full width: loss kernel {lk.item():.6f} plain "
+             f"{lp.item():.6f} (rel {loss_rel:.2e}); worst trainable-leaf grad max|d|/max|g| "
+             f"{worst:.2e} over {len(trainable)} leaves")
+    return {"loss_kernel": lk.item(), "loss_plain": lp.item(), "loss_rel": loss_rel,
+            "grad_rel_worst": worst}
+
+
+def train_profile_phase(trainer):
+    """Where one training microbatch's time goes (forward and backward of
+    batch 8 at seq 1024, remat included): ``torch.profiler`` device time by
+    kernel name, the flash kernels' share and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_fine_tune_distributed_tpu_torch.train.step import make_loss_fn
+
+    loss_fn = make_loss_fn(trainer.model_config, trainer.config)
+    arrays = trainer.train_arrays
+    n = trainer.config.per_device_batch_size
+    batch = {k: torch.from_numpy(arrays[k][:n]).to(DEVICE)
+             for k in ("input_ids", "loss_mask", "attention_mask")}
+    params = list(trainer.state.trainable.values())
+
+    def micro():
+        loss, _ = loss_fn(trainer.state.trainable, trainer.state.frozen, batch)
+        torch.autograd.grad(loss, params)
+
+    micro()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        micro()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    events = _device_events(prof)
+    by_name: dict = {}
+    for name, a, b in events:
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + (b - a), cnt + 1)
+    total = sum(t for t, _ in by_name.values())
+    flash = sum(t for name, (t, _) in by_name.items() if "flash_" in name)
+    busy, end = 0.0, None
+    for _, a, b in sorted(events, key=lambda e: e[1]):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    result = {
+        "microbatch_ms": wall_us / 1e3,
+        "device_busy_share": busy / wall_us if events else None,
+        "device_ms": total / 1e3,
+        "flash_kernels_ms": flash / 1e3,
+        "flash_share_of_device_time": flash / total if total else None,
+        "top_kernels": [{"name": name[:90], "ms": t / 1e3, "calls": c} for name, (t, c) in top],
+    }
+    phase(8, f"profiled microbatch (b=8, s=1024, fwd+bwd with remat): {result['microbatch_ms']:.1f} "
+             f"ms wall, device busy {100 * (result['device_busy_share'] or 0):.1f}%, flash "
+             f"kernels {result['flash_kernels_ms']:.1f} ms of {result['device_ms']:.1f} ms device time")
+    for row in result["top_kernels"]:
+        phase(8, f"  {row['ms']:8.3f} ms  {row['calls']:5d} calls  {row['name']}")
+    if not events:
+        phase(8, "the profiler recorded no device events")
+    return result
+
+
+def kernel_entry(name, source, replaces, launches, rec):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, **{k: rec[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible to torch; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    import gc
+    import tempfile
+
     from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
     from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
     from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
@@ -492,10 +925,15 @@ def main() -> int:
     peaks = _peaks(kind)
 
     t0 = time.monotonic()
-    _build.load("paged_decode")
-    built = _build.build_log.get("paged_decode")
-    phase(2, f"paged_decode built in {time.monotonic() - t0:.1f} s"
-             + ("" if built else " (library already in build/)"))
+    sources = ("paged_decode", "flash_fwd", "flash_bwd")
+    _build.build_all(sources)  # one nvcc per source, all at once
+    build_s = time.monotonic() - t0
+    phase(2, f"{', '.join(sources)} built in {build_s:.1f} s"
+             + ("" if _build.build_log else " (libraries already in build/)"))
+    for name, log in _build.build_log.items():
+        regs = sorted({line.split("Used ")[1].split(",")[0] for line in log["ptxas"].splitlines()
+                       if "Used " in line})
+        phase(2, f"  {name}: {log['seconds']:.1f} s, registers per thread {regs}")
 
     config = get_preset("smollm3_3b")
     tokenizer = ByteChatMLTokenizer()
@@ -528,30 +966,52 @@ def main() -> int:
 
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
+    del generator, params  # free the serving phases' tensors before training
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash = flash_kernel_phase(fa, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        trained, trainer = train_phase(fa, workdir)
+    train_profile = train_profile_phase(trainer)
+    microbatch = f32_microbatch_phase(trainer, fa)
+    del trainer
 
     live, full = kernels["live"], kernels["full"]
-    line = {"kernels": [{
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": "llm_fine_tune_distributed_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "llm_fine_tune_distributed_tpu/ops/flash_attention.py:353",
-        "launches": served["launches"],
-        "max_abs_err": live["max_abs_err"],
+    paged = kernel_entry("paged_decode_attention",
+                         "llm_fine_tune_distributed_tpu_torch/csrc/paged_decode.cu",
+                         "llm_fine_tune_distributed_tpu/ops/flash_attention.py:353",
+                         served["launches"], {**live, "library_ms": None})
+    paged.update({
         "tolerance": TOLERANCE,
-        "ms": live["ms"],
-        "plain_ms": live["plain_ms"],
-        "bound_ms": live["bound_ms"],
-        "bound_by": live["bound_by"],
-        "library_ms": None,
         "shapes": {"live": {"lengths": live["lengths"], "nb": live["nb"]},
                    "full": {"lengths": full["lengths"], "nb": full["nb"]}},
         "full_occupancy": {k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-    }]}
+    })
+    flash_sources = {
+        "flash_fwd": ("flash_fwd.cu", "llm_fine_tune_distributed_tpu/ops/flash_attention.py:51"),
+        "flash_bwd_dq": ("flash_bwd.cu", "llm_fine_tune_distributed_tpu/ops/flash_attention.py:133"),
+        "flash_bwd_dkv": ("flash_bwd.cu", "llm_fine_tune_distributed_tpu/ops/flash_attention.py:167"),
+    }
+    entries = [paged]
+    for name, (src, replaces) in flash_sources.items():
+        entry = kernel_entry(name, f"llm_fine_tune_distributed_tpu_torch/csrc/{src}", replaces,
+                             trained["launches"][name], flash[name])
+        entry.update({"tolerance": FLASH_TOLERANCE,
+                      "max_abs_err_f32": flash[name]["max_abs_err_f32"],
+                      "shapes": {k: FLASH_SHAPE[k] for k in FLASH_SHAPE} | {
+                          "dtype": "bf16", "lengths": list(FLASH_LENGTHS)},
+                      "library": "scaled_dot_product_attention "
+                                 + ("forward" if name == "flash_fwd" else "backward (dq, dk, dv)")})
+        entries.append(entry)
     summary = {"card": card, "serve": served, "f32_decode_step": step,
-               "decode_profile": profiled, "build_s": built["seconds"] if built else None,
+               "decode_profile": profiled, "build_s": build_s, "train": trained,
+               "train_profile": train_profile, "f32_microbatch": microbatch,
                "total_s": time.monotonic() - t_start}
+    phase(9, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)
-    print(json.dumps(line), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,2 +1,2 @@
-"""Tokenizer and prompts of the port (copies of the JAX package's jax-free
-data modules, so the port imports nothing of it)."""
+"""Tokenizer, prompts, dataset and loader of the port (copies of the JAX
+package's data modules, so the port imports nothing of it)."""

@@ -82,6 +82,25 @@ class ModelConfig:
             return None
         return self.sliding_window
 
+    @property
+    def num_params(self) -> int:
+        """Exact parameter count of the dense model (HF
+        ``model.num_parameters()``)."""
+        h, v, f, L = self.hidden_size, self.vocab_size, self.intermediate_size, self.num_layers
+        d = self.resolved_head_dim
+        per_layer = (
+            h * self.num_heads * d + 2 * h * self.num_kv_heads * d  # q, k, v
+            + self.num_heads * d * h + 3 * h * f + 2 * h           # o, MLP, norms
+        )
+        if self.attention_bias:
+            per_layer += (self.num_heads + 2 * self.num_kv_heads) * d
+            if self.attention_out_bias:
+                per_layer += h
+        if self.mlp_bias:
+            per_layer += 2 * f + h
+        total = v * h + L * per_layer + h
+        return total if self.tie_word_embeddings else total + v * h
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

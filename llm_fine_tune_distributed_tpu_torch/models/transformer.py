@@ -8,19 +8,22 @@ parity test or a safetensors file maps one to the other by name.
 
 Ported branches: the dense SwiGLU model (SmolLM3, Llama) with optional
 linear biases, RoPE with SmolLM3's NoPE layers and rope scaling, the
-no-cache forward, and the block-paged KV cache in bf16 or int8
-(``init_paged_cache``). Other branches raise ``NotImplementedError``.
+no-cache forward with a padding mask, the flash or plain attention and
+per-block rematerialization (training), and the block-paged KV cache in bf16
+or int8 (``init_paged_cache``). Other branches raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
-from llm_fine_tune_distributed_tpu_torch.ops.attention import xla_attention
+from llm_fine_tune_distributed_tpu_torch.ops.attention import attention, xla_attention
 from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import paged_decode_attention
 from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
     KV_QUANT_MODES,
@@ -61,51 +64,54 @@ def check_supported(config: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
-                dtype=torch.float32) -> Params:
-    """Random init (normal 0.02, HF convention) from an explicit generator
-    seeded with ``seed``. Norm weights start at 1, biases at 0."""
+def param_shapes(config: ModelConfig) -> Dict[str, tuple]:
+    """{name: shape} of every parameter, in ``init_params``'s order."""
     check_supported(config)
     h = config.hidden_size
     d = config.resolved_head_dim
     qd, kvd = config.num_heads * d, config.num_kv_heads * d
     f, v = config.intermediate_size, config.vocab_size
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def dense(shape):
-        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return w.mul_(0.02).to(dtype)
-
-    def ones(n):
-        return torch.ones(n, device=device, dtype=dtype)
-
-    def zeros(n):
-        return torch.zeros(n, device=device, dtype=dtype)
-
-    params: Params = {}
+    shapes: Dict[str, tuple] = {}
     for i in range(config.num_layers):
         p = f"model.layers.{i}."
-        params[p + "input_layernorm.weight"] = ones(h)
+        shapes[p + "input_layernorm.weight"] = (h,)
         for name, shape in (("q_proj", (h, qd)), ("k_proj", (h, kvd)),
                             ("v_proj", (h, kvd)), ("o_proj", (qd, h))):
-            params[p + f"self_attn.{name}.kernel"] = dense(shape)
+            shapes[p + f"self_attn.{name}.kernel"] = shape
         if config.attention_bias:
-            params[p + "self_attn.q_proj.bias"] = zeros(qd)
-            params[p + "self_attn.k_proj.bias"] = zeros(kvd)
-            params[p + "self_attn.v_proj.bias"] = zeros(kvd)
+            shapes[p + "self_attn.q_proj.bias"] = (qd,)
+            shapes[p + "self_attn.k_proj.bias"] = (kvd,)
+            shapes[p + "self_attn.v_proj.bias"] = (kvd,)
             if config.attention_out_bias:
-                params[p + "self_attn.o_proj.bias"] = zeros(h)
-        params[p + "post_attention_layernorm.weight"] = ones(h)
+                shapes[p + "self_attn.o_proj.bias"] = (h,)
+        shapes[p + "post_attention_layernorm.weight"] = (h,)
         for name, shape in (("gate_proj", (h, f)), ("up_proj", (h, f)), ("down_proj", (f, h))):
-            params[p + f"mlp.{name}.kernel"] = dense(shape)
+            shapes[p + f"mlp.{name}.kernel"] = shape
         if config.mlp_bias:
-            params[p + "mlp.gate_proj.bias"] = zeros(f)
-            params[p + "mlp.up_proj.bias"] = zeros(f)
-            params[p + "mlp.down_proj.bias"] = zeros(h)
-    params["model.embed_tokens.weight"] = dense((v, h))
-    params["model.norm.weight"] = ones(h)
+            shapes[p + "mlp.gate_proj.bias"] = (f,)
+            shapes[p + "mlp.up_proj.bias"] = (f,)
+            shapes[p + "mlp.down_proj.bias"] = (h,)
+    shapes["model.embed_tokens.weight"] = (v, h)
+    shapes["model.norm.weight"] = (h,)
     if not config.tie_word_embeddings:
-        params["lm_head.kernel"] = dense((h, v))
+        shapes["lm_head.kernel"] = (h, v)
+    return shapes
+
+
+def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
+                dtype=torch.float32) -> Params:
+    """Random init (normal 0.02, HF convention) from an explicit generator
+    seeded with ``seed``. Norm weights start at 1, biases at 0."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: Params = {}
+    for name, shape in param_shapes(config).items():
+        if name.endswith("norm.weight"):
+            params[name] = torch.ones(shape, device=device, dtype=dtype)
+        elif name.endswith(".bias"):
+            params[name] = torch.zeros(shape, device=device, dtype=dtype)
+        else:
+            w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+            params[name] = w.mul_(0.02).to(dtype)
     return params
 
 
@@ -130,7 +136,8 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype) -> torch.
 
 
 def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
-           block_tables, *, config: ModelConfig, compute_dtype, decode_attention):
+           block_tables, padding_mask, *, config: ModelConfig, compute_dtype, decode_attention,
+           attention_impl: str, attention_fn):
     """One transformer block; updates a paged cache ``entry`` in place."""
     b, s, _ = x.shape
     d = config.resolved_head_dim
@@ -183,7 +190,7 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
         if explicit_mask is not None:
             out = xla_attention(q, k, v, mask=explicit_mask, causal=False)
         else:
-            out = xla_attention(q, k, v, causal=True)
+            out = attention_fn(q, k, v, impl=attention_impl, padding_mask=padding_mask, causal=True)
 
     out = out.reshape(b, s, config.num_heads * d)
     x = x + _linear(out, params, p + "self_attn.o_proj", compute_dtype)
@@ -193,11 +200,47 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
     return x + _linear(F.silu(gate) * up, params, p + "mlp.down_proj", compute_dtype)
 
 
+def _dots_no_batch_policy(ctx, op, *args, **kwargs):
+    """Selective remat that keeps the outputs of the block's 2-D matmuls
+    (the projections; attention's batched products are recomputed), as
+    JAX's ``dots_with_no_batch_dims_saveable`` does."""
+    policy = torch_checkpoint.CheckpointPolicy
+    if op == torch.ops.aten.mm.default:
+        return policy.MUST_SAVE
+    return policy.PREFER_RECOMPUTE
+
+
+def _remat(block_fn, remat_policy: Optional[str]):
+    """``block_fn`` under ``torch.utils.checkpoint`` (non-reentrant): "full"
+    keeps only the block's inputs, "dots_no_batch" also its projection
+    outputs."""
+    if remat_policy in (None, "full"):
+        context_fn = torch_checkpoint.noop_context_fn
+    elif remat_policy == "dots_no_batch":
+        context_fn = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_no_batch_policy)
+    else:
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r} is not ported ({_JAX_FORWARD} has "
+            "'dots' and 'mlp'); use 'full' or 'dots_no_batch'"
+        )
+
+    def run(*args):
+        # a block draws no random numbers, so the RNG state is not replayed
+        return torch_checkpoint.checkpoint(block_fn, *args, use_reentrant=False,
+                                           preserve_rng_state=False, context_fn=context_fn)
+    return run
+
+
 def forward(
     params: Params,
     input_ids: torch.Tensor,
     config: ModelConfig,
     *,
+    padding_mask: Optional[torch.Tensor] = None,
+    attention_impl: str = "xla",
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
     cache: Optional[dict] = None,
     cache_pos=0,
     block_tables: Optional[torch.Tensor] = None,
@@ -205,17 +248,28 @@ def forward(
     logits_dtype=torch.float32,
     output_hidden: bool = False,
     decode_attention=paged_decode_attention,
+    attention_fn=attention,
 ):
     """Run the model.
 
     ``input_ids`` int [batch, seq]. Without ``cache``: causal attention over
-    the sequence. With ``cache`` (``init_paged_cache``) and ``block_tables``
+    the sequence through ``attention_fn(q, k, v, impl=attention_impl,
+    padding_mask=..., causal=True)`` (``ops.attention.attention``: "flash"
+    is the flash kernels, "xla" the plain masked attention), with
+    ``padding_mask`` [batch, seq] (1 = real token). ``remat`` recomputes
+    each block in the backward (``remat_policy`` "full" or
+    "dots_no_batch"); it applies only while autograd records.
+
+    With ``cache`` (``init_paged_cache``) and ``block_tables``
     [batch, nb] int32: the chunk is written into the pool at positions
     ``cache_pos + arange(seq)`` (``cache_pos`` a scalar or a [batch] tensor)
     and attends through each row's table to every position <= its own. An
     int8 pool's one-token decode goes through ``decode_attention``, the
-    paged decode kernel's wrapper unless the caller passes another function
-    of the same signature (its plain version, for a comparison).
+    paged decode kernel's wrapper.
+
+    ``decode_attention`` and ``attention_fn`` default to the kernels'
+    wrappers; a caller may pass another function of the same signature
+    (a plain version, for a comparison).
 
     Returns ``(logits [batch, seq, vocab] in logits_dtype, cache)``, or the
     final-norm hidden states in ``compute_dtype`` with ``output_hidden``.
@@ -226,6 +280,10 @@ def forward(
         raise NotImplementedError(
             f"the dense KV cache is not ported ({_JAX_FORWARD} with "
             "init_cache has it); pass block_tables with init_paged_cache"
+        )
+    if cache is not None and padding_mask is not None:
+        raise NotImplementedError(
+            f"padding_mask with a KV cache is not ported ({_JAX_FORWARD} has it)"
         )
     b, s = input_ids.shape
     device = input_ids.device
@@ -243,12 +301,17 @@ def forward(
         k_pos = torch.arange(kv_len, device=device)[None, None, :]
         explicit_mask = k_pos <= positions[:, :, None]
 
+    rematerialize = remat and cache is None and torch.is_grad_enabled()
     for i in range(config.num_layers):
         entry = cache["layers"][str(i)] if cache is not None else None
-        x = _block(
-            params, i, x, cos, sin, explicit_mask, entry, positions, block_tables,
-            config=config, compute_dtype=compute_dtype, decode_attention=decode_attention,
+        block_fn = functools.partial(
+            _block, params, i, config=config, compute_dtype=compute_dtype,
+            decode_attention=decode_attention, attention_impl=attention_impl,
+            attention_fn=attention_fn,
         )
+        if rematerialize:
+            block_fn = _remat(block_fn, remat_policy)
+        x = block_fn(x, cos, sin, explicit_mask, entry, positions, block_tables, padding_mask)
     x = rms_norm(x, params["model.norm.weight"], config.rms_norm_eps)
     if output_hidden:
         return x.to(compute_dtype), cache

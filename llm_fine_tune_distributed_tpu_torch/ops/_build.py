@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build happens at
 first use, into ``build/torch_kernels/`` at the repository root, keyed by a
-hash of the sources and flags, so a fresh checkout builds what it runs. A
-missing ``nvcc`` or a failed build raises: there is no fallback.
+hash of the sources and flags, so a fresh checkout builds what it runs.
+``build_all`` starts one ``nvcc`` per source at once. A missing ``nvcc`` or
+a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -55,29 +56,46 @@ def _source_hash(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def _library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_source_hash(CSRC / f'{name}.cu')}.so"
+
+
+def build_all(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library for the
+    same sources is not already in the build directory: one ``nvcc`` per
+    source, all started together. Returns {name: library path}; raises if
+    any build fails."""
+    paths = {name: _library_path(name) for name in names}
+    todo = [name for name, lib in paths.items() if not lib.exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.monotonic()
+    running = {}
+    for name in todo:
+        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, cmd, tmp)
+    failures = []
+    for name, (proc, cmd, tmp) in running.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
+                            f"{' '.join(cmd)}\n{out}\n{err}")
+            continue
+        os.replace(tmp, paths[name])
+        build_log[name] = {"seconds": time.monotonic() - t0, "ptxas": err.strip()}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library for the same sources is
     already in the build directory; returns the library's path."""
-    source = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"{name}-{_source_hash(source)}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed building {source.name} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    build_log[name] = {
-        "seconds": time.monotonic() - t0,
-        "ptxas": proc.stderr.strip(),
-    }
-    return lib
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,9 @@
-"""Plain masked attention with GQA and an f32 softmax (counterpart of the JAX
-``ops/attention.xla_attention``).
+"""Attention dispatch and the plain masked attention (counterpart of the JAX
+``ops/attention.py``).
+
+``attention(impl="flash")`` is the flash kernels (``ops/flash_attention``);
+``impl="xla"`` is ``xla_attention``, plain masked attention with GQA and an
+f32 softmax.
 
 Layout: q [batch, q_len, num_heads, head_dim], k/v [batch, kv_len,
 num_kv_heads, head_dim]. Masked scores take a large finite negative rather
@@ -14,6 +18,11 @@ import math
 from typing import Optional
 
 import torch
+
+from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
 
 _NEG_INF = -2.0e38
 
@@ -70,3 +79,40 @@ def xla_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, q_len, num_heads, head_dim).to(q.dtype)
+
+
+def _dispatch(q, k, v, impl, padding_mask, segment_ids, causal, flash_fn):
+    if impl == "flash":
+        if not causal:
+            raise ValueError("the flash kernels are causal only; use impl='xla'")
+        return flash_fn(q, k, v, padding_mask=padding_mask, segment_ids=segment_ids)
+    if impl == "xla":
+        return xla_attention(q, k, v, padding_mask=padding_mask, segment_ids=segment_ids,
+                             causal=causal)
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention_impl={impl!r} (sequence parallelism) is not ported "
+            "(llm_fine_tune_distributed_tpu.ops.attention.attention has it)"
+        )
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def attention(q, k, v, *, impl: str = "xla", padding_mask=None, segment_ids=None,
+              causal: bool = True):
+    """q [b, s, hq, d], k/v [b, s, hkv, d] -> [b, s, hq, d] in q's dtype.
+
+    ``impl="flash"``: the flash kernels, differentiable; on a CUDA tensor
+    every call launches them, or raises naming the constraint that failed
+    (there is no quiet fall-back to the plain attention). Pad queries
+    (``padding_mask`` 0) attend to the pad keys at or before them, the TPU
+    kernel's segment rule. ``impl="xla"``: ``xla_attention``.
+    """
+    return _dispatch(q, k, v, impl, padding_mask, segment_ids, causal, flash_attention)
+
+
+def attention_plain(q, k, v, *, impl: str = "xla", padding_mask=None, segment_ids=None,
+                    causal: bool = True):
+    """``attention`` with the flash kernels' plain versions in their place
+    (forward and backward), for comparing a whole model against the
+    kernels. Nothing on the training path calls it."""
+    return _dispatch(q, k, v, impl, padding_mask, segment_ids, causal, flash_attention_reference)

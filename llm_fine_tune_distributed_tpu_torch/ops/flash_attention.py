@@ -1,10 +1,16 @@
-"""Fused paged decode attention over an int8 KV pool (counterpart of the JAX
-``ops/flash_attention.paged_decode_attention``).
+"""Attention kernels of the port (counterpart of the JAX
+``ops/flash_attention.py``).
 
-On a CUDA tensor ``paged_decode_attention`` launches the hand-written kernel
-in ``csrc/paged_decode.cu``; on a CPU tensor it runs
-``paged_decode_attention_reference``, the plain PyTorch version of the same
-function. There is no other path.
+- ``flash_attention``: causal flash attention for training, a
+  ``torch.autograd.Function`` over three hand-written CUDA kernels:
+  ``flash_fwd`` (``csrc/flash_fwd.cu``) and ``flash_bwd_dq`` /
+  ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``).
+- ``paged_decode_attention``: fused decode attention over an int8 block-paged
+  KV pool (``csrc/paged_decode.cu``).
+
+Each kernel's wrapper launches the kernel on a CUDA tensor and runs the plain
+PyTorch version beside it (``*_reference``) on a CPU tensor. There is no
+other path: a shape the kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -139,3 +145,297 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# causal flash attention (training)
+# ---------------------------------------------------------------------------
+
+_FLASH_MAX_HEAD_DIM = 128
+
+
+def flash_segments(q, padding_mask=None, segment_ids=None) -> torch.Tensor:
+    """int32 [b, s] segments, the rule of the JAX ``pallas_flash_attention``:
+    ``segment_ids`` if given, else ``padding_mask`` (1 = real, 0 = pad),
+    else all ones."""
+    seg = segment_ids if segment_ids is not None else padding_mask
+    if seg is None:
+        return torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+    return seg.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _flash_scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _heads_first(x, groups):
+    """[b, s, h, d] -> f32 [b, h * groups, s, d] (each kv head repeated for
+    its query group; the plain versions only)."""
+    x = x.float().transpose(1, 2)
+    return x.repeat_interleave(groups, dim=1) if groups > 1 else x
+
+
+def _flash_mask(segments):
+    """[b, 1, s, s] bool: key j is visible to query i iff j <= i and both
+    carry the same segment id. Pad queries (segment 0) see the pad keys at
+    or before them, themselves included, as the TPU kernel does; this
+    differs from ``xla_attention``'s padding rule on pad rows only."""
+    s = segments.shape[1]
+    causal = torch.ones(s, s, dtype=torch.bool, device=segments.device).tril()
+    return (causal & (segments[:, :, None] == segments[:, None, :]))[:, None]
+
+
+def _flash_probs(q, k, segments, lse, scale):
+    """p = exp(q k^T * scale - lse) under the mask, f32 [b, hq, s, s]."""
+    groups = q.shape[2] // k.shape[2]
+    scores = (q.float().transpose(1, 2) @ _heads_first(k, groups).transpose(-1, -2)) * scale
+    return torch.where(_flash_mask(segments), torch.exp(scores - lse[..., None]), 0.0)
+
+
+def flash_attention_fwd_reference(q, k, v, segments, *, scale=None):
+    """Plain version of ``flash_fwd``: (O [b, s, hq, d] in q's dtype,
+    LSE [b, hq, s] f32), f32 softmax with the finite -1e30 of the TPU
+    kernel and ``O = acc / max(l, 1e-30)``."""
+    scale = _flash_scale(q, scale)
+    groups = q.shape[2] // k.shape[2]
+    mask = _flash_mask(segments)
+    scores = (q.float().transpose(1, 2) @ _heads_first(k, groups).transpose(-1, -2)) * scale
+    scores = torch.where(mask, scores, _NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = (p @ _heads_first(v, groups)) / l
+    return o.transpose(1, 2).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_delta(o, do):
+    """delta = rowsum(dO * O), f32 [b, hq, s]: the plain-PyTorch step before
+    the backward kernels (the JAX ``_bwd`` computes it in XLA)."""
+    return (o.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_dq_reference(q, k, v, segments, lse, delta, do, *, scale=None):
+    """Plain version of ``flash_bwd_dq``: dq = scale * (p * (dO V^T -
+    delta)) K, in q's dtype."""
+    scale = _flash_scale(q, scale)
+    groups = q.shape[2] // k.shape[2]
+    p = _flash_probs(q, k, segments, lse, scale)
+    dp = do.float().transpose(1, 2) @ _heads_first(v, groups).transpose(-1, -2)
+    ds = p * (dp - delta[..., None])
+    dq = (ds @ _heads_first(k, groups)) * scale
+    return dq.transpose(1, 2).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, segments, lse, delta, do, *, scale=None):
+    """Plain version of ``flash_bwd_dkv``: dk = scale * ds^T q and
+    dv = p^T dO, summed over each kv head's query group; (dk, dv) in k's and
+    v's dtype, [b, s, hkv, d]."""
+    scale = _flash_scale(q, scale)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    groups = hq // hkv
+    p = _flash_probs(q, k, segments, lse, scale)
+    dof = do.float().transpose(1, 2)
+    ds = p * (dof @ _heads_first(v, groups).transpose(-1, -2) - delta[..., None])
+    dk = (ds.transpose(-1, -2) @ q.float().transpose(1, 2)) * scale
+    dv = p.transpose(-1, -2) @ dof
+    dk = dk.reshape(b, hkv, groups, s, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, groups, s, d).sum(dim=2)
+    return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, segments, o, lse, do, *, scale=None):
+    """Plain backward: (dq, dk, dv) from the forward's O and LSE."""
+    delta = flash_delta(o, do)
+    dq = flash_bwd_dq_reference(q, k, v, segments, lse, delta, do, scale=scale)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, segments, lse, delta, do, scale=scale)
+    return dq, dk, dv
+
+
+def _check_flash(q, k, v, segments, *extra):
+    """Raise, naming the constraint, on inputs the flash kernels do not
+    take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes q [b, s, hq, d] and k/v [b, s, hkv, d]")
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if k.shape != (b, s, hkv, d) or v.shape != k.shape:
+        raise ValueError(
+            f"flash attention needs k and v of shape [b, s, hkv, d] matching q "
+            f"{tuple(q.shape)} (self-attention over one sequence), got "
+            f"{tuple(k.shape)}/{tuple(v.shape)}"
+        )
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} must be a multiple of kv heads {hkv}")
+    if d % 16 or d > _FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 16 and at most {_FLASH_MAX_HEAD_DIM}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash attention takes bf16 or f32, got {q.dtype}")
+    tensors = (q, k, v, *extra)
+    if any(t.dtype != q.dtype for t in tensors):
+        raise TypeError("q, k, v (and dO) must share one dtype")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("q, k, v (and dO) need a unit stride on head_dim")
+    if segments.dtype != torch.int32 or segments.shape != (b, s) or not segments.is_contiguous():
+        raise ValueError(f"segments must be contiguous int32 [{b}, {s}]")
+    if any(t.device != q.device for t in (*tensors, segments)):
+        raise ValueError("all inputs must be on one device")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
+
+
+def _strides(*tensors):
+    vals = [x for t in tensors for x in (t.stride(0), t.stride(1), t.stride(2))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_fwd(q, k, v, segments, *, scale=None):
+    """Causal flash-attention forward: (O [b, s, hq, d] in q's dtype, LSE
+    f32 [b, hq, s]). A CUDA tensor launches ``csrc/flash_fwd.cu`` on the
+    current stream and adds one to ``flash_fwd.launches``; a CPU tensor runs
+    ``flash_attention_fwd_reference``."""
+    _check_flash(q, k, v, segments)
+    scale = _flash_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_reference(q, k, v, segments, scale=scale)
+    b, s, hq, d = q.shape
+    o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    err = _flash_library("flash_fwd").flash_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), _strides(q, k, v),
+        b, s, hq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def _check_stats(q, lse, delta):
+    b, s, hq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, hq, s) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 [{b}, {hq}, {s}]")
+        if t.device != q.device:
+            raise ValueError("all inputs must be on one device")
+
+
+def flash_bwd_dq(q, k, v, segments, lse, delta, do, *, scale=None):
+    """dq [b, s, hq, d] in q's dtype. A CUDA tensor launches the dq kernel of
+    ``csrc/flash_bwd.cu`` and adds one to ``flash_bwd_dq.launches``; a CPU
+    tensor runs ``flash_bwd_dq_reference``."""
+    _check_flash(q, k, v, segments, do)
+    _check_stats(q, lse, delta)
+    scale = _flash_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, segments, lse, delta, do, scale=scale)
+    b, s, hq, d = q.shape
+    dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    err = _flash_library("flash_bwd").flash_bwd_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), segments.data_ptr(), dq.data_ptr(), _strides(q, k, v, do),
+        b, s, hq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, segments, lse, delta, do, *, scale=None):
+    """(dk, dv) [b, s, hkv, d] in k's dtype. A CUDA tensor launches the dk/dv
+    kernel of ``csrc/flash_bwd.cu`` and adds one to
+    ``flash_bwd_dkv.launches``; a CPU tensor runs
+    ``flash_bwd_dkv_reference``."""
+    _check_flash(q, k, v, segments, do)
+    _check_stats(q, lse, delta)
+    scale = _flash_scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, segments, lse, delta, do, scale=scale)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    dk = torch.empty((b, s, hkv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, s, hkv, d), dtype=v.dtype, device=v.device)
+    err = _flash_library("flash_bwd").flash_bwd_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), segments.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, do), b, s, hq, hkv, d, int(q.dtype == torch.bfloat16),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def _flash_library(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    signatures = {
+        "flash_fwd_launch": [p] * 6 + [strides] + [i] * 6 + [f, p],
+        "flash_bwd_dq_launch": [p] * 8 + [strides] + [i] * 6 + [f, p],
+        "flash_bwd_dkv_launch": [p] * 9 + [strides] + [i] * 6 + [f, p],
+    }
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None and fn.argtypes is None:  # first use
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+class _FlashAttention(torch.autograd.Function):
+    """O = attention(q, k, v) with the flash kernels (``plain=False``) or
+    their plain versions (``plain=True``, for comparisons). The segments
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segments, scale, plain):
+        fwd = flash_attention_fwd_reference if plain else flash_fwd
+        o, lse = fwd(q, k, v, segments, scale=scale)
+        ctx.save_for_backward(q, k, v, segments, o, lse)
+        ctx.scale, ctx.plain = scale, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, segments, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = flash_delta(o, do)
+        if ctx.plain:
+            dq = flash_bwd_dq_reference(q, k, v, segments, lse, delta, do, scale=ctx.scale)
+            dk, dv = flash_bwd_dkv_reference(q, k, v, segments, lse, delta, do, scale=ctx.scale)
+        else:
+            dq = flash_bwd_dq(q, k, v, segments, lse, delta, do, scale=ctx.scale)
+            dk, dv = flash_bwd_dkv(q, k, v, segments, lse, delta, do, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, padding_mask=None, segment_ids=None):
+    """Causal flash attention, q [b, s, hq, d], k/v [b, s, hkv, d] -> [b, s,
+    hq, d] in q's dtype (the JAX ``pallas_flash_attention``): attention flows
+    within equal segments (``segment_ids``, else ``padding_mask``), f32
+    softmax, GQA by index. Differentiable: the backward runs ``flash_bwd_dq``
+    and ``flash_bwd_dkv``. On a CUDA tensor every call launches the kernels;
+    on a CPU tensor their plain versions run."""
+    segments = flash_segments(q, padding_mask, segment_ids)
+    _check_flash(q, k, v, segments)
+    return _FlashAttention.apply(q, k, v, segments, _flash_scale(q, None), False)
+
+
+def flash_attention_reference(q, k, v, *, padding_mask=None, segment_ids=None):
+    """``flash_attention`` through the plain forward and backward, on any
+    device (the yardstick the kernels are held to)."""
+    segments = flash_segments(q, padding_mask, segment_ids)
+    _check_flash(q, k, v, segments)
+    return _FlashAttention.apply(q, k, v, segments, _flash_scale(q, None), True)
