@@ -25,7 +25,16 @@ and stops with a non-zero exit at the first failure:
    attention must go through the flash kernels, frozen leaves stay
    bit-equal, ``best_model/`` loads back; then profiles one microbatch;
 9. one full-width f32 microbatch through the loss function, with the
-   kernels and with their plain versions: the loss and every gradient.
+   kernels and with their plain versions: the loss and every gradient;
+10. holds the w8a8 int8 matmul kernel bitwise against its plain version at
+   the frozen trunk's projection shapes (M = 8192) and ragged ones, and times
+   it beside ``torch._int_mm`` and a bf16 ``torch.matmul``;
+11. trains SmolLM3-3B as in phase 8 with ``frozen_compute="int8"``: layers
+   0-33 run every projection through the w8a8 kernel under no_grad, the
+   last two layers through the flash kernels; launches as derived, the
+   trunk's codes bit-unchanged, ``best_model/`` holds the decoded trunk;
+12. one full-width f32 microbatch with the int8 trunk, the w8a8 kernel
+   against its plain version (plain attention in both): loss and gradients.
 
 Its last three lines are JSON: a summary of the run, ``{"kernels": [...]}``
 (one entry per kernel of the paths) and ``{"ok": true, "device": {...}}``.
@@ -671,20 +680,25 @@ TRAIN_PROMPT = "You are a wilderness survival expert."
 LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-4
 
 
-def flash_counters(fa):
+def train_counters(fa, mm):
     return {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
-            "flash_bwd_dkv": fa.flash_bwd_dkv}
+            "flash_bwd_dkv": fa.flash_bwd_dkv, "w8a8_matmul": mm.w8a8_matmul}
 
 
-def train_phase(fa, workdir):
+def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     """The main training path: ``SFTTrainer`` on SmolLM3-3B at full width
     (random weights from a seed), the reference recipe, 3 optimizer steps
-    over 120 rows of the repo's dataset. Returns (record, trainer)."""
+    over 120 rows of the repo's dataset; phase 8 with the plain frozen
+    layers, phase 11 with ``frozen_compute="int8"``. Returns (record,
+    trainer)."""
     import os
 
     from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
     from llm_fine_tune_distributed_tpu_torch.infer.generate import load_model_dir
+    from llm_fine_tune_distributed_tpu_torch.ops.int8 import dequantize_int8
     from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    phase_no = 8 if frozen_compute == "bf16" else 11
 
     data_dir = os.path.join(workdir, "data")
     os.makedirs(data_dir)
@@ -696,29 +710,32 @@ def train_phase(fa, workdir):
     out_dir = os.path.join(workdir, "out")
     config = TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
                          tokenizer_path="byte-chatml", data_dir=data_dir, output_dir=out_dir,
-                         epochs=1, system_prompt=TRAIN_PROMPT, logging_steps=1)
+                         epochs=1, system_prompt=TRAIN_PROMPT, logging_steps=1,
+                         frozen_compute=frozen_compute)
     t0 = time.monotonic()
     trainer = SFTTrainer(config, device=DEVICE)
     torch.cuda.synchronize()
     mc = trainer.model_config
-    phase(8, f"SFTTrainer ready in {time.monotonic() - t0:.1f} s: {mc.name}, "
-             f"{trainer.trainable_report}, {trainer.n_train} train / {trainer.n_val} validation "
-             f"rows, {trainer.total_steps} steps, remat "
-             f"{config.resolved_remat_policy(mc)}")
+    trunk = trainer.frozen_boundary
+    phase(phase_no, f"SFTTrainer ready in {time.monotonic() - t0:.1f} s: {mc.name}, "
+                    f"{trainer.trainable_report}, {trainer.n_train} train / {trainer.n_val} validation "
+                    f"rows, {trainer.total_steps} steps, remat "
+                    f"{config.resolved_remat_policy(mc)}, frozen_compute {frozen_compute} "
+                    f"(trunk: layers [0, {trunk}))")
     frozen_before = {k: v.clone() for k, v in trainer.state.frozen.items()}
     trainable_before = {k: v.detach().clone() for k, v in trainer.state.trainable.items()}
     real_rows = trainer.train_arrays["attention_mask"].sum(axis=1)
-    phase(8, f"train rows: {int(real_rows.min())}..{int(real_rows.max())} real tokens of "
-             f"{config.max_seq_length}, {int((real_rows < config.max_seq_length).sum())} of "
-             f"{len(real_rows)} padded")
+    phase(phase_no, f"train rows: {int(real_rows.min())}..{int(real_rows.max())} real tokens of "
+                    f"{config.max_seq_length}, {int((real_rows < config.max_seq_length).sum())} of "
+                    f"{len(real_rows)} padded")
 
-    counters = flash_counters(fa)
+    counters = train_counters(fa, mm)
     for fn in counters.values():  # count the main path's launches only
         fn.launches = 0
     t0 = time.monotonic()
     summary = trainer.train()
     launches = {name: fn.launches for name, fn in counters.items()}
-    phase(8, f"train() returned in {time.monotonic() - t0:.1f} s (artifacts included)")
+    phase(phase_no, f"train() returned in {time.monotonic() - t0:.1f} s (artifacts included)")
 
     history = trainer.metrics.history
     meter = trainer.throughput
@@ -730,24 +747,32 @@ def train_phase(fa, workdir):
         check(torch.equal(v, frozen_before[k]), f"frozen leaf {k} changed")
     for k, v in trainer.state.trainable.items():
         check(not torch.equal(v.detach(), trainable_before[k]), f"trainable leaf {k} did not move")
-    phase(8, f"{len(frozen_before)} frozen leaves bit-unchanged, {len(trainable_before)} "
-             "trainable leaves moved")
+    n_int8 = sum(k.endswith("_int8") for k in frozen_before)
+    phase(phase_no, f"{len(frozen_before)} frozen leaves bit-unchanged ({n_int8} int8 code leaves and "
+                    f"their scales among them), {len(trainable_before)} trainable leaves moved")
     del frozen_before, trainable_before
 
-    # launches: layers x microbatches x (forward + its remat replay) per
-    # step, plus one forward per layer for each eval batch
+    # launches: the trunk's layers run one forward per microbatch (no
+    # backward, no replay), each of its 7 projections through w8a8; the other
+    # layers a forward, its remat replay and a backward; every layer one
+    # forward per eval batch
     layers, accum, steps = mc.num_layers, config.gradient_accumulation_steps, len(meter.step_s)
     eval_batches = -(-trainer.n_val // (config.eval_batch_size or config.per_device_batch_size))
     evals = 1 + (steps // config.eval_steps if config.eval_steps else 0)
     replays = 1 if config.gradient_checkpointing else 0
+    top = layers - trunk
     expected = {
-        "flash_fwd": layers * accum * steps * (1 + replays) + layers * eval_batches * evals,
-        "flash_bwd_dq": layers * accum * steps,
-        "flash_bwd_dkv": layers * accum * steps,
+        "flash_fwd": (trunk * accum * steps + top * accum * steps * (1 + replays)
+                      + layers * eval_batches * evals),
+        "flash_bwd_dq": top * accum * steps,
+        "flash_bwd_dkv": top * accum * steps,
+        "w8a8_matmul": trunk * 7 * (accum * steps + eval_batches * evals),
     }
-    phase(8, f"kernel launches {launches}, derived {expected} = {layers} layers x {accum} "
-             f"microbatches x {steps} steps x (1 + {replays} remat replay) forwards + {layers} x "
-             f"{eval_batches} eval batches x {evals} eval(s); backward {layers} x {accum} x {steps}")
+    phase(phase_no, f"kernel launches {launches}, derived {expected}: {trunk} trunk layers x {accum} "
+                    f"microbatches x {steps} steps + {top} layers x {accum} x {steps} x (1 + {replays} "
+                    f"remat replay) forwards + {layers} x {eval_batches} eval batches x {evals} eval(s); "
+                    f"backward {top} x {accum} x {steps}; w8a8 {trunk} x 7 projections x ({accum} x "
+                    f"{steps} + {eval_batches} x {evals})")
     check(launches == expected, f"launches {launches} != derived {expected}")
 
     best_dir = os.path.join(out_dir, "best_model")
@@ -756,12 +781,19 @@ def train_phase(fa, workdir):
     loaded, loaded_config = load_model_dir(best_dir, device=DEVICE)
     check(loaded_config == mc, "best_model/config.json does not give the trained config")
     state = {**trainer.state.trainable, **trainer.state.frozen}
-    check(set(loaded) == set(state), "best_model/ leaves differ from the trained state")
+    exported = {k[: -len("_int8")] if k.endswith(".kernel_int8") else k
+                for k in state if not k.endswith(".kernel_int8_scale")}
+    check(set(loaded) == exported, "best_model/ leaves differ from the trained state")
     for k, v in state.items():
+        if k.endswith(".kernel_int8_scale"):
+            continue
+        if k.endswith(".kernel_int8"):  # the trunk, decoded
+            k, v = k[: -len("_int8")], dequantize_int8({"int8": v, "int8_scale": state[k + "_scale"]},
+                                                        torch.float32)
         check(torch.equal(loaded[k], v.detach().to(torch.bfloat16)), f"best_model/{k} differs")
     del loaded
-    phase(8, f"best_model/ loads through load_model_dir: {len(state)} leaves equal the trained "
-             "state in bf16")
+    phase(phase_no, f"best_model/ loads through load_model_dir: {len(exported)} leaves equal the trained "
+                    f"state in bf16 ({n_int8} of them the decoded int8 trunk)")
 
     steady = slice(1, None)  # steps 2-3: the first step pays first-use costs
     step_s = meter.step_s[steady]
@@ -769,6 +801,7 @@ def train_phase(fa, workdir):
     samples_per_s = config.per_device_batch_size * accum * len(step_s) / sum(step_s)
     real_tokens_per_s = sum(meter.step_real_tokens[steady]) / sum(step_s)
     peak = torch.cuda.max_memory_allocated()
+    train_peak = history[-1]["device_peak_bytes_in_use"]  # at the last step, before the export
     record = {
         "losses": losses, "grad_norms": grad_norms, "logged_steps": [h["step"] for h in history],
         "eval_loss": summary["final_eval_loss"],
@@ -776,22 +809,25 @@ def train_phase(fa, workdir):
         "step_s": meter.step_s, "step_ms_median_steps_2_3": step_ms,
         "samples_per_s_per_card": samples_per_s, "real_tokens_per_s_per_card": real_tokens_per_s,
         "padded_tokens_per_s_per_card": samples_per_s * config.max_seq_length,
-        "max_memory_allocated_bytes": peak, "launches": launches, "expected_launches": expected,
+        "max_memory_allocated_bytes": peak, "train_peak_bytes": train_peak,
+        "launches": launches, "expected_launches": expected,
         "summary": summary,
     }
-    phase(8, f"losses {[round(x, 4) for x in losses]} at steps {record['logged_steps']}, "
-             f"grad_norm {[round(x, 4) for x in grad_norms]}, eval_loss "
-             f"{summary['final_eval_loss']:.4f}")
-    phase(8, f"steps 2-3: median step {step_ms:.1f} ms, {samples_per_s:.2f} samples/s/card, "
-             f"{real_tokens_per_s:.0f} real tokens/s/card, max_memory_allocated "
-             f"{peak / 1e9:.2f} GB")
+    phase(phase_no, f"losses {[round(x, 4) for x in losses]} at steps {record['logged_steps']}, "
+                    f"grad_norm {[round(x, 4) for x in grad_norms]}, eval_loss "
+                    f"{summary['final_eval_loss']:.4f}")
+    phase(phase_no, f"steps 2-3: median step {step_ms:.1f} ms, {samples_per_s:.2f} samples/s/card, "
+                    f"{real_tokens_per_s:.0f} real tokens/s/card, max_memory_allocated "
+                    f"{peak / 1e9:.2f} GB ({train_peak / 1e9:.2f} GB at the last step, before the export)")
     return record, trainer
 
 
-def f32_microbatch_phase(trainer, fa):
+def f32_microbatch_phase(trainer, fa, mm):
     """One full-width microbatch (batch 2, seq 1024) in f32 through the same
-    loss function, with the flash kernels and with their plain versions:
-    the loss and every trainable leaf's gradient."""
+    loss function, kernels against plain versions: the loss and every
+    trainable leaf's gradient. Phase 9 (no trunk): the flash kernels against
+    the plain attention. Phase 12 (the int8 trunk): the w8a8 kernel against
+    its plain version, with the plain attention in both runs."""
     import dataclasses
 
     from llm_fine_tune_distributed_tpu_torch.ops.attention import attention, attention_plain
@@ -801,19 +837,29 @@ def f32_microbatch_phase(trainer, fa):
     torch.backends.cudnn.allow_tf32 = False
     config = dataclasses.replace(trainer.config, compute_dtype="float32")
     mc = trainer.model_config
-    frozen = {k: v.float() for k, v in trainer.state.frozen.items()}
+    trunk = trainer.frozen_boundary
+    phase_no = 12 if trunk else 9
+    if trunk:
+        runs = {"kernel": dict(attention_fn=attention_plain, trunk_matmul=mm.int8_w8a8_matmul),
+                "plain": dict(attention_fn=attention_plain, trunk_matmul=mm.int8_w8a8_matmul_plain)}
+        counted = {"w8a8_matmul": mm.w8a8_matmul}
+    else:
+        runs = {"kernel": dict(attention_fn=attention), "plain": dict(attention_fn=attention_plain)}
+        counted = {k: v for k, v in train_counters(fa, mm).items() if k != "w8a8_matmul"}
+    # int8 codes and their f32 scales stay as they are
+    frozen = {k: v.float() if v.is_floating_point() else v for k, v in trainer.state.frozen.items()}
     trainable = {k: v.detach().float().clone().requires_grad_() for k, v in trainer.state.trainable.items()}
     arrays = trainer.train_arrays
     batch = {k: torch.from_numpy(arrays[k][:2]).to(DEVICE)
              for k in ("input_ids", "loss_mask", "attention_mask")}
     out = {}
-    for name, fn in (("kernel", attention), ("plain", attention_plain)):
-        before = {n: c.launches for n, c in flash_counters(fa).items()}
-        loss, _ = make_loss_fn(mc, config, attention_fn=fn)(trainable, frozen, batch)
+    for name, kw in runs.items():
+        before = {c: f.launches for c, f in counted.items()}
+        loss, _ = make_loss_fn(mc, config, frozen_layers=trunk, **kw)(trainable, frozen, batch)
         grads = torch.autograd.grad(loss, list(trainable.values()))
         torch.cuda.synchronize()
         out[name] = (loss.detach(), grads)
-        ran = {n: c.launches - before[n] for n, c in flash_counters(fa).items()}
+        ran = {c: f.launches - before[c] for c, f in counted.items()}
         check((min(ran.values()) > 0) == (name == "kernel"), f"{name} run launched {ran}")
     (lk, gk), (lp, gp) = out["kernel"], out["plain"]
     check(bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk),
@@ -827,22 +873,34 @@ def f32_microbatch_phase(trainer, fa):
         check(err <= GRAD_REL_TOL * scale, f"f32 grad {name}: max|d| {err:.3e} > "
                                            f"{GRAD_REL_TOL} x {scale:.3e}")
         worst = max(worst, err / scale)
-    phase(9, f"f32 microbatch b=2 s=1024 at full width: loss kernel {lk.item():.6f} plain "
-             f"{lp.item():.6f} (rel {loss_rel:.2e}); worst trainable-leaf grad max|d|/max|g| "
-             f"{worst:.2e} over {len(trainable)} leaves")
+    bit_equal = bool(torch.equal(lk, lp)) and all(torch.equal(a, b) for a, b in zip(gk, gp))
+    phase(phase_no, f"f32 microbatch b=2 s=1024 at full width{', int8 trunk' if trunk else ''}: loss "
+                    f"kernel {lk.item():.6f} plain {lp.item():.6f} (rel {loss_rel:.2e}); worst "
+                    f"trainable-leaf grad max|d|/max|g| {worst:.2e} over {len(trainable)} leaves; "
+                    f"bit-equal: {bit_equal}")
     return {"loss_kernel": lk.item(), "loss_plain": lp.item(), "loss_rel": loss_rel,
-            "grad_rel_worst": worst}
+            "grad_rel_worst": worst, "bit_equal": bit_equal}
 
 
-def train_profile_phase(trainer):
+def train_profile_phase(trainer, mm):
     """Where one training microbatch's time goes (forward and backward of
     batch 8 at seq 1024, remat included): ``torch.profiler`` device time by
-    kernel name, the flash kernels' share and the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel name, the flash and w8a8 kernels' shares, the row quantizer's
+    share (its calls inside a ``record_function`` range, for this profile
+    only: the range's span on the device timeline) and the device's busy
+    share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from llm_fine_tune_distributed_tpu_torch.train.step import make_loss_fn
 
-    loss_fn = make_loss_fn(trainer.model_config, trainer.config)
+    trunk = trainer.frozen_boundary
+    phase_no = 11 if trunk else 8
+    loss_fn = make_loss_fn(trainer.model_config, trainer.config, frozen_layers=trunk)
+    quantize = mm.quantize_rows_int8
+
+    def ranged_quantize(x):
+        with record_function("quantize_rows_int8"):
+            return quantize(x)
     arrays = trainer.train_arrays
     n = trainer.config.per_device_batch_size
     batch = {k: torch.from_numpy(arrays[k][:n]).to(DEVICE)
@@ -855,18 +913,27 @@ def train_profile_phase(trainer):
 
     micro()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        micro()
-        torch.cuda.synchronize()
-        wall_us = (time.monotonic() - t0) * 1e6
+    mm.quantize_rows_int8 = ranged_quantize
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            micro()
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    finally:
+        mm.quantize_rows_int8 = quantize
+    # the range shows on the device timeline as one annotation per call,
+    # spanning its kernels: its time, and not a kernel of its own
     events = _device_events(prof)
+    quant_us = sum(b - a for name, a, b in events if name == "quantize_rows_int8")
+    events = [e for e in events if e[0] != "quantize_rows_int8"]
     by_name: dict = {}
     for name, a, b in events:
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + (b - a), cnt + 1)
     total = sum(t for t, _ in by_name.values())
     flash = sum(t for name, (t, _) in by_name.items() if "flash_" in name)
+    w8a8 = sum(t for name, (t, _) in by_name.items() if "w8a8_kernel" in name)
     busy, end = 0.0, None
     for _, a, b in sorted(events, key=lambda e: e[1]):
         if end is None or a > end:
@@ -882,16 +949,128 @@ def train_profile_phase(trainer):
         "device_ms": total / 1e3,
         "flash_kernels_ms": flash / 1e3,
         "flash_share_of_device_time": flash / total if total else None,
+        "w8a8_kernel_ms": w8a8 / 1e3,
+        "w8a8_share_of_device_time": w8a8 / total if total else None,
+        "quantize_rows_ms": quant_us / 1e3,
+        "quantize_rows_share_of_device_time": quant_us / total if total else None,
         "top_kernels": [{"name": name[:90], "ms": t / 1e3, "calls": c} for name, (t, c) in top],
     }
-    phase(8, f"profiled microbatch (b=8, s=1024, fwd+bwd with remat): {result['microbatch_ms']:.1f} "
-             f"ms wall, device busy {100 * (result['device_busy_share'] or 0):.1f}%, flash "
-             f"kernels {result['flash_kernels_ms']:.1f} ms of {result['device_ms']:.1f} ms device time")
+    phase(phase_no, f"profiled microbatch (b=8, s=1024, fwd+bwd with remat): {result['microbatch_ms']:.1f} "
+                    f"ms wall, device busy {100 * (result['device_busy_share'] or 0):.1f}%, of "
+                    f"{result['device_ms']:.1f} ms device time: flash kernels "
+                    f"{result['flash_kernels_ms']:.1f} ms, w8a8 kernel {result['w8a8_kernel_ms']:.1f} ms, "
+                    f"row quantization {result['quantize_rows_ms']:.1f} ms")
     for row in result["top_kernels"]:
-        phase(8, f"  {row['ms']:8.3f} ms  {row['calls']:5d} calls  {row['name']}")
+        phase(phase_no, f"  {row['ms']:8.3f} ms  {row['calls']:5d} calls  {row['name']}")
     if not events:
-        phase(8, "the profiler recorded no device events")
+        phase(phase_no, "the profiler recorded no device events")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the w8a8 int8 matmul against its plain version
+# ---------------------------------------------------------------------------
+
+# the frozen trunk's projections at the recipe's microbatch (8 x 1024 rows):
+# (name, K, N, projections of this shape per layer)
+W8A8_M = 8192
+W8A8_SHAPES = (("q_proj/o_proj", 2048, 2048, 2), ("k_proj/v_proj", 2048, 512, 2),
+               ("gate_proj/up_proj", 2048, 11008, 2), ("down_proj", 11008, 2048, 1))
+# extra cases: an f32 output, and ragged M and N (N = 100 is no multiple of 4,
+# so the kernel takes its byte-wise edge loads and unpaired stores)
+W8A8_EXTRA = (("f32 q_proj", 8192, 2048, 2048, torch.float32),
+              ("ragged gate_proj", 1000, 2048, 11008, torch.bfloat16),
+              ("ragged N=100", 1000, 2048, 100, torch.bfloat16))
+INT8_OPS_PER_S = 1979e12  # H100 SXM5 data sheet, dense int8 tensor-core rate
+W8A8_TOLERANCE = "bitwise (torch.equal): the int32 sum is exact and both round once"
+
+
+def w8a8_inputs(m, k, n, seed=0):
+    """Trunk-like operands made on the card: activations quantized per row,
+    a 0.02-scale weight quantized per column."""
+    from llm_fine_tune_distributed_tpu_torch.ops.int8 import quantize_int8
+    from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import quantize_rows_int8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen, device=DEVICE).mul_(0.02)
+    q = quantize_int8(w)
+    xq, xs = quantize_rows_int8(x)
+    return x, w.to(torch.bfloat16), xq, xs, q["int8"], q["int8_scale"]
+
+
+def w8a8_bound(m, k, n, out_bytes, peaks):
+    """Least time: 2*M*N*K int8 operations at the dense int8 rate, or the
+    codes, scales and output moved once at the memory rate."""
+    nbytes = m * k + k * n + 4 * m + 4 * n + m * n * out_bytes
+    t_ops, t_bytes = 2 * m * n * k / INT8_OPS_PER_S, nbytes / peaks[0]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", nbytes
+
+
+def int_mm_ms(xq, wq):
+    """``torch._int_mm``'s time, or None where it refuses the shape."""
+    try:
+        torch._int_mm(xq, wq)
+    except RuntimeError as e:
+        phase(10, f"torch._int_mm refused ({xq.shape[0]}, {xq.shape[1]}, {wq.shape[1]}): {e}")
+        return None
+    return time_ms(lambda: torch._int_mm(xq, wq))
+
+
+def w8a8_kernel_phase(mm, peaks):
+    """Phase 10: the kernel bitwise against its plain version at every case,
+    then times at the trunk's shapes beside the plain version,
+    ``torch._int_mm`` (int8 x int8 -> int32 only: no row/column scales, no
+    cast) and a bf16 ``torch.matmul`` of the same shape (the bf16 trunk's
+    projection). Returns the kernels-line record: times summed over one
+    trunk layer's 7 projections."""
+    shapes = []
+    for name, k, n, count in W8A8_SHAPES:
+        shapes.append((name, W8A8_M, k, n, torch.bfloat16, count))
+    shapes += [(name, m, k, n, dt, 0) for name, m, k, n, dt in W8A8_EXTRA]
+    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+             "library_kmajor_ms": 0.0, "bf16_matmul_ms": 0.0, "quantize_rows_ms": 0.0}
+    per_shape = []
+    for i, (name, m, k, n, dt, count) in enumerate(shapes):
+        x, w, xq, xs, wq, ws = w8a8_inputs(m, k, n, seed=i)
+        out = mm.w8a8_matmul(xq, xs, wq, ws, dt)
+        torch.cuda.synchronize()
+        ref = mm.int8_w8a8_matmul_reference(xq, xs, wq, ws, dt)
+        err = (out.float() - ref.float()).abs().max().item()
+        check(torch.equal(out, ref), f"w8a8 {name} ({m}, {k}, {n}) {dt}: kernel differs from "
+                                     f"plain, max|d| {err:.3e}")
+        del out, ref
+        bound_ms, bound_by, nbytes = w8a8_bound(m, k, n, torch.finfo(dt).bits // 8, peaks)
+        row = {"name": name, "m": m, "k": k, "n": n, "dtype": str(dt).split(".")[-1],
+               "per_layer": count, "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes": nbytes}
+        if count:  # a shape of the main path: time it
+            row["ms"] = time_ms(lambda: mm.w8a8_matmul(xq, xs, wq, ws, dt))
+            row["plain_ms"] = time_ms(lambda: mm.int8_w8a8_matmul_reference(xq, xs, wq, ws, dt))
+            row["library_ms"] = int_mm_ms(xq, wq)
+            # the same call with a K-major copy of wq (cuBLASLt's int8 layout)
+            row["library_kmajor_ms"] = int_mm_ms(xq, wq.t().contiguous().t())
+            row["bf16_matmul_ms"] = time_ms(lambda: x @ w)
+            row["quantize_rows_ms"] = time_ms(lambda: mm.quantize_rows_int8(x))
+            for key in layer:
+                layer[key] = None if None in (layer[key], row[key]) else layer[key] + count * row[key]
+            phase(10, f"{name} M={m} K={k} N={n} bf16: kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, torch._int_mm {row['library_ms']} ms "
+                      f"({row['library_kmajor_ms']} ms with wq K-major), bf16 "
+                      f"matmul {row['bf16_matmul_ms']:.4f} ms, row quantization "
+                      f"{row['quantize_rows_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                      f"{2 * m * n * k / 1e9:.0f} GOP, {nbytes / 1e6:.1f} MB); bitwise equal")
+        else:
+            phase(10, f"{name} M={m} K={k} N={n} {row['dtype']}: bitwise equal to plain")
+        per_shape.append(row)
+        del x, w, xq, xs, wq, ws
+    phase(10, f"one trunk layer (7 projections at M={W8A8_M}): kernel {layer['ms']:.3f} ms, plain "
+              f"{layer['plain_ms']:.3f} ms, torch._int_mm {layer['library_ms']} ms "
+              f"({layer['library_kmajor_ms']} ms with wq K-major), bf16 "
+              f"matmul {layer['bf16_matmul_ms']:.3f} ms, bound {layer['bound_ms']:.3f} ms; row "
+              f"quantization of the 7 inputs {layer['quantize_rows_ms']:.3f} ms")
+    return {**layer, "bound_by": "operations", "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+            "shapes": per_shape}
 
 
 def kernel_entry(name, source, replaces, launches, rec):
@@ -916,6 +1095,7 @@ def main() -> int:
     from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
     from llm_fine_tune_distributed_tpu_torch.ops import _build
     from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+    from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
 
     t_start = time.monotonic()
     card = card_info()
@@ -925,7 +1105,7 @@ def main() -> int:
     peaks = _peaks(kind)
 
     t0 = time.monotonic()
-    sources = ("paged_decode", "flash_fwd", "flash_bwd")
+    sources = ("paged_decode", "flash_fwd", "flash_bwd", "w8a8_matmul")
     _build.build_all(sources)  # one nvcc per source, all at once
     build_s = time.monotonic() - t0
     phase(2, f"{', '.join(sources)} built in {build_s:.1f} s"
@@ -973,9 +1153,29 @@ def main() -> int:
 
     flash = flash_kernel_phase(fa, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
-        trained, trainer = train_phase(fa, workdir)
-    train_profile = train_profile_phase(trainer)
-    microbatch = f32_microbatch_phase(trainer, fa)
+        trained, trainer = train_phase(fa, mm, workdir)
+    train_profile = train_profile_phase(trainer, mm)
+    microbatch = f32_microbatch_phase(trainer, fa, mm)
+    del trainer  # free phase 8's state before the int8 trunk's
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    w8a8 = w8a8_kernel_phase(mm, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_int8_") as workdir:
+        trained_i8, trainer = train_phase(fa, mm, workdir, frozen_compute="int8")
+    first, first_i8 = trained["losses"][0], trained_i8["losses"][0]
+    check(abs(first_i8 - first) <= 0.02 * abs(first),
+          f"int8-trunk first loss {first_i8} vs phase 8's {first}: beyond 2% relative")
+    phase(11, f"first-step loss {first_i8:.4f} vs phase 8's {first:.4f} "
+              f"(rel {abs(first_i8 - first) / abs(first):.2e}); steps 2-3 median step "
+              f"{trained_i8['step_ms_median_steps_2_3']:.1f} ms vs {trained['step_ms_median_steps_2_3']:.1f}, "
+              f"{trained_i8['samples_per_s_per_card']:.2f} vs {trained['samples_per_s_per_card']:.2f} "
+              f"samples/s/card, {trained_i8['real_tokens_per_s_per_card']:.0f} vs "
+              f"{trained['real_tokens_per_s_per_card']:.0f} real tokens/s/card, peak memory at the "
+              f"last step {trained_i8['train_peak_bytes'] / 1e9:.2f} vs "
+              f"{trained['train_peak_bytes'] / 1e9:.2f} GB")
+    train_profile_i8 = train_profile_phase(trainer, mm)
+    microbatch_i8 = f32_microbatch_phase(trainer, fa, mm)
     del trainer
 
     live, full = kernels["live"], kernels["full"]
@@ -1005,11 +1205,24 @@ def main() -> int:
                       "library": "scaled_dot_product_attention "
                                  + ("forward" if name == "flash_fwd" else "backward (dq, dk, dv)")})
         entries.append(entry)
+    w8a8_entry = kernel_entry("w8a8_matmul", "llm_fine_tune_distributed_tpu_torch/csrc/w8a8_matmul.cu",
+                              "llm_fine_tune_distributed_tpu/ops/int8_matmul.py:89",
+                              trained_i8["launches"]["w8a8_matmul"], w8a8)
+    w8a8_entry.update({
+        "tolerance": W8A8_TOLERANCE,
+        "times_are": f"sums over one trunk layer's 7 projections at M={W8A8_M}, bf16 output",
+        "library": "torch._int_mm (int8 x int8 -> int32, no scales and no cast)",
+        "library_kmajor_ms": w8a8["library_kmajor_ms"], "bf16_matmul_ms": w8a8["bf16_matmul_ms"],
+        "quantize_rows_ms": w8a8["quantize_rows_ms"],
+        "shapes": w8a8["shapes"],
+    })
+    entries.append(w8a8_entry)
     summary = {"card": card, "serve": served, "f32_decode_step": step,
                "decode_profile": profiled, "build_s": build_s, "train": trained,
                "train_profile": train_profile, "f32_microbatch": microbatch,
-               "total_s": time.monotonic() - t_start}
-    phase(9, f"total_s {summary['total_s']:.1f}")
+               "train_int8": trained_i8, "train_profile_int8": train_profile_i8,
+               "f32_microbatch_int8": microbatch_i8, "total_s": time.monotonic() - t_start}
+    phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -33,17 +33,22 @@ def flatten_tree(tree: dict, prefix: str = "") -> Dict[str, object]:
 def params_from_jax(flat: Dict[str, np.ndarray], config: ModelConfig, device="cpu",
                     dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """JAX parameters as numpy arrays, by flat name -> the port's parameters
-    on ``device`` in ``dtype``. Layouts match leaf for leaf ([in, out]
-    kernels), so this is a copy and a cast; a leaf the port has no use for
-    (LoRA, int8 or NF4 siblings) raises."""
+    on ``device``. Layouts match leaf for leaf ([in, out] kernels), so this
+    is a copy: kernel/weight/bias leaves cast to ``dtype``, the frozen
+    trunk's ``kernel_int8`` codes stay int8 and their ``kernel_int8_scale``
+    stays f32. A leaf the port has no use for (LoRA, NF4) raises."""
     check_supported(config)
+    keep = {"kernel_int8": np.int8, "kernel_int8_scale": np.float32}
     out = {}
     for name, arr in flat.items():
         leaf = name.rpartition(".")[2]
+        if leaf in keep:
+            out[name] = torch.from_numpy(np.asarray(arr, dtype=keep[leaf]).copy()).to(device)
+            continue
         if leaf not in ("kernel", "weight", "bias"):
             raise NotImplementedError(
-                f"{name}: only kernel/weight/bias leaves are ported "
-                "(LoRA, int8 and NF4 leaves live in the JAX package)"
+                f"{name}: only kernel/weight/bias and kernel_int8(_scale) leaves are ported "
+                "(LoRA and NF4 leaves live in the JAX package)"
             )
         t = torch.from_numpy(np.asarray(arr, dtype=np.float32).copy())
         out[name] = t.to(device=device, dtype=dtype)

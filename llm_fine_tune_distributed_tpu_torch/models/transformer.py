@@ -9,8 +9,9 @@ parity test or a safetensors file maps one to the other by name.
 Ported branches: the dense SwiGLU model (SmolLM3, Llama) with optional
 linear biases, RoPE with SmolLM3's NoPE layers and rope scaling, the
 no-cache forward with a padding mask, the flash or plain attention and
-per-block rematerialization (training), and the block-paged KV cache in bf16
-or int8 (``init_paged_cache``). Other branches raise ``NotImplementedError``.
+per-block rematerialization (training), the frozen trunk in w8a8 int8, and
+the block-paged KV cache in bf16 or int8 (``init_paged_cache``). Other
+branches raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
     dequantize_kv_gather,
     quantize_kv_write,
 )
+from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import int8_w8a8_matmul
 from llm_fine_tune_distributed_tpu_torch.ops.norms import rms_norm
 from llm_fine_tune_distributed_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -120,15 +122,24 @@ def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
 # ---------------------------------------------------------------------------
 
 
-def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype) -> torch.Tensor:
-    """x @ kernel (+ bias) in ``compute_dtype``."""
-    kernel = params.get(name + ".kernel")
-    if kernel is None or name + ".lora_a" in params:
-        raise NotImplementedError(
-            f"{name}: only plain kernels (+ bias) are ported; LoRA, int8 and "
-            "NF4 weights are in llm_fine_tune_distributed_tpu.models.transformer._linear"
-        )
-    y = x @ kernel.to(compute_dtype)
+def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
+            trunk_matmul=None) -> torch.Tensor:
+    """x @ kernel (+ bias) in ``compute_dtype``. In the frozen trunk
+    (``trunk_matmul`` given) the int8 siblings ``kernel_int8`` /
+    ``kernel_int8_scale`` run through ``trunk_matmul`` (w8a8)."""
+    codes = params.get(name + ".kernel_int8")
+    if codes is not None and trunk_matmul is not None:
+        q = {"int8": codes, "int8_scale": params[name + ".kernel_int8_scale"]}
+        y = trunk_matmul(x, q, compute_dtype)
+    else:
+        kernel = params.get(name + ".kernel")
+        if kernel is None or name + ".lora_a" in params:
+            raise NotImplementedError(
+                f"{name}: only plain kernels (+ bias) and the frozen trunk's w8a8 int8 kernels "
+                "are ported; LoRA, weight-only int8 and NF4 weights are in "
+                "llm_fine_tune_distributed_tpu.models.transformer._linear"
+            )
+        y = x @ kernel.to(compute_dtype)
     bias = params.get(name + ".bias")
     if bias is not None:
         y = y + bias.to(compute_dtype)
@@ -137,17 +148,19 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype) -> torch.
 
 def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
            block_tables, padding_mask, *, config: ModelConfig, compute_dtype, decode_attention,
-           attention_impl: str, attention_fn):
+           attention_impl: str, attention_fn, trunk_matmul=None):
     """One transformer block; updates a paged cache ``entry`` in place."""
     b, s, _ = x.shape
     d = config.resolved_head_dim
     eps = config.rms_norm_eps
     p = f"model.layers.{i}."
+    linear = functools.partial(_linear, params=params, compute_dtype=compute_dtype,
+                               trunk_matmul=trunk_matmul)
 
     hid = rms_norm(x, params[p + "input_layernorm.weight"], eps)
-    q = _linear(hid, params, p + "self_attn.q_proj", compute_dtype).reshape(b, s, config.num_heads, d)
-    k = _linear(hid, params, p + "self_attn.k_proj", compute_dtype).reshape(b, s, config.num_kv_heads, d)
-    v = _linear(hid, params, p + "self_attn.v_proj", compute_dtype).reshape(b, s, config.num_kv_heads, d)
+    q = linear(hid, name=p + "self_attn.q_proj").reshape(b, s, config.num_heads, d)
+    k = linear(hid, name=p + "self_attn.k_proj").reshape(b, s, config.num_kv_heads, d)
+    v = linear(hid, name=p + "self_attn.v_proj").reshape(b, s, config.num_kv_heads, d)
     if config.uses_rope(i):
         q, k = apply_rope(q, k, cos, sin)
 
@@ -193,11 +206,11 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
             out = attention_fn(q, k, v, impl=attention_impl, padding_mask=padding_mask, causal=True)
 
     out = out.reshape(b, s, config.num_heads * d)
-    x = x + _linear(out, params, p + "self_attn.o_proj", compute_dtype)
+    x = x + linear(out, name=p + "self_attn.o_proj")
     hid = rms_norm(x, params[p + "post_attention_layernorm.weight"], eps)
-    gate = _linear(hid, params, p + "mlp.gate_proj", compute_dtype)
-    up = _linear(hid, params, p + "mlp.up_proj", compute_dtype)
-    return x + _linear(F.silu(gate) * up, params, p + "mlp.down_proj", compute_dtype)
+    gate = linear(hid, name=p + "mlp.gate_proj")
+    up = linear(hid, name=p + "mlp.up_proj")
+    return x + linear(F.silu(gate) * up, name=p + "mlp.down_proj")
 
 
 def _dots_no_batch_policy(ctx, op, *args, **kwargs):
@@ -249,6 +262,9 @@ def forward(
     output_hidden: bool = False,
     decode_attention=paged_decode_attention,
     attention_fn=attention,
+    frozen_layers: int = 0,
+    frozen_compute: str = "bf16",
+    trunk_matmul=int8_w8a8_matmul,
 ):
     """Run the model.
 
@@ -267,9 +283,17 @@ def forward(
     int8 pool's one-token decode goes through ``decode_attention``, the
     paged decode kernel's wrapper.
 
-    ``decode_attention`` and ``attention_fn`` default to the kernels'
-    wrappers; a caller may pass another function of the same signature
-    (a plain version, for a comparison).
+    Frozen trunk (``frozen_compute="int8"``, no cache): layers ``[0,
+    frozen_layers)`` run under ``torch.no_grad()``, never rematerialized and
+    with no backward (the JAX package's ``stop_gradient`` at the trunk's
+    entry and exit), and their ``kernel_int8`` projections go through
+    ``trunk_matmul(x, q, compute_dtype)`` (the w8a8 kernel's entry). The tied
+    embedding's gradient through the trunk is dropped, as in the JAX package.
+    ``"bf16"`` or ``frozen_layers=0`` leaves the forward as it is.
+
+    ``decode_attention``, ``attention_fn`` and ``trunk_matmul`` default to
+    the kernels' wrappers; a caller may pass another function of the same
+    signature (a plain version, for a comparison).
 
     Returns ``(logits [batch, seq, vocab] in logits_dtype, cache)``, or the
     final-norm hidden states in ``compute_dtype`` with ``output_hidden``.
@@ -302,16 +326,22 @@ def forward(
         explicit_mask = k_pos <= positions[:, :, None]
 
     rematerialize = remat and cache is None and torch.is_grad_enabled()
+    trunk = frozen_layers if frozen_compute == "int8" and cache is None else 0
     for i in range(config.num_layers):
         entry = cache["layers"][str(i)] if cache is not None else None
         block_fn = functools.partial(
             _block, params, i, config=config, compute_dtype=compute_dtype,
             decode_attention=decode_attention, attention_impl=attention_impl,
-            attention_fn=attention_fn,
+            attention_fn=attention_fn, trunk_matmul=trunk_matmul if i < trunk else None,
         )
+        args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask)
+        if i < trunk:
+            with torch.no_grad():
+                x = block_fn(x, *args)
+            continue
         if rematerialize:
             block_fn = _remat(block_fn, remat_policy)
-        x = block_fn(x, cos, sin, explicit_mask, entry, positions, block_tables, padding_mask)
+        x = block_fn(x, *args)
     x = rms_norm(x, params["model.norm.weight"], config.rms_norm_eps)
     if output_hidden:
         return x.to(compute_dtype), cache

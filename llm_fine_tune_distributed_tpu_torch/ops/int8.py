@@ -1,19 +1,45 @@
-"""Int8 paged KV pool: quantizing writes and the dequantizing gather
-(counterpart of the JAX ``ops/int8.quantize_kv_write`` and
-``dequantize_kv_gather``, which are plain XLA there and plain torch here).
+"""Int8 weights and the int8 paged KV pool (counterpart of the JAX
+``ops/int8.py``; plain XLA there, plain torch here).
 
-The pool keeps the bf16 layout's [num_blocks, block_len, kv_heads, head_dim]
-shape in int8, plus an absmax pool [num_blocks, kv_heads] f32 indexed by the
-same block ids. Codes are symmetric absmax/127. Scale 0 means "never
-written" and dequantizes to exactly 0.0, which keeps the null block (id 0)
-all-zero.
+Weights: ``quantize_int8`` turns an ``[in, out]`` kernel into the sibling
+leaves ``kernel_int8`` (int8 codes) and ``kernel_int8_scale`` (f32
+per-output-channel absmax/127), the layout the frozen trunk's w8a8 matmul
+reads (``ops/int8_matmul.py``).
+
+KV pool: the pool keeps the bf16 layout's [num_blocks, block_len, kv_heads,
+head_dim] shape in int8, plus an absmax pool [num_blocks, kv_heads] f32
+indexed by the same block ids. Codes are symmetric absmax/127. Scale 0 means
+"never written" and dequantizes to exactly 0.0, which keeps the null block
+(id 0) all-zero.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 KV_QUANT_MODES = ("none", "int8")
+INT8_SUFFIXES = ("int8", "int8_scale")
+
+
+def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``w [in, out]`` -> {"int8": int8 [in, out], "int8_scale": f32 [out]}:
+    symmetric per-output-channel codes, scale absmax/127 (1/127 for an
+    all-zero column). The codes divide by the scale, as the JAX version does,
+    so both give the same codes bit for bit."""
+    if w.dim() != 2:
+        raise ValueError(f"quantize_int8 expects a 2-D weight, got {tuple(w.shape)}")
+    wf = w.float()
+    absmax = wf.abs().amax(dim=0)
+    scale = torch.where(absmax == 0.0, 1.0, absmax) / 127.0
+    q = torch.clamp(torch.round(wf / scale[None, :]), -127, 127)
+    return {"int8": q.to(torch.int8), "int8_scale": scale}
+
+
+def dequantize_int8(q: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse: int8 codes x per-channel scale in f32 -> [in, out] in ``dtype``."""
+    return (q["int8"].float() * q["int8_scale"][None, :].float()).to(dtype)
 
 
 def quantize_kv_write(codes: torch.Tensor, scales: torch.Tensor, blk: torch.Tensor,

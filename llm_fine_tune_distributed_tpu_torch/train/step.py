@@ -18,6 +18,7 @@ from llm_fine_tune_distributed_tpu_torch.config import TrainConfig, str_to_dtype
 from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
 from llm_fine_tune_distributed_tpu_torch.models.transformer import forward
 from llm_fine_tune_distributed_tpu_torch.ops.attention import attention
+from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import int8_w8a8_matmul
 from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import AdamW
 from llm_fine_tune_distributed_tpu_torch.train.state import TrainState
 from llm_fine_tune_distributed_tpu_torch.utils.tree import merge_flat
@@ -26,22 +27,25 @@ _JAX_LOSS = "llm_fine_tune_distributed_tpu.train.step.make_loss_fn"
 
 
 def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
-                 attention_fn=attention) -> Callable:
+                 attention_fn=attention, frozen_layers: int = 0,
+                 trunk_matmul=int8_w8a8_matmul) -> Callable:
     """loss_fn(trainable, frozen, batch) -> (loss, tokens), or (loss,
     tokens, answer_ce_sum, answer_tokens) when the batch carries a
     ``completion_mask``: masked next-token cross-entropy, the token mean
-    over the batch, from the full f32 logits. ``attention_fn`` is the
-    attention the model calls (the kernels' wrapper unless a caller passes
-    the plain one for a comparison)."""
+    over the batch, from the full f32 logits. ``attention_fn`` and
+    ``trunk_matmul`` are the attention and the trunk's w8a8 matmul the model
+    calls (the kernels' wrappers unless a caller passes plain ones for a
+    comparison). ``frozen_layers`` is the trunk boundary
+    (``parallel/freeze.frozen_trunk_boundary``); with
+    ``frozen_compute="int8"`` those layers run the frozen trunk."""
     if train_config.loss_chunk_size is not None or train_config.loss_vocab_chunk is not None:
         raise NotImplementedError(
             f"loss_chunk_size / loss_vocab_chunk (chunked cross-entropy) are not ported "
             f"({_JAX_LOSS} has them)"
         )
-    if train_config.frozen_compute != "bf16":
-        raise NotImplementedError(
-            f"frozen_compute={train_config.frozen_compute!r} (the w8a8 frozen trunk) is not "
-            f"ported ({_JAX_LOSS} has it)"
+    if train_config.frozen_compute not in ("bf16", "int8"):
+        raise ValueError(
+            f"unknown frozen_compute {train_config.frozen_compute!r} (expected 'bf16' or 'int8')"
         )
     compute_dtype = str_to_dtype(train_config.compute_dtype)
     remat_policy = train_config.resolved_remat_policy(model_config)
@@ -58,6 +62,9 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
             remat_policy=remat_policy,
             logits_dtype=torch.float32,
             attention_fn=attention_fn,
+            frozen_layers=frozen_layers,
+            frozen_compute=train_config.frozen_compute,
+            trunk_matmul=trunk_matmul,
         )
         b, s, vocab = logits.shape
         # CE of every position against the next token; the last position's
@@ -78,11 +85,11 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
 
 
 def build_train_step(model_config: ModelConfig, train_config: TrainConfig,
-                     optimizer: AdamW) -> Callable:
+                     optimizer: AdamW, frozen_layers: int = 0) -> Callable:
     """train_step(state, batch) -> (state, {"loss", "grad_norm"}), batch
     arrays ``[grad_accum, batch, seq]`` on the device. Updates the state in
     place and returns it."""
-    loss_fn = make_loss_fn(model_config, train_config)
+    loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers)
     accum = train_config.gradient_accumulation_steps
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -105,11 +112,12 @@ def build_train_step(model_config: ModelConfig, train_config: TrainConfig,
     return train_step
 
 
-def build_eval_step(model_config: ModelConfig, train_config: TrainConfig) -> Callable:
+def build_eval_step(model_config: ModelConfig, train_config: TrainConfig,
+                    frozen_layers: int = 0) -> Callable:
     """eval_step(state, batch [b, s]) -> (ce_sum, tokens) or (ce_sum,
     tokens, answer_ce_sum, answer_tokens): sums, so the caller weighs the
     eval loss by tokens over the whole validation set."""
-    loss_fn = make_loss_fn(model_config, train_config)
+    loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):

@@ -10,8 +10,12 @@ weights restored at the end, and the artifact contract: ``best_model/``
 (bf16 safetensors, tokenizer marker, ``config.json``),
 ``training_history.json`` and ``training_summary.json``.
 
+``frozen_compute="int8"`` runs the frozen trunk (the layers below the first
+trainable one) through the w8a8 int8 kernel: its projections are quantized
+once from the f32 weights, and ``best_model/`` holds them decoded.
+
 Not ported, and refused by ``check_supported``: packing, DPO, LoRA/QLoRA,
-the int8 frozen trunk, chunked losses, Adafactor/Lion, sequence parallelism,
+chunked losses, Adafactor/Lion, sequence parallelism,
 meshes of more than one device, checkpoints (periodic saves and resume), the
 publish directory, the control plane and the C++ loader. The JAX trainer's
 final Orbax checkpoint is not written either: ``best_model/`` and the two
@@ -47,7 +51,13 @@ from llm_fine_tune_distributed_tpu_torch.models.configs import (
 from llm_fine_tune_distributed_tpu_torch.models.hf_io import load_hf_checkpoint, save_hf_checkpoint
 from llm_fine_tune_distributed_tpu_torch.models.transformer import init_params
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import MetricLogger
-from llm_fine_tune_distributed_tpu_torch.parallel.freeze import describe_trainable, trainable_mask
+from llm_fine_tune_distributed_tpu_torch.ops.int8 import dequantize_int8
+from llm_fine_tune_distributed_tpu_torch.parallel.freeze import (
+    describe_trainable,
+    frozen_trunk_boundary,
+    quantize_trunk_int8,
+    trainable_mask,
+)
 from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import build_optimizer
 from llm_fine_tune_distributed_tpu_torch.train.state import TrainState
 from llm_fine_tune_distributed_tpu_torch.train.step import build_eval_step, build_train_step
@@ -57,16 +67,21 @@ _JAX_TRAINER = "llm_fine_tune_distributed_tpu.train.trainer.SFTTrainer"
 
 
 def check_supported(config: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for every knob whose branch is not
+    """Raise ``ValueError`` for a ``frozen_compute`` the JAX trainer refuses
+    too, and ``NotImplementedError`` for every knob whose branch is not
     ported, naming the JAX code that has it."""
+    if config.frozen_compute not in ("bf16", "int8"):
+        raise ValueError(f"unknown frozen_compute {config.frozen_compute!r} "
+                         "(expected 'bf16' or 'int8')")
+    if config.frozen_compute == "int8" and config.objective != "sft":
+        raise ValueError("frozen_compute='int8' supports objective='sft' only "
+                         f"({_JAX_TRAINER}._prepare_state refuses it too)")
     unported = {
         "packing=True": (config.packing, "_prepare_data (data/packing.py)"),
         f"objective={config.objective!r}": (
             config.objective != "sft", "llm_fine_tune_distributed_tpu.train.dpo.DPOTrainer"),
         f"freeze_strategy={config.freeze_strategy!r}": (
             config.freeze_strategy in ("lora", "qlora"), "_prepare_state (parallel/lora.py, qlora.py)"),
-        f"frozen_compute={config.frozen_compute!r}": (
-            config.frozen_compute != "bf16", "_prepare_state (the w8a8 frozen trunk)"),
         "loss_chunk_size": (config.loss_chunk_size is not None, "train/step.chunked_ce_sum"),
         "loss_vocab_chunk": (config.loss_vocab_chunk is not None, "train/step.vocab_chunked_ce_sum"),
         f"optimizer={config.optimizer!r}": (
@@ -143,8 +158,10 @@ class SFTTrainer:
                 f"a periodic checkpoint; checkpoints are not ported ({_JAX_TRAINER}._ckpt_save)"
             )
         self._prepare_state()
-        self.train_step = build_train_step(self.model_config, config, self.optimizer)
-        self.eval_step = build_eval_step(self.model_config, config)
+        self.train_step = build_train_step(self.model_config, config, self.optimizer,
+                                           frozen_layers=self.frozen_boundary)
+        self.eval_step = build_eval_step(self.model_config, config,
+                                         frozen_layers=self.frozen_boundary)
 
     @staticmethod
     def _resolve_model_config(config: TrainConfig) -> ModelConfig:
@@ -240,12 +257,24 @@ class SFTTrainer:
               f"({r['trainable_percent']}%)")
         trainable, frozen = split_by_mask(params, mask)
         del params
+        # the frozen trunk: layers below the first trainable one, quantized
+        # to int8 from the full-precision weights, before the cast below
+        self.frozen_boundary = 0
+        if cfg.frozen_compute == "int8":
+            self.frozen_boundary = frozen_trunk_boundary(mask, mc.num_layers)
+        if self.frozen_boundary > 0:
+            frozen, n_quant = quantize_trunk_int8(frozen, self.frozen_boundary)
+            print(f"Frozen trunk: layers [0, {self.frozen_boundary}) run w8a8 int8 "
+                  f"({n_quant} projections quantized)")
         param_dtype = str_to_dtype(cfg.param_dtype)
         compute_dtype = str_to_dtype(cfg.compute_dtype)
-        # masters: trainable in param_dtype (f32), frozen in compute_dtype
+        # masters: trainable in param_dtype (f32), frozen in compute_dtype;
+        # int8 codes and their f32 scales keep their dtypes
         trainable = {k: v.detach().to(param_dtype).requires_grad_(True)
                      for k, v in trainable.items()}
-        frozen = {k: v.detach().to(compute_dtype) for k, v in frozen.items()}
+        frozen = {k: v.detach().to(compute_dtype)
+                  if v.is_floating_point() and not k.endswith("_int8_scale") else v
+                  for k, v in frozen.items()}
         self.optimizer = build_optimizer(cfg, total_steps=self.total_steps)
         self.lr_schedule = self.optimizer.schedule
         self.state = TrainState(step=0, trainable=trainable, frozen=frozen,
@@ -417,6 +446,10 @@ class SFTTrainer:
             summary["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
         best_dir = os.path.join(cfg.output_dir, "best_model")
         params = {k: v.detach() for k, v in merge_flat(self.state.trainable, self.state.frozen).items()}
+        for name in [k for k in params if k.endswith(".kernel_int8")]:
+            # the int8 trunk is exported as plain kernels, decoded in f32
+            q = {"int8": params.pop(name), "int8_scale": params.pop(name + "_scale")}
+            params[name[: -len("_int8")]] = dequantize_int8(q, torch.float32)
         save_hf_checkpoint(params, best_dir, save_dtype=torch.bfloat16,
                            metadata={"framework": "llm_fine_tune_distributed_tpu_torch"})
         if hasattr(self.tokenizer, "save_pretrained"):

@@ -159,7 +159,6 @@ UNPORTED = {
     "dpo": dict(objective="dpo"),
     "lora": dict(freeze_strategy="lora"),
     "qlora": dict(freeze_strategy="qlora"),
-    "int8_trunk": dict(frozen_compute="int8"),
     "loss_chunk_size": dict(loss_chunk_size=64),
     "loss_vocab_chunk": dict(loss_vocab_chunk=128),
     "adafactor": dict(optimizer="adafactor"),
@@ -182,6 +181,15 @@ def test_unported_knobs_raise(workdir, knob):
     kw.update(UNPORTED[knob])
     with pytest.raises(NotImplementedError):
         SFTTrainer(TrainConfig(**kw), device="cpu")
+
+
+def test_int8_trunk_refuses_dpo(workdir):
+    """The JAX trainer refuses the int8 trunk outside SFT too."""
+    kw = _recipe(workdir, "refused_int8_dpo", dataset_file="qa.jsonl")
+    with pytest.raises(ValueError, match="objective='sft' only"):
+        SFTTrainer(TrainConfig(**kw, frozen_compute="int8", objective="dpo"), device="cpu")
+    with pytest.raises(ValueError, match="unknown frozen_compute"):
+        SFTTrainer(TrainConfig(**kw, frozen_compute="fp8"), device="cpu")
 
 
 def test_unported_env_vars_raise():
