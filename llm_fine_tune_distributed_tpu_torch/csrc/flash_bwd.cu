@@ -11,27 +11,53 @@
 //   dk/dv: per (batch row, kv head, key tile), over the G = hq/hkv query
 //          heads of the group and the query tiles at or after the key tile:
 //          dv += p^T dO, dk += ds^T q; finally dk * scale. dk/dv stay at kv
-//          head width and every block owns its output rows: no atomics.
-//
-// Design. The Pallas kernels keep a whole sequence of K/V (dq) or of q/dO
-// for a query group (dk/dv) in VMEM per program. Here each CUDA block
-// (256 threads) stages 64-row tiles in shared memory as f32 ([64][d+1]) and
-// loops over the other operand's tiles itself. In the dq kernel thread
-// (ty, tx) owns query rows 4ty.. and key columns tx + 16j of a score tile;
-// in the dk/dv kernel it owns key rows 4ty.. and query columns tx + 16j, so
-// both kernels' accumulators (dq, or dk and dv) are rows of the thread's own
-// row group: the shared p/ds tiles are written and read by one warp, and
-// __syncwarp is the only barrier between score and accumulate. Any s, d a
-// multiple of 16 up to 128 (zero-padded to 64 or 128 in shared memory).
+//          head width and every block owns its output rows: no atomics, and
+//          the result is deterministic.
 //
 // Bound. The backward recomputes the scores in both kernels and forms
-// dO V^T in both, so it does about 3.5x the forward's 2*b*hq*s^2*d causal
-// flops against a few bytes per element of q, k, v, dO and the outputs:
-// bound by arithmetic. This first version computes in f32 on the CUDA cores;
-// tensor-core tiles (mma.sync/wgmma) and a split of the causal work over
-// more blocks are later work.
+// dO V^T in both: 8*d flops per visible pair and query head for dk/dv, 6*d
+// for dq, against a few bytes per element of q, k, v, dO and the outputs, so
+// on this card both are bound by the bf16 tensor-core rate (989 TFLOP/s);
+// f32 products on the CUDA cores (67 TFLOP/s, one shared load per two FMAs)
+// are 100x from it.
+//
+// dk/dv, bf16 inputs (the training path): flash_bwd_dkv_tc_kernel, all four
+// products on the tensor cores (mma.sync m16n8k16 bf16 -> f32). One block of
+// 8 warps owns one 64-row key tile: K and V are staged once and each warp
+// holds the A fragments of 16 keys; the query tiles of the G heads stream
+// Q, dO, LSE, delta and segments through a 2-stage cp.async ring into
+// XOR-swizzled shared tiles. The products are taken transposed so that Q and
+// dO are the column-major B operands as stored: warp (key group kg, query
+// half) forms S^T = K Q^T and dP^T = V dO^T for its 16 keys x 32 queries,
+// p^T = exp2(S^T scale log2(e) - LSE log2(e)) under the mask and
+// dS^T = p^T (dP^T - delta), rounded to bf16 (a stated difference from the
+// f32 plain version) into two small shared tiles. After one barrier, warp
+// (kg, column half) accumulates dV += P^T dO and dK += dS^T Q for its 16
+// keys x d/2 columns, P^T/dS^T read by ldmatrix as A fragments and dO/Q by
+// ldmatrix.trans as B fragments. That split keeps the dK/dV accumulators at
+// d/8 + d/8 registers per thread beside the K/V fragments, so ptxas spills
+// nothing at d 128. Query tiles are skipped below the causal limit and where
+// the segment ranges of the key tile and the query tile are disjoint
+// (flash_mma.cuh); a query tile strictly after the key tile, inside s, whose
+// rows all share the key tile's one segment id needs no mask; on request
+// (visits) the kernel counts every pair it computes. Key tile 0,
+// which has the most query tiles, is issued first. About 114 KB of shared
+// memory at d 128: one block of 8 warps per SM. d a multiple of 16 up to
+// 128; 16-byte-aligned bases and strides that are multiples of 8 elements.
+//
+// dq (both dtypes) and dk/dv for f32 inputs (the parity checks only): the
+// CUDA-core kernels. Each block (256 threads) stages 64-row tiles in shared
+// memory as f32 ([64][d+1]) and loops over the other operand's tiles itself.
+// In the dq kernel thread (ty, tx) owns query rows 4ty.. and key columns
+// tx + 16j of a score tile; in the dk/dv kernel it owns key rows 4ty.. and
+// query columns tx + 16j, so both kernels' accumulators (dq, or dk and dv)
+// are rows of the thread's own row group: the shared p/ds tiles are written
+// and read by one warp, and __syncwarp is the only barrier between score and
+// accumulate. Any s, d a multiple of 16 up to 128 (zero-padded to 64 or 128
+// in shared memory). The dispatch is by dtype, in flash_bwd_dkv_launch.
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -302,6 +328,216 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// dk / dv, bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcDkvThreads = 256;  // 8 warps: 4 key groups x 2 halves
+
+// K, V, 2 stages of (Q, dO), P^T and dS^T (bf16 [kTile][kTile]), 2 stages of
+// (LSE, delta, query segments), then the per-tile segment ranges
+template <int D>
+size_t dkv_tc_smem_bytes(int n_tiles) {
+  return 6 * kTile * D * 2 + 2 * kTile * kTile * 2 + 2 * 3 * kTile * 4 + 16 * (size_t)n_tiles;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcDkvThreads, 1) flash_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int32_t* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int* __restrict__ visits, Strides sq, Strides sk,
+    Strides sv, Strides sdo, int s, int hq, int hkv, int d, float scale) {
+  constexpr int kBytes = kTile * D * 2;
+  constexpr int kPBytes = kTile * kTile * 2;
+  constexpr int kSteps = D / 16;  // k-steps of S^T and dP^T
+  constexpr int kCols = D / 2;    // dK/dV columns of one warp
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  const uint32_t k_s = smem_addr(smem_tc);
+  const uint32_t v_s = k_s + kBytes;
+  unsigned char* pt = smem_tc + 6 * kBytes;  // P^T [key][query]
+  unsigned char* dst = pt + kPBytes;      // dS^T [key][query]
+  float* stats = reinterpret_cast<float*>(dst + kPBytes);  // [2][lse, delta, seg][kTile]
+  int* rng = reinterpret_cast<int*>(stats + 2 * 3 * kTile);
+
+  const int n_tiles = (s + kTile - 1) / kTile;
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kt = blockIdx.z;  // key tile 0 has the most query tiles: first
+  const int groups = hq / hkv;
+  const int k0 = kt * kTile;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int kg = warp % 4;    // 16 keys kg*16.. in both phases
+  const int half = warp / 4;  // queries half*32.. (phase 1), columns half*D/2.. (phase 2)
+
+  copy_tile_async<D, kTcDkvThreads>(k_s, k, sk, b, hk, k0, s, d);
+  copy_tile_async<D, kTcDkvThreads>(v_s, v, sv, b, hk, k0, s, d);
+  cp_async_commit();
+  tile_ranges<kTcDkvThreads>(rng, seg, b, s, kt, n_tiles - 1);
+  __syncthreads();
+  const Range kr = tile_range(rng, kt);
+  // first visited query tile at or after qt; n_tiles past the last (the
+  // diagonal tile kt is always visited)
+  auto next_q = [&](int qt) {
+    while (qt < n_tiles && !ranges_meet(kr, tile_range(rng, qt))) ++qt;
+    return qt;
+  };
+  auto load_q = [&](int stage, int h, int qt) {
+    const uint32_t qs = k_s + (2 + 2 * stage) * kBytes;
+    copy_tile_async<D, kTcDkvThreads>(qs, q, sq, b, h, qt * kTile, s, d);
+    copy_tile_async<D, kTcDkvThreads>(qs + kBytes, dout, sdo, b, h, qt * kTile, s, d);
+    float* st = stats + stage * 3 * kTile;
+    const long long row = ((long long)b * hq + h) * s;
+    copy_row_async(st, lse, row, qt * kTile, s, 0);
+    copy_row_async(st + kTile, delta, row, qt * kTile, s, kTile);
+    copy_row_async(st + 2 * kTile, seg, (long long)b * s, qt * kTile, s, 2 * kTile);
+  };
+  const int first = next_q(kt);
+  int gi = 0;
+  int qt = first;
+  load_q(0, hk * groups, qt);
+  cp_async_commit();
+
+  // this thread's keys: rows g and g + 8 of its key group
+  const int kpos0 = k0 + kg * 16 + g;
+  const int kpos1 = kpos0 + 8;
+  const int kseg0 = kpos0 < s ? seg[(long long)b * s + kpos0] : kKSentinel;
+  const int kseg1 = kpos1 < s ? seg[(long long)b * s + kpos1] : kKSentinel;
+
+  cp_async_wait<1>();  // K and V have landed
+  __syncthreads();
+  uint32_t kf[kSteps][4], vf[kSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    load_a<D>(kf[ks], k_s, kg * 16, ks * 16, lane);
+    load_a<D>(vf[ks], v_s, kg * 16, ks * 16, lane);
+  }
+  float dka[kCols / 8][4], dva[kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dka[n][j] = dva[n][j] = 0.f;
+  const float sl2 = scale * kLog2e;
+
+  int stage = 0;
+  while (true) {
+    int gn = gi;
+    int qn = next_q(qt + 1);
+    if (qn >= n_tiles) {
+      ++gn;
+      qn = first;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has landed; the other stage and P^T/dS^T are free
+    if (gn < groups) load_q(stage ^ 1, hk * groups + gn, qn);
+    cp_async_commit();
+
+    const uint32_t qs = k_s + (2 + 2 * stage) * kBytes;
+    const uint32_t dos = qs + kBytes;
+    const float* lse_s = stats + stage * 3 * kTile;
+    const float* delta_s = lse_s + kTile;
+    const int* qseg_s = reinterpret_cast<const int*>(lse_s + 2 * kTile);
+    const int q0 = qt * kTile;
+    if (visits != nullptr && threadIdx.x == 0)  // one count per computed pair and query head
+      atomicAdd(visits + ((long long)b * n_tiles + qt) * n_tiles + kt, 1);
+
+    // phase 1: S^T and dP^T for 16 keys x 32 queries (4 n-tiles of 8)
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[n][j] = dp[n][j] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bq[4], bd[4];
+        load_b_nk<D>(bq, qs, half * 32 + np * 16, ks * 16, lane);
+        mma_bf16(sc[2 * np], kf[ks], bq[0], bq[1]);
+        mma_bf16(sc[2 * np + 1], kf[ks], bq[2], bq[3]);
+        load_b_nk<D>(bd, dos, half * 32 + np * 16, ks * 16, lane);
+        mma_bf16(dp[2 * np], vf[ks], bd[0], bd[1]);
+        mma_bf16(dp[2 * np + 1], vf[ks], bd[2], bd[3]);
+      }
+    }
+    const bool full = qt > kt && q0 + kTile <= s && one_segment(kr, tile_range(rng, qt));
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = half * 32 + n * 8 + 2 * t + j;  // c0, c1: key g; c2, c3: key g + 8
+        const float l2 = lse_s[qc] * kLog2e;
+        const float dl = delta_s[qc];
+        float p0 = fast_exp2(fmaf(sc[n][j], sl2, -l2));
+        float p1 = fast_exp2(fmaf(sc[n][2 + j], sl2, -l2));
+        if (!full) {
+          const int qpos = q0 + qc;
+          const int qsg = qseg_s[qc];
+          const bool in = qpos < s;
+          if (!(in && kpos0 <= qpos && kseg0 == qsg)) p0 = 0.f;
+          if (!(in && kpos1 <= qpos && kseg1 == qsg)) p1 = 0.f;
+        }
+        sc[n][j] = p0;
+        sc[n][2 + j] = p1;
+        dp[n][j] = p0 * (dp[n][j] - dl);
+        dp[n][2 + j] = p1 * (dp[n][2 + j] - dl);
+      }
+      const uint32_t off0 = swz<kTile>(kg * 16 + g, half * 32 + n * 8) + 4 * t;
+      const uint32_t off1 = swz<kTile>(kg * 16 + g + 8, half * 32 + n * 8) + 4 * t;
+      *reinterpret_cast<uint32_t*>(pt + off0) = pack_bf16(sc[n][0], sc[n][1]);
+      *reinterpret_cast<uint32_t*>(pt + off1) = pack_bf16(sc[n][2], sc[n][3]);
+      *reinterpret_cast<uint32_t*>(dst + off0) = pack_bf16(dp[n][0], dp[n][1]);
+      *reinterpret_cast<uint32_t*>(dst + off1) = pack_bf16(dp[n][2], dp[n][3]);
+    }
+    __syncthreads();  // P^T and dS^T of all 64 queries are in shared memory
+
+    // phase 2: dV += P^T dO and dK += dS^T Q for 16 keys x D/2 columns
+    const uint32_t pt_s = smem_addr(pt);
+    const uint32_t dst_s = smem_addr(dst);
+#pragma unroll
+    for (int kq = 0; kq < kTile / 16; ++kq) {
+      uint32_t pa[4], sa[4];
+      load_a<kTile>(pa, pt_s, kg * 16, kq * 16, lane);
+      load_a<kTile>(sa, dst_s, kg * 16, kq * 16, lane);
+#pragma unroll
+      for (int np = 0; np < kCols / 16; ++np) {
+        const int col = half * kCols + np * 16;
+        uint32_t bo[4], bq[4];
+        load_b_kn<D>(bo, dos, kq * 16, col, lane);
+        mma_bf16(dva[2 * np], pa, bo[0], bo[1]);
+        mma_bf16(dva[2 * np + 1], pa, bo[2], bo[3]);
+        load_b_kn<D>(bq, qs, kq * 16, col, lane);
+        mma_bf16(dka[2 * np], sa, bq[0], bq[1]);
+        mma_bf16(dka[2 * np + 1], sa, bq[2], bq[3]);
+      }
+    }
+    if (gn >= groups) break;
+    gi = gn;
+    qt = qn;
+    stage ^= 1;
+  }
+
+  const long long row = (long long)hkv * d;  // dk/dv contiguous [b, s, hkv, d]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = r ? kpos1 : kpos0;
+    if (kpos >= s) continue;
+    const long long off = ((long long)b * s + kpos) * row + (long long)hk * d;
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n) {
+      const int col = half * kCols + n * 8 + 2 * t;
+      if (col >= d) continue;
+      *reinterpret_cast<uint32_t*>(dk + off + col) =
+          pack_bf16(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + col) = pack_bf16(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -346,6 +582,25 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv_tc(const Args& a, void* dk, void* dv, int* visits) {
+  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  const int n_tiles = (a.s + kTile - 1) / kTile;
+  const size_t smem = dkv_tc_smem_bytes<D>(n_tiles);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.hkv, a.b, n_tiles);
+  kernel<<<grid, kTcDkvThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const int32_t*>(a.seg), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), visits, a.sq, a.sk, a.sv, a.sdo, a.s, a.hq, a.hkv,
+      a.d, a.scale);
+  return (int)cudaGetLastError();
+}
+
 bool valid(int b, int s, int hq, int hkv, int d) {
   return b > 0 && s > 0 && hkv > 0 && hq % hkv == 0 && d > 0 && d % 16 == 0 && d <= 128;
 }
@@ -366,9 +621,14 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // the (batch, position, head) element strides of q, k, v and dO. lse and
 // delta are contiguous f32 [b, hq, s]; dq a contiguous [b, s, hq, d] and
 // dk/dv contiguous [b, s, hkv, d] tensors of q's dtype. is_bf16: 1 for bf16
-// q/k/v/dO and outputs, 0 for f32. Each returns the cudaError_t after its
-// launch (0 on success); shapes the kernels do not take return
-// cudaErrorInvalidValue without launching.
+// q/k/v/dO and outputs, 0 for f32. dq runs the CUDA-core kernel for both;
+// dk/dv runs flash_bwd_dkv_tc_kernel on the tensor cores for bf16 and the
+// CUDA-core flash_bwd_dkv_kernel for f32. visits (dk/dv): null, or (bf16
+// only) a zeroed int32 [b, n, n], n = ceil(s / 64), to which the kernel adds
+// one at (row, query tile, key tile) for every query head whose pair it
+// computes, as flash_fwd_launch does. Each returns the cudaError_t after
+// its launch (0 on success); shapes or bf16 layouts the kernels do not take
+// return cudaErrorInvalidValue without launching.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse,
                                    const void* delta, const void* seg, void* dq,
@@ -387,15 +647,28 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse,
                                     const void* delta, const void* seg, void* dk,
-                                    void* dv, const long long* strides, int b, int s,
-                                    int hq, int hkv, int d, int is_bf16, float scale,
+                                    void* dv, void* visits, const long long* strides, int b,
+                                    int s, int hq, int hkv, int d, int is_bf16, float scale,
                                     void* stream) {
-  if (!valid(b, s, hq, hkv, d)) return (int)cudaErrorInvalidValue;
+  if (!valid(b, s, hq, hkv, d) || (visits != nullptr && !is_bf16))
+    return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, seg, strides, b, s, hq, hkv, d,
                            scale, stream);
   const bool d64 = padded_head_dim(d) == 64;
-  if (is_bf16)
-    return d64 ? launch_dkv<__nv_bfloat16, 64>(a, dk, dv)
-               : launch_dkv<__nv_bfloat16, 128>(a, dk, dv);
+  if (is_bf16) {
+    const void* inputs[4] = {q, k, v, dout};
+    for (int i = 0; i < 4; ++i)
+      if (!tc_layout_ok(inputs[i], strides + 3 * i)) return (int)cudaErrorInvalidValue;
+    int* vis = static_cast<int*>(visits);
+    return d64 ? launch_dkv_tc<64>(a, dk, dv, vis) : launch_dkv_tc<128>(a, dk, dv, vis);
+  }
   return d64 ? launch_dkv<float, 64>(a, dk, dv) : launch_dkv<float, 128>(a, dk, dv);
+}
+
+// Dynamic shared memory (bytes) that one flash_bwd_dkv_tc_kernel block asks
+// for at head dim d and sequence length s: for reports.
+extern "C" long long flash_bwd_dkv_tc_smem(int d, int s) {
+  const int n_tiles = (s + kTile - 1) / kTile;
+  return (long long)(padded_head_dim(d) == 64 ? dkv_tc_smem_bytes<64>(n_tiles)
+                                              : dkv_tc_smem_bytes<128>(n_tiles));
 }

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build happens at
 first use, into ``build/torch_kernels/`` at the repository root, keyed by a
-hash of the sources and flags, so a fresh checkout builds what it runs.
-``build_all`` starts one ``nvcc`` per source at once. A missing ``nvcc`` or
-a failed build raises: there is no fallback.
+hash of the sources and flags, so a fresh checkout builds what it runs; the
+``-Xptxas -v`` report (registers, spills per kernel) is kept beside each
+library. ``build_all`` starts one ``nvcc`` per source at once. A missing
+``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict = {}
-# build seconds and the ptxas report of every library built by this process
+# build seconds of every library built by this process
 build_log: dict = {}
 
 
@@ -60,6 +61,19 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_source_hash(CSRC / f'{name}.cu')}.so"
 
 
+def _ptxas_path(library: Path) -> Path:
+    return library.with_suffix(".ptxas.txt")
+
+
+def ptxas_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of the library built from ``csrc/<name>.cu``
+    (by this process or an earlier one); raises if it is missing."""
+    path = _ptxas_path(_library_path(name))
+    if not path.exists():
+        raise RuntimeError(f"no ptxas report for {name}: build it first ({path} is missing)")
+    return path.read_text()
+
+
 def build_all(names) -> dict:
     """Compile every ``csrc/<name>.cu`` of ``names`` whose library for the
     same sources is not already in the build directory: one ``nvcc`` per
@@ -85,8 +99,9 @@ def build_all(names) -> dict:
             failures.append(f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
                             f"{' '.join(cmd)}\n{out}\n{err}")
             continue
+        _ptxas_path(paths[name]).write_text(err.strip() + "\n")  # before the library appears
         os.replace(tmp, paths[name])
-        build_log[name] = {"seconds": time.monotonic() - t0, "ptxas": err.strip()}
+        build_log[name] = {"seconds": time.monotonic() - t0}
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths

@@ -4,7 +4,9 @@
 - ``flash_attention``: causal flash attention for training, a
   ``torch.autograd.Function`` over three hand-written CUDA kernels:
   ``flash_fwd`` (``csrc/flash_fwd.cu``) and ``flash_bwd_dq`` /
-  ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``).
+  ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``). For bf16 the forward and dk/dv
+  run on the tensor cores and skip the tile pairs ``flash_tile_pairs``
+  rules out; f32 inputs run the CUDA-core kernels.
 - ``paged_decode_attention``: fused decode attention over an int8 block-paged
   KV pool (``csrc/paged_decode.cu``).
 
@@ -152,6 +154,7 @@ def _library() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 _FLASH_MAX_HEAD_DIM = 128
+FLASH_TILE = 64  # rows of the kernels' query and key tiles
 
 
 def flash_segments(q, padding_mask=None, segment_ids=None) -> torch.Tensor:
@@ -183,6 +186,26 @@ def _flash_mask(segments):
     s = segments.shape[1]
     causal = torch.ones(s, s, dtype=torch.bool, device=segments.device).tril()
     return (causal & (segments[:, :, None] == segments[:, None, :]))[:, None]
+
+
+def flash_tile_pairs(segments, tile=FLASH_TILE):
+    """bool [b, n, n], n = ceil(s / tile): True where the bf16 kernels visit
+    (query tile i, key tile j) of a batch row. A pair is visited iff j <= i
+    (the causal limit) and the two tiles' segment ranges, [min, max] of the
+    ids of their rows below s, intersect. Disjoint ranges share no id, so no
+    visible pair is ever skipped; a tile of pad queries (segment 0) skips
+    every key tile of real tokens only (the rule of ``csrc/flash_mma.cuh``;
+    the kernels count their own walk into ``tile_visits``)."""
+    b, s = segments.shape
+    n = -(-s // tile)
+    seg = segments.to(torch.int64)
+    edge = n * tile - s
+    top = torch.full((b, edge), torch.iinfo(torch.int64).max, dtype=torch.int64, device=seg.device)
+    lo = torch.cat([seg, top], dim=1).reshape(b, n, tile).amin(dim=-1)
+    hi = torch.cat([seg, -top - 1], dim=1).reshape(b, n, tile).amax(dim=-1)
+    meet = (lo[:, :, None] <= hi[:, None, :]) & (lo[:, None, :] <= hi[:, :, None])
+    causal = torch.ones(n, n, dtype=torch.bool, device=seg.device).tril()
+    return meet & causal
 
 
 def _flash_probs(q, k, segments, lse, scale):
@@ -284,26 +307,70 @@ def _check_flash(q, k, v, segments, *extra):
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
 
 
+def _tensor_core_layout_ok(t) -> bool:
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0 for i in range(3))
+
+
+def _check_tensor_core_layout(*tensors):
+    """Raise, naming the constraint, where the bf16 tensor-core kernels
+    (forward, dk/dv) cannot take a tensor: they copy rows in 16-byte chunks,
+    so each base must be 16-byte aligned and each (batch, position, head)
+    stride a multiple of 8 elements."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the bf16 flash kernels need 16-byte-aligned q, k, v (and dO)")
+        if not _tensor_core_layout_ok(t):
+            raise ValueError(
+                "the bf16 flash kernels need (batch, position, head) strides that are "
+                f"multiples of 8 elements, got {tuple(t.stride())}")
+
+
+def _check_tile_visits(q, tile_visits):
+    """Raise unless ``tile_visits`` is None or what the tensor-core kernels
+    count into: a contiguous int32 [b, n, n], n = ceil(s / FLASH_TILE), on
+    the card beside bf16 inputs."""
+    if tile_visits is None:
+        return
+    b, s = q.shape[:2]
+    n = -(-s // FLASH_TILE)
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("tile_visits is counted by the bf16 tensor-core kernels, on the card only")
+    if (tile_visits.dtype != torch.int32 or tile_visits.shape != (b, n, n)
+            or not tile_visits.is_contiguous() or tile_visits.device != q.device):
+        raise ValueError(f"tile_visits must be a contiguous int32 [{b}, {n}, {n}] tensor on q's device")
+
+
 def _strides(*tensors):
     vals = [x for t in tensors for x in (t.stride(0), t.stride(1), t.stride(2))]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_fwd(q, k, v, segments, *, scale=None):
+def flash_fwd(q, k, v, segments, *, scale=None, tile_visits=None):
     """Causal flash-attention forward: (O [b, s, hq, d] in q's dtype, LSE
     f32 [b, hq, s]). A CUDA tensor launches ``csrc/flash_fwd.cu`` on the
-    current stream and adds one to ``flash_fwd.launches``; a CPU tensor runs
-    ``flash_attention_fwd_reference``."""
+    current stream (bf16: the tensor-core kernel, which refuses layouts it
+    cannot copy; f32: the CUDA-core kernel) and adds one to
+    ``flash_fwd.launches``; a CPU tensor runs
+    ``flash_attention_fwd_reference``.
+
+    ``tile_visits`` (bf16 on the card only; None on the main path): a zeroed
+    int32 [b, n, n], n = ceil(s / FLASH_TILE), to which the kernel adds one
+    at (row, query tile, key tile) for each query head whose tile pair it
+    computes: its own walk, to hold against ``flash_tile_pairs`` * hq."""
     _check_flash(q, k, v, segments)
+    _check_tile_visits(q, tile_visits)
     scale = _flash_scale(q, scale)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, segments, scale=scale)
+    if q.dtype == torch.bfloat16:
+        _check_tensor_core_layout(q, k, v)
     b, s, hq, d = q.shape
     o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     err = _flash_library("flash_fwd").flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), segments.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), _strides(q, k, v),
+        o.data_ptr(), lse.data_ptr(), None if tile_visits is None else tile_visits.data_ptr(),
+        _strides(q, k, v),
         b, s, hq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -345,16 +412,20 @@ def flash_bwd_dq(q, k, v, segments, lse, delta, do, *, scale=None):
     return dq
 
 
-def flash_bwd_dkv(q, k, v, segments, lse, delta, do, *, scale=None):
+def flash_bwd_dkv(q, k, v, segments, lse, delta, do, *, scale=None, tile_visits=None):
     """(dk, dv) [b, s, hkv, d] in k's dtype. A CUDA tensor launches the dk/dv
-    kernel of ``csrc/flash_bwd.cu`` and adds one to
-    ``flash_bwd_dkv.launches``; a CPU tensor runs
-    ``flash_bwd_dkv_reference``."""
+    kernel of ``csrc/flash_bwd.cu`` (bf16: the tensor-core kernel, which
+    refuses layouts it cannot copy; f32: the CUDA-core kernel) and adds one
+    to ``flash_bwd_dkv.launches``; a CPU tensor runs
+    ``flash_bwd_dkv_reference``. ``tile_visits``: as in ``flash_fwd``."""
     _check_flash(q, k, v, segments, do)
     _check_stats(q, lse, delta)
+    _check_tile_visits(q, tile_visits)
     scale = _flash_scale(q, scale)
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, segments, lse, delta, do, scale=scale)
+    if q.dtype == torch.bfloat16:
+        _check_tensor_core_layout(q, k, v, do)
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     dk = torch.empty((b, s, hkv, d), dtype=k.dtype, device=k.device)
@@ -362,7 +433,7 @@ def flash_bwd_dkv(q, k, v, segments, lse, delta, do, *, scale=None):
     err = _flash_library("flash_bwd").flash_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), segments.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, do), b, s, hq, hkv, d, int(q.dtype == torch.bfloat16),
+        None if tile_visits is None else tile_visits.data_ptr(), _strides(q, k, v, do), b, s, hq, hkv, d, int(q.dtype == torch.bfloat16),
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -381,16 +452,26 @@ def _flash_library(name: str) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     signatures = {
-        "flash_fwd_launch": [p] * 6 + [strides] + [i] * 6 + [f, p],
+        "flash_fwd_launch": [p] * 7 + [strides] + [i] * 6 + [f, p],
         "flash_bwd_dq_launch": [p] * 8 + [strides] + [i] * 6 + [f, p],
-        "flash_bwd_dkv_launch": [p] * 9 + [strides] + [i] * 6 + [f, p],
+        "flash_bwd_dkv_launch": [p] * 10 + [strides] + [i] * 6 + [f, p],
+        "flash_fwd_tc_smem": [i, i],
+        "flash_bwd_dkv_tc_smem": [i, i],
     }
     for fn_name, argtypes in signatures.items():
         fn = getattr(lib, fn_name, None)
         if fn is not None and fn.argtypes is None:  # first use
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = ctypes.c_longlong if fn_name.endswith("_smem") else ctypes.c_int
     return lib
+
+
+def flash_tc_smem_bytes(d: int, s: int) -> dict:
+    """Dynamic shared memory per block (bytes) that the bf16 tensor-core
+    forward and dk/dv kernels ask for at head dim ``d`` and sequence length
+    ``s``, from the built libraries (for reports)."""
+    return {"flash_fwd": _flash_library("flash_fwd").flash_fwd_tc_smem(d, s),
+            "flash_bwd_dkv": _flash_library("flash_bwd").flash_bwd_dkv_tc_smem(d, s)}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -409,8 +490,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, segments, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not _tensor_core_layout_ok(do)):
+            do = do.contiguous()  # the incoming gradient's layout is autograd's
         delta = flash_delta(o, do)
         if ctx.plain:
             dq = flash_bwd_dq_reference(q, k, v, segments, lse, delta, do, scale=ctx.scale)

@@ -170,32 +170,225 @@ def test_flash_attention_refuses_what_the_kernels_do_not_take():
         port_attention.attention(q, q[:, :, :2], q[:, :, :2], impl="ring")
 
 
+def _visible_tiles(segments, tile):
+    """bool [b, n, n]: tile pairs that hold at least one visible (query, key)
+    pair of the dense mask."""
+    b, s = segments.shape
+    n = -(-s // tile)
+    mask = fa._flash_mask(segments)[:, 0]
+    padded = torch.zeros(b, n * tile, n * tile, dtype=torch.bool)
+    padded[:, :s, :s] = mask
+    return padded.reshape(b, n, tile, n, tile).any(dim=4).any(dim=2)
+
+
+@pytest.mark.parametrize("s,tile", [(256, 64), (200, 64), (77, 16), (130, 32)])
+@pytest.mark.parametrize("kind", ["padding", "segments", "random"])
+def test_tile_pairs_cover_every_visible_pair(kind, s, tile):
+    """Every visible pair of the dense mask lies in a tile pair the kernels
+    visit; s need not be a multiple of the tile."""
+    b = 3
+    if kind == "random":
+        rng = np.random.default_rng(s + tile)
+        seg = torch.from_numpy(np.sort(rng.integers(0, 4, (b, s)), axis=1).astype(np.int32))
+        seg[1] = torch.from_numpy(rng.integers(0, 3, s).astype(np.int32))  # unsorted ids
+    elif kind == "segments":
+        seg = torch.from_numpy(np.ascontiguousarray(_segments(kind, b)[:, :s]))
+    else:
+        seg = torch.from_numpy((np.arange(s)[None, :] < np.asarray([s, s // 2, 9])[:, None]).astype(np.int32))
+    visited = fa.flash_tile_pairs(seg, tile)
+    n = -(-s // tile)
+    assert visited.shape == (b, n, n) and visited.dtype == torch.bool
+    needed = _visible_tiles(seg, tile)
+    assert bool((needed <= visited).all()), "a tile pair with a visible pair is skipped"
+    assert not bool(visited.triu(1).any()), "a tile pair above the causal limit is visited"
+    assert bool(visited.diagonal(dim1=1, dim2=2).all()), "a diagonal tile is skipped"
+
+
+def test_tile_pairs_skip_pad_queries_against_real_key_tiles():
+    """A tile of pad queries (segment 0) never visits a key tile of real
+    tokens only; it does visit the key tile where the padding starts."""
+    seg = torch.zeros(1, 1024, dtype=torch.int32)
+    seg[0, :700] = 1  # real tiles 0-9, tile 10 mixed, tiles 11-15 padding
+    visited = fa.flash_tile_pairs(seg)[0]
+    assert not bool(visited[11:, :10].any())
+    assert bool(visited[11:, 10].all()) and bool(visited[10, :11].all())
+    assert int(visited.sum()) == 136 - 50
+
+
+def test_tile_pairs_pinned_for_the_smoke_ragged_batch():
+    """The ragged batch of chip_smoke.py phase 7 (b 8, s 1024, lengths
+    1024 ... 1): 848 tile pairs visited of the 1088 under the causal limit."""
+    lengths = (1024, 1000, 700, 513, 512, 300, 129, 1)
+    seg = (torch.arange(1024)[None, :] < torch.tensor(lengths)[:, None]).to(torch.int32)
+    visited = fa.flash_tile_pairs(seg)
+    assert visited.sum(dim=(1, 2)).tolist() == [136, 136, 86, 80, 72, 92, 110, 136]
+    assert int(visited.sum()) == 848 and 8 * 16 * 17 // 2 == 1088
+
+
+def test_tile_visits_are_counted_only_by_the_tensor_core_kernels():
+    """``tile_visits`` asks the bf16 kernels on the card to count their own
+    walk; on the CPU (the plain versions) and for f32 it is refused, and a
+    counter of the wrong shape is refused by name."""
+    b, s, hq, hkv, d = 1, 130, 4, 2, 16
+    seg = torch.ones(b, s, dtype=torch.int32)
+    visits = torch.zeros(b, 3, 3, dtype=torch.int32)
+    stats = torch.zeros(b, hq, s)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k = torch.zeros(b, s, hq, d, dtype=dt), torch.zeros(b, s, hkv, d, dtype=dt)
+        with pytest.raises(ValueError, match="on the card only"):
+            fa.flash_fwd(q, k, k, seg, tile_visits=visits)
+        with pytest.raises(ValueError, match="on the card only"):
+            fa.flash_bwd_dkv(q, k, k, seg, stats, stats, q, tile_visits=visits)
+    fa._check_tile_visits(q, None)
+
+
+def test_tensor_core_layout_check_names_the_constraint():
+    """The bf16 kernels copy rows in 16-byte chunks: a stride that is no
+    multiple of 8 elements, or a base off 16 bytes, is refused by name."""
+    fused = torch.zeros(1, 8, 4 * 20 + 4, dtype=torch.bfloat16)
+    q = fused[..., : 4 * 20].view(1, 8, 4, 20)[..., :16]  # head stride 20
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fa._check_tensor_core_layout(q)
+    buf = torch.zeros(8 * 4 * 16 + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(1, 8, 4, 16)  # 2 bytes off the allocation
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa._check_tensor_core_layout(shifted)
+    fa._check_tensor_core_layout(torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16))
+
+
+def _sdpa_bf16(q, k, v, do, seg):
+    """``scaled_dot_product_attention`` in bf16 with the same boolean mask:
+    (O, dq, dk, dv) in the port's layout, dk/dv summed over each kv head's
+    query group (the yardstick of the bf16 rule; the port never calls it)."""
+    import torch.nn.functional as F
+
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    groups = hq // hkv
+    mask = fa._flash_mask(seg)
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh = k.transpose(1, 2).repeat_interleave(groups, dim=1).detach().requires_grad_()
+    vh = v.transpose(1, 2).repeat_interleave(groups, dim=1).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    gq, gk, gv = torch.autograd.grad(out, (qh, kh, vh), do.transpose(1, 2))
+    fold = lambda x: x.float().reshape(b, hkv, groups, s, d).sum(2).transpose(1, 2)  # noqa: E731
+    return out.transpose(1, 2).float(), gq.transpose(1, 2).float(), fold(gk), fold(gv)
+
+
+def _fused_views(x_q, x_k, x_v):
+    """q, k, v as strided views of one fused [b, s, (hq + 2 hkv) d] tensor,
+    as a fused projection gives them."""
+    b, s, hq, d = x_q.shape
+    hkv = x_k.shape[2]
+    fused = torch.cat([x_q.reshape(b, s, -1), x_k.reshape(b, s, -1), x_v.reshape(b, s, -1)], dim=-1)
+    q = fused[..., : hq * d].view(b, s, hq, d)
+    k = fused[..., hq * d: (hq + hkv) * d].view(b, s, hkv, d)
+    v = fused[..., (hq + hkv) * d:].view(b, s, hkv, d)
+    return q, k, v
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(200, 64), (200, 128), (1024, 64), (1024, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernels_match_plain_versions_on_the_card(dtype):
-    """The three CUDA kernels against their plain versions on the card (ragged
-    s, GQA, padding): f32 to the bands above; bf16 to the f32 band plus one
-    bf16 ulp (2**-7 of the value), since both compute in f32 and round once."""
+def test_kernels_match_plain_versions_on_the_card(dtype, s, d):
+    """The three CUDA kernels on the card (ragged s, GQA, packed segments with
+    a pad tail, q/k/v strided views of a fused tensor). f32 (the CUDA-core
+    kernels): each against its plain version to the bands above. bf16 (the
+    forward and dk/dv on the tensor cores, which round P and dS to bf16): O,
+    dk and dv within 2x the error of SDPA in bf16 plus 1e-5 of the f32 truth
+    (the plain version on the inputs upcast), LSE within 1e-4 of it; dq (the
+    CUDA-core kernel) to the f32 band plus one bf16 ulp of its plain
+    version on the same LSE and delta."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the flash kernels have no CPU mode")
     dt = getattr(torch, dtype)
-    b, s, hq, hkv, d = 2, 200, 8, 2, 64
+    b, hq, hkv = 2, 8, 2
     q, k, v, do = (torch.from_numpy(x).cuda().to(dt) for x in _inputs(5, b, hq, hkv, s=s, d=d))
-    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
-    seg[1, 150:] = 0
+    q, k, v = _fused_views(q, k, v)
+    seg = torch.from_numpy(np.ascontiguousarray(np.resize(_segments("segments", b), (b, s)))).cuda()
+    seg[1, s - s // 5:] = 0
     counts = [c.launches for c in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)]
     o, lse = fa.flash_fwd(q, k, v, seg)
-    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, seg)
-    delta = fa.flash_delta(o_ref, do)
-    dq = fa.flash_bwd_dq(q, k, v, seg, lse_ref, delta, do)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, seg, lse_ref, delta, do)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, seg, lse, delta, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, seg, lse, delta, do)
     torch.cuda.synchronize()
-    dq_ref = fa.flash_bwd_dq_reference(q, k, v, seg, lse_ref, delta, do)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, seg, lse_ref, delta, do)
-    for got, ref, band in ((o, o_ref, FWD_TOL), (lse, lse_ref, FWD_TOL), (dq, dq_ref, GRAD_TOL),
-                           (dk, dk_ref, GRAD_TOL), (dv, dv_ref, GRAD_TOL)):
-        diff = (got.float() - ref.float()).abs()
-        bound = band + (2.0**-7 * ref.float().abs() if got.dtype == torch.bfloat16 else 0.0)
-        assert bool((diff <= bound).all()), f"max|d| {diff.max().item():.3e}"
     assert [c.launches for c in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)] == [
         n + 1 for n in counts]
+    dq_ref = fa.flash_bwd_dq_reference(q, k, v, seg, lse, delta, do)
+    diff = (dq.float() - dq_ref.float()).abs()
+    ulp = 2.0**-7 * dq_ref.float().abs() if dt == torch.bfloat16 else 0.0
+    assert bool((diff <= GRAD_TOL + ulp).all()), f"dq max|d| {diff.max().item():.3e}"
+    if dt == torch.float32:
+        o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, seg)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, seg, lse, delta, do)
+        for name, got, ref, band in (("o", o, o_ref, FWD_TOL), ("lse", lse, lse_ref, FWD_TOL),
+                                     ("dk", dk, dk_ref, GRAD_TOL), ("dv", dv, dv_ref, GRAD_TOL)):
+            err = (got - ref).abs().max().item()
+            assert err <= band, f"{name} max|d| {err:.3e}"
+        return
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o32, lse32 = fa.flash_attention_fwd_reference(q32, k32, v32, seg)
+    dk32, dv32 = fa.flash_bwd_dkv_reference(q32, k32, v32, seg, lse32, fa.flash_delta(o32, do32), do32)
+    o_sd, _, dk_sd, dv_sd = _sdpa_bf16(q, k, v, do, seg)
+    assert (lse - lse32).abs().max().item() <= 1e-4
+    for name, got, sdpa, truth in (("o", o, o_sd, o32), ("dk", dk, dk_sd, dk32), ("dv", dv, dv_sd, dv32)):
+        err = (got.float() - truth).abs().max().item()
+        limit = 2 * (sdpa - truth).abs().max().item() + 1e-5
+        assert err <= limit, f"{name}: max|kernel - f32| {err:.3e} > 2 x SDPA's + 1e-5 = {limit:.3e}"
+        # row by row (the d entries of one position and head), so that small
+        # rows are held to their own scale: + half a bf16 ulp of the row's max
+        row_err = (got.float() - truth).abs().amax(-1)
+        row_limit = (2 * (sdpa - truth).abs().amax(-1) + 2.0**-8 * truth.abs().amax(-1) + 1e-5)
+        over = int((row_err > row_limit).sum())
+        assert over == 0, f"{name}: {over} rows beyond 2 x SDPA's error in the row + 2**-8 x max|row| + 1e-5"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [200, 1024])
+@pytest.mark.parametrize("kind", ["padding", "segments", "random"])
+def test_tensor_core_kernels_count_the_tile_pairs_of_flash_tile_pairs_on_the_card(kind, s):
+    """The bf16 forward and dk/dv count every tile pair they compute, once
+    per query head: pair by pair that is ``flash_tile_pairs`` x hq, so the
+    kernels' own skip rule is the one the CPU tests hold to the dense mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels have no CPU mode")
+    b, hq, hkv, d = 3, 8, 2, 64
+    q, k, v, do = (torch.from_numpy(x).cuda().to(torch.bfloat16) for x in _inputs(9, b, hq, hkv, s=s, d=d))
+    if kind == "random":
+        rng = np.random.default_rng(s)
+        seg = np.sort(rng.integers(0, 4, (b, s)), axis=1)
+        seg[1] = rng.integers(0, 3, s)  # unsorted ids
+    elif kind == "segments":
+        seg = np.resize(_segments(kind, b), (b, s))
+    else:
+        seg = np.arange(s)[None, :] < np.asarray([s, s // 2, 9])[:, None]
+    seg = torch.from_numpy(np.ascontiguousarray(seg, dtype=np.int32)).cuda()
+    n = -(-s // fa.FLASH_TILE)
+    fwd_visits = torch.zeros(b, n, n, dtype=torch.int32, device="cuda")
+    dkv_visits = torch.zeros_like(fwd_visits)
+    o, lse = fa.flash_fwd(q, k, v, seg, tile_visits=fwd_visits)
+    fa.flash_bwd_dkv(q, k, v, seg, lse, fa.flash_delta(o, do), do, tile_visits=dkv_visits)
+    predicted = fa.flash_tile_pairs(seg.cpu()).to(torch.int32) * hq
+    assert torch.equal(fwd_visits.cpu(), predicted)
+    assert torch.equal(dkv_visits.cpu(), predicted)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_refuse_a_misaligned_stride_on_the_card():
+    """A bf16 CUDA tensor the tensor-core kernels cannot copy raises; it never
+    falls back to another path, and no launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels have no CPU mode")
+    b, s, hq, hkv, d = 1, 64, 4, 2, 16
+    fused = torch.zeros(b, s, (hq + 2 * hkv) * d + 4, dtype=torch.bfloat16, device="cuda")
+    q = fused[..., : hq * d].view(b, s, hq, d)  # position stride (hq + 2 hkv) d + 4
+    k = torch.zeros(b, s, hkv, d, dtype=torch.bfloat16, device="cuda")
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    stats = torch.zeros(b, hq, s, device="cuda")
+    counts = [fa.flash_fwd.launches, fa.flash_bwd_dkv.launches]
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fa.flash_fwd(q, k, k, seg)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fa.flash_bwd_dkv(q, k, k, seg, stats, stats, q)
+    assert [fa.flash_fwd.launches, fa.flash_bwd_dkv.launches] == counts
