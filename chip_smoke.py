@@ -21,12 +21,12 @@ and stops with a non-zero exit at the first failure:
    (``torch.profiler`` over a few steps, device kernels grouped by name);
 7. holds the flash-attention forward, dq and dk/dv kernels to their plain
    versions (f32: the CUDA-core kernels, to the JAX package's bands; bf16:
-   the tensor-core forward and dk/dv within 2x the error of
+   the tensor-core kernels within 2x the error of
    ``scaled_dot_product_attention`` in bf16 of an f32 truth, over the whole
    tensor and row by row, at d 128 and 64, ragged and packed segments; planted
-   faults must fail the row rule), has the kernels count the tile pairs they
-   compute against ``flash_tile_pairs``, and times them beside SDPA at the
-   training shapes, with and without pairs to skip;
+   dq and dk/dv faults must fail the row rule), has the kernels count the
+   tile pairs they compute against ``flash_tile_pairs``, and times them
+   beside SDPA at the training shapes, with and without pairs to skip;
 8. trains SmolLM3-3B at full width (random weights from a seed) for 3
    optimizer steps through ``SFTTrainer`` with the reference recipe: every
    attention must go through the flash kernels, frozen leaves stay
@@ -37,13 +37,15 @@ and stops with a non-zero exit at the first failure:
    microbatch runs again with every token marked real (nothing to skip);
 9. one full-width f32 microbatch through the loss function, with the
    kernels and with their plain versions: the loss and every gradient;
-10. holds the w8a8 int8 matmul kernel bitwise against its plain version at
-   the frozen trunk's projection shapes (M = 8192) and ragged ones, and times
-   it beside ``torch._int_mm`` and a bf16 ``torch.matmul``;
+10. holds the w8a8 int8 matmul kernel on K-major codes bitwise against its
+   plain version at the frozen trunk's projection shapes (M = 8192) and
+   ragged ones (K off the 128-byte step and off 16 included), and times it
+   beside ``torch._int_mm`` on the same codes and a bf16 ``torch.matmul``;
 11. trains SmolLM3-3B as in phase 8 with ``frozen_compute="int8"``: layers
    0-33 run every projection through the w8a8 kernel under no_grad, the
    last two layers through the flash kernels; launches as derived, the
-   trunk's codes bit-unchanged, ``best_model/`` holds the decoded trunk;
+   trunk's codes K-major and bit-unchanged, peak memory at most 28.5 GB,
+   ``best_model/`` holds the decoded trunk;
 12. one full-width f32 microbatch with the int8 trunk, the w8a8 kernel
    against its plain version (plain attention in both): loss and gradients.
 
@@ -54,15 +56,17 @@ lines are JSON: a summary of the run, ``{"kernels": [...]}``
 Without a GPU it exits non-zero before printing either.
 
 ``python3 chip_smoke.py --flash-ab DIR [DIR ...]`` times instead the flash
-kernels of one or more checkouts of this repo with this script's
+and w8a8 kernels of one or more checkouts of this repo with this script's
 ``time_ms``, for an A/B of two commits within one call: each DIR (the root
 of a checkout, for example the parent's ``git archive`` unpacked under
 ``build/``) runs in a process of its own, in the order given (parent,
 change, change, parent), builds its own ``csrc/`` and times its
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` and SDPA at phase 7's
-shape, with the spin and without it (how earlier records were timed), and the
-kernels again with every row one segment (nothing to skip). One JSON line
-per checkout; the last line lists them all.
+shape, with the spin and without it (how earlier records were timed), the
+flash kernels again with every row one segment (nothing to skip), and its
+``w8a8_matmul`` over one trunk layer's 7 projections at M = 8192 on codes
+made by its own ``parallel.freeze.quantize_trunk_int8``. One JSON line per
+checkout; the last line lists them all.
 """
 
 from __future__ import annotations
@@ -563,33 +567,32 @@ FLASH_LENGTHS = (1024, 1000, 700, 513, 512, 300, 129, 1)
 # f32 inputs (the CUDA-core kernels): the JAX package's own bands
 # (tests/test_flash_attention.py), kernel against plain on the same inputs
 FLASH_F32_TOL = {"o": 2e-5, "lse": 2e-5, "dq": 5e-5, "dk": 5e-5, "dv": 5e-5}
-# bf16 inputs: the tensor-core forward and dk/dv take P and dS as bf16
-# operands, so they are held as FlashAttention's own tests hold theirs: the
-# max error against an f32 truth (the plain version on the inputs upcast)
-# within 2x that of SDPA in bf16 on the same inputs, plus 1e-5. LSE's scores
-# are exact bf16 products summed in f32, so only the order of the sum
-# differs. dq (the CUDA-core kernel) computes in f32 and rounds once: the f32
-# band plus one bf16 ulp (2**-7 of the value) of its plain version on the
-# same LSE and delta.
+# bf16 inputs: the tensor-core kernels take P and dS as bf16 operands, so
+# they are held as FlashAttention's own tests hold theirs: the max error
+# against an f32 truth (the plain version on the inputs upcast) within 2x
+# that of SDPA in bf16 on the same inputs, plus 1e-5. LSE's scores are exact
+# bf16 products summed in f32, so only the order of the sum differs.
 FLASH_SDPA_FACTOR, FLASH_SDPA_ATOL, FLASH_LSE_TOL = 2.0, 1e-5, 1e-4
 # The same rule row by row (a row: the d entries of one position and head),
-# so that small rows (dk/dv of late keys, O of short segments) are held to
+# so that small rows (dk/dv of late keys, O and dq of short segments) are held to
 # their own scale: max|kernel - truth| over the row <= 2 x SDPA's in that row
 # + half a bf16 ulp of the row's largest |truth| + 1e-5.
 FLASH_ROW_HALF_ULP = 2.0**-8
 # planted faults that the row rule must fail (bf16, ragged, d 128): dk/dv
-# with the diagonal pair of one key tile dropped, and dk without one query
-# head's share
-FLASH_FAULT_TILE, FLASH_FAULT_HEAD = 12, 1
-FLASH_TOLERANCE = ("bf16 tensor cores (flash_fwd, flash_bwd_dkv): O, dk, dv max|kernel - f32 truth| <= "
-                   "2 x SDPA bf16's + 1e-5 over the tensor, and per row <= 2 x SDPA's in the row + "
-                   "2**-8 x the row's max|truth| + 1e-5; LSE <= 1e-4; bf16 dq (CUDA cores): the f32 band + "
-                   "2**-7 x |plain|; f32 (CUDA cores): max|kernel - plain| <= 2e-5 (O, LSE), "
-                   "5e-5 (dq, dk, dv)")
+# with the diagonal pair of one key tile dropped, dk without one query
+# head's share; dq with the diagonal pair of one query tile dropped, and dq
+# without one key tile's share
+FLASH_FAULT_TILE, FLASH_FAULT_HEAD, FLASH_FAULT_KEY_TILE = 12, 1, 3
+FLASH_TOLERANCE = ("bf16 tensor cores (flash_fwd, flash_bwd_dq, flash_bwd_dkv): O, dq, dk, dv "
+                   "max|kernel - f32 truth| <= 2 x SDPA bf16's + 1e-5 over the tensor, and per row <= "
+                   "2 x SDPA's in the row + 2**-8 x the row's max|truth| + 1e-5; LSE <= 1e-4; f32 "
+                   "(CUDA cores): max|kernel - plain| <= 2e-5 (O, LSE), 5e-5 (dq, dk, dv)")
 FLASH_DESIGN = {
     "flash_fwd": ("flash_fwd_tc_kernel", "bf16 mma.sync m16n8k16, cp.async ring, segment-aware "
                                          "tile skipping; f32: CUDA-core flash_fwd_kernel"),
-    "flash_bwd_dq": ("flash_bwd_dq_kernel", "f32 arithmetic on CUDA cores (bf16 and f32 inputs)"),
+    "flash_bwd_dq": ("flash_bwd_dq_tc_kernel", "bf16 mma.sync m16n8k16 (S, dP, dS K), cp.async "
+                                               "ring, segment-aware tile skipping; f32: CUDA-core "
+                                               "flash_bwd_dq_kernel"),
     "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel", "bf16 mma.sync m16n8k16, cp.async ring, "
                                                  "segment-aware tile skipping; f32: CUDA-core "
                                                  "flash_bwd_dkv_kernel"),
@@ -664,9 +667,9 @@ def flash_bounds(q, k, seg, peaks):
 
 
 def sdpa_bf16(q, k, v, do, seg):
-    """The bf16 yardstick, never called by the port: O and dk/dv (summed over
-    each kv head's query group) of ``scaled_dot_product_attention`` in bf16
-    with the same boolean mask, in the port's layout, as f32."""
+    """The bf16 yardstick, never called by the port: O, dq and dk/dv (summed
+    over each kv head's query group) of ``scaled_dot_product_attention`` in
+    bf16 with the same boolean mask, in the port's layout, as f32."""
     import torch.nn.functional as F
 
     b, s, hq, d = q.shape
@@ -678,9 +681,9 @@ def sdpa_bf16(q, k, v, do, seg):
     kh = k.transpose(1, 2).repeat_interleave(groups, dim=1).detach().requires_grad_()
     vh = v.transpose(1, 2).repeat_interleave(groups, dim=1).detach().requires_grad_()
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-    _, gk, gv = torch.autograd.grad(out, (qh, kh, vh), do.transpose(1, 2))
+    gq, gk, gv = torch.autograd.grad(out, (qh, kh, vh), do.transpose(1, 2))
     fold = lambda x: x.float().reshape(b, hkv, groups, s, d).sum(2).transpose(1, 2)  # noqa: E731
-    return out.detach().transpose(1, 2).float(), fold(gk), fold(gv)
+    return out.detach().transpose(1, 2).float(), gq.transpose(1, 2).float(), fold(gk), fold(gv)
 
 
 def row_rule(got, truth, sdpa):
@@ -692,20 +695,40 @@ def row_rule(got, truth, sdpa):
     return int((err > limit).sum()), err.numel(), float((err / limit).max())
 
 
+def fault_caught(fault, name, faulty, truth, sdpa, label):
+    """The row rule on one planted fault of output ``name``: a record; fails
+    unless at least one row is over its limit."""
+    over, rows, worst = row_rule(faulty, truth, sdpa)
+    whole = (faulty - truth).abs().max().item()
+    whole_limit = FLASH_SDPA_FACTOR * (sdpa - truth).abs().max().item() + FLASH_SDPA_ATOL
+    check(over > 0, f"flash {label}: the row rule passes the planted fault '{fault}' on {name}")
+    phase(7, f"{label} planted fault '{fault}' on {name}: the row rule fails it ({over} of "
+             f"{rows} rows over, worst {worst:.1f}x its limit); the whole-tensor rule "
+             f"{'fails' if whole > whole_limit else 'passes'} it ({whole:.3e} vs {whole_limit:.3e})")
+    return {"rows_over": over, "rows": rows, "worst_row_ratio": worst,
+            "whole_tensor_rule_fails": whole > whole_limit}
+
+
 def planted_faults(fa, inputs32, seg, lse32, o32, truth, got, sdpa, label):
-    """Faults that the row rule must fail, made from the kernels' own dk/dv
-    plus the exact change a fault makes to the f32 truth: (1) the diagonal
-    pair of key tile FLASH_FAULT_TILE dropped (dk, dv of its keys lose the
-    queries of the same tile: their dO zeroed in the truth), (2) dk without
-    query head FLASH_FAULT_HEAD's share. Returns one record per fault; fails
-    unless the row rule catches each."""
+    """Faults that the row rule must fail, made from the kernels' own outputs
+    plus the exact change a fault makes to the f32 truth. dk/dv: (1) the
+    diagonal pair of key tile FLASH_FAULT_TILE dropped (dk, dv of its keys
+    lose the queries of the same tile: their dO zeroed in the truth), (2) dk
+    without query head FLASH_FAULT_HEAD's share. dq: (3) the diagonal pair of
+    query tile FLASH_FAULT_TILE dropped and (4) the share of key tile
+    FLASH_FAULT_KEY_TILE dropped (that key tile's K zeroed in the truth,
+    whose LSE and delta are given: its keys then add nothing to dq, and no
+    other key's term changes; (3) keeps the change on the tile's own query
+    rows only). Returns {kernel: [one record per fault]}; fails unless the
+    row rule catches each."""
     q32, k32, v32, do32 = inputs32
-    tile = slice(FLASH_FAULT_TILE * fa.FLASH_TILE, (FLASH_FAULT_TILE + 1) * fa.FLASH_TILE)
+    tile_of = lambda t: slice(t * fa.FLASH_TILE, (t + 1) * fa.FLASH_TILE)  # noqa: E731
+    tile = tile_of(FLASH_FAULT_TILE)
     drop_tile = do32.clone()
     drop_tile[:, tile] = 0
     drop_head = do32.clone()
     drop_head[:, :, FLASH_FAULT_HEAD] = 0
-    out = []
+    out = {"flash_bwd_dkv": [], "flash_bwd_dq": []}
     for fault, do_f, names in (
             (f"diagonal pair of key tile {FLASH_FAULT_TILE} dropped", drop_tile, ("dk", "dv")),
             (f"query head {FLASH_FAULT_HEAD}'s share of dk dropped", drop_head, ("dk",))):
@@ -718,17 +741,22 @@ def planted_faults(fa, inputs32, seg, lse32, o32, truth, got, sdpa, label):
                 keep = torch.zeros_like(shift)
                 keep[:, tile] = shift[:, tile]
                 shift = keep
-            faulty = got[name].float() + shift
-            over, rows, worst = row_rule(faulty, truth[name], sdpa[name])
-            whole = (faulty - truth[name]).abs().max().item()
-            whole_limit = FLASH_SDPA_FACTOR * (sdpa[name] - truth[name]).abs().max().item() + FLASH_SDPA_ATOL
-            rec[name] = {"rows_over": over, "rows": rows, "worst_row_ratio": worst,
-                         "whole_tensor_rule_fails": whole > whole_limit}
-            check(over > 0, f"flash {label}: the row rule passes the planted fault '{fault}' on {name}")
-            phase(7, f"{label} planted fault '{fault}' on {name}: the row rule fails it ({over} of "
-                     f"{rows} rows over, worst {worst:.1f}x its limit); the whole-tensor rule "
-                     f"{'fails' if whole > whole_limit else 'passes'} it ({whole:.3e} vs {whole_limit:.3e})")
-        out.append(rec)
+            rec[name] = fault_caught(fault, name, got[name].float() + shift, truth[name],
+                                     sdpa[name], label)
+        out["flash_bwd_dkv"].append(rec)
+    delta32 = fa.flash_delta(o32, do32)
+    for fault, t, own_rows in (
+            (f"diagonal pair of query tile {FLASH_FAULT_TILE} dropped", FLASH_FAULT_TILE, True),
+            (f"key tile {FLASH_FAULT_KEY_TILE}'s share of dq dropped", FLASH_FAULT_KEY_TILE, False)):
+        k_drop = k32.clone()
+        k_drop[:, tile_of(t)] = 0
+        shift = fa.flash_bwd_dq_reference(q32, k_drop, v32, seg, lse32, delta32, do32) - truth["dq"]
+        if own_rows:  # only the tile's own queries lose the pair
+            keep = torch.zeros_like(shift)
+            keep[:, tile_of(t)] = shift[:, tile_of(t)]
+            shift = keep
+        out["flash_bwd_dq"].append({"fault": fault, "outputs": ["dq"], "dq": fault_caught(
+            fault, "dq", got["dq"].float() + shift, truth["dq"], sdpa["dq"], label)})
     return out
 
 
@@ -737,10 +765,9 @@ def flash_check(fa, dtype, kind, d=None, faults=None):
     kernel against its plain version on the same inputs (the backward kernels
     get the plain forward's LSE and delta), within FLASH_F32_TOL. bf16: the
     chain the training path runs (the kernels' own LSE and delta), O, LSE,
-    dk and dv against the f32 truth by the SDPA-relative rule over the whole
-    tensor and row by row, dq against its plain version on the same LSE and
-    delta; at the ragged d-128 case the planted faults are appended to
-    ``faults``."""
+    dq, dk and dv against the f32 truth by the SDPA-relative rule over the
+    whole tensor and row by row; at the ragged d-128 case the planted faults
+    are added to ``faults`` ({kernel: [records]})."""
     q, k, v, do = flash_inputs(dtype, seed=1 if kind == "packed" else 0, d=d)
     seg = flash_segments_case(kind, q.shape[0], q.shape[1])
     label = f"{kind} {str(dtype).split('.')[-1]} d={q.shape[-1]}"
@@ -771,26 +798,20 @@ def flash_check(fa, dtype, kind, d=None, faults=None):
     torch.cuda.synchronize()
     for name, got in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
         check(bool(torch.isfinite(got).all()), f"flash {label} {name}: not finite")
-    dq_ref = fa.flash_bwd_dq_reference(q, k, v, seg, lse, delta, do)
-    diff = (dq.float() - dq_ref.float()).abs()
-    over = (diff > FLASH_F32_TOL["dq"] + 2.0**-7 * dq_ref.float().abs()).sum().item()
-    errs["dq"] = diff.max().item()
-    check(over == 0, f"flash {label} dq: {over} elements beyond {FLASH_F32_TOL['dq']} + 2**-7 x "
-                     f"|plain| (max|d| {errs['dq']:.3e})")
-    phase(7, f"{label} dq (CUDA cores): max|kernel-plain| {errs['dq']:.3e}, max|plain| "
-             f"{dq_ref.float().abs().max().item():.3e}")
-    del dq, dq_ref, diff
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     o32, lse32 = fa.flash_attention_fwd_reference(q32, k32, v32, seg)
-    dk32, dv32 = fa.flash_bwd_dkv_reference(q32, k32, v32, seg, lse32, fa.flash_delta(o32, do32), do32)
+    delta32 = fa.flash_delta(o32, do32)
+    dq32 = fa.flash_bwd_dq_reference(q32, k32, v32, seg, lse32, delta32, do32)
+    dk32, dv32 = fa.flash_bwd_dkv_reference(q32, k32, v32, seg, lse32, delta32, do32)
+    del delta32
     errs["lse"] = (lse - lse32).abs().max().item()
     check(errs["lse"] <= FLASH_LSE_TOL, f"flash {label} lse: max|kernel - f32 truth| {errs['lse']:.3e} "
                                         f"> {FLASH_LSE_TOL}")
     phase(7, f"{label} lse: max|kernel - f32 truth| {errs['lse']:.3e} (limit {FLASH_LSE_TOL})")
-    sdpa = dict(zip(("o", "dk", "dv"), sdpa_bf16(q, k, v, do, seg)))
-    truth = {"o": o32, "dk": dk32, "dv": dv32}
-    got = {"o": o, "dk": dk, "dv": dv}
-    for name in ("o", "dk", "dv"):
+    sdpa = dict(zip(("o", "dq", "dk", "dv"), sdpa_bf16(q, k, v, do, seg)))
+    truth = {"o": o32, "dq": dq32, "dk": dk32, "dv": dv32}
+    got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    for name in ("o", "dq", "dk", "dv"):
         err = (got[name].float() - truth[name]).abs().max().item()
         ref_err = (sdpa[name] - truth[name]).abs().max().item()
         limit = FLASH_SDPA_FACTOR * ref_err + FLASH_SDPA_ATOL
@@ -806,7 +827,8 @@ def flash_check(fa, dtype, kind, d=None, faults=None):
                  f"({err / ref_err:.2f}x; limit {limit:.3e}), max|truth| "
                  f"{truth[name].abs().max().item():.3e}; per row at most {worst:.2f}x the row limit")
     if faults is not None and kind == "ragged" and q.shape[-1] == FLASH_SHAPE["d"]:
-        faults += planted_faults(fa, (q32, k32, v32, do32), seg, lse32, o32, truth, got, sdpa, label)
+        faults.update(planted_faults(fa, (q32, k32, v32, do32), seg, lse32, o32, truth, got, sdpa,
+                                     label))
     return errs
 
 
@@ -834,16 +856,18 @@ def sdpa_times(q, k, v, do, seg, spin=True):
 
 
 def count_tile_visits(fa, q, k, v, do, seg):
-    """{kernel: int32 [b, n, n]}: the tile pairs the bf16 forward and dk/dv
-    kernels compute on these inputs, counted by the kernels themselves (one
-    per query head and pair), and ``flash_tile_pairs``' prediction of the
-    same count; fails unless they agree pair by pair."""
+    """{kernel: int32 [b, n, n]}: the tile pairs the bf16 forward, dq and
+    dk/dv kernels compute on these inputs, counted by the kernels themselves
+    (one per query head and pair), and ``flash_tile_pairs``' prediction of
+    the same count; fails unless they agree pair by pair."""
     b, s, hq = q.shape[:3]
     n = -(-s // fa.FLASH_TILE)
     visits = {name: torch.zeros(b, n, n, dtype=torch.int32, device=DEVICE)
-              for name in ("flash_fwd", "flash_bwd_dkv")}
+              for name in FLASH_DESIGN}
     o, lse = fa.flash_fwd(q, k, v, seg, tile_visits=visits["flash_fwd"])
-    fa.flash_bwd_dkv(q, k, v, seg, lse, fa.flash_delta(o, do), do, tile_visits=visits["flash_bwd_dkv"])
+    delta = fa.flash_delta(o, do)
+    fa.flash_bwd_dq(q, k, v, seg, lse, delta, do, tile_visits=visits["flash_bwd_dq"])
+    fa.flash_bwd_dkv(q, k, v, seg, lse, delta, do, tile_visits=visits["flash_bwd_dkv"])
     predicted = fa.flash_tile_pairs(seg).to(torch.int32) * hq
     for name, counted in visits.items():
         wrong = int((counted != predicted).sum())
@@ -859,7 +883,7 @@ def flash_kernel_phase(fa, peaks):
     bf16 (ragged), and again with every row one segment (the causal pairs
     only: nothing for the segment rule to skip)."""
     errs = {torch.float32: {}, torch.bfloat16: {}}
-    faults: list = []
+    faults: dict = {}
     cases = [(torch.float32, kind, None) for kind in ("ragged", "packed")]
     cases += [(torch.bfloat16, kind, d) for d in (128, 64) for kind in ("ragged", "packed")]
     for dtype, kind, d in cases:
@@ -870,19 +894,19 @@ def flash_kernel_phase(fa, peaks):
     seg = flash_segments_case("ragged", b, s)
     n = -(-s // fa.FLASH_TILE)
     counted = count_tile_visits(fa, q, k, v, do, seg)
-    visited = {name: int(counted[name].sum()) for name in ("flash_fwd", "flash_bwd_dkv")}
+    visited = {name: int(counted[name].sum()) for name in FLASH_DESIGN}
     causal = b * n * (n + 1) // 2 * hq
     phase(7, f"tile pairs computed (ragged, b={b}, {hq} query heads), counted by the kernels: "
-             f"flash_fwd_tc_kernel {visited['flash_fwd']}, flash_bwd_dkv_tc_kernel "
-             f"{visited['flash_bwd_dkv']} of {causal} under the causal limit "
-             f"({100 * visited['flash_fwd'] / causal:.1f}%); flash_tile_pairs predicts "
-             f"{int(counted['predicted'].sum())}, equal pair by pair")
+             + ", ".join(f"{FLASH_DESIGN[name][0]} {visited[name]}" for name in FLASH_DESIGN)
+             + f" of {causal} under the causal limit ({100 * visited['flash_fwd'] / causal:.1f}%); "
+             f"flash_tile_pairs predicts {int(counted['predicted'].sum())}, equal pair by pair")
     o, lse = fa.flash_fwd(q, k, v, seg)
     delta = fa.flash_delta(o, do)
     one = torch.ones_like(seg)  # every row one segment: the causal pairs only
     o1, lse1 = fa.flash_fwd(q, k, v, one)
     delta1 = fa.flash_delta(o1, do)
     no_skip = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, one),
+               "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, one, lse1, delta1, do),
                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, one, lse1, delta1, do)}
     timed = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, seg),
@@ -895,8 +919,8 @@ def flash_kernel_phase(fa, peaks):
     bounds = flash_bounds(q, k, seg, peaks)
     sdpa_fwd_ms, sdpa_bwd_ms = sdpa_times(q, k, v, do, seg)
     smem = fa.flash_tc_smem_bytes(q.shape[-1], q.shape[1])
-    phase(7, f"shared memory per block at d={q.shape[-1]} s={q.shape[1]}: flash_fwd_tc_kernel "
-             f"{smem['flash_fwd']} B, flash_bwd_dkv_tc_kernel {smem['flash_bwd_dkv']} B")
+    phase(7, f"shared memory per block at d={q.shape[-1]} s={q.shape[1]}: "
+             + ", ".join(f"{FLASH_DESIGN[name][0]} {smem[name]} B" for name in FLASH_DESIGN))
     record = {}
     for name, (kernel, plain) in timed.items():
         ms, plain_ms = time_ms(kernel), time_ms(plain)
@@ -911,20 +935,19 @@ def flash_kernel_phase(fa, peaks):
                         "max_abs_err": err[torch.bfloat16], "max_abs_err_f32": err[torch.float32],
                         "flops": flops, "bytes": nbytes, "tflops_on_visible_pairs": tflops,
                         "fraction_of_bound": bound_ms / ms}
-        if name != "flash_bwd_dq":
-            one_ms = time_ms(no_skip[name])
-            record[name].update({"smem_bytes_per_block": smem[name],
-                                 "tile_pairs_visited": visited[name],
-                                 "tile_pairs_predicted": int(counted["predicted"].sum()),
-                                 "tile_pairs_causal": causal,
-                                 "ms_one_segment_per_row": one_ms,
-                                 "max_abs_err_sdpa_bf16": max(errs[torch.bfloat16][f"{o}_sdpa"]
-                                                              for o in outputs if o != "lse"),
-                                 "worst_row_ratio": max(errs[torch.bfloat16][f"{o}_worst_row_ratio"]
-                                                        for o in outputs if o != "lse"),
-                                 **({"planted_faults": faults} if name == "flash_bwd_dkv" else {})})
-            phase(7, f"{name}: {ms:.3f} ms on the ragged rows ({visited[name]} tile pairs) vs "
-                     f"{one_ms:.3f} ms with every row one segment ({causal}, nothing to skip)")
+        one_ms = time_ms(no_skip[name])
+        record[name].update({"smem_bytes_per_block": smem[name],
+                             "tile_pairs_visited": visited[name],
+                             "tile_pairs_predicted": int(counted["predicted"].sum()),
+                             "tile_pairs_causal": causal,
+                             "ms_one_segment_per_row": one_ms,
+                             "max_abs_err_sdpa_bf16": max(errs[torch.bfloat16][f"{o}_sdpa"]
+                                                          for o in outputs if o != "lse"),
+                             "worst_row_ratio": max(errs[torch.bfloat16][f"{o}_worst_row_ratio"]
+                                                    for o in outputs if o != "lse"),
+                             **({"planted_faults": faults[name]} if name in faults else {})})
+        phase(7, f"{name}: {ms:.3f} ms on the ragged rows ({visited[name]} tile pairs) vs "
+                 f"{one_ms:.3f} ms with every row one segment ({causal}, nothing to skip)")
         phase(7, f"{name} bf16 b=8 s=1024 hq=16 hkv=4 d=128 ragged: kernel {ms:.3f} ms "
                  f"({tflops:.1f} TFLOP/s on the visible pairs, {100 * bound_ms / ms:.1f}% of the "
                  f"bound), plain {plain_ms:.3f} ms, SDPA "
@@ -944,6 +967,9 @@ TRAIN_ROWS = 120  # -> 108 train rows, 12 validation rows, 3 steps of 32
 # kernels round P and dS to bf16, and must stay within 0.5% of these
 RECORDED_LOSSES = {8: ([12.327, 11.561, 11.072], 10.772), 11: ([12.331, 11.684, 11.246], 10.986)}
 LOSS_RECORDED_REL_TOL = 5e-3
+# phase 11's peak memory at the last step (28.03 GB with N-major codes): K-major
+# codes must come with no second copy of the trunk
+INT8_TRUNK_PEAK_BYTES = 28.5e9
 TRAIN_PROMPT = "You are a wilderness survival expert."
 # full-width f32 microbatch, kernels against plain versions: the loss to
 # 1e-5 relative, each trainable leaf's gradient to 1e-4 of its largest entry
@@ -1020,6 +1046,11 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     n_int8 = sum(k.endswith("_int8") for k in frozen_before)
     phase(phase_no, f"{len(frozen_before)} frozen leaves bit-unchanged ({n_int8} int8 code leaves and "
                     f"their scales among them), {len(trainable_before)} trainable leaves moved")
+    if n_int8:  # the layout the w8a8 kernel reads: [in, out] with strides (1, in)
+        codes = {k: v for k, v in trainer.state.frozen.items() if k.endswith(".kernel_int8")}
+        not_kmajor = [k for k, v in codes.items() if v.stride() != (1, v.shape[0])]
+        check(not not_kmajor, f"trunk codes not K-major: {not_kmajor[:3]}")
+        phase(phase_no, f"all {len(codes)} trunk code leaves are K-major ([in, out], strides (1, in))")
     del frozen_before, trainable_before
 
     # launches: the trunk's layers run one forward per microbatch (no
@@ -1096,6 +1127,9 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     check(len(losses) >= 3 and max(rel) <= LOSS_RECORDED_REL_TOL,
           f"losses {losses[:3]} / eval {summary['final_eval_loss']} beyond {LOSS_RECORDED_REL_TOL} "
           f"of the recorded {recorded} / {recorded_eval}")
+    if trunk:
+        check(train_peak <= INT8_TRUNK_PEAK_BYTES, f"int8-trunk peak memory {train_peak / 1e9:.2f} GB > "
+                                                   f"{INT8_TRUNK_PEAK_BYTES / 1e9} GB")
     phase(phase_no, f"steps 2-3: median step {step_ms:.1f} ms, {samples_per_s:.2f} samples/s/card, "
                     f"{real_tokens_per_s:.0f} real tokens/s/card, max_memory_allocated "
                     f"{peak / 1e9:.2f} GB ({train_peak / 1e9:.2f} GB at the last step, before the export)")
@@ -1292,7 +1326,7 @@ def train_profile_phase(trainer, mm):
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     per_flash = {}
-    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_kernel"):
+    for kernel in (design[0] for design in FLASH_DESIGN.values()):
         rows = [(t, c) for name, (t, c) in by_name.items() if f"{kernel}<" in name]
         per_flash[kernel] = {"ms": sum(t for t, _ in rows) / 1e3, "calls": sum(c for _, c in rows)}
         check(bool(rows), f"the profiled microbatch ran no {kernel}")
@@ -1337,27 +1371,31 @@ def train_profile_phase(trainer, mm):
 W8A8_M = 8192
 W8A8_SHAPES = (("q_proj/o_proj", 2048, 2048, 2), ("k_proj/v_proj", 2048, 512, 2),
                ("gate_proj/up_proj", 2048, 11008, 2), ("down_proj", 11008, 2048, 1))
-# extra cases: an f32 output, and ragged M and N (N = 100 is no multiple of 4,
-# so the kernel takes its byte-wise edge loads and unpaired stores)
+# extra cases: an f32 output, ragged M and N, K off the kernel's 128-byte
+# step (the last step zero-filled), and K off 16 (byte loads in place of
+# cp.async)
 W8A8_EXTRA = (("f32 q_proj", 8192, 2048, 2048, torch.float32),
               ("ragged gate_proj", 1000, 2048, 11008, torch.bfloat16),
-              ("ragged N=100", 1000, 2048, 100, torch.bfloat16))
+              ("ragged N=100", 1000, 2048, 100, torch.bfloat16),
+              ("ragged K=2000", 1000, 2000, 2048, torch.bfloat16),
+              ("ragged K=2004", 1000, 2004, 257, torch.bfloat16))
 INT8_OPS_PER_S = 1979e12  # H100 SXM5 data sheet, dense int8 tensor-core rate
 W8A8_TOLERANCE = "bitwise (torch.equal): the int32 sum is exact and both round once"
 
 
 def w8a8_inputs(m, k, n, seed=0):
     """Trunk-like operands made on the card: activations quantized per row,
-    a 0.02-scale weight quantized per column."""
+    a 0.02-scale weight quantized per column, its codes K-major as the trunk
+    keeps them."""
     from llm_fine_tune_distributed_tpu_torch.ops.int8 import quantize_int8
-    from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import quantize_rows_int8
+    from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import kmajor, quantize_rows_int8
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.randn(m, k, generator=gen, device=DEVICE).to(torch.bfloat16)
     w = torch.randn(k, n, generator=gen, device=DEVICE).mul_(0.02)
     q = quantize_int8(w)
     xq, xs = quantize_rows_int8(x)
-    return x, w.to(torch.bfloat16), xq, xs, q["int8"], q["int8_scale"]
+    return x, w.to(torch.bfloat16), xq, xs, kmajor(q["int8"]), q["int8_scale"]
 
 
 def w8a8_bound(m, k, n, out_bytes, peaks):
@@ -1381,19 +1419,20 @@ def int_mm_ms(xq, wq):
 def w8a8_kernel_phase(mm, peaks):
     """Phase 10: the kernel bitwise against its plain version at every case,
     then times at the trunk's shapes beside the plain version,
-    ``torch._int_mm`` (int8 x int8 -> int32 only: no row/column scales, no
-    cast) and a bf16 ``torch.matmul`` of the same shape (the bf16 trunk's
-    projection). Returns the kernels-line record: times summed over one
-    trunk layer's 7 projections."""
+    ``torch._int_mm`` on the same K-major codes (int8 x int8 -> int32 only:
+    no row/column scales, no cast) and a bf16 ``torch.matmul`` of the same
+    shape (the bf16 trunk's projection). Returns the kernels-line record:
+    times summed over one trunk layer's 7 projections."""
     shapes = []
     for name, k, n, count in W8A8_SHAPES:
         shapes.append((name, W8A8_M, k, n, torch.bfloat16, count))
     shapes += [(name, m, k, n, dt, 0) for name, m, k, n, dt in W8A8_EXTRA]
     layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-             "library_kmajor_ms": 0.0, "bf16_matmul_ms": 0.0, "quantize_rows_ms": 0.0}
+             "bf16_matmul_ms": 0.0, "quantize_rows_ms": 0.0}
     per_shape = []
     for i, (name, m, k, n, dt, count) in enumerate(shapes):
         x, w, xq, xs, wq, ws = w8a8_inputs(m, k, n, seed=i)
+        check(wq.stride() == (1, k), f"w8a8 {name}: codes not K-major, strides {wq.stride()}")
         out = mm.w8a8_matmul(xq, xs, wq, ws, dt)
         torch.cuda.synchronize()
         ref = mm.int8_w8a8_matmul_reference(xq, xs, wq, ws, dt)
@@ -1409,15 +1448,12 @@ def w8a8_kernel_phase(mm, peaks):
             row["ms"] = time_ms(lambda: mm.w8a8_matmul(xq, xs, wq, ws, dt))
             row["plain_ms"] = time_ms(lambda: mm.int8_w8a8_matmul_reference(xq, xs, wq, ws, dt))
             row["library_ms"] = int_mm_ms(xq, wq)
-            # the same call with a K-major copy of wq (cuBLASLt's int8 layout)
-            row["library_kmajor_ms"] = int_mm_ms(xq, wq.t().contiguous().t())
             row["bf16_matmul_ms"] = time_ms(lambda: x @ w)
             row["quantize_rows_ms"] = time_ms(lambda: mm.quantize_rows_int8(x))
             for key in layer:
                 layer[key] = None if None in (layer[key], row[key]) else layer[key] + count * row[key]
             phase(10, f"{name} M={m} K={k} N={n} bf16: kernel {row['ms']:.4f} ms, plain "
-                      f"{row['plain_ms']:.4f} ms, torch._int_mm {row['library_ms']} ms "
-                      f"({row['library_kmajor_ms']} ms with wq K-major), bf16 "
+                      f"{row['plain_ms']:.4f} ms, torch._int_mm {row['library_ms']} ms, bf16 "
                       f"matmul {row['bf16_matmul_ms']:.4f} ms, row quantization "
                       f"{row['quantize_rows_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                       f"{2 * m * n * k / 1e9:.0f} GOP, {nbytes / 1e6:.1f} MB); bitwise equal")
@@ -1426,8 +1462,7 @@ def w8a8_kernel_phase(mm, peaks):
         per_shape.append(row)
         del x, w, xq, xs, wq, ws
     phase(10, f"one trunk layer (7 projections at M={W8A8_M}): kernel {layer['ms']:.3f} ms, plain "
-              f"{layer['plain_ms']:.3f} ms, torch._int_mm {layer['library_ms']} ms "
-              f"({layer['library_kmajor_ms']} ms with wq K-major), bf16 "
+              f"{layer['plain_ms']:.3f} ms, torch._int_mm {layer['library_ms']} ms, bf16 "
               f"matmul {layer['bf16_matmul_ms']:.3f} ms, bound {layer['bound_ms']:.3f} ms; row "
               f"quantization of the 7 inputs {layer['quantize_rows_ms']:.3f} ms")
     return {**layer, "bound_by": "operations", "max_abs_err": max(r["max_abs_err"] for r in per_shape),
@@ -1466,20 +1501,44 @@ def ptxas_report(log):
     return out
 
 
+def w8a8_layer_ms(mm, freeze, spin=True):
+    """One trunk layer's 7 projections at M = W8A8_M (W8A8_SHAPES, each
+    distinct shape timed once) through ``w8a8_matmul``, on codes made by
+    ``freeze.quantize_trunk_int8`` of the checkout at hand (its own layout):
+    {"ms": the layer's sum, "kmajor": whether every code leaf is K-major}."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    frozen = {f"model.layers.0.p{i}.kernel": torch.randn(k, n, generator=gen, device=DEVICE).mul_(0.02)
+              for i, (_, k, n, _) in enumerate(W8A8_SHAPES)}
+    quantized, n_quant = freeze.quantize_trunk_int8(frozen, 1)
+    check(n_quant == len(W8A8_SHAPES), f"quantize_trunk_int8 quantized {n_quant} kernels")
+    total, kmajor = 0.0, True
+    for i, (_, k, n, count) in enumerate(W8A8_SHAPES):
+        wq = quantized[f"model.layers.0.p{i}.kernel_int8"]
+        ws = quantized[f"model.layers.0.p{i}.kernel_int8_scale"]
+        kmajor = kmajor and wq.stride() == (1, k)
+        xq, xs = mm.quantize_rows_int8(torch.randn(W8A8_M, k, generator=gen, device=DEVICE)
+                                       .to(torch.bfloat16))
+        total += count * time_ms(lambda: mm.w8a8_matmul(xq, xs, wq, ws, torch.bfloat16), spin=spin)
+    return {"ms": total, "kmajor": kmajor}
+
+
 def flash_ab_times(tree: str) -> dict:
-    """``--flash-ab``: the times of one checkout's flash kernels (in a
-    process of its own: every checkout's package has one name)."""
+    """``--flash-ab``: the times of one checkout's flash and w8a8 kernels (in
+    a process of its own: every checkout's package has one name)."""
     import os
 
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     from llm_fine_tune_distributed_tpu_torch.ops import _build
     from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+    from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
+    from llm_fine_tune_distributed_tpu_torch.parallel import freeze
 
-    check(os.path.abspath(fa.__file__).startswith(tree + os.sep),
-          f"imported {fa.__file__}, not the checkout at {tree}")
+    for mod in (fa, mm, freeze):
+        check(os.path.abspath(mod.__file__).startswith(tree + os.sep),
+              f"imported {mod.__file__}, not the checkout at {tree}")
     out = {"tree": tree, "card": card_info(), "torch": torch.__version__}
-    _build.build_all(("flash_fwd", "flash_bwd"))
+    _build.build_all(("flash_fwd", "flash_bwd", "w8a8_matmul"))
     out["spin_cycles"], out["spin_ms"] = calibrate_spin()
     q, k, v, do = flash_inputs(torch.bfloat16)
     ragged = flash_segments_case("ragged", q.shape[0], q.shape[1])
@@ -1499,6 +1558,11 @@ def flash_ab_times(tree: str) -> dict:
                 fwd_ms, bwd_ms = sdpa_times(q, k, v, do, seg, spin=spin)
                 out[f"ragged/sdpa_forward/{method}"] = fwd_ms
                 out[f"ragged/sdpa_backward/{method}"] = bwd_ms
+    del q, k, v, do
+    for spin in (True, False):
+        layer = w8a8_layer_ms(mm, freeze, spin=spin)
+        out[f"w8a8_layer/{'spin' if spin else 'no_spin'}"] = layer["ms"]
+        out["w8a8_codes_kmajor"] = layer["kmajor"]
     return out
 
 
@@ -1571,7 +1635,8 @@ def main(argv=()) -> int:
         for kernel, info in sorted(report.items()):
             phase(2, f"    {kernel}: {info.get('registers')} registers per thread, "
                      f"{info.get('spill_stores')} bytes of spill stores")
-    for kernel in (f"{k}<{d}>" for k in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel") for d in (64, 128)):
+    tensor_core = [f"{design[0]}<{d}>" for design in FLASH_DESIGN.values() for d in (64, 128)]
+    for kernel in tensor_core + [f"w8a8_kernel<16> {dt}" for dt in ("bf16", "f32")]:
         check(ptxas.get(kernel, {}).get("spill_stores") == 0,  # the tensor-core kernels must not spill
               f"ptxas: {kernel}: {ptxas.get(kernel, 'no report')}")
 
@@ -1674,8 +1739,9 @@ def main(argv=()) -> int:
     w8a8_entry.update({
         "tolerance": W8A8_TOLERANCE,
         "times_are": f"sums over one trunk layer's 7 projections at M={W8A8_M}, bf16 output",
-        "library": "torch._int_mm (int8 x int8 -> int32, no scales and no cast)",
-        "library_kmajor_ms": w8a8["library_kmajor_ms"], "bf16_matmul_ms": w8a8["bf16_matmul_ms"],
+        "library": "torch._int_mm on the same K-major codes (int8 x int8 -> int32, no scales and "
+                   "no cast)",
+        "bf16_matmul_ms": w8a8["bf16_matmul_ms"],
         "quantize_rows_ms": w8a8["quantize_rows_ms"],
         "shapes": w8a8["shapes"],
     })

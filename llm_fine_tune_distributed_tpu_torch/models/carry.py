@@ -16,6 +16,7 @@ import torch
 
 from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
 from llm_fine_tune_distributed_tpu_torch.models.transformer import check_supported
+from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import kmajor
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> Dict[str, object]:
@@ -35,15 +36,18 @@ def params_from_jax(flat: Dict[str, np.ndarray], config: ModelConfig, device="cp
     """JAX parameters as numpy arrays, by flat name -> the port's parameters
     on ``device``. Layouts match leaf for leaf ([in, out] kernels), so this
     is a copy: kernel/weight/bias leaves cast to ``dtype``, the frozen
-    trunk's ``kernel_int8`` codes stay int8 and their ``kernel_int8_scale``
-    stays f32. A leaf the port has no use for (LoRA, NF4) raises."""
+    trunk's ``kernel_int8`` codes stay int8, K-major in memory as
+    ``parallel/freeze.quantize_trunk_int8`` makes them (the layout the w8a8
+    kernel reads), and their ``kernel_int8_scale`` stays f32. A leaf the port
+    has no use for (LoRA, NF4) raises."""
     check_supported(config)
     keep = {"kernel_int8": np.int8, "kernel_int8_scale": np.float32}
     out = {}
     for name, arr in flat.items():
         leaf = name.rpartition(".")[2]
         if leaf in keep:
-            out[name] = torch.from_numpy(np.asarray(arr, dtype=keep[leaf]).copy()).to(device)
+            t = torch.from_numpy(np.asarray(arr, dtype=keep[leaf]).copy()).to(device)
+            out[name] = kmajor(t) if leaf == "kernel_int8" else t
             continue
         if leaf not in ("kernel", "weight", "bias"):
             raise NotImplementedError(

@@ -4,9 +4,9 @@
 - ``flash_attention``: causal flash attention for training, a
   ``torch.autograd.Function`` over three hand-written CUDA kernels:
   ``flash_fwd`` (``csrc/flash_fwd.cu``) and ``flash_bwd_dq`` /
-  ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``). For bf16 the forward and dk/dv
-  run on the tensor cores and skip the tile pairs ``flash_tile_pairs``
-  rules out; f32 inputs run the CUDA-core kernels.
+  ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``). For bf16 all three run on the
+  tensor cores and skip the tile pairs ``flash_tile_pairs`` rules out; f32
+  inputs run the CUDA-core kernels.
 - ``paged_decode_attention``: fused decode attention over an int8 block-paged
   KV pool (``csrc/paged_decode.cu``).
 
@@ -313,7 +313,7 @@ def _tensor_core_layout_ok(t) -> bool:
 
 def _check_tensor_core_layout(*tensors):
     """Raise, naming the constraint, where the bf16 tensor-core kernels
-    (forward, dk/dv) cannot take a tensor: they copy rows in 16-byte chunks,
+    cannot take a tensor: they copy rows in 16-byte chunks,
     so each base must be 16-byte aligned and each (batch, position, head)
     stride a multiple of 8 elements."""
     for t in tensors:
@@ -389,20 +389,28 @@ def _check_stats(q, lse, delta):
             raise ValueError("all inputs must be on one device")
 
 
-def flash_bwd_dq(q, k, v, segments, lse, delta, do, *, scale=None):
+def flash_bwd_dq(q, k, v, segments, lse, delta, do, *, scale=None, tile_visits=None):
     """dq [b, s, hq, d] in q's dtype. A CUDA tensor launches the dq kernel of
-    ``csrc/flash_bwd.cu`` and adds one to ``flash_bwd_dq.launches``; a CPU
-    tensor runs ``flash_bwd_dq_reference``."""
+    ``csrc/flash_bwd.cu`` (bf16: the tensor-core kernel, which refuses
+    layouts it cannot copy and forms delta itself as sum_k p dP, the
+    rowsum(dO O) of unrounded O, so ``delta`` feeds only the f32 kernel and
+    the plain version; f32: the CUDA-core kernel) and adds one to
+    ``flash_bwd_dq.launches``; a CPU tensor runs ``flash_bwd_dq_reference``.
+    ``tile_visits``: as in ``flash_fwd``."""
     _check_flash(q, k, v, segments, do)
     _check_stats(q, lse, delta)
+    _check_tile_visits(q, tile_visits)
     scale = _flash_scale(q, scale)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, segments, lse, delta, do, scale=scale)
+    if q.dtype == torch.bfloat16:
+        _check_tensor_core_layout(q, k, v, do)
     b, s, hq, d = q.shape
     dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     err = _flash_library("flash_bwd").flash_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), segments.data_ptr(), dq.data_ptr(), _strides(q, k, v, do),
+        delta.data_ptr(), segments.data_ptr(), dq.data_ptr(),
+        None if tile_visits is None else tile_visits.data_ptr(), _strides(q, k, v, do),
         b, s, hq, k.shape[2], d, int(q.dtype == torch.bfloat16), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -453,9 +461,10 @@ def _flash_library(name: str) -> ctypes.CDLL:
     strides = ctypes.POINTER(ctypes.c_longlong)
     signatures = {
         "flash_fwd_launch": [p] * 7 + [strides] + [i] * 6 + [f, p],
-        "flash_bwd_dq_launch": [p] * 8 + [strides] + [i] * 6 + [f, p],
+        "flash_bwd_dq_launch": [p] * 9 + [strides] + [i] * 6 + [f, p],
         "flash_bwd_dkv_launch": [p] * 10 + [strides] + [i] * 6 + [f, p],
         "flash_fwd_tc_smem": [i, i],
+        "flash_bwd_dq_tc_smem": [i, i],
         "flash_bwd_dkv_tc_smem": [i, i],
     }
     for fn_name, argtypes in signatures.items():
@@ -468,10 +477,12 @@ def _flash_library(name: str) -> ctypes.CDLL:
 
 def flash_tc_smem_bytes(d: int, s: int) -> dict:
     """Dynamic shared memory per block (bytes) that the bf16 tensor-core
-    forward and dk/dv kernels ask for at head dim ``d`` and sequence length
-    ``s``, from the built libraries (for reports)."""
+    kernels ask for at head dim ``d`` and sequence length ``s``, from the
+    built libraries (for reports)."""
+    bwd = _flash_library("flash_bwd")
     return {"flash_fwd": _flash_library("flash_fwd").flash_fwd_tc_smem(d, s),
-            "flash_bwd_dkv": _flash_library("flash_bwd").flash_bwd_dkv_tc_smem(d, s)}
+            "flash_bwd_dq": bwd.flash_bwd_dq_tc_smem(d, s),
+            "flash_bwd_dkv": bwd.flash_bwd_dkv_tc_smem(d, s)}
 
 
 class _FlashAttention(torch.autograd.Function):

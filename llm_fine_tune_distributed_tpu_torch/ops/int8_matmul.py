@@ -3,8 +3,10 @@ the JAX ``ops/int8_matmul.py``).
 
 Both operands are int8:
 
-- weights: the serving sibling layout, ``kernel_int8 [in, out]`` codes with
+- weights: the serving sibling leaves, ``kernel_int8 [in, out]`` codes with
   per-output-channel ``kernel_int8_scale [out]`` f32 (``ops/int8.quantize_int8``);
+  the trunk keeps the codes' shape and values but K-major memory
+  (``kmajor``), the layout the kernel reads;
 - activations: quantized per row (per token) on every call, absmax/127
   symmetric over the feature dim (``quantize_rows_int8``, plain torch here as
   it is plain XLA there);
@@ -12,8 +14,9 @@ Both operands are int8:
   ``(acc * row_scale) * col_scale`` dequantizes, cast once.
 
 ``w8a8_matmul`` is the kernel's wrapper: on a CUDA tensor it launches
-``csrc/w8a8_matmul.cu`` and adds one to ``w8a8_matmul.launches``; on a CPU
-tensor it runs the plain version ``int8_w8a8_matmul_reference``. There is no
+``csrc/w8a8_matmul.cu`` (which takes K-major ``wq`` only) and adds one to
+``w8a8_matmul.launches``; on a CPU tensor it runs the plain version
+``int8_w8a8_matmul_reference``, which takes any layout. There is no
 other path and no mode switch (the JAX package's ``TRUNK_MATMUL`` is not
 carried over): an input the kernel does not take raises. The int32 sum is
 exact in any order, so kernel and plain version agree bit for bit.
@@ -48,11 +51,31 @@ def quantize_rows_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
+def kmajor(codes: torch.Tensor) -> torch.Tensor:
+    """``codes [K, N]`` -> the same values in K-major memory: the transposed
+    view of a contiguous ``[N, K]`` tensor, strides ``(1, K)``. The kernel
+    reads each output column's K codes as one contiguous row, as the int8
+    tensor cores want both operands; the trunk's codes are kept this way
+    from the start, so no second copy exists."""
+    return codes.t().contiguous().t()
+
+
+def _check_kmajor(wq):
+    """Raise, naming the layout, unless ``wq [K, N]`` is K-major (what
+    ``kmajor`` makes): the only layout the CUDA kernel takes."""
+    if not wq.t().is_contiguous():
+        raise ValueError(
+            "the w8a8 kernel takes wq [K, N] K-major: the transposed view of a contiguous "
+            f"[N, K] tensor, strides (1, K) (ops.int8_matmul.kmajor makes it), got strides "
+            f"{tuple(wq.stride())}")
+
+
 def int8_w8a8_matmul_reference(xq, x_scale, wq, w_scale, out_dtype=torch.bfloat16):
     """Plain version of the kernel: ``xq [M, K]`` int8, ``x_scale [M]`` f32,
-    ``wq [K, N]`` int8, ``w_scale [N]`` f32 -> ``[M, N]`` in ``out_dtype``. The
-    int32 product is taken as an f64 matmul, which is exact here (|acc| <=
-    K * 127^2 < 2^53), then the epilogue in the JAX order."""
+    ``wq [K, N]`` int8 in any layout, ``w_scale [N]`` f32 -> ``[M, N]`` in
+    ``out_dtype``. The int32 product is taken as an f64 matmul, which is
+    exact here (|acc| <= K * 127^2 < 2^53), then the epilogue in the JAX
+    order."""
     acc = (xq.double() @ wq.double()).to(torch.int32)
     return ((acc.float() * x_scale[:, None]) * w_scale).to(out_dtype)
 
@@ -83,8 +106,10 @@ def _check(xq, x_scale, wq, w_scale, out_dtype):
         raise ValueError("all inputs must be on one device")
     if xq.device.type not in ("cuda", "cpu"):
         raise ValueError(f"w8a8_matmul runs on cuda or cpu, got {xq.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("all inputs must be contiguous")
+    if not all(t.is_contiguous() for t in (xq, x_scale, w_scale)):
+        raise ValueError("xq, x_scale and w_scale must be contiguous")
+    if xq.device.type == "cuda":
+        _check_kmajor(wq)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("all inputs must be 16-byte aligned")
 
@@ -93,8 +118,9 @@ def w8a8_matmul(xq, x_scale, wq, w_scale, out_dtype=torch.bfloat16):
     """``out[m, n] = cast((float(sum_k xq[m, k] wq[k, n]) * x_scale[m]) *
     w_scale[n])``, shapes as in ``int8_w8a8_matmul_reference``. A CUDA tensor
     launches ``csrc/w8a8_matmul.cu`` on the current stream without
-    synchronising and adds one to ``w8a8_matmul.launches``; a CPU tensor runs
-    the plain version."""
+    synchronising and adds one to ``w8a8_matmul.launches``; it takes ``wq``
+    K-major only (``kmajor``) and raises on any other layout. A CPU tensor
+    runs the plain version, in any layout of ``wq``."""
     _check(xq, x_scale, wq, w_scale, out_dtype)
     if xq.device.type == "cpu":
         return int8_w8a8_matmul_reference(xq, x_scale, wq, w_scale, out_dtype)

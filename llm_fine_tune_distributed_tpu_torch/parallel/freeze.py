@@ -15,7 +15,8 @@ from typing import Callable, Dict, Tuple
 
 from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
 from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
-from llm_fine_tune_distributed_tpu_torch.ops.int8 import INT8_SUFFIXES, quantize_int8
+from llm_fine_tune_distributed_tpu_torch.ops.int8 import quantize_int8
+from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import kmajor
 from llm_fine_tune_distributed_tpu_torch.utils.tree import Params, count_params, count_params_where
 
 _LAYER_RE = re.compile(r"model\.layers\.(\d+)\.")
@@ -72,17 +73,19 @@ def frozen_trunk_boundary(mask: Dict[str, bool], num_layers: int) -> int:
 def quantize_trunk_int8(frozen: Params, boundary: int) -> Tuple[Params, int]:
     """Replace each 2-D ``...kernel`` of layers ``[0, boundary)`` with its
     int8 siblings ``...kernel_int8`` and ``...kernel_int8_scale``
-    (``ops/int8.quantize_int8``); norms and embeddings pass through. Call it
-    on full-precision leaves, before any cast, so the 8-bit rounding is the
-    only one. Returns ``(new_frozen, number of kernels quantized)``."""
+    (``ops/int8.quantize_int8``); norms and embeddings pass through. The
+    codes keep their ``[in, out]`` shape and values but are K-major in
+    memory (``ops/int8_matmul.kmajor``), the layout the w8a8 kernel reads.
+    Call it on full-precision leaves, before any cast, so the 8-bit rounding
+    is the only one. Returns ``(new_frozen, number of kernels quantized)``."""
     quantized: Params = {}
     n_quant = 0
     for name, v in frozen.items():
         m = _LAYER_RE.search(name)
         if m and int(m.group(1)) < boundary and name.endswith(".kernel") and v.dim() == 2:
             q = quantize_int8(v)
-            for suffix in INT8_SUFFIXES:
-                quantized[f"{name}_{suffix}"] = q[suffix]
+            quantized[f"{name}_int8"] = kmajor(q["int8"])
+            quantized[f"{name}_int8_scale"] = q["int8_scale"]
             n_quant += 1
         else:
             quantized[name] = v

@@ -238,6 +238,8 @@ def test_tile_visits_are_counted_only_by_the_tensor_core_kernels():
         with pytest.raises(ValueError, match="on the card only"):
             fa.flash_fwd(q, k, k, seg, tile_visits=visits)
         with pytest.raises(ValueError, match="on the card only"):
+            fa.flash_bwd_dq(q, k, k, seg, stats, stats, q, tile_visits=visits)
+        with pytest.raises(ValueError, match="on the card only"):
             fa.flash_bwd_dkv(q, k, k, seg, stats, stats, q, tile_visits=visits)
     fa._check_tile_visits(q, None)
 
@@ -294,11 +296,10 @@ def test_kernels_match_plain_versions_on_the_card(dtype, s, d):
     """The three CUDA kernels on the card (ragged s, GQA, packed segments with
     a pad tail, q/k/v strided views of a fused tensor). f32 (the CUDA-core
     kernels): each against its plain version to the bands above. bf16 (the
-    forward and dk/dv on the tensor cores, which round P and dS to bf16): O,
-    dk and dv within 2x the error of SDPA in bf16 plus 1e-5 of the f32 truth
-    (the plain version on the inputs upcast), LSE within 1e-4 of it; dq (the
-    CUDA-core kernel) to the f32 band plus one bf16 ulp of its plain
-    version on the same LSE and delta."""
+    tensor-core kernels, which round P and dS to bf16): O, dq, dk and dv
+    within 2x the error of SDPA in bf16 plus 1e-5 of the f32 truth (the
+    plain version on the inputs upcast), over the tensor and row by row,
+    LSE within 1e-4 of it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the flash kernels have no CPU mode")
     dt = getattr(torch, dtype)
@@ -315,24 +316,25 @@ def test_kernels_match_plain_versions_on_the_card(dtype, s, d):
     torch.cuda.synchronize()
     assert [c.launches for c in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)] == [
         n + 1 for n in counts]
-    dq_ref = fa.flash_bwd_dq_reference(q, k, v, seg, lse, delta, do)
-    diff = (dq.float() - dq_ref.float()).abs()
-    ulp = 2.0**-7 * dq_ref.float().abs() if dt == torch.bfloat16 else 0.0
-    assert bool((diff <= GRAD_TOL + ulp).all()), f"dq max|d| {diff.max().item():.3e}"
     if dt == torch.float32:
         o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, seg)
+        dq_ref = fa.flash_bwd_dq_reference(q, k, v, seg, lse, delta, do)
         dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, seg, lse, delta, do)
         for name, got, ref, band in (("o", o, o_ref, FWD_TOL), ("lse", lse, lse_ref, FWD_TOL),
-                                     ("dk", dk, dk_ref, GRAD_TOL), ("dv", dv, dv_ref, GRAD_TOL)):
+                                     ("dq", dq, dq_ref, GRAD_TOL), ("dk", dk, dk_ref, GRAD_TOL),
+                                     ("dv", dv, dv_ref, GRAD_TOL)):
             err = (got - ref).abs().max().item()
             assert err <= band, f"{name} max|d| {err:.3e}"
         return
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     o32, lse32 = fa.flash_attention_fwd_reference(q32, k32, v32, seg)
-    dk32, dv32 = fa.flash_bwd_dkv_reference(q32, k32, v32, seg, lse32, fa.flash_delta(o32, do32), do32)
-    o_sd, _, dk_sd, dv_sd = _sdpa_bf16(q, k, v, do, seg)
+    delta32 = fa.flash_delta(o32, do32)
+    dq32 = fa.flash_bwd_dq_reference(q32, k32, v32, seg, lse32, delta32, do32)
+    dk32, dv32 = fa.flash_bwd_dkv_reference(q32, k32, v32, seg, lse32, delta32, do32)
+    o_sd, dq_sd, dk_sd, dv_sd = _sdpa_bf16(q, k, v, do, seg)
     assert (lse - lse32).abs().max().item() <= 1e-4
-    for name, got, sdpa, truth in (("o", o, o_sd, o32), ("dk", dk, dk_sd, dk32), ("dv", dv, dv_sd, dv32)):
+    for name, got, sdpa, truth in (("o", o, o_sd, o32), ("dq", dq, dq_sd, dq32),
+                                   ("dk", dk, dk_sd, dk32), ("dv", dv, dv_sd, dv32)):
         err = (got.float() - truth).abs().max().item()
         limit = 2 * (sdpa - truth).abs().max().item() + 1e-5
         assert err <= limit, f"{name}: max|kernel - f32| {err:.3e} > 2 x SDPA's + 1e-5 = {limit:.3e}"
@@ -348,7 +350,7 @@ def test_kernels_match_plain_versions_on_the_card(dtype, s, d):
 @pytest.mark.parametrize("s", [200, 1024])
 @pytest.mark.parametrize("kind", ["padding", "segments", "random"])
 def test_tensor_core_kernels_count_the_tile_pairs_of_flash_tile_pairs_on_the_card(kind, s):
-    """The bf16 forward and dk/dv count every tile pair they compute, once
+    """The bf16 forward, dq and dk/dv count every tile pair they compute, once
     per query head: pair by pair that is ``flash_tile_pairs`` x hq, so the
     kernels' own skip rule is the one the CPU tests hold to the dense mask."""
     if not torch.cuda.is_available():
@@ -366,11 +368,15 @@ def test_tensor_core_kernels_count_the_tile_pairs_of_flash_tile_pairs_on_the_car
     seg = torch.from_numpy(np.ascontiguousarray(seg, dtype=np.int32)).cuda()
     n = -(-s // fa.FLASH_TILE)
     fwd_visits = torch.zeros(b, n, n, dtype=torch.int32, device="cuda")
+    dq_visits = torch.zeros_like(fwd_visits)
     dkv_visits = torch.zeros_like(fwd_visits)
     o, lse = fa.flash_fwd(q, k, v, seg, tile_visits=fwd_visits)
-    fa.flash_bwd_dkv(q, k, v, seg, lse, fa.flash_delta(o, do), do, tile_visits=dkv_visits)
+    delta = fa.flash_delta(o, do)
+    fa.flash_bwd_dq(q, k, v, seg, lse, delta, do, tile_visits=dq_visits)
+    fa.flash_bwd_dkv(q, k, v, seg, lse, delta, do, tile_visits=dkv_visits)
     predicted = fa.flash_tile_pairs(seg.cpu()).to(torch.int32) * hq
     assert torch.equal(fwd_visits.cpu(), predicted)
+    assert torch.equal(dq_visits.cpu(), predicted)
     assert torch.equal(dkv_visits.cpu(), predicted)
 
 
@@ -386,9 +392,12 @@ def test_tensor_core_kernels_refuse_a_misaligned_stride_on_the_card():
     k = torch.zeros(b, s, hkv, d, dtype=torch.bfloat16, device="cuda")
     seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
     stats = torch.zeros(b, hq, s, device="cuda")
-    counts = [fa.flash_fwd.launches, fa.flash_bwd_dkv.launches]
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    counts = [c.launches for c in counters]
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         fa.flash_fwd(q, k, k, seg)
     with pytest.raises(ValueError, match="multiples of 8 elements"):
+        fa.flash_bwd_dq(q, k, k, seg, stats, stats, q)
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
         fa.flash_bwd_dkv(q, k, k, seg, stats, stats, q)
-    assert [fa.flash_fwd.launches, fa.flash_bwd_dkv.launches] == counts
+    assert [c.launches for c in counters] == counts

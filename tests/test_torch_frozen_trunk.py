@@ -135,6 +135,8 @@ def test_quantize_trunk_matches_jax_bitwise(setup):
     assert len(codes) == n_quant
     for k in codes:
         assert int(k.split(".")[2]) < setup["boundary"] and k + "_scale" in got
+        # K-major memory, the kernel's layout: strides (1, in), no second copy
+        assert got[k].stride() == (1, got[k].shape[0]), (k, got[k].stride())
     for k, v in want.items():
         np.testing.assert_array_equal(got[_dot(k)].numpy(), np.asarray(v), err_msg=k)
     assert "model.layers.0.input_layernorm.weight" in got
@@ -148,6 +150,8 @@ def test_params_from_jax_carries_int8_leaves(setup):
     assert carried[name + "_scale"].dtype == torch.float32
     for k, v in setup["frozen_i8"].items():
         np.testing.assert_array_equal(carried[_dot(k)].numpy(), np.asarray(v), err_msg=k)
+        if k.endswith("kernel_int8"):  # K-major, as quantize_trunk_int8 makes them
+            assert carried[_dot(k)].stride() == (1, v.shape[0]), k
 
 
 def test_make_loss_fn_rejects_unknown_frozen_compute():

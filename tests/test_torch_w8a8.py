@@ -20,7 +20,7 @@ import torch
 from llm_fine_tune_distributed_tpu_torch.ops import int8 as pint8
 from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as pmm
 
-# (M, K, N): ragged M and N, K not a multiple of the kernel's 64-byte step
+# (M, K, N): ragged M and N, K off the kernel's 128-byte step
 SHAPES = [(13, 64, 48), (96, 128, 100), (70, 80, 129)]
 
 
@@ -136,7 +136,37 @@ def test_wrapper_refuses_wrong_dtypes_and_shapes():
     with pytest.raises(ValueError, match="scales"):
         pmm.w8a8_matmul(xq, xs[:2], wq, ws)
     with pytest.raises(ValueError, match="contiguous"):
-        pmm.w8a8_matmul(xq, xs, wq.t().contiguous().t(), ws)
+        pmm.w8a8_matmul(xq.t().contiguous().t(), xs, wq, ws)
+
+
+def test_kmajor_check_names_the_layout():
+    """The CUDA kernel reads wq [K, N] K-major (strides (1, K)); on the card
+    the wrapper's check refuses the N-major codes ``quantize_int8`` returns,
+    naming the layout, and takes what ``kmajor`` makes of them: the same
+    values in another memory order."""
+    _, _, wq, _ = _operands(k=64, n=8)
+    assert wq.stride() == (8, 1)
+    with pytest.raises(ValueError, match=r"K-major.*strides \(1, K\)"):
+        pmm._check_kmajor(wq)
+    km = pmm.kmajor(wq)
+    assert km.shape == wq.shape and km.stride() == (1, 64) and torch.equal(km, wq)
+    pmm._check_kmajor(km)
+    pmm._check_kmajor(pmm.kmajor(torch.zeros(16, 1, dtype=torch.int8)))  # one column
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_plain_version_takes_either_layout_bitwise(m, k, n, dtype):
+    """The plain version (and the wrapper on CPU tensors) gives the same bits
+    for N-major and K-major codes."""
+    dt = getattr(torch, dtype)
+    xq, xs = pmm.quantize_rows_int8(torch.from_numpy(_x(m, k, m)))
+    q = pint8.quantize_int8(torch.from_numpy(_w(k, n, n)))
+    km = pmm.kmajor(q["int8"])
+    want = pmm.int8_w8a8_matmul_reference(xq, xs, q["int8"], q["int8_scale"], dt)
+    assert torch.equal(pmm.int8_w8a8_matmul_reference(xq, xs, km, q["int8_scale"], dt), want)
+    assert torch.equal(pmm.w8a8_matmul(xq, xs, km, q["int8_scale"], dt), want)
+    assert torch.equal(pmm.w8a8_matmul(xq, xs, q["int8"], q["int8_scale"], dt), want)
 
 
 def test_wrapper_refuses_k_that_would_overflow_int32():
@@ -165,19 +195,34 @@ def test_entry_refuses_grad():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_version_on_the_card(dtype):
-    """The CUDA kernel against its plain version, bitwise: ragged M and N,
-    K off the 64-byte step and off 16 (the kernel's byte-wise edge loads),
-    odd N (no paired stores)."""
+    """The CUDA kernel on K-major codes against its plain version, bitwise:
+    ragged M and N, K off the 128-byte step (K = 2000: the last step
+    zero-filled), K off 16 (the kernel's byte-wise loads), odd N (no paired
+    stores)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the w8a8 kernel has no CPU mode")
     dt = getattr(torch, dtype)
-    for m, k, n in SHAPES + [(1, 16, 1), (300, 100, 257), (256, 2048, 512)]:
+    for m, k, n in SHAPES + [(1, 16, 1), (300, 100, 257), (256, 2048, 512), (300, 2000, 257)]:
         x = torch.from_numpy(_x(m, k, m + k)).cuda()
         q = {key: v.cuda() for key, v in pint8.quantize_int8(torch.from_numpy(_w(k, n, n))).items()}
+        wq = pmm.kmajor(q["int8"])
         xq, xs = pmm.quantize_rows_int8(x)
         before = pmm.w8a8_matmul.launches
-        got = pmm.w8a8_matmul(xq, xs, q["int8"], q["int8_scale"], dt)
+        got = pmm.w8a8_matmul(xq, xs, wq, q["int8_scale"], dt)
         torch.cuda.synchronize()
         assert pmm.w8a8_matmul.launches == before + 1
         want = pmm.int8_w8a8_matmul_reference(xq, xs, q["int8"], q["int8_scale"], dt)
         assert torch.equal(got, want), f"{(m, k, n)}: max|d| {(got.float() - want.float()).abs().max()}"
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_n_major_codes_on_the_card():
+    """N-major codes on the card raise, naming the layout; nothing launches
+    and nothing falls back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the w8a8 kernel has no CPU mode")
+    xq, xs, wq, ws = (t.cuda() for t in _operands())
+    before = pmm.w8a8_matmul.launches
+    with pytest.raises(ValueError, match="K-major"):
+        pmm.w8a8_matmul(xq, xs, wq, ws)
+    assert pmm.w8a8_matmul.launches == before
