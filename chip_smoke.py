@@ -8,10 +8,13 @@ and stops with a non-zero exit at the first failure:
 1. the card's name and power limit, torch and CUDA versions;
 2. builds the port's CUDA kernels from ``csrc/`` with nvcc, one process per
    source, all at once, and fails if the ptxas report kept beside each
-   library (built now or before) is missing a tensor-core flash kernel or
-   shows one spilling registers;
+   library (built now or before) is missing a tensor-core flash kernel, the
+   w8a8 kernel or any of the 32 paged decode instantiations, or shows one
+   spilling registers;
 3. holds the paged decode kernel against its plain PyTorch version on the
-   card, at SmolLM3-3B's attention shapes, and times both with CUDA events;
+   card, at SmolLM3-3B's attention shapes (ragged, the main path's live
+   rows, 8 full rows, one row of 4096), and times both with CUDA events
+   beside the byte bound;
 4. serves SmolLM3-3B at full width (random bf16 weights from a seed) over
    HTTP from an int8 block-paged KV pool: one request, then 4 concurrent
    ones; every decode step must go through the kernel;
@@ -55,12 +58,13 @@ lines are JSON: a summary of the run, ``{"kernels": [...]}``
 (one entry per kernel of the paths) and ``{"ok": true, "device": {...}}``.
 Without a GPU it exits non-zero before printing either.
 
-``python3 chip_smoke.py --flash-ab DIR [DIR ...]`` times instead the flash
-and w8a8 kernels of one or more checkouts of this repo with this script's
-``time_ms``, for an A/B of two commits within one call: each DIR (the root
-of a checkout, for example the parent's ``git archive`` unpacked under
-``build/``) runs in a process of its own, in the order given (parent,
+``python3 chip_smoke.py --flash-ab DIR [DIR ...]`` times instead the paged
+decode, flash and w8a8 kernels of one or more checkouts of this repo with
+this script's ``time_ms``, for an A/B of two commits within one call: each
+DIR (the root of a checkout, for example the parent's ``git archive``
+unpacked under ``build/``) runs in a process of its own, in the order given (parent,
 change, change, parent), builds its own ``csrc/`` and times its
+``paged_decode_attention`` at phase 3's live, full and single shapes, its
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` and SDPA at phase 7's
 shape, with the spin and without it (how earlier records were timed), the
 flash kernels again with every row one segment (nothing to skip), and its
@@ -102,6 +106,12 @@ BF16_ATOL, BF16_RTOL = 1e-5, 2.0**-7
 TOLERANCE = f"f32 max|d| <= {F32_TOL}; bf16 |d| <= {BF16_ATOL} + 2**-7 x |plain|"
 # full-width f32 decode step, kernel against plain: relative to max |logit|
 LOGIT_REL_TOL = 1e-4
+# what the paged decode kernel is, for the kernels line
+PAGED_DESIGN = ("each row's positions split over thread blocks (grid split x kv head x row, "
+                "split 64-256 positions from host shapes), 16-byte cp.async K/V tiles through a "
+                "3-stage ring, codes to f32 by byte_perm, f32 softmax and p.V on CUDA cores, "
+                "last-block merge of the splits' (m, l, acc) by an atomic ticket; one launch "
+                "per call")
 TIMING_REPS = 25
 SPIN_MS = 1.0  # the spin before each timed launch: longer than a wrapper's host work
 _SPIN: dict = {}  # torch.cuda._sleep cycles for SPIN_MS on this card, and their measured ms
@@ -285,7 +295,44 @@ def check_close(name, kernel, plain, args, lens):
     return err
 
 
-def kernel_phase(fa, peaks, live_lengths):
+def live_lengths(tokenizer_cls, system_prompt):
+    """The main path's decode lengths: the 4 concurrent requests' prompts
+    (byte-chatml, the default system prompt) halfway through their tokens."""
+    tokenizer = tokenizer_cls()
+    prompts = [tokenizer.apply_chat_template(
+        [{"role": "system", "content": system_prompt}, {"role": "user", "content": q}],
+        tokenize=True, add_generation_prompt=True) for q in QUESTIONS]
+    return prompts, [len(p) + MAX_NEW_TOKENS // 2 for p in prompts]
+
+
+def paged_cases(live):
+    """{name: (lengths, nb, shared prefix blocks, dead rows)} of the timed
+    paged decode shapes."""
+    n_live = len(live)
+    return {
+        # the main path's decode step: live rows mid-generation sharing the
+        # system prompt's 5 full blocks, dead rows (length 1) on null tables
+        "live": (live + [1] * (SLOTS - n_live),
+                 1 << (max(-(-n // KV_BLOCK_LEN) for n in live) - 1).bit_length(),
+                 5, range(n_live, SLOTS)),
+        "full": ([KV_BUF_LEN] * SLOTS, KV_BUF_LEN // KV_BLOCK_LEN, 0, ()),
+        # one request at the longest context: the card is filled by splits alone
+        "single": ([KV_BUF_LEN], KV_BUF_LEN // KV_BLOCK_LEN, 0, ()),
+    }
+
+
+def paged_ms(fa, live, spin=True):
+    """{case: kernel ms} of ``paged_decode_attention`` at the timed shapes
+    (bf16), for ``--flash-ab``."""
+    out = {}
+    for name, (lengths, nb, shared, dead) in paged_cases(live).items():
+        args, lens = make_case(lengths, nb, torch.bfloat16, shared_prefix_blocks=shared,
+                               dead_rows=dead, seed=3)
+        out[name] = time_ms(lambda: fa.paged_decode_attention(*args, lengths=lens), spin=spin)
+    return out
+
+
+def kernel_phase(fa, peaks, live):
     """Kernel against plain at SmolLM3 shapes; returns the timing record."""
     kernel, plain = fa.paged_decode_attention, fa.paged_decode_attention_reference
     ragged = [1, 255, 256, 257, 1500, 4096, 3000, 777]
@@ -294,16 +341,7 @@ def kernel_phase(fa, peaks, live_lengths):
         check_close("ragged b=8 hq=16 hkv=4 d=128 L=256 nb=17", kernel, plain, args, lens)
 
     record = {}
-    n_live = len(live_lengths)
-    cases = {
-        # the main path's decode step: live rows mid-generation sharing the
-        # system prompt's 5 full blocks, dead rows (length 1) on null tables
-        "live": (live_lengths + [1] * (SLOTS - n_live),
-                 1 << (max(-(-n // KV_BLOCK_LEN) for n in live_lengths) - 1).bit_length(),
-                 5, range(n_live, SLOTS)),
-        "full": ([KV_BUF_LEN] * SLOTS, KV_BUF_LEN // KV_BLOCK_LEN, 0, ()),
-    }
-    for name, (lengths, nb, shared, dead) in cases.items():
+    for name, (lengths, nb, shared, dead) in paged_cases(live).items():
         f32_args, lens = make_case(lengths, nb, torch.float32, shared_prefix_blocks=shared,
                                    dead_rows=dead, seed=3)
         check_close(name, kernel, plain, f32_args, lens)
@@ -316,11 +354,15 @@ def kernel_phase(fa, peaks, live_lengths):
         record[name] = {
             "lengths": lengths, "nb": nb, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes,
+            "bytes": nbytes, "share_of_bound": bound_ms / ms,
+            "split_len": fa.paged_decode_split_len(
+                len(lengths), args[1].shape[2], nb, KV_BLOCK_LEN,
+                torch.cuda.get_device_properties(0).multi_processor_count),
         }
-        phase(3, f"{name} occupancy lengths={lengths} nb={nb}: kernel {ms:.4f} ms, "
+        phase(3, f"{name} lengths={lengths} nb={nb}: kernel {ms:.4f} ms, "
                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-                 f"{nbytes / 1e6:.2f} MB)")
+                 f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of the bound, "
+                 f"split {record[name]['split_len']} positions")
     return record
 
 
@@ -540,6 +582,7 @@ def profile_phase(generator, prompts, steps=5):
         "profiled_step_ms": wall_us / 1e3 / steps,
         "device_busy_share": busy / wall_us if events else None,
         "device_kernels_per_step": len(events) / steps,
+        "device_ms_per_step": sum(b - a for _, a, b in events) / 1e3 / steps,
         "top_kernels": [
             {"name": name[:90], "ms_per_step": tot / 1e3 / steps, "calls_per_step": n / steps}
             for name, (tot, n) in top
@@ -548,7 +591,8 @@ def profile_phase(generator, prompts, steps=5):
     phase(6, f"decode step at {len(prompts)} live rows, nb={nb}: {step_ms:.2f} ms "
              f"({result['profiled_step_ms']:.2f} ms profiled), device busy "
              f"{100 * (result['device_busy_share'] or 0):.1f}%, "
-             f"{result['device_kernels_per_step']:.0f} device kernels per step")
+             f"{result['device_kernels_per_step']:.0f} device kernels per step, "
+             f"{result['device_ms_per_step']:.3f} ms of device time per step")
     for row in result["top_kernels"]:
         phase(6, f"  {row['ms_per_step']:8.3f} ms/step  {row['calls_per_step']:6.1f} calls  {row['name']}")
     if not events:
@@ -1529,6 +1573,8 @@ def flash_ab_times(tree: str) -> dict:
 
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
     from llm_fine_tune_distributed_tpu_torch.ops import _build
     from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
     from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
@@ -1538,8 +1584,12 @@ def flash_ab_times(tree: str) -> dict:
         check(os.path.abspath(mod.__file__).startswith(tree + os.sep),
               f"imported {mod.__file__}, not the checkout at {tree}")
     out = {"tree": tree, "card": card_info(), "torch": torch.__version__}
-    _build.build_all(("flash_fwd", "flash_bwd", "w8a8_matmul"))
+    _build.build_all(("paged_decode", "flash_fwd", "flash_bwd", "w8a8_matmul"))
     out["spin_cycles"], out["spin_ms"] = calibrate_spin()
+    _, live = live_lengths(ByteChatMLTokenizer, WILDERNESS_EXPERT_SYSTEM_PROMPT)
+    for spin in (True, False):
+        for name, ms in paged_ms(fa, live, spin=spin).items():
+            out[f"paged_decode/{name}/{'spin' if spin else 'no_spin'}"] = ms
     q, k, v, do = flash_inputs(torch.bfloat16)
     ragged = flash_segments_case("ragged", q.shape[0], q.shape[1])
     for label, seg in (("ragged", ragged), ("one_segment", torch.ones_like(ragged))):
@@ -1636,20 +1686,15 @@ def main(argv=()) -> int:
             phase(2, f"    {kernel}: {info.get('registers')} registers per thread, "
                      f"{info.get('spill_stores')} bytes of spill stores")
     tensor_core = [f"{design[0]}<{d}>" for design in FLASH_DESIGN.values() for d in (64, 128)]
-    for kernel in tensor_core + [f"w8a8_kernel<16> {dt}" for dt in ("bf16", "f32")]:
-        check(ptxas.get(kernel, {}).get("spill_stores") == 0,  # the tensor-core kernels must not spill
+    paged = [f"paged_decode_kernel<{g}> {dt}" for g in range(1, 17) for dt in ("bf16", "f32")]
+    for kernel in tensor_core + [f"w8a8_kernel<16> {dt}" for dt in ("bf16", "f32")] + paged:
+        check(ptxas.get(kernel, {}).get("spill_stores") == 0,  # none of these may spill
               f"ptxas: {kernel}: {ptxas.get(kernel, 'no report')}")
 
     config = get_preset("smollm3_3b")
     tokenizer = ByteChatMLTokenizer()
-    prompts = [tokenizer.apply_chat_template(
-        [{"role": "system", "content": WILDERNESS_EXPERT_SYSTEM_PROMPT},
-         {"role": "user", "content": q}], tokenize=True, add_generation_prompt=True)
-        for q in QUESTIONS]
-    # the kernel at the main path's decode shapes: the 4 concurrent requests
-    # halfway through their tokens
-    live_lengths = [len(p) + MAX_NEW_TOKENS // 2 for p in prompts]
-    kernels = kernel_phase(fa, peaks, live_lengths)
+    prompts, live = live_lengths(ByteChatMLTokenizer, WILDERNESS_EXPERT_SYSTEM_PROMPT)
+    kernels = kernel_phase(fa, peaks, live)
 
     t0 = time.monotonic()
     params = tf.init_params(config, seed=0, device=DEVICE, dtype=torch.bfloat16)
@@ -1703,16 +1748,22 @@ def main(argv=()) -> int:
     microbatch_i8 = f32_microbatch_phase(trainer, fa, mm)
     del trainer
 
-    live, full = kernels["live"], kernels["full"]
+    live_rec = kernels["live"]
     paged = kernel_entry("paged_decode_attention",
                          "llm_fine_tune_distributed_tpu_torch/csrc/paged_decode.cu",
                          "llm_fine_tune_distributed_tpu/ops/flash_attention.py:353",
-                         served["launches"], {**live, "library_ms": None})
+                         served["launches"], {**live_rec, "library_ms": None})
     paged.update({
+        "kernel": "paged_decode_kernel",
+        "design": PAGED_DESIGN,
         "tolerance": TOLERANCE,
-        "shapes": {"live": {"lengths": live["lengths"], "nb": live["nb"]},
-                   "full": {"lengths": full["lengths"], "nb": full["nb"]}},
-        "full_occupancy": {k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith("paged_decode_kernel")},
+        "shapes": {name: {"lengths": rec["lengths"], "nb": rec["nb"], "split_len": rec["split_len"]}
+                   for name, rec in kernels.items()},
+        "share_of_bound": live_rec["share_of_bound"],
+        **{name: {k: kernels[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "share_of_bound", "max_abs_err")}
+           for name in ("full", "single")},
     })
     flash_sources = {
         "flash_fwd": ("flash_fwd.cu", "llm_fine_tune_distributed_tpu/ops/flash_attention.py:51"),

@@ -8,7 +8,8 @@
   tensor cores and skip the tile pairs ``flash_tile_pairs`` rules out; f32
   inputs run the CUDA-core kernels.
 - ``paged_decode_attention``: fused decode attention over an int8 block-paged
-  KV pool (``csrc/paged_decode.cu``).
+  KV pool (``csrc/paged_decode.cu``), each row's positions split over thread
+  blocks and merged in the same launch.
 
 Each kernel's wrapper launches the kernel on a CUDA tensor and runs the plain
 PyTorch version beside it (``*_reference``) on a CPU tensor. There is no
@@ -29,6 +30,10 @@ _NEG_INF = -1.0e30  # the TPU kernel's finite -inf
 
 _MAX_GROUPS = 16
 _MAX_HEAD_DIM = 256
+# positions per split of the paged decode kernel: a multiple of its 64-position
+# tile, at most 256 (csrc/paged_decode.cu kTile, kMaxSplit)
+_SPLIT_TILE = 64
+_MAX_SPLIT = 256
 
 
 def paged_decode_attention_reference(
@@ -55,6 +60,67 @@ def paged_decode_attention_reference(
                          torch.tensor(_NEG_INF, dtype=torch.float32, device=q.device))
     probs = torch.softmax(logits, dim=-1) * visible[:, None, None, :]
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def paged_decode_split_len(b: int, hkv: int, nb: int, L: int, sm_count: int) -> int:
+    """Positions per split of the paged decode kernel: 256, halved (down to
+    64) while the grid of b * hkv * ceil(nb * L / split) blocks would fill
+    at most half the SMs. Host shapes only, never ``lengths``, so the grid
+    is fixed by the call's shapes."""
+    split = _MAX_SPLIT
+    while split > _SPLIT_TILE and 2 * b * hkv * -(-nb * L // split) <= sm_count:
+        split //= 2
+    return split
+
+
+def paged_decode_split_reference(
+    q, k_pool, v_pool, k_scale, v_scale, block_tables, *, lengths, split_len, scale=None,
+):
+    """Plain version of the kernel's split and merge, for tests: each run of
+    ``split_len`` positions gets its own (m, l, acc) in f32, with the
+    absmax scales folded as the kernel folds them (logit = q.k_code *
+    scale * k_absmax/127, acc = sum p * v_absmax/127 * v_code), and the
+    splits a row reaches (``ceil(min(len, nb * L) / split_len)``) merge as
+    m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m),
+    out = acc / max(l, 1e-30). Same result as ``paged_decode_attention``
+    to f32 rounding; the main path never calls it."""
+    b, _, hq, d = q.shape
+    _, L, hkv, _ = k_pool.shape
+    groups = hq // hkv
+    nb = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    n = nb * L
+    splits = -(-n // split_len)
+    pad = splits * split_len - n
+    flat = block_tables.reshape(-1).long()
+    ks = (scale * (k_scale[flat] / 127.0)).reshape(b, nb, 1, hkv).expand(b, nb, L, hkv)
+    vs = (v_scale[flat] / 127.0).reshape(b, nb, 1, hkv).expand(b, nb, L, hkv)
+    ks = torch.nn.functional.pad(ks.reshape(b, n, hkv), (0, 0, 0, pad))
+    vs = torch.nn.functional.pad(vs.reshape(b, n, hkv), (0, 0, 0, pad))
+    k = torch.nn.functional.pad(k_pool[flat].float().reshape(b, n, hkv, d), (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v_pool[flat].float().reshape(b, n, hkv, d), (0, 0, 0, 0, 0, pad))
+    qg = q[:, 0].float().reshape(b, hkv, groups, d)
+    # [b, hkv, G, splits, split_len]
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg, k) * ks.permute(0, 2, 1)[:, :, None]
+    logits = logits.reshape(b, hkv, groups, splits, split_len)
+    length = lengths.long().clamp(0, n)
+    visible = (torch.arange(splits * split_len, device=q.device)[None, :] < length[:, None])
+    visible = visible.reshape(b, 1, 1, splits, split_len)
+    logits = torch.where(visible, logits, torch.tensor(_NEG_INF, dtype=torch.float32, device=q.device))
+    m_i = logits.amax(dim=-1)
+    p = torch.where(visible, torch.exp(logits - m_i[..., None]), 0.0)
+    l_i = p.sum(dim=-1)
+    pv = p * vs.permute(0, 2, 1).reshape(b, hkv, 1, splits, split_len)
+    acc_i = torch.einsum("bhgsk,bskhd->bhgsd", pv, v.reshape(b, splits, split_len, hkv, d))
+    live = (torch.arange(splits, device=q.device)[None, :] < -(-length // split_len)[:, None])
+    live = live[:, None, None, :]
+    m = torch.where(live, m_i, _NEG_INF).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m_i - m), 0.0)
+    l = (l_i * w).sum(dim=-1)
+    acc = (acc_i * w[..., None]).sum(dim=-2)
+    out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
@@ -103,9 +169,19 @@ def paged_decode_attention(
     ``block_tables [b, nb]`` int32, ``lengths [b]`` int32 (visible positions
     per row, i.e. query position + 1). Returns ``[b, 1, hq, d]`` in q.dtype.
 
-    A CUDA tensor launches the kernel (``csrc/paged_decode.cu``) on the
+    A CUDA tensor launches the kernel (``csrc/paged_decode.cu``) once on the
     current stream without synchronising, and adds one to
     ``paged_decode_attention.launches``; a CPU tensor runs the plain version.
+    The kernel splits each row's positions into runs of
+    ``paged_decode_split_len`` positions (from b, hkv, nb, L and the card's
+    SM count: the grid never depends on ``lengths``), one thread block per
+    (split, kv head, row). Each split's f32 (m, l, acc) goes to a workspace
+    this wrapper allocates with ``torch.empty`` (b * hkv * splits * G *
+    (d + 2) floats), and the last split of a (row, kv head) to finish merges
+    them in the same launch (``paged_decode_split_reference`` is the plain
+    version of that merge). It finds out that it is last from an int32
+    ticket per (row, kv head) that the wrapper keeps zeroed per device and
+    stream, and the kernel resets.
     """
     _check(q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths)
     if q.device.type == "cpu":
@@ -115,27 +191,54 @@ def paged_decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, got {q.device}")
+    b, _, hq, _ = q.shape
+    _, L, hkv, _ = k_pool.shape
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split_len = paged_decode_split_len(b, hkv, block_tables.shape[1], L, sm_count)
+    return _paged_decode_launch(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                                lengths, scale, split_len)
+
+
+paged_decode_attention.launches = 0
+
+# (device index, stream) -> int32 tickets of the paged decode kernel's merge,
+# all zero between launches
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
+
+
+def _paged_decode_launch(q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
+                         scale, split_len):
+    """One launch of the kernel at ``split_len`` positions per split, on
+    inputs ``_check`` has passed (the wrapper's rule picks ``split_len``)."""
     b, _, hq, d = q.shape
     _, L, hkv, _ = k_pool.shape
     nb = block_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    lib = _library()
+    splits = -(-nb * L // split_len)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
-    err = lib.paged_decode_attention_launch(
+    ws = torch.empty(b * hkv * splits * (hq // hkv) * (d + 2), dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, stream, b * hkv)
+    err = _library().paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
-        b, hq, hkv, d, L, nb, int(q.dtype == torch.bfloat16), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+        b, hq, hkv, d, L, nb, split_len, int(q.dtype == torch.bfloat16), float(scale),
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
     paged_decode_attention.launches += 1
     return out
-
-
-paged_decode_attention.launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -144,7 +247,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:  # first use: pointers and the stream as c_void_p
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p] * 10 + [i] * 8 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
 

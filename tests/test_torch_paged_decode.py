@@ -1,6 +1,7 @@
-"""The paged decode attention's plain version against the JAX package's
-Pallas kernel (``pl.pallas_call(interpret=True)`` on the CPU), and the
-wrapper's routing and checks.
+"""The paged decode attention's plain version, and the plain version of the
+kernel's split-and-merge, against the JAX package's Pallas kernel
+(``pl.pallas_call(interpret=True)`` on the CPU); the wrapper's routing and
+checks, and the split length it picks from host shapes.
 
 Tolerance 1e-5: both compute in f32 and differ only in summation order (the
 band the JAX package pins between its kernel and its XLA reference).
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
 from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
+    paged_decode_split_len,
+    paged_decode_split_reference,
 )
 
 TOL = 1e-5
@@ -68,6 +72,84 @@ def test_plain_version_matches_jax_kernel_interpret(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
 
 
+def _split_case(groups, hkv, d, L):
+    """Rows of lengths 0, 1, L, L+1, a dead row (null table) whose stale
+    length is above nb * L, and a long row; rows 1, 3 and 5 share block 1,
+    rows 3 and 5 block 3 too (the prefix cache's layout)."""
+    nb = 4
+    return dict(
+        b=6, hkv=hkv, groups=groups, d=d, L=L, nb=nb, num_blocks=8,
+        lengths=[0, 1, L, L + 1, nb * L + 5, nb * L - 3],
+        tables=[[0, 0, 0, 0], [1, 0, 0, 0], [2, 0, 0, 0], [1, 3, 0, 0], [0, 0, 0, 0],
+                [1, 3, 4, 5]],
+    )
+
+
+SPLIT_CASES = {
+    "g1": _split_case(groups=1, hkv=2, d=16, L=16),
+    "g4": _split_case(groups=4, hkv=1, d=32, L=16),
+    "g16": _split_case(groups=16, hkv=1, d=16, L=8),
+}
+# positions per split: one pool block, and a length that divides neither the
+# blocks nor the rows (so a split straddles blocks and the last one is short)
+SPLITS = {"one_block": lambda L: L, "ragged": lambda L: L + L // 2}
+
+
+def _split_inputs(name):
+    q, k, v, ks, vs, tables, lengths = _case(4, **SPLIT_CASES[name])
+    return [torch.from_numpy(a) for a in (q, k, v, ks, vs, tables)], torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_reference_matches_plain_version(name, split):
+    """The kernel's split-and-merge arithmetic against the unsplit plain
+    version: splits with no visible position, empty and dead rows and shared
+    blocks change nothing beyond f32 rounding."""
+    args, lengths = _split_inputs(name)
+    split_len = SPLITS[split](SPLIT_CASES[name]["L"])
+    got = paged_decode_split_reference(*args, lengths=lengths, split_len=split_len)
+    want = paged_decode_attention_reference(*args, lengths=lengths)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
+    assert not got[0].any(), "a row of length 0 gives zeros"
+    assert not got[4].any(), "a dead row on the null table gives zeros"
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_reference_matches_jax_kernel_interpret(name, split):
+    jnp = pytest.importorskip("jax.numpy")
+    from llm_fine_tune_distributed_tpu.ops.flash_attention import (
+        paged_decode_attention as jax_paged_decode_attention,
+    )
+
+    args, lengths = _split_inputs(name)
+    ref = jax_paged_decode_attention(
+        *(jnp.asarray(a.numpy()) for a in args), lengths=jnp.asarray(lengths.numpy()),
+        interpret=True,
+    )
+    split_len = SPLITS[split](SPLIT_CASES[name]["L"])
+    got = paged_decode_split_reference(*args, lengths=lengths, split_len=split_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("shape, want", [
+    ((8, 4, 16, 256), 256),  # the smoke's full shape: 512 blocks
+    ((8, 4, 8, 256), 256),   # its live shape: 256 blocks
+    ((1, 4, 16, 256), 128),  # one row of 4096: 128 blocks
+    ((1, 1, 16, 256), 64),   # one kv head: 64 blocks, the shortest split
+    ((2, 1, 3, 16), 64),     # fewer positions than one split: one split
+])
+def test_split_len_fills_the_card_from_host_shapes(shape, want):
+    """The split follows b, hkv, nb and L (never the lengths): 256
+    positions, halved down to 64 while the grid would fill at most half of
+    a 132-SM card."""
+    b, hkv, nb, L = shape
+    split = paged_decode_split_len(b, hkv, nb, L, 132)
+    assert split == want
+    assert split % 64 == 0 and split <= 256
+
+
 def test_cpu_tensor_takes_the_plain_version_without_launching():
     q, k, v, ks, vs, tables, lengths = _case(1, **CASES["g2_l16"])
     args = [torch.from_numpy(a) for a in (q, k, v, ks, vs, tables)]
@@ -108,21 +190,72 @@ def cuda():
     return torch.device("cuda")
 
 
+# SmolLM3's geometry on the card (G 4, d 128, L 256): lengths 1, 256, 257
+# and 4096 (16 blocks, every split merged), and a dead row on the null table
+# with a stale length; other groupings and head dims
+CARD_CASES = {
+    "smollm3": dict(b=5, hkv=4, groups=4, d=128, L=256, nb=16, num_blocks=21,
+                    lengths=[1, 256, 257, 4096, 5000],
+                    tables=[[1] + [0] * 15, [2] + [0] * 15, [3, 4] + [0] * 14,
+                            list(range(5, 21)), [0] * 16]),
+    # the logit pass's head groups (G 16 at d 64) and a padded head count (G 3)
+    "g16_d64": dict(b=2, hkv=1, groups=16, d=64, L=16, nb=3, num_blocks=5,
+                    lengths=[40, 17], tables=[[1, 2, 3], [4, 2, 0]]),
+    "g3_d128": dict(b=2, hkv=2, groups=3, d=128, L=32, nb=4, num_blocks=7,
+                    lengths=[100, 33], tables=[[1, 2, 3, 4], [5, 6, 0, 0]]),
+    # shared memory near and above the 48 KB a launch gets without asking
+    "g16_d112": dict(b=1, hkv=1, groups=16, d=112, L=16, nb=2, num_blocks=3,
+                     lengths=[30], tables=[[1, 2]]),
+    "g16_d256": dict(b=1, hkv=2, groups=16, d=256, L=16, nb=2, num_blocks=3,
+                     lengths=[25], tables=[[2, 1]]),
+}
+
+
+def _card_case(name, seed, cuda, dtype):
+    cases = {**CASES, **CARD_CASES}
+    q, k, v, ks, vs, tables, lengths = (
+        torch.from_numpy(a).to(cuda) for a in _case(seed, **cases[name])
+    )
+    return (q.to(dtype), k, v, ks, vs, tables), lengths
+
+
+def _tolerance(dtype):
+    return (TOL, TOL) if dtype == torch.float32 else (1e-5, 2.0**-7)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_plain_version(cuda, dtype):
     """On the card: the kernel against its plain version on the same inputs,
     f32 to 1e-5; in bf16 both round one f32 result, so they differ by at
-    most one bf16 ulp (rtol 2**-7, atol 1e-5 near zero)."""
-    atol, rtol = (TOL, TOL) if dtype == torch.float32 else (1e-5, 2.0**-7)
-    for name in sorted(CASES):
-        q, k, v, ks, vs, tables, lengths = (
-            torch.from_numpy(a).to(cuda) for a in _case(3, **CASES[name])
-        )
-        q = q.to(dtype)
+    most one bf16 ulp (rtol 2**-7, atol 1e-5 near zero). One launch per
+    call, and the merge's tickets are back at zero after it."""
+    atol, rtol = _tolerance(dtype)
+    for name in sorted(CASES) + sorted(CARD_CASES):
+        args, lengths = _card_case(name, 3, cuda, dtype)
         before = paged_decode_attention.launches
-        got = paged_decode_attention(q, k, v, ks, vs, tables, lengths=lengths)
+        got = paged_decode_attention(*args, lengths=lengths)
         torch.cuda.synchronize()
         assert paged_decode_attention.launches == before + 1
-        want = paged_decode_attention_reference(q, k, v, ks, vs, tables, lengths=lengths)
+        want = paged_decode_attention_reference(*args, lengths=lengths)
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        assert all(not t.any() for t in fa._TICKETS.values()), "tickets left nonzero"
+        if name == "smollm3":
+            assert not got[-1].float().any(), "the dead row gives zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_len", [64, 128, 256])
+def test_cuda_kernel_matches_plain_version_at_every_split_len(cuda, split_len):
+    """Each split length the wrapper's rule can pick, at SmolLM3's geometry,
+    merged in the same launch, bf16 and f32; several launches each, since a
+    race in the merge need not show in one."""
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = _tolerance(dtype)
+        args, lengths = _card_case("smollm3", 5, cuda, dtype)
+        want = paged_decode_attention_reference(*args, lengths=lengths)
+        for _ in range(8):
+            got = fa._paged_decode_launch(*args, lengths, None, split_len)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+            assert all(not t.any() for t in fa._TICKETS.values()), "tickets left nonzero"
