@@ -50,7 +50,21 @@ and stops with a non-zero exit at the first failure:
    trunk's codes K-major and bit-unchanged, peak memory at most 28.5 GB,
    ``best_model/`` holds the decoded trunk;
 12. one full-width f32 microbatch with the int8 trunk, the w8a8 kernel
-   against its plain version (plain attention in both): loss and gradients.
+   against its plain version (plain attention in both): loss and gradients;
+13. (after phase 6, on phase 4's weights cast to f32) dense-cache greedy
+   generation of one ~1.43k-token prompt: ``Generator.generate_ids`` for 9
+   tokens, and ``forward`` over an ``init_cache`` buffer step by step, each
+   step's logits within 1e-4 x max|logit| of a no-cache ``forward`` over the
+   prompt and the tokens so far; the paged engine (bf16-layout pool) on the
+   same prompt must give the same tokens wherever the top-2 logit margin
+   exceeds twice that bound;
+14. (after phase 9, once phase 8's trainer is freed) asks phase 8's
+   ``best_model/`` the question through ``cli.ask_main`` (greedy, 32 new
+   tokens), in bf16 and with ``--quantize int8``: both answer, and the int8
+   weights take at most 3.4 GB on the card; then profiles a decode step of
+   phase 4's random weights as phase 6 does, serves them after
+   ``maybe_quantize(..., "int8")`` from an int8 KV pool as phase 4 does
+   (launches == 36 x decode steps) and profiles a step again.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -106,6 +120,9 @@ BF16_ATOL, BF16_RTOL = 1e-5, 2.0**-7
 TOLERANCE = f"f32 max|d| <= {F32_TOL}; bf16 |d| <= {BF16_ATOL} + 2**-7 x |plain|"
 # full-width f32 decode step, kernel against plain: relative to max |logit|
 LOGIT_REL_TOL = 1e-4
+# phase 13: tokens after the prefill's first; phase 14: the int8 weights' cap
+DENSE_STEPS = 8
+INT8_WEIGHT_BYTES_MAX = 3.4e9
 # what the paged decode kernel is, for the kernels line
 PAGED_DESIGN = ("each row's positions split over thread blocks (grid split x kv head x row, "
                 "split 64-256 positions from host shapes), 16-byte cp.async K/V tiles through a "
@@ -366,8 +383,9 @@ def kernel_phase(fa, peaks, live):
     return record
 
 
-def serve_phase(server_mod, fa, generator):
-    """The main path: the port's HTTP server over a paged int8 engine."""
+def serve_phase(server_mod, fa, generator, phase_no=4):
+    """The main path: the port's HTTP server over a paged int8 engine (phase
+    4; phase 14 with int8 weights)."""
     fa.paged_decode_attention.launches = 0  # count the main path's launches only
     httpd, engine = server_mod.build_server(
         generator, host="127.0.0.1", port=0, quantize_kv="int8", slots=SLOTS,
@@ -402,12 +420,12 @@ def serve_phase(server_mod, fa, generator):
     try:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
             check(r.status == 200 and r.read() == b"ok", "/healthz did not answer 200 ok")
-        phase(4, "GET /healthz -> 200 ok")
+        phase(phase_no, "GET /healthz -> 200 ok")
         warm = [None]
         post(WARMUP_QUESTION, warm, 0)
         check(warm[0][0] == 200, f"warm-up request: HTTP {warm[0][0]}")
         warm_stats = engine.stats_snapshot()
-        phase(4, f"warm-up request: HTTP 200 in {warm[0][2]:.3f} s")
+        phase(phase_no, f"warm-up request: HTTP 200 in {warm[0][2]:.3f} s")
         outs = [None] * len(QUESTIONS)
         threads = [threading.Thread(target=post, args=(q, outs, i)) for i, q in enumerate(QUESTIONS)]
         window_start = time.monotonic()
@@ -444,10 +462,10 @@ def serve_phase(server_mod, fa, generator):
     dec_tok = stats["decode_tokens"] - warm_stats["decode_tokens"]
     dec_s = stats["decode_s"] - warm_stats["decode_s"]
     ttft = stats["ttft_s"][1:]
-    phase(4, f"4 concurrent requests: HTTP 200 x4, tokens {[len(r[1]) for r in results[1:]]}, "
+    phase(phase_no, f"4 concurrent requests: HTTP 200 x4, tokens {[len(r[1]) for r in results[1:]]}, "
              f"prompt tokens {[len(r[0]) for r in results[1:]]}, "
              f"prefix hits {stats['prefix_hits']} ({stats['prefix_tokens_reused']} tokens reused)")
-    phase(4, f"kernel launches {launches} == {layers} x {stats['decode_steps']} decode steps")
+    phase(phase_no, f"kernel launches {launches} == {layers} x {stats['decode_steps']} decode steps")
     return {
         "launches": launches,
         "decode_steps": stats["decode_steps"],
@@ -515,7 +533,7 @@ def _device_events(prof):
     return out
 
 
-def profile_phase(generator, prompts, steps=5):
+def profile_phase(generator, prompts, steps=5, phase_no=6):
     """Decode steps at the main path's occupancy (the prompts prefilled into
     slots 0..n-1 of a fresh int8 pool, the other slots dead), timed with a
     synchronize around them and then profiled: device time by kernel name
@@ -588,16 +606,186 @@ def profile_phase(generator, prompts, steps=5):
             for name, (tot, n) in top
         ],
     }
-    phase(6, f"decode step at {len(prompts)} live rows, nb={nb}: {step_ms:.2f} ms "
+    phase(phase_no, f"decode step at {len(prompts)} live rows, nb={nb}: {step_ms:.2f} ms "
              f"({result['profiled_step_ms']:.2f} ms profiled), device busy "
              f"{100 * (result['device_busy_share'] or 0):.1f}%, "
              f"{result['device_kernels_per_step']:.0f} device kernels per step, "
              f"{result['device_ms_per_step']:.3f} ms of device time per step")
     for row in result["top_kernels"]:
-        phase(6, f"  {row['ms_per_step']:8.3f} ms/step  {row['calls_per_step']:6.1f} calls  {row['name']}")
+        phase(phase_no, f"  {row['ms_per_step']:8.3f} ms/step  {row['calls_per_step']:6.1f} calls  {row['name']}")
     if not events:
-        phase(6, "the profiler recorded no device events")
+        phase(phase_no, "the profiler recorded no device events")
     return result
+
+
+def dense_phase(tf, gen_mod, engine_mod, params_bf16, config, tokenizer, prompt_ids):
+    """Phase 13: dense-cache greedy generation at full width in f32, held
+    step by step against a no-cache forward and token by token against the
+    paged engine on a bf16-layout pool."""
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    params = {k: v.float() for k, v in params_bf16.items()}
+    greedy = GenerationConfig(max_new_tokens=DENSE_STEPS + 1, do_sample=False,
+                              repetition_penalty=1.0)
+    generator = gen_mod.Generator(params, config, tokenizer, compute_dtype=torch.float32,
+                                  eos_token_ids=[], device=DEVICE)
+    t0 = time.monotonic()
+    dense = generator.generate_ids(prompt_ids, greedy)
+    dense_s = time.monotonic() - t0
+    check(len(dense) == DENSE_STEPS + 1, f"generate_ids gave {len(dense)} tokens")
+
+    plen = len(prompt_ids)
+    bucket = -(-plen // gen_mod._PROMPT_BUCKET) * gen_mod._PROMPT_BUCKET
+    cache = tf.init_cache(config, 1, bucket + DENSE_STEPS + 1, dtype=torch.float32, device=DEVICE)
+    padded = torch.zeros(1, bucket, dtype=torch.long, device=DEVICE)
+    padded[0, :plen] = torch.tensor(prompt_ids, device=DEVICE)
+
+    def last_logits(hidden, at):
+        return tf.unembed(params, hidden[:, at], config, compute_dtype=torch.float32)[0]
+
+    steps = []
+    with torch.no_grad():
+        hidden, _ = tf.forward(params, padded, config, cache=cache, cache_pos=0,
+                               compute_dtype=torch.float32, output_hidden=True)
+        cached = last_logits(hidden, plen - 1)
+        for t in range(DENSE_STEPS + 1):
+            if t:  # token t reads token t - 1 at position plen + t - 1
+                tok = torch.tensor([[dense[t - 1]]], device=DEVICE)
+                hidden, _ = tf.forward(params, tok, config, cache=cache, cache_pos=plen + t - 1,
+                                       compute_dtype=torch.float32, output_hidden=True)
+                cached = last_logits(hidden, -1)
+            full = torch.tensor([list(prompt_ids) + dense[:t]], device=DEVICE)
+            hidden, _ = tf.forward(params, full, config, compute_dtype=torch.float32,
+                                   output_hidden=True)
+            plain = last_logits(hidden, -1)
+            top2 = torch.topk(cached, 2).values
+            steps.append({"max_abs_dlogits": (cached - plain).abs().max().item(),
+                          "max_abs_logits": plain.abs().max().item(),
+                          "margin": (top2[0] - top2[1]).item(),
+                          "argmax": int(cached.argmax())})
+    for t, st in enumerate(steps):
+        bound = LOGIT_REL_TOL * st["max_abs_logits"]
+        check(st["max_abs_dlogits"] <= bound,
+              f"dense step {t}: max|dlogits| {st['max_abs_dlogits']:.3e} > {bound:.3e}")
+        check(st["argmax"] == dense[t], f"dense step {t}: argmax {st['argmax']} != {dense[t]}")
+    phase(13, f"dense cache, f32, {plen}-token prompt: {DENSE_STEPS} decode steps, max|dlogits| "
+              f"vs a no-cache forward {max(st['max_abs_dlogits'] for st in steps):.3e} (bound "
+              f"{LOGIT_REL_TOL} x max|logit|, at least "
+              f"{min(LOGIT_REL_TOL * st['max_abs_logits'] for st in steps):.3e}); "
+              f"generate_ids {dense_s:.3f} s for {len(dense)} tokens")
+
+    engine = engine_mod.PagedContinuousBatchingEngine(
+        generator, slots=1, buf_len=2048, prompt_bucket=PROMPT_BUCKET, block_len=KV_BLOCK_LEN,
+        prefill_chunk=PREFILL_CHUNK, kv_quant="none")
+    try:
+        paged = engine.submit(prompt_ids, greedy, timeout=600)
+    finally:
+        engine.close()
+    agree = 0
+    for t, (a, b) in enumerate(zip(dense, paged)):
+        if a != b:  # the contexts differ from here on
+            bound = 2 * LOGIT_REL_TOL * steps[t]["max_abs_logits"]
+            check(steps[t]["margin"] <= bound,
+                  f"step {t}: dense token {a} != paged {b} at top-2 margin "
+                  f"{steps[t]['margin']:.3e} > {bound:.3e}")
+            break
+        agree += 1
+    check(len(paged) == len(dense), f"paged engine gave {len(paged)} tokens")
+    margin = min(st["margin"] for st in steps[:agree + 1])  # the steps compared
+    phase(13, f"paged engine (f32, bf16-layout pool): {agree} of {len(dense)} tokens equal the "
+              f"dense path's; smallest top-2 logit margin {margin:.3e}")
+    del params, generator, cache
+    return {"prompt_tokens": plen, "tokens": dense, "paged_tokens": paged,
+            "tokens_agreeing": agree, "smallest_margin": margin, "steps": steps,
+            "generate_ids_s": dense_s}
+
+
+ASK_PATTERNS = {
+    "load": r"Loaded in (\S+) s: (\d+) bytes of weights on .* memory_allocated \+(\d+) bytes",
+    "answer": r"^Answer: (.*)$",
+    "rate": r"^\[ask\] (\d+) tokens in (\S+) s \((\S+) tokens/s\)",
+}
+
+
+def ask_phase(cli_mod, model_dir):
+    """Phase 14a: ``cli.ask_main`` on phase 8's ``best_model/``, greedy, in
+    bf16 and with ``--quantize int8``; its output is echoed and parsed."""
+    import contextlib
+    import io
+    import re
+
+    out = {}
+    for quantize in ("none", "int8"):
+        argv = ["--model-dir", model_dir, "--greedy", "--max-new-tokens", str(MAX_NEW_TOKENS),
+                "--quantize", quantize, QUESTIONS[0]]
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_mod.ask_main(argv)
+        wall = time.monotonic() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            phase(14, f"  | {line}")
+        check(rc == 0, f"ask_main --quantize {quantize} returned {rc}")
+        found = {k: re.search(p, text, re.M) for k, p in ASK_PATTERNS.items()}
+        check(all(found.values()), f"ask_main --quantize {quantize}: output lacks "
+                                   f"{[k for k, m in found.items() if not m]}")
+        load_s, weight_bytes, allocated = found["load"].groups()
+        tokens, gen_s, rate = found["rate"].groups()
+        out[quantize] = {"load_s": float(load_s), "weight_bytes": int(weight_bytes),
+                         "memory_allocated_bytes": int(allocated), "tokens": int(tokens),
+                         "generate_s": float(gen_s), "tokens_per_s": float(rate),
+                         "wall_s": wall, "answer": found["answer"].group(1)}
+        gc_cuda()
+        r = out[quantize]
+        phase(14, f"ask --quantize {quantize}: load {r['load_s']:.3f} s, weights on the card "
+                  f"{r['memory_allocated_bytes'] / 1e9:.3f} GB (memory_allocated; tensors "
+                  f"{r['weight_bytes'] / 1e9:.3f} GB), {r['tokens']} tokens in "
+                  f"{r['generate_s']:.3f} s ({r['tokens_per_s']:.2f} tokens/s), wall to the "
+                  f"answer {wall:.3f} s")
+    check(out["int8"]["memory_allocated_bytes"] <= INT8_WEIGHT_BYTES_MAX,
+          f"int8 weights take {out['int8']['memory_allocated_bytes']} bytes > "
+          f"{INT8_WEIGHT_BYTES_MAX:.3g}")
+    return out
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def int8_weights_serve_phase(tf, gen_mod, server_mod, fa, config, tokenizer, prompts):
+    """Phase 14b: phase 4's random weights profiled as in phase 6 (the bf16
+    baseline at this point of the run), then as weight-only int8 served
+    from an int8 KV pool as in phase 4 and profiled again."""
+    from llm_fine_tune_distributed_tpu_torch.ops.int8 import maybe_quantize
+
+    before = torch.cuda.memory_allocated()
+    params = tf.init_params(config, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    generator = gen_mod.Generator(params, config, tokenizer, compute_dtype=torch.bfloat16,
+                                  device=DEVICE)
+    profiled_bf16 = profile_phase(generator, prompts, phase_no=14)
+    del generator  # its dict holds the bf16 kernels that quantizing drops
+    maybe_quantize(params, "int8")
+    torch.cuda.synchronize()
+    weight_bytes = torch.cuda.memory_allocated() - before
+    phase(14, f"smollm3_3b random weights, weight-only int8: {weight_bytes / 1e9:.3f} GB on the "
+              f"card (memory_allocated)")
+    generator = gen_mod.Generator(params, config, tokenizer, compute_dtype=torch.bfloat16,
+                                  device=DEVICE)
+    served = serve_phase(server_mod, fa, generator, phase_no=14)
+    served["weight_bytes"] = weight_bytes
+    phase(14, f"int8 weights: {served['tokens_per_s_concurrent']:.1f} tokens/s over the 4 "
+              f"concurrent requests' {served['window_s']:.3f} s window, mean decode step "
+              f"{served['decode_step_ms_mean']:.2f} ms, TTFT warm-up {served['ttft_s_warmup']:.3f} s, "
+              f"concurrent {[round(t, 3) for t in served['ttft_s_concurrent']]} s")
+    profiled = profile_phase(generator, prompts, phase_no=14)
+    del generator, params
+    gc_cuda()
+    return served, profiled, profiled_bf16
 
 
 # ---------------------------------------------------------------------------
@@ -1648,10 +1836,13 @@ def main(argv=()) -> int:
     if argv:
         print(__doc__, file=sys.stderr)
         return 2
-    import gc
+    import os
+    import shutil
     import tempfile
 
+    from llm_fine_tune_distributed_tpu_torch import cli as cli_mod
     from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer import engine as engine_mod
     from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
     from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
     from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
@@ -1716,19 +1907,30 @@ def main(argv=()) -> int:
 
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
+    dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
     del generator, params  # free the serving phases' tensors before training
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_cuda()
     torch.cuda.reset_peak_memory_stats()
 
     flash = flash_kernel_phase(fa, peaks)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:  # phase 14 asks the model phase 8 trains
         trained, trainer = train_phase(fa, mm, workdir)
-    train_profile = train_profile_phase(trainer, mm)
-    microbatch = f32_microbatch_phase(trainer, fa, mm)
-    del trainer  # free phase 8's state before the int8 trunk's
-    gc.collect()
-    torch.cuda.empty_cache()
+        train_profile = train_profile_phase(trainer, mm)
+        microbatch = f32_microbatch_phase(trainer, fa, mm)
+        del trainer  # free phase 8's state before asking and before the int8 trunk
+        gc_cuda()
+        asked = ask_phase(cli_mod, os.path.join(workdir, "out", "best_model"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    served_i8, profiled_i8, profiled_bf16 = int8_weights_serve_phase(
+        tf, gen_mod, server_mod, fa, config, tokenizer, prompts)
+    for name, rec in (("phase 14 bf16 weights", profiled_bf16), ("phase 6 bf16 weights", profiled)):
+        phase(14, f"decode step at {rec['live_rows']} live rows, int8 weights vs {name}: device "
+                  f"time {profiled_i8['device_ms_per_step']:.3f} vs {rec['device_ms_per_step']:.3f} "
+                  f"ms, step {profiled_i8['step_ms']:.2f} vs {rec['step_ms']:.2f} ms, device busy "
+                  f"{100 * (profiled_i8['device_busy_share'] or 0):.1f}% vs "
+                  f"{100 * (rec['device_busy_share'] or 0):.1f}%")
 
     w8a8 = w8a8_kernel_phase(mm, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_int8_") as workdir:
@@ -1753,6 +1955,7 @@ def main(argv=()) -> int:
                          "llm_fine_tune_distributed_tpu_torch/csrc/paged_decode.cu",
                          "llm_fine_tune_distributed_tpu/ops/flash_attention.py:353",
                          served["launches"], {**live_rec, "library_ms": None})
+    paged["launches_int8_weights"] = served_i8["launches"]  # phase 14's run
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -1801,7 +2004,10 @@ def main(argv=()) -> int:
                "decode_profile": profiled, "build_s": build_s, "train": trained,
                "train_profile": train_profile, "f32_microbatch": microbatch,
                "train_int8": trained_i8, "train_profile_int8": train_profile_i8,
-               "f32_microbatch_int8": microbatch_i8, "total_s": time.monotonic() - t_start}
+               "f32_microbatch_int8": microbatch_i8, "dense_generation": dense, "ask": asked,
+               "serve_int8_weights": served_i8, "decode_profile_int8_weights": profiled_i8,
+               "decode_profile_bf16_phase14": profiled_bf16,
+               "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,6 +1,7 @@
-"""Training entry point of the port: ``python -m
-llm_fine_tune_distributed_tpu_torch.cli`` (counterpart of the JAX
-``cli.train_main``).
+"""Entry points of the port (counterparts of the JAX ``cli.py``):
+``train_main`` (``python -m llm_fine_tune_distributed_tpu_torch.cli``),
+``ask_main`` (ask the tuned model a question) and ``serve_main`` (serve it
+over HTTP).
 
 The env-var contract is the JAX package's (EPOCHS, BATCH_SIZE,
 LEARNING_RATE, DATA_DIR, OUTPUT_DIR, MODEL_PRESET, MODEL_NAME,
@@ -56,6 +57,27 @@ def train_main(argv: Optional[list] = None) -> int:
     print(f"Training artifacts saved to {config.output_dir}/")
     print(f"samples/sec/card: {summary.get('samples_per_second_per_chip')}")
     return 0
+
+
+def ask_main(argv: Optional[list] = None) -> int:
+    """Ask the fine-tuned model a question (the reference's ask_tuned_model.py)."""
+    from llm_fine_tune_distributed_tpu_torch.infer.cli import run_ask_cli
+
+    return run_ask_cli(
+        argv,
+        description=ask_main.__doc__,
+        default_model_dir="outputs/best_model",
+        model_dir_env="MODEL_DIR",
+        missing_dir_help="Run training first (python -m llm_fine_tune_distributed_tpu_torch.cli) "
+                         "or pass --model-dir.",
+    )
+
+
+def serve_main(argv: Optional[list] = None) -> int:
+    """Serve the tuned model over HTTP (infer/server.py)."""
+    from llm_fine_tune_distributed_tpu_torch.infer.server import main
+
+    return main(argv)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,21 @@
-"""Generation over the block-paged KV pool (counterpart of the JAX
-``infer/generate.py`` paged programs).
+"""Autoregressive generation over a dense KV cache or the block-paged KV
+pool (counterpart of the JAX ``infer/generate.py``).
 
 PyTorch runs eagerly, so where the JAX ``Generator`` builds and caches one
-jitted program per shape (``paged_step``, ``paged_prefill_chunk``,
-``paged_prefill_final``), the methods of the same names here run the step
-directly. The pool is updated in place.
+jitted program per shape (``_build_batch``, ``_build_stream``,
+``paged_step``, ``paged_prefill_chunk``, ``paged_prefill_final``), the
+methods here run the steps directly, and a Python loop replaces
+``jax.lax.while_loop``. Caches are updated in place.
+
+Dense decode (``generate_batch``, ``generate_ids``, ``generate_stream``,
+``chat``): right-padded prompts prefill a whole bucket of
+``_PROMPT_BUCKET``; row i's generated token t is written at cache slot
+``len_i + t``, so slot == position per row and the pad slots not yet
+overwritten sit past every query's position, hence masked. The batch loop
+reads one bool ("every row done") on the host per step, the one sync
+``while_loop``'s condition costs; the stream reads its tokens once per
+chunk. Sampling draws from one ``torch.Generator`` seeded by ``seed`` per
+call, so sampled tokens differ from the JAX package's (greedy ones agree).
 
 Per-slot state: ``last`` (the slot's last token), ``pos`` (its position),
 ``seen`` ([slots, vocab] bool, for the repetition penalty), and per slot the
@@ -32,13 +43,18 @@ from llm_fine_tune_distributed_tpu_torch.models.hf_io import load_hf_checkpoint
 from llm_fine_tune_distributed_tpu_torch.models.transformer import (
     check_supported,
     forward,
+    init_cache,
     init_paged_cache,
     unembed,
 )
 
+_PROMPT_BUCKET = 256
+_JAX_SPEC = "llm_fine_tune_distributed_tpu.infer.generate.Generator._build_spec"
+
 
 class Generator:
-    """Paged generation over a flat parameter dict on one device."""
+    """Generation over a flat parameter dict on one device: dense-cache
+    decode and the paged engine's steps."""
 
     def __init__(
         self,
@@ -49,7 +65,11 @@ class Generator:
         compute_dtype=torch.bfloat16,
         eos_token_ids: Optional[Sequence[int]] = None,
         device=None,
+        draft_params=None,
+        draft_config: Optional[ModelConfig] = None,
     ):
+        if draft_params is not None or draft_config is not None:
+            raise NotImplementedError(f"draft-model speculation is not ported ({_JAX_SPEC} has it)")
         check_supported(model_config)
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
@@ -60,6 +80,140 @@ class Generator:
         if eos is None:
             eos = [tokenizer.eos_token_id] if tokenizer.eos_token_id is not None else []
         self.eos_token_ids = tuple(int(e) for e in eos)
+
+    # ------------------------------------------------------- dense decode
+
+    def _step_logits(self, token_ids: torch.Tensor, cache: dict, cache_pos) -> torch.Tensor:
+        """Feed ``token_ids`` [b, s] at ``cache_pos``; the last position's logits."""
+        hidden, _ = forward(self.params, token_ids, self.config, cache=cache,
+                            cache_pos=cache_pos, compute_dtype=self.compute_dtype,
+                            output_hidden=True)
+        return unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
+
+    def _prompt_prefill(self, prompts: List[List[int]], slack: int, gen: GenerationConfig,
+                        rng: torch.Generator):
+        """Cache init (the prompt bucket + ``slack`` slots) + prefill of the
+        right-padded bucket + each row's last-position logits + the seen set
+        + the first token. Returns
+        ``(first [b], cache, seen [b, vocab], prompt_lens [b])``."""
+        b = len(prompts)
+        bucket = -(-max(len(p) for p in prompts) // _PROMPT_BUCKET) * _PROMPT_BUCKET
+        padded = np.zeros((b, bucket), np.int64)
+        for i, p in enumerate(prompts):
+            padded[i, : len(p)] = p
+        ids = self._tensor(padded)
+        lens = self._tensor(np.array([len(p) for p in prompts], np.int64))
+        rows = torch.arange(b, device=self.device)
+        cache = init_cache(self.config, b, bucket + slack, dtype=self.compute_dtype,
+                           device=self.device)
+        hidden, _ = forward(self.params, ids, self.config, cache=cache, cache_pos=0,
+                            compute_dtype=self.compute_dtype, output_hidden=True)
+        logits = unembed(self.params, hidden[rows, lens - 1], self.config,
+                         compute_dtype=self.compute_dtype)
+        valid = torch.arange(bucket, device=self.device)[None, :] < lens[:, None]
+        safe_ids = torch.where(valid, ids, ids[:, :1])
+        seen = torch.zeros(b, self.config.vocab_size, dtype=torch.bool, device=self.device)
+        seen[rows[:, None], safe_ids] = True
+        first = sample_token(logits, seen, gen, generator=rng)
+        seen[rows, first] = True
+        return first, cache, seen, lens
+
+    def _check_plain(self, gen: GenerationConfig) -> None:
+        if gen.speculative_lookup > 0:
+            raise NotImplementedError(
+                f"speculative decoding (speculative_lookup={gen.speculative_lookup}) is not "
+                f"ported ({_JAX_SPEC} has it)"
+            )
+
+    def _trim_at_eos(self, toks: List[int]) -> List[int]:
+        for i, tok in enumerate(toks):
+            if tok in self.eos_token_ids:
+                return toks[:i]
+        return toks
+
+    def generate_batch(self, prompts: Sequence[Sequence[int]],
+                       gen: Optional[GenerationConfig] = None, seed: int = 0) -> List[List[int]]:
+        """Generate continuations of a ragged batch of prompts together, each
+        row trimmed at its first EOS. A row that is done emits ``eos[0]``
+        while the others go on; the loop ends when every row is done or at
+        ``max_new_tokens``. Greedy rows equal their prompt's solo run."""
+        gen = gen or GenerationConfig()
+        self._check_plain(gen)
+        prompts = [[int(t) for t in p] for p in prompts]
+        if not prompts or any(not p for p in prompts):
+            raise ValueError("generate_batch needs >= 1 non-empty prompt")
+        rng = torch.Generator(device=self.device).manual_seed(int(seed))
+        first, cache, seen, lens = self._prompt_prefill(prompts, gen.max_new_tokens, gen, rng)
+        b = len(prompts)
+        rows = torch.arange(b, device=self.device)
+        eos = self._tensor(np.array(self.eos_token_ids, np.int64))
+        out = torch.zeros(b, gen.max_new_tokens, dtype=torch.long, device=self.device)
+        out[:, 0] = first
+        done = torch.isin(first, eos)
+        t = 1
+        # the host reads "every row done" once per step (while_loop's condition)
+        while t < gen.max_new_tokens and not bool(done.all()):
+            logits = self._step_logits(out[:, t - 1: t], cache, lens + (t - 1))
+            nxt = sample_token(logits, seen, gen, generator=rng)
+            hit_eos = torch.isin(nxt, eos)
+            if self.eos_token_ids:
+                nxt = torch.where(done, self.eos_token_ids[0], nxt)
+            out[:, t] = nxt
+            seen[rows, nxt] = True
+            done |= hit_eos
+            t += 1
+        return [self._trim_at_eos(row) for row in out.cpu().tolist()]
+
+    def generate_ids(self, prompt_ids: Sequence[int], gen: Optional[GenerationConfig] = None,
+                     seed: int = 0) -> List[int]:
+        """Continuation token ids of one prompt (a batch of 1)."""
+        return self.generate_batch([prompt_ids], gen, seed)[0]
+
+    def generate_stream(self, prompt_ids: Sequence[int], gen: Optional[GenerationConfig] = None,
+                        seed: int = 0, chunk: int = 8):
+        """Yield generated token ids in lists of up to ``chunk`` as they
+        decode; the stream ends at EOS or ``max_new_tokens``. Each chunk runs
+        ``chunk`` steps on the card and is read back once; the cache has
+        ``chunk`` slots of slack, so the last chunk may overrun
+        ``max_new_tokens`` and the host trims it. The tokens are
+        ``generate_ids``'s, greedy and sampled."""
+        gen = gen or GenerationConfig()
+        self._check_plain(gen)
+        prompt = [int(t) for t in prompt_ids]
+        if not prompt:
+            raise ValueError("generate_stream needs a non-empty prompt")
+        if chunk < 1:
+            raise ValueError(f"stream chunk must be >= 1, got {chunk}")
+        rng = torch.Generator(device=self.device).manual_seed(int(seed))
+        last, cache, seen, lens = self._prompt_prefill([prompt], gen.max_new_tokens + chunk,
+                                                       gen, rng)
+        first = int(last[0])
+        if first in self.eos_token_ids:
+            return
+        yield [first]
+        emitted = 1
+        while emitted < gen.max_new_tokens:
+            toks = torch.zeros(1, chunk, dtype=torch.long, device=self.device)
+            for i in range(chunk):
+                # token emitted+i reads token emitted+i-1 at slot len+emitted+i-1
+                logits = self._step_logits(last[:, None], cache, lens + (emitted + i - 1))
+                last = sample_token(logits, seen, gen, generator=rng)
+                seen[0, last] = True
+                toks[:, i] = last
+            row = toks[0].cpu().tolist()[: gen.max_new_tokens - emitted]
+            emitted += len(row)
+            out = self._trim_at_eos(row)
+            if out:
+                yield out
+            if len(out) < len(row):
+                return
+
+    def chat(self, messages: List[dict], gen: Optional[GenerationConfig] = None, seed: int = 0,
+             **template_kwargs) -> str:
+        """ChatML conversation -> the assistant's reply text (only the
+        generated ids are decoded)."""
+        ids = self.generate_ids(self.encode_chat(messages, **template_kwargs), gen, seed)
+        return self.decode_reply(ids)
 
     # ------------------------------------------------- paged continuous decode
 

@@ -7,8 +7,9 @@
                       "top_k", "repetition_penalty"} -> {"answer": ...}
 
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
---model-dir DIR --engine paged --quantize-kv int8``. It serves on the GPU;
-``--device cpu`` runs on the CPU. ``build_server`` serves a Generator that is
+--model-dir DIR --engine paged --quantize-kv int8 [--quantize int8]``. It
+serves on the GPU; ``--device cpu`` runs on the CPU. ``--quantize int8``
+stores the block linears as weight-only int8 (``ops/int8.maybe_quantize``). ``build_server`` serves a Generator that is
 already in memory (random weights, for instance) without a model directory.
 """
 
@@ -32,6 +33,11 @@ from llm_fine_tune_distributed_tpu_torch.infer.generate import (
     load_tokenizer_dir,
 )
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
+    QUANTIZE_MODES,
+    check_quantize_mode,
+    maybe_quantize,
+)
 
 log = logging.getLogger(__name__)
 
@@ -58,11 +64,12 @@ def build_server(
     prefill_chunk: int = 512,
     prompt_bucket: int = 64,
     request_timeout_s: Optional[float] = 600.0,
+    template_kwargs: Optional[dict] = None,
 ):
     """Start a paged engine over ``generator`` and bind an HTTP server to
     it. Returns ``(httpd, engine)``; the caller runs ``httpd.serve_forever``
     and, when done, ``httpd.shutdown()``, ``httpd.server_close()`` and
-    ``engine.close()``."""
+    ``engine.close()``. ``template_kwargs`` go to the chat template."""
     engine = PagedContinuousBatchingEngine(
         generator, slots=slots, buf_len=kv_buf_len, prompt_bucket=prompt_bucket,
         block_len=kv_block_len, prefill_chunk=prefill_chunk, kv_quant=quantize_kv,
@@ -113,7 +120,7 @@ def build_server(
                      "content": req.get("system_prompt", WILDERNESS_EXPERT_SYSTEM_PROMPT)},
                     {"role": "user", "content": question},
                 ]
-                prompt_ids = generator.encode_chat(messages)
+                prompt_ids = generator.encode_chat(messages, **(template_kwargs or {}))
             except (ValueError, KeyError, TypeError) as e:
                 self._send(400, {"error": f"bad request: {e}"})
                 return
@@ -135,20 +142,23 @@ def build_server(
 
 
 def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 8080,
-          **engine_kw) -> None:
+          quantize: str = "none", **engine_kw) -> None:
     """Load ``model_dir`` onto ``device`` and serve it until interrupted.
     Weights and compute are bf16 on the GPU and f32 on the CPU (which has no
-    fast bf16, and where the tests compare with the JAX package in f32)."""
+    fast bf16, and where the tests compare with the JAX package in f32);
+    ``quantize="int8"`` then stores the block linears as int8 codes."""
+    check_quantize_mode(quantize)  # before the model loads
     device = resolve_device(device)
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     params, model_config = load_model_dir(model_dir, device=device, dtype=compute_dtype)
+    params = maybe_quantize(params, quantize)
     generator = Generator(
         params, model_config, load_tokenizer_dir(model_dir),
         compute_dtype=compute_dtype, device=device,
     )
     httpd, engine = build_server(generator, host=host, port=port, **engine_kw)
     print(f"[serve] listening on http://{host}:{httpd.server_address[1]} "
-          f"(device {device}, {compute_dtype})", flush=True)
+          f"(device {device}, {compute_dtype}, weights {quantize})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -166,6 +176,10 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--quantize-kv", choices=["none", "int8"], default="none",
                         help="store the KV block pool as int8 with per-block absmax scales; "
                              "decode then reads it through the fused CUDA kernel")
+    parser.add_argument("--quantize-weights", "--quantize", dest="quantize",
+                        choices=QUANTIZE_MODES, default="none",
+                        help="weight-only quantization of the block linears (int8; nf4 is "
+                             "not ported)")
     parser.add_argument("--slots", type=int, default=8, help="persistent decode slots")
     parser.add_argument("--kv-buf-len", type=int, default=4096,
                         help="positions per request (prompt + generated)")
@@ -177,12 +191,15 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    if args.quantize == "nf4":
+        parser.error("--quantize nf4 is not ported "
+                     "(llm_fine_tune_distributed_tpu.ops.nf4.quantize_params_nf4 has it)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}")
     serve(
-        args.model_dir, device=device, host=args.host, port=args.port,
+        args.model_dir, device=device, host=args.host, port=args.port, quantize=args.quantize,
         quantize_kv=args.quantize_kv, slots=args.slots, kv_buf_len=args.kv_buf_len,
         kv_block_len=args.kv_block_len, prefill_chunk=args.prefill_chunk,
     )

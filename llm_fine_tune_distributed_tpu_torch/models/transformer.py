@@ -9,8 +9,9 @@ parity test or a safetensors file maps one to the other by name.
 Ported branches: the dense SwiGLU model (SmolLM3, Llama) with optional
 linear biases, RoPE with SmolLM3's NoPE layers and rope scaling, the
 no-cache forward with a padding mask, the flash or plain attention and
-per-block rematerialization (training), the frozen trunk in w8a8 int8, and
-the block-paged KV cache in bf16 or int8 (``init_paged_cache``). Other
+per-block rematerialization (training), the frozen trunk in w8a8 int8,
+weight-only int8 kernels (inference), the dense KV cache (``init_cache``)
+and the block-paged KV cache in bf16 or int8 (``init_paged_cache``). Other
 branches raise ``NotImplementedError``.
 """
 
@@ -29,6 +30,7 @@ from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import paged_decode
 from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
     KV_QUANT_MODES,
     dequantize_kv_gather,
+    int8_matmul,
     quantize_kv_write,
 )
 from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import int8_w8a8_matmul
@@ -124,20 +126,20 @@ def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
 
 def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
             trunk_matmul=None) -> torch.Tensor:
-    """x @ kernel (+ bias) in ``compute_dtype``. In the frozen trunk
-    (``trunk_matmul`` given) the int8 siblings ``kernel_int8`` /
-    ``kernel_int8_scale`` run through ``trunk_matmul`` (w8a8)."""
+    """x @ kernel (+ bias) in ``compute_dtype``. The int8 siblings
+    ``kernel_int8`` / ``kernel_int8_scale`` run through ``trunk_matmul``
+    (w8a8) in the frozen trunk (``trunk_matmul`` given) and through
+    ``ops.int8.int8_matmul`` (weight-only) elsewhere."""
     codes = params.get(name + ".kernel_int8")
-    if codes is not None and trunk_matmul is not None:
+    if codes is not None:
         q = {"int8": codes, "int8_scale": params[name + ".kernel_int8_scale"]}
-        y = trunk_matmul(x, q, compute_dtype)
+        y = (trunk_matmul or int8_matmul)(x, q, compute_dtype)
     else:
         kernel = params.get(name + ".kernel")
         if kernel is None or name + ".lora_a" in params:
             raise NotImplementedError(
-                f"{name}: only plain kernels (+ bias) and the frozen trunk's w8a8 int8 kernels "
-                "are ported; LoRA, weight-only int8 and NF4 weights are in "
-                "llm_fine_tune_distributed_tpu.models.transformer._linear"
+                f"{name}: only plain and int8 kernels (+ bias) are ported; LoRA and NF4 "
+                "weights are in llm_fine_tune_distributed_tpu.models.transformer._linear"
             )
         y = x @ kernel.to(compute_dtype)
     bias = params.get(name + ".bias")
@@ -146,10 +148,27 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
     return y
 
 
+def _dense_write(buf: torch.Tensor, slots: torch.Tensor, x: torch.Tensor) -> None:
+    """Write ``x [b, s, h, d]`` into a dense cache buffer ``buf [b, M, h, d]``
+    IN PLACE at ``slots [b, s]`` (consecutive in each row, >= 0). Slots past
+    the buffer are dropped, as the JAX scatter drops them. Without a host
+    sync: every write goes to its slot clamped to M - 1, carrying the value
+    that slot ends up with (the kept write's value, else the old one), so
+    the writes that share a slot agree and their order does not matter."""
+    b, s = slots.shape
+    tgt = slots.clamp(max=buf.shape[1] - 1)
+    src = tgt - slots[:, :1]  # index into x of the write that keeps tgt, if any
+    kept = (src >= 0) & (src < s)
+    rows = torch.arange(b, device=buf.device)[:, None]
+    new = torch.gather(x.to(buf.dtype), 1, src.clamp(0, s - 1)[:, :, None, None].expand_as(x))
+    buf[rows, tgt] = torch.where(kept[:, :, None, None], new, buf[rows, tgt])
+
+
 def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
-           block_tables, padding_mask, *, config: ModelConfig, compute_dtype, decode_attention,
-           attention_impl: str, attention_fn, trunk_matmul=None):
-    """One transformer block; updates a paged cache ``entry`` in place."""
+           block_tables, padding_mask, write_slots, *, config: ModelConfig, compute_dtype,
+           decode_attention, attention_impl: str, attention_fn, trunk_matmul=None):
+    """One transformer block; updates a cache ``entry`` (paged, or dense at
+    ``write_slots``) in place."""
     b, s, _ = x.shape
     d = config.resolved_head_dim
     eps = config.rms_norm_eps
@@ -165,7 +184,12 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
         q, k = apply_rope(q, k, cos, sin)
 
     out = None
-    if entry is not None:
+    if entry is not None and block_tables is None:
+        # dense cache: the whole buffer is the key range, slot == position
+        _dense_write(entry["k"], write_slots, k)
+        _dense_write(entry["v"], write_slots, v)
+        k, v = entry["k"], entry["v"]
+    elif entry is not None:
         # Paged cache: the entry is the global pool [num_blocks, L, hkv, d];
         # row r's logical position p lives in cell (table[r, p // L], p % L).
         # A position past the table view clips into its last entry, as in
@@ -276,6 +300,14 @@ def forward(
     each block in the backward (``remat_policy`` "full" or
     "dots_no_batch"); it applies only while autograd records.
 
+    With a dense ``cache`` (``init_cache``, buffers [batch, max_len, ...]):
+    the chunk sits at positions ``cache_pos + arange(seq)`` and attends to
+    every buffer slot <= its position (plain masked attention). A scalar
+    ``cache_pos`` writes the same slots in every row, its start clamped so
+    that the chunk fits, as ``dynamic_update_slice`` clamps it; a [batch]
+    tensor writes row i at ``cache_pos[i] + t`` and drops slots past the
+    buffer, as the JAX scatter does.
+
     With ``cache`` (``init_paged_cache``) and ``block_tables``
     [batch, nb] int32: the chunk is written into the pool at positions
     ``cache_pos + arange(seq)`` (``cache_pos`` a scalar or a [batch] tensor)
@@ -300,28 +332,36 @@ def forward(
     The cache is updated in place and returned.
     """
     check_supported(config)
-    if cache is not None and block_tables is None:
-        raise NotImplementedError(
-            f"the dense KV cache is not ported ({_JAX_FORWARD} with "
-            "init_cache has it); pass block_tables with init_paged_cache"
-        )
     if cache is not None and padding_mask is not None:
         raise NotImplementedError(
             f"padding_mask with a KV cache is not ported ({_JAX_FORWARD} has it)"
         )
     b, s = input_ids.shape
     device = input_ids.device
-    offset = cache_pos[:, None] if torch.is_tensor(cache_pos) and cache_pos.dim() == 1 else cache_pos
+    per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
+    offset = cache_pos[:, None] if per_row else cache_pos
     positions = (torch.arange(s, device=device)[None, :] + offset).expand(b, s).long()
 
     x = F.embedding(input_ids, params["model.embed_tokens.weight"]).to(compute_dtype)
     cos, sin = rope_cos_sin(positions, config.resolved_head_dim, config.rope_theta, config=config)
 
-    explicit_mask = None
+    explicit_mask = write_slots = None
     if cache is not None:
-        # gathered view index == logical position, so key j is visible to
-        # query i iff j <= position(i)
-        kv_len = block_tables.shape[1] * cache["layers"]["0"]["k"].shape[1]
+        # buffer slot (dense) or gathered view index (paged) == logical
+        # position, so key j is visible to query i iff j <= position(i)
+        if block_tables is None:
+            rows, kv_len = cache["layers"]["0"]["k"].shape[:2]
+            if rows != b:
+                raise ValueError(f"a dense cache of {rows} rows for a batch of {b} (a paged "
+                                 "pool needs block_tables)")
+            if s > kv_len:
+                raise ValueError(f"a {s}-token chunk does not fit a {kv_len}-slot cache")
+            write_slots = positions
+            if not per_row:
+                start = min(max(int(cache_pos), 0), kv_len - s)
+                write_slots = torch.arange(start, start + s, device=device)[None, :].expand(b, s)
+        else:
+            kv_len = block_tables.shape[1] * cache["layers"]["0"]["k"].shape[1]
         k_pos = torch.arange(kv_len, device=device)[None, None, :]
         explicit_mask = k_pos <= positions[:, :, None]
 
@@ -334,7 +374,8 @@ def forward(
             decode_attention=decode_attention, attention_impl=attention_impl,
             attention_fn=attention_fn, trunk_matmul=trunk_matmul if i < trunk else None,
         )
-        args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask)
+        args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask,
+                write_slots)
         if i < trunk:
             with torch.no_grad():
                 x = block_fn(x, *args)
@@ -357,6 +398,16 @@ def unembed(params: Params, hidden: torch.Tensor, config: ModelConfig, *,
     else:
         logits = h @ params["lm_head.kernel"].to(compute_dtype)
     return logits.to(logits_dtype)
+
+
+def init_cache(config: ModelConfig, batch_size: int, max_len: int, *,
+               dtype=torch.bfloat16, device="cpu") -> dict:
+    """Dense KV cache for autoregressive decoding: per layer k and v buffers
+    [batch_size, max_len, kv_heads, head_dim] of zeros."""
+    shape = (batch_size, max_len, config.num_kv_heads, config.resolved_head_dim)
+    return {"layers": {str(i): {"k": torch.zeros(shape, dtype=dtype, device=device),
+                                "v": torch.zeros(shape, dtype=dtype, device=device)}
+                       for i in range(config.num_layers)}}
 
 
 def init_paged_cache(config: ModelConfig, num_blocks: int, block_len: int, *,

@@ -3,8 +3,12 @@
 
 Weights: ``quantize_int8`` turns an ``[in, out]`` kernel into the sibling
 leaves ``kernel_int8`` (int8 codes) and ``kernel_int8_scale`` (f32
-per-output-channel absmax/127), the layout the frozen trunk's w8a8 matmul
-reads (``ops/int8_matmul.py``).
+per-output-channel absmax/127). The frozen trunk's w8a8 matmul reads them
+(``ops/int8_matmul.py``), and so does weight-only int8 inference
+(``int8_matmul``; ``quantize_params_int8`` / ``maybe_quantize`` convert a
+loaded model, CLI flag ``--quantize int8``): the codes are dequantized in
+f32, cast once to the compute dtype and multiplied there. Embedding, lm_head
+and norms stay full precision.
 
 KV pool: the pool keeps the bf16 layout's [num_blocks, block_len, kv_heads,
 head_dim] shape in int8, plus an absmax pool [num_blocks, kv_heads] f32
@@ -15,12 +19,16 @@ indexed by the same block ids. Codes are symmetric absmax/127. Scale 0 means
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
+# weight-only inference quantization modes (CLI and server choices); "nf4"
+# is the JAX package's and raises here
+QUANTIZE_MODES = ("none", "int8", "nf4")
 KV_QUANT_MODES = ("none", "int8")
 INT8_SUFFIXES = ("int8", "int8_scale")
+_STACKED_EXPERTS = (".experts.w1", ".experts.w2", ".experts.w3")
 
 
 def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -40,6 +48,87 @@ def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 def dequantize_int8(q: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
     """Inverse: int8 codes x per-channel scale in f32 -> [in, out] in ``dtype``."""
     return (q["int8"].float() * q["int8_scale"][None, :].float()).to(dtype)
+
+
+def int8_matmul(x: torch.Tensor, q: Dict[str, torch.Tensor],
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """``x [..., in] @ dequant(q)`` in ``compute_dtype``: the codes times the
+    per-channel scale in f32, cast once, as the JAX version computes it. One
+    elementwise pass writes the dequantized weight straight in
+    ``compute_dtype`` (``torch.mul`` into an ``out`` of that dtype computes
+    in f32 and rounds on the store), in the codes' own memory layout, so
+    row-major codes and the K-major ones ``models/carry.params_from_jax``
+    makes both work."""
+    codes = q["int8"]
+    w = torch.empty_like(codes, dtype=compute_dtype)
+    torch.mul(codes, q["int8_scale"][None, :].float(), out=w)
+    return x.to(compute_dtype) @ w
+
+
+def _default_predicate(name: str) -> bool:
+    """The transformer blocks' linear kernels (and stacked expert weights,
+    which have no port); the MoE router gate stays exact."""
+    return ".layers." in name and (
+        (name.endswith(".kernel") and not name.endswith("block_sparse_moe.gate.kernel"))
+        or name.endswith(_STACKED_EXPERTS)
+    )
+
+
+def quantize_params_int8(params: Dict[str, torch.Tensor],
+                         predicate: Optional[Callable[[str], bool]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Replace every 2-D ``kernel`` leaf that ``predicate(name)`` selects
+    (the transformer blocks' linears by default) with its int8 siblings
+    ``kernel_int8`` + ``kernel_int8_scale``, row-major, as the JAX version
+    does by path. Other leaves pass through; embedding, lm_head and norms
+    stay full precision.
+
+    Works IN PLACE on the flat dict and returns it: each kernel is dropped as
+    its codes are made, so a model on the card never holds both forms of all
+    its block linears. Every selected leaf is checked before the first one
+    changes: one with no int8 form raises ``ValueError`` (a stacked expert
+    weight raises ``NotImplementedError``; MoE is not ported)."""
+    predicate = predicate or _default_predicate
+    selected = [name for name in params if predicate(name)]
+    for name in selected:
+        leaf = params[name]
+        if name.endswith(_STACKED_EXPERTS):
+            raise NotImplementedError(
+                f"{name}: stacked expert weights are not ported "
+                "(llm_fine_tune_distributed_tpu.ops.int8.quantize_int8_stacked has them)"
+            )
+        if leaf.dim() != 2 or not name.endswith(".kernel"):
+            raise ValueError(
+                f"predicate matched {name!r} (ndim={leaf.dim()}) but only 2-D .kernel "
+                "leaves have an int8 form"
+            )
+    for name in selected:
+        q = quantize_int8(params.pop(name))
+        for suffix in INT8_SUFFIXES:
+            params[f"{name}_{suffix}"] = q[suffix]
+    return params
+
+
+def check_quantize_mode(mode: str) -> None:
+    """Raise unless ``maybe_quantize`` can apply ``mode`` (entry points call
+    it before loading weights)."""
+    if mode not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {mode!r} (expected one of {QUANTIZE_MODES})")
+    if mode == "nf4":
+        raise NotImplementedError(
+            "NF4 weights are not ported "
+            "(llm_fine_tune_distributed_tpu.ops.nf4.quantize_params_nf4 has them)"
+        )
+
+
+def maybe_quantize(params: Dict[str, torch.Tensor], mode: str) -> Dict[str, torch.Tensor]:
+    """Apply the inference entry points' weight-only mode to loaded params
+    (in place for ``"int8"``; see ``quantize_params_int8``)."""
+    check_quantize_mode(mode)
+    if mode == "none":
+        return params
+    print("Quantizing block linears to int8 (weight-only) ...")
+    return quantize_params_int8(params)
 
 
 def quantize_kv_write(codes: torch.Tensor, scales: torch.Tensor, blk: torch.Tensor,

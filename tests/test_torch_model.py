@@ -166,7 +166,11 @@ def test_unported_branches_raise():
     mc = configs.get_preset("tiny").replace(sliding_window=8)
     with pytest.raises(NotImplementedError, match="sliding_window"):
         tf.init_params(mc)
-    with pytest.raises(NotImplementedError, match="dense KV cache"):
-        mc = configs.get_preset("tiny")
+    mc = configs.get_preset("tiny")
+    with pytest.raises(NotImplementedError, match="padding_mask with a KV cache"):
+        tf.forward(tf.init_params(mc), torch.zeros(1, 2, dtype=torch.long), mc,
+                   cache=tf.init_cache(mc, 1, 8), padding_mask=torch.ones(1, 8))
+    # the dense cache is ported; a paged pool without its block tables is refused
+    with pytest.raises(ValueError, match="needs block_tables"):
         tf.forward(tf.init_params(mc), torch.zeros(1, 2, dtype=torch.long), mc,
                    cache=tf.init_paged_cache(mc, 4, 8))
