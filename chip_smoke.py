@@ -64,7 +64,17 @@ and stops with a non-zero exit at the first failure:
    weights take at most 3.4 GB on the card; then profiles a decode step of
    phase 4's random weights as phase 6 does, serves them after
    ``maybe_quantize(..., "int8")`` from an int8 KV pool as phase 4 does
-   (launches == 36 x decode steps) and profiles a step again.
+   (launches == 36 x decode steps) and profiles a step again;
+15. (right after phase 4, on its generator) phase 4's traffic through
+   ``build_server(engine="continuous")`` (a dense 8 x 4096 cache) and
+   ``engine="window"``: HTTP 200, each request's greedy tokens equal a solo
+   run's up to the first step whose top-2 margin is within rounding (twice
+   the solo step's measured difference from a no-cache forward, at least
+   phase 13's f32 rule), ``/v1/stats`` and ``/metrics`` counting the tokens
+   and requests served, no paged decode launch; then one question through
+   ``POST /v1/stream`` on ``continuous`` and on ``paged`` with an int8 pool,
+   its deltas equal to the ``/v1/generate`` answer and the paged one's
+   launches 36 x its decode steps.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -104,6 +114,7 @@ DEVICE = "cuda"
 # SmolLM3-3B serving geometry of the smoke (the server's defaults)
 SLOTS, KV_BUF_LEN, KV_BLOCK_LEN, PREFILL_CHUNK, PROMPT_BUCKET = 8, 4096, 256, 512, 64
 MAX_NEW_TOKENS = 32
+BATCH_WINDOW_MS = 10.0  # phase 15's window engine (the server's default)
 QUESTIONS = (
     "How do I purify water from a stream?",
     "What knot should I use to tie a tarp to a tree?",
@@ -383,106 +394,413 @@ def kernel_phase(fa, peaks, live):
     return record
 
 
-def serve_phase(server_mod, fa, generator, phase_no=4):
-    """The main path: the port's HTTP server over a paged int8 engine (phase
-    4; phase 14 with int8 weights)."""
-    fa.paged_decode_attention.launches = 0  # count the main path's launches only
-    httpd, engine = server_mod.build_server(
-        generator, host="127.0.0.1", port=0, quantize_kv="int8", slots=SLOTS,
-        kv_buf_len=KV_BUF_LEN, kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK,
-        prompt_bucket=PROMPT_BUCKET,
-    )
-    # observe each request's generated ids (the HTTP answer is text)
-    results = []
-    submit = engine.submit
+def _hist(engine, name):
+    """(sum, count) of one of a slot engine's latency histograms."""
+    h = engine.stats.hist[name]
+    return h.sum, h.total
 
-    def recording_submit(prompt_ids, gen, seed=0, timeout=None):
-        ids = submit(prompt_ids, gen, seed=seed, timeout=timeout)
-        results.append((list(prompt_ids), list(ids)))
-        return ids
 
-    engine.submit = recording_submit
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+def _prometheus_samples(text):
+    """A /metrics body parsed line by line: {sample name: value}; fails on a
+    line that is neither a TYPE line nor a sample."""
+    samples = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            check(len(line.split(" ")) == 4, f"/metrics: bad TYPE line {line!r}")
+            continue
+        name, _, value = line.rpartition(" ")
+        check(bool(name), f"/metrics: bad line {line!r}")
+        samples[name] = float(value)
+    return samples
 
-    def post(question, out, i):
-        body = json.dumps({"question": question, "greedy": True,
-                           "max_new_tokens": MAX_NEW_TOKENS}).encode()
-        req = urllib.request.Request(base + "/v1/generate", data=body,
-                                     headers={"Content-Type": "application/json"})
-        t0 = time.monotonic()
-        with urllib.request.urlopen(req, timeout=600) as r:
-            status, body = r.status, json.loads(r.read())
-        t1 = time.monotonic()
-        out[i] = (status, body, t1 - t0, t1)
 
-    try:
-        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
-            check(r.status == 200 and r.read() == b"ok", "/healthz did not answer 200 ok")
-        phase(phase_no, "GET /healthz -> 200 ok")
-        warm = [None]
-        post(WARMUP_QUESTION, warm, 0)
-        check(warm[0][0] == 200, f"warm-up request: HTTP {warm[0][0]}")
-        warm_stats = engine.stats_snapshot()
-        phase(phase_no, f"warm-up request: HTTP 200 in {warm[0][2]:.3f} s")
+def _http(base, path, body=None, timeout=600):
+    """(status, body bytes, wall seconds, end time) of one request."""
+    req = urllib.request.Request(base + path, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        status, data = r.status, r.read()
+    t1 = time.monotonic()
+    return status, data, t1 - t0, t1
+
+
+class _Serving:
+    """``build_server`` on a thread, its engine's ``submit`` and ``stream``
+    recording each request's (prompt ids, generated ids); stopped on exit."""
+
+    def __init__(self, server_mod, generator, **kw):
+        self.httpd, self.engine = server_mod.build_server(generator, host="127.0.0.1", port=0, **kw)
+        self.results = []
+        submit = self.engine.submit
+
+        def recording_submit(prompt_ids, gen, seed=0, timeout=None):
+            ids = submit(prompt_ids, gen, seed=seed, timeout=timeout)
+            self.results.append((list(prompt_ids), list(ids)))
+            return ids
+
+        self.engine.submit = recording_submit
+        stream = getattr(self.engine, "stream", None)  # the slot engines
+
+        def recording_stream(prompt_ids, gen, seed=0, timeout=None):
+            tokens, ids = stream(prompt_ids, gen, seed=seed, timeout=timeout), []
+            self.results.append((list(prompt_ids), ids))
+
+            def each():
+                try:
+                    for tok in tokens:
+                        ids.append(tok)
+                        yield tok
+                finally:
+                    tokens.close()
+
+            return each()
+
+        if stream is not None:
+            self.engine.stream = recording_stream
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.engine.close()
+        self.thread.join(30)
+
+
+def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged"):
+    """The port's HTTP server with one engine: one warm-up request, then the
+    4 concurrent ones. ``paged`` (phases 4 and 14) serves from an int8 KV
+    pool, and every decode step must go through the kernel; ``continuous``
+    and ``window`` (phase 15) run dense caches and must never launch it."""
+    kw = dict(engine=engine, slots=SLOTS, kv_buf_len=KV_BUF_LEN, prompt_bucket=PROMPT_BUCKET)
+    if engine == "paged":
+        kw.update(quantize_kv="int8", kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK)
+    elif engine == "window":
+        kw.update(max_batch=SLOTS, batch_window_ms=BATCH_WINDOW_MS)
+    fa.paged_decode_attention.launches = 0  # count this run's launches only
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with _Serving(server_mod, generator, **kw) as srv:
+        torch.cuda.synchronize()
+        engine_bytes = torch.cuda.memory_allocated() - before
+        eng, base = srv.engine, srv.base
+        status, body, _, _ = _http(base, "/healthz")
+        check(status == 200 and body == b"ok", "/healthz did not answer 200 ok")
+        phase(phase_no, f"{engine}: GET /healthz -> 200 ok")
+        warm = _http(base, "/v1/generate", {"question": WARMUP_QUESTION, "greedy": True,
+                                            "max_new_tokens": MAX_NEW_TOKENS})
+        check(warm[0] == 200, f"warm-up request: HTTP {warm[0]}")
+        slot_engine = engine != "window"
+        if slot_engine:
+            warm_stats = eng.stats_snapshot()
+            warm_hist = {k: _hist(eng, k) for k in ("ttft_s", "decode_tick_s")}
+        phase(phase_no, f"{engine}: warm-up request: HTTP 200 in {warm[2]:.3f} s")
         outs = [None] * len(QUESTIONS)
-        threads = [threading.Thread(target=post, args=(q, outs, i)) for i, q in enumerate(QUESTIONS)]
+
+        def post(i):
+            outs[i] = _http(base, "/v1/generate", {"question": QUESTIONS[i], "greedy": True,
+                                                   "max_new_tokens": MAX_NEW_TOKENS})
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(QUESTIONS))]
         window_start = time.monotonic()
         for t in threads:
             t.start()
         for t in threads:
             t.join(900)
             check(not t.is_alive(), "a request did not finish")
-        stats = engine.stats_snapshot()
         launches = fa.paged_decode_attention.launches
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        engine.close()
-        thread.join(30)
+        status, stats_body, _, _ = _http(base, "/v1/stats")
+        check(status == 200, f"/v1/stats: HTTP {status}")
+        stats = json.loads(stats_body)
+        status, metrics_body, _, _ = _http(base, "/metrics")
+        check(status == 200, f"/metrics: HTTP {status}")
+        samples = _prometheus_samples(metrics_body.decode())
+        hist = {k: _hist(eng, k) for k in ("ttft_s", "decode_tick_s")} if slot_engine else {}
+        results = list(srv.results)
 
     for i, o in enumerate(outs):
-        check(o is not None and o[0] == 200 and isinstance(o[1].get("answer"), str),
-              f"request {i}: {o}")
+        check(o is not None and o[0] == 200 and isinstance(json.loads(o[1]).get("answer"), str),
+              f"{engine} request {i}: {o}")
     check(len(results) == 1 + len(QUESTIONS), f"{len(results)} requests recorded")
     for prompt, ids in results:
         check(1 <= len(ids) <= MAX_NEW_TOKENS, f"a request generated {len(ids)} tokens")
         check(all(0 <= t < generator.config.vocab_size for t in ids), "token id out of range")
-    layers = generator.config.num_layers
-    check(stats["decode_steps"] > 0, "no decode step ran")
-    check(launches == layers * stats["decode_steps"],
-          f"kernel launches {launches} != {layers} layers x {stats['decode_steps']} decode steps")
-    check(stats["prefix_hits"] >= 1, "no prefix-cache hit")
-    # end to end: every token the 4 requests generated over the window's
-    # wall time, first submit to last answer (prefill ticks included)
+    check(stats["engine"] == engine and samples[f'serving_info{{engine="{engine}"}}'] == 1,
+          f"/v1/stats or /metrics does not name the {engine} engine")
     gen_tok = sum(len(r[1]) for r in results[1:])
     window_s = max(o[3] for o in outs) - window_start
-    # the step layer: decode tokens over the decode ticks' time only
-    dec_tok = stats["decode_tokens"] - warm_stats["decode_tokens"]
-    dec_s = stats["decode_s"] - warm_stats["decode_s"]
-    ttft = stats["ttft_s"][1:]
-    phase(phase_no, f"4 concurrent requests: HTTP 200 x4, tokens {[len(r[1]) for r in results[1:]]}, "
-             f"prompt tokens {[len(r[0]) for r in results[1:]]}, "
-             f"prefix hits {stats['prefix_hits']} ({stats['prefix_tokens_reused']} tokens reused)")
-    phase(phase_no, f"kernel launches {launches} == {layers} x {stats['decode_steps']} decode steps")
-    return {
+    out = {
+        "engine": engine,
         "launches": launches,
-        "decode_steps": stats["decode_steps"],
-        "prefix_hits": stats["prefix_hits"],
-        "prefix_tokens_reused": stats["prefix_tokens_reused"],
         "prompt_tokens": [len(r[0]) for r in results],
         "generated_tokens": [len(r[1]) for r in results],
+        "results": results,
         "tokens_per_s_concurrent": gen_tok / window_s,
         "window_s": window_s,
-        "decode_tick_tokens_per_s": dec_tok / dec_s if dec_s > 0 else None,
-        "decode_step_ms_mean": 1e3 * stats["decode_s"] / stats["decode_steps"],
-        "ttft_s_warmup": stats["ttft_s"][0],
-        "ttft_s_concurrent": ttft,
         "request_s_concurrent": [o[2] for o in outs],
-        "kv_pool_bytes": sum(t.numel() * t.element_size()
-                             for e in engine.pool["layers"].values() for t in e.values()),
+        "request_s_warmup": warm[2],
+        "engine_bytes": engine_bytes,
     }
+    layers = generator.config.num_layers
+    if not slot_engine:
+        check(launches == 0, f"the window engine launched the paged decode kernel {launches} times")
+        check(stats["queue_depth"] == 0 and samples["serving_queue_depth"] == 0,
+              f"window /v1/stats {stats}")
+        phase(phase_no, f"window: 4 concurrent requests: HTTP 200 x4, tokens "
+                        f"{out['generated_tokens'][1:]}, paged decode launches 0")
+        return out
+    served = sum(out["generated_tokens"])
+    check(stats["tokens_served"] == served,
+          f"/v1/stats tokens_served {stats['tokens_served']} != {served} tokens returned")
+    check(stats["requests_completed"] == len(results),
+          f"/v1/stats requests_completed {stats['requests_completed']} != {len(results)}")
+    check(samples["serving_tokens_served_total"] == stats["tokens_served"],
+          f"/metrics serving_tokens_served_total {samples['serving_tokens_served_total']} != "
+          f"{stats['tokens_served']}")
+    check(stats["decode_steps"] > 0, "no decode step ran")
+    if engine == "paged":
+        check(launches == layers * stats["decode_steps"],
+              f"kernel launches {launches} != {layers} layers x {stats['decode_steps']} decode steps")
+        check(stats["prefix_hits"] >= 1, "no prefix-cache hit")
+    else:
+        check(launches == 0, f"the {engine} engine launched the paged decode kernel {launches} times")
+    dec_tok = stats["decode_tokens"] - warm_stats["decode_tokens"]
+    dec_s = hist["decode_tick_s"][0] - warm_hist["decode_tick_s"][0]
+    ticks = hist["decode_tick_s"][1] - warm_hist["decode_tick_s"][1]
+    ttft_n = hist["ttft_s"][1] - warm_hist["ttft_s"][1]
+    out.update({
+        "decode_steps": stats["decode_steps"],
+        "prefix_tokens_reused": stats["prefix_tokens_reused"],
+        "tokens_served": stats["tokens_served"],
+        "decode_tick_tokens_per_s": dec_tok / dec_s if dec_s > 0 else None,
+        "decode_step_ms_mean": 1e3 * hist["decode_tick_s"][0] / hist["decode_tick_s"][1],
+        "decode_step_ms_mean_concurrent": 1e3 * dec_s / ticks if ticks else None,
+        "ttft_s_warmup": warm_hist["ttft_s"][0],
+        "ttft_s_concurrent_mean": (hist["ttft_s"][0] - warm_hist["ttft_s"][0]) / ttft_n,
+    })
+    phase(phase_no, f"{engine}: 4 concurrent requests: HTTP 200 x4, tokens "
+                    f"{out['generated_tokens'][1:]}, prompt tokens {out['prompt_tokens'][1:]}, "
+                    f"/v1/stats tokens_served {stats['tokens_served']} == /metrics, "
+                    f"requests_completed {stats['requests_completed']}")
+    if engine == "paged":
+        out["prefix_hits"] = stats["prefix_hits"]
+        out["kv_pool_bytes"] = sum(t.numel() * t.element_size()
+                                   for e in eng.pool["layers"].values() for t in e.values())
+        phase(phase_no, f"prefix hits {stats['prefix_hits']} ({stats['prefix_tokens_reused']} "
+                        f"tokens reused); kernel launches {launches} == {layers} x "
+                        f"{stats['decode_steps']} decode steps")
+    else:
+        out["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for e in eng._cache["layers"].values() for t in e.values())
+        phase(phase_no, f"{engine}: paged decode launches 0 over {stats['decode_steps']} decode "
+                        f"steps")
+    return out
+
+
+def solo_decode(tf, gen_mod, generator, prompt_ids, n):
+    """A request's solo greedy run, as ``generate_ids`` runs it (batch 1,
+    the generator's prompt bucket, the default repetition penalty), step by
+    step: each step's token, the top-2 margin of its penalized logits and
+    its max |logit|, and the logits themselves. The tokens must equal
+    ``generate_ids``'s."""
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import (
+        GenerationConfig,
+        apply_repetition_penalty,
+    )
+
+    greedy = GenerationConfig(max_new_tokens=n, do_sample=False)
+    config, dtype = generator.config, generator.compute_dtype
+    plen = len(prompt_ids)
+    bucket = -(-plen // gen_mod._PROMPT_BUCKET) * gen_mod._PROMPT_BUCKET
+    cache = tf.init_cache(config, 1, bucket + n, dtype=dtype, device=DEVICE)
+    padded = torch.zeros(1, bucket, dtype=torch.long, device=DEVICE)
+    padded[0, :plen] = torch.tensor(prompt_ids, device=DEVICE)
+    seen = torch.zeros(1, config.vocab_size, dtype=torch.bool, device=DEVICE)
+    seen[0, padded[0, :plen]] = True
+    lens = torch.tensor([plen], device=DEVICE)
+    steps, all_logits, tok = [], [], None
+    with torch.no_grad():
+        hidden, _ = tf.forward(generator.params, padded, config, cache=cache, cache_pos=0,
+                               compute_dtype=dtype, output_hidden=True)
+        logits = tf.unembed(generator.params, hidden[:, plen - 1], config, compute_dtype=dtype)
+        for t in range(n):
+            if t:  # token t reads token t - 1 at position plen + t - 1
+                logits = generator._step_logits(tok[:, None], cache, lens + (t - 1))
+            pen = apply_repetition_penalty(logits, seen, greedy.repetition_penalty)
+            top2 = torch.topk(pen[0], 2).values
+            tok = torch.argmax(pen, dim=-1)
+            seen[0, tok] = True
+            all_logits.append(logits[0])
+            steps.append({"token": int(tok), "margin": (top2[0] - top2[1]).item(),
+                          "max_abs_logits": logits.abs().max().item()})
+    tokens = generator._trim_at_eos([st["token"] for st in steps])
+    check(tokens == generator.generate_ids(prompt_ids, greedy),
+          "the solo step loop does not reproduce generate_ids")
+    return tokens, steps, all_logits
+
+
+def margin_agreement(tf, generator, label, prompt, got, solo):
+    """Tokens of an engine against the solo run: equal up to the first step
+    whose solo top-2 margin is within reach of rounding, where another
+    GEMM's order may flip the argmax; a difference at a wider margin fails.
+    The bound is phase 13's construction at the run's precision: the larger
+    of 2 x 1e-4 x max|logit| (phase 13's f32 rule) and twice the measured
+    max|dlogits| between the solo run's cached logits at that step and a
+    no-cache forward over the same context (in bf16 the logits' own
+    rounding, one ulp = 2**-7 of their magnitude, is above the f32 rule).
+    Returns (tokens agreeing, the check at the first difference or None)."""
+    tokens, steps, logits = solo
+    for t, (a, b) in enumerate(zip(got, tokens)):
+        if a != b:
+            ctx = torch.tensor([list(prompt) + tokens[:t]], device=DEVICE)
+            with torch.no_grad():
+                hidden, _ = tf.forward(generator.params, ctx, generator.config,
+                                       compute_dtype=generator.compute_dtype, output_hidden=True)
+                plain = tf.unembed(generator.params, hidden[:, -1], generator.config,
+                                   compute_dtype=generator.compute_dtype)[0]
+            dlogits = (plain - logits[t]).abs().max().item()
+            bound = max(2 * LOGIT_REL_TOL * steps[t]["max_abs_logits"], 2 * dlogits)
+            at = {"token": t, "got": a, "solo": b, "margin": steps[t]["margin"],
+                  "max_abs_dlogits_no_cache": dlogits, "bound": bound}
+            check(steps[t]["margin"] <= bound,
+                  f"{label}: token {t} is {a}, solo {b}, at a solo top-2 margin "
+                  f"{steps[t]['margin']:.3e} > {bound:.3e} (no-cache max|dlogits| {dlogits:.3e})")
+            return t, at
+    check(len(got) == len(tokens), f"{label}: {len(got)} tokens, solo {len(tokens)}")
+    return len(got), None
+
+
+def _sse(base, body):
+    """POST /v1/stream -> (status, [(event, payload)], seconds to the first
+    event, seconds to the end)."""
+    import http.client
+
+    host, port = base.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    t0 = time.monotonic()
+    first = None
+    try:
+        conn.request("POST", "/v1/stream", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.getheader("Content-Type") == "text/event-stream",
+              f"/v1/stream Content-Type {resp.getheader('Content-Type')}")
+        raw = b""
+        while True:
+            piece = resp.read1(65536)
+            if not piece:
+                break
+            if first is None:
+                first = time.monotonic() - t0
+            raw += piece
+    finally:
+        conn.close()
+    events = []
+    for block in raw.decode().split("\n\n"):
+        if block:
+            lines = block.split("\n")
+            name = lines[0][len("event: "):] if lines[0].startswith("event: ") else "message"
+            check(lines[-1].startswith("data: "), f"/v1/stream: bad event {block!r}")
+            events.append((name, json.loads(lines[-1][len("data: "):])))
+    return resp.status, events, first, time.monotonic() - t0
+
+
+def stream_phase(server_mod, fa, generator, engine):
+    """Phase 15c: one greedy question through POST /v1/stream, its deltas
+    held to the /v1/generate answer of the same request. Each runs on a
+    fresh server: a freed int8 block keeps its scale, so the paged engine's
+    tokens depend on its pool's history."""
+    kw = dict(engine=engine, slots=SLOTS, kv_buf_len=KV_BUF_LEN, prompt_bucket=PROMPT_BUCKET)
+    if engine == "paged":
+        kw.update(quantize_kv="int8", kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK)
+    body = {"question": QUESTIONS[0], "greedy": True, "max_new_tokens": MAX_NEW_TOKENS}
+    with _Serving(server_mod, generator, **kw) as srv:
+        status, data, _, _ = _http(srv.base, "/v1/generate", body)
+        (_, generated), = srv.results
+    check(status == 200, f"{engine} /v1/generate: HTTP {status}")
+    answer = json.loads(data)["answer"]
+    fa.paged_decode_attention.launches = 0  # count the stream's launches only
+    with _Serving(server_mod, generator, **kw) as srv:
+        status, events, first_s, total_s = _sse(srv.base, body)
+        launches = fa.paged_decode_attention.launches
+        stats = srv.engine.stats_snapshot()
+        (_, streamed), = srv.results
+        ttft_s = _hist(srv.engine, "ttft_s")[0]
+    check(streamed == generated, f"{engine}: /v1/stream's tokens {streamed} != /v1/generate's "
+                                 f"{generated}")
+    check(status == 200, f"{engine} /v1/stream: HTTP {status}")
+    check(all(name == "message" for name, _ in events), f"{engine} /v1/stream: {events[-1]}")
+    *deltas, done = [payload for _, payload in events]
+    check(done == {"done": True, "n_tokens": stats["tokens_served"]},
+          f"{engine} /v1/stream: last event {done}, tokens_served {stats['tokens_served']}")
+    text = "".join(d["delta"] for d in deltas)
+    check(text.strip() == answer,
+          f"{engine} /v1/stream deltas {text.strip()!r} != /v1/generate {answer!r}")
+    layers = generator.config.num_layers
+    want = layers * stats["decode_steps"] if engine == "paged" else 0
+    check(launches == want, f"{engine} /v1/stream: {launches} paged decode launches, want {want}")
+    steps = f" == {layers} x {stats['decode_steps']} decode steps" if engine == "paged" else ""
+    phase(15, f"{engine} /v1/stream: HTTP 200, {done['n_tokens']} tokens == /v1/generate's, "
+              f"{len(deltas)} deltas == its answer ({len(answer)} chars), engine TTFT "
+              f"{ttft_s:.3f} s, first event {first_s:.3f} s, whole stream {total_s:.3f} s, "
+              f"paged decode launches {launches}{steps}")
+    return {"deltas": len(deltas), "n_tokens": done["n_tokens"], "answer_chars": len(answer),
+            "ttft_s": ttft_s, "first_event_s": first_s, "stream_s": total_s,
+            "launches": launches, "decode_steps": stats["decode_steps"]}
+
+
+def engines_phase(tf, gen_mod, server_mod, fa, generator):
+    """Phase 15: phase 4's traffic on the dense engines (continuous, then
+    window), their tokens held to solo runs by the margin rule; then
+    /v1/stream on continuous and paged."""
+    runs = {e: serve_phase(server_mod, fa, generator, phase_no=15, engine=e)
+            for e in ("continuous", "window")}
+    solo = {}
+    for prompt, _ in runs["continuous"]["results"][1:]:
+        solo[tuple(prompt)] = solo_decode(tf, gen_mod, generator, prompt, MAX_NEW_TOKENS)
+    for engine, rec in runs.items():
+        agree, first_diff = [], []
+        for i, (prompt, ids) in enumerate(rec["results"][1:]):
+            n, at = margin_agreement(tf, generator, f"{engine} request {i}", prompt, ids,
+                                     solo[tuple(prompt)])
+            agree.append(n)
+            first_diff.append(at)
+        rec["tokens_agreeing_with_solo"] = agree
+        rec["first_difference"] = first_diff
+        rec["solo_tokens"] = [len(solo[tuple(p)][0]) for p, _ in rec["results"][1:]]
+        phase(15, f"{engine}: tokens equal to the solo run's, per request: {agree} of "
+                  f"{rec['solo_tokens']}")
+        for i, at in enumerate(first_diff):
+            if at:
+                phase(15, f"  {engine} request {i}: token {at['token']} differs at a solo top-2 "
+                          f"margin {at['margin']:.3e} <= bound {at['bound']:.3e} (no-cache "
+                          f"max|dlogits| {at['max_abs_dlogits_no_cache']:.3e})")
+    cont, win = runs["continuous"], runs["window"]
+    phase(15, f"continuous: {cont['tokens_per_s_concurrent']:.1f} tokens/s over the 4 concurrent "
+              f"requests' {cont['window_s']:.3f} s window, TTFT (engine ttft_s) mean "
+              f"{cont['ttft_s_concurrent_mean']:.3f} s (warm-up {cont['ttft_s_warmup']:.3f} s), "
+              f"mean decode tick {cont['decode_step_ms_mean_concurrent']:.2f} ms, dense cache "
+              f"{cont['cache_bytes']} bytes ({cont['cache_bytes'] / 1e9:.3f} GB; memory_allocated "
+              f"+{cont['engine_bytes']} at the engine's start)")
+    phase(15, f"window: {win['tokens_per_s_concurrent']:.1f} tokens/s over the 4 concurrent "
+              f"requests' {win['window_s']:.3f} s window, TTFT (request wall time, the whole "
+              f"answer) mean {statistics.mean(win['request_s_concurrent']):.3f} s, decode tick not "
+              f"measured (one generate_batch per group)")
+    mc = generator.config
+    want = (2 * mc.num_layers * SLOTS * KV_BUF_LEN * mc.num_kv_heads * mc.resolved_head_dim
+            * torch.finfo(generator.compute_dtype).bits // 8)
+    check(cont["cache_bytes"] == want, f"dense cache {cont['cache_bytes']} bytes != {want}")
+    check(want <= cont["engine_bytes"] <= want + 2**26,
+          f"memory_allocated grew {cont['engine_bytes']} bytes at the engine's start, cache {want}")
+    streams = {e: stream_phase(server_mod, fa, generator, e) for e in ("continuous", "paged")}
+    for rec in runs.values():
+        rec.pop("results")
+    return {**runs, "stream": streams}
 
 
 def f32_step_phase(tf, fa, params_bf16, config, prompt_ids):
@@ -781,7 +1099,7 @@ def int8_weights_serve_phase(tf, gen_mod, server_mod, fa, config, tokenizer, pro
     phase(14, f"int8 weights: {served['tokens_per_s_concurrent']:.1f} tokens/s over the 4 "
               f"concurrent requests' {served['window_s']:.3f} s window, mean decode step "
               f"{served['decode_step_ms_mean']:.2f} ms, TTFT warm-up {served['ttft_s_warmup']:.3f} s, "
-              f"concurrent {[round(t, 3) for t in served['ttft_s_concurrent']]} s")
+              f"concurrent mean {served['ttft_s_concurrent_mean']:.3f} s")
     profiled = profile_phase(generator, prompts, phase_no=14)
     del generator, params
     gc_cuda()
@@ -1901,10 +2219,11 @@ def main(argv=()) -> int:
              f"4 concurrent requests' {served['window_s']:.3f} s window, "
              f"{served['decode_tick_tokens_per_s']:.1f} tokens/s over their decode ticks, "
              f"mean decode step {served['decode_step_ms_mean']:.2f} ms, "
-             f"TTFT warm-up {served['ttft_s_warmup']:.3f} s, concurrent "
-             f"{[round(t, 3) for t in served['ttft_s_concurrent']]} s, "
+             f"TTFT warm-up {served['ttft_s_warmup']:.3f} s, concurrent mean "
+             f"{served['ttft_s_concurrent_mean']:.3f} s, "
              f"int8 KV pool {served['kv_pool_bytes'] / 1e9:.3f} GB")
 
+    engines = engines_phase(tf, gen_mod, server_mod, fa, generator)
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -1956,6 +2275,7 @@ def main(argv=()) -> int:
                          "llm_fine_tune_distributed_tpu/ops/flash_attention.py:353",
                          served["launches"], {**live_rec, "library_ms": None})
     paged["launches_int8_weights"] = served_i8["launches"]  # phase 14's run
+    paged["launches_stream"] = engines["stream"]["paged"]["launches"]  # phase 15's /v1/stream
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -2000,7 +2320,10 @@ def main(argv=()) -> int:
         "shapes": w8a8["shapes"],
     })
     entries.append(w8a8_entry)
-    summary = {"card": card, "timing_spin": dict(_SPIN), "ptxas": ptxas, "serve": served, "f32_decode_step": step,
+    for rec in (served, served_i8):
+        rec.pop("results")
+    summary = {"card": card, "timing_spin": dict(_SPIN), "ptxas": ptxas, "serve": served,
+               "serve_engines": engines, "f32_decode_step": step,
                "decode_profile": profiled, "build_s": build_s, "train": trained,
                "train_profile": train_profile, "f32_microbatch": microbatch,
                "train_int8": trained_i8, "train_profile_int8": train_profile_i8,

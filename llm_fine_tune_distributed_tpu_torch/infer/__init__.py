@@ -1,12 +1,20 @@
 """Generation and serving of the port: sampling, the generator (dense and
-paged decode), block bookkeeping, the continuous batching engine, the ask
-CLI and the HTTP server."""
+paged decode), block bookkeeping, the serving engines (continuous, paged and
+window batching), the ask CLI and the HTTP server."""
 
+from llm_fine_tune_distributed_tpu_torch.infer.batching import BatchingEngine
+from llm_fine_tune_distributed_tpu_torch.infer.engine import (
+    ContinuousBatchingEngine,
+    PagedContinuousBatchingEngine,
+)
 from llm_fine_tune_distributed_tpu_torch.infer.generate import (
     Generator,
     load_model_dir,
     load_tokenizer_dir,
 )
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+from llm_fine_tune_distributed_tpu_torch.observe.metrics import ServingStats
 
-__all__ = ["GenerationConfig", "Generator", "load_model_dir", "load_tokenizer_dir"]
+__all__ = ["BatchingEngine", "ContinuousBatchingEngine", "GenerationConfig", "Generator",
+           "PagedContinuousBatchingEngine", "ServingStats", "load_model_dir",
+           "load_tokenizer_dir"]

@@ -56,6 +56,8 @@ def run_ask_cli(
                         help="tensor-parallel inference (not ported: 1 only)")
     parser.add_argument("--serve", action="store_true",
                         help="run the HTTP server (infer/server.py) instead of answering once")
+    parser.add_argument("--engine", choices=("continuous", "paged", "window"), default="continuous",
+                        help="--serve engine: continuous (default), paged or window")
     parser.add_argument("--host", default="0.0.0.0", help="--serve bind address")
     parser.add_argument("--port", type=int, default=8080, help="--serve port")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -85,6 +87,9 @@ def run_ask_cli(
                          "are per-request fields of POST /v1/generate")
     elif not question:
         parser.error("a question is required (or pass --serve)")
+    elif args.engine != parser.get_default("engine"):
+        parser.error("--engine picks the --serve engine; a question is answered by "
+                     "Generator.generate_ids")
 
     import torch
 
@@ -99,7 +104,7 @@ def run_ask_cli(
         from llm_fine_tune_distributed_tpu_torch.infer.server import serve
 
         serve(args.model_dir, device=device, host=args.host, port=args.port,
-              quantize=args.quantize, template_kwargs=template_kwargs)
+              quantize=args.quantize, engine=args.engine, template_kwargs=template_kwargs)
         return 0
 
     from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT

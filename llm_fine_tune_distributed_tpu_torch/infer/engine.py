@@ -1,8 +1,17 @@
-"""Continuous batching over a block-paged KV pool (counterpart of the core of
-the JAX ``infer/engine.PagedContinuousBatchingEngine``).
+"""Continuous batching: a persistent decode batch of ``slots`` rows that
+requests join and leave between steps (counterpart of the core of the JAX
+``infer/engine.py``).
 
-KV lives in one global pool of ``block_len``-token blocks addressed through
-per-slot block tables, so
+``ContinuousBatchingEngine`` keeps a dense ``[slots, buf_len]`` KV cache.
+A request is admitted into a free slot by a prefill of its prompt, padded
+to a multiple of ``prompt_bucket``, in a private batch-1 cache whose K/V
+are copied into the slot's row (``Generator.slot_prefill``); every
+scheduler tick then runs one decode step over all slots
+(``Generator.slot_step``), so each request's tokens surface as they decode,
+alongside everything else in flight (``stream``).
+
+``PagedContinuousBatchingEngine`` is the same scheduler over a block-paged
+KV pool addressed through per-slot block tables, so
 
 - a decode step attends over ``nb * block_len`` positions, where ``nb`` is
   the power-of-two bucket over the widest live slot's blocks in use;
@@ -12,18 +21,21 @@ per-slot block tables, so
 - prompts prefill in ``prefill_chunk``-token chunks interleaved with decode
   steps (one chunk and one decode step per scheduler tick).
 
-One worker thread owns the pool, the tables and the slot state. Admission is
-strict FIFO: a request that cannot get blocks yet waits at the head of the
-queue until a retirement frees some. Dead rows decode with all-null tables,
-so their writes land in the null block.
+Both engines: one worker thread owns the cache, the tables and the slot
+state; admission is strict FIFO; a request whose waiter gave up
+(``Request.abandoned``) is shed, queued or mid-decode; counters, gauges and
+latency histograms go to one ``ServingStats`` (``stats_snapshot``). Greedy
+tokens equal a solo ``Generator.generate_ids`` of the same prompt, and
+sampled ones depend only on (request, seed).
 
-Not ported from the JAX engine: speculation, the host KV tier, preemption
+Not ported from the JAX engines: speculation, the host KV tier, preemption
 and priorities, deadlines, supervision and restarts, hot-swap, adapters,
 fleets and overload control.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -32,118 +44,107 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from llm_fine_tune_distributed_tpu_torch.infer.batching import Request
 from llm_fine_tune_distributed_tpu_torch.infer.paged import NULL_BLOCK, BlockAllocator, PrefixCache
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+from llm_fine_tune_distributed_tpu_torch.observe.metrics import ServingStats
 
 log = logging.getLogger(__name__)
 
-
-class Request:
-    """One submitted request and its result."""
-
-    def __init__(self, prompt: Sequence[int], gen: GenerationConfig, seed: int):
-        self.prompt = list(int(t) for t in prompt)
-        self.gen = gen
-        self.seed = int(seed)
-        self.done = threading.Event()
-        self.result: Optional[List[int]] = None
-        self.error: Optional[BaseException] = None
-        self.enqueued_at = time.monotonic()
-        self.first_token_t: Optional[float] = None
+__all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine", "Request"]
 
 
-class _PrefillTask:
-    """One admitted request's remaining prefill work."""
+class _TokenStream:
+    """``stream``'s iterator: a request's tokens as the slot emits them.
+    Each token waits at most ``timeout`` seconds; a timeout or ``close()``
+    (the client went away) before the end abandons the request, and the
+    worker sheds its slot."""
 
-    __slots__ = ("req", "slot", "keys", "plen", "next")
+    def __init__(self, req: Request, timeout: Optional[float], engine):
+        self._req = req
+        self._timeout = timeout
+        self._engine = engine
 
-    def __init__(self, req: Request, slot: int, keys, plen: int, next_: int):
-        self.req = req
-        self.slot = slot
-        self.keys = keys  # full-block prefix keys (PrefixCache.block_keys)
-        self.plen = plen
-        self.next = next_  # first logical position not yet prefilled
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> int:
+        req = self._req
+        try:
+            tok = req.tokens_q.get(timeout=self._timeout)
+        except queue.Empty:
+            req.abandoned = True
+            raise TimeoutError(f"stream starved for {self._timeout}s "
+                               f"(queue depth {self._engine.queue_depth})") from None
+        if tok is None:
+            if req.error is not None:
+                raise req.error
+            raise StopIteration
+        return tok
+
+    def close(self) -> None:
+        if not self._req.done.is_set():
+            self._req.abandoned = True
 
 
-class PagedContinuousBatchingEngine:
-    def __init__(
-        self,
-        generator,
-        slots: int = 8,
-        buf_len: int = 4096,
-        prompt_bucket: int = 64,
-        block_len: int = 256,
-        prefill_chunk: int = 512,
-        num_blocks: Optional[int] = None,
-        kv_quant: str = "none",
-    ):
+class ContinuousBatchingEngine:
+    """``slots``-row persistent decode over a dense KV cache, FIFO admission."""
+
+    def __init__(self, generator, slots: int = 8, buf_len: int = 4096, prompt_bucket: int = 64,
+                 stats: Optional[ServingStats] = None):
         self._generator = generator
         self._slots = max(1, int(slots))
         self._buf_len = int(buf_len)
         self._bucket = max(1, int(prompt_bucket))
-        self._block_len = max(1, int(block_len))
-        self._prefill_chunk = max(1, int(prefill_chunk))
-        # table width: buf_len plus the final prefill chunk's pad bucket
-        self._table_blocks = -(-(self._buf_len + self._bucket) // self._block_len)
-        if num_blocks is None:
-            # full tables for every slot, one table of prefix-cache headroom,
-            # and the null block
-            num_blocks = 1 + (self._slots + 1) * self._table_blocks
-        self._num_blocks = int(num_blocks)
-        self._allocator = BlockAllocator(self._num_blocks)
-        self._prefix = PrefixCache(self._allocator, self._block_len)
-        self._table = np.zeros((self._slots, self._table_blocks), np.int32)
-        self._slot_blocks: List[List[int]] = [[] for _ in range(self._slots)]
-        self._slot_plen = [0] * self._slots
+        self.stats = stats or ServingStats(self._slots)
+        self._eos = set(generator.eos_token_ids)
         self._slot_req: List[Optional[Request]] = [None] * self._slots
         self._slot_tokens: List[List[int]] = [[] for _ in range(self._slots)]
         self._slot_budget = [0] * self._slots
         self._live = np.zeros((self._slots,), bool)
-        self._eos = set(generator.eos_token_ids)
-        self._pool, self._state = generator.init_paged_state(
-            self._slots, self._num_blocks, self._block_len, kv_quant=kv_quant
-        )
         self._q: "queue.Queue[Optional[Request]]" = queue.Queue()
         self._waiting: List[Request] = []
-        self._prefills: List[_PrefillTask] = []
-        self._stats_lock = threading.Lock()
-        self._stats = {
-            "requests_admitted": 0,
-            "requests_completed": 0,
-            "prompt_tokens": 0,
-            "prefix_hits": 0,
-            "prefix_tokens_reused": 0,
-            "prefill_chunks": 0,
-            "prefill_tokens": 0,
-            "decode_steps": 0,
-            "decode_tokens": 0,
-            "decode_s": 0.0,
-            "tokens_served": 0,
-            "ttft_s": [],
-        }
+        self._req_seq = itertools.count(1)
+        self._now = time.monotonic()  # the tick clock every emit of a tick reuses
         self._error: Optional[BaseException] = None
-        self._worker = threading.Thread(target=self._run, name="paged-engine", daemon=True)
+        self._cache, self._state = self._init_state()
+        self._worker = threading.Thread(target=self._run, name=type(self).__name__, daemon=True)
         self._worker.start()
+
+    def _init_state(self):
+        return self._generator.init_slot_state(self._slots, self._buf_len)
 
     # ---------------------------------------------------------------- public
 
     def submit(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                timeout: Optional[float] = None) -> List[int]:
         """Blocking: enqueue one request, wait for its generated token ids."""
-        if gen.speculative_lookup:
-            raise NotImplementedError(
-                "speculative decoding is not ported "
-                "(llm_fine_tune_distributed_tpu.infer.engine has it)"
-            )
-        if self._error is not None or not self._worker.is_alive():
-            raise RuntimeError(f"engine stopped: {self._error!r}")
-        req = Request(prompt_ids, gen, seed)
+        return self.submit_full(prompt_ids, gen, seed, timeout).result
+
+    def submit_full(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
+                    timeout: Optional[float] = None) -> Request:
+        """``submit`` returning the whole request record (the window
+        batcher's call shape). On ``timeout`` the request is abandoned (the
+        worker sheds it) and TimeoutError raised."""
+        req = self._make_request(prompt_ids, gen, seed)
         self._q.put(req)
         if not req.done.wait(timeout):
-            raise TimeoutError(f"request not served within {timeout}s")
+            req.abandoned = True
+            raise TimeoutError(f"request not served within {timeout}s "
+                               f"(queue depth {self.queue_depth})")
         if req.error is not None:
             raise req.error
-        return req.result
+        return req
+
+    def stream(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
+               timeout: Optional[float] = None) -> _TokenStream:
+        """Enqueue one request and return an iterator over its tokens as the
+        slot decodes them, while it shares the batch with everything else in
+        flight. ``timeout`` bounds the wait for each next token. The request
+        is checked here, before the caller commits to a response."""
+        req = self._make_request(prompt_ids, gen, seed, tokens_q=queue.Queue())
+        self._q.put(req)
+        return _TokenStream(req, timeout, self)
 
     def close(self, timeout: Optional[float] = 30.0) -> None:
         """Stop the worker once the requests already submitted are served."""
@@ -151,58 +152,103 @@ class PagedContinuousBatchingEngine:
         self._worker.join(timeout)
 
     def stats_snapshot(self) -> dict:
-        with self._stats_lock:
-            snap = {k: (list(v) if isinstance(v, list) else v) for k, v in self._stats.items()}
-        snap["blocks_in_use"] = self._allocator.used_count
-        snap["prefix_cache_blocks"] = len(self._prefix)
-        snap["live_slots"] = int(self._live.sum())
-        return snap
+        """``ServingStats.snapshot()`` with fresh ``queue_depth`` and
+        ``live_slots`` gauges (``GET /v1/stats``)."""
+        self.stats.gauge("queue_depth", self.queue_depth)
+        self.stats.gauge("live_slots", self.live_slots)
+        return self.stats.snapshot()
 
     @property
-    def pool(self) -> dict:
-        return self._pool
+    def queue_depth(self) -> int:
+        """Requests submitted and not yet admitted."""
+        return self._q.qsize() + len(self._waiting)
+
+    @property
+    def live_slots(self) -> int:
+        """Slots decoding now."""
+        return int(self._live.sum())
+
+    @property
+    def slot_count(self) -> int:
+        return self._slots
+
+    def _make_request(self, prompt_ids, gen: GenerationConfig, seed: int,
+                      tokens_q: Optional["queue.Queue"] = None) -> Request:
+        if gen.speculative_lookup:
+            raise NotImplementedError(
+                "speculative decoding is not ported "
+                "(llm_fine_tune_distributed_tpu.infer.engine has it)"
+            )
+        if self._error is not None or not self._worker.is_alive():
+            raise RuntimeError(f"engine stopped: {self._error!r}")
+        req = Request([int(t) for t in prompt_ids], gen, int(seed), tokens_q=tokens_q)
+        req.id = next(self._req_seq)
+        req.enqueued_at = time.monotonic()
+        return req
+
+    # ------------------------------------------------------------ resolution
+
+    def _settle(self, req: Request) -> None:
+        """The one place a request wakes its waiter. Every token it emitted
+        is charged once, here: to goodput when it completed, else to the
+        reason it ended."""
+        n = req.tokens_emitted
+        if n:
+            if req.abandoned:
+                self.stats.waste_incr("abandoned", n)
+            elif req.error is None:
+                self.stats.incr("goodput_tokens", n)
+            else:  # the worker failed under it
+                self.stats.waste_incr("failover", n)
+        req.done.set()
+
+    def _resolve_error(self, req: Request, err: BaseException) -> None:
+        if req.done.is_set():
+            return
+        req.error = err
+        if req.tokens_q is not None:
+            req.tokens_q.put(None)
+        self.stats.incr("requests_failed")
+        self._settle(req)
+
+    def _settle_abandoned(self, req: Request) -> None:
+        self.stats.incr("requests_abandoned")
+        self._settle(req)
 
     # ---------------------------------------------------------------- worker
-
-    def _incr(self, key: str, n=1) -> None:
-        with self._stats_lock:
-            self._stats[key] += n
 
     def _run(self) -> None:
         try:
             self._serve_loop()
+            return
         except Exception as e:  # worker boundary: fail every request, then stop
-            log.exception("paged engine worker failed")
+            log.exception("%s worker failed", type(self).__name__)
             self._error = e
-            pending = [r for r in self._slot_req if r is not None] + self._waiting
-            while True:
-                try:
-                    req = self._q.get_nowait()
-                except queue.Empty:
-                    break
-                if req is not None:
-                    pending.append(req)
-            for req in pending:
-                if not req.done.is_set():
-                    req.error = RuntimeError(f"engine failed: {e!r}")
-                    req.done.set()
+        err = RuntimeError(f"engine failed: {self._error!r}")
+        for req in [r for r in self._slot_req if r is not None] + self._waiting:
+            self._resolve_error(req, err)
+        while True:  # and every request that raced the failure, until close()
+            req = self._q.get()
+            if req is None:
+                return
+            self._resolve_error(req, err)
 
     def _serve_loop(self) -> None:
         closing = False
         while True:
             closing |= self._drain_queue(block=False)
             self._admit()
-            busy = False
-            if self._prefills:
-                self._prefill_tick()
-                busy = True
-            if self._live.any():
-                self._decode_tick()
-                busy = True
-            if not busy and not self._waiting:
+            if not self._tick() and not self._waiting:
                 if closing:
                     return
                 closing = self._drain_queue(block=True)  # idle: wait for traffic
+
+    def _tick(self) -> bool:
+        """One scheduler tick's device work; False when there was none."""
+        if not self._live.any():
+            return False
+        self._decode_once()
+        return True
 
     def _drain_queue(self, block: bool) -> bool:
         """Move queued requests to the waiting list; True once ``close``
@@ -220,9 +266,14 @@ class PagedContinuousBatchingEngine:
             block = False
 
     def _admit(self) -> None:
-        """Admit in arrival order while a slot AND blocks are available."""
+        """Admit in arrival order while a slot is free (and the request's
+        ``_plan`` can be met); shed abandoned waiters on the way."""
         while self._waiting:
             req = self._waiting[0]
+            if req.abandoned:
+                self._waiting.pop(0)
+                self._settle_abandoned(req)
+                continue
             free = [s for s in range(self._slots) if self._slot_req[s] is None]
             if not free:
                 return
@@ -230,13 +281,195 @@ class PagedContinuousBatchingEngine:
                 plan = self._plan(req)
             except (ValueError, RuntimeError) as e:  # cannot fit: reject this request only
                 self._waiting.pop(0)
-                req.error = e
-                req.done.set()
+                self._resolve_error(req, e)
                 continue
             if plan is None:
-                return  # blocks free as slots retire; the head waits
+                return  # room frees as slots retire; the head waits
             self._waiting.pop(0)
-            self._insert_paged(req, free[0], plan)
+            self._insert(req, free[0], plan)
+
+    def _plan(self, req: Request) -> Optional[dict]:
+        """Check that the prompt fits: the prefill bucket and the token
+        budget. The budget stops decode before the buffer's end, so
+        slot == position holds for every token the slot emits."""
+        plen = len(req.prompt)
+        if plen == 0:
+            raise ValueError("the continuous engine needs a non-empty prompt")
+        if plen >= self._buf_len:
+            raise ValueError(
+                f"prompt of {plen} tokens does not fit the engine's "
+                f"{self._buf_len}-slot KV buffer (need >= 1 decode slot)"
+            )
+        return {"plen": plen,
+                "bucket": min(-(-plen // self._bucket) * self._bucket, self._buf_len),
+                "budget": min(req.gen.max_new_tokens, self._buf_len - plen)}
+
+    def _insert(self, req: Request, slot: int, plan: dict) -> None:
+        """Prefill the prompt into ``slot`` and emit its first token."""
+        t0 = time.monotonic()
+        if req.enqueued_at:
+            self.stats.observe("queue_wait_s", t0 - req.enqueued_at)
+        plen = plan["plen"]
+        padded = np.zeros((1, plan["bucket"]), np.int64)
+        padded[0, :plen] = req.prompt
+        first = self._generator.slot_prefill(self._cache, self._state, padded, plen, slot,
+                                             req.gen, req.seed)
+        self._now = time.monotonic()  # slot_prefill read its token: synced
+        self.stats.observe("prefill_chunk_s", self._now - t0)
+        self._slot_req[slot] = req
+        self._slot_tokens[slot] = []
+        self._slot_budget[slot] = plan["budget"]
+        self._live[slot] = True
+        self.stats.incr("requests_admitted")
+        self.stats.incr("prefill_tokens", plen)
+        self._emit_token(slot, req, first, from_decode=False)
+
+    def _tick_done(self, t0: float) -> None:
+        """After a decode step: stamp the tick clock, observe the tick."""
+        self._now = time.monotonic()
+        self.stats.observe("decode_tick_s", self._now - t0)
+        self.stats.incr("decode_steps")
+
+    def _decode_once(self) -> None:
+        t0 = time.monotonic()
+        toks = self._generator.slot_step(self._cache, self._state, self._live.copy())
+        self._tick_done(t0)  # slot_step returns tokens on the host: synced
+        self._emit_tokens(toks)
+
+    def _emit_tokens(self, toks: np.ndarray) -> None:
+        """Hand each live slot its token of this tick; shed the slots whose
+        waiter is gone."""
+        for slot in range(self._slots):
+            req = self._slot_req[slot]
+            if req is None or not self._live[slot]:
+                continue  # free, or admitted but still prefilling
+            if req.abandoned:
+                self._settle_abandoned(req)
+                self._release(slot)
+                continue
+            self._emit_token(slot, req, int(toks[slot]))
+
+    def _emit_token(self, slot: int, req: Request, tok: int, from_decode: bool = True) -> None:
+        if tok in self._eos:
+            self._finish(slot, req)
+            return
+        self._slot_tokens[slot].append(tok)
+        req.tokens_emitted += 1
+        self.stats.incr("tokens_served")
+        if from_decode:
+            self.stats.incr("decode_tokens")
+        # latencies against the tick clock: no clock read per token
+        now = self._now
+        if req.first_token_t is None:
+            req.first_token_t = now
+            if req.enqueued_at:
+                self.stats.observe("ttft_s", now - req.enqueued_at)
+        elif req.last_token_t is not None:
+            self.stats.observe("inter_token_s", now - req.last_token_t)
+        req.last_token_t = now
+        if req.tokens_q is not None:
+            req.tokens_q.put(tok)
+        if len(self._slot_tokens[slot]) >= self._slot_budget[slot]:
+            self._finish(slot, req)
+
+    def _finish(self, slot: int, req: Request) -> None:
+        req.result = list(self._slot_tokens[slot])
+        if req.tokens_q is not None:
+            req.tokens_q.put(None)
+        self.stats.incr("requests_completed")
+        self._settle(req)
+        self._release(slot)
+
+    def _release(self, slot: int) -> None:
+        self._slot_req[slot] = None
+        self._slot_tokens[slot] = []
+        self._slot_budget[slot] = 0
+        self._live[slot] = False
+
+
+class _PrefillTask:
+    """One admitted request's remaining prefill work."""
+
+    __slots__ = ("req", "slot", "keys", "plen", "next")
+
+    def __init__(self, req: Request, slot: int, keys, plen: int, next_: int):
+        self.req = req
+        self.slot = slot
+        self.keys = keys  # full-block prefix keys (PrefixCache.block_keys)
+        self.plen = plen
+        self.next = next_  # first logical position not yet prefilled
+
+
+class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
+    """The continuous engine over a block-paged KV pool. A request that
+    cannot get blocks yet waits at the head of the queue until a retirement
+    frees some. Dead rows decode with all-null tables, so their writes land
+    in the null block. ``kv_quant="int8"`` stores the pool as int8 codes with
+    per-block scales, and every decode step's attention then runs the paged
+    decode kernel."""
+
+    def __init__(
+        self,
+        generator,
+        slots: int = 8,
+        buf_len: int = 4096,
+        prompt_bucket: int = 64,
+        block_len: int = 256,
+        prefill_chunk: int = 512,
+        num_blocks: Optional[int] = None,
+        kv_quant: str = "none",
+        stats: Optional[ServingStats] = None,
+    ):
+        slots = max(1, int(slots))
+        self._block_len = max(1, int(block_len))
+        self._prefill_chunk = max(1, int(prefill_chunk))
+        self._kv_quant = kv_quant
+        # table width: buf_len plus the final prefill chunk's pad bucket
+        bucket = max(1, int(prompt_bucket))
+        self._table_blocks = -(-(int(buf_len) + bucket) // self._block_len)
+        if num_blocks is None:
+            # full tables for every slot, one table of prefix-cache headroom,
+            # and the null block
+            num_blocks = 1 + (slots + 1) * self._table_blocks
+        self._num_blocks = int(num_blocks)
+        self._allocator = BlockAllocator(self._num_blocks)
+        self._prefix = PrefixCache(self._allocator, self._block_len)
+        self._table = np.zeros((slots, self._table_blocks), np.int32)
+        self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+        self._slot_plen = [0] * slots
+        self._prefills: List[_PrefillTask] = []
+        self._prefix_hits = 0  # admissions that mapped >= 1 cached block
+        # the base starts the worker last: every paged field exists by then
+        super().__init__(generator, slots=slots, buf_len=buf_len, prompt_bucket=prompt_bucket,
+                         stats=stats or ServingStats(slots, total_blocks=self._num_blocks - 1))
+
+    def _init_state(self):
+        return self._generator.init_paged_state(self._slots, self._num_blocks, self._block_len,
+                                                kv_quant=self._kv_quant)
+
+    def stats_snapshot(self) -> dict:
+        """The base snapshot with the pool's gauges, and ``prefix_hits``."""
+        self.stats.gauge("blocks_in_use", self._allocator.used_count)
+        self.stats.gauge("prefix_cache_blocks", len(self._prefix))
+        snap = super().stats_snapshot()
+        snap["prefix_hits"] = self._prefix_hits
+        return snap
+
+    @property
+    def pool(self) -> dict:
+        return self._cache
+
+    # ---------------------------------------------------------------- worker
+
+    def _tick(self) -> bool:
+        busy = False
+        if self._prefills:
+            self._prefill_tick()
+            busy = True
+        if self._live.any():
+            self._decode_tick()
+            busy = True
+        return busy
 
     def _chunk_plan(self, plen: int, shared_len: int):
         """(nchunks, last_len, last_bucket, write_end) for a prompt whose
@@ -295,9 +528,11 @@ class PagedContinuousBatchingEngine:
         return {"keys": keys, "shared": shared, "private": private, "plen": plen,
                 "budget": budget_end - plen}
 
-    def _insert_paged(self, req: Request, slot: int, plan: dict) -> None:
+    def _insert(self, req: Request, slot: int, plan: dict) -> None:
         """Map the reserved blocks into the slot's table and queue the
         prefill; the slot goes live when its final chunk lands."""
+        if req.enqueued_at:
+            self.stats.observe("queue_wait_s", time.monotonic() - req.enqueued_at)
         ids = plan["shared"] + plan["private"]
         self._table[slot, : len(ids)] = ids
         self._table[slot, len(ids):] = NULL_BLOCK
@@ -307,11 +542,11 @@ class PagedContinuousBatchingEngine:
         self._slot_tokens[slot] = []
         self._slot_budget[slot] = plan["budget"]
         shared_len = len(plan["shared"]) * self._block_len
-        self._incr("requests_admitted")
-        self._incr("prompt_tokens", plan["plen"])
+        self.stats.incr("requests_admitted")
+        self.stats.incr("prompt_tokens", plan["plen"])
+        self.stats.incr("prefix_tokens_reused", shared_len)
         if shared_len:
-            self._incr("prefix_hits")
-            self._incr("prefix_tokens_reused", shared_len)
+            self._prefix_hits += 1
         self._prefills.append(_PrefillTask(req, slot, plan["keys"], plan["plen"], shared_len))
 
     def _prefill_tick(self) -> None:
@@ -319,15 +554,22 @@ class PagedContinuousBatchingEngine:
         gen = self._generator
         task = self._prefills[0]
         req = task.req
+        if req.abandoned:
+            self._prefills.pop(0)
+            self._settle_abandoned(req)
+            self._release(task.slot)
+            return
+        t0 = time.monotonic()
         C = self._prefill_chunk
         remaining = task.plen - task.next
         table = self._table[task.slot: task.slot + 1]
         if remaining > C:
             chunk = np.asarray(req.prompt[task.next: task.next + C], np.int64)[None, :]
-            gen.paged_prefill_chunk(self._pool, table, chunk, task.next)
+            gen.paged_prefill_chunk(self._cache, table, chunk, task.next)
             task.next += C
-            self._incr("prefill_chunks")
-            self._incr("prefill_tokens", C)
+            self.stats.incr("prefill_chunks")
+            self.stats.incr("prefill_tokens", C)
+            self.stats.observe("prefill_chunk_s", time.monotonic() - t0)
             return
         # The final chunk is padded to the prompt bucket with token id 0, and
         # the pads are written into the pool like real tokens. In the int8
@@ -340,12 +582,14 @@ class PagedContinuousBatchingEngine:
         seen_row = np.zeros((1, gen.config.vocab_size), bool)
         seen_row[0, np.asarray(req.prompt, np.intp)] = True
         first = gen.paged_prefill_final(
-            self._pool, self._state, table, padded, task.next, task.plen,
+            self._cache, self._state, table, padded, task.next, task.plen,
             seen_row, task.slot, req.gen, req.seed,
         )
+        self._now = time.monotonic()  # paged_prefill_final read its token: synced
         self._prefills.pop(0)
-        self._incr("prefill_chunks")
-        self._incr("prefill_tokens", remaining)
+        self.stats.incr("prefill_chunks")
+        self.stats.incr("prefill_tokens", remaining)
+        self.stats.observe("prefill_chunk_s", self._now - t0)
         # register the prompt's FULL blocks for reuse before emitting (the
         # first token may already finish the request and free the slot)
         full = task.plen // self._block_len
@@ -372,40 +616,12 @@ class PagedContinuousBatchingEngine:
         return np.ascontiguousarray(np.where(self._live[:, None], self._table, NULL_BLOCK)[:, :nb])
 
     def _decode_tick(self) -> None:
-        nb = self._decode_bucket()
-        tables = self._decode_tables(nb)
+        tables = self._decode_tables(self._decode_bucket())
         t0 = time.monotonic()
-        toks = self._generator.paged_step(self._pool, self._state, self._live.copy(), tables)
-        dt = time.monotonic() - t0  # paged_step returns tokens on the host: synced
-        with self._stats_lock:
-            self._stats["decode_steps"] += 1
-            self._stats["decode_s"] += dt
-        for slot in range(self._slots):
-            req = self._slot_req[slot]
-            if req is None or not self._live[slot]:
-                continue  # free, or admitted but still prefilling
-            self._emit_token(slot, req, int(toks[slot]))
-
-    def _emit_token(self, slot: int, req: Request, tok: int, from_decode: bool = True) -> None:
-        if tok in self._eos:
-            self._finish(slot, req)
-            return
-        self._slot_tokens[slot].append(tok)
-        self._incr("tokens_served")
-        if from_decode:
-            self._incr("decode_tokens")
-        if req.first_token_t is None:
-            req.first_token_t = time.monotonic()
-            with self._stats_lock:
-                self._stats["ttft_s"].append(req.first_token_t - req.enqueued_at)
-        if len(self._slot_tokens[slot]) >= self._slot_budget[slot]:
-            self._finish(slot, req)
-
-    def _finish(self, slot: int, req: Request) -> None:
-        req.result = list(self._slot_tokens[slot])
-        self._incr("requests_completed")
-        req.done.set()
-        self._release(slot)
+        toks = self._generator.paged_step(self._cache, self._state, self._live.copy(), tables)
+        self._tick_done(t0)  # paged_step returns tokens on the host: synced
+        self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)
+        self._emit_tokens(toks)
 
     def _release(self, slot: int) -> None:
         for bid in self._slot_blocks[slot]:
@@ -413,7 +629,4 @@ class PagedContinuousBatchingEngine:
         self._slot_blocks[slot] = []
         self._slot_plen[slot] = 0
         self._table[slot, :] = NULL_BLOCK
-        self._slot_req[slot] = None
-        self._slot_tokens[slot] = []
-        self._slot_budget[slot] = 0
-        self._live[slot] = False
+        super()._release(slot)

@@ -17,11 +17,15 @@ reads one bool ("every row done") on the host per step, the one sync
 chunk. Sampling draws from one ``torch.Generator`` seeded by ``seed`` per
 call, so sampled tokens differ from the JAX package's (greedy ones agree).
 
-Per-slot state: ``last`` (the slot's last token), ``pos`` (its position),
-``seen`` ([slots, vocab] bool, for the repetition penalty), and per slot the
-request's ``GenerationConfig`` and a ``torch.Generator`` seeded by the
-request, so a sampled stream is deterministic in (request, seed) and
-independent of its neighbours.
+Slot decode (the continuous engines): ``init_slot_state`` / ``slot_prefill``
+/ ``slot_step`` over a dense ``[slots, buf_len]`` cache, and
+``init_paged_state`` / ``paged_prefill_chunk`` / ``paged_prefill_final`` /
+``paged_step`` over the block pool; both steps sample through
+``_advance_slots``. Per-slot state: ``last`` (the slot's last token),
+``pos`` (its position), ``seen`` ([slots, vocab] bool, for the repetition
+penalty), and per slot the request's ``GenerationConfig`` and a
+``torch.Generator`` seeded by the request, so a sampled stream is
+deterministic in (request, seed) and independent of its neighbours.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from llm_fine_tune_distributed_tpu_torch.models.transformer import (
     forward,
     init_cache,
     init_paged_cache,
+    insert_cache_row,
     unembed,
 )
 
@@ -132,11 +137,15 @@ class Generator:
         return toks
 
     def generate_batch(self, prompts: Sequence[Sequence[int]],
-                       gen: Optional[GenerationConfig] = None, seed: int = 0) -> List[List[int]]:
+                       gen: Optional[GenerationConfig] = None, seed: int = 0,
+                       live_rows: Optional[int] = None) -> List[List[int]]:
         """Generate continuations of a ragged batch of prompts together, each
         row trimmed at its first EOS. A row that is done emits ``eos[0]``
         while the others go on; the loop ends when every row is done or at
-        ``max_new_tokens``. Greedy rows equal their prompt's solo run."""
+        ``max_new_tokens``. Greedy rows equal their prompt's solo run.
+        ``live_rows`` (the window batcher's count of real rows before its
+        pads) only feeds the JAX package's speculation telemetry, which is
+        not ported; the output does not depend on it."""
         gen = gen or GenerationConfig()
         self._check_plain(gen)
         prompts = [[int(t) for t in p] for p in prompts]
@@ -215,6 +224,99 @@ class Generator:
         ids = self.generate_ids(self.encode_chat(messages, **template_kwargs), gen, seed)
         return self.decode_reply(ids)
 
+    # ------------------------------------------------- dense slot decode
+
+    def _fresh_slot_state(self, slots: int) -> dict:
+        return {
+            "last": torch.zeros(slots, dtype=torch.long, device=self.device),
+            "pos": torch.zeros(slots, dtype=torch.long, device=self.device),
+            "seen": torch.zeros(slots, self.config.vocab_size, dtype=torch.bool, device=self.device),
+            "gen": [GenerationConfig(do_sample=False) for _ in range(slots)],
+            "rng": [None] * slots,
+        }
+
+    def init_slot_state(self, slots: int, buf_len: int):
+        """Fresh (cache, state) for a ``slots``-wide persistent decode over a
+        dense ``[slots, buf_len]`` cache."""
+        cache = init_cache(self.config, slots, buf_len, dtype=self.compute_dtype,
+                           device=self.device)
+        return cache, self._fresh_slot_state(slots)
+
+    def _first_token(self, logits: torch.Tensor, seen_row: torch.Tensor, state: dict,
+                     slot: int, prompt_len: int, gen: GenerationConfig, seed: int) -> int:
+        """Sample a prompt's first token from its last position's logits
+        [1, vocab] and hand the slot to the request: its last token,
+        position, seen set, config and generator seeded by ``seed``."""
+        rng = torch.Generator(device=self.device).manual_seed(int(seed))
+        first = int(sample_token(logits, seen_row, gen, generator=rng)[0])
+        seen_row[0, first] = True
+        state["last"][slot] = first
+        state["pos"][slot] = prompt_len
+        state["seen"][slot] = seen_row[0]
+        state["gen"][slot] = gen
+        state["rng"][slot] = rng
+        return first
+
+    def slot_prefill(self, cache, state, prompt_ids: np.ndarray, prompt_len: int, slot: int,
+                     gen: GenerationConfig, seed: int) -> int:
+        """Prefill one prompt, right-padded to its bucket (``prompt_ids``
+        [1, bucket]), in a private batch-1 cache; sample its first token from
+        position ``prompt_len - 1`` as ``_prompt_prefill`` does (the pad keys
+        sit above every real query, so the token does not depend on the
+        bucket); copy the K/V into row ``slot`` of ``cache`` and set the
+        slot's state. Returns the first token."""
+        ids = self._tensor(prompt_ids).long()
+        small = init_cache(self.config, 1, ids.shape[1], dtype=self.compute_dtype,
+                           device=self.device)
+        hidden, _ = forward(self.params, ids, self.config, cache=small, cache_pos=0,
+                            compute_dtype=self.compute_dtype, output_hidden=True)
+        logits = unembed(self.params, hidden[:, prompt_len - 1], self.config,
+                         compute_dtype=self.compute_dtype)
+        seen_row = torch.zeros(1, self.config.vocab_size, dtype=torch.bool, device=self.device)
+        seen_row[0, ids[0, :prompt_len]] = True
+        first = self._first_token(logits, seen_row, state, slot, prompt_len, gen, seed)
+        insert_cache_row(cache, small, slot)
+        return first
+
+    def _advance_slots(self, logits: torch.Tensor, state: dict, live: np.ndarray,
+                       next_pos: torch.Tensor) -> torch.Tensor:
+        """Every slot's next token from its logits [slots, vocab], each with
+        its own config and generator: greedy slots by one argmax over the
+        penalized logits, sampled live slots one by one. Live slots take the
+        token into ``last`` and ``seen`` and move to ``next_pos``; dead
+        slots keep their state. Returns the tokens [slots] on the device."""
+        seen, last = state["seen"], state["last"]
+        pen = torch.tensor([g.repetition_penalty for g in state["gen"]],
+                           dtype=torch.float32, device=self.device)[:, None]
+        tok = torch.argmax(apply_repetition_penalty(logits, seen, pen), dim=-1)
+        for slot in np.flatnonzero(live):
+            g = state["gen"][slot]
+            if g.do_sample:
+                tok[slot] = sample_token(
+                    logits[slot: slot + 1], seen[slot: slot + 1], g, generator=state["rng"][slot]
+                )[0]
+        live_t = self._tensor(live)
+        tok = torch.where(live_t, tok, last)
+        rows = torch.arange(tok.shape[0], device=self.device)
+        seen[rows[live_t], tok[live_t]] = True
+        state["last"] = tok
+        state["pos"] = torch.where(live_t, next_pos, state["pos"])
+        return tok
+
+    def slot_step(self, cache, state, live: np.ndarray) -> np.ndarray:
+        """One decode step over every slot of the dense cache: feed each
+        slot's last token at its own position (a [slots] ``cache_pos``) and
+        sample each live slot's next token. Dead slots run too, writing
+        their own row at their frozen position, and keep their state; live
+        slots advance to ``min(pos + 1, buf_len - 1)``. Returns the tokens
+        [slots] on the host."""
+        pos = state["pos"]
+        hidden, _ = forward(self.params, state["last"][:, None], self.config, cache=cache,
+                            cache_pos=pos, compute_dtype=self.compute_dtype, output_hidden=True)
+        logits = unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
+        next_pos = (pos + 1).clamp(max=cache["layers"]["0"]["k"].shape[1] - 1)
+        return self._advance_slots(logits, state, live, next_pos).cpu().numpy()
+
     # ------------------------------------------------- paged continuous decode
 
     def init_paged_state(self, slots: int, num_blocks: int, block_len: int,
@@ -224,14 +326,7 @@ class Generator:
             self.config, num_blocks, block_len, dtype=self.compute_dtype,
             kv_quant=kv_quant, device=self.device,
         )
-        state = {
-            "last": torch.zeros(slots, dtype=torch.long, device=self.device),
-            "pos": torch.zeros(slots, dtype=torch.long, device=self.device),
-            "seen": torch.zeros(slots, self.config.vocab_size, dtype=torch.bool, device=self.device),
-            "gen": [GenerationConfig(do_sample=False) for _ in range(slots)],
-            "rng": [None] * slots,
-        }
-        return pool, state
+        return pool, self._fresh_slot_state(slots)
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
@@ -259,16 +354,8 @@ class Generator:
         )
         last_h = hidden[:, prompt_len - 1 - chunk_start]
         logits = unembed(self.params, last_h, self.config, compute_dtype=self.compute_dtype)
-        seen = self._tensor(seen_row)
-        rng = torch.Generator(device=self.device).manual_seed(int(seed))
-        first = int(sample_token(logits, seen, gen, generator=rng)[0])
-        seen[0, first] = True
-        state["last"][slot] = first
-        state["pos"][slot] = prompt_len
-        state["seen"][slot] = seen[0]
-        state["gen"][slot] = gen
-        state["rng"][slot] = rng
-        return first
+        return self._first_token(logits, self._tensor(seen_row), state, slot, prompt_len, gen,
+                                 seed)
 
     def paged_step(self, pool, state, live: np.ndarray, tables: np.ndarray) -> np.ndarray:
         """One decode step for every slot: feed each slot's last token at
@@ -276,29 +363,14 @@ class Generator:
         and generator. Dead rows run too (their all-null tables send their
         writes to the null block) and keep their state. Returns the tokens
         [slots] on the host."""
-        last, pos, seen = state["last"], state["pos"], state["seen"]
+        pos = state["pos"]
         hidden, _ = forward(
-            self.params, last[:, None], self.config, cache=pool, cache_pos=pos,
+            self.params, state["last"][:, None], self.config, cache=pool, cache_pos=pos,
             block_tables=self._tensor(tables), compute_dtype=self.compute_dtype,
             output_hidden=True,
         )
         logits = unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
-        pen = torch.tensor([g.repetition_penalty for g in state["gen"]],
-                           dtype=torch.float32, device=self.device)[:, None]
-        tok = torch.argmax(apply_repetition_penalty(logits, seen, pen), dim=-1)
-        for slot in np.flatnonzero(live):
-            g = state["gen"][slot]
-            if g.do_sample:
-                tok[slot] = sample_token(
-                    logits[slot: slot + 1], seen[slot: slot + 1], g, generator=state["rng"][slot]
-                )[0]
-        live_t = self._tensor(live)
-        tok = torch.where(live_t, tok, last)
-        rows = torch.arange(tok.shape[0], device=self.device)
-        seen[rows[live_t], tok[live_t]] = True
-        state["last"] = tok
-        state["pos"] = torch.where(live_t, pos + 1, pos)
-        return tok.cpu().numpy()
+        return self._advance_slots(logits, state, live, pos + 1).cpu().numpy()
 
     # --------------------------------------------------------------- chat
 

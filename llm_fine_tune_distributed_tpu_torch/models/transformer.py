@@ -410,6 +410,25 @@ def init_cache(config: ModelConfig, batch_size: int, max_len: int, *,
                        for i in range(config.num_layers)}}
 
 
+def insert_cache_row(cache: dict, row_cache: dict, slot: int) -> dict:
+    """Write a batch-1 cache's K/V into the leading positions of row
+    ``slot`` of a dense multi-row cache, in place, leaving the other rows
+    untouched: a freed decode slot adopts a freshly prefilled prompt while
+    its neighbours keep decoding.
+
+    ``row_cache`` may be shorter than ``cache`` (the prompt bucket against
+    the decode buffer); only its leading positions are overwritten. The
+    stale K/V past them is harmless while slot == position: every position
+    ``j`` is rewritten (by the prefill or by decode token ``j - prompt_len``)
+    before a query at ``j`` or later can attend to it, and positions above a
+    query are masked."""
+    for i, entry in cache["layers"].items():
+        row = row_cache["layers"][i]
+        for n in ("k", "v"):
+            entry[n][slot, : row[n].shape[1]] = row[n][0].to(entry[n].dtype)
+    return cache
+
+
 def init_paged_cache(config: ModelConfig, num_blocks: int, block_len: int, *,
                      dtype=torch.bfloat16, kv_quant: str = "none", device="cpu") -> dict:
     """Global paged KV pool: per layer one [num_blocks, block_len, kv_heads,

@@ -1,15 +1,26 @@
-"""Training metric logger (counterpart of the part of the JAX
-``observe/metrics.MetricLogger`` the trainer needs): an in-memory history of
-``{"step", "epoch", **logs}`` records with perplexity beside each loss, one
-line per record on stdout, and the atomic ``training_history.json`` writer.
-The Aim and JSONL sinks are not ported."""
+"""Metrics of the port (counterpart of the JAX ``observe/metrics.py``):
+
+- ``MetricLogger``, the trainer's part: an in-memory history of
+  ``{"step", "epoch", **logs}`` records with perplexity beside each loss,
+  one line per record on stdout, and the atomic ``training_history.json``
+  writer. The Aim and JSONL sinks are not ported;
+- ``ServingStats``, the serving engines' counters, gauges and latency
+  histograms (``GET /v1/stats``), with the JAX package's whole schema:
+  counters of features that are not ported (speculation, adapters, tiers,
+  hot-swap, the host KV tier, fleets) exist and stay 0;
+- ``prometheus_exposition``, the ``GET /metrics`` text of a snapshot.
+"""
 
 from __future__ import annotations
 
 import json
 import math
 import os
-from typing import Dict, List
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+from llm_fine_tune_distributed_tpu_torch.observe.tracing import Histogram
 
 
 def inject_perplexity(logs: Dict[str, float]) -> Dict[str, float]:
@@ -43,3 +54,231 @@ class MetricLogger:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
+
+
+class ServingStats:
+    """Thread-safe serving counters and gauges (``GET /v1/stats``).
+
+    The engine's worker thread updates them; HTTP handler threads read
+    snapshots. Every mutation takes one lock (a handful of integer adds per
+    token, nothing next to a decode step).
+
+    Counters (monotonic): ``tokens_served`` (every emitted token, the first
+    included), ``requests_admitted``, ``requests_completed``,
+    ``requests_abandoned`` (the waiter gave up), ``requests_failed``,
+    ``decode_steps``, ``prefill_tokens`` (prompt positions a prefill
+    forward ingested), ``decode_tokens`` (tokens emitted by decode ticks),
+    ``goodput_tokens`` (tokens of requests that completed); the paged
+    engine adds ``prompt_tokens``, ``prefix_tokens_reused`` and
+    ``prefill_chunks``. Gauges: ``queue_depth``, ``live_slots``, and the
+    paged ``blocks_in_use`` / ``peak_blocks_in_use`` /
+    ``prefix_cache_blocks``. The snapshot derives ``slot_occupancy``,
+    ``prefix_hit_rate``, ``mean_tokens_per_step``, ``goodput_fraction``,
+    the pool occupancies when a pool exists (``total_blocks``), a ~1 min
+    EWMA of tokens/s (``tokens_per_s_1m``) and each histogram's summary.
+    """
+
+    COUNTERS = (
+        "tokens_served", "requests_admitted", "requests_completed",
+        "requests_abandoned", "decode_steps",
+        "prompt_tokens", "prefix_tokens_reused", "prefill_chunks",
+        "engine_restarts", "requests_failed",
+        "requests_shed_overflow", "requests_shed_deadline",
+        "draft_tokens_proposed", "draft_tokens_accepted",
+        "adapter_loads", "adapter_evictions", "requests_shed_tenant_quota",
+        "weight_swaps", "weight_rollbacks",
+        "preemptions", "requests_shed_deadline_decode",
+        "goodput_tokens",
+        "prefix_blocks_spilled", "prefix_blocks_discarded",
+        "host_tier_restore_hits", "host_tier_restore_misses",
+        "slots_migrated",
+        "prefill_tokens", "decode_tokens",
+        "requests_handed_off", "requests_handoff_failed",
+    )
+    GAUGES = (
+        "queue_depth", "live_slots", "engine_generation",
+        "blocks_in_use", "peak_blocks_in_use", "prefix_cache_blocks",
+        "adapters_resident", "weight_generation", "brownout_stage",
+        "weight_bytes", "kv_pool_bytes", "host_tier_bytes",
+    )
+    # priority tiers and waste reasons of the JAX schema: every label is
+    # always present so /v1/stats and /metrics keep one schema at any load
+    SHED_TIERS = ("interactive", "batch", "best_effort")
+    WASTE_REASONS = ("deadline", "abandoned", "failover", "shed")
+    # fixed log buckets (mergeable); spec_run_len counts tokens, so it gets
+    # linear unit buckets
+    HISTOGRAM_SPECS = (
+        "ttft_s", "inter_token_s", "queue_wait_s",
+        "decode_tick_s", "prefill_chunk_s", "spec_run_len",
+    )
+
+    def __init__(self, slots: int = 0, total_blocks: int = 0):
+        self._lock = threading.Lock()
+        self.slots = int(slots)
+        self.total_blocks = int(total_blocks)
+        self._values: Dict[str, int] = {k: 0 for k in self.COUNTERS + self.GAUGES}
+        self._waste: Dict[str, int] = {r: 0 for r in self.WASTE_REASONS}
+        self.hist: Dict[str, Histogram] = {
+            name: (Histogram.linear(0.0, 16.0, 1.0) if name == "spec_run_len"
+                   else Histogram.exponential())
+            for name in self.HISTOGRAM_SPECS
+        }
+        self.started_at = time.monotonic()
+        # windowed throughput EWMA, advanced at snapshot time so the token
+        # path reads no clock here
+        self._rate_t = self.started_at
+        self._rate_tokens = 0
+        self._rate_ewma: Optional[float] = None
+
+    def incr(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._values[name] += n
+
+    def gauge(self, name: str, value: int) -> None:
+        with self._lock:
+            self._values[name] = int(value)
+
+    def gauge_max(self, name: str, value: int) -> None:
+        """Ratcheting gauge: keep the high-water mark."""
+        with self._lock:
+            self._values[name] = max(self._values[name], int(value))
+
+    def waste_incr(self, reason: str, n: int) -> None:
+        """Charge ``n`` emitted but discarded tokens to one of
+        ``WASTE_REASONS``."""
+        with self._lock:
+            self._waste[reason] += n
+
+    def observe(self, name: str, value: float) -> None:
+        """One histogram observation (under the histogram's own lock)."""
+        self.hist[name].observe(value)
+
+    def _tokens_rate(self, now: float, tokens_served: int) -> float:
+        # irregular-interval EWMA, weight 1 - exp(-dt / 60 s); polls closer
+        # than 200 ms reuse the last value
+        dt = now - self._rate_t
+        if dt >= 0.2:
+            inst = max(0, tokens_served - self._rate_tokens) / dt
+            w = 1.0 - math.exp(-dt / 60.0)
+            self._rate_ewma = inst if self._rate_ewma is None else (1.0 - w) * self._rate_ewma + w * inst
+            self._rate_t = now
+            self._rate_tokens = tokens_served
+        return self._rate_ewma if self._rate_ewma is not None else 0.0
+
+    def snapshot(self) -> Dict[str, Any]:
+        now = time.monotonic()
+        with self._lock:
+            out: Dict[str, Any] = dict(self._values)
+            out["tokens_per_s_1m"] = self._tokens_rate(now, out["tokens_served"])
+            out["per_tenant"] = {}  # adapters are not ported: no tenants
+            out["requests_shed_by_tier"] = {t: 0 for t in self.SHED_TIERS}
+            out["wasted_tokens_by_reason"] = dict(self._waste)
+        emitted = out["goodput_tokens"] + sum(out["wasted_tokens_by_reason"].values())
+        out["goodput_fraction"] = out["goodput_tokens"] / emitted if emitted else 1.0
+        out["uptime_s"] = now - self.started_at
+        out["slots"] = self.slots
+        out["slot_occupancy"] = out["live_slots"] / self.slots if self.slots else 0.0
+        if self.total_blocks:
+            out["total_blocks"] = self.total_blocks
+            out["block_pool_occupancy"] = out["blocks_in_use"] / self.total_blocks
+            out["peak_block_pool_occupancy"] = out["peak_blocks_in_use"] / self.total_blocks
+        out["prefix_hit_rate"] = (out["prefix_tokens_reused"] / out["prompt_tokens"]
+                                  if out["prompt_tokens"] else 0.0)
+        out["draft_acceptance_rate"] = (out["draft_tokens_accepted"] / out["draft_tokens_proposed"]
+                                        if out["draft_tokens_proposed"] else 0.0)
+        out["mean_tokens_per_step"] = (out["tokens_served"] / out["decode_steps"]
+                                       if out["decode_steps"] else 0.0)
+        out["histograms"] = {name: h.summary() for name, h in self.hist.items()}
+        return out
+
+
+def _prom_name(key: str, prefix: str) -> str:
+    # Prometheus spells base units out: a trailing _s becomes _seconds
+    base = key[:-2] + "_seconds" if key.endswith("_s") else key
+    return f"{prefix}_{base}"
+
+
+# router counters of the JAX fleet's snapshot, typed as counters
+FLEET_COUNTERS = (
+    "requests_routed_prefix_affinity",
+    "requests_routed_adapter_affinity",
+    "requests_routed_least_loaded",
+    "requests_routed_round_robin",
+    "requests_failed_over",
+    "requests_rerouted_overflow",
+    "requests_shed_fleet_saturated",
+    "requests_shed_fleet_brownout",
+)
+
+
+def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, Histogram]] = None,
+                          prefix: str = "serving", counters: Optional[set] = None) -> str:
+    """One engine's ``stats_snapshot()`` and live histograms as Prometheus
+    text (format 0.0.4), line for line the JAX package's exposition of the
+    same snapshot (without its fleet, memory and tenant-histogram series).
+
+    Counter keys (``ServingStats.COUNTERS`` + ``FLEET_COUNTERS``, or
+    ``counters``) get ``_total`` and ``# TYPE counter``; every other number
+    is a gauge; string values collapse into one ``<prefix>_info{...} 1``
+    line; a trailing ``_s`` becomes ``_seconds``. The labelled series
+    (tenants, shed tiers, wasted tokens, compiles) keep their ``# TYPE``
+    lines at zero traffic, so the schema does not change with load.
+    """
+    if counters is None:
+        counters = set(ServingStats.COUNTERS) | set(FLEET_COUNTERS)
+    lines: List[str] = []
+    labels = [f'{key}="{snap[key]}"' for key in sorted(snap) if isinstance(snap[key], str)]
+    if labels:
+        name = f"{prefix}_info"
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f'{name}{{{",".join(labels)}}} 1')
+    for key, value in snap.items():
+        if isinstance(value, bool):
+            value = int(value)
+        if not isinstance(value, (int, float)):
+            continue
+        name = _prom_name(key, prefix)
+        if key in counters:
+            name += "_total"
+            lines.append(f"# TYPE {name} counter")
+        else:
+            lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {value:.10g}")
+    per_tenant = snap.get("per_tenant") or {}
+    for key, kind in (("requests", "counter"), ("tokens", "counter"), ("queue_depth", "gauge")):
+        name = f"{prefix}_tenant_{key}" + ("_total" if kind == "counter" else "")
+        lines.append(f"# TYPE {name} {kind}")
+        for tenant in sorted(per_tenant):
+            lines.append(f'{name}{{tenant="{tenant}"}} {int(per_tenant[tenant].get(key, 0))}')
+    by_tier = snap.get("requests_shed_by_tier") or {}
+    name = f"{prefix}_requests_shed_tier_total"
+    lines.append(f"# TYPE {name} counter")
+    for tier in sorted(by_tier):
+        lines.append(f'{name}{{tier="{tier}"}} {int(by_tier[tier])}')
+    wasted = snap.get("wasted_tokens_by_reason")
+    if wasted is not None:
+        name = f"{prefix}_wasted_tokens_total"
+        lines.append(f"# TYPE {name} counter")
+        for reason in sorted(wasted):
+            lines.append(f'{name}{{reason="{reason}"}} {int(wasted[reason])}')
+        name = f"{prefix}_replica_count"  # a single engine is a fleet of one
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {int(snap.get('replicas', 1))}")
+    if "host_tier_restore_hits" in snap:
+        name = f"{prefix}_host_tier_restores_total"
+        lines.append(f"# TYPE {name} counter")
+        for result, key in (("hit", "host_tier_restore_hits"), ("miss", "host_tier_restore_misses")):
+            lines.append(f'{name}{{result="{result}"}} {int(snap.get(key, 0))}')
+    # compile-ledger series: the port compiles no programs, so they carry
+    # no samples, but their TYPE lines keep the JAX schema
+    for base in ("compiles_total", "compile_seconds_total"):
+        lines.append(f"# TYPE {prefix}_{base} counter")
+    name = f"{prefix}_recompiles_after_warmup_total"
+    lines.append(f"# TYPE {name} counter")
+    lines.append(f"{name} 0")
+    for key in histograms or {}:
+        lines.extend(histograms[key].prometheus_lines(_prom_name(key, prefix)))
+    return "\n".join(lines) + "\n"
+
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"

@@ -106,8 +106,9 @@ def no_load(monkeypatch):
     (["--serve", QUESTION], "--serve takes no question"),
     (["--serve", "--greedy", "--top-k", "5"], "--top-k --greedy have no effect with --serve"),
     ([], "a question is required"),
+    (["--engine", "window", QUESTION], "--engine picks the --serve engine"),
 ], ids=["draft_without_speculative", "speculative", "draft_dir", "tp", "nf4", "serve_question",
-        "serve_sampling", "no_question"])
+        "serve_sampling", "no_question", "engine_without_serve"])
 def test_refusals_come_before_loading(model_dir, no_load, capsys, args, message):
     with pytest.raises(SystemExit) as exc:
         run_ask_cli(["--model-dir", str(model_dir), "--device", "cpu"] + args, **CLI_KW)
@@ -131,6 +132,25 @@ def test_serve_flag_hands_quantize_and_template_to_the_server(model_dir, monkeyp
     assert args == (str(model_dir),) and kw["quantize"] == "int8" and kw["port"] == 0
     assert kw["template_kwargs"] == {"enable_thinking": False}
     assert kw["device"] == torch.device("cpu")
+    assert kw["engine"] == "continuous"  # the JAX server's default engine
+
+
+@pytest.mark.parametrize("engine", ["window", "paged"])
+def test_serve_flag_hands_the_engine_to_the_server(model_dir, monkeypatch, engine):
+    """``--serve --engine E`` reaches ``server.serve``, which builds that
+    engine (its ``build_server`` is replaced here, after the weights load)."""
+    built = []
+
+    def build(generator, **kw):
+        built.append(kw)
+        raise KeyboardInterrupt  # stop before binding a port
+
+    monkeypatch.setattr(server, "build_server", build)
+    argv = ["--model-dir", str(model_dir), "--device", "cpu", "--serve", "--engine", engine]
+    with pytest.raises(KeyboardInterrupt):
+        run_ask_cli(argv, **CLI_KW)
+    (kw,) = built
+    assert kw["engine"] == engine and kw["quantize_kv"] == "none"
 
 
 def test_default_device_without_a_gpu_exits_nonzero(model_dir, no_load, capsys):

@@ -1,8 +1,15 @@
-"""The port's HTTP server on the CPU against the JAX paged int8 engine, and
-its refusal to start without a GPU unless the CPU is asked for."""
+"""The port's HTTP server on the CPU, engine by engine (``continuous``, the
+default; ``window``; ``paged`` with an int8 KV pool), against the JAX
+server's engines on the same tiny model directory: the same greedy answer
+on ``/v1/generate``, ``/v1/stream`` deltas that add up to it, and
+``/v1/stats`` and ``/metrics`` that count what was served; the refusals that
+come before any weight loads; and the refusal to start without a GPU unless
+the CPU is asked for."""
 
+import http.client
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -18,15 +25,22 @@ import torch
 
 from llm_fine_tune_distributed_tpu.data.tokenizer import ByteChatMLTokenizer
 from llm_fine_tune_distributed_tpu.infer import GenerationConfig, Generator
-from llm_fine_tune_distributed_tpu.infer.engine import PagedContinuousBatchingEngine
+from llm_fine_tune_distributed_tpu.infer.batching import BatchingEngine
+from llm_fine_tune_distributed_tpu.infer.engine import (
+    ContinuousBatchingEngine,
+    PagedContinuousBatchingEngine,
+)
 from llm_fine_tune_distributed_tpu.models import configs as jax_configs
 from llm_fine_tune_distributed_tpu.models import hf_io as jax_hf_io
 from llm_fine_tune_distributed_tpu.models.transformer import init_params
+import llm_fine_tune_distributed_tpu_torch.infer as port_infer
+from llm_fine_tune_distributed_tpu_torch.infer import engine as port_engine
 from llm_fine_tune_distributed_tpu_torch.infer import server
 from llm_fine_tune_distributed_tpu_torch.infer.generate import Generator as TorchGenerator
 from llm_fine_tune_distributed_tpu_torch.infer.generate import load_model_dir, load_tokenizer_dir
 
 ROOT = Path(__file__).resolve().parent.parent
+ENGINES = ("continuous", "window", "paged")
 ENGINE = dict(slots=4, buf_len=256, block_len=16, prefill_chunk=32)
 QUESTION = {"question": "How many cups in a gallon?", "system_prompt": "Be brief.",
             "greedy": True, "max_new_tokens": 8}
@@ -50,10 +64,16 @@ def model_dir(tmp_path_factory):
     return path, params, mc
 
 
-def _jax_answer(params, mc):
-    tok = ByteChatMLTokenizer()
-    gen = Generator(params, mc, tok, compute_dtype=jnp.float32)
-    eng = PagedContinuousBatchingEngine(gen, prompt_bucket=64, kv_quant="int8", **ENGINE)
+def _jax_answer(params, mc, engine):
+    """The JAX server's engine of the same kind, at the same geometry."""
+    gen = Generator(params, mc, ByteChatMLTokenizer(), compute_dtype=jnp.float32)
+    if engine == "window":
+        eng = BatchingEngine(gen, max_batch=4, window_ms=10.0)
+    elif engine == "continuous":
+        eng = ContinuousBatchingEngine(gen, slots=ENGINE["slots"], buf_len=ENGINE["buf_len"],
+                                       prompt_bucket=64)
+    else:
+        eng = PagedContinuousBatchingEngine(gen, prompt_bucket=64, kv_quant="int8", **ENGINE)
     ids = gen.encode_chat([{"role": "system", "content": QUESTION["system_prompt"]},
                            {"role": "user", "content": QUESTION["question"]}])
     out = eng.submit(ids, GenerationConfig(max_new_tokens=8, do_sample=False), timeout=240)
@@ -66,21 +86,66 @@ def _get(url, data=None):
         return r.status, r.read().decode()
 
 
-def test_cpu_server_answers_with_the_jax_engines_greedy_text(model_dir):
+def _stream(base, body):
+    """POST /v1/stream -> (status, [(event, payload)]); the chunked body is
+    decoded by http.client."""
+    host, port = base.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    try:
+        conn.request("POST", "/v1/stream", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.getheader("Content-Type") == "text/event-stream"
+        text = resp.read().decode()
+    finally:
+        conn.close()
+    events = []
+    for block in text.split("\n\n"):
+        if not block:
+            continue
+        lines = block.split("\n")
+        name = lines[0][len("event: "):] if lines[0].startswith("event: ") else "message"
+        assert lines[-1].startswith("data: "), block
+        events.append((name, json.loads(lines[-1][len("data: "):])))
+    return resp.status, events
+
+
+def _prometheus(text):
+    """Every line of a Prometheus exposition parsed: TYPE lines and samples."""
+    samples, types = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ")
+            assert kind in ("counter", "gauge", "histogram"), line
+            types[name] = kind
+        else:
+            name, value = line.rsplit(" ", 1)
+            samples[name] = float(value)
+    return types, samples
+
+
+@pytest.fixture(scope="module", params=ENGINES)
+def served(request, model_dir):
+    """``python -m ...infer.server --device cpu --engine E`` on the tiny
+    model; yields (engine, base URL, the JAX engine's answer)."""
+    engine = request.param
     path, params, mc = model_dir
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     cmd = [sys.executable, "-m", "llm_fine_tune_distributed_tpu_torch.infer.server",
-           "--model-dir", str(path), "--engine", "paged", "--quantize-kv", "int8",
-           "--device", "cpu", "--host", "127.0.0.1", "--port", "0",
+           "--model-dir", str(path), "--engine", engine, "--device", "cpu",
+           "--host", "127.0.0.1", "--port", "0",
            "--slots", str(ENGINE["slots"]), "--kv-buf-len", str(ENGINE["buf_len"]),
            "--kv-block-len", str(ENGINE["block_len"]),
-           "--prefill-chunk", str(ENGINE["prefill_chunk"])]
+           "--prefill-chunk", str(ENGINE["prefill_chunk"]), "--max-batch", "4"]
+    if engine == "paged":
+        cmd += ["--quantize-kv", "int8"]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             cwd=str(ROOT), env=env)
     try:
         line = proc.stdout.readline()
-        assert "listening on http://" in line, (line, proc.stderr.read() if proc.poll() else "")
+        assert "listening on http://" in line and f"engine {engine}" in line, (
+            line, proc.stderr.read() if proc.poll() is not None else "")
         base = line.split("listening on ")[1].split()[0]
         deadline = time.monotonic() + 60
         while True:
@@ -91,15 +156,168 @@ def test_cpu_server_answers_with_the_jax_engines_greedy_text(model_dir):
                 assert time.monotonic() < deadline
                 time.sleep(0.1)
         assert (status, body) == (200, "ok")
-        status, body = _get(base + "/v1/generate", json.dumps(QUESTION).encode())
-        assert status == 200
-        want = _jax_answer(params, mc)
-        assert want and json.loads(body) == {"answer": want}
+        yield engine, base, _jax_answer(params, mc, engine)
     finally:
         proc.terminate()
         proc.wait(timeout=30)
         proc.stdout.close()
         proc.stderr.close()
+
+
+def test_cpu_server_answers_with_the_jax_engines_greedy_text(served):
+    _, base, want = served
+    status, body = _get(base + "/v1/generate", json.dumps(QUESTION).encode())
+    assert status == 200
+    assert want and json.loads(body) == {"answer": want}
+
+
+@pytest.fixture(scope="module")
+def port_generator(model_dir):
+    path, _, _ = model_dir
+    params, mc = load_model_dir(str(path), device="cpu", dtype=torch.float32)
+    return TorchGenerator(params, mc, load_tokenizer_dir(str(path)),
+                          compute_dtype=torch.float32, device="cpu")
+
+
+class _Server:
+    """``build_server`` on a thread, for one test."""
+
+    def __init__(self, gen, **kw):
+        self.httpd, self.engine = server.build_server(gen, host="127.0.0.1", port=0, **kw)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.engine.close()
+        self.thread.join(10)
+        assert not self.thread.is_alive()
+
+
+def _engine_kw(engine):
+    kw = dict(engine=engine, slots=ENGINE["slots"], kv_buf_len=ENGINE["buf_len"],
+              kv_block_len=ENGINE["block_len"], prefill_chunk=ENGINE["prefill_chunk"], max_batch=4)
+    if engine == "paged":
+        kw["quantize_kv"] = "int8"
+    return kw
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_stream_deltas_concatenate_to_the_generate_answer(port_generator, engine):
+    """The same request on two fresh servers of one engine, one through
+    ``/v1/generate`` and one through ``/v1/stream`` (fresh, because a freed
+    int8 block keeps its scale: the paged engine's tokens depend on its
+    pool's history, in the JAX package too)."""
+    with _Server(port_generator, **_engine_kw(engine)) as srv:
+        _, body = _get(srv.base + "/v1/generate", json.dumps(QUESTION).encode())
+    with _Server(port_generator, **_engine_kw(engine)) as srv:
+        status, events = _stream(srv.base, QUESTION)
+    assert status == 200
+    assert [name for name, _ in events] == ["message"] * len(events)
+    *deltas, done = [payload for _, payload in events]
+    assert done == {"done": True, "n_tokens": QUESTION["max_new_tokens"]}
+    assert deltas and all(set(d) == {"delta"} for d in deltas)
+    answer = json.loads(body)["answer"]
+    assert answer and "".join(d["delta"] for d in deltas).strip() == answer
+
+
+def test_stats_and_metrics_count_the_requests_served(served):
+    engine, base, _ = served
+    _, before = _get(base + "/v1/stats")
+    _, events = _stream(base, QUESTION)
+    n_tokens = events[-1][1]["n_tokens"]
+    _get(base + "/v1/generate", json.dumps(QUESTION).encode())
+    _, after = _get(base + "/v1/stats")
+    with urllib.request.urlopen(base + "/metrics", timeout=120) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"] == server.PROMETHEUS_CONTENT_TYPE
+        types, samples = _prometheus(r.read().decode())
+    before, after = json.loads(before), json.loads(after)
+    assert after["engine"] == engine
+    assert samples[f'serving_info{{engine="{engine}"}}'] == 1
+    if engine == "window":
+        assert after == {"engine": "window", "queue_depth": 0, "max_batch": 4}
+        assert samples["serving_queue_depth"] == 0 and types["serving_max_batch"] == "gauge"
+        return
+    assert after["tokens_served"] - before["tokens_served"] == n_tokens + 8
+    assert after["requests_completed"] - before["requests_completed"] == 2
+    assert after["live_slots"] == 0 and after["queue_depth"] == 0
+    assert types["serving_tokens_served_total"] == "counter"
+    assert samples["serving_tokens_served_total"] == after["tokens_served"]
+    assert samples["serving_requests_completed_total"] == after["requests_completed"]
+    assert samples['serving_ttft_seconds_bucket{le="+Inf"}'] == after["requests_completed"]
+    if engine == "paged":
+        assert after["total_blocks"] > 0 and after["prefix_tokens_reused"] > 0
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_bad_requests_are_400(port_generator, engine):
+    with _Server(port_generator, **_engine_kw(engine)) as srv:
+        for route in ("/v1/generate", "/v1/stream"):
+            for body in (b"[1, 2]", b'{"no_question": 1}', b'{"question": "q", "speculative": 2}',
+                         b'{"question": "q", "stream_chunk": 0}'):
+                with pytest.raises(urllib.error.HTTPError) as err:
+                    _get(srv.base + route, body)
+                assert err.value.code == 400
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get(srv.base + "/nope")
+        assert err.value.code == 404
+
+
+def test_client_that_disconnects_mid_stream_abandons_its_request(port_generator):
+    """The client reads the headers and hangs up: the slot stops decoding
+    for nobody, and the request counts as abandoned."""
+    with _Server(port_generator, slots=2, kv_buf_len=1024) as srv:
+        eng = srv.engine
+        assert isinstance(eng, port_engine.ContinuousBatchingEngine)  # the default engine
+        body = json.dumps({**QUESTION, "max_new_tokens": 900}).encode()
+        with socket.create_connection(("127.0.0.1", srv.httpd.server_address[1]), timeout=60) as s:
+            s.sendall(b"POST /v1/stream HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                      + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+            assert s.recv(4096).startswith(b"HTTP/1.1 200")
+        deadline = time.monotonic() + 60
+        while eng.stats_snapshot()["requests_abandoned"] < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        snap = eng.stats_snapshot()
+    assert snap["requests_completed"] == 0 and snap["live_slots"] == 0
+    assert snap["tokens_served"] < 900
+
+
+@pytest.fixture
+def no_load(monkeypatch):
+    """Loading weights fails the test: every refusal must come first."""
+    def load(*a, **kw):
+        raise AssertionError("weights were loaded")
+
+    monkeypatch.setattr(port_infer, "load_model_dir", load)
+    monkeypatch.setattr(server, "load_model_dir", load)
+
+
+@pytest.mark.parametrize("engine", ["continuous", "window"])
+def test_quantize_kv_is_refused_before_loading(model_dir, no_load, capsys, engine):
+    path, _, _ = model_dir
+    with pytest.raises(SystemExit) as exc:
+        server.main(["--model-dir", str(path), "--engine", engine, "--quantize-kv", "int8",
+                     "--device", "cpu"])
+    assert exc.value.code == 2 and "pick --engine paged" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="pick --engine paged"):
+        server.serve(str(path), device="cpu", engine=engine, quantize_kv="int8")
+
+
+def test_default_engine_is_continuous(model_dir, monkeypatch):
+    path, _, _ = model_dir
+    calls = []
+    monkeypatch.setattr(server, "serve", lambda *a, **kw: calls.append(kw))
+    assert server.main(["--model-dir", str(path), "--device", "cpu"]) == 0
+    (kw,) = calls
+    assert kw["engine"] == "continuous" and kw["quantize_kv"] == "none"
+    assert kw["max_batch"] == 8 and kw["batch_window_ms"] == 10.0
 
 
 def test_main_without_a_gpu_exits_naming_the_missing_card(model_dir):
@@ -110,30 +328,3 @@ def test_main_without_a_gpu_exits_naming_the_missing_card(model_dir):
         server.main(["--model-dir", str(path), "--engine", "paged", "--quantize-kv", "int8"])
     assert exc.value.code not in (0, None)
     assert "no CUDA device" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
-
-
-def test_bad_requests_are_400(model_dir):
-    path, _, _ = model_dir
-    params, mc = load_model_dir(str(path), device="cpu", dtype=torch.float32)
-    gen = TorchGenerator(params, mc, load_tokenizer_dir(str(path)),
-                         compute_dtype=torch.float32, device="cpu")
-    httpd, engine = server.build_server(gen, host="127.0.0.1", port=0, quantize_kv="int8",
-                                        slots=2, kv_buf_len=128, kv_block_len=16,
-                                        prefill_chunk=32)
-    t = threading.Thread(target=httpd.serve_forever, daemon=True)
-    t.start()
-    try:
-        base = f"http://127.0.0.1:{httpd.server_address[1]}"
-        for body in (b"[1, 2]", b'{"no_question": 1}', b'{"question": "q", "speculative": 2}'):
-            with pytest.raises(urllib.error.HTTPError) as err:
-                _get(base + "/v1/generate", body)
-            assert err.value.code == 400
-        with pytest.raises(urllib.error.HTTPError) as err:
-            _get(base + "/nope")
-        assert err.value.code == 404
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        engine.close()
-        t.join(10)
-    assert not t.is_alive()
