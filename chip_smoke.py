@@ -74,7 +74,23 @@ and stops with a non-zero exit at the first failure:
    and requests served, no paged decode launch; then one question through
    ``POST /v1/stream`` on ``continuous`` and on ``paged`` with an int8 pool,
    its deltas equal to the ``/v1/generate`` answer and the paged one's
-   launches 36 x its decode steps.
+   launches 36 x its decode steps;
+16. (right after phase 15, on its generator) speculation, K = 4, through the
+   server: (a) ``--engine continuous --speculative 4`` with prompt lookup,
+   phase 15's traffic with ``"speculative": 4``, then one repetitive
+   question; (b) the same on ``--engine paged --quantize-kv int8`` (no paged
+   decode launch: a verify of K+1 positions takes the dequantizing gather,
+   as in JAX; the blocks in use back to the prefix cache's after the
+   requests); (c) continuous with the target's own parameter dict as the
+   draft (a dense 8 x 4096 draft cache, acceptance at least 0.9); every
+   request's tokens held to its solo run by phase 15's margin rule (16b
+   adds twice the int8 pool's measured logit error); (e) one plain and one
+   speculative continuous tick profiled by kernel name, and spec ticks (prompt
+   lookup, self-draft) run under ``torch.cuda.set_sync_debug_mode("error")``
+   but for the one transfer of their tokens; (d) (beside phase 14) the ask
+   CLI with ``--speculative 4``, then with ``--draft-dir`` phase 8's
+   ``best_model/``: the answer's tokens equal the plain ask's, or the solo
+   run's by the margin rule.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -122,6 +138,10 @@ QUESTIONS = (
     "What are the steps to treat a minor burn?",
 )
 WARMUP_QUESTION = "How many cups are in a gallon?"
+# phase 16: a question whose prompt repeats itself, for prompt lookup
+REPETITIVE_QUESTION = " ".join(["Boil the water for one full minute before you drink it."] * 6)
+SPEC_K = 4  # phase 16's draft depth
+SELF_DRAFT_MIN_ACCEPTANCE = 0.9
 # tolerances of the kernel against its plain version: in f32 both differ
 # only in summation order; in bf16 both compute in f32 and round once, so
 # they differ by at most one bf16 ulp, which is at most 2**-7 of the value
@@ -432,14 +452,14 @@ class _Serving:
     def __init__(self, server_mod, generator, **kw):
         self.httpd, self.engine = server_mod.build_server(generator, host="127.0.0.1", port=0, **kw)
         self.results = []
-        submit = self.engine.submit
+        submit_full = self.engine.submit_full
 
-        def recording_submit(prompt_ids, gen, seed=0, timeout=None):
-            ids = submit(prompt_ids, gen, seed=seed, timeout=timeout)
-            self.results.append((list(prompt_ids), list(ids)))
-            return ids
+        def recording_submit_full(prompt_ids, gen, seed=0, timeout=None):
+            req = submit_full(prompt_ids, gen, seed=seed, timeout=timeout)
+            self.results.append((list(prompt_ids), list(req.result)))
+            return req
 
-        self.engine.submit = recording_submit
+        self.engine.submit_full = recording_submit_full
         stream = getattr(self.engine, "stream", None)  # the slot engines
 
         def recording_stream(prompt_ids, gen, seed=0, timeout=None):
@@ -472,16 +492,24 @@ class _Serving:
         self.thread.join(30)
 
 
-def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged"):
+def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged", spec=0):
     """The port's HTTP server with one engine: one warm-up request, then the
     4 concurrent ones. ``paged`` (phases 4 and 14) serves from an int8 KV
     pool, and every decode step must go through the kernel; ``continuous``
-    and ``window`` (phase 15) run dense caches and must never launch it."""
+    and ``window`` (phase 15) run dense caches and must never launch it.
+    ``spec`` = K (phase 16): the slot engine runs with ``speculative_k`` K,
+    every request asks for ``"speculative": K`` and answers with its block;
+    every tick is a verify of K+1 positions, which never takes the paged
+    decode kernel; then one repetitive question."""
     kw = dict(engine=engine, slots=SLOTS, kv_buf_len=KV_BUF_LEN, prompt_bucket=PROMPT_BUCKET)
     if engine == "paged":
         kw.update(quantize_kv="int8", kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK)
     elif engine == "window":
         kw.update(max_batch=SLOTS, batch_window_ms=BATCH_WINDOW_MS)
+    extra = {}
+    if spec:
+        kw["speculative_k"] = spec
+        extra = {"speculative": spec}
     fa.paged_decode_attention.launches = 0  # count this run's launches only
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -493,7 +521,7 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged"):
         check(status == 200 and body == b"ok", "/healthz did not answer 200 ok")
         phase(phase_no, f"{engine}: GET /healthz -> 200 ok")
         warm = _http(base, "/v1/generate", {"question": WARMUP_QUESTION, "greedy": True,
-                                            "max_new_tokens": MAX_NEW_TOKENS})
+                                            "max_new_tokens": MAX_NEW_TOKENS, **extra})
         check(warm[0] == 200, f"warm-up request: HTTP {warm[0]}")
         slot_engine = engine != "window"
         if slot_engine:
@@ -504,7 +532,7 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged"):
 
         def post(i):
             outs[i] = _http(base, "/v1/generate", {"question": QUESTIONS[i], "greedy": True,
-                                                   "max_new_tokens": MAX_NEW_TOKENS})
+                                                   "max_new_tokens": MAX_NEW_TOKENS, **extra})
 
         threads = [threading.Thread(target=post, args=(i,)) for i in range(len(QUESTIONS))]
         window_start = time.monotonic()
@@ -522,6 +550,15 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged"):
         samples = _prometheus_samples(metrics_body.decode())
         hist = {k: _hist(eng, k) for k in ("ttft_s", "decode_tick_s")} if slot_engine else {}
         results = list(srv.results)
+        if spec:
+            rep = _http(base, "/v1/generate", {"question": REPETITIVE_QUESTION, "greedy": True,
+                                               "max_new_tokens": MAX_NEW_TOKENS, **extra})
+            check(rep[0] == 200, f"{engine} repetitive question: HTTP {rep[0]}")
+            idle = eng.stats_snapshot()
+            launches = fa.paged_decode_attention.launches  # the repetitive question's too
+            draft_cache_bytes = sum(t.numel() * t.element_size() for e in
+                                    (eng._dcache or {"layers": {}})["layers"].values()
+                                    for t in e.values())
 
     for i, o in enumerate(outs):
         check(o is not None and o[0] == 200 and isinstance(json.loads(o[1]).get("answer"), str),
@@ -563,10 +600,18 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged"):
           f"/metrics serving_tokens_served_total {samples['serving_tokens_served_total']} != "
           f"{stats['tokens_served']}")
     check(stats["decode_steps"] > 0, "no decode step ran")
-    if engine == "paged":
+    if engine == "paged" and not spec:
         check(launches == layers * stats["decode_steps"],
               f"kernel launches {launches} != {layers} layers x {stats['decode_steps']} decode steps")
         check(stats["prefix_hits"] >= 1, "no prefix-cache hit")
+    elif engine == "paged":
+        check(launches == 0, f"paged decode launched {launches} times over speculative ticks "
+                             "(a verify of K+1 positions takes the dequantizing gather)")
+        check(stats["prefix_hits"] >= 1, "no prefix-cache hit")
+        check(idle["blocks_in_use"] == idle["prefix_cache_blocks"],
+              f"blocks in use {idle['blocks_in_use']} after the requests, the prefix cache "
+              f"holds {idle['prefix_cache_blocks']}: a request's blocks were not returned")
+        out["blocks_in_use_idle"] = idle["blocks_in_use"]
     else:
         check(launches == 0, f"the {engine} engine launched the paged decode kernel {launches} times")
     dec_tok = stats["decode_tokens"] - warm_stats["decode_tokens"]
@@ -587,6 +632,26 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged"):
                     f"{out['generated_tokens'][1:]}, prompt tokens {out['prompt_tokens'][1:]}, "
                     f"/v1/stats tokens_served {stats['tokens_served']} == /metrics, "
                     f"requests_completed {stats['requests_completed']}")
+    if spec:
+        blocks = [json.loads(o[1]).get("speculative") for o in outs]
+        check(all(b is not None and 0.0 <= b["acceptance_rate"] <= 1.0 for b in blocks),
+              f"{engine}: a response lacks its speculative block: {blocks}")
+        check(stats["draft_tokens_accepted"] <= stats["draft_tokens_proposed"],
+              f"{engine}: accepted {stats['draft_tokens_accepted']} > proposed")
+        out.update({
+            "speculative_blocks": blocks,
+            "repetitive": json.loads(rep[1]).get("speculative"),
+            "draft_tokens_proposed": stats["draft_tokens_proposed"],
+            "draft_tokens_accepted": stats["draft_tokens_accepted"],
+            "draft_acceptance_rate": stats["draft_acceptance_rate"],
+            "mean_tokens_per_step": stats["mean_tokens_per_step"],
+            "draft_cache_bytes": draft_cache_bytes,
+        })
+        check(out["repetitive"] is not None, f"{engine}: the repetitive question has no block")
+        phase(phase_no, f"{engine} --speculative {spec}: draft acceptance "
+                        f"{stats['draft_acceptance_rate']:.3f} ({stats['draft_tokens_accepted']} of "
+                        f"{stats['draft_tokens_proposed']}), {stats['mean_tokens_per_step']:.3f} "
+                        f"tokens per step; repetitive question: {out['repetitive']}")
     if engine == "paged":
         out["prefix_hits"] = stats["prefix_hits"]
         out["kv_pool_bytes"] = sum(t.numel() * t.element_size()
@@ -644,7 +709,7 @@ def solo_decode(tf, gen_mod, generator, prompt_ids, n):
     return tokens, steps, all_logits
 
 
-def margin_agreement(tf, generator, label, prompt, got, solo):
+def margin_agreement(tf, generator, label, prompt, got, solo, floor=0.0):
     """Tokens of an engine against the solo run: equal up to the first step
     whose solo top-2 margin is within reach of rounding, where another
     GEMM's order may flip the argmax; a difference at a wider margin fails.
@@ -653,7 +718,9 @@ def margin_agreement(tf, generator, label, prompt, got, solo):
     max|dlogits| between the solo run's cached logits at that step and a
     no-cache forward over the same context (in bf16 the logits' own
     rounding, one ulp = 2**-7 of their magnitude, is above the f32 rule).
-    Returns (tokens agreeing, the check at the first difference or None)."""
+    ``floor`` raises the bound where the engine's logits carry another
+    error, the int8 KV pool's (phase 16b). Returns (tokens agreeing, the
+    check at the first difference or None)."""
     tokens, steps, logits = solo
     for t, (a, b) in enumerate(zip(got, tokens)):
         if a != b:
@@ -664,7 +731,7 @@ def margin_agreement(tf, generator, label, prompt, got, solo):
                 plain = tf.unembed(generator.params, hidden[:, -1], generator.config,
                                    compute_dtype=generator.compute_dtype)[0]
             dlogits = (plain - logits[t]).abs().max().item()
-            bound = max(2 * LOGIT_REL_TOL * steps[t]["max_abs_logits"], 2 * dlogits)
+            bound = max(2 * LOGIT_REL_TOL * steps[t]["max_abs_logits"], 2 * dlogits, floor)
             at = {"token": t, "got": a, "solo": b, "margin": steps[t]["margin"],
                   "max_abs_dlogits_no_cache": dlogits, "bound": bound}
             check(steps[t]["margin"] <= bound,
@@ -798,9 +865,349 @@ def engines_phase(tf, gen_mod, server_mod, fa, generator):
     check(want <= cont["engine_bytes"] <= want + 2**26,
           f"memory_allocated grew {cont['engine_bytes']} bytes at the engine's start, cache {want}")
     streams = {e: stream_phase(server_mod, fa, generator, e) for e in ("continuous", "paged")}
+    tokens = [ids for _, ids in runs["continuous"]["results"][1:]]
     for rec in runs.values():
         rec.pop("results")
-    return {**runs, "stream": streams}
+    # phase 16 holds its tokens to the same solo runs (popped there)
+    return {**runs, "stream": streams, "solo": solo, "continuous_tokens": tokens}
+
+
+def int8_kv_noise(tf, generator, prompt):
+    """max|dlogits| of the last prompt position between a prefill through a
+    fresh int8 block pool and the dense solo prefill: the int8 KV pool's own
+    error, which phase 16b's margin rule allows beside bf16 rounding."""
+    config, dtype = generator.config, generator.compute_dtype
+    L = KV_BLOCK_LEN
+    nblocks = -(-len(prompt) // L)
+    pool = tf.init_paged_cache(config, 1 + nblocks, L, dtype=dtype, kv_quant="int8",
+                               device=DEVICE)
+    table = torch.arange(1, 1 + nblocks, dtype=torch.int32, device=DEVICE)[None, :]
+    ids = torch.tensor([list(prompt)], device=DEVICE)
+    with torch.no_grad():
+        paged, _ = tf.forward(generator.params, ids, config, cache=pool, cache_pos=0,
+                              block_tables=table, compute_dtype=dtype, output_hidden=True)
+        dense, _ = tf.forward(generator.params, ids, config, compute_dtype=dtype,
+                              output_hidden=True)
+        a = tf.unembed(generator.params, paged[:, -1], config, compute_dtype=dtype)
+        b = tf.unembed(generator.params, dense[:, -1], config, compute_dtype=dtype)
+    return (a - b).abs().max().item()
+
+
+def hold_to_solo(tf, generator, label, rec, solo, floor=0.0):
+    """Each of a run's 4 requests against its solo run by the margin rule;
+    the agreeing counts go into ``rec``."""
+    agree, first_diff = [], []
+    for i, (prompt, ids) in enumerate(rec["results"][1:]):
+        n, at = margin_agreement(tf, generator, f"{label} request {i}", prompt, ids,
+                                 solo[tuple(prompt)], floor=floor)
+        agree.append(n)
+        first_diff.append(at)
+    rec["tokens_agreeing_with_solo"] = agree
+    rec["first_difference"] = first_diff
+    phase(16, f"{label}: tokens equal to the solo run's, per request: {agree} of "
+              f"{[len(solo[tuple(p)][0]) for p, _ in rec['results'][1:]]}")
+    for i, at in enumerate(first_diff):
+        if at:
+            phase(16, f"  {label} request {i}: token {at['token']} differs at a solo top-2 "
+                      f"margin {at['margin']:.3e} <= bound {at['bound']:.3e}")
+
+
+def dense_slots(generator, prompts):
+    """A fresh dense 8 x 4096 slot state with the prompts prefilled into
+    slots 0..n-1 (greedy): (cache, state, live, each slot's tokens so far)."""
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+
+    greedy = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                              speculative_lookup=SPEC_K)
+    cache, state = generator.init_slot_state(SLOTS, KV_BUF_LEN)
+    ctx = []
+    for slot, p in enumerate(prompts):
+        bucket = -(-len(p) // PROMPT_BUCKET) * PROMPT_BUCKET
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, : len(p)] = p
+        first = generator.slot_prefill(cache, state, padded, len(p), slot, greedy, 0)
+        ctx.append(list(p) + [first])
+    return cache, state, np.arange(SLOTS) < len(prompts), ctx
+
+
+def lookup_drafts(engine_mod, ctx):
+    """Prompt-lookup drafts of the live slots' contexts, as the engine
+    proposes them: ``(drafts [SLOTS, K], n_draft [SLOTS])``."""
+    drafts = np.zeros((SLOTS, SPEC_K), np.int64)
+    n_draft = np.zeros((SLOTS,), np.int64)
+    for slot, c in enumerate(ctx):
+        found = engine_mod._prompt_lookup(np.asarray(c, np.int64), SPEC_K)
+        drafts[slot, : found.size] = found
+        n_draft[slot] = found.size
+    return drafts, n_draft
+
+
+def without_syncs(gen_mod, run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("error")``, but for
+    the spec tick's one transfer of its tokens (``_spec_readback``): any
+    other synchronizing call in the tick raises."""
+    orig = gen_mod.Generator.__dict__["_spec_readback"]
+
+    def guarded(toks, n_emit):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return orig.__func__(toks, n_emit)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    gen_mod.Generator._spec_readback = staticmethod(guarded)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        gen_mod.Generator._spec_readback = orig
+
+
+def record_rejections(generator):
+    """Wrap ``generator``'s spec verify: for every live slot whose run ended
+    on a rejected draft, the gap between the verify's penalized logit of
+    its own token and of the draft (>= 0), kept on the device. Returns the
+    list of (gaps [S], rejected [S]) per tick; ``rejection_gaps`` reads it."""
+    verify = generator._spec_verify
+    pending = []
+
+    def recording(state, live, drafts, n_draft, logits_all):
+        seen = state["seen"].clone()
+        toks, n_emit, live_t = verify(state, live, drafts, n_draft, logits_all)
+        slots, k1 = toks.shape
+        rows = torch.arange(slots, device=toks.device)
+        i = (n_emit - 1).clamp(min=0)  # the run's last position
+        for j in range(k1 - 1):  # the tokens taken before position i
+            seen[rows, toks[:, j].clamp(min=0)] |= (j < i) & (toks[:, j] >= 0)
+        logits = logits_all[rows, i]
+        pen = state["repetition_penalty"][:, None]
+        pen = torch.where(seen, torch.where(logits > 0, logits / pen, logits * pen), logits)
+        d = drafts[rows, i.clamp(max=k1 - 2)]
+        gap = pen[rows, toks[rows, i].clamp(min=0)] - pen[rows, d]
+        pending.append((gap, live_t & (i < n_draft)))
+        return toks, n_emit, live_t
+
+    generator._spec_verify = recording
+    return pending
+
+
+def rejection_gaps(pending):
+    return [g for gap, rejected in pending for g, r in zip(gap.tolist(), rejected.tolist()) if r]
+
+
+def self_draft_f32(gen_mod, engine_mod, generator, prompts):
+    """Phase 16c in f32 (phase 13's precision): the 4 prompts through a
+    continuous engine whose draft is the target, in process. Rounding sits
+    at 2**-24, far below the random model's bf16 near-ties, so acceptance
+    must reach 0.9 here (1.0 on the CPU)."""
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    params = {k: v.float() for k, v in generator.params.items()}
+    gen32 = gen_mod.Generator(params, generator.config, generator.tokenizer,
+                              compute_dtype=torch.float32, device=DEVICE, draft_params=params,
+                              draft_config=generator.config)
+    engine = engine_mod.ContinuousBatchingEngine(gen32, slots=SLOTS, buf_len=KV_BUF_LEN,
+                                                 prompt_bucket=PROMPT_BUCKET, speculative_k=SPEC_K)
+    cfg = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                           speculative_lookup=SPEC_K)
+    try:
+        done = [None] * len(prompts)
+        threads = [threading.Thread(target=lambda i=i: done.__setitem__(
+            i, engine.submit_full(prompts[i], cfg, timeout=600))) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+            check(not t.is_alive(), "an f32 self-draft request did not finish")
+        stats = engine.stats_snapshot()
+    finally:
+        engine.close()
+    rate = stats["draft_acceptance_rate"]
+    check(all(r is not None and len(r.result) >= 1 for r in done), "f32 self-draft: no answer")
+    check(rate >= SELF_DRAFT_MIN_ACCEPTANCE,
+          f"f32 self-draft acceptance {rate:.3f} < {SELF_DRAFT_MIN_ACCEPTANCE}")
+    phase(16, f"16c in f32: self-draft acceptance {rate:.3f} ({stats['draft_tokens_accepted']} of "
+              f"{stats['draft_tokens_proposed']}), {stats['mean_tokens_per_step']:.3f} tokens per "
+              f"step (limit {SELF_DRAFT_MIN_ACCEPTANCE})")
+    del engine, gen32, params
+    gc_cuda()
+    return {k: stats[k] for k in ("draft_tokens_proposed", "draft_tokens_accepted",
+                                  "draft_acceptance_rate", "mean_tokens_per_step",
+                                  "decode_steps")}
+
+
+def spec_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, engines, served, prompts):
+    """Phase 16: speculation (K = 4) through the server on phase 4's
+    weights and traffic: (a) continuous with prompt lookup, (b) paged over
+    an int8 pool, (c) continuous with the target as its own draft; each
+    request's tokens held to its solo run by phase 15's margin rule; then
+    (e) one plain and one speculative continuous tick profiled, and spec
+    ticks run with every synchronizing call but the tokens' transfer an
+    error."""
+    solo = engines.pop("solo")
+    plain_tokens = engines.pop("continuous_tokens")
+    out = {"seconds": {}}
+    t0 = time.monotonic()
+
+    def lap(name):
+        nonlocal t0
+        out["seconds"][name] = time.monotonic() - t0
+        phase(16, f"16{name} took {out['seconds'][name]:.1f} s")
+        t0 = time.monotonic()
+
+    rec = serve_phase(server_mod, fa, generator, phase_no=16, engine="continuous", spec=SPEC_K)
+    hold_to_solo(tf, generator, "16a continuous --speculative 4", rec, solo)
+    rec["tokens_agreeing_with_phase_15"] = [
+        next((t for t, (a, b) in enumerate(zip(ids, want)) if a != b), min(len(ids), len(want)))
+        for (_, ids), want in zip(rec["results"][1:], plain_tokens)]
+    out["continuous"] = rec
+    lap("a")
+
+    noise = int8_kv_noise(tf, generator, prompts[0])
+    rec = serve_phase(server_mod, fa, generator, phase_no=16, engine="paged", spec=SPEC_K)
+    rec["int8_kv_max_abs_dlogits"] = noise
+    hold_to_solo(tf, generator, "16b paged int8 --speculative 4", rec, solo, floor=2 * noise)
+    phase4 = {tuple(p): ids for p, ids in served["results"][1:]}
+    held = {"results": [(None, None)] + [(p, phase4[tuple(p)]) for p, _ in rec["results"][1:]]}
+    hold_to_solo(tf, generator, "16b phase 4's own tokens (paged int8, plain)", held, solo,
+                 floor=2 * noise)
+    rec["phase_4_tokens_agreeing_with_solo"] = held["tokens_agreeing_with_solo"]
+    rec["tokens_agreeing_with_phase_4"] = [
+        next((t for t, (a, b) in enumerate(zip(ids, phase4[tuple(p)])) if a != b),
+             min(len(ids), len(phase4[tuple(p)])))
+        for p, ids in rec["results"][1:]]
+    phase(16, f"16b: int8 KV max|dlogits| at the prompt's last position {noise:.3e} (bound floor "
+              f"{2 * noise:.3e}); tokens equal to phase 4's: {rec['tokens_agreeing_with_phase_4']}")
+    out["paged_int8"] = rec
+    lap("b")
+
+    self_gen = gen_mod.Generator(generator.params, generator.config, generator.tokenizer,
+                                 compute_dtype=generator.compute_dtype, device=DEVICE,
+                                 draft_params=generator.params, draft_config=generator.config)
+    check(self_gen.draft_params is self_gen.params and all(
+        self_gen.params[k] is generator.params[k] for k in generator.params),
+        "the self-draft holds a second copy of the weights")
+    pending = record_rejections(self_gen)
+    rec = serve_phase(server_mod, fa, self_gen, phase_no=16, engine="continuous", spec=SPEC_K)
+    rejected = rejection_gaps(pending)
+    del self_gen._spec_verify  # the class's own again
+    hold_to_solo(tf, generator, "16c continuous self-draft", rec, solo)
+    mc = generator.config
+    want = (2 * mc.num_layers * SLOTS * KV_BUF_LEN * mc.num_kv_heads * mc.resolved_head_dim
+            * torch.finfo(generator.compute_dtype).bits // 8)
+    check(rec["draft_cache_bytes"] == want,
+          f"draft cache {rec['draft_cache_bytes']} bytes != {want} (dense 8 x 4096 bf16)")
+    # a draft equal to the target disagrees with the verify only where bf16
+    # rounding can flip the argmax: every rejected draft must sit within
+    # the margin rule's bound (the largest phase 15 and 16a-c measured) of
+    # the verify's choice
+    bounds = [at["bound"] for r in (engines["continuous"], out["continuous"], rec)
+              for at in r["first_difference"] if at]
+    gap_bound = max(bounds) if bounds else 0.0
+    rec["rejected_drafts"] = len(rejected)
+    rec["largest_rejection_gap"] = max(rejected, default=0.0)
+    rec["rejection_gap_bound"] = gap_bound
+    check(rec["largest_rejection_gap"] <= gap_bound,
+          f"a self-draft was rejected where the verify preferred its own token by "
+          f"{rec['largest_rejection_gap']:.3e} > the margin rule's {gap_bound:.3e}")
+    phase(16, f"16c: {len(rejected)} rejected self-drafts (acceptance "
+              f"{rec['draft_acceptance_rate']:.3f}), each where the verify's penalized logit of its "
+              f"own token exceeds the draft's by at most {rec['largest_rejection_gap']:.3e} "
+              f"(bound {gap_bound:.3e}: bf16 near-ties)")
+    out["self_draft"] = rec
+    out["self_draft_f32"] = self_draft_f32(gen_mod, engine_mod, generator, prompts)
+    lap("c")
+    for name in ("continuous", "paged_int8", "self_draft"):
+        r = out[name]
+        r.pop("results")
+        phase(16, f"{name}: {r['tokens_per_s_concurrent']:.1f} tokens/s over the 4 concurrent "
+                  f"requests' {r['window_s']:.3f} s window, engine TTFT mean "
+                  f"{r['ttft_s_concurrent_mean']:.3f} s (warm-up {r['ttft_s_warmup']:.3f} s), "
+                  f"mean decode tick {r['decode_step_ms_mean_concurrent']:.2f} ms, draft "
+                  f"acceptance {r['draft_acceptance_rate']:.3f}, {r['mean_tokens_per_step']:.3f} "
+                  f"tokens per step, repetitive question {r['repetitive']}"
+                  + (f", draft cache {r['draft_cache_bytes']} bytes" if r["draft_cache_bytes"]
+                     else ""))
+
+    # (e) one plain and one speculative tick at 4 live rows of 8, profiled
+    cache0, state0, live, _ = dense_slots(generator, prompts)
+    plain = profile_ticks(lambda: generator.slot_step(cache0, state0, live), 5)
+    cache, state, live, ctx = dense_slots(generator, prompts)
+
+    def spec_tick():
+        drafts, n_draft = lookup_drafts(engine_mod, ctx)
+        toks, n_emit = generator.spec_slot_step(cache, state, live, drafts, n_draft)
+        for slot in range(len(ctx)):
+            ctx[slot] += toks[slot, : n_emit[slot]].tolist()
+        return n_emit
+
+    spec = profile_ticks(spec_tick, 5)
+    emitted = spec_tick()[: len(prompts)]
+    # host time spreads between calls: time both again in turns, spec then
+    # plain, on the states already warm
+    for name, rec, tick in (("speculative", spec, spec_tick),
+                            ("plain", plain, lambda: generator.slot_step(cache0, state0, live))):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(5):
+            tick()
+        torch.cuda.synchronize()
+        rec["step_ms_again"] = (time.monotonic() - t0) * 1e3 / 5
+    del cache, state, cache0, state0
+    for name, r in (("plain", plain), ("speculative", spec)):
+        phase(16, f"16e {name} continuous tick at {len(prompts)} live rows of {SLOTS}: "
+                  f"{r['step_ms']:.2f} ms, again {r['step_ms_again']:.2f} ms "
+                  f"({r['profiled_step_ms']:.2f} ms profiled), device busy "
+                  f"{100 * (r['device_busy_share'] or 0):.1f}%, {r['device_kernels_per_step']:.0f} "
+                  f"device kernels and {r['device_ms_per_step']:.3f} ms of device time per tick")
+        for row in r["top_kernels"]:
+            phase(16, f"  {row['ms_per_step']:8.3f} ms/tick  {row['calls_per_step']:6.1f} calls  "
+                      f"{row['name']}")
+    out["tick_profile"] = {"plain": plain, "speculative": spec,
+                           "tokens_per_tick_last": emitted.tolist()}
+
+    # spec ticks with every synchronizing call but the transfer an error
+    synced = {}
+    cache, state, live, ctx = dense_slots(generator, prompts)
+    drafts, n_draft = lookup_drafts(engine_mod, ctx)
+    synced["dense_lookup"] = without_syncs(
+        gen_mod, lambda: generator.spec_slot_step(cache, state, live, drafts, n_draft))[1]
+    del cache, state
+    cache, state, live, ctx = dense_slots(self_gen, prompts)
+    dcache = self_gen.init_draft_slot_cache(SLOTS, KV_BUF_LEN)
+    for slot, c in enumerate(ctx):
+        padded = np.zeros((1, -(-(len(c) - 1) // PROMPT_BUCKET) * PROMPT_BUCKET), np.int64)
+        padded[0, : len(c) - 1] = c[:-1]
+        self_gen.draft_slot_prefill(dcache, padded, slot)
+    window = np.zeros((SLOTS, SPEC_K + 1), np.int64)
+    start = np.zeros((SLOTS,), np.int64)
+    for slot, c in enumerate(ctx):
+        start[slot] = len(c) - 1 - SPEC_K
+        window[slot] = c[start[slot]:]
+    n_draft = np.where(live, SPEC_K, 0)
+    synced["dense_self_draft"] = without_syncs(gen_mod, lambda: self_gen.spec_slot_step(
+        cache, state, live, self_gen.draft_slot_step(dcache, state, window, start), n_draft))[1]
+    del cache, state, dcache
+    pool, state, live, tables, _, ctx = paged_slots(generator, prompts, 5)
+    drafts, n_draft = lookup_drafts(engine_mod, ctx)
+    synced["paged_int8_lookup"] = without_syncs(
+        gen_mod, lambda: generator.spec_paged_step(pool, state, live, tables, drafts, n_draft))[1]
+    del pool, state
+    synced = {k: v.tolist() for k, v in synced.items()}
+    live_rows = len(prompts)
+    check(all(1 <= n <= SPEC_K + 1 for v in synced.values() for n in v[:live_rows])
+          and not any(n for v in synced.values() for n in v[live_rows:]),
+          f"a spec tick emitted {synced}: each live slot 1..K+1 tokens, a dead one none")
+    phase(16, f"spec ticks under set_sync_debug_mode('error') but for the tokens' transfer: "
+              f"tokens per slot {synced}")
+    out["sync_free_ticks"] = synced
+    del self_gen
+    gc_cuda()
+    lap("e")
+    return out
 
 
 def f32_step_phase(tf, fa, params_bf16, config, prompt_ids):
@@ -851,14 +1258,11 @@ def _device_events(prof):
     return out
 
 
-def profile_phase(generator, prompts, steps=5, phase_no=6):
-    """Decode steps at the main path's occupancy (the prompts prefilled into
-    slots 0..n-1 of a fresh int8 pool, the other slots dead), timed with a
-    synchronize around them and then profiled: device time by kernel name
-    and the device's busy share of the wall time."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
+def paged_slots(generator, prompts, steps):
+    """A fresh int8 pool of the main path's geometry with the prompts
+    prefilled into slots 0..n-1 (greedy), blocks for ``steps`` + 2 more
+    positions each: (pool, state, live, tables at the nb bucket, nb, each
+    slot's tokens so far)."""
     from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 
     L = KV_BLOCK_LEN
@@ -868,6 +1272,7 @@ def profile_phase(generator, prompts, steps=5, phase_no=6):
     table = np.zeros((SLOTS, table_blocks), np.int32)
     greedy = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False)
     nxt = 1
+    ctx = []
     for slot, p in enumerate(prompts):
         bucket = -(-len(p) // PROMPT_BUCKET) * PROMPT_BUCKET
         need = -(-(bucket + steps + 2) // L)
@@ -877,24 +1282,54 @@ def profile_phase(generator, prompts, steps=5, phase_no=6):
         padded[0, : len(p)] = p
         seen = np.zeros((1, generator.config.vocab_size), bool)
         seen[0, p] = True
-        generator.paged_prefill_final(pool, state, table[slot: slot + 1], padded, 0, len(p),
-                                      seen, slot, greedy, 0)
+        first = generator.paged_prefill_final(pool, state, table[slot: slot + 1], padded, 0,
+                                              len(p), seen, slot, greedy, 0)
+        ctx.append(list(p) + [first])
     live = np.arange(SLOTS) < len(prompts)
     in_use = max(-(-(len(p) + steps + 2) // L) for p in prompts)
     nb = 1 << (in_use - 1).bit_length()
     tables = np.ascontiguousarray(np.where(live[:, None], table, 0)[:, :nb])
+    return pool, state, live, tables, nb, ctx
+
+
+def profile_phase(generator, prompts, steps=5, phase_no=6):
+    """Decode steps at the main path's occupancy (the prompts prefilled into
+    slots 0..n-1 of a fresh int8 pool, the other slots dead), timed with a
+    synchronize around them and then profiled: device time by kernel name
+    and the device's busy share of the wall time."""
+    pool, state, live, tables, nb, _ = paged_slots(generator, prompts, steps)
+    result = {"steps": steps, "live_rows": len(prompts), "nb": nb,
+              **profile_ticks(lambda: generator.paged_step(pool, state, live, tables), steps)}
+    phase(phase_no, f"decode step at {len(prompts)} live rows, nb={nb}: {result['step_ms']:.2f} ms "
+             f"({result['profiled_step_ms']:.2f} ms profiled), device busy "
+             f"{100 * (result['device_busy_share'] or 0):.1f}%, "
+             f"{result['device_kernels_per_step']:.0f} device kernels per step, "
+             f"{result['device_ms_per_step']:.3f} ms of device time per step")
+    for row in result["top_kernels"]:
+        phase(phase_no, f"  {row['ms_per_step']:8.3f} ms/step  {row['calls_per_step']:6.1f} calls  {row['name']}")
+    if not result["device_kernels_per_step"]:
+        phase(phase_no, "the profiler recorded no device events")
+    return result
+
+
+def profile_ticks(tick, steps):
+    """``tick()`` twice to warm up, ``steps`` times timed with a
+    synchronize around them, then ``steps`` times under ``torch.profiler``:
+    device time by kernel name and the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
-        generator.paged_step(pool, state, live, tables)
+        tick()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(steps):
-        generator.paged_step(pool, state, live, tables)
+        tick()
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
-            generator.paged_step(pool, state, live, tables)
+            tick()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     events = _device_events(prof)
@@ -912,8 +1347,7 @@ def profile_phase(generator, prompts, steps=5, phase_no=6):
             busy += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    result = {
-        "steps": steps, "live_rows": len(prompts), "nb": nb,
+    return {
         "step_ms": step_ms,
         "profiled_step_ms": wall_us / 1e3 / steps,
         "device_busy_share": busy / wall_us if events else None,
@@ -924,16 +1358,6 @@ def profile_phase(generator, prompts, steps=5, phase_no=6):
             for name, (tot, n) in top
         ],
     }
-    phase(phase_no, f"decode step at {len(prompts)} live rows, nb={nb}: {step_ms:.2f} ms "
-             f"({result['profiled_step_ms']:.2f} ms profiled), device busy "
-             f"{100 * (result['device_busy_share'] or 0):.1f}%, "
-             f"{result['device_kernels_per_step']:.0f} device kernels per step, "
-             f"{result['device_ms_per_step']:.3f} ms of device time per step")
-    for row in result["top_kernels"]:
-        phase(phase_no, f"  {row['ms_per_step']:8.3f} ms/step  {row['calls_per_step']:6.1f} calls  {row['name']}")
-    if not events:
-        phase(phase_no, "the profiler recorded no device events")
-    return result
 
 
 def dense_phase(tf, gen_mod, engine_mod, params_bf16, config, tokenizer, prompt_ids):
@@ -1065,6 +1489,71 @@ def ask_phase(cli_mod, model_dir):
     check(out["int8"]["memory_allocated_bytes"] <= INT8_WEIGHT_BYTES_MAX,
           f"int8 weights take {out['int8']['memory_allocated_bytes']} bytes > "
           f"{INT8_WEIGHT_BYTES_MAX:.3g}")
+    return out
+
+
+def ask_spec_phase(cli_mod, tf, gen_mod, model_dir, recorded, plain_generator):
+    """Phase 16d: ``cli.ask_main`` on phase 8's ``best_model/`` with
+    ``--speculative 4`` (prompt lookup), then with ``--draft-dir`` the same
+    directory (a self-draft). ``recorded`` holds the (prompt, token ids) of
+    every ``Generator.generate_ids`` call, phase 14's bf16 ask first, whose
+    Generator is ``plain_generator``; each speculative answer's tokens are
+    held to it, and where they differ, to the solo run by phase 15's margin
+    rule."""
+    import contextlib
+    import io
+    import re
+
+    t_start = time.monotonic()
+    plain_prompt, plain_ids = recorded[0]
+    out = {}
+    for label, extra in (("lookup", []), ("draft_dir", ["--draft-dir", model_dir])):
+        n = len(recorded)
+        argv = ["--model-dir", model_dir, "--greedy", "--max-new-tokens", str(MAX_NEW_TOKENS),
+                "--speculative", str(SPEC_K)] + extra + [QUESTIONS[0]]
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_mod.ask_main(argv)
+        wall = time.monotonic() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            phase(16, f"  | {line}")
+        check(rc == 0, f"ask_main --speculative ({label}) returned {rc}")
+        ((prompt, ids),) = recorded[n:]
+        check(prompt == plain_prompt, "the speculative ask built another prompt")
+        rate = re.search(ASK_PATTERNS["rate"], text, re.M)
+        spec = re.search(r"^\[speculative\] (\d+) sequential forwards, draft acceptance (\d+)%",
+                         text, re.M)
+        check(rate is not None and spec is not None, f"ask --speculative ({label}): output lacks "
+                                                     "its [ask] or [speculative] line")
+        out[label] = {"tokens": int(rate.group(1)), "generate_s": float(rate.group(2)),
+                      "tokens_per_s": float(rate.group(3)), "wall_s": wall,
+                      "sequential_forwards": int(spec.group(1)),
+                      "acceptance_percent": int(spec.group(2)), "ids": ids}
+        gc_cuda()
+    solo = None
+    for label, r in out.items():
+        ids = r.pop("ids")
+        agree = next((t for t, (a, b) in enumerate(zip(ids, plain_ids)) if a != b), None)
+        if agree is None and len(ids) == len(plain_ids):
+            r["tokens_agreeing_with_plain"] = len(ids)
+        else:  # a difference: hold both to the solo run of the same weights
+            if solo is None:
+                solo = solo_decode(tf, gen_mod, plain_generator, plain_prompt, MAX_NEW_TOKENS)
+                margin_agreement(tf, plain_generator, "16d plain ask", plain_prompt, plain_ids,
+                                 solo)
+            r["tokens_agreeing_with_solo"], r["first_difference"] = margin_agreement(
+                tf, plain_generator, f"16d ask --speculative ({label})", plain_prompt, ids, solo)
+            r["tokens_agreeing_with_plain"] = agree if agree is not None else min(
+                len(ids), len(plain_ids))
+        phase(16, f"16d ask --speculative {SPEC_K} ({label}): {r['tokens']} tokens in "
+                  f"{r['generate_s']:.3f} s ({r['tokens_per_s']:.2f} tokens/s), wall to the answer "
+                  f"{r['wall_s']:.3f} s, {r['sequential_forwards']} sequential forwards, draft "
+                  f"acceptance {r['acceptance_percent']}%, tokens equal to the plain ask's "
+                  f"{r['tokens_agreeing_with_plain']} of {len(plain_ids)}")
+    out["seconds"] = time.monotonic() - t_start
+    phase(16, f"16d took {out['seconds']:.1f} s")
     return out
 
 
@@ -2224,6 +2713,8 @@ def main(argv=()) -> int:
              f"int8 KV pool {served['kv_pool_bytes'] / 1e9:.3f} GB")
 
     engines = engines_phase(tf, gen_mod, server_mod, fa, generator)
+    speculation = spec_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, engines, served,
+                             prompts)
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -2239,7 +2730,26 @@ def main(argv=()) -> int:
         microbatch = f32_microbatch_phase(trainer, fa, mm)
         del trainer  # free phase 8's state before asking and before the int8 trunk
         gc_cuda()
-        asked = ask_phase(cli_mod, os.path.join(workdir, "out", "best_model"))
+        best_model = os.path.join(workdir, "out", "best_model")
+        recorded = []  # (prompt, token ids) of every generate_ids in the asks
+        first = []  # the first ask's Generator, kept for 16d's solo run
+        generate_ids = gen_mod.Generator.generate_ids
+
+        def recording(self, prompt_ids, gen=None, seed=0):
+            ids = generate_ids(self, prompt_ids, gen, seed)
+            recorded.append((list(prompt_ids), list(ids)))
+            first[:] = first or [self]
+            return ids
+
+        gen_mod.Generator.generate_ids = recording
+        try:
+            asked = ask_phase(cli_mod, best_model)
+            speculation["ask"] = ask_spec_phase(cli_mod, tf, gen_mod, best_model, recorded,
+                                                first[0])
+        finally:
+            gen_mod.Generator.generate_ids = generate_ids
+            first.clear()
+        gc_cuda()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     served_i8, profiled_i8, profiled_bf16 = int8_weights_serve_phase(
@@ -2329,7 +2839,7 @@ def main(argv=()) -> int:
                "train_int8": trained_i8, "train_profile_int8": train_profile_i8,
                "f32_microbatch_int8": microbatch_i8, "dense_generation": dense, "ask": asked,
                "serve_int8_weights": served_i8, "decode_profile_int8_weights": profiled_i8,
-               "decode_profile_bf16_phase14": profiled_bf16,
+               "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)

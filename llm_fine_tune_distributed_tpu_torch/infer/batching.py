@@ -56,6 +56,14 @@ class Request:
     first_token_t: Optional[float] = None
     last_token_t: Optional[float] = None
     tokens_emitted: int = 0
+    # speculation, per request: its own drafts proposed and accepted, and
+    # their ratio (None unless it asked to speculate); ``spec_steps`` is the
+    # window engine's batch-wide count of sequential forwards (None on the
+    # continuous engines)
+    spec_acceptance: Optional[float] = None
+    spec_steps: Optional[int] = None
+    draft_tokens_proposed: int = 0
+    draft_tokens_accepted: int = 0
 
 
 def _pad_batch_size(n: int, max_batch: int) -> int:
@@ -214,10 +222,21 @@ class BatchingEngine:
             n_live = len(prompts)
             prompts += [prompts[0]] * (_pad_batch_size(n_live, self._max_batch) - n_live)
             try:
-                results = self._generator.generate_batch(prompts, first.gen, seed=first.seed,
-                                                         live_rows=n_live)
-                for p, r in zip(batch, results):
+                gen = self._generator
+                results = gen.generate_batch(prompts, first.gen, seed=first.seed,
+                                             live_rows=n_live)
+                # live request i rode row i (the pads come after): each gets
+                # its own row's draft counts
+                row_prop = getattr(gen, "last_row_draft_proposed", None)
+                row_acc = getattr(gen, "last_row_draft_accepted", None)
+                for i, (p, r) in enumerate(zip(batch, results)):
                     p.result = r
+                    p.spec_steps = getattr(gen, "last_spec_steps", None)
+                    if row_prop is not None:
+                        p.draft_tokens_proposed = int(row_prop[i])
+                        p.draft_tokens_accepted = int(row_acc[i])
+                        p.spec_acceptance = (p.draft_tokens_accepted / p.draft_tokens_proposed
+                                             if p.draft_tokens_proposed else 0.0)
             except Exception as e:  # worker boundary: fail this batch, keep serving
                 for p in batch:
                     p.error = e

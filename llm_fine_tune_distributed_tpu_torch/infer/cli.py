@@ -4,9 +4,12 @@ argparse surface and sampling defaults, plus ``--device``. It runs on the
 GPU (bf16) unless ``--device cpu`` is given (f32), and without a GPU it
 exits non-zero.
 
+``--speculative K`` decodes with K drafts per step (prompt lookup, or the
+draft model of ``--draft-dir``); with ``--serve`` it sets the slot engine's
+draft depth, and requests opt in with ``"speculative": K``.
+
 Every flag combination it refuses, and every flag whose feature is not
-ported (``--speculative``, ``--draft-dir``, ``--tp``, ``--quantize nf4``),
-stops it before any weight is loaded.
+ported (``--tp``, ``--quantize nf4``), stops it before any weight is loaded.
 """
 
 from __future__ import annotations
@@ -45,9 +48,13 @@ def run_ask_cli(
     parser.add_argument("--repetition-penalty", type=float, default=1.1)
     parser.add_argument("--greedy", action="store_true", help="disable sampling")
     parser.add_argument("--speculative", type=int, default=0, metavar="K",
-                        help="speculative decoding (not ported)")
+                        help="speculative decoding with K drafts per step (greedy verifies by "
+                             "exact match, sampled by rejection sampling, which keeps the "
+                             "output distribution); drafts come from prompt lookup, or from "
+                             "the draft model of --draft-dir")
     parser.add_argument("--draft-dir", default=None, metavar="DIR",
-                        help="draft model for --speculative (not ported)")
+                        help="model directory of a small draft model of the same vocabulary "
+                             "for --speculative")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quantize", choices=QUANTIZE_MODES, default="none",
                         help="weight-only quantization of the block linears: int8 halves "
@@ -66,9 +73,6 @@ def run_ask_cli(
     question = " ".join(args.question)
     if args.draft_dir and not args.speculative:
         parser.error("--draft-dir requires --speculative K")
-    if args.speculative:
-        parser.error(f"--speculative is not ported ({_JAX}.infer.generate.Generator._build_spec "
-                     "has it)")
     if args.tp != 1:
         parser.error(f"--tp {args.tp} is not ported ({_JAX}.infer.generate.make_tp_mesh has it)")
     if args.quantize == "nf4":
@@ -85,6 +89,12 @@ def run_ask_cli(
         if ignored:
             parser.error(f"{' '.join(ignored)} have no effect with --serve: sampling options "
                          "are per-request fields of POST /v1/generate")
+        from llm_fine_tune_distributed_tpu_torch.infer.server import check_engine
+
+        try:
+            check_engine(args.engine, "none", args.speculative, args.draft_dir)
+        except ValueError as e:
+            parser.error(str(e))
     elif not question:
         parser.error("a question is required (or pass --serve)")
     elif args.engine != parser.get_default("engine"):
@@ -104,7 +114,8 @@ def run_ask_cli(
         from llm_fine_tune_distributed_tpu_torch.infer.server import serve
 
         serve(args.model_dir, device=device, host=args.host, port=args.port,
-              quantize=args.quantize, engine=args.engine, template_kwargs=template_kwargs)
+              quantize=args.quantize, engine=args.engine, template_kwargs=template_kwargs,
+              speculative_k=args.speculative, draft_dir=args.draft_dir)
         return 0
 
     from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
@@ -123,8 +134,13 @@ def run_ask_cli(
     before = torch.cuda.memory_allocated(device) if on_card else 0
     params, model_config = load_model_dir(args.model_dir, device=device, dtype=compute_dtype)
     params = maybe_quantize(params, args.quantize)
+    draft = {}
+    if args.draft_dir:
+        draft_params, draft_config = load_model_dir(args.draft_dir, device=device,
+                                                    dtype=compute_dtype)
+        draft = {"draft_params": draft_params, "draft_config": draft_config}
     generator = Generator(params, model_config, load_tokenizer_dir(args.model_dir),
-                          compute_dtype=compute_dtype, device=device)
+                          compute_dtype=compute_dtype, device=device, **draft)
     if on_card:
         torch.cuda.synchronize(device)
     weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
@@ -132,11 +148,13 @@ def run_ask_cli(
                  if on_card else "")
     print(f"Loaded in {time.monotonic() - t0:.3f} s: {weight_bytes} bytes of weights on "
           f"{device} ({compute_dtype}, quantize {args.quantize}{allocated})")
+    if args.draft_dir:
+        print(f"Draft model for speculation: {args.draft_dir}")
 
     gen = GenerationConfig(
         max_new_tokens=args.max_new_tokens, do_sample=not args.greedy,
         temperature=args.temperature, top_p=args.top_p, top_k=args.top_k,
-        repetition_penalty=args.repetition_penalty,
+        repetition_penalty=args.repetition_penalty, speculative_lookup=args.speculative,
     )
     messages = [
         {"role": "system", "content": WILDERNESS_EXPERT_SYSTEM_PROMPT},
@@ -150,4 +168,7 @@ def run_ask_cli(
     seconds = time.monotonic() - t0
     print(f"Answer: {answer}")
     print(f"[ask] {len(ids)} tokens in {seconds:.3f} s ({len(ids) / seconds:.2f} tokens/s)")
+    if args.speculative and generator.last_acceptance_rate is not None:
+        print(f"[speculative] {generator.last_spec_steps} sequential forwards, "
+              f"draft acceptance {100 * generator.last_acceptance_rate:.0f}%")
     return 0

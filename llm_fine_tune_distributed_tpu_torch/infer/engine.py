@@ -28,9 +28,18 @@ latency histograms go to one ``ServingStats`` (``stats_snapshot``). Greedy
 tokens equal a solo ``Generator.generate_ids`` of the same prompt, and
 sampled ones depend only on (request, seed).
 
-Not ported from the JAX engines: speculation, the host KV tier, preemption
-and priorities, deadlines, supervision and restarts, hot-swap, adapters,
-fleets and overload control.
+With ``speculative_k = K > 0`` every tick is the fused draft-verify step
+(``Generator.spec_slot_step`` / ``spec_paged_step``): each live slot whose
+request asks for speculation proposes up to K drafts (prompt lookup over
+its own context, ``_prompt_lookup``, or the Generator's draft model), one
+forward verifies all slots' K+1 positions, and each slot emits its accepted
+run plus one token of the model's own. Slots without drafts take the plain
+step inside the same tick. Per-request draft counts and the engine's
+``draft_tokens_proposed`` / ``draft_tokens_accepted`` record it.
+
+Not ported from the JAX engines: the host KV tier, preemption and
+priorities, deadlines, brownout, supervision and restarts, hot-swap,
+adapters, fleets and overload control.
 """
 
 from __future__ import annotations
@@ -52,6 +61,26 @@ from llm_fine_tune_distributed_tpu_torch.observe.metrics import ServingStats
 log = logging.getLogger(__name__)
 
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine", "Request"]
+
+
+def _prompt_lookup(ctx: np.ndarray, k: int) -> np.ndarray:
+    """Prompt-lookup draft proposal on the host: the continuation of an
+    earlier occurrence of the context's trailing bigram. Among the matches
+    it takes the most recent one whose continuation holds a full ``k``
+    tokens (a loop shorter than ``k`` gives the same continuation at full
+    length one period earlier), else the latest match, truncated; an empty
+    array when no bigram repeats. Any draft is safe: verification
+    re-derives every token."""
+    n = ctx.size
+    if n < 3:
+        return ctx[:0]
+    l0, l1 = ctx[-2], ctx[-1]
+    starts = np.flatnonzero((ctx[:-2] == l0) & (ctx[1:-1] == l1))
+    if starts.size == 0:
+        return ctx[:0]
+    full = starts[starts + 2 + k <= n]
+    j = int(full[-1]) if full.size else int(starts[-1])
+    return ctx[j + 2: j + 2 + k]
 
 
 class _TokenStream:
@@ -91,8 +120,13 @@ class ContinuousBatchingEngine:
     """``slots``-row persistent decode over a dense KV cache, FIFO admission."""
 
     def __init__(self, generator, slots: int = 8, buf_len: int = 4096, prompt_bucket: int = 64,
-                 stats: Optional[ServingStats] = None):
+                 stats: Optional[ServingStats] = None, speculative_k: int = 0):
         self._generator = generator
+        # speculation: the engine's draft depth K; with K > 0 every tick is
+        # the fused draft-verify step, so a sampled slot's draws per tick do
+        # not depend on who speculates beside it
+        self._spec_k = max(0, int(speculative_k))
+        self._use_draft = self._spec_k > 0 and bool(getattr(generator, "has_draft", False))
         self._slots = max(1, int(slots))
         self._buf_len = int(buf_len)
         self._bucket = max(1, int(prompt_bucket))
@@ -108,6 +142,9 @@ class ContinuousBatchingEngine:
         self._now = time.monotonic()  # the tick clock every emit of a tick reuses
         self._error: Optional[BaseException] = None
         self._cache, self._state = self._init_state()
+        # the draft model's dense per-slot cache (worker thread only)
+        self._dcache = (generator.init_draft_slot_cache(self._slots, self._buf_len)
+                        if self._use_draft else None)
         self._worker = threading.Thread(target=self._run, name=type(self).__name__, daemon=True)
         self._worker.start()
 
@@ -174,11 +211,6 @@ class ContinuousBatchingEngine:
 
     def _make_request(self, prompt_ids, gen: GenerationConfig, seed: int,
                       tokens_q: Optional["queue.Queue"] = None) -> Request:
-        if gen.speculative_lookup:
-            raise NotImplementedError(
-                "speculative decoding is not ported "
-                "(llm_fine_tune_distributed_tpu.infer.engine has it)"
-            )
         if self._error is not None or not self._worker.is_alive():
             raise RuntimeError(f"engine stopped: {self._error!r}")
         req = Request([int(t) for t in prompt_ids], gen, int(seed), tokens_q=tokens_q)
@@ -247,7 +279,10 @@ class ContinuousBatchingEngine:
         """One scheduler tick's device work; False when there was none."""
         if not self._live.any():
             return False
-        self._decode_once()
+        if self._spec_k:
+            self._decode_once_spec()
+        else:
+            self._decode_once()
         return True
 
     def _drain_queue(self, block: bool) -> bool:
@@ -316,6 +351,9 @@ class ContinuousBatchingEngine:
                                              req.gen, req.seed)
         self._now = time.monotonic()  # slot_prefill read its token: synced
         self.stats.observe("prefill_chunk_s", self._now - t0)
+        if self._use_draft and req.gen.speculative_lookup > 0:
+            # the draft's row sees the prompt before the slot's first tick
+            self._generator.draft_slot_prefill(self._dcache, padded, slot)
         self._slot_req[slot] = req
         self._slot_tokens[slot] = []
         self._slot_budget[slot] = plan["budget"]
@@ -335,6 +373,87 @@ class ContinuousBatchingEngine:
         toks = self._generator.slot_step(self._cache, self._state, self._live.copy())
         self._tick_done(t0)  # slot_step returns tokens on the host: synced
         self._emit_tokens(toks)
+
+    # ------------------------------------------------------------ speculative
+
+    def _slot_ctx(self, slot: int) -> np.ndarray:
+        """The slot's tokens, prompt and generated; its length - 1 is the
+        slot's position on the device."""
+        return np.asarray(self._slot_req[slot].prompt + self._slot_tokens[slot], np.int64)
+
+    def _spec_want(self, slot: int) -> int:
+        """The drafts this slot asks for this tick: its request's K capped by
+        the engine's; 0 for dead slots and requests that do not speculate."""
+        req = self._slot_req[slot]
+        if req is None or not self._live[slot]:
+            return 0
+        return min(int(req.gen.speculative_lookup), self._spec_k)
+
+    def _propose_drafts(self):
+        """One tick's drafts: ``(drafts [S, K], n_draft [S])``, by prompt
+        lookup on the host, or by the draft model (drafts then stay on the
+        device). A row's drafts past ``n_draft`` are ignored by verify."""
+        k = self._spec_k
+        drafts = np.zeros((self._slots, k), np.int64)
+        n_draft = np.zeros((self._slots,), np.int64)
+        if not self._use_draft:
+            for slot in range(self._slots):
+                want = self._spec_want(slot)
+                if want > 0:
+                    found = _prompt_lookup(self._slot_ctx(slot), want)
+                    drafts[slot, : found.size] = found
+                    n_draft[slot] = found.size
+            return drafts, n_draft
+        window = np.zeros((self._slots, k + 1), np.int64)
+        start = np.zeros((self._slots,), np.int64)
+        for slot in range(self._slots):
+            want = self._spec_want(slot)
+            if want > 0:
+                ctx = self._slot_ctx(slot)
+                s0 = max(ctx.size - 1 - k, 0)
+                win = ctx[s0: s0 + k + 1]
+                window[slot, : win.size] = win
+                start[slot] = s0
+                n_draft[slot] = want
+        if n_draft.any():
+            return self._generator.draft_slot_step(self._dcache, self._state, window, start), n_draft
+        return drafts, n_draft
+
+    def _decode_once_spec(self) -> None:
+        """One fused speculative tick: draft, then one verify forward over
+        every slot's K+1 positions."""
+        t0 = time.monotonic()
+        drafts, n_draft = self._propose_drafts()
+        toks, n_emit = self._generator.spec_slot_step(self._cache, self._state, self._live.copy(),
+                                                      drafts, n_draft)
+        self._tick_done(t0)  # the step read its tokens back: synced
+        self._emit_spec(toks, n_emit, n_draft)
+
+    def _emit_spec(self, toks: np.ndarray, n_emit: np.ndarray, n_draft: np.ndarray) -> None:
+        """Emit each live slot's verified run in order, shared by both
+        engines. A live slot always emits one token of the model's own (the
+        replacement of a rejected draft, or the bonus), so its accepted
+        drafts this tick are ``n_emit - 1``."""
+        for slot in range(self._slots):
+            req = self._slot_req[slot]
+            if req is None or not self._live[slot]:
+                continue
+            if req.abandoned:
+                self._settle_abandoned(req)
+                self._release(slot)
+                continue
+            proposed, m = int(n_draft[slot]), int(n_emit[slot])
+            if proposed:
+                accepted = max(m - 1, 0)
+                req.draft_tokens_proposed += proposed
+                req.draft_tokens_accepted += accepted
+                self.stats.incr("draft_tokens_proposed", proposed)
+                self.stats.incr("draft_tokens_accepted", accepted)
+                self.stats.observe("spec_run_len", accepted)
+            for j in range(m):
+                self._emit_token(slot, req, int(toks[slot, j]))
+                if self._slot_req[slot] is not req:
+                    break  # EOS or the budget finished the request mid-run
 
     def _emit_tokens(self, toks: np.ndarray) -> None:
         """Hand each live slot its token of this tick; shed the slots whose
@@ -374,6 +493,10 @@ class ContinuousBatchingEngine:
 
     def _finish(self, slot: int, req: Request) -> None:
         req.result = list(self._slot_tokens[slot])
+        if req.draft_tokens_proposed:
+            req.spec_acceptance = req.draft_tokens_accepted / req.draft_tokens_proposed
+        elif self._spec_k > 0 and req.gen.speculative_lookup > 0:
+            req.spec_acceptance = 0.0  # asked to speculate, nothing was drafted
         if req.tokens_q is not None:
             req.tokens_q.put(None)
         self.stats.incr("requests_completed")
@@ -419,6 +542,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         num_blocks: Optional[int] = None,
         kv_quant: str = "none",
         stats: Optional[ServingStats] = None,
+        speculative_k: int = 0,
     ):
         slots = max(1, int(slots))
         self._block_len = max(1, int(block_len))
@@ -441,7 +565,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix_hits = 0  # admissions that mapped >= 1 cached block
         # the base starts the worker last: every paged field exists by then
         super().__init__(generator, slots=slots, buf_len=buf_len, prompt_bucket=prompt_bucket,
-                         stats=stats or ServingStats(slots, total_blocks=self._num_blocks - 1))
+                         stats=stats or ServingStats(slots, total_blocks=self._num_blocks - 1),
+                         speculative_k=speculative_k)
 
     def _init_state(self):
         return self._generator.init_paged_state(self._slots, self._num_blocks, self._block_len,
@@ -502,7 +627,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         shared = self._prefix.match(keys, (plen - 1) // L)
         shared_len = len(shared) * L
         _, _, _, write_end = self._chunk_plan(plen, shared_len)
-        total = -(-max(budget_end, write_end) // L)
+        # speculation's headroom: a verify tick at the last in-budget
+        # position writes drafts and the bonus up to budget_end + K - 1, so
+        # reserve K + 1 positions past the budget (all or nothing here, so a
+        # live slot's verify never clips into a block that is not its own)
+        spec_pad = self._spec_k + 1 if self._spec_k else 0
+        total = -(-max(budget_end + spec_pad, write_end) // L)
         usable = self._allocator.num_blocks - 1
         if total > usable:
             for bid in shared:
@@ -590,6 +720,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.stats.incr("prefill_chunks")
         self.stats.incr("prefill_tokens", remaining)
         self.stats.observe("prefill_chunk_s", self._now - t0)
+        if self._use_draft and req.gen.speculative_lookup > 0:
+            # the draft keeps a dense row even here: mirror the whole prompt
+            dbucket = min(-(-task.plen // self._bucket) * self._bucket, self._buf_len)
+            dpad = np.zeros((1, dbucket), np.int64)
+            dpad[0, : task.plen] = req.prompt
+            gen.draft_slot_prefill(self._dcache, dpad, task.slot)
         # register the prompt's FULL blocks for reuse before emitting (the
         # first token may already finish the request and free the slot)
         full = task.plen // self._block_len
@@ -597,14 +733,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._live[task.slot] = True
         self._emit_token(task.slot, req, first, from_decode=False)
 
-    def _decode_bucket(self) -> int:
-        """Power-of-two block count covering every live slot's blocks in use."""
+    def _decode_bucket(self, lookahead: int = 0) -> int:
+        """Power-of-two block count covering every live slot's blocks in use,
+        up to ``lookahead`` positions past its position (a spec tick writes
+        and reads pos..pos+K)."""
         L = self._block_len
         in_use = 1
         for slot in range(self._slots):
             if self._live[slot]:
                 pos = self._slot_plen[slot] + len(self._slot_tokens[slot]) - 1
-                in_use = max(in_use, pos // L + 1)
+                in_use = max(in_use, (pos + lookahead) // L + 1)
         nb = 1
         while nb < in_use:
             nb *= 2
@@ -616,12 +754,27 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return np.ascontiguousarray(np.where(self._live[:, None], self._table, NULL_BLOCK)[:, :nb])
 
     def _decode_tick(self) -> None:
+        if self._spec_k:
+            self._decode_tick_spec()
+            return
         tables = self._decode_tables(self._decode_bucket())
         t0 = time.monotonic()
         toks = self._generator.paged_step(self._cache, self._state, self._live.copy(), tables)
         self._tick_done(t0)  # paged_step returns tokens on the host: synced
         self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)
         self._emit_tokens(toks)
+
+    def _decode_tick_spec(self) -> None:
+        """The fused draft-verify tick through the block tables, whose view
+        covers K positions past each live slot's position."""
+        tables = self._decode_tables(self._decode_bucket(self._spec_k))
+        t0 = time.monotonic()
+        drafts, n_draft = self._propose_drafts()
+        toks, n_emit = self._generator.spec_paged_step(self._cache, self._state, self._live.copy(),
+                                                       tables, drafts, n_draft)
+        self._tick_done(t0)  # the step read its tokens back: synced
+        self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)
+        self._emit_spec(toks, n_emit, n_draft)
 
     def _release(self, slot: int) -> None:
         for bid in self._slot_blocks[slot]:

@@ -64,7 +64,7 @@ def xla_attention(
         scale = 1.0 / math.sqrt(head_dim)
     qg = q.reshape(b, q_len, num_kv, groups, head_dim).float()
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=q.device)
+    neg = torch.full((), _NEG_INF, dtype=torch.float32, device=q.device)  # no host copy
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores, neg)
     elif causal:

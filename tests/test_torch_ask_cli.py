@@ -87,6 +87,46 @@ def test_answer_line_equals_jax_cli(model_dir, quantize, monkeypatch, capsys):
     assert _answer_line(got) == _answer_line(want) != "Answer: "
 
 
+@pytest.mark.parametrize("draft", [False, True], ids=["lookup", "draft_dir"])
+def test_speculative_answer_equals_the_plain_one_and_jax(model_dir, draft, monkeypatch, capsys):
+    """``--speculative 4``, drafting by prompt lookup or with the model
+    directory itself as ``--draft-dir``: the greedy answer is the plain one,
+    and the ``Answer:`` and ``[speculative]`` lines equal the JAX CLI's."""
+    base = ["--model-dir", str(model_dir)]
+    assert run_ask_cli(base + ASK, **CLI_KW) == 0
+    plain = _answer_line(capsys.readouterr().out)
+    spec = ["--speculative", "4"] + (["--draft-dir", str(model_dir)] if draft else [])
+    assert run_ask_cli(base + spec + ASK, **CLI_KW) == 0
+    got = capsys.readouterr().out
+    assert _answer_line(got) == plain != "Answer: "
+    assert ("Draft model for speculation: " + str(model_dir) in got) == draft
+    monkeypatch.setattr(jax_infer, "Generator",
+                        functools.partial(jax_infer.Generator, compute_dtype=jnp.float32))
+    jax_argv = [a for a in base + spec + ASK if a not in ("--device", "cpu")]
+    assert jax_run_ask_cli(jax_argv, **CLI_KW) == 0
+    want = capsys.readouterr().out
+
+    def spec_line(out):
+        (line,) = [x for x in out.splitlines() if x.startswith("[speculative] ")]
+        return line
+
+    assert _answer_line(got) == _answer_line(want)
+    assert spec_line(got) == spec_line(want)
+    if draft:
+        assert spec_line(got).endswith("draft acceptance 100%")
+
+
+def test_serve_flag_hands_speculation_to_the_server(model_dir, monkeypatch):
+    calls = []
+    monkeypatch.setattr(server, "serve", lambda *a, **kw: calls.append(kw))
+    argv = ["--model-dir", str(model_dir), "--device", "cpu", "--serve", "--speculative", "3",
+            "--draft-dir", str(model_dir), "--engine", "paged"]
+    assert run_ask_cli(argv, **CLI_KW) == 0
+    (kw,) = calls
+    assert kw["speculative_k"] == 3 and kw["draft_dir"] == str(model_dir)
+    assert kw["engine"] == "paged"
+
+
 @pytest.fixture
 def no_load(monkeypatch):
     """Loading weights fails the test: every refusal must come first."""
@@ -99,8 +139,10 @@ def no_load(monkeypatch):
 
 @pytest.mark.parametrize("args,message", [
     (["--draft-dir", "d", QUESTION], "--draft-dir requires --speculative"),
-    (["--speculative", "2", QUESTION], "Generator._build_spec"),
-    (["--speculative", "2", "--draft-dir", "d", QUESTION], "Generator._build_spec"),
+    (["--serve", "--speculative", "2", "--engine", "window"],
+     "--speculative K applies to the continuous/paged engines"),
+    (["--serve", "--speculative", "2", "--draft-dir", "d", "--engine", "window"],
+     "--speculative K applies to the continuous/paged engines"),
     (["--tp", "2", QUESTION], "make_tp_mesh"),
     (["--quantize", "nf4", QUESTION], "quantize_params_nf4"),
     (["--serve", QUESTION], "--serve takes no question"),

@@ -10,6 +10,7 @@ would agree whatever their caches did. Tolerances: logits 1e-4 absolute
 (f32, sums in another order); tokens identical.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -236,15 +237,21 @@ def test_sampled_runs_are_reproducible_in_the_seed(generators):
 
 
 def test_speculation_and_draft_models_are_refused(models, generators):
-    _, gen = generators
+    """``generate_stream`` ignores ``speculative_lookup`` and streams the
+    plain greedy tokens, as the JAX stream does; a draft model of another
+    vocabulary is refused with the JAX message."""
+    jgen, gen = generators
     _, _, params, mc = models
-    with pytest.raises(NotImplementedError, match="_build_spec"):
-        gen.generate_ids(_enc("hi"), GenerationConfig(speculative_lookup=2))
-    with pytest.raises(NotImplementedError, match="_build_spec"):
-        next(gen.generate_stream(_enc("hi"), GenerationConfig(speculative_lookup=2)))
-    with pytest.raises(NotImplementedError, match="_build_spec"):
+    prompt = _enc(PROMPTS[0])
+    streamed = [t for p in gen.generate_stream(
+        prompt, GenerationConfig(**GREEDY, speculative_lookup=2), chunk=3) for t in p]
+    want = [t for p in jgen.generate_stream(
+        prompt, JaxGenerationConfig(**GREEDY, speculative_lookup=2), chunk=3) for t in p]
+    assert streamed == want == gen.generate_ids(prompt, GenerationConfig(**GREEDY))
+    other = dataclasses.replace(mc, vocab_size=mc.vocab_size + 1)
+    with pytest.raises(ValueError, match="speculation verifies token ids"):
         Generator(params, mc, ByteChatMLTokenizer(), device="cpu", draft_params=params,
-                  draft_config=mc)
+                  draft_config=other)
 
 
 def test_chat_through_a_saved_model_dir_equals_jax(models, tmp_path):

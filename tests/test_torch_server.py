@@ -259,7 +259,7 @@ def test_stats_and_metrics_count_the_requests_served(served):
 def test_bad_requests_are_400(port_generator, engine):
     with _Server(port_generator, **_engine_kw(engine)) as srv:
         for route in ("/v1/generate", "/v1/stream"):
-            for body in (b"[1, 2]", b'{"no_question": 1}', b'{"question": "q", "speculative": 2}',
+            for body in (b"[1, 2]", b'{"no_question": 1}', b'{"question": "q", "adapter": "a"}',
                          b'{"question": "q", "stream_chunk": 0}'):
                 with pytest.raises(urllib.error.HTTPError) as err:
                     _get(srv.base + route, body)
@@ -267,6 +267,134 @@ def test_bad_requests_are_400(port_generator, engine):
         with pytest.raises(urllib.error.HTTPError) as err:
             _get(srv.base + "/nope")
         assert err.value.code == 404
+
+
+def _jax_spec_counts(params, mc, engine, k):
+    """The JAX engine's record of QUESTION with ``speculative_lookup`` k:
+    (answer, acceptance, proposed, accepted); the slot engines run with
+    ``speculative_k`` k."""
+    gen = Generator(params, mc, ByteChatMLTokenizer(), compute_dtype=jnp.float32)
+    if engine == "window":
+        eng = BatchingEngine(gen, max_batch=4, window_ms=10.0)
+    elif engine == "continuous":
+        eng = ContinuousBatchingEngine(gen, slots=ENGINE["slots"], buf_len=ENGINE["buf_len"],
+                                       prompt_bucket=64, speculative_k=k)
+    else:
+        eng = PagedContinuousBatchingEngine(gen, prompt_bucket=64, kv_quant="int8",
+                                            speculative_k=k, **ENGINE)
+    ids = gen.encode_chat([{"role": "system", "content": QUESTION["system_prompt"]},
+                           {"role": "user", "content": QUESTION["question"]}])
+    req = eng.submit_full(ids, GenerationConfig(max_new_tokens=8, do_sample=False,
+                                                speculative_lookup=k), timeout=240)
+    return (gen.decode_reply(req.result), round(req.spec_acceptance, 3),
+            req.draft_tokens_proposed, req.draft_tokens_accepted)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_speculative_generate_returns_the_jax_block(model_dir, port_generator, engine):
+    """``"speculative": 4`` on ``/v1/generate``: the slot engines started
+    with ``speculative_k=4``, the window engine through ``generate_batch``.
+    The answer is the plain greedy one, and the ``"speculative"`` block
+    holds the request's own counts, equal to the JAX engine's (the window
+    engine's also its batch's sequential forwards)."""
+    _, params, mc = model_dir
+    k = 4
+    kw = _engine_kw(engine)
+    if engine != "window":
+        kw["speculative_k"] = k
+    with _Server(port_generator, **kw) as srv:
+        _, plain = _get(srv.base + "/v1/generate", json.dumps(QUESTION).encode())
+        status, body = _get(srv.base + "/v1/generate",
+                            json.dumps({**QUESTION, "speculative": k}).encode())
+    assert status == 200
+    body, plain = json.loads(body), json.loads(plain)
+    answer, rate, proposed, accepted = _jax_spec_counts(params, mc, engine, k)
+    assert body["answer"] == plain["answer"] == answer and "speculative" not in plain
+    block = {"acceptance_rate": rate, "draft_tokens_proposed": proposed,
+             "draft_tokens_accepted": accepted}
+    if engine == "window":
+        assert body["speculative"].pop("sequential_forwards") >= 2
+        assert proposed > 0
+    assert body["speculative"] == block
+
+
+def test_slot_engine_without_speculation_hands_speculative_requests_to_the_window(
+        port_generator):
+    """A continuous engine started without ``speculative_k``: a
+    ``"speculative"`` request runs ``generate_batch``'s speculative path on
+    the window engine the server keeps beside it (its block has the
+    sequential forwards); the slot engine never sees it."""
+    with _Server(port_generator, **_engine_kw("continuous")) as srv:
+        status, body = _get(srv.base + "/v1/generate",
+                            json.dumps({**QUESTION, "speculative": 3}).encode())
+        served = srv.engine.stats_snapshot()["requests_completed"]
+        window = srv.httpd.window_engine
+    assert status == 200 and served == 0
+    block = json.loads(body)["speculative"]
+    assert block["draft_tokens_proposed"] > 0 and block["sequential_forwards"] >= 2
+    assert not window._worker.is_alive()  # server_close stopped it
+
+
+@pytest.mark.parametrize("engine", ["continuous", "paged"])
+def test_speculative_stream_rides_the_spec_tick(port_generator, engine):
+    """``/v1/stream`` with ``"speculative"`` on a slot engine started with
+    ``speculative_k``: the deltas add up to the ``/v1/generate`` answer of
+    a fresh server, and the engine counts the drafts."""
+    kw = {**_engine_kw(engine), "speculative_k": 4}
+    body = {**QUESTION, "speculative": 4}
+    with _Server(port_generator, **kw) as srv:
+        _, answer = _get(srv.base + "/v1/generate", json.dumps(body).encode())
+    with _Server(port_generator, **kw) as srv:
+        status, events = _stream(srv.base, body)
+        snap = srv.engine.stats_snapshot()
+    assert status == 200
+    *deltas, done = [payload for _, payload in events]
+    assert done == {"done": True, "n_tokens": QUESTION["max_new_tokens"]}
+    assert "".join(d["delta"] for d in deltas).strip() == json.loads(answer)["answer"]
+    assert snap["decode_steps"] >= 1 and snap["requests_completed"] == 1
+
+
+@pytest.mark.parametrize("engine,message", [
+    ("window", "needs a continuous/paged engine started with --speculative K"),
+    ("continuous", "needs the server started with --speculative K"),
+    ("paged", "needs the server started with --speculative K"),
+])
+def test_speculative_stream_without_a_spec_engine_is_400(port_generator, engine, message):
+    with _Server(port_generator, **_engine_kw(engine)) as srv:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get(srv.base + "/v1/stream", json.dumps({**QUESTION, "speculative": 2}).encode())
+        assert err.value.code == 400
+        assert message in json.loads(err.value.read())["error"]
+        # "speculative": 0 is the documented off value and streams plainly
+        status, _ = _stream(srv.base, {**QUESTION, "speculative": 0})
+        assert status == 200
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--draft-dir", "d"], "--draft-dir requires --speculative K"),
+    (["--speculative", "2", "--engine", "window"],
+     "--speculative K applies to the continuous/paged engines"),
+], ids=["draft_without_speculative", "speculative_on_window"])
+def test_speculation_refusals_come_before_loading(model_dir, no_load, capsys, args, message):
+    path, _, _ = model_dir
+    with pytest.raises(SystemExit) as exc:
+        server.main(["--model-dir", str(path), "--device", "cpu"] + args)
+    assert exc.value.code == 2 and message in capsys.readouterr().err
+    kw = dict(speculative_k=2 if "--speculative" in args else 0,
+              draft_dir="d" if "--draft-dir" in args else None,
+              engine="window" if "window" in args else "continuous")
+    with pytest.raises(ValueError, match=message.split(" (")[0].replace("|", r"\|")):
+        server.serve(str(path), device="cpu", **kw)
+
+
+def test_speculative_flags_reach_serve(model_dir, monkeypatch):
+    path, _, _ = model_dir
+    calls = []
+    monkeypatch.setattr(server, "serve", lambda *a, **kw: calls.append(kw))
+    assert server.main(["--model-dir", str(path), "--device", "cpu", "--speculative", "4",
+                        "--draft-dir", str(path)]) == 0
+    (kw,) = calls
+    assert kw["speculative_k"] == 4 and kw["draft_dir"] == str(path)
 
 
 def test_client_that_disconnects_mid_stream_abandons_its_request(port_generator):
