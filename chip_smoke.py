@@ -90,7 +90,30 @@ and stops with a non-zero exit at the first failure:
    but for the one transfer of their tokens; (d) (beside phase 14) the ask
    CLI with ``--speculative 4``, then with ``--draft-dir`` phase 8's
    ``best_model/``: the answer's tokens equal the plain ask's, or the solo
-   run's by the margin rule.
+   run's by the margin rule;
+17. (right after 16d) the golden eval: ``run_golden_eval`` over the
+   reference's five questions (greedy, 32 new tokens) on the random base
+   phase 8 started from (its seed, made in memory) and on phase 14's bf16
+   generator of phase 8's ``best_model/``, ``compare_golden``, every tuned
+   answer against ``Generator.chat`` token for token, then
+   ``python -m ...eval_golden`` once in tuned-only mode (its report parses
+   and holds five answers);
+18. (right after phase 16, on phase 4's generator) overload control through
+   HTTP, the decode steps held at a gate (a wrapper of the generator) so the
+   arrivals are scripted without sleeps: (a) paged int8, a depth-1 queue and
+   both slots busy: a burst gets 429s with a whole Retry-After and the
+   taxonomy's body; (b) continuous: ``deadline_ms`` expiring in the queue
+   (504, no tokens) and mid-decode (504, the tokens so far held to the solo
+   run by phase 15's margin rule); (c) an interactive arrival preempts a
+   best_effort victim on continuous and on paged int8 (a pool that holds
+   only the two: the arrival finds no free block), the victim's final tokens
+   held to its solo run, the paged resume reusing its banked blocks and the
+   paged decode launches 36 x decode steps across preemption and resume;
+   (d) brownout on ``continuous --speculative 4``: the stages the pressure
+   passes through, no drafts asked from stage 1, best_effort shed at stage
+   3; (e) one injected tick failure: ``/healthz`` answers 503 with
+   ``circuit_state`` and the terminal error, the request in flight a 500
+   with its body.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -454,16 +477,16 @@ class _Serving:
         self.results = []
         submit_full = self.engine.submit_full
 
-        def recording_submit_full(prompt_ids, gen, seed=0, timeout=None):
-            req = submit_full(prompt_ids, gen, seed=seed, timeout=timeout)
+        def recording_submit_full(prompt_ids, gen, seed=0, timeout=None, **kw):
+            req = submit_full(prompt_ids, gen, seed=seed, timeout=timeout, **kw)
             self.results.append((list(prompt_ids), list(req.result)))
             return req
 
         self.engine.submit_full = recording_submit_full
         stream = getattr(self.engine, "stream", None)  # the slot engines
 
-        def recording_stream(prompt_ids, gen, seed=0, timeout=None):
-            tokens, ids = stream(prompt_ids, gen, seed=seed, timeout=timeout), []
+        def recording_stream(prompt_ids, gen, seed=0, timeout=None, **kw):
+            tokens, ids = stream(prompt_ids, gen, seed=seed, timeout=timeout, **kw), []
             self.results.append((list(prompt_ids), ids))
 
             def each():
@@ -1596,6 +1619,568 @@ def int8_weights_serve_phase(tf, gen_mod, server_mod, fa, config, tokenizer, pro
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the golden eval; phase 18: overload control through HTTP
+# ---------------------------------------------------------------------------
+
+GOLDEN_MAX_NEW = 32
+OVERLOAD_SYSTEM_PROMPT = "Be brief."  # phase 18's short prompts: one KV block each
+OVERLOAD_SLOTS = 2
+
+
+def golden_phase(tf, gen_mod, tuned, best_model, config, tokenizer, recorded):
+    """Phase 17: ``run_golden_eval`` over the reference's five questions
+    (greedy, 32 new tokens) on the random base that phase 8 started from
+    (the trainer's seed, made in memory; asked with ``enable_thinking=False``
+    as the reference asks the original model) and on phase 8's
+    ``best_model/`` (phase 14's bf16 generator), then ``compare_golden``;
+    every tuned answer against ``Generator.chat`` on the same question,
+    token for token (``recorded`` holds the (prompt, token ids) of every
+    ``generate_ids`` call, phase 14's recording); then the CLI once in
+    tuned-only mode."""
+    import os
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch import eval_golden
+    from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.infer.golden import (
+        GOLDEN_QUESTIONS,
+        compare_golden,
+        run_golden_eval,
+    )
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+
+    out = {"seconds": {}}
+    t0 = time.monotonic()
+    params = tf.init_params(config, seed=TrainConfig().seed, device=DEVICE, dtype=torch.float32)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    base = gen_mod.Generator(params, config, tokenizer, compute_dtype=torch.bfloat16,
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    out["seconds"]["base_init"] = time.monotonic() - t0
+    answers = {}
+    for name, gen, kw in (("original", base, {"template_kwargs": {"enable_thinking": False}}),
+                          ("tuned", tuned, {})):
+        t0 = time.monotonic()
+        first_call = len(recorded)
+        answers[name] = run_golden_eval(gen, max_new_tokens=GOLDEN_MAX_NEW, **kw)
+        golden_ids = recorded[first_call:]
+        out["seconds"][name] = time.monotonic() - t0
+        phase(17, f"{name}: {len(answers[name])} answers in {out['seconds'][name]:.2f} s, tokens "
+                  f"per answer {[a.n_tokens for a in answers[name]]}")
+    del base, params
+    report = compare_golden(answers["tuned"], answers["original"])
+    check(report["n_questions"] == len(GOLDEN_QUESTIONS) == 5,
+          f"golden report has {report['n_questions']} rows")
+    phase(17, f"compare_golden: {report['n_answers_differ']}/{report['n_questions']} answers "
+              "differ between best_model/ and its random base")
+    greedy = GenerationConfig(max_new_tokens=GOLDEN_MAX_NEW, do_sample=False)
+    check(len(golden_ids) == len(answers["tuned"]), f"{len(golden_ids)} generate_ids calls in "
+                                                    "the tuned golden run, want 5")
+    t0 = time.monotonic()
+    for a, (prompt, ids) in zip(answers["tuned"], golden_ids):
+        messages = [{"role": "system", "content": WILDERNESS_EXPERT_SYSTEM_PROMPT},
+                    {"role": "user", "content": a.question}]
+        chat = tuned.chat(messages, greedy)
+        chat_prompt, chat_ids = recorded[-1]
+        check(chat_prompt == prompt and chat_ids == ids and chat == a.answer,
+              f"golden answer to {a.question!r}: {len(ids)} tokens {a.answer!r}, Generator.chat's "
+              f"{len(chat_ids)} tokens {chat!r}")
+    out["seconds"]["chat_check"] = time.monotonic() - t0
+    phase(17, f"each tuned answer equals Generator.chat on the same question, token for token "
+              f"({out['seconds']['chat_check']:.2f} s)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_golden_") as tmp:
+        path = os.path.join(tmp, "golden_report.json")
+        t0 = time.monotonic()
+        rc = eval_golden.main(["--tuned-dir", best_model, "--max-new-tokens",
+                               str(GOLDEN_MAX_NEW), "--report", path])
+        out["seconds"]["cli"] = time.monotonic() - t0
+        check(rc == 0, f"eval_golden returned {rc}")
+        with open(path) as f:
+            cli = json.load(f)
+    check(cli["mode"] == "tuned-only" and len(cli["answers"]) == 5
+          and [a["question"] for a in cli["answers"]] == GOLDEN_QUESTIONS,
+          f"eval_golden report: {cli}")
+    same = [c["answer"] == a.answer for c, a in zip(cli["answers"], answers["tuned"])]
+    phase(17, f"python -m ...eval_golden --tuned-dir best_model/ (tuned-only): report parses, 5 "
+              f"answers, {sum(same)} equal to the in-memory run's, {out['seconds']['cli']:.2f} s "
+              "with the load")
+    gc_cuda()
+    out.update({"n_answers_differ": report["n_answers_differ"],
+                "tokens_per_answer": {k: [a.n_tokens for a in v] for k, v in answers.items()},
+                "cli_answers_equal_in_memory": sum(same)})
+    return out
+
+
+class _Held:
+    """A Generator whose decode steps (plain and speculative, dense and
+    paged) park at a gate until the smoke lets them through, so that phase
+    18 scripts concurrent arrivals without sleeping to order them.
+    ``fail_next`` makes the next step raise instead (phase 18e)."""
+
+    STEPS = ("slot_step", "spec_slot_step", "paged_step", "spec_paged_step")
+
+    def __init__(self, generator):
+        self._gen = generator
+        self._permits = threading.Semaphore(0)
+        self._open = threading.Event()
+        self._parked = threading.Event()
+        self.fail_next = None
+
+    def __getattr__(self, name):
+        attr = getattr(self._gen, name)
+        if name not in self.STEPS:
+            return attr
+
+        def step(*a):
+            if self.fail_next is not None:
+                err, self.fail_next = self.fail_next, None
+                raise err
+            if not self._open.is_set():
+                self._parked.set()
+                self._permits.acquire()
+            return attr(*a)
+
+        return step
+
+    def park(self):
+        """Return once the engine's worker waits at the gate."""
+        check(self._parked.wait(300), "the engine's worker never reached the gate")
+        self._parked.clear()
+
+    def step(self, n=1):
+        """Let ``n`` decode steps through, one by one."""
+        for _ in range(n):
+            self._permits.release()
+            self.park()
+
+    def open(self):
+        self._open.set()
+        for _ in range(256):
+            self._permits.release()
+
+    def close(self):
+        """Hold the steps again (only while the engine is idle)."""
+        self._permits = threading.Semaphore(0)
+        self._open.clear()
+
+
+def _request(base, path, body=None):
+    """(status, headers, body bytes) of one request; an HTTP error status is
+    returned, not raised."""
+    import http.client
+
+    host, port = base.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    try:
+        conn.request("GET" if body is None else "POST", path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _post_async(base, path, body):
+    """POST on a thread; the returned callable joins it and gives
+    (status, headers, body)."""
+    out = []
+    t = threading.Thread(target=lambda: out.append(_request(base, path, body)), daemon=True)
+    t.start()
+
+    def join():
+        t.join(600)
+        check(not t.is_alive() and bool(out), f"{path}: the request hung")
+        return out[0]
+
+    return join
+
+
+def _wait_for(cond, what, timeout=300):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _short_body(question, max_new, **extra):
+    return {"question": question, "system_prompt": OVERLOAD_SYSTEM_PROMPT, "greedy": True,
+            "max_new_tokens": max_new, **extra}
+
+
+def _prompt_ids(generator, body):
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+
+    return generator.encode_chat([
+        {"role": "system", "content": body.get("system_prompt", WILDERNESS_EXPERT_SYSTEM_PROMPT)},
+        {"role": "user", "content": body["question"]}])
+
+
+def _taxonomy(label, status, headers, raw, want_status, kind, retry=True):
+    """A shed's response: its status, the ``{"error": {...}}`` body of
+    ``error_payload`` and, for a retryable shed, Retry-After as the hint
+    rounded up to a positive whole second. Returns the error dict."""
+    import math
+
+    check(status == want_status, f"{label}: HTTP {status}, want {want_status}: {raw[:300]!r}")
+    check(headers.get("Content-Type") == "application/json", f"{label}: {headers}")
+    error = json.loads(raw)["error"]
+    check(error["kind"] == kind, f"{label}: error kind {error['kind']}, want {kind}")
+    if retry:
+        hint = error["retry_after_s"]
+        want = str(max(1, math.ceil(hint)))
+        check(headers.get("Retry-After") == want and int(want) >= 1,
+              f"{label}: Retry-After {headers.get('Retry-After')}, want {want} (hint {hint})")
+    return error
+
+
+def _paged_kw(**kw):
+    return dict(engine="paged", quantize_kv="int8", kv_buf_len=KV_BUF_LEN,
+                kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK,
+                prompt_bucket=PROMPT_BUCKET, **kw)
+
+
+def overload_queue_cap(server_mod, fa, generator):
+    """18a: the paged int8 engine with ``max_queue_depth=1`` and both slots
+    busy: a burst of 3 generates and 1 stream gets 429s."""
+    held = _Held(generator)
+    fa.paged_decode_attention.launches = 0
+    with _Serving(server_mod, held, **_paged_kw(slots=OVERLOAD_SLOTS, max_queue_depth=1)) as srv:
+        eng, base = srv.engine, srv.base
+        occupants = [_post_async(base, "/v1/generate", _short_body(QUESTIONS[0], 16))]
+        held.park()
+        occupants.append(_post_async(base, "/v1/generate", _short_body(QUESTIONS[1], 16)))
+        _wait_for(lambda: eng.queue_depth == 1, "the second occupant to queue")
+        held.step()  # admits it; both slots are busy from here on
+        occupants.append(_post_async(base, "/v1/generate", _short_body(QUESTIONS[2], 16)))
+        _wait_for(lambda: eng.queue_depth == 1, "the waiter to queue")
+        hints = []
+        for i, path in enumerate(("/v1/generate", "/v1/generate", "/v1/generate", "/v1/stream")):
+            status, headers, raw = _request(base, path, _short_body(QUESTIONS[3], 16))
+            error = _taxonomy(f"18a burst {i}", status, headers, raw, 429, "queue_overflow")
+            check(error["tier"] == "interactive" and error["retryable"],
+                  f"18a burst {i}: {error}")
+            hints.append((error["retry_after_s"], headers["Retry-After"]))
+        held.open()
+        statuses = [join()[0] for join in occupants]
+        stats = eng.stats_snapshot()
+        launches = fa.paged_decode_attention.launches
+    check(statuses == [200, 200, 200], f"18a: occupants and waiter answered {statuses}")
+    check(stats["requests_shed_overflow"] == 4 and
+          stats["requests_shed_by_tier"] == {"interactive": 4, "batch": 0, "best_effort": 0},
+          f"18a: requests_shed_overflow {stats['requests_shed_overflow']}, by tier "
+          f"{stats['requests_shed_by_tier']}")
+    layers = generator.config.num_layers
+    check(launches == layers * stats["decode_steps"],
+          f"18a: {launches} paged decode launches, want {layers} x {stats['decode_steps']}")
+    phase(18, f"18a paged int8, max_queue_depth 1, both slots busy: burst of 4 -> 429 x4 "
+              f"(Retry-After hint s, header: {hints}), requests_shed_overflow 4; occupants and "
+              f"waiter 200; paged decode launches {launches} == {layers} x "
+              f"{stats['decode_steps']} decode steps")
+    return {"retry_after": hints, "launches": launches, "decode_steps": stats["decode_steps"]}
+
+
+def overload_deadlines(tf, gen_mod, server_mod, generator):
+    """18b: ``deadline_ms`` on the dense engine, one slot: expiry in the
+    queue (504, no tokens), then mid-decode (504 with the tokens so far,
+    held to the solo greedy run by phase 15's margin rule)."""
+    held = _Held(generator)
+    with _Serving(server_mod, held, engine="continuous", slots=1, kv_buf_len=KV_BUF_LEN,
+                  prompt_bucket=PROMPT_BUCKET) as srv:
+        eng, base = srv.engine, srv.base
+        occupant = _post_async(base, "/v1/generate", _short_body(QUESTIONS[0], 16))
+        held.park()
+        queued = _post_async(base, "/v1/generate",
+                             _short_body(QUESTIONS[1], 16, deadline_ms=100))
+        _wait_for(lambda: eng.queue_depth == 1, "the deadline request to queue")
+        queued_by = time.monotonic()
+        time.sleep(max(0.0, queued_by + 0.15 - time.monotonic()))  # its 100 ms pass in the queue
+        held.open()
+        status, headers, raw = queued()
+        q_err = _taxonomy("18b queued", status, headers, raw, 504, "deadline_exceeded",
+                          retry=False)
+        check(q_err["tokens_generated"] == 0 and q_err["partial_tokens"] == [],
+              f"18b queued: {q_err}")
+        check(occupant()[0] == 200, "18b: the occupant failed")
+        held.close()  # the engine is idle
+        body = _short_body(QUESTIONS[2], 200, deadline_ms=1500)
+        t0 = time.monotonic()
+        mid = _post_async(base, "/v1/generate", body)
+        held.park()
+        held.step(4)
+        time.sleep(max(0.0, t0 + 1.55 - time.monotonic()))
+        held.open()
+        status, headers, raw = mid()
+        stats = eng.stats_snapshot()
+    m_err = _taxonomy("18b mid-decode", status, headers, raw, 504, "deadline_exceeded",
+                      retry=False)
+    partial = m_err["partial_tokens"]
+    check(len(partial) == 5 == m_err["tokens_generated"],
+          f"18b mid-decode: {m_err['tokens_generated']} tokens, want 5 (prefill + 4 steps)")
+    prompt = _prompt_ids(generator, body)
+    solo = solo_decode(tf, gen_mod, generator, prompt, len(partial))
+    agree, at = margin_agreement(tf, generator, "18b mid-decode", prompt, partial, solo)
+    check(stats["requests_shed_deadline"] == 1 and stats["requests_shed_deadline_decode"] == 1
+          and stats["wasted_tokens_by_reason"]["deadline"] == 5,
+          f"18b: shed counters {stats['requests_shed_deadline']}, "
+          f"{stats['requests_shed_deadline_decode']}, waste {stats['wasted_tokens_by_reason']}")
+    phase(18, f"18b continuous: deadline_ms 100 expired in the queue -> 504 with 0 tokens; "
+              f"deadline_ms 1500 expired mid-decode -> 504 with {len(partial)} tokens, "
+              f"{agree} of them equal to the solo greedy run"
+              + (f" (then a top-2 margin {at['margin']:.3e} within {at['bound']:.3e})" if at else ""))
+    return {"mid_decode_tokens": len(partial), "agreeing": agree}
+
+
+def _paged_blocks(plen, max_new):
+    """Blocks the paged engine reserves for a request with nothing cached
+    (its ``_plan``): the budget's end or the last prefill chunk's pad end."""
+    C, B, L = PREFILL_CHUNK, PROMPT_BUCKET, KV_BLOCK_LEN
+    nchunks = -(-plen // C)
+    last = plen - (nchunks - 1) * C
+    write_end = (nchunks - 1) * C + -(-last // B) * B
+    return -(-max(min(plen + max_new, KV_BUF_LEN), write_end) // L)
+
+
+def overload_preemption(tf, gen_mod, server_mod, fa, generator, engine):
+    """18c: two slots busy (an interactive occupant, a best_effort victim);
+    an interactive arrival preempts the victim after its third token. On
+    paged int8 the pool holds exactly the two, so the arrival also finds no
+    free block; the victim's full context blocks are banked in the prefix
+    cache and its resume reuses them. The victim's final tokens are held to
+    its uninterrupted solo run by phase 15's margin rule (paged: plus twice
+    the int8 pool's measured logit error); paged decode launches are counted
+    across the preemption and the resume."""
+    import functools
+
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+
+    occupant = _short_body(QUESTIONS[0], MAX_NEW_TOKENS)
+    victim = {"question": QUESTIONS[1], "greedy": True, "max_new_tokens": MAX_NEW_TOKENS,
+              "priority": "best_effort"}  # the wilderness system prompt: ~1.4k tokens
+    arrival = _short_body(QUESTIONS[2], 8, priority="interactive")
+    prompts = {name: _prompt_ids(generator, body)
+               for name, body in (("occupant", occupant), ("victim", victim), ("arrival", arrival))}
+    kw = dict(engine="continuous", slots=OVERLOAD_SLOTS, kv_buf_len=KV_BUF_LEN,
+              prompt_bucket=PROMPT_BUCKET)
+    paged_cls = server_mod.PagedContinuousBatchingEngine
+    if engine == "paged":
+        kw = _paged_kw(slots=OVERLOAD_SLOTS)
+        need = {name: _paged_blocks(len(p), body["max_new_tokens"])
+                for (name, p), body in zip(prompts.items(), (occupant, victim, arrival))}
+        num_blocks = 1 + need["occupant"] + need["victim"]  # the null block and the two
+        server_mod.PagedContinuousBatchingEngine = functools.partial(paged_cls,
+                                                                     num_blocks=num_blocks)
+    held = _Held(generator)
+    fa.paged_decode_attention.launches = 0
+    try:
+        srv = _Serving(server_mod, held, **kw)
+    finally:
+        server_mod.PagedContinuousBatchingEngine = paged_cls
+    with srv:
+        eng, base = srv.engine, srv.base
+        joins = {"occupant": _post_async(base, "/v1/generate", occupant)}
+        held.park()
+        joins["victim"] = _post_async(base, "/v1/generate", victim)
+        _wait_for(lambda: eng.queue_depth == 1, "the victim to queue")
+        held.step()  # admitted (paged: its prompt prefills one chunk per tick)
+        while eng.live_slots < 2:
+            held.step()
+        held.step()  # the victim's second token
+        free_blocks = eng._allocator.free_count if engine == "paged" else None
+        joins["arrival"] = _post_async(base, "/v1/generate", arrival)
+        _wait_for(lambda: eng.queue_depth == 1, "the arrival to queue")
+        held.step()  # the victim's third token, then the arrival preempts it
+        before = eng.stats_snapshot()
+        held.open()
+        statuses = {name: join()[0] for name, join in joins.items()}
+        stats = eng.stats_snapshot()
+        launches = fa.paged_decode_attention.launches
+        results = {name: ids for p, ids in srv.results
+                   for name, q in prompts.items() if p == q}
+    check(statuses == {"occupant": 200, "victim": 200, "arrival": 200}, f"18c {engine}: {statuses}")
+    check(before["preemptions"] == 1 == stats["preemptions"],
+          f"18c {engine}: preemptions {before['preemptions']} at the arrival, "
+          f"{stats['preemptions']} at the end")
+    got = results["victim"]
+    check(len(got) == MAX_NEW_TOKENS, f"18c {engine}: the victim got {len(got)} tokens")
+    floor = 2 * int8_kv_noise(tf, generator, prompts["victim"]) if engine == "paged" else 0.0
+    solo = solo_decode(tf, gen_mod, generator, prompts["victim"], MAX_NEW_TOKENS)
+    agree, at = margin_agreement(tf, generator, f"18c {engine} victim", prompts["victim"], got,
+                                 solo, floor=floor)
+    rec = {"agreeing": agree, "first_difference": at, "preemptions": stats["preemptions"],
+           "decode_steps": stats["decode_steps"]}
+    msg = (f"18c {engine}: the interactive arrival preempted the best_effort victim after 3 "
+           f"tokens; its {len(got)} tokens after the resume: {agree} equal to the solo run"
+           + (f" (then a top-2 margin {at['margin']:.3e} within {at['bound']:.3e})" if at else ""))
+    if engine == "paged":
+        reused = stats["prefix_tokens_reused"] - before["prefix_tokens_reused"]
+        banked = (len(prompts["victim"]) + 3 - 1) // KV_BLOCK_LEN * KV_BLOCK_LEN
+        layers = generator.config.num_layers
+        check(free_blocks == 0 < need["arrival"],
+              f"18c paged: {free_blocks} free blocks at the arrival, it needs {need['arrival']}")
+        check(reused >= banked > 0,
+              f"18c paged: the resume reused {reused} prefix tokens, {banked} were banked")
+        check(launches == layers * stats["decode_steps"],
+              f"18c paged: {launches} paged decode launches, want {layers} x "
+              f"{stats['decode_steps']} decode steps")
+        rec.update({"num_blocks": num_blocks, "blocks_needed": need, "free_at_arrival": free_blocks,
+                    "prefix_tokens_reused_by_resume": reused, "banked_tokens": banked,
+                    "launches": launches})
+        msg += (f"; pool {num_blocks} blocks, {free_blocks} free at the arrival (it needs "
+                f"{need['arrival']}); the resume reused {reused} banked prefix tokens; paged decode "
+                f"launches {launches} == {layers} x {stats['decode_steps']} decode steps across "
+                "the preemption and the resume")
+    phase(18, msg)
+    return rec
+
+
+def overload_brownout(engine_mod, server_mod, generator):
+    """18d: ``--engine continuous --speculative 4``, 8 slots, a 1 s drain
+    budget: with the service-time EWMA at its 1 s seed the pressure is the
+    backlog over 8. Repetitive speculative requests (32 new tokens: no
+    request can finish in the ticks before stage 3, at most K + 1 = 5
+    tokens a tick) are admitted one step
+    apart until all 8 slots are busy (stages 1, 2 and 3 at a backlog of 6, 7
+    and 8); from stage 1 no slot asks for drafts (prompt lookup is not even
+    called); at stage 3 a best_effort request is a 429 and an interactive
+    one is queued; then the gate opens, and a last request drives the stage
+    back to 0."""
+    held = _Held(generator)
+    lookups = [0]
+    prompt_lookup = engine_mod._prompt_lookup
+
+    def counting_lookup(ctx, k):
+        lookups[0] += 1
+        return prompt_lookup(ctx, k)
+
+    engine_mod._prompt_lookup = counting_lookup
+    try:
+        return _brownout_run(server_mod, held, lookups)
+    finally:
+        engine_mod._prompt_lookup = prompt_lookup
+
+
+def _brownout_run(server_mod, held, lookups):
+    slots = 8
+    spec = {"speculative": SPEC_K}
+    with _Serving(server_mod, held, engine="continuous", slots=slots, kv_buf_len=KV_BUF_LEN,
+                  prompt_bucket=PROMPT_BUCKET, speculative_k=SPEC_K, brownout_drain_s=1.0) as srv:
+        eng, base = srv.engine, srv.base
+        trail = [eng.brownout_stage]
+        update = eng._update_brownout
+
+        def recording_update():
+            update()
+            if eng.brownout_stage != trail[-1]:
+                trail.append(eng.brownout_stage)
+
+        eng._update_brownout = recording_update
+        body = _short_body(REPETITIVE_QUESTION, 32, **spec)
+        joins = [_post_async(base, "/v1/generate", body)]
+        held.park()
+        held.step()
+        check(lookups[0] > 0, "18d: no slot asked for drafts at stage 0")
+        looked_at, proposed_at, stages = None, None, []
+        for i in range(1, slots):
+            joins.append(_post_async(base, "/v1/generate", body))
+            _wait_for(lambda: eng.queue_depth == 1, "a request to queue")
+            held.step()
+            stages.append(eng.brownout_stage)
+            if looked_at is None and eng.brownout_stage >= 1:
+                looked_at = lookups[0]
+                proposed_at = eng.stats_snapshot()["draft_tokens_proposed"]
+        check(eng.live_slots == slots and eng.brownout_stage == 3,
+              f"18d: {eng.live_slots} live slots at stage {eng.brownout_stage}, want {slots} at 3")
+        held.step(2)  # two more ticks at stage 3
+        proposed_3 = eng.stats_snapshot()["draft_tokens_proposed"]
+        check(looked_at is not None and lookups[0] == looked_at and proposed_3 == proposed_at,
+              f"18d: prompt lookups {looked_at} and drafts {proposed_at} when stage 1 began, "
+              f"{lookups[0]} and {proposed_3} at stage 3")
+        status, headers, raw = _request(base, "/v1/generate", {**body, "priority": "best_effort"})
+        shed = _taxonomy("18d best_effort at stage 3", status, headers, raw, 429, "brownout_shed")
+        check(shed["tier"] == "best_effort", f"18d: {shed}")
+        joins.append(_post_async(base, "/v1/generate", {**body, "priority": "interactive"}))
+        _wait_for(lambda: eng.queue_depth == 1, "the interactive request to queue")
+        held.open()
+        statuses = [join()[0] for join in joins]
+        check(statuses == [200] * (slots + 1), f"18d: statuses {statuses}")
+        # one more request drives the EWMAs down
+        status, _, _ = _request(base, "/v1/generate", {**body, "max_new_tokens": 16})
+        stats = eng.stats_snapshot()
+    check(status == 200 and eng.brownout_stage == 0,
+          f"18d: stage {eng.brownout_stage} after the last request (HTTP {status})")
+    check(lookups[0] > looked_at, "18d: no slot asked for drafts after the stage fell")
+    check(stats["requests_shed_by_tier"] == {"interactive": 0, "batch": 0, "best_effort": 1},
+          f"18d: sheds by tier {stats['requests_shed_by_tier']}")
+    phase(18, f"18d continuous --speculative {SPEC_K}, brownout_drain_s 1: stage after each "
+              f"admission {stages}, stages passed {trail}; prompt lookups {looked_at} and drafts "
+              f"proposed {proposed_at} when stage 1 began, unchanged at stage 3, "
+              f"{lookups[0]} and {stats['draft_tokens_proposed']} at the end (stage 0); at stage "
+              "3 best_effort -> 429 brownout_shed, interactive served")
+    return {"stages_by_admission": stages, "trail": trail, "lookups_at_stage_1": looked_at,
+            "draft_tokens_proposed": stats["draft_tokens_proposed"]}
+
+
+def overload_repair(server_mod, generator):
+    """18e: one tick failure injected into a started engine (continuous and
+    paged int8): the request in flight gets a 500 with the ``engine_fatal``
+    body, ``/healthz`` answers 503 with ``circuit_state`` and the terminal
+    error, and a later request is refused with the same body."""
+    from llm_fine_tune_distributed_tpu_torch.infer.errors import InjectedFault
+
+    out = {}
+    for engine in ("continuous", "paged"):
+        held = _Held(generator)
+        held.open()
+        kw = (_paged_kw(slots=OVERLOAD_SLOTS) if engine == "paged" else
+              dict(engine=engine, slots=OVERLOAD_SLOTS, kv_buf_len=KV_BUF_LEN,
+                   prompt_bucket=PROMPT_BUCKET))
+        with _Serving(server_mod, held, **kw) as srv:
+            check(_request(srv.base, "/healthz")[::2] == (200, b"ok"), f"18e {engine}: /healthz")
+            held.fail_next = InjectedFault("injected tick failure")
+            status, headers, raw = _request(srv.base, "/v1/generate", _short_body(QUESTIONS[0], 8))
+            error = _taxonomy(f"18e {engine} in flight", status, headers, raw, 500,
+                              "engine_fatal", retry=False)
+            h_status, _, h_raw = _request(srv.base, "/healthz")
+            health = json.loads(h_raw)
+            later = _request(srv.base, "/v1/stream", _short_body(QUESTIONS[1], 8))
+        check(h_status == 503 and health == {"status": "unhealthy", "circuit_state": "open",
+                                             "error": error},
+              f"18e {engine}: /healthz {h_status} {health}")
+        check(later[0] == 500 and json.loads(later[2]) == {"error": error},
+              f"18e {engine}: a later stream got {later[0]} {later[2][:200]!r}")
+        out[engine] = {"healthz": h_status, "error": error}
+        phase(18, f"18e {engine}: injected tick failure -> in-flight request HTTP 500 "
+                  f"{error['kind']}; /healthz 503 circuit_state open; later /v1/stream refused "
+                  "with the same body before any event")
+    return out
+
+
+def overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator):
+    """Phase 18 (after phase 16, on phase 4's generator): overload control
+    through HTTP on the paged int8 and the dense engines."""
+    out, seconds = {}, {}
+    subphases = (
+        ("a", lambda: overload_queue_cap(server_mod, fa, generator)),
+        ("b", lambda: overload_deadlines(tf, gen_mod, server_mod, generator)),
+        ("c_continuous", lambda: overload_preemption(tf, gen_mod, server_mod, fa, generator,
+                                                     "continuous")),
+        ("c_paged", lambda: overload_preemption(tf, gen_mod, server_mod, fa, generator, "paged")),
+        ("d", lambda: overload_brownout(engine_mod, server_mod, generator)),
+        ("e", lambda: overload_repair(server_mod, generator)),
+    )
+    for name, run in subphases:
+        t0 = time.monotonic()
+        out[name] = run()
+        seconds[name] = time.monotonic() - t0
+        phase(18, f"18{name} took {seconds[name]:.1f} s")
+        gc_cuda()
+    out["seconds"] = seconds
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2715,6 +3300,7 @@ def main(argv=()) -> int:
     engines = engines_phase(tf, gen_mod, server_mod, fa, generator)
     speculation = spec_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, engines, served,
                              prompts)
+    overload = overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -2746,6 +3332,7 @@ def main(argv=()) -> int:
             asked = ask_phase(cli_mod, best_model)
             speculation["ask"] = ask_spec_phase(cli_mod, tf, gen_mod, best_model, recorded,
                                                 first[0])
+            golden = golden_phase(tf, gen_mod, first[0], best_model, config, tokenizer, recorded)
         finally:
             gen_mod.Generator.generate_ids = generate_ids
             first.clear()
@@ -2786,6 +3373,9 @@ def main(argv=()) -> int:
                          served["launches"], {**live_rec, "library_ms": None})
     paged["launches_int8_weights"] = served_i8["launches"]  # phase 14's run
     paged["launches_stream"] = engines["stream"]["paged"]["launches"]  # phase 15's /v1/stream
+    # phase 18: launches across a preemption and its resume (18c), and under a queue cap (18a)
+    paged["launches_preempt_resume"] = overload["c_paged"]["launches"]
+    paged["launches_queue_cap"] = overload["a"]["launches"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -2840,7 +3430,7 @@ def main(argv=()) -> int:
                "f32_microbatch_int8": microbatch_i8, "dense_generation": dense, "ask": asked,
                "serve_int8_weights": served_i8, "decode_profile_int8_weights": profiled_i8,
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
-               "total_s": time.monotonic() - t_start}
+               "golden": golden, "overload": overload, "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -28,6 +28,11 @@ from typing import List, Optional, Sequence
 
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 
+# priority tiers of the continuous engines' overload control: index = tier
+# number, lower is more important. Admission orders by (aged tier, arrival);
+# under pressure the highest-numbered tier sheds and is preempted first.
+PRIORITY_TIERS = ("interactive", "batch", "best_effort")
+
 
 @dataclass
 class Request:
@@ -64,6 +69,23 @@ class Request:
     spec_steps: Optional[int] = None
     draft_tokens_proposed: int = 0
     draft_tokens_accepted: int = 0
+    # overload control (continuous engines only): the monotonic time past
+    # which a still-queued request is shed before prefill (the engine's
+    # queue deadline), its priority tier by name and number (an index into
+    # PRIORITY_TIERS), and the client's deadline (monotonic) past which it
+    # is cancelled wherever it is
+    queue_deadline: Optional[float] = None
+    priority: str = "interactive"
+    tier: int = 0
+    deadline: Optional[float] = None
+    # preemption: the tokens emitted before its slot was reclaimed (the
+    # resume prefills prompt + these, and they lead the result), and how
+    # many times it was preempted
+    preempted_tokens: List[int] = field(default_factory=list)
+    preemptions: int = 0
+    # set by a submit thread that displaced this queued lower-tier request
+    # from a full queue; the worker resolves it with a tier-labelled 429
+    shed_by_pressure: bool = False
 
 
 def _pad_batch_size(n: int, max_batch: int) -> int:

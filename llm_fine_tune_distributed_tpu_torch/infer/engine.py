@@ -22,11 +22,39 @@ KV pool addressed through per-slot block tables, so
   steps (one chunk and one decode step per scheduler tick).
 
 Both engines: one worker thread owns the cache, the tables and the slot
-state; admission is strict FIFO; a request whose waiter gave up
-(``Request.abandoned``) is shed, queued or mid-decode; counters, gauges and
-latency histograms go to one ``ServingStats`` (``stats_snapshot``). Greedy
-tokens equal a solo ``Generator.generate_ids`` of the same prompt, and
-sampled ones depend only on (request, seed).
+state; a request whose waiter gave up (``Request.abandoned``) is shed,
+queued or mid-decode; counters, gauges and latency histograms go to one
+``ServingStats`` (``stats_snapshot``). Greedy tokens equal a solo
+``Generator.generate_ids`` of the same prompt, and sampled ones depend only
+on (request, seed).
+
+Overload control, as in the JAX engines (every failure is a class of
+``infer/errors.py``):
+
+- admission: a request names a priority tier (``PRIORITY_TIERS``); a full
+  queue (``max_queue_depth``) sheds the arrival with a 429, or displaces the
+  newest waiter of a strictly lower tier instead; ``Retry-After`` comes from
+  an EWMA of service time with a deterministic +-20% jitter;
+- deadlines: a request still queued after ``queue_deadline_s`` is shed
+  before prefill (503); one whose client deadline (``deadline_s``) expires
+  is cancelled wherever it is (504, carrying its tokens so far);
+- scheduling: waiters are admitted by (aged tier, arrival), every
+  ``age_promote_s`` of waiting promoting a request one tier;
+- preemption: with every slot busy (or, on the paged engine, no blocks
+  free), an arrival preempts the youngest live request of the worst
+  strictly lower tier. Its tokens are banked and it requeues; the resume is
+  one prefill over prompt + banked tokens, and its result starts with them.
+  The paged engine banks the victim's full context blocks in the prefix
+  cache, so the resume prefills only the tail;
+- brownout: a pressure signal (queue-wait EWMA, pool occupancy, predicted
+  drain time) moves a stage 0-3 with hysteresis: stage 1 stops drafting,
+  stage 2 caps ``best_effort`` output at ``brownout_cap_tokens``, stage 3
+  sheds ``best_effort`` at admission unless the engine is idle.
+
+A failed tick ends the worker: the engine reports ``healthy`` False,
+``circuit_state`` "open" and a ``FatalEngineError`` wrapping the cause as
+``terminal_error``, resolves every request in flight or queued with it and
+refuses later submits with it.
 
 With ``speculative_k = K > 0`` every tick is the fused draft-verify step
 (``Generator.spec_slot_step`` / ``spec_paged_step``): each live slot whose
@@ -37,9 +65,9 @@ run plus one token of the model's own. Slots without drafts take the plain
 step inside the same tick. Per-request draft counts and the engine's
 ``draft_tokens_proposed`` / ``draft_tokens_accepted`` record it.
 
-Not ported from the JAX engines: the host KV tier, preemption and
-priorities, deadlines, brownout, supervision and restarts, hot-swap,
-adapters, fleets and overload control.
+Not ported from the JAX engines: the host KV tier, supervision and
+in-process restarts (the circuit's window and backoff), drain, hot-swap,
+adapters and fleets.
 """
 
 from __future__ import annotations
@@ -53,14 +81,24 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from llm_fine_tune_distributed_tpu_torch.infer.batching import Request
+from llm_fine_tune_distributed_tpu_torch.infer.batching import PRIORITY_TIERS, Request
+from llm_fine_tune_distributed_tpu_torch.infer.errors import (
+    BrownoutShedError,
+    DeadlineExceededError,
+    FatalEngineError,
+    QueueDeadlineError,
+    QueueOverflowError,
+    ServingError,
+)
 from llm_fine_tune_distributed_tpu_torch.infer.paged import NULL_BLOCK, BlockAllocator, PrefixCache
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import ServingStats
 
 log = logging.getLogger(__name__)
 
-__all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine", "Request"]
+__all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine", "PRIORITY_TIERS",
+           "Request"]
+_BEST_EFFORT = PRIORITY_TIERS.index("best_effort")
 
 
 def _prompt_lookup(ctx: np.ndarray, k: int) -> np.ndarray:
@@ -117,10 +155,24 @@ class _TokenStream:
 
 
 class ContinuousBatchingEngine:
-    """``slots``-row persistent decode over a dense KV cache, FIFO admission."""
+    """``slots``-row persistent decode over a dense KV cache, admission by
+    (aged tier, arrival) with the overload control of the JAX engine."""
+
+    # the pressure at which brownout stages 1-3 begin, and the band below a
+    # stage's threshold that the pressure must clear to step down (the JAX
+    # engine's defaults, which no caller changes)
+    BROWNOUT_THRESHOLDS = (0.7, 0.85, 0.95)
+    BROWNOUT_HYSTERESIS = 0.1
 
     def __init__(self, generator, slots: int = 8, buf_len: int = 4096, prompt_bucket: int = 64,
-                 stats: Optional[ServingStats] = None, speculative_k: int = 0):
+                 stats: Optional[ServingStats] = None, speculative_k: int = 0,
+                 max_queue_depth: int = 0, queue_deadline_s: Optional[float] = None,
+                 priority_default: str = "interactive", age_promote_s: float = 5.0,
+                 brownout_queue_wait_s: float = 2.0, brownout_drain_s: float = 10.0,
+                 brownout_cap_tokens: int = 32):
+        if priority_default not in PRIORITY_TIERS:
+            raise ValueError(f"unknown priority_default {priority_default!r} "
+                             f"(expected one of {PRIORITY_TIERS})")
         self._generator = generator
         # speculation: the engine's draft depth K; with K > 0 every tick is
         # the fused draft-verify step, so a sampled slot's draws per tick do
@@ -137,10 +189,30 @@ class ContinuousBatchingEngine:
         self._slot_budget = [0] * self._slots
         self._live = np.zeros((self._slots,), bool)
         self._q: "queue.Queue[Optional[Request]]" = queue.Queue()
+        # the priority buffer: the worker drains the queue into it and admits
+        # by (aged tier, arrival id); submit threads only read it
         self._waiting: List[Request] = []
         self._req_seq = itertools.count(1)
         self._now = time.monotonic()  # the tick clock every emit of a tick reuses
-        self._error: Optional[BaseException] = None
+        self._terminal: Optional[ServingError] = None  # set once the worker died
+        # admission policy (read on submit threads, set once here)
+        self._max_queue_depth = max(0, int(max_queue_depth))  # 0: unbounded
+        self._queue_deadline_s = float(queue_deadline_s) if queue_deadline_s else None
+        self._priority_default = priority_default
+        # every age_promote_s of waiting orders a request one tier higher
+        # (its raw tier still decides shedding and preemption); <= 0: off
+        self._age_promote_s = float(age_promote_s)
+        # EWMA of queue-entry -> completion seconds behind the Retry-After
+        # hints, seeded finite so the first 429 carries one too
+        self._avg_service_s = 1.0
+        self._retry_seq = itertools.count(1)  # the hints' jitter sequence
+        # brownout: the budgets that scale queue wait and drain time to
+        # pressure 1.0, and best_effort's output cap at stage 2
+        self._brownout_queue_wait_s = max(1e-6, float(brownout_queue_wait_s))
+        self._brownout_drain_s = max(1e-6, float(brownout_drain_s))
+        self._brownout_cap_tokens = max(1, int(brownout_cap_tokens))
+        self._brownout_stage = 0
+        self._queue_wait_ewma = 0.0
         self._cache, self._state = self._init_state()
         # the draft model's dense per-slot cache (worker thread only)
         self._dcache = (generator.init_draft_slot_cache(self._slots, self._buf_len)
@@ -154,16 +226,22 @@ class ContinuousBatchingEngine:
     # ---------------------------------------------------------------- public
 
     def submit(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
-               timeout: Optional[float] = None) -> List[int]:
+               timeout: Optional[float] = None, priority: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> List[int]:
         """Blocking: enqueue one request, wait for its generated token ids."""
-        return self.submit_full(prompt_ids, gen, seed, timeout).result
+        return self.submit_full(prompt_ids, gen, seed, timeout, priority=priority,
+                                deadline_s=deadline_s).result
 
     def submit_full(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
-                    timeout: Optional[float] = None) -> Request:
+                    timeout: Optional[float] = None, priority: Optional[str] = None,
+                    deadline_s: Optional[float] = None) -> Request:
         """``submit`` returning the whole request record (the window
         batcher's call shape). On ``timeout`` the request is abandoned (the
-        worker sheds it) and TimeoutError raised."""
-        req = self._make_request(prompt_ids, gen, seed)
+        worker sheds it) and TimeoutError raised. ``priority`` names a tier
+        of ``PRIORITY_TIERS`` (None: the engine's default); ``deadline_s``
+        is the client's budget for the whole request, past which it is
+        cancelled with a DeadlineExceededError carrying its tokens so far."""
+        req = self._make_request(prompt_ids, gen, seed, priority=priority, deadline_s=deadline_s)
         self._q.put(req)
         if not req.done.wait(timeout):
             req.abandoned = True
@@ -174,12 +252,15 @@ class ContinuousBatchingEngine:
         return req
 
     def stream(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
-               timeout: Optional[float] = None) -> _TokenStream:
+               timeout: Optional[float] = None, priority: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> _TokenStream:
         """Enqueue one request and return an iterator over its tokens as the
         slot decodes them, while it shares the batch with everything else in
-        flight. ``timeout`` bounds the wait for each next token. The request
-        is checked here, before the caller commits to a response."""
-        req = self._make_request(prompt_ids, gen, seed, tokens_q=queue.Queue())
+        flight. ``timeout`` bounds the wait for each next token. Admission
+        (overflow, brownout, a dead engine) is decided here, before the
+        caller commits to a response."""
+        req = self._make_request(prompt_ids, gen, seed, tokens_q=queue.Queue(),
+                                 priority=priority, deadline_s=deadline_s)
         self._q.put(req)
         return _TokenStream(req, timeout, self)
 
@@ -189,11 +270,32 @@ class ContinuousBatchingEngine:
         self._worker.join(timeout)
 
     def stats_snapshot(self) -> dict:
-        """``ServingStats.snapshot()`` with fresh ``queue_depth`` and
-        ``live_slots`` gauges (``GET /v1/stats``)."""
+        """``ServingStats.snapshot()`` with fresh ``queue_depth``,
+        ``live_slots`` and ``brownout_stage`` gauges (``GET /v1/stats``)."""
         self.stats.gauge("queue_depth", self.queue_depth)
         self.stats.gauge("live_slots", self.live_slots)
+        self.stats.gauge("brownout_stage", self._brownout_stage)
         return self.stats.snapshot()
+
+    @property
+    def healthy(self) -> bool:
+        """False once the worker died (``/healthz`` answers 503)."""
+        return self._terminal is None
+
+    @property
+    def terminal_error(self) -> Optional[ServingError]:
+        return self._terminal
+
+    @property
+    def circuit_state(self) -> str:
+        """"closed" while the worker serves, "open" once it died: the port
+        does not restart a worker, so its first failure opens the circuit."""
+        return "closed" if self._terminal is None else "open"
+
+    @property
+    def brownout_stage(self) -> int:
+        """The degradation stage, 0 (healthy) to 3 (shedding best_effort)."""
+        return self._brownout_stage
 
     @property
     def queue_depth(self) -> int:
@@ -209,29 +311,110 @@ class ContinuousBatchingEngine:
     def slot_count(self) -> int:
         return self._slots
 
+    # ------------------------------------------------------------- admission
+
+    def _retry_after(self) -> float:
+        """A finite Retry-After hint: about how long the backlog ahead of a
+        retry takes to drain through the slots, from the service-time EWMA,
+        with a +-20% deterministic jitter (a multiplicative hash over a
+        sequence) so clients shed in one burst do not retry in lockstep;
+        clamped to [0.5 s, 600 s]."""
+        backlog = self.queue_depth + max(1, int(self._live.sum()))
+        est = self._avg_service_s * backlog / self._slots
+        seq = next(self._retry_seq)
+        est *= 0.8 + 0.4 * ((seq * 2654435761) % 1000) / 1000.0
+        return float(min(max(est, 0.5), 600.0))
+
+    def _waiting_snapshot(self) -> List[Request]:
+        """Every request queued and not yet admitted, seen from a submit
+        thread (a stale view only mis-picks a displacement victim)."""
+        with self._q.mutex:
+            queued = [r for r in self._q.queue if r is not None]
+        return list(self._waiting) + queued
+
     def _make_request(self, prompt_ids, gen: GenerationConfig, seed: int,
-                      tokens_q: Optional["queue.Queue"] = None) -> Request:
-        if self._error is not None or not self._worker.is_alive():
-            raise RuntimeError(f"engine stopped: {self._error!r}")
+                      tokens_q: Optional["queue.Queue"] = None, priority: Optional[str] = None,
+                      deadline_s: Optional[float] = None) -> Request:
+        """The admission gate shared by submit and stream: refuse a dead
+        engine, a brownout shed and an overflow before the request enters
+        the queue, and stamp its deadlines."""
+        if priority is None:
+            priority = self._priority_default
+        if priority not in PRIORITY_TIERS:
+            raise ValueError(f"unknown priority {priority!r} (expected one of {PRIORITY_TIERS})")
+        tier = PRIORITY_TIERS.index(priority)
+        if self._terminal is not None:
+            raise self._terminal
+        if not self._worker.is_alive():
+            raise RuntimeError("engine stopped: close() was called")
+        if (self._brownout_stage >= 3 and tier >= _BEST_EFFORT
+                # never shed into an idle engine: the worker re-evaluates the
+                # stage only on its next pass, so a stale stage must not
+                # starve a best_effort-only client after a burst drains
+                and (self.queue_depth > 0 or bool(self._live.any()))):
+            self.stats.incr("requests_shed_overflow")
+            self.stats.tier_shed_incr(priority)
+            raise BrownoutShedError(
+                f"brownout stage {self._brownout_stage}: shedding {priority!r} traffic "
+                "until pressure clears", retry_after_s=self._retry_after(), tier=priority)
+        if self._max_queue_depth and self.queue_depth >= self._max_queue_depth:
+            # a full queue that holds a strictly lower tier sheds that
+            # waiter (the newest of the lowest tier) instead of the arrival;
+            # the worker resolves it at its next pass, so the queue may
+            # overshoot by one request per displacement
+            victim = None
+            for cand in self._waiting_snapshot():
+                if cand.shed_by_pressure or cand.abandoned or cand.tier <= tier:
+                    continue
+                if victim is None or (cand.tier, cand.id) > (victim.tier, victim.id):
+                    victim = cand
+            if victim is not None:
+                victim.shed_by_pressure = True
+            else:
+                self.stats.incr("requests_shed_overflow")
+                self.stats.tier_shed_incr(priority)
+                raise QueueOverflowError(
+                    f"admission queue full ({self.queue_depth} waiting >= max_queue_depth "
+                    f"{self._max_queue_depth})", retry_after_s=self._retry_after(), tier=priority)
         req = Request([int(t) for t in prompt_ids], gen, int(seed), tokens_q=tokens_q)
         req.id = next(self._req_seq)
         req.enqueued_at = time.monotonic()
+        if self._queue_deadline_s is not None:
+            req.queue_deadline = req.enqueued_at + self._queue_deadline_s
+        req.priority = priority
+        req.tier = tier
+        if deadline_s is not None:
+            req.deadline = req.enqueued_at + float(deadline_s)
         return req
+
+    def _expired(self, req: Request) -> bool:
+        return req.queue_deadline is not None and time.monotonic() > req.queue_deadline
+
+    def _deadline_expired(self, req: Request, now: Optional[float] = None) -> bool:
+        """The client's deadline: callers before prefill read the clock, the
+        decode tick passes its tick clock (no clock read per token)."""
+        if req.deadline is None:
+            return False
+        return (time.monotonic() if now is None else now) > req.deadline
 
     # ------------------------------------------------------------ resolution
 
     def _settle(self, req: Request) -> None:
         """The one place a request wakes its waiter. Every token it emitted
-        is charged once, here: to goodput when it completed, else to the
-        reason it ended."""
+        (banked ones included) is charged once, here: to goodput when it
+        completed, else to the reason it ended."""
         n = req.tokens_emitted
         if n:
             if req.abandoned:
                 self.stats.waste_incr("abandoned", n)
             elif req.error is None:
                 self.stats.incr("goodput_tokens", n)
-            else:  # the worker failed under it
+            elif isinstance(req.error, DeadlineExceededError):
+                self.stats.waste_incr("deadline", n)
+            elif isinstance(req.error, FatalEngineError):  # the worker died under it
                 self.stats.waste_incr("failover", n)
+            else:  # shed after work was done (a preempted request's banked tokens)
+                self.stats.waste_incr("shed", n)
         req.done.set()
 
     def _resolve_error(self, req: Request, err: BaseException) -> None:
@@ -247,6 +430,56 @@ class ContinuousBatchingEngine:
         self.stats.incr("requests_abandoned")
         self._settle(req)
 
+    def _shed_deadline(self, req: Request) -> None:
+        waited = time.monotonic() - req.enqueued_at if req.enqueued_at else 0.0
+        self.stats.incr("requests_shed_deadline")
+        self._resolve_error(req, QueueDeadlineError(
+            f"request waited {waited:.2f}s queued, over the {self._queue_deadline_s}s "
+            "deadline; shed before prefill", retry_after_s=self._retry_after()))
+
+    def _resolve_displaced(self, req: Request) -> None:
+        """Settle a queued request that a higher-tier arrival displaced from
+        the full queue: a tier-labelled 429."""
+        self.stats.incr("requests_shed_overflow")
+        self.stats.tier_shed_incr(req.priority)
+        self._resolve_error(req, QueueOverflowError(
+            f"request (tier {req.priority!r}) displaced from the full queue by a "
+            "higher-priority arrival", retry_after_s=self._retry_after(), tier=req.priority))
+
+    def _cancel_deadline_queued(self, req: Request) -> None:
+        """The client's deadline expired before prefill: 504 with the tokens
+        an earlier preempted run banked (usually none)."""
+        waited = time.monotonic() - req.enqueued_at if req.enqueued_at else 0.0
+        self.stats.incr("requests_shed_deadline")
+        self._resolve_error(req, DeadlineExceededError(
+            f"deadline expired after {waited:.2f}s, before prefill",
+            tokens=tuple(req.preempted_tokens)))
+
+    def _cancel_deadline_decode(self, slot: int, req: Request) -> None:
+        """The client's deadline expired while the request held a slot:
+        504 with the tokens so far, and the slot (and its blocks) free this
+        tick."""
+        tokens = req.preempted_tokens + self._slot_tokens[slot]
+        self.stats.incr("requests_shed_deadline_decode")
+        self._resolve_error(req, DeadlineExceededError(
+            f"deadline expired mid-decode after {len(tokens)} token(s)", tokens=tuple(tokens)))
+        self._release(slot)
+
+    def _pre_admit_resolve(self, req: Request) -> bool:
+        """Settle a waiter that must not be admitted (its waiter gave up, it
+        was displaced, or a deadline passed); True when it was."""
+        if req.abandoned:
+            self._settle_abandoned(req)
+        elif req.shed_by_pressure:
+            self._resolve_displaced(req)
+        elif self._expired(req):
+            self._shed_deadline(req)
+        elif self._deadline_expired(req):
+            self._cancel_deadline_queued(req)
+        else:
+            return False
+        return True
+
     # ---------------------------------------------------------------- worker
 
     def _run(self) -> None:
@@ -255,15 +488,23 @@ class ContinuousBatchingEngine:
             return
         except Exception as e:  # worker boundary: fail every request, then stop
             log.exception("%s worker failed", type(self).__name__)
-            self._error = e
-        err = RuntimeError(f"engine failed: {self._error!r}")
-        for req in [r for r in self._slot_req if r is not None] + self._waiting:
-            self._resolve_error(req, err)
+            err = FatalEngineError(f"fatal engine failure: {type(e).__name__}: {e}")
+            err.__cause__ = e
+            self._terminal = err  # before resolving, so every waiter sees it
+        self._fail_inflight(err)
+        while self._waiting:
+            self._resolve_error(self._waiting.pop(0), err)
         while True:  # and every request that raced the failure, until close()
             req = self._q.get()
             if req is None:
                 return
             self._resolve_error(req, err)
+
+    def _fail_inflight(self, err: ServingError) -> None:
+        for slot, req in enumerate(self._slot_req):
+            if req is not None:
+                self._resolve_error(req, err)
+                self._release(slot)
 
     def _serve_loop(self) -> None:
         closing = False
@@ -286,7 +527,7 @@ class ContinuousBatchingEngine:
         return True
 
     def _drain_queue(self, block: bool) -> bool:
-        """Move queued requests to the waiting list; True once ``close``
+        """Move queued requests to the priority buffer; True once ``close``
         was called (the work already queued is still served)."""
         closing = False
         while True:
@@ -300,34 +541,151 @@ class ContinuousBatchingEngine:
                 self._waiting.append(req)
             block = False
 
+    # ------------------------------------------------------ overload control
+
+    def _shed_marked(self) -> None:
+        """Resolve the waiters a submit thread marked for displacement."""
+        for i in range(len(self._waiting) - 1, -1, -1):
+            if self._waiting[i].shed_by_pressure:
+                self._resolve_displaced(self._waiting.pop(i))
+
+    def _effective_tier(self, req: Request, now: float) -> int:
+        """The tier that orders admission: every ``age_promote_s`` of
+        waiting promotes a request one tier, so a flood of a higher tier
+        cannot park it forever."""
+        if self._age_promote_s <= 0:
+            return req.tier
+        waited = now - req.enqueued_at if req.enqueued_at else 0.0
+        return max(0, req.tier - int(waited / self._age_promote_s))
+
+    def _select_waiting(self) -> int:
+        """Index of the next waiter to admit: lowest (aged tier, arrival)."""
+        now = time.monotonic()
+        return min(range(len(self._waiting)),
+                   key=lambda i: (self._effective_tier(self._waiting[i], now), self._waiting[i].id))
+
+    def _effective_prompt(self, req: Request) -> List[int]:
+        """What to prefill: the prompt plus any tokens a preemption banked;
+        decode then goes on where the preempted run stopped."""
+        return list(req.prompt) + list(req.preempted_tokens)
+
+    def _budget_cap(self, req: Request) -> int:
+        """The new tokens still owed: banked tokens count against
+        ``max_new_tokens``, and brownout stage 2+ caps best_effort output.
+        At least 1 (the prefill emits one token)."""
+        cap = int(req.gen.max_new_tokens)
+        if self._brownout_stage >= 2 and req.tier >= _BEST_EFFORT:
+            cap = min(cap, self._brownout_cap_tokens)
+        return max(1, cap - len(req.preempted_tokens))
+
+    def _preempt_victim(self, tier: int) -> Optional[int]:
+        """The slot to preempt for an arrival of raw tier ``tier``: the
+        youngest live request of the worst strictly lower tier (equal tiers
+        never preempt each other); None when there is none. Slots still
+        prefilling are never preempted."""
+        victim, vkey = None, None
+        for slot in range(self._slots):
+            req = self._slot_req[slot]
+            if req is None or not self._live[slot] or req.tier <= tier:
+                continue
+            if vkey is None or (req.tier, req.id) > vkey:
+                victim, vkey = slot, (req.tier, req.id)
+        return victim
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Bank the slot's tokens on its request, free the slot now and
+        requeue the request; it resumes with one prefill over prompt +
+        banked tokens and the remaining budget."""
+        req = self._slot_req[slot]
+        req.preempted_tokens.extend(self._slot_tokens[slot])
+        req.preemptions += 1
+        self.stats.incr("preemptions")
+        self._release(slot)
+        self._waiting.append(req)
+
+    def _occupancy(self) -> float:
+        """KV pool occupancy in [0, 1]; the dense cache is allocated per
+        slot up front, so only the paged engine reports one."""
+        return 0.0
+
+    def _pressure(self) -> float:
+        """The overload signal: the largest of the queue-wait EWMA over its
+        budget, the pool's occupancy and the predicted drain time of the
+        backlog over its budget, each near 1.0 at the edge of trouble."""
+        backlog = self.queue_depth + int(self._live.sum())
+        drain = self._avg_service_s * backlog / self._slots
+        return max(self._queue_wait_ewma / self._brownout_queue_wait_s, self._occupancy(),
+                   drain / self._brownout_drain_s)
+
+    def _update_brownout(self) -> None:
+        """Move the stage toward the pressure, stepping down only once the
+        pressure is a hysteresis band below the threshold that raised it."""
+        if self.queue_depth == 0:
+            # an empty queue observes zero wait: without it a drained burst
+            # would leave the EWMA at its peak
+            self._queue_wait_ewma += 0.2 * (0.0 - self._queue_wait_ewma)
+        p = self._pressure()
+        stage, th = self._brownout_stage, self.BROWNOUT_THRESHOLDS
+        while stage < len(th) and p >= th[stage]:
+            stage += 1
+        while stage > 0 and p < th[stage - 1] - self.BROWNOUT_HYSTERESIS:
+            stage -= 1
+        if stage != self._brownout_stage:
+            self._brownout_stage = stage
+            self.stats.gauge("brownout_stage", stage)
+
+    def _observe_admission(self, req: Request, now: float) -> None:
+        """Queue wait at a request's first admission only: a resumed
+        request's time since enqueue mixes decode and queue time."""
+        if req.enqueued_at and req.preemptions == 0:
+            wait = now - req.enqueued_at
+            self.stats.observe("queue_wait_s", wait)
+            self._queue_wait_ewma += 0.2 * (wait - self._queue_wait_ewma)
+
     def _admit(self) -> None:
-        """Admit in arrival order while a slot is free (and the request's
-        ``_plan`` can be met); shed abandoned waiters on the way."""
+        """Fill free slots in (aged tier, arrival) order. When no slot is
+        free (or, paged, no blocks) and the chosen waiter outranks a live
+        request, preempt the youngest live request of the worst tier: it
+        requeues behind the admission."""
+        self._shed_marked()
+        self._update_brownout()
         while self._waiting:
-            req = self._waiting[0]
-            if req.abandoned:
-                self._waiting.pop(0)
-                self._settle_abandoned(req)
+            idx = self._select_waiting()
+            req = self._waiting[idx]
+            if self._pre_admit_resolve(req):
+                del self._waiting[idx]
                 continue
             free = [s for s in range(self._slots) if self._slot_req[s] is None]
-            if not free:
-                return
-            try:
-                plan = self._plan(req)
-            except (ValueError, RuntimeError) as e:  # cannot fit: reject this request only
-                self._waiting.pop(0)
-                self._resolve_error(req, e)
-                continue
+            plan = None
+            if free:
+                try:
+                    plan = self._plan(req)
+                except (ValueError, RuntimeError) as e:  # cannot fit: reject this request only
+                    del self._waiting[idx]
+                    self._resolve_error(req, e)
+                    continue
             if plan is None:
-                return  # room frees as slots retire; the head waits
-            self._waiting.pop(0)
-            self._insert(req, free[0], plan)
+                victim = self._preempt_victim(req.tier)
+                if victim is None:
+                    return  # nothing live ranks below it: it waits for retirements
+                self._preempt_slot(victim)
+                continue
+            del self._waiting[idx]
+            try:
+                self._insert(req, free[0], plan)
+            except BaseException:
+                # a device failure inside the prefill: the request goes back
+                # to the buffer, where the worker's failure path resolves it
+                if self._slot_req[free[0]] is not req:
+                    self._waiting.append(req)
+                raise
 
     def _plan(self, req: Request) -> Optional[dict]:
-        """Check that the prompt fits: the prefill bucket and the token
-        budget. The budget stops decode before the buffer's end, so
-        slot == position holds for every token the slot emits."""
-        plen = len(req.prompt)
+        """Check that the prompt (with any banked tokens) fits: the prefill
+        bucket and the token budget. The budget stops decode before the
+        buffer's end, so slot == position holds for every token emitted."""
+        prompt = self._effective_prompt(req)
+        plen = len(prompt)
         if plen == 0:
             raise ValueError("the continuous engine needs a non-empty prompt")
         if plen >= self._buf_len:
@@ -335,18 +693,17 @@ class ContinuousBatchingEngine:
                 f"prompt of {plen} tokens does not fit the engine's "
                 f"{self._buf_len}-slot KV buffer (need >= 1 decode slot)"
             )
-        return {"plen": plen,
+        return {"prompt": prompt, "plen": plen,
                 "bucket": min(-(-plen // self._bucket) * self._bucket, self._buf_len),
-                "budget": min(req.gen.max_new_tokens, self._buf_len - plen)}
+                "budget": min(self._budget_cap(req), self._buf_len - plen)}
 
     def _insert(self, req: Request, slot: int, plan: dict) -> None:
         """Prefill the prompt into ``slot`` and emit its first token."""
         t0 = time.monotonic()
-        if req.enqueued_at:
-            self.stats.observe("queue_wait_s", t0 - req.enqueued_at)
+        self._observe_admission(req, t0)
         plen = plan["plen"]
         padded = np.zeros((1, plan["bucket"]), np.int64)
-        padded[0, :plen] = req.prompt
+        padded[0, :plen] = plan["prompt"]
         first = self._generator.slot_prefill(self._cache, self._state, padded, plen, slot,
                                              req.gen, req.seed)
         self._now = time.monotonic()  # slot_prefill read its token: synced
@@ -363,10 +720,12 @@ class ContinuousBatchingEngine:
         self._emit_token(slot, req, first, from_decode=False)
 
     def _tick_done(self, t0: float) -> None:
-        """After a decode step: stamp the tick clock, observe the tick."""
+        """After a decode step: stamp the tick clock, observe the tick and
+        move the brownout stage."""
         self._now = time.monotonic()
         self.stats.observe("decode_tick_s", self._now - t0)
         self.stats.incr("decode_steps")
+        self._update_brownout()
 
     def _decode_once(self) -> None:
         t0 = time.monotonic()
@@ -377,15 +736,17 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------ speculative
 
     def _slot_ctx(self, slot: int) -> np.ndarray:
-        """The slot's tokens, prompt and generated; its length - 1 is the
-        slot's position on the device."""
-        return np.asarray(self._slot_req[slot].prompt + self._slot_tokens[slot], np.int64)
+        """The slot's tokens, prompt (with banked tokens) and generated; its
+        length - 1 is the slot's position on the device."""
+        req = self._slot_req[slot]
+        return np.asarray(self._effective_prompt(req) + self._slot_tokens[slot], np.int64)
 
     def _spec_want(self, slot: int) -> int:
         """The drafts this slot asks for this tick: its request's K capped by
-        the engine's; 0 for dead slots and requests that do not speculate."""
+        the engine's; 0 for dead slots, requests that do not speculate, and
+        at brownout stage 1+ (the fused tick still runs, with no drafts)."""
         req = self._slot_req[slot]
-        if req is None or not self._live[slot]:
+        if req is None or not self._live[slot] or self._brownout_stage >= 1:
             return 0
         return min(int(req.gen.speculative_lookup), self._spec_k)
 
@@ -442,6 +803,9 @@ class ContinuousBatchingEngine:
                 self._settle_abandoned(req)
                 self._release(slot)
                 continue
+            if self._deadline_expired(req, self._now):
+                self._cancel_deadline_decode(slot, req)
+                continue
             proposed, m = int(n_draft[slot]), int(n_emit[slot])
             if proposed:
                 accepted = max(m - 1, 0)
@@ -457,7 +821,7 @@ class ContinuousBatchingEngine:
 
     def _emit_tokens(self, toks: np.ndarray) -> None:
         """Hand each live slot its token of this tick; shed the slots whose
-        waiter is gone."""
+        waiter is gone or whose deadline passed."""
         for slot in range(self._slots):
             req = self._slot_req[slot]
             if req is None or not self._live[slot]:
@@ -465,6 +829,9 @@ class ContinuousBatchingEngine:
             if req.abandoned:
                 self._settle_abandoned(req)
                 self._release(slot)
+                continue
+            if self._deadline_expired(req, self._now):
+                self._cancel_deadline_decode(slot, req)
                 continue
             self._emit_token(slot, req, int(toks[slot]))
 
@@ -492,13 +859,17 @@ class ContinuousBatchingEngine:
             self._finish(slot, req)
 
     def _finish(self, slot: int, req: Request) -> None:
-        req.result = list(self._slot_tokens[slot])
+        # banked tokens lead the result: the client sees one sequence
+        # however often the request was preempted
+        req.result = req.preempted_tokens + self._slot_tokens[slot]
         if req.draft_tokens_proposed:
             req.spec_acceptance = req.draft_tokens_accepted / req.draft_tokens_proposed
         elif self._spec_k > 0 and req.gen.speculative_lookup > 0:
             req.spec_acceptance = 0.0  # asked to speculate, nothing was drafted
         if req.tokens_q is not None:
             req.tokens_q.put(None)
+        if req.enqueued_at:  # the service-time EWMA behind the Retry-After hints
+            self._avg_service_s += 0.2 * (time.monotonic() - req.enqueued_at - self._avg_service_s)
         self.stats.incr("requests_completed")
         self._settle(req)
         self._release(slot)
@@ -513,11 +884,12 @@ class ContinuousBatchingEngine:
 class _PrefillTask:
     """One admitted request's remaining prefill work."""
 
-    __slots__ = ("req", "slot", "keys", "plen", "next")
+    __slots__ = ("req", "slot", "prompt", "keys", "plen", "next")
 
-    def __init__(self, req: Request, slot: int, keys, plen: int, next_: int):
+    def __init__(self, req: Request, slot: int, prompt: List[int], keys, plen: int, next_: int):
         self.req = req
         self.slot = slot
+        self.prompt = prompt  # the prompt plus any banked tokens
         self.keys = keys  # full-block prefix keys (PrefixCache.block_keys)
         self.plen = plen
         self.next = next_  # first logical position not yet prefilled
@@ -525,9 +897,9 @@ class _PrefillTask:
 
 class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     """The continuous engine over a block-paged KV pool. A request that
-    cannot get blocks yet waits at the head of the queue until a retirement
-    frees some. Dead rows decode with all-null tables, so their writes land
-    in the null block. ``kv_quant="int8"`` stores the pool as int8 codes with
+    cannot get blocks yet preempts a live request of a strictly lower tier,
+    or keeps its turn until a retirement frees some. Dead rows decode with
+    all-null tables, so their writes land in the null block. ``kv_quant="int8"`` stores the pool as int8 codes with
     per-block scales, and every decode step's attention then runs the paged
     decode kernel."""
 
@@ -543,7 +915,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         kv_quant: str = "none",
         stats: Optional[ServingStats] = None,
         speculative_k: int = 0,
+        **overload,
     ):
+        """``overload``: the base engine's admission, deadline, priority and
+        brownout settings."""
         slots = max(1, int(slots))
         self._block_len = max(1, int(block_len))
         self._prefill_chunk = max(1, int(prefill_chunk))
@@ -566,7 +941,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # the base starts the worker last: every paged field exists by then
         super().__init__(generator, slots=slots, buf_len=buf_len, prompt_bucket=prompt_bucket,
                          stats=stats or ServingStats(slots, total_blocks=self._num_blocks - 1),
-                         speculative_k=speculative_k)
+                         speculative_k=speculative_k, **overload)
 
     def _init_state(self):
         return self._generator.init_paged_state(self._slots, self._num_blocks, self._block_len,
@@ -609,8 +984,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def _plan(self, req: Request) -> Optional[dict]:
         """Match the prefix cache and reserve every block the request can
-        touch (prefill pads included, all or nothing). None: wait."""
-        prompt = req.prompt
+        touch (prefill pads included, all or nothing). None: no blocks now.
+        A preempted request plans over prompt + banked tokens with its
+        remaining budget, so its block total never grows across resumes."""
+        prompt = self._effective_prompt(req)
         plen = len(prompt)
         if plen == 0:
             raise ValueError("the paged engine needs a non-empty prompt")
@@ -620,7 +997,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 f"{self._buf_len}-position budget (need >= 1 decode position)"
             )
         L = self._block_len
-        budget_end = min(plen + max(1, int(req.gen.max_new_tokens)), self._buf_len)
+        budget_end = min(plen + self._budget_cap(req), self._buf_len)
         keys = self._prefix.block_keys(prompt)
         # at least one suffix token must prefill: the first sampled token
         # needs the last prompt token's logits
@@ -655,14 +1032,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 f"block pool exhausted with no traffic in flight "
                 f"({self._allocator.free_count}/{usable} free, need {nprivate})"
             )
-        return {"keys": keys, "shared": shared, "private": private, "plen": plen,
-                "budget": budget_end - plen}
+        return {"prompt": prompt, "keys": keys, "shared": shared, "private": private,
+                "plen": plen, "budget": budget_end - plen}
 
     def _insert(self, req: Request, slot: int, plan: dict) -> None:
         """Map the reserved blocks into the slot's table and queue the
         prefill; the slot goes live when its final chunk lands."""
-        if req.enqueued_at:
-            self.stats.observe("queue_wait_s", time.monotonic() - req.enqueued_at)
+        self._observe_admission(req, time.monotonic())
         ids = plan["shared"] + plan["private"]
         self._table[slot, : len(ids)] = ids
         self._table[slot, len(ids):] = NULL_BLOCK
@@ -677,7 +1053,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.stats.incr("prefix_tokens_reused", shared_len)
         if shared_len:
             self._prefix_hits += 1
-        self._prefills.append(_PrefillTask(req, slot, plan["keys"], plan["plen"], shared_len))
+        self._prefills.append(_PrefillTask(req, slot, plan["prompt"], plan["keys"], plan["plen"],
+                                           shared_len))
 
     def _prefill_tick(self) -> None:
         """Run ONE prefill chunk of the oldest pending prompt."""
@@ -689,12 +1066,23 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._settle_abandoned(req)
             self._release(task.slot)
             return
+        if self._deadline_expired(req):
+            # at prefill start and at every chunk boundary: an expired
+            # request stops ingesting and frees its blocks this tick
+            self._prefills.pop(0)
+            self.stats.incr("requests_shed_deadline_decode")
+            self._resolve_error(req, DeadlineExceededError(
+                f"deadline expired during prefill ({task.next}/{task.plen} positions "
+                "ingested)", tokens=tuple(req.preempted_tokens)))
+            self._release(task.slot)
+            return
+        prompt = task.prompt
         t0 = time.monotonic()
         C = self._prefill_chunk
         remaining = task.plen - task.next
         table = self._table[task.slot: task.slot + 1]
         if remaining > C:
-            chunk = np.asarray(req.prompt[task.next: task.next + C], np.int64)[None, :]
+            chunk = np.asarray(prompt[task.next: task.next + C], np.int64)[None, :]
             gen.paged_prefill_chunk(self._cache, table, chunk, task.next)
             task.next += C
             self.stats.incr("prefill_chunks")
@@ -708,9 +1096,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # the JAX engine.
         bucket = -(-remaining // self._bucket) * self._bucket
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :remaining] = req.prompt[task.next:]
+        padded[0, :remaining] = prompt[task.next:]
         seen_row = np.zeros((1, gen.config.vocab_size), bool)
-        seen_row[0, np.asarray(req.prompt, np.intp)] = True
+        seen_row[0, np.asarray(prompt, np.intp)] = True
         first = gen.paged_prefill_final(
             self._cache, self._state, table, padded, task.next, task.plen,
             seen_row, task.slot, req.gen, req.seed,
@@ -724,7 +1112,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             # the draft keeps a dense row even here: mirror the whole prompt
             dbucket = min(-(-task.plen // self._bucket) * self._bucket, self._buf_len)
             dpad = np.zeros((1, dbucket), np.int64)
-            dpad[0, : task.plen] = req.prompt
+            dpad[0, : task.plen] = prompt
             gen.draft_slot_prefill(self._dcache, dpad, task.slot)
         # register the prompt's FULL blocks for reuse before emitting (the
         # first token may already finish the request and free the slot)
@@ -775,6 +1163,31 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._tick_done(t0)  # the step read its tokens back: synced
         self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)
         self._emit_spec(toks, n_emit, n_draft)
+
+    # ------------------------------------------------------ overload control
+
+    def _fail_inflight(self, err: ServingError) -> None:
+        self._prefills.clear()  # their requests resolve through _slot_req
+        super()._fail_inflight(err)
+
+    def _occupancy(self) -> float:
+        return self._allocator.used_count / max(1, self._num_blocks - 1)
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Bank the victim's full context blocks in the prefix cache before
+        the slot is released, keyed by prompt + banked + generated tokens:
+        the resume's ``_plan`` computes the same keys, matches them, and
+        prefills only the tail. The last emitted token's K/V is not written
+        yet (the next step would write it), so ``(ctx - 1) // block_len``
+        blocks are bankable. Under continued pressure the cache's LRU may
+        evict them; the resume then prefills everything."""
+        req = self._slot_req[slot]
+        ctx = list(req.prompt) + list(req.preempted_tokens) + self._slot_tokens[slot]
+        full = (len(ctx) - 1) // self._block_len
+        if full > 0:
+            keys = self._prefix.block_keys(ctx)
+            self._prefix.insert(keys[:full], self._slot_blocks[slot][:full])
+        super()._preempt_slot(slot)
 
     def _release(self, slot: int) -> None:
         for bid in self._slot_blocks[slot]:

@@ -1,10 +1,13 @@
 """HTTP serving of the port (counterpart of the JAX ``infer/server.py`` for
 one engine on one card):
 
-  GET  /healthz      -> 200 "ok"
+  GET  /healthz      -> 200 "ok"; 503 {"status": "unhealthy",
+                        "circuit_state", "error"} once a slot engine's
+                        worker died
   POST /v1/generate  {"question": ..., optional "system_prompt", "greedy",
                       "seed", "max_new_tokens", "temperature", "top_p",
-                      "top_k", "repetition_penalty", "speculative"}
+                      "top_k", "repetition_penalty", "speculative",
+                      "priority", "deadline_ms"}
                      -> {"answer": ...}, plus a "speculative" block (the
                      request's own acceptance rate and draft counts) when
                      it asked to speculate
@@ -12,7 +15,8 @@ one engine on one card):
                      engine) -> Server-Sent Events over chunked transfer:
                      one ``data: {"delta": ...}`` per decoded text delta,
                      then ``data: {"done": true, "n_tokens": N}``, or
-                     ``event: error`` if the request fails mid-stream
+                     ``event: error`` with the error's body if the request
+                     fails mid-stream
   GET  /v1/stats     -> {"engine": ..., **engine.stats_snapshot()}
   GET  /metrics      -> the same snapshot and the latency histograms as
                         Prometheus text
@@ -35,6 +39,18 @@ requests to a window engine that the server keeps beside it, whose
 ``/v1/stream`` speculates only on a slot engine started with
 ``--speculative``, and answers 400 otherwise.
 
+Overload control (the continuous and paged engines, as in the JAX server):
+``"priority"`` names a tier (``interactive``, ``batch``, ``best_effort``;
+``--priority-default`` otherwise) and ``"deadline_ms"`` the client's budget
+for the whole request; ``--max-queue-depth`` bounds the queue (429 past
+it), ``--queue-deadline-s`` sheds requests queued that long (503),
+``--age-promote-s`` ages waiters up a tier, and ``--brownout-queue-wait-s``,
+``--brownout-drain-s`` and ``--brownout-cap-tokens`` set the brownout
+controller. Every failure of a request maps through
+``infer/errors.error_payload`` to its status and a ``{"error": {...}}``
+body, with ``Retry-After`` in whole seconds where the engine gives a hint.
+The window engine admits in arrival order and refuses both fields.
+
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
 [--quantize int8] [--speculative K [--draft-dir DIR]]``. It serves on the GPU;
@@ -47,6 +63,7 @@ already in memory (random weights, for instance) without a model directory.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -57,11 +74,12 @@ import torch
 
 from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
 from llm_fine_tune_distributed_tpu_torch.device import resolve_device
-from llm_fine_tune_distributed_tpu_torch.infer.batching import BatchingEngine
+from llm_fine_tune_distributed_tpu_torch.infer.batching import PRIORITY_TIERS, BatchingEngine
 from llm_fine_tune_distributed_tpu_torch.infer.engine import (
     ContinuousBatchingEngine,
     PagedContinuousBatchingEngine,
 )
+from llm_fine_tune_distributed_tpu_torch.infer.errors import ServingError, error_payload
 from llm_fine_tune_distributed_tpu_torch.infer.generate import (
     Generator,
     load_model_dir,
@@ -89,7 +107,31 @@ _FIELD_CASTS = {
     "repetition_penalty": float,
 }
 # request fields of the JAX server whose features are not ported
-_UNPORTED_FIELDS = ("adapter", "priority", "deadline_ms", "trace")
+_UNPORTED_FIELDS = ("adapter", "trace")
+
+
+def parse_overload_fields(req: dict, kind: str):
+    """``priority`` (a tier name) and ``deadline_ms`` (the client's budget
+    for the whole request) of a request body -> (priority, deadline_s), with
+    the JAX server's 400 messages. Both need a slot engine: the window
+    engine has no scheduler tick to enforce either."""
+    priority = req.get("priority") or None
+    if priority is not None:
+        if priority not in PRIORITY_TIERS:
+            raise ValueError(f"'priority' must be one of {PRIORITY_TIERS}, got {priority!r}")
+        if kind == "window":
+            raise ValueError("'priority' needs a continuous/paged engine; this server runs "
+                             "the window engine, which admits FIFO")
+    deadline_s = None
+    if req.get("deadline_ms") is not None:
+        deadline_s = float(req["deadline_ms"]) / 1000.0
+        if not deadline_s > 0:
+            raise ValueError("'deadline_ms' must be a positive number of milliseconds, "
+                             f"got {req['deadline_ms']!r}")
+        if kind == "window":
+            raise ValueError("'deadline_ms' needs a continuous/paged engine; this server runs "
+                             "the window engine, which cannot cancel mid-decode")
+    return priority, deadline_s
 
 
 def check_engine(engine: str, quantize_kv: str, speculative_k: int = 0,
@@ -138,6 +180,16 @@ class _ClientGone(Exception):
     """A write to the client failed: it closed the connection."""
 
 
+def _pieces(first: Optional[int], tokens):
+    """A slot engine's stream as one-token pieces, its first token already
+    read (None: the request ended without one)."""
+    if first is None:
+        return
+    yield [first]
+    for t in tokens:
+        yield [t]
+
+
 def _stable_prefix(text: str) -> str:
     """``text`` without its trailing U+FFFD: a byte sequence cut mid
     character decodes to a replacement character that later bytes may
@@ -162,6 +214,13 @@ def build_server(
     request_timeout_s: Optional[float] = 600.0,
     template_kwargs: Optional[dict] = None,
     speculative_k: int = 0,
+    max_queue_depth: int = 256,
+    queue_deadline_s: Optional[float] = None,
+    priority_default: str = "interactive",
+    age_promote_s: float = 5.0,
+    brownout_queue_wait_s: float = 2.0,
+    brownout_drain_s: float = 10.0,
+    brownout_cap_tokens: int = 32,
 ):
     """Start an ``engine`` over ``generator`` and bind an HTTP server to it.
     Returns ``(httpd, engine)``; the caller runs ``httpd.serve_forever`` and,
@@ -169,7 +228,9 @@ def build_server(
     stops the window engine kept beside a slot engine, ``httpd.window_engine``)
     and ``engine.close()``. ``speculative_k`` > 0 runs the slot engine's
     ticks as fused draft-verify steps (a draft model, if the generator has
-    one). ``template_kwargs`` go to the chat template."""
+    one). ``template_kwargs`` go to the chat template. The overload
+    settings (``max_queue_depth`` ... ``brownout_cap_tokens``, the JAX
+    server's defaults) go to the continuous and paged engines."""
     speculative_k = max(0, int(speculative_k or 0))
     check_engine(engine, quantize_kv, speculative_k)
     kind = engine
@@ -177,16 +238,21 @@ def build_server(
     # everything, beside a slot engine started without --speculative it
     # serves the speculative requests
     window = BatchingEngine(generator, max_batch=max_batch, window_ms=batch_window_ms)
+    overload = dict(max_queue_depth=max_queue_depth, queue_deadline_s=queue_deadline_s,
+                    priority_default=priority_default, age_promote_s=age_promote_s,
+                    brownout_queue_wait_s=brownout_queue_wait_s,
+                    brownout_drain_s=brownout_drain_s, brownout_cap_tokens=brownout_cap_tokens)
     if kind == "window":
         engine = window
     elif kind == "continuous":
         engine = ContinuousBatchingEngine(generator, slots=slots, buf_len=kv_buf_len,
-                                          prompt_bucket=prompt_bucket, speculative_k=speculative_k)
+                                          prompt_bucket=prompt_bucket, speculative_k=speculative_k,
+                                          **overload)
     else:
         engine = PagedContinuousBatchingEngine(
             generator, slots=slots, buf_len=kv_buf_len, prompt_bucket=prompt_bucket,
             block_len=kv_block_len, prefill_chunk=prefill_chunk, kv_quant=quantize_kv,
-            speculative_k=speculative_k,
+            speculative_k=speculative_k, **overload,
         )
 
     def snapshot() -> dict:
@@ -202,18 +268,36 @@ def build_server(
         def log_message(self, fmt, *args):  # quiet: one line per request at debug
             log.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send(self, code: int, payload, content_type: Optional[str] = None) -> None:
+        def _send(self, code: int, payload, content_type: Optional[str] = None,
+                  headers: Optional[dict] = None) -> None:
             body = (payload if isinstance(payload, str) else json.dumps(payload)).encode()
             self.send_response(code)
             self.send_header("Content-Type", content_type or (
                 "text/plain" if isinstance(payload, str) else "application/json"))
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, str(v))
             self.end_headers()
             self.wfile.write(body)
 
+        def _send_error(self, exc: BaseException) -> None:
+            """Any failure through the taxonomy: its status, the structured
+            body, and Retry-After when the engine gave a hint (rounded up to
+            a positive whole number of seconds)."""
+            status, payload, retry_after = error_payload(exc)
+            headers = {}
+            if retry_after is not None:
+                headers["Retry-After"] = max(1, int(-(-retry_after // 1)))
+            self._send(status, payload, headers=headers)
+
         def do_GET(self):  # noqa: N802 (stdlib casing)
             if self.path == "/healthz":
-                self._send(200, "ok")
+                if kind != "window" and not engine.healthy:
+                    # the worker died: ask the orchestrator for a restart
+                    self._send(503, {"status": "unhealthy", "circuit_state": engine.circuit_state,
+                                     "error": engine.terminal_error.to_dict()})
+                else:
+                    self._send(200, "ok")
             elif self.path == "/v1/stats":
                 self._send(200, snapshot())
             elif self.path == "/metrics":
@@ -225,7 +309,8 @@ def build_server(
 
         def _parse(self):
             """The request body -> (prompt ids, GenerationConfig, seed, the
-            body); ValueError, KeyError or TypeError for a bad body."""
+            body, priority, deadline_s); ValueError, KeyError or TypeError
+            for a bad body."""
             length = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(length) or b"{}")
             if not isinstance(req, dict):
@@ -239,20 +324,32 @@ def build_server(
                 gen_kwargs["do_sample"] = not req["greedy"]
             if "speculative" in req:
                 gen_kwargs["speculative_lookup"] = int(req["speculative"])
+            priority, deadline_s = parse_overload_fields(req, kind)
+            if ((priority is not None or deadline_s is not None)
+                    and gen_kwargs.get("speculative_lookup", 0) > 0 and not speculative_k):
+                # a speculative request on a slot engine without
+                # --speculative rides the window engine, which has no
+                # scheduler to honour either field
+                raise ValueError(
+                    "'priority'/'deadline_ms' with 'speculative' needs the server started "
+                    "with --speculative K (on a K=0 engine speculative requests fall back to "
+                    "the window engine); drop 'speculative' or restart with --speculative K"
+                )
             messages = [
                 {"role": "system",
                  "content": req.get("system_prompt", WILDERNESS_EXPERT_SYSTEM_PROMPT)},
                 {"role": "user", "content": question},
             ]
             prompt_ids = generator.encode_chat(messages, **(template_kwargs or {}))
-            return prompt_ids, GenerationConfig(**gen_kwargs), int(req.get("seed", 0)), req
+            return (prompt_ids, GenerationConfig(**gen_kwargs), int(req.get("seed", 0)), req,
+                    priority, deadline_s)
 
         def do_POST(self):  # noqa: N802
             if self.path not in ("/v1/generate", "/v1/stream"):
                 self._send(404, {"error": "not found"})
                 return
             try:
-                prompt_ids, gen, seed, req = self._parse()
+                prompt_ids, gen, seed, req, priority, deadline_s = self._parse()
                 stream_chunk = int(req.get("stream_chunk", 8))
                 if stream_chunk < 1:
                     raise ValueError(f"stream_chunk must be >= 1, got {stream_chunk}")
@@ -261,22 +358,24 @@ def build_server(
             except (ValueError, KeyError, TypeError) as e:
                 self._send(400, {"error": f"bad request: {e}"})
                 return
+            overload = {} if kind == "window" else dict(priority=priority, deadline_s=deadline_s)
             if self.path == "/v1/stream":
-                self._stream(prompt_ids, gen, seed, stream_chunk)
+                self._stream(prompt_ids, gen, seed, stream_chunk, overload)
                 return
             # speculative requests ride the slot batch of an engine started
             # with --speculative K; otherwise the window engine speculates
             # in generate_batch
-            target = engine if gen.speculative_lookup == 0 or speculative_k else window
+            if kind != "window" and (gen.speculative_lookup == 0 or speculative_k):
+                submit = functools.partial(engine.submit_full, **overload)
+            else:
+                submit = window.submit_full
             try:
-                done = target.submit_full(prompt_ids, gen, seed=seed, timeout=request_timeout_s)
+                done = submit(prompt_ids, gen, seed=seed, timeout=request_timeout_s)
                 answer = generator.decode_reply(done.result)
-            except TimeoutError as e:
-                self._send(503, {"error": str(e)})
-                return
             except Exception as e:  # request boundary: report, keep serving
-                log.exception("generate failed")
-                self._send(500, {"error": str(e)})
+                if not isinstance(e, (ServingError, TimeoutError)):
+                    log.exception("generate failed")
+                self._send_error(e)
                 return
             resp = {"answer": answer}
             if gen.speculative_lookup > 0 and done.spec_acceptance is not None:
@@ -312,21 +411,27 @@ def build_server(
                     "(plain streaming)"
                 )
 
-        def _stream(self, prompt_ids, gen, seed: int, stream_chunk: int) -> None:
+        def _stream(self, prompt_ids, gen, seed: int, stream_chunk: int, overload: dict) -> None:
             """Server-Sent Events, one per decoded text delta. On the slot
             engines the request is admitted before the headers go out, so a
-            refusal still gets a status code. A client that disconnects
-            abandons the request: its slot stops decoding for nobody."""
+            refusal (overflow, brownout, a dead engine) gets its status code
+            and Retry-After. A request shed before its first token (a queue
+            or client deadline) gets them too: the headers wait for the
+            first token. A client that disconnects abandons the request: its
+            slot stops decoding for nobody."""
             if kind == "window":
                 source = generator.generate_stream(prompt_ids, gen, seed=seed, chunk=stream_chunk)
             else:
                 try:
-                    tokens = engine.stream(prompt_ids, gen, seed=seed, timeout=request_timeout_s)
+                    tokens = engine.stream(prompt_ids, gen, seed=seed, timeout=request_timeout_s,
+                                           **overload)
+                    first = next(tokens, None)
                 except Exception as e:  # request boundary: report, keep serving
-                    log.exception("stream admission failed")
-                    self._send(500, {"error": str(e)})
+                    if not isinstance(e, (ServingError, TimeoutError)):
+                        log.exception("stream admission failed")
+                    self._send_error(e)
                     return
-                source = ([t] for t in tokens)
+                source = _pieces(first, tokens)
             try:
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
@@ -367,8 +472,9 @@ def build_server(
             except _ClientGone:
                 raise
             except Exception as e:  # the request failed mid-stream: say so, then end
-                log.exception("stream failed")
-                event({"type": type(e).__name__, "message": str(e)}, name="error")
+                if not isinstance(e, (ServingError, TimeoutError)):
+                    log.exception("stream failed")
+                event(error_payload(e)[1]["error"], name="error")
             try:
                 self.wfile.write(b"0\r\n\r\n")
             except OSError as e:
@@ -452,6 +558,29 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--draft-dir", default=None, metavar="DIR",
                         help="model directory of a draft model of the same vocabulary for "
                              "--speculative (default: prompt lookup)")
+    parser.add_argument("--max-queue-depth", type=int, default=256,
+                        help="bounded admission: requests beyond this many waiters are shed "
+                             "with 429 + Retry-After (0 = unbounded)")
+    parser.add_argument("--queue-deadline-s", type=float, default=0.0,
+                        help="shed requests still queued after this many seconds BEFORE "
+                             "prefill (503, retryable; 0 = no deadline)")
+    parser.add_argument("--priority-default", choices=PRIORITY_TIERS, default="interactive",
+                        help="continuous/paged engines: priority tier assumed for requests "
+                             "that send no 'priority' field (admission orders by aged tier; "
+                             "under pressure the lowest tier sheds and preempts first)")
+    parser.add_argument("--age-promote-s", type=float, default=5.0,
+                        help="anti-starvation: every this-many seconds a queued request "
+                             "waits, it is ordered as one tier more important (raw tier "
+                             "still governs shedding/preemption)")
+    parser.add_argument("--brownout-queue-wait-s", type=float, default=2.0,
+                        help="brownout pressure budget: queue-wait EWMA at this many "
+                             "seconds counts as pressure 1.0")
+    parser.add_argument("--brownout-drain-s", type=float, default=10.0,
+                        help="brownout pressure budget: predicted queue drain time at this "
+                             "many seconds counts as pressure 1.0")
+    parser.add_argument("--brownout-cap-tokens", type=int, default=32,
+                        help="brownout stage >= 2: max_new_tokens cap applied to "
+                             "best_effort requests admitted during the brownout")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080, help="0 picks a free port")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -474,7 +603,10 @@ def main(argv: Optional[list] = None) -> int:
         kv_buf_len=args.kv_buf_len, kv_block_len=args.kv_block_len,
         prefill_chunk=args.prefill_chunk, max_batch=args.max_batch,
         batch_window_ms=args.batch_window_ms, speculative_k=args.speculative,
-        draft_dir=args.draft_dir,
+        draft_dir=args.draft_dir, max_queue_depth=args.max_queue_depth,
+        queue_deadline_s=args.queue_deadline_s or None, priority_default=args.priority_default,
+        age_promote_s=args.age_promote_s, brownout_queue_wait_s=args.brownout_queue_wait_s,
+        brownout_drain_s=args.brownout_drain_s, brownout_cap_tokens=args.brownout_cap_tokens,
     )
     return 0
 

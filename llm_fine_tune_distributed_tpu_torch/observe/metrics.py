@@ -72,7 +72,13 @@ class ServingStats:
     engine adds ``prompt_tokens``, ``prefix_tokens_reused`` and
     ``prefill_chunks``. Gauges: ``queue_depth``, ``live_slots``, and the
     paged ``blocks_in_use`` / ``peak_blocks_in_use`` /
-    ``prefix_cache_blocks``. The snapshot derives ``slot_occupancy``,
+    ``prefix_cache_blocks``. Overload control moves
+    ``requests_shed_overflow`` (429: a full queue, a displacement or a
+    brownout shed), ``requests_shed_deadline`` (shed before prefill: the
+    queue deadline or the client's), ``requests_shed_deadline_decode``
+    (the client's deadline after admission), ``preemptions``, the
+    tier-labelled sheds (``tier_shed_incr``), the waste reasons and the
+    ``brownout_stage`` gauge. The snapshot derives ``slot_occupancy``,
     ``prefix_hit_rate``, ``mean_tokens_per_step``, ``goodput_fraction``,
     the pool occupancies when a pool exists (``total_blocks``), a ~1 min
     EWMA of tokens/s (``tokens_per_s_1m``) and each histogram's summary.
@@ -117,6 +123,7 @@ class ServingStats:
         self.slots = int(slots)
         self.total_blocks = int(total_blocks)
         self._values: Dict[str, int] = {k: 0 for k in self.COUNTERS + self.GAUGES}
+        self._tier_shed: Dict[str, int] = {t: 0 for t in self.SHED_TIERS}
         self._waste: Dict[str, int] = {r: 0 for r in self.WASTE_REASONS}
         self.hist: Dict[str, Histogram] = {
             name: (Histogram.linear(0.0, 16.0, 1.0) if name == "spec_run_len"
@@ -142,6 +149,12 @@ class ServingStats:
         """Ratcheting gauge: keep the high-water mark."""
         with self._lock:
             self._values[name] = max(self._values[name], int(value))
+
+    def tier_shed_incr(self, tier: str, n: int = 1) -> None:
+        """Bump one priority tier's shed counter (anything resolved with a
+        tier-labelled 429: overflow, displacement, brownout)."""
+        with self._lock:
+            self._tier_shed[tier] += n
 
     def waste_incr(self, reason: str, n: int) -> None:
         """Charge ``n`` emitted but discarded tokens to one of
@@ -171,7 +184,7 @@ class ServingStats:
             out: Dict[str, Any] = dict(self._values)
             out["tokens_per_s_1m"] = self._tokens_rate(now, out["tokens_served"])
             out["per_tenant"] = {}  # adapters are not ported: no tenants
-            out["requests_shed_by_tier"] = {t: 0 for t in self.SHED_TIERS}
+            out["requests_shed_by_tier"] = dict(self._tier_shed)
             out["wasted_tokens_by_reason"] = dict(self._waste)
         emitted = out["goodput_tokens"] + sum(out["wasted_tokens_by_reason"].values())
         out["goodput_fraction"] = out["goodput_tokens"] / emitted if emitted else 1.0

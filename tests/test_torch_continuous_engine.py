@@ -21,6 +21,7 @@ import torch
 
 from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
 from llm_fine_tune_distributed_tpu_torch.infer.engine import ContinuousBatchingEngine
+from llm_fine_tune_distributed_tpu_torch.infer.errors import FatalEngineError
 from llm_fine_tune_distributed_tpu_torch.infer.generate import Generator
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
@@ -293,10 +294,12 @@ def test_errors_reach_the_waiter(gen, engine):
     assert engine.submit(PROMPTS[0], GREEDY, timeout=TIMEOUT)  # still serving
     eng = ContinuousBatchingEngine(_Wrapped(gen, _failing_step), **GEOMETRY)
     try:
-        with pytest.raises(RuntimeError, match="device lost"):
+        with pytest.raises(FatalEngineError, match="device lost"):
             eng.submit(PROMPTS[0], GREEDY, timeout=30)
-        with pytest.raises(RuntimeError, match="engine stopped"):
+        # a dead engine refuses later submits with its terminal error
+        with pytest.raises(FatalEngineError, match="device lost") as refused:
             eng.submit(PROMPTS[0], GREEDY, timeout=30)
+        assert refused.value is eng.terminal_error and not eng.healthy
         assert eng.stats_snapshot()["requests_failed"] == 1
     finally:
         eng.close()

@@ -16,11 +16,10 @@ JAX_PKG = "llm_fine_tune_distributed_tpu"
 
 
 def _port_modules():
-    pkg = ROOT / PORT
-    return [PORT] + [
-        f"{PORT}.{m.name}"
-        for m in pkgutil.walk_packages([str(pkg)], prefix="")
-    ]
+    """Every module of the port, subpackages' modules included."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return [PORT] + [m.name for m in pkgutil.walk_packages([str(ROOT / PORT)], prefix=f"{PORT}.")]
 
 
 def _sources():
@@ -70,3 +69,12 @@ def test_guard_tells_the_port_from_the_jax_package():
     assert _is_forbidden("llm_fine_tune_distributed_tpu.models")
     assert _is_forbidden("llm_fine_tune_distributed_tpu")
     assert not _is_forbidden("llm_fine_tune_distributed_tpu_torch.models")
+
+
+@pytest.mark.parametrize("module", ["infer.errors", "infer.golden", "eval_golden",
+                                    "infer.engine", "infer.server"])
+def test_the_overload_and_golden_modules_are_covered(module):
+    """The import check reaches the modules of the golden eval and of
+    overload control, not only the top-level ones."""
+    assert f"{PORT}.{module}" in _port_modules()
+    assert ROOT / PORT / (module.replace(".", "/") + ".py") in _sources()
