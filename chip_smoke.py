@@ -111,9 +111,25 @@ and stops with a non-zero exit at the first failure:
    paged decode launches 36 x decode steps across preemption and resume;
    (d) brownout on ``continuous --speculative 4``: the stages the pressure
    passes through, no drafts asked from stage 1, best_effort shed at stage
-   3; (e) one injected tick failure: ``/healthz`` answers 503 with
-   ``circuit_state`` and the terminal error, the request in flight a 500
-   with its body.
+   3; (e) one injected fatal tick failure: ``/healthz`` answers 503 with
+   ``circuit_state`` "fatal" and the terminal error, the request in flight
+   a 500 with its body;
+19. (right after phase 18, on phase 4's generator) supervision: (a) the
+   paged int8 engine restarts in-process after a decode tick fails: both
+   requests in flight get 503 ``engine_restarting`` with Retry-After, the
+   new generation's tokens are held to the solo runs by the margin rule,
+   paged decode launches are 36 x decode steps across the crash and the
+   restart, ``memory_allocated`` after it is within 1 MiB of its value
+   before the fault, and the restart's time beyond its backoff is printed;
+   (b) the same on ``continuous --speculative 4`` with a failing spec tick;
+   (c) ``--circuit-threshold 2``: the second failure opens the circuit
+   (``/healthz`` 503 "open", ``circuit_open`` refusals, a flight artifact
+   holding crash, restart, circuit_open); (d) a drain through
+   ``control["begin_drain"]``: the request in flight finishes with 200, a
+   new one gets 503 ``draining``, ``run_server`` returns; (e) a
+   ``StepWatchdog(1.0, "abort")`` trips 0 times over a normal request and
+   once when a decode tick is slowed by 2 s. Phases 8 and 11 train with
+   the step watchdog armed and must report 0 trips.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -590,7 +606,10 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged", spec=0):
     for prompt, ids in results:
         check(1 <= len(ids) <= MAX_NEW_TOKENS, f"a request generated {len(ids)} tokens")
         check(all(0 <= t < generator.config.vocab_size for t in ids), "token id out of range")
-    check(stats["engine"] == engine and samples[f'serving_info{{engine="{engine}"}}'] == 1,
+    # a slot engine's info line also carries its circuit's state (the JAX schema)
+    info = ('serving_info{engine="window"}' if engine == "window" else
+            f'serving_info{{circuit_state="closed",engine="{engine}"}}')
+    check(stats["engine"] == engine and samples.get(info) == 1,
           f"/v1/stats or /metrics does not name the {engine} engine")
     gen_tok = sum(len(r[1]) for r in results[1:])
     window_s = max(o[3] for o in outs) - window_start
@@ -2123,12 +2142,12 @@ def _brownout_run(server_mod, held, lookups):
 
 
 def overload_repair(server_mod, generator):
-    """18e: one tick failure injected into a started engine (continuous and
-    paged int8): the request in flight gets a 500 with the ``engine_fatal``
-    body, ``/healthz`` answers 503 with ``circuit_state`` and the terminal
-    error, and a later request is refused with the same body."""
-    from llm_fine_tune_distributed_tpu_torch.infer.errors import InjectedFault
-
+    """18e: one fatal tick failure (a class no restart can help, here
+    ``NotImplementedError``; a retryable one restarts the engine, phase 19)
+    injected into a started engine (continuous and paged int8): the request
+    in flight gets a 500 with the ``engine_fatal`` body, ``/healthz``
+    answers 503 with ``circuit_state`` "fatal" and the terminal error, and a
+    later request is refused with the same body."""
     out = {}
     for engine in ("continuous", "paged"):
         held = _Held(generator)
@@ -2138,21 +2157,21 @@ def overload_repair(server_mod, generator):
                    prompt_bucket=PROMPT_BUCKET))
         with _Serving(server_mod, held, **kw) as srv:
             check(_request(srv.base, "/healthz")[::2] == (200, b"ok"), f"18e {engine}: /healthz")
-            held.fail_next = InjectedFault("injected tick failure")
+            held.fail_next = NotImplementedError("injected fatal tick failure")
             status, headers, raw = _request(srv.base, "/v1/generate", _short_body(QUESTIONS[0], 8))
             error = _taxonomy(f"18e {engine} in flight", status, headers, raw, 500,
                               "engine_fatal", retry=False)
             h_status, _, h_raw = _request(srv.base, "/healthz")
             health = json.loads(h_raw)
             later = _request(srv.base, "/v1/stream", _short_body(QUESTIONS[1], 8))
-        check(h_status == 503 and health == {"status": "unhealthy", "circuit_state": "open",
+        check(h_status == 503 and health == {"status": "unhealthy", "circuit_state": "fatal",
                                              "error": error},
               f"18e {engine}: /healthz {h_status} {health}")
         check(later[0] == 500 and json.loads(later[2]) == {"error": error},
               f"18e {engine}: a later stream got {later[0]} {later[2][:200]!r}")
         out[engine] = {"healthz": h_status, "error": error}
-        phase(18, f"18e {engine}: injected tick failure -> in-flight request HTTP 500 "
-                  f"{error['kind']}; /healthz 503 circuit_state open; later /v1/stream refused "
+        phase(18, f"18e {engine}: injected fatal tick failure -> in-flight request HTTP 500 "
+                  f"{error['kind']}; /healthz 503 circuit_state fatal; later /v1/stream refused "
                   "with the same body before any event")
     return out
 
@@ -2177,6 +2196,313 @@ def overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator):
         phase(18, f"18{name} took {seconds[name]:.1f} s")
         gc_cuda()
     out["seconds"] = seconds
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: supervision (restart, circuit, drain, watchdog)
+# ---------------------------------------------------------------------------
+
+RESTART_BACKOFF_S = 0.05
+RESTART_MEMORY_SLACK = 1 << 20  # bytes: memory_allocated after a restart vs before the fault
+DRAIN_TIMEOUT_S = 60
+WATCHDOG_TIMEOUT_S = 1.0  # 19e: far above a decode tick, below the 2 s delay it must catch
+
+
+def _restart_marks(eng):
+    """Time a restart: ``failed`` when the failure reaches ``_recover``,
+    ``built`` when the new generation's ``_startup`` has returned (and its
+    allocations have run), ``startup_s`` the rebuild alone."""
+    marks = {}
+    recover, startup = eng._recover, eng._startup
+
+    def timed_recover(cause):
+        marks.setdefault("failed", time.monotonic())
+        return recover(cause)
+
+    def timed_startup():
+        t0 = time.monotonic()
+        startup()
+        torch.cuda.synchronize()
+        marks["startup_s"] = time.monotonic() - t0
+        marks["built"] = time.monotonic()
+
+    eng._recover, eng._startup = timed_recover, timed_startup
+    return marks
+
+
+def _all_ok(label, responses):
+    statuses = [r[0] for r in responses]
+    check(statuses == [200] * len(responses), f"{label}: statuses {statuses}")
+
+
+def supervision_restart(tf, gen_mod, server_mod, fa, generator):
+    """19a: the paged int8 engine with 2 slots and a 0.05 s backoff. Two
+    32-token greedy requests on the fresh engine (held to their solo runs by
+    the margin rule, plus twice the int8 pool's logit error), the same two
+    again with a decode failure armed 8 ticks ahead (both 503
+    ``engine_restarting`` with Retry-After), then the same two on
+    generation 1: held to their solo runs the same way, and compared with
+    the first run (predicted equal: both ran on a fresh pool). Paged decode
+    launches == 36 x decode steps across the crash and the restart;
+    ``memory_allocated`` after the restart within 1 MiB of its value before
+    the fault; the merge tickets zero."""
+    bodies = [_short_body(QUESTIONS[i], MAX_NEW_TOKENS) for i in range(2)]
+    prompts = [_prompt_ids(generator, b) for b in bodies]
+    solos = [solo_decode(tf, gen_mod, generator, p, MAX_NEW_TOKENS) for p in prompts]
+    floor = 2 * max(int8_kv_noise(tf, generator, p) for p in prompts)
+    fa.paged_decode_attention.launches = 0
+    with _Serving(server_mod, generator, **_paged_kw(slots=OVERLOAD_SLOTS,
+                                                     restart_backoff_s=RESTART_BACKOFF_S)) as srv:
+        eng, base = srv.engine, srv.base
+        marks = _restart_marks(eng)
+
+        def both():
+            joins = [_post_async(base, "/v1/generate", b) for b in bodies]
+            return [join() for join in joins]
+
+        _all_ok("19a generation 0", both())
+        first = {tuple(p): ids for p, ids in srv.results}
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        crash_at = eng._decode_index + 8  # both requests decoding by then
+        eng.faults.fail_decode_at(crash_at)
+        errors = []
+        for i, (status, headers, raw) in enumerate(both()):
+            error = _taxonomy(f"19a crashed request {i}", status, headers, raw, 503,
+                              "engine_restarting")
+            check(error["retryable"] and error["generation"] == 0, f"19a: {error}")
+            errors.append({"retry_after_s": error["retry_after_s"],
+                           "retry_after": headers["Retry-After"]})
+        _wait_for(lambda: "built" in marks and eng.stats_snapshot()["engine_generation"] == 1,
+                  "the restart")
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        tickets_zero = all(not bool(t.any()) for t in fa._TICKETS.values())
+        _all_ok("19a generation 1", both())
+        stats = eng.stats_snapshot()
+        launches = fa.paged_decode_attention.launches
+        after = {tuple(p): ids for p, ids in srv.results[2:]}
+    check(stats["engine_generation"] == 1 and stats["engine_restarts"] == 1
+          and stats["circuit_state"] == "closed", f"19a: generation {stats['engine_generation']}, "
+          f"restarts {stats['engine_restarts']}, circuit {stats['circuit_state']}")
+    check(abs(mem_after - mem_before) <= RESTART_MEMORY_SLACK,
+          f"19a: memory_allocated {mem_before} before the fault, {mem_after} after the restart")
+    check(tickets_zero, "19a: a paged decode merge ticket is not zero after the restart")
+    layers = generator.config.num_layers
+    check(launches == layers * stats["decode_steps"],
+          f"19a: {launches} paged decode launches, want {layers} x {stats['decode_steps']}")
+    agree = {}
+    for run, got in (("generation 0", first), ("generation 1", after)):
+        agree[run] = [margin_agreement(tf, generator, f"19a {run} request {i}", p, got[tuple(p)],
+                                       solo, floor=floor)[0]
+                      for i, (p, solo) in enumerate(zip(prompts, solos))]
+    equal_first = [first[tuple(p)] == after[tuple(p)] for p in prompts]
+    restart_s = marks["built"] - marks["failed"]
+    rec = {"crash_at_decode_tick": crash_at, "retry_after": errors, "launches": launches,
+           "decode_steps": stats["decode_steps"], "memory_before_fault": mem_before,
+           "memory_after_restart": mem_after, "restart_s": restart_s,
+           "restart_less_backoff_s": restart_s - RESTART_BACKOFF_S,
+           "startup_s": marks["startup_s"], "tokens_agreeing_with_solo": agree,
+           "generation_1_equals_generation_0": equal_first, "int8_floor": floor}
+    phase(19, f"19a paged int8, 2 slots: decode tick {crash_at} failed -> both requests HTTP 503 "
+              f"engine_restarting (Retry-After {[e['retry_after'] for e in errors]}); generation 1 "
+              f"after {restart_s * 1e3:.1f} ms, {rec['restart_less_backoff_s'] * 1e3:.1f} ms of it "
+              f"beyond the {RESTART_BACKOFF_S} s backoff (the pool rebuild "
+              f"{marks['startup_s'] * 1e3:.1f} ms); memory_allocated {mem_before} before the fault, "
+              f"{mem_after} after the restart (diff {mem_after - mem_before}); merge tickets zero")
+    phase(19, f"19a tokens equal to the solo runs' (margin rule, int8 floor {floor:.3e}): "
+              f"{agree} of {MAX_NEW_TOKENS}; generation 1 == generation 0 per request: {equal_first}; "
+              f"paged decode launches {launches} == {layers} x {stats['decode_steps']} decode steps "
+              "across the crash and the restart")
+    return rec
+
+
+def supervision_spec(tf, gen_mod, server_mod, generator):
+    """19b: ``--engine continuous --speculative 4``: a request asking for
+    speculation, then the same with the next (fused draft-verify) tick
+    failing: 503 ``engine_restarting``; generation 1 serves it again. Both
+    answers held to the solo run by the margin rule."""
+    body = _short_body(QUESTIONS[2], MAX_NEW_TOKENS, speculative=SPEC_K)
+    prompt = _prompt_ids(generator, body)
+    solo = solo_decode(tf, gen_mod, generator, prompt, MAX_NEW_TOKENS)
+    with _Serving(server_mod, generator, engine="continuous", slots=OVERLOAD_SLOTS,
+                  kv_buf_len=KV_BUF_LEN, prompt_bucket=PROMPT_BUCKET, speculative_k=SPEC_K,
+                  restart_backoff_s=RESTART_BACKOFF_S) as srv:
+        eng, base = srv.engine, srv.base
+        check(_request(base, "/v1/generate", body)[0] == 200, "19b: the first request failed")
+        eng.faults.fail_decode_next(1)
+        status, headers, raw = _request(base, "/v1/generate", body)
+        _taxonomy("19b crashed spec request", status, headers, raw, 503, "engine_restarting")
+        _wait_for(lambda: eng.stats_snapshot()["engine_generation"] == 1, "the restart")
+        check(_request(base, "/v1/generate", body)[0] == 200, "19b: generation 1 failed")
+        kinds = [e["kind"] for e in eng.recorder.events()]
+        results = [ids for _, ids in srv.results]
+    check(eng._spec_k == SPEC_K and "crash" in kinds and "restart" in kinds, f"19b: {kinds[-8:]}")
+    agree = [margin_agreement(tf, generator, f"19b generation {g}", prompt, ids, solo)[0]
+             for g, ids in enumerate(results)]
+    phase(19, f"19b continuous --speculative {SPEC_K}: a spec tick failed -> HTTP 503 "
+              f"engine_restarting; generation 1 served it again; tokens equal to the solo run's "
+              f"(margin rule) {agree} of {MAX_NEW_TOKENS}; generation 1 == generation 0: "
+              f"{results[0] == results[1]}")
+    return {"tokens_agreeing_with_solo": agree, "equal": results[0] == results[1]}
+
+
+def supervision_circuit(server_mod, generator):
+    """19c: ``--circuit-threshold 2`` and a temporary ``--flight-dir``: the
+    first failure restarts, the second opens the circuit; ``/healthz``
+    answers 503 with ``circuit_state`` "open", a later request gets
+    ``circuit_open``, and the circuit-open artifact holds the crash, the
+    restart and the circuit opening in that order."""
+    import os
+    import shutil
+    import tempfile
+
+    flight_dir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    body = _short_body(QUESTIONS[1], 8)
+    try:
+        with _Serving(server_mod, generator, engine="continuous", slots=OVERLOAD_SLOTS,
+                      kv_buf_len=KV_BUF_LEN, prompt_bucket=PROMPT_BUCKET,
+                      restart_backoff_s=RESTART_BACKOFF_S, circuit_threshold=2,
+                      flight_dir=flight_dir) as srv:
+            eng, base = srv.engine, srv.base
+            eng.faults.fail_decode_next(2)
+            _taxonomy("19c first failure", *_request(base, "/v1/generate", body), 503,
+                      "engine_restarting")
+            error = _taxonomy("19c second failure", *_request(base, "/v1/generate", body), 503,
+                              "circuit_open", retry=False)
+            h_status, _, h_raw = _request(base, "/healthz")
+            later = _request(base, "/v1/generate", body)
+        health = json.loads(h_raw)
+        check(h_status == 503 and health == {"status": "unhealthy", "circuit_state": "open",
+                                             "error": error}, f"19c: /healthz {h_status} {health}")
+        check(later[0] == 503 and json.loads(later[2]) == {"error": error},
+              f"19c: a later request got {later[0]} {later[2][:200]!r}")
+        dumps = sorted(os.listdir(flight_dir))
+        opened = [d for d in dumps if d.startswith("flight_circuit_open")]
+        check(len(opened) == 1 and len(dumps) == 2, f"19c: flight artifacts {dumps}")
+        with open(os.path.join(flight_dir, opened[0])) as f:
+            kinds = [e["kind"] for e in json.load(f)["events"]]
+    finally:
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    order = [k for k in kinds if k in ("crash", "restart", "circuit_open")]
+    check(order == ["crash", "restart", "crash", "circuit_open"], f"19c: lifecycle events {order}")
+    phase(19, f"19c continuous, circuit_threshold 2: restart, then circuit open (HTTP 503 "
+              f"circuit_open); /healthz 503 circuit_state open; later request refused; artifacts "
+              f"{dumps}, the circuit-open one holding {order}")
+    return {"artifacts": dumps, "lifecycle": order}
+
+
+def supervision_drain(tf, gen_mod, server_mod, generator):
+    """19d: an in-process server (``build_server(control=...)`` served by
+    ``run_server``) drains through ``control["begin_drain"]`` while a
+    64-token request is held in flight at the gate: ``/healthz`` answers
+    503 draining with Retry-After, a new request 503 ``draining``; the held
+    request then returns 200 with its tokens (held to its solo run by the
+    margin rule), and ``run_server`` returns within the drain timeout."""
+    held = _Held(generator)
+    control = {}
+    httpd, eng = server_mod.build_server(held, host="127.0.0.1", port=0, engine="continuous",
+                                         slots=OVERLOAD_SLOTS, kv_buf_len=KV_BUF_LEN,
+                                         prompt_bucket=PROMPT_BUCKET,
+                                         drain_timeout_s=DRAIN_TIMEOUT_S, control=control)
+    got = []
+    submit_full = eng.submit_full
+
+    def recording(prompt_ids, gen, seed=0, timeout=None, **kw):
+        req = submit_full(prompt_ids, gen, seed=seed, timeout=timeout, **kw)
+        got.append(list(req.result))
+        return req
+
+    eng.submit_full = recording
+    serving = threading.Thread(target=server_mod.run_server, args=(httpd, eng), daemon=True)
+    serving.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    body = _short_body(QUESTIONS[3], 64)
+    try:
+        inflight = _post_async(base, "/v1/generate", body)
+        held.park()
+        t0 = time.monotonic()
+        control["begin_drain"]()  # what SIGTERM calls
+        h_status, h_headers, h_raw = _request(base, "/healthz")
+        check(h_status == 503 and json.loads(h_raw) == {"status": "draining"}
+              and h_headers.get("Retry-After") == str(DRAIN_TIMEOUT_S),
+              f"19d: /healthz {h_status} {h_headers.get('Retry-After')} {h_raw!r}")
+        _taxonomy("19d request during the drain", *_request(base, "/v1/generate",
+                                                             _short_body(QUESTIONS[0], 8)),
+                  503, "draining")
+        held.open()
+        status = inflight()[0]
+        serving.join(DRAIN_TIMEOUT_S)
+        drain_s = time.monotonic() - t0
+        check(not serving.is_alive(), f"19d: run_server did not return within {DRAIN_TIMEOUT_S} s")
+    finally:
+        held.open()
+        if serving.is_alive():
+            httpd.shutdown()
+            serving.join(30)
+    check(status == 200 and len(got) == 1, f"19d: the request in flight got HTTP {status}")
+    prompt = _prompt_ids(generator, body)
+    solo = solo_decode(tf, gen_mod, generator, prompt, 64)
+    agree, _ = margin_agreement(tf, generator, "19d drained request", prompt, got[0], solo)
+    phase(19, f"19d drain: /healthz 503 draining (Retry-After {DRAIN_TIMEOUT_S}), a new request "
+              f"503 draining; the request in flight 200 with {len(got[0])} tokens, {agree} equal "
+              f"to the solo run's; run_server returned {drain_s:.2f} s after begin_drain")
+    return {"drain_s": drain_s, "tokens": len(got[0]), "agreeing": agree}
+
+
+def supervision_watchdog(engine_mod, generator):
+    """19e: ``StepWatchdog(1.0, "abort", on_trip=...)`` on a continuous
+    engine: no trip over a normal 32-token request, exactly one when one
+    decode tick is slowed by 2 s (``faults.delay_decode_next(1, 2.0)``)."""
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+    from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
+
+    fired = []
+    wd = StepWatchdog(WATCHDOG_TIMEOUT_S, "abort", on_trip=lambda: fired.append(1),
+                      start_paused=True)
+    eng = engine_mod.ContinuousBatchingEngine(generator, slots=OVERLOAD_SLOTS, buf_len=KV_BUF_LEN,
+                                              prompt_bucket=PROMPT_BUCKET, watchdog=wd)
+    prompt = _prompt_ids(generator, _short_body(QUESTIONS[0], MAX_NEW_TOKENS))
+    greedy = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False)
+    try:
+        eng.submit(prompt, greedy, timeout=600)
+        normal = wd.trips
+        eng.faults.delay_decode_next(1, 2.0)
+        t0 = time.monotonic()
+        eng.submit(prompt, greedy, timeout=600)
+        slowed_s = time.monotonic() - t0
+        delayed = wd.trips
+    finally:
+        eng.close()
+        wd.stop()
+    check(normal == 0 and delayed == 1 and fired == [1],
+          f"19e: trips {normal} over the normal run, {delayed} under the 2 s delay, hook {fired}")
+    phase(19, f"19e StepWatchdog({WATCHDOG_TIMEOUT_S}, abort): 0 trips over a normal "
+              f"{MAX_NEW_TOKENS}-token request, 1 (the on_trip hook once) when a decode tick "
+              f"slept 2 s (that request took {slowed_s:.2f} s)")
+    return {"trips_normal": normal, "trips_delayed": delayed, "slowed_request_s": slowed_s}
+
+
+def supervision_phase(tf, gen_mod, engine_mod, server_mod, fa, generator):
+    """Phase 19 (right after phase 18, on phase 4's generator): in-process
+    restart, the circuit, the drain and the watchdog."""
+    out, seconds = {}, {}
+    subphases = (
+        ("a", lambda: supervision_restart(tf, gen_mod, server_mod, fa, generator)),
+        ("b", lambda: supervision_spec(tf, gen_mod, server_mod, generator)),
+        ("c", lambda: supervision_circuit(server_mod, generator)),
+        ("d", lambda: supervision_drain(tf, gen_mod, server_mod, generator)),
+        ("e", lambda: supervision_watchdog(engine_mod, generator)),
+    )
+    for name, run in subphases:
+        t0 = time.monotonic()
+        out[name] = run()
+        seconds[name] = time.monotonic() - t0
+        phase(19, f"19{name} took {seconds[name]:.1f} s")
+        gc_cuda()
+    out["seconds"] = seconds
+    phase(19, f"phase 19 took {sum(seconds.values()):.1f} s")
     return out
 
 
@@ -2594,6 +2920,7 @@ LOSS_RECORDED_REL_TOL = 5e-3
 # phase 11's peak memory at the last step (28.03 GB with N-major codes): K-major
 # codes must come with no second copy of the trunk
 INT8_TRUNK_PEAK_BYTES = 28.5e9
+TRAIN_WATCHDOG_S = 60.0  # phases 8 and 11 train with the step watchdog armed; no step is near it
 TRAIN_PROMPT = "You are a wilderness survival expert."
 # full-width f32 microbatch, kernels against plain versions: the loss to
 # 1e-5 relative, each trainable leaf's gradient to 1e-4 of its largest entry
@@ -2631,7 +2958,7 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     config = TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
                          tokenizer_path="byte-chatml", data_dir=data_dir, output_dir=out_dir,
                          epochs=1, system_prompt=TRAIN_PROMPT, logging_steps=1,
-                         frozen_compute=frozen_compute)
+                         frozen_compute=frozen_compute, watchdog_timeout_s=TRAIN_WATCHDOG_S)
     t0 = time.monotonic()
     trainer = SFTTrainer(config, device=DEVICE)
     torch.cuda.synchronize()
@@ -2656,6 +2983,13 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     summary = trainer.train()
     launches = {name: fn.launches for name, fn in counters.items()}
     phase(phase_no, f"train() returned in {time.monotonic() - t0:.1f} s (artifacts included)")
+    watchdog = trainer.watchdog
+    check(watchdog is not None and watchdog.trips == 0
+          and watchdog._last_step == trainer.total_steps,
+          f"the step watchdog ({TRAIN_WATCHDOG_S} s): trips "
+          f"{None if watchdog is None else watchdog.trips}")
+    phase(phase_no, f"step watchdog ({TRAIN_WATCHDOG_S} s, {watchdog.action}): 0 trips, poked at "
+                    f"each of the {trainer.total_steps} steps, paused over the evals")
 
     history = trainer.metrics.history
     meter = trainer.throughput
@@ -2736,7 +3070,7 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
         "padded_tokens_per_s_per_card": samples_per_s * config.max_seq_length,
         "max_memory_allocated_bytes": peak, "train_peak_bytes": train_peak,
         "launches": launches, "expected_launches": expected,
-        "summary": summary,
+        "summary": summary, "watchdog_trips": watchdog.trips,
     }
     phase(phase_no, f"losses {[round(x, 4) for x in losses]} at steps {record['logged_steps']}, "
                     f"grad_norm {[round(x, 4) for x in grad_norms]}, eval_loss "
@@ -3301,6 +3635,7 @@ def main(argv=()) -> int:
     speculation = spec_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, engines, served,
                              prompts)
     overload = overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
+    supervision = supervision_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -3376,6 +3711,8 @@ def main(argv=()) -> int:
     # phase 18: launches across a preemption and its resume (18c), and under a queue cap (18a)
     paged["launches_preempt_resume"] = overload["c_paged"]["launches"]
     paged["launches_queue_cap"] = overload["a"]["launches"]
+    # phase 19a: launches across a failed tick, the restart and the new pool
+    paged["launches_restart"] = supervision["a"]["launches"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -3430,7 +3767,8 @@ def main(argv=()) -> int:
                "f32_microbatch_int8": microbatch_i8, "dense_generation": dense, "ask": asked,
                "serve_int8_weights": served_i8, "decode_profile_int8_weights": profiled_i8,
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
-               "golden": golden, "overload": overload, "total_s": time.monotonic() - t_start}
+               "golden": golden, "overload": overload, "supervision": supervision,
+               "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -127,6 +127,12 @@ class TrainConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     attention_impl: str = "flash"
 
+    # step watchdog (runtime/watchdog.py): seconds without an optimizer
+    # step before reporting a wedged device (0 = off); "abort" ends the
+    # process with os._exit for the job manager to restart it
+    watchdog_timeout_s: float = 0.0
+    watchdog_action: str = "warn"
+
     # not ported: setting them raises
     train_port: Optional[int] = None
     publish_dir: Optional[str] = None
@@ -184,12 +190,14 @@ class TrainConfig:
         "EVAL_STEPS": ("eval_steps", int),
         "EVAL_BATCH_SIZE": ("eval_batch_size", int),
         "SAVE_STEPS": ("save_steps", int),
+        "WATCHDOG_TIMEOUT_S": ("watchdog_timeout_s", float),
+        "WATCHDOG_ACTION": ("watchdog_action", str),
     }
     # env vars of the JAX package whose features are not ported: set, they raise
     _UNPORTED_ENV = (
         "AIM_REPO", "CHECKPOINT_TRAINABLE_ONLY", "CHECKPOINT_ASYNC_SNAPSHOT",
         "PUBLISH_KEEP_LAST", "PUBLISH_REQUIRE_CLEAN", "ANOMALY_WINDOW_STEPS",
-        "ANOMALY_BAND_SIGMA", "WATCHDOG_TIMEOUT_S", "WATCHDOG_ACTION", "DPO_BETA",
+        "ANOMALY_BAND_SIGMA", "DPO_BETA",
         "SAVE_TOTAL_LIMIT", "EXPERIMENT_NAME",
     )
 

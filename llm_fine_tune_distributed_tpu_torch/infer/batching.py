@@ -26,6 +26,7 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
+from llm_fine_tune_distributed_tpu_torch.infer.errors import DrainingError
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 
 # priority tiers of the continuous engines' overload control: index = tier
@@ -125,7 +126,8 @@ class BatchingEngine:
                     timeout: Optional[float] = None) -> Request:
         """``submit`` returning the whole request record."""
         if self._draining:
-            raise RuntimeError("engine draining; admission closed")
+            raise DrainingError("engine draining; admission closed — retry against another "
+                                "replica", retry_after_s=5.0)
         p = Request([int(t) for t in prompt_ids], gen, int(seed))
         with self._plock:
             self._pending += 1

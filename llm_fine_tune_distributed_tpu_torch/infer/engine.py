@@ -51,10 +51,27 @@ Overload control, as in the JAX engines (every failure is a class of
   stage 2 caps ``best_effort`` output at ``brownout_cap_tokens``, stage 3
   sheds ``best_effort`` at admission unless the engine is idle.
 
-A failed tick ends the worker: the engine reports ``healthy`` False,
-``circuit_state`` "open" and a ``FatalEngineError`` wrapping the cause as
+Supervision, as in the JAX engines (``infer/supervisor.py``): the worker
+runs ``_startup`` (the device state of one generation) and then the serve
+loop, and any exception in a tick or in a rebuild goes to ``_recover``. A
+retryable failure (``errors.is_retryable_failure``) with the circuit closed
+answers every request in flight with a ``RetryableEngineError`` (503, with
+``Retry-After`` and the generation), keeps the queued ones, sleeps an
+exponential backoff, drops the crashed generation's cache and builds a new
+one (the paged engine: a new pool, allocator and an empty prefix cache),
+and serves again under ``generation`` + 1. ``circuit_threshold`` failures
+within ``circuit_window_s`` open the circuit, and any other failure is
+fatal: the engine then reports ``healthy`` False, ``circuit_state`` "open"
+or "fatal" and the ``CircuitOpenError`` or ``FatalEngineError`` as
 ``terminal_error``, resolves every request in flight or queued with it and
-refuses later submits with it.
+refuses later submits with it. ``begin_drain`` closes admission
+(``DrainingError``) while the work already submitted runs to completion,
+and ``wait_drained`` waits for the last of it. ``faults``
+(``FaultInjector``) fails or slows chosen ticks; a ``StepWatchdog`` is
+poked per tick and paused while the engine waits for traffic or backs off;
+``recorder`` (``FlightRecorder``) keeps the recent admissions, sheds, ticks
+and lifecycle events, and is written to ``flight_dir`` at a restart and
+when the engine goes terminal.
 
 With ``speculative_k = K > 0`` every tick is the fused draft-verify step
 (``Generator.spec_slot_step`` / ``spec_paged_step``): each live slot whose
@@ -65,9 +82,8 @@ run plus one token of the model's own. Slots without drafts take the plain
 step inside the same tick. Per-request draft counts and the engine's
 ``draft_tokens_proposed`` / ``draft_tokens_accepted`` record it.
 
-Not ported from the JAX engines: the host KV tier, supervision and
-in-process restarts (the circuit's window and backoff), drain, hot-swap,
-adapters and fleets.
+Not ported from the JAX engines: the host KV tier, hot-swap, adapters and
+fleets.
 """
 
 from __future__ import annotations
@@ -77,6 +93,7 @@ import logging
 import queue
 import threading
 import time
+import traceback
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -84,15 +101,23 @@ import numpy as np
 from llm_fine_tune_distributed_tpu_torch.infer.batching import PRIORITY_TIERS, Request
 from llm_fine_tune_distributed_tpu_torch.infer.errors import (
     BrownoutShedError,
+    CircuitOpenError,
     DeadlineExceededError,
+    DrainingError,
     FatalEngineError,
     QueueDeadlineError,
     QueueOverflowError,
+    RetryableEngineError,
     ServingError,
+    is_retryable_failure,
 )
 from llm_fine_tune_distributed_tpu_torch.infer.paged import NULL_BLOCK, BlockAllocator, PrefixCache
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+from llm_fine_tune_distributed_tpu_torch.infer.supervisor import EngineSupervisor, FaultInjector
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import ServingStats
+from llm_fine_tune_distributed_tpu_torch.observe.tracing import FlightRecorder
+from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import reset_paged_decode_tickets
+from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
 
 log = logging.getLogger(__name__)
 
@@ -163,13 +188,27 @@ class ContinuousBatchingEngine:
     # engine's defaults, which no caller changes)
     BROWNOUT_THRESHOLDS = (0.7, 0.85, 0.95)
     BROWNOUT_HYSTERESIS = 0.1
+    FLIGHT_EVENTS = 1024  # the flight recorder's ring (the JAX engine's default)
 
     def __init__(self, generator, slots: int = 8, buf_len: int = 4096, prompt_bucket: int = 64,
                  stats: Optional[ServingStats] = None, speculative_k: int = 0,
                  max_queue_depth: int = 0, queue_deadline_s: Optional[float] = None,
                  priority_default: str = "interactive", age_promote_s: float = 5.0,
                  brownout_queue_wait_s: float = 2.0, brownout_drain_s: float = 10.0,
-                 brownout_cap_tokens: int = 32):
+                 brownout_cap_tokens: int = 32, restart_backoff_s: float = 0.5,
+                 restart_backoff_max_s: float = 30.0, circuit_threshold: int = 5,
+                 circuit_window_s: float = 60.0, watchdog_timeout_s: float = 0.0,
+                 watchdog: Optional[StepWatchdog] = None, faults: Optional[FaultInjector] = None,
+                 flight_dir: Optional[str] = None):
+        """The supervision settings are the JAX engine's: ``restart_backoff_s``
+        (doubling per failure in the window, capped at
+        ``restart_backoff_max_s``), ``circuit_threshold`` failures within
+        ``circuit_window_s`` to open the circuit, ``flight_dir`` for the
+        flight recorder's dumps (None: no dumps). ``watchdog`` is poked per
+        tick; without one, ``watchdog_timeout_s`` > 0 makes a
+        ``StepWatchdog(watchdog_timeout_s, "abort", start_paused=True)``.
+        The first generation's device state is built here, so the cache
+        exists when the constructor returns."""
         if priority_default not in PRIORITY_TIERS:
             raise ValueError(f"unknown priority_default {priority_default!r} "
                              f"(expected one of {PRIORITY_TIERS})")
@@ -184,17 +223,30 @@ class ContinuousBatchingEngine:
         self._bucket = max(1, int(prompt_bucket))
         self.stats = stats or ServingStats(self._slots)
         self._eos = set(generator.eos_token_ids)
-        self._slot_req: List[Optional[Request]] = [None] * self._slots
-        self._slot_tokens: List[List[int]] = [[] for _ in range(self._slots)]
-        self._slot_budget = [0] * self._slots
-        self._live = np.zeros((self._slots,), bool)
         self._q: "queue.Queue[Optional[Request]]" = queue.Queue()
         # the priority buffer: the worker drains the queue into it and admits
         # by (aged tier, arrival id); submit threads only read it
         self._waiting: List[Request] = []
         self._req_seq = itertools.count(1)
         self._now = time.monotonic()  # the tick clock every emit of a tick reuses
-        self._terminal: Optional[ServingError] = None  # set once the worker died
+        self._terminal: Optional[ServingError] = None  # set once the worker is dead for good
+        self._closing = False  # close() was called (worker thread only)
+        self._draining = False
+        # the no-hung-waiter ledger: +1 at admission, -1 at each settle
+        self._pending = 0
+        self._plock = threading.Lock()
+        # supervision: restart policy, fault hooks, the event ring and the
+        # watchdog (poked per tick, paused while idle or backing off)
+        self.supervisor = EngineSupervisor(
+            restart_backoff_s=restart_backoff_s, restart_backoff_max_s=restart_backoff_max_s,
+            circuit_threshold=circuit_threshold, circuit_window_s=circuit_window_s,
+            flight_dir=flight_dir)
+        self.faults = faults if faults is not None else FaultInjector()
+        self.recorder = FlightRecorder(self.FLIGHT_EVENTS)
+        if watchdog is None and watchdog_timeout_s and watchdog_timeout_s > 0:
+            watchdog = StepWatchdog(watchdog_timeout_s, action="abort", start_paused=True)
+        self._watchdog = watchdog
+        self._decode_index = 0  # decode ticks over the engine's lifetime
         # admission policy (read on submit threads, set once here)
         self._max_queue_depth = max(0, int(max_queue_depth))  # 0: unbounded
         self._queue_deadline_s = float(queue_deadline_s) if queue_deadline_s else None
@@ -213,10 +265,11 @@ class ContinuousBatchingEngine:
         self._brownout_cap_tokens = max(1, int(brownout_cap_tokens))
         self._brownout_stage = 0
         self._queue_wait_ewma = 0.0
-        self._cache, self._state = self._init_state()
-        # the draft model's dense per-slot cache (worker thread only)
-        self._dcache = (generator.init_draft_slot_cache(self._slots, self._buf_len)
-                        if self._use_draft else None)
+        # the device state (the cache, the slot state and the draft model's
+        # dense per-slot cache) and the slot bookkeeping, all worker-thread
+        # only: generation 0 is built here, later ones by the worker
+        self._cache = self._state = self._dcache = None
+        self._startup()
         self._worker = threading.Thread(target=self._run, name=type(self).__name__, daemon=True)
         self._worker.start()
 
@@ -269,18 +322,48 @@ class ContinuousBatchingEngine:
         self._q.put(None)
         self._worker.join(timeout)
 
+    def begin_drain(self) -> None:
+        """Close admission (later submits get ``DrainingError``); the
+        requests already queued or in flight decode to completion. The
+        server's SIGTERM path follows with ``wait_drained``."""
+        self._draining = True
+        self.recorder.record("drain_begin", queued=self.queue_depth)
+
+    def wait_drained(self, timeout_s: float, poll_s: float = 0.05) -> bool:
+        """Block until every submitted request has settled (True), or until
+        ``timeout_s`` passes with work pending (False)."""
+        deadline = time.monotonic() + max(0.0, float(timeout_s))
+        while True:
+            with self._plock:
+                pending = self._pending
+            if pending <= 0:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(poll_s)
+
     def stats_snapshot(self) -> dict:
         """``ServingStats.snapshot()`` with fresh ``queue_depth``,
-        ``live_slots`` and ``brownout_stage`` gauges (``GET /v1/stats``)."""
+        ``live_slots``, ``engine_generation`` and ``brownout_stage`` gauges,
+        plus ``circuit_state`` and ``draining`` (``GET /v1/stats``)."""
         self.stats.gauge("queue_depth", self.queue_depth)
         self.stats.gauge("live_slots", self.live_slots)
+        self.stats.gauge("engine_generation", self.supervisor.generation)
         self.stats.gauge("brownout_stage", self._brownout_stage)
-        return self.stats.snapshot()
+        snap = self.stats.snapshot()
+        snap["circuit_state"] = self.circuit_state
+        snap["draining"] = self._draining
+        return snap
 
     @property
     def healthy(self) -> bool:
-        """False once the worker died (``/healthz`` answers 503)."""
+        """False once the worker is dead for good, fatal or circuit open
+        (``/healthz`` answers 503)."""
         return self._terminal is None
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
 
     @property
     def terminal_error(self) -> Optional[ServingError]:
@@ -288,9 +371,16 @@ class ContinuousBatchingEngine:
 
     @property
     def circuit_state(self) -> str:
-        """"closed" while the worker serves, "open" once it died: the port
-        does not restart a worker, so its first failure opens the circuit."""
-        return "closed" if self._terminal is None else "open"
+        """"closed" while the worker serves (or restarts), "open" once the
+        circuit opened, "fatal" after a failure no restart can help."""
+        if isinstance(self._terminal, CircuitOpenError):
+            return "open"
+        return "closed" if self._terminal is None else "fatal"
+
+    @property
+    def recovering(self) -> bool:
+        """True while the worker is mid-restart (backoff and rebuild)."""
+        return self.supervisor.recovering
 
     @property
     def brownout_stage(self) -> int:
@@ -336,8 +426,9 @@ class ContinuousBatchingEngine:
                       tokens_q: Optional["queue.Queue"] = None, priority: Optional[str] = None,
                       deadline_s: Optional[float] = None) -> Request:
         """The admission gate shared by submit and stream: refuse a dead
-        engine, a brownout shed and an overflow before the request enters
-        the queue, and stamp its deadlines."""
+        engine, a drain, a brownout shed and an overflow before the request
+        enters the queue, and stamp its deadlines. From here on the request
+        is in the pending ledger, and exactly one ``_settle`` resolves it."""
         if priority is None:
             priority = self._priority_default
         if priority not in PRIORITY_TIERS:
@@ -347,6 +438,9 @@ class ContinuousBatchingEngine:
             raise self._terminal
         if not self._worker.is_alive():
             raise RuntimeError("engine stopped: close() was called")
+        if self._draining:
+            raise DrainingError("engine draining; admission closed — retry against another "
+                                "replica", retry_after_s=self._retry_after())
         if (self._brownout_stage >= 3 and tier >= _BEST_EFFORT
                 # never shed into an idle engine: the worker re-evaluates the
                 # stage only on its next pass, so a stale stage must not
@@ -354,6 +448,7 @@ class ContinuousBatchingEngine:
                 and (self.queue_depth > 0 or bool(self._live.any()))):
             self.stats.incr("requests_shed_overflow")
             self.stats.tier_shed_incr(priority)
+            self.recorder.record("shed_brownout", tier=priority, stage=self._brownout_stage)
             raise BrownoutShedError(
                 f"brownout stage {self._brownout_stage}: shedding {priority!r} traffic "
                 "until pressure clears", retry_after_s=self._retry_after(), tier=priority)
@@ -370,9 +465,12 @@ class ContinuousBatchingEngine:
                     victim = cand
             if victim is not None:
                 victim.shed_by_pressure = True
+                self.recorder.record("shed_displaced", request=victim.id, tier=victim.priority,
+                                     displaced_by=priority)
             else:
                 self.stats.incr("requests_shed_overflow")
                 self.stats.tier_shed_incr(priority)
+                self.recorder.record("shed_overflow", queued=self.queue_depth, tier=priority)
                 raise QueueOverflowError(
                     f"admission queue full ({self.queue_depth} waiting >= max_queue_depth "
                     f"{self._max_queue_depth})", retry_after_s=self._retry_after(), tier=priority)
@@ -385,6 +483,8 @@ class ContinuousBatchingEngine:
         req.tier = tier
         if deadline_s is not None:
             req.deadline = req.enqueued_at + float(deadline_s)
+        with self._plock:
+            self._pending += 1
         return req
 
     def _expired(self, req: Request) -> bool:
@@ -400,9 +500,10 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------ resolution
 
     def _settle(self, req: Request) -> None:
-        """The one place a request wakes its waiter. Every token it emitted
-        (banked ones included) is charged once, here: to goodput when it
-        completed, else to the reason it ended."""
+        """The one place a request leaves the pending ledger and wakes its
+        waiter. Every token it emitted (banked ones included) is charged
+        once, here: to goodput when it completed, else to the reason it
+        ended."""
         n = req.tokens_emitted
         if n:
             if req.abandoned:
@@ -411,10 +512,14 @@ class ContinuousBatchingEngine:
                 self.stats.incr("goodput_tokens", n)
             elif isinstance(req.error, DeadlineExceededError):
                 self.stats.waste_incr("deadline", n)
-            elif isinstance(req.error, FatalEngineError):  # the worker died under it
+            elif isinstance(req.error, (RetryableEngineError, CircuitOpenError,
+                                        FatalEngineError, DrainingError)):
+                # a restart or the circuit took it: a retry redoes the work
                 self.stats.waste_incr("failover", n)
             else:  # shed after work was done (a preempted request's banked tokens)
                 self.stats.waste_incr("shed", n)
+        with self._plock:
+            self._pending -= 1
         req.done.set()
 
     def _resolve_error(self, req: Request, err: BaseException) -> None:
@@ -433,6 +538,7 @@ class ContinuousBatchingEngine:
     def _shed_deadline(self, req: Request) -> None:
         waited = time.monotonic() - req.enqueued_at if req.enqueued_at else 0.0
         self.stats.incr("requests_shed_deadline")
+        self.recorder.record("shed_deadline", request=req.id, waited_s=round(waited, 4))
         self._resolve_error(req, QueueDeadlineError(
             f"request waited {waited:.2f}s queued, over the {self._queue_deadline_s}s "
             "deadline; shed before prefill", retry_after_s=self._retry_after()))
@@ -442,6 +548,7 @@ class ContinuousBatchingEngine:
         the full queue: a tier-labelled 429."""
         self.stats.incr("requests_shed_overflow")
         self.stats.tier_shed_incr(req.priority)
+        self.recorder.record("shed_displaced_resolved", request=req.id, tier=req.priority)
         self._resolve_error(req, QueueOverflowError(
             f"request (tier {req.priority!r}) displaced from the full queue by a "
             "higher-priority arrival", retry_after_s=self._retry_after(), tier=req.priority))
@@ -451,6 +558,8 @@ class ContinuousBatchingEngine:
         an earlier preempted run banked (usually none)."""
         waited = time.monotonic() - req.enqueued_at if req.enqueued_at else 0.0
         self.stats.incr("requests_shed_deadline")
+        self.recorder.record("deadline_cancel", request=req.id, where="queued",
+                             waited_s=round(waited, 4), tokens_generated=len(req.preempted_tokens))
         self._resolve_error(req, DeadlineExceededError(
             f"deadline expired after {waited:.2f}s, before prefill",
             tokens=tuple(req.preempted_tokens)))
@@ -461,6 +570,8 @@ class ContinuousBatchingEngine:
         tick."""
         tokens = req.preempted_tokens + self._slot_tokens[slot]
         self.stats.incr("requests_shed_deadline_decode")
+        self.recorder.record("deadline_cancel", request=req.id, where="decode", slot=slot,
+                             tokens_generated=len(tokens))
         self._resolve_error(req, DeadlineExceededError(
             f"deadline expired mid-decode after {len(tokens)} token(s)", tokens=tuple(tokens)))
         self._release(slot)
@@ -483,38 +594,136 @@ class ContinuousBatchingEngine:
     # ---------------------------------------------------------------- worker
 
     def _run(self) -> None:
-        try:
-            self._serve_loop()
-            return
-        except Exception as e:  # worker boundary: fail every request, then stop
-            log.exception("%s worker failed", type(self).__name__)
-            err = FatalEngineError(f"fatal engine failure: {type(e).__name__}: {e}")
-            err.__cause__ = e
-            self._terminal = err  # before resolving, so every waiter sees it
-        self._fail_inflight(err)
-        while self._waiting:
-            self._resolve_error(self._waiting.pop(0), err)
-        while True:  # and every request that raced the failure, until close()
+        """The supervised worker: build a generation's device state, serve
+        until a tick fails, then restart in-process (``_recover``) or die.
+        Once dead it keeps resolving the requests that raced the failure,
+        until ``close()``."""
+        while True:
+            try:
+                if self._cache is None:  # a restart dropped the crashed generation's state
+                    self._startup()
+                self._serve_loop()
+                if self._watchdog is not None:
+                    self._watchdog.stop()
+                return  # close() was called and the work queued before it served
+            except BaseException as e:  # supervision boundary
+                if not self._recover(e):
+                    break
+        while not self._closing:
             req = self._q.get()
             if req is None:
                 return
-            self._resolve_error(req, err)
+            self._resolve_error(req, self._terminal)
+
+    def _startup(self) -> None:
+        """(Re)build one generation's device state from the weights still on
+        the card: the slot cache and state, the draft model's cache, and the
+        slot bookkeeping. Any earlier cache is dropped first, so the card
+        never holds two at once."""
+        self._drop_device_state()
+        self._slot_req: List[Optional[Request]] = [None] * self._slots
+        self._slot_tokens: List[List[int]] = [[] for _ in range(self._slots)]
+        self._slot_budget = [0] * self._slots
+        self._live = np.zeros((self._slots,), bool)
+        self._cache, self._state = self._init_state()
+        self._startup_draft()
+
+    def _startup_draft(self) -> None:
+        """The draft model's dense per-slot cache dies with the target's; a
+        request prefills both again at its next admission."""
+        if self._use_draft:
+            self._dcache = self._generator.init_draft_slot_cache(self._slots, self._buf_len)
+
+    def _drop_device_state(self) -> None:
+        self._cache = self._state = self._dcache = None
+
+    def _recover(self, cause: BaseException) -> bool:
+        """Classify a worker failure (the JAX engine's policy): True when the
+        state was dropped for a restart and the worker should serve again,
+        False when the engine is now terminal."""
+        if self._watchdog is not None:
+            self._watchdog.pause()  # the backoff is not a wedge
+        log.error("%s worker failed", type(self).__name__, exc_info=cause)
+        # the failed tick's frames may hold tensors of the crashed
+        # generation's cache; the error outlives them as the waiters' cause
+        traceback.clear_frames(cause.__traceback__)
+        sup = self.supervisor
+        self.recorder.record("crash", step=self._decode_index,
+                             error=f"{type(cause).__name__}: {cause}", live=int(self._live.sum()))
+        if is_retryable_failure(cause) and sup.record_failure() == "restart":
+            sup.begin_recovery()
+            err = RetryableEngineError(
+                f"engine worker failed mid-flight ({type(cause).__name__}: {cause}); in-flight "
+                "state lost, engine restarting — safe to retry",
+                retry_after_s=self._retry_after(), generation=sup.generation)
+            err.__cause__ = cause
+            self._fail_inflight(err)
+            self._drop_device_state()
+            delay = sup.backoff_delay()
+            if delay > 0:
+                time.sleep(delay)
+            sup.restarted()
+            self.stats.incr("engine_restarts")
+            self.recorder.record("restart", generation=sup.generation, backoff_s=round(delay, 4),
+                                 failures_in_window=sup.failure_count)
+            # dumped after the restart event: the artifact holds the ticks
+            # before the crash, the crash and the restart
+            dump = sup.dump_flight(self.recorder, "crash_restart", error=str(cause))
+            log.warning("recovered from %s: generation %d (%d failure(s) in the window, backoff "
+                        "%.2fs)%s", type(cause).__name__, sup.generation, sup.failure_count, delay,
+                        f"; flight recorder dumped to {dump}" if dump else "")
+            return True
+        if sup.circuit_open:
+            err = CircuitOpenError(
+                f"{sup.failure_count} engine failures within {sup.circuit_window_s:.0f}s — "
+                f"circuit open, not restarting (last: {type(cause).__name__}: {cause}); the pod "
+                "needs a recycle")
+        else:
+            err = FatalEngineError(f"fatal engine failure: {type(cause).__name__}: {cause}")
+        err.__cause__ = cause
+        self._terminal = err  # before resolving, so every waiter sees it
+        reason = "circuit_open" if sup.circuit_open else "fatal"
+        self.recorder.record(reason, error=str(err))
+        dump = sup.dump_flight(self.recorder, reason, error=str(cause))
+        self._fail_inflight(err)
+        self._fail_queued(err)
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        log.error("worker terminal: %s%s", err,
+                  f" (flight recorder dumped to {dump})" if dump else "")
+        return False
 
     def _fail_inflight(self, err: ServingError) -> None:
+        """Resolve every admitted request and free its slot: its KV state
+        does not survive the rebuild."""
         for slot, req in enumerate(self._slot_req):
             if req is not None:
                 self._resolve_error(req, err)
                 self._release(slot)
 
-    def _serve_loop(self) -> None:
-        closing = False
+    def _fail_queued(self, err: ServingError) -> None:
+        """Resolve everything still queued (terminal only: a restart keeps
+        the queue)."""
+        while self._waiting:
+            self._resolve_error(self._waiting.pop(0), err)
         while True:
-            closing |= self._drain_queue(block=False)
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                return
+            if req is None:
+                self._closing = True
+            else:
+                self._resolve_error(req, err)
+
+    def _serve_loop(self) -> None:
+        while True:
+            self._drain_queue(block=False)
             self._admit()
             if not self._tick() and not self._waiting:
-                if closing:
+                if self._closing:
                     return
-                closing = self._drain_queue(block=True)  # idle: wait for traffic
+                self._drain_queue(block=True)  # idle: wait for traffic
 
     def _tick(self) -> bool:
         """One scheduler tick's device work; False when there was none."""
@@ -526,17 +735,19 @@ class ContinuousBatchingEngine:
             self._decode_once()
         return True
 
-    def _drain_queue(self, block: bool) -> bool:
-        """Move queued requests to the priority buffer; True once ``close``
-        was called (the work already queued is still served)."""
-        closing = False
+    def _drain_queue(self, block: bool) -> None:
+        """Move queued requests to the priority buffer; a ``close()`` sets
+        ``_closing`` (the work already queued is still served). A blocking
+        wait pauses the watchdog: an empty queue is silence, not a wedge."""
+        if block and self._watchdog is not None:
+            self._watchdog.pause()
         while True:
             try:
                 req = self._q.get(block=block)
             except queue.Empty:
-                return closing
+                return
             if req is None:
-                closing = True
+                self._closing = True
             else:
                 self._waiting.append(req)
             block = False
@@ -600,6 +811,8 @@ class ContinuousBatchingEngine:
         req.preempted_tokens.extend(self._slot_tokens[slot])
         req.preemptions += 1
         self.stats.incr("preemptions")
+        self.recorder.record("preempt", request=req.id, slot=slot, tier=req.priority,
+                             tokens_banked=len(req.preempted_tokens))
         self._release(slot)
         self._waiting.append(req)
 
@@ -631,8 +844,9 @@ class ContinuousBatchingEngine:
         while stage > 0 and p < th[stage - 1] - self.BROWNOUT_HYSTERESIS:
             stage -= 1
         if stage != self._brownout_stage:
-            self._brownout_stage = stage
+            prev, self._brownout_stage = self._brownout_stage, stage
             self.stats.gauge("brownout_stage", stage)
+            self.recorder.record("brownout", stage=stage, prev=prev, pressure=round(p, 4))
 
     def _observe_admission(self, req: Request, now: float) -> None:
         """Queue wait at a request's first admission only: a resumed
@@ -675,7 +889,7 @@ class ContinuousBatchingEngine:
                 self._insert(req, free[0], plan)
             except BaseException:
                 # a device failure inside the prefill: the request goes back
-                # to the buffer, where the worker's failure path resolves it
+                # to the buffer; a restart admits it into the new generation
                 if self._slot_req[free[0]] is not req:
                     self._waiting.append(req)
                 raise
@@ -699,15 +913,19 @@ class ContinuousBatchingEngine:
 
     def _insert(self, req: Request, slot: int, plan: dict) -> None:
         """Prefill the prompt into ``slot`` and emit its first token."""
+        self.faults.maybe_fail_prefill()
         t0 = time.monotonic()
         self._observe_admission(req, t0)
         plen = plan["plen"]
+        self.recorder.record("admit", request=req.id, slot=slot, prompt_tokens=plen)
         padded = np.zeros((1, plan["bucket"]), np.int64)
         padded[0, :plen] = plan["prompt"]
         first = self._generator.slot_prefill(self._cache, self._state, padded, plen, slot,
                                              req.gen, req.seed)
         self._now = time.monotonic()  # slot_prefill read its token: synced
         self.stats.observe("prefill_chunk_s", self._now - t0)
+        if self._watchdog is not None:
+            self._watchdog.poke(self._decode_index)
         if self._use_draft and req.gen.speculative_lookup > 0:
             # the draft's row sees the prompt before the slot's first tick
             self._generator.draft_slot_prefill(self._dcache, padded, slot)
@@ -720,15 +938,26 @@ class ContinuousBatchingEngine:
         self._emit_token(slot, req, first, from_decode=False)
 
     def _tick_done(self, t0: float) -> None:
-        """After a decode step: stamp the tick clock, observe the tick and
-        move the brownout stage."""
+        """After a decode step: stamp the tick clock, observe the tick, poke
+        the watchdog, record the tick and move the brownout stage."""
         self._now = time.monotonic()
         self.stats.observe("decode_tick_s", self._now - t0)
+        if self._watchdog is not None:
+            self._watchdog.poke(self._decode_index)
         self.stats.incr("decode_steps")
+        self.recorder.record("tick", step=self._decode_index, live=int(self._live.sum()),
+                             dt_ms=round((self._now - t0) * 1000.0, 3))
         self._update_brownout()
+
+    def _next_decode(self) -> None:
+        """Count a decode tick, then fire the fault armed for it (host
+        only: it adds no device work to the tick)."""
+        self._decode_index += 1
+        self.faults.maybe_fail_decode(self._decode_index)
 
     def _decode_once(self) -> None:
         t0 = time.monotonic()
+        self._next_decode()
         toks = self._generator.slot_step(self._cache, self._state, self._live.copy())
         self._tick_done(t0)  # slot_step returns tokens on the host: synced
         self._emit_tokens(toks)
@@ -784,6 +1013,7 @@ class ContinuousBatchingEngine:
         """One fused speculative tick: draft, then one verify forward over
         every slot's K+1 positions."""
         t0 = time.monotonic()
+        self._next_decode()
         drafts, n_draft = self._propose_drafts()
         toks, n_emit = self._generator.spec_slot_step(self._cache, self._state, self._live.copy(),
                                                       drafts, n_draft)
@@ -795,6 +1025,7 @@ class ContinuousBatchingEngine:
         engines. A live slot always emits one token of the model's own (the
         replacement of a rejected draft, or the bonus), so its accepted
         drafts this tick are ``n_emit - 1``."""
+        tick_proposed = tick_accepted = 0
         for slot in range(self._slots):
             req = self._slot_req[slot]
             if req is None or not self._live[slot]:
@@ -814,10 +1045,15 @@ class ContinuousBatchingEngine:
                 self.stats.incr("draft_tokens_proposed", proposed)
                 self.stats.incr("draft_tokens_accepted", accepted)
                 self.stats.observe("spec_run_len", accepted)
+                tick_proposed += proposed
+                tick_accepted += accepted
             for j in range(m):
                 self._emit_token(slot, req, int(toks[slot, j]))
                 if self._slot_req[slot] is not req:
                     break  # EOS or the budget finished the request mid-run
+        if tick_proposed:
+            self.recorder.record("spec", step=self._decode_index, proposed=tick_proposed,
+                                 accepted=tick_accepted)
 
     def _emit_tokens(self, toks: np.ndarray) -> None:
         """Hand each live slot its token of this tick; shed the slots whose
@@ -931,17 +1167,29 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             # and the null block
             num_blocks = 1 + (slots + 1) * self._table_blocks
         self._num_blocks = int(num_blocks)
-        self._allocator = BlockAllocator(self._num_blocks)
-        self._prefix = PrefixCache(self._allocator, self._block_len)
         self._table = np.zeros((slots, self._table_blocks), np.int32)
-        self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
-        self._slot_plen = [0] * slots
         self._prefills: List[_PrefillTask] = []
         self._prefix_hits = 0  # admissions that mapped >= 1 cached block
-        # the base starts the worker last: every paged field exists by then
+        # the base builds generation 0 (``_startup``: the pool, the
+        # allocator, the prefix cache) and starts the worker last
         super().__init__(generator, slots=slots, buf_len=buf_len, prompt_bucket=prompt_bucket,
                          stats=stats or ServingStats(slots, total_blocks=self._num_blocks - 1),
                          speculative_k=speculative_k, **overload)
+
+    def _startup(self) -> None:
+        """Rebuild the pool-backed state wholesale: a fresh allocator, an
+        EMPTY prefix cache (its blocks' contents die with the old pool, and
+        with them the blocks a preempted request banked: it resumes with a
+        full prefill), all-null tables, no slot blocks, zeroed paged decode
+        tickets and a new pool, allocated after the old one is dropped."""
+        self._allocator = BlockAllocator(self._num_blocks)
+        self._prefix = PrefixCache(self._allocator, self._block_len)
+        self._table[:, :] = NULL_BLOCK
+        self._slot_blocks: List[List[int]] = [[] for _ in range(self._slots)]
+        self._slot_plen = [0] * self._slots
+        self._prefills.clear()
+        super()._startup()
+        reset_paged_decode_tickets(self._generator.device)
 
     def _init_state(self):
         return self._generator.init_paged_state(self._slots, self._num_blocks, self._block_len,
@@ -1022,6 +1270,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         private = self._allocator.alloc(nprivate)
         if private is None:
             self._prefix.evict(nprivate)
+            self.recorder.record("prefix_evict", request=req.id, blocks_needed=nprivate)
             private = self._allocator.alloc(nprivate)
         if private is None:
             for bid in shared:
@@ -1048,6 +1297,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._slot_tokens[slot] = []
         self._slot_budget[slot] = plan["budget"]
         shared_len = len(plan["shared"]) * self._block_len
+        self.recorder.record("admit", request=req.id, slot=slot, prompt_tokens=plan["plen"],
+                             prefix_tokens_reused=shared_len)
         self.stats.incr("requests_admitted")
         self.stats.incr("prompt_tokens", plan["plen"])
         self.stats.incr("prefix_tokens_reused", shared_len)
@@ -1071,12 +1322,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             # request stops ingesting and frees its blocks this tick
             self._prefills.pop(0)
             self.stats.incr("requests_shed_deadline_decode")
+            self.recorder.record("deadline_cancel", request=req.id, where="prefill",
+                                 slot=task.slot, tokens_generated=len(req.preempted_tokens),
+                                 positions_ingested=task.next)
             self._resolve_error(req, DeadlineExceededError(
                 f"deadline expired during prefill ({task.next}/{task.plen} positions "
                 "ingested)", tokens=tuple(req.preempted_tokens)))
             self._release(task.slot)
             return
         prompt = task.prompt
+        self.faults.maybe_fail_prefill()
         t0 = time.monotonic()
         C = self._prefill_chunk
         remaining = task.plen - task.next
@@ -1088,6 +1343,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self.stats.incr("prefill_chunks")
             self.stats.incr("prefill_tokens", C)
             self.stats.observe("prefill_chunk_s", time.monotonic() - t0)
+            if self._watchdog is not None:
+                self._watchdog.poke(self._decode_index)
             return
         # The final chunk is padded to the prompt bucket with token id 0, and
         # the pads are written into the pool like real tokens. In the int8
@@ -1108,6 +1365,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.stats.incr("prefill_chunks")
         self.stats.incr("prefill_tokens", remaining)
         self.stats.observe("prefill_chunk_s", self._now - t0)
+        if self._watchdog is not None:
+            self._watchdog.poke(self._decode_index)
         if self._use_draft and req.gen.speculative_lookup > 0:
             # the draft keeps a dense row even here: mirror the whole prompt
             dbucket = min(-(-task.plen // self._bucket) * self._bucket, self._buf_len)
@@ -1147,6 +1406,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             return
         tables = self._decode_tables(self._decode_bucket())
         t0 = time.monotonic()
+        self._next_decode()
         toks = self._generator.paged_step(self._cache, self._state, self._live.copy(), tables)
         self._tick_done(t0)  # paged_step returns tokens on the host: synced
         self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)
@@ -1157,6 +1417,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         covers K positions past each live slot's position."""
         tables = self._decode_tables(self._decode_bucket(self._spec_k))
         t0 = time.monotonic()
+        self._next_decode()
         drafts, n_draft = self._propose_drafts()
         toks, n_emit = self._generator.spec_paged_step(self._cache, self._state, self._live.copy(),
                                                        tables, drafts, n_draft)

@@ -1,9 +1,11 @@
 """HTTP serving of the port (counterpart of the JAX ``infer/server.py`` for
 one engine on one card):
 
-  GET  /healthz      -> 200 "ok"; 503 {"status": "unhealthy",
+  GET  /healthz      -> 200 "ok" (also while a slot engine restarts);
+                        503 {"status": "draining"} with Retry-After
+                        during a drain; 503 {"status": "unhealthy",
                         "circuit_state", "error"} once a slot engine's
-                        worker died
+                        circuit opened or a fatal failure ended it
   POST /v1/generate  {"question": ..., optional "system_prompt", "greedy",
                       "seed", "max_new_tokens", "temperature", "top_p",
                       "top_k", "repetition_penalty", "speculative",
@@ -20,6 +22,9 @@ one engine on one card):
   GET  /v1/stats     -> {"engine": ..., **engine.stats_snapshot()}
   GET  /metrics      -> the same snapshot and the latency histograms as
                         Prometheus text
+  GET  /v1/flight?limit=N -> {"events": [...]}: the last N (default 256)
+                        events of a slot engine's flight recorder; 404 on
+                        the window engine
 
 Engines (``--engine``): ``continuous`` (the default, as in the JAX server)
 decodes every request in a persistent slot batch over a dense KV cache;
@@ -51,6 +56,18 @@ controller. Every failure of a request maps through
 body, with ``Retry-After`` in whole seconds where the engine gives a hint.
 The window engine admits in arrival order and refuses both fields.
 
+Supervision (the slot engines, as in the JAX server): a failed tick answers
+the requests in flight with 503 ``engine_restarting`` and restarts the
+engine in-process after ``--restart-backoff-s`` (doubling up to
+``--restart-backoff-max-s``); ``--circuit-threshold`` failures within
+``--circuit-window-s`` open the circuit (``/healthz`` 503). Crash artifacts
+go to ``--flight-dir``; ``--watchdog-timeout-s`` > 0 ends the process when
+a worker makes no progress for that long. SIGTERM drains: admission closes
+server-wide (503 ``draining`` with Retry-After), the work in flight
+finishes within ``--drain-timeout-s``, then ``serve`` returns and the
+process exits 0. ``build_server(control=...)`` hands ``begin_drain`` (what
+SIGTERM calls) and ``httpd`` to an in-process caller.
+
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
 [--quantize int8] [--speculative K [--draft-dir DIR]]``. It serves on the GPU;
@@ -67,8 +84,12 @@ import functools
 import json
 import logging
 import os
+import signal
+import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs
 
 import torch
 
@@ -79,7 +100,11 @@ from llm_fine_tune_distributed_tpu_torch.infer.engine import (
     ContinuousBatchingEngine,
     PagedContinuousBatchingEngine,
 )
-from llm_fine_tune_distributed_tpu_torch.infer.errors import ServingError, error_payload
+from llm_fine_tune_distributed_tpu_torch.infer.errors import (
+    DrainingError,
+    ServingError,
+    error_payload,
+)
 from llm_fine_tune_distributed_tpu_torch.infer.generate import (
     Generator,
     load_model_dir,
@@ -221,16 +246,29 @@ def build_server(
     brownout_queue_wait_s: float = 2.0,
     brownout_drain_s: float = 10.0,
     brownout_cap_tokens: int = 32,
+    drain_timeout_s: float = 30.0,
+    restart_backoff_s: float = 0.5,
+    restart_backoff_max_s: float = 30.0,
+    circuit_threshold: int = 5,
+    circuit_window_s: float = 60.0,
+    watchdog_timeout_s: float = 0.0,
+    flight_dir: Optional[str] = None,
+    control: Optional[dict] = None,
 ):
     """Start an ``engine`` over ``generator`` and bind an HTTP server to it.
-    Returns ``(httpd, engine)``; the caller runs ``httpd.serve_forever`` and,
-    when done, ``httpd.shutdown()``, ``httpd.server_close()`` (which also
-    stops the window engine kept beside a slot engine, ``httpd.window_engine``)
-    and ``engine.close()``. ``speculative_k`` > 0 runs the slot engine's
-    ticks as fused draft-verify steps (a draft model, if the generator has
-    one). ``template_kwargs`` go to the chat template. The overload
-    settings (``max_queue_depth`` ... ``brownout_cap_tokens``, the JAX
-    server's defaults) go to the continuous and paged engines."""
+    Returns ``(httpd, engine)``; the caller runs ``run_server(httpd,
+    engine)`` (or ``httpd.serve_forever`` and, when done,
+    ``httpd.shutdown()``, ``httpd.server_close()``, which also stops the
+    window engine kept beside a slot engine, ``httpd.window_engine``, and
+    ``engine.close()``). ``speculative_k`` > 0 runs the slot engine's ticks
+    as fused draft-verify steps (a draft model, if the generator has one).
+    ``template_kwargs`` go to the chat template. The overload settings
+    (``max_queue_depth`` ... ``brownout_cap_tokens``) and the supervision
+    settings (``restart_backoff_s`` ... ``flight_dir``), the JAX server's
+    defaults, go to the continuous and paged engines. ``httpd.begin_drain``
+    (also ``control["begin_drain"]``, beside ``control["httpd"]``) closes
+    admission, waits up to ``drain_timeout_s`` for the engines to drain and
+    then shuts the server down."""
     speculative_k = max(0, int(speculative_k or 0))
     check_engine(engine, quantize_kv, speculative_k)
     kind = engine
@@ -241,7 +279,12 @@ def build_server(
     overload = dict(max_queue_depth=max_queue_depth, queue_deadline_s=queue_deadline_s,
                     priority_default=priority_default, age_promote_s=age_promote_s,
                     brownout_queue_wait_s=brownout_queue_wait_s,
-                    brownout_drain_s=brownout_drain_s, brownout_cap_tokens=brownout_cap_tokens)
+                    brownout_drain_s=brownout_drain_s, brownout_cap_tokens=brownout_cap_tokens,
+                    restart_backoff_s=restart_backoff_s,
+                    restart_backoff_max_s=restart_backoff_max_s,
+                    circuit_threshold=circuit_threshold, circuit_window_s=circuit_window_s,
+                    watchdog_timeout_s=watchdog_timeout_s, flight_dir=flight_dir)
+    drain_state = {"draining": False}
     if kind == "window":
         engine = window
     elif kind == "continuous":
@@ -291,21 +334,47 @@ def build_server(
             self._send(status, payload, headers=headers)
 
         def do_GET(self):  # noqa: N802 (stdlib casing)
-            if self.path == "/healthz":
-                if kind != "window" and not engine.healthy:
-                    # the worker died: ask the orchestrator for a restart
+            path, _, query = self.path.partition("?")
+            if path == "/healthz":
+                if drain_state["draining"]:
+                    # SIGTERM: stop routing here while the work in flight ends
+                    self._send(503, {"status": "draining"},
+                               headers={"Retry-After": max(1, int(drain_timeout_s))})
+                elif kind != "window" and not engine.healthy:
+                    # circuit open or fatal: in-process recovery is over, ask
+                    # the orchestrator for a restart
                     self._send(503, {"status": "unhealthy", "circuit_state": engine.circuit_state,
                                      "error": engine.terminal_error.to_dict()})
                 else:
                     self._send(200, "ok")
-            elif self.path == "/v1/stats":
+            elif path == "/v1/stats":
                 self._send(200, snapshot())
-            elif self.path == "/metrics":
+            elif path == "/metrics":
                 hists = None if kind == "window" else engine.stats.hist
                 self._send(200, prometheus_exposition(snapshot(), hists),
                            content_type=PROMETHEUS_CONTENT_TYPE)
+            elif path == "/v1/flight":
+                self._flight(query)
             else:
                 self._send(404, {"error": "not found"})
+
+        def _flight(self, query: str) -> None:
+            """The slot engine's flight recorder, live: the ring the
+            supervisor dumps after a crash."""
+            if kind == "window":
+                self._send(404, {"error": "flight events need a continuous/paged engine (the "
+                                          "window engine has no flight recorder)"})
+                return
+            qs = parse_qs(query)
+            try:
+                limit = int((qs.get("limit") or [256])[0])
+                if limit <= 0:
+                    raise ValueError
+            except ValueError:
+                self._send(400, {"error": f"'limit' must be a positive integer, "
+                                          f"got {qs['limit'][0]!r}"})
+                return
+            self._send(200, {"events": engine.recorder.events()[-limit:]})
 
         def _parse(self):
             """The request body -> (prompt ids, GenerationConfig, seed, the
@@ -347,6 +416,11 @@ def build_server(
         def do_POST(self):  # noqa: N802
             if self.path not in ("/v1/generate", "/v1/stream"):
                 self._send(404, {"error": "not found"})
+                return
+            if drain_state["draining"]:
+                # admission is closed server-wide; the work in flight runs on
+                self._send_error(DrainingError("server draining; retry against another replica",
+                                               retry_after_s=float(drain_timeout_s)))
                 return
             try:
                 prompt_ids, gen, seed, req, priority, deadline_s = self._parse()
@@ -483,13 +557,66 @@ def build_server(
     httpd = _Server((host, port), Handler)
     if window is not engine:
         httpd.window_engine = window
+
+    def begin_drain(signum=None, frame=None) -> None:
+        """SIGTERM: close admission, let the work in flight finish within
+        ``drain_timeout_s``, then stop the server loop so ``serve`` returns
+        and the process exits 0."""
+        if drain_state["draining"]:
+            return
+        drain_state["draining"] = True
+        print(f"[serve] drain: admission closed, finishing in-flight work "
+              f"(timeout {drain_timeout_s}s)", flush=True)
+        engines = [engine] if window is engine else [engine, window]
+        for eng in engines:
+            eng.begin_drain()
+
+        def finish() -> None:
+            deadline = time.monotonic() + float(drain_timeout_s)
+            clean = True
+            for eng in engines:
+                clean = eng.wait_drained(max(0.0, deadline - time.monotonic())) and clean
+            print("[serve] drain complete; shutting down" if clean else
+                  "[serve] drain timeout: shutting down with requests unresolved", flush=True)
+            httpd.shutdown()
+
+        threading.Thread(target=finish, name="drain", daemon=True).start()
+
+    httpd.begin_drain = begin_drain
+    httpd.drain_state = drain_state
+    if control is not None:
+        control["begin_drain"] = begin_drain
+        control["httpd"] = httpd
     return httpd, engine
+
+
+def run_server(httpd, engine) -> None:
+    """Serve until interrupted or drained. On the main thread SIGTERM runs
+    ``httpd.begin_drain``; elsewhere callers drain through it themselves.
+    The server and the engines are closed on the way out."""
+    prev = None
+    try:
+        prev = signal.signal(signal.SIGTERM, httpd.begin_drain)
+    except ValueError:
+        pass  # not the main thread
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        httpd.server_close()
+        engine.close()
+        if httpd.drain_state["draining"]:
+            print("[serve] drained; exiting", flush=True)
 
 
 def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 8080,
           quantize: str = "none", engine: str = "continuous", quantize_kv: str = "none",
           speculative_k: int = 0, draft_dir: Optional[str] = None, **engine_kw) -> None:
-    """Load ``model_dir`` onto ``device`` and serve it until interrupted.
+    """Load ``model_dir`` onto ``device`` and serve it until interrupted or
+    drained (SIGTERM).
     Weights and compute are bf16 on the GPU and f32 on the CPU (which has no
     fast bf16, and where the tests compare with the JAX package in f32);
     ``quantize="int8"`` then stores the block linears as int8 codes.
@@ -515,13 +642,7 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     print(f"[serve] listening on http://{host}:{httpd.server_address[1]} "
           f"(engine {engine}, device {device}, {compute_dtype}, weights {quantize}"
           f"{spec if speculative_k else ''})", flush=True)
-    try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        httpd.server_close()
-        eng.close()
+    run_server(httpd, eng)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -581,6 +702,29 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--brownout-cap-tokens", type=int, default=32,
                         help="brownout stage >= 2: max_new_tokens cap applied to "
                              "best_effort requests admitted during the brownout")
+    parser.add_argument("--request-timeout-s", type=float, default=600.0,
+                        help="max seconds a request waits for the device before a 503 "
+                             "(0 = wait forever)")
+    parser.add_argument("--drain-timeout-s", type=float, default=30.0,
+                        help="SIGTERM grace: how long in-flight requests may finish before "
+                             "the server exits anyway")
+    parser.add_argument("--restart-backoff-s", type=float, default=0.5,
+                        help="supervisor: delay before the first in-process engine restart "
+                             "(doubles per failure in the circuit window)")
+    parser.add_argument("--restart-backoff-max-s", type=float, default=30.0,
+                        help="supervisor: cap on the exponential restart backoff")
+    parser.add_argument("--circuit-threshold", type=int, default=5,
+                        help="supervisor: retryable failures within --circuit-window-s that "
+                             "open the circuit (engine stops restarting, /healthz goes 503)")
+    parser.add_argument("--circuit-window-s", type=float, default=60.0,
+                        help="supervisor: sliding window for the circuit-breaker count")
+    parser.add_argument("--watchdog-timeout-s", type=float, default=0.0,
+                        help="hard-exit if the decode worker makes no progress for this many "
+                             "seconds (a wedged device; runtime/watchdog.py). Must exceed the "
+                             "worst prefill and the kernels' first build. 0 = off")
+    parser.add_argument("--flight-dir", default="outputs/flight_recorder",
+                        help="directory for flight-recorder JSON dumps (recent engine events, "
+                             "written on a restart and on circuit-open). Empty string disables")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080, help="0 picks a free port")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -607,6 +751,10 @@ def main(argv: Optional[list] = None) -> int:
         queue_deadline_s=args.queue_deadline_s or None, priority_default=args.priority_default,
         age_promote_s=args.age_promote_s, brownout_queue_wait_s=args.brownout_queue_wait_s,
         brownout_drain_s=args.brownout_drain_s, brownout_cap_tokens=args.brownout_cap_tokens,
+        request_timeout_s=args.request_timeout_s or None, drain_timeout_s=args.drain_timeout_s,
+        restart_backoff_s=args.restart_backoff_s, restart_backoff_max_s=args.restart_backoff_max_s,
+        circuit_threshold=args.circuit_threshold, circuit_window_s=args.circuit_window_s,
+        watchdog_timeout_s=args.watchdog_timeout_s, flight_dir=args.flight_dir or None,
     )
     return 0
 

@@ -6,8 +6,8 @@
   writer. The Aim and JSONL sinks are not ported;
 - ``ServingStats``, the serving engines' counters, gauges and latency
   histograms (``GET /v1/stats``), with the JAX package's whole schema:
-  counters of features that are not ported (speculation, adapters, tiers,
-  hot-swap, the host KV tier, fleets) exist and stay 0;
+  counters of features that are not ported (adapters, hot-swap, the host
+  KV tier, fleets) exist and stay 0;
 - ``prometheus_exposition``, the ``GET /metrics`` text of a snapshot.
 """
 
@@ -78,7 +78,11 @@ class ServingStats:
     queue deadline or the client's), ``requests_shed_deadline_decode``
     (the client's deadline after admission), ``preemptions``, the
     tier-labelled sheds (``tier_shed_incr``), the waste reasons and the
-    ``brownout_stage`` gauge. The snapshot derives ``slot_occupancy``,
+    ``brownout_stage`` gauge. Supervision moves ``engine_restarts`` and the
+    ``engine_generation`` gauge; the engines' snapshots add the string
+    ``circuit_state`` and the bool ``draining``, which the exposition turns
+    into an ``_info`` label and a 0/1 gauge, as the JAX package's does. The
+    snapshot derives ``slot_occupancy``,
     ``prefix_hit_rate``, ``mean_tokens_per_step``, ``goodput_fraction``,
     the pool occupancies when a pool exists (``total_blocks``), a ~1 min
     EWMA of tokens/s (``tokens_per_s_1m``) and each histogram's summary.

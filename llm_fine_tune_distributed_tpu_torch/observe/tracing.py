@@ -1,6 +1,6 @@
-"""Mergeable latency histograms (counterpart of ``Histogram`` in the JAX
-``observe/tracing.py``; request traces and the flight recorder are not
-ported).
+"""Mergeable latency histograms and the engines' flight recorder
+(counterparts of ``Histogram`` and ``FlightRecorder`` in the JAX
+``observe/tracing.py``; request traces are not ported).
 
 ``Histogram``: fixed-bucket counts with a per-instance lock. One
 ``observe()`` is a ``bisect`` plus three adds, cheap next to a decode step,
@@ -8,14 +8,20 @@ so the serving engines leave it on. Fixed bounds make histograms mergeable:
 same bounds, add the counts. Percentiles interpolate inside the winning
 bucket. Bounds, interpolation and the Prometheus text are the JAX
 package's, so both expose the same series for the same observations.
+
+``FlightRecorder``: a bounded ring of recent engine events (admissions,
+sheds, tick summaries, crashes, restarts, circuit transitions) that the
+supervisor dumps to JSON after a crash and ``GET /v1/flight`` reads live.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import time
 from bisect import bisect_left
-from typing import Dict, List, Sequence, Tuple
+from collections import deque
+from typing import Any, Dict, List, Sequence, Tuple
 
 
 class Histogram:
@@ -135,3 +141,30 @@ def _fmt(v: float) -> str:
     if v != v or v in (math.inf, -math.inf):
         return "+Inf" if v > 0 else "-Inf"
     return f"{v:.10g}"
+
+
+class FlightRecorder:
+    """Bounded ring buffer of recent engine events.
+
+    Each event is a dict with ``t_s`` (seconds since the recorder was made)
+    and ``kind``, plus the caller's fields. The ``deque(maxlen=...)`` bound
+    keeps each record O(1) and the memory fixed."""
+
+    def __init__(self, capacity: int = 1024):
+        self._events: "deque[Dict[str, Any]]" = deque(maxlen=max(1, int(capacity)))
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+
+    def record(self, kind: str, **fields: Any) -> None:
+        event = {"t_s": round(time.monotonic() - self._t0, 6), "kind": kind}
+        event.update(fields)
+        with self._lock:
+            self._events.append(event)
+
+    def events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._events)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)

@@ -214,6 +214,21 @@ def _tickets(device, stream, n: int) -> torch.Tensor:
     return t
 
 
+def reset_paged_decode_tickets(device) -> None:
+    """Zero the merge tickets of ``device``'s current stream. The kernel
+    leaves them zero when every launch runs to its end; a serving engine
+    calls this when it builds a new generation after a failure, so that a
+    launch cut short cannot pass a stale ticket on. Nothing to do on the
+    CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    stream = torch.cuda.current_stream(device).cuda_stream
+    t = _TICKETS.get((device.index, stream))
+    if t is not None:
+        t.zero_()
+
+
 def _paged_decode_launch(q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
                          scale, split_len):
     """One launch of the kernel at ``split_len`` positions per split, on

@@ -10,6 +10,10 @@ weights restored at the end, and the artifact contract: ``best_model/``
 (bf16 safetensors, tokenizer marker, ``config.json``),
 ``training_history.json`` and ``training_summary.json``.
 
+``watchdog_timeout_s`` > 0 arms a ``StepWatchdog`` (``watchdog_action``
+"warn" or "abort") that each optimizer step pokes and each eval pauses;
+``train`` leaves it on ``self.watchdog`` (its ``trips``).
+
 ``frozen_compute="int8"`` runs the frozen trunk (the layers below the first
 trainable one) through the w8a8 int8 kernel: its projections are quantized
 once from the f32 weights, and ``best_model/`` holds them decoded.
@@ -59,6 +63,7 @@ from llm_fine_tune_distributed_tpu_torch.parallel.freeze import (
     trainable_mask,
 )
 from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import build_optimizer
+from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
 from llm_fine_tune_distributed_tpu_torch.train.state import TrainState
 from llm_fine_tune_distributed_tpu_torch.train.step import build_eval_step, build_train_step
 from llm_fine_tune_distributed_tpu_torch.utils.tree import merge_flat, split_by_mask
@@ -150,6 +155,7 @@ class SFTTrainer:
         self.model_config = model_config or self._resolve_model_config(config)
         self.tokenizer = tokenizer or load_tokenizer(config.tokenizer_path or config.model_name)
         self.metrics = MetricLogger()
+        self.watchdog: Optional[StepWatchdog] = None  # the last train()'s
         os.makedirs(os.path.join(config.output_dir, "best_model"), exist_ok=True)
         self._prepare_data()
         if config.save_steps and config.save_steps <= self.total_steps:
@@ -362,43 +368,60 @@ class SFTTrainer:
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         meter = self.throughput = _Throughput(cfg.max_seq_length)
+        # the wedged-device detector (runtime/watchdog.py), armed by the
+        # first step's poke so that the first step's kernel builds cannot
+        # trip it
+        watchdog = self.watchdog = (
+            StepWatchdog(cfg.watchdog_timeout_s, cfg.watchdog_action, start_paused=True)
+            if cfg.watchdog_timeout_s > 0 else None)
         t_start = time.perf_counter()
         step = self.state.step
-        for epoch in range(cfg.epochs):
-            for batch in self.loader.epoch(epoch):
-                dev_batch = self._device_batch(batch)
-                t_step = time.perf_counter()
-                self.state, metrics = self.train_step(self.state, dev_batch)
-                self._sync()
-                step += 1
-                meter.update(samples_per_step, int(batch["attention_mask"].sum()),
-                             time.perf_counter() - t_step)
-                do_log = ((cfg.logging_first_step and step == 1)
-                          or (cfg.logging_steps and step % cfg.logging_steps == 0))
-                do_eval = bool(cfg.eval_steps) and step % cfg.eval_steps == 0 and self.n_val > 0
-                if do_eval:
-                    last_eval = self.evaluate()
-                    if self._better(last_eval, best_eval):
-                        best_eval = last_eval
-                        if cfg.load_best_model_at_end and best_mode == "per_eval":
-                            best_trainable = {k: v.detach().clone()
-                                              for k, v in self.state.trainable.items()}
-                if do_log or do_eval:
-                    final_loss = float(metrics["loss"])
-                    logs = {"loss": final_loss,
-                            "learning_rate": float(self.lr_schedule(step - 1)),
-                            **meter.snapshot(),
-                            "grad_norm": float(metrics["grad_norm"])}
+        try:
+            for epoch in range(cfg.epochs):
+                for batch in self.loader.epoch(epoch):
+                    dev_batch = self._device_batch(batch)
+                    t_step = time.perf_counter()
+                    self.state, metrics = self.train_step(self.state, dev_batch)
+                    self._sync()
+                    step += 1
+                    meter.update(samples_per_step, int(batch["attention_mask"].sum()),
+                                 time.perf_counter() - t_step)
+                    if watchdog is not None:
+                        watchdog.poke(step)
+                    do_log = ((cfg.logging_first_step and step == 1)
+                              or (cfg.logging_steps and step % cfg.logging_steps == 0))
+                    do_eval = bool(cfg.eval_steps) and step % cfg.eval_steps == 0 and self.n_val > 0
                     if do_eval:
-                        logs["eval_loss"] = last_eval
-                        if self._last_eval_answer is not None:
-                            logs["eval_loss_answer"] = self._last_eval_answer
-                    if self.device.type == "cuda":
-                        logs["device_bytes_in_use"] = torch.cuda.memory_allocated(self.device)
-                        logs["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
-                    self.metrics.log(step, step / self.steps_per_epoch, logs)
-                if do_eval:
-                    self.metrics.save_history(os.path.join(cfg.output_dir, "training_history.json"))
+                        if watchdog is not None:
+                            # an eval sweep has no step pokes; the next
+                            # step's poke re-arms
+                            watchdog.pause()
+                        last_eval = self.evaluate()
+                        if self._better(last_eval, best_eval):
+                            best_eval = last_eval
+                            if cfg.load_best_model_at_end and best_mode == "per_eval":
+                                best_trainable = {k: v.detach().clone()
+                                                  for k, v in self.state.trainable.items()}
+                    if do_log or do_eval:
+                        final_loss = float(metrics["loss"])
+                        logs = {"loss": final_loss,
+                                "learning_rate": float(self.lr_schedule(step - 1)),
+                                **meter.snapshot(),
+                                "grad_norm": float(metrics["grad_norm"])}
+                        if do_eval:
+                            logs["eval_loss"] = last_eval
+                            if self._last_eval_answer is not None:
+                                logs["eval_loss_answer"] = self._last_eval_answer
+                        if self.device.type == "cuda":
+                            logs["device_bytes_in_use"] = torch.cuda.memory_allocated(self.device)
+                            logs["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
+                        self.metrics.log(step, step / self.steps_per_epoch, logs)
+                    if do_eval:
+                        self.metrics.save_history(os.path.join(cfg.output_dir, "training_history.json"))
+        finally:
+            if watchdog is not None:
+                # the end of the run (final eval, saves) has no step pokes
+                watchdog.stop()
 
         # a final eval when none ran, or when checkpoint-mode selection would
         # otherwise credit the final weights with an older eval

@@ -21,7 +21,7 @@ import torch
 
 from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
 from llm_fine_tune_distributed_tpu_torch.infer.engine import ContinuousBatchingEngine
-from llm_fine_tune_distributed_tpu_torch.infer.errors import FatalEngineError
+from llm_fine_tune_distributed_tpu_torch.infer.errors import CircuitOpenError, RetryableEngineError
 from llm_fine_tune_distributed_tpu_torch.infer.generate import Generator
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
@@ -292,15 +292,25 @@ def test_errors_reach_the_waiter(gen, engine):
     with pytest.raises(ValueError, match="does not fit"):
         engine.submit(list(range(200)), GREEDY, timeout=30)
     assert engine.submit(PROMPTS[0], GREEDY, timeout=TIMEOUT)  # still serving
-    eng = ContinuousBatchingEngine(_Wrapped(gen, _failing_step), **GEOMETRY)
+    # a device that fails every step: each failure is retryable (the JAX
+    # classification), so the engine restarts until the default
+    # circuit_threshold of 5 failures in the window opens the circuit
+    eng = ContinuousBatchingEngine(_Wrapped(gen, _failing_step), **GEOMETRY,
+                                   restart_backoff_s=0.01, restart_backoff_max_s=0.02)
     try:
-        with pytest.raises(FatalEngineError, match="device lost"):
+        for generation in range(4):
+            with pytest.raises(RetryableEngineError, match="device lost") as failed:
+                eng.submit(PROMPTS[0], GREEDY, timeout=30)
+            assert failed.value.generation == generation and failed.value.retry_after_s > 0
+        with pytest.raises(CircuitOpenError, match="device lost"):
             eng.submit(PROMPTS[0], GREEDY, timeout=30)
         # a dead engine refuses later submits with its terminal error
-        with pytest.raises(FatalEngineError, match="device lost") as refused:
+        with pytest.raises(CircuitOpenError, match="device lost") as refused:
             eng.submit(PROMPTS[0], GREEDY, timeout=30)
         assert refused.value is eng.terminal_error and not eng.healthy
-        assert eng.stats_snapshot()["requests_failed"] == 1
+        snap = eng.stats_snapshot()
+        assert (snap["requests_failed"], snap["engine_restarts"], snap["circuit_state"]) == (
+            5, 4, "open")
     finally:
         eng.close()
     assert not eng._worker.is_alive()

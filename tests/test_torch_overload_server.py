@@ -1,9 +1,11 @@
 """Overload control and the error taxonomy at the port's HTTP edge
 (``infer/server.py``), on the ``tiny`` preset in f32 on the CPU:
 
-- ``/healthz`` answers 503 with ``circuit_state`` and ``terminal_error`` once
-  a tick failed, on both slot engines, and the request in flight gets the
-  taxonomy's status and body;
+- a failed tick, on both slot engines: a retryable one restarts the engine
+  (the request in flight gets 503 ``engine_restarting``, ``/healthz`` stays
+  200), while an open circuit or a fatal failure makes ``/healthz`` answer
+  503 with ``circuit_state`` and ``terminal_error``; the request in flight
+  gets the taxonomy's status and body;
 - ``priority`` and ``deadline_ms`` are accepted and validated with the JAX
   server's 400 messages, and the seven overload flags reach ``serve`` with
   the values the JAX server's ``main`` gives them;
@@ -11,7 +13,13 @@
   ``{"error": {...}}`` body of ``error_payload``, on ``/v1/generate`` and
   (before any event) on ``/v1/stream``; a deadline that expires mid-stream
   ends the stream with an ``event: error`` carrying the same body;
-- ``/v1/stats`` and ``/metrics`` count the sheds and keep one schema.
+- ``/v1/stats`` and ``/metrics`` count the sheds and keep one schema;
+- supervision at the edge (the cases of ``tests/test_server.py``): the
+  supervision flags reach ``serve`` as the JAX server's ``main`` gives
+  them, ``GET /v1/flight`` reads the flight recorder (404 on the window
+  engine), and a drain through ``control["begin_drain"]`` finishes the
+  request in flight, refuses new ones with 503 ``draining`` and returns
+  from ``run_server``.
 
 Concurrent arrivals are scripted with a gate on the engine's decode step,
 never with sleeps that order events.
@@ -176,41 +184,76 @@ def _retry_after_header(headers, body):
 # ------------------------------------------------------------ the repair
 
 
+FAULTS = {
+    # a failure the supervisor restarts from
+    "retryable": dict(raise_=InjectedFault("injected tick failure"), kw={},
+                      status=503, kind="engine_restarting", retryable=True),
+    # the same failure with circuit_threshold 1: the first opens the circuit
+    "circuit_open": dict(raise_=InjectedFault("injected tick failure"),
+                         kw={"circuit_threshold": 1}, status=503, kind="circuit_open",
+                         retryable=False),
+    # a failure no restart can help (the taxonomy's fatal classes)
+    "fatal": dict(raise_=NotImplementedError("no kernel for this device"), kw={},
+                  status=500, kind="engine_fatal", retryable=False),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
 @pytest.mark.parametrize("engine", SLOT_ENGINES)
-def test_healthz_is_503_once_a_tick_failed(gen, engine):
-    """One injected tick failure kills the worker: the request in flight
-    gets a 500 with the ``engine_fatal`` body, ``/healthz`` answers 503
-    with ``circuit_state`` and the terminal error, and later requests (and
-    streams) are refused with the same error before any event."""
+def test_healthz_is_503_once_a_tick_failed(gen, engine, fault):
+    """One failed decode step, as the JAX server answers it. Retryable: the
+    request in flight gets 503 ``engine_restarting`` with Retry-After and
+    the failed generation, ``/healthz`` stays 200, and the next request is
+    served by generation 1. Circuit open or fatal: the request in flight
+    gets the terminal error's status and body, ``/healthz`` answers 503 with
+    ``circuit_state`` "open" or "fatal" and the error, and later requests
+    (and streams) are refused with it before any event."""
+    case = FAULTS[fault]
     calls = []
 
     def step(name, *a):
         calls.append(name)
         if len(calls) == 2:  # the second decode step fails
-            raise InjectedFault("injected tick failure")
+            raise case["raise_"]
         return getattr(gen, name)(*a)
 
-    with _Server(_Wrapped(gen, step), engine=engine) as srv:
+    with _Server(_Wrapped(gen, step), engine=engine, restart_backoff_s=0.01,
+                 **case["kw"]) as srv:
         assert srv.request("GET", "/healthz")[::2] == (200, b"ok")
-        status, _, body = srv.request("POST", "/v1/generate", QUESTION)
-        error = {"kind": "engine_fatal",
-                 "message": "fatal engine failure: InjectedFault: injected tick failure",
-                 "retryable": False}
-        assert status == 500 and json.loads(body) == {"error": error}
-        status, _, body = srv.request("GET", "/healthz")
-        assert status == 503
-        assert json.loads(body) == {"status": "unhealthy", "circuit_state": "open",
-                                    "error": error}
-        assert not srv.engine.healthy and srv.engine.circuit_state == "open"
-        assert srv.engine.terminal_error.to_dict() == error
-        assert isinstance(srv.engine.terminal_error.__cause__, InjectedFault)
-        for path in ("/v1/generate", "/v1/stream"):
-            status, headers, body = srv.request("POST", path, QUESTION)
-            assert status == 500 and json.loads(body) == {"error": error}
-            assert headers["Content-Type"] == "application/json"
-        snap = srv.engine.stats_snapshot()
+        status, headers, body = srv.request("POST", "/v1/generate", QUESTION)
+        error = json.loads(body)["error"]
+        assert status == case["status"] and error["kind"] == case["kind"]
+        assert error["retryable"] is case["retryable"]
+        cause = f"{type(case['raise_']).__name__}: {case['raise_']}"
+        assert cause in error["message"]
+        eng = srv.engine
+        if fault == "retryable":
+            assert error["generation"] == 0
+            _retry_after_header(headers, {"error": error})
+            _wait(lambda: eng.stats_snapshot()["engine_generation"] == 1)
+            assert srv.request("GET", "/healthz")[::2] == (200, b"ok")
+            status, _, body = srv.request("POST", "/v1/generate", QUESTION)
+            assert status == 200 and json.loads(body)["answer"]
+            snap = eng.stats_snapshot()
+            assert (snap["circuit_state"], snap["engine_restarts"], eng.healthy) == (
+                "closed", 1, True)
+        else:
+            state = "fatal" if fault == "fatal" else "open"
+            assert "Retry-After" not in headers
+            status, _, body = srv.request("GET", "/healthz")
+            assert status == 503
+            assert json.loads(body) == {"status": "unhealthy", "circuit_state": state,
+                                        "error": error}
+            assert not eng.healthy and eng.terminal_error.to_dict() == error
+            assert isinstance(eng.terminal_error.__cause__, type(case["raise_"]))
+            for path in ("/v1/generate", "/v1/stream"):
+                status, headers, body = srv.request("POST", path, QUESTION)
+                assert status == case["status"] and json.loads(body) == {"error": error}
+                assert headers["Content-Type"] == "application/json"
+            snap = eng.stats_snapshot()
+            assert snap["circuit_state"] == state
     step_name = "paged_step" if engine == "paged" else "slot_step"
-    assert snap["requests_failed"] == 1 and calls == [step_name] * 2
+    assert snap["requests_failed"] == 1 and set(calls) == {step_name}
 
 
 # ------------------------------------------------------- request fields
@@ -402,3 +445,104 @@ def test_stage3_brownout_sheds_best_effort_over_http(gen):
     assert stats["requests_shed_by_tier"]["best_effort"] == 1
     assert stats["requests_shed_by_tier"]["interactive"] == 0
     assert stats["requests_shed_overflow"] == 1
+
+
+# ------------------------------------------------------------ supervision
+
+
+def test_supervision_flags_reach_serve_with_the_jax_defaults_and_values(tmp_path, monkeypatch):
+    """The drain, restart, circuit, watchdog, flight and request-timeout
+    flags: absent, and set, ``serve`` gets what the JAX server's ``main``
+    hands its ``serve``."""
+    from llm_fine_tune_distributed_tpu.infer import server as jax_server
+
+    names = ("drain_timeout_s", "restart_backoff_s", "restart_backoff_max_s",
+             "circuit_threshold", "circuit_window_s", "watchdog_timeout_s", "flight_dir",
+             "request_timeout_s")
+    got, want = [], []
+    monkeypatch.setattr(server, "serve", lambda *a, **kw: got.append(kw))
+    monkeypatch.setattr(jax_server, "serve", lambda *a, **kw: want.append(kw))
+    flags = ["--drain-timeout-s", "7", "--restart-backoff-s", "0.25",
+             "--restart-backoff-max-s", "4", "--circuit-threshold", "3",
+             "--circuit-window-s", "12", "--watchdog-timeout-s", "90", "--flight-dir", "",
+             "--request-timeout-s", "0"]
+    for argv in ([], flags):
+        assert server.main(["--model-dir", str(tmp_path), "--device", "cpu"] + argv) == 0
+        assert jax_server.main(["--model-dir", str(tmp_path)] + argv) == 0
+    assert [{n: kw[n] for n in names} for kw in got] == [{n: kw[n] for n in names} for kw in want]
+    assert got[0]["flight_dir"] == "outputs/flight_recorder" and got[0]["request_timeout_s"] == 600
+    assert got[1]["flight_dir"] is None and got[1]["request_timeout_s"] is None
+
+
+@pytest.mark.parametrize("engine", SLOT_ENGINES)
+def test_flight_endpoint(gen, engine):
+    """GET /v1/flight: the live ring. The admission and the ticks of a
+    served request are in it, ``?limit=`` keeps the newest, and a limit
+    that is not a positive integer is a 400."""
+    with _Server(gen, engine=engine) as srv:
+        assert srv.request("POST", "/v1/generate", QUESTION)[0] == 200
+        status, _, raw = srv.request("GET", "/v1/flight")
+        events = json.loads(raw)["events"]
+        assert status == 200 and all("kind" in e and "t_s" in e for e in events)
+        kinds = [e["kind"] for e in events]
+        assert kinds[0] == "admit" and kinds.count("tick") == QUESTION["max_new_tokens"] - 1
+        status, _, raw = srv.request("GET", "/v1/flight?limit=2")
+        assert status == 200 and json.loads(raw)["events"] == events[-2:]
+        for bad in ("0", "-3", "abc"):
+            status, _, raw = srv.request("GET", f"/v1/flight?limit={bad}")
+            assert status == 400
+            assert json.loads(raw) == {
+                "error": f"'limit' must be a positive integer, got {bad!r}"}
+
+
+def test_flight_endpoint_is_404_on_the_window_engine(gen):
+    with _Server(gen, engine="window") as srv:
+        status, _, raw = srv.request("GET", "/v1/flight")
+    assert status == 404
+    assert json.loads(raw) == {"error": "flight events need a continuous/paged engine (the "
+                                        "window engine has no flight recorder)"}
+
+
+@pytest.mark.parametrize("engine", SLOT_ENGINES)
+def test_drain_finishes_in_flight_and_exits(gen, engine):
+    """The SIGTERM path, driven through ``control["begin_drain"]``:
+    ``/healthz`` turns 503 draining, a new request is a 503 ``draining``
+    with Retry-After, the request in flight finishes with 200 and its
+    tokens, and ``run_server`` returns within the drain timeout."""
+    gate = _Gate()
+    control = {}
+    httpd, engine_ = server.build_server(_gated(gen, gate), host="127.0.0.1", port=0,
+                                         **{**GEOMETRY, "engine": engine}, drain_timeout_s=60.0,
+                                         control=control)
+    assert control["httpd"] is httpd
+    serving = threading.Thread(target=server.run_server, args=(httpd, engine_), daemon=True)
+    serving.start()
+    srv = _Server.__new__(_Server)
+    srv.port = httpd.server_address[1]
+    body = {**QUESTION, "max_new_tokens": 24}
+    try:
+        inflight = srv.post_async("/v1/generate", body)
+        gate.park()
+        control["begin_drain"]()  # what SIGTERM calls
+        status, headers, raw = srv.request("GET", "/healthz")
+        assert status == 503 and json.loads(raw) == {"status": "draining"}
+        assert headers["Retry-After"] == "60"
+        status, headers, raw = srv.request("POST", "/v1/generate", QUESTION)
+        error = json.loads(raw)["error"]
+        assert status == 503 and error["kind"] == "draining" and error["retryable"]
+        _retry_after_header(headers, {"error": error})
+        assert engine_.draining and engine_.stats_snapshot()["draining"] is True
+        gate.open()
+        status, _, raw = inflight()
+        serving.join(60)
+        assert not serving.is_alive()  # serve returned: the process exits 0
+    finally:
+        gate.open()
+        if serving.is_alive():
+            httpd.shutdown()
+    assert status == 200
+    prompt = gen.encode_chat([{"role": "system", "content": QUESTION["system_prompt"]},
+                              {"role": "user", "content": QUESTION["question"]}])
+    want = gen.generate_ids(prompt, GenerationConfig(max_new_tokens=24, do_sample=False))
+    assert json.loads(raw) == {"answer": gen.decode_reply(want)}
+    assert not engine_._worker.is_alive()  # run_server closed the engine
