@@ -129,7 +129,30 @@ and stops with a non-zero exit at the first failure:
    new one gets 503 ``draining``, ``run_server`` returns; (e) a
    ``StepWatchdog(1.0, "abort")`` trips 0 times over a normal request and
    once when a decode tick is slowed by 2 s. Phases 8 and 11 train with
-   the step watchdog armed and must report 0 trips.
+   the step watchdog armed and must report 0 trips;
+20. (right after phase 19, on phase 4's generator) serving observability
+   on a paged int8 server with ``--trace-log``, ``--profile-dir``, a 0.2 s
+   metric ring and a 10 ms inter-token objective: (a) phase 4's 4
+   concurrent requests with ``"trace": true``: each trace holds received,
+   queued, admitted, the prefill (chunks, then the final one), first_token
+   and completed in time order, the trace log 4 lines of those requests
+   (32 tokens, no error), paged decode launches 36 x decode steps; (b)
+   ``/v1/slo``: inter_token_p99 breached on both windows (burn > 1),
+   ttft_p99 compliant (4 events < ``min_events``), one ``slo_breach`` in
+   ``/v1/flight``; ``/v1/history?metric=tokens_served`` non-decreasing up to
+   ``/v1/stats``'s count; (c) ``/v1/capacity``: the report of a fleet of
+   one, the snapshot's mean decode tick equal to the histogram's, a
+   positive sustainable tokens/s; (d) ``weight_bytes`` and
+   ``kv_pool_bytes`` equal to the tensors' bytes, the MFU and HBM-bandwidth
+   gauges in (0, 1), unclamped at most 1, the bandwidth one giving back
+   the summed bytes of every timed decode tick over their summed time to
+   1e-6 (and again on a continuous server); (e) ``POST /v1/profile`` while
+   a 128-token request decodes: 200, then 409 inside the window,
+   ``profile_start`` and ``profile_stop`` in ``/v1/flight``, a Chrome trace
+   holding ``paged_decode_kernel`` a positive multiple of 36 times, and
+   the request decoding on after the stop, with the stop's hold of the
+   tick lock and the request's largest inter-token gap printed; (f)
+   ``/v1/lineage`` and the window engine's ``/v1/slo`` answer the JAX 404s.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -150,6 +173,14 @@ flash kernels again with every row one segment (nothing to skip), and its
 ``w8a8_matmul`` over one trunk layer's 7 projections at M = 8192 on codes
 made by its own ``parallel.freeze.quantize_trunk_int8``. One JSON line per
 checkout; the last line lists them all.
+
+``python3 chip_smoke.py --serve-ab DIR [DIR ...]`` runs instead phase 4 (a
+warm-up request, then the 4 concurrent ones, on a paged int8 server over
+seed-0 bf16 weights) with this script's ``serve_phase`` on each checkout's
+port, each in a process of its own that builds its own paged decode
+kernel, in the order given (parent, change, change, parent): its mean
+decode tick, tokens/s and TTFT, one JSON line per checkout, then all of
+them.
 """
 
 from __future__ import annotations
@@ -606,9 +637,10 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged", spec=0):
     for prompt, ids in results:
         check(1 <= len(ids) <= MAX_NEW_TOKENS, f"a request generated {len(ids)} tokens")
         check(all(0 <= t < generator.config.vocab_size for t in ids), "token id out of range")
-    # a slot engine's info line also carries its circuit's state (the JAX schema)
-    info = ('serving_info{engine="window"}' if engine == "window" else
-            f'serving_info{{circuit_state="closed",engine="{engine}"}}')
+    # the info line carries every string of the snapshot as a label (the JAX
+    # schema: a slot engine's adds its circuit's state and its role)
+    labels = ",".join(f'{k}="{stats[k]}"' for k in sorted(stats) if isinstance(stats[k], str))
+    info = f"serving_info{{{labels}}}"
     check(stats["engine"] == engine and samples.get(info) == 1,
           f"/v1/stats or /metrics does not name the {engine} engine")
     gen_tok = sum(len(r[1]) for r in results[1:])
@@ -2507,6 +2539,337 @@ def supervision_phase(tf, gen_mod, engine_mod, server_mod, fa, generator):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: serving observability (traces, SLOs, history, capacity, gauges,
+# on-demand profiler capture)
+# ---------------------------------------------------------------------------
+
+OBSERVE_SAMPLE_S = 0.2  # --slo-sample-interval-s
+OBSERVE_INTER_TOKEN_S = 0.01  # --slo-inter-token-p99-s: far under a decode tick, so it breaches
+PROFILE_S = 2.0  # POST /v1/profile's duration
+PROFILED_TOKENS = 128  # 20e's request: it decodes well past the capture's stop
+TRACE_SPANS = ("received", "queued", "admitted", "prefill", "first_token", "completed")
+# phase 20d's prediction (arithmetic from SmolLM3-3B's shapes and phase 4's
+# and 15's ticks): (MFU, HBM-bandwidth utilization)
+OBSERVE_PREDICTED = {"paged": (3e-4, 0.024), "continuous": (5e-4, 0.04)}
+
+
+def _observe_kw(engine):
+    kw = dict(engine=engine, slots=SLOTS, kv_buf_len=KV_BUF_LEN, prompt_bucket=PROMPT_BUCKET,
+              slo_sample_interval_s=OBSERVE_SAMPLE_S)
+    if engine == "paged":
+        kw.update(quantize_kv="int8", kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK)
+    return kw
+
+
+def _concurrent(base, extra=None):
+    """Phase 4's 4 concurrent greedy requests: their parsed answers."""
+    joins = [_post_async(base, "/v1/generate", {"question": q, "greedy": True,
+                                               "max_new_tokens": MAX_NEW_TOKENS, **(extra or {})})
+             for q in QUESTIONS]
+    out = []
+    for i, join in enumerate(joins):
+        status, _, raw = join()
+        check(status == 200, f"phase 20 request {i}: HTTP {status} {raw[:200]!r}")
+        out.append(json.loads(raw))
+    return out
+
+
+def _get_json(base, path):
+    status, _, raw = _request(base, path)
+    return status, json.loads(raw)
+
+
+def _trace_order(label, trace):
+    """The JAX spans of a served request, in time order: received, queued,
+    admitted, the prefill (chunks, then the final one), first_token,
+    completed."""
+    spans = [e["span"] for e in trace["events"]]
+    times = [e["t_s"] for e in trace["events"]]
+    check(times == sorted(times), f"{label}: trace times out of order: {trace['events']}")
+    core = [s for s in spans if s != "prefill_chunk"]
+    check(core == list(TRACE_SPANS), f"{label}: trace spans {spans}")
+    chunks = [i for i, s in enumerate(spans) if s == "prefill_chunk"]
+    check(all(spans.index("admitted") < i < spans.index("prefill") for i in chunks),
+          f"{label}: a prefill chunk outside admission..prefill: {spans}")
+    return spans
+
+
+def _storage_bytes(tensors):
+    """Bytes of the distinct storages under ``tensors``."""
+    seen = {}
+    for t in tensors:
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def observe_gauges(label, eng, stats, generator, peaks):
+    """20d on one engine: the memory gauges against the tensors themselves,
+    and the MFU and HBM-bandwidth gauges in (0, 1), unclamped at most 1,
+    the bandwidth one giving back the bytes of every timed decode tick over
+    their summed time (the ``decode_tick_s`` histogram's count and sum)."""
+    from llm_fine_tune_distributed_tpu_torch.observe import profiler
+
+    weights = _storage_bytes(generator.params.values())
+    check(stats["weight_bytes"] == weights,
+          f"{label}: weight_bytes {stats['weight_bytes']} != {weights} (the parameters' storages)")
+    layers = eng._cache["layers"].values()
+    kv = sum(t.nbytes for e in layers for n, t in e.items() if n in ("k", "v"))
+    scales = sum(t.nbytes for e in layers for n, t in e.items() if n.endswith("_scale"))
+    check(stats["kv_pool_bytes"] == kv, f"{label}: kv_pool_bytes {stats['kv_pool_bytes']} != {kv}")
+    report = stats["device_memory_report"]
+    check(report["kv_scale_bytes"] == scales and report["weight_bytes"] == weights,
+          f"{label}: device_memory_report {report}, scales {scales}")
+    check(stats["role"] == "mixed", f"{label}: role {stats.get('role')!r}")
+    snap = eng.stats_snapshot()  # the gauges beside the cost and the ticks they divide
+    ticks, seconds, flops, nbytes = eng.decode_cost()
+    _, hist_ticks, tick_sum = eng.stats.hist["decode_tick_s"]._state()
+    check(ticks == hist_ticks and abs(seconds - tick_sum) <= 1e-9 * tick_sum,
+          f"{label}: the work sums cover {ticks} ticks in {seconds} s, decode_tick_s "
+          f"{hist_ticks} in {tick_sum} s")
+    mean_tick = seconds / ticks
+    peak_flops, peak_bw = profiler.device_peak_specs()
+    check((peak_flops, peak_bw) == (peaks[1], peaks[0]),
+          f"device_peak_specs {peak_flops, peak_bw} != the bound's peaks {peaks}")
+    mfu, bw = snap["model_flops_utilization"], snap["hbm_bandwidth_utilization"]
+    check(stats["model_flops_utilization"] == mfu and stats["hbm_bandwidth_utilization"] == bw,
+          f"{label}: /v1/stats gauges {stats['model_flops_utilization']}, "
+          f"{stats['hbm_bandwidth_utilization']} != the engine's {mfu}, {bw}")
+    raw_mfu, raw_bw = flops / (seconds * peak_flops), nbytes / (seconds * peak_bw)
+    check(0.0 < mfu < 1.0 and 0.0 < bw < 1.0, f"{label}: MFU {mfu}, HBM {bw} outside (0, 1)")
+    check(raw_mfu <= 1.0 and raw_bw <= 1.0,
+          f"{label}: unclamped MFU {raw_mfu}, HBM {raw_bw} above 1: the cost count is wrong")
+    back = bw * peak_bw * seconds
+    check(abs(back - nbytes) <= 1e-6 * nbytes,
+          f"{label}: HBM gauge x peak x summed tick time = {back} != the ticks' bytes {nbytes}")
+    queries = eng._decode_work.sums[1]
+    want_mfu, want_bw = OBSERVE_PREDICTED[label]
+    phase(20, f"20d {label}: weight_bytes {weights} == the parameters' storages, kv_pool_bytes "
+              f"{kv} (+ {scales} B of scales) == the pool's; {ticks} timed decode ticks, "
+              f"{queries / ticks:.2f} live rows per tick, per tick {flops / ticks / 1e9:.3f} GFLOP "
+              f"and {nbytes / ticks / 1e9:.4f} GB in {1e3 * mean_tick:.2f} ms; MFU {mfu:.3e} "
+              f"(predicted {want_mfu:.0e}), HBM bandwidth {bw:.4f} (predicted {want_bw}); "
+              f"unclamped {raw_mfu:.3e}, {raw_bw:.4f}")
+    return {"weight_bytes": weights, "kv_pool_bytes": kv, "kv_scale_bytes": scales,
+            "decode_ticks": ticks, "rows_per_tick": queries / ticks,
+            "decode_flops_per_tick": flops / ticks, "decode_bytes_per_tick": nbytes / ticks,
+            "mean_decode_tick_ms": 1e3 * mean_tick, "model_flops_utilization": mfu,
+            "hbm_bandwidth_utilization": bw, "predicted": [want_mfu, want_bw]}
+
+
+def observe_traces_slo_capacity(server_mod, fa, generator, tmp, peaks):
+    """20a-c, d on paged int8 and e: one paged int8 server with the trace
+    log, the profile directory, a 0.2 s ring and a 10 ms inter-token
+    objective."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.observe import capacity
+
+    trace_log = os.path.join(tmp, "traces.jsonl")
+    profile_dir = os.path.join(tmp, "profiles")
+    kw = dict(_observe_kw("paged"), trace_log=trace_log, profile_dir=profile_dir,
+              slo_inter_token_p99_s=OBSERVE_INTER_TOKEN_S)
+    out = {}
+    t0 = time.monotonic()
+    with _Serving(server_mod, generator, **kw) as srv:
+        built_s = time.monotonic() - t0  # the profiler's warm-up included
+        base, eng = srv.base, srv.engine
+        fa.paged_decode_attention.launches = 0  # this drive's launches only
+        answers = _concurrent(base, {"trace": True})
+        launches = fa.paged_decode_attention.launches
+        _, stats = _get_json(base, "/v1/stats")
+        # (a) the traces, the trace log, the launches
+        spans = [_trace_order(f"request {i}", a["trace"]) for i, a in enumerate(answers)]
+        with open(trace_log) as f:
+            records = [json.loads(line) for line in f]
+        ids = sorted(a["trace"]["request_id"] for a in answers)
+        check(sorted(r["request_id"] for r in records) == ids,
+              f"trace log ids {[r['request_id'] for r in records]} != the responses' {ids}")
+        check(all(r["generated_tokens"] == MAX_NEW_TOKENS and r["error"] is None for r in records),
+              f"trace log records: {[(r['generated_tokens'], r['error']) for r in records]}")
+        layers = generator.config.num_layers
+        check(launches == layers * stats["decode_steps"],
+              f"paged decode launches {launches} != {layers} x {stats['decode_steps']} decode steps")
+        ttft_in_trace = [next(e["t_s"] for e in a["trace"]["events"] if e["span"] == "first_token")
+                         for a in answers]
+        out["a"] = {"spans": spans, "trace_log_records": len(records), "launches": launches,
+                    "decode_steps": stats["decode_steps"], "trace_ttft_s": ttft_in_trace,
+                    "server_built_s": built_s}
+        phase(20, f"20a: server built in {built_s:.1f} s (the profiler's warm-up included); "
+                  f"4 traced requests, spans {spans[0]} (chunks per request "
+                  f"{[s.count('prefill_chunk') for s in spans]}), trace-log lines {len(records)} "
+                  f"== the 4 request ids, 32 tokens each, no error; paged decode launches "
+                  f"{launches} == {layers} x {stats['decode_steps']} decode steps")
+        # (b) the SLO report, the breach event, the history
+        _, slo = _get_json(base, "/v1/slo")
+        itl, ttft = slo["objectives"]["inter_token_p99"], slo["objectives"]["ttft_p99"]
+        check(not itl["compliant"] and all(w["burn_rate"] > 1.0 for w in itl["windows"].values()),
+              f"inter_token_p99 should breach on both windows: {itl}")
+        check(ttft["compliant"], f"ttft_p99 should stay compliant (4 events < min_events): {ttft}")
+        _, flight = _get_json(base, "/v1/flight?limit=1024")
+        breaches = [e for e in flight["events"] if e["kind"] == "slo_breach"]
+        check([e["objective"] for e in breaches] == ["inter_token_p99"],
+              f"slo_breach events {breaches}")
+
+        def history():
+            return _get_json(base, "/v1/history?metric=tokens_served")[1]["samples"]
+
+        # the worker samples once more when it goes idle: wait for that sample
+        _wait_for(lambda: history()[-1]["value"] == stats["tokens_served"],
+                  "the metric ring's idle sample", timeout=30)
+        values = [p["value"] for p in history()]
+        check(values == sorted(values), f"tokens_served history decreases: {values}")
+        out["b"] = {"inter_token_p99": itl, "ttft_p99": ttft, "breaches": breaches,
+                    "history_values": values}
+        phase(20, f"20b: inter_token_p99 breached, burn rates "
+                  f"{ {k: w['burn_rate'] for k, w in itl['windows'].items()} } over "
+                  f"{ {k: w['events'] for k, w in itl['windows'].items()} } gaps; ttft_p99 "
+                  f"compliant ({ttft['windows']['fast']['events']} events < 8); one slo_breach "
+                  f"event; tokens_served history {len(values)} samples, non-decreasing, last "
+                  f"{values[-1]} == /v1/stats")
+        # (c) the capacity report of a fleet of one
+        _, cap = _get_json(base, "/v1/capacity")
+        snap = eng.capacity_snapshot()
+        _, ticks, tick_sum = eng.stats.hist["decode_tick_s"]._state()
+        check(snap["mean_decode_tick_s"] == tick_sum / ticks,
+              f"mean_decode_tick_s {snap['mean_decode_tick_s']} != the histogram's "
+              f"{tick_sum / ticks}")
+        want = capacity.SaturationModel().sustainable_tokens_per_s(
+            slots=snap["slots"], mean_decode_tick_s=snap["mean_decode_tick_s"],
+            mean_tokens_per_step=snap["mean_tokens_per_step"],
+            live_slots_mean=snap["live_slots_mean"], mfu=snap["model_flops_utilization"],
+            hbm_bw_util=snap["hbm_bandwidth_utilization"])
+        per_replica = cap["capacity"]["per_replica_tokens_per_s"]
+        check(per_replica > 0.0 and abs(per_replica - want) <= 1e-9 * want,
+              f"sustainable tokens/s {per_replica} (the model from the snapshot: {want})")
+        check(cap["autoscale"] == "off" and cap["decisions"] == [] and cap["replicas"] == 1,
+              f"/v1/capacity {cap}")
+        out["c"] = {"keys": sorted(cap), "per_replica_tokens_per_s": per_replica,
+                    "mean_decode_tick_s": snap["mean_decode_tick_s"],
+                    "recommended_replicas": cap["recommended_replicas"],
+                    "demand_tokens_per_s": cap["current_load"]["demand_tokens_per_s"]}
+        phase(20, f"20c: /v1/capacity keys {sorted(cap)}; mean decode tick "
+                  f"{1e3 * snap['mean_decode_tick_s']:.2f} ms == the histogram's; sustainable "
+                  f"{per_replica:.1f} tokens/s per replica, recommended replicas "
+                  f"{cap['recommended_replicas']}")
+        out["d"] = observe_gauges("paged", eng, stats, generator, peaks)
+        out["e"] = observe_profile(base, eng, fa, layers)
+        # (f) lineage needs hot-swap: the JAX 404
+        status, body = _get_json(base, "/v1/lineage")
+        check(status == 404 and body == {"error": server_mod._LINEAGE_404},
+              f"/v1/lineage: {status} {body}")
+    return out
+
+
+def observe_profile(base, eng, fa, layers):
+    """20e: POST /v1/profile while one 128-token request decodes: 200, then
+    409 inside the window; after the stop the Chrome trace holds
+    ``paged_decode_kernel`` a positive multiple of 36 times (the capture
+    starts and stops between ticks), and the flight recorder holds
+    profile_start then profile_stop. The request still decodes after the
+    stop released the tick lock; its largest inter-token gaps (between its
+    ticks in the flight recorder) across the start and across the stop are
+    printed beside the times the capture held the tick lock."""
+    import os
+
+    join = _post_async(base, "/v1/generate", {"question": QUESTIONS[0], "greedy": True,
+                                              "max_new_tokens": PROFILED_TOKENS})
+    start = eng.stats.values(("decode_steps",))["decode_steps"]
+    _wait_for(lambda: eng.stats.values(("decode_steps",))["decode_steps"] > start,
+              "the profiled request's first decode tick", timeout=60)
+    t0 = time.monotonic()
+    posted = t0 - eng.recorder._t0  # on the flight recorder's clock
+    status, _, raw = _request(base, "/v1/profile", {"duration_s": PROFILE_S})
+    check(status == 200, f"POST /v1/profile: HTTP {status} {raw!r}")
+    trace_dir = json.loads(raw)["trace_dir"]
+    status, _, raw = _request(base, "/v1/profile", {"duration_s": PROFILE_S})
+    check(status == 409, f"a second POST /v1/profile inside the window: HTTP {status} {raw!r}")
+
+    def stopped():
+        return [e for e in _get_json(base, "/v1/flight?limit=1024")[1]["events"]
+                if e["kind"] in ("profile_start", "profile_stop")]
+
+    _wait_for(lambda: any(e["kind"] == "profile_stop" for e in stopped()),
+              "profile_stop: the capture never stopped", timeout=120)
+    stop_s = time.monotonic() - t0
+    check(join()[0] == 200, "the profiled request failed")
+    marks = stopped()
+    check([e["kind"] for e in marks] == ["profile_start", "profile_stop"],
+          f"flight profile events {marks}")
+    check("error" not in marks[1], f"the capture's stop failed: {marks[1]}")
+    # the request's ticks from the last one before the POST on; the stop
+    # released the lock export_ms before profile_stop was recorded
+    begin, end = marks
+    events = _get_json(base, "/v1/flight?limit=1024")[1]["events"]
+    released = end["t_s"] - end["export_ms"] / 1e3
+    ticks = [e["t_s"] for e in events if e["kind"] == "tick"]
+    ticks = ticks[max(0, sum(t < posted for t in ticks) - 1):]
+    check(ticks[0] < posted and ticks[-1] > released,
+          f"the profiled request did not decode across the capture: ticks "
+          f"{ticks[:3]}...{ticks[-3:]}, POST at {posted}, lock released at {released}")
+    gaps = [(a, b - a) for a, b in zip(ticks, ticks[1:])]
+    start_gap_ms = 1e3 * max(g for a, g in gaps if a < begin["t_s"])  # across the start
+    stop_gap_ms = 1e3 * max(g for a, g in gaps if a >= begin["t_s"])  # across the stop
+    median_gap_ms = 1e3 * sorted(g for _, g in gaps)[len(gaps) // 2]
+    path = os.path.join(trace_dir, "trace.json")
+    check(os.path.exists(path), f"no Chrome trace at {path}")
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    paged = [e for e in kernels if "paged_decode_kernel" in e.get("name", "")]
+    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
+    check(paged and len(paged) % layers == 0,
+          f"the capture holds {len(paged)} paged_decode_kernel events of {len(kernels)} kernels: "
+          f"not a positive multiple of {layers}")
+    os.remove(path)
+    phase(20, f"20e: POST /v1/profile -> 200 {trace_dir}, a second -> 409; profile_stop "
+              f"{stop_s:.2f} s after the POST (profile_start, profile_stop in /v1/flight): "
+              f"started holding the tick lock "
+              f"{begin['lock_held_ms']:.1f} ms, stopped holding it {end['lock_held_ms']:.1f} ms, "
+              f"exported in {end['export_ms']:.1f} ms; the request's largest inter-token gap "
+              f"{start_gap_ms:.1f} ms across the start, {stop_gap_ms:.1f} ms across the stop "
+              f"(median {median_gap_ms:.1f} ms, {len(ticks)} ticks, "
+              f"{sum(t > released for t in ticks)} after the stop); trace.json "
+              f"{size / 1e6:.1f} MB: {len(kernels)} kernel events, paged_decode_kernel "
+              f"{len(paged)} = {layers} x {len(paged) // layers} ticks, {len(cpu_ops)} CPU ops")
+    return {"trace_bytes": size, "kernel_events": len(kernels), "paged_events": len(paged),
+            "ticks_captured": len(paged) // layers, "cpu_ops": len(cpu_ops), "stop_s": stop_s,
+            "start_lock_held_ms": begin["lock_held_ms"],
+            "stop_lock_held_ms": end["lock_held_ms"], "export_ms": end["export_ms"],
+            "start_gap_ms": start_gap_ms, "stop_gap_ms": stop_gap_ms,
+            "median_inter_token_gap_ms": median_gap_ms}
+
+
+def observability_phase(server_mod, fa, generator, peaks):
+    """Phase 20 (right after phase 19, on phase 4's generator): request
+    traces and the trace log, the SLO report and history, the capacity
+    report, the memory and utilization gauges on paged int8 and continuous,
+    an on-demand profile, and the 404s of what is not ported."""
+    import tempfile
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
+        out = observe_traces_slo_capacity(server_mod, fa, generator, tmp, peaks)
+    gc_cuda()
+    with _Serving(server_mod, generator, **_observe_kw("continuous")) as srv:
+        fa.paged_decode_attention.launches = 0
+        _concurrent(srv.base)
+        check(fa.paged_decode_attention.launches == 0, "the continuous engine launched paged decode")
+        _, stats = _get_json(srv.base, "/v1/stats")
+        out["d_continuous"] = observe_gauges("continuous", srv.engine, stats, generator, peaks)
+    with _Serving(server_mod, generator, engine="window", max_batch=SLOTS) as srv:
+        status, body = _get_json(srv.base, "/v1/slo")
+        check(status == 404 and body == {"error": server_mod._NEEDS_SLOT_ENGINE["/v1/slo"]},
+              f"window /v1/slo: {status} {body}")
+    phase(20, "20f: /v1/lineage (paged) and /v1/slo (window) answer the JAX 404 bodies")
+    gc_cuda()
+    out["seconds"] = time.monotonic() - t0
+    phase(20, f"phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -3530,23 +3893,57 @@ def flash_ab_times(tree: str) -> dict:
     return out
 
 
-def flash_ab(trees) -> int:
-    """``--flash-ab DIR [DIR ...]``: each checkout timed in its own process,
-    in the order given."""
+def ab_runs(trees, one_flag: str, what: str) -> int:
+    """``--flash-ab`` / ``--serve-ab DIR [DIR ...]``: ``one_flag`` on each
+    checkout in a process of its own (every checkout's package has one
+    name), in the order given."""
     import os
 
     runs = []
     for tree in trees:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--flash-ab-one", tree],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), one_flag, tree],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
-            print(f"chip_smoke --flash-ab: timing {tree} failed (exit {proc.returncode})", file=sys.stderr)
+            print(f"chip_smoke {one_flag[:-len('-one')]}: {what} {tree} failed "
+                  f"(exit {proc.returncode})", file=sys.stderr)
             return 1
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     print(json.dumps({"runs": runs}), flush=True)
     return 0
+
+
+def serve_ab_times(tree: str) -> dict:
+    """``--serve-ab``: phase 4 (SmolLM3-3B, seed-0 bf16 weights, paged int8,
+    a warm-up request then the 4 concurrent ones) on one checkout's port,
+    in a process of its own, driven by this script's ``serve_phase``."""
+    import os
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+
+    for mod in (fa, server_mod, gen_mod):
+        check(os.path.abspath(mod.__file__).startswith(tree + os.sep),
+              f"imported {mod.__file__}, not the checkout at {tree}")
+    _build.build_all(("paged_decode",))
+    config = get_preset("smollm3_3b")
+    params = tf.init_params(config, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    generator = gen_mod.Generator(params, config, ByteChatMLTokenizer(),
+                                  compute_dtype=torch.bfloat16, device=DEVICE)
+    served = serve_phase(server_mod, fa, generator)
+    keys = ("launches", "decode_steps", "tokens_per_s_concurrent", "window_s",
+            "decode_tick_tokens_per_s", "decode_step_ms_mean", "decode_step_ms_mean_concurrent",
+            "ttft_s_warmup", "ttft_s_concurrent_mean")
+    return {"tree": tree, "card": card_info(), "torch": torch.__version__,
+            **{k: served[k] for k in keys}}
 
 
 def main(argv=()) -> int:
@@ -3555,9 +3952,14 @@ def main(argv=()) -> int:
               file=sys.stderr)
         return 2
     if argv[:1] == ["--flash-ab"] and len(argv) > 1:
-        return flash_ab(argv[1:])
+        return ab_runs(argv[1:], "--flash-ab-one", "timing")
     if argv[:1] == ["--flash-ab-one"] and len(argv) == 2:
         print(json.dumps(flash_ab_times(argv[1])), flush=True)
+        return 0
+    if argv[:1] == ["--serve-ab"] and len(argv) > 1:
+        return ab_runs(argv[1:], "--serve-ab-one", "serving")
+    if argv[:1] == ["--serve-ab-one"] and len(argv) == 2:
+        print(json.dumps(serve_ab_times(argv[1])), flush=True)
         return 0
     if argv:
         print(__doc__, file=sys.stderr)
@@ -3636,6 +4038,7 @@ def main(argv=()) -> int:
                              prompts)
     overload = overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     supervision = supervision_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
+    observability = observability_phase(server_mod, fa, generator, peaks)
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -3713,6 +4116,8 @@ def main(argv=()) -> int:
     paged["launches_queue_cap"] = overload["a"]["launches"]
     # phase 19a: launches across a failed tick, the restart and the new pool
     paged["launches_restart"] = supervision["a"]["launches"]
+    # phase 20a: launches under traced requests, the SLO ring and the trace log
+    paged["launches_observability"] = observability["a"]["launches"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -3768,7 +4173,7 @@ def main(argv=()) -> int:
                "serve_int8_weights": served_i8, "decode_profile_int8_weights": profiled_i8,
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "golden": golden, "overload": overload, "supervision": supervision,
-               "total_s": time.monotonic() - t_start}
+               "observability": observability, "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

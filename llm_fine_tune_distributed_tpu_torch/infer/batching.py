@@ -87,6 +87,9 @@ class Request:
     # set by a submit thread that displaced this queued lower-tier request
     # from a full queue; the worker resolves it with a tier-labelled 429
     shed_by_pressure: bool = False
+    # continuous engines only: the lifecycle trace (observe/tracing
+    # RequestTrace: received, queued, admitted, prefill, first_token, ...)
+    trace: Optional[object] = None
 
 
 def _pad_batch_size(n: int, max_batch: int) -> int:

@@ -82,8 +82,28 @@ run plus one token of the model's own. Slots without drafts take the plain
 step inside the same tick. Per-request draft counts and the engine's
 ``draft_tokens_proposed`` / ``draft_tokens_accepted`` record it.
 
-Not ported from the JAX engines: the host KV tier, hot-swap, adapters and
-fleets.
+Observability, as in the JAX engines: every request carries a
+``RequestTrace`` (received, queued, admitted, prefill or prefill_chunk,
+first_token, then completed, failed or abandoned; preempted on the way),
+written at settle to ``trace_log`` (JSONL, rotated past
+``trace_log_max_mb``). On the tick stamp ``_tick_done`` already takes, the
+worker samples a ``MetricRing`` every ``slo_sample_interval_s``, evaluates
+the ``SloPolicy`` burn rates (breaches and recoveries go to the flight
+recorder) and feeds the ``LoadForecaster``; TTFT and inter-token gaps are
+also kept per weight generation (``GenerationSlices``). Each decode
+dispatch records the live rows' positions and query counts;
+``_tick_done`` adds them to running sums beside the tick's time, from which
+``decode_cost`` gives the timed ticks' FLOPs and bytes
+(``observe/flops.decode_tick_cost`` per dispatch, added up) and
+``stats_snapshot`` the MFU and HBM-bandwidth gauges over the summed
+``decode_tick_s``. The worker also samples the ring when it goes idle with
+counters moved since the newest sample, so the ring holds the last tick's
+tokens (the JAX engine's ring waits for the next tick).
+``tick_boundary()`` is the lock each scheduler pass holds: a profiler
+capture starts and stops under it, between ticks.
+
+Not ported from the JAX engines: the host KV tier, hot-swap (the weight
+generation stays 0), adapters and fleets (the role stays "mixed").
 """
 
 from __future__ import annotations
@@ -114,8 +134,24 @@ from llm_fine_tune_distributed_tpu_torch.infer.errors import (
 from llm_fine_tune_distributed_tpu_torch.infer.paged import NULL_BLOCK, BlockAllocator, PrefixCache
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 from llm_fine_tune_distributed_tpu_torch.infer.supervisor import EngineSupervisor, FaultInjector
+from llm_fine_tune_distributed_tpu_torch.observe.capacity import LoadForecaster
+from llm_fine_tune_distributed_tpu_torch.observe.flops import DecodeWork, decode_work_cost
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import ServingStats
-from llm_fine_tune_distributed_tpu_torch.observe.tracing import FlightRecorder
+from llm_fine_tune_distributed_tpu_torch.observe.profiler import (
+    device_peak_specs,
+    utilization_from_cost,
+)
+from llm_fine_tune_distributed_tpu_torch.observe.slo import (
+    RING_COUNTERS,
+    GenerationSlices,
+    MetricRing,
+    SloPolicy,
+)
+from llm_fine_tune_distributed_tpu_torch.observe.tracing import (
+    FlightRecorder,
+    RequestTrace,
+    TraceJsonlWriter,
+)
 from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import reset_paged_decode_tickets
 from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
 
@@ -189,6 +225,8 @@ class ContinuousBatchingEngine:
     BROWNOUT_THRESHOLDS = (0.7, 0.85, 0.95)
     BROWNOUT_HYSTERESIS = 0.1
     FLIGHT_EVENTS = 1024  # the flight recorder's ring (the JAX engine's default)
+    SLO_RING_CAPACITY = 512  # metric ring samples kept (the JAX engine's default)
+    SLO_GENERATIONS_KEPT = 8  # weight generations with latency slices (the JAX default)
 
     def __init__(self, generator, slots: int = 8, buf_len: int = 4096, prompt_bucket: int = 64,
                  stats: Optional[ServingStats] = None, speculative_k: int = 0,
@@ -199,7 +237,9 @@ class ContinuousBatchingEngine:
                  restart_backoff_max_s: float = 30.0, circuit_threshold: int = 5,
                  circuit_window_s: float = 60.0, watchdog_timeout_s: float = 0.0,
                  watchdog: Optional[StepWatchdog] = None, faults: Optional[FaultInjector] = None,
-                 flight_dir: Optional[str] = None):
+                 flight_dir: Optional[str] = None, trace_log: Optional[str] = None,
+                 trace_log_max_mb: float = 0.0, slo_policy: Optional[SloPolicy] = None,
+                 slo_sample_interval_s: float = 1.0):
         """The supervision settings are the JAX engine's: ``restart_backoff_s``
         (doubling per failure in the window, capped at
         ``restart_backoff_max_s``), ``circuit_threshold`` failures within
@@ -207,8 +247,11 @@ class ContinuousBatchingEngine:
         flight recorder's dumps (None: no dumps). ``watchdog`` is poked per
         tick; without one, ``watchdog_timeout_s`` > 0 makes a
         ``StepWatchdog(watchdog_timeout_s, "abort", start_paused=True)``.
-        The first generation's device state is built here, so the cache
-        exists when the constructor returns."""
+        ``trace_log`` (JSONL of settled requests' traces, rotated past
+        ``trace_log_max_mb``; None: none), ``slo_policy`` (default
+        ``SloPolicy()``) and ``slo_sample_interval_s`` are the JAX engine's
+        observability settings. The first generation's device state is
+        built here, so the cache exists when the constructor returns."""
         if priority_default not in PRIORITY_TIERS:
             raise ValueError(f"unknown priority_default {priority_default!r} "
                              f"(expected one of {PRIORITY_TIERS})")
@@ -265,11 +308,39 @@ class ContinuousBatchingEngine:
         self._brownout_cap_tokens = max(1, int(brownout_cap_tokens))
         self._brownout_stage = 0
         self._queue_wait_ewma = 0.0
+        # observability: the settled-request trace log; the SLO state (the
+        # ring samples on the tick stamp, the slices key latencies by weight
+        # generation, which stays 0 without hot-swap) and the load
+        # forecaster fed at each ring sample
+        self._trace_writer = (
+            TraceJsonlWriter(trace_log,
+                             max_bytes=int(max(0.0, float(trace_log_max_mb)) * 1024 * 1024))
+            if trace_log else None)
+        self.slo_policy = slo_policy if slo_policy is not None else SloPolicy()
+        self.metric_ring = MetricRing(capacity=self.SLO_RING_CAPACITY,
+                                      interval_s=slo_sample_interval_s)
+        self.slo_slices = GenerationSlices(keep=self.SLO_GENERATIONS_KEPT)
+        self._weight_generation = 0
+        self._gen_slice = self.slo_slices.slice_for(self._weight_generation)
+        self.load_forecaster = LoadForecaster()
+        self.role = "mixed"  # the JAX default; prefill/decode roles need fleets
+        # held by each scheduler pass (admission and tick): a profiler
+        # capture starts and stops between ticks
+        self._tick_lock = threading.Lock()
+        # the decode dispatch in flight: its live rows' (positions,
+        # queries), host integers added to the work sums when the tick is
+        # timed (decode_cost)
+        self._dispatched: Optional[tuple] = None
+        self._decode_work = DecodeWork()
         # the device state (the cache, the slot state and the draft model's
         # dense per-slot cache) and the slot bookkeeping, all worker-thread
         # only: generation 0 is built here, later ones by the worker
         self._cache = self._state = self._dcache = None
         self._startup()
+        self._weight_bytes = self._weight_breakdown()[0]
+        # (K/V element bytes, block length, scale element bytes): fixed by
+        # the engine's settings, so every generation's cache has the same
+        self._kv_geometry = self._kv_cost_geometry(self._cache)
         self._worker = threading.Thread(target=self._run, name=type(self).__name__, daemon=True)
         self._worker.start()
 
@@ -343,17 +414,136 @@ class ContinuousBatchingEngine:
             time.sleep(poll_s)
 
     def stats_snapshot(self) -> dict:
-        """``ServingStats.snapshot()`` with fresh ``queue_depth``,
-        ``live_slots``, ``engine_generation`` and ``brownout_stage`` gauges,
-        plus ``circuit_state`` and ``draining`` (``GET /v1/stats``)."""
+        """``ServingStats.snapshot()`` with fresh ``weight_bytes``,
+        ``kv_pool_bytes``, ``queue_depth``, ``live_slots``,
+        ``engine_generation``, ``weight_generation`` and ``brownout_stage``
+        gauges, plus ``circuit_state``, ``role``, ``draining``, the MFU and
+        HBM-bandwidth gauges, the SLO report and the per-generation slices
+        (``GET /v1/stats``; the JAX keys but ``compile``: the port compiles
+        no programs)."""
+        mem = self.memory_breakdown()
+        self.stats.gauge("weight_bytes", mem["weight_bytes"])
+        self.stats.gauge("kv_pool_bytes", mem["kv_pool_bytes"])
         self.stats.gauge("queue_depth", self.queue_depth)
         self.stats.gauge("live_slots", self.live_slots)
         self.stats.gauge("engine_generation", self.supervisor.generation)
+        self.stats.gauge("weight_generation", self._weight_generation)
         self.stats.gauge("brownout_stage", self._brownout_stage)
         snap = self.stats.snapshot()
         snap["circuit_state"] = self.circuit_state
+        snap["role"] = self.role
         snap["draining"] = self._draining
+        mfu, bw = self._utilization()
+        snap["model_flops_utilization"] = mfu
+        snap["hbm_bandwidth_utilization"] = bw
+        snap["slo"] = self.slo_report()
+        snap["per_generation"] = self.slo_slices.summaries()
         return snap
+
+    def _weight_breakdown(self) -> tuple:
+        """(bytes of the resident weights as stored, bytes they save against
+        bf16): int8 codes with their scales, each tensor counted once (a
+        tied table is one tensor)."""
+        weight_bytes = saved = 0
+        seen = set()
+        for name, t in self._generator.params.items():
+            key = (t.data_ptr(), t.nbytes)
+            if key in seen:
+                continue
+            seen.add(key)
+            nb = t.nbytes
+            weight_bytes += nb
+            if name.endswith("_int8_scale"):
+                saved -= nb  # pure quantization overhead
+            elif name.endswith("_int8"):
+                saved += 2 * t.numel() - nb
+        return weight_bytes, saved
+
+    def memory_breakdown(self) -> dict:
+        """Where the resident device memory goes (the JAX engine's report):
+        ``weight_bytes``, ``kv_pool_bytes`` (the K/V buffers),
+        ``kv_scale_bytes`` (an int8 pool's per-block scales) and
+        ``bytes_saved_vs_bf16``, which counts only quantized artifacts (int8
+        weight leaves, int8 KV pools)."""
+        weight_bytes, saved = self._weight_breakdown()
+        kv_pool_bytes = kv_scale_bytes = 0
+        for entry in (self._cache or {}).get("layers", {}).values():
+            quantized = "k_scale" in entry
+            for name, leaf in entry.items():
+                nb = leaf.nbytes
+                if name.endswith("_scale"):
+                    kv_scale_bytes += nb
+                    saved -= nb
+                elif name in ("k", "v"):
+                    kv_pool_bytes += nb
+                    if quantized:
+                        saved += 2 * leaf.numel() - nb
+        return {"weight_bytes": weight_bytes, "kv_pool_bytes": kv_pool_bytes,
+                "kv_scale_bytes": kv_scale_bytes, "bytes_saved_vs_bf16": saved}
+
+    def slo_report(self) -> dict:
+        """Burn rates of the SLO policy over the metric ring (``GET
+        /v1/slo``; pure, safe from any thread)."""
+        return self.slo_policy.evaluate(self.metric_ring)
+
+    def history(self, metric: str, window_s: Optional[float] = None) -> dict:
+        """The trailing series of one sampled counter or gauge (``GET
+        /v1/history``); ``ValueError`` for an unknown metric (a 400)."""
+        return self.metric_ring.series(metric, window_s)
+
+    def _kv_cost_geometry(self, cache: dict) -> tuple:
+        """(K/V element bytes, block length, scale element bytes) of
+        ``cache``, for ``decode_work_cost``: a dense cache has no scales."""
+        return cache["layers"]["0"]["k"].element_size(), 0, 0
+
+    def decode_cost(self) -> tuple:
+        """``(ticks, seconds, flops, bytes)`` of the decode dispatches timed
+        so far: their count, their summed ``decode_tick_s`` and the useful
+        work of their live rows (``observe/flops.decode_tick_cost`` per
+        dispatch, added up), the counterpart of the JAX engine's cost
+        analysis of its decode program; zeros before the first tick."""
+        sums = self._decode_work.sums  # one read: whole ticks
+        itemsize, _, scale_itemsize = self._kv_geometry
+        flops, nbytes = decode_work_cost(self._generator.config, sums,
+                                         weight_bytes=self._weight_bytes, kv_itemsize=itemsize,
+                                         scale_itemsize=scale_itemsize)
+        return sums[0], sums[-1], flops, nbytes
+
+    def _utilization(self) -> tuple:
+        """(MFU, HBM-bandwidth utilization) of the decode ticks: the work of
+        every timed tick over their summed time, against the card's peaks.
+        0.0 before a tick was timed and on the CPU (no peaks)."""
+        ticks, seconds, flops, nbytes = self.decode_cost()
+        if ticks <= 0:
+            return 0.0, 0.0
+        peak_flops, peak_bw = device_peak_specs(self._generator.device)
+        return utilization_from_cost(flops, nbytes, seconds, peak_flops, peak_bw)
+
+    def capacity_snapshot(self) -> dict:
+        """What the capacity observatory reads (``observe/capacity``): the
+        forecaster's load view at the reader's clock (an idle engine's rates
+        decay) and the saturation model's inputs: slots, the measured mean
+        decode tick, tokens per step and the utilization gauges."""
+        _, ticks, tick_sum = self.stats.hist["decode_tick_s"]._state()
+        vals = self.stats.values(("tokens_served", "decode_steps"))
+        steps = vals["decode_steps"]
+        mfu, bw = self._utilization()
+        return {
+            "slots": int(self._slots),
+            "role": self.role,
+            "decode_ticks": ticks,
+            "mean_decode_tick_s": tick_sum / ticks if ticks else 0.0,
+            "mean_tokens_per_step": vals["tokens_served"] / steps if steps else 0.0,
+            "live_slots_mean": self.load_forecaster.live_slots_mean,
+            "model_flops_utilization": mfu,
+            "hbm_bandwidth_utilization": bw,
+            "forecaster": self.load_forecaster.snapshot(now=time.monotonic()),
+        }
+
+    def tick_boundary(self):
+        """The lock every scheduler pass (admission and tick) holds: taking
+        it waits for the pass in progress to end."""
+        return self._tick_lock
 
     @property
     def healthy(self) -> bool:
@@ -477,6 +667,8 @@ class ContinuousBatchingEngine:
         req = Request([int(t) for t in prompt_ids], gen, int(seed), tokens_q=tokens_q)
         req.id = next(self._req_seq)
         req.enqueued_at = time.monotonic()
+        req.trace = RequestTrace(req.id, t0=req.enqueued_at)
+        req.trace.mark("received", req.enqueued_at)
         if self._queue_deadline_s is not None:
             req.queue_deadline = req.enqueued_at + self._queue_deadline_s
         req.priority = priority
@@ -485,6 +677,7 @@ class ContinuousBatchingEngine:
             req.deadline = req.enqueued_at + float(deadline_s)
         with self._plock:
             self._pending += 1
+        req.trace.mark("queued", req.enqueued_at)
         return req
 
     def _expired(self, req: Request) -> bool:
@@ -503,7 +696,9 @@ class ContinuousBatchingEngine:
         """The one place a request leaves the pending ledger and wakes its
         waiter. Every token it emitted (banked ones included) is charged
         once, here: to goodput when it completed, else to the reason it
-        ended."""
+        ended. Its generation's slice counts it, and its trace, whose
+        terminal span is marked by now, goes to the trace log."""
+        self.slo_slices.note_settled(self._weight_generation, failed=req.error is not None)
         n = req.tokens_emitted
         if n:
             if req.abandoned:
@@ -520,12 +715,23 @@ class ContinuousBatchingEngine:
                 self.stats.waste_incr("shed", n)
         with self._plock:
             self._pending -= 1
+        if self._trace_writer is not None and req.trace is not None:
+            self._trace_writer.write({
+                "request_id": req.id,
+                "prompt_tokens": len(req.prompt),
+                "generated_tokens": len(req.result or ()),
+                "error": type(req.error).__name__ if req.error else None,
+                "weight_generation": self._weight_generation,
+                **req.trace.to_dict(),
+            })
         req.done.set()
 
     def _resolve_error(self, req: Request, err: BaseException) -> None:
         if req.done.is_set():
             return
         req.error = err
+        if req.trace is not None:
+            req.trace.mark("failed")
         if req.tokens_q is not None:
             req.tokens_q.put(None)
         self.stats.incr("requests_failed")
@@ -533,6 +739,8 @@ class ContinuousBatchingEngine:
 
     def _settle_abandoned(self, req: Request) -> None:
         self.stats.incr("requests_abandoned")
+        if req.trace is not None:
+            req.trace.mark("abandoned")
         self._settle(req)
 
     def _shed_deadline(self, req: Request) -> None:
@@ -624,6 +832,7 @@ class ContinuousBatchingEngine:
         self._slot_req: List[Optional[Request]] = [None] * self._slots
         self._slot_tokens: List[List[int]] = [[] for _ in range(self._slots)]
         self._slot_budget = [0] * self._slots
+        self._slot_plen = [0] * self._slots  # prompt + banked tokens
         self._live = np.zeros((self._slots,), bool)
         self._cache, self._state = self._init_state()
         self._startup_draft()
@@ -719,10 +928,13 @@ class ContinuousBatchingEngine:
     def _serve_loop(self) -> None:
         while True:
             self._drain_queue(block=False)
-            self._admit()
-            if not self._tick() and not self._waiting:
+            with self._tick_lock:
+                self._admit()
+                busy = self._tick()
+            if not busy and not self._waiting:
                 if self._closing:
                     return
+                self._sample_idle()
                 self._drain_queue(block=True)  # idle: wait for traffic
 
     def _tick(self) -> bool:
@@ -811,6 +1023,8 @@ class ContinuousBatchingEngine:
         req.preempted_tokens.extend(self._slot_tokens[slot])
         req.preemptions += 1
         self.stats.incr("preemptions")
+        if req.trace is not None:
+            req.trace.mark("preempted")
         self.recorder.record("preempt", request=req.id, slot=slot, tier=req.priority,
                              tokens_banked=len(req.preempted_tokens))
         self._release(slot)
@@ -915,6 +1129,8 @@ class ContinuousBatchingEngine:
         """Prefill the prompt into ``slot`` and emit its first token."""
         self.faults.maybe_fail_prefill()
         t0 = time.monotonic()
+        if req.trace is not None:
+            req.trace.mark("admitted", t0)
         self._observe_admission(req, t0)
         plen = plan["plen"]
         self.recorder.record("admit", request=req.id, slot=slot, prompt_tokens=plen)
@@ -924,6 +1140,8 @@ class ContinuousBatchingEngine:
                                              req.gen, req.seed)
         self._now = time.monotonic()  # slot_prefill read its token: synced
         self.stats.observe("prefill_chunk_s", self._now - t0)
+        if req.trace is not None:
+            req.trace.mark("prefill", self._now)
         if self._watchdog is not None:
             self._watchdog.poke(self._decode_index)
         if self._use_draft and req.gen.speculative_lookup > 0:
@@ -932,22 +1150,70 @@ class ContinuousBatchingEngine:
         self._slot_req[slot] = req
         self._slot_tokens[slot] = []
         self._slot_budget[slot] = plan["budget"]
+        self._slot_plen[slot] = plen
         self._live[slot] = True
         self.stats.incr("requests_admitted")
         self.stats.incr("prefill_tokens", plen)
         self._emit_token(slot, req, first, from_decode=False)
 
     def _tick_done(self, t0: float) -> None:
-        """After a decode step: stamp the tick clock, observe the tick, poke
-        the watchdog, record the tick and move the brownout stage."""
+        """After a decode step: stamp the tick clock, observe the tick and
+        add its dispatch to the work sums, poke the watchdog, record the
+        tick and move the brownout stage."""
         self._now = time.monotonic()
-        self.stats.observe("decode_tick_s", self._now - t0)
+        dt = self._now - t0
+        self.stats.observe("decode_tick_s", dt)
+        positions, queries = self._dispatched
+        self._decode_work.add(positions, queries, self._kv_geometry[1], dt)
         if self._watchdog is not None:
             self._watchdog.poke(self._decode_index)
         self.stats.incr("decode_steps")
         self.recorder.record("tick", step=self._decode_index, live=int(self._live.sum()),
                              dt_ms=round((self._now - t0) * 1000.0, 3))
         self._update_brownout()
+        # the SLO sample rides the tick stamp taken above: no clock read
+        if self.metric_ring.due(self._now):
+            self._sample_slo(self._now)
+
+    def _sample_idle(self) -> None:
+        """Going idle: one more sample when the counters moved since the
+        newest one, so that the ring holds the last tick's tokens (a sample
+        rides ``_tick_done``, before that tick's tokens are emitted). One
+        clock read per idle transition, none per token."""
+        newest = self.metric_ring.samples()[-1:]
+        if newest and self.stats.values(RING_COUNTERS) != newest[0]["counters"]:
+            self._sample_slo(time.monotonic())
+
+    def _sample_slo(self, now: float) -> None:
+        """One metric-ring sample, the SLO transitions it causes (to the
+        flight recorder) and one load-forecaster update (worker thread)."""
+        live = int(self._live.sum())
+        self.metric_ring.sample(now, self.stats, gauges={
+            "queue_depth": self.queue_depth,
+            "live_slots": live,
+            "brownout_stage": self._brownout_stage,
+            "weight_generation": self._weight_generation,
+        })
+        report = self.slo_policy.evaluate(self.metric_ring, now=now)
+        for kind, fields in self.slo_policy.observe_transitions(report):
+            self.recorder.record(kind, **fields)
+        # arrivals approximate offered load: admissions plus sheds at the door
+        vals = self.stats.values((
+            "requests_admitted", "requests_shed_overflow", "requests_shed_deadline",
+            "requests_shed_tenant_quota", "tokens_served", "prefill_tokens", "decode_tokens",
+        ))
+        self.load_forecaster.update(
+            now,
+            arrivals=(vals["requests_admitted"] + vals["requests_shed_overflow"]
+                      + vals["requests_shed_deadline"] + vals["requests_shed_tenant_quota"]),
+            admitted=vals["requests_admitted"],
+            tokens=vals["tokens_served"],
+            queue_depth=self.queue_depth,
+            queue_wait_s=self._queue_wait_ewma,
+            live_slots=live,
+            prefill_tokens=vals["prefill_tokens"],
+            decode_tokens=vals["decode_tokens"],
+        )
 
     def _next_decode(self) -> None:
         """Count a decode tick, then fire the fault armed for it (host
@@ -955,9 +1221,19 @@ class ContinuousBatchingEngine:
         self._decode_index += 1
         self.faults.maybe_fail_decode(self._decode_index)
 
+    def _record_dispatch(self, n_draft: Optional[np.ndarray] = None) -> None:
+        """Keep the live rows' (positions, queries) of the decode dispatch
+        about to run, for ``_tick_done``: each row attends its own length
+        and feeds one query, plus its drafts on a verify."""
+        live = np.flatnonzero(self._live)
+        positions = [self._slot_plen[s] + len(self._slot_tokens[s]) for s in live]
+        queries = [1] * len(live) if n_draft is None else [1 + int(n_draft[s]) for s in live]
+        self._dispatched = (positions, queries)
+
     def _decode_once(self) -> None:
         t0 = time.monotonic()
         self._next_decode()
+        self._record_dispatch()
         toks = self._generator.slot_step(self._cache, self._state, self._live.copy())
         self._tick_done(t0)  # slot_step returns tokens on the host: synced
         self._emit_tokens(toks)
@@ -1015,6 +1291,7 @@ class ContinuousBatchingEngine:
         t0 = time.monotonic()
         self._next_decode()
         drafts, n_draft = self._propose_drafts()
+        self._record_dispatch(n_draft)
         toks, n_emit = self._generator.spec_slot_step(self._cache, self._state, self._live.copy(),
                                                       drafts, n_draft)
         self._tick_done(t0)  # the step read its tokens back: synced
@@ -1085,9 +1362,15 @@ class ContinuousBatchingEngine:
         if req.first_token_t is None:
             req.first_token_t = now
             if req.enqueued_at:
-                self.stats.observe("ttft_s", now - req.enqueued_at)
+                ttft = now - req.enqueued_at
+                self.stats.observe("ttft_s", ttft)
+                self._gen_slice.ttft.observe(ttft)
+            if req.trace is not None:
+                req.trace.mark("first_token", now)
         elif req.last_token_t is not None:
-            self.stats.observe("inter_token_s", now - req.last_token_t)
+            gap = now - req.last_token_t
+            self.stats.observe("inter_token_s", gap)
+            self._gen_slice.inter_token.observe(gap)
         req.last_token_t = now
         if req.tokens_q is not None:
             req.tokens_q.put(tok)
@@ -1098,6 +1381,8 @@ class ContinuousBatchingEngine:
         # banked tokens lead the result: the client sees one sequence
         # however often the request was preempted
         req.result = req.preempted_tokens + self._slot_tokens[slot]
+        if req.trace is not None:
+            req.trace.mark("completed", self._now)
         if req.draft_tokens_proposed:
             req.spec_acceptance = req.draft_tokens_accepted / req.draft_tokens_proposed
         elif self._spec_k > 0 and req.gen.speculative_lookup > 0:
@@ -1114,6 +1399,7 @@ class ContinuousBatchingEngine:
         self._slot_req[slot] = None
         self._slot_tokens[slot] = []
         self._slot_budget[slot] = 0
+        self._slot_plen[slot] = 0
         self._live[slot] = False
 
 
@@ -1186,7 +1472,6 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix = PrefixCache(self._allocator, self._block_len)
         self._table[:, :] = NULL_BLOCK
         self._slot_blocks: List[List[int]] = [[] for _ in range(self._slots)]
-        self._slot_plen = [0] * self._slots
         self._prefills.clear()
         super()._startup()
         reset_paged_decode_tickets(self._generator.device)
@@ -1194,6 +1479,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _init_state(self):
         return self._generator.init_paged_state(self._slots, self._num_blocks, self._block_len,
                                                 kv_quant=self._kv_quant)
+
+    def _kv_cost_geometry(self, cache: dict) -> tuple:
+        entry = cache["layers"]["0"]
+        if "k_scale" in entry:  # int8 codes, one scale per (block, kv head)
+            return entry["k"].element_size(), self._block_len, entry["k_scale"].element_size()
+        return entry["k"].element_size(), 0, 0
 
     def stats_snapshot(self) -> dict:
         """The base snapshot with the pool's gauges, and ``prefix_hits``."""
@@ -1287,7 +1578,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _insert(self, req: Request, slot: int, plan: dict) -> None:
         """Map the reserved blocks into the slot's table and queue the
         prefill; the slot goes live when its final chunk lands."""
-        self._observe_admission(req, time.monotonic())
+        now = time.monotonic()
+        if req.trace is not None:
+            req.trace.mark("admitted", now)
+        self._observe_admission(req, now)
         ids = plan["shared"] + plan["private"]
         self._table[slot, : len(ids)] = ids
         self._table[slot, len(ids):] = NULL_BLOCK
@@ -1343,6 +1637,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self.stats.incr("prefill_chunks")
             self.stats.incr("prefill_tokens", C)
             self.stats.observe("prefill_chunk_s", time.monotonic() - t0)
+            if req.trace is not None:
+                req.trace.mark("prefill_chunk")
             if self._watchdog is not None:
                 self._watchdog.poke(self._decode_index)
             return
@@ -1365,6 +1661,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.stats.incr("prefill_chunks")
         self.stats.incr("prefill_tokens", remaining)
         self.stats.observe("prefill_chunk_s", self._now - t0)
+        if req.trace is not None:
+            req.trace.mark("prefill", self._now)
         if self._watchdog is not None:
             self._watchdog.poke(self._decode_index)
         if self._use_draft and req.gen.speculative_lookup > 0:
@@ -1407,6 +1705,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         tables = self._decode_tables(self._decode_bucket())
         t0 = time.monotonic()
         self._next_decode()
+        self._record_dispatch()
         toks = self._generator.paged_step(self._cache, self._state, self._live.copy(), tables)
         self._tick_done(t0)  # paged_step returns tokens on the host: synced
         self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)
@@ -1419,6 +1718,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         t0 = time.monotonic()
         self._next_decode()
         drafts, n_draft = self._propose_drafts()
+        self._record_dispatch(n_draft)
         toks, n_emit = self._generator.spec_paged_step(self._cache, self._state, self._live.copy(),
                                                        tables, drafts, n_draft)
         self._tick_done(t0)  # the step read its tokens back: synced
@@ -1454,6 +1754,5 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         for bid in self._slot_blocks[slot]:
             self._allocator.free(bid)
         self._slot_blocks[slot] = []
-        self._slot_plen[slot] = 0
         self._table[slot, :] = NULL_BLOCK
         super()._release(slot)

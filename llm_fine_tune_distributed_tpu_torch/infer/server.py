@@ -9,22 +9,39 @@ one engine on one card):
   POST /v1/generate  {"question": ..., optional "system_prompt", "greedy",
                       "seed", "max_new_tokens", "temperature", "top_p",
                       "top_k", "repetition_penalty", "speculative",
-                      "priority", "deadline_ms"}
+                      "priority", "deadline_ms", "trace"}
                      -> {"answer": ...}, plus a "speculative" block (the
                      request's own acceptance rate and draft counts) when
-                     it asked to speculate
+                     it asked to speculate, and with "trace": true on a
+                     slot engine the request's lifecycle spans ("trace")
   POST /v1/stream    the same body (plus "stream_chunk" for the window
                      engine) -> Server-Sent Events over chunked transfer:
                      one ``data: {"delta": ...}`` per decoded text delta,
                      then ``data: {"done": true, "n_tokens": N}``, or
                      ``event: error`` with the error's body if the request
                      fails mid-stream
-  GET  /v1/stats     -> {"engine": ..., **engine.stats_snapshot()}
-  GET  /metrics      -> the same snapshot and the latency histograms as
-                        Prometheus text
+  GET  /v1/stats     -> {"engine": ..., **engine.stats_snapshot(),
+                        "device_memory": per-card bytes,
+                        "device_memory_report": engine.memory_breakdown()}
+  GET  /metrics      -> the same snapshot, the latency histograms and the
+                        per-card memory gauges as Prometheus text
   GET  /v1/flight?limit=N -> {"events": [...]}: the last N (default 256)
-                        events of a slot engine's flight recorder; 404 on
-                        the window engine
+                        events of a slot engine's flight recorder
+  GET  /v1/slo       -> the SLO burn-rate report (``--slo-*`` objectives)
+  GET  /v1/history?metric=NAME[&window=S] -> the metric ring's series of
+                        one sampled counter or gauge
+  GET  /v1/capacity  -> the capacity report for a fleet of one (load,
+                        forecast, sustainable tokens/s, headroom, the
+                        replica recommendation; autoscaling "off")
+  GET  /v1/lineage   -> 404: lineage needs hot-swap, not ported
+  POST /v1/profile   {"duration_s": S (default 3)} -> a torch.profiler
+                     capture into a fresh subdirectory of --profile-dir,
+                     stopped after S seconds (404 without --profile-dir,
+                     409 while one runs); decoding pauses while the
+                     profiler stops and writes the trace (it holds the
+                     GIL: seconds for a capture of a few seconds)
+  The routes that read a slot engine (flight, slo, history, capacity)
+  answer 404 on the window engine.
 
 Engines (``--engine``): ``continuous`` (the default, as in the JAX server)
 decodes every request in a persistent slot batch over a dense KV cache;
@@ -67,6 +84,14 @@ server-wide (503 ``draining`` with Retry-After), the work in flight
 finishes within ``--drain-timeout-s``, then ``serve`` returns and the
 process exits 0. ``build_server(control=...)`` hands ``begin_drain`` (what
 SIGTERM calls) and ``httpd`` to an in-process caller.
+
+Observability (the slot engines, as in the JAX server): ``--trace-log``
+appends every settled request's trace to a JSONL file (rotated past
+``--trace-log-max-mb``), ``--slo-*`` set the objectives and windows that
+``/v1/slo`` and ``serving_slo_*`` report, ``--slo-sample-interval-s`` the
+metric ring's cadence, and ``--profile-dir`` enables ``POST /v1/profile``
+(the server warms the profiler up once at start, so CUPTI's set-up is not
+paid inside the first capture).
 
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
@@ -111,10 +136,17 @@ from llm_fine_tune_distributed_tpu_torch.infer.generate import (
     load_tokenizer_dir,
 )
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+from llm_fine_tune_distributed_tpu_torch.observe.capacity import report_from_capacity_snapshots
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import (
     PROMETHEUS_CONTENT_TYPE,
     prometheus_exposition,
 )
+from llm_fine_tune_distributed_tpu_torch.observe.profiler import (
+    CaptureBusyError,
+    ProfilerCapture,
+    device_memory_report,
+)
+from llm_fine_tune_distributed_tpu_torch.observe.slo import SloPolicy
 from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
     QUANTIZE_MODES,
     check_quantize_mode,
@@ -132,7 +164,18 @@ _FIELD_CASTS = {
     "repetition_penalty": float,
 }
 # request fields of the JAX server whose features are not ported
-_UNPORTED_FIELDS = ("adapter", "trace")
+_UNPORTED_FIELDS = ("adapter",)
+# the JAX server's 404 bodies of the routes that need a slot engine or a
+# feature the port has not
+_NEEDS_SLOT_ENGINE = {
+    "/v1/slo": "SLO evaluation needs a continuous/paged engine (the window engine has no "
+               "metric ring)",
+    "/v1/history": "metric history needs a continuous/paged engine (the window engine has no "
+                   "metric ring)",
+    "/v1/capacity": "capacity reporting needs a continuous/paged engine (the window engine "
+                    "has no load forecaster)",
+}
+_LINEAGE_404 = "lineage needs live deployment: start the server with --publish-watch-dir"
 
 
 def parse_overload_fields(req: dict, kind: str):
@@ -189,14 +232,17 @@ def check_engine(engine: str, quantize_kv: str, speculative_k: int = 0,
 
 
 class _Server(ThreadingHTTPServer):
-    """The HTTP server; closing it also stops the window engine it keeps
-    beside a slot engine."""
+    """The HTTP server; closing it also stops a running profiler capture
+    and the window engine it keeps beside a slot engine."""
 
     daemon_threads = True
     window_engine = None
+    profiler_capture = None
 
     def server_close(self) -> None:
         super().server_close()
+        if self.profiler_capture is not None:
+            self.profiler_capture.stop()
         if self.window_engine is not None:
             self.window_engine.close()
 
@@ -253,6 +299,16 @@ def build_server(
     circuit_window_s: float = 60.0,
     watchdog_timeout_s: float = 0.0,
     flight_dir: Optional[str] = None,
+    trace_log: Optional[str] = None,
+    trace_log_max_mb: float = 0.0,
+    profile_dir: Optional[str] = None,
+    slo_ttft_p99_s: float = 2.0,
+    slo_inter_token_p99_s: float = 0.5,
+    slo_error_rate: float = 0.01,
+    slo_availability: float = 0.999,
+    slo_fast_window_s: float = 60.0,
+    slo_slow_window_s: float = 600.0,
+    slo_sample_interval_s: float = 1.0,
     control: Optional[dict] = None,
 ):
     """Start an ``engine`` over ``generator`` and bind an HTTP server to it.
@@ -265,7 +321,9 @@ def build_server(
     ``template_kwargs`` go to the chat template. The overload settings
     (``max_queue_depth`` ... ``brownout_cap_tokens``) and the supervision
     settings (``restart_backoff_s`` ... ``flight_dir``), the JAX server's
-    defaults, go to the continuous and paged engines. ``httpd.begin_drain``
+    defaults, go to the continuous and paged engines, and so do the
+    observability settings (``trace_log`` ... ``slo_sample_interval_s``;
+    ``profile_dir`` enables ``POST /v1/profile``). ``httpd.begin_drain``
     (also ``control["begin_drain"]``, beside ``control["httpd"]``) closes
     admission, waits up to ``drain_timeout_s`` for the engines to drain and
     then shuts the server down."""
@@ -283,7 +341,14 @@ def build_server(
                     restart_backoff_s=restart_backoff_s,
                     restart_backoff_max_s=restart_backoff_max_s,
                     circuit_threshold=circuit_threshold, circuit_window_s=circuit_window_s,
-                    watchdog_timeout_s=watchdog_timeout_s, flight_dir=flight_dir)
+                    watchdog_timeout_s=watchdog_timeout_s, flight_dir=flight_dir,
+                    trace_log=trace_log or None, trace_log_max_mb=trace_log_max_mb,
+                    slo_sample_interval_s=slo_sample_interval_s,
+                    slo_policy=SloPolicy(ttft_p99_s=slo_ttft_p99_s,
+                                         inter_token_p99_s=slo_inter_token_p99_s,
+                                         error_rate=slo_error_rate, availability=slo_availability,
+                                         fast_window_s=slo_fast_window_s,
+                                         slow_window_s=slo_slow_window_s))
     drain_state = {"draining": False}
     if kind == "window":
         engine = window
@@ -297,6 +362,16 @@ def build_server(
             block_len=kv_block_len, prefill_chunk=prefill_chunk, kv_quant=quantize_kv,
             speculative_k=speculative_k, **overload,
         )
+
+    # one capture per process (the profiler is process-wide), on the slot
+    # engine's flight-recorder timeline and its tick boundaries
+    capture = None
+    if profile_dir:
+        slot = kind != "window"
+        capture = ProfilerCapture(profile_dir,
+                                  on_event=engine.recorder.record if slot else None,
+                                  boundary=engine.tick_boundary if slot else None)
+        log.info("profiler warmed up for POST /v1/profile in %.1f s", capture.warm_up())
 
     def snapshot() -> dict:
         if kind == "window":
@@ -348,15 +423,57 @@ def build_server(
                 else:
                     self._send(200, "ok")
             elif path == "/v1/stats":
-                self._send(200, snapshot())
+                stats = snapshot()
+                stats["device_memory"] = device_memory_report()
+                if kind != "window":
+                    stats["device_memory_report"] = engine.memory_breakdown()
+                self._send(200, stats)
             elif path == "/metrics":
                 hists = None if kind == "window" else engine.stats.hist
-                self._send(200, prometheus_exposition(snapshot(), hists),
+                self._send(200, prometheus_exposition(snapshot(), hists,
+                                                      memory=device_memory_report()),
                            content_type=PROMETHEUS_CONTENT_TYPE)
             elif path == "/v1/flight":
                 self._flight(query)
+            elif path == "/v1/lineage":
+                self._send(404, {"error": _LINEAGE_404})
+            elif path in _NEEDS_SLOT_ENGINE and kind == "window":
+                self._send(404, {"error": _NEEDS_SLOT_ENGINE[path]})
+            elif path == "/v1/slo":
+                self._send(200, {"engine": kind, **engine.slo_report()})
+            elif path == "/v1/history":
+                self._history(query)
+            elif path == "/v1/capacity":
+                # the report of a fleet of one; autoscaling needs fleets
+                report = report_from_capacity_snapshots([engine.capacity_snapshot()], 1)
+                report.update(engine=kind, autoscale="off", decisions=[])
+                self._send(200, report)
             else:
                 self._send(404, {"error": "not found"})
+
+        def _history(self, query: str) -> None:
+            """The metric ring's trailing series of one sampled counter or
+            gauge: ``?metric=<name>[&window=<seconds>]``."""
+            qs = parse_qs(query)
+            metric = (qs.get("metric") or [None])[0]
+            if not metric:
+                self._send(400, {"error": "missing ?metric=<name> "
+                                          "(GET /v1/history?metric=queue_depth&window=60)"})
+                return
+            window_s = None
+            try:
+                if qs.get("window"):
+                    window_s = float(qs["window"][0])
+                    if not window_s > 0:
+                        raise ValueError
+            except ValueError:
+                self._send(400, {"error": f"'window' must be a positive number of seconds, "
+                                          f"got {qs['window'][0]!r}"})
+                return
+            try:
+                self._send(200, engine.history(metric, window_s))
+            except ValueError as e:
+                self._send(400, {"error": str(e)})
 
         def _flight(self, query: str) -> None:
             """The slot engine's flight recorder, live: the ring the
@@ -387,6 +504,7 @@ def build_server(
             unported = [k for k in _UNPORTED_FIELDS if k in req]
             if unported:
                 raise ValueError(f"{unported} not supported by this server")
+            want_trace = bool(req.get("trace", False))
             question = req["question"]
             gen_kwargs = {k: cast(req[k]) for k, cast in _FIELD_CASTS.items() if k in req}
             if "greedy" in req:
@@ -411,10 +529,32 @@ def build_server(
             ]
             prompt_ids = generator.encode_chat(messages, **(template_kwargs or {}))
             return (prompt_ids, GenerationConfig(**gen_kwargs), int(req.get("seed", 0)), req,
-                    priority, deadline_s)
+                    priority, deadline_s, want_trace)
+
+        def _profile(self) -> None:
+            """POST /v1/profile: start a bounded capture (404 without
+            --profile-dir, 409 while one runs, 400 on a bad body)."""
+            if capture is None:
+                self._send(404, {"error": "profiling disabled; start the server with "
+                                          "--profile-dir"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(req, dict):
+                    raise TypeError("body must be a JSON object")
+                duration_s = float(req.get("duration_s", 3.0))
+                trace_dir = capture.start(duration_s)
+            except CaptureBusyError as e:
+                self._send(409, {"error": str(e)})
+                return
+            except (ValueError, TypeError) as e:
+                self._send(400, {"error": f"bad request: {e}"})
+                return
+            self._send(200, {"profiling": True, "trace_dir": trace_dir, "duration_s": duration_s})
 
         def do_POST(self):  # noqa: N802
-            if self.path not in ("/v1/generate", "/v1/stream"):
+            if self.path not in ("/v1/generate", "/v1/stream", "/v1/profile"):
                 self._send(404, {"error": "not found"})
                 return
             if drain_state["draining"]:
@@ -422,8 +562,11 @@ def build_server(
                 self._send_error(DrainingError("server draining; retry against another replica",
                                                retry_after_s=float(drain_timeout_s)))
                 return
+            if self.path == "/v1/profile":
+                self._profile()
+                return
             try:
-                prompt_ids, gen, seed, req, priority, deadline_s = self._parse()
+                prompt_ids, gen, seed, req, priority, deadline_s, want_trace = self._parse()
                 stream_chunk = int(req.get("stream_chunk", 8))
                 if stream_chunk < 1:
                     raise ValueError(f"stream_chunk must be >= 1, got {stream_chunk}")
@@ -461,6 +604,8 @@ def build_server(
                 }
                 if done.spec_steps is not None:  # the window engine's whole batch
                     resp["speculative"]["sequential_forwards"] = done.spec_steps
+            if want_trace and done.trace is not None:  # the window engine does not trace
+                resp["trace"] = done.trace.to_dict()
             self._send(200, resp)
 
         def _check_stream_speculation(self) -> None:
@@ -555,6 +700,7 @@ def build_server(
                 raise _ClientGone from e
 
     httpd = _Server((host, port), Handler)
+    httpd.profiler_capture = capture
     if window is not engine:
         httpd.window_engine = window
 
@@ -725,6 +871,36 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--flight-dir", default="outputs/flight_recorder",
                         help="directory for flight-recorder JSON dumps (recent engine events, "
                              "written on a restart and on circuit-open). Empty string disables")
+    parser.add_argument("--trace-log", default=None,
+                        help="JSONL file appending every settled request's lifecycle trace "
+                             "(span + request-relative time + propagated trace id). Off by "
+                             "default")
+    parser.add_argument("--trace-log-max-mb", type=float, default=0.0,
+                        help="rotate --trace-log when it exceeds this many MB (keeping the last "
+                             "5 rotated files); 0 = unbounded append")
+    parser.add_argument("--profile-dir", default=None,
+                        help="enable POST /v1/profile: on-demand torch.profiler captures written "
+                             "to fresh subdirectories of this path as Chrome traces "
+                             "(trace.json). Off by default")
+    parser.add_argument("--slo-ttft-p99-s", type=float, default=2.0,
+                        help="SLO objective: p99 time-to-first-token target in seconds "
+                             "(GET /v1/slo burn rates, serving_slo_* gauges)")
+    parser.add_argument("--slo-inter-token-p99-s", type=float, default=0.5,
+                        help="SLO objective: p99 inter-token gap target in seconds")
+    parser.add_argument("--slo-error-rate", type=float, default=0.01,
+                        help="SLO objective: max failed-request fraction (the error budget "
+                             "burned by requests_failed)")
+    parser.add_argument("--slo-availability", type=float, default=0.999,
+                        help="SLO objective: availability target; sheds (overflow, deadline, "
+                             "quota) burn the 1 - target budget")
+    parser.add_argument("--slo-fast-window-s", type=float, default=60.0,
+                        help="fast burn-rate window in seconds (a breach needs BOTH windows "
+                             "hot: fast catches cliffs, slow catches bleeds)")
+    parser.add_argument("--slo-slow-window-s", type=float, default=600.0,
+                        help="slow burn-rate window in seconds")
+    parser.add_argument("--slo-sample-interval-s", type=float, default=1.0,
+                        help="seconds between metric-ring samples (taken on the scheduler tick "
+                             "clock — zero extra clock reads on the token hot path)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080, help="0 picks a free port")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -755,6 +931,12 @@ def main(argv: Optional[list] = None) -> int:
         restart_backoff_s=args.restart_backoff_s, restart_backoff_max_s=args.restart_backoff_max_s,
         circuit_threshold=args.circuit_threshold, circuit_window_s=args.circuit_window_s,
         watchdog_timeout_s=args.watchdog_timeout_s, flight_dir=args.flight_dir or None,
+        trace_log=args.trace_log, trace_log_max_mb=args.trace_log_max_mb,
+        profile_dir=args.profile_dir, slo_ttft_p99_s=args.slo_ttft_p99_s,
+        slo_inter_token_p99_s=args.slo_inter_token_p99_s, slo_error_rate=args.slo_error_rate,
+        slo_availability=args.slo_availability, slo_fast_window_s=args.slo_fast_window_s,
+        slo_slow_window_s=args.slo_slow_window_s,
+        slo_sample_interval_s=args.slo_sample_interval_s,
     )
     return 0
 

@@ -170,6 +170,12 @@ class ServingStats:
         """One histogram observation (under the histogram's own lock)."""
         self.hist[name].observe(value)
 
+    def values(self, names) -> Dict[str, int]:
+        """One consistent read of several counters and gauges, under one
+        lock (the metric ring's sampler)."""
+        with self._lock:
+            return {n: self._values.get(n, 0) for n in names}
+
     def _tokens_rate(self, now: float, tokens_served: int) -> float:
         # irregular-interval EWMA, weight 1 - exp(-dt / 60 s); polls closer
         # than 200 ms reuse the last value
@@ -229,10 +235,12 @@ FLEET_COUNTERS = (
 
 
 def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, Histogram]] = None,
+                          memory: Optional[Dict[str, Dict[str, Optional[int]]]] = None,
                           prefix: str = "serving", counters: Optional[set] = None) -> str:
-    """One engine's ``stats_snapshot()`` and live histograms as Prometheus
-    text (format 0.0.4), line for line the JAX package's exposition of the
-    same snapshot (without its fleet, memory and tenant-histogram series).
+    """One engine's ``stats_snapshot()``, live histograms and optional
+    ``observe/profiler.device_memory_report()`` as Prometheus text (format
+    0.0.4), line for line the JAX package's exposition of the same inputs
+    (without its fleet and tenant-histogram series).
 
     Counter keys (``ServingStats.COUNTERS`` + ``FLEET_COUNTERS``, or
     ``counters``) get ``_total`` and ``# TYPE counter``; every other number
@@ -293,8 +301,50 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
     name = f"{prefix}_recompiles_after_warmup_total"
     lines.append(f"# TYPE {name} counter")
     lines.append(f"{name} 0")
+    # the SLO report: one compliance gauge and one burn-rate gauge per
+    # (objective, window); the TYPE lines stand whenever the key does
+    slo = snap.get("slo")
+    if slo is not None:
+        name = f"{prefix}_slo_compliant"
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {int(bool(slo.get('compliant', True)))}")
+        name = f"{prefix}_slo_burn_rate"
+        lines.append(f"# TYPE {name} gauge")
+        for obj in sorted(slo.get("objectives") or {}):
+            for label, w in sorted((slo["objectives"][obj].get("windows") or {}).items()):
+                lines.append(f'{name}{{objective="{obj}",window="{label}"}} '
+                             f'{float(w.get("burn_rate", 0.0)):.10g}')
+    # settled-request counts and latency p99s by weight generation
+    per_gen = snap.get("per_generation")
+    if per_gen is not None:
+        gen_series = (
+            ("generation_requests_completed_total", "counter",
+             lambda rec: int(rec.get("completed", 0))),
+            ("generation_requests_failed_total", "counter", lambda rec: int(rec.get("failed", 0))),
+            ("generation_ttft_p99_seconds", "gauge",
+             lambda rec: float((rec.get("ttft") or {}).get("p99", 0.0))),
+            ("generation_inter_token_p99_seconds", "gauge",
+             lambda rec: float((rec.get("inter_token") or {}).get("p99", 0.0))),
+        )
+        for base, kind, get in gen_series:
+            name = f"{prefix}_{base}"
+            lines.append(f"# TYPE {name} {kind}")
+            for gen in sorted(per_gen, key=int):
+                lines.append(f'{name}{{generation="{gen}"}} {get(per_gen[gen]):.10g}')
     for key in histograms or {}:
         lines.extend(histograms[key].prometheus_lines(_prom_name(key, prefix)))
+    if memory:
+        by_field = {
+            "bytes_in_use": "device_hbm_bytes_in_use",
+            "peak_bytes_in_use": "device_hbm_peak_bytes_in_use",
+            "bytes_limit": "device_hbm_bytes_limit",
+        }
+        for field, name in by_field.items():
+            values = [(dev, memory[dev].get(field)) for dev in sorted(memory)]
+            values = [(dev, v) for dev, v in values if v is not None]
+            if values:
+                lines.append(f"# TYPE {name} gauge")
+            lines.extend(f'{name}{{device="{dev}"}} {int(v)}' for dev, v in values)
     return "\n".join(lines) + "\n"
 
 

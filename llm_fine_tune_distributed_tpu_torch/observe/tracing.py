@@ -1,6 +1,7 @@
-"""Mergeable latency histograms and the engines' flight recorder
-(counterparts of ``Histogram`` and ``FlightRecorder`` in the JAX
-``observe/tracing.py``; request traces are not ported).
+"""Mergeable latency histograms, request traces and the engines' flight
+recorder (counterparts of ``Histogram``, ``RequestTrace``,
+``TraceJsonlWriter`` and ``FlightRecorder`` in the JAX
+``observe/tracing.py``).
 
 ``Histogram``: fixed-bucket counts with a per-instance lock. One
 ``observe()`` is a ``bisect`` plus three adds, cheap next to a decode step,
@@ -9,6 +10,13 @@ same bounds, add the counts. Percentiles interpolate inside the winning
 bucket. Bounds, interpolation and the Prometheus text are the JAX
 package's, so both expose the same series for the same observations.
 
+``RequestTrace``: an append-only list of ``(span, monotonic_t)`` marks.
+Appends are GIL-atomic, so the scheduler thread marks a span without a
+lock; readers look only after the request settled.
+
+``TraceJsonlWriter``: one JSON line per settled request, with size-based
+rotation that keeps the newest ``keep`` files.
+
 ``FlightRecorder``: a bounded ring of recent engine events (admissions,
 sheds, tick summaries, crashes, restarts, circuit transitions) that the
 supervisor dumps to JSON after a crash and ``GET /v1/flight`` reads live.
@@ -16,12 +24,15 @@ supervisor dumps to JSON after a crash and ``GET /v1/flight`` reads live.
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
 import time
+import uuid
 from bisect import bisect_left
 from collections import deque
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 class Histogram:
@@ -141,6 +152,88 @@ def _fmt(v: float) -> str:
     if v != v or v in (math.inf, -math.inf):
         return "+Inf" if v > 0 else "-Inf"
     return f"{v:.10g}"
+
+
+class RequestTrace:
+    """Per-request lifecycle timeline: ordered ``(span, monotonic_t)`` marks.
+
+    Made at submit and marked by whichever thread owns the request at that
+    moment (the submit thread for received/queued, the scheduler thread
+    for the rest). ``to_dict`` is called only after the request settled.
+    ``trace_id`` is the identity a caller may hand in to have several hops
+    share one record."""
+
+    __slots__ = ("request_id", "trace_id", "t0", "events")
+
+    def __init__(self, request_id: int = 0, t0: Optional[float] = None,
+                 trace_id: Optional[str] = None):
+        self.request_id = request_id
+        self.trace_id = trace_id or uuid.uuid4().hex[:16]
+        self.t0 = time.monotonic() if t0 is None else t0
+        self.events: List[Tuple[str, float]] = []
+
+    def mark(self, span: str, t: Optional[float] = None) -> None:
+        self.events.append((span, time.monotonic() if t is None else t))
+
+    def to_dict(self) -> Dict[str, Any]:
+        events = list(self.events)
+        out = {
+            "request_id": self.request_id,
+            "trace_id": self.trace_id,
+            "events": [{"span": span, "t_s": round(t - self.t0, 6)} for span, t in events],
+        }
+        if events:
+            out["total_s"] = round(events[-1][1] - self.t0, 6)
+        return out
+
+
+class TraceJsonlWriter:
+    """Appends one JSON line per settled request to ``path``.
+
+    ``max_bytes`` > 0 bounds the file: when the next line would push the
+    active file past it, the file moves to ``path.1`` (``path.N`` shift to
+    ``path.N+1``) and only the newest ``keep`` rotated files survive. The
+    size is tracked in-process (one ``tell()`` at open), so a write never
+    stats the file."""
+
+    def __init__(self, path: str, max_bytes: int = 0, keep: int = 5):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._path = path
+        self._max_bytes = max(0, int(max_bytes))
+        self._keep = max(1, int(keep))
+        self._f = open(path, "a")
+        self._size = self._f.tell()
+        self._lock = threading.Lock()
+
+    def write(self, record: Dict[str, Any]) -> None:
+        line = json.dumps(record) + "\n"
+        with self._lock:
+            if self._max_bytes and self._size > 0 and self._size + len(line) > self._max_bytes:
+                self._rotate()
+            self._f.write(line)
+            self._f.flush()
+            self._size += len(line)
+
+    def _rotate(self) -> None:
+        """Shift ``path.N`` -> ``path.N+1`` (dropping past ``keep``), move
+        the active file to ``path.1`` and reopen it empty. The caller holds
+        the lock."""
+        self._f.close()
+        for i in range(self._keep, 0, -1):
+            src = f"{self._path}.{i}"
+            if not os.path.exists(src):
+                continue
+            if i >= self._keep:
+                os.remove(src)
+            else:
+                os.replace(src, f"{self._path}.{i + 1}")
+        os.replace(self._path, f"{self._path}.1")
+        self._f = open(self._path, "a")
+        self._size = 0
+
+    def close(self) -> None:
+        with self._lock:
+            self._f.close()
 
 
 class FlightRecorder:

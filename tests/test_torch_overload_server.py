@@ -275,9 +275,9 @@ def test_healthz_is_503_once_a_tick_failed(gen, engine, fault):
     ("continuous", {"priority": "batch", "speculative": 2},
      "'priority'/'deadline_ms' with 'speculative' needs the server started with "
      "--speculative K"),
-    ("paged", {"trace": True}, "['trace'] not supported by this server"),
+    ("paged", {"adapter": "x"}, "['adapter'] not supported by this server"),
 ], ids=["bad_tier", "zero_deadline", "negative_deadline", "window_priority",
-        "window_deadline", "speculative_fallback", "trace_unported"])
+        "window_deadline", "speculative_fallback", "adapter_unported"])
 def test_overload_fields_are_validated_with_the_jax_messages(gen, engine, body, message):
     with _Server(gen, engine=engine) as srv:
         for path in ("/v1/generate", "/v1/stream"):

@@ -241,13 +241,17 @@ def test_stats_and_metrics_count_the_requests_served(served):
     assert after["engine"] == engine
     if engine == "window":
         assert samples[f'serving_info{{engine="{engine}"}}'] == 1
-        assert after == {"engine": "window", "queue_depth": 0, "max_batch": 4}
+        # the JAX server's window stats: the queue, and the cards' memory
+        # (none on the CPU)
+        assert after == {"engine": "window", "queue_depth": 0, "max_batch": 4,
+                         "device_memory": {}}
         assert samples["serving_queue_depth"] == 0 and types["serving_max_batch"] == "gauge"
         return
-    # a slot engine's snapshot also carries its supervision state, as the
-    # JAX engine's does: the circuit as a label, the drain as a 0/1 gauge
+    # a slot engine's snapshot also carries its supervision state and its
+    # role, as the JAX engine's does: the circuit and the role as labels,
+    # the drain as a 0/1 gauge
     assert after["circuit_state"] == "closed" and after["draining"] is False
-    assert samples[f'serving_info{{circuit_state="closed",engine="{engine}"}}'] == 1
+    assert samples[f'serving_info{{circuit_state="closed",engine="{engine}",role="mixed"}}'] == 1
     assert types["serving_draining"] == "gauge" and samples["serving_draining"] == 0
     assert samples["serving_engine_restarts_total"] == 0 == samples["serving_engine_generation"]
     assert after["tokens_served"] - before["tokens_served"] == n_tokens + 8

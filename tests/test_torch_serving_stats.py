@@ -102,10 +102,43 @@ def test_prometheus_exposition_text_matches_jax(engine):
             jax_snap[key] = snap[key]
         assert jax_snap == snap
         hists, jax_hists = mine.hist, theirs.hist
+        # a slot engine's snapshot also carries its SLO report and its
+        # per-generation slices (the port's own classes made them)
+        snap["slo"], snap["per_generation"] = _slo_and_generations(mine)
     text = metrics.prometheus_exposition(snap, hists)
     assert text == jax_metrics.prometheus_exposition(snap, jax_hists)
+    # with the cards' memory report (a card may lack a field)
+    memory = {"1": {"bytes_in_use": 7, "peak_bytes_in_use": 9, "bytes_limit": None},
+              "0": {"bytes_in_use": 3 << 30, "peak_bytes_in_use": 5 << 30,
+                    "bytes_limit": 85899345920}}
+    with_memory = metrics.prometheus_exposition(snap, hists, memory=memory)
+    assert with_memory == jax_metrics.prometheus_exposition(snap, jax_hists, memory=memory)
+    assert with_memory.startswith(text[:-1]) and with_memory.endswith(
+        '# TYPE device_hbm_bytes_limit gauge\ndevice_hbm_bytes_limit{device="0"} 85899345920\n')
+    assert metrics.prometheus_exposition(snap, hists, memory={}) == text
     if engine != "window":
         assert "serving_tokens_served_total 37\n" in text
         assert 'serving_wasted_tokens_total{reason="abandoned"} 6\n' in text
         assert 'serving_ttft_seconds_bucket{le="+Inf"} 20\n' in text
+        assert "serving_slo_compliant 0\n" in text
+        assert 'serving_slo_burn_rate{objective="error_rate",window="fast"} 20\n' in text
+        assert 'serving_generation_requests_failed_total{generation="1"} 1\n' in text
     assert metrics.PROMETHEUS_CONTENT_TYPE == jax_metrics.PROMETHEUS_CONTENT_TYPE
+
+
+def _slo_and_generations(stats):
+    """An SLO report with a breach (20% failures) and the summaries of two
+    weight generations."""
+    from llm_fine_tune_distributed_tpu_torch.observe import slo
+
+    ring = slo.MetricRing(capacity=8, interval_s=1.0)
+    ring.sample(10.0, stats)
+    stats.incr("requests_completed", 40)
+    stats.incr("requests_failed", 10)
+    ring.sample(700.0, stats)
+    slices = slo.GenerationSlices()
+    for gen, ttft, failed in ((0, 0.25, False), (1, 3.5, True), (1, 0.5, False)):
+        slices.slice_for(gen).ttft.observe(ttft)
+        slices.slice_for(gen).inter_token.observe(ttft / 10)
+        slices.note_settled(gen, failed=failed)
+    return slo.SloPolicy().evaluate(ring, now=700.0), slices.summaries()
