@@ -152,7 +152,31 @@ and stops with a non-zero exit at the first failure:
    holding ``paged_decode_kernel`` a positive multiple of 36 times, and
    the request decoding on after the stop, with the stop's hold of the
    tick lock and the request's largest inter-token gap printed; (f)
-   ``/v1/lineage`` and the window engine's ``/v1/slo`` answer the JAX 404s.
+   ``/v1/lineage`` and the window engine's ``/v1/slo`` answer the JAX 404s;
+21. (right after phase 20, on phase 4's generator) the host KV tier, live
+   migration and the engine fleet, on paged int8 replicas at phase 4's
+   geometry: (a) the 5 full blocks of a ~1.43k-token prompt spilled to a
+   1 GiB host tier (pinned) and restored into fresh rows 5 times, bitwise
+   equal, 9,438,336 bytes per entry, spill and restore timed by CUDA events
+   and by wall time with the sync; (b) one engine with a pool of exactly
+   one request's blocks: another prompt evicts the first one's 5 blocks
+   into the tier and the re-ask restores them (>= 5 hits, 1280 tokens
+   reused, the same tokens), its TTFT beside the same re-ask with the tier
+   cleared; (c) a fleet of two replicas over the one generator and one tier:
+   a 128-token stream migrated (``migrate_slot``) after its second token
+   finishes on the sibling, held to its solo run by phase 15's margin rule
+   plus twice the int8 pool's logit error, completed on exactly one
+   replica, launches 36 x the decode steps of both; (f) on that fleet, a
+   decode failure restarts one replica while the other decodes: the
+   sibling's tokens held the same way, launches exact, merge tickets zero;
+   (d) ``--replicas 2 --replica-roles prefill,decode --host-tier-mb 1024``
+   over HTTP: every request handed off, no decode step on the prefill
+   replica, every paged decode launch on the decode one; (e) ``--replicas 2
+   --routing prefix --max-replicas 3 --migrate-on-retire``: a repeat lands
+   on the replica holding its prefix, ``/v1/stats`` has the JAX fleet keys
+   but ``compile``, ``/metrics`` a replica sample of every counter, and
+   ``POST /v1/fleet/scale`` 3 -> 2 gives ``memory_allocated`` back within
+   1 MiB, then -> 1 under a live stream, which completes.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -174,6 +198,18 @@ flash kernels again with every row one segment (nothing to skip), and its
 made by its own ``parallel.freeze.quantize_trunk_int8``. One JSON line per
 checkout; the last line lists them all.
 
+``python3 chip_smoke.py --fleet-only`` runs phase 21 alone: it builds the
+paged decode kernel, loads phase 4's weights, serves phase 4 (the record
+21b, 21d and 21e compare with), makes phase 15's solo runs of its 4
+questions, and runs 21a-21f; its last line is a JSON summary, not the
+contract line.
+
+``python3 chip_smoke.py --capture-check N [PUSH]`` runs phase 20e's
+profile capture N times on one phase-20 server and prints, per capture,
+whether its trace holds whole ticks (a multiple of 36 paged decode
+kernels); PUSH sets the tiny kernels the capture launches before each stop
+(default ``ProfilerCapture.PUSH_LAUNCHES``; 0 turns them off).
+
 ``python3 chip_smoke.py --serve-ab DIR [DIR ...]`` runs instead phase 4 (a
 warm-up request, then the 4 concurrent ones, on a paged int8 server over
 seed-0 bf16 weights) with this script's ``serve_phase`` on each checkout's
@@ -186,6 +222,7 @@ them.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -2870,6 +2907,571 @@ def observability_phase(server_mod, fa, generator, peaks):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the host KV tier, live migration and the engine fleet
+# ---------------------------------------------------------------------------
+
+FLEET_TIER_MB = 1024  # the shared host tier of 21b-21f (113 SmolLM3-3B int8 blocks)
+FLEET_STREAM_TOKENS = 128  # 21c's migrated stream
+SIBLING_TOKENS = 64  # 21f's live sibling, 21e's stream under the scale-down
+TIER_REPS = 5  # 21a's timed round trips
+# the JAX fleet snapshot's keys beyond an engine's (tests/test_metrics_schema.py)
+FLEET_EXTRA_KEYS = {
+    "replicas", "routing", "healthy_replicas", "available_replicas", "per_replica",
+    "replicas_retired", "requests_routed_prefix_affinity", "requests_routed_adapter_affinity",
+    "requests_routed_least_loaded", "requests_routed_round_robin", "requests_failed_over",
+    "requests_rerouted_overflow", "requests_shed_fleet_saturated", "requests_shed_fleet_brownout",
+    "tokens_by_role",
+}
+
+
+def _tier_block_bytes(config):
+    """One int8 block's host entry: every layer's K and V codes and their
+    f32 scales (SmolLM3-3B: 9,437,184 + 1,152 bytes)."""
+    hkv, d = config.num_kv_heads, config.resolved_head_dim
+    return config.num_layers * 2 * (KV_BLOCK_LEN * hkv * d + hkv * 4)
+
+
+def _paged_engine(engine_mod, generator, tier, **kw):
+    """A paged int8 engine at phase 4's geometry over the shared tier."""
+    return engine_mod.PagedContinuousBatchingEngine(
+        generator, **{"slots": SLOTS, "buf_len": KV_BUF_LEN, "prompt_bucket": PROMPT_BUCKET,
+                      "block_len": KV_BLOCK_LEN, "prefill_chunk": PREFILL_CHUNK,
+                      "kv_quant": "int8", "host_tier": tier, **kw})
+
+
+def _greedy_cfg(n):
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+
+    return GenerationConfig(max_new_tokens=n, do_sample=False)
+
+
+def _ttft(req):
+    return req.first_token_t - req.enqueued_at
+
+
+def fleet_tier_round_trip(engine_mod, paged_mod, generator):
+    """21a: the 5 full blocks of a ~1.43k-token prompt through
+    ``_spill_to_tier`` (gather, pinned copies, the sync before the tier
+    publishes them) and back into fresh rows, TIER_REPS times: bitwise equal
+    codes and scales, 9,438,336 bytes per entry."""
+    prompt = _prompt_ids(generator, {"question": QUESTIONS[0]})
+    eng = _paged_engine(engine_mod, generator, paged_mod.HostBlockTier(FLEET_TIER_MB << 20))
+    bids = []
+    try:
+        eng.submit(prompt, _greedy_cfg(8), timeout=600)
+        keys = eng._prefix.block_keys(prompt)
+        bids = eng._prefix.match(keys, limit=len(keys))
+        check(len(bids) == len(keys) == 5, f"21a: {len(bids)} cached blocks, want 5")
+        orig = [[a.clone() for a in rows] for rows in eng._gather_blocks(bids)]
+        times = {"spill_events_ms": [], "spill_wall_ms": [], "restore_events_ms": [],
+                 "restore_wall_ms": []}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(TIER_REPS):
+            eng._host_tier.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            eng._spill_to_tier(list(zip(keys, bids)))  # returns once the copies completed
+            end.record()
+            times["spill_wall_ms"].append(1e3 * (time.perf_counter() - t0))
+            end.synchronize()
+            times["spill_events_ms"].append(start.elapsed_time(end))
+            entries = [eng._host_tier.get(k) for k in keys]
+            check(all(e is not None and all(a.is_pinned() for a in e) for e in entries),
+                  "21a: a tier entry is missing or not in pinned memory")
+            fresh = eng._allocator.alloc(len(keys))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            eng._scatter_blocks(fresh, entries)
+            end.record()
+            torch.cuda.synchronize()
+            times["restore_wall_ms"].append(1e3 * (time.perf_counter() - t0))
+            times["restore_events_ms"].append(start.elapsed_time(end))
+            back = eng._gather_blocks(fresh)
+            check(all(b.dtype == o.dtype and torch.equal(b, o)
+                      for b_rows, o_rows in zip(back, orig) for b, o in zip(b_rows, o_rows)),
+                  "21a: a restored block differs from the spilled one")
+            for bid in fresh:
+                eng._allocator.free(bid)
+        parts = _spill_parts(eng, bids)
+        entry_bytes = [sum(a.nbytes for a in e) for e in entries]
+        want = _tier_block_bytes(generator.config)
+        check(entry_bytes == [want] * 5, f"21a: entry bytes {entry_bytes}, want {want} each")
+        snap = eng.stats_snapshot()
+        check(snap["prefix_blocks_spilled"] == 5 * TIER_REPS
+              and snap["prefix_blocks_discarded"] == 0,
+              f"21a: spilled {snap['prefix_blocks_spilled']}, discarded "
+              f"{snap['prefix_blocks_discarded']}")
+    finally:
+        for bid in bids:
+            eng._allocator.free(bid)
+        eng.close()
+    moved = sum(entry_bytes)
+    rec = {"blocks": 5, "entry_bytes": want, "bytes_per_direction": moved,
+           **{k: statistics.median(v) for k, v in times.items()}, "all": times, **parts}
+    for d in ("spill", "restore"):
+        rec[f"{d}_gb_s_events"] = moved / rec[f"{d}_events_ms"] / 1e6
+        rec[f"{d}_gb_s_wall"] = moved / rec[f"{d}_wall_ms"] / 1e6
+    phase(21, f"21a round trip of 5 blocks ({moved / 1e6:.1f} MB, {want} B each), bitwise equal "
+              f"x{TIER_REPS}: spill {rec['spill_events_ms']:.3f} ms by events "
+              f"({rec['spill_gb_s_events']:.1f} GB/s), {rec['spill_wall_ms']:.3f} ms wall with its "
+              f"sync ({rec['spill_gb_s_wall']:.1f} GB/s); restore "
+              f"{rec['restore_events_ms']:.3f} ms "
+              f"by events ({rec['restore_gb_s_events']:.1f} GB/s), {rec['restore_wall_ms']:.3f} ms "
+              f"wall synced ({rec['restore_gb_s_wall']:.1f} GB/s) (medians)")
+    phase(21, f"21a the spill's parts by events: the gather into one byte row per block "
+              f"(index_select of {parts['leaves']} leaves, cat) {parts['gather_ms']:.3f} ms, the 5 "
+              f"copies into pinned memory {parts['d2h_ms']:.3f} ms "
+              f"({moved / parts['d2h_ms'] / 1e6:.1f} GB/s) (medians of {TIER_REPS})")
+    return rec
+
+
+def _spill_parts(eng, bids):
+    """The two parts of a spill, timed apart by CUDA events (medians of
+    TIER_REPS): the device gather of ``bids``'s rows into one byte row per
+    block, and the copies of those rows into pinned host buffers."""
+    from llm_fine_tune_distributed_tpu_torch.infer.generate import pool_leaves
+
+    leaves = pool_leaves(eng.pool)
+    ids = torch.tensor(bids, dtype=torch.long, device=DEVICE)
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    gather, d2h = [], []
+    for _ in range(TIER_REPS):
+        host = [torch.empty(sum(leaf[0].nbytes for leaf in leaves), dtype=torch.uint8,
+                            pin_memory=True) for _ in bids]
+        torch.cuda.synchronize()
+        start.record()
+        packed = torch.cat([leaf.index_select(0, ids).view(torch.uint8).reshape(len(bids), -1)
+                            for leaf in leaves], dim=1)
+        mid.record()
+        for i, buf in enumerate(host):
+            buf.copy_(packed[i], non_blocking=True)
+        end.record()
+        end.synchronize()
+        gather.append(start.elapsed_time(mid))
+        d2h.append(mid.elapsed_time(end))
+    return {"leaves": len(leaves), "gather_ms": statistics.median(gather),
+            "d2h_ms": statistics.median(d2h)}
+
+
+def fleet_tier_restore(tf, engine_mod, paged_mod, generator, served, solo, floor):
+    """21b: one paged int8 engine over a pool of exactly one request's
+    blocks and the tier. Prompt A, then prompt B (another system prompt, no
+    block in common) evicts A's 5 cached blocks into the tier; A again
+    restores them (>= 5 hits, 1280 tokens reused); then B again (evicting A
+    once more), the tier cleared, and A a third time with a full prefill:
+    the two re-asks' TTFT in one call. Every run of A is held to A's solo
+    run by phase 15's margin rule plus twice the int8 pool's logit error,
+    and whether the re-asks equal the first run token for token is printed:
+    the pool holds no block B did not write, and a freed int8 block keeps
+    its scale (in both packages), so a re-ask's tail is quantized under
+    another scale than the first run's."""
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.infer.routing import prefix_block_keys
+
+    a = _prompt_ids(generator, {"question": QUESTIONS[0]})
+    b = _prompt_ids(generator, {"question": QUESTIONS[0],
+                                "system_prompt": WILDERNESS_EXPERT_SYSTEM_PROMPT.swapcase()})
+    need = max(_paged_blocks(len(p), MAX_NEW_TOKENS) for p in (a, b))
+    check(not set(prefix_block_keys(a, KV_BLOCK_LEN)) & set(prefix_block_keys(b, KV_BLOCK_LEN)),
+          "21b: prompts A and B share a block")
+    eng = _paged_engine(engine_mod, generator, paged_mod.HostBlockTier(FLEET_TIER_MB << 20),
+                        num_blocks=1 + need)
+    g = _greedy_cfg(MAX_NEW_TOKENS)
+    try:
+        first = eng.submit_full(a, g, timeout=600)
+        eng.submit(b, g, timeout=600)
+        before = eng.stats_snapshot()
+        check(before["prefix_blocks_spilled"] >= 5,
+              f"21b: B spilled {before['prefix_blocks_spilled']} of A's blocks, want 5")
+        restored = eng.submit_full(a, g, timeout=600)
+        after = eng.stats_snapshot()
+        eng.submit(b, g, timeout=600)
+        eng._host_tier.clear()
+        cleared = eng.submit_full(a, g, timeout=600)
+        last = eng.stats_snapshot()
+    finally:
+        eng.close()
+    hits = after["host_tier_restore_hits"] - before["host_tier_restore_hits"]
+    reused = after["prefix_tokens_reused"] - before["prefix_tokens_reused"]
+    check(hits >= 5, f"21b: the re-ask restored {hits} blocks, want >= 5")
+    check(reused == 5 * KV_BLOCK_LEN,
+          f"21b: the re-ask reused {reused} tokens, want {5 * KV_BLOCK_LEN}")
+    agree = [margin_agreement(tf, generator, f"21b {label}", a, req.result, solo[tuple(a)],
+                              floor=floor)[0]
+             for label, req in (("first ask", first), ("restored re-ask", restored),
+                                ("cleared re-ask", cleared))]
+    equal = [restored.result == first.result, cleared.result == first.result]
+    rec = {"pool_blocks": need, "restore_hits": hits, "tokens_reused": reused,
+           "tokens_agreeing_with_solo": agree, "reasks_equal_to_first": equal,
+           "spilled": last["prefix_blocks_spilled"], "discarded": last["prefix_blocks_discarded"],
+           "misses": last["host_tier_restore_misses"], "ttft_first_s": _ttft(first),
+           "ttft_restored_s": _ttft(restored), "ttft_cleared_s": _ttft(cleared),
+           "phase4_ttft_s_concurrent_mean": served["ttft_s_concurrent_mean"]}
+    phase(21, f"21b pool of {need} blocks: B evicted A's 5 blocks into the tier; the re-ask "
+              f"restored {hits} blocks ({reused} tokens reused); tokens equal to the solo run's "
+              f"(first, restored, cleared): {agree}, re-asks == the first run: {equal}; TTFT "
+              f"{rec['ttft_restored_s']:.3f} s restored vs {rec['ttft_cleared_s']:.3f} s with the "
+              f"tier cleared (first ask {rec['ttft_first_s']:.3f} s; phase 4's concurrent mean "
+              f"{rec['phase4_ttft_s_concurrent_mean']:.3f} s)")
+    return rec
+
+
+def fleet_migration(tf, gen_mod, engine_mod, paged_mod, fleet_mod, fa, generator, floor):
+    """21c: a fleet of two paged int8 replicas over the one generator and
+    one tier, ``migrate_on_retire``. A 128-token greedy stream, and
+    ``migrate_slot`` of its replica after its second token: the same
+    iterator finishes on the sibling, which restores the spilled blocks.
+    Tokens held to the solo run by the margin rule (plus the int8 floor),
+    ``slots_migrated`` 1 on the target, the request completed on exactly one
+    replica, paged decode launches 36 x the decode steps of both. Returns the
+    fleet (21f runs on it) and the record."""
+    tier = paged_mod.HostBlockTier(FLEET_TIER_MB << 20)
+    fleet = fleet_mod.EngineFleet([_paged_engine(engine_mod, generator, tier) for _ in range(2)],
+                                  routing="prefix", migrate_on_retire=True)
+    prompt = _prompt_ids(generator, {"question": QUESTIONS[1]})
+    solo = solo_decode(tf, gen_mod, generator, prompt, FLEET_STREAM_TOKENS)
+    fa.paged_decode_attention.launches = 0  # the migrated stream's launches only
+    stream = fleet.stream(prompt, _greedy_cfg(FLEET_STREAM_TOKENS), timeout=600)
+    tokens = [next(stream), next(stream)]
+    src = next(rid for rid, rep in fleet.replica_items() if rep.live_slots > 0)
+    t0 = time.monotonic()
+    moved = fleet.migrate_slot(src)
+    call_s = time.monotonic() - t0
+    banked = len(stream._req.preempted_tokens)  # every token the source emitted
+    while len(tokens) <= banked:  # the queued ones, then the target's first
+        tokens.append(next(stream))
+    next_token_s = time.monotonic() - t0
+    tokens.extend(stream)
+    launches = fa.paged_decode_attention.launches
+    snaps = {rid: rep.stats_snapshot() for rid, rep in fleet.replica_items()}
+    tgt = next(rid for rid in snaps if rid != src)
+    layers = generator.config.num_layers
+    steps = sum(s["decode_steps"] for s in snaps.values())
+    check(moved == 1 and snaps[tgt]["slots_migrated"] == 1,
+          f"21c: moved {moved}, target slots_migrated {snaps[tgt]['slots_migrated']}")
+    check(sorted(s["requests_completed"] for s in snaps.values()) == [0, 1]
+          and snaps[tgt]["requests_completed"] == 1,
+          f"21c: completed {[s['requests_completed'] for s in snaps.values()]}")
+    check(snaps[tgt]["host_tier_restore_hits"] >= 5,
+          f"21c: the target restored {snaps[tgt]['host_tier_restore_hits']} blocks, want >= 5")
+    check(launches == layers * steps, f"21c: {launches} paged decode launches, want {layers} x "
+                                      f"{steps} decode steps over both replicas")
+    agree, at = margin_agreement(tf, generator, "21c migrated stream", prompt, tokens, solo,
+                                 floor=floor)
+    rec = {"source": src, "target": tgt, "banked_tokens": banked, "call_s": call_s,
+           "call_to_next_token_s": next_token_s, "launches": launches, "decode_steps": steps,
+           "restore_hits": snaps[tgt]["host_tier_restore_hits"],
+           "spilled": snaps[src]["prefix_blocks_spilled"], "tokens_agreeing_with_solo": agree,
+           "first_difference": at}
+    phase(21, f"21c migrate_slot({src}) after {banked} tokens: the stream finished on replica "
+              f"{tgt} ({rec['restore_hits']} blocks restored, {rec['spilled']} spilled); call "
+              f"{call_s * 1e3:.1f} ms, call to the target's first token "
+              f"{next_token_s * 1e3:.1f} ms; "
+              f"tokens equal to the solo run's: {agree} of {FLEET_STREAM_TOKENS}; paged decode "
+              f"launches {launches} == {layers} x {steps} decode steps over both replicas")
+    return fleet, rec
+
+
+def fleet_restart_beside_sibling(tf, gen_mod, fa, fleet, generator, floor):
+    """21f: on 21c's fleet, replica 0 decodes one request and replica 1
+    another; a decode failure injected into replica 0 restarts it (its
+    request: ``RetryableEngineError``; its restart zeroes the merge tickets
+    of the stream both share) while replica 1 decodes on: its tokens held to
+    the solo run, launches 36 x the decode steps of both, tickets zero."""
+    from llm_fine_tune_distributed_tpu_torch.infer.errors import RetryableEngineError
+
+    rep_a, rep_b = fleet.replicas
+    prompts = [_prompt_ids(generator, {"question": q}) for q in QUESTIONS[2:4]]
+    solo = solo_decode(tf, gen_mod, generator, prompts[1], SIBLING_TOKENS)
+    steps0 = sum(r.stats_snapshot()["decode_steps"] for r in (rep_a, rep_b))
+    fa.paged_decode_attention.launches = 0
+    outcome = []
+
+    def ask_a():
+        try:
+            rep_a.submit(prompts[0], _greedy_cfg(SIBLING_TOKENS), timeout=600)
+            outcome.append("ok")
+        except RetryableEngineError as e:
+            outcome.append(type(e).__name__)
+
+    stream = rep_b.stream(prompts[1], _greedy_cfg(SIBLING_TOKENS), timeout=600)
+    tokens = [next(stream)]
+    t = threading.Thread(target=ask_a, daemon=True)
+    t.start()
+    _wait_for(lambda: rep_a.live_slots > 0 and rep_b.live_slots > 0, "both replicas decoding")
+    rep_a.faults.fail_decode_next(1)
+    tokens.extend(stream)
+    t.join(600)
+    _wait_for(lambda: rep_a.stats_snapshot()["engine_generation"] == 1, "replica 0's restart")
+    launches = fa.paged_decode_attention.launches
+    steps = sum(r.stats_snapshot()["decode_steps"] for r in (rep_a, rep_b)) - steps0
+    tickets_zero = all(not bool(x.any()) for x in fa._TICKETS.values())
+    layers = generator.config.num_layers
+    check(outcome == ["RetryableEngineError"], f"21f: replica 0's request: {outcome}")
+    check(launches == layers * steps, f"21f: {launches} paged decode launches, want {layers} x "
+                                      f"{steps}")
+    check(tickets_zero, "21f: a paged decode merge ticket is not zero")
+    agree, at = margin_agreement(tf, generator, "21f sibling's stream", prompts[1], tokens, solo,
+                                 floor=floor)
+    again = rep_a.submit(prompts[0], _greedy_cfg(8), timeout=600)
+    check(len(again) == 8, "21f: replica 0 does not serve after its restart")
+    rec = {"launches": launches, "decode_steps": steps, "sibling_tokens_agreeing_with_solo": agree,
+           "first_difference": at, "restarted_generation": 1}
+    phase(21, f"21f replica 0 restarted (503 engine_restarting to its request) while replica 1 "
+              f"decoded: replica 1's tokens equal to the solo run's: {agree} of "
+              f"{SIBLING_TOKENS}; paged decode launches {launches} == {layers} x {steps}; "
+              "merge tickets zero; replica 0 serves again")
+    return rec
+
+
+def _fleet_kw(**kw):
+    return _paged_kw(slots=SLOTS, flight_dir=None, autoscale="off", **kw)
+
+
+def _fleet_traffic(srv):
+    """A warm-up request, then phase 4's 4 concurrent ones, on a fleet
+    server: (results of the 4, their window, the merged histograms' TTFT
+    mean over the 4, warm-up stats, stats after)."""
+    eng, base = srv.engine, srv.base
+    warm = _http(base, "/v1/generate", {"question": WARMUP_QUESTION, "greedy": True,
+                                        "max_new_tokens": MAX_NEW_TOKENS})
+    check(warm[0] == 200, f"fleet warm-up: HTTP {warm[0]}")
+    h0 = eng.merged_histograms()["ttft_s"]
+    ttft0 = (h0.sum, h0.total)
+    warm_stats = eng.stats_snapshot()
+    t0 = time.monotonic()
+    joins = [_post_async(base, "/v1/generate", {"question": q, "greedy": True,
+                                               "max_new_tokens": MAX_NEW_TOKENS})
+             for q in QUESTIONS]
+    for i, join in enumerate(joins):
+        status, _, raw = join()
+        check(status == 200, f"fleet request {i}: HTTP {status} {raw[:200]!r}")
+    window_s = time.monotonic() - t0
+    h1 = eng.merged_histograms()["ttft_s"]
+    results = list(srv.results[1:])
+    gen_tok = sum(len(ids) for _, ids in results)
+    return {"results": results, "window_s": window_s, "tokens_per_s": gen_tok / window_s,
+            "ttft_s_mean": (h1.sum - ttft0[0]) / (h1.total - ttft0[1]),
+            "warm_stats": warm_stats, "stats": eng.stats_snapshot()}
+
+
+def _hold_fleet_tokens(tf, generator, label, results, solo, floor):
+    agree = []
+    for i, (prompt, ids) in enumerate(results):
+        agree.append(margin_agreement(tf, generator, f"{label} request {i}", prompt, ids,
+                                      solo[tuple(prompt)], floor=floor)[0])
+    return agree
+
+
+def fleet_disaggregated(tf, server_mod, fa, generator, served, solo, floor):
+    """21d: ``--replicas 2 --replica-roles prefill,decode --host-tier-mb
+    1024``, phase 4's traffic: every request handed off (warm-up + 4), no
+    decode step on the prefill replica, every paged decode launch on the
+    decode replica (36 x its decode steps), tokens held to the solo runs."""
+    fa.paged_decode_attention.launches = 0
+    with _Serving(server_mod, generator, **_fleet_kw(replicas=2, replica_roles="prefill,decode",
+                                                     host_tier_mb=FLEET_TIER_MB)) as srv:
+        out = _fleet_traffic(srv)
+        launches = fa.paged_decode_attention.launches
+    stats = out["stats"]
+    pre, dec = stats["per_replica"]["0"], stats["per_replica"]["1"]
+    layers = generator.config.num_layers
+    check((pre["role"], dec["role"], stats["role"]) == ("prefill", "decode", "disaggregated"),
+          f"21d roles {pre['role']}, {dec['role']}, fleet {stats['role']}")
+    check(stats["requests_handed_off"] == 5 and pre["requests_handoff_failed"] == 0,
+          f"21d: handed off {stats['requests_handed_off']} (want 5: the warm-up and 4), failed "
+          f"{pre['requests_handoff_failed']}")
+    check(pre["decode_steps"] == 0 and pre["requests_completed"] == 0,
+          f"21d: the prefill replica ran {pre['decode_steps']} decode steps")
+    check(dec["requests_completed"] == 5 and dec["slots_migrated"] == 5,
+          f"21d: the decode replica completed {dec['requests_completed']}")
+    check(launches == layers * dec["decode_steps"],
+          f"21d: {launches} paged decode launches, want {layers} x {dec['decode_steps']}")
+    agree = _hold_fleet_tokens(tf, generator, "21d", out["results"], solo, floor)
+    phase4 = {tuple(p): ids for p, ids in served["results"][1:]}
+    same = [ids == phase4.get(tuple(p)) for p, ids in out["results"]]
+    rec = {"launches": launches, "decode_steps_decode_replica": dec["decode_steps"],
+           "handed_off": stats["requests_handed_off"],
+           "restore_hits": dec["host_tier_restore_hits"],
+           "tokens_per_s": out["tokens_per_s"], "window_s": out["window_s"],
+           "ttft_s_mean": out["ttft_s_mean"], "tokens_agreeing_with_solo": agree,
+           "tokens_equal_to_phase_4": same,
+           "phase4_tokens_per_s": served["tokens_per_s_concurrent"],
+           "phase4_ttft_s_mean": served["ttft_s_concurrent_mean"]}
+    phase(21, f"21d prefill,decode: 5 requests handed off, 0 decode steps on the prefill replica, "
+              f"paged decode launches {launches} == {layers} x {dec['decode_steps']} on the decode "
+              f"replica ({rec['restore_hits']} blocks restored there); tokens equal to the solo "
+              f"runs': {agree}, to phase 4's: {same}; {out['tokens_per_s']:.1f} tokens/s and TTFT "
+              f"mean {out['ttft_s_mean']:.3f} s vs phase 4's {rec['phase4_tokens_per_s']:.1f} and "
+              f"{rec['phase4_ttft_s_mean']:.3f} s")
+    return rec
+
+
+def _replica_samples(text, counters, rids):
+    """Counter names without a ``replica="i"`` sample for some replica."""
+    missing = []
+    for key in counters:
+        for rid in rids:
+            if not re.search(rf'^serving_{key}_total\{{replica="{rid}"\}} ', text, re.M):
+                missing.append((key, rid))
+    return missing
+
+
+def fleet_serving_and_scale(tf, server_mod, fa, metrics_mod, generator, served, solo, floor):
+    """21e: ``--replicas 2 --routing prefix --max-replicas 3
+    --migrate-on-retire --host-tier-mb 1024 --autoscale off``, phase 4's
+    traffic, then a repeat of one prompt: it lands on a replica holding its
+    prefix. ``/v1/stats`` has the JAX fleet keys but ``compile``,
+    ``/metrics`` a ``replica="i"`` sample per replica for every counter.
+    ``POST /v1/fleet/scale`` to 3 then 2, idle: ``memory_allocated`` back
+    within 1 MiB. Then a 64-token stream of a prompt no replica holds (one
+    short request first, so the router's rotation places the stream on
+    replica 1) and ``POST /v1/fleet/scale`` to 3, then to 1 under it: the
+    retirement migrates the stream to replica 0, and it completes;
+    ``memory_allocated`` then one replica below two, within 1 MiB."""
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.infer.routing import prefix_block_keys
+
+    kw = _fleet_kw(replicas=2, max_replicas=3, migrate_on_retire=True, host_tier_mb=FLEET_TIER_MB)
+    fa.paged_decode_attention.launches = 0
+
+    def scale(base, n):
+        status, _, raw = _request(base, "/v1/fleet/scale", {"replicas": n})
+        check(status == 200 and json.loads(raw) == {"replicas": n},
+              f"21e scale to {n}: {status} {raw!r}")
+
+    def idle_memory():
+        gc_cuda()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    with _Serving(server_mod, generator, **kw) as srv:
+        eng, base = srv.engine, srv.base
+        out = _fleet_traffic(srv)
+        repeat = _prompt_ids(generator, {"question": QUESTIONS[0]})
+        keys = prefix_block_keys(repeat, KV_BLOCK_LEN)
+        homes = {rid for rid, rep in eng.replica_items() if rep.prefix_match_len(keys) > 0}
+        hits0 = {rid: rep.stats_snapshot()["prefix_hits"] for rid, rep in eng.replica_items()}
+        status, _, _, _ = _http(base, "/v1/generate", {"question": QUESTIONS[0], "greedy": True,
+                                                       "max_new_tokens": MAX_NEW_TOKENS})
+        check(status == 200, f"21e repeat: HTTP {status}")
+        rose = {rid for rid, rep in eng.replica_items()
+                if rep.stats_snapshot()["prefix_hits"] > hits0[rid]}
+        check(len(rose) == 1 and rose <= homes, f"21e: the repeat hit {rose}, the prefix is on "
+                                                f"{homes}")
+        status, _, raw = _request(base, "/v1/stats")
+        stats = json.loads(raw)
+        single = set(eng.replicas[0].stats_snapshot()) - {"prefix_hits"}
+        want_keys = single | FLEET_EXTRA_KEYS | {"engine", "device_memory", "device_memory_report"}
+        check(set(stats) == want_keys, f"21e /v1/stats keys: extra {set(stats) - want_keys}, "
+                                       f"missing {want_keys - set(stats)}")
+        status, _, raw = _request(base, "/metrics")
+        missing = _replica_samples(raw.decode(), metrics_mod.ServingStats.COUNTERS, ("0", "1"))
+        check(status == 200 and not missing, f"21e /metrics lacks replica samples: {missing[:5]}")
+        launches = fa.paged_decode_attention.launches
+        steps = stats["decode_steps"]
+        mem = {2: idle_memory()}
+        scale(base, 3)
+        mem[3] = idle_memory()
+        scale(base, 2)
+        mem["2_again"] = idle_memory()
+        replica_bytes = mem[3] - mem[2]  # one replica's pool and slot state
+        # one short request (no full block: no affinity) so that the stream,
+        # the next placement, rotates onto replica 1
+        status, _, _, _ = _http(base, "/v1/generate", _short_body(QUESTIONS[3], 4))
+        check(status == 200, f"21e short request: HTTP {status}")
+        result = {}
+        body = {"question": QUESTIONS[2], "greedy": True, "max_new_tokens": SIBLING_TOKENS,
+                "system_prompt": WILDERNESS_EXPERT_SYSTEM_PROMPT.swapcase()}
+        streamer = threading.Thread(target=lambda: result.update(zip(
+            ("status", "events", "first_s", "total_s"), _sse(base, body))), daemon=True)
+        streamer.start()
+        _wait_for(lambda: any(rep.live_slots for rep in eng.replicas), "the stream's decode")
+        on = [rid for rid, rep in eng.replica_items() if rep.live_slots]
+        check(on == [1], f"21e: the stream decodes on replicas {on}, want [1]")
+        scale(base, 3)
+        scale(base, 1)
+        streamer.join(600)
+        check(not streamer.is_alive(), "21e: the stream hung across the scale-down")
+        mem[1] = idle_memory()
+        final = eng.stats_snapshot()
+    check(abs(mem["2_again"] - mem[2]) <= RESTART_MEMORY_SLACK,
+          f"21e: memory_allocated {mem[2]} at 2 replicas, {mem['2_again']} after 3 -> 2")
+    check(abs(mem[2] - replica_bytes - mem[1]) <= RESTART_MEMORY_SLACK,
+          f"21e: memory_allocated {mem[1]} at 1 replica, want {mem[2]} - one replica's "
+          f"{replica_bytes}")
+    events = result.get("events") or []
+    check(result.get("status") == 200 and events and events[-1][1].get("done") is True
+          and events[-1][1]["n_tokens"] >= 1,
+          f"21e: the stream across the scale-down ended with {events[-1:] or result}")
+    check(final["slots_migrated"] == 1 and final["replicas"] == 1
+          and final["replicas_retired"] == 3,
+          f"21e: slots_migrated {final['slots_migrated']}, replicas {final['replicas']}, retired "
+          f"{final['replicas_retired']}")
+    layers = generator.config.num_layers
+    check(launches == layers * steps, f"21e: {launches} launches, want {layers} x {steps}")
+    agree = _hold_fleet_tokens(tf, generator, "21e", out["results"], solo, floor)
+    placed = {rid: s["requests_completed"] for rid, s in out["stats"]["per_replica"].items()}
+    rec = {"tokens_per_s": out["tokens_per_s"], "window_s": out["window_s"],
+           "ttft_s_mean": out["ttft_s_mean"], "completed_per_replica": placed,
+           "repeat_hit": sorted(rose), "prefix_homes": sorted(homes), "launches": launches,
+           "decode_steps": steps, "tokens_agreeing_with_solo": agree,
+           "memory": {str(k): v for k, v in mem.items()}, "replica_bytes": replica_bytes,
+           "stream_tokens": events[-1][1]["n_tokens"], "stream_migrated": final["slots_migrated"],
+           "replicas_retired": final["replicas_retired"],
+           "phase4_tokens_per_s": served["tokens_per_s_concurrent"]}
+    phase(21, f"21e prefix routing over 2 replicas: requests completed per replica {placed}; the "
+              f"repeat hit replica {sorted(rose)} (prefix on {sorted(homes)}); /v1/stats has "
+              f"the JAX "
+              f"fleet keys but compile; /metrics has replica samples of all "
+              f"{len(metrics_mod.ServingStats.COUNTERS)} counters; tokens equal to the solo runs': "
+              f"{agree}; launches {launches} == {layers} x {steps}")
+    phase(21, f"21e scale 2 -> 3 -> 2 idle: memory_allocated {mem[2]} -> {mem[3]} -> "
+              f"{mem['2_again']} (diff {mem['2_again'] - mem[2]}); a {SIBLING_TOKENS}-token "
+              f"stream on replica 1 through 3 -> 1: migrated to replica 0 and completed "
+              f"({rec['stream_tokens']} tokens); memory_allocated {mem[1]} = {mem[2]} - one "
+              f"replica's {replica_bytes} {mem[1] - (mem[2] - replica_bytes):+d}; "
+              f"{out['tokens_per_s']:.1f} tokens/s over 2 replicas vs phase 4's "
+              f"{served['tokens_per_s_concurrent']:.1f} on one (a record, not a claim)")
+    return rec
+
+
+def fleet_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, served, solo):
+    """Phase 21 (right after phase 20, on phase 4's generator): the host KV
+    tier, live migration and the engine fleet, 21a-21f. ``solo``: phase
+    15's solo runs of phase 4's 4 questions."""
+    from llm_fine_tune_distributed_tpu_torch.infer import fleet as fleet_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import paged as paged_mod
+    from llm_fine_tune_distributed_tpu_torch.observe import metrics as metrics_mod
+
+    t0 = time.monotonic()
+    prompts = [_prompt_ids(generator, {"question": q}) for q in QUESTIONS]
+    floor = 2 * max(int8_kv_noise(tf, generator, p) for p in prompts)
+    out = {"int8_floor": floor, "a": fleet_tier_round_trip(engine_mod, paged_mod, generator)}
+    gc_cuda()
+    out["b"] = fleet_tier_restore(tf, engine_mod, paged_mod, generator, served, solo, floor)
+    gc_cuda()
+    fleet, out["c"] = fleet_migration(tf, gen_mod, engine_mod, paged_mod, fleet_mod, fa,
+                                      generator, floor)
+    try:
+        out["f"] = fleet_restart_beside_sibling(tf, gen_mod, fa, fleet, generator, floor)
+    finally:
+        fleet.close()
+    del fleet
+    gc_cuda()
+    out["d"] = fleet_disaggregated(tf, server_mod, fa, generator, served, solo, floor)
+    gc_cuda()
+    out["e"] = fleet_serving_and_scale(tf, server_mod, fa, metrics_mod, generator, served, solo,
+                                       floor)
+    gc_cuda()
+    out["seconds"] = time.monotonic() - t0
+    phase(21, f"phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -3946,6 +4548,96 @@ def serve_ab_times(tree: str) -> dict:
             **{k: served[k] for k in keys}}
 
 
+def fleet_only() -> int:
+    """Phase 21 alone: the paged decode kernel built, phase 4's generator and
+    serving run (what 21b, 21d and 21e compare with), phase 15's solo runs
+    of its 4 questions, then 21a-21f; a JSON summary is the last line."""
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer import engine as engine_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+
+    t_start = time.monotonic()
+    phase(1, card_info())
+    _build.build_all(("paged_decode",))
+    params = tf.init_params(get_preset("smollm3_3b"), seed=0, device=DEVICE, dtype=torch.bfloat16)
+    generator = gen_mod.Generator(params, get_preset("smollm3_3b"), ByteChatMLTokenizer(),
+                                  compute_dtype=torch.bfloat16, device=DEVICE)
+    served = serve_phase(server_mod, fa, generator)
+    solo = {tuple(p): solo_decode(tf, gen_mod, generator, p, MAX_NEW_TOKENS)
+            for p, _ in served["results"][1:]}
+    fleet = fleet_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, served, solo)
+    served.pop("results")
+    print(json.dumps({"serve": served, "fleet": fleet, "total_s": time.monotonic() - t_start},
+                     default=str), flush=True)
+    return 0
+
+
+def capture_check(captures: int, push=None) -> int:
+    """20e's capture ``captures`` times on phase 20's paged int8 server
+    (phase 4's weights, the trace log, a 0.2 s ring, phase 4's traffic
+    first), each over a 128-token request, with ``push`` tiny kernels
+    before each stop (``ProfilerCapture.PUSH_LAUNCHES``; None: its default,
+    0: none). One JSON line per capture (its paged decode kernels and
+    whether they are whole ticks), then the count of captures that cut a
+    tick."""
+    import os
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.observe.profiler import ProfilerCapture
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+
+    phase(1, card_info())
+    _build.build_all(("paged_decode",))
+    config = get_preset("smollm3_3b")
+    generator = gen_mod.Generator(
+        tf.init_params(config, seed=0, device=DEVICE, dtype=torch.bfloat16), config,
+        ByteChatMLTokenizer(), compute_dtype=torch.bfloat16, device=DEVICE)
+    if push is not None:
+        ProfilerCapture.PUSH_LAUNCHES = push
+    push = ProfilerCapture.PUSH_LAUNCHES
+    cut = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as tmp:
+        kw = dict(_observe_kw("paged"), trace_log=os.path.join(tmp, "traces.jsonl"),
+                  profile_dir=os.path.join(tmp, "profiles"))
+        with _Serving(server_mod, generator, **kw) as srv:
+            base, eng = srv.base, srv.engine
+            _concurrent(base)
+            for i in range(captures):
+                join = _post_async(base, "/v1/generate", {
+                    "question": QUESTIONS[0], "greedy": True, "max_new_tokens": PROFILED_TOKENS})
+                start = eng.stats.values(("decode_steps",))["decode_steps"]
+                _wait_for(lambda: eng.stats.values(("decode_steps",))["decode_steps"] > start,
+                          "the request's first decode tick")
+                status, _, raw = _request(base, "/v1/profile", {"duration_s": PROFILE_S})
+                check(status == 200, f"POST /v1/profile: HTTP {status} {raw!r}")
+                trace_dir = json.loads(raw)["trace_dir"]
+                _wait_for(lambda: any(e["kind"] == "profile_stop" and e["dir"] == trace_dir
+                                      for e in eng.recorder.events()), "the capture's stop")
+                check(join()[0] == 200, "the profiled request failed")
+                path = os.path.join(trace_dir, "trace.json")
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+                os.remove(path)
+                paged = sum(1 for e in events if e.get("cat") == "kernel"
+                            and "paged_decode_kernel" in e.get("name", ""))
+                whole = paged > 0 and paged % config.num_layers == 0
+                cut += not whole
+                print(json.dumps({"capture": i, "push": push, "paged_decode_kernels": paged,
+                                  "whole_ticks": whole}), flush=True)
+    print(json.dumps({"push": push, "captures": captures, "cut": cut}), flush=True)
+    return 0
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible to torch; this script needs an NVIDIA GPU",
@@ -3956,6 +4648,10 @@ def main(argv=()) -> int:
     if argv[:1] == ["--flash-ab-one"] and len(argv) == 2:
         print(json.dumps(flash_ab_times(argv[1])), flush=True)
         return 0
+    if argv == ["--fleet-only"]:
+        return fleet_only()
+    if argv[:1] == ["--capture-check"] and len(argv) in (2, 3):
+        return capture_check(int(argv[1]), int(argv[2]) if len(argv) == 3 else None)
     if argv[:1] == ["--serve-ab"] and len(argv) > 1:
         return ab_runs(argv[1:], "--serve-ab-one", "serving")
     if argv[:1] == ["--serve-ab-one"] and len(argv) == 2:
@@ -4034,11 +4730,13 @@ def main(argv=()) -> int:
              f"int8 KV pool {served['kv_pool_bytes'] / 1e9:.3f} GB")
 
     engines = engines_phase(tf, gen_mod, server_mod, fa, generator)
+    phase4_solo = engines["solo"]  # phase 21 holds its fleets' tokens to them too
     speculation = spec_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, engines, served,
                              prompts)
     overload = overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     supervision = supervision_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     observability = observability_phase(server_mod, fa, generator, peaks)
+    fleet = fleet_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, served, phase4_solo)
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -4118,6 +4816,11 @@ def main(argv=()) -> int:
     paged["launches_restart"] = supervision["a"]["launches"]
     # phase 20a: launches under traced requests, the SLO ring and the trace log
     paged["launches_observability"] = observability["a"]["launches"]
+    # phase 21: a stream migrated between replicas (21c), a restart beside a
+    # live sibling (21f), the decode replica of a disaggregated fleet (21d)
+    # and a fleet of two serving phase 4's traffic (21e)
+    for sub in ("c", "f", "d", "e"):
+        paged[f"launches_fleet_21{sub}"] = fleet[sub]["launches"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -4173,7 +4876,8 @@ def main(argv=()) -> int:
                "serve_int8_weights": served_i8, "decode_profile_int8_weights": profiled_i8,
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "golden": golden, "overload": overload, "supervision": supervision,
-               "observability": observability, "total_s": time.monotonic() - t_start}
+               "observability": observability, "fleet": fleet,
+               "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

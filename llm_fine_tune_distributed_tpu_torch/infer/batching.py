@@ -90,6 +90,10 @@ class Request:
     # continuous engines only: the lifecycle trace (observe/tracing
     # RequestTrace: received, queued, admitted, prefill, first_token, ...)
     trace: Optional[object] = None
+    # disaggregated serving: set once a prefill replica's handoff of this
+    # request failed, so that it decodes where it is and is not handed off
+    # again at its re-admission
+    handoff_failed: bool = False
 
 
 def _pad_batch_size(n: int, max_batch: int) -> int:

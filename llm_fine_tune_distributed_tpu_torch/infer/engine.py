@@ -102,8 +102,21 @@ tokens (the JAX engine's ring waits for the next tick).
 ``tick_boundary()`` is the lock each scheduler pass holds: a profiler
 capture starts and stops under it, between ticks.
 
-Not ported from the JAX engines: the host KV tier, hot-swap (the weight
-generation stays 0), adapters and fleets (the role stays "mixed").
+Fleets (``infer/fleet.py``), as in the JAX engines: ``export_requests``
+takes every request in flight or queued off the engine at its next tick
+boundary, each with its tokens so far banked on it (``preempted_tokens``;
+the paged engine also spills its ingested blocks to the host tier), and
+``adopt_request`` takes such a request over on a sibling, which resumes it
+with one prefill over prompt + banked tokens (restoring what the tier
+holds). A ``role`` of ``"prefill"`` with a fleet-installed ``handoff`` hook
+hands each request to a decode replica right after its first token the
+same way; any failure of it decodes in place. The paged engine's
+``host_tier`` (``infer/paged.HostBlockTier``) also takes the blocks the
+prefix cache evicts and the blocks a preemption banks, and admission
+restores a prompt's leading blocks from it before it allocates the rest.
+
+Not ported from the JAX engines: hot-swap (the weight generation stays 0)
+and adapters.
 """
 
 from __future__ import annotations
@@ -114,7 +127,7 @@ import queue
 import threading
 import time
 import traceback
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -132,6 +145,7 @@ from llm_fine_tune_distributed_tpu_torch.infer.errors import (
     is_retryable_failure,
 )
 from llm_fine_tune_distributed_tpu_torch.infer.paged import NULL_BLOCK, BlockAllocator, PrefixCache
+from llm_fine_tune_distributed_tpu_torch.infer.routing import REPLICA_ROLES
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 from llm_fine_tune_distributed_tpu_torch.infer.supervisor import EngineSupervisor, FaultInjector
 from llm_fine_tune_distributed_tpu_torch.observe.capacity import LoadForecaster
@@ -160,6 +174,23 @@ log = logging.getLogger(__name__)
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine", "PRIORITY_TIERS",
            "Request"]
 _BEST_EFFORT = PRIORITY_TIERS.index("best_effort")
+# a queue item that wakes an idle worker so that it applies a staged export;
+# dropped wherever requests leave the queue
+_POKE = object()
+
+
+class _PendingExport:
+    """One staged export (``export_requests``): the worker detaches every
+    request in flight and queued at its next tick boundary and sets
+    ``result`` (the requests) or ``error`` (every request already detached
+    was re-adopted), then ``done``."""
+
+    __slots__ = ("done", "result", "error")
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.result: Optional[List[Request]] = None
+        self.error: Optional[BaseException] = None
 
 
 def _prompt_lookup(ctx: np.ndarray, k: int) -> np.ndarray:
@@ -225,6 +256,7 @@ class ContinuousBatchingEngine:
     BROWNOUT_THRESHOLDS = (0.7, 0.85, 0.95)
     BROWNOUT_HYSTERESIS = 0.1
     FLIGHT_EVENTS = 1024  # the flight recorder's ring (the JAX engine's default)
+    SUPPORTS_TRACE = True  # submit/stream adopt a caller's RequestTrace (the fleet's)
     SLO_RING_CAPACITY = 512  # metric ring samples kept (the JAX engine's default)
     SLO_GENERATIONS_KEPT = 8  # weight generations with latency slices (the JAX default)
 
@@ -239,7 +271,7 @@ class ContinuousBatchingEngine:
                  watchdog: Optional[StepWatchdog] = None, faults: Optional[FaultInjector] = None,
                  flight_dir: Optional[str] = None, trace_log: Optional[str] = None,
                  trace_log_max_mb: float = 0.0, slo_policy: Optional[SloPolicy] = None,
-                 slo_sample_interval_s: float = 1.0):
+                 slo_sample_interval_s: float = 1.0, role: str = "mixed"):
         """The supervision settings are the JAX engine's: ``restart_backoff_s``
         (doubling per failure in the window, capped at
         ``restart_backoff_max_s``), ``circuit_threshold`` failures within
@@ -250,8 +282,11 @@ class ContinuousBatchingEngine:
         ``trace_log`` (JSONL of settled requests' traces, rotated past
         ``trace_log_max_mb``; None: none), ``slo_policy`` (default
         ``SloPolicy()``) and ``slo_sample_interval_s`` are the JAX engine's
-        observability settings. The first generation's device state is
-        built here, so the cache exists when the constructor returns."""
+        observability settings. ``role`` (``REPLICA_ROLES``) is the replica's
+        pool in a disaggregated fleet. The first generation's device state
+        is built here, so the cache exists when the constructor returns."""
+        if role not in REPLICA_ROLES:
+            raise ValueError(f"unknown replica role {role!r} (expected one of {REPLICA_ROLES})")
         if priority_default not in PRIORITY_TIERS:
             raise ValueError(f"unknown priority_default {priority_default!r} "
                              f"(expected one of {PRIORITY_TIERS})")
@@ -323,7 +358,18 @@ class ContinuousBatchingEngine:
         self._weight_generation = 0
         self._gen_slice = self.slo_slices.slice_for(self._weight_generation)
         self.load_forecaster = LoadForecaster()
-        self.role = "mixed"  # the JAX default; prefill/decode roles need fleets
+        # disaggregation: a "prefill" replica hands each request to a decode
+        # replica after its first token through ``handoff``, a hook the
+        # fleet installs (None: decode in place). It runs on the worker and
+        # returns True once another replica adopted the request.
+        self.role = role
+        self.handoff = None
+        # migration: the export staged for the worker's next tick boundary
+        self._export_lock = threading.Lock()
+        self._export_pending: Optional[_PendingExport] = None
+        # the fingerprint host-tier entries are stamped with: the weights
+        # never change without hot-swap, so it stays None
+        self._weight_fingerprint = None
         # held by each scheduler pass (admission and tick): a profiler
         # capture starts and stops between ticks
         self._tick_lock = threading.Lock()
@@ -351,21 +397,26 @@ class ContinuousBatchingEngine:
 
     def submit(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                timeout: Optional[float] = None, priority: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> List[int]:
+               deadline_s: Optional[float] = None,
+               trace: Optional[RequestTrace] = None) -> List[int]:
         """Blocking: enqueue one request, wait for its generated token ids."""
         return self.submit_full(prompt_ids, gen, seed, timeout, priority=priority,
-                                deadline_s=deadline_s).result
+                                deadline_s=deadline_s, trace=trace).result
 
     def submit_full(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                     timeout: Optional[float] = None, priority: Optional[str] = None,
-                    deadline_s: Optional[float] = None) -> Request:
+                    deadline_s: Optional[float] = None,
+                    trace: Optional[RequestTrace] = None) -> Request:
         """``submit`` returning the whole request record (the window
         batcher's call shape). On ``timeout`` the request is abandoned (the
         worker sheds it) and TimeoutError raised. ``priority`` names a tier
         of ``PRIORITY_TIERS`` (None: the engine's default); ``deadline_s``
         is the client's budget for the whole request, past which it is
-        cancelled with a DeadlineExceededError carrying its tokens so far."""
-        req = self._make_request(prompt_ids, gen, seed, priority=priority, deadline_s=deadline_s)
+        cancelled with a DeadlineExceededError carrying its tokens so far.
+        ``trace`` is a caller's RequestTrace (the fleet's timeline across
+        replicas) that the request marks instead of one of its own."""
+        req = self._make_request(prompt_ids, gen, seed, priority=priority, deadline_s=deadline_s,
+                                 trace=trace)
         self._q.put(req)
         if not req.done.wait(timeout):
             req.abandoned = True
@@ -377,14 +428,15 @@ class ContinuousBatchingEngine:
 
     def stream(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                timeout: Optional[float] = None, priority: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> _TokenStream:
+               deadline_s: Optional[float] = None,
+               trace: Optional[RequestTrace] = None) -> _TokenStream:
         """Enqueue one request and return an iterator over its tokens as the
         slot decodes them, while it shares the batch with everything else in
         flight. ``timeout`` bounds the wait for each next token. Admission
         (overflow, brownout, a dead engine) is decided here, before the
         caller commits to a response."""
         req = self._make_request(prompt_ids, gen, seed, tokens_q=queue.Queue(),
-                                 priority=priority, deadline_s=deadline_s)
+                                 priority=priority, deadline_s=deadline_s, trace=trace)
         self._q.put(req)
         return _TokenStream(req, timeout, self)
 
@@ -412,6 +464,57 @@ class ContinuousBatchingEngine:
             if time.monotonic() >= deadline:
                 return False
             time.sleep(poll_s)
+
+    def export_requests(self, timeout: Optional[float] = None) -> List[Request]:
+        """Take every request in flight and queued off this engine and return
+        them unresolved, for a sibling to ``adopt_request`` (live migration).
+        The worker applies the export at its next tick boundary without
+        waiting for anything to finish. Each request has its tokens so far
+        banked in ``preempted_tokens`` (the paged engine also spills its
+        ingested blocks to the host tier), leaves this engine's pending
+        ledger and keeps its waiter or stream. If the export fails midway,
+        the requests already detached are re-adopted here and RuntimeError
+        is raised: the caller falls back to waiting for the drain."""
+        if self._terminal is not None:
+            raise self._terminal
+        exp = _PendingExport()
+        with self._export_lock:
+            if self._export_pending is not None:
+                raise RuntimeError("an export is already staged on this engine")
+            self._export_pending = exp
+        self.recorder.record("export_begin", live=int(self._live.sum()), queued=self.queue_depth)
+        self._q.put(_POKE)  # wake an idle worker
+        if not exp.done.wait(timeout):
+            raise TimeoutError(f"request export not applied within {timeout}s")
+        if exp.error is not None:
+            raise RuntimeError("request export failed; the engine re-adopted its requests: "
+                               f"{type(exp.error).__name__}: {exp.error}") from exp.error
+        return list(exp.result or [])
+
+    def adopt_request(self, req: Request) -> None:
+        """Take over a request a sibling exported (or re-adopt one of this
+        engine's). It bypasses the admission gates (drain, brownout, queue
+        cap, deadlines): the request was admitted once, and refusing it
+        would strand its waiter. Its resume prefills prompt + banked tokens,
+        restoring what the host tier holds, so greedy tokens equal an
+        uninterrupted run."""
+        if self._terminal is not None:
+            raise self._terminal
+        self._attach_request(req)
+        req.trace.mark("migrated")
+        self.recorder.record("adopt", request=req.id, tokens_banked=len(req.preempted_tokens))
+        self._q.put(req)
+
+    def predicted_drain_s(self) -> float:
+        """Seconds until this engine's backlog drains through its slots (the
+        Retry-After estimate); the fleet's all-saturated 429 quotes the
+        smallest over its replicas."""
+        return self._retry_after()
+
+    def prefix_match_len(self, keys: Sequence[bytes]) -> int:
+        """Leading prompt blocks resident here, for the fleet router: 0 on
+        the dense engine, which has no prefix cache."""
+        return 0
 
     def stats_snapshot(self) -> dict:
         """``ServingStats.snapshot()`` with fresh ``weight_bytes``,
@@ -609,12 +712,13 @@ class ContinuousBatchingEngine:
         """Every request queued and not yet admitted, seen from a submit
         thread (a stale view only mis-picks a displacement victim)."""
         with self._q.mutex:
-            queued = [r for r in self._q.queue if r is not None]
+            queued = [r for r in self._q.queue if r is not None and r is not _POKE]
         return list(self._waiting) + queued
 
     def _make_request(self, prompt_ids, gen: GenerationConfig, seed: int,
                       tokens_q: Optional["queue.Queue"] = None, priority: Optional[str] = None,
-                      deadline_s: Optional[float] = None) -> Request:
+                      deadline_s: Optional[float] = None,
+                      trace: Optional[RequestTrace] = None) -> Request:
         """The admission gate shared by submit and stream: refuse a dead
         engine, a drain, a brownout shed and an overflow before the request
         enters the queue, and stamp its deadlines. From here on the request
@@ -667,7 +771,11 @@ class ContinuousBatchingEngine:
         req = Request([int(t) for t in prompt_ids], gen, int(seed), tokens_q=tokens_q)
         req.id = next(self._req_seq)
         req.enqueued_at = time.monotonic()
-        req.trace = RequestTrace(req.id, t0=req.enqueued_at)
+        if trace is not None:  # the fleet's timeline, across its hops
+            req.trace = trace
+            trace.request_id = req.id
+        else:
+            req.trace = RequestTrace(req.id, t0=req.enqueued_at)
         req.trace.mark("received", req.enqueued_at)
         if self._queue_deadline_s is not None:
             req.queue_deadline = req.enqueued_at + self._queue_deadline_s
@@ -821,6 +929,9 @@ class ContinuousBatchingEngine:
             req = self._q.get()
             if req is None:
                 return
+            if req is _POKE:
+                self._resolve_export_terminal()
+                continue
             self._resolve_error(req, self._terminal)
 
     def _startup(self) -> None:
@@ -891,6 +1002,7 @@ class ContinuousBatchingEngine:
             err = FatalEngineError(f"fatal engine failure: {type(cause).__name__}: {cause}")
         err.__cause__ = cause
         self._terminal = err  # before resolving, so every waiter sees it
+        self._resolve_export_terminal()  # a staged export must not hang its caller
         reason = "circuit_open" if sup.circuit_open else "fatal"
         self.recorder.record(reason, error=str(err))
         dump = sup.dump_flight(self.recorder, reason, error=str(cause))
@@ -922,13 +1034,144 @@ class ContinuousBatchingEngine:
                 return
             if req is None:
                 self._closing = True
-            else:
+            elif req is not _POKE:
                 self._resolve_error(req, err)
+
+    # ------------------------------------------------------ live migration
+
+    def _resolve_export_terminal(self) -> None:
+        """Fail a staged export with the terminal error, so that the fleet's
+        call returns (and falls back to the drain, which a dead engine
+        resolves at once)."""
+        with self._export_lock:
+            exp, self._export_pending = self._export_pending, None
+        if exp is not None:
+            exp.error = self._terminal
+            exp.done.set()
+
+    def _apply_export(self) -> None:
+        """Detach every request in flight and queued (worker thread). A slot's
+        request gets its tokens banked (and, paged, its ingested blocks
+        spilled), frees its slot and leaves the pending ledger; a queued one
+        just leaves the ledger. The migrate fault fires before a request is
+        touched, so a failure leaves each request either wholly exported or
+        wholly here, and the exported ones are then re-adopted: each still
+        has exactly one settle ahead of it, on one engine."""
+        exp = self._export_pending
+        exported: List[Request] = []
+        try:
+            self._drain_queue(block=False)
+            for slot in range(self._slots):
+                req = self._slot_req[slot]
+                if req is None:
+                    continue
+                if req.abandoned:
+                    self._forget_prefill(slot)
+                    self._settle_abandoned(req)
+                    self._release(slot)
+                    continue
+                self.faults.maybe_fail_migrate()
+                self._bank_and_spill(slot, req)
+                self._release(slot)
+                self._detach_request(req)
+                exported.append(req)
+            while self._waiting:
+                req = self._waiting[0]
+                if not req.done.is_set() and not self._pre_admit_resolve(req):
+                    self.faults.maybe_fail_migrate()  # before it leaves the buffer
+                    self._detach_request(req)
+                    exported.append(req)
+                self._waiting.pop(0)
+            exp.result = exported
+            self.recorder.record("export", requests=len(exported))
+        except Exception as e:  # reported to the caller
+            for req in exported:
+                self._attach_request(req)
+                self._waiting.append(req)
+            exp.error = e
+            self.recorder.record("export_failed", error=f"{type(e).__name__}: {e}",
+                                 readopted=len(exported))
+        finally:
+            with self._export_lock:
+                self._export_pending = None
+            exp.done.set()
+
+    def _attach_request(self, req: Request) -> None:
+        """Enter an exported request into this engine's pending ledger (the
+        inverse of ``_detach_request``)."""
+        with self._plock:
+            self._pending += 1
+
+    def _detach_request(self, req: Request) -> None:
+        """Take an exported request out of this engine's pending ledger
+        without settling it: its waiter stays attached for the adopter."""
+        with self._plock:
+            self._pending -= 1
+
+    def _bank_and_spill(self, slot: int, req: Request) -> None:
+        """Bank a leaving slot's tokens on its request, as a preemption does
+        but not counted as one. The paged engine also spills the slot's
+        ingested blocks to the host tier."""
+        req.preempted_tokens.extend(self._slot_tokens[slot])
+
+    def _forget_prefill(self, slot: int):
+        """Drop the pending prefill of ``slot``: the dense engine prefills
+        at admission and has none."""
+        return None
+
+    def _handoff_slot(self, slot: int, req: Request) -> None:
+        """Hand a request that just got its first token to a decode replica
+        (worker thread; a prefill replica with a fleet-installed hook): bank
+        it as an export does, free the slot, detach it and ask the hook to
+        place it. Every failure decodes in place: a fault before the spill
+        leaves the slot live, and a hook that places it nowhere re-queues it
+        here, where its blocks are still in the prefix cache. Greedy tokens
+        are the same on every path."""
+        try:
+            self.faults.maybe_fail_handoff()
+            self._bank_and_spill(slot, req)
+            self._release(slot)
+            self._detach_request(req)
+        except Exception as e:  # degrade, never drop
+            req.handoff_failed = True
+            self.stats.incr("requests_handoff_failed")
+            self.recorder.record("handoff_failed", request=req.id, where="spill",
+                                 error=f"{type(e).__name__}: {e}")
+            return
+        adopted, err = False, None
+        try:
+            adopted = bool(self.handoff(req))
+        except Exception as e:  # degrade, never drop
+            err = f"{type(e).__name__}: {e}"
+        if adopted:
+            self.stats.incr("requests_handed_off")
+            req.trace.mark("handoff")
+            self.recorder.record("handoff", request=req.id,
+                                 tokens_banked=len(req.preempted_tokens))
+            return
+        # no decode replica took it: it resumes here, and the flag keeps it
+        # from being handed off again
+        req.handoff_failed = True
+        self._attach_request(req)
+        self._waiting.append(req)
+        self.stats.incr("requests_handoff_failed")
+        self.recorder.record("handoff_failed", request=req.id, where="adopt",
+                             error=err or "no decode-capable replica accepted")
+
+    def _handoff_due(self, slot: int, req: Request) -> bool:
+        """A prefill replica hands a request off after its first token,
+        unless that token ended it or an earlier handoff of it failed."""
+        return (self.role == "prefill" and self.handoff is not None
+                and not req.handoff_failed and self._slot_req[slot] is req)
 
     def _serve_loop(self) -> None:
         while True:
             self._drain_queue(block=False)
             with self._tick_lock:
+                if self._export_pending is not None:
+                    # applied at once: emptying the slots without waiting
+                    # for them is the point
+                    self._apply_export()
                 self._admit()
                 busy = self._tick()
             if not busy and not self._waiting:
@@ -960,7 +1203,7 @@ class ContinuousBatchingEngine:
                 return
             if req is None:
                 self._closing = True
-            else:
+            elif req is not _POKE:
                 self._waiting.append(req)
             block = False
 
@@ -1155,6 +1398,8 @@ class ContinuousBatchingEngine:
         self.stats.incr("requests_admitted")
         self.stats.incr("prefill_tokens", plen)
         self._emit_token(slot, req, first, from_decode=False)
+        if self._handoff_due(slot, req):
+            self._handoff_slot(slot, req)
 
     def _tick_done(self, t0: float) -> None:
         """After a decode step: stamp the tick clock, observe the tick and
@@ -1423,7 +1668,15 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     or keeps its turn until a retirement frees some. Dead rows decode with
     all-null tables, so their writes land in the null block. ``kv_quant="int8"`` stores the pool as int8 codes with
     per-block scales, and every decode step's attention then runs the paged
-    decode kernel."""
+    decode kernel.
+
+    ``host_tier`` (``infer/paged.HostBlockTier``, shared by a fleet's
+    replicas) keeps the blocks the prefix cache evicts, the blocks a
+    preemption banks and the blocks an export or a handoff ships; admission
+    restores a prompt's leading blocks from it. A spill that fails counts as
+    a discard and a restore that fails or misses prefills those positions
+    again (``prefix_blocks_discarded``, ``host_tier_restore_misses``): the
+    JAX engine's degrade paths, slower and never wrong."""
 
     def __init__(
         self,
@@ -1437,11 +1690,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         kv_quant: str = "none",
         stats: Optional[ServingStats] = None,
         speculative_k: int = 0,
+        host_tier=None,
         **overload,
     ):
-        """``overload``: the base engine's admission, deadline, priority and
-        brownout settings."""
+        """``overload``: the base engine's admission, deadline, priority,
+        brownout, supervision, observability and role settings."""
         slots = max(1, int(slots))
+        self._host_tier = host_tier
         self._block_len = max(1, int(block_len))
         self._prefill_chunk = max(1, int(prefill_chunk))
         self._kv_quant = kv_quant
@@ -1487,9 +1742,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         return entry["k"].element_size(), 0, 0
 
     def stats_snapshot(self) -> dict:
-        """The base snapshot with the pool's gauges, and ``prefix_hits``."""
+        """The base snapshot with the pool's and the host tier's gauges, and
+        ``prefix_hits``."""
         self.stats.gauge("blocks_in_use", self._allocator.used_count)
         self.stats.gauge("prefix_cache_blocks", len(self._prefix))
+        self.stats.gauge("host_tier_bytes",
+                         self._host_tier.bytes_used if self._host_tier is not None else 0)
         snap = super().stats_snapshot()
         snap["prefix_hits"] = self._prefix_hits
         return snap
@@ -1497,6 +1755,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     @property
     def pool(self) -> dict:
         return self._cache
+
+    @property
+    def block_len(self) -> int:
+        """The prefix cache's block length (the fleet router's key size)."""
+        return self._block_len
+
+    def prefix_match_len(self, keys: Sequence[bytes]) -> int:
+        """Leading prompt blocks resident in this replica's prefix cache: the
+        router's affinity signal, read-only and safe from router threads."""
+        return self._prefix.resident_run(keys)
 
     # ---------------------------------------------------------------- worker
 
@@ -1541,6 +1809,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # at least one suffix token must prefill: the first sampled token
         # needs the last prompt token's logits
         shared = self._prefix.match(keys, (plen - 1) // L)
+        shared = self._restore_shared(req, keys, shared, (plen - 1) // L)
         shared_len = len(shared) * L
         _, _, _, write_end = self._chunk_plan(plen, shared_len)
         # speculation's headroom: a verify tick at the last in-budget
@@ -1560,7 +1829,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         nprivate = total - len(shared)
         private = self._allocator.alloc(nprivate)
         if private is None:
-            self._prefix.evict(nprivate)
+            dropped: List[Tuple[bytes, int]] = []
+            self._prefix.evict(nprivate, collect=dropped)
+            self._spill_to_tier(dropped)
             self.recorder.record("prefix_evict", request=req.id, blocks_needed=nprivate)
             private = self._allocator.alloc(nprivate)
         if private is None:
@@ -1677,6 +1948,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._prefix.insert(task.keys[:full], self._slot_blocks[task.slot][:full])
         self._live[task.slot] = True
         self._emit_token(task.slot, req, first, from_decode=False)
+        if self._handoff_due(task.slot, req):
+            self._handoff_slot(task.slot, req)
 
     def _decode_bucket(self, lookahead: int = 0) -> int:
         """Power-of-two block count covering every live slot's blocks in use,
@@ -1748,7 +2021,124 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if full > 0:
             keys = self._prefix.block_keys(ctx)
             self._prefix.insert(keys[:full], self._slot_blocks[slot][:full])
+            # and to the host tier now: under the pressure that preempted
+            # it, the LRU may well reclaim them before the resume
+            self._spill_to_tier(list(zip(keys[:full], self._slot_blocks[slot][:full])))
         super()._preempt_slot(slot)
+
+    def _forget_prefill(self, slot: int):
+        for i, task in enumerate(self._prefills):
+            if task.slot == slot:
+                return self._prefills.pop(i)
+        return None
+
+    def _bank_and_spill(self, slot: int, req: Request) -> None:
+        """Bank the tokens, then spill every INGESTED full block to the host
+        tier so that the adopter restores them instead of prefilling. A slot
+        still prefilling has ingested ``task.next`` positions (the rest of
+        its blocks is unwritten); a live slot has all but its last emitted
+        token's K/V. The blocks also enter this prefix cache, so a failed
+        migration that re-adopts here re-matches them without the tier."""
+        task = self._forget_prefill(slot)
+        if task is not None:
+            ingested = task.next
+        else:
+            ingested = self._slot_plen[slot] + len(self._slot_tokens[slot]) - 1
+        super()._bank_and_spill(slot, req)
+        full = ingested // self._block_len
+        if full > 0:
+            keys = self._prefix.block_keys(list(req.prompt) + list(req.preempted_tokens))[:full]
+            blocks = self._slot_blocks[slot][:full]
+            self._prefix.insert(keys, blocks)
+            self._spill_to_tier(list(zip(keys, blocks)))
+
+    # ------------------------------------------------------------ host tier
+
+    def _gather_blocks(self, bids: List[int]) -> List[List]:
+        """``bids``'s pool rows on the host: per block, its leaves in the JAX
+        flatten order (``infer/generate.pool_leaves``)."""
+        return self._generator.paged_block_gather(self._cache, bids)
+
+    def _scatter_blocks(self, bids: List[int], entries: List[List]) -> None:
+        """Write host-tier ``entries`` into pool rows ``bids``."""
+        self._generator.paged_block_scatter(self._cache, bids, entries)
+
+    def _spill_to_tier(self, pairs: List[Tuple[bytes, int]]) -> None:
+        """Copy the named blocks into the host tier before their ids can be
+        reallocated (the worker enqueues no write to them first). Every block
+        that does not land in the tier counts as a discard: a failed or
+        refused spill is a plain eviction, never an error."""
+        if not pairs:
+            return
+        if self._host_tier is None:
+            self.stats.incr("prefix_blocks_discarded", len(pairs))
+            return
+        try:
+            self.faults.maybe_fail_spill()
+            arrays = self._gather_blocks([bid for _, bid in pairs])
+            spilled = sum(
+                1 for (key, _), rows in zip(pairs, arrays)
+                if self._host_tier.put(key, rows, fingerprint=self._weight_fingerprint))
+            if spilled:
+                self.stats.incr("prefix_blocks_spilled", spilled)
+            if spilled < len(pairs):
+                self.stats.incr("prefix_blocks_discarded", len(pairs) - spilled)
+            self.recorder.record("spill", blocks=spilled)
+        except Exception as e:  # a spill is best effort
+            self.stats.incr("prefix_blocks_discarded", len(pairs))
+            self.recorder.record("spill_failed", blocks=len(pairs),
+                                 error=f"{type(e).__name__}: {e}")
+
+    def _restore_shared(self, req: Request, keys: List[bytes], shared: List[int],
+                        cap: int) -> List[int]:
+        """Extend an admission's prefix-cache run with blocks restored from
+        the host tier into freshly allocated rows. Any failure (a miss, no
+        free blocks, a fault in the copy) returns the run the cache had, and
+        the plan prefills the rest: slower, never wrong."""
+        if self._host_tier is None:
+            return shared
+        want = keys[len(shared):cap]
+        if not want:
+            return shared
+        run = self._host_tier.resident_run(want, fingerprint=self._weight_fingerprint)
+        if run == 0:
+            if req.preempted_tokens:
+                # a resume expected its banked blocks
+                self.stats.incr("host_tier_restore_misses")
+            return shared
+        entries = []
+        for key in want[:run]:
+            got = self._host_tier.get(key, fingerprint=self._weight_fingerprint)
+            if got is None:
+                break  # evicted since the probe: restore what is left
+            entries.append(got)
+        if not entries:
+            self.stats.incr("host_tier_restore_misses")
+            return shared
+        blocks = self._allocator.alloc(len(entries))
+        if blocks is None:
+            dropped: List[Tuple[bytes, int]] = []
+            self._prefix.evict(len(entries), collect=dropped)
+            self._spill_to_tier(dropped)
+            blocks = self._allocator.alloc(len(entries))
+        if blocks is None:
+            self.stats.incr("host_tier_restore_misses", len(entries))
+            return shared
+        try:
+            self.faults.maybe_fail_restore()
+            self._scatter_blocks(blocks, entries)
+        except Exception as e:  # prefill these positions instead
+            for bid in blocks:
+                self._allocator.free(bid)
+            self.stats.incr("host_tier_restore_misses", len(entries))
+            self.recorder.record("restore_failed", request=req.id, blocks=len(entries),
+                                 error=f"{type(e).__name__}: {e}")
+            return shared
+        # the cache takes its own reference; the plan keeps the allocation's
+        self._prefix.insert(want[: len(entries)], blocks)
+        self.stats.incr("host_tier_restore_hits", len(entries))
+        self.recorder.record("restore", request=req.id, blocks=len(entries))
+        return shared + blocks
 
     def _release(self, slot: int) -> None:
         for bid in self._slot_blocks[slot]:

@@ -67,6 +67,34 @@ from llm_fine_tune_distributed_tpu_torch.models.transformer import (
 _PROMPT_BUCKET = 256
 
 
+def pool_leaves(pool: dict) -> List[torch.Tensor]:
+    """A paged pool's block-major leaves in the JAX package's flatten order:
+    layers by sorted string key ("0", "1", "10", ...), each layer's leaves by
+    sorted name (``k``, ``k_scale``, ``v``, ``v_scale`` for int8 codes, ``k``,
+    ``v`` otherwise)."""
+    layers = pool["layers"]
+    return [layers[i][name] for i in sorted(layers) for name in sorted(layers[i])]
+
+
+def _leaf_views(buf: torch.Tensor, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One block's row of each leaf, as typed views into its host bytes."""
+    out, off = [], 0
+    for leaf in leaves:
+        nb = leaf[0].nbytes
+        out.append(buf[off: off + nb].view(leaf.dtype).view(leaf.shape[1:]))
+        off += nb
+    return out
+
+
+def _entry_bytes(entry: Sequence[torch.Tensor], width: int) -> torch.Tensor:
+    """The host byte buffer that one tier entry's arrays are views of (as
+    ``paged_block_gather`` makes them), without a copy."""
+    storage = entry[0].untyped_storage()
+    if storage.nbytes() != width:
+        raise RuntimeError("host-tier entry layout does not match this pool")
+    return torch.empty(0, dtype=torch.uint8).set_(storage)
+
+
 class Generator:
     """Generation over a flat parameter dict on one device: dense-cache
     decode, speculation (with an optional draft model of the same
@@ -569,6 +597,64 @@ class Generator:
         )
         logits = unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
         return self._advance_slots(logits, state, live, pos + 1).cpu().numpy()
+
+    # ------------------------------------------------------- host KV tier
+    #
+    # A block's entry in the host tier (``infer/paged.HostBlockTier``) is one
+    # host byte buffer holding every pool leaf's row of that block back to
+    # back, in the JAX package's flatten order (``pool_leaves``); the entry's
+    # arrays are typed views into it. One device gather, one copy per block
+    # each way, and no compile buckets: nothing here compiles, so no pad rows
+    # are ever written and the null block keeps its zero codes and scales.
+
+    def paged_block_gather(self, pool, block_ids: Sequence[int]) -> List[List[torch.Tensor]]:
+        """Copy the rows of ``block_ids`` out of ``pool`` into host memory:
+        one list of per-leaf arrays per block (``pool_leaves`` order, each of
+        its leaf's shape without the block axis). On the card the copies
+        land in pinned memory without blocking, and the call returns once
+        they have completed, so an entry is whole when the tier publishes
+        it. The gather is enqueued on the current stream, before any later
+        write to those rows."""
+        leaves = pool_leaves(pool)
+        n = len(block_ids)
+        ids = self._h2d(np.asarray(block_ids, np.int64))
+        rows = [leaf.index_select(0, ids).view(torch.uint8).reshape(n, -1) for leaf in leaves]
+        packed = torch.cat(rows, dim=1)
+        cuda = self.device.type == "cuda"
+        host = [torch.empty(packed.shape[1], dtype=torch.uint8, pin_memory=cuda) for _ in range(n)]
+        for i, buf in enumerate(host):
+            buf.copy_(packed[i], non_blocking=cuda)
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        return [_leaf_views(buf, leaves) for buf in host]
+
+    def paged_block_scatter(self, pool, block_ids: Sequence[int],
+                            entries: Sequence[Sequence[torch.Tensor]]) -> None:
+        """Write host-tier ``entries`` (as ``paged_block_gather`` returns
+        them) into rows ``block_ids`` of ``pool``, enqueued on the current
+        stream before any later read of those rows. RuntimeError when an
+        entry's layout is not this pool's."""
+        leaves = pool_leaves(pool)
+        for entry in entries:
+            if len(entry) != len(leaves) or any(
+                    a.shape != leaf.shape[1:] or a.dtype != leaf.dtype
+                    for a, leaf in zip(entry, leaves)):
+                raise RuntimeError("host-tier entry layout does not match this pool")
+        n = len(block_ids)
+        ids = self._h2d(np.asarray(block_ids, np.int64))
+        cuda = self.device.type == "cuda"
+        width = sum(leaf[0].nbytes for leaf in leaves)
+        staged = torch.empty((n, width), dtype=torch.uint8, device=self.device)
+        for i, entry in enumerate(entries):
+            staged[i].copy_(_entry_bytes(entry, width), non_blocking=cuda)
+        off = 0
+        for leaf in leaves:
+            nb = leaf[0].nbytes
+            rows = staged[:, off: off + nb].view(leaf.dtype).view(n, *leaf.shape[1:])
+            leaf.index_copy_(0, ids, rows)
+            off += nb
 
     # ----------------------------------------- speculative continuous decode
     #

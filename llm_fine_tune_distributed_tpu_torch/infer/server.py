@@ -30,9 +30,15 @@ one engine on one card):
   GET  /v1/slo       -> the SLO burn-rate report (``--slo-*`` objectives)
   GET  /v1/history?metric=NAME[&window=S] -> the metric ring's series of
                         one sampled counter or gauge
-  GET  /v1/capacity  -> the capacity report for a fleet of one (load,
-                        forecast, sustainable tokens/s, headroom, the
-                        replica recommendation; autoscaling "off")
+  GET  /v1/capacity  -> the capacity report (load, forecast, sustainable
+                        tokens/s, headroom, the replica recommendation, and
+                        per role for a disaggregated fleet), with the
+                        autoscaler's mode and its recent decisions ("off"
+                        and none for a single engine)
+  POST /v1/fleet/scale {"replicas": N} -> add or retire replicas until the
+                     fleet has N, within [--min-replicas, --max-replicas]
+                     (404 without a fleet, 400 outside the bounds, 409 when
+                     a step fails) -> {"replicas": N}
   GET  /v1/lineage   -> 404: lineage needs hot-swap, not ported
   POST /v1/profile   {"duration_s": S (default 3)} -> a torch.profiler
                      capture into a fresh subdirectory of --profile-dir,
@@ -41,7 +47,11 @@ one engine on one card):
                      profiler stops and writes the trace (it holds the
                      GIL: seconds for a capture of a few seconds)
   The routes that read a slot engine (flight, slo, history, capacity)
-  answer 404 on the window engine.
+  answer 404 on the window engine. A fleet answers ``/v1/stats`` with the
+  merged view and a ``per_replica`` map, ``/metrics`` with each aggregate
+  sample followed by one ``replica="<id>"`` sample per replica, ``/v1/slo``
+  and ``/v1/history`` per replica too, and ``/v1/flight`` with
+  ``{"fleet": [...], "replicas": {id: [...]}}``.
 
 Engines (``--engine``): ``continuous`` (the default, as in the JAX server)
 decodes every request in a persistent slot batch over a dense KV cache;
@@ -93,6 +103,22 @@ metric ring's cadence, and ``--profile-dir`` enables ``POST /v1/profile``
 (the server warms the profiler up once at start, so CUPTI's set-up is not
 paid inside the first capture).
 
+Fleets (the slot engines, as in the JAX server): ``--replicas N`` serves N
+supervised replicas of the engine over the one Generator behind the router
+of ``infer/fleet.py`` (``--routing prefix|least-loaded|round-robin``).
+``--host-tier-mb`` gives the paged replicas one shared host-RAM KV tier
+(evicted and preempted blocks spill there and restore from it; live
+migration and the prefill/decode handoff ship blocks through it).
+``--replica-roles prefill,decode,...`` splits the fleet into pools (paged
+with a tier only); ``--migrate-on-retire`` empties a retiring replica by
+migrating its requests. ``--autoscale dry-run|on|off`` (default dry-run)
+runs the autoscaler between ``--min-replicas`` and ``--max-replicas`` with
+``--scale-cooldown-s`` between applied steps, ``--autoscale-ratio`` scaling
+the prefill/decode pools; ``--max-replicas`` above ``--replicas`` makes a
+fleet that can grow even from one replica. Each replica writes its flight
+dumps to ``<--flight-dir>/replica<i>`` and its traces to
+``<--trace-log>.replica<i>``. SIGTERM drains every replica.
+
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
 [--quantize int8] [--speculative K [--draft-dir DIR]]``. It serves on the GPU;
@@ -130,13 +156,19 @@ from llm_fine_tune_distributed_tpu_torch.infer.errors import (
     ServingError,
     error_payload,
 )
+from llm_fine_tune_distributed_tpu_torch.infer.fleet import EngineFleet
 from llm_fine_tune_distributed_tpu_torch.infer.generate import (
     Generator,
     load_model_dir,
     load_tokenizer_dir,
 )
+from llm_fine_tune_distributed_tpu_torch.infer.paged import HostBlockTier
+from llm_fine_tune_distributed_tpu_torch.infer.routing import REPLICA_ROLES, ROUTING_POLICIES
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
-from llm_fine_tune_distributed_tpu_torch.observe.capacity import report_from_capacity_snapshots
+from llm_fine_tune_distributed_tpu_torch.observe.capacity import (
+    Autoscaler,
+    report_from_capacity_snapshots,
+)
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import (
     PROMETHEUS_CONTENT_TYPE,
     prometheus_exposition,
@@ -231,16 +263,107 @@ def check_engine(engine: str, quantize_kv: str, speculative_k: int = 0,
         )
 
 
+def check_fleet(engine: str, replicas: int = 1, routing: str = "prefix",
+                autoscale: str = "dry-run", min_replicas: int = 1, max_replicas: int = 0,
+                host_tier_mb: int = 0, migrate_on_retire: bool = False,
+                replica_roles: Optional[str] = None, autoscale_ratio: bool = False) -> list:
+    """Refuse a fleet setting that cannot work, before any weight loads
+    (the JAX server's refusals, in its order). Returns the per-replica roles
+    of ``replica_roles`` (a comma list; [] when not given)."""
+    replicas = max(1, int(replicas or 1))
+    if routing not in ROUTING_POLICIES:
+        raise ValueError(f"unknown --routing {routing!r} (expected one of {ROUTING_POLICIES})")
+    if replicas > 1 and engine == "window":
+        raise ValueError(
+            "--replicas N needs a continuous/paged engine (the fleet "
+            "router places by queue depth and prefix residency, which the "
+            "window batcher does not expose); drop --replicas or pick "
+            "--engine continuous|paged"
+        )
+    autoscale = autoscale or "dry-run"
+    if autoscale not in Autoscaler.MODES:
+        raise ValueError(f"unknown --autoscale mode {autoscale!r} (expected one of "
+                         f"{Autoscaler.MODES})")
+    min_replicas = max(1, int(min_replicas or 1))
+    max_replicas = max(0, int(max_replicas or 0))
+    if max_replicas and max_replicas < replicas:
+        raise ValueError(
+            "--max-replicas must be >= --replicas (the fleet starts at "
+            f"--replicas); got {max_replicas} < {replicas}"
+        )
+    if min_replicas > replicas:
+        raise ValueError(
+            "--min-replicas must be <= --replicas (the fleet starts at "
+            f"--replicas); got {min_replicas} > {replicas}"
+        )
+    if max_replicas > replicas and engine == "window":
+        raise ValueError(
+            "--max-replicas (elastic fleet growth) needs a continuous/"
+            "paged engine; drop --max-replicas or pick "
+            "--engine continuous|paged"
+        )
+    if host_tier_mb and engine != "paged":
+        raise ValueError(
+            "--host-tier-mb spills paged KV BLOCKS to host RAM on eviction/"
+            "preemption; the dense/window caches have no blocks to spill — "
+            "pick --engine paged or drop --host-tier-mb"
+        )
+    fleet = replicas > 1 or max_replicas > replicas
+    if migrate_on_retire and not fleet:
+        raise ValueError(
+            "--migrate-on-retire live-migrates a retiring replica's "
+            "requests to SIBLING replicas; it needs a fleet — set "
+            "--replicas > 1 (or --max-replicas above --replicas) or drop "
+            "--migrate-on-retire"
+        )
+    roles: list = []
+    if replica_roles:
+        roles = [r.strip() for r in str(replica_roles).split(",") if r.strip()]
+        bad = [r for r in roles if r not in REPLICA_ROLES]
+        if bad:
+            raise ValueError(f"unknown role(s) {bad} in --replica-roles (expected a comma list "
+                             f"over {REPLICA_ROLES})")
+        if len(roles) != replicas:
+            raise ValueError(
+                "--replica-roles must name one role per starting replica; "
+                f"got {len(roles)} roles for --replicas {replicas}"
+            )
+        if not fleet:
+            raise ValueError(
+                "--replica-roles splits a FLEET into prefill/decode pools; "
+                "set --replicas > 1 (or --max-replicas above --replicas) "
+                "or drop --replica-roles"
+            )
+        if any(r != "mixed" for r in roles) and (engine != "paged" or not host_tier_mb):
+            raise ValueError(
+                "prefill/decode roles hand a request over by shipping its "
+                "KV blocks through the shared host tier — they need "
+                "--engine paged AND --host-tier-mb > 0; drop "
+                "--replica-roles or add both"
+            )
+    if autoscale_ratio and not any(r != "mixed" for r in roles):
+        raise ValueError(
+            "--autoscale-ratio treats the prefill/decode pool ratio as a "
+            "scaling dimension; it needs --replica-roles with at least one "
+            "prefill or decode replica"
+        )
+    return roles
+
+
 class _Server(ThreadingHTTPServer):
-    """The HTTP server; closing it also stops a running profiler capture
-    and the window engine it keeps beside a slot engine."""
+    """The HTTP server; closing it also stops a running profiler capture,
+    the autoscaler's thread and the window engine it keeps beside a slot
+    engine."""
 
     daemon_threads = True
     window_engine = None
     profiler_capture = None
+    autoscaler = None
 
     def server_close(self) -> None:
         super().server_close()
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         if self.profiler_capture is not None:
             self.profiler_capture.stop()
         if self.window_engine is not None:
@@ -309,6 +432,16 @@ def build_server(
     slo_fast_window_s: float = 60.0,
     slo_slow_window_s: float = 600.0,
     slo_sample_interval_s: float = 1.0,
+    replicas: int = 1,
+    routing: str = "prefix",
+    replica_roles: Optional[str] = None,
+    host_tier_mb: int = 0,
+    migrate_on_retire: bool = False,
+    autoscale: str = "dry-run",
+    min_replicas: int = 1,
+    max_replicas: int = 0,
+    scale_cooldown_s: float = 30.0,
+    autoscale_ratio: bool = False,
     control: Optional[dict] = None,
 ):
     """Start an ``engine`` over ``generator`` and bind an HTTP server to it.
@@ -326,9 +459,18 @@ def build_server(
     ``profile_dir`` enables ``POST /v1/profile``). ``httpd.begin_drain``
     (also ``control["begin_drain"]``, beside ``control["httpd"]``) closes
     admission, waits up to ``drain_timeout_s`` for the engines to drain and
-    then shuts the server down."""
+    then shuts the server down. ``replicas`` ... ``autoscale_ratio`` are the
+    fleet settings of the JAX server (``check_fleet``); with a fleet the
+    returned engine is the ``EngineFleet``, and ``httpd.autoscaler`` its
+    autoscaler."""
     speculative_k = max(0, int(speculative_k or 0))
     check_engine(engine, quantize_kv, speculative_k)
+    roles = check_fleet(engine, replicas, routing, autoscale, min_replicas, max_replicas,
+                        host_tier_mb, migrate_on_retire, replica_roles, autoscale_ratio)
+    replicas = max(1, int(replicas or 1))
+    min_replicas = max(1, int(min_replicas or 1))
+    max_replicas = max(0, int(max_replicas or 0))
+    fleet = replicas > 1 or max_replicas > replicas
     kind = engine
     # the window engine always exists: under --engine window it serves
     # everything, beside a slot engine started without --speculative it
@@ -343,34 +485,71 @@ def build_server(
                     circuit_threshold=circuit_threshold, circuit_window_s=circuit_window_s,
                     watchdog_timeout_s=watchdog_timeout_s, flight_dir=flight_dir,
                     trace_log=trace_log or None, trace_log_max_mb=trace_log_max_mb,
-                    slo_sample_interval_s=slo_sample_interval_s,
-                    slo_policy=SloPolicy(ttft_p99_s=slo_ttft_p99_s,
-                                         inter_token_p99_s=slo_inter_token_p99_s,
-                                         error_rate=slo_error_rate, availability=slo_availability,
-                                         fast_window_s=slo_fast_window_s,
-                                         slow_window_s=slo_slow_window_s))
-    drain_state = {"draining": False}
-    if kind == "window":
-        engine = window
-    elif kind == "continuous":
-        engine = ContinuousBatchingEngine(generator, slots=slots, buf_len=kv_buf_len,
-                                          prompt_bucket=prompt_bucket, speculative_k=speculative_k,
-                                          **overload)
-    else:
-        engine = PagedContinuousBatchingEngine(
+                    slo_sample_interval_s=slo_sample_interval_s)
+    # ONE host tier shared by every paged replica: migration and the
+    # prefill/decode handoff ship blocks through it
+    host_tier = None
+    if host_tier_mb and kind == "paged":
+        host_tier = HostBlockTier(int(host_tier_mb) * 1024 * 1024)
+        log.info("host KV tier: %d MiB", host_tier_mb)
+
+    def make_replica(i: int, role: Optional[str] = None):
+        """One replica over the shared generator with its own pool,
+        supervisor, stats and SloPolicy (the policy keeps breach state).
+        ``role`` comes from the autoscaler growing a pool; otherwise
+        ``replica_roles`` assigns by index and replicas past it are mixed.
+        In a fleet each replica writes its flight dumps and traces apart."""
+        kw = dict(overload, role=role or (roles[i] if i < len(roles) else "mixed"),
+                  slo_policy=SloPolicy(ttft_p99_s=slo_ttft_p99_s,
+                                       inter_token_p99_s=slo_inter_token_p99_s,
+                                       error_rate=slo_error_rate, availability=slo_availability,
+                                       fast_window_s=slo_fast_window_s,
+                                       slow_window_s=slo_slow_window_s))
+        if fleet:
+            if kw["flight_dir"]:
+                kw["flight_dir"] = os.path.join(kw["flight_dir"], f"replica{i}")
+            if kw["trace_log"]:
+                kw["trace_log"] = f"{kw['trace_log']}.replica{i}"
+        if kind == "continuous":
+            return ContinuousBatchingEngine(generator, slots=slots, buf_len=kv_buf_len,
+                                            prompt_bucket=prompt_bucket,
+                                            speculative_k=speculative_k, **kw)
+        return PagedContinuousBatchingEngine(
             generator, slots=slots, buf_len=kv_buf_len, prompt_bucket=prompt_bucket,
             block_len=kv_block_len, prefill_chunk=prefill_chunk, kv_quant=quantize_kv,
-            speculative_k=speculative_k, **overload,
+            speculative_k=speculative_k, host_tier=host_tier, **kw,
         )
 
+    drain_state = {"draining": False}
+    autoscaler = None
+    if kind == "window":
+        engine = window
+    elif fleet:
+        engine = EngineFleet([make_replica(i) for i in range(replicas)], routing=routing,
+                             replica_factory=make_replica, migrate_on_retire=migrate_on_retire)
+        # the elastic control loop: dry-run records would-be decisions
+        # (GET /v1/capacity, the fleet's flight events) without acting
+        autoscaler = Autoscaler(engine, mode=autoscale, min_replicas=min_replicas,
+                                max_replicas=max_replicas or replicas, cooldown_s=scale_cooldown_s,
+                                retire_timeout_s=drain_timeout_s, ratio=autoscale_ratio)
+        if autoscale != "off":
+            autoscaler.start()
+            log.info("autoscaler (%s): replicas in [%d, %d], cooldown %gs", autoscale,
+                     min_replicas, max_replicas or replicas, scale_cooldown_s)
+    else:
+        engine = make_replica(0)
+    # the replica the profiler's events and tick boundary come from
+    first = engine.replicas[0] if fleet and kind != "window" else engine
+
     # one capture per process (the profiler is process-wide), on the slot
-    # engine's flight-recorder timeline and its tick boundaries
+    # engine's flight-recorder timeline and its tick boundaries (a fleet's
+    # first replica's timeline; its ticks are not held)
     capture = None
     if profile_dir:
         slot = kind != "window"
         capture = ProfilerCapture(profile_dir,
-                                  on_event=engine.recorder.record if slot else None,
-                                  boundary=engine.tick_boundary if slot else None)
+                                  on_event=first.recorder.record if slot else None,
+                                  boundary=first.tick_boundary if slot and not fleet else None)
         log.info("profiler warmed up for POST /v1/profile in %.1f s", capture.warm_up())
 
     def snapshot() -> dict:
@@ -429,10 +608,7 @@ def build_server(
                     stats["device_memory_report"] = engine.memory_breakdown()
                 self._send(200, stats)
             elif path == "/metrics":
-                hists = None if kind == "window" else engine.stats.hist
-                self._send(200, prometheus_exposition(snapshot(), hists,
-                                                      memory=device_memory_report()),
-                           content_type=PROMETHEUS_CONTENT_TYPE)
+                self._send(200, self._metrics(), content_type=PROMETHEUS_CONTENT_TYPE)
             elif path == "/v1/flight":
                 self._flight(query)
             elif path == "/v1/lineage":
@@ -444,12 +620,35 @@ def build_server(
             elif path == "/v1/history":
                 self._history(query)
             elif path == "/v1/capacity":
-                # the report of a fleet of one; autoscaling needs fleets
-                report = report_from_capacity_snapshots([engine.capacity_snapshot()], 1)
-                report.update(engine=kind, autoscale="off", decisions=[])
+                if fleet:
+                    report = engine.capacity_report(horizon_s=autoscaler.horizon_s,
+                                                    min_replicas=min_replicas,
+                                                    max_replicas=autoscaler.max_replicas)
+                else:  # a fleet of one
+                    report = report_from_capacity_snapshots([engine.capacity_snapshot()], 1)
+                report.update(engine=kind, autoscale=autoscaler.mode if autoscaler else "off",
+                              decisions=autoscaler.decisions() if autoscaler else [])
                 self._send(200, report)
             else:
                 self._send(404, {"error": "not found"})
+
+        def _metrics(self) -> str:
+            """Prometheus text; a fleet's aggregate samples are each followed
+            by one sample per replica, labelled by its stable id."""
+            if kind == "window":
+                return prometheus_exposition(snapshot(), None, memory=device_memory_report())
+            snap = snapshot()
+            series = None
+            if fleet:
+                per = snap.pop("per_replica")
+                by_id = dict(engine.replica_items())  # a replica retired since drops out
+                series = [(label, per[label], by_id[int(label)].stats.hist)
+                          for label in sorted(per, key=int) if int(label) in by_id]
+                hists = engine.merged_histograms()
+            else:
+                hists = engine.stats.hist
+            return prometheus_exposition(snap, hists, memory=device_memory_report(),
+                                         replicas=series)
 
         def _history(self, query: str) -> None:
             """The metric ring's trailing series of one sampled counter or
@@ -491,7 +690,12 @@ def build_server(
                 self._send(400, {"error": f"'limit' must be a positive integer, "
                                           f"got {qs['limit'][0]!r}"})
                 return
-            self._send(200, {"events": engine.recorder.events()[-limit:]})
+            if fleet:  # the fleet's own timeline and each replica's, by id
+                self._send(200, {"fleet": engine.recorder.events()[-limit:],
+                                 "replicas": {str(rid): rep.recorder.events()[-limit:]
+                                              for rid, rep in engine.replica_items()}})
+            else:
+                self._send(200, {"events": engine.recorder.events()[-limit:]})
 
         def _parse(self):
             """The request body -> (prompt ids, GenerationConfig, seed, the
@@ -553,7 +757,39 @@ def build_server(
                 return
             self._send(200, {"profiling": True, "trace_dir": trace_dir, "duration_s": duration_s})
 
+        def _scale(self) -> None:
+            """POST /v1/fleet/scale: step the fleet to an absolute replica
+            count within the autoscaler's bounds. Not behind the drain
+            guard: an operator may shed replicas while work finishes."""
+            if not fleet:
+                self._send(404, {"error": "fleet scaling needs --replicas > 1 or --max-replicas "
+                                          "above --replicas"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                target = int(json.loads(self.rfile.read(length) or b"{}")["replicas"])
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": "bad request: body must be a JSON object with an "
+                                          f"integer 'replicas' ({e})"})
+                return
+            lo, hi = min_replicas, autoscaler.max_replicas
+            if not lo <= target <= hi:
+                self._send(400, {"error": f"'replicas' must be within [{lo}, {hi}], got {target}"})
+                return
+            try:
+                while len(engine.replicas) < target:
+                    engine.add_replica()
+                while len(engine.replicas) > target:
+                    engine.retire_replica(timeout_s=drain_timeout_s)
+            except (RuntimeError, ValueError) as e:
+                self._send(409, {"error": str(e)})
+                return
+            self._send(200, {"replicas": len(engine.replicas)})
+
         def do_POST(self):  # noqa: N802
+            if self.path == "/v1/fleet/scale":
+                self._scale()
+                return
             if self.path not in ("/v1/generate", "/v1/stream", "/v1/profile"):
                 self._send(404, {"error": "not found"})
                 return
@@ -701,6 +937,7 @@ def build_server(
 
     httpd = _Server((host, port), Handler)
     httpd.profiler_capture = capture
+    httpd.autoscaler = autoscaler
     if window is not engine:
         httpd.window_engine = window
 
@@ -733,6 +970,7 @@ def build_server(
     if control is not None:
         control["begin_drain"] = begin_drain
         control["httpd"] = httpd
+        control["autoscaler"] = autoscaler
     return httpd, engine
 
 
@@ -770,6 +1008,7 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     vocabulary beside the target."""
     check_quantize_mode(quantize)  # before the model loads
     check_engine(engine, quantize_kv, speculative_k, draft_dir)
+    check_fleet(engine, **{k: engine_kw[k] for k in _FLEET_FLAGS if k in engine_kw})
     device = resolve_device(device)
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     params, model_config = load_model_dir(model_dir, device=device, dtype=compute_dtype)
@@ -785,10 +1024,17 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     httpd, eng = build_server(generator, host=host, port=port, engine=engine,
                               quantize_kv=quantize_kv, speculative_k=speculative_k, **engine_kw)
     spec = f", speculative {speculative_k}" + (f" drafting with {draft_dir}" if draft_dir else "")
+    fleet = (f", {len(eng.replicas)} replicas ({eng.routing})"
+             if isinstance(eng, EngineFleet) else "")
     print(f"[serve] listening on http://{host}:{httpd.server_address[1]} "
           f"(engine {engine}, device {device}, {compute_dtype}, weights {quantize}"
-          f"{spec if speculative_k else ''})", flush=True)
+          f"{spec if speculative_k else ''}{fleet})", flush=True)
     run_server(httpd, eng)
+
+
+# build_server's fleet settings, in check_fleet's order
+_FLEET_FLAGS = ("replicas", "routing", "autoscale", "min_replicas", "max_replicas", "host_tier_mb",
+                "migrate_on_retire", "replica_roles", "autoscale_ratio")
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -798,6 +1044,46 @@ def main(argv: Optional[list] = None) -> int:
                         help="continuous: persistent slot batch over a dense KV cache (default); "
                              "paged: the same over a block-paged KV pool with a prefix cache; "
                              "window: drain-a-window batching of whole requests")
+    parser.add_argument("--replicas", type=int, default=1, metavar="N",
+                        help="continuous/paged engines: run N supervised engine replicas behind "
+                             "the in-process fleet router (weights shared; each replica owns "
+                             "its KV pool, supervisor and stats). 1 = single engine, no router")
+    parser.add_argument("--routing", choices=ROUTING_POLICIES, default="prefix",
+                        help="fleet placement policy (--replicas > 1): prefix = prompt-prefix "
+                             "cache affinity, ties least-loaded; least-loaded = smallest backlog "
+                             "per slot; round-robin = strict rotation")
+    parser.add_argument("--replica-roles", default=None, metavar="R1,R2,...",
+                        help="disaggregated serving: a comma list assigning each starting "
+                             "replica a pool role (mixed|prefill|decode), e.g. 'prefill,decode'. "
+                             "New requests route to prefill-capable replicas; after its first "
+                             "token a request hands over to a decode replica through the shared "
+                             "host KV tier (any failure decodes in place). Needs --engine paged, "
+                             "--host-tier-mb > 0 and a fleet")
+    parser.add_argument("--autoscale", choices=Autoscaler.MODES, default="dry-run",
+                        help="elastic fleet control loop: dry-run (default) records every "
+                             "would-be scale decision on GET /v1/capacity and the flight "
+                             "recorder WITHOUT acting; on also adds/retires replicas within "
+                             "--min-replicas/--max-replicas; off disables the loop")
+    parser.add_argument("--min-replicas", type=int, default=1, metavar="N",
+                        help="autoscaler floor: never retire below N replicas")
+    parser.add_argument("--max-replicas", type=int, default=0, metavar="N",
+                        help="autoscaler ceiling: never grow past N replicas. 0 = --replicas "
+                             "(no elastic growth); a value above --replicas builds a growable "
+                             "fleet even from --replicas 1")
+    parser.add_argument("--scale-cooldown-s", type=float, default=30.0,
+                        help="autoscaler: seconds between APPLIED scale actions")
+    parser.add_argument("--autoscale-ratio", action="store_true",
+                        help="autoscaler (--replica-roles): treat the prefill/decode pool ratio "
+                             "as a scaling dimension")
+    parser.add_argument("--host-tier-mb", type=int, default=0, metavar="MB",
+                        help="paged engine: host-RAM KV tier budget in MiB (LRU over bytes). "
+                             "Evicted prefix-cache blocks and preempted requests' banked blocks "
+                             "spill here, and admission restores them instead of prefilling "
+                             "again (int8 codes and scales as a unit). 0 = off")
+    parser.add_argument("--migrate-on-retire", action="store_true",
+                        help="fleet: retire_replica and the autoscaler's scale-down empty a "
+                             "replica by live-migrating its requests to siblings through the "
+                             "host tier instead of waiting for the longest one to finish")
     parser.add_argument("--quantize-kv", choices=["none", "int8"], default="none",
                         help="store the KV block pool as int8 with per-block absmax scales "
                              "(--engine paged); decode then reads it through the fused CUDA "
@@ -909,8 +1195,10 @@ def main(argv: Optional[list] = None) -> int:
     if args.quantize == "nf4":
         parser.error("--quantize nf4 is not ported "
                      "(llm_fine_tune_distributed_tpu.ops.nf4.quantize_params_nf4 has it)")
+    fleet_kw = {k: getattr(args, k) for k in _FLEET_FLAGS}
     try:
         check_engine(args.engine, args.quantize_kv, args.speculative, args.draft_dir)
+        check_fleet(args.engine, **fleet_kw)
     except ValueError as e:
         parser.error(str(e))
     try:
@@ -937,6 +1225,7 @@ def main(argv: Optional[list] = None) -> int:
         slo_availability=args.slo_availability, slo_fast_window_s=args.slo_fast_window_s,
         slo_slow_window_s=args.slo_slow_window_s,
         slo_sample_interval_s=args.slo_sample_interval_s,
+        scale_cooldown_s=args.scale_cooldown_s, **fleet_kw,
     )
     return 0
 

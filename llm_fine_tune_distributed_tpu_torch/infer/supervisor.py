@@ -119,9 +119,11 @@ class FaultInjector:
     Armed from any thread, fired on the worker thread; every fire raises
     ``InjectedFault`` and disarms itself, so "fail k times, then heal" is
     ``fail_decode_next(k)``. The engines call ``maybe_fail_prefill`` and
-    ``maybe_fail_decode``; the spill, restore, migrate and handoff hooks
-    belong to the host KV tier, slot migration and disaggregated prefill,
-    which the port does not have yet, so nothing calls them."""
+    ``maybe_fail_decode`` in their ticks, ``maybe_fail_migrate`` before each
+    request an export detaches, and ``maybe_fail_handoff`` before a prefill
+    replica hands a request off; the paged engine calls
+    ``maybe_fail_spill`` before a spill to the host tier and
+    ``maybe_fail_restore`` before a restore from it."""
 
     def __init__(self):
         self._lock = threading.Lock()

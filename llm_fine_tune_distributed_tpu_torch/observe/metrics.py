@@ -18,7 +18,7 @@ import math
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from llm_fine_tune_distributed_tpu_torch.observe.tracing import Histogram
 
@@ -236,11 +236,19 @@ FLEET_COUNTERS = (
 
 def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, Histogram]] = None,
                           memory: Optional[Dict[str, Dict[str, Optional[int]]]] = None,
-                          prefix: str = "serving", counters: Optional[set] = None) -> str:
-    """One engine's ``stats_snapshot()``, live histograms and optional
-    ``observe/profiler.device_memory_report()`` as Prometheus text (format
-    0.0.4), line for line the JAX package's exposition of the same inputs
-    (without its fleet and tenant-histogram series).
+                          prefix: str = "serving",
+                          replicas: Optional[List[Tuple[str, Dict[str, Any],
+                                                        Optional[Dict[str, Histogram]]]]] = None,
+                          counters: Optional[set] = None) -> str:
+    """An engine's or a fleet's ``stats_snapshot()``, live histograms and
+    optional ``observe/profiler.device_memory_report()`` as Prometheus text
+    (format 0.0.4), line for line the JAX package's exposition of the same
+    inputs (without its tenant-histogram series: adapters are not ported).
+
+    ``replicas``: a fleet's ``(label, snapshot, histograms)`` per replica.
+    Each aggregate sample is then followed by the same metric labelled
+    ``replica="<label>"`` for every replica (one ``# TYPE`` per metric), and
+    each replica's strings collapse into one ``<prefix>_replica_info`` line.
 
     Counter keys (``ServingStats.COUNTERS`` + ``FLEET_COUNTERS``, or
     ``counters``) get ``_total`` and ``# TYPE counter``; every other number
@@ -251,12 +259,20 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
     """
     if counters is None:
         counters = set(ServingStats.COUNTERS) | set(FLEET_COUNTERS)
+    replicas = replicas or []
     lines: List[str] = []
     labels = [f'{key}="{snap[key]}"' for key in sorted(snap) if isinstance(snap[key], str)]
     if labels:
         name = f"{prefix}_info"
         lines.append(f"# TYPE {name} gauge")
         lines.append(f'{name}{{{",".join(labels)}}} 1')
+    if replicas:
+        name = f"{prefix}_replica_info"
+        lines.append(f"# TYPE {name} gauge")
+        for label, rsnap, _ in replicas:
+            rlabels = [f'replica="{label}"'] + [f'{key}="{rsnap[key]}"' for key in sorted(rsnap)
+                                                 if isinstance(rsnap[key], str)]
+            lines.append(f'{name}{{{",".join(rlabels)}}} 1')
     for key, value in snap.items():
         if isinstance(value, bool):
             value = int(value)
@@ -269,6 +285,12 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
         else:
             lines.append(f"# TYPE {name} gauge")
         lines.append(f"{name} {value:.10g}")
+        for label, rsnap, _ in replicas:
+            rvalue = rsnap.get(key)
+            if isinstance(rvalue, bool):
+                rvalue = int(rvalue)
+            if isinstance(rvalue, (int, float)):
+                lines.append(f'{name}{{replica="{label}"}} {rvalue:.10g}')
     per_tenant = snap.get("per_tenant") or {}
     for key, kind in (("requests", "counter"), ("tokens", "counter"), ("queue_depth", "gauge")):
         name = f"{prefix}_tenant_{key}" + ("_total" if kind == "counter" else "")
@@ -286,6 +308,10 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
         lines.append(f"# TYPE {name} counter")
         for reason in sorted(wasted):
             lines.append(f'{name}{{reason="{reason}"}} {int(wasted[reason])}')
+            for label, rsnap, _ in replicas:
+                rw = rsnap.get("wasted_tokens_by_reason") or {}
+                if reason in rw:
+                    lines.append(f'{name}{{replica="{label}",reason="{reason}"}} {int(rw[reason])}')
         name = f"{prefix}_replica_count"  # a single engine is a fleet of one
         lines.append(f"# TYPE {name} gauge")
         lines.append(f"{name} {int(snap.get('replicas', 1))}")
@@ -294,6 +320,18 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
         lines.append(f"# TYPE {name} counter")
         for result, key in (("hit", "host_tier_restore_hits"), ("miss", "host_tier_restore_misses")):
             lines.append(f'{name}{{result="{result}"}} {int(snap.get(key, 0))}')
+            for label, rsnap, _ in replicas:
+                if key in rsnap:
+                    lines.append(f'{name}{{replica="{label}",result="{result}"}} {int(rsnap[key])}')
+    # a fleet's stage split of tokens by replica role
+    by_role = snap.get("tokens_by_role")
+    if by_role is not None:
+        for key, kind in (("prefill_tokens", "counter"), ("decode_tokens", "counter"),
+                          ("replicas", "gauge")):
+            name = f"{prefix}_role_{key}" + ("_total" if kind == "counter" else "")
+            lines.append(f"# TYPE {name} {kind}")
+            for role in sorted(by_role):
+                lines.append(f'{name}{{role="{role}"}} {int(by_role[role].get(key, 0))}')
     # compile-ledger series: the port compiles no programs, so they carry
     # no samples, but their TYPE lines keep the JAX schema
     for base in ("compiles_total", "compile_seconds_total"):
@@ -332,7 +370,12 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
             for gen in sorted(per_gen, key=int):
                 lines.append(f'{name}{{generation="{gen}"}} {get(per_gen[gen]):.10g}')
     for key in histograms or {}:
-        lines.extend(histograms[key].prometheus_lines(_prom_name(key, prefix)))
+        name = _prom_name(key, prefix)
+        lines.extend(histograms[key].prometheus_lines(name))
+        for label, _, rhists in replicas:
+            if rhists and key in rhists:
+                lines.extend(rhists[key].prometheus_lines(name, labels=f'replica="{label}"',
+                                                          include_type=False))
     if memory:
         by_field = {
             "bytes_in_use": "device_hbm_bytes_in_use",

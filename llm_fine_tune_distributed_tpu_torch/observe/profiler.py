@@ -122,6 +122,9 @@ class ProfilerCapture:
     set-up before serving."""
 
     TRACE_FILE = "trace.json"
+    # tiny kernels launched (and waited for) under the boundary before a
+    # CUDA stop: see ``_push_records``
+    PUSH_LAUNCHES = 16384
 
     def __init__(self, base_dir: str, on_event: Optional[Callable[..., None]] = None,
                  boundary: Optional[Callable[[], object]] = None):
@@ -149,7 +152,24 @@ class ProfilerCapture:
         self._prof.start()
 
     def _end(self) -> None:
+        self._push_records()
         self._prof.stop()
+
+    def _push_records(self) -> None:
+        """With CUDA, launch ``PUSH_LAUNCHES`` one-element kernels and wait
+        for them before the stop. A trace stopped right after a tick often
+        lacked the tail of that tick's kernel and launch records on the
+        H100, though the tick had finished (``chip_smoke.py --capture-check
+        16 0``); records enough to fill the profiler's ~4 MB activity buffer
+        after the tick (a kernel and a launch record per iteration) keep its
+        records whole. The trace gains these kernels, and the stop waits for
+        them (~0.1 s)."""
+        if not torch.cuda.is_available():
+            return
+        x = torch.zeros(1, device=torch.cuda.current_device())
+        for _ in range(self.PUSH_LAUNCHES):
+            x.add_(1)
+        torch.cuda.synchronize()
 
     def warm_up(self) -> float:
         """One empty capture on the calling thread, nothing exported: the

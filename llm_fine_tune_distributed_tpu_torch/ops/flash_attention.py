@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -201,17 +202,29 @@ def paged_decode_attention(
 
 paged_decode_attention.launches = 0
 
+# guards the launch count and the ticket table: the replicas of a fleet run
+# one engine worker each, and every worker launches the kernel
+_LOCK = threading.Lock()
+
 # (device index, stream) -> int32 tickets of the paged decode kernel's merge,
 # all zero between launches
 _TICKETS: dict = {}
 
 
+def _count_launch() -> None:
+    """Add one to ``paged_decode_attention.launches``; a bare ``+= 1`` is a
+    read-modify-write that two workers can interleave and lose."""
+    with _LOCK:
+        paged_decode_attention.launches += 1
+
+
 def _tickets(device, stream, n: int) -> torch.Tensor:
     key = (device.index, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-    return t
+    with _LOCK:
+        t = _TICKETS.get(key)
+        if t is None or t.numel() < n:
+            t = _TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        return t
 
 
 def reset_paged_decode_tickets(device) -> None:
@@ -219,12 +232,22 @@ def reset_paged_decode_tickets(device) -> None:
     leaves them zero when every launch runs to its end; a serving engine
     calls this when it builds a new generation after a failure, so that a
     launch cut short cannot pass a stale ticket on. Nothing to do on the
-    CPU."""
+    CPU.
+
+    The tickets belong to a stream, not to an engine: the replicas of a
+    fleet all launch on the default stream and share one table. One
+    replica's restart may zero it while a sibling's launch is already
+    enqueued. That is safe by the stream rule: the zeroing is enqueued on
+    the same stream, so it runs after every launch enqueued before it, each
+    of which has left its tickets zero by then, and before every launch
+    enqueued after it. Replicas on streams of their own would each get
+    their own table."""
     device = torch.device(device)
     if device.type != "cuda":
         return
     stream = torch.cuda.current_stream(device).cuda_stream
-    t = _TICKETS.get((device.index, stream))
+    with _LOCK:
+        t = _TICKETS.get((device.index, stream))
     if t is not None:
         t.zero_()
 
@@ -252,7 +275,7 @@ def _paged_decode_launch(q, k_pool, v_pool, k_scale, v_scale, block_tables, leng
     )
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
-    paged_decode_attention.launches += 1
+    _count_launch()
     return out
 
 

@@ -8,6 +8,7 @@ engines: the JAX engine's keys, and live signal after traffic.
 """
 
 import math
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -383,3 +384,219 @@ def test_engine_capacity_snapshot_has_the_jax_keys_and_live_signal(gen, kind):
     rep = capacity.report_from_capacity_snapshots([snap], 1, max_replicas=4)
     assert rep["capacity"]["per_replica_tokens_per_s"] > 0.0
     assert 1 <= rep["recommended_replicas"] <= 4
+
+
+# ------------------------------------------------------------ elastic fleets
+#
+# ``tests/test_capacity.py``'s fleet cases on both packages' paged fleets
+# over the same tiny weights (JAX PRNGKey(0), f32).
+
+
+@pytest.fixture(scope="module")
+def fleet_pair():
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from llm_fine_tune_distributed_tpu.data.tokenizer import ByteChatMLTokenizer as JaxTok
+    from llm_fine_tune_distributed_tpu.infer import EngineFleet as JaxFleet
+    from llm_fine_tune_distributed_tpu.infer import GenerationConfig as JaxConfig
+    from llm_fine_tune_distributed_tpu.infer import Generator as JaxGenerator
+    from llm_fine_tune_distributed_tpu.infer.engine import (
+        PagedContinuousBatchingEngine as JaxPaged,
+    )
+    from llm_fine_tune_distributed_tpu.models.configs import get_preset as jax_preset
+    from llm_fine_tune_distributed_tpu.models.transformer import init_params
+    from llm_fine_tune_distributed_tpu.observe.metrics import prometheus_exposition as jax_expo
+    from llm_fine_tune_distributed_tpu_torch.infer.fleet import EngineFleet
+    from llm_fine_tune_distributed_tpu_torch.models.carry import flatten_tree, params_from_jax
+    from llm_fine_tune_distributed_tpu_torch.observe.metrics import prometheus_exposition
+
+    jmc = jax_preset("tiny")
+    jparams = init_params(jax.random.PRNGKey(0), jmc, dtype=jnp.float32)
+    jgen = JaxGenerator(jparams, jmc, JaxTok(), compute_dtype=jnp.float32, eos_token_ids=[])
+    mc = get_preset("tiny")
+    flat = {k: np.asarray(v) for k, v in flatten_tree(jax.device_get(jparams)).items()}
+    pgen = Generator(params_from_jax(flat, mc), mc, ByteChatMLTokenizer(),
+                     compute_dtype=torch.float32, eos_token_ids=[], device="cpu")
+    return {"jax": SimpleNamespace(gen=jgen, paged=JaxPaged, fleet=JaxFleet, config=JaxConfig,
+                                   cap=jax_capacity, expo=jax_expo),
+            "port": SimpleNamespace(gen=pgen, paged=PagedContinuousBatchingEngine,
+                                    fleet=EngineFleet, config=GenerationConfig, cap=capacity,
+                                    expo=prometheus_exposition)}
+
+
+def _fleet_both(fleet_pair, script):
+    out = {name: script(side) for name, side in fleet_pair.items()}
+    assert out["port"] == out["jax"]
+    return out["port"]
+
+
+def _elastic_fleet(side, n=1, routing="prefix", **kw):
+    """A growable fleet of paged replicas and the factory it grows from."""
+    kw = {"restart_backoff_s": 0.01, "restart_backoff_max_s": 0.02, **kw}
+
+    def factory(rid):
+        return side.paged(side.gen, **GEOMETRY["paged"], **kw)
+
+    return side.fleet([factory(i) for i in range(n)], routing=routing, replica_factory=factory)
+
+
+def _fleet_prompts():
+    tok = ByteChatMLTokenizer()
+    return [tok.encode(t) for t in ("alpha", "beta bravo", "the quick brown fox")]
+
+
+def _settled(fleet, timeout_s=10.0):
+    deadline = time.monotonic() + timeout_s
+    while any(r.queue_depth or r.live_slots for r in fleet.replicas):
+        assert time.monotonic() < deadline, "fleet never went idle"
+        time.sleep(0.005)
+
+
+def _close_fleet(fleet):
+    if hasattr(fleet, "close"):  # the JAX fleet has no close()
+        fleet.close()
+
+
+def test_scale_up_then_retire_bit_identical_and_recorded(fleet_pair):
+    """Growing the fleet and retiring back down changes where requests run,
+    never what they return; both steps are on the fleet's flight recorder."""
+    def script(side):
+        g = side.config(max_new_tokens=6, do_sample=False)
+        prompts = _fleet_prompts()
+        solo = [side.gen.generate_ids(p, g) for p in prompts]
+        fleet = _elastic_fleet(side, n=1)
+        outs = [fleet.submit(prompts[0], g, timeout=240)]
+        rid, rep = fleet.add_replica()
+        grown = (rid, len(fleet.replicas), rep is fleet.replicas[1])
+        for p in prompts[1:]:
+            _settled(fleet)
+            outs.append(fleet.submit(p, g, timeout=240))
+        retired = fleet.retire_replica(timeout_s=60.0)
+        n = len(fleet.replicas)
+        outs.append(fleet.submit(prompts[0], g, timeout=240))
+        kinds = [e["kind"] for e in fleet.recorder.events()]
+        snap = fleet.stats_snapshot()
+        try:
+            fleet.retire_replica()
+            last = None
+        except ValueError as e:
+            last = type(e).__name__
+        _close_fleet(fleet)
+        return {"ok": outs == solo + [solo[0]], "grown": grown, "retired": (retired, n),
+                "events": (kinds.count("scale_up"), kinds.count("scale_down")),
+                "snap": (snap["replicas"], snap["replicas_retired"], snap["tokens_served"]),
+                "last": last}
+
+    assert _fleet_both(fleet_pair, script) == {
+        "ok": True, "grown": (1, 2, True), "retired": (1, 1), "events": (1, 1),
+        "snap": (1, 1, 24), "last": "ValueError"}
+
+
+def _metric_total(text, name):
+    import re
+
+    m = re.search(rf"^{name}(?:{{}})? (\S+)$", text, re.MULTILINE)
+    assert m, f"{name} missing from exposition"
+    return float(m.group(1))
+
+
+def test_scale_down_3_to_1_mid_traffic_totals_monotone(fleet_pair):
+    """Scaling 3 -> 1 with requests in flight folds each retired replica's
+    counters and histograms into the fleet's first, so no total goes down
+    and every answer stays its solo run."""
+    def script(side):
+        import threading
+
+        g = side.config(max_new_tokens=6, do_sample=False)
+        fleet = _elastic_fleet(side, n=3, routing="round-robin")
+        prompts = _fleet_prompts()
+        solo = [side.gen.generate_ids(p, g) for p in prompts]
+        for p in prompts:
+            fleet.submit(p, g, timeout=240)
+        before = fleet.stats_snapshot()
+
+        def expo(snap):
+            s = dict(snap)
+            s.pop("per_replica", None)
+            return side.expo(s, fleet.merged_histograms())
+
+        before_total = _metric_total(expo(before), "serving_tokens_served_total")
+        outcomes = [None] * len(prompts)
+
+        def ask(i):
+            try:
+                outcomes[i] = ("ok", fleet.submit(prompts[i], g, timeout=240))
+            except BaseException as e:  # noqa: BLE001 - recording the outcome
+                outcomes[i] = ("err", type(e).__name__)
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        fleet.retire_replica(timeout_s=60.0)
+        fleet.retire_replica(timeout_s=60.0)
+        for t in threads:
+            t.join(timeout=240)
+        after = fleet.stats_snapshot()
+        out = {"hung": any(t.is_alive() for t in threads),
+               "answers": outcomes == [("ok", s) for s in solo],
+               "per_before": sorted(before["per_replica"]), "per_after": sorted(after["per_replica"]),
+               "replicas": (after["replicas"], after["replicas_retired"]),
+               "monotone": all(after[k] >= before[k] for k in (
+                   "tokens_served", "requests_completed", "prompt_tokens", "goodput_tokens",
+                   "requests_admitted")),
+               "tokens": after["tokens_served"],
+               "ttft": after["histograms"]["ttft_s"]["count"]
+               - before["histograms"]["ttft_s"]["count"],
+               "total_up": _metric_total(expo(after), "serving_tokens_served_total")
+               >= before_total}
+        _close_fleet(fleet)
+        return out
+
+    assert _fleet_both(fleet_pair, script) == {
+        "hung": False, "answers": True, "per_before": ["0", "1", "2"], "per_after": ["0"],
+        "replicas": (1, 2), "monotone": True, "tokens": 36, "ttft": 3, "total_up": True}
+
+
+def test_retire_purges_intent_map_and_reroutes(fleet_pair):
+    """Retiring a replica drops the intent-map entries that point at it;
+    repeats of its prefix route to a live replica with the same answer."""
+    def script(side):
+        g = side.config(max_new_tokens=6, do_sample=False)
+        fleet = _elastic_fleet(side, n=2)
+        prompt = ByteChatMLTokenizer().encode("the quick brown fox jumps over the lazy dog")
+        first = fleet.submit(prompt, g, timeout=240)
+        _settled(fleet)
+        fleet.submit(prompt, g, timeout=240)
+        home = fleet.recent_placements()[-1][0]
+        homed = home in dict(fleet.replica_items()) and home in set(fleet._prefix_home.values())
+        fleet.retire_replica(rid=home, timeout_s=60.0)
+        purged = home not in set(fleet._prefix_home.values())
+        _settled(fleet)
+        again = fleet.submit(prompt, g, timeout=240) == first
+        survivor = fleet.recent_placements()[-1][0]
+        out = (homed, purged, again, survivor != home and survivor in dict(fleet.replica_items()))
+        _close_fleet(fleet)
+        return out
+
+    assert _fleet_both(fleet_pair, script) == (True, True, True, True)
+
+
+def test_fleet_capacity_report_end_to_end(fleet_pair):
+    def script(side):
+        g = side.config(max_new_tokens=6, do_sample=False)
+        fleet = _elastic_fleet(side, n=2, slo_sample_interval_s=0.01)
+        for p in _fleet_prompts():
+            fleet.submit(p, g, timeout=240)
+        rep = fleet.capacity_report(min_replicas=1, max_replicas=4)
+        scaler = side.cap.Autoscaler(fleet, mode="dry-run", max_replicas=4, cooldown_s=0.0)
+        scaler.tick(time.monotonic())
+        out = (rep["replicas"], rep["capacity"]["replicas_measured"] >= 1,
+               rep["capacity"]["per_replica_tokens_per_s"] > 0.0,
+               1 <= rep["recommended_replicas"] <= 4, rep["bounds"], len(fleet.replicas))
+        _close_fleet(fleet)
+        return out
+
+    assert _fleet_both(fleet_pair, script) == (
+        2, True, True, True, {"min_replicas": 1, "max_replicas": 4}, 2)

@@ -74,9 +74,11 @@ def test_guard_tells_the_port_from_the_jax_package():
 @pytest.mark.parametrize("module", ["infer.errors", "infer.golden", "eval_golden",
                                     "infer.engine", "infer.server", "observe.slo",
                                     "observe.capacity", "observe.flops", "observe.profiler",
-                                    "observe.tracing"])
+                                    "observe.tracing", "infer.routing", "infer.fleet",
+                                    "infer.paged"])
 def test_the_overload_and_golden_modules_are_covered(module):
     """The import check reaches the modules of the golden eval, of overload
-    control and of serving observability, not only the top-level ones."""
+    control, of serving observability and of the fleet and its host KV
+    tier, not only the top-level ones."""
     assert f"{PORT}.{module}" in _port_modules()
     assert ROOT / PORT / (module.replace(".", "/") + ".py") in _sources()

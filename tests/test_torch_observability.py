@@ -437,3 +437,95 @@ def test_observability_flags_reach_serve_with_the_jax_defaults_and_values(tmp_pa
     assert [{n: kw[n] for n in names} for kw in got] == [{n: kw[n] for n in names} for kw in want]
     assert got[0]["trace_log"] is None and got[0]["slo_sample_interval_s"] == 1.0
     assert got[1]["slo_inter_token_p99_s"] == 0.01 and got[1]["profile_dir"] == "prof"
+
+
+# -------------------------------------------------------------- fleet schema
+#
+# ``tests/test_metrics_schema.py``'s fleet cases: the router's counter lists,
+# the fleet snapshot's keys and the exposition's per-replica labels, held to
+# the JAX fleet's on two paged replicas each.
+
+
+def _fleets(pair):
+    from llm_fine_tune_distributed_tpu.infer.fleet import EngineFleet as JaxFleet
+    from llm_fine_tune_distributed_tpu_torch.infer.fleet import EngineFleet
+
+    jgen, gen = pair
+    return (EngineFleet([_port_engine(gen, "paged"), _port_engine(gen, "paged")]),
+            JaxFleet([_jax_engine(jgen, "paged"), _jax_engine(jgen, "paged")]))
+
+
+def test_fleet_counter_lists_agree():
+    from llm_fine_tune_distributed_tpu.infer.fleet import EngineFleet as JaxFleet
+    from llm_fine_tune_distributed_tpu.observe.metrics import FLEET_COUNTERS as JAX_COUNTERS
+    from llm_fine_tune_distributed_tpu_torch.infer.fleet import EngineFleet
+    from llm_fine_tune_distributed_tpu_torch.observe.metrics import FLEET_COUNTERS
+
+    assert set(FLEET_COUNTERS) == set(EngineFleet.ROUTER_COUNTERS)
+    assert tuple(FLEET_COUNTERS) == tuple(JAX_COUNTERS) == tuple(JaxFleet.ROUTER_COUNTERS)
+
+
+def test_fleet_stats_snapshot_key_schema(pair):
+    """The fleet snapshot has the JAX fleet's keys but ``compile``, each
+    ``per_replica`` entry is the replica's own snapshot plus its label, and
+    the histograms are the engine's."""
+    fleet, jfleet = _fleets(pair)
+    try:
+        snap = fleet.stats_snapshot()
+        single = set(fleet.replicas[0].stats_snapshot())
+    finally:
+        fleet.close()
+    jsnap = jfleet.stats_snapshot()
+    assert set(snap) == set(jsnap) - {"compile"}
+    assert set(snap["per_replica"]) == set(jsnap["per_replica"]) == {"0", "1"}
+    for label, rsnap in snap["per_replica"].items():
+        assert set(rsnap) == single | {"replica"} and rsnap["replica"] == int(label)
+        assert set(rsnap) == set(jsnap["per_replica"][label]) - {"compile"} | {"prefix_hits"}
+    assert set(snap["histograms"]) == set(jsnap["histograms"])
+    assert snap["role"] == jsnap["role"] == "mixed" and snap["per_tenant"] == {}
+
+
+def _fleet_exposition(fleet, expo, **kw):
+    fleet.replicas[0].stats.incr("tokens_served", 3)
+    fleet.replicas[1].stats.incr("tokens_served", 4)
+    fleet.replicas[0].stats.observe("ttft_s", 0.12)
+    snap = {"engine": "paged", **fleet.stats_snapshot()}
+    per = snap.pop("per_replica")  # as the server's handler does
+    series = [(label, per[label], fleet.replicas[int(label)].stats.hist)
+              for label in sorted(per, key=int)]
+    memory = {"cuda:0": {"bytes_in_use": 1, "peak_bytes_in_use": 2, "bytes_limit": 3}}
+    return expo(snap, fleet.merged_histograms(), memory=memory, replicas=series, **kw)
+
+
+def test_fleet_metrics_exposition_replica_labels(pair):
+    """Fleet /metrics: one TYPE line per metric, the aggregate sample, then
+    the metric with replica="i" per replica (counters, gauges, histogram
+    buckets), and a replica_info line each; the TYPE lines are the JAX
+    fleet's but its tenant histograms (adapters are not ported)."""
+    import re
+
+    from llm_fine_tune_distributed_tpu.observe.metrics import (
+        prometheus_exposition as jax_exposition,
+    )
+    from llm_fine_tune_distributed_tpu_torch.observe.metrics import prometheus_exposition
+
+    fleet, jfleet = _fleets(pair)
+    try:
+        text = _fleet_exposition(fleet, prometheus_exposition)
+    finally:
+        fleet.close()
+    jtext = _fleet_exposition(jfleet, jax_exposition,
+                              tenant_histograms=jfleet.merged_tenant_histograms())
+    typed = lambda t: {(m.group(1), m.group(2))  # noqa: E731
+                       for m in re.finditer(r"^# TYPE (\S+) (\S+)$", t, re.M)}
+    tenant_hists = {(n, k) for n, k in typed(jtext) if n.startswith("serving_tenant_")
+                    and k == "histogram"}
+    assert tenant_hists and typed(text) == typed(jtext) - tenant_hists
+    for line in ("serving_tokens_served_total 7", 'serving_tokens_served_total{replica="0"} 3',
+                 'serving_tokens_served_total{replica="1"} 4', 'serving_slots{replica="0"} 4',
+                 'serving_ttft_seconds_count{replica="1"} 0', "serving_ttft_seconds_count 1"):
+        assert line in text and line in jtext, line
+    assert re.search(r'serving_ttft_seconds_bucket\{replica="0",le="0\.2048"\} 1', text)
+    assert 'serving_replica_info{replica="0",circuit_state="closed"' in text
+    names = re.findall(r"^# TYPE (\S+) ", text, re.M)
+    assert len(names) == len(set(names))

@@ -721,6 +721,125 @@ def test_stage1_stops_drafting_and_stage2_caps_best_effort(pair):
     assert capped == full[:5] and len(full) == 12
 
 
+# ------------------------------------------------------------- fleet surface
+#
+# ``tests/test_overload.py``'s fleet cases: the router's stage-3 filter, the
+# fleet-wide best_effort shed and the failover budget a client deadline
+# caps, each run on both packages' classes with the same scripted replicas.
+
+
+def _fleet_sides():
+    from llm_fine_tune_distributed_tpu.infer import errors as jax_errors
+    from llm_fine_tune_distributed_tpu.infer import fleet as jax_fleet
+    from llm_fine_tune_distributed_tpu.infer import routing as jax_routing
+    from llm_fine_tune_distributed_tpu.infer.sampling import GenerationConfig as JaxConfig
+    from llm_fine_tune_distributed_tpu.observe.metrics import ServingStats as JaxStats
+    from llm_fine_tune_distributed_tpu_torch.infer import errors as port_errors
+    from llm_fine_tune_distributed_tpu_torch.infer import fleet as port_fleet
+    from llm_fine_tune_distributed_tpu_torch.infer import routing as port_routing
+    from llm_fine_tune_distributed_tpu_torch.observe.metrics import ServingStats
+
+    return {"jax": dict(fleet=jax_fleet, routing=jax_routing, errors=jax_errors, stats=JaxStats,
+                        config=JaxConfig),
+            "port": dict(fleet=port_fleet, routing=port_routing, errors=port_errors,
+                         stats=ServingStats, config=GenerationConfig)}
+
+
+def test_router_filters_stage3_for_best_effort_only():
+    out = {}
+    for name, side in _fleet_sides().items():
+        View, choose = side["routing"].ReplicaView, side["routing"].choose_replica
+        views = [View(index=0, brownout_stage=3), View(index=1, brownout_stage=3)]
+        rec = [choose("least-loaded", views, best_effort=True) is None,
+               choose("least-loaded", views, best_effort=False) is not None]
+        views[1].brownout_stage = 2
+        placed = choose("least-loaded", views, best_effort=True)
+        rec.append(placed.index if placed is not None else None)
+        out[name] = rec
+    assert out["port"] == out["jax"] == [True, True, 1]
+
+
+class _FleetFake:
+    """The surface a fleet reads, with a settable brownout stage and the
+    keyword arguments of the last submit."""
+
+    block_len = 0
+
+    def __init__(self, stats_cls, index, stage=0, drain_s=3.0):
+        self.index = index
+        self.slot_count = 2
+        self.healthy = True
+        self.draining = False
+        self.recovering = False
+        self.queue_depth = 0
+        self.live_slots = 0
+        self.brownout_stage = stage
+        self.drain_s = drain_s
+        self.circuit_state = "closed"
+        self.stats = stats_cls(slots=2)
+        self.seen_kwargs = None
+
+    def predicted_drain_s(self):
+        return self.drain_s
+
+    def prefix_match_len(self, keys):
+        return 0
+
+    def stats_snapshot(self):
+        return self.stats.snapshot()
+
+    def submit_full(self, prompt_ids, gen, seed=0, timeout=None, **kwargs):
+        self.seen_kwargs = dict(kwargs, timeout=timeout)
+
+        class _R:
+            result = list(prompt_ids) + [self.index]
+
+        return _R()
+
+
+def _fleet_brownout_script(side):
+    g = side["config"](max_new_tokens=4, do_sample=False)
+    a = _FleetFake(side["stats"], 0, stage=3, drain_s=7.0)
+    b = _FleetFake(side["stats"], 1, stage=3, drain_s=2.0)
+    fleet = side["fleet"].EngineFleet([a, b], routing="round-robin")
+    try:
+        fleet.submit([1, 2], g, priority="best_effort", timeout=5)
+        shed = None
+    except side["errors"].BrownoutShedError as e:
+        shed = (e.tier, e.retry_after_s)
+    out = [shed, a.seen_kwargs is None and b.seen_kwargs is None,
+           fleet.stats_snapshot()["requests_shed_fleet_brownout"],
+           fleet.submit([1, 2], g, priority="interactive", timeout=5) in ([1, 2, 0], [1, 2, 1])]
+    b.brownout_stage = 2  # one replica below stage 3 serves best_effort again
+    out.append(fleet.submit([1, 2], g, priority="best_effort", timeout=5))
+    return out
+
+
+def test_fleet_sheds_best_effort_fleet_wide_when_all_browned_out():
+    """Every healthy replica at stage 3: best_effort gets one fleet-wide
+    tier-labelled 429 quoting the soonest drain, without a dispatch; other
+    tiers still place."""
+    out = {name: _fleet_brownout_script(side) for name, side in _fleet_sides().items()}
+    assert out["port"] == out["jax"] == [("best_effort", 2.0), True, 1, True, [1, 2, 1]]
+
+
+def test_fleet_deadline_caps_failover_budget():
+    """``deadline_s`` bounds the whole fleet attempt: the replica gets a
+    timeout of the deadline plus the fixed grace, and the rest of the
+    deadline."""
+    out = {}
+    for name, side in _fleet_sides().items():
+        rep = _FleetFake(side["stats"], 0)
+        fleet = side["fleet"].EngineFleet([rep], routing="round-robin")
+        fleet.submit([7], side["config"](max_new_tokens=4, do_sample=False), priority="batch",
+                     deadline_s=5.0, timeout=600.0)
+        grace = side["fleet"].DEADLINE_TIMEOUT_GRACE_S
+        out[name] = (rep.seen_kwargs["priority"], grace,
+                     5.0 < rep.seen_kwargs["timeout"] <= 5.0 + grace,
+                     0 < rep.seen_kwargs["deadline_s"] <= 5.0)
+    assert out["port"] == out["jax"] == ("batch", 1.0, True, True)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -183,6 +183,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         paged_decode_attention(q, k, v, ks, vs, tables, lengths=lengths)
 
 
+def test_launch_count_is_exact_under_threads():
+    """The replicas of a fleet launch the kernel from one worker thread
+    each: the count loses no increment when more threads than cores (at
+    least 8) add at once under a 1 us switch interval (a bare ``+= 1`` on
+    the attribute is a read-modify-write that can)."""
+    import os
+    import sys
+    import threading
+
+    n = max(8, (os.cpu_count() or 1) + 1)
+    start = fa.paged_decode_attention.launches
+    go = threading.Barrier(n)
+
+    def count():
+        go.wait()
+        for _ in range(5000):
+            fa._count_launch()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    threads = [threading.Thread(target=count) for _ in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert fa.paged_decode_attention.launches - start == n * 5000
+    finally:
+        sys.setswitchinterval(interval)
+        fa.paged_decode_attention.launches = start
+
+
+def test_ticket_table_is_built_once_under_threads():
+    """Eight workers asking for one (device, stream)'s tickets at once get
+    one table between them."""
+    import threading
+
+    key_stream = 0x5EED  # a stream handle no launch uses
+    go = threading.Barrier(8)
+    got = []
+
+    def ask():
+        go.wait()
+        got.append(fa._tickets(torch.device("cpu"), key_stream, 64))
+
+    threads = [threading.Thread(target=ask) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    try:
+        assert not any(t.is_alive() for t in threads)
+        assert len({id(t) for t in got}) == 1 and not got[0].any()
+    finally:
+        fa._TICKETS.pop((None, key_stream), None)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
