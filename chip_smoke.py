@@ -163,7 +163,7 @@ and stops with a non-zero exit at the first failure:
    into the tier and the re-ask restores them (>= 5 hits, 1280 tokens
    reused, the same tokens), its TTFT beside the same re-ask with the tier
    cleared; (c) a fleet of two replicas over the one generator and one tier:
-   a 128-token stream migrated (``migrate_slot``) after its second token
+   a 32-token stream migrated (``migrate_slot``) after its second token
    finishes on the sibling, held to its solo run by phase 15's margin rule
    plus twice the int8 pool's logit error, completed on exactly one
    replica, launches 36 x the decode steps of both; (f) on that fleet, a
@@ -177,6 +177,36 @@ and stops with a non-zero exit at the first failure:
    but ``compile``, ``/metrics`` a replica sample of every counter, and
    ``POST /v1/fleet/scale`` 3 -> 2 gives ``memory_allocated`` back within
    1 MiB, then -> 1 under a live stream, which completes.
+22. (right after phase 21, on phase 4's generator) multi-tenant LoRA
+   serving: three PEFT adapters (r 16, alpha 8, the seven projections, B
+   non-zero, from ``torch.Generator`` seeds) written by the port's
+   ``save_lora_adapter``; (c) a registry of 3 slots: ``memory_allocated``
+   growth within 1% of the pools' bytes, each adapter's hot-load wall
+   time (the third evicting an idle one) and a rebuild's; each tenant held
+   to its adapter folded into the weights exactly (f32) at the first two
+   steps: the pooled view within phase 13's f32 rule in f32 and within
+   twice the merged bf16 model's own error in bf16, the engine's own path
+   (``paged_prefill_final``, then one ``paged_step`` with both tenants'
+   rows, over the int8 pool) within that plus the int8 floor, its first
+   token too, and the same path on the other tenant's slot (its logits and
+   its first token), a pooled delta
+   1.5x too large and the base model all outside those bounds; (a) on a
+   paged int8 server at phase 4's geometry with ``--adapter-dir`` and
+   ``--max-adapters 3``, t1, t2, a base request and a sampled neighbour
+   stepped into one decode batch (decode held at a gate): each tenant's
+   first token within its bound of the exact merge's top logit, and its
+   tokens held to its ``merge_lora`` solo run and the base request's to its
+   solo run by phase 15's margin rule plus the int8 and bf16 floors; (b)
+   paged decode launches == 36 x decode steps; (d) phase 6's
+   decode step at 4 live rows, base-only and with the rows on t1/t2,
+   profiled; (e) over HTTP with ``--adapter-capacity 1``: an unknown
+   adapter 404 with the known list, a third tenant 429 ``adapter_pool_full``
+   and a tenant over its quota 429 ``tenant_quota``; (f) a decode failure
+   mid-request: 503, the pools rebuilt bit for bit, t1's first token on
+   both generations within its bound of the exact merge's top logit and its
+   tokens held to its solo run; (g) on (f)'s server, t1's blocks of
+   phase 4's shared system prompt cached: t2 and a base request reuse none
+   of them, t1 reuses its own (one hit).
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -203,6 +233,10 @@ paged decode kernel, loads phase 4's weights, serves phase 4 (the record
 21b, 21d and 21e compare with), makes phase 15's solo runs of its 4
 questions, and runs 21a-21f; its last line is a JSON summary, not the
 contract line.
+
+``python3 chip_smoke.py --adapters-only`` runs phase 22 alone: it builds the
+paged decode kernel, loads phase 4's weights, makes phase 15's solo runs of
+its 4 questions and runs 22a-22g; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --capture-check N [PUSH]`` runs phase 20e's
 profile capture N times on one phase-20 server and prints, per capture,
@@ -1369,17 +1403,21 @@ def _device_events(prof):
     return out
 
 
-def paged_slots(generator, prompts, steps):
+def paged_slots(generator, prompts, steps, view=None, adapter_idx=None):
     """A fresh int8 pool of the main path's geometry with the prompts
     prefilled into slots 0..n-1 (greedy), blocks for ``steps`` + 2 more
     positions each: (pool, state, live, tables at the nb bucket, nb, each
-    slot's tokens so far)."""
+    slot's tokens so far). ``view`` (an adapter registry's pooled
+    parameters) and ``adapter_idx`` (a pool slot per prompt) put each
+    prompt on its adapter."""
     from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 
     L = KV_BLOCK_LEN
     table_blocks = -(-(KV_BUF_LEN + PROMPT_BUCKET) // L)
     num_blocks = 1 + (SLOTS + 1) * table_blocks
     pool, state = generator.init_paged_state(SLOTS, num_blocks, L, kv_quant="int8")
+    if view is not None:
+        state["params"] = view
     table = np.zeros((SLOTS, table_blocks), np.int32)
     greedy = GenerationConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False)
     nxt = 1
@@ -1394,7 +1432,8 @@ def paged_slots(generator, prompts, steps):
         seen = np.zeros((1, generator.config.vocab_size), bool)
         seen[0, p] = True
         first = generator.paged_prefill_final(pool, state, table[slot: slot + 1], padded, 0,
-                                              len(p), seen, slot, greedy, 0)
+                                              len(p), seen, slot, greedy, 0,
+                                              *([adapter_idx[slot]] if adapter_idx else []))
         ctx.append(list(p) + [first])
     live = np.arange(SLOTS) < len(prompts)
     in_use = max(-(-(len(p) + steps + 2) // L) for p in prompts)
@@ -2911,7 +2950,7 @@ def observability_phase(server_mod, fa, generator, peaks):
 # ---------------------------------------------------------------------------
 
 FLEET_TIER_MB = 1024  # the shared host tier of 21b-21f (113 SmolLM3-3B int8 blocks)
-FLEET_STREAM_TOKENS = 128  # 21c's migrated stream
+FLEET_STREAM_TOKENS = 32  # 21c's migrated stream
 SIBLING_TOKENS = 64  # 21f's live sibling, 21e's stream under the scale-down
 TIER_REPS = 5  # 21a's timed round trips
 # the JAX fleet snapshot's keys beyond an engine's (tests/test_metrics_schema.py)
@@ -3120,7 +3159,7 @@ def fleet_tier_restore(tf, engine_mod, paged_mod, generator, served, solo, floor
 
 def fleet_migration(tf, gen_mod, engine_mod, paged_mod, fleet_mod, fa, generator, floor):
     """21c: a fleet of two paged int8 replicas over the one generator and
-    one tier, ``migrate_on_retire``. A 128-token greedy stream, and
+    one tier, ``migrate_on_retire``. A 32-token greedy stream, and
     ``migrate_slot`` of its replica after its second token: the same
     iterator finishes on the sibling, which restores the spilled blocks.
     Tokens held to the solo run by the margin rule (plus the int8 floor),
@@ -3468,6 +3507,540 @@ def fleet_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, served, solo
     gc_cuda()
     out["seconds"] = time.monotonic() - t0
     phase(21, f"phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: multi-tenant LoRA serving
+# ---------------------------------------------------------------------------
+
+# the reference's adapter recipe: r 16, alpha 8 on the seven projections
+ADAPTER_RANK, ADAPTER_ALPHA = 16, 8.0
+ADAPTER_B_STD = 0.05  # B non-zero (a fresh LoRA has B = 0: no delta at all)
+ADAPTER_SEEDS = {"t1": 1001, "t2": 1002, "t3": 1003}
+MAX_ADAPTERS = 3  # slot 0 and two tenants: a third tenant's load evicts an idle one
+ADAPTER_PROFILE_STEPS = 2
+ADAPTER_FAULT_SCALE = 1.5  # 22a's planted fault: the pooled delta this many times too large
+ADAPTER_RESTART_TOKENS = 16  # 22f's requests: three of them, one across the restart
+# the caching allocator's rounding of the 756 pool tensors (and the unsplit
+# rest of a segment it hands out whole), as a share of the pools' bytes
+ADAPTER_MEMORY_SLACK = 0.01
+
+
+def make_adapters(lora_mod, generator, root):
+    """Three PEFT adapters for phase 4's model (``ADAPTER_SEEDS``, a
+    ``torch.Generator`` each): A uniform in +-sqrt(3 / in), B normal at
+    ``ADAPTER_B_STD``, on every target kernel, written by the port's
+    ``save_lora_adapter``. Returns the file size of one."""
+    for name, seed in ADAPTER_SEEDS.items():
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        leaves = {}
+        for pname, kernel in generator.params.items():
+            module, _, leaf = pname.rpartition(".")
+            if leaf != "kernel" or module.rpartition(".")[2] not in lora_mod.LORA_TARGET_MODULES:
+                continue
+            d_in, d_out = kernel.shape
+            bound = (3.0 / d_in) ** 0.5
+            leaves[module + ".lora_a"] = (torch.rand(d_in, ADAPTER_RANK, generator=g) * 2 - 1) * bound
+            leaves[module + ".lora_b"] = torch.randn(ADAPTER_RANK, d_out, generator=g) * ADAPTER_B_STD
+            leaves[module + ".lora_scale"] = torch.tensor(ADAPTER_ALPHA / ADAPTER_RANK)
+        lora_mod.save_lora_adapter(leaves, f"{root}/{name}", lora_mod.LoraConfig(
+            lora_rank=ADAPTER_RANK, lora_alpha=ADAPTER_ALPHA))
+    return _file_bytes(f"{root}/t1/adapter_model.safetensors")
+
+
+def _file_bytes(path):
+    import os
+
+    return os.path.getsize(path)
+
+
+def _pool_tensors(reg):
+    return [t for name, t in reg.params.items() if name.endswith("_pool")]
+
+
+def adapter_pools_and_loads(adapters_mod, generator, root):
+    """22c: a registry of ``MAX_ADAPTERS`` slots over phase 4's weights:
+    ``memory_allocated`` growth against the pools' bytes (within 1%), then
+    the hot-load of each adapter (wall, synchronized: the file read, the
+    validation, the padding and the 756 slot writes), the third evicting the
+    least recently used idle one, and a rebuild of the two residents (the
+    writes alone). Returns the record and the registry, t1 and t2 pinned
+    (22a and 22d read their pools)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reg = adapters_mod.AdapterRegistry(generator.params, root, max_adapters=MAX_ADAPTERS)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    pool_bytes = reg.pool_bytes()
+    check(pool_bytes <= grown <= pool_bytes * (1 + ADAPTER_MEMORY_SLACK),
+          f"22c: memory_allocated grew {grown} B for {pool_bytes} B of pools")
+    slot_bytes = sum(t[0].nbytes for t in _pool_tensors(reg) if t.dim() == 3)
+    loads = {}
+    for name in ("t1", "t2", "t3"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        reg.acquire(name)
+        torch.cuda.synchronize()
+        loads[name] = (time.monotonic() - t0) * 1e3
+        reg.release(name)
+    check(sorted(reg.resident()) == ["t2", "t3"] and not reg.is_resident("t1"),
+          f"22c: resident {reg.resident()} after loading t3 into a pool of two tenants")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reg.rebuild()
+    torch.cuda.synchronize()
+    rebuild_ms = (time.monotonic() - t0) * 1e3
+    for name in ("t1", "t2"):  # pinned for 22a and 22d: t1 evicts t3
+        reg.acquire(name)
+    rec = {"pool_bytes": pool_bytes, "memory_allocated_growth": grown, "slot_bytes": slot_bytes,
+           "load_ms": loads, "rebuild_ms_two_adapters": rebuild_ms,
+           "adapter_file_bytes": _file_bytes(f"{root}/t1/adapter_model.safetensors")}
+    phase(22, f"22c registry of {MAX_ADAPTERS} slots: memory_allocated +{grown} B for "
+              f"{pool_bytes} B of f32 pools ({slot_bytes} B per slot); hot-load of one "
+              f"{rec['adapter_file_bytes'] / 1e6:.1f} MB adapter {loads['t1']:.1f} ms (t2 "
+              f"{loads['t2']:.1f}, t3 evicting t1 {loads['t3']:.1f}); a rebuild of the two "
+              f"residents' slots {rebuild_ms:.1f} ms")
+    return rec, reg
+
+
+def exact_merged(lora_mod, generator, path):
+    """The adapter at ``path`` folded into phase 4's weights exactly: each
+    target kernel ``W + scale * A @ B`` in f32 on the card (the other
+    leaves shared), the reference that phase 22 holds every adapted path
+    to."""
+    adapted = lora_mod.load_lora_adapter(generator.params, path)
+    exact = dict(generator.params)
+    for name, a in adapted.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "lora_a":
+            delta = (a.float() @ adapted[module + ".lora_b"].float()) * adapted[module + ".lora_scale"]
+            exact[module + ".kernel"] = generator.params[module + ".kernel"].float() + delta
+    return adapted, exact
+
+
+def _last_logits(tf, generator, params, ids, n, dtype, **kw):
+    """Logits [n, vocab] (f32) of the last ``n`` positions of one dense
+    no-cache forward over ``ids`` [1, s]."""
+    with torch.no_grad():
+        hidden, _ = tf.forward(params, ids, generator.config, compute_dtype=dtype,
+                               output_hidden=True, **kw)
+        return tf.unembed(params, hidden[0, -n:], generator.config, compute_dtype=dtype).float()
+
+
+class _RecordingUnembed:
+    """The logits that the Generator's own ``unembed`` returns, in call
+    order, while the block runs (the prefill and decode steps return only
+    tokens)."""
+
+    def __init__(self, gen_mod):
+        self._mod, self._plain, self.logits = gen_mod, gen_mod.unembed, []
+
+    def __enter__(self):
+        def record(*a, **kw):
+            out = self._plain(*a, **kw)
+            self.logits.append(out.float().clone())
+            return out
+
+        self._mod.unembed = record
+        return self.logits
+
+    def __exit__(self, *exc):
+        self._mod.unembed = self._plain
+
+
+def tenant_engine_path(gen_mod, generator, reg, prompts, slots):
+    """The engine's own path for one row per prompt: ``paged_prefill_final``
+    of each prompt through a fresh int8 pool on its adapter slot (the
+    pooled view in the slot state), then one ``paged_step`` with all rows in
+    the batch, each on its own slot (the pooled delta beside the paged
+    decode kernel). Returns, per row, (its context: the prompt and the
+    first token, its step-0 logits, its step-1 logits)."""
+    with _RecordingUnembed(gen_mod) as seen:
+        pool, state, live, tables, _, ctx = paged_slots(generator, prompts, 1, view=reg.params,
+                                                        adapter_idx=slots)
+        generator.paged_step(pool, state, live, tables)
+    check(len(seen) == len(prompts) + 1, f"22a: {len(seen)} unembed calls on the engine path")
+    del pool, state
+    return [(ctx[i], seen[i][0], seen[-1][i]) for i in range(len(prompts))]
+
+
+def _first_token_gap(truth0, prompt, token):
+    """How far below the top the penalized exact logit of ``token`` is at
+    the first step (the repetition penalty over the prompt, as greedy
+    decoding applies it)."""
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import (
+        GenerationConfig,
+        apply_repetition_penalty,
+    )
+
+    seen = torch.zeros(1, truth0.shape[-1], dtype=torch.bool, device=truth0.device)
+    seen[0, list(prompt)] = True
+    pen = apply_repetition_penalty(truth0[None], seen,
+                                   GenerationConfig(max_new_tokens=1).repetition_penalty)[0]
+    return (pen.max() - pen[token]).item()
+
+
+def check_first_token(refs, name, prompt, token, label):
+    """A served tenant's first token: its exact merged logit within the
+    tenant's bound of the top one."""
+    ref = refs[name]
+    gap = _first_token_gap(ref["truth0"], prompt, token)
+    check(gap <= ref["floor"], f"{label}: first token {token} is {gap:.3e} below the exact "
+                               f"merged model's top logit, bound {ref['floor']:.3e}")
+    return gap
+
+
+def tenant_refs(tf, gen_mod, lora_mod, generator, reg, root, prompts, floor_i8):
+    """Each tenant held to its adapter folded into the weights exactly (f32,
+    ``exact_merged``), at the prompt's last position and at the next step.
+    The bf16 bound is the merged bf16 model's own error against that
+    reference, twice (``rounding``), beside the int8 pool's floor; nothing
+    of the pooled path sets it. In f32 the pooled view equals the exact
+    merge within phase 13's f32 rule; in bf16 within ``rounding``. The
+    engine's own path (``tenant_engine_path``: the prefill and one decode
+    step of both tenants' rows in one batch, over the int8 pool) is within
+    ``rounding`` + the int8 floor at both steps, its first token too; the
+    same path with the slots swapped (its logits and its first token), the
+    pooled delta ``ADAPTER_FAULT_SCALE`` times too large, and the base model
+    are all outside their bound. Each
+    tenant's merged bf16 solo run (phase 15's solo loop) is what 22a holds
+    its served tokens to, with ``floor`` = the int8 floor + ``rounding``."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    names = list(prompts)
+    slots = [reg.slot_of(n) for n in names]
+    engine = tenant_engine_path(gen_mod, generator, reg, [prompts[n] for n in names], slots)
+    swapped = tenant_engine_path(gen_mod, generator, reg, [prompts[n] for n in names], slots[::-1])
+    fault = {k: (v * ADAPTER_FAULT_SCALE if k.endswith("lora_scale_pool") else v)
+             for k, v in reg.params.items()}
+    refs = {}
+    config, dtype = generator.config, generator.compute_dtype
+    for i, name in enumerate(names):
+        prompt = prompts[name]
+        adapted, exact = exact_merged(lora_mod, generator, f"{root}/{name}")
+        merged = gen_mod.Generator(lora_mod.merge_lora(adapted), config, generator.tokenizer,
+                                   compute_dtype=dtype, device=DEVICE)
+        del adapted
+        ctx, step0, step1 = engine[i]
+        ids = torch.tensor([ctx], device=DEVICE)  # the prompt and the engine's first token
+        idx = torch.tensor([slots[i]], device=DEVICE)
+        truth = _last_logits(tf, generator, exact, ids, 2, torch.float32)
+        del exact
+        gc_cuda()
+        got = {
+            "pooled_f32": _last_logits(tf, generator, reg.params, ids, 2, torch.float32,
+                                       adapter_idx=idx),
+            "merged": _last_logits(tf, generator, merged.params, ids, 2, dtype),
+            "pooled": _last_logits(tf, generator, reg.params, ids, 2, dtype, adapter_idx=idx),
+            "fault": _last_logits(tf, generator, fault, ids, 2, dtype, adapter_idx=idx),
+            "base": _last_logits(tf, generator, generator.params, ids, 2, dtype),
+            "engine": torch.stack([step0, step1]),
+            # step 0 only: its step 1 fed the swapped run's own first token
+            "swapped": swapped[i][1][None],
+        }
+        err = {k: (v - truth[: len(v)]).abs().max().item() for k, v in got.items()}
+        rounding = 2 * err["merged"]
+        floor = floor_i8 + rounding
+        f32_bound = 2 * LOGIT_REL_TOL * truth.abs().max().item()
+        check(err["pooled_f32"] <= f32_bound,
+              f"22a {name}: f32 pooled view {err['pooled_f32']:.3e} off the exact merge, "
+              f"bound {f32_bound:.3e}")
+        check(err["pooled"] <= rounding,
+              f"22a {name}: bf16 pooled view {err['pooled']:.3e} off the exact merge, bound "
+              f"{rounding:.3e} (twice the merged bf16 model's own)")
+        check(err["engine"] <= floor,
+              f"22a {name}: the engine path's logits {err['engine']:.3e} off the exact merge, "
+              f"bound {floor:.3e}")
+        for key, what, bound in (("fault", f"a pooled delta {ADAPTER_FAULT_SCALE}x too large",
+                                  rounding),
+                                 ("swapped", "the engine path on the other tenant's slot", floor),
+                                 ("base", "the base model", floor)):
+            check(err[key] > bound, f"22a {name}: {what} is only {err[key]:.3e} off the exact "
+                                    f"merge, within the bound {bound:.3e} that must refuse it")
+        first_gap = _first_token_gap(truth[0], prompt, ctx[-1])
+        check(first_gap <= floor, f"22a {name}: the engine path's first token is {first_gap:.3e} "
+                                  f"below the exact top logit, bound {floor:.3e}")
+        swapped_gap = _first_token_gap(truth[0], prompt, swapped[i][0][-1])
+        check(swapped_gap > floor, f"22a {name}: on the other tenant's slot the engine path's "
+                                   f"first token is only {swapped_gap:.3e} below the exact top "
+                                   f"logit, within the bound {floor:.3e} that must refuse it")
+        solo = solo_decode(tf, gen_mod, merged, prompt, MAX_NEW_TOKENS)
+        refs[name] = {"generator": merged, "solo": solo, "floor": floor, "truth0": truth[0],
+                      "rounding": rounding, "max_abs_err": err, "f32_bound": f32_bound,
+                      "engine_first_token_gap": first_gap,
+                      "swapped_first_token_gap": swapped_gap}
+        phase(22, f"22a {name}: max|dlogits| against the exact merge (f32), first two steps: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                  + f"; bounds f32 {f32_bound:.3e}, bf16 {rounding:.3e}, with the int8 floor "
+                    f"{floor:.3e}; first token {first_gap:.3e} below the top (swapped slot "
+                    f"{swapped_gap:.3e})")
+    del fault
+    return refs
+
+
+def _hold_tenant(tf, refs, name, prompt, tokens, label, n=MAX_NEW_TOKENS):
+    """A tenant's tokens against the first ``n`` steps of its merged-solo
+    run, by the margin rule with the tenant's floor."""
+    ref = refs[name]
+    solo = tuple(part[:n] for part in ref["solo"])
+    return margin_agreement(tf, ref["generator"], label, prompt, tokens, solo,
+                            floor=ref["floor"])
+
+
+def adapter_cobatch(tf, server_mod, fa, generator, root, refs, solo, floor_i8):
+    """22a/22b: a paged int8 server at phase 4's geometry with
+    ``--adapter-dir`` and ``--max-adapters 3``: t1 decodes (its steps held at
+    a gate), then t2, a base request and a sampled neighbour arrive and are
+    stepped in until all four rows decode in one tick. Each tenant's tokens
+    held to its merged-solo run and the base request's to its solo run by
+    the margin rule; paged decode launches == 36 x decode steps."""
+    bodies = [
+        {"question": QUESTIONS[0], "greedy": True, "max_new_tokens": MAX_NEW_TOKENS,
+         "adapter": "t1"},
+        {"question": QUESTIONS[1], "greedy": True, "max_new_tokens": MAX_NEW_TOKENS,
+         "adapter": "t2"},
+        {"question": QUESTIONS[2], "greedy": True, "max_new_tokens": MAX_NEW_TOKENS},
+        {"question": QUESTIONS[3], "greedy": False, "temperature": 1.0, "seed": 11,
+         "max_new_tokens": MAX_NEW_TOKENS},
+    ]
+    prompts = [_prompt_ids(generator, b) for b in bodies]
+    held = _Held(generator)
+    fa.paged_decode_attention.launches = 0  # this run's launches only
+    with _Serving(server_mod, held, **_paged_kw(slots=SLOTS, adapter_dir=root,
+                                                max_adapters=MAX_ADAPTERS)) as srv:
+        eng = srv.engine
+        joins = [_post_async(srv.base, "/v1/generate", bodies[0])]
+        held.park()  # t1 decodes; the others arrive into its batch
+        joins += [_post_async(srv.base, "/v1/generate", b) for b in bodies[1:]]
+        _wait_for(lambda: eng.queue_depth + len(eng._prefills) + eng.live_slots == len(bodies),
+                  "the other three requests' arrival")
+        for _ in range(64):  # one prefill chunk and one decode step at a time
+            if eng.live_slots == len(bodies):
+                break
+            held.step()
+        held.open()
+        responses = [join() for join in joins]
+        stats = eng.stats_snapshot()
+        launches = fa.paged_decode_attention.launches
+        live_max = max((e.get("live", 0) for e in eng.recorder.events() if e["kind"] == "tick"),
+                       default=0)
+        got = {tuple(p): ids for p, ids in srv.results}
+    _all_ok("22a", responses)
+    layers = generator.config.num_layers
+    check(launches == layers * stats["decode_steps"],
+          f"22b: {launches} paged decode launches, want {layers} x {stats['decode_steps']}")
+    check(live_max == len(bodies), f"22a: at most {live_max} rows decoded together, want 4")
+    check(stats["per_tenant"].get("t1", {}).get("requests") == 1
+          and stats["per_tenant"].get("t2", {}).get("tokens") == len(got[tuple(prompts[1])])
+          and stats["adapters_resident"] == 2 and stats["adapter_loads"] == 2,
+          f"22a: per_tenant {stats['per_tenant']}, resident {stats['adapters_resident']}, "
+          f"loads {stats['adapter_loads']}")
+    agree, first_gap = {}, {}
+    for name, prompt in (("t1", prompts[0]), ("t2", prompts[1])):
+        first_gap[name] = check_first_token(refs, name, prompt, got[tuple(prompt)][0],
+                                            f"22a {name}")
+        agree[name] = _hold_tenant(tf, refs, name, prompt, got[tuple(prompt)], f"22a {name}")
+    agree["base"] = margin_agreement(tf, generator, "22a base", prompts[2], got[tuple(prompts[2])],
+                                     solo[tuple(prompts[2])], floor=floor_i8)
+    sampled = got[tuple(prompts[3])]
+    check(1 <= len(sampled) <= MAX_NEW_TOKENS
+          and all(0 <= t < generator.config.vocab_size for t in sampled),
+          f"22a: the sampled neighbour's tokens {sampled}")
+    rec = {"launches": launches, "decode_steps": stats["decode_steps"], "live_rows_max": live_max,
+           "tokens_agreeing_with_solo": {k: v[0] for k, v in agree.items()},
+           "first_difference": {k: v[1] for k, v in agree.items()},
+           "first_token_gap": first_gap,
+           "per_tenant": stats["per_tenant"], "decode_step_ms_mean":
+           1e3 * _hist(eng, "decode_tick_s")[0] / max(1, _hist(eng, "decode_tick_s")[1])}
+    phase(22, f"22a t1, t2, a base request and a sampled neighbour co-batched ({live_max} rows in "
+              f"one tick): tokens equal to the solo runs' {rec['tokens_agreeing_with_solo']} of "
+              f"{MAX_NEW_TOKENS}; each tenant's first token below the exact merge's top logit "
+              f"by {first_gap}; mean decode tick {rec['decode_step_ms_mean']:.2f} ms")
+    phase(22, f"22b paged decode launches {launches} == {layers} x {stats['decode_steps']} decode "
+              "steps")
+    return rec
+
+
+def adapter_tick_profile(generator, reg, prompts):
+    """22d: phase 6's decode step at 4 live rows of 8, base-only, then with
+    the rows on t1, t2, t1, t2 (the registry's pooled view): wall and
+    device time, kernels per tick, busy share, top kernels."""
+    pool, state, live, tables, nb, _ = paged_slots(generator, prompts, 2 * ADAPTER_PROFILE_STEPS)
+
+    def tick():
+        generator.paged_step(pool, state, live, tables)
+
+    base = profile_ticks(tick, ADAPTER_PROFILE_STEPS)
+    state["params"] = reg.params
+    state["adapter_idx"][: len(prompts)] = [reg.slot_of(n) for n in ("t1", "t2", "t1", "t2")]
+    adapted = profile_ticks(tick, ADAPTER_PROFILE_STEPS)
+    rec = {"live_rows": len(prompts), "nb": nb, "base": base, "adapters": adapted}
+    for label, r in (("base-only", base), ("adapters live", adapted)):
+        phase(22, f"22d decode tick at {len(prompts)} live rows, nb={nb}, {label}: "
+                  f"{r['step_ms']:.2f} ms ({r['profiled_step_ms']:.2f} ms profiled), "
+                  f"{r['device_ms_per_step']:.3f} ms of device time, "
+                  f"{r['device_kernels_per_step']:.0f} kernels per tick, busy "
+                  f"{100 * (r['device_busy_share'] or 0):.1f}%")
+        for row in r["top_kernels"][:6]:
+            phase(22, f"  {row['ms_per_step']:8.3f} ms/tick  {row['calls_per_step']:6.1f} calls  "
+                      f"{row['name']}")
+    return rec
+
+
+def adapter_http_refusals(server_mod, generator, root):
+    """22e: ``--max-adapters 3 --adapter-capacity 1``, decode held at a gate
+    while t1 decodes and t2 waits (both pinned at admission): an unknown
+    adapter 404 with the known list, t3 429 ``adapter_pool_full`` and t1
+    again 429 ``tenant_quota``, each with Retry-After; then both finish."""
+    held = _Held(generator)
+    with _Serving(server_mod, held, **_paged_kw(slots=OVERLOAD_SLOTS, adapter_dir=root,
+                                                max_adapters=MAX_ADAPTERS,
+                                                adapter_capacity=1)) as srv:
+        eng, base = srv.engine, srv.base
+        occupants = [_post_async(base, "/v1/generate",
+                                 _short_body(QUESTIONS[0], 8, adapter="t1"))]
+        held.park()
+        occupants.append(_post_async(base, "/v1/generate",
+                                     _short_body(QUESTIONS[1], 8, adapter="t2")))
+        _wait_for(lambda: eng.queue_depth + eng.live_slots >= 2, "t2's admission")
+        status, headers, raw = _request(base, "/v1/generate",
+                                        _short_body(QUESTIONS[2], 8, adapter="ghost"))
+        unknown = _taxonomy("22e unknown adapter", status, headers, raw, 404, "unknown_adapter",
+                            retry=False)
+        check(unknown["known_adapters"] == sorted(ADAPTER_SEEDS), f"22e: {unknown}")
+        status, headers, raw = _request(base, "/v1/generate",
+                                        _short_body(QUESTIONS[2], 8, adapter="t3"))
+        full = _taxonomy("22e full pool", status, headers, raw, 429, "adapter_pool_full")
+        status, headers, raw = _request(base, "/v1/generate",
+                                        _short_body(QUESTIONS[3], 8, adapter="t1"))
+        quota = _taxonomy("22e tenant quota", status, headers, raw, 429, "tenant_quota")
+        held.open()
+        statuses = [join()[0] for join in occupants]
+        stats = eng.stats_snapshot()
+    check(statuses == [200, 200], f"22e: the pinned tenants answered {statuses}")
+    check(stats["requests_shed_tenant_quota"] == 1, f"22e: {stats['requests_shed_tenant_quota']}")
+    rec = {"unknown": unknown["kind"], "pool_full_retry_after_s": full["retry_after_s"],
+           "quota_retry_after_s": quota["retry_after_s"]}
+    phase(22, f"22e over HTTP: unknown adapter 404 with known {unknown['known_adapters']}; t3 429 "
+              f"adapter_pool_full (Retry-After hint {full['retry_after_s']:.2f} s); t1 over its "
+              f"quota 429 tenant_quota ({quota['retry_after_s']:.2f} s); both pinned tenants 200")
+    return rec
+
+
+def adapter_restart_and_prefix_keys(tf, server_mod, generator, root, refs):
+    """22f, then 22g on the same paged int8 server with adapters. 22f: t1's
+    request on the fresh engine, the same again with a decode failure armed
+    (503 ``engine_restarting``), then again on generation 1: the rebuild
+    writes the resident pools back bit for bit, and both answers are held
+    to t1's merged-solo run (and compared: both ran on a fresh pool). 22g:
+    phase 4's questions share their ~1.43k-token system prompt (5 full
+    256-token blocks), and t1's last request left its blocks in the new
+    generation's prefix cache: t2, then a base request, reuse none of them
+    (the keys are salted with the adapter's name), t1 reuses its own."""
+    body = {"question": QUESTIONS[0], "greedy": True, "max_new_tokens": ADAPTER_RESTART_TOKENS,
+            "adapter": "t1"}
+    prompt = _prompt_ids(generator, body)
+    order = (("t2", QUESTIONS[1]), (None, QUESTIONS[3]), ("t1", QUESTIONS[2]))
+    with _Serving(server_mod, generator, **_paged_kw(slots=OVERLOAD_SLOTS, adapter_dir=root,
+                                                     max_adapters=MAX_ADAPTERS,
+                                                     restart_backoff_s=RESTART_BACKOFF_S)) as srv:
+        eng, base = srv.engine, srv.base
+        marks = _restart_marks(eng)
+        check(_request(base, "/v1/generate", body)[0] == 200, "22f: generation 0")
+        first = srv.results[-1][1]
+        reg = eng._mt
+        pools = [t.clone() for t in _pool_tensors(reg)]
+        slot = reg.slot_of("t1")
+        eng.faults.fail_decode_at(eng._decode_index + 4)  # mid-request: 16 tokens
+        status, headers, raw = _request(base, "/v1/generate", body)
+        _taxonomy("22f crashed request", status, headers, raw, 503, "engine_restarting")
+        _wait_for(lambda: "built" in marks and eng.stats_snapshot()["engine_generation"] == 1,
+                  "the restart")
+        same_pools = all(torch.equal(a, b) for a, b in zip(pools, _pool_tensors(reg)))
+        del pools
+        check(_request(base, "/v1/generate", body)[0] == 200, "22f: generation 1")
+        after = srv.results[-1][1]
+        refcount, resident_slot = reg.refcount("t1"), reg.slot_of("t1")
+        reused, hits0 = [], eng.stats_snapshot()
+        before, hits0 = hits0["prefix_tokens_reused"], hits0["prefix_hits"]
+        for adapter, question in order:
+            req = {"question": question, "greedy": True, "max_new_tokens": 8}
+            if adapter:
+                req["adapter"] = adapter
+            check(_request(base, "/v1/generate", req)[0] == 200, f"22g {adapter} request")
+            now = eng.stats_snapshot()["prefix_tokens_reused"]
+            reused.append(now - before)
+            before = now
+        hits = eng.stats_snapshot()["prefix_hits"] - hits0
+    check(same_pools and resident_slot == slot and refcount == 0,
+          f"22f: pools equal after the rebuild {same_pools}, slot {resident_slot} (was {slot}), "
+          f"refcount {refcount}")
+    runs = (("generation 0", first), ("generation 1", after))
+    gaps = [check_first_token(refs, "t1", prompt, got[0], f"22f {run}") for run, got in runs]
+    agree = [_hold_tenant(tf, refs, "t1", prompt, got, f"22f {run}", ADAPTER_RESTART_TOKENS)[0]
+             for run, got in runs]
+    f = {"pools_equal_after_rebuild": same_pools, "tokens_agreeing_with_solo": agree,
+         "first_token_gap": gaps,
+         "generation_1_equals_generation_0": first == after,
+         "restart_s": marks["built"] - marks["failed"]}
+    phase(22, f"22f t1 across a restart: 503 engine_restarting, generation 1 after "
+              f"{f['restart_s'] * 1e3:.1f} ms with the pools rebuilt bit for bit (slot {slot}); "
+              f"tokens equal to the merged-solo run's {agree} of {ADAPTER_RESTART_TOKENS}, the first "
+              f"below the exact merge's top logit by {gaps}; generation 1 == generation 0: "
+              f"{first == after}")
+    full = len(prompt) // KV_BLOCK_LEN
+    check(reused[0] == reused[1] == 0 and reused[2] >= 5 * KV_BLOCK_LEN and hits == 1,
+          f"22g: prompt tokens reused per request {reused}, prefix hits {hits}")
+    phase(22, f"22g shared system prompt ({full} full blocks, t1's in the cache): tokens reused "
+              f"t2 {reused[0]}, base {reused[1]}, t1 {reused[2]}; prefix hits {hits}")
+    return f, {"reused": reused, "prefix_hits": hits}
+
+
+def adapter_phase(tf, gen_mod, server_mod, fa, generator, solo):
+    """Phase 22 (right after phase 21, on phase 4's generator): multi-tenant
+    LoRA serving, 22a-22g. ``solo``: phase 15's solo runs of phase 4's 4
+    questions."""
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.infer import adapters as adapters_mod
+    from llm_fine_tune_distributed_tpu_torch.parallel import lora as lora_mod
+
+    t0 = time.monotonic()
+    laps = {}
+
+    def lap(name):
+        laps[name] = time.monotonic() - t0 - sum(laps.values())
+
+    prompts = [_prompt_ids(generator, {"question": q}) for q in QUESTIONS]
+    floor_i8 = 2 * max(int8_kv_noise(tf, generator, p) for p in prompts)
+    out = {"int8_floor": floor_i8, "seconds_by_part": laps}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_adapters_") as root:
+        make_adapters(lora_mod, generator, root)
+        lap("adapters made")
+        out["c"], reg = adapter_pools_and_loads(adapters_mod, generator, root)
+        lap("c")
+        refs = tenant_refs(tf, gen_mod, lora_mod, generator, reg, root,
+                           {"t1": prompts[0], "t2": prompts[1]}, floor_i8)
+        out["tenants"] = {name: {k: v for k, v in ref.items() if k in (
+            "max_abs_err", "rounding", "floor", "f32_bound", "engine_first_token_gap",
+            "swapped_first_token_gap")} for name, ref in refs.items()}
+        lap("merged-solo refs")
+        out["a"] = adapter_cobatch(tf, server_mod, fa, generator, root, refs, solo, floor_i8)
+        lap("a, b")
+        out["d"] = adapter_tick_profile(generator, reg, prompts)
+        lap("d")
+        del reg
+        gc_cuda()
+        out["e"] = adapter_http_refusals(server_mod, generator, root)
+        lap("e")
+        out["f"], out["g"] = adapter_restart_and_prefix_keys(tf, server_mod, generator, root,
+                                                             refs)
+        lap("f, g")
+        del refs
+    gc_cuda()
+    out["seconds"] = time.monotonic() - t0
+    phase(22, f"phase 22 took {out['seconds']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()))
     return out
 
 
@@ -4577,6 +5150,33 @@ def fleet_only() -> int:
     return 0
 
 
+def adapters_only() -> int:
+    """Phase 22 alone: the paged decode kernel built, phase 4's generator,
+    phase 15's solo runs of its 4 questions, then 22a-22g; a JSON summary
+    is the last line."""
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+
+    t_start = time.monotonic()
+    phase(1, card_info())
+    _build.build_all(("paged_decode",))
+    config = get_preset("smollm3_3b")
+    generator = gen_mod.Generator(
+        tf.init_params(config, seed=0, device=DEVICE, dtype=torch.bfloat16), config,
+        ByteChatMLTokenizer(), compute_dtype=torch.bfloat16, device=DEVICE)
+    prompts = [_prompt_ids(generator, {"question": q}) for q in QUESTIONS]
+    solo = {tuple(p): solo_decode(tf, gen_mod, generator, p, MAX_NEW_TOKENS) for p in prompts}
+    adapters = adapter_phase(tf, gen_mod, server_mod, fa, generator, solo)
+    print(json.dumps({"adapters": adapters, "total_s": time.monotonic() - t_start},
+                     default=str), flush=True)
+    return 0
+
+
 def capture_check(captures: int, push=None) -> int:
     """20e's capture ``captures`` times on phase 20's paged int8 server
     (phase 4's weights, the trace log, a 0.2 s ring, phase 4's traffic
@@ -4650,6 +5250,8 @@ def main(argv=()) -> int:
         return 0
     if argv == ["--fleet-only"]:
         return fleet_only()
+    if argv == ["--adapters-only"]:
+        return adapters_only()
     if argv[:1] == ["--capture-check"] and len(argv) in (2, 3):
         return capture_check(int(argv[1]), int(argv[2]) if len(argv) == 3 else None)
     if argv[:1] == ["--serve-ab"] and len(argv) > 1:
@@ -4737,6 +5339,7 @@ def main(argv=()) -> int:
     supervision = supervision_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     observability = observability_phase(server_mod, fa, generator, peaks)
     fleet = fleet_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, served, phase4_solo)
+    adapters = adapter_phase(tf, gen_mod, server_mod, fa, generator, phase4_solo)
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -4821,6 +5424,8 @@ def main(argv=()) -> int:
     # and a fleet of two serving phase 4's traffic (21e)
     for sub in ("c", "f", "d", "e"):
         paged[f"launches_fleet_21{sub}"] = fleet[sub]["launches"]
+    # phase 22b: two tenants, a base request and a sampled neighbour co-batched
+    paged["launches_adapters_22b"] = adapters["a"]["launches"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -4876,7 +5481,7 @@ def main(argv=()) -> int:
                "serve_int8_weights": served_i8, "decode_profile_int8_weights": profiled_i8,
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "golden": golden, "overload": overload, "supervision": supervision,
-               "observability": observability, "fleet": fleet,
+               "observability": observability, "fleet": fleet, "adapters": adapters,
                "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}), flush=True)

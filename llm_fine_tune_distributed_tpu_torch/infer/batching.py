@@ -94,6 +94,10 @@ class Request:
     # request failed, so that it decodes where it is and is not handed off
     # again at its re-admission
     handoff_failed: bool = False
+    # multi-tenant LoRA (continuous engines only): the tenant's adapter name
+    # and its slot in the engine's adapter pool (0: the base model)
+    adapter: Optional[str] = None
+    adapter_idx: int = 0
 
 
 def _pad_batch_size(n: int, max_batch: int) -> int:

@@ -91,8 +91,9 @@ worker samples a ``MetricRing`` every ``slo_sample_interval_s``, evaluates
 the ``SloPolicy`` burn rates (breaches and recoveries go to the flight
 recorder) and feeds the ``LoadForecaster``; TTFT and inter-token gaps are
 also kept per weight generation (``GenerationSlices``). Each decode
-dispatch records the live rows' positions and query counts;
-``_tick_done`` adds them to running sums beside the tick's time, from which
+dispatch records the live rows' positions and query counts (and the
+distinct adapters they gather, each read as one pool slot: the base weights
+are read every tick, the idle pools never); ``_tick_done`` adds them to running sums beside the tick's time, from which
 ``decode_cost`` gives the timed ticks' FLOPs and bytes
 (``observe/flops.decode_tick_cost`` per dispatch, added up) and
 ``stats_snapshot`` the MFU and HBM-bandwidth gauges over the summed
@@ -115,8 +116,22 @@ same way; any failure of it decodes in place. The paged engine's
 prefix cache evicts and the blocks a preemption banks, and admission
 restores a prompt's leading blocks from it before it allocates the rest.
 
-Not ported from the JAX engines: hot-swap (the weight generation stays 0)
-and adapters.
+Multi-tenant LoRA, as in the JAX engines: with ``adapters`` (an
+``infer/adapters.AdapterRegistry``, one per engine) a request may name an
+``adapter``. Admission pins its slot (``acquire``: a 404 for an unknown
+name, a 429 when every slot is pinned) under the tenant's quota
+(``adapter_quota`` requests in flight, a 429 past it), the slot's rows
+forward through the registry's pooled view with the request's adapter, and
+the settle releases the pin. ``_startup`` rebuilds the resident adapters,
+export and adoption move the pin with the request, and the snapshot adds
+``per_tenant`` and ``adapters_resident``. The paged engine salts the prefix
+keys of an adapter's request with its name (``infer/routing.
+prefix_block_keys``): the adapters change ``k_proj`` and ``v_proj``, so K/V
+cached under the base model or another tenant must not be reused (the JAX
+engine keys by tokens alone and does reuse them). Base requests keep the
+JAX keys.
+
+Not ported from the JAX engines: hot-swap (the weight generation stays 0).
 """
 
 from __future__ import annotations
@@ -133,6 +148,7 @@ import numpy as np
 
 from llm_fine_tune_distributed_tpu_torch.infer.batching import PRIORITY_TIERS, Request
 from llm_fine_tune_distributed_tpu_torch.infer.errors import (
+    AdapterPoolFullError,
     BrownoutShedError,
     CircuitOpenError,
     DeadlineExceededError,
@@ -142,6 +158,8 @@ from llm_fine_tune_distributed_tpu_torch.infer.errors import (
     QueueOverflowError,
     RetryableEngineError,
     ServingError,
+    TenantQuotaError,
+    UnknownAdapterError,
     is_retryable_failure,
 )
 from llm_fine_tune_distributed_tpu_torch.infer.paged import NULL_BLOCK, BlockAllocator, PrefixCache
@@ -271,7 +289,8 @@ class ContinuousBatchingEngine:
                  watchdog: Optional[StepWatchdog] = None, faults: Optional[FaultInjector] = None,
                  flight_dir: Optional[str] = None, trace_log: Optional[str] = None,
                  trace_log_max_mb: float = 0.0, slo_policy: Optional[SloPolicy] = None,
-                 slo_sample_interval_s: float = 1.0, role: str = "mixed"):
+                 slo_sample_interval_s: float = 1.0, role: str = "mixed", adapters=None,
+                 adapter_quota: int = 0):
         """The supervision settings are the JAX engine's: ``restart_backoff_s``
         (doubling per failure in the window, capped at
         ``restart_backoff_max_s``), ``circuit_threshold`` failures within
@@ -283,8 +302,11 @@ class ContinuousBatchingEngine:
         ``trace_log_max_mb``; None: none), ``slo_policy`` (default
         ``SloPolicy()``) and ``slo_sample_interval_s`` are the JAX engine's
         observability settings. ``role`` (``REPLICA_ROLES``) is the replica's
-        pool in a disaggregated fleet. The first generation's device state
-        is built here, so the cache exists when the constructor returns."""
+        pool in a disaggregated fleet. ``adapters`` (an ``AdapterRegistry``
+        over this generator's weights, owned by this engine) serves tenants'
+        LoRA adapters; ``adapter_quota`` bounds each tenant's requests in
+        flight (0: unbounded). The first generation's device state is built
+        here, so the cache exists when the constructor returns."""
         if role not in REPLICA_ROLES:
             raise ValueError(f"unknown replica role {role!r} (expected one of {REPLICA_ROLES})")
         if priority_default not in PRIORITY_TIERS:
@@ -300,6 +322,14 @@ class ContinuousBatchingEngine:
         self._buf_len = int(buf_len)
         self._bucket = max(1, int(prompt_bucket))
         self.stats = stats or ServingStats(self._slots)
+        # multi-tenant LoRA: the registry (its pooled view is what the slots
+        # forward through), each tenant's quota and its requests in flight
+        # (under _plock)
+        self._mt = adapters
+        if adapters is not None:
+            adapters.attach_stats(self.stats)
+        self._adapter_quota = max(0, int(adapter_quota))
+        self._tenant_inflight: dict = {}
         self._eos = set(generator.eos_token_ids)
         self._q: "queue.Queue[Optional[Request]]" = queue.Queue()
         # the priority buffer: the worker drains the queue into it and admits
@@ -383,7 +413,11 @@ class ContinuousBatchingEngine:
         # only: generation 0 is built here, later ones by the worker
         self._cache = self._state = self._dcache = None
         self._startup()
-        self._weight_bytes = self._weight_breakdown()[0]
+        # the decode byte model reads the base weights every tick and one
+        # pool slot per distinct adapter a tick gathers, never the idle pools
+        self._weight_bytes = self._weight_breakdown(self._generator.params)[0]
+        self._adapter_slot_bytes = (self._mt.pool_bytes() // self._mt.max_adapters
+                                    if self._mt is not None else 0)
         # (K/V element bytes, block length, scale element bytes): fixed by
         # the engine's settings, so every generation's cache has the same
         self._kv_geometry = self._kv_cost_geometry(self._cache)
@@ -398,15 +432,16 @@ class ContinuousBatchingEngine:
     def submit(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                timeout: Optional[float] = None, priority: Optional[str] = None,
                deadline_s: Optional[float] = None,
-               trace: Optional[RequestTrace] = None) -> List[int]:
+               trace: Optional[RequestTrace] = None, adapter: Optional[str] = None) -> List[int]:
         """Blocking: enqueue one request, wait for its generated token ids."""
         return self.submit_full(prompt_ids, gen, seed, timeout, priority=priority,
-                                deadline_s=deadline_s, trace=trace).result
+                                deadline_s=deadline_s, trace=trace, adapter=adapter).result
 
     def submit_full(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                     timeout: Optional[float] = None, priority: Optional[str] = None,
                     deadline_s: Optional[float] = None,
-                    trace: Optional[RequestTrace] = None) -> Request:
+                    trace: Optional[RequestTrace] = None,
+                    adapter: Optional[str] = None) -> Request:
         """``submit`` returning the whole request record (the window
         batcher's call shape). On ``timeout`` the request is abandoned (the
         worker sheds it) and TimeoutError raised. ``priority`` names a tier
@@ -414,9 +449,11 @@ class ContinuousBatchingEngine:
         is the client's budget for the whole request, past which it is
         cancelled with a DeadlineExceededError carrying its tokens so far.
         ``trace`` is a caller's RequestTrace (the fleet's timeline across
-        replicas) that the request marks instead of one of its own."""
+        replicas) that the request marks instead of one of its own.
+        ``adapter`` names the tenant's LoRA adapter in the engine's
+        registry (None: the base model)."""
         req = self._make_request(prompt_ids, gen, seed, priority=priority, deadline_s=deadline_s,
-                                 trace=trace)
+                                 trace=trace, adapter=adapter)
         self._q.put(req)
         if not req.done.wait(timeout):
             req.abandoned = True
@@ -429,14 +466,16 @@ class ContinuousBatchingEngine:
     def stream(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                timeout: Optional[float] = None, priority: Optional[str] = None,
                deadline_s: Optional[float] = None,
-               trace: Optional[RequestTrace] = None) -> _TokenStream:
+               trace: Optional[RequestTrace] = None,
+               adapter: Optional[str] = None) -> _TokenStream:
         """Enqueue one request and return an iterator over its tokens as the
         slot decodes them, while it shares the batch with everything else in
         flight. ``timeout`` bounds the wait for each next token. Admission
         (overflow, brownout, a dead engine) is decided here, before the
         caller commits to a response."""
         req = self._make_request(prompt_ids, gen, seed, tokens_q=queue.Queue(),
-                                 priority=priority, deadline_s=deadline_s, trace=trace)
+                                 priority=priority, deadline_s=deadline_s, trace=trace,
+                                 adapter=adapter)
         self._q.put(req)
         return _TokenStream(req, timeout, self)
 
@@ -516,6 +555,14 @@ class ContinuousBatchingEngine:
         the dense engine, which has no prefix cache."""
         return 0
 
+    def adapter_resident(self, name: Optional[str]) -> bool:
+        """True when the named tenant's adapter is resident in this engine's
+        pool: the router's adapter affinity (a resident hit skips the load
+        and cannot evict another tenant)."""
+        if name is None or self._mt is None:
+            return False
+        return self._mt.is_resident(name)
+
     def stats_snapshot(self) -> dict:
         """``ServingStats.snapshot()`` with fresh ``weight_bytes``,
         ``kv_pool_bytes``, ``queue_depth``, ``live_slots``,
@@ -523,7 +570,7 @@ class ContinuousBatchingEngine:
         gauges, plus ``circuit_state``, ``role``, ``draining``, the MFU and
         HBM-bandwidth gauges, the SLO report and the per-generation slices
         (``GET /v1/stats``; the JAX keys but ``compile``: the port compiles
-        no programs)."""
+        no programs), ``adapters_resident`` and ``per_tenant``."""
         mem = self.memory_breakdown()
         self.stats.gauge("weight_bytes", mem["weight_bytes"])
         self.stats.gauge("kv_pool_bytes", mem["kv_pool_bytes"])
@@ -531,6 +578,8 @@ class ContinuousBatchingEngine:
         self.stats.gauge("live_slots", self.live_slots)
         self.stats.gauge("engine_generation", self.supervisor.generation)
         self.stats.gauge("weight_generation", self._weight_generation)
+        self.stats.gauge("adapters_resident",
+                         len(self._mt.resident()) if self._mt is not None else 0)
         self.stats.gauge("brownout_stage", self._brownout_stage)
         snap = self.stats.snapshot()
         snap["circuit_state"] = self.circuit_state
@@ -543,13 +592,14 @@ class ContinuousBatchingEngine:
         snap["per_generation"] = self.slo_slices.summaries()
         return snap
 
-    def _weight_breakdown(self) -> tuple:
-        """(bytes of the resident weights as stored, bytes they save against
-        bf16): int8 codes with their scales, each tensor counted once (a
-        tied table is one tensor)."""
+    @staticmethod
+    def _weight_breakdown(params: dict) -> tuple:
+        """(bytes of ``params`` as stored, bytes they save against bf16):
+        int8 codes with their scales, each tensor counted once (a tied table
+        is one tensor)."""
         weight_bytes = saved = 0
         seen = set()
-        for name, t in self._generator.params.items():
+        for name, t in params.items():
             key = (t.data_ptr(), t.nbytes)
             if key in seen:
                 continue
@@ -568,7 +618,10 @@ class ContinuousBatchingEngine:
         ``kv_scale_bytes`` (an int8 pool's per-block scales) and
         ``bytes_saved_vs_bf16``, which counts only quantized artifacts (int8
         weight leaves, int8 KV pools)."""
-        weight_bytes, saved = self._weight_breakdown()
+        # with a registry, the pooled view: the base and the adapter pools
+        # (the JAX engine walks its pooled view)
+        params = self._mt.params if self._mt is not None else self._generator.params
+        weight_bytes, saved = self._weight_breakdown(params)
         kv_pool_bytes = kv_scale_bytes = 0
         for entry in (self._cache or {}).get("layers", {}).values():
             quantized = "k_scale" in entry
@@ -609,7 +662,8 @@ class ContinuousBatchingEngine:
         itemsize, _, scale_itemsize = self._kv_geometry
         flops, nbytes = decode_work_cost(self._generator.config, sums,
                                          weight_bytes=self._weight_bytes, kv_itemsize=itemsize,
-                                         scale_itemsize=scale_itemsize)
+                                         scale_itemsize=scale_itemsize,
+                                         adapter_bytes=self._adapter_slot_bytes)
         return sums[0], sums[-1], flops, nbytes
 
     def _utilization(self) -> tuple:
@@ -718,11 +772,15 @@ class ContinuousBatchingEngine:
     def _make_request(self, prompt_ids, gen: GenerationConfig, seed: int,
                       tokens_q: Optional["queue.Queue"] = None, priority: Optional[str] = None,
                       deadline_s: Optional[float] = None,
-                      trace: Optional[RequestTrace] = None) -> Request:
+                      trace: Optional[RequestTrace] = None,
+                      adapter: Optional[str] = None) -> Request:
         """The admission gate shared by submit and stream: refuse a dead
-        engine, a drain, a brownout shed and an overflow before the request
-        enters the queue, and stamp its deadlines. From here on the request
-        is in the pending ledger, and exactly one ``_settle`` resolves it."""
+        engine, a drain, a brownout shed, an overflow, an unknown adapter, a
+        tenant over its quota and a full adapter pool before the request
+        enters the queue, pin its adapter and stamp its deadlines. From here
+        on the request is in the pending ledger, and exactly one ``_settle``
+        resolves it (which also releases the adapter pin and the tenant
+        bookkeeping taken here)."""
         if priority is None:
             priority = self._priority_default
         if priority not in PRIORITY_TIERS:
@@ -768,7 +826,43 @@ class ContinuousBatchingEngine:
                 raise QueueOverflowError(
                     f"admission queue full ({self.queue_depth} waiting >= max_queue_depth "
                     f"{self._max_queue_depth})", retry_after_s=self._retry_after(), tier=priority)
+        adapter_idx = 0
+        if adapter is not None:
+            if self._mt is None:
+                raise UnknownAdapterError(
+                    f"adapter {adapter!r} requested but this engine has no "
+                    "adapter registry (start the server with --adapter-dir)"
+                )
+            # the quota check and the tenant's in-flight count move together,
+            # before the acquire (a hot-load), so concurrent requests of one
+            # tenant cannot all pass the check
+            with self._plock:
+                inflight = self._tenant_inflight.get(adapter, 0)
+                over_quota = self._adapter_quota > 0 and inflight >= self._adapter_quota
+                if not over_quota:
+                    self._tenant_inflight[adapter] = inflight + 1
+            if over_quota:
+                self.stats.incr("requests_shed_tenant_quota")
+                self.recorder.record("shed_tenant_quota", tenant=adapter)
+                raise TenantQuotaError(
+                    f"tenant {adapter!r} already has {self._adapter_quota} "
+                    "request(s) in flight (--adapter-capacity); retry when "
+                    "one completes",
+                    retry_after_s=self._retry_after(),
+                )
+            try:
+                adapter_idx = self._mt.acquire(adapter)
+            except Exception as e:
+                self._tenant_done(adapter)
+                if isinstance(e, AdapterPoolFullError):
+                    e.retry_after_s = self._retry_after()
+                raise
         req = Request([int(t) for t in prompt_ids], gen, int(seed), tokens_q=tokens_q)
+        req.adapter = adapter
+        req.adapter_idx = int(adapter_idx)
+        if adapter is not None:
+            self.stats.tenant_incr(adapter, "requests")
+            self.stats.tenant_incr(adapter, "queue_depth")
         req.id = next(self._req_seq)
         req.enqueued_at = time.monotonic()
         if trace is not None:  # the fleet's timeline, across its hops
@@ -823,6 +917,7 @@ class ContinuousBatchingEngine:
                 self.stats.waste_incr("shed", n)
         with self._plock:
             self._pending -= 1
+        self._leave_tenant(req)
         if self._trace_writer is not None and req.trace is not None:
             self._trace_writer.write({
                 "request_id": req.id,
@@ -946,6 +1041,9 @@ class ContinuousBatchingEngine:
         self._slot_plen = [0] * self._slots  # prompt + banked tokens
         self._live = np.zeros((self._slots,), bool)
         self._cache, self._state = self._init_state()
+        if self._mt is not None:
+            self._state["params"] = self._mt.params  # the slots forward through the pools
+            self._mt.rebuild()  # the resident adapters survive a restart
         self._startup_draft()
 
     def _startup_draft(self) -> None:
@@ -1086,8 +1184,7 @@ class ContinuousBatchingEngine:
             self.recorder.record("export", requests=len(exported))
         except Exception as e:  # reported to the caller
             for req in exported:
-                self._attach_request(req)
-                self._waiting.append(req)
+                self._readopt(req)
             exp.error = e
             self.recorder.record("export_failed", error=f"{type(e).__name__}: {e}",
                                  readopted=len(exported))
@@ -1097,16 +1194,65 @@ class ContinuousBatchingEngine:
             exp.done.set()
 
     def _attach_request(self, req: Request) -> None:
-        """Enter an exported request into this engine's pending ledger (the
-        inverse of ``_detach_request``)."""
+        """Enter an exported request into this engine's ledgers (the inverse
+        of ``_detach_request``): pin its adapter here (raising as admission
+        does when it cannot), count it in flight for its tenant and pending.
+        The tenant's ``requests`` counted it once, at its first admission."""
+        if req.adapter is not None:
+            if self._mt is None:
+                raise UnknownAdapterError(
+                    f"adapter {req.adapter!r} not available on the adopting "
+                    "engine (no adapter registry)"
+                )
+            req.adapter_idx = int(self._mt.acquire(req.adapter))
+            with self._plock:
+                self._tenant_inflight[req.adapter] = self._tenant_inflight.get(req.adapter, 0) + 1
+            self.stats.tenant_incr(req.adapter, "queue_depth")
+        else:
+            req.adapter_idx = 0
         with self._plock:
             self._pending += 1
 
     def _detach_request(self, req: Request) -> None:
-        """Take an exported request out of this engine's pending ledger
-        without settling it: its waiter stays attached for the adopter."""
+        """Take an exported request out of this engine's ledgers without
+        settling it: its waiter stays attached for the adopter, and its
+        adapter pin is released here."""
         with self._plock:
             self._pending -= 1
+        self._leave_tenant(req)
+
+    def _tenant_done(self, adapter: str) -> None:
+        """One request of tenant ``adapter`` is no longer in flight here."""
+        with self._plock:
+            n = self._tenant_inflight.get(adapter, 1) - 1
+            if n <= 0:
+                self._tenant_inflight.pop(adapter, None)
+            else:
+                self._tenant_inflight[adapter] = n
+
+    def _leave_tenant(self, req: Request) -> None:
+        """The request leaves this engine: its tenant's in-flight count and
+        queue depth drop and its adapter pin is released."""
+        if req.adapter is None:
+            return
+        self._tenant_done(req.adapter)
+        self.stats.tenant_incr(req.adapter, "queue_depth", -1)
+        if self._mt is not None:
+            self._mt.release(req.adapter)
+
+    def _readopt(self, req: Request) -> None:
+        """Take back a request this engine detached (a failed export or
+        handoff). If its adapter cannot be pinned again (the pool filled
+        meanwhile), the waiter fails with that error instead of hanging."""
+        try:
+            self._attach_request(req)
+        except Exception as e:  # the pin was released at the detach
+            req.adapter = None
+            with self._plock:
+                self._pending += 1
+            self._resolve_error(req, e)
+            return
+        self._waiting.append(req)
 
     def _bank_and_spill(self, slot: int, req: Request) -> None:
         """Bank a leaving slot's tokens on its request, as a preemption does
@@ -1152,8 +1298,7 @@ class ContinuousBatchingEngine:
         # no decode replica took it: it resumes here, and the flag keeps it
         # from being handed off again
         req.handoff_failed = True
-        self._attach_request(req)
-        self._waiting.append(req)
+        self._readopt(req)
         self.stats.incr("requests_handoff_failed")
         self.recorder.record("handoff_failed", request=req.id, where="adopt",
                              error=err or "no decode-capable replica accepted")
@@ -1380,7 +1525,7 @@ class ContinuousBatchingEngine:
         padded = np.zeros((1, plan["bucket"]), np.int64)
         padded[0, :plen] = plan["prompt"]
         first = self._generator.slot_prefill(self._cache, self._state, padded, plen, slot,
-                                             req.gen, req.seed)
+                                             req.gen, req.seed, **self._adapter_kw(req))
         self._now = time.monotonic()  # slot_prefill read its token: synced
         self.stats.observe("prefill_chunk_s", self._now - t0)
         if req.trace is not None:
@@ -1408,8 +1553,8 @@ class ContinuousBatchingEngine:
         self._now = time.monotonic()
         dt = self._now - t0
         self.stats.observe("decode_tick_s", dt)
-        positions, queries = self._dispatched
-        self._decode_work.add(positions, queries, self._kv_geometry[1], dt)
+        positions, queries, adapters = self._dispatched
+        self._decode_work.add(positions, queries, self._kv_geometry[1], dt, adapters)
         if self._watchdog is not None:
             self._watchdog.poke(self._decode_index)
         self.stats.incr("decode_steps")
@@ -1467,13 +1612,18 @@ class ContinuousBatchingEngine:
         self.faults.maybe_fail_decode(self._decode_index)
 
     def _record_dispatch(self, n_draft: Optional[np.ndarray] = None) -> None:
-        """Keep the live rows' (positions, queries) of the decode dispatch
-        about to run, for ``_tick_done``: each row attends its own length
-        and feeds one query, plus its drafts on a verify."""
+        """Keep the live rows' (positions, queries, distinct adapters) of
+        the decode dispatch about to run, for ``_tick_done``: each row
+        attends its own length and feeds one query, plus its drafts on a
+        verify; the adapters are its live rows' non-zero pool slots."""
         live = np.flatnonzero(self._live)
         positions = [self._slot_plen[s] + len(self._slot_tokens[s]) for s in live]
         queries = [1] * len(live) if n_draft is None else [1 + int(n_draft[s]) for s in live]
-        self._dispatched = (positions, queries)
+        adapters = 0
+        if self._mt is not None:
+            slots = self._state["adapter_idx"][live]
+            adapters = len(np.unique(slots[slots > 0]))
+        self._dispatched = (positions, queries, adapters)
 
     def _decode_once(self) -> None:
         t0 = time.monotonic()
@@ -1602,6 +1752,8 @@ class ContinuousBatchingEngine:
         self.stats.incr("tokens_served")
         if from_decode:
             self.stats.incr("decode_tokens")
+        if req.adapter is not None:
+            self.stats.tenant_incr(req.adapter, "tokens")
         # latencies against the tick clock: no clock read per token
         now = self._now
         if req.first_token_t is None:
@@ -1610,12 +1762,16 @@ class ContinuousBatchingEngine:
                 ttft = now - req.enqueued_at
                 self.stats.observe("ttft_s", ttft)
                 self._gen_slice.ttft.observe(ttft)
+                if req.adapter is not None:
+                    self.stats.tenant_observe(req.adapter, "ttft_s", ttft)
             if req.trace is not None:
                 req.trace.mark("first_token", now)
         elif req.last_token_t is not None:
             gap = now - req.last_token_t
             self.stats.observe("inter_token_s", gap)
             self._gen_slice.inter_token.observe(gap)
+            if req.adapter is not None:
+                self.stats.tenant_observe(req.adapter, "inter_token_s", gap)
         req.last_token_t = now
         if req.tokens_q is not None:
             req.tokens_q.put(tok)
@@ -1639,6 +1795,11 @@ class ContinuousBatchingEngine:
         self.stats.incr("requests_completed")
         self._settle(req)
         self._release(slot)
+
+    def _adapter_kw(self, req: Request) -> dict:
+        """The prefill's adapter arguments: none for a base request, so the
+        call is the same as without a registry."""
+        return {"adapter_idx": req.adapter_idx} if req.adapter_idx else {}
 
     def _release(self, slot: int) -> None:
         self._slot_req[slot] = None
@@ -1805,7 +1966,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             )
         L = self._block_len
         budget_end = min(plen + self._budget_cap(req), self._buf_len)
-        keys = self._prefix.block_keys(prompt)
+        keys = self._prefix.block_keys(prompt, req.adapter)
         # at least one suffix token must prefill: the first sampled token
         # needs the last prompt token's logits
         shared = self._prefix.match(keys, (plen - 1) // L)
@@ -1903,7 +2064,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         table = self._table[task.slot: task.slot + 1]
         if remaining > C:
             chunk = np.asarray(prompt[task.next: task.next + C], np.int64)[None, :]
-            gen.paged_prefill_chunk(self._cache, table, chunk, task.next)
+            gen.paged_prefill_chunk(self._cache, self._state, table, chunk, task.next,
+                                    **self._adapter_kw(req))
             task.next += C
             self.stats.incr("prefill_chunks")
             self.stats.incr("prefill_tokens", C)
@@ -1925,7 +2087,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         seen_row[0, np.asarray(prompt, np.intp)] = True
         first = gen.paged_prefill_final(
             self._cache, self._state, table, padded, task.next, task.plen,
-            seen_row, task.slot, req.gen, req.seed,
+            seen_row, task.slot, req.gen, req.seed, **self._adapter_kw(req),
         )
         self._now = time.monotonic()  # paged_prefill_final read its token: synced
         self._prefills.pop(0)
@@ -2019,7 +2181,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         ctx = list(req.prompt) + list(req.preempted_tokens) + self._slot_tokens[slot]
         full = (len(ctx) - 1) // self._block_len
         if full > 0:
-            keys = self._prefix.block_keys(ctx)
+            keys = self._prefix.block_keys(ctx, req.adapter)
             self._prefix.insert(keys[:full], self._slot_blocks[slot][:full])
             # and to the host tier now: under the pressure that preempted
             # it, the LRU may well reclaim them before the resume
@@ -2047,7 +2209,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         super()._bank_and_spill(slot, req)
         full = ingested // self._block_len
         if full > 0:
-            keys = self._prefix.block_keys(list(req.prompt) + list(req.preempted_tokens))[:full]
+            keys = self._prefix.block_keys(list(req.prompt) + list(req.preempted_tokens),
+                                           req.adapter)[:full]
             blocks = self._slot_blocks[slot][:full]
             self._prefix.insert(keys, blocks)
             self._spill_to_tier(list(zip(keys, blocks)))

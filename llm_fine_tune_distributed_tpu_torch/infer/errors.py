@@ -12,14 +12,12 @@ structured JSON body instead of a bare 500. Two axes matter to a client:
   the client's own deadline is spent). Each class carries its status.
 
 ``is_retryable_failure`` classifies a raw worker exception: anything not on
-the explicit fatal list is presumed transient. The port has no supervisor
-yet, so its engines treat every worker failure as terminal
-(``FatalEngineError``); the classification is kept for the day they
-restart.
+the explicit fatal list is presumed transient, and the engines' supervised
+worker restarts on it.
 
-The adapter, tenant and fleet classes come along because they are plain
-classes of the same taxonomy; nothing in the port raises them until those
-modules are ported.
+The adapter classes are raised by ``infer/adapters.py`` and the engines'
+admission (an unknown adapter, a full pool, a tenant over its quota), the
+fleet's by ``infer/fleet.py``.
 """
 
 from __future__ import annotations

@@ -13,10 +13,14 @@ Replicas run on the card's default stream, one worker thread each.
 
 **Placement** (``infer/routing.py`` scores): per request the router takes a
 view of each replica (health, queue depth, live slots, resident prompt
-prefix) and picks by policy: prefix-cache affinity, then least-loaded, load
-ties by rotation. Affinity reads the replica's own prefix cache
+prefix, whether the request's LoRA adapter is resident) and picks by
+policy: adapter residency, then prefix-cache affinity, then least-loaded,
+load ties by rotation. Affinity reads the replica's own prefix cache
 (``prefix_match_len``) and the router's intent map of recently routed keys,
-which covers a prefix that is queued and not yet prefilled.
+which covers a prefix that is queued and not yet prefilled; a tenant's keys
+are salted with its adapter's name as its replica's prefix cache salts
+them. Each replica owns its adapter registry (pool residency is a replica's
+own, and one replica's eviction must not pull a slot another decodes with).
 
 **Degraded replicas** (terminal, draining, mid-recovery) leave the candidate
 set. A request a replica fails retryably (a restart, a dead circuit, a
@@ -33,11 +37,11 @@ counters and histograms fold into the fleet's, so totals never go back.
 
 **Stats**: counters sum, occupancy gauges sum, epochs and severities take
 the max, rates are recomputed from the summed counters, and histograms
-merge exactly; plus the router's counters and a ``per_replica`` map.
+merge exactly, the per-tenant records and histograms too (retired replicas
+included); plus the router's counters and a ``per_replica`` map.
 
-Not ported: adapter affinity and per-tenant series (the port's engines
-serve no adapters, so ``adapter=`` raises as theirs does), and the compile
-ledger (the port compiles no programs, so the snapshot has no ``compile``).
+Not ported: the compile ledger (the port compiles no programs, so the
+snapshot has no ``compile``).
 """
 
 from __future__ import annotations
@@ -95,6 +99,23 @@ _MAX_GAUGES = ("engine_generation", "weight_generation", "brownout_stage", "weig
                "host_tier_bytes")
 
 
+def _add_tenants(into: Dict[str, Dict[str, int]], per_tenant: Dict[str, Dict[str, int]]) -> None:
+    """Add a snapshot's ``per_tenant`` records into ``into``, key by key."""
+    for tenant, rec in per_tenant.items():
+        mine = into.setdefault(tenant, {k: 0 for k in ServingStats.TENANT_KEYS})
+        for k in ServingStats.TENANT_KEYS:
+            mine[k] += int(rec.get(k, 0))
+
+
+def _merge_tenant_histograms(into: Dict[str, Dict[str, Histogram]],
+                             tenant_hists: Dict[str, Dict[str, Histogram]]) -> None:
+    """Merge per-tenant latency histograms into ``into`` (exact: fixed buckets)."""
+    for tenant, hists in tenant_hists.items():
+        mine = into.setdefault(tenant, {})
+        for name, h in hists.items():
+            mine.setdefault(name, Histogram(h.bounds)).merge(h)
+
+
 class EngineFleet:
     """N engine replicas and the prefix-aware, load-balancing front door."""
 
@@ -139,6 +160,8 @@ class EngineFleet:
         self._retired_tiers: Dict[str, int] = {}
         self._retired_waste: Dict[str, int] = {}
         self._retired_slices: List[GenerationSlices] = []
+        self._retired_tenants: Dict[str, Dict[str, int]] = {}
+        self._retired_tenant_hist: Dict[str, Dict[str, Histogram]] = {}
         self._retired_count = 0
         # the fleet's own timeline: scale_up, scale_down, migrate, handoff,
         # scale_decision (the autoscaler's) and role_degraded
@@ -355,7 +378,7 @@ class EngineFleet:
     def _repin_prefix(self, req, target_rid: int) -> None:
         """Point the intent map at the adopter: the conversation's next requests
         should land where its blocks now are."""
-        keys = self._keys(list(req.prompt) + list(req.preempted_tokens))
+        keys = self._keys(list(req.prompt) + list(req.preempted_tokens), req.adapter)
         with self._lock:
             self._remember(keys, target_rid)
 
@@ -386,15 +409,17 @@ class EngineFleet:
                 for name in ServingStats.HISTOGRAM_SPECS:
                     h = stats.hist[name]
                     self._retired_hist.setdefault(name, Histogram(h.bounds)).merge(h)
+                _add_tenants(self._retired_tenants, snap.get("per_tenant") or {})
+                _merge_tenant_histograms(self._retired_tenant_hist, stats.tenant_histograms())
             if slices is not None:
                 self._retired_slices.append(slices)
 
     # -------------------------------------------------------------- routing
 
-    def _keys(self, prompt_ids: Sequence[int]) -> List[bytes]:
+    def _keys(self, prompt_ids: Sequence[int], adapter: Optional[str] = None) -> List[bytes]:
         if self._block_len <= 0:
             return []
-        return prefix_block_keys(prompt_ids, self._block_len)
+        return prefix_block_keys(prompt_ids, self._block_len, adapter)
 
     def _home_run(self, keys: List[bytes], rid: int) -> int:
         """Leading keys last routed to ``rid`` (caller holds the lock)."""
@@ -405,7 +430,7 @@ class EngineFleet:
             n += 1
         return n
 
-    def _route(self, keys: List[bytes], excluded: frozenset,
+    def _route(self, keys: List[bytes], excluded: frozenset, adapter: Optional[str] = None,
                best_effort: bool = False) -> Optional[Placement]:
         """One placement: views, score, and the router's state committed at
         decision time (a same-prefix burst must see the first request's
@@ -421,6 +446,11 @@ class EngineFleet:
                 recovering=rep.recovering or bool(getattr(rep, "swap_pending", False)),
                 queue_depth=rep.queue_depth, live_slots=rep.live_slots, slots=rep.slot_count,
                 prefix_hits=max(rep.prefix_match_len(keys) if keys else 0, home),
+                # a replica holding the tenant's adapter skips the load and
+                # cannot evict a neighbour tenant's slot
+                adapter_hits=int(adapter is not None
+                                 and getattr(rep, "adapter_resident", None) is not None
+                                 and rep.adapter_resident(adapter)),
                 brownout_stage=int(getattr(rep, "brownout_stage", 0) or 0),
                 role=str(getattr(rep, "role", "mixed") or "mixed"),
             ))
@@ -491,7 +521,7 @@ class EngineFleet:
 
     def _dispatch(self, method: str, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int,
                   timeout: Optional[float], priority: Optional[str] = None,
-                  deadline_s: Optional[float] = None):
+                  deadline_s: Optional[float] = None, adapter: Optional[str] = None):
         """Route, call the replica, and fail over until one serves or none
         is left; each replica is tried at most once, ``timeout`` spans all
         attempts, and a client deadline caps it. One RequestTrace, minted
@@ -502,13 +532,13 @@ class EngineFleet:
         deadline = time.monotonic() + timeout if timeout is not None else None
         client_deadline = time.monotonic() + deadline_s if deadline_s is not None else None
         best_effort = priority == "best_effort"
-        keys = self._keys(prompt_ids)
+        keys = self._keys(prompt_ids, adapter)
         trace = RequestTrace()
         excluded: set = set()
         overflowed: Dict[int, QueueOverflowError] = {}
         last_err: Optional[BaseException] = None
         while True:
-            placement = self._route(keys, frozenset(excluded), best_effort=best_effort)
+            placement = self._route(keys, frozenset(excluded), adapter, best_effort=best_effort)
             if placement is None:
                 shed = self._brownout_shed(excluded) if best_effort else None
                 raise shed if shed is not None else self._exhausted_error(overflowed, last_err)
@@ -532,6 +562,8 @@ class EngineFleet:
                 kwargs["priority"] = priority
             if client_deadline is not None:
                 kwargs["deadline_s"] = max(client_deadline - time.monotonic(), 0.001)
+            if adapter is not None:  # only when named: bare replicas keep their signature
+                kwargs["adapter"] = adapter
             if getattr(replica, "SUPPORTS_TRACE", False):
                 kwargs["trace"] = trace
             try:
@@ -552,26 +584,29 @@ class EngineFleet:
 
     def submit(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                timeout: Optional[float] = None, priority: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> List[int]:
+               deadline_s: Optional[float] = None, adapter: Optional[str] = None) -> List[int]:
         return self.submit_full(prompt_ids, gen, seed, timeout, priority=priority,
-                                deadline_s=deadline_s).result
+                                deadline_s=deadline_s, adapter=adapter).result
 
     def submit_full(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                     timeout: Optional[float] = None, priority: Optional[str] = None,
-                    deadline_s: Optional[float] = None):
+                    deadline_s: Optional[float] = None, adapter: Optional[str] = None):
         """A blocking request with placement and failover. ``deadline_s``
-        bounds the whole attempt; a DeadlineExceededError is final."""
+        bounds the whole attempt; a DeadlineExceededError is final.
+        ``adapter`` names the tenant's LoRA adapter (routed to a replica
+        holding it when one does)."""
         return self._dispatch("submit_full", prompt_ids, gen, seed, timeout, priority=priority,
-                              deadline_s=deadline_s)
+                              deadline_s=deadline_s, adapter=adapter)
 
     def stream(self, prompt_ids: Sequence[int], gen: GenerationConfig, seed: int = 0,
                timeout: Optional[float] = None, priority: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> Iterator[int]:
+               deadline_s: Optional[float] = None,
+               adapter: Optional[str] = None) -> Iterator[int]:
         """A streaming request: admission refusals fail over as in
         ``submit``; once the iterator is out, a failure reaches the caller
         (replaying would send tokens twice)."""
         return self._dispatch("stream", prompt_ids, gen, seed, timeout, priority=priority,
-                              deadline_s=deadline_s)
+                              deadline_s=deadline_s, adapter=adapter)
 
     def begin_drain(self) -> None:
         for rep in self.replicas:
@@ -636,6 +671,17 @@ class EngineFleet:
             out[name] = merged
         return out
 
+    def merged_tenant_histograms(self) -> Dict[str, Dict[str, Histogram]]:
+        """Each tenant's latency histograms merged exactly over the replicas
+        its traffic landed on, retired ones included."""
+        out: Dict[str, Dict[str, Histogram]] = {}
+        sources = [rep.stats.tenant_histograms() for rep in self.replicas]
+        with self._lock:
+            sources.append({t: dict(h) for t, h in self._retired_tenant_hist.items()})
+        for tenant_hists in sources:
+            _merge_tenant_histograms(out, tenant_hists)
+        return out
+
     def slo_report(self) -> dict:
         """The merged burn-rate report and each replica's (``GET /v1/slo``)."""
         per = {str(i): rep.slo_report() for i, rep in self.replica_items()}
@@ -680,6 +726,7 @@ class EngineFleet:
             retired_waste = dict(self._retired_waste)
             retired_count = self._retired_count
             retired_slices = list(self._retired_slices)
+            retired_tenants = {t: dict(rec) for t, rec in self._retired_tenants.items()}
             counters = dict(self._counters)
         agg: dict = {}
         for key in ServingStats.COUNTERS:  # every replica that ever served
@@ -701,7 +748,10 @@ class EngineFleet:
                                         if agg["draft_tokens_proposed"] else 0.0)
         agg["mean_tokens_per_step"] = (agg["tokens_served"] / agg["decode_steps"]
                                        if agg["decode_steps"] else 0.0)
-        agg["per_tenant"] = {}  # adapters are not ported: no tenants
+        # a tenant's records sum over the replicas its traffic landed on
+        for s in snaps:
+            _add_tenants(retired_tenants, s.get("per_tenant") or {})
+        agg["per_tenant"] = retired_tenants
         by_tier = {t: 0 for t in ServingStats.SHED_TIERS}
         waste = {r: 0 for r in ServingStats.WASTE_REASONS}
         for into, field, retired in ((by_tier, "requests_shed_by_tier", retired_tiers),

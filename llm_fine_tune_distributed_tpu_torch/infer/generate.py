@@ -32,6 +32,14 @@ Slot decode (the continuous engines): ``init_slot_state`` / ``slot_prefill``
 penalty), and per slot the request's ``GenerationConfig`` and a
 ``torch.Generator`` seeded by the request, so a sampled stream is
 deterministic in (request, seed) and independent of its neighbours.
+
+Multi-tenant LoRA: ``state["adapter_idx"]`` ([slots] on the host) holds
+each slot's adapter pool slot (0: the base model) and ``state["params"]``
+the engine's pooled view (``infer/adapters.AdapterRegistry.params``; None:
+the base weights). Every step and prefill forwards through that view with
+each row's adapter, dead rows on slot 0; a step whose live rows are all on
+slot 0 runs no pooled delta at all. The draft model takes no adapter, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -434,6 +442,8 @@ class Generator:
             "seen": torch.zeros(slots, self.config.vocab_size, dtype=torch.bool, device=self.device),
             "gen": [GenerationConfig(do_sample=False) for _ in range(slots)],
             "rng": [None] * slots,
+            "adapter_idx": np.zeros(slots, np.int64),
+            "params": None,
             # the per-slot knobs of ``gen`` on the device, for the spec tick
             **self._knob_tensors([GenerationConfig(do_sample=False)] * slots),
         }
@@ -459,11 +469,29 @@ class Generator:
                            device=self.device)
         return cache, self._fresh_slot_state(slots)
 
+    def _view(self, state: dict) -> Dict[str, torch.Tensor]:
+        """The parameters a slot forward runs: the engine's pooled adapter
+        view when it has one, else the base weights."""
+        return state.get("params") or self.params
+
+    def _row_adapters(self, state: dict, live: np.ndarray) -> Optional[torch.Tensor]:
+        """Each row's adapter slot for one step ([S] on the device, dead
+        rows on slot 0), or None when every live row is on the base model,
+        so that a base-only step runs no pooled delta."""
+        idx = np.where(live, state["adapter_idx"], 0)
+        return self._h2d(idx) if idx.any() else None
+
+    def _one_adapter(self, adapter_idx: int) -> Optional[torch.Tensor]:
+        """A batch-1 prefill's adapter slot on the device (None: slot 0)."""
+        return self._h2d(np.array([adapter_idx], np.int64)) if adapter_idx else None
+
     def _first_token(self, logits: torch.Tensor, seen_row: torch.Tensor, state: dict,
-                     slot: int, prompt_len: int, gen: GenerationConfig, seed: int) -> int:
+                     slot: int, prompt_len: int, gen: GenerationConfig, seed: int,
+                     adapter_idx: int = 0) -> int:
         """Sample a prompt's first token from its last position's logits
         [1, vocab] and hand the slot to the request: its last token,
-        position, seen set, config and generator seeded by ``seed``."""
+        position, seen set, config, generator seeded by ``seed`` and adapter
+        slot."""
         rng = torch.Generator(device=self.device).manual_seed(int(seed))
         first = int(sample_token(logits, seen_row, gen, generator=rng)[0])
         seen_row[0, first] = True
@@ -472,28 +500,33 @@ class Generator:
         state["seen"][slot] = seen_row[0]
         state["gen"][slot] = gen
         state["rng"][slot] = rng
+        state["adapter_idx"][slot] = adapter_idx
         for name, value in self._knob_tensors([gen]).items():
             state[name][slot] = value[0]
         return first
 
     def slot_prefill(self, cache, state, prompt_ids: np.ndarray, prompt_len: int, slot: int,
-                     gen: GenerationConfig, seed: int) -> int:
+                     gen: GenerationConfig, seed: int, adapter_idx: int = 0) -> int:
         """Prefill one prompt, right-padded to its bucket (``prompt_ids``
         [1, bucket]), in a private batch-1 cache; sample its first token from
         position ``prompt_len - 1`` as ``_prompt_prefill`` does (the pad keys
         sit above every real query, so the token does not depend on the
         bucket); copy the K/V into row ``slot`` of ``cache`` and set the
-        slot's state. Returns the first token."""
+        slot's state. ``adapter_idx``: the request's adapter slot in the
+        state's pooled view. Returns the first token."""
         ids = self._tensor(prompt_ids).long()
+        params = self._view(state)
         small = init_cache(self.config, 1, ids.shape[1], dtype=self.compute_dtype,
                            device=self.device)
-        hidden, _ = forward(self.params, ids, self.config, cache=small, cache_pos=0,
-                            compute_dtype=self.compute_dtype, output_hidden=True)
-        logits = unembed(self.params, hidden[:, prompt_len - 1], self.config,
+        hidden, _ = forward(params, ids, self.config, cache=small, cache_pos=0,
+                            compute_dtype=self.compute_dtype, output_hidden=True,
+                            adapter_idx=self._one_adapter(adapter_idx))
+        logits = unembed(params, hidden[:, prompt_len - 1], self.config,
                          compute_dtype=self.compute_dtype)
         seen_row = torch.zeros(1, self.config.vocab_size, dtype=torch.bool, device=self.device)
         seen_row[0, ids[0, :prompt_len]] = True
-        first = self._first_token(logits, seen_row, state, slot, prompt_len, gen, seed)
+        first = self._first_token(logits, seen_row, state, slot, prompt_len, gen, seed,
+                                  adapter_idx)
         insert_cache_row(cache, small, slot)
         return first
 
@@ -529,9 +562,11 @@ class Generator:
         slots advance to ``min(pos + 1, buf_len - 1)``. Returns the tokens
         [slots] on the host."""
         pos = state["pos"]
-        hidden, _ = forward(self.params, state["last"][:, None], self.config, cache=cache,
-                            cache_pos=pos, compute_dtype=self.compute_dtype, output_hidden=True)
-        logits = unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
+        params = self._view(state)
+        hidden, _ = forward(params, state["last"][:, None], self.config, cache=cache,
+                            cache_pos=pos, compute_dtype=self.compute_dtype, output_hidden=True,
+                            adapter_idx=self._row_adapters(state, live))
+        logits = unembed(params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
         next_pos = (pos + 1).clamp(max=cache["layers"]["0"]["k"].shape[1] - 1)
         return self._advance_slots(logits, state, live, next_pos).cpu().numpy()
 
@@ -557,31 +592,37 @@ class Generator:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def paged_prefill_chunk(self, pool, table: np.ndarray, chunk_ids: np.ndarray,
-                            chunk_start: int) -> None:
+    def paged_prefill_chunk(self, pool, state, table: np.ndarray, chunk_ids: np.ndarray,
+                            chunk_start: int, adapter_idx: int = 0) -> None:
         """Ingest one prefill chunk [1, C] of one prompt through its block
-        table [1, nb], starting at logical position ``chunk_start``."""
+        table [1, nb], starting at logical position ``chunk_start``, with
+        adapter slot ``adapter_idx`` in the state's pooled view."""
         forward(
-            self.params, self._tensor(chunk_ids).long(), self.config, cache=pool,
+            self._view(state), self._tensor(chunk_ids).long(), self.config, cache=pool,
             cache_pos=int(chunk_start), block_tables=self._tensor(table),
             compute_dtype=self.compute_dtype, output_hidden=True,
+            adapter_idx=self._one_adapter(adapter_idx),
         )
 
     def paged_prefill_final(self, pool, state, table: np.ndarray, chunk_ids: np.ndarray,
                             chunk_start: int, prompt_len: int, seen_row: np.ndarray,
-                            slot: int, gen: GenerationConfig, seed: int) -> int:
+                            slot: int, gen: GenerationConfig, seed: int,
+                            adapter_idx: int = 0) -> int:
         """Ingest a prompt's last chunk (padded to its bucket), sample the
         first token from the last prompt position, and set the slot's state.
-        ``seen_row`` [1, vocab] covers the whole prompt."""
+        ``seen_row`` [1, vocab] covers the whole prompt; ``adapter_idx`` is
+        the request's adapter slot in the state's pooled view."""
+        params = self._view(state)
         hidden, _ = forward(
-            self.params, self._tensor(chunk_ids).long(), self.config, cache=pool,
+            params, self._tensor(chunk_ids).long(), self.config, cache=pool,
             cache_pos=int(chunk_start), block_tables=self._tensor(table),
             compute_dtype=self.compute_dtype, output_hidden=True,
+            adapter_idx=self._one_adapter(adapter_idx),
         )
         last_h = hidden[:, prompt_len - 1 - chunk_start]
-        logits = unembed(self.params, last_h, self.config, compute_dtype=self.compute_dtype)
+        logits = unembed(params, last_h, self.config, compute_dtype=self.compute_dtype)
         return self._first_token(logits, self._tensor(seen_row), state, slot, prompt_len, gen,
-                                 seed)
+                                 seed, adapter_idx)
 
     def paged_step(self, pool, state, live: np.ndarray, tables: np.ndarray) -> np.ndarray:
         """One decode step for every slot: feed each slot's last token at
@@ -590,12 +631,13 @@ class Generator:
         writes to the null block) and keep their state. Returns the tokens
         [slots] on the host."""
         pos = state["pos"]
+        params = self._view(state)
         hidden, _ = forward(
-            self.params, state["last"][:, None], self.config, cache=pool, cache_pos=pos,
+            params, state["last"][:, None], self.config, cache=pool, cache_pos=pos,
             block_tables=self._tensor(tables), compute_dtype=self.compute_dtype,
-            output_hidden=True,
+            output_hidden=True, adapter_idx=self._row_adapters(state, live),
         )
-        logits = unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
+        logits = unembed(params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
         return self._advance_slots(logits, state, live, pos + 1).cpu().numpy()
 
     # ------------------------------------------------------- host KV tier
@@ -749,9 +791,11 @@ class Generator:
         Returns ``(toks [S, K+1], n_emit [S])`` on the host."""
         drafts, n_draft_t, inputs = self._spec_inputs(state, drafts, n_draft)
         pos = state["pos"]
-        hidden, _ = forward(self.params, inputs, self.config, cache=cache, cache_pos=pos,
-                            compute_dtype=self.compute_dtype, output_hidden=True)
-        logits_all = unembed(self.params, hidden, self.config, compute_dtype=self.compute_dtype)
+        params = self._view(state)
+        hidden, _ = forward(params, inputs, self.config, cache=cache, cache_pos=pos,
+                            compute_dtype=self.compute_dtype, output_hidden=True,
+                            adapter_idx=self._row_adapters(state, live))
+        logits_all = unembed(params, hidden, self.config, compute_dtype=self.compute_dtype)
         toks, n_emit, live_t = self._spec_verify(state, live, drafts, n_draft_t, logits_all)
         buf_len = cache["layers"]["0"]["k"].shape[1]
         state["pos"] = torch.where(live_t, (pos + n_emit).clamp(max=buf_len - 1), pos)
@@ -766,10 +810,11 @@ class Generator:
         ``(toks [S, K+1], n_emit [S])`` on the host."""
         drafts, n_draft_t, inputs = self._spec_inputs(state, drafts, n_draft)
         pos = state["pos"]
-        hidden, _ = forward(self.params, inputs, self.config, cache=pool, cache_pos=pos,
+        params = self._view(state)
+        hidden, _ = forward(params, inputs, self.config, cache=pool, cache_pos=pos,
                             block_tables=self._h2d(tables), compute_dtype=self.compute_dtype,
-                            output_hidden=True)
-        logits_all = unembed(self.params, hidden, self.config, compute_dtype=self.compute_dtype)
+                            output_hidden=True, adapter_idx=self._row_adapters(state, live))
+        logits_all = unembed(params, hidden, self.config, compute_dtype=self.compute_dtype)
         toks, n_emit, live_t = self._spec_verify(state, live, drafts, n_draft_t, logits_all)
         state["pos"] = torch.where(live_t, pos + n_emit, pos)
         return self._spec_readback(toks, n_emit)

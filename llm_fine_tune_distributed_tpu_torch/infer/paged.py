@@ -112,10 +112,11 @@ class PrefixCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def block_keys(self, prompt: Sequence[int]) -> List[bytes]:
-        """One key per FULL prompt block (cumulative token bytes): the same
-        keys the fleet router scores affinity with (``infer/routing``)."""
-        return prefix_block_keys(prompt, self.block_len)
+    def block_keys(self, prompt: Sequence[int], adapter: Optional[str] = None) -> List[bytes]:
+        """One key per FULL prompt block (cumulative token bytes, salted
+        with a tenant's adapter name): the same keys the fleet router scores
+        affinity with (``infer/routing``)."""
+        return prefix_block_keys(prompt, self.block_len, adapter)
 
     def resident_run(self, keys: Sequence[bytes]) -> int:
         """How many LEADING keys are cached: a read-only probe for the

@@ -20,8 +20,6 @@ deterministic.
 
 Degraded replicas (terminal, draining, mid-recovery) are excluded before
 scoring; the fleet (``infer/fleet.py``) decides what that means end to end.
-The port's replicas hold no adapters yet, so ``adapter_hits`` stays 0 in
-every view the fleet builds.
 """
 
 from __future__ import annotations
@@ -43,19 +41,29 @@ ROUTING_POLICIES = ("prefix", "least-loaded", "round-robin")
 REPLICA_ROLES = ("mixed", "prefill", "decode")
 
 
-def prefix_block_keys(prompt: Sequence[int], block_len: int) -> List[bytes]:
+def prefix_block_keys(prompt: Sequence[int], block_len: int,
+                      adapter: Optional[str] = None) -> List[bytes]:
     """One key per FULL leading prompt block: the raw bytes of the prompt's
     first ``(i+1) * block_len`` tokens as int32 (cumulative, so key i
     matches iff every token through the end of block i matches — exact
-    match, never a hash). Shared by PrefixCache (cache index) and the
-    fleet router (affinity scoring); a partial trailing block gets no key.
+    match, never a hash). Shared by PrefixCache (cache index), the host
+    tier and the fleet router (affinity scoring); a partial trailing block
+    gets no key.
+
+    ``adapter``: a tenant's LoRA adapter changes ``k_proj`` and ``v_proj``,
+    so its blocks hold other K/V than the base model's for the same tokens.
+    Its keys are salted with its name (``name + b"\\0"`` before the token
+    bytes), so a tenant never reuses blocks cached under the base model or
+    another tenant. A base request (None) keeps the JAX package's keys. The
+    JAX function has no salt, and its paged engine does reuse them.
     """
     L = int(block_len)
     if L <= 0:
         raise ValueError(f"block_len must be positive, got {block_len}")
     n = len(prompt) // L
     arr = np.asarray(list(prompt[: n * L]), np.int32)
-    return [arr[: (i + 1) * L].tobytes() for i in range(n)]
+    salt = adapter.encode() + b"\0" if adapter is not None else b""
+    return [salt + arr[: (i + 1) * L].tobytes() for i in range(n)]
 
 
 @dataclass

@@ -9,7 +9,7 @@ one engine on one card):
   POST /v1/generate  {"question": ..., optional "system_prompt", "greedy",
                       "seed", "max_new_tokens", "temperature", "top_p",
                       "top_k", "repetition_penalty", "speculative",
-                      "priority", "deadline_ms", "trace"}
+                      "priority", "deadline_ms", "trace", "adapter"}
                      -> {"answer": ...}, plus a "speculative" block (the
                      request's own acceptance rate and draft counts) when
                      it asked to speculate, and with "trace": true on a
@@ -119,6 +119,16 @@ fleet that can grow even from one replica. Each replica writes its flight
 dumps to ``<--flight-dir>/replica<i>`` and its traces to
 ``<--trace-log>.replica<i>``. SIGTERM drains every replica.
 
+Multi-tenant LoRA (the slot engines, as in the JAX server): ``--adapter-dir
+DIR`` serves every PEFT-layout adapter under DIR beside the base model;
+``"adapter": NAME`` on ``/v1/generate`` and ``/v1/stream`` runs the request
+with that tenant's delta inside the shared batch (``infer/adapters.py``).
+Each replica has its own registry of ``--max-adapters`` slots (slot 0 the
+base model) and ``--adapter-capacity`` bounds each tenant's requests in
+flight (0: unbounded). An unknown name answers 404 with the known list, a
+full pool or a tenant over its quota 429 with Retry-After; a server without
+``--adapter-dir`` answers 404, the window engine 400.
+
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
 [--quantize int8] [--speculative K [--draft-dir DIR]]``. It serves on the GPU;
@@ -146,6 +156,7 @@ import torch
 
 from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
 from llm_fine_tune_distributed_tpu_torch.device import resolve_device
+from llm_fine_tune_distributed_tpu_torch.infer.adapters import AdapterRegistry
 from llm_fine_tune_distributed_tpu_torch.infer.batching import PRIORITY_TIERS, BatchingEngine
 from llm_fine_tune_distributed_tpu_torch.infer.engine import (
     ContinuousBatchingEngine,
@@ -195,8 +206,6 @@ _FIELD_CASTS = {
     "top_k": int,
     "repetition_penalty": float,
 }
-# request fields of the JAX server whose features are not ported
-_UNPORTED_FIELDS = ("adapter",)
 # the JAX server's 404 bodies of the routes that need a slot engine or a
 # feature the port has not
 _NEEDS_SLOT_ENGINE = {
@@ -260,6 +269,23 @@ def check_engine(engine: str, quantize_kv: str, speculative_k: int = 0,
             "instead takes per-request speculation via POST /v1/generate "
             "with 'speculative': K — drop --speculative or pick "
             "--engine continuous|paged"
+        )
+
+
+def check_adapters(engine: str, adapter_dir: Optional[str]) -> None:
+    """Refuse ``--adapter-dir`` on the window engine or when it is not a
+    directory, before any weight loads (the JAX server's refusals)."""
+    if adapter_dir and engine == "window":
+        raise ValueError(
+            "--adapter-dir (multi-tenant LoRA serving) needs a continuous/"
+            "paged engine (per-request adapter deltas are gathered inside "
+            "the fused slot batch, which the window batcher does not run); "
+            "drop --adapter-dir or pick --engine continuous|paged"
+        )
+    if adapter_dir and not os.path.isdir(adapter_dir):
+        raise ValueError(
+            f"--adapter-dir not found: {adapter_dir!r} (expected a "
+            "directory of PEFT-layout adapter subdirectories)"
         )
 
 
@@ -442,6 +468,9 @@ def build_server(
     max_replicas: int = 0,
     scale_cooldown_s: float = 30.0,
     autoscale_ratio: bool = False,
+    adapter_dir: Optional[str] = None,
+    max_adapters: int = 8,
+    adapter_capacity: int = 0,
     control: Optional[dict] = None,
 ):
     """Start an ``engine`` over ``generator`` and bind an HTTP server to it.
@@ -462,9 +491,12 @@ def build_server(
     then shuts the server down. ``replicas`` ... ``autoscale_ratio`` are the
     fleet settings of the JAX server (``check_fleet``); with a fleet the
     returned engine is the ``EngineFleet``, and ``httpd.autoscaler`` its
-    autoscaler."""
+    autoscaler. ``adapter_dir`` serves the LoRA adapters under it, each
+    replica through its own ``AdapterRegistry`` of ``max_adapters`` slots,
+    with ``adapter_capacity`` requests in flight per tenant (0: unbounded)."""
     speculative_k = max(0, int(speculative_k or 0))
     check_engine(engine, quantize_kv, speculative_k)
+    check_adapters(engine, adapter_dir)
     roles = check_fleet(engine, replicas, routing, autoscale, min_replicas, max_replicas,
                         host_tier_mb, migrate_on_retire, replica_roles, autoscale_ratio)
     replicas = max(1, int(replicas or 1))
@@ -505,6 +537,14 @@ def build_server(
                                        error_rate=slo_error_rate, availability=slo_availability,
                                        fast_window_s=slo_fast_window_s,
                                        slow_window_s=slo_slow_window_s))
+        if adapter_dir:
+            # a registry per replica: residency is the replica's own (the
+            # router sends a tenant where its adapter is), and the pools are
+            # written in place, so a shared one would let one replica's
+            # eviction pull a slot another decodes with
+            kw["adapters"] = AdapterRegistry(generator.params, adapter_dir,
+                                             max_adapters=max_adapters)
+            kw["adapter_quota"] = adapter_capacity
         if fleet:
             if kw["flight_dir"]:
                 kw["flight_dir"] = os.path.join(kw["flight_dir"], f"replica{i}")
@@ -645,10 +685,12 @@ def build_server(
                 series = [(label, per[label], by_id[int(label)].stats.hist)
                           for label in sorted(per, key=int) if int(label) in by_id]
                 hists = engine.merged_histograms()
+                tenant_hists = engine.merged_tenant_histograms()
             else:
                 hists = engine.stats.hist
+                tenant_hists = engine.stats.tenant_histograms()
             return prometheus_exposition(snap, hists, memory=device_memory_report(),
-                                         replicas=series)
+                                         replicas=series, tenant_histograms=tenant_hists)
 
         def _history(self, query: str) -> None:
             """The metric ring's trailing series of one sampled counter or
@@ -699,15 +741,12 @@ def build_server(
 
         def _parse(self):
             """The request body -> (prompt ids, GenerationConfig, seed, the
-            body, priority, deadline_s); ValueError, KeyError or TypeError
-            for a bad body."""
+            body, priority, deadline_s, trace wanted, adapter); ValueError,
+            KeyError or TypeError for a bad body."""
             length = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(length) or b"{}")
             if not isinstance(req, dict):
                 raise TypeError("body must be a JSON object")
-            unported = [k for k in _UNPORTED_FIELDS if k in req]
-            if unported:
-                raise ValueError(f"{unported} not supported by this server")
             want_trace = bool(req.get("trace", False))
             question = req["question"]
             gen_kwargs = {k: cast(req[k]) for k, cast in _FIELD_CASTS.items() if k in req}
@@ -715,6 +754,29 @@ def build_server(
                 gen_kwargs["do_sample"] = not req["greedy"]
             if "speculative" in req:
                 gen_kwargs["speculative_lookup"] = int(req["speculative"])
+            adapter = req.get("adapter") or None
+            if adapter is not None and not isinstance(adapter, str):
+                raise ValueError("'adapter' must be a string adapter name")
+            if adapter and kind == "window":
+                # the window batcher has no adapter pool: per-request deltas
+                # ride the slot batch only
+                raise ValueError(
+                    "'adapter' needs a continuous/paged engine started "
+                    "with --adapter-dir; this server runs the window "
+                    "engine — supported: requests without 'adapter' "
+                    "(base model), or a server started with "
+                    "--engine continuous|paged --adapter-dir DIR"
+                )
+            if adapter and gen_kwargs.get("speculative_lookup", 0) > 0 and not speculative_k:
+                # a speculative request on a K=0 slot engine falls back to
+                # the window engine, which has no adapter pool
+                raise ValueError(
+                    "'adapter' with 'speculative' needs the server "
+                    "started with --speculative K (on a K=0 engine "
+                    "speculative requests fall back to the window "
+                    "engine, which has no adapter pool); drop "
+                    "'speculative' or restart with --speculative K"
+                )
             priority, deadline_s = parse_overload_fields(req, kind)
             if ((priority is not None or deadline_s is not None)
                     and gen_kwargs.get("speculative_lookup", 0) > 0 and not speculative_k):
@@ -733,7 +795,7 @@ def build_server(
             ]
             prompt_ids = generator.encode_chat(messages, **(template_kwargs or {}))
             return (prompt_ids, GenerationConfig(**gen_kwargs), int(req.get("seed", 0)), req,
-                    priority, deadline_s, want_trace)
+                    priority, deadline_s, want_trace, adapter)
 
         def _profile(self) -> None:
             """POST /v1/profile: start a bounded capture (404 without
@@ -802,7 +864,7 @@ def build_server(
                 self._profile()
                 return
             try:
-                prompt_ids, gen, seed, req, priority, deadline_s, want_trace = self._parse()
+                prompt_ids, gen, seed, req, priority, deadline_s, want_trace, adapter = self._parse()
                 stream_chunk = int(req.get("stream_chunk", 8))
                 if stream_chunk < 1:
                     raise ValueError(f"stream_chunk must be >= 1, got {stream_chunk}")
@@ -812,6 +874,8 @@ def build_server(
                 self._send(400, {"error": f"bad request: {e}"})
                 return
             overload = {} if kind == "window" else dict(priority=priority, deadline_s=deadline_s)
+            if adapter is not None:
+                overload["adapter"] = adapter
             if self.path == "/v1/stream":
                 self._stream(prompt_ids, gen, seed, stream_chunk, overload)
                 return
@@ -998,9 +1062,10 @@ def run_server(httpd, engine) -> None:
 
 def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 8080,
           quantize: str = "none", engine: str = "continuous", quantize_kv: str = "none",
-          speculative_k: int = 0, draft_dir: Optional[str] = None, **engine_kw) -> None:
+          speculative_k: int = 0, draft_dir: Optional[str] = None,
+          adapter_dir: Optional[str] = None, **engine_kw) -> None:
     """Load ``model_dir`` onto ``device`` and serve it until interrupted or
-    drained (SIGTERM).
+    drained (SIGTERM). ``adapter_dir`` serves the LoRA adapters under it.
     Weights and compute are bf16 on the GPU and f32 on the CPU (which has no
     fast bf16, and where the tests compare with the JAX package in f32);
     ``quantize="int8"`` then stores the block linears as int8 codes.
@@ -1008,6 +1073,7 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     vocabulary beside the target."""
     check_quantize_mode(quantize)  # before the model loads
     check_engine(engine, quantize_kv, speculative_k, draft_dir)
+    check_adapters(engine, adapter_dir)
     check_fleet(engine, **{k: engine_kw[k] for k in _FLEET_FLAGS if k in engine_kw})
     device = resolve_device(device)
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -1022,7 +1088,8 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
         compute_dtype=compute_dtype, device=device, **draft,
     )
     httpd, eng = build_server(generator, host=host, port=port, engine=engine,
-                              quantize_kv=quantize_kv, speculative_k=speculative_k, **engine_kw)
+                              quantize_kv=quantize_kv, speculative_k=speculative_k,
+                              adapter_dir=adapter_dir, **engine_kw)
     spec = f", speculative {speculative_k}" + (f" drafting with {draft_dir}" if draft_dir else "")
     fleet = (f", {len(eng.replicas)} replicas ({eng.routing})"
              if isinstance(eng, EngineFleet) else "")
@@ -1111,6 +1178,16 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--draft-dir", default=None, metavar="DIR",
                         help="model directory of a draft model of the same vocabulary for "
                              "--speculative (default: prompt lookup)")
+    parser.add_argument("--adapter-dir", default=None,
+                        help="continuous/paged engines: directory of PEFT-layout LoRA adapter "
+                             "subdirectories for multi-tenant serving; requests name one with "
+                             "'adapter' and co-batch against the shared base model")
+    parser.add_argument("--max-adapters", type=int, default=8,
+                        help="adapter pool depth: up to N-1 adapters resident at once (slot 0 is "
+                             "the base model); idle adapters are evicted LRU, pinned ones never")
+    parser.add_argument("--adapter-capacity", type=int, default=0, metavar="N",
+                        help="per-tenant admission quota: max in-flight requests per adapter "
+                             "name before a tenant-scoped 429 + Retry-After (0 = unlimited)")
     parser.add_argument("--max-queue-depth", type=int, default=256,
                         help="bounded admission: requests beyond this many waiters are shed "
                              "with 429 + Retry-After (0 = unbounded)")
@@ -1198,6 +1275,7 @@ def main(argv: Optional[list] = None) -> int:
     fleet_kw = {k: getattr(args, k) for k in _FLEET_FLAGS}
     try:
         check_engine(args.engine, args.quantize_kv, args.speculative, args.draft_dir)
+        check_adapters(args.engine, args.adapter_dir)
         check_fleet(args.engine, **fleet_kw)
     except ValueError as e:
         parser.error(str(e))
@@ -1225,7 +1303,8 @@ def main(argv: Optional[list] = None) -> int:
         slo_availability=args.slo_availability, slo_fast_window_s=args.slo_fast_window_s,
         slo_slow_window_s=args.slo_slow_window_s,
         slo_sample_interval_s=args.slo_sample_interval_s,
-        scale_cooldown_s=args.scale_cooldown_s, **fleet_kw,
+        scale_cooldown_s=args.scale_cooldown_s, adapter_dir=args.adapter_dir,
+        max_adapters=args.max_adapters, adapter_capacity=args.adapter_capacity, **fleet_kw,
     )
     return 0
 

@@ -10,9 +10,11 @@ Ported branches: the dense SwiGLU model (SmolLM3, Llama) with optional
 linear biases, RoPE with SmolLM3's NoPE layers and rope scaling, the
 no-cache forward with a padding mask, the flash or plain attention and
 per-block rematerialization (training), the frozen trunk in w8a8 int8,
-weight-only int8 kernels (inference), the dense KV cache (``init_cache``)
-and the block-paged KV cache in bf16 or int8 (``init_paged_cache``). Other
-branches raise ``NotImplementedError``.
+weight-only int8 kernels (inference), LoRA adapters (a single adapter's
+``lora_*`` leaves, or the adapter registry's pools with a per-row
+``adapter_idx``), the dense KV cache (``init_cache``) and the block-paged
+KV cache in bf16 or int8 (``init_paged_cache``). Other branches raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -125,23 +127,45 @@ def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
 
 
 def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
-            trunk_matmul=None) -> torch.Tensor:
-    """x @ kernel (+ bias) in ``compute_dtype``. The int8 siblings
+            trunk_matmul=None, adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ kernel (+ LoRA) (+ bias) in ``compute_dtype``. The int8 siblings
     ``kernel_int8`` / ``kernel_int8_scale`` run through ``trunk_matmul``
     (w8a8) in the frozen trunk (``trunk_matmul`` given) and through
-    ``ops.int8.int8_matmul`` (weight-only) elsewhere."""
+    ``ops.int8.int8_matmul`` (weight-only) elsewhere.
+
+    LoRA, as in the JAX ``_linear``, on either kernel: ``lora_a [in, r]`` /
+    ``lora_b [r, out]`` / ``lora_scale`` leaves beside the kernel add
+    ``(x @ A) @ B * scale``. The adapter registry's pooled leaves
+    (``infer/adapters.py``) ``lora_a_pool [N, in, r]`` / ``lora_b_pool
+    [N, r, out]`` / ``lora_scale_pool [N]`` add each row's own delta,
+    picked by ``adapter_idx [batch]`` with the same arithmetic (a gather,
+    two batched products, the scale), so tenants co-batch in one forward.
+    Pool row 0 is all zeros: its rows' delta is exactly zero. Both come
+    before the bias."""
     codes = params.get(name + ".kernel_int8")
     if codes is not None:
         q = {"int8": codes, "int8_scale": params[name + ".kernel_int8_scale"]}
         y = (trunk_matmul or int8_matmul)(x, q, compute_dtype)
     else:
         kernel = params.get(name + ".kernel")
-        if kernel is None or name + ".lora_a" in params:
+        if kernel is None:
             raise NotImplementedError(
-                f"{name}: only plain and int8 kernels (+ bias) are ported; LoRA and NF4 "
+                f"{name}: only plain and int8 kernels (+ LoRA, + bias) are ported; NF4 "
                 "weights are in llm_fine_tune_distributed_tpu.models.transformer._linear"
             )
         y = x @ kernel.to(compute_dtype)
+    lora_a = params.get(name + ".lora_a")
+    if lora_a is not None:
+        a = lora_a.to(compute_dtype)
+        b = params[name + ".lora_b"].to(compute_dtype)
+        y = y + (x @ a) @ b * params[name + ".lora_scale"].to(compute_dtype)
+    pool_a = params.get(name + ".lora_a_pool") if adapter_idx is not None else None
+    if pool_a is not None:
+        # row i computes with adapter adapter_idx[i]'s A, B and scale
+        a = pool_a.index_select(0, adapter_idx).to(compute_dtype)
+        b = params[name + ".lora_b_pool"].index_select(0, adapter_idx).to(compute_dtype)
+        sc = params[name + ".lora_scale_pool"].index_select(0, adapter_idx).to(compute_dtype)
+        y = y + torch.bmm(torch.bmm(x, a), b) * sc[:, None, None]
     bias = params.get(name + ".bias")
     if bias is not None:
         y = y + bias.to(compute_dtype)
@@ -166,15 +190,17 @@ def _dense_write(buf: torch.Tensor, slots: torch.Tensor, x: torch.Tensor) -> Non
 
 def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
            block_tables, padding_mask, write_slots, *, config: ModelConfig, compute_dtype,
-           decode_attention, attention_impl: str, attention_fn, trunk_matmul=None):
+           decode_attention, attention_impl: str, attention_fn, trunk_matmul=None,
+           adapter_idx=None):
     """One transformer block; updates a cache ``entry`` (paged, or dense at
-    ``write_slots``) in place."""
+    ``write_slots``) in place. ``adapter_idx`` picks each row's pooled
+    adapter in the seven projections."""
     b, s, _ = x.shape
     d = config.resolved_head_dim
     eps = config.rms_norm_eps
     p = f"model.layers.{i}."
     linear = functools.partial(_linear, params=params, compute_dtype=compute_dtype,
-                               trunk_matmul=trunk_matmul)
+                               trunk_matmul=trunk_matmul, adapter_idx=adapter_idx)
 
     hid = rms_norm(x, params[p + "input_layernorm.weight"], eps)
     q = linear(hid, name=p + "self_attn.q_proj").reshape(b, s, config.num_heads, d)
@@ -289,6 +315,7 @@ def forward(
     frozen_layers: int = 0,
     frozen_compute: str = "bf16",
     trunk_matmul=int8_w8a8_matmul,
+    adapter_idx: Optional[torch.Tensor] = None,
 ):
     """Run the model.
 
@@ -322,6 +349,10 @@ def forward(
     ``trunk_matmul(x, q, compute_dtype)`` (the w8a8 kernel's entry). The tied
     embedding's gradient through the trunk is dropped, as in the JAX package.
     ``"bf16"`` or ``frozen_layers=0`` leaves the forward as it is.
+
+    ``adapter_idx`` [batch] (int): each row's slot in the adapter
+    registry's pooled LoRA leaves (``infer/adapters.py``); None runs no
+    pooled delta (every row on the base model, slot 0).
 
     ``decode_attention``, ``attention_fn`` and ``trunk_matmul`` default to
     the kernels' wrappers; a caller may pass another function of the same
@@ -365,6 +396,8 @@ def forward(
         k_pos = torch.arange(kv_len, device=device)[None, None, :]
         explicit_mask = k_pos <= positions[:, :, None]
 
+    if adapter_idx is not None:
+        adapter_idx = adapter_idx.to(device=device, dtype=torch.long)
     rematerialize = remat and cache is None and torch.is_grad_enabled()
     trunk = frozen_layers if frozen_compute == "int8" and cache is None else 0
     for i in range(config.num_layers):
@@ -373,6 +406,7 @@ def forward(
             _block, params, i, config=config, compute_dtype=compute_dtype,
             decode_attention=decode_attention, attention_impl=attention_impl,
             attention_fn=attention_fn, trunk_matmul=trunk_matmul if i < trunk else None,
+            adapter_idx=adapter_idx,
         )
         args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask,
                 write_slots)

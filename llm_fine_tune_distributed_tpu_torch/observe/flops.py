@@ -83,33 +83,37 @@ class DecodeWork:
     which ``decode_work_cost`` gives their FLOPs and bytes: the per-row
     counts of ``decode_tick_cost`` are linear in them. ``sums`` is
     ``(ticks, sum q_r, sum q_r * P_r, sum P_r, sum ceil(P_r / block_len),
-    seconds)``, one tuple replaced whole by each ``add``, so a reader on
-    another thread sees whole ticks."""
+    sum adapters, seconds)``, one tuple replaced whole by each ``add``, so a
+    reader on another thread sees whole ticks."""
 
     def __init__(self):
-        self.sums: Tuple[int, int, int, int, int, float] = (0, 0, 0, 0, 0, 0.0)
+        self.sums: Tuple[int, int, int, int, int, int, float] = (0, 0, 0, 0, 0, 0, 0.0)
 
     def add(self, positions: Sequence[int], queries: Sequence[int], block_len: int = 0,
-            seconds: float = 0.0) -> None:
+            seconds: float = 0.0, adapters: int = 0) -> None:
         """One dispatch: row ``r`` attends ``positions[r]`` positions with
         ``queries[r]`` query positions; ``block_len`` > 0 counts each row's
         KV blocks (an int8 pool's scales); ``seconds`` is the dispatch's
-        time."""
-        ticks, q, qp, p, blocks, s = self.sums
+        time; ``adapters`` is the number of distinct LoRA adapters its live
+        rows gathered (0 on a base-only dispatch)."""
+        ticks, q, qp, p, blocks, n_adapters, s = self.sums
         for pr, qr in zip(positions, queries):
             q += qr
             qp += qr * pr
             p += pr
             if block_len:
                 blocks += -(-pr // block_len)
-        self.sums = (ticks + 1, q, qp, p, blocks, s + seconds)
+        self.sums = (ticks + 1, q, qp, p, blocks, n_adapters + int(adapters), s + seconds)
 
 
 def decode_work_cost(mc: ModelConfig, sums: Sequence, *, weight_bytes: int, kv_itemsize: int,
-                     scale_itemsize: int = 0) -> Tuple[float, float]:
+                     scale_itemsize: int = 0, adapter_bytes: int = 0) -> Tuple[float, float]:
     """``(flops, bytes)`` of the dispatches summed in ``DecodeWork.sums``:
-    ``decode_tick_cost`` per dispatch, added up."""
-    ticks, q, qp, p, blocks, _ = sums
+    ``decode_tick_cost`` per dispatch, added up, plus ``adapter_bytes`` (one
+    LoRA pool slot's factors) per adapter a dispatch gathered: each adapter
+    read once, as the weights are. The LoRA FLOPs are left out (at r 16 they
+    are 1-2% of the base projections')."""
+    ticks, q, qp, p, blocks, adapters, _ = sums
     L, h, V = mc.num_layers, mc.hidden_size, mc.vocab_size
     hkv = mc.num_kv_heads
     kv_row = L * 2 * hkv * mc.resolved_head_dim * kv_itemsize  # one position's K and V
@@ -117,7 +121,7 @@ def decode_work_cost(mc: ModelConfig, sums: Sequence, *, weight_bytes: int, kv_i
     per_position = layer_matmul_flops_per_token(mc, 1) - layer0  # the score/value products
     flops = q * (L * layer0 + 2.0 * h * V) + qp * L * per_position
     nbytes = (ticks * weight_bytes + (p + q) * kv_row + q * V * 4
-              + blocks * L * 2 * hkv * scale_itemsize)
+              + blocks * L * 2 * hkv * scale_itemsize + adapters * adapter_bytes)
     return float(flops), float(nbytes)
 
 

@@ -5,9 +5,9 @@
   one line per record on stdout, and the atomic ``training_history.json``
   writer. The Aim and JSONL sinks are not ported;
 - ``ServingStats``, the serving engines' counters, gauges and latency
-  histograms (``GET /v1/stats``), with the JAX package's whole schema:
-  counters of features that are not ported (adapters, hot-swap, the host
-  KV tier, fleets) exist and stay 0;
+  histograms (``GET /v1/stats``), with the JAX package's whole schema
+  (counters of features that are not ported, hot-swap's, exist and stay
+  0), the per-tenant records and latency histograms included;
 - ``prometheus_exposition``, the ``GET /metrics`` text of a snapshot.
 """
 
@@ -78,7 +78,12 @@ class ServingStats:
     queue deadline or the client's), ``requests_shed_deadline_decode``
     (the client's deadline after admission), ``preemptions``, the
     tier-labelled sheds (``tier_shed_incr``), the waste reasons and the
-    ``brownout_stage`` gauge. Supervision moves ``engine_restarts`` and the
+    ``brownout_stage`` gauge. Multi-tenant LoRA moves ``adapter_loads``,
+    ``adapter_evictions``, ``requests_shed_tenant_quota``, the
+    ``adapters_resident`` gauge and one ``{requests, tokens, queue_depth}``
+    record per tenant ever admitted (``tenant_incr``; the snapshot's
+    ``per_tenant``), beside per-tenant TTFT and inter-token histograms
+    (``tenant_observe``), created at a tenant's first observation. Supervision moves ``engine_restarts`` and the
     ``engine_generation`` gauge; the engines' snapshots add the string
     ``circuit_state`` and the bool ``draining``, which the exposition turns
     into an ``_info`` label and a 0/1 gauge, as the JAX package's does. The
@@ -115,6 +120,9 @@ class ServingStats:
     # always present so /v1/stats and /metrics keep one schema at any load
     SHED_TIERS = ("interactive", "batch", "best_effort")
     WASTE_REASONS = ("deadline", "abandoned", "failover", "shed")
+    # the per-tenant record's key set, and the latency tails a tenant feels
+    TENANT_KEYS = ("requests", "tokens", "queue_depth")
+    TENANT_HIST_SPECS = ("ttft_s", "inter_token_s")
     # fixed log buckets (mergeable); spec_run_len counts tokens, so it gets
     # linear unit buckets
     HISTOGRAM_SPECS = (
@@ -129,6 +137,9 @@ class ServingStats:
         self._values: Dict[str, int] = {k: 0 for k in self.COUNTERS + self.GAUGES}
         self._tier_shed: Dict[str, int] = {t: 0 for t in self.SHED_TIERS}
         self._waste: Dict[str, int] = {r: 0 for r in self.WASTE_REASONS}
+        # tenant -> {TENANT_KEYS: int}, and tenant -> {TENANT_HIST_SPECS: Histogram}
+        self._tenants: Dict[str, Dict[str, int]] = {}
+        self._tenant_hist: Dict[str, Dict[str, Histogram]] = {}
         self.hist: Dict[str, Histogram] = {
             name: (Histogram.linear(0.0, 16.0, 1.0) if name == "spec_run_len"
                    else Histogram.exponential())
@@ -153,6 +164,38 @@ class ServingStats:
         """Ratcheting gauge: keep the high-water mark."""
         with self._lock:
             self._values[name] = max(self._values[name], int(value))
+
+    def tenant_incr(self, tenant: str, name: str, n: int = 1) -> None:
+        """Bump one tenant's counter (``TENANT_KEYS``). ``queue_depth`` also
+        goes down (-1 at settle) and is floored at 0."""
+        with self._lock:
+            rec = self._tenants.setdefault(tenant, {k: 0 for k in self.TENANT_KEYS})
+            rec[name] = max(rec[name] + n, 0)
+
+    def tenant_merge(self, per_tenant: Dict[str, Dict[str, int]]) -> None:
+        """Add another snapshot's ``per_tenant`` map into this one (a
+        fleet's replicas sum)."""
+        with self._lock:
+            for tenant, rec in per_tenant.items():
+                mine = self._tenants.setdefault(tenant, {k: 0 for k in self.TENANT_KEYS})
+                for k in self.TENANT_KEYS:
+                    mine[k] += int(rec.get(k, 0))
+
+    def tenant_observe(self, tenant: str, name: str, value: float) -> None:
+        """One observation into a tenant's latency histogram
+        (``TENANT_HIST_SPECS``), its set made at the first one."""
+        with self._lock:
+            hists = self._tenant_hist.get(tenant)
+            if hists is None:
+                hists = self._tenant_hist[tenant] = {
+                    k: Histogram.exponential() for k in self.TENANT_HIST_SPECS}
+        hists[name].observe(value)
+
+    def tenant_histograms(self) -> Dict[str, Dict[str, Histogram]]:
+        """The per-tenant histograms (a shallow copy of the map; the
+        histograms themselves are live and locked)."""
+        with self._lock:
+            return {t: dict(h) for t, h in self._tenant_hist.items()}
 
     def tier_shed_incr(self, tier: str, n: int = 1) -> None:
         """Bump one priority tier's shed counter (anything resolved with a
@@ -193,7 +236,7 @@ class ServingStats:
         with self._lock:
             out: Dict[str, Any] = dict(self._values)
             out["tokens_per_s_1m"] = self._tokens_rate(now, out["tokens_served"])
-            out["per_tenant"] = {}  # adapters are not ported: no tenants
+            out["per_tenant"] = {tenant: dict(rec) for tenant, rec in self._tenants.items()}
             out["requests_shed_by_tier"] = dict(self._tier_shed)
             out["wasted_tokens_by_reason"] = dict(self._waste)
         emitted = out["goodput_tokens"] + sum(out["wasted_tokens_by_reason"].values())
@@ -239,11 +282,14 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
                           prefix: str = "serving",
                           replicas: Optional[List[Tuple[str, Dict[str, Any],
                                                         Optional[Dict[str, Histogram]]]]] = None,
+                          tenant_histograms: Optional[Dict[str, Dict[str, Histogram]]] = None,
                           counters: Optional[set] = None) -> str:
     """An engine's or a fleet's ``stats_snapshot()``, live histograms and
     optional ``observe/profiler.device_memory_report()`` as Prometheus text
     (format 0.0.4), line for line the JAX package's exposition of the same
-    inputs (without its tenant-histogram series: adapters are not ported).
+    inputs. ``tenant_histograms`` (``ServingStats.tenant_histograms()`` or a
+    fleet's merge) adds the tenant-labelled latency histograms, whose TYPE
+    lines stand whenever a map (even empty) is given.
 
     ``replicas``: a fleet's ``(label, snapshot, histograms)`` per replica.
     Each aggregate sample is then followed by the same metric labelled
@@ -369,6 +415,15 @@ def prometheus_exposition(snap: Dict[str, Any], histograms: Optional[Dict[str, H
             lines.append(f"# TYPE {name} {kind}")
             for gen in sorted(per_gen, key=int):
                 lines.append(f'{name}{{generation="{gen}"}} {get(per_gen[gen]):.10g}')
+    if tenant_histograms is not None:
+        for key in ServingStats.TENANT_HIST_SPECS:
+            name = _prom_name(f"tenant_{key}", prefix)
+            lines.append(f"# TYPE {name} histogram")
+            for tenant in sorted(tenant_histograms):
+                h = tenant_histograms[tenant].get(key)
+                if h is not None:
+                    lines.extend(h.prometheus_lines(name, labels=f'tenant="{tenant}"',
+                                                    include_type=False))
     for key in histograms or {}:
         name = _prom_name(key, prefix)
         lines.extend(histograms[key].prometheus_lines(name))

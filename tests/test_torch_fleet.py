@@ -12,12 +12,11 @@ weights in both):
 - on the tiny model, two fleets fed the same stream place it the same (and
   as the JAX fleet places it), prefix affinity follows the replica's cache,
   a replica that dies sheds its queue to the survivor with solo tokens,
-  drain fans out, and the snapshot's sums and maxima hold.
-
-The two adapter cases of the JAX file
-(``test_choose_replica_adapter_affinity_outranks_prefix`` and
-``test_fleet_routes_tenant_back_to_adapter_resident_replica``) wait for the
-port's adapters.
+  drain fans out, and the snapshot's sums and maxima hold;
+- adapter residency outranks prefix depth in placement, and a tenant's
+  requests follow its adapter to the one replica that loaded it, with the
+  fleet's per-tenant merge and router counter the JAX fleet's; a tenant's
+  affinity keys are salted with its adapter's name (base keys unchanged).
 """
 
 import threading
@@ -559,3 +558,95 @@ def test_fleet_stats_aggregate_math(pair):
     assert port["sums"]["tokens_served"][0] == len(_prompts()) * 6
     assert port["generation"][0] == port["generation"][1] and port["ttft"][0] == port["ttft"][1]
     assert port["fleet"] == (2, "prefix", 2, 2) and port["routed"] == len(_prompts())
+
+
+# ------------------------------------------------- adapter-affinity routing
+
+
+def test_choose_replica_adapter_affinity_outranks_prefix():
+    """A replica holding the request's adapter wins against a deeper prefix
+    run elsewhere; prefix depth orders the adapter-resident set; other
+    policies ignore adapter residency (the JAX function's placements)."""
+    p = _choose("prefix", **{"1": {"prefix_hits": 3}, "2": {"adapter_hits": 1}})
+    assert (p.index, p.reason) == (2, "adapter_affinity")
+    p = _choose("prefix", **{"0": {"adapter_hits": 1}, "1": {"adapter_hits": 1, "prefix_hits": 2},
+                             "2": {"prefix_hits": 5}})
+    assert (p.index, p.reason) == (1, "adapter_affinity")
+    assert _choose("least-loaded", **{"2": {"adapter_hits": 1}}).reason == "least_loaded"
+
+
+def test_tenant_prefix_keys_are_salted():
+    """A tenant's keys are its adapter's name, a zero byte, then the JAX
+    key bytes: they never equal the base model's or another tenant's, and
+    the prefix cache and the router make the same ones."""
+    prompt = list(range(11))
+    base = prefix_block_keys(prompt, 4)
+    acme = prefix_block_keys(prompt, 4, "acme")
+    assert acme == [b"acme\0" + k for k in base]
+    assert not set(acme) & set(base) and not set(acme) & set(prefix_block_keys(prompt, 4, "x"))
+    assert PrefixCache(BlockAllocator(8), block_len=4).block_keys(prompt, "acme") == acme
+
+
+def _tenant_affinity(side, adapter_dir):
+    fleet = side["fleet"]([side["paged"](side["gen"], slots=4, buf_len=96, prompt_bucket=16,
+                                         block_len=16, prefill_chunk=32,
+                                         restart_backoff_s=0.01, restart_backoff_max_s=0.02,
+                                         adapters=side["registry"](side["base"], adapter_dir,
+                                                                   max_adapters=4))
+                           for _ in range(2)], routing="prefix")
+    try:
+        prompts = _prompts()
+        out = [list(fleet.submit(prompts[0], _greedy(side), timeout=TIMEOUT, adapter="acme"))]
+        home = [i for i, rep in enumerate(fleet.replicas) if rep.adapter_resident("acme")]
+        for p in prompts[1:]:
+            out.append(list(fleet.submit(p, _greedy(side), timeout=TIMEOUT, adapter="acme")))
+        after = [i for i, rep in enumerate(fleet.replicas) if rep.adapter_resident("acme")]
+        placements = fleet.recent_placements()
+        snap = fleet.stats_snapshot()
+        fleet.submit(prompts[0], _greedy(side), timeout=TIMEOUT)  # a base request
+        return {"tokens": out, "home": home, "after": after,
+                "first": placements[0][1] in ("least_loaded", "prefix_affinity"),
+                "later": [r for _, r in placements[1:]],
+                "routed_adapter": snap["requests_routed_adapter_affinity"],
+                "per_tenant": snap["per_tenant"], "adapters_resident": snap["adapters_resident"],
+                "base_reason": fleet.recent_placements()[-1][1]}
+    finally:
+        _close(fleet)
+
+
+def test_fleet_routes_tenant_back_to_adapter_resident_replica(pair, tmp_path):
+    """The tenant's first request loads its adapter on one replica; every
+    later one routes back there ("adapter_affinity"), so one load serves
+    its whole stream; the fleet's per-tenant map sums the tokens; a base
+    request never takes adapter affinity. The JAX fleet's record."""
+    import jax
+    import jax.numpy as jnp
+
+    from llm_fine_tune_distributed_tpu.config import TrainConfig
+    from llm_fine_tune_distributed_tpu.infer.adapters import AdapterRegistry as JaxRegistry
+    from llm_fine_tune_distributed_tpu.parallel.lora import add_lora_params, save_lora_adapter
+    from llm_fine_tune_distributed_tpu_torch.infer.adapters import AdapterRegistry
+
+    jbase = pair["jax"]["gen"].params
+    params = add_lora_params(jbase, jax.random.PRNGKey(7), rank=4, alpha=8.0)
+
+    def bump(node):
+        if isinstance(node, dict):
+            if "lora_b" in node:
+                return {**node, "lora_b": jnp.ones_like(node["lora_b"]) * 0.01}
+            return {k: bump(v) for k, v in node.items()}
+        return node
+
+    save_lora_adapter(bump(params), str(tmp_path / "acme"),
+                      TrainConfig(freeze_strategy="lora", lora_rank=4, lora_alpha=8.0))
+    sides = {"jax": dict(pair["jax"], registry=JaxRegistry, base=jbase),
+             "port": dict(pair["port"], registry=AdapterRegistry,
+                          base=pair["port"]["gen"].params)}
+    out = {name: _tenant_affinity(side, str(tmp_path)) for name, side in sides.items()}
+    port = out["port"]
+    assert len(port["home"]) == 1 and port["after"] == port["home"] and port["first"]
+    assert port["later"] == ["adapter_affinity"] * (len(_prompts()) - 1)
+    assert port["routed_adapter"] == len(_prompts()) - 1
+    assert port["per_tenant"]["acme"] == {"requests": 3, "tokens": 18, "queue_depth": 0}
+    assert port["adapters_resident"] == 1 and port["base_reason"] != "adapter_affinity"
+    assert out["port"] == out["jax"]

@@ -122,7 +122,7 @@ def test_engine_records_the_last_dispatch_of_its_live_rows(gen, kind):
         assert len(out) == 6
         weight_bytes = eng.memory_breakdown()["weight_bytes"]
         ps = [len(prompt) + k for k in range(1, 6)]
-        assert eng._dispatched == ([ps[-1]], [1])
+        assert eng._dispatched == ([ps[-1]], [1], 0)  # no adapter gathered
         ticks, seconds, got_flops, got_bytes = eng.decode_cost()
         _, hist_ticks, hist_seconds = eng.stats.hist["decode_tick_s"]._state()
     finally:

@@ -75,7 +75,7 @@ def test_guard_tells_the_port_from_the_jax_package():
                                     "infer.engine", "infer.server", "observe.slo",
                                     "observe.capacity", "observe.flops", "observe.profiler",
                                     "observe.tracing", "infer.routing", "infer.fleet",
-                                    "infer.paged"])
+                                    "infer.paged", "infer.adapters", "parallel.lora"])
 def test_the_overload_and_golden_modules_are_covered(module):
     """The import check reaches the modules of the golden eval, of overload
     control, of serving observability and of the fleet and its host KV

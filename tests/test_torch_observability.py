@@ -17,7 +17,11 @@
   a stub capture, no GPU), the ``"trace"`` field, the memory keys of
   ``/v1/stats`` and the SLO series of ``/metrics``, on port 0; the window
   engine's JAX 404s; the observability flags reach ``serve`` as the JAX
-  server's ``main`` hands them to its ``serve``.
+  server's ``main`` hands them to its ``serve``;
+- the tenant series (``tests/test_metrics_schema.py``'s cases): the
+  per-tenant key set, tenant-labelled samples and histograms, their TYPE
+  lines at zero tenants, and the fleet's per-tenant sums, line for line the
+  JAX exposition's.
 """
 
 import ast
@@ -482,7 +486,8 @@ def test_fleet_stats_snapshot_key_schema(pair):
         assert set(rsnap) == single | {"replica"} and rsnap["replica"] == int(label)
         assert set(rsnap) == set(jsnap["per_replica"][label]) - {"compile"} | {"prefix_hits"}
     assert set(snap["histograms"]) == set(jsnap["histograms"])
-    assert snap["role"] == jsnap["role"] == "mixed" and snap["per_tenant"] == {}
+    assert snap["role"] == jsnap["role"] == "mixed"
+    assert snap["per_tenant"] == jsnap["per_tenant"] == {}  # no tenant admitted yet
 
 
 def _fleet_exposition(fleet, expo, **kw):
@@ -501,7 +506,7 @@ def test_fleet_metrics_exposition_replica_labels(pair):
     """Fleet /metrics: one TYPE line per metric, the aggregate sample, then
     the metric with replica="i" per replica (counters, gauges, histogram
     buckets), and a replica_info line each; the TYPE lines are the JAX
-    fleet's but its tenant histograms (adapters are not ported)."""
+    fleet's, the tenant histograms' included."""
     import re
 
     from llm_fine_tune_distributed_tpu.observe.metrics import (
@@ -511,7 +516,8 @@ def test_fleet_metrics_exposition_replica_labels(pair):
 
     fleet, jfleet = _fleets(pair)
     try:
-        text = _fleet_exposition(fleet, prometheus_exposition)
+        text = _fleet_exposition(fleet, prometheus_exposition,
+                                 tenant_histograms=fleet.merged_tenant_histograms())
     finally:
         fleet.close()
     jtext = _fleet_exposition(jfleet, jax_exposition,
@@ -520,7 +526,7 @@ def test_fleet_metrics_exposition_replica_labels(pair):
                        for m in re.finditer(r"^# TYPE (\S+) (\S+)$", t, re.M)}
     tenant_hists = {(n, k) for n, k in typed(jtext) if n.startswith("serving_tenant_")
                     and k == "histogram"}
-    assert tenant_hists and typed(text) == typed(jtext) - tenant_hists
+    assert tenant_hists and tenant_hists <= typed(text) and typed(text) == typed(jtext)
     for line in ("serving_tokens_served_total 7", 'serving_tokens_served_total{replica="0"} 3',
                  'serving_tokens_served_total{replica="1"} 4', 'serving_slots{replica="0"} 4',
                  'serving_ttft_seconds_count{replica="1"} 0', "serving_ttft_seconds_count 1"):
@@ -529,3 +535,109 @@ def test_fleet_metrics_exposition_replica_labels(pair):
     assert 'serving_replica_info{replica="0",circuit_state="closed"' in text
     names = re.findall(r"^# TYPE (\S+) ", text, re.M)
     assert len(names) == len(set(names))
+
+
+# the tenant series of /metrics and /v1/stats, held to the JAX package's
+
+
+def _tenant_lines(text):
+    return sorted(line for line in text.splitlines() if "tenant" in line)
+
+
+def test_tenant_series_schema_and_labels(pair):
+    """The per-tenant record's keys, its TYPE lines at zero tenants (no
+    samples), tenant="name" samples, and the queue depth floored at 0: the
+    JAX exposition's tenant lines for the same counts."""
+    from llm_fine_tune_distributed_tpu.observe.metrics import ServingStats as JaxStats
+    from llm_fine_tune_distributed_tpu.observe.metrics import (
+        prometheus_exposition as jax_exposition,
+    )
+    from llm_fine_tune_distributed_tpu_torch.observe.metrics import (
+        ServingStats,
+        prometheus_exposition,
+    )
+
+    assert ServingStats.TENANT_KEYS == JaxStats.TENANT_KEYS == ("requests", "tokens",
+                                                                "queue_depth")
+    jgen, gen = pair
+    eng, jeng = _port_engine(gen, "paged"), _jax_engine(jgen, "paged")
+    try:
+        texts = []
+        for stats, snapshot, expo in ((eng.stats, eng.stats_snapshot, prometheus_exposition),
+                                      (jeng.stats, jeng.stats_snapshot, jax_exposition)):
+            snap = {"engine": "paged", **snapshot()}
+            assert snap["per_tenant"] == {}
+            text = expo(snap, stats.hist, memory={})
+            assert "# TYPE serving_tenant_requests_total counter" in text
+            assert "serving_tenant_requests_total{" not in text
+            stats.tenant_incr("acme", "requests")
+            stats.tenant_incr("acme", "tokens", 42)
+            stats.tenant_incr("beta", "requests")
+            stats.tenant_merge({"beta": {"tokens": 5}, "gamma": {"requests": 2, "tokens": 7}})
+            snap = {"engine": "paged", **snapshot()}
+            assert set(snap["per_tenant"]) == {"acme", "beta", "gamma"}
+            later = expo(snap, stats.hist, memory={})
+            stats.tenant_incr("acme", "queue_depth", -5)
+            assert snapshot()["per_tenant"]["acme"]["queue_depth"] == 0
+            texts.append((_tenant_lines(text), _tenant_lines(later), snapshot()["per_tenant"]))
+    finally:
+        eng.close()
+    assert texts[0] == texts[1]
+    assert 'serving_tenant_tokens_total{tenant="acme"} 42' in texts[0][1]
+
+
+def test_tenant_histogram_series_labels(pair):
+    """Per-tenant TTFT and inter-token histograms: TYPE lines whenever a map
+    is passed (even empty), tenant-labelled buckets for observed tenants,
+    nothing from the engine-level histogram; the JAX exposition's lines."""
+    from llm_fine_tune_distributed_tpu.observe.metrics import (
+        prometheus_exposition as jax_exposition,
+    )
+    from llm_fine_tune_distributed_tpu_torch.observe.metrics import prometheus_exposition
+
+    jgen, gen = pair
+    eng, jeng = _port_engine(gen, "paged"), _jax_engine(jgen, "paged")
+    try:
+        texts = []
+        for stats, snapshot, expo in ((eng.stats, eng.stats_snapshot, prometheus_exposition),
+                                      (jeng.stats, jeng.stats_snapshot, jax_exposition)):
+            empty = expo({"engine": "paged", **snapshot()}, stats.hist, memory={},
+                         tenant_histograms={})
+            assert "# TYPE serving_tenant_ttft_seconds histogram" in empty
+            assert "serving_tenant_ttft_seconds_bucket{" not in empty
+            stats.observe("ttft_s", 0.12)
+            stats.tenant_observe("acme", "ttft_s", 0.12)
+            stats.tenant_observe("acme", "inter_token_s", 0.01)
+            stats.tenant_observe("beta", "ttft_s", 3.0)
+            text = expo({"engine": "paged", **snapshot()}, stats.hist, memory={},
+                        tenant_histograms=stats.tenant_histograms())
+            texts.append((_tenant_lines(empty), _tenant_lines(text)))
+    finally:
+        eng.close()
+    assert texts[0] == texts[1]
+    assert 'serving_tenant_ttft_seconds_count{tenant="acme"} 1' in texts[0][1]
+    assert 'serving_tenant_inter_token_seconds_count{tenant="beta"} 0' in texts[0][1]
+
+
+def test_fleet_merges_per_tenant_across_replicas(pair):
+    """A tenant's counters sum over the replicas its traffic landed on, a
+    retired replica's included, and the tenant histograms merge exactly."""
+    from llm_fine_tune_distributed_tpu_torch.infer.fleet import EngineFleet
+
+    _, gen = pair
+    fleet = EngineFleet([_port_engine(gen, "paged") for _ in range(3)], routing="prefix")
+    try:
+        fleet.replicas[0].stats.tenant_incr("acme", "tokens", 3)
+        fleet.replicas[1].stats.tenant_incr("acme", "tokens", 4)
+        fleet.replicas[1].stats.tenant_incr("beta", "requests")
+        fleet.replicas[2].stats.tenant_incr("acme", "tokens", 5)
+        fleet.replicas[2].stats.tenant_observe("acme", "ttft_s", 0.5)
+        fleet.replicas[0].stats.tenant_observe("acme", "ttft_s", 0.25)
+        fleet.retire_replica(2)
+        snap = fleet.stats_snapshot()
+        assert snap["per_tenant"]["acme"]["tokens"] == 12
+        assert snap["per_tenant"]["beta"]["requests"] == 1
+        merged = fleet.merged_tenant_histograms()
+        assert merged["acme"]["ttft_s"].summary()["count"] == 2
+    finally:
+        fleet.close()

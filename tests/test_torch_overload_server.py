@@ -275,9 +275,15 @@ def test_healthz_is_503_once_a_tick_failed(gen, engine, fault):
     ("continuous", {"priority": "batch", "speculative": 2},
      "'priority'/'deadline_ms' with 'speculative' needs the server started with "
      "--speculative K"),
-    ("paged", {"adapter": "x"}, "['adapter'] not supported by this server"),
+    ("window", {"adapter": "x"},
+     "'adapter' needs a continuous/paged engine started with --adapter-dir; this server runs "
+     "the window engine"),
+    ("continuous", {"adapter": "x", "speculative": 2},
+     "'adapter' with 'speculative' needs the server started with --speculative K (on a K=0 "
+     "engine speculative requests fall back to the window engine, which has no adapter pool)"),
 ], ids=["bad_tier", "zero_deadline", "negative_deadline", "window_priority",
-        "window_deadline", "speculative_fallback", "adapter_unported"])
+        "window_deadline", "speculative_fallback", "adapter_unported",
+        "adapter_speculative_fallback"])
 def test_overload_fields_are_validated_with_the_jax_messages(gen, engine, body, message):
     with _Server(gen, engine=engine) as srv:
         for path in ("/v1/generate", "/v1/stream"):

@@ -4,7 +4,10 @@ server's engines on the same tiny model directory: the same greedy answer
 on ``/v1/generate``, ``/v1/stream`` deltas that add up to it, and
 ``/v1/stats`` and ``/metrics`` that count what was served; the refusals that
 come before any weight loads; and the refusal to start without a GPU unless
-the CPU is asked for."""
+the CPU is asked for. Multi-tenant LoRA (``tests/test_server.py``'s adapter
+cases): ``--adapter-dir``'s startup refusals with the JAX messages, the
+``"adapter"`` field's merged-solo answer on ``/v1/generate`` and
+``/v1/stream``, its 404s and 429s, and the tenant series."""
 
 import http.client
 import json
@@ -38,6 +41,7 @@ from llm_fine_tune_distributed_tpu_torch.infer import engine as port_engine
 from llm_fine_tune_distributed_tpu_torch.infer import server
 from llm_fine_tune_distributed_tpu_torch.infer.generate import Generator as TorchGenerator
 from llm_fine_tune_distributed_tpu_torch.infer.generate import load_model_dir, load_tokenizer_dir
+from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig as GenerationConfig_port
 
 ROOT = Path(__file__).resolve().parent.parent
 ENGINES = ("continuous", "window", "paged")
@@ -267,13 +271,24 @@ def test_stats_and_metrics_count_the_requests_served(served):
 
 @pytest.mark.parametrize("engine", ENGINES)
 def test_bad_requests_are_400(port_generator, engine):
+    """Malformed bodies are 400. An ``"adapter"`` is 400 on the window
+    engine and, on a slot engine started without ``--adapter-dir``, the
+    JAX server's 404 naming the flag."""
     with _Server(port_generator, **_engine_kw(engine)) as srv:
         for route in ("/v1/generate", "/v1/stream"):
-            for body in (b"[1, 2]", b'{"no_question": 1}', b'{"question": "q", "adapter": "a"}',
+            for body in (b"[1, 2]", b'{"no_question": 1}', b'{"question": "q", "adapter": 7}',
                          b'{"question": "q", "stream_chunk": 0}'):
                 with pytest.raises(urllib.error.HTTPError) as err:
                     _get(srv.base + route, body)
                 assert err.value.code == 400
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _get(srv.base + route, b'{"question": "q", "adapter": "a"}')
+            if engine == "window":
+                assert err.value.code == 400
+            else:
+                assert err.value.code == 404
+                error = json.loads(err.value.read())["error"]
+                assert error["kind"] == "unknown_adapter" and "--adapter-dir" in error["message"]
         with pytest.raises(urllib.error.HTTPError) as err:
             _get(srv.base + "/nope")
         assert err.value.code == 404
@@ -466,3 +481,207 @@ def test_main_without_a_gpu_exits_naming_the_missing_card(model_dir):
         server.main(["--model-dir", str(path), "--engine", "paged", "--quantize-kv", "int8"])
     assert exc.value.code not in (0, None)
     assert "no CUDA device" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
+
+
+# ------------------------------------------------- multi-tenant LoRA serving
+
+
+@pytest.mark.parametrize("kw,message", [
+    (dict(adapter_dir="/whatever", engine="window"),
+     "--adapter-dir (multi-tenant LoRA serving) needs a continuous/paged engine"),
+    (dict(adapter_dir="/no/such/dir"), "--adapter-dir not found: '/no/such/dir'"),
+], ids=["window", "missing_dir"])
+def test_adapter_flag_validation_at_startup(model_dir, no_load, capsys, kw, message):
+    """Bad adapter settings fail at startup, before the model loads, with
+    the JAX server's messages (``serve`` and the CLI)."""
+    from llm_fine_tune_distributed_tpu.infer.server import serve as jax_serve
+
+    with pytest.raises(ValueError) as want:
+        jax_serve("/nonexistent", adapter_dir=kw["adapter_dir"],
+                  engine_kind=kw.get("engine", "continuous"))
+    with pytest.raises(ValueError) as got:
+        server.serve("/nonexistent", device="cpu", **kw)
+    assert str(got.value) == str(want.value) and message in str(got.value)
+    path, _, _ = model_dir
+    with pytest.raises(SystemExit) as exc:
+        server.main(["--model-dir", str(path), "--device", "cpu", "--adapter-dir",
+                     kw["adapter_dir"], "--engine", kw.get("engine", "continuous")])
+    assert exc.value.code == 2 and message in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def adapter_root(model_dir, tmp_path_factory):
+    """Two PEFT adapters (JAX ``save_lora_adapter``) for the served model,
+    with large B so that the adapted greedy answer visibly moves."""
+    from llm_fine_tune_distributed_tpu.config import TrainConfig
+    from llm_fine_tune_distributed_tpu.parallel.lora import add_lora_params, save_lora_adapter
+
+    _, params, _ = model_dir
+    root = tmp_path_factory.mktemp("srv_adapters")
+    for name, seed in (("acme", 1), ("globex", 2)):
+        adapted = add_lora_params(params, jax.random.PRNGKey(seed), rank=4, alpha=8.0)
+
+        def bump(node, scale=0.5 * seed):
+            if isinstance(node, dict):
+                if "lora_b" in node:
+                    return {**node, "lora_b": jnp.ones_like(node["lora_b"]) * scale}
+                return {k: bump(v) for k, v in node.items()}
+            return node
+
+        save_lora_adapter(bump(adapted), str(root / name),
+                          TrainConfig(freeze_strategy="lora", lora_rank=4, lora_alpha=8.0))
+    return str(root)
+
+
+def test_quantized_weights_refuse_the_adapter_pool(model_dir, adapter_root):
+    """``--quantize int8 --adapter-dir``: the JAX registry finds no plain
+    kernel under int8 weights and refuses at build; so does the port."""
+    path, _, _ = model_dir
+    with pytest.raises(ValueError,
+                       match="the model has no linear module matching the adapter pool targets"):
+        server.serve(str(path), device="cpu", quantize="int8", adapter_dir=adapter_root,
+                     port=0, slots=2, kv_buf_len=256)
+
+
+@pytest.fixture(scope="module")
+def adapter_server(port_generator, adapter_root):
+    with _Server(port_generator, adapter_dir=adapter_root, slots=4, kv_buf_len=256,
+                 max_adapters=4) as srv:
+        yield srv
+
+
+def _post_json(base, path, body):
+    return json.loads(_get(base + path, json.dumps(body).encode())[1])
+
+
+def test_generate_with_adapter(adapter_server, port_generator, adapter_root):
+    """``"adapter"`` selects the tenant's delta: the answer is its merged
+    weights' solo answer, not the base answer, and base answers are
+    unchanged by adapter traffic."""
+    from llm_fine_tune_distributed_tpu_torch.parallel.lora import load_lora_adapter, merge_lora
+
+    body = {"question": "What is 2+2?", "system_prompt": "Be brief.", "max_new_tokens": 8,
+            "greedy": True}
+    base_answer = _post_json(adapter_server.base, "/v1/generate", body)["answer"]
+    acme_answer = _post_json(adapter_server.base, "/v1/generate",
+                             {**body, "adapter": "acme"})["answer"]
+    assert acme_answer != base_answer
+    merged = TorchGenerator(merge_lora(load_lora_adapter(
+        port_generator.params, os.path.join(adapter_root, "acme"))), port_generator.config,
+        port_generator.tokenizer, compute_dtype=torch.float32, device="cpu")
+    assert acme_answer == merged.chat(
+        [{"role": "system", "content": body["system_prompt"]},
+         {"role": "user", "content": body["question"]}],
+        GenerationConfig_port(max_new_tokens=8, do_sample=False))
+    assert _post_json(adapter_server.base, "/v1/generate", body)["answer"] == base_answer
+
+
+def test_generate_unknown_adapter_404_lists_known(adapter_server):
+    with pytest.raises(urllib.error.HTTPError) as he:
+        _get(adapter_server.base + "/v1/generate",
+             json.dumps({"question": "q?", "max_new_tokens": 4, "adapter": "ghost"}).encode())
+    assert he.value.code == 404
+    err = json.loads(he.value.read())["error"]
+    assert err["kind"] == "unknown_adapter"
+    assert set(err["known_adapters"]) == {"acme", "globex"}
+
+
+def test_adapter_without_registry_404(port_generator):
+    """A server without --adapter-dir names the missing flag in its 404."""
+    with _Server(port_generator, slots=2, kv_buf_len=256) as srv:
+        with pytest.raises(urllib.error.HTTPError) as he:
+            _get(srv.base + "/v1/generate",
+                 json.dumps({"question": "q?", "max_new_tokens": 4, "adapter": "acme"}).encode())
+    assert he.value.code == 404
+    err = json.loads(he.value.read())["error"]
+    assert err["kind"] == "unknown_adapter" and "--adapter-dir" in err["message"]
+
+
+def test_stream_with_adapter(adapter_server):
+    """A stream rides the shared batch with the tenant's delta: its deltas
+    add up to the adapted /v1/generate answer."""
+    body = {**QUESTION, "adapter": "acme"}
+    answer = _post_json(adapter_server.base, "/v1/generate", body)["answer"]
+    status, events = _stream(adapter_server.base, body)
+    assert status == 200 and events[-1][1].get("done") is True
+    assert "".join(p.get("delta", "") for _, p in events).strip() == answer
+
+
+def test_adapter_stats_and_metrics_per_tenant(adapter_server):
+    _post_json(adapter_server.base, "/v1/generate", {**QUESTION, "adapter": "acme"})
+    stats = json.loads(_get(adapter_server.base + "/v1/stats")[1])
+    assert stats["per_tenant"]["acme"]["requests"] >= 1
+    assert stats["per_tenant"]["acme"]["tokens"] >= 1
+    assert stats["adapters_resident"] >= 1 and stats["adapter_loads"] >= 1
+    text = _get(adapter_server.base + "/metrics")[1]
+    assert 'serving_tenant_tokens_total{tenant="acme"}' in text
+    assert "serving_adapters_resident" in text
+    assert 'serving_tenant_ttft_seconds_count{tenant="acme"}' in text
+
+
+def test_adapter_field_window_engine_400(port_generator):
+    with _Server(port_generator, engine="window", max_batch=4) as srv:
+        with pytest.raises(urllib.error.HTTPError) as he:
+            _get(srv.base + "/v1/generate",
+                 json.dumps({"question": "q?", "max_new_tokens": 4, "adapter": "acme"}).encode())
+    assert he.value.code == 400
+    msg = json.loads(he.value.read())["error"]
+    assert "--adapter-dir" in msg and "continuous" in msg
+
+
+class _GatedGen:
+    """The port's Generator with its dense decode step behind an event."""
+
+    def __init__(self, gen):
+        self._gen = gen
+        self.parked = threading.Event()
+        self.go = threading.Event()
+
+    def __getattr__(self, name):
+        return getattr(self._gen, name)
+
+    def slot_step(self, *a):
+        if not self.go.is_set():
+            self.parked.set()
+            self.go.wait(120)
+        return self._gen.slot_step(*a)
+
+
+def test_full_pool_and_tenant_quota_are_429(port_generator, adapter_root):
+    """One adapter slot and a quota of one request per tenant: while acme
+    decodes, globex (the pool is pinned) and a second acme (over quota) get
+    429 with Retry-After and the JAX error kinds."""
+    gated = _GatedGen(port_generator)
+    with _Server(gated, adapter_dir=adapter_root, slots=4, kv_buf_len=256, max_adapters=2,
+                 adapter_capacity=1) as srv:
+        body = {**QUESTION, "max_new_tokens": 4}
+        holder = threading.Thread(target=lambda: _get(srv.base + "/v1/generate", json.dumps(
+            {**body, "adapter": "acme"}).encode()))
+        holder.start()
+        try:
+            assert gated.parked.wait(120), "acme never reached its first decode step"
+            kinds = []
+            for tenant in ("globex", "acme"):
+                with pytest.raises(urllib.error.HTTPError) as he:
+                    _get(srv.base + "/v1/generate",
+                         json.dumps({**body, "adapter": tenant}).encode())
+                assert he.value.code == 429 and int(he.value.headers["Retry-After"]) >= 1
+                kinds.append(json.loads(he.value.read())["error"]["kind"])
+            assert kinds == ["adapter_pool_full", "tenant_quota"]
+        finally:
+            gated.go.set()
+            holder.join(120)
+        stats = json.loads(_get(srv.base + "/v1/stats")[1])
+        assert stats["requests_shed_tenant_quota"] == 1 and stats["per_tenant"]["acme"][
+            "requests"] == 1
+
+
+def test_adapter_flags_reach_serve(model_dir, monkeypatch):
+    path, _, _ = model_dir
+    calls = []
+    monkeypatch.setattr(server, "serve", lambda *a, **kw: calls.append(kw))
+    assert server.main(["--model-dir", str(path), "--device", "cpu", "--adapter-dir",
+                        str(path), "--max-adapters", "3", "--adapter-capacity", "2"]) == 0
+    assert server.main(["--model-dir", str(path), "--device", "cpu"]) == 0
+    assert [(kw["adapter_dir"], kw["max_adapters"], kw["adapter_capacity"]) for kw in calls] == [
+        (str(path), 3, 2), (None, 8, 0)]
