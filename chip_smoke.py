@@ -207,6 +207,30 @@ and stops with a non-zero exit at the first failure:
    tokens held to its solo run; (g) on (f)'s server, t1's blocks of
    phase 4's shared system prompt cached: t2 and a base request reuse none
    of them, t1 reuses its own (one hit).
+23. (after phase 17, on phase 8's output: its final trainable-only
+   checkpoint and publish, which phase 8 writes after its timed steps, and
+   ``best_model/``) live deployment: (a) a fresh ``SFTTrainer`` with
+   ``resume_from_checkpoint="latest"`` restores step 3, the trainable
+   leaves and both AdamW moments bit for bit against phase 8's own,
+   the frozen fingerprint verified, and a base with one frozen leaf's rows
+   reversed is refused (``FingerprintMismatch``); a synchronous save is
+   timed beside phase 8's background one; (b) a paged int8 server at phase
+   4's geometry over the seed-42 random base (the trainer's frozen leaves)
+   with ``--publish-watch-dir``: ``POST /v1/deploy`` swaps step 3 in while
+   a 128-token stream is in flight (it finishes on the old weights, held
+   to the base's solo run by the margin rule), the replaced leaves freed
+   (weak references) and ``memory_allocated`` across each apply within 1
+   MiB per swapped leaf, two answers equal a fresh server on ``best_model/`` token
+   for token, a worse ``eval_loss`` and another base's fingerprint refused
+   (flight events, generation unmoved), ``POST /v1/deploy/rollback`` gives
+   the pre-swap tokens back, paged decode launches 36 x decode steps; (c)
+   ``--replicas 2 --canary-window-s 3``: a clean rolling swap, then a
+   republish whose canary requests fail (a prefill fault each) rejected
+   with replica 1 never swapped, a rollback, and ``/v1/lineage`` showing
+   the deploy, the rejection and the rollback with the manifest's run_id.
+   The watcher's load and fingerprint seconds, the apply and rollback ms,
+   the stream's largest gap and the save, publish and resume numbers are
+   printed with the card.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -238,6 +262,10 @@ contract line.
 paged decode kernel, loads phase 4's weights, makes phase 15's solo runs of
 its 4 questions and runs 22a-22g; its last line is a JSON summary.
 
+``python3 chip_smoke.py --deploy-only`` runs phase 23 alone: it builds the
+flash and paged decode kernels, trains phase 8 (its final checkpoint and
+publish) and runs 23a-23c; its last line is a JSON summary.
+
 ``python3 chip_smoke.py --capture-check N [PUSH]`` runs phase 20e's
 profile capture N times on one phase-20 server and prints, per capture,
 whether its trace holds whole ticks (a multiple of 36 paged decode
@@ -263,6 +291,7 @@ import sys
 import threading
 import time
 import urllib.request
+import weakref
 
 import numpy as np
 import torch
@@ -4470,15 +4499,34 @@ def train_counters(fa, mm):
             "flash_bwd_dkv": fa.flash_bwd_dkv, "w8a8_matmul": mm.w8a8_matmul}
 
 
+def train_config(workdir, frozen_compute="bf16", **kw):
+    """Phases 8 and 11's ``TrainConfig`` over ``workdir`` (its ``data/``
+    holds the rows, ``out/`` the artifacts). Both write a trainable-only
+    checkpoint, and phase 8 a publish: ``save_steps`` (500) is above their
+    3 steps, so only the final save (and publish) runs, after the timed
+    steps; phase 23a resumes from phase 8's."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
+
+    kw = dict(checkpoint_trainable_only=True, **kw)
+    if frozen_compute == "bf16":
+        kw["publish_dir"] = os.path.join(workdir, "publish")
+    return TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
+                       tokenizer_path="byte-chatml", data_dir=os.path.join(workdir, "data"),
+                       output_dir=os.path.join(workdir, "out"), epochs=1,
+                       system_prompt=TRAIN_PROMPT, logging_steps=1, frozen_compute=frozen_compute,
+                       watchdog_timeout_s=TRAIN_WATCHDOG_S, **kw)
+
+
 def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     """The main training path: ``SFTTrainer`` on SmolLM3-3B at full width
     (random weights from a seed), the reference recipe, 3 optimizer steps
     over 120 rows of the repo's dataset; phase 8 with the plain frozen
-    layers, phase 11 with ``frozen_compute="int8"``. Returns (record,
-    trainer)."""
+    layers (and its final trainable-only checkpoint and publish), phase 11
+    with ``frozen_compute="int8"``. Returns (record, trainer)."""
     import os
 
-    from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
     from llm_fine_tune_distributed_tpu_torch.infer.generate import load_model_dir
     from llm_fine_tune_distributed_tpu_torch.ops.int8 import dequantize_int8
     from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
@@ -4493,10 +4541,7 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     with open(os.path.join(data_dir, "final_qa_data_unique.jsonl"), "w") as f:
         f.writelines(lines)
     out_dir = os.path.join(workdir, "out")
-    config = TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
-                         tokenizer_path="byte-chatml", data_dir=data_dir, output_dir=out_dir,
-                         epochs=1, system_prompt=TRAIN_PROMPT, logging_steps=1,
-                         frozen_compute=frozen_compute, watchdog_timeout_s=TRAIN_WATCHDOG_S)
+    config = train_config(workdir, frozen_compute)
     t0 = time.monotonic()
     trainer = SFTTrainer(config, device=DEVICE)
     torch.cuda.synchronize()
@@ -4623,6 +4668,19 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     check(len(losses) >= 3 and max(rel) <= LOSS_RECORDED_REL_TOL,
           f"losses {losses[:3]} / eval {summary['final_eval_loss']} beyond {LOSS_RECORDED_REL_TOL} "
           f"of the recorded {recorded} / {recorded_eval}")
+    if config.publish_dir:
+        saved, published = trainer.last_checkpoint, trainer.last_publish
+        check(saved is not None and saved["step"] == steps and saved["trainable_only"],
+              f"phase 8's final checkpoint: {saved}")
+        check(published is not None and published["step"] == steps,
+              f"phase 8's final publish: {published}")
+        record["checkpoint"], record["publish"] = saved, published
+        phase(phase_no, f"final trainable-only checkpoint (step {saved['step']}, "
+                        f"{'async snapshot' if saved['async'] else 'sync'}): "
+                        f"{saved['bytes'] / 1e9:.3f} GB, {saved['blocking_s']:.3f} s blocking, "
+                        f"{saved['seconds']:.3f} s to written; publish: "
+                        f"{published['bytes'] / 1e9:.3f} GB in {published['seconds']:.3f} s "
+                        f"({published['write_s']:.3f} s for the weights file)")
     if trunk:
         check(train_peak <= INT8_TRUNK_PEAK_BYTES, f"int8-trunk peak memory {train_peak / 1e9:.2f} GB > "
                                                    f"{INT8_TRUNK_PEAK_BYTES / 1e9} GB")
@@ -5121,6 +5179,432 @@ def serve_ab_times(tree: str) -> dict:
             **{k: served[k] for k in keys}}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: live deployment, the train->serve loop
+# ---------------------------------------------------------------------------
+
+DEPLOY_STREAM_TOKENS = 128  # the stream in flight across the swap
+DEPLOY_CANARY_WINDOW_S = 3.0  # 23c's --canary-window-s
+DEPLOY_CANARY_MIN_REQUESTS = 2  # 23c's --canary-min-requests
+DEPLOY_FAILING_REQUESTS = 3  # 23c: the canary's requests, each failed by a prefill fault
+
+
+def snapshot_state(trainer):
+    """Host copies of a trainer's trainable leaves and AdamW moments (23a
+    holds the resumed state to them bit for bit)."""
+    st = trainer.state
+    return {"step": st.step, "count": st.opt_state["count"],
+            "trainable": {k: v.detach().to("cpu") for k, v in st.trainable.items()},
+            "mu": {k: v.to("cpu") for k, v in st.opt_state["mu"].items()},
+            "nu": {k: v.to("cpu") for k, v in st.opt_state["nu"].items()}}
+
+
+def _equal_on_card(label, got, want):
+    bad = [k for k, v in want.items() if not torch.equal(got[k].detach(), v.to(DEVICE))]
+    check(set(got) == set(want) and not bad, f"{label}: {len(bad)} leaves differ ({bad[:3]})")
+
+
+def deploy_resume(workdir, saved):
+    """23a: a fresh trainer on phase 8's output with resume_from_checkpoint
+    "latest" restores step 3 (trainable leaves and both moments bit for
+    bit, the frozen fingerprint verified); a base with one frozen leaf's
+    rows reversed is refused with FingerprintMismatch; and a synchronous
+    trainable-only save of the resumed state is timed beside phase 8's
+    background one."""
+    import os
+    import shutil
+
+    from llm_fine_tune_distributed_tpu_torch.train.checkpoints import (
+        CheckpointManager,
+        FingerprintMismatch,
+        frozen_fingerprint,
+    )
+    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    t0 = time.monotonic()
+    trainer = SFTTrainer(train_config(workdir, resume_from_checkpoint="latest"), device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    ckpt = trainer._checkpoint_manager()
+    t0 = time.monotonic()
+    step = trainer._resume(ckpt)
+    torch.cuda.synchronize()
+    resume_s = time.monotonic() - t0
+    st = trainer.state
+    check(step == saved["step"] == st.step and st.opt_state["count"] == saved["count"],
+          f"resumed step {step}, count {st.opt_state['count']}; saved {saved['step']}")
+    _equal_on_card("23a trainable leaves", st.trainable, saved["trainable"])
+    _equal_on_card("23a first moments", st.opt_state["mu"], saved["mu"])
+    _equal_on_card("23a second moments", st.opt_state["nu"], saved["nu"])
+    name = "model.layers.0.self_attn.q_proj.kernel"
+    leaf = st.frozen[name]
+    st.frozen[name] = leaf.flip(0)  # the same values, rows reversed
+    t0 = time.monotonic()
+    try:
+        ckpt.restore(step, st)
+        refused = None
+    except FingerprintMismatch as e:
+        refused = str(e)
+    planted_s = time.monotonic() - t0
+    st.frozen[name] = leaf
+    check(refused is not None and name in refused,
+          f"a base with {name}'s rows reversed was not refused: {refused}")
+    t0 = time.monotonic()
+    fp = frozen_fingerprint(st.frozen)
+    fingerprint_s = time.monotonic() - t0
+    sync_dir = os.path.join(workdir, "sync_checkpoint")
+    sync = CheckpointManager(sync_dir, trainable_only=True)
+    sync.save(step, st, fingerprint=fp, snapshot_async=False)
+    sync_save = sync.last_save
+    shutil.rmtree(sync_dir)
+    rec = {"trainer_build_s": build_s, "resume_s": resume_s, "restored_step": step,
+           "planted_base_refused_s": planted_s, "frozen_fingerprint_s": fingerprint_s,
+           "frozen_leaves": len(st.frozen), "sync_save": sync_save}
+    phase(23, f"(a) resume: trainer built in {build_s:.1f} s, step {step} restored in "
+              f"{resume_s:.3f} s (trainable leaves and both moments bit for bit, the "
+              f"fingerprint of {len(st.frozen)} frozen leaves verified); {name}'s rows reversed "
+              f"-> FingerprintMismatch in {planted_s:.3f} s; frozen fingerprint alone "
+              f"{fingerprint_s:.3f} s; a sync trainable-only save "
+              f"{sync_save['bytes'] / 1e9:.3f} GB in {sync_save['seconds']:.3f} s")
+    del trainer, st, leaf, ckpt
+    gc_cuda()
+    return rec
+
+
+def _timed_stream(engine, prompt, n):
+    """A greedy stream of ``n`` tokens through the engine's ``stream`` (what
+    ``/v1/stream`` iterates): the largest gap between two of its tokens."""
+    from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
+
+    times = [time.monotonic()]
+    for _ in engine.stream(prompt, GenerationConfig(max_new_tokens=n, do_sample=False),
+                           timeout=600):
+        times.append(time.monotonic())
+    return max(b - a for a, b in zip(times[1:], times[2:]))
+
+
+def _check_freed(label, before, params, res):
+    """A swap's replaced leaves are freed: of the leaves resident before it
+    (weak references), exactly the swapped ones are gone and the rest are
+    the same tensors; and ``memory_allocated`` across the apply moved by at
+    most 1 MiB per swapped leaf. The caching allocator does not split a
+    free block whose remainder is <= 1 MiB, so a new leaf may sit in a block
+    up to 1 MiB larger than the one its predecessor freed: SmolLM3's
+    embedding (525,336,576 B) in a fresh 2 MiB-rounded segment is exactly
+    1 MiB short of it."""
+    gone = sorted(k for k, ref in before.items() if ref() is None)
+    kept = [k for k, ref in before.items() if ref() is not None and ref() is params[k]]
+    n, delta = res["updated_leaves"], res["memory_delta_bytes"][0]
+    check(len(gone) == n and len(kept) == len(before) - n,
+          f"{label}: {len(gone)} resident leaves freed, {n} swapped; {len(kept)} kept")
+    check(abs(delta) <= n << 20,
+          f"{label}: memory_allocated across the apply moved by {delta} B, beyond 1 MiB per "
+          f"swapped leaf ({n})")
+
+
+def _generate(srv, question, label):
+    status, _, raw = _request(srv.base, "/v1/generate", {"question": question, "greedy": True,
+                                                          "max_new_tokens": MAX_NEW_TOKENS})
+    check(status == 200, f"{label}: HTTP {status} {raw[:200]!r}")
+    return srv.results[-1][1]
+
+
+def _deploy(srv, path, label, want_status=200):
+    status, _, raw = _request(srv.base, path, {})
+    body = json.loads(raw)
+    check(status == want_status, f"{label}: POST {path} HTTP {status} {body}")
+    return body
+
+
+def _flight_kinds(eng):
+    return [e["kind"] for e in eng.recorder.events()]
+
+
+def _republish(publish_dir, step, manifest_edit):
+    """A copy of phase 8's step-3 publish as ``step``, its manifest edited."""
+    import os
+    import shutil
+
+    from llm_fine_tune_distributed_tpu_torch.train.publish import (
+        MANIFEST_NAME,
+        atomic_write_json,
+        load_manifest,
+        step_dir_name,
+    )
+
+    src = os.path.join(publish_dir, step_dir_name(3))
+    dst = os.path.join(publish_dir, step_dir_name(step))
+    os.makedirs(dst)
+    manifest = load_manifest(src)
+    shutil.copy(os.path.join(src, manifest["weights_file"]),
+                os.path.join(dst, manifest["weights_file"]))
+    manifest = manifest_edit(dict(manifest, step=step))
+    atomic_write_json(os.path.join(dst, MANIFEST_NAME), manifest)
+    return manifest
+
+
+def deploy_swap(tf, gen_mod, server_mod, fa, workdir, card):
+    """23b: a paged int8 server at phase 4's geometry over the random base
+    (seed 42 in bf16, whose frozen leaves are the trainer's) watching phase
+    8's publish directory: a request before; a 128-token stream in flight
+    while POST /v1/deploy swaps step 3 in (it finishes on the old weights,
+    held to the base's solo run by the margin rule); the replaced leaves
+    freed at the swap and at the rollback; after the
+    swap two requests equal a fresh server on best_model/
+    token for token; paged decode launches 36 x decode steps throughout;
+    a republish with a worse eval_loss and one with another frozen
+    fingerprint refused, the generation unmoved; POST /v1/deploy/rollback
+    gives the pre-swap tokens back."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+
+    config = get_preset("smollm3_3b")
+    publish_dir = os.path.join(workdir, "publish")
+    generator = gen_mod.Generator(tf.init_params(config, seed=42, device=DEVICE,
+                                                 dtype=torch.bfloat16),
+                                  config, ByteChatMLTokenizer(), compute_dtype=torch.bfloat16,
+                                  device=DEVICE)
+    kw = dict(engine="paged", quantize_kv="int8", slots=SLOTS, kv_buf_len=KV_BUF_LEN,
+              kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK, prompt_bucket=PROMPT_BUCKET)
+    stream_prompt = _prompt_ids(generator, {"question": QUESTIONS[2]})
+    stream_solo = solo_decode(tf, gen_mod, generator, stream_prompt, DEPLOY_STREAM_TOKENS)
+    floor = 2 * int8_kv_noise(tf, generator, stream_prompt)
+    layers = config.num_layers
+    rec = {"card": card}
+    with _Serving(server_mod, generator, publish_watch_dir=publish_dir, publish_poll_s=3600,
+                  **kw) as srv:
+        eng, mgr = srv.engine, srv.httpd.deploy_manager
+        fa.paged_decode_attention.launches = 0
+        steps0 = eng.stats_snapshot()["decode_steps"]
+        before = [_generate(srv, q, "23b before") for q in QUESTIONS[:2]]
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        resident = {k: weakref.ref(t) for k, t in eng.params.items()}
+        stream = {}
+        th = threading.Thread(target=lambda: stream.update(max_gap_s=_timed_stream(
+            eng, stream_prompt, DEPLOY_STREAM_TOKENS)), daemon=True)
+        th.start()
+        _wait_for(lambda: len(srv.results) == 3 and len(srv.results[-1][1]) >= 2,
+                  "the stream's second token")
+        t0 = time.monotonic()
+        res = _deploy(srv, "/v1/deploy", "23b deploy")
+        deploy_wall_s = time.monotonic() - t0
+        th.join(600)
+        check("max_gap_s" in stream, "23b: the stream across the swap failed")
+        check(res["kind"] == "deploy" and res["step"] == 3 and res["weight_generation"] == 1,
+              f"23b deploy: {res}")
+        begin = [e for e in eng.recorder.events() if e["kind"] == "weight_swap_begin"]
+        check(len(begin) == 1 and begin[0]["live"] >= 1,
+              f"the stream was not in flight when the swap was staged: {begin}")
+        streamed = srv.results[2][1]
+        n_agree, at = margin_agreement(tf, generator, "23b stream across the swap", stream_prompt,
+                                       streamed, stream_solo, floor=floor)
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()  # idle to idle: the stream's decode included
+        _check_freed("the swap", resident, eng.params, res)
+        after = [_generate(srv, q, "23b after") for q in QUESTIONS[:2]]
+        # the eval gate and the fingerprint check, with step 3 resident
+        worse = _republish(publish_dir, 4, lambda m: dict(
+            m, metrics={k: v + 1.0 for k, v in m["metrics"].items()}))
+        check(_deploy(srv, "/v1/deploy", "23b worse eval")["kind"] == "noop",
+              "a worse eval_loss was deployed")
+        _republish(publish_dir, 5, lambda m: dict(m, frozen_fp={
+            k: [x * 1.01 for x in v] for k, v in m["frozen_fp"].items()}))
+        check(_deploy(srv, "/v1/deploy", "23b foreign base")["kind"] == "noop",
+              "a publish of another base was deployed")
+        kinds = _flight_kinds(eng)
+        check(kinds.count("publish_rejected_eval") == 1
+              and kinds.count("publish_rejected_fingerprint") == 1
+              and eng.weight_generation == 1,
+              f"23b refusals: {kinds.count('publish_rejected_eval')} eval, "
+              f"{kinds.count('publish_rejected_fingerprint')} fingerprint, generation "
+              f"{eng.weight_generation}")
+        resident = {k: weakref.ref(t) for k, t in eng.params.items()}
+        t0 = time.monotonic()
+        rb = _deploy(srv, "/v1/deploy/rollback", "23b rollback")
+        rollback_wall_s = time.monotonic() - t0
+        _check_freed("the rollback", resident, eng.params, rb)
+        back = [_generate(srv, QUESTIONS[0], "23b after rollback")]
+        check(back[0] == before[0], f"after the rollback {back[0]} != before the swap {before[0]}")
+        snap = eng.stats_snapshot()
+        launches = fa.paged_decode_attention.launches
+        decode_steps = snap["decode_steps"] - steps0
+        check(launches == layers * decode_steps > 0,
+              f"23b: {launches} paged decode launches, want {layers} x {decode_steps}")
+        watcher = mgr.watcher
+        rec.update({
+            "deploy": res, "rollback": rb, "deploy_wall_s": deploy_wall_s,
+            "rollback_wall_s": rollback_wall_s, "watcher_load_s": watcher.last_load_s,
+            "watcher_fingerprint_s": watcher.last_fingerprint_s,
+            "apply_ms": 1000 * res["apply_s"][0], "rollback_apply_ms": 1000 * rb["apply_s"][0],
+            "stream_max_gap_s": stream["max_gap_s"], "stream_tokens_agreeing": n_agree,
+            "stream_first_difference": at, "memory_before": mem_before,
+            "memory_after": mem_after, "launches": launches, "decode_steps": decode_steps,
+            "weight_swaps": snap["weight_swaps"], "weight_rollbacks": snap["weight_rollbacks"],
+            "eval_gate": worse["metrics"]})
+    del generator
+    gc_cuda()
+    best = gen_mod.load_model_dir(os.path.join(workdir, "out", "best_model"), device=DEVICE,
+                                  dtype=torch.bfloat16)
+    fresh_gen = gen_mod.Generator(best[0], best[1], ByteChatMLTokenizer(),
+                                  compute_dtype=torch.bfloat16, device=DEVICE)
+    del best
+    with _Serving(server_mod, fresh_gen, **kw) as fresh:
+        want = [_generate(fresh, q, "23b best_model/") for q in QUESTIONS[:2]]
+    del fresh_gen
+    gc_cuda()
+    check(after == want, f"after the swap {after} != a fresh server on best_model/ {want}")
+    phase(23, f"(b) {card}: POST /v1/deploy swapped step 3 in: watcher load "
+              f"{rec['watcher_load_s']:.3f} s, frozen fingerprint "
+              f"{rec['watcher_fingerprint_s']:.3f} s, apply {rec['apply_ms']:.1f} ms at the "
+              f"drained boundary, deploy {res['duration_s']:.3f} s ({deploy_wall_s:.3f} s over "
+              f"HTTP, the {DEPLOY_STREAM_TOKENS}-token stream's drain included); the stream in "
+              f"flight finished on the old weights ({n_agree} tokens equal to the base's solo "
+              f"run, the rest past a margin within the bound), largest gap "
+              f"{1000 * stream['max_gap_s']:.1f} ms; memory_allocated across the apply "
+              f"{res['memory_delta_bytes'][0]:+d} B (idle to idle {mem_after - mem_before:+d} B, "
+              f"the stream's decode included), across the rollback's "
+              f"{rb['memory_delta_bytes'][0]:+d} B; 2 answers equal a fresh server on "
+              f"best_model/; eval gate and "
+              f"fingerprint refusals; rollback {1000 * rb['duration_s']:.1f} ms (apply "
+              f"{rec['rollback_apply_ms']:.1f} ms) and the pre-swap tokens back; paged decode "
+              f"launches {launches} == {layers} x {decode_steps}")
+    return rec
+
+
+def deploy_canary(tf, gen_mod, server_mod, workdir, card):
+    """23c: two paged int8 replicas with a canary window: a clean rolling
+    swap of step 3 leaves both on generation 1; a republish whose canary
+    requests fail (a prefill fault each on replica 0) is rejected, replica
+    0 rolled back and replica 1 never swapped; a rollback; GET /v1/lineage
+    shows the deploy, the rejection and the rollback with the manifest's
+    run_id."""
+    import os
+    import shutil
+
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.train.publish import load_manifest, step_dir_name
+
+    config = get_preset("smollm3_3b")
+    src = os.path.join(workdir, "publish")
+    publish_dir = os.path.join(workdir, "publish_fleet")
+    os.makedirs(publish_dir)
+    shutil.copytree(os.path.join(src, step_dir_name(3)), os.path.join(publish_dir,
+                                                                       step_dir_name(3)))
+    run_id = load_manifest(os.path.join(src, step_dir_name(3)))["run_id"]
+    generator = gen_mod.Generator(tf.init_params(config, seed=42, device=DEVICE,
+                                                 dtype=torch.bfloat16),
+                                  config, ByteChatMLTokenizer(), compute_dtype=torch.bfloat16,
+                                  device=DEVICE)
+    kw = dict(engine="paged", quantize_kv="int8", slots=SLOTS, kv_buf_len=KV_BUF_LEN,
+              kv_block_len=KV_BLOCK_LEN, prefill_chunk=PREFILL_CHUNK, prompt_bucket=PROMPT_BUCKET,
+              replicas=2, canary_window_s=DEPLOY_CANARY_WINDOW_S,
+              canary_min_requests=DEPLOY_CANARY_MIN_REQUESTS, publish_watch_dir=publish_dir,
+              publish_poll_s=3600, flight_dir=None)
+    with _Serving(server_mod, generator, **kw) as srv:
+        rep0, rep1 = srv.engine.replicas
+        clean = _deploy(srv, "/v1/deploy", "23c clean deploy")
+        check(clean["kind"] == "deploy" and clean["replicas"] == 2
+              and [r.weight_generation for r in (rep0, rep1)] == [1, 1],
+              f"23c clean rolling swap: {clean}")
+        _republish(publish_dir, 4, lambda m: m)
+        prompt = _prompt_ids(generator, {"question": QUESTIONS[1]})
+        failed = []
+
+        def failing_canary():
+            _wait_for(lambda: rep0.weight_generation == 2, "the canary's swap", timeout=600)
+            for _ in range(DEPLOY_FAILING_REQUESTS):
+                rep0.faults.fail_prefill_next(1)
+                try:
+                    rep0.submit(prompt, gen_mod.GenerationConfig(max_new_tokens=4,
+                                                                 do_sample=False),
+                                timeout=600)
+                except Exception as e:  # noqa: BLE001 — the 503 is the point
+                    failed.append(type(e).__name__)
+
+        th = threading.Thread(target=failing_canary, daemon=True)
+        th.start()
+        rejected = _deploy(srv, "/v1/deploy", "23c canary deploy")
+        th.join(600)
+        check(rejected["kind"] == "canary_rejected"
+              and rejected["canary"]["verdict"] == "regression" and rejected["run_id"] == run_id,
+              f"23c canary: {rejected}")
+        check([r.weight_generation for r in (rep0, rep1)] == [3, 1]
+              and rep1.stats_snapshot()["weight_swaps"] == 1,
+              f"23c: generations {[r.weight_generation for r in (rep0, rep1)]}, replica 1 swaps "
+              f"{rep1.stats_snapshot()['weight_swaps']}")
+        rb = _deploy(srv, "/v1/deploy/rollback", "23c rollback")
+        status, lineage = _get_json(srv.base, "/v1/lineage")
+        history = [(r["kind"], r["step"], r["run_id"]) for r in lineage["history"]]
+        check(status == 200 and history == [("deploy", 3, run_id), ("canary_rejected", 4, run_id),
+                                            ("rollback", -1, None)],
+              f"23c lineage: HTTP {status} {history}")
+        gens = [r.weight_generation for r in (rep0, rep1)]
+    del generator
+    gc_cuda()
+    rec = {"clean": clean, "canary_rejected": rejected, "rollback": rb,
+           "failed_canary_requests": failed, "lineage_history": history, "generations": gens,
+           "card": card}
+    phase(23, f"(c) {card}: rolling swap over 2 replicas in {clean['duration_s']:.3f} s "
+              f"(applies {[round(1000 * s, 1) for s in clean['apply_s']]} ms, canary "
+              f"{clean['canary']['verdict']}); a republish whose {len(failed)} canary requests "
+              f"failed: {rejected['canary']['verdict']} ({rejected['canary']['reason']}), replica 0 "
+              f"rolled back, replica 1 never swapped; rollback over 2 replicas "
+              f"{1000 * rb['duration_s']:.1f} ms; /v1/lineage {history}")
+    return rec
+
+
+def deploy_phase(tf, gen_mod, server_mod, fa, workdir, saved, trained, card):
+    """Phase 23, live deployment, on phase 8's output (its final
+    trainable-only checkpoint, its publish and best_model/): 23a resume,
+    23b swap on one engine, 23c canary on a fleet."""
+    t0 = time.monotonic()
+    rec = {"train_checkpoint": trained.get("checkpoint"), "train_publish": trained.get("publish"),
+           "resume": deploy_resume(workdir, saved)}
+    rec["swap"] = deploy_swap(tf, gen_mod, server_mod, fa, workdir, card)
+    rec["canary"] = deploy_canary(tf, gen_mod, server_mod, workdir, card)
+    rec["seconds"] = time.monotonic() - t0
+    phase(23, f"phase 23 took {rec['seconds']:.1f} s")
+    return rec
+
+
+def deploy_only() -> int:
+    """Phase 23 alone: the flash and paged decode kernels built, phase 8
+    trained (its final checkpoint and publish), then 23a-23c; a JSON
+    summary is the last line."""
+    import shutil
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+    from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
+
+    t_start = time.monotonic()
+    card = card_info()
+    phase(1, card)
+    _build.build_all(("paged_decode", "flash_fwd", "flash_bwd"))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        trained, trainer = train_phase(fa, mm, workdir)
+        saved = snapshot_state(trainer)
+        del trainer
+        gc_cuda()
+        deploy = deploy_phase(tf, gen_mod, server_mod, fa, workdir, saved, trained, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    total_s = time.monotonic() - t_start
+    phase(23, f"total_s {total_s:.1f}")
+    print(json.dumps({"deploy": deploy, "train_peak_bytes": trained["train_peak_bytes"],
+                      "total_s": total_s}, default=str), flush=True)
+    return 0
+
+
 def fleet_only() -> int:
     """Phase 21 alone: the paged decode kernel built, phase 4's generator and
     serving run (what 21b, 21d and 21e compare with), phase 15's solo runs
@@ -5252,6 +5736,8 @@ def main(argv=()) -> int:
         return fleet_only()
     if argv == ["--adapters-only"]:
         return adapters_only()
+    if argv == ["--deploy-only"]:
+        return deploy_only()
     if argv[:1] == ["--capture-check"] and len(argv) in (2, 3):
         return capture_check(int(argv[1]), int(argv[2]) if len(argv) == 3 else None)
     if argv[:1] == ["--serve-ab"] and len(argv) > 1:
@@ -5351,6 +5837,7 @@ def main(argv=()) -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:  # phase 14 asks the model phase 8 trains
         trained, trainer = train_phase(fa, mm, workdir)
+        saved8 = snapshot_state(trainer)  # phase 23a holds its resume to it
         train_profile = train_profile_phase(trainer, mm)
         microbatch = f32_microbatch_phase(trainer, fa, mm)
         del trainer  # free phase 8's state before asking and before the int8 trunk
@@ -5376,6 +5863,8 @@ def main(argv=()) -> int:
             gen_mod.Generator.generate_ids = generate_ids
             first.clear()
         gc_cuda()
+        deploy = deploy_phase(tf, gen_mod, server_mod, fa, workdir, saved8, trained, card)
+        del saved8
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     served_i8, profiled_i8, profiled_bf16 = int8_weights_serve_phase(
@@ -5426,6 +5915,8 @@ def main(argv=()) -> int:
         paged[f"launches_fleet_21{sub}"] = fleet[sub]["launches"]
     # phase 22b: two tenants, a base request and a sampled neighbour co-batched
     paged["launches_adapters_22b"] = adapters["a"]["launches"]
+    # phase 23b: a stream in flight across a hot-swap, the swapped weights, the rollback
+    paged["launches_deploy_23b"] = deploy["swap"]["launches"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -5482,9 +5973,9 @@ def main(argv=()) -> int:
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "golden": golden, "overload": overload, "supervision": supervision,
                "observability": observability, "fleet": fleet, "adapters": adapters,
-               "total_s": time.monotonic() - t_start}
+               "deploy": deploy, "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
-    print(json.dumps({"summary": summary}), flush=True)
+    print(json.dumps({"summary": summary}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

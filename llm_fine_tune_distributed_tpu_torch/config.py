@@ -113,6 +113,8 @@ class TrainConfig:
     eval_steps: int = 10
     eval_batch_size: Optional[int] = None
     save_steps: int = 500
+    save_total_limit: int = 3
+    metric_for_best_model: str = "eval_loss"
     greater_is_better: bool = False
     load_best_model_at_end: bool = True
     best_model_tracking: str = "auto"
@@ -133,10 +135,25 @@ class TrainConfig:
     watchdog_timeout_s: float = 0.0
     watchdog_action: str = "warn"
 
-    # not ported: setting them raises
-    train_port: Optional[int] = None
-    publish_dir: Optional[str] = None
+    # checkpoints (train/checkpoints.py): a trainable-only payload (the
+    # frozen leaves rebuilt and fingerprint-verified at resume), and the
+    # save as an on-device snapshot written on a background thread
+    checkpoint_trainable_only: bool = False
+    checkpoint_async_snapshot: bool = True
     resume_from_checkpoint: Optional[str] = None
+
+    # live deployment (train/publish.py): after each save, the trainable
+    # weights and a manifest go to publish_dir, newest publish_keep_last
+    # kept; publish_require_clean skips a publish whose trailing
+    # anomaly_window_steps window saw a sentinel fire (observe/trainplane.py)
+    publish_dir: Optional[str] = None
+    publish_keep_last: int = 3
+    publish_require_clean: bool = False
+    anomaly_window_steps: int = 100
+    anomaly_band_sigma: float = 6.0
+
+    # not ported: setting it raises
+    train_port: Optional[int] = None
 
     def effective_batch_size(self, data_parallel_size: int) -> int:
         return self.per_device_batch_size * self.gradient_accumulation_steps * data_parallel_size
@@ -183,23 +200,34 @@ class TrainConfig:
         "LOSS_CHUNK_SIZE": ("loss_chunk_size", int),
         "LOSS_VOCAB_CHUNK": ("loss_vocab_chunk", int),
         "RESUME_FROM_CHECKPOINT": ("resume_from_checkpoint", str),
+        "CHECKPOINT_TRAINABLE_ONLY": ("checkpoint_trainable_only", "_env_bool"),
+        "CHECKPOINT_ASYNC_SNAPSHOT": ("checkpoint_async_snapshot", "_env_bool"),
         "PUBLISH_DIR": ("publish_dir", str),
+        "PUBLISH_KEEP_LAST": ("publish_keep_last", int),
+        "PUBLISH_REQUIRE_CLEAN": ("publish_require_clean", "_env_bool"),
+        "ANOMALY_WINDOW_STEPS": ("anomaly_window_steps", int),
+        "ANOMALY_BAND_SIGMA": ("anomaly_band_sigma", float),
         "TRAIN_PORT": ("train_port", int),
         "OBJECTIVE": ("objective", str),
         "LOGGING_STEPS": ("logging_steps", int),
         "EVAL_STEPS": ("eval_steps", int),
         "EVAL_BATCH_SIZE": ("eval_batch_size", int),
         "SAVE_STEPS": ("save_steps", int),
+        "SAVE_TOTAL_LIMIT": ("save_total_limit", int),
         "WATCHDOG_TIMEOUT_S": ("watchdog_timeout_s", float),
         "WATCHDOG_ACTION": ("watchdog_action", str),
     }
     # env vars of the JAX package whose features are not ported: set, they raise
-    _UNPORTED_ENV = (
-        "AIM_REPO", "CHECKPOINT_TRAINABLE_ONLY", "CHECKPOINT_ASYNC_SNAPSHOT",
-        "PUBLISH_KEEP_LAST", "PUBLISH_REQUIRE_CLEAN", "ANOMALY_WINDOW_STEPS",
-        "ANOMALY_BAND_SIGMA", "DPO_BETA",
-        "SAVE_TOTAL_LIMIT", "EXPERIMENT_NAME",
-    )
+    _UNPORTED_ENV = ("AIM_REPO", "DPO_BETA", "EXPERIMENT_NAME")
+
+    @staticmethod
+    def _env_bool(s: str) -> bool:
+        v = s.strip().lower()
+        if v in ("1", "true", "yes", "on"):
+            return True
+        if v in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"boolean env var must be 1/0/true/false/yes/no/on/off, got {s!r}")
 
     def apply_env_overrides(self, environ=None) -> "TrainConfig":
         env = os.environ if environ is None else environ
@@ -211,6 +239,8 @@ class TrainConfig:
             )
         for var, (attr, cast) in self._ENV_MAP.items():
             if env.get(var):
+                if cast == "_env_bool":
+                    cast = self._env_bool
                 setattr(self, attr, cast(env[var]))
         return self
 

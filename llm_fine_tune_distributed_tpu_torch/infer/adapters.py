@@ -49,9 +49,12 @@ and reads, pads and writes outside it (the JAX registry holds its lock
 across the load), so one tenant's hot-load stalls neither the engine's
 releases nor the router's probes. The host copies are f32 CPU tensors.
 
+``rebind(base)`` re-points the view at a hot-swapped base dict: the pools
+ride over by reference, so the resident adapters and their slots stay as
+they were.
+
 Not ported here: ``mesh``, ``on_write`` and ``apply_remote_write``
-(multi-host serving, which waits with the port's device meshes) and
-``rebind`` (weight hot-swap, not ported yet).
+(multi-host serving, which waits with the port's device meshes).
 """
 
 from __future__ import annotations
@@ -257,6 +260,21 @@ class AdapterRegistry:
                 self._refs[name] = 0
                 self._lru[name] = None
                 self._lru.move_to_end(name)
+
+    def rebind(self, base_params: Dict[str, torch.Tensor]) -> None:
+        """Re-point the pooled view at a new base dict (an engine's weight
+        hot-swap builds one copy-on-write): the base leaves are the new
+        dict's, each target kernel followed by its existing pools, so the
+        resident adapters need no re-upload."""
+        with self._lock:
+            view: Dict[str, torch.Tensor] = {}
+            for name, t in base_params.items():
+                view[name] = t
+                module, _, leaf = name.rpartition(".")
+                if leaf == "kernel" and module in self._sites:
+                    for leaf_name, pool in zip(POOL_LEAVES, self._sites[module]):
+                        view[f"{module}.{leaf_name}"] = pool
+            self.params = view
 
     def rebuild(self) -> None:
         """Write every resident adapter back from its host copy (the

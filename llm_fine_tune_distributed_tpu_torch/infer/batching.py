@@ -84,6 +84,10 @@ class Request:
     # many times it was preempted
     preempted_tokens: List[int] = field(default_factory=list)
     preemptions: int = 0
+    # set at an admission that aging won over waiters of a better raw tier:
+    # those waiters may not preempt it back (the slot stays its own until
+    # it finishes or is preempted for another reason)
+    promoted: bool = False
     # set by a submit thread that displaced this queued lower-tier request
     # from a full queue; the worker resolves it with a tier-labelled 429
     shed_by_pressure: bool = False
@@ -98,6 +102,9 @@ class Request:
     # and its slot in the engine's adapter pool (0: the base model)
     adapter: Optional[str] = None
     adapter_idx: int = 0
+    # live deployment (continuous engines only): the weight generation the
+    # request settled under, stamped at its settle
+    weight_generation: int = 0
 
 
 def _pad_batch_size(n: int, max_batch: int) -> int:

@@ -131,7 +131,23 @@ cached under the base model or another tenant must not be reused (the JAX
 engine keys by tokens alone and does reuse them). Base requests keep the
 JAX keys.
 
-Not ported from the JAX engines: hot-swap (the weight generation stays 0).
+Live deployment (``infer/deploy.py``), as in the JAX engines:
+``request_weight_swap`` stages new values for some parameter leaves and
+blocks until the worker applies them. While a swap is staged, admission
+pauses and the slots in flight finish on the old weights; at the drained
+tick boundary the worker builds the new parameter dict copy-on-write (a
+published ``kernel`` re-quantized into a resident ``kernel_int8`` and its
+scale), then re-points every holder at once: the slots' view
+(``state["params"]``), the adapter registry's pooled view (``rebind``) and
+the Generator's own ``params`` (and its self-draft) when they were this
+engine's. ``weight_generation`` goes up by one, and the paged engine drops
+its prefix cache when the payload's fingerprint changed, zeroing the int8
+pool's block scales too, so that the drained pool serves as a new one
+would (the JAX pool keeps stale scales). A failed apply leaves the old
+weights serving and raises to the caller; a retryable restart keeps the
+staged swap, a terminal failure fails it. Host-tier entries are stamped
+with the fingerprint, so an entry of another generation misses. Not
+ported: the multi-host swap bridge.
 """
 
 from __future__ import annotations
@@ -145,6 +161,7 @@ import traceback
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from llm_fine_tune_distributed_tpu_torch.infer.batching import PRIORITY_TIERS, Request
 from llm_fine_tune_distributed_tpu_torch.infer.errors import (
@@ -185,6 +202,7 @@ from llm_fine_tune_distributed_tpu_torch.observe.tracing import (
     TraceJsonlWriter,
 )
 from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import reset_paged_decode_tickets
+from llm_fine_tune_distributed_tpu_torch.ops.int8 import INT8_SUFFIXES, quantize_int8
 from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
 
 log = logging.getLogger(__name__)
@@ -192,9 +210,77 @@ log = logging.getLogger(__name__)
 __all__ = ["ContinuousBatchingEngine", "PagedContinuousBatchingEngine", "PRIORITY_TIERS",
            "Request"]
 _BEST_EFFORT = PRIORITY_TIERS.index("best_effort")
-# a queue item that wakes an idle worker so that it applies a staged export;
-# dropped wherever requests leave the queue
+# a queue item that wakes an idle worker so that it applies a staged export
+# or weight swap; dropped wherever requests leave the queue
 _POKE = object()
+
+
+class _PendingSwap:
+    """One staged weight hot-swap: the host copies of the updated leaves and
+    a completion latch. Made on the deploy thread, applied once by the
+    worker at a drained tick boundary; ``result`` or ``error`` is set before
+    ``done``."""
+
+    __slots__ = ("updates", "fingerprint", "step", "done", "result", "error")
+
+    def __init__(self, updates, fingerprint, step):
+        self.updates = updates  # [(leaf name, host tensor)]
+        self.fingerprint = fingerprint
+        self.step = step
+        self.done = threading.Event()
+        self.result: Optional[dict] = None
+        self.error: Optional[BaseException] = None
+
+
+def _cow_swap_tree(params: dict, updates) -> Tuple[dict, int]:
+    """A NEW flat dict sharing every untouched leaf with ``params``, each
+    updated leaf a new tensor of the resident leaf's device, dtype and
+    strides holding the published values. A raise part-way leaves
+    ``params`` untouched (all-or-nothing); fleet siblings still holding the
+    old dict are unaffected. A swap may change values, never shapes."""
+    out = dict(params)
+    for name, value in updates:
+        if name not in out:
+            raise KeyError(f"published leaf not in resident params: {name!r}")
+        old = out[name]
+        if tuple(old.shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch at {name!r}: resident {tuple(old.shape)} vs "
+                             f"published {tuple(value.shape)} — a hot-swap may change values, "
+                             "never shapes")
+        new = torch.empty_like(old)
+        new.copy_(value)
+        out[name] = new
+    return out, len(updates)
+
+
+def _requantize_updates(params: dict, updates) -> list:
+    """Published full-precision ``<module>.kernel`` leaves whose resident
+    form is int8 (``kernel_int8`` + ``kernel_int8_scale``, the serving
+    ``--quantize int8``) are re-quantized into it, on the resident codes'
+    device; the shapes come out equal to the resident ones. A leaf that
+    cannot be reconciled raises ``ServingError`` naming the mode. Updates of
+    plain resident leaves pass through."""
+    out = []
+    for name, value in updates:
+        codes = params.get(f"{name}_int8")
+        if name in params or codes is None:
+            out.append((name, value))  # plain leaf, or a bad name _cow_swap_tree reports
+            continue
+        try:
+            q = quantize_int8(value.to(codes.device))
+        except Exception as e:
+            raise ServingError(f"cannot re-quantize published leaf {name!r} into the resident "
+                               f"int8 serving format (--quantize int8): {type(e).__name__}: {e}")
+        for suffix in INT8_SUFFIXES:
+            sib, new = f"{name}_{suffix}", q[suffix]
+            if sib not in params or tuple(params[sib].shape) != tuple(new.shape):
+                have = tuple(params[sib].shape) if sib in params else "absent"
+                raise ServingError(
+                    f"re-quantized leaf {name!r} does not match the resident int8 layout at "
+                    f"{sib!r} (resident {have} vs produced {tuple(new.shape)}) — the published "
+                    "checkpoint and --quantize int8 cannot reconcile")
+            out.append((sib, new))
+    return out
 
 
 class _PendingExport:
@@ -313,6 +399,10 @@ class ContinuousBatchingEngine:
             raise ValueError(f"unknown priority_default {priority_default!r} "
                              f"(expected one of {PRIORITY_TIERS})")
         self._generator = generator
+        # the weights this engine serves: the generator's at first, a new
+        # dict after each hot-swap (fleet siblings keep theirs until they
+        # swap too)
+        self._params = generator.params
         # speculation: the engine's draft depth K; with K > 0 every tick is
         # the fused draft-verify step, so a sampled slot's draws per tick do
         # not depend on who speculates beside it
@@ -375,7 +465,7 @@ class ContinuousBatchingEngine:
         self._queue_wait_ewma = 0.0
         # observability: the settled-request trace log; the SLO state (the
         # ring samples on the tick stamp, the slices key latencies by weight
-        # generation, which stays 0 without hot-swap) and the load
+        # generation, which each hot-swap moves on) and the load
         # forecaster fed at each ring sample
         self._trace_writer = (
             TraceJsonlWriter(trace_log,
@@ -397,8 +487,12 @@ class ContinuousBatchingEngine:
         # migration: the export staged for the worker's next tick boundary
         self._export_lock = threading.Lock()
         self._export_pending: Optional[_PendingExport] = None
-        # the fingerprint host-tier entries are stamped with: the weights
-        # never change without hot-swap, so it stays None
+        # live deployment: at most one staged weight swap, applied by the
+        # worker at a drained tick boundary; the resident payload's
+        # fingerprint (None until the first swap) stamps host-tier entries
+        # and keys the prefix cache's invalidation
+        self._swap_lock = threading.Lock()
+        self._swap_pending: Optional[_PendingSwap] = None
         self._weight_fingerprint = None
         # held by each scheduler pass (admission and tick): a profiler
         # capture starts and stops between ticks
@@ -562,6 +656,65 @@ class ContinuousBatchingEngine:
         if name is None or self._mt is None:
             return False
         return self._mt.is_resident(name)
+
+    # ------------------------------------------------------- live deployment
+
+    @property
+    def swap_pending(self) -> bool:
+        """True while a weight swap is staged or draining: the fleet router
+        sheds this replica to its siblings meanwhile."""
+        return self._swap_pending is not None
+
+    @property
+    def weight_generation(self) -> int:
+        """Applied weight swaps so far (a rollback is a swap too)."""
+        return self._weight_generation
+
+    @property
+    def weight_fingerprint(self) -> Optional[str]:
+        """The fingerprint of the last payload swapped in (None before)."""
+        return self._weight_fingerprint
+
+    @property
+    def params(self) -> dict:
+        """The flat parameter dict this engine serves now (the base weights,
+        without the adapter pools)."""
+        return self._params
+
+    def request_weight_swap(self, weights: dict, *, fingerprint: Optional[str] = None,
+                            step: Optional[int] = None, timeout: Optional[float] = None) -> dict:
+        """Stage ``weights`` (``{leaf name: host tensor or array}``) for an
+        atomic swap and block until the worker applies it at a drained tick
+        boundary: the requests in flight finish on the current weights,
+        admission pauses meanwhile, and queued requests start on the new
+        ones. Shapes never change, so no kernel is rebuilt. The paged prefix
+        cache is dropped iff ``fingerprint`` differs from the resident one.
+        Returns ``{"weight_generation", "updated_leaves",
+        "cache_invalidated", "duration_s", "memory_delta_bytes"}`` (the
+        card's allocated bytes across the apply; None off the card). Raises
+        on a terminal engine, a swap already staged, a ``timeout`` or a
+        failed apply (the old weights keep serving)."""
+        if self._terminal is not None:
+            raise self._terminal
+        updates = [(k, v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v)))
+                   for k, v in weights.items()]
+        if not updates:
+            raise ValueError("request_weight_swap needs at least one leaf")
+        swap = _PendingSwap(updates, fingerprint, step)
+        with self._swap_lock:
+            if self._swap_pending is not None:
+                raise RuntimeError("a weight swap is already staged on this engine")
+            self._swap_pending = swap
+        self.recorder.record("weight_swap_begin", step=step, fingerprint=fingerprint,
+                             live=int(self._live.sum()), queued=self.queue_depth)
+        self._q.put(_POKE)  # wake an idle worker
+        if not swap.done.wait(timeout):
+            raise TimeoutError(f"weight swap not applied within {timeout}s (engine still "
+                               f"draining {int(self._live.sum())} live slot(s))")
+        if swap.error is not None:
+            raise RuntimeError("weight swap failed; the engine kept the old generation: "
+                               f"{type(swap.error).__name__}: {swap.error}") from swap.error
+        return dict(swap.result)
 
     def stats_snapshot(self) -> dict:
         """``ServingStats.snapshot()`` with fresh ``weight_bytes``,
@@ -898,9 +1051,13 @@ class ContinuousBatchingEngine:
         """The one place a request leaves the pending ledger and wakes its
         waiter. Every token it emitted (banked ones included) is charged
         once, here: to goodput when it completed, else to the reason it
-        ended. Its generation's slice counts it, and its trace, whose
+        ended. It is stamped with the weight generation it settled under,
+        that generation's slice counts it, and its trace, whose
         terminal span is marked by now, goes to the trace log."""
-        self.slo_slices.note_settled(self._weight_generation, failed=req.error is not None)
+        # a request that drains ahead of a staged swap settles before the
+        # apply: it visibly finished on the old generation
+        req.weight_generation = self._weight_generation
+        self.slo_slices.note_settled(req.weight_generation, failed=req.error is not None)
         n = req.tokens_emitted
         if n:
             if req.abandoned:
@@ -1026,6 +1183,7 @@ class ContinuousBatchingEngine:
                 return
             if req is _POKE:
                 self._resolve_export_terminal()
+                self._resolve_swap_terminal()
                 continue
             self._resolve_error(req, self._terminal)
 
@@ -1041,8 +1199,10 @@ class ContinuousBatchingEngine:
         self._slot_plen = [0] * self._slots  # prompt + banked tokens
         self._live = np.zeros((self._slots,), bool)
         self._cache, self._state = self._init_state()
+        # the slots forward through this engine's weights (with a registry,
+        # its pooled view of them)
+        self._state["params"] = self._mt.params if self._mt is not None else self._params
         if self._mt is not None:
-            self._state["params"] = self._mt.params  # the slots forward through the pools
             self._mt.rebuild()  # the resident adapters survive a restart
         self._startup_draft()
 
@@ -1101,6 +1261,7 @@ class ContinuousBatchingEngine:
         err.__cause__ = cause
         self._terminal = err  # before resolving, so every waiter sees it
         self._resolve_export_terminal()  # a staged export must not hang its caller
+        self._resolve_swap_terminal()  # nor a staged swap (a restart keeps it)
         reason = "circuit_open" if sup.circuit_open else "fatal"
         self.recorder.record(reason, error=str(err))
         dump = sup.dump_flight(self.recorder, reason, error=str(cause))
@@ -1192,6 +1353,81 @@ class ContinuousBatchingEngine:
             with self._export_lock:
                 self._export_pending = None
             exp.done.set()
+
+    # ------------------------------------------------------- live deployment
+
+    def _resolve_swap_terminal(self) -> None:
+        """Fail a staged swap with the terminal error, so its caller never
+        hangs (a retryable restart keeps it: it applies after recovery)."""
+        with self._swap_lock:
+            swap, self._swap_pending = self._swap_pending, None
+        if swap is not None:
+            swap.error = self._terminal
+            swap.done.set()
+
+    def _apply_swap(self) -> None:
+        """Apply the staged swap (worker thread, no slot in use). The new
+        dict is built off to the side first, then every holder is re-pointed
+        at once, so a failure leaves the old weights serving untouched."""
+        swap = self._swap_pending
+        t0 = time.monotonic()
+        device = self._generator.device
+        cuda = device.type == "cuda"
+        mem0 = torch.cuda.memory_allocated(device) if cuda else None
+        try:
+            updates = _requantize_updates(self._params, swap.updates)
+            new_params, updated = _cow_swap_tree(self._params, updates)
+            if cuda:
+                torch.cuda.synchronize(device)  # the copies are on the card before it is live
+            old, self._params = self._params, new_params
+            self._generator.adopt_params(old, new_params)
+            if self._mt is not None:
+                # the registry's pooled view holds the old base leaves
+                self._mt.rebind(new_params)
+            self._state["params"] = self._mt.params if self._mt is not None else new_params
+            del old, updates, new_params
+            changed = swap.fingerprint is None or swap.fingerprint != self._weight_fingerprint
+            if changed:
+                self._invalidate_prefix_cache()
+            self._weight_fingerprint = swap.fingerprint
+            self._weight_generation += 1
+            self._gen_slice = self.slo_slices.slice_for(self._weight_generation)
+            dt = time.monotonic() - t0
+            self.stats.incr("weight_swaps")
+            self.stats.gauge("weight_generation", self._weight_generation)
+            for waiter in self._swap_waiters():
+                if waiter.trace is not None:
+                    waiter.trace.mark("weight_swap")
+            self.recorder.record("weight_swap", generation=self._weight_generation,
+                                 step=swap.step, fingerprint=swap.fingerprint,
+                                 updated_leaves=updated, cache_invalidated=changed,
+                                 dt_ms=round(dt * 1000.0, 3))
+            # the card's allocated bytes across the apply: 0 when nothing but
+            # this engine held the replaced leaves (None off the card)
+            swap.result = {"weight_generation": self._weight_generation,
+                           "updated_leaves": updated, "cache_invalidated": changed,
+                           "duration_s": dt,
+                           "memory_delta_bytes": (torch.cuda.memory_allocated(device) - mem0
+                                                  if cuda else None)}
+        except BaseException as e:  # reported to the caller
+            swap.error = e
+            self.recorder.record("weight_swap_failed", step=swap.step,
+                                 error=f"{type(e).__name__}: {e}")
+        finally:
+            with self._swap_lock:
+                self._swap_pending = None
+            swap.done.set()
+
+    def _swap_waiters(self) -> List[Request]:
+        """The requests that queued while the swap was staged: they start on
+        the new weights, so the swap is part of their latency story."""
+        with self._q.mutex:
+            queued = [r for r in list(self._q.queue) if isinstance(r, Request)]
+        return list(self._waiting) + queued
+
+    def _invalidate_prefix_cache(self) -> None:
+        """New weights make cached K/V stale; the dense engine keeps none
+        across requests. The paged engine overrides."""
 
     def _attach_request(self, req: Request) -> None:
         """Enter an exported request into this engine's ledgers (the inverse
@@ -1317,6 +1553,13 @@ class ContinuousBatchingEngine:
                     # applied at once: emptying the slots without waiting
                     # for them is the point
                     self._apply_export()
+                if self._swap_pending is not None:
+                    # admission pauses: the slots in flight finish on the
+                    # old weights, and the swap applies once they are gone
+                    if any(r is not None for r in self._slot_req):
+                        self._tick()
+                        continue
+                    self._apply_swap()
                 self._admit()
                 busy = self._tick()
             if not busy and not self._waiting:
@@ -1393,11 +1636,13 @@ class ContinuousBatchingEngine:
         """The slot to preempt for an arrival of raw tier ``tier``: the
         youngest live request of the worst strictly lower tier (equal tiers
         never preempt each other); None when there is none. Slots still
-        prefilling are never preempted."""
+        prefilling are never preempted, and neither is a request that aging
+        admitted over better-tier waiters (``Request.promoted``): promotion
+        bounds a lower tier's wait only if the slot it wins stays its own."""
         victim, vkey = None, None
         for slot in range(self._slots):
             req = self._slot_req[slot]
-            if req is None or not self._live[slot] or req.tier <= tier:
+            if req is None or not self._live[slot] or req.tier <= tier or req.promoted:
                 continue
             if vkey is None or (req.tier, req.id) > vkey:
                 victim, vkey = slot, (req.tier, req.id)
@@ -1462,11 +1707,19 @@ class ContinuousBatchingEngine:
         """Fill free slots in (aged tier, arrival) order. When no slot is
         free (or, paged, no blocks) and the chosen waiter outranks a live
         request, preempt the youngest live request of the worst tier: it
-        requeues behind the admission."""
+        requeues behind the admission, and the waiter that asked for the
+        preemption takes the freed slot: selecting again by aged tier could
+        pick the victim, aged past the arrival, which then preempts it back
+        (the JAX engine's churn). A request that aging admits over waiters
+        of a better raw tier is marked ``promoted`` and is not preempted by
+        them."""
         self._shed_marked()
         self._update_brownout()
+        preemptor = None
         while self._waiting:
-            idx = self._select_waiting()
+            idx = (self._waiting.index(preemptor) if preemptor is not None
+                   else self._select_waiting())
+            preemptor = None
             req = self._waiting[idx]
             if self._pre_admit_resolve(req):
                 del self._waiting[idx]
@@ -1485,8 +1738,10 @@ class ContinuousBatchingEngine:
                 if victim is None:
                     return  # nothing live ranks below it: it waits for retirements
                 self._preempt_slot(victim)
+                preemptor = req
                 continue
             del self._waiting[idx]
+            req.promoted = any(w.tier < req.tier for w in self._waiting)
             try:
                 self._insert(req, free[0], plan)
             except BaseException:
@@ -2165,6 +2420,24 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _fail_inflight(self, err: ServingError) -> None:
         self._prefills.clear()  # their requests resolve through _slot_req
         super()._fail_inflight(err)
+
+    def _invalidate_prefix_cache(self) -> None:
+        """New weights make every cached prefix's K/V stale: the cache is
+        emptied (not spilled; the host tier's fingerprint stamps already
+        make its old entries miss). The swap runs with no slot in use, so
+        every block is then free, and an int8 pool's block scales are
+        zeroed: a block's scale only grows, so a stale one would quantize
+        the new weights' K/V differently from a new pool's (the JAX engine
+        keeps them)."""
+        dropped = len(self._prefix)
+        self._prefix.evict(self._num_blocks)
+        if dropped:
+            self.stats.incr("prefix_blocks_discarded", dropped)
+        for entry in self._cache["layers"].values():
+            for name in ("k_scale", "v_scale"):
+                if name in entry:
+                    entry[name].zero_()
+        self.recorder.record("prefix_cache_invalidated", entries=dropped)
 
     def _occupancy(self) -> float:
         return self._allocator.used_count / max(1, self._num_blocks - 1)

@@ -153,6 +153,16 @@ class Generator:
         self.last_row_draft_proposed: Optional[np.ndarray] = None
         self.last_row_draft_accepted: Optional[np.ndarray] = None
 
+    def adopt_params(self, old: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
+        """An engine swapped its weights from ``old`` to ``new``: where this
+        Generator still holds ``old`` (its own ``params``, and a self-draft
+        aliasing them) it takes ``new``, so that the old leaves are freed
+        once no engine serves them."""
+        if self.params is old:
+            self.params = new
+        if self._draft_params is old:
+            self._draft_params = new
+
     @property
     def has_draft(self) -> bool:
         """True when a draft model is attached (speculation drafts with it)."""

@@ -39,7 +39,18 @@ one engine on one card):
                      fleet has N, within [--min-replicas, --max-replicas]
                      (404 without a fleet, 400 outside the bounds, 409 when
                      a step fails) -> {"replicas": N}
-  GET  /v1/lineage   -> 404: lineage needs hot-swap, not ported
+  POST /v1/deploy    -> hot-swap the newest verified publish of
+                        --publish-watch-dir in (the deploy's result), or
+                        {"kind": "noop", ...} when nothing is newer; 409 on
+                        a refused or failed swap (the old weights keep
+                        serving); 404 without --publish-watch-dir
+  POST /v1/deploy/rollback -> swap the previous weights back in (409 when
+                        there is nothing to roll back to)
+  GET  /v1/lineage   -> the train→serve lineage: which run and step each
+                        weight generation came from, the deploy history
+                        (deploys, rollbacks, canary rejections) and the
+                        per-generation serving slices (404 without
+                        --publish-watch-dir)
   POST /v1/profile   {"duration_s": S (default 3)} -> a torch.profiler
                      capture into a fresh subdirectory of --profile-dir,
                      stopped after S seconds (404 without --profile-dir,
@@ -129,6 +140,16 @@ flight (0: unbounded). An unknown name answers 404 with the known list, a
 full pool or a tenant over its quota 429 with Retry-After; a server without
 ``--adapter-dir`` answers 404, the window engine 400.
 
+Live deployment (the slot engines, as in the JAX server):
+``--publish-watch-dir DIR`` (env ``PUBLISH_DIR``) watches a trainer's
+publish directory every ``--publish-poll-s`` and hot-swaps each new,
+verified publish in at a tick boundary (``infer/deploy.py``), one replica at
+a time; ``--canary-window-s`` > 0 judges replica 0 against its siblings for
+that long (``--canary-min-requests`` settled requests on each side) before
+the roll goes on, and ``--auto-rollback-window-s`` > 0 rolls back by itself
+when the error rate in that window after a swap reaches
+``--auto-rollback-error-rate``. The window engine is refused.
+
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
 [--quantize int8] [--speculative K [--draft-dir DIR]]``. It serves on the GPU;
@@ -158,6 +179,7 @@ from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_S
 from llm_fine_tune_distributed_tpu_torch.device import resolve_device
 from llm_fine_tune_distributed_tpu_torch.infer.adapters import AdapterRegistry
 from llm_fine_tune_distributed_tpu_torch.infer.batching import PRIORITY_TIERS, BatchingEngine
+from llm_fine_tune_distributed_tpu_torch.infer.deploy import CheckpointWatcher, HotSwapManager
 from llm_fine_tune_distributed_tpu_torch.infer.engine import (
     ContinuousBatchingEngine,
     PagedContinuousBatchingEngine,
@@ -189,7 +211,7 @@ from llm_fine_tune_distributed_tpu_torch.observe.profiler import (
     ProfilerCapture,
     device_memory_report,
 )
-from llm_fine_tune_distributed_tpu_torch.observe.slo import SloPolicy
+from llm_fine_tune_distributed_tpu_torch.observe.slo import CanaryJudge, SloPolicy
 from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
     QUANTIZE_MODES,
     check_quantize_mode,
@@ -289,6 +311,18 @@ def check_adapters(engine: str, adapter_dir: Optional[str]) -> None:
         )
 
 
+def check_deploy(engine: str, publish_watch_dir: Optional[str]) -> None:
+    """Refuse ``--publish-watch-dir`` on the window engine, before any
+    weight loads (the JAX server's refusal)."""
+    if publish_watch_dir and engine == "window":
+        raise ValueError(
+            "--publish-watch-dir (checkpoint hot-swap) needs a continuous/"
+            "paged engine — the swap lands at the slot scheduler's tick "
+            "boundary, which the window batcher does not have; drop "
+            "--publish-watch-dir or pick --engine continuous|paged"
+        )
+
+
 def check_fleet(engine: str, replicas: int = 1, routing: str = "prefix",
                 autoscale: str = "dry-run", min_replicas: int = 1, max_replicas: int = 0,
                 host_tier_mb: int = 0, migrate_on_retire: bool = False,
@@ -377,17 +411,20 @@ def check_fleet(engine: str, replicas: int = 1, routing: str = "prefix",
 
 
 class _Server(ThreadingHTTPServer):
-    """The HTTP server; closing it also stops a running profiler capture,
-    the autoscaler's thread and the window engine it keeps beside a slot
-    engine."""
+    """The HTTP server; closing it also stops the hot-swap manager's and the
+    autoscaler's threads, a running profiler capture and the window engine
+    it keeps beside a slot engine."""
 
     daemon_threads = True
     window_engine = None
     profiler_capture = None
     autoscaler = None
+    deploy_manager = None
 
     def server_close(self) -> None:
         super().server_close()
+        if self.deploy_manager is not None:
+            self.deploy_manager.stop()
         if self.autoscaler is not None:
             self.autoscaler.stop()
         if self.profiler_capture is not None:
@@ -471,6 +508,12 @@ def build_server(
     adapter_dir: Optional[str] = None,
     max_adapters: int = 8,
     adapter_capacity: int = 0,
+    publish_watch_dir: Optional[str] = None,
+    publish_poll_s: float = 2.0,
+    auto_rollback_window_s: float = 0.0,
+    auto_rollback_error_rate: float = 0.5,
+    canary_window_s: float = 0.0,
+    canary_min_requests: int = 8,
     control: Optional[dict] = None,
 ):
     """Start an ``engine`` over ``generator`` and bind an HTTP server to it.
@@ -493,10 +536,15 @@ def build_server(
     returned engine is the ``EngineFleet``, and ``httpd.autoscaler`` its
     autoscaler. ``adapter_dir`` serves the LoRA adapters under it, each
     replica through its own ``AdapterRegistry`` of ``max_adapters`` slots,
-    with ``adapter_capacity`` requests in flight per tenant (0: unbounded)."""
+    with ``adapter_capacity`` requests in flight per tenant (0: unbounded).
+    ``publish_watch_dir`` ... ``canary_min_requests`` are the live
+    deployment settings: a ``HotSwapManager`` (``httpd.deploy_manager``,
+    also ``control["deploy"]``) polls the directory, started once the
+    engines are up and stopped with the server."""
     speculative_k = max(0, int(speculative_k or 0))
     check_engine(engine, quantize_kv, speculative_k)
     check_adapters(engine, adapter_dir)
+    check_deploy(engine, publish_watch_dir)
     roles = check_fleet(engine, replicas, routing, autoscale, min_replicas, max_replicas,
                         host_tier_mb, migrate_on_retire, replica_roles, autoscale_ratio)
     replicas = max(1, int(replicas or 1))
@@ -592,6 +640,24 @@ def build_server(
                                   boundary=first.tick_boundary if slot and not fleet else None)
         log.info("profiler warmed up for POST /v1/profile in %.1f s", capture.warm_up())
 
+    # live deployment: the manager watches the publish directory and rolls
+    # each verified publish over the replicas; the resident base it verifies
+    # against is read off replica 0 when a publish arrives
+    deploy_mgr = None
+    if publish_watch_dir:
+        canary = (CanaryJudge(window_s=canary_window_s, min_requests=canary_min_requests)
+                  if canary_window_s > 0 else None)
+        deploy_mgr = HotSwapManager(
+            engine, CheckpointWatcher(publish_watch_dir, base_params=lambda: first.params),
+            poll_s=publish_poll_s, auto_rollback_window_s=auto_rollback_window_s,
+            auto_rollback_error_rate=auto_rollback_error_rate, canary=canary)
+        deploy_mgr.start()
+        print(f"[serve] watching {publish_watch_dir} for published checkpoints (poll every "
+              f"{publish_poll_s:g}s"
+              + (f", auto-rollback at {auto_rollback_error_rate:.0%} errors over "
+                 f"{auto_rollback_window_s:g}s" if auto_rollback_window_s > 0 else "")
+              + (f", canary window {canary_window_s:g}s" if canary else "") + ")", flush=True)
+
     def snapshot() -> dict:
         if kind == "window":
             return {"engine": kind, "queue_depth": engine.queue_depth, "max_batch": max_batch}
@@ -652,7 +718,7 @@ def build_server(
             elif path == "/v1/flight":
                 self._flight(query)
             elif path == "/v1/lineage":
-                self._send(404, {"error": _LINEAGE_404})
+                self._lineage()
             elif path in _NEEDS_SLOT_ENGINE and kind == "window":
                 self._send(404, {"error": _NEEDS_SLOT_ENGINE[path]})
             elif path == "/v1/slo":
@@ -671,6 +737,46 @@ def build_server(
                 self._send(200, report)
             else:
                 self._send(404, {"error": "not found"})
+
+        def _lineage(self) -> None:
+            """The manager's lineage, each generation joined with its
+            serving slice (a fleet's merged per-generation view)."""
+            if deploy_mgr is None:
+                self._send(404, {"error": _LINEAGE_404})
+                return
+            payload = deploy_mgr.lineage()
+            slices = (engine.stats_snapshot().get("per_generation") if fleet
+                      else engine.slo_slices.summaries())
+            if slices:
+                payload["serving"] = slices
+                for gen, rec in payload["generations"].items():
+                    if gen in slices:
+                        rec["slo"] = slices[gen]
+            self._send(200, payload)
+
+        def _deploy(self) -> None:
+            """POST /v1/deploy and /v1/deploy/rollback (not behind the drain
+            guard: a draining server may still be rolled back)."""
+            if deploy_mgr is None:
+                self._send(404, {"error": "live deployment disabled; start the server with "
+                                          "--publish-watch-dir"})
+                return
+            try:
+                if self.path.endswith("/rollback"):
+                    result = deploy_mgr.rollback()
+                else:
+                    result = deploy_mgr.poll_once() or {
+                        "kind": "noop",
+                        "detail": "no publish newer than the deployed generation",
+                        **deploy_mgr.status(),
+                    }
+            except RuntimeError as e:
+                self._send(409, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 — through the taxonomy
+                self._send_error(e)
+                return
+            self._send(200, result)
 
         def _metrics(self) -> str:
             """Prometheus text; a fleet's aggregate samples are each followed
@@ -852,6 +958,9 @@ def build_server(
             if self.path == "/v1/fleet/scale":
                 self._scale()
                 return
+            if self.path in ("/v1/deploy", "/v1/deploy/rollback"):
+                self._deploy()
+                return
             if self.path not in ("/v1/generate", "/v1/stream", "/v1/profile"):
                 self._send(404, {"error": "not found"})
                 return
@@ -1002,6 +1111,7 @@ def build_server(
     httpd = _Server((host, port), Handler)
     httpd.profiler_capture = capture
     httpd.autoscaler = autoscaler
+    httpd.deploy_manager = deploy_mgr
     if window is not engine:
         httpd.window_engine = window
 
@@ -1019,6 +1129,8 @@ def build_server(
             eng.begin_drain()
 
         def finish() -> None:
+            if deploy_mgr is not None:
+                deploy_mgr.stop()  # no swap starts while the work drains
             deadline = time.monotonic() + float(drain_timeout_s)
             clean = True
             for eng in engines:
@@ -1035,6 +1147,7 @@ def build_server(
         control["begin_drain"] = begin_drain
         control["httpd"] = httpd
         control["autoscaler"] = autoscaler
+        control["deploy"] = deploy_mgr
     return httpd, engine
 
 
@@ -1074,6 +1187,7 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     check_quantize_mode(quantize)  # before the model loads
     check_engine(engine, quantize_kv, speculative_k, draft_dir)
     check_adapters(engine, adapter_dir)
+    check_deploy(engine, engine_kw.get("publish_watch_dir"))
     check_fleet(engine, **{k: engine_kw[k] for k in _FLEET_FLAGS if k in engine_kw})
     device = resolve_device(device)
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -1188,6 +1302,31 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--adapter-capacity", type=int, default=0, metavar="N",
                         help="per-tenant admission quota: max in-flight requests per adapter "
                              "name before a tenant-scoped 429 + Retry-After (0 = unlimited)")
+    parser.add_argument("--publish-watch-dir", default=os.environ.get("PUBLISH_DIR") or None,
+                        help="live deployment: watch this trainer publish directory (train "
+                             "publish_dir) and hot-swap each new verified checkpoint in at a "
+                             "tick boundary without dropping a request; enables POST "
+                             "/v1/deploy, POST /v1/deploy/rollback and GET /v1/lineage. Off by "
+                             "default")
+    parser.add_argument("--publish-poll-s", type=float, default=2.0,
+                        help="seconds between publish-directory polls (--publish-watch-dir)")
+    parser.add_argument("--auto-rollback-window-s", type=float, default=0.0,
+                        help="after each hot-swap, watch the error rate for this many seconds "
+                             "and roll back automatically if it trips "
+                             "--auto-rollback-error-rate (0 = manual rollback only)")
+    parser.add_argument("--auto-rollback-error-rate", type=float, default=0.5,
+                        help="failed-request fraction within the post-swap window that "
+                             "triggers the automatic rollback")
+    parser.add_argument("--canary-window-s", type=float, default=0.0,
+                        help="canary-scored deploys (needs --replicas > 1): after swapping the "
+                             "FIRST replica, compare its per-generation latency/error deltas "
+                             "against the unswapped siblings for this many seconds; a "
+                             "regression verdict rolls the canary back and blocks the publish. "
+                             "0 = roll all replicas without a canary window")
+    parser.add_argument("--canary-min-requests", type=int, default=8,
+                        help="settled requests the canary (and the sibling baseline) must see "
+                             "inside --canary-window-s for the verdict to bind; below it the "
+                             "roll proceeds (the error-rate backstop still guards)")
     parser.add_argument("--max-queue-depth", type=int, default=256,
                         help="bounded admission: requests beyond this many waiters are shed "
                              "with 429 + Retry-After (0 = unbounded)")
@@ -1276,6 +1415,7 @@ def main(argv: Optional[list] = None) -> int:
     try:
         check_engine(args.engine, args.quantize_kv, args.speculative, args.draft_dir)
         check_adapters(args.engine, args.adapter_dir)
+        check_deploy(args.engine, args.publish_watch_dir)
         check_fleet(args.engine, **fleet_kw)
     except ValueError as e:
         parser.error(str(e))
@@ -1304,7 +1444,12 @@ def main(argv: Optional[list] = None) -> int:
         slo_slow_window_s=args.slo_slow_window_s,
         slo_sample_interval_s=args.slo_sample_interval_s,
         scale_cooldown_s=args.scale_cooldown_s, adapter_dir=args.adapter_dir,
-        max_adapters=args.max_adapters, adapter_capacity=args.adapter_capacity, **fleet_kw,
+        max_adapters=args.max_adapters, adapter_capacity=args.adapter_capacity,
+        publish_watch_dir=args.publish_watch_dir, publish_poll_s=args.publish_poll_s,
+        auto_rollback_window_s=args.auto_rollback_window_s,
+        auto_rollback_error_rate=args.auto_rollback_error_rate,
+        canary_window_s=args.canary_window_s, canary_min_requests=args.canary_min_requests,
+        **fleet_kw,
     )
     return 0
 

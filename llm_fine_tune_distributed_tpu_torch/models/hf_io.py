@@ -14,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -44,11 +44,18 @@ _ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Read one ``.safetensors`` file into CPU tensors."""
+    """Read one ``.safetensors`` file into CPU tensors. The data section is
+    read once, straight into one uint8 buffer, and every tensor is a view of
+    it (no per-tensor copy; the views keep the buffer alive after the file
+    is closed). A tensor whose offset is not a multiple of its element size
+    is copied out instead."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
+        size = os.fstat(f.fileno()).st_size - 8 - n
+        data = torch.empty(size, dtype=torch.uint8)
+        if size and f.readinto(memoryview(data.numpy())) != size:
+            raise ValueError(f"{path}: truncated data section")
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
@@ -61,8 +68,10 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         if end == start:
             out[name] = torch.empty(shape, dtype=dtype)
             continue
-        t = torch.frombuffer(data, dtype=dtype, count=(end - start) // _itemsize(dtype), offset=start)
-        out[name] = t.reshape(shape).clone()
+        raw = data[start:end]
+        if start % _itemsize(dtype):
+            raw = raw.clone()
+        out[name] = raw.view(dtype).reshape(shape)
     return out
 
 
@@ -70,33 +79,45 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
+def write_safetensors(path, tensors: Dict[str, torch.Tensor],
                       metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write CPU-copyable tensors as one ``.safetensors`` file."""
+    """Write CPU-copyable tensors as one ``.safetensors`` file (``path``, or
+    a binary file object open for writing). Each tensor's bytes go to the
+    file straight from its host copy. The tensors are laid out by element
+    size, largest first, so every offset is a multiple of its tensor's
+    element size and ``read_safetensors`` can view each in place."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     blobs = []
     offset = 0
-    for name, t in tensors.items():
+    for name, t in sorted(tensors.items(), key=lambda kv: -kv[1].element_size()):
         t = t.detach().to("cpu").contiguous()
         if t.dtype not in _ST_NAMES:
             raise ValueError(f"{name}: unsupported dtype {t.dtype}")
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        raw = t.reshape(-1).view(torch.uint8).numpy()
         header[name] = {
             "dtype": _ST_NAMES[t.dtype],
             "shape": list(t.shape),
-            "data_offsets": [offset, offset + len(raw)],
+            "data_offsets": [offset, offset + raw.size],
         }
         blobs.append(raw)
-        offset += len(raw)
+        offset += raw.size
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)  # keep the data section 8-byte aligned
-    with open(path, "wb") as f:
+
+    def emit(f) -> None:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
         for raw in blobs:
-            f.write(raw)
+            if raw.size:
+                f.write(memoryview(raw))
+
+    if hasattr(path, "write"):
+        emit(path)
+        return
+    with open(path, "wb") as f:
+        emit(f)
 
 
 def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
@@ -151,24 +172,24 @@ def pytree_to_hf_state_dict(params: Dict[str, torch.Tensor]) -> Dict[str, torch.
     return state
 
 
-def hf_state_dict_to_pytree(state: Dict[str, torch.Tensor], config: ModelConfig,
-                            dtype=None) -> Dict[str, torch.Tensor]:
-    """{hf_name: tensor} -> flat params (transposing Linear weights). A tied
-    config drops ``lm_head``; an untied one without ``lm_head`` takes the
+def _flat_leaf(name: str, t: torch.Tensor, dtype=None) -> Tuple[str, torch.Tensor]:
+    """One HF tensor -> (flat name, leaf): cast to ``dtype``, a Linear weight
+    transposed to ``kernel [in, out]``."""
+    if ".experts." in name or "block_sparse_moe" in name:
+        raise NotImplementedError(
+            "MoE checkpoints are not ported "
+            "(llm_fine_tune_distributed_tpu.models.hf_io.hf_state_dict_to_pytree has them)"
+        )
+    if dtype is not None:
+        t = t.to(dtype)
+    if _needs_transpose(name):
+        return name[: -len(".weight")] + "." + _KERNEL_LEAF, t.T.contiguous()
+    return name, t
+
+
+def _tie_head(flat: Dict[str, torch.Tensor], config: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A tied config drops ``lm_head``; an untied one without it takes the
     transposed embedding, as HF stores tied models."""
-    flat: Dict[str, torch.Tensor] = {}
-    for name, t in state.items():
-        if ".experts." in name or "block_sparse_moe" in name:
-            raise NotImplementedError(
-                "MoE checkpoints are not ported "
-                "(llm_fine_tune_distributed_tpu.models.hf_io.hf_state_dict_to_pytree has them)"
-            )
-        if dtype is not None:
-            t = t.to(dtype)
-        if _needs_transpose(name):
-            flat[name[: -len(".weight")] + "." + _KERNEL_LEAF] = t.T.contiguous()
-        else:
-            flat[name] = t
     if config.tie_word_embeddings:
         flat.pop("lm_head." + _KERNEL_LEAF, None)
     elif "lm_head." + _KERNEL_LEAF not in flat:
@@ -179,12 +200,23 @@ def hf_state_dict_to_pytree(state: Dict[str, torch.Tensor], config: ModelConfig,
     return flat
 
 
+def hf_state_dict_to_pytree(state: Dict[str, torch.Tensor], config: ModelConfig,
+                            dtype=None) -> Dict[str, torch.Tensor]:
+    """{hf_name: tensor} -> flat params (transposing Linear weights). A tied
+    config drops ``lm_head``; an untied one without ``lm_head`` takes the
+    transposed embedding, as HF stores tied models."""
+    return _tie_head(dict(_flat_leaf(name, t, dtype) for name, t in state.items()), config)
+
+
 def load_hf_checkpoint(path: str, config: ModelConfig, dtype=None,
                        device="cpu") -> Dict[str, torch.Tensor]:
     """Load an HF checkpoint directory (or file) into flat params on
-    ``device``; ``dtype=None`` keeps the stored dtype."""
-    params = hf_state_dict_to_pytree(load_safetensors_dir(path), config, dtype=dtype)
-    return {k: v.to(device) for k, v in params.items()}
+    ``device``; ``dtype=None`` keeps the stored dtype. Each tensor goes to
+    ``device`` as stored and is cast and transposed there, one at a time (on
+    a GPU, a device copy instead of a pass over the weights in host memory)."""
+    state = load_safetensors_dir(path)
+    flat = dict(_flat_leaf(name, state.pop(name).to(device), dtype) for name in list(state))
+    return _tie_head(flat, config)
 
 
 def save_hf_checkpoint(params: Dict[str, torch.Tensor], path: str, *,

@@ -18,19 +18,35 @@ weights restored at the end, and the artifact contract: ``best_model/``
 trainable one) through the w8a8 int8 kernel: its projections are quantized
 once from the f32 weights, and ``best_model/`` holds them decoded.
 
+Checkpoints (``train/checkpoints.py``), as in the JAX trainer: a save every
+``save_steps`` and always a final one, the newest/best ``save_total_limit``
+kept, the trainable-only payload (``checkpoint_trainable_only``) and the
+background snapshot (``checkpoint_async_snapshot``);
+``resume_from_checkpoint`` ("latest" or a step) restores the state, falling
+back between the two payload modes, and the loader and the learning-rate
+schedule go on from the saved step. After every save, process 0 publishes
+the trainable weights to ``publish_dir`` (``train/publish.py``), stamped
+with the run's lineage and the anomaly sentinels' verdict
+(``observe/trainplane.TrainTelemetry``, always built). SIGTERM, or
+``request_preemption()``, stops the loop at the next step boundary, writes
+an emergency checkpoint and returns.
+
 Not ported, and refused by ``check_supported``: packing, DPO, LoRA/QLoRA,
-chunked losses, Adafactor/Lion, sequence parallelism,
-meshes of more than one device, checkpoints (periodic saves and resume), the
-publish directory, the control plane and the C++ loader. The JAX trainer's
-final Orbax checkpoint is not written either: ``best_model/`` and the two
-JSON files are the artifacts.
+chunked losses, Adafactor/Lion, sequence parallelism, meshes of more than
+one device, the control plane's HTTP server (``train_port``) and the C++
+loader. A checkpoint of the JAX trainer's pipeline layout (``@stacked``
+leaves) is refused at resume: the cross-layout resume waits for pipeline
+parallelism.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import signal
 import statistics
+import threading
 import time
 from typing import Any, Dict, Optional
 
@@ -55,6 +71,7 @@ from llm_fine_tune_distributed_tpu_torch.models.configs import (
 from llm_fine_tune_distributed_tpu_torch.models.hf_io import load_hf_checkpoint, save_hf_checkpoint
 from llm_fine_tune_distributed_tpu_torch.models.transformer import init_params
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import MetricLogger
+from llm_fine_tune_distributed_tpu_torch.observe.trainplane import TrainTelemetry
 from llm_fine_tune_distributed_tpu_torch.ops.int8 import dequantize_int8
 from llm_fine_tune_distributed_tpu_torch.parallel.freeze import (
     describe_trainable,
@@ -64,6 +81,12 @@ from llm_fine_tune_distributed_tpu_torch.parallel.freeze import (
 )
 from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import build_optimizer
 from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
+from llm_fine_tune_distributed_tpu_torch.train.checkpoints import (
+    CheckpointManager,
+    FingerprintMismatch,
+    frozen_fingerprint,
+)
+from llm_fine_tune_distributed_tpu_torch.train.publish import CheckpointPublisher
 from llm_fine_tune_distributed_tpu_torch.train.state import TrainState
 from llm_fine_tune_distributed_tpu_torch.train.step import build_eval_step, build_train_step
 from llm_fine_tune_distributed_tpu_torch.utils.tree import merge_flat, split_by_mask
@@ -93,8 +116,6 @@ def check_supported(config: TrainConfig) -> None:
             config.optimizer != "adamw", "parallel/optimizer.build_optimizer"),
         f"attention_impl={config.attention_impl!r}": (
             config.attention_impl in ("ring", "ulysses"), "ops/attention.attention"),
-        "resume_from_checkpoint": (bool(config.resume_from_checkpoint), "_resume"),
-        "publish_dir": (bool(config.publish_dir), "_publish (train/publish.py)"),
         "train_port": (config.train_port is not None, "observe/trainplane.TrainControlPlane"),
         "use_native_loader=True": (config.use_native_loader, "data/native_loader.NativeBatchLoader"),
     }
@@ -156,13 +177,22 @@ class SFTTrainer:
         self.tokenizer = tokenizer or load_tokenizer(config.tokenizer_path or config.model_name)
         self.metrics = MetricLogger()
         self.watchdog: Optional[StepWatchdog] = None  # the last train()'s
+        # set by SIGTERM or request_preemption(): checkpoint at the next step
+        # boundary and return
+        self._preempt = threading.Event()
+        self._publisher: Optional[CheckpointPublisher] = None  # made at the first publish
+        self._frozen_fp = None  # the frozen leaves' fingerprint, computed once
+        # the last train()'s final save and last publish (step, bytes, seconds)
+        self.last_checkpoint: Optional[dict] = None
+        self.last_publish: Optional[dict] = None
+        # the run's telemetry: lineage, the anomaly sentinels that gate a
+        # publish, the flight recorder (fed at log/eval/save boundaries)
+        hparams = {k: (v if isinstance(v, (int, float, str, bool, type(None))) else str(v))
+                   for k, v in config.to_dict().items()}
+        self.telemetry = TrainTelemetry(hparams=hparams, band_sigma=config.anomaly_band_sigma,
+                                        anomaly_window_steps=config.anomaly_window_steps)
         os.makedirs(os.path.join(config.output_dir, "best_model"), exist_ok=True)
         self._prepare_data()
-        if config.save_steps and config.save_steps <= self.total_steps:
-            raise NotImplementedError(
-                f"save_steps={config.save_steps} <= {self.total_steps} total steps would write "
-                f"a periodic checkpoint; checkpoints are not ported ({_JAX_TRAINER}._ckpt_save)"
-            )
         self._prepare_state()
         self.train_step = build_train_step(self.model_config, config, self.optimizer,
                                            frozen_layers=self.frozen_boundary)
@@ -333,9 +363,10 @@ class SFTTrainer:
 
     def _resolve_best_mode(self) -> str:
         """"auto": per_eval under 512 MiB of trainable masters, else
-        checkpoint. No checkpoint is written here (a periodic one is refused
-        at construction), so checkpoint mode keeps the final weights, as
-        the JAX trainer does when only its end-of-run checkpoint exists."""
+        checkpoint (the best among saved checkpoints, restored at the end).
+        Checkpoint mode needs every mid-run save to carry a fresh eval, so
+        ``save_steps`` must be a multiple of ``eval_steps``; with no mid-run
+        save only the final weights can win, which it says."""
         cfg = self.config
         mode = cfg.best_model_tracking
         if mode == "auto":
@@ -343,7 +374,15 @@ class SFTTrainer:
             mode = "per_eval" if trainable_bytes < 512 * 1024**2 else "checkpoint"
         elif mode not in ("per_eval", "checkpoint"):
             raise ValueError(f"unknown best_model_tracking {mode!r}")
-        if mode == "checkpoint" and cfg.load_best_model_at_end and cfg.save_steps:
+        if (mode == "checkpoint" and cfg.load_best_model_at_end and cfg.eval_steps
+                and cfg.save_steps and cfg.save_steps % cfg.eval_steps != 0
+                and cfg.save_steps <= self.total_steps):
+            raise ValueError(
+                f"best_model_tracking='checkpoint' needs save_steps ({cfg.save_steps}) to be a "
+                f"multiple of eval_steps ({cfg.eval_steps}) so every saved checkpoint carries a "
+                "fresh metric — align the cadences or use best_model_tracking='per_eval'")
+        if (mode == "checkpoint" and cfg.load_best_model_at_end and cfg.save_steps
+                and cfg.save_steps > self.total_steps):
             print(
                 f"WARNING: best_model_tracking='checkpoint' with save_steps={cfg.save_steps} > "
                 f"total_steps={self.total_steps}: only the end-of-training checkpoint will "
@@ -355,13 +394,137 @@ class SFTTrainer:
     def _better(self, a: float, b: float) -> bool:
         return a > b if self.config.greater_is_better else a < b
 
+    # ------------------------------------------------------------ checkpoints
+
+    def _checkpoint_manager(self) -> CheckpointManager:
+        cfg = self.config
+        return CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
+                                 max_to_keep=cfg.save_total_limit,
+                                 metric_name=cfg.metric_for_best_model,
+                                 greater_is_better=cfg.greater_is_better,
+                                 trainable_only=cfg.checkpoint_trainable_only)
+
+    def _metric(self, last_eval: Optional[float]) -> Optional[Dict[str, float]]:
+        return {self.config.metric_for_best_model: last_eval} if last_eval is not None else None
+
+    def _ckpt_save(self, ckpt: CheckpointManager, step: int, metrics) -> None:
+        """Save ``step`` (trainable-only with the frozen fingerprint when so
+        configured, as a background snapshot when so configured), then
+        publish it."""
+        fp = None
+        if ckpt.trainable_only or self.config.publish_dir:
+            if self._frozen_fp is None:  # the frozen leaves never change
+                self._frozen_fp = frozen_fingerprint(self.state.frozen)
+            fp = self._frozen_fp
+        ckpt.save(step, self.state, metrics=metrics,
+                  fingerprint=fp if ckpt.trainable_only else None,
+                  snapshot_async=self.config.checkpoint_async_snapshot)
+        self._publish(step, fp, metrics)
+
+    def _publish(self, step: int, fp, metrics) -> None:
+        """Drop the trainable weights and a manifest into ``publish_dir``
+        for a serving engine to hot-swap (one process, so it is process 0).
+        A publish whose trailing anomaly window is dirty is stamped so, or
+        skipped under ``publish_require_clean``. A failure here is logged,
+        never fatal: deployment lag must not kill the fine-tune."""
+        cfg = self.config
+        if not cfg.publish_dir:
+            return
+        clean = self.telemetry.publish_clean(step)
+        if not clean and cfg.publish_require_clean:
+            self.telemetry.note_publish(step, clean=False, skipped=True)
+            print(f"[train] skipping publish for step {step}: anomaly window dirty and "
+                  "publish_require_clean is set", flush=True)
+            return
+        try:
+            if self._publisher is None:
+                self._publisher = CheckpointPublisher(cfg.publish_dir,
+                                                      keep_last=cfg.publish_keep_last)
+            t0 = time.perf_counter()
+            path = self._publisher.publish(
+                step, self.state.trainable, frozen_fp=fp, metrics=metrics,
+                run_id=self.telemetry.run_id, hparams_digest=self.telemetry.hparams_digest,
+                anomaly_clean=clean)
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)
+            self.last_publish = {"step": step, "path": path, "bytes": manifest["bytes"],
+                                 "seconds": time.perf_counter() - t0,
+                                 "write_s": self._publisher.last_write_s}
+            self.telemetry.note_publish(step, clean=clean,
+                                        fingerprint=manifest["weight_fingerprint"])
+        except Exception as e:  # noqa: BLE001 — an advisory side channel
+            print(f"[train] checkpoint publish for step {step} failed: {e}", flush=True)
+
+    def _resume(self, ckpt: CheckpointManager) -> int:
+        """Restore ``resume_from_checkpoint`` ("latest", or a step) into the
+        state; returns the resumed step (0 when there is nothing to resume).
+        A checkpoint of the other payload mode is accepted (both ways); a
+        ``FingerprintMismatch`` is raised as it is, never retried."""
+        target = str(self.config.resume_from_checkpoint)
+        step = ckpt.latest_step if target in ("latest", "true", "1") else int(target)
+        if step is None:
+            print("No checkpoint found to resume from; starting fresh")
+            return 0
+        lean = ckpt.trainable_only
+        try:
+            self.state = ckpt.restore(step, self.state)
+        except (FingerprintMismatch, NotImplementedError):
+            raise  # a wrong base or a pipeline layout: the other mode would not help
+        except Exception as e:
+            try:
+                self.state = ckpt.restore(step, self.state, trainable_only=not lean)
+            except FingerprintMismatch:
+                raise
+            except Exception as e2:
+                raise RuntimeError(
+                    f"failed to restore checkpoint step {step} in either payload mode "
+                    f"({'trainable-only' if lean else 'full'}: {e}; the other: {e2})") from e2
+            print(f"Resumed {'FULL' if lean else 'trainable-only'} checkpoint step {step} into a "
+                  f"{'trainable-only' if lean else 'full-checkpoint'} run"
+                  + ("" if lean else " (frozen params re-derived and fingerprint-verified)"))
+        self.telemetry.note_restore(self.state.step)
+        print(f"Resumed from checkpoint step {self.state.step}")
+        return self.state.step
+
+    def request_preemption(self) -> None:
+        """Stop the training loop at the next step boundary, write an
+        emergency checkpoint and return (exit 0 for the CLI). SIGTERM calls
+        it; other threads may too."""
+        if not self._preempt.is_set():
+            self.telemetry.recorder.record("preemption_requested")
+            self.telemetry.update(preempted=True)
+        self._preempt.set()
+
+    def _install_sigterm(self):
+        """SIGTERM -> ``request_preemption`` (main thread only); returns the
+        previous handler, or None where none was installed."""
+        if threading.current_thread() is not threading.main_thread():
+            return None
+
+        def on_sigterm(signum, frame):
+            if not self._preempt.is_set():
+                print("[train] SIGTERM: checkpointing at the next step boundary, then exiting "
+                      "for restart+resume", flush=True)
+            self.request_preemption()
+
+        return signal.signal(signal.SIGTERM, on_sigterm)
+
+    # ------------------------------------------------------------------ train
+
     def train(self) -> Dict[str, Any]:
         cfg = self.config
+        ckpt = self._checkpoint_manager()
+        resumed_step = self._resume(ckpt) if cfg.resume_from_checkpoint else 0
+        # a mid-epoch resume skips the batches its epoch already consumed
+        # (the loader's epochs are deterministic), so no row trains twice
+        start_epoch = resumed_step // self.steps_per_epoch
+        skip_batches = resumed_step % self.steps_per_epoch
         best_eval = -float("inf") if cfg.greater_is_better else float("inf")
         best_trainable = None
         best_mode = self._resolve_best_mode()
         last_eval: Optional[float] = None
         final_loss = None
+        preempted = False
         samples_per_step = cfg.per_device_batch_size * cfg.gradient_accumulation_steps
         print(f"Starting SFT: {cfg.epochs} epochs x {self.steps_per_epoch} steps, effective "
               f"batch {samples_per_step}, device {self.device}")
@@ -374,11 +537,17 @@ class SFTTrainer:
         watchdog = self.watchdog = (
             StepWatchdog(cfg.watchdog_timeout_s, cfg.watchdog_action, start_paused=True)
             if cfg.watchdog_timeout_s > 0 else None)
+        prev_sigterm = self._install_sigterm()
+        self.telemetry.update(total_steps=self.total_steps, epochs=cfg.epochs,
+                              step=resumed_step, state="training")
         t_start = time.perf_counter()
         step = self.state.step
         try:
-            for epoch in range(cfg.epochs):
-                for batch in self.loader.epoch(epoch):
+            for epoch in range(start_epoch, cfg.epochs):
+                batches = self.loader.epoch(epoch)
+                if epoch == start_epoch and skip_batches:
+                    batches = itertools.islice(batches, skip_batches, None)
+                for batch in batches:
                     dev_batch = self._device_batch(batch)
                     t_step = time.perf_counter()
                     self.state, metrics = self.train_step(self.state, dev_batch)
@@ -388,9 +557,14 @@ class SFTTrainer:
                                  time.perf_counter() - t_step)
                     if watchdog is not None:
                         watchdog.poke(step)
+                    if self._preempt.is_set():
+                        # stop here, where (params, moments, step) agree
+                        preempted = True
+                        break
                     do_log = ((cfg.logging_first_step and step == 1)
                               or (cfg.logging_steps and step % cfg.logging_steps == 0))
                     do_eval = bool(cfg.eval_steps) and step % cfg.eval_steps == 0 and self.n_val > 0
+                    do_save = bool(cfg.save_steps) and step % cfg.save_steps == 0
                     if do_eval:
                         if watchdog is not None:
                             # an eval sweep has no step pokes; the next
@@ -416,12 +590,43 @@ class SFTTrainer:
                             logs["device_bytes_in_use"] = torch.cuda.memory_allocated(self.device)
                             logs["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
                         self.metrics.log(step, step / self.steps_per_epoch, logs)
-                    if do_eval:
+                        # the sentinels read the same host floats
+                        self.telemetry.on_step(step, logs)
+                        self.telemetry.update(epoch=round(step / self.steps_per_epoch, 4))
+                        if watchdog is not None:
+                            self.telemetry.set_counter("watchdog_trips", watchdog.trips)
+                    if do_save:
+                        if watchdog is not None:
+                            watchdog.pause()  # a save is I/O, not a wedge
+                        t_ckpt = time.perf_counter()
+                        self._ckpt_save(ckpt, step, self._metric(last_eval))
+                        self.telemetry.note_checkpoint(step, time.perf_counter() - t_ckpt)
+                    if do_eval or do_save:
+                        # crash-safe history at every eval/checkpoint boundary
                         self.metrics.save_history(os.path.join(cfg.output_dir, "training_history.json"))
+                if preempted:
+                    break
         finally:
             if watchdog is not None:
                 # the end of the run (final eval, saves) has no step pokes
                 watchdog.stop()
+            if prev_sigterm is not None:
+                signal.signal(signal.SIGTERM, prev_sigterm)
+
+        if preempted:
+            # the emergency checkpoint, then out: the restarted run resumes
+            # from here and finishes the eval, the best model and the export
+            if ckpt.latest_step != step:
+                self._ckpt_save(ckpt, step, self._metric(last_eval))
+            ckpt.close()
+            print(f"[train] preempted at step {step}: emergency checkpoint saved; exiting "
+                  "cleanly for restart+resume", flush=True)
+            self.telemetry.update(state="preempted", step=step)
+            self.telemetry.recorder.record("emergency_checkpoint", step=step)
+            self.metrics.save_history(os.path.join(cfg.output_dir, "training_history.json"))
+            return {"preempted": True, "step": step, "final_train_loss": final_loss,
+                    "final_eval_loss": last_eval,
+                    "wall_clock_seconds": time.perf_counter() - t_start}
 
         # a final eval when none ran, or when checkpoint-mode selection would
         # otherwise credit the final weights with an older eval
@@ -432,12 +637,28 @@ class SFTTrainer:
             if cfg.load_best_model_at_end and self._better(last_eval, best_eval):
                 best_eval = last_eval
                 best_trainable = None  # the current weights are the best
+        self._ckpt_save(ckpt, step, self._metric(last_eval))
+        ckpt.wait()
         if cfg.load_best_model_at_end and best_trainable is not None:
             with torch.no_grad():
                 for k, v in self.state.trainable.items():
                     v.copy_(best_trainable[k])
+        elif cfg.load_best_model_at_end and best_mode == "checkpoint":
+            # the best saved checkpoint, read back only when it is not the
+            # final step's
+            bstep = ckpt.best_step
+            if bstep is not None and bstep != step:
+                best = ckpt.restore(bstep, self.state)
+                with torch.no_grad():
+                    for k, v in self.state.trainable.items():
+                        v.copy_(best.trainable[k])
+                print(f"Restored best checkpoint step {bstep} ({cfg.metric_for_best_model} "
+                      "tracking, best_model_tracking=checkpoint)")
+        ckpt.close()
+        self.last_checkpoint = ckpt.last_save
         self._sync()
         wall = time.perf_counter() - t_start
+        self.telemetry.update(state="completed", step=step)
         return self._save_artifacts(final_loss, last_eval, wall, meter.snapshot())
 
     def _save_artifacts(self, final_loss, eval_loss, wall_seconds: float,

@@ -254,3 +254,73 @@ def test_disaggregated_server_hands_each_request_off(gen):
         assert stats["role"] == "disaggregated" and stats["requests_handed_off"] == 2
         assert pre["decode_steps"] == 0 and pre["requests_completed"] == 0
         assert dec["requests_completed"] == 2 and dec["slots_migrated"] == 2
+
+
+# ------------------------------------------------------------ live deployment
+
+
+def _fresh(gen):
+    """A Generator over copies of ``gen``'s weights: a swap re-points the
+    Generator's own weights when its engine held them."""
+    return Generator({k: v.clone() for k, v in gen.params.items()}, gen.config,
+                     ByteChatMLTokenizer(), compute_dtype=torch.float32, eos_token_ids=[],
+                     device="cpu")
+
+
+def _publish_shifted(gen, publish_dir, step, run_id):
+    """Publish the two first kernels shifted by 0.25, as a trainer would."""
+    from llm_fine_tune_distributed_tpu_torch.train.checkpoints import frozen_fingerprint
+    from llm_fine_tune_distributed_tpu_torch.train.publish import CheckpointPublisher
+
+    names = sorted(k for k in gen.params if k.endswith(".kernel"))[:2]
+    frozen = {k: v for k, v in gen.params.items() if k not in names}
+    CheckpointPublisher(publish_dir).publish(
+        step, {k: gen.params[k] + 0.25 for k in names}, frozen_fp=frozen_fingerprint(frozen),
+        metrics={"eval_loss": 1.0}, run_id=run_id, hparams_digest="h", anomaly_clean=True)
+
+
+@pytest.mark.parametrize("kw", [dict(engine="continuous"), dict(engine="paged"),
+                                dict(engine="paged", replicas=2)],
+                         ids=["continuous", "paged", "fleet"])
+def test_deploy_rollback_and_lineage_routes(gen, kw, tmp_path):
+    """POST /v1/deploy: a noop before any publish, then the publish swapped
+    into every replica (the answer moves); POST /v1/deploy/rollback: 409
+    before a deploy, then the pre-swap answer back; GET /v1/lineage: the
+    deploy and the rollback with the manifest's run_id, joined with each
+    generation's serving slice."""
+    publish_dir = str(tmp_path / "publish")
+    g = _fresh(gen)
+    with _Server(g, publish_watch_dir=publish_dir, publish_poll_s=3600, **kw) as srv:
+        replicas = getattr(srv.engine, "replicas", [srv.engine])
+        status, before = srv.request("POST", "/v1/generate", QUESTION)
+        assert status == 200
+        status, body = srv.request("POST", "/v1/deploy")
+        assert status == 200 and body["kind"] == "noop" and body["deployed_step"] == -1
+        status, body = srv.request("POST", "/v1/deploy/rollback")
+        assert status == 409 and "nothing to roll back to" in body["error"]
+        _publish_shifted(g, publish_dir, 1, "run-7")
+        status, body = srv.request("POST", "/v1/deploy")
+        assert status == 200 and body["kind"] == "deploy" and body["step"] == 1
+        assert body["run_id"] == "run-7" and body["replicas"] == len(replicas)
+        assert [r.weight_generation for r in replicas] == [1] * len(replicas)
+        status, after = srv.request("POST", "/v1/generate", QUESTION)
+        assert status == 200 and after != before
+        status, body = srv.request("POST", "/v1/deploy/rollback")
+        assert status == 200 and body["kind"] == "rollback" and body["step"] == -1
+        status, back = srv.request("POST", "/v1/generate", QUESTION)
+        assert status == 200 and back == before
+        status, lineage = srv.request("GET", "/v1/lineage")
+        assert status == 200
+        assert [r["kind"] for r in lineage["history"]] == ["deploy", "rollback"]
+        assert lineage["generations"]["1"]["run_id"] == "run-7"
+        assert lineage["weight_generations"] == [2] * len(replicas)
+        assert lineage["generations"]["1"]["slo"]["completed"] >= 1
+        assert set(lineage["serving"]) >= {"0", "1", "2"}
+        assert srv.httpd.deploy_manager is not None
+
+
+def test_deploy_routes_404_without_a_watch_dir(gen):
+    with _Server(gen, engine="continuous") as srv:
+        for path in ("/v1/deploy", "/v1/deploy/rollback"):
+            status, body = srv.request("POST", path)
+            assert status == 404 and "--publish-watch-dir" in body["error"]

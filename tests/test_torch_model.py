@@ -162,6 +162,42 @@ def test_safetensors_codec_matches_the_package(tmp_path):
             assert got[k].dtype == v.dtype and torch.equal(got[k], v)
 
 
+def test_read_safetensors_shares_one_buffer_that_outlives_the_file(tmp_path):
+    """``read_safetensors`` reads the data section once into one buffer and
+    returns views of it (no per-tensor copy): the values are unchanged, the
+    views share one storage, they stay valid once the file is gone, and a
+    tensor at an offset off its element size is copied out right."""
+    import gc
+    import os
+    import struct
+
+    tensors = {"a": torch.randn(3, 5), "b": torch.randn(7).to(torch.bfloat16),
+               "c": torch.arange(6, dtype=torch.int32).reshape(2, 3), "d": torch.zeros(0, 4),
+               "e": torch.tensor([True, False, True]), "s": torch.tensor(2.5)}
+    path = str(tmp_path / "w.safetensors")
+    hf_io.write_safetensors(path, tensors)
+    got = hf_io.read_safetensors(path)
+    os.unlink(path)
+    gc.collect()
+    assert set(got) == set(tensors)
+    for k, v in tensors.items():
+        assert got[k].dtype == v.dtype and tuple(got[k].shape) == tuple(v.shape)
+        assert torch.equal(got[k], v), k
+    storages = {got[k].untyped_storage().data_ptr() for k in ("a", "b", "c", "e", "s")}
+    assert len(storages) == 1
+    got["a"].add_(1.0)  # the views are writable and apart
+    assert torch.equal(got["a"], tensors["a"] + 1.0) and torch.equal(got["c"], tensors["c"])
+    # a hand-made file whose f32 tensor starts 2 bytes into the data section
+    header = json.dumps({"x": {"dtype": "F32", "shape": [2], "data_offsets": [2, 10]},
+                         "y": {"dtype": "I8", "shape": [2], "data_offsets": [0, 2]}}).encode()
+    x = torch.tensor([1.5, -2.0])
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(header)) + header + bytes([7, 9])
+                + x.numpy().tobytes())
+    odd = hf_io.read_safetensors(path)
+    assert torch.equal(odd["x"], x) and odd["y"].tolist() == [7, 9]
+
+
 def test_unported_branches_raise():
     mc = configs.get_preset("tiny").replace(sliding_window=8)
     with pytest.raises(NotImplementedError, match="sliding_window"):

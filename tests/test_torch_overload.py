@@ -628,6 +628,28 @@ def test_paged_preemption_under_block_pressure(pair):
     assert rec["outcomes"]["arrival"][0] == "ok"
 
 
+@pytest.mark.parametrize("kind,prompt,jax_preemptions", [
+    ("dense", "preempt me please", 21),
+    ("paged", "a forty-ish token victim prompt for block banking", 11),
+])
+def test_fast_aging_preempts_once(pair, kind, prompt, jax_preemptions):
+    """With aging far faster than a tick (``age_promote_s`` 0.5 ms) the
+    victim has aged to the arrival's tier by the time it requeues. The
+    port's admission gives the freed slot to the arrival that preempted it,
+    so there is one preemption and the victim still ends with its solo
+    tokens. The JAX engines select again by aged tier, re-admit the victim
+    into the slot it just lost and let the arrival preempt it again, tick
+    after tick: the reference's fault, recorded here (the dense engine
+    preempts 21 times, the paged one 11)."""
+    prompt = _enc(prompt)
+    port = _preempt_script(kind, prompt, age_promote_s=0.0005)(pair["port"])
+    assert port["counters"]["preemptions"] == 1
+    assert port["victim"] == _solo(pair["port"], prompt, 24)
+    assert all(o[0] == "ok" for o in port["outcomes"].values())
+    ref = _preempt_script(kind, prompt, age_promote_s=0.0005)(pair["jax"])
+    assert ref["counters"]["preemptions"] == jax_preemptions
+
+
 # ---------------------------------------------------------------- brownout
 
 

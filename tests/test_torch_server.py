@@ -685,3 +685,52 @@ def test_adapter_flags_reach_serve(model_dir, monkeypatch):
     assert server.main(["--model-dir", str(path), "--device", "cpu"]) == 0
     assert [(kw["adapter_dir"], kw["max_adapters"], kw["adapter_capacity"]) for kw in calls] == [
         (str(path), 3, 2), (None, 8, 0)]
+
+
+# ------------------------------------------------------------ live deployment
+
+
+def test_publish_watch_dir_refused_on_the_window_engine_before_loading(model_dir, no_load,
+                                                                       capsys, tmp_path):
+    """--publish-watch-dir on the window engine fails before the model
+    loads, with the JAX server's message (``serve`` and the CLI)."""
+    from llm_fine_tune_distributed_tpu.infer.server import serve as jax_serve
+
+    with pytest.raises(ValueError) as want:
+        jax_serve("/nonexistent", engine_kind="window", publish_watch_dir=str(tmp_path))
+    with pytest.raises(ValueError) as got:
+        server.serve("/nonexistent", device="cpu", engine="window",
+                     publish_watch_dir=str(tmp_path))
+    assert str(got.value) == str(want.value) and "--publish-watch-dir" in str(got.value)
+    path, _, _ = model_dir
+    with pytest.raises(SystemExit) as exc:
+        server.main(["--model-dir", str(path), "--device", "cpu", "--engine", "window",
+                     "--publish-watch-dir", str(tmp_path)])
+    assert exc.value.code == 2 and "checkpoint hot-swap" in capsys.readouterr().err
+
+
+def test_deploy_flags_reach_serve_with_the_jax_defaults(model_dir, monkeypatch, tmp_path):
+    from llm_fine_tune_distributed_tpu.infer import server as jax_server
+
+    keys = ("publish_watch_dir", "publish_poll_s", "auto_rollback_window_s",
+            "auto_rollback_error_rate", "canary_window_s", "canary_min_requests")
+    path, _, _ = model_dir
+    calls, jax_calls = [], []
+    monkeypatch.setattr(server, "serve", lambda *a, **kw: calls.append(kw))
+    monkeypatch.setattr(jax_server, "serve", lambda *a, **kw: jax_calls.append(kw))
+    monkeypatch.delenv("PUBLISH_DIR", raising=False)
+    assert server.main(["--model-dir", str(path), "--device", "cpu"]) == 0
+    jax_server.main(["--model-dir", str(path)])
+    assert {k: calls[-1][k] for k in keys} == {k: jax_calls[-1][k] for k in keys}
+    args = ["--publish-watch-dir", str(tmp_path), "--publish-poll-s", "0.5",
+            "--auto-rollback-window-s", "30", "--auto-rollback-error-rate", "0.2",
+            "--canary-window-s", "5", "--canary-min-requests", "3"]
+    assert server.main(["--model-dir", str(path), "--device", "cpu"] + args) == 0
+    jax_server.main(["--model-dir", str(path)] + args)
+    assert {k: calls[-1][k] for k in keys} == {k: jax_calls[-1][k] for k in keys} == {
+        "publish_watch_dir": str(tmp_path), "publish_poll_s": 0.5,
+        "auto_rollback_window_s": 30.0, "auto_rollback_error_rate": 0.2,
+        "canary_window_s": 5.0, "canary_min_requests": 3}
+    monkeypatch.setenv("PUBLISH_DIR", str(tmp_path))
+    assert server.main(["--model-dir", str(path), "--device", "cpu"]) == 0
+    assert calls[-1]["publish_watch_dir"] == str(tmp_path)

@@ -166,9 +166,6 @@ UNPORTED = {
     "ring": dict(attention_impl="ring"),
     "ulysses": dict(attention_impl="ulysses"),
     "mesh": dict(mesh=MeshConfig(data=2, fsdp=1)),
-    "resume": dict(resume_from_checkpoint="latest"),
-    "periodic_checkpoint": dict(save_steps=2),
-    "publish_dir": dict(publish_dir="/nonexistent/publish"),
     "train_port": dict(train_port=0),
     "native_loader": dict(use_native_loader=True),
     "remat_mlp": dict(remat_policy="mlp"),
