@@ -231,6 +231,33 @@ and stops with a non-zero exit at the first failure:
    The watcher's load and fingerprint seconds, the apply and rollback ms,
    the stream's largest gap and the save, publish and resume numbers are
    printed with the card.
+24. (after phase 12) the fine-tuning recipes, each phase 8's recipe
+   (SmolLM3-3B at full width from seed 42, byte-chatml, 3 optimizer steps
+   of 8 x 4 x 1024, one eval) through ``SFTTrainer`` or ``DPOTrainer``,
+   frozen leaves bit-unchanged, trainable ones moved and the flash
+   launches as derived: (a) ``packing=True`` over 480 rows: the occupancy,
+   samples and real tokens/s beside phase 8's, the kernels' own tile-pair
+   count equal to ``flash_tile_pairs`` on the packed rows (many segments
+   each) and the share skipped, one packed f32 microbatch kernels against
+   plain (phase 9's bands); (b) LoRA r 16 on the 7 projections
+   (30,228,480 trainable): the first loss phase 8's (B = 0), ``adapter/``
+   and ``best_model/`` = the merged state, its logits and the adapted
+   forward's against the base plus the adapter in f32 (phase 22a's rule);
+   (c) QLoRA (NF4, block 64, double quant): the NF4 share of the frozen
+   bytes, the quantization's seconds, the peak below 24b's by at least half
+   the block linears' bf16 less NF4 bytes, the first loss within 2% of
+   24b's, the export's dequantize-and-merge seconds; (d) DPO on LoRA at 4
+   pairs per microbatch: the first loss ln 2, the ``rewards_*`` and
+   ``eval_rewards_accuracy``, launches 3 x 36 forwards per microbatch (the
+   policy, its replay, the reference); (e) ``ask --quantize nf4`` on 24b's
+   ``best_model/`` (load seconds, weight bytes below phase 14's int8), and a
+   paged int8 server over phase 4's weights in NF4 on phase 4's traffic,
+   tokens held by the margin rule to the same weights dequantized to bf16,
+   paged decode launches 36 x decode steps; the engine's own path (the
+   prefill and one paged step of the 4 prompts) within the int8 floor +
+   twice the bf16 rounding of the f32 forward over the dequantized weights,
+   and the same path with the nibbles swapped in pairs or each block's
+   absmax read from the block before outside that bound.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -265,6 +292,10 @@ its 4 questions and runs 22a-22g; its last line is a JSON summary.
 ``python3 chip_smoke.py --deploy-only`` runs phase 23 alone: it builds the
 flash and paged decode kernels, trains phase 8 (its final checkpoint and
 publish) and runs 23a-23c; its last line is a JSON summary.
+
+``python3 chip_smoke.py --recipes-only`` runs phase 24 alone: it builds the
+flash and paged decode kernels, trains phase 8 (the record 24a-24c compare
+with) and runs 24a-24e; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --capture-check N [PUSH]`` runs phase 20e's
 profile capture N times on one phase-20 server and prints, per capture,
@@ -3678,18 +3709,19 @@ class _RecordingUnembed:
         self._mod.unembed = self._plain
 
 
-def tenant_engine_path(gen_mod, generator, reg, prompts, slots):
+def engine_path(gen_mod, generator, prompts, label, view=None, slots=None):
     """The engine's own path for one row per prompt: ``paged_prefill_final``
-    of each prompt through a fresh int8 pool on its adapter slot (the
-    pooled view in the slot state), then one ``paged_step`` with all rows in
-    the batch, each on its own slot (the pooled delta beside the paged
-    decode kernel). Returns, per row, (its context: the prompt and the
-    first token, its step-0 logits, its step-1 logits)."""
+    of each prompt through a fresh int8 pool (on its adapter slot, with an
+    adapter registry's pooled ``view`` in the slot state), then one
+    ``paged_step`` with all rows in the batch (the pooled delta beside the
+    paged decode kernel). ``view`` alone runs the slot state on other
+    weights. Returns, per row, (its context: the prompt and the first
+    token, its step-0 logits, its step-1 logits)."""
     with _RecordingUnembed(gen_mod) as seen:
-        pool, state, live, tables, _, ctx = paged_slots(generator, prompts, 1, view=reg.params,
+        pool, state, live, tables, _, ctx = paged_slots(generator, prompts, 1, view=view,
                                                         adapter_idx=slots)
         generator.paged_step(pool, state, live, tables)
-    check(len(seen) == len(prompts) + 1, f"22a: {len(seen)} unembed calls on the engine path")
+    check(len(seen) == len(prompts) + 1, f"{label}: {len(seen)} unembed calls on the engine path")
     del pool, state
     return [(ctx[i], seen[i][0], seen[-1][i]) for i in range(len(prompts))]
 
@@ -3727,7 +3759,7 @@ def tenant_refs(tf, gen_mod, lora_mod, generator, reg, root, prompts, floor_i8):
     reference, twice (``rounding``), beside the int8 pool's floor; nothing
     of the pooled path sets it. In f32 the pooled view equals the exact
     merge within phase 13's f32 rule; in bf16 within ``rounding``. The
-    engine's own path (``tenant_engine_path``: the prefill and one decode
+    engine's own path (``engine_path``: the prefill and one decode
     step of both tenants' rows in one batch, over the int8 pool) is within
     ``rounding`` + the int8 floor at both steps, its first token too; the
     same path with the slots swapped (its logits and its first token), the
@@ -3738,8 +3770,9 @@ def tenant_refs(tf, gen_mod, lora_mod, generator, reg, root, prompts, floor_i8):
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
     names = list(prompts)
     slots = [reg.slot_of(n) for n in names]
-    engine = tenant_engine_path(gen_mod, generator, reg, [prompts[n] for n in names], slots)
-    swapped = tenant_engine_path(gen_mod, generator, reg, [prompts[n] for n in names], slots[::-1])
+    rows = [prompts[n] for n in names]
+    engine = engine_path(gen_mod, generator, rows, "22a", reg.params, slots)
+    swapped = engine_path(gen_mod, generator, rows, "22a", reg.params, slots[::-1])
     fault = {k: (v * ADAPTER_FAULT_SCALE if k.endswith("lora_scale_pool") else v)
              for k, v in reg.params.items()}
     refs = {}
@@ -4499,18 +4532,21 @@ def train_counters(fa, mm):
             "flash_bwd_dkv": fa.flash_bwd_dkv, "w8a8_matmul": mm.w8a8_matmul}
 
 
-def train_config(workdir, frozen_compute="bf16", **kw):
-    """Phases 8 and 11's ``TrainConfig`` over ``workdir`` (its ``data/``
-    holds the rows, ``out/`` the artifacts). Both write a trainable-only
-    checkpoint, and phase 8 a publish: ``save_steps`` (500) is above their
-    3 steps, so only the final save (and publish) runs, after the timed
-    steps; phase 23a resumes from phase 8's."""
+def train_config(workdir, frozen_compute="bf16", publish=None, **kw):
+    """Phases 8, 11 and 24's ``TrainConfig`` over ``workdir`` (its ``data/``
+    holds the rows, ``out/`` the artifacts). Each writes a trainable-only
+    checkpoint, and phase 8 a publish (``publish`` None: phase 8's plain
+    frozen layers publish): ``save_steps`` (500) is above their 3 steps,
+    so only the final save (and publish) runs, after the timed steps;
+    phase 23a resumes from phase 8's."""
     import os
 
     from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
 
     kw = dict(checkpoint_trainable_only=True, **kw)
-    if frozen_compute == "bf16":
+    if publish is None:
+        publish = frozen_compute == "bf16"  # phase 8 publishes, phase 11 does not
+    if publish:
         kw["publish_dir"] = os.path.join(workdir, "publish")
     return TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
                        tokenizer_path="byte-chatml", data_dir=os.path.join(workdir, "data"),
@@ -4690,12 +4726,13 @@ def train_phase(fa, mm, workdir, frozen_compute="bf16"):
     return record, trainer
 
 
-def f32_microbatch_phase(trainer, fa, mm):
+def f32_microbatch_phase(trainer, fa, mm, phase_no=None):
     """One full-width microbatch (batch 2, seq 1024) in f32 through the same
     loss function, kernels against plain versions: the loss and every
     trainable leaf's gradient. Phase 9 (no trunk): the flash kernels against
     the plain attention. Phase 12 (the int8 trunk): the w8a8 kernel against
-    its plain version, with the plain attention in both runs."""
+    its plain version, with the plain attention in both runs. Phase 24a: the
+    first two packed rows (their segment ids and positions too), as 9."""
     import dataclasses
 
     from llm_fine_tune_distributed_tpu_torch.ops.attention import attention, attention_plain
@@ -4706,7 +4743,7 @@ def f32_microbatch_phase(trainer, fa, mm):
     config = dataclasses.replace(trainer.config, compute_dtype="float32")
     mc = trainer.model_config
     trunk = trainer.frozen_boundary
-    phase_no = 12 if trunk else 9
+    phase_no = phase_no or (12 if trunk else 9)
     if trunk:
         runs = {"kernel": dict(attention_fn=attention_plain, trunk_matmul=mm.int8_w8a8_matmul),
                 "plain": dict(attention_fn=attention_plain, trunk_matmul=mm.int8_w8a8_matmul_plain)}
@@ -4719,7 +4756,8 @@ def f32_microbatch_phase(trainer, fa, mm):
     trainable = {k: v.detach().float().clone().requires_grad_() for k, v in trainer.state.trainable.items()}
     arrays = trainer.train_arrays
     batch = {k: torch.from_numpy(arrays[k][:2]).to(DEVICE)
-             for k in ("input_ids", "loss_mask", "attention_mask")}
+             for k in ("input_ids", "loss_mask", "attention_mask", "segment_ids", "positions")
+             if k in arrays}
     out = {}
     for name, kw in runs.items():
         before = {c: f.launches for c, f in counted.items()}
@@ -4742,7 +4780,8 @@ def f32_microbatch_phase(trainer, fa, mm):
                                            f"{GRAD_REL_TOL} x {scale:.3e}")
         worst = max(worst, err / scale)
     bit_equal = bool(torch.equal(lk, lp)) and all(torch.equal(a, b) for a, b in zip(gk, gp))
-    phase(phase_no, f"f32 microbatch b=2 s=1024 at full width{', int8 trunk' if trunk else ''}: loss "
+    packed = ", packed rows" if "segment_ids" in batch else ""
+    phase(phase_no, f"f32 microbatch b=2 s=1024 at full width{', int8 trunk' if trunk else ''}{packed}: loss "
                     f"kernel {lk.item():.6f} plain {lp.item():.6f} (rel {loss_rel:.2e}); worst "
                     f"trainable-leaf grad max|d|/max|g| {worst:.2e} over {len(trainable)} leaves; "
                     f"bit-equal: {bit_equal}")
@@ -4750,14 +4789,16 @@ def f32_microbatch_phase(trainer, fa, mm):
             "grad_rel_worst": worst, "bit_equal": bit_equal}
 
 
-def real_batch_tiles(fa, trainer):
+def real_batch_tiles(fa, trainer, phase_no=8):
     """The tile pairs the tensor-core kernels compute on the training rows'
-    own padding: every microbatch of the train split in order, at the
-    model's attention shapes (random bf16 q/k/v/dO: the walk depends on the
-    segments only), counted by the kernels and checked pair by pair against
-    ``flash_tile_pairs``."""
+    own segments (phase 8: each row one segment and its padding; 24a: packed
+    rows, many segments and a pad tail): every microbatch of the train split
+    in order, at the model's attention shapes (random bf16 q/k/v/dO: the
+    walk depends on the segments only), counted by the kernels and checked
+    pair by pair against ``flash_tile_pairs``."""
     mc = trainer.model_config
-    mask = trainer.train_arrays["attention_mask"]
+    arrays = trainer.train_arrays
+    mask = arrays["segment_ids"] if "segment_ids" in arrays else arrays["attention_mask"]
     rows = trainer.config.per_device_batch_size
     s, hq, hkv, d = mask.shape[1], mc.num_heads, mc.num_kv_heads, mc.resolved_head_dim
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -4773,10 +4814,12 @@ def real_batch_tiles(fa, trainer):
         visited += int(counted["flash_fwd"].sum())
         causal += m * n * (n + 1) // 2 * hq
         batches += 1
-    real = float(mask.sum()) / mask.size
-    phase(8, f"tile pairs the kernels computed on the {len(mask)} train rows' own padding ({batches} "
-             f"microbatches, {100 * real:.1f}% real tokens): {visited} of {causal} under the causal "
-             f"limit ({100 * visited / causal:.1f}%), equal pair by pair to flash_tile_pairs")
+    real = float((mask > 0).sum()) / mask.size
+    phase(phase_no, f"tile pairs the kernels computed on the {len(mask)} train rows' own segments "
+                    f"({batches} microbatches, {100 * real:.1f}% real tokens, up to "
+                    f"{int(mask.max())} segments per row): {visited} of {causal} under the causal "
+                    f"limit ({100 * visited / causal:.1f}%, {100 * (1 - visited / causal):.1f}% "
+                    "skipped), equal pair by pair to flash_tile_pairs")
     return {"rows": len(mask), "microbatches": batches, "real_token_share": real,
             "tile_pairs_visited": visited, "tile_pairs_causal": causal}
 
@@ -4818,19 +4861,20 @@ def skipping_ab(loss_fn, trainer, batch, params):
     return out
 
 
-def train_profile_phase(trainer, mm):
+def train_profile_phase(trainer, mm, phase_no=None):
     """Where one training microbatch's time goes (forward and backward of
     batch 8 at seq 1024, remat included): ``torch.profiler`` device time by
     kernel name, the flash and w8a8 kernels' shares, the row quantizer's
     share (its calls inside a ``record_function`` range, for this profile
     only: the range's span on the device timeline) and the device's busy
-    share."""
+    share. Phase 8 (plain frozen layers), 11 (the int8 trunk), 24b and 24c
+    (LoRA and QLoRA)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from llm_fine_tune_distributed_tpu_torch.train.step import make_loss_fn
 
     trunk = trainer.frozen_boundary
-    phase_no = 11 if trunk else 8
+    phase_no = phase_no or (11 if trunk else 8)
     loss_fn = make_loss_fn(trainer.model_config, trainer.config, frozen_layers=trunk)
     quantize = mm.quantize_rows_int8
 
@@ -4908,7 +4952,7 @@ def train_profile_phase(trainer, mm):
         phase(phase_no, f"  {row['ms']:8.3f} ms  {row['calls']:5d} calls  {row['name']}")
     if not events:
         phase(phase_no, "the profiler recorded no device events")
-    if not trunk:  # what the segment rule skips on the training data, and what it saves
+    if phase_no == 8:  # what the segment rule skips on the training data, and what it saves
         from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
 
         result["real_batch_tiles"] = real_batch_tiles(fa, trainer)
@@ -5571,6 +5615,430 @@ def deploy_phase(tf, gen_mod, server_mod, fa, workdir, saved, trained, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the fine-tuning recipes (packing, LoRA, QLoRA, DPO, NF4 serving)
+# ---------------------------------------------------------------------------
+
+RECIPE_PACKED_ROWS = 480  # 432 train examples pack to ~110 rows at ~30%: 3 steps of 32
+RECIPE_DPO_ROWS = 54  # 48 train pairs: 3 steps of 4 microbatches of 4 pairs
+LORA_TRAINABLE = 30_228_480  # r 16 on the 7 projections of SmolLM3-3B's 36 layers
+LORA_FIRST_LOSS_REL = 1e-3  # 24b's first loss against phase 8's: B = 0, bf16 summation order
+QLORA_FIRST_LOSS_REL = 0.02  # 24c's first loss against 24b's: the NF4 base's rounding
+DPO_FIRST_LOSS_TOL = 1e-3  # 24d's first loss against ln 2: the reference is the policy
+
+
+def recipe_run(fa, mm, workdir, label, rows, **kw):
+    """One phase-24 training run through ``SFTTrainer`` (``DPOTrainer`` for
+    ``objective="dpo"``) over the first ``rows`` rows of the repo's JSONL.
+    Checks finite losses, 0 watchdog trips, the frozen leaves bit-unchanged
+    (held on the host, so that the check adds nothing to the card's peak),
+    every trainable leaf moved and the flash launches as derived; returns
+    (record, trainer)."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.train.dpo import DPOTrainer
+    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    os.makedirs(os.path.join(workdir, "data"))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "final_qa_data_unique.jsonl")) as f:
+        lines = [next(f) for _ in range(rows)]
+    with open(os.path.join(workdir, "data", "final_qa_data_unique.jsonl"), "w") as f:
+        f.writelines(lines)
+    config = train_config(workdir, publish=False, **kw)  # phase 8's recipe, no publish
+    dpo = config.objective == "dpo"
+    t0 = time.monotonic()
+    trainer = (DPOTrainer if dpo else SFTTrainer)(config, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    mc = trainer.model_config
+    phase(24, f"{label}: {type(trainer).__name__} ready in {init_s:.1f} s: "
+              f"{trainer.trainable_report}, {trainer.n_train} train / {trainer.n_val} validation "
+              f"{'pairs' if dpo else 'rows'}, {trainer.total_steps} steps")
+    frozen_before = {k: v.to("cpu") for k, v in trainer.state.frozen.items()}
+    trainable_before = {k: v.detach().clone() for k, v in trainer.state.trainable.items()}
+    counters = {k: f for k, f in train_counters(fa, mm).items() if k != "w8a8_matmul"}
+    for fn in counters.values():  # count the main path's launches only
+        fn.launches = 0
+    t0 = time.monotonic()
+    summary = trainer.train()
+    train_s = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    history, meter = trainer.metrics.history, trainer.throughput
+    losses = [h["loss"] for h in history]
+    check(all(np.isfinite(losses)) and np.isfinite(summary["final_eval_loss"]),
+          f"{label}: losses {losses}, eval {summary['final_eval_loss']}")
+    watchdog = trainer.watchdog
+    check(watchdog is not None and watchdog.trips == 0, f"{label}: watchdog trips")
+    for k, v in trainer.state.frozen.items():
+        check(torch.equal(v.to("cpu"), frozen_before[k]), f"{label}: frozen leaf {k} changed")
+    for k, v in trainer.state.trainable.items():
+        check(not torch.equal(v.detach(), trainable_before[k]), f"{label}: trainable leaf {k} "
+                                                                "did not move")
+    del frozen_before, trainable_before
+    # launches: per microbatch each layer's forward, its remat replay and
+    # its backward (DPO: the policy's forward and replay, the reference's
+    # forward, one backward); per eval batch one forward (DPO: two)
+    layers, accum, steps = mc.num_layers, config.gradient_accumulation_steps, len(meter.step_s)
+    eval_batches = -(-trainer.n_val // (config.eval_batch_size or config.per_device_batch_size))
+    evals = 1 + (steps // config.eval_steps if config.eval_steps else 0)
+    replays = 1 if config.gradient_checkpointing else 0
+    models = 2 if dpo else 1
+    expected = {"flash_fwd": layers * accum * steps * (models + replays)
+                + models * layers * eval_batches * evals,
+                "flash_bwd_dq": layers * accum * steps, "flash_bwd_dkv": layers * accum * steps}
+    check(launches == expected, f"{label}: launches {launches} != derived {expected}")
+    steady = slice(1, None)  # steps 2-3: the first step pays first-use costs
+    step_s = meter.step_s[steady]
+    record = {
+        "losses": losses, "eval_loss": summary["final_eval_loss"], "init_s": init_s,
+        "train_s": train_s, "step_s": meter.step_s,
+        "step_ms_median_steps_2_3": statistics.median(step_s) * 1e3,
+        "samples_per_s_per_card": config.per_device_batch_size * accum * len(step_s) / sum(step_s),
+        "real_tokens_per_s_per_card": sum(meter.step_real_tokens[steady]) / sum(step_s),
+        "train_peak_bytes": history[-1]["device_peak_bytes_in_use"],  # before the export
+        "launches": launches, "expected_launches": expected,
+        "trainable_params": trainer.trainable_report["trainable_parameters"],
+        "quantize_s": trainer.quantize_seconds, "export_merge_s": trainer.export_merge_seconds,
+    }
+    phase(24, f"{label}: train() in {train_s:.1f} s; losses {[round(x, 4) for x in losses]}, eval "
+              f"{summary['final_eval_loss']:.4f}; steps 2-3 median step "
+              f"{record['step_ms_median_steps_2_3']:.1f} ms, {record['samples_per_s_per_card']:.2f} "
+              f"{'pairs' if dpo else 'samples'}/s/card, {record['real_tokens_per_s_per_card']:.0f} "
+              f"real tokens/s/card, peak {record['train_peak_bytes'] / 1e9:.2f} GB at the last "
+              f"step; launches {launches} as derived ({layers} layers x {accum} microbatches x "
+              f"{steps} steps x ({models} + {replays} replay) + {models} x {layers} x "
+              f"{eval_batches} eval batches x {evals}); frozen leaves bit-unchanged, "
+              f"{len(trainer.state.trainable)} trainable leaves moved")
+    return record, trainer
+
+
+def _logits_at(tf, config, params, ids, dtype):
+    """f32 logits of the last two positions of one no-cache forward."""
+    with torch.no_grad():
+        hidden, _ = tf.forward(params, ids, config, compute_dtype=dtype, output_hidden=True)
+        return tf.unembed(params, hidden[0, -2:], config, compute_dtype=dtype).float()
+
+
+def merged_export_check(tf, lora_mod, trainer, best_dir):
+    """24b: ``best_model/`` equals the trained state merged (``merge_lora``)
+    in bf16, leaf for leaf; its logits and those of the trainer's own
+    adapted bf16 forward against the base plus the adapter applied in f32
+    (phase 22a's rule: the adapted path within twice the merged bf16
+    model's own error of that truth)."""
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer.generate import load_model_dir
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    config = trainer.model_config
+    state = {k: v.detach() for k, v in {**trainer.state.trainable, **trainer.state.frozen}.items()}
+    loaded, _ = load_model_dir(best_dir, device=DEVICE)
+    merged = lora_mod.merge_lora(state)
+    check(set(loaded) == set(merged), "24b: best_model/ leaves differ from the merged state")
+    for k, v in merged.items():
+        check(torch.equal(loaded[k], v.to(torch.bfloat16)), f"24b: best_model/{k} differs")
+    exact = dict(lora_mod.strip_lora(state))
+    for name, a in state.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "lora_a":
+            delta = (a.float() @ state[module + ".lora_b"].float()) * state[module + ".lora_scale"].float()
+            exact[module + ".kernel"] = state[module + ".kernel"].float() + delta
+    ids = torch.tensor([ByteChatMLTokenizer().encode(QUESTIONS[0])], device=DEVICE)
+    truth = _logits_at(tf, config, exact, ids, torch.float32)
+    del exact
+    err = {"best_model": (_logits_at(tf, config, loaded, ids, torch.bfloat16) - truth).abs().max().item(),
+           "adapted": (_logits_at(tf, config, state, ids, torch.bfloat16) - truth).abs().max().item(),
+           "base": (_logits_at(tf, config, lora_mod.strip_lora(state), ids, torch.bfloat16)
+                    - truth).abs().max().item()}
+    del loaded, merged
+    rounding = 2 * err["best_model"]
+    check(err["adapted"] <= rounding, f"24b: the adapted bf16 forward is {err['adapted']:.3e} off "
+                                      f"the f32 merge, beyond twice best_model/'s {rounding:.3e}")
+    phase(24, f"24b: best_model/ = merge_lora(state) in bf16 leaf for leaf; max|dlogits| against "
+              f"the base + adapter in f32 (last 2 positions): best_model/ {err['best_model']:.3e}, "
+              f"the adapted bf16 path {err['adapted']:.3e} (bound {rounding:.3e}), the base "
+              f"without the adapter {err['base']:.3e}")
+    return {"max_abs_dlogits": err, "bound": rounding}
+
+
+def nf4_ask_phase(cli_mod, model_dir, int8_bytes):
+    """24e: ``cli.ask_main --quantize nf4`` on a model directory of the
+    seed-42 random base: its load seconds and its weights' bytes on the
+    card (``memory_allocated``), below ``int8_bytes`` (phase 14's int8
+    weights, or the int8 cap when phase 14 did not run)."""
+    import contextlib
+    import io
+    import re
+
+    argv = ["--model-dir", model_dir, "--greedy", "--max-new-tokens", str(MAX_NEW_TOKENS),
+            "--quantize", "nf4", QUESTIONS[0]]
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_mod.ask_main(argv)
+    wall = time.monotonic() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        phase(24, f"  | {line}")
+    check(rc == 0, f"24e: ask_main --quantize nf4 returned {rc}")
+    found = {k: re.search(p, text, re.M) for k, p in ASK_PATTERNS.items()}
+    check(all(found.values()), f"24e: ask output lacks {[k for k, m in found.items() if not m]}")
+    load_s, weight_bytes, allocated = found["load"].groups()
+    gc_cuda()
+    out = {"load_s": float(load_s), "weight_bytes": int(weight_bytes),
+           "memory_allocated_bytes": int(allocated), "wall_s": wall,
+           "tokens_per_s": float(found["rate"].group(3)), "int8_bytes": int8_bytes}
+    check(out["memory_allocated_bytes"] < int8_bytes,
+          f"24e: NF4 weights take {out['memory_allocated_bytes']} bytes, not below the int8 "
+          f"weights' {int8_bytes}")
+    phase(24, f"24e: ask --quantize nf4: load {out['load_s']:.3f} s, weights on the card "
+              f"{out['memory_allocated_bytes'] / 1e9:.3f} GB (memory_allocated; int8: "
+              f"{int8_bytes / 1e9:.3f} GB), {out['tokens_per_s']:.2f} tokens/s, wall {wall:.3f} s")
+    return out
+
+
+def _nf4_faults(params):
+    """Two wrong NF4 routes over ``params``' NF4 leaves, yielded one at a
+    time as (what, params): each word's nibbles read in swapped pairs (row
+    8 r + s from nibble s ^ 1), and each block's absmax read from the
+    block before it along the in axis."""
+    def swapped(words):
+        return ((words >> 4) & 0x0F0F0F0F) | ((words & 0x0F0F0F0F) << 4)
+
+    yield "nibbles swapped in pairs", {
+        k: swapped(v) if k.endswith(".kernel_nf4") else v for k, v in params.items()}
+    yield "absmax from the block before", {
+        k: torch.roll(v, 1, dims=0) if k.endswith((".kernel_absmax_q", ".kernel_absmax")) else v
+        for k, v in params.items()}
+
+
+def nf4_engine_logits(tf, gen_mod, generator, reference, prompts, floor_i8):
+    """24e's exact check, as 22a's: the NF4 engine path's logits (the
+    prefill and one paged decode step of every prompt in one batch,
+    ``engine_path``) against the no-cache f32 forward over the NF4 weights
+    dequantized in f32. ``rounding`` is twice the error of the bf16
+    no-cache forward over the same weights dequantized to bf16
+    (``reference``: the very weights the engine multiplies with, cast once
+    from the same f32 values); the engine's bound is ``floor_i8`` (the int8
+    pool's) + ``rounding``, for its logits at both steps and its first
+    token. The engine path over each planted wrong NF4 route
+    (``_nf4_faults``) must fall outside that bound."""
+    from llm_fine_tune_distributed_tpu_torch.parallel.qlora import dequantize_frozen
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+    engine = engine_path(gen_mod, generator, prompts, "24e")
+    faults = {what: engine_path(gen_mod, generator, prompts, f"24e {what}", view=view)
+              for what, view in _nf4_faults(generator.params)}
+    gc_cuda()
+    exact = dequantize_frozen(generator.params, torch.float32)
+    out = []
+    for i, prompt in enumerate(prompts):
+        ctx, step0, step1 = engine[i]
+        ids = torch.tensor([ctx], device=DEVICE)  # the prompt and the engine's first token
+        truth = _last_logits(tf, generator, exact, ids, 2, torch.float32)
+        ref = _last_logits(tf, generator, reference.params, ids, 2, torch.bfloat16)
+        rounding = 2 * (ref - truth).abs().max().item()
+        bound = floor_i8 + rounding
+        err = (torch.stack([step0, step1]) - truth).abs().max().item()
+        check(err <= bound, f"24e request {i}: the NF4 engine path's logits {err:.3e} off the "
+                            f"f32 forward over the dequantized weights, bound {bound:.3e}")
+        gap = _first_token_gap(truth[0], prompt, ctx[-1])
+        check(gap <= bound, f"24e request {i}: the NF4 engine path's first token is {gap:.3e} "
+                            f"below the f32 top logit, bound {bound:.3e}")
+        # step 0 only: a faulted run's step 1 fed its own first token
+        fault_err = {what: (rows[i][1] - truth[0]).abs().max().item()
+                     for what, rows in faults.items()}
+        for what, e in fault_err.items():
+            check(e > bound, f"24e request {i}: the engine path with {what} is only {e:.3e} off "
+                             f"the f32 forward, within the bound {bound:.3e} that must refuse it")
+        out.append({"max_abs_dlogits": err, "rounding": rounding, "bound": bound,
+                    "first_token_gap": gap, "faults": fault_err})
+        phase(24, f"24e request {i}: NF4 engine path (prefill + 1 paged step) max|dlogits| "
+                  f"{err:.3e} against the f32 forward over the dequantized weights, bound "
+                  f"{bound:.3e} (bf16 rounding {rounding:.3e} + int8 floor {floor_i8:.3e}); "
+                  f"first token {gap:.3e} below the top; planted faults "
+                  + ", ".join(f"{w} {e:.3e}" for w, e in fault_err.items()))
+    del exact
+    gc_cuda()
+    return out
+
+
+def nf4_serve_phase(tf, gen_mod, server_mod, fa, config, tokenizer):
+    """24e: phase 4's random weights stored as NF4 (``maybe_quantize``),
+    served from an int8 KV pool at phase 4's geometry on phase 4's traffic
+    (paged decode launches 36 x decode steps, checked by ``serve_phase``);
+    the engine path's logits held to the f32 forward over the dequantized
+    weights (``nf4_engine_logits``, with two planted faults refused), and
+    each request held by the margin rule to the solo run of the same
+    weights dequantized to bf16, with twice the int8 pool's error as the
+    floor."""
+    from llm_fine_tune_distributed_tpu_torch.ops.int8 import maybe_quantize
+    from llm_fine_tune_distributed_tpu_torch.parallel.qlora import dequantize_frozen
+
+    before = torch.cuda.memory_allocated()
+    params = tf.init_params(config, seed=0, device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    bf16_bytes = torch.cuda.memory_allocated() - before
+    t0 = time.monotonic()
+    maybe_quantize(params, "nf4")
+    torch.cuda.synchronize()
+    quantize_s = time.monotonic() - t0
+    nf4_bytes = torch.cuda.memory_allocated() - before
+    phase(24, f"24e: phase 4's random weights as NF4 in {quantize_s:.2f} s on the card: "
+              f"{nf4_bytes / 1e9:.3f} GB (bf16: {bf16_bytes / 1e9:.3f} GB)")
+    generator = gen_mod.Generator(params, config, tokenizer, compute_dtype=torch.bfloat16,
+                                  device=DEVICE)
+    served = serve_phase(server_mod, fa, generator, phase_no=24)
+    reference = gen_mod.Generator(dequantize_frozen(params, torch.bfloat16), config, tokenizer,
+                                  compute_dtype=torch.bfloat16, device=DEVICE)
+    prompts = [p for p, _ in served["results"][1:]]
+    floor = 2 * max(int8_kv_noise(tf, reference, p) for p in prompts)
+    exact = nf4_engine_logits(tf, gen_mod, generator, reference, prompts, floor)
+    agree = []
+    for i, (prompt, ids) in enumerate(served["results"][1:]):
+        solo = solo_decode(tf, gen_mod, reference, prompt, MAX_NEW_TOKENS)
+        n, at = margin_agreement(tf, reference, f"24e request {i}", prompt, ids, solo, floor=floor)
+        agree.append(n)
+        if at:
+            phase(24, f"  24e request {i}: token {at['token']} differs at a solo top-2 margin "
+                      f"{at['margin']:.3e} <= bound {at['bound']:.3e}")
+    del generator, reference, params
+    gc_cuda()
+    served.pop("results")
+    served.update({"nf4_weight_bytes": nf4_bytes, "bf16_weight_bytes": bf16_bytes,
+                   "quantize_s": quantize_s, "tokens_agreeing_with_solo": agree,
+                   "int8_floor": floor, "engine_logits": exact})
+    phase(24, f"24e: NF4 weights, paged int8 KV: {served['tokens_per_s_concurrent']:.1f} tokens/s "
+              f"over the 4 concurrent requests, mean decode step {served['decode_step_ms_mean']:.2f} "
+              f"ms, TTFT warm-up {served['ttft_s_warmup']:.3f} s; tokens equal to the dequantized "
+              f"bf16 solo runs per request {agree} (floor {floor:.3e})")
+    return served
+
+
+def recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained, int8_bytes):
+    """Phase 24, the fine-tuning recipes, each at phase 8's recipe beside
+    phase 8's record ``trained``: (a) packing, (b) LoRA, (c) QLoRA, (d)
+    DPO with LoRA, (e) NF4 weights: ``ask --quantize nf4`` on 24b's merged
+    ``best_model/`` (the seed-42 random base) and a paged int8 engine over
+    phase 4's weights in NF4."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.data.packing import packing_efficiency
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.parallel import lora as lora_mod
+    from llm_fine_tune_distributed_tpu_torch.parallel.qlora import quantized_fraction
+
+    t_phase = time.monotonic()
+    out = {"card": card_info()}
+    phase(24, f"the fine-tuning recipes on {out['card']}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipes_")
+    try:
+        # (a) packing: phase 8's recipe over 480 rows, packed
+        rec, trainer = recipe_run(fa, mm, os.path.join(root, "a"), "24a packing",
+                                  RECIPE_PACKED_ROWS, packing=True)
+        rec["occupancy"] = packing_efficiency(trainer.train_arrays)
+        rec["packed_rows"] = trainer.n_train
+        rec["tiles"] = real_batch_tiles(fa, trainer, phase_no=24)
+        rec["f32_microbatch"] = f32_microbatch_phase(trainer, fa, mm, phase_no=24)
+        phase(24, f"24a: {100 * rec['occupancy']:.1f}% token occupancy ({rec['packed_rows']} packed "
+                  f"rows; phase 8's rows {100 * trained['real_tokens_per_s_per_card'] / max(trained['padded_tokens_per_s_per_card'], 1e-9):.1f}% real); "
+                  f"step {rec['step_ms_median_steps_2_3']:.1f} vs phase 8's "
+                  f"{trained['step_ms_median_steps_2_3']:.1f} ms, {rec['samples_per_s_per_card']:.2f} vs "
+                  f"{trained['samples_per_s_per_card']:.2f} samples/s/card, "
+                  f"{rec['real_tokens_per_s_per_card']:.0f} vs {trained['real_tokens_per_s_per_card']:.0f} "
+                  f"real tokens/s/card ({rec['real_tokens_per_s_per_card'] / trained['real_tokens_per_s_per_card']:.2f}x)")
+        out["a_packing"] = rec
+        del trainer
+        gc_cuda()
+
+        # (b) LoRA r 16, alpha 8, the 7 projections
+        rec, trainer = recipe_run(fa, mm, os.path.join(root, "b"), "24b LoRA", TRAIN_ROWS,
+                                  freeze_strategy="lora")
+        check(rec["trainable_params"] == LORA_TRAINABLE,
+              f"24b: {rec['trainable_params']} trainable parameters, not {LORA_TRAINABLE}")
+        first, base_first = rec["losses"][0], trained["losses"][0]
+        rel = abs(first - base_first) / abs(base_first)
+        check(rel <= LORA_FIRST_LOSS_REL, f"24b: first loss {first} vs the base model's (phase 8) "
+                                          f"{base_first}: rel {rel:.2e}")
+        best_b = os.path.join(root, "b", "out", "best_model")
+        check(os.path.exists(os.path.join(root, "b", "out", "adapter", "adapter_model.safetensors")),
+              "24b: adapter/ missing")
+        rec["first_loss_rel_to_base"] = rel
+        rec["merged"] = merged_export_check(tf, lora_mod, trainer, best_b)
+        rec["profile"] = train_profile_phase(trainer, mm, phase_no=24)
+        block_bf16 = sum(v.numel() * 2 for k, v in trainer.state.frozen.items()
+                         if ".layers." in k and k.endswith(".kernel"))
+        phase(24, f"24b: first loss {first:.4f} vs the base model's {base_first:.4f} (phase 8, the "
+                  f"same batch, B = 0): rel {rel:.2e}; step {rec['step_ms_median_steps_2_3']:.1f} vs "
+                  f"phase 8's {trained['step_ms_median_steps_2_3']:.1f} ms, peak "
+                  f"{rec['train_peak_bytes'] / 1e9:.2f} vs {trained['train_peak_bytes'] / 1e9:.2f} GB")
+        out["b_lora"] = rec
+        del trainer
+        gc_cuda()
+        out["e_ask"] = nf4_ask_phase(cli_mod, best_b, int8_bytes)
+        shutil.rmtree(os.path.join(root, "b"), ignore_errors=True)
+
+        # (c) QLoRA: NF4 base, block 64, double quant
+        rec, trainer = recipe_run(fa, mm, os.path.join(root, "c"), "24c QLoRA", TRAIN_ROWS,
+                                  freeze_strategy="qlora")
+        nf4_bytes = sum(v.numel() * v.element_size() for k, v in trainer.state.frozen.items()
+                        if "kernel_nf4" in k or "kernel_absmax" in k)
+        rec["nf4_share_of_frozen_bytes"] = quantized_fraction(trainer.state.frozen)
+        rec["block_linears_bf16_bytes"], rec["block_linears_nf4_bytes"] = block_bf16, nf4_bytes
+        saved = out["b_lora"]["train_peak_bytes"] - rec["train_peak_bytes"]
+        need = 0.5 * (block_bf16 - nf4_bytes)
+        check(saved >= need, f"24c: peak {rec['train_peak_bytes']} only {saved} below 24b's "
+                             f"(need {need:.0f}: half the block linears' bf16 less NF4 bytes)")
+        first, lora_first = rec["losses"][0], out["b_lora"]["losses"][0]
+        rel = abs(first - lora_first) / abs(lora_first)
+        check(rel <= QLORA_FIRST_LOSS_REL, f"24c: first loss {first} vs 24b's {lora_first}")
+        rec["first_loss_rel_to_lora"] = rel
+        rec["profile"] = train_profile_phase(trainer, mm, phase_no=24)
+        phase(24, f"24c: NF4 holds {100 * rec['nf4_share_of_frozen_bytes']:.1f}% of the frozen bytes "
+                  f"(block linears {block_bf16 / 1e9:.3f} GB in bf16 -> {nf4_bytes / 1e9:.3f} GB), "
+                  f"quantized in {rec['quantize_s']:.2f} s on the card; peak "
+                  f"{rec['train_peak_bytes'] / 1e9:.2f} vs 24b's "
+                  f"{out['b_lora']['train_peak_bytes'] / 1e9:.2f} GB ({saved / 1e9:.2f} GB less, "
+                  f">= {need / 1e9:.2f}); first loss {first:.4f} vs 24b's {lora_first:.4f} (rel "
+                  f"{rel:.2e}); export dequantize and merge {rec['export_merge_s']:.2f} s")
+        out["c_qlora"] = rec
+        del trainer
+        gc_cuda()
+        shutil.rmtree(os.path.join(root, "c"), ignore_errors=True)
+
+        # (d) DPO on LoRA, 4 pairs per microbatch (8 sequences per forward)
+        rec, trainer = recipe_run(fa, mm, os.path.join(root, "d"), "24d DPO", RECIPE_DPO_ROWS,
+                                  objective="dpo", freeze_strategy="lora", per_device_batch_size=4)
+        history = trainer.metrics.history
+        check(abs(rec["losses"][0] - math.log(2.0)) <= DPO_FIRST_LOSS_TOL,
+              f"24d: first loss {rec['losses'][0]} is not ln 2")
+        rewards = {k: [h[k] for h in history] for k in ("rewards_chosen", "rewards_rejected",
+                                                        "rewards_margin", "rewards_accuracy")}
+        check(all(np.isfinite(v).all() for v in rewards.values()), f"24d: rewards {rewards}")
+        acc = trainer.extra_eval_logs.get("eval_rewards_accuracy")
+        check(acc is not None and 0.0 <= acc <= 1.0, f"24d: eval_rewards_accuracy {acc}")
+        rec.update(rewards=rewards, eval_rewards_accuracy=acc)
+        phase(24, f"24d: first loss {rec['losses'][0]:.6f} (ln 2 = {math.log(2.0):.6f}); rewards "
+                  + ", ".join(f"{k} {[round(x, 4) for x in v]}" for k, v in rewards.items())
+                  + f"; eval_rewards_accuracy {acc:.3f}")
+        out["d_dpo"] = rec
+        del trainer
+        gc_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) NF4 serving on phase 4's weights
+    config = get_preset("smollm3_3b")
+    out["e_serve"] = nf4_serve_phase(tf, gen_mod, server_mod, fa, config, ByteChatMLTokenizer())
+    out["seconds"] = time.monotonic() - t_phase
+    phase(24, f"phase 24 took {out['seconds']:.1f} s on {out['card']}")
+    return out
+
+
 def deploy_only() -> int:
     """Phase 23 alone: the flash and paged decode kernels built, phase 8
     trained (its final checkpoint and publish), then 23a-23c; a JSON
@@ -5601,6 +6069,43 @@ def deploy_only() -> int:
     total_s = time.monotonic() - t_start
     phase(23, f"total_s {total_s:.1f}")
     print(json.dumps({"deploy": deploy, "train_peak_bytes": trained["train_peak_bytes"],
+                      "total_s": total_s}, default=str), flush=True)
+    return 0
+
+
+def recipes_only() -> int:
+    """Phase 24 alone: the flash and paged decode kernels built, phase 8
+    trained (the record 24a-24c compare with), then 24a-24e (24e's ask held
+    to the int8 weights' cap, as phase 14 did not run); a JSON summary is
+    the last line."""
+    import shutil
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch import cli as cli_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+    from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
+
+    t_start = time.monotonic()
+    phase(1, card_info())
+    _build.build_all(("paged_decode", "flash_fwd", "flash_bwd"))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_recipes_train_")
+    try:
+        trained, trainer = train_phase(fa, mm, workdir)
+        del trainer
+        gc_cuda()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    recipes = recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained,
+                            INT8_WEIGHT_BYTES_MAX)
+    total_s = time.monotonic() - t_start
+    phase(24, f"total_s {total_s:.1f}")
+    keys = ("losses", "step_ms_median_steps_2_3", "samples_per_s_per_card",
+            "real_tokens_per_s_per_card", "train_peak_bytes", "launches")
+    print(json.dumps({"recipes": recipes, "train": {k: trained[k] for k in keys},
                       "total_s": total_s}, default=str), flush=True)
     return 0
 
@@ -5738,6 +6243,8 @@ def main(argv=()) -> int:
         return adapters_only()
     if argv == ["--deploy-only"]:
         return deploy_only()
+    if argv == ["--recipes-only"]:
+        return recipes_only()
     if argv[:1] == ["--capture-check"] and len(argv) in (2, 3):
         return capture_check(int(argv[1]), int(argv[2]) if len(argv) == 3 else None)
     if argv[:1] == ["--serve-ab"] and len(argv) > 1:
@@ -5893,6 +6400,9 @@ def main(argv=()) -> int:
     train_profile_i8 = train_profile_phase(trainer, mm)
     microbatch_i8 = f32_microbatch_phase(trainer, fa, mm)
     del trainer
+    gc_cuda()
+    recipes = recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained,
+                            asked["int8"]["memory_allocated_bytes"])
 
     live_rec = kernels["live"]
     paged = kernel_entry("paged_decode_attention",
@@ -5917,6 +6427,8 @@ def main(argv=()) -> int:
     paged["launches_adapters_22b"] = adapters["a"]["launches"]
     # phase 23b: a stream in flight across a hot-swap, the swapped weights, the rollback
     paged["launches_deploy_23b"] = deploy["swap"]["launches"]
+    # phase 24e: phase 4's traffic over NF4 weights
+    paged["launches_nf4_weights_24e"] = recipes["e_serve"]["launches"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -5946,7 +6458,10 @@ def main(argv=()) -> int:
                       "shapes": {k: FLASH_SHAPE[k] for k in FLASH_SHAPE} | {
                           "dtype": "bf16", "lengths": list(FLASH_LENGTHS)},
                       "library": "scaled_dot_product_attention "
-                                 + ("forward" if name == "flash_fwd" else "backward (dq, dk, dv)")})
+                                 + ("forward" if name == "flash_fwd" else "backward (dq, dk, dv)"),
+                      # phase 24: packing, LoRA, QLoRA and DPO training
+                      "launches_recipes_24": {k: recipes[k]["launches"][name]
+                                              for k in ("a_packing", "b_lora", "c_qlora", "d_dpo")}})
         entries.append(entry)
     w8a8_entry = kernel_entry("w8a8_matmul", "llm_fine_tune_distributed_tpu_torch/csrc/w8a8_matmul.cu",
                               "llm_fine_tune_distributed_tpu/ops/int8_matmul.py:89",
@@ -5973,7 +6488,7 @@ def main(argv=()) -> int:
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "golden": golden, "overload": overload, "supervision": supervision,
                "observability": observability, "fleet": fleet, "adapters": adapters,
-               "deploy": deploy, "total_s": time.monotonic() - t_start}
+               "deploy": deploy, "recipes": recipes, "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

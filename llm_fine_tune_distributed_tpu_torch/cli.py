@@ -19,7 +19,7 @@ from typing import Optional
 
 
 def train_main(argv: Optional[list] = None) -> int:
-    parser = argparse.ArgumentParser(description="SFT fine-tuning on one NVIDIA GPU")
+    parser = argparse.ArgumentParser(description="SFT or DPO fine-tuning on one NVIDIA GPU")
     parser.add_argument("--config", help="JSON TrainConfig file")
     parser.add_argument("--model-preset", help="model preset override")
     parser.add_argument("--device", default=None,
@@ -43,16 +43,24 @@ def train_main(argv: Optional[list] = None) -> int:
     if any(v is not None for v in mesh_env.values()):
         config.mesh = MeshConfig(**{k: int(v) for k, v in mesh_env.items() if v is not None})
 
+    if config.objective not in ("sft", "dpo"):
+        print(f"train: unknown OBJECTIVE {config.objective!r}; expected 'sft' or 'dpo'",
+              file=sys.stderr)
+        return 2
     print("=" * 60)
-    print(f"SFT on {device}")
+    print(f"{config.objective.upper()} on {device}")
     print(f"  epochs={config.epochs} batch={config.per_device_batch_size} "
           f"lr={config.learning_rate} accum={config.gradient_accumulation_steps}")
     print(f"  data={config.data_dir} output={config.output_dir}")
     print("=" * 60)
 
-    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+    if config.objective == "dpo":
+        # preference pairs (OBJECTIVE=dpo), as the JAX entry point routes them
+        from llm_fine_tune_distributed_tpu_torch.train.dpo import DPOTrainer as Trainer
+    else:
+        from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer as Trainer
 
-    summary = SFTTrainer(config, device=device).train()
+    summary = Trainer(config, device=device).train()
     print("\nQ&A fine-tuning completed successfully!")
     print(f"Training artifacts saved to {config.output_dir}/")
     print(f"samples/sec/card: {summary.get('samples_per_second_per_chip')}")

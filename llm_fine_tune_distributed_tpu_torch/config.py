@@ -20,7 +20,7 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -101,11 +101,26 @@ class TrainConfig:
     loss_chunk_size: Optional[int] = None
     loss_vocab_chunk: Optional[int] = None
 
-    # objective and freezing policy
+    # objective ("sft", or "dpo": preference pairs, train/dpo.py) and the
+    # freezing policy ("last_n_and_head", "none", "lora", "qlora")
     objective: str = "sft"
+    dpo_beta: float = 0.1              # TRL DPOConfig default
+    dpo_label_smoothing: float = 0.0   # conservative-DPO eps
     freeze_strategy: str = "last_n_and_head"
     unfreeze_last_n_layers: int = 2
     frozen_compute: str = "bf16"
+
+    # QLoRA (freeze_strategy="qlora"): the NF4 frozen base (ops/nf4.py)
+    quant_block_size: int = 64
+    quant_double_quant: bool = True
+
+    # LoRA (the reference's article: r 16, alpha 8, dropout 0.05, 7 targets)
+    lora_rank: int = 16
+    lora_alpha: float = 8.0
+    lora_dropout: float = 0.05        # recorded in adapter_config.json, not applied
+    lora_target_modules: Sequence[str] = (
+        "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+    )
 
     # cadence and best-model tracking
     logging_steps: int = 2
@@ -209,6 +224,7 @@ class TrainConfig:
         "ANOMALY_BAND_SIGMA": ("anomaly_band_sigma", float),
         "TRAIN_PORT": ("train_port", int),
         "OBJECTIVE": ("objective", str),
+        "DPO_BETA": ("dpo_beta", float),
         "LOGGING_STEPS": ("logging_steps", int),
         "EVAL_STEPS": ("eval_steps", int),
         "EVAL_BATCH_SIZE": ("eval_batch_size", int),
@@ -218,7 +234,7 @@ class TrainConfig:
         "WATCHDOG_ACTION": ("watchdog_action", str),
     }
     # env vars of the JAX package whose features are not ported: set, they raise
-    _UNPORTED_ENV = ("AIM_REPO", "DPO_BETA", "EXPERIMENT_NAME")
+    _UNPORTED_ENV = ("AIM_REPO", "EXPERIMENT_NAME")
 
     @staticmethod
     def _env_bool(s: str) -> bool:
@@ -247,7 +263,9 @@ class TrainConfig:
     # ---- (de)serialization
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        d["lora_target_modules"] = list(self.lora_target_modules)
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "TrainConfig":

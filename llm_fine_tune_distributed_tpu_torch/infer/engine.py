@@ -203,6 +203,7 @@ from llm_fine_tune_distributed_tpu_torch.observe.tracing import (
 )
 from llm_fine_tune_distributed_tpu_torch.ops.flash_attention import reset_paged_decode_tickets
 from llm_fine_tune_distributed_tpu_torch.ops.int8 import INT8_SUFFIXES, quantize_int8
+from llm_fine_tune_distributed_tpu_torch.ops.nf4 import QUANT_SUFFIXES, quantize_nf4
 from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
 
 log = logging.getLogger(__name__)
@@ -255,30 +256,44 @@ def _cow_swap_tree(params: dict, updates) -> Tuple[dict, int]:
 
 def _requantize_updates(params: dict, updates) -> list:
     """Published full-precision ``<module>.kernel`` leaves whose resident
-    form is int8 (``kernel_int8`` + ``kernel_int8_scale``, the serving
-    ``--quantize int8``) are re-quantized into it, on the resident codes'
-    device; the shapes come out equal to the resident ones. A leaf that
+    form is quantized (``--quantize int8``: ``kernel_int8`` +
+    ``kernel_int8_scale``; ``--quantize nf4``: ``kernel_nf4`` and its absmax
+    siblings) are re-quantized into it on the resident codes' device, NF4 at
+    the resident block size (in-dim over the absmax rows) and double-quant
+    setting; the shapes come out equal to the resident ones. A leaf that
     cannot be reconciled raises ``ServingError`` naming the mode. Updates of
     plain resident leaves pass through."""
     out = []
     for name, value in updates:
-        codes = params.get(f"{name}_int8")
-        if name in params or codes is None:
+        fmt = ("int8" if f"{name}_int8" in params
+               else "nf4" if f"{name}_nf4" in params else None)
+        if name in params or fmt is None:
             out.append((name, value))  # plain leaf, or a bad name _cow_swap_tree reports
             continue
+        codes = params[f"{name}_{fmt}"]
         try:
-            q = quantize_int8(value.to(codes.device))
+            if fmt == "int8":
+                q, suffixes = quantize_int8(value.to(codes.device)), INT8_SUFFIXES
+            else:
+                am = params.get(f"{name}_absmax_q", params.get(f"{name}_absmax"))
+                block_size = value.shape[0] // int(am.shape[-2])
+                q = quantize_nf4(value.to(codes.device), block_size=block_size,
+                                 double_quant=f"{name}_absmax_q" in params)
+                suffixes = QUANT_SUFFIXES
         except Exception as e:
             raise ServingError(f"cannot re-quantize published leaf {name!r} into the resident "
-                               f"int8 serving format (--quantize int8): {type(e).__name__}: {e}")
-        for suffix in INT8_SUFFIXES:
+                               f"{fmt} serving format (--quantize {fmt}): "
+                               f"{type(e).__name__}: {e}")
+        for suffix in suffixes:
+            if suffix not in q:
+                continue
             sib, new = f"{name}_{suffix}", q[suffix]
             if sib not in params or tuple(params[sib].shape) != tuple(new.shape):
                 have = tuple(params[sib].shape) if sib in params else "absent"
                 raise ServingError(
-                    f"re-quantized leaf {name!r} does not match the resident int8 layout at "
+                    f"re-quantized leaf {name!r} does not match the resident {fmt} layout at "
                     f"{sib!r} (resident {have} vs produced {tuple(new.shape)}) — the published "
-                    "checkpoint and --quantize int8 cannot reconcile")
+                    f"checkpoint and --quantize {fmt} cannot reconcile")
             out.append((sib, new))
     return out
 

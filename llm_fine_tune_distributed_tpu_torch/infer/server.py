@@ -152,10 +152,11 @@ when the error rate in that window after a swap reaches
 
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
-[--quantize int8] [--speculative K [--draft-dir DIR]]``. It serves on the GPU;
-``--device cpu`` runs on the CPU.
-``--quantize int8`` stores the block linears as weight-only int8
-(``ops/int8.maybe_quantize``). ``build_server`` serves a Generator that is
+[--quantize int8|nf4] [--speculative K [--draft-dir DIR]]``. It serves on the
+GPU; ``--device cpu`` runs on the CPU.
+``--quantize int8`` stores the block linears as weight-only int8, ``nf4`` as
+NF4 (``ops/int8.maybe_quantize``); adapter pools and a draft model stay in
+full precision. ``build_server`` serves a Generator that is
 already in memory (random weights, for instance) without a model directory.
 """
 
@@ -1181,7 +1182,8 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     drained (SIGTERM). ``adapter_dir`` serves the LoRA adapters under it.
     Weights and compute are bf16 on the GPU and f32 on the CPU (which has no
     fast bf16, and where the tests compare with the JAX package in f32);
-    ``quantize="int8"`` then stores the block linears as int8 codes.
+    ``quantize="int8"`` or ``"nf4"`` then stores the block linears as int8
+    or NF4 codes.
     ``draft_dir`` (with ``speculative_k``) loads a draft model of the same
     vocabulary beside the target."""
     check_quantize_mode(quantize)  # before the model loads
@@ -1271,8 +1273,8 @@ def main(argv: Optional[list] = None) -> int:
                              "kernel")
     parser.add_argument("--quantize-weights", "--quantize", dest="quantize",
                         choices=QUANTIZE_MODES, default="none",
-                        help="weight-only quantization of the block linears (int8; nf4 is "
-                             "not ported)")
+                        help="weight-only quantization of the block linears (int8 or nf4; "
+                             "adapter pools and the draft model stay full precision)")
     parser.add_argument("--slots", type=int, default=8,
                         help="persistent decode slots (continuous, paged)")
     parser.add_argument("--kv-buf-len", type=int, default=4096,
@@ -1408,9 +1410,6 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.quantize == "nf4":
-        parser.error("--quantize nf4 is not ported "
-                     "(llm_fine_tune_distributed_tpu.ops.nf4.quantize_params_nf4 has it)")
     fleet_kw = {k: getattr(args, k) for k in _FLEET_FLAGS}
     try:
         check_engine(args.engine, args.quantize_kv, args.speculative, args.draft_dir)

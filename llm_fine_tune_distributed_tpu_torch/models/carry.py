@@ -38,13 +38,17 @@ def params_from_jax(flat: Dict[str, np.ndarray], config: ModelConfig, device="cp
     is a copy: kernel/weight/bias leaves cast to ``dtype``, the frozen
     trunk's ``kernel_int8`` codes stay int8, K-major in memory as
     ``parallel/freeze.quantize_trunk_int8`` makes them (the layout the w8a8
-    kernel reads), their ``kernel_int8_scale`` stays f32, and LoRA's
+    kernel reads), their ``kernel_int8_scale`` stays f32, LoRA's
     ``lora_a`` / ``lora_b`` / ``lora_scale`` stay f32 (the JAX package keeps
-    them f32 beside any kernel dtype). A leaf the port has no use for (NF4)
-    raises."""
+    them f32 beside any kernel dtype), and the NF4 siblings keep their
+    dtypes: ``kernel_nf4`` int32, ``kernel_absmax`` f32, ``kernel_absmax_q``
+    int8, ``kernel_absmax_scale`` and ``kernel_absmax_offset`` f32. Any other
+    leaf raises."""
     check_supported(config)
     keep = {"kernel_int8": np.int8, "kernel_int8_scale": np.float32, "lora_a": np.float32,
-            "lora_b": np.float32, "lora_scale": np.float32}
+            "lora_b": np.float32, "lora_scale": np.float32, "kernel_nf4": np.int32,
+            "kernel_absmax": np.float32, "kernel_absmax_q": np.int8,
+            "kernel_absmax_scale": np.float32, "kernel_absmax_offset": np.float32}
     out = {}
     for name, arr in flat.items():
         leaf = name.rpartition(".")[2]
@@ -54,8 +58,8 @@ def params_from_jax(flat: Dict[str, np.ndarray], config: ModelConfig, device="cp
             continue
         if leaf not in ("kernel", "weight", "bias"):
             raise NotImplementedError(
-                f"{name}: only kernel/weight/bias, kernel_int8(_scale) and lora_* leaves are "
-                "ported (NF4 leaves live in the JAX package)"
+                f"{name}: only kernel/weight/bias, kernel_int8(_scale), the NF4 siblings and "
+                "lora_* leaves are ported"
             )
         t = torch.from_numpy(np.asarray(arr, dtype=np.float32).copy())
         out[name] = t.to(device=device, dtype=dtype)

@@ -8,9 +8,11 @@ parity test or a safetensors file maps one to the other by name.
 
 Ported branches: the dense SwiGLU model (SmolLM3, Llama) with optional
 linear biases, RoPE with SmolLM3's NoPE layers and rope scaling, the
-no-cache forward with a padding mask, the flash or plain attention and
-per-block rematerialization (training), the frozen trunk in w8a8 int8,
-weight-only int8 kernels (inference), LoRA adapters (a single adapter's
+no-cache forward with a padding mask or packed rows (``segment_ids`` and
+per-segment ``positions``), the flash or plain attention and per-block
+rematerialization (training), the frozen trunk in w8a8 int8, weight-only
+int8 kernels (inference), NF4 kernels (QLoRA's frozen base and ``--quantize
+nf4``), LoRA adapters (a single adapter's
 ``lora_*`` leaves, or the adapter registry's pools with a per-row
 ``adapter_idx``), the dense KV cache (``init_cache``) and the block-paged
 KV cache in bf16 or int8 (``init_paged_cache``). Other branches raise
@@ -36,6 +38,7 @@ from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
     quantize_kv_write,
 )
 from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import int8_w8a8_matmul
+from llm_fine_tune_distributed_tpu_torch.ops.nf4 import QUANT_SUFFIXES, nf4_matmul
 from llm_fine_tune_distributed_tpu_torch.ops.norms import rms_norm
 from llm_fine_tune_distributed_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -131,11 +134,16 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
     """x @ kernel (+ LoRA) (+ bias) in ``compute_dtype``. The int8 siblings
     ``kernel_int8`` / ``kernel_int8_scale`` run through ``trunk_matmul``
     (w8a8) in the frozen trunk (``trunk_matmul`` given) and through
-    ``ops.int8.int8_matmul`` (weight-only) elsewhere.
+    ``ops.int8.int8_matmul`` (weight-only) elsewhere. The NF4 siblings
+    ``kernel_nf4`` / ``kernel_absmax*`` run through ``ops.nf4.nf4_matmul``,
+    which dequantizes per call and keeps only the codes for its backward.
 
     LoRA, as in the JAX ``_linear``, on either kernel: ``lora_a [in, r]`` /
     ``lora_b [r, out]`` / ``lora_scale`` leaves beside the kernel add
-    ``(x @ A) @ B * scale``. The adapter registry's pooled leaves
+    ``(x @ A) @ B * scale``, as ``addmm(y, (x @ A) * scale, B)``: remat's
+    ``dots_no_batch`` keeps ``mm`` outputs only, so the saved set holds the
+    rank-r ``x @ A`` and the full-width sum is recomputed in the backward.
+    The adapter registry's pooled leaves
     (``infer/adapters.py``) ``lora_a_pool [N, in, r]`` / ``lora_b_pool
     [N, r, out]`` / ``lora_scale_pool [N]`` add each row's own delta,
     picked by ``adapter_idx [batch]`` with the same arithmetic (a gather,
@@ -146,19 +154,18 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
     if codes is not None:
         q = {"int8": codes, "int8_scale": params[name + ".kernel_int8_scale"]}
         y = (trunk_matmul or int8_matmul)(x, q, compute_dtype)
+    elif name + ".kernel_nf4" in params:
+        q = {s: params[f"{name}.kernel_{s}"] for s in QUANT_SUFFIXES
+             if f"{name}.kernel_{s}" in params}
+        y = nf4_matmul(x, q, compute_dtype=compute_dtype)
     else:
-        kernel = params.get(name + ".kernel")
-        if kernel is None:
-            raise NotImplementedError(
-                f"{name}: only plain and int8 kernels (+ LoRA, + bias) are ported; NF4 "
-                "weights are in llm_fine_tune_distributed_tpu.models.transformer._linear"
-            )
-        y = x @ kernel.to(compute_dtype)
+        y = x @ params[name + ".kernel"].to(compute_dtype)
     lora_a = params.get(name + ".lora_a")
     if lora_a is not None:
         a = lora_a.to(compute_dtype)
         b = params[name + ".lora_b"].to(compute_dtype)
-        y = y + (x @ a) @ b * params[name + ".lora_scale"].to(compute_dtype)
+        xa = (x @ a) * params[name + ".lora_scale"].to(compute_dtype)
+        y = torch.addmm(y.flatten(0, -2), xa.flatten(0, -2), b).reshape(y.shape)
     pool_a = params.get(name + ".lora_a_pool") if adapter_idx is not None else None
     if pool_a is not None:
         # row i computes with adapter adapter_idx[i]'s A, B and scale
@@ -189,7 +196,8 @@ def _dense_write(buf: torch.Tensor, slots: torch.Tensor, x: torch.Tensor) -> Non
 
 
 def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
-           block_tables, padding_mask, write_slots, *, config: ModelConfig, compute_dtype,
+           block_tables, padding_mask, write_slots, segment_ids, *, config: ModelConfig,
+           compute_dtype,
            decode_attention, attention_impl: str, attention_fn, trunk_matmul=None,
            adapter_idx=None):
     """One transformer block; updates a cache ``entry`` (paged, or dense at
@@ -253,7 +261,8 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
         if explicit_mask is not None:
             out = xla_attention(q, k, v, mask=explicit_mask, causal=False)
         else:
-            out = attention_fn(q, k, v, impl=attention_impl, padding_mask=padding_mask, causal=True)
+            out = attention_fn(q, k, v, impl=attention_impl, padding_mask=padding_mask,
+                               segment_ids=segment_ids, causal=True)
 
     out = out.reshape(b, s, config.num_heads * d)
     x = x + linear(out, name=p + "self_attn.o_proj")
@@ -300,7 +309,9 @@ def forward(
     input_ids: torch.Tensor,
     config: ModelConfig,
     *,
+    positions: Optional[torch.Tensor] = None,
     padding_mask: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
     attention_impl: str = "xla",
     remat: bool = False,
     remat_policy: Optional[str] = None,
@@ -326,6 +337,13 @@ def forward(
     ``padding_mask`` [batch, seq] (1 = real token). ``remat`` recomputes
     each block in the backward (``remat_policy`` "full" or
     "dots_no_batch"); it applies only while autograd records.
+
+    Packed rows (``data/packing.py``): ``segment_ids`` [batch, seq] (1..n,
+    0 = the pad tail) go to the attention, which attends within equal ids
+    (the flash kernels mask by segment themselves), and ``positions``
+    [batch, seq] restart at each segment for RoPE. Both are refused with a
+    cache, as in the JAX forward; packed rows of a sliding-window model
+    (an explicit windowed mask there) are not ported.
 
     With a dense ``cache`` (``init_cache``, buffers [batch, max_len, ...]):
     the chunk sits at positions ``cache_pos + arange(seq)`` and attends to
@@ -362,7 +380,14 @@ def forward(
     final-norm hidden states in ``compute_dtype`` with ``output_hidden``.
     The cache is updated in place and returned.
     """
+    if segment_ids is not None and config.sliding_window is not None:
+        raise NotImplementedError(
+            f"packed rows of a sliding-window model are not ported ({_JAX_FORWARD} builds their "
+            "windowed block-diagonal mask)"
+        )
     check_supported(config)
+    if segment_ids is not None and cache is not None:
+        raise ValueError("segment_ids (packing) and KV cache are exclusive")
     if cache is not None and padding_mask is not None:
         raise NotImplementedError(
             f"padding_mask with a KV cache is not ported ({_JAX_FORWARD} has it)"
@@ -370,8 +395,10 @@ def forward(
     b, s = input_ids.shape
     device = input_ids.device
     per_row = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
-    offset = cache_pos[:, None] if per_row else cache_pos
-    positions = (torch.arange(s, device=device)[None, :] + offset).expand(b, s).long()
+    if positions is None:
+        offset = cache_pos[:, None] if per_row else cache_pos
+        positions = (torch.arange(s, device=device)[None, :] + offset).expand(b, s)
+    positions = positions.to(device=device, dtype=torch.long)
 
     x = F.embedding(input_ids, params["model.embed_tokens.weight"]).to(compute_dtype)
     cos, sin = rope_cos_sin(positions, config.resolved_head_dim, config.rope_theta, config=config)
@@ -409,7 +436,7 @@ def forward(
             adapter_idx=adapter_idx,
         )
         args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask,
-                write_slots)
+                write_slots, segment_ids)
         if i < trunk:
             with torch.no_grad():
                 x = block_fn(x, *args)

@@ -24,7 +24,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 # weight-only inference quantization modes (CLI and server choices); "nf4"
-# is the JAX package's and raises here
+# is ops/nf4.quantize_params_nf4
 QUANTIZE_MODES = ("none", "int8", "nf4")
 KV_QUANT_MODES = ("none", "int8")
 INT8_SUFFIXES = ("int8", "int8_scale")
@@ -65,13 +65,18 @@ def int8_matmul(x: torch.Tensor, q: Dict[str, torch.Tensor],
     return x.to(compute_dtype) @ w
 
 
+def is_block_linear(name: str) -> bool:
+    """A transformer block's linear kernel, the leaves that every weight
+    quantization takes (int8 here, NF4 in ``ops/nf4`` and QLoRA's frozen
+    base in ``parallel/qlora``); the MoE router gate stays exact."""
+    return (".layers." in name and name.endswith(".kernel")
+            and not name.endswith("block_sparse_moe.gate.kernel"))
+
+
 def _default_predicate(name: str) -> bool:
-    """The transformer blocks' linear kernels (and stacked expert weights,
-    which have no port); the MoE router gate stays exact."""
-    return ".layers." in name and (
-        (name.endswith(".kernel") and not name.endswith("block_sparse_moe.gate.kernel"))
-        or name.endswith(_STACKED_EXPERTS)
-    )
+    """The block linears, and stacked expert weights, which have no port
+    (``quantize_params_int8`` raises on them)."""
+    return is_block_linear(name) or (".layers." in name and name.endswith(_STACKED_EXPERTS))
 
 
 def quantize_params_int8(params: Dict[str, torch.Tensor],
@@ -114,19 +119,20 @@ def check_quantize_mode(mode: str) -> None:
     it before loading weights)."""
     if mode not in QUANTIZE_MODES:
         raise ValueError(f"unknown quantize mode {mode!r} (expected one of {QUANTIZE_MODES})")
-    if mode == "nf4":
-        raise NotImplementedError(
-            "NF4 weights are not ported "
-            "(llm_fine_tune_distributed_tpu.ops.nf4.quantize_params_nf4 has them)"
-        )
 
 
 def maybe_quantize(params: Dict[str, torch.Tensor], mode: str) -> Dict[str, torch.Tensor]:
     """Apply the inference entry points' weight-only mode to loaded params
-    (in place for ``"int8"``; see ``quantize_params_int8``)."""
+    (in place for ``"int8"`` and ``"nf4"``; see ``quantize_params_int8`` and
+    ``ops/nf4.quantize_params_nf4``)."""
     check_quantize_mode(mode)
     if mode == "none":
         return params
+    if mode == "nf4":
+        from llm_fine_tune_distributed_tpu_torch.ops.nf4 import quantize_params_nf4
+
+        print("Quantizing block linears to NF4 (weight-only) ...")
+        return quantize_params_nf4(params)
     print("Quantizing block linears to int8 (weight-only) ...")
     return quantize_params_int8(params)
 

@@ -5,7 +5,10 @@
 layers and the lm_head train. With tied embeddings the lm_head IS the
 embedding matrix, so it trains too, and its gradient through the input lookup
 flows back through every layer, except through a frozen trunk run in int8
-(``frozen_trunk_boundary``, ``quantize_trunk_int8``).
+(``frozen_trunk_boundary``, ``quantize_trunk_int8``). ``lora`` and
+``qlora``: only the adapters' ``lora_a`` / ``lora_b`` train (their scale and
+every base leaf stay frozen; ``qlora`` then stores the frozen block linears
+in NF4, ``parallel/qlora.py``). ``none``: everything trains.
 """
 
 from __future__ import annotations
@@ -27,10 +30,7 @@ def trainable_predicate(config: ModelConfig, train: TrainConfig) -> Callable[[st
     if strategy == "none":
         return lambda name: True
     if strategy in ("lora", "qlora"):
-        raise NotImplementedError(
-            f"freeze_strategy={strategy!r} is not ported "
-            "(llm_fine_tune_distributed_tpu.parallel.freeze.trainable_predicate has it)"
-        )
+        return lambda name: name.endswith((".lora_a", ".lora_b"))
     if strategy == "last_n_and_head":
         cutoff = config.num_layers - train.unfreeze_last_n_layers
 

@@ -1,6 +1,5 @@
-"""LoRA adapters for serving: merge, strip, validate, and the PEFT-layout
-adapter directory (counterpart of the serving half of the JAX
-``parallel/lora.py``).
+"""LoRA adapters: init, merge, strip, validate, and the PEFT-layout adapter
+directory (counterpart of the JAX ``parallel/lora.py``).
 
 The reference's end product is a LoRA fine-tune: r 16, alpha 8, dropout
 0.05, seven projection targets. In the port's flat parameter dict an
@@ -17,13 +16,23 @@ adapter directory is the HF PEFT layout: ``adapter_model.safetensors``
 It is read and written with the port's own safetensors codec
 (``models/hf_io``). Every error message is the JAX package's, word for word.
 
-Not here: ``add_lora_params`` and the LoRA freeze, which are training.
+``add_lora_params`` attaches fresh adapters for training: A is
+Kaiming-uniform (bound ``sqrt(3) * sqrt(1 / in)``, HF PEFT's init), B is
+zero, so the adapted model starts equal to the base. The JAX package draws
+each A from ``fold_in(rng, crc32(path))``; the port draws it from a
+``torch.Generator`` seeded with ``crc32(module name)`` started from
+``seed`` (a 32-bit seed: the CPU generator keeps only 32 bits), so
+its init too is deterministic and independent of the order of the leaves
+(the two draws differ: parity tests carry the JAX package's A across).
+``lora_dropout`` is recorded but not applied, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import zlib
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
@@ -49,6 +58,37 @@ class LoraConfig:
     lora_alpha: float = 8.0
     lora_dropout: float = 0.05
     lora_target_modules: Sequence[str] = LORA_TARGET_MODULES
+
+
+def add_lora_params(params: Params, seed: int, *, rank: int = 16, alpha: float = 8.0,
+                    target_modules: Sequence[str] = LORA_TARGET_MODULES,
+                    dtype=torch.float32) -> Params:
+    """A copy of ``params`` with ``lora_a [in, r]`` (Kaiming-uniform),
+    ``lora_b [r, out]`` (zeros) and ``lora_scale`` (``alpha / rank``) after
+    each target module's ``kernel``, on the kernel's device. ``seed`` and
+    the module's name seed each A's generator."""
+    out: Params = {}
+    for name, t in params.items():
+        out[name] = t
+        module, _, leaf = name.rpartition(".")
+        if leaf != "kernel" or module.rpartition(".")[2] not in target_modules:
+            continue
+        d_in, d_out = t.shape
+        gen = torch.Generator(device=t.device).manual_seed(
+            zlib.crc32(module.encode(), seed & 0xFFFFFFFF))
+        bound = math.sqrt(3.0) * math.sqrt(1.0 / d_in)  # kaiming, a = sqrt(5)
+        a = torch.rand((d_in, rank), generator=gen, device=t.device, dtype=torch.float32)
+        out[module + ".lora_a"] = (a * (2 * bound) - bound).to(dtype)
+        out[module + ".lora_b"] = torch.zeros((rank, d_out), dtype=dtype, device=t.device)
+        out[module + ".lora_scale"] = torch.tensor(alpha / rank, dtype=dtype, device=t.device)
+    return out
+
+
+def add_lora_from_config(params: Params, seed: int, train) -> Params:
+    """``add_lora_params`` with the rank, alpha and targets of a
+    ``TrainConfig``."""
+    return add_lora_params(params, seed, rank=train.lora_rank, alpha=train.lora_alpha,
+                           target_modules=tuple(train.lora_target_modules))
 
 
 def _modules(params: Params, leaf: str):

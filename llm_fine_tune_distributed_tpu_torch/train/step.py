@@ -37,7 +37,9 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
     calls (the kernels' wrappers unless a caller passes plain ones for a
     comparison). ``frozen_layers`` is the trunk boundary
     (``parallel/freeze.frozen_trunk_boundary``); with
-    ``frozen_compute="int8"`` those layers run the frozen trunk."""
+    ``frozen_compute="int8"`` those layers run the frozen trunk. A packed
+    batch (``packing=True``) also carries ``segment_ids`` and ``positions``,
+    which go to the forward."""
     if train_config.loss_chunk_size is not None or train_config.loss_vocab_chunk is not None:
         raise NotImplementedError(
             f"loss_chunk_size / loss_vocab_chunk (chunked cross-entropy) are not ported "
@@ -55,7 +57,9 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
         ids = batch["input_ids"]
         logits, _ = forward(
             params, ids, model_config,
+            positions=batch.get("positions"),
             padding_mask=batch["attention_mask"],
+            segment_ids=batch.get("segment_ids"),
             attention_impl=train_config.attention_impl,
             compute_dtype=compute_dtype,
             remat=train_config.gradient_checkpointing,

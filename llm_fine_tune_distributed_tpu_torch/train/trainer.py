@@ -31,12 +31,20 @@ with the run's lineage and the anomaly sentinels' verdict
 ``request_preemption()``, stops the loop at the next step boundary, writes
 an emergency checkpoint and returns.
 
-Not ported, and refused by ``check_supported``: packing, DPO, LoRA/QLoRA,
-chunked losses, Adafactor/Lion, sequence parallelism, meshes of more than
-one device, the control plane's HTTP server (``train_port``) and the C++
-loader. A checkpoint of the JAX trainer's pipeline layout (``@stacked``
-leaves) is refused at resume: the cross-layout resume waits for pipeline
-parallelism.
+The fine-tuning recipes, as in the JAX trainer: ``packing=True`` packs the
+rows (``data/packing.py``; the counts and steps are in packed rows, and the
+forward gets each row's ``segment_ids`` and ``positions``);
+``freeze_strategy="lora"`` attaches adapters (``parallel/lora.py``) and
+trains only them, ``"qlora"`` also stores the frozen block linears in NF4
+(``parallel/qlora.py``, quantized from the f32 init before the bf16 cast),
+and both export ``adapter/`` (PEFT) beside the merged ``best_model/``;
+``objective="dpo"`` is ``train/dpo.DPOTrainer``, a subclass.
+
+Not ported, and refused by ``check_supported``: SFT's chunked losses,
+Adafactor/Lion, sequence parallelism, meshes of more than one device, the
+control plane's HTTP server (``train_port``) and the C++ loader. A
+checkpoint of the JAX trainer's pipeline layout (``@stacked`` leaves) is
+refused at resume: the cross-layout resume waits for pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -60,6 +68,10 @@ from llm_fine_tune_distributed_tpu_torch.data.dataset import (
     train_validation_split,
 )
 from llm_fine_tune_distributed_tpu_torch.data.loader import SFTBatchLoader
+from llm_fine_tune_distributed_tpu_torch.data.packing import (
+    build_packed_sft_arrays,
+    packing_efficiency,
+)
 from llm_fine_tune_distributed_tpu_torch.data.tokenizer import load_tokenizer
 from llm_fine_tune_distributed_tpu_torch.device import resolve_device
 from llm_fine_tune_distributed_tpu_torch.models.configs import (
@@ -79,7 +91,17 @@ from llm_fine_tune_distributed_tpu_torch.parallel.freeze import (
     quantize_trunk_int8,
     trainable_mask,
 )
+from llm_fine_tune_distributed_tpu_torch.parallel.lora import (
+    add_lora_from_config,
+    merge_lora,
+    save_lora_adapter,
+)
 from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import build_optimizer
+from llm_fine_tune_distributed_tpu_torch.parallel.qlora import (
+    dequantize_frozen,
+    quantize_frozen,
+    quantized_fraction,
+)
 from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
 from llm_fine_tune_distributed_tpu_torch.train.checkpoints import (
     CheckpointManager,
@@ -104,14 +126,14 @@ def check_supported(config: TrainConfig) -> None:
     if config.frozen_compute == "int8" and config.objective != "sft":
         raise ValueError("frozen_compute='int8' supports objective='sft' only "
                          f"({_JAX_TRAINER}._prepare_state refuses it too)")
+    if config.objective not in ("sft", "dpo"):
+        raise ValueError(f"unknown objective {config.objective!r}; expected 'sft' or 'dpo'")
+    sft = config.objective == "sft"  # DPO chunks its logprobs itself (train/dpo.py)
     unported = {
-        "packing=True": (config.packing, "_prepare_data (data/packing.py)"),
-        f"objective={config.objective!r}": (
-            config.objective != "sft", "llm_fine_tune_distributed_tpu.train.dpo.DPOTrainer"),
-        f"freeze_strategy={config.freeze_strategy!r}": (
-            config.freeze_strategy in ("lora", "qlora"), "_prepare_state (parallel/lora.py, qlora.py)"),
-        "loss_chunk_size": (config.loss_chunk_size is not None, "train/step.chunked_ce_sum"),
-        "loss_vocab_chunk": (config.loss_vocab_chunk is not None, "train/step.vocab_chunked_ce_sum"),
+        "loss_chunk_size": (sft and config.loss_chunk_size is not None,
+                            "train/step.chunked_ce_sum"),
+        "loss_vocab_chunk": (sft and config.loss_vocab_chunk is not None,
+                             "train/step.vocab_chunked_ce_sum"),
         f"optimizer={config.optimizer!r}": (
             config.optimizer != "adamw", "parallel/optimizer.build_optimizer"),
         f"attention_impl={config.attention_impl!r}": (
@@ -185,6 +207,13 @@ class SFTTrainer:
         # the last train()'s final save and last publish (step, bytes, seconds)
         self.last_checkpoint: Optional[dict] = None
         self.last_publish: Optional[dict] = None
+        # eval-time scalars of a subclass (DPO's reward accuracy), logged with
+        # every eval
+        self.extra_eval_logs: Dict[str, float] = {}
+        # seconds of the QLoRA quantization (None without it) and of the
+        # export's decoding and merging of the weights
+        self.quantize_seconds: Optional[float] = None
+        self.export_merge_seconds: Optional[float] = None
         # the run's telemetry: lineage, the anomaly sentinels that gate a
         # publish, the flight recorder (fed at log/eval/save boundaries)
         hparams = {k: (v if isinstance(v, (int, float, str, bool, type(None))) else str(v))
@@ -194,9 +223,12 @@ class SFTTrainer:
         os.makedirs(os.path.join(config.output_dir, "best_model"), exist_ok=True)
         self._prepare_data()
         self._prepare_state()
-        self.train_step = build_train_step(self.model_config, config, self.optimizer,
+        self._prepare_steps()
+
+    def _prepare_steps(self) -> None:
+        self.train_step = build_train_step(self.model_config, self.config, self.optimizer,
                                            frozen_layers=self.frozen_boundary)
-        self.eval_step = build_eval_step(self.model_config, config,
+        self.eval_step = build_eval_step(self.model_config, self.config,
                                          frozen_layers=self.frozen_boundary)
 
     @staticmethod
@@ -233,10 +265,17 @@ class SFTTrainer:
         print(f"Training samples: {self.n_train:,}")
         print(f"Validation samples: {self.n_val:,}")
         prompt_kw = self._prompt_kwargs()
-        self.train_arrays = build_sft_arrays(
+        build = build_packed_sft_arrays if cfg.packing else build_sft_arrays
+        self.train_arrays = build(
             train_rows, self.tokenizer, cfg.max_seq_length, cfg.completion_only_loss, **prompt_kw)
-        self.val_arrays = build_sft_arrays(
+        self.val_arrays = build(
             val_rows, self.tokenizer, cfg.max_seq_length, cfg.completion_only_loss, **prompt_kw)
+        if cfg.packing:
+            # the counts and the steps are in packed rows (TRL's accounting)
+            self.n_train = self.train_arrays["input_ids"].shape[0]
+            self.n_val = self.val_arrays["input_ids"].shape[0]
+            print(f"Packing: {len(train_rows):,} examples -> {self.n_train:,} rows "
+                  f"({100 * packing_efficiency(self.train_arrays):.1f}% token occupancy)")
         self._attach_completion_mask(val_rows, prompt_kw)
         self.loader = SFTBatchLoader(
             self.train_arrays, per_device_batch_size=cfg.per_device_batch_size,
@@ -248,11 +287,19 @@ class SFTTrainer:
 
     def _attach_completion_mask(self, val_rows, prompt_kw) -> None:
         """``completion_mask`` on the validation arrays: the loss mask
-        restricted to the assistant's answer, for ``eval_loss_answer``."""
+        restricted to the assistant's answer, for ``eval_loss_answer``. The
+        same rows tokenize (and pack) to the same layout, which is checked."""
         cfg = self.config
         if cfg.completion_only_loss:
             return  # loss_mask already is the completion span
-        masked = build_sft_arrays(val_rows, self.tokenizer, cfg.max_seq_length, True, **prompt_kw)
+        build = build_packed_sft_arrays if cfg.packing else build_sft_arrays
+        masked = build(val_rows, self.tokenizer, cfg.max_seq_length, True, **prompt_kw)
+        if masked["input_ids"].shape != self.val_arrays["input_ids"].shape:
+            # a check that survives python -O: the eval metric depends on it
+            raise ValueError(
+                "completion-mask build produced a different layout than the validation arrays "
+                f"(mask {masked['input_ids'].shape} vs val {self.val_arrays['input_ids'].shape}) "
+                "— the mask pass must tokenize/pack identically to the eval pass")
         self.val_arrays["completion_mask"] = masked["loss_mask"]
         if masked["loss_mask"].sum() == 0:
             print(
@@ -272,8 +319,10 @@ class SFTTrainer:
             return load_hf_checkpoint(source, mc, dtype=torch.float32, device=self.device)
         print(f"No local checkpoint at {source!r}; random-initializing {mc.name} "
               f"({mc.num_params:,} params)")
+        # QLoRA keeps the f32 init: NF4 quantizes from full precision
         init_dtype = torch.float32
-        if str_to_dtype(cfg.param_dtype) is str_to_dtype(cfg.compute_dtype):
+        if cfg.freeze_strategy != "qlora" and (
+                str_to_dtype(cfg.param_dtype) is str_to_dtype(cfg.compute_dtype)):
             init_dtype = str_to_dtype(cfg.param_dtype)
         return init_params(mc, seed=cfg.seed, device=self.device, dtype=init_dtype)
 
@@ -286,6 +335,10 @@ class SFTTrainer:
                 "(llm_fine_tune_distributed_tpu.models.transformer.forward has it)"
             )
         params = self._load_or_init_params()
+        if cfg.freeze_strategy in ("lora", "qlora"):
+            # A Kaiming, B zero: step 0 is the base model; only lora_a and
+            # lora_b train, so the optimizer state is the adapters'
+            params = add_lora_from_config(params, cfg.seed, cfg)
         mask = trainable_mask(params, mc, cfg)
         self.trainable_report = describe_trainable(params, mask)
         r = self.trainable_report
@@ -298,6 +351,14 @@ class SFTTrainer:
         self.frozen_boundary = 0
         if cfg.frozen_compute == "int8":
             self.frozen_boundary = frozen_trunk_boundary(mask, mc.num_layers)
+        if cfg.freeze_strategy == "qlora":
+            # the frozen block linears to NF4, from full precision
+            t0 = time.perf_counter()
+            frozen = quantize_frozen(frozen, cfg.quant_block_size, cfg.quant_double_quant)
+            self._sync()
+            self.quantize_seconds = time.perf_counter() - t0
+            print(f"QLoRA: {100 * quantized_fraction(frozen):.1f}% of frozen bytes in NF4 "
+                  f"(block {cfg.quant_block_size}, double_quant={cfg.quant_double_quant})")
         if self.frozen_boundary > 0:
             frozen, n_quant = quantize_trunk_int8(frozen, self.frozen_boundary)
             print(f"Frozen trunk: layers [0, {self.frozen_boundary}) run w8a8 int8 "
@@ -305,11 +366,12 @@ class SFTTrainer:
         param_dtype = str_to_dtype(cfg.param_dtype)
         compute_dtype = str_to_dtype(cfg.compute_dtype)
         # masters: trainable in param_dtype (f32), frozen in compute_dtype;
-        # int8 codes and their f32 scales keep their dtypes
+        # int8 and NF4 codes and their f32 scales keep their dtypes
         trainable = {k: v.detach().to(param_dtype).requires_grad_(True)
                      for k, v in trainable.items()}
         frozen = {k: v.detach().to(compute_dtype)
-                  if v.is_floating_point() and not k.endswith("_int8_scale") else v
+                  if v.is_floating_point() and "absmax" not in k
+                  and not k.endswith("_int8_scale") else v
                   for k, v in frozen.items()}
         self.optimizer = build_optimizer(cfg, total_steps=self.total_steps)
         self.lr_schedule = self.optimizer.schedule
@@ -329,11 +391,12 @@ class SFTTrainer:
     @staticmethod
     def _pad_eval_rows(key: str, arr: np.ndarray, pad_rows: int) -> np.ndarray:
         """Pad rows for the last eval batch: zero loss mask (no tokens), but
-        real attention so no attention row is fully masked."""
+        real attention (and, packed, segment 1) so that each pad token
+        still attends to itself."""
         if pad_rows <= 0:
             return arr
         pad_block = np.zeros((pad_rows,) + arr.shape[1:], arr.dtype)
-        if key == "attention_mask":
+        if key in ("attention_mask", "segment_ids"):
             pad_block[:] = 1
         return np.concatenate([arr, pad_block])
 
@@ -390,6 +453,15 @@ class SFTTrainer:
                 "save_steps (or use best_model_tracking='per_eval') to track a real best"
             )
         return mode
+
+    def _tokens_per_sample(self) -> int:
+        """Data tokens one sample takes (a DPO pair is two sequences)."""
+        return self.config.max_seq_length
+
+    @staticmethod
+    def _real_tokens(batch: Dict[str, np.ndarray]) -> int:
+        """Real (non-pad) tokens of a host batch."""
+        return int(batch["attention_mask"].sum())
 
     def _better(self, a: float, b: float) -> bool:
         return a > b if self.config.greater_is_better else a < b
@@ -526,11 +598,11 @@ class SFTTrainer:
         final_loss = None
         preempted = False
         samples_per_step = cfg.per_device_batch_size * cfg.gradient_accumulation_steps
-        print(f"Starting SFT: {cfg.epochs} epochs x {self.steps_per_epoch} steps, effective "
-              f"batch {samples_per_step}, device {self.device}")
+        print(f"Starting {cfg.objective.upper()}: {cfg.epochs} epochs x {self.steps_per_epoch} "
+              f"steps, effective batch {samples_per_step}, device {self.device}")
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
-        meter = self.throughput = _Throughput(cfg.max_seq_length)
+        meter = self.throughput = _Throughput(self._tokens_per_sample())
         # the wedged-device detector (runtime/watchdog.py), armed by the
         # first step's poke so that the first step's kernel builds cannot
         # trip it
@@ -553,7 +625,7 @@ class SFTTrainer:
                     self.state, metrics = self.train_step(self.state, dev_batch)
                     self._sync()
                     step += 1
-                    meter.update(samples_per_step, int(batch["attention_mask"].sum()),
+                    meter.update(samples_per_step, self._real_tokens(batch),
                                  time.perf_counter() - t_step)
                     if watchdog is not None:
                         watchdog.poke(step)
@@ -580,12 +652,14 @@ class SFTTrainer:
                         final_loss = float(metrics["loss"])
                         logs = {"loss": final_loss,
                                 "learning_rate": float(self.lr_schedule(step - 1)),
-                                **meter.snapshot(),
-                                "grad_norm": float(metrics["grad_norm"])}
+                                **meter.snapshot()}
+                        # every scalar the step returns (grad_norm; DPO's rewards_*)
+                        logs.update({k: float(v) for k, v in metrics.items() if k != "loss"})
                         if do_eval:
                             logs["eval_loss"] = last_eval
                             if self._last_eval_answer is not None:
                                 logs["eval_loss_answer"] = self._last_eval_answer
+                            logs.update(self.extra_eval_logs)
                         if self.device.type == "cuda":
                             logs["device_bytes_in_use"] = torch.cuda.memory_allocated(self.device)
                             logs["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
@@ -690,10 +764,22 @@ class SFTTrainer:
             summary["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
         best_dir = os.path.join(cfg.output_dir, "best_model")
         params = {k: v.detach() for k, v in merge_flat(self.state.trainable, self.state.frozen).items()}
+        lora = cfg.freeze_strategy in ("lora", "qlora")
+        if lora:
+            # both forms: the PEFT adapter here, the merged model below
+            save_lora_adapter(params, os.path.join(cfg.output_dir, "adapter"), cfg)
+        t0 = time.perf_counter()
+        if cfg.freeze_strategy == "qlora":
+            # the export is plain safetensors: the NF4 base decoded in f32
+            params = dequantize_frozen(params, torch.float32)
         for name in [k for k in params if k.endswith(".kernel_int8")]:
             # the int8 trunk is exported as plain kernels, decoded in f32
             q = {"int8": params.pop(name), "int8_scale": params.pop(name + "_scale")}
             params[name[: -len("_int8")]] = dequantize_int8(q, torch.float32)
+        if lora:
+            params = merge_lora(params)
+        self._sync()
+        self.export_merge_seconds = time.perf_counter() - t0
         save_hf_checkpoint(params, best_dir, save_dtype=torch.bfloat16,
                            metadata={"framework": "llm_fine_tune_distributed_tpu_torch"})
         if hasattr(self.tokenizer, "save_pretrained"):

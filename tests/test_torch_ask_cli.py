@@ -1,8 +1,8 @@
 """The port's ask CLI and entry points against the JAX package's, on a
 tiny model directory on the CPU: the same ``Answer:`` line, greedy, with
-and without weight-only int8; every refused or unported flag stops before a
-weight is loaded; without a GPU the default device exits non-zero; the
-server takes ``--quantize int8`` and answers.
+and without weight-only int8 and NF4; every refused or unported flag stops
+before a weight is loaded; without a GPU the default device exits non-zero;
+the server takes ``--quantize int8`` and ``--quantize nf4`` and answers.
 
 The JAX CLI computes in bf16 by default; here its Generator is given f32,
 the port's compute dtype on the CPU, so that greedy tokens can be compared.
@@ -87,6 +87,27 @@ def test_answer_line_equals_jax_cli(model_dir, quantize, monkeypatch, capsys):
     assert _answer_line(got) == _answer_line(want) != "Answer: "
 
 
+def test_answer_line_with_nf4_equals_the_jax_nf4_generator(model_dir, capsys):
+    """``--quantize nf4`` (which the JAX ask CLI does not offer): the answer
+    is the JAX Generator's over the JAX ``quantize_params_nf4`` of the same
+    weights, asked the CLI's messages."""
+    from llm_fine_tune_distributed_tpu.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu.ops.nf4 import quantize_params_nf4
+
+    argv = ["--model-dir", str(model_dir), "--quantize", "nf4"] + ASK
+    assert run_ask_cli(argv, **CLI_KW) == 0
+    got = capsys.readouterr().out
+    assert "Quantizing block linears to NF4" in got and "quantize nf4" in got
+    jparams, jmc = jax_infer.load_model_dir(str(model_dir))
+    jgen = jax_infer.Generator(quantize_params_nf4(jparams), jmc, ByteChatMLTokenizer(),
+                               compute_dtype=jnp.float32)
+    messages = [{"role": "system", "content": WILDERNESS_EXPERT_SYSTEM_PROMPT},
+                {"role": "user", "content": QUESTION}]
+    ids = jgen.generate_ids(jgen.encode_chat(messages),
+                            jax_infer.GenerationConfig(max_new_tokens=16, do_sample=False))
+    assert _answer_line(got) == "Answer: " + jgen.decode_reply(ids) != "Answer: "
+
+
 @pytest.mark.parametrize("draft", [False, True], ids=["lookup", "draft_dir"])
 def test_speculative_answer_equals_the_plain_one_and_jax(model_dir, draft, monkeypatch, capsys):
     """``--speculative 4``, drafting by prompt lookup or with the model
@@ -144,12 +165,11 @@ def no_load(monkeypatch):
     (["--serve", "--speculative", "2", "--draft-dir", "d", "--engine", "window"],
      "--speculative K applies to the continuous/paged engines"),
     (["--tp", "2", QUESTION], "make_tp_mesh"),
-    (["--quantize", "nf4", QUESTION], "quantize_params_nf4"),
     (["--serve", QUESTION], "--serve takes no question"),
     (["--serve", "--greedy", "--top-k", "5"], "--top-k --greedy have no effect with --serve"),
     ([], "a question is required"),
     (["--engine", "window", QUESTION], "--engine picks the --serve engine"),
-], ids=["draft_without_speculative", "speculative", "draft_dir", "tp", "nf4", "serve_question",
+], ids=["draft_without_speculative", "speculative", "draft_dir", "tp", "serve_question",
         "serve_sampling", "no_question", "engine_without_serve"])
 def test_refusals_come_before_loading(model_dir, no_load, capsys, args, message):
     with pytest.raises(SystemExit) as exc:
@@ -227,19 +247,20 @@ def test_python_m_ask_modules_answer_on_the_cpu(model_dir, module, via_env):
     assert _answer_line(out.stdout) != "Answer: "
 
 
-def test_server_with_int8_weights_answers_on_the_cpu(model_dir):
-    """``--quantize int8`` parses, the weights load as int8 codes and one
-    ``/v1/generate`` answers with the in-process int8 Generator's reply."""
+def _server_answer(model_dir, quantize):
+    """Start the server with ``--quantize QUANTIZE`` on the CPU, check that
+    the weights load quantized, and return one ``/v1/generate`` answer and
+    the in-process Generator's reply over the same quantized weights."""
     cmd = [sys.executable, "-m", "llm_fine_tune_distributed_tpu_torch.infer.server",
-           "--model-dir", str(model_dir), "--quantize", "int8", "--device", "cpu",
+           "--model-dir", str(model_dir), "--quantize", quantize, "--device", "cpu",
            "--host", "127.0.0.1", "--port", "0", "--slots", "2", "--kv-buf-len", "128",
            "--kv-block-len", "16", "--prefill-chunk", "32"]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             cwd=str(ROOT), env=_env())
     try:
         lines = [proc.stdout.readline() for _ in range(2)]
-        assert "Quantizing block linears to int8" in lines[0], lines
-        assert "listening on http://" in lines[1] and "weights int8" in lines[1], lines
+        assert f"quantizing block linears to {quantize}" in lines[0].lower(), lines
+        assert "listening on http://" in lines[1] and f"weights {quantize}" in lines[1], lines
         base = lines[1].split("listening on ")[1].split()[0]
         deadline = time.monotonic() + 60
         while True:
@@ -264,18 +285,24 @@ def test_server_with_int8_weights_answers_on_the_cpu(model_dir):
     from llm_fine_tune_distributed_tpu_torch.ops.int8 import maybe_quantize
 
     params, mc = port_infer.load_model_dir(str(model_dir), device="cpu", dtype=torch.float32)
-    gen = port_infer.Generator(maybe_quantize(params, "int8"), mc,
+    gen = port_infer.Generator(maybe_quantize(params, quantize), mc,
                                port_infer.load_tokenizer_dir(str(model_dir)),
                                compute_dtype=torch.float32, device="cpu")
     want = gen.chat([{"role": "system", "content": "Be brief."},
                      {"role": "user", "content": QUESTION}],
                     port_infer.GenerationConfig(max_new_tokens=8, do_sample=False))
+    return answer, want
+
+
+def test_server_with_int8_weights_answers_on_the_cpu(model_dir):
+    """``--quantize int8`` parses, the weights load as int8 codes and one
+    ``/v1/generate`` answers with the in-process int8 Generator's reply."""
+    answer, want = _server_answer(model_dir, "int8")
     assert answer == want and want
 
 
-def test_server_refuses_nf4_before_loading(model_dir, no_load, capsys):
-    with pytest.raises(SystemExit) as exc:
-        server.main(["--model-dir", str(model_dir), "--quantize-weights", "nf4", "--device", "cpu"])
-    assert exc.value.code == 2 and "quantize_params_nf4" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="quantize_params_nf4"):
-        server.serve(str(model_dir), device="cpu", quantize="nf4")
+def test_server_with_nf4_weights_answers_on_the_cpu(model_dir):
+    """``--quantize-weights nf4``: the weights load as NF4 codes and one
+    ``/v1/generate`` answers with the in-process NF4 Generator's reply."""
+    answer, want = _server_answer(model_dir, "nf4")
+    assert answer == want and want

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from llm_fine_tune_distributed_tpu_torch.data.dataset import TokenizedExample
+from llm_fine_tune_distributed_tpu_torch.data.packing import pack_examples
 from llm_fine_tune_distributed_tpu_torch.ops import attention as port_attention
 from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
 
@@ -225,6 +227,63 @@ def test_tile_pairs_pinned_for_the_smoke_ragged_batch():
     assert int(visited.sum()) == 848 and 8 * 16 * 17 // 2 == 1088
 
 
+def _packed_segments(rows, s):
+    """int32 [len(rows), s] segment ids that ``data/packing.pack_examples``
+    gives examples of these lengths, first-fit into rows of s."""
+    examples = [TokenizedExample(input_ids=np.zeros(s, np.int32), loss_mask=np.zeros(s, np.float32),
+                                 length=n) for n in rows]
+    return torch.from_numpy(pack_examples(examples, s)["segment_ids"])
+
+
+def _skipping_attention(q, k, v, seg, tile):
+    """Plain attention that computes only the tile pairs
+    ``flash_tile_pairs`` keeps, as the tensor-core kernels walk them: the
+    dense mask further restricted to the visited pairs. (O, LSE)."""
+    b, s, hq, d = q.shape
+    groups = hq // k.shape[2]
+    visited = fa.flash_tile_pairs(seg, tile)
+    tiles = visited.repeat_interleave(tile, 1).repeat_interleave(tile, 2)[:, :s, :s]
+    mask = fa._flash_mask(seg)[:, 0] & tiles
+    kh = k.transpose(1, 2).repeat_interleave(groups, 1)
+    vh = v.transpose(1, 2).repeat_interleave(groups, 1)
+    scores = (q.transpose(1, 2) @ kh.transpose(-1, -2)) / np.sqrt(d)
+    scores = scores.masked_fill(~mask[:, None], float("-inf"))
+    return (torch.softmax(scores, -1) @ vh).transpose(1, 2), torch.logsumexp(scores, -1)
+
+
+def test_segment_range_skipping_is_exact_on_packed_rows():
+    """On rows the packer fills with several segments and a pad tail, the
+    plain attention computed over the visited tile pairs only gives the O,
+    LSE and gradients of the unskipped mask; the visited pairs are fewer
+    than the causal ones by the block-diagonal share."""
+    s, tile, hq, hkv = 256, 64, 4, 2
+    seg = _packed_segments([100, 70, 40, 90, 50, 150, 30, 20, 60], s)
+    b = seg.shape[0]
+    assert b >= 3 and int(seg.max()) >= 3 and bool((seg == 0).any())
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(11, b, hq, hkv, s=s))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_skip, lse_skip = _skipping_attention(*leaves, seg, tile)
+    grads_skip = torch.autograd.grad(o_skip, leaves, do)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, seg)
+    assert (o_skip.detach() - o_ref).abs().max() <= FWD_TOL
+    assert (lse_skip.detach() - lse_ref).abs().max() <= FWD_TOL
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    grads_ref = torch.autograd.grad(fa.flash_attention_reference(*leaves, segment_ids=seg),
+                                    leaves, do)
+    for name, got, want in zip(("dq", "dk", "dv"), grads_skip, grads_ref):
+        assert (got - want).abs().max() <= GRAD_TOL, name
+    n = s // tile
+    visited = fa.flash_tile_pairs(seg, tile)
+    causal = b * n * (n + 1) // 2
+    assert int(visited.sum()) < causal
+    # tile-aligned segments: each segment (the pad tail included) visits
+    # exactly its own lower triangle of tile pairs, the block-diagonal count
+    aligned = _packed_segments([64, 128, 192], s)  # rows 64 + 128 + pad 64, 192 + pad 64
+    assert aligned[0].unique().tolist() == [0, 1, 2] and aligned[1].unique().tolist() == [0, 1]
+    per_row = fa.flash_tile_pairs(aligned, tile).sum(dim=(1, 2)).tolist()
+    assert per_row == [1 + 3 + 1, 6 + 1] and n * (n + 1) // 2 == 10
+
+
 def test_tile_visits_are_counted_only_by_the_tensor_core_kernels():
     """``tile_visits`` asks the bf16 kernels on the card to count their own
     walk; on the CPU (the plain versions) and for f32 it is refused, and a
@@ -378,6 +437,35 @@ def test_tensor_core_kernels_count_the_tile_pairs_of_flash_tile_pairs_on_the_car
     assert torch.equal(fwd_visits.cpu(), predicted)
     assert torch.equal(dq_visits.cpu(), predicted)
     assert torch.equal(dkv_visits.cpu(), predicted)
+
+
+@pytest.mark.cuda
+def test_packed_rows_through_the_kernels_match_plain_on_the_card():
+    """Rows the packer fills (several segments, a pad tail) at the model's
+    attention shape: the f32 kernels' O and gradients through the training
+    path's autograd function against the plain versions', and the bf16
+    kernels' own tile-pair count against ``flash_tile_pairs``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the flash kernels have no CPU mode")
+    s, hq, hkv, d = 1024, 16, 4, 128
+    seg = _packed_segments([300, 250, 280, 200, 310, 330, 120, 290, 260, 180, 350], s).cuda()
+    b = seg.shape[0]
+    q, k, v, do = (torch.from_numpy(x).cuda() for x in _inputs(13, b, hq, hkv, s=s, d=d))
+    out = {}
+    for name, fn in (("kernel", fa.flash_attention), ("plain", fa.flash_attention_reference)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves, segment_ids=seg)
+        out[name] = (o.detach(), *torch.autograd.grad(o, leaves, do))
+    for name, got, want, band in zip(("o", "dq", "dk", "dv"), out["kernel"], out["plain"],
+                                     (FWD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+        assert (got - want).abs().max().item() <= band, name
+    n = s // fa.FLASH_TILE
+    visits = torch.zeros(b, n, n, dtype=torch.int32, device="cuda")
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    fa.flash_fwd(qb, kb, vb, seg, tile_visits=visits)
+    predicted = fa.flash_tile_pairs(seg.cpu()).to(torch.int32) * hq
+    assert torch.equal(visits.cpu(), predicted)
+    assert int(predicted.sum()) < b * n * (n + 1) // 2 * hq
 
 
 @pytest.mark.cuda

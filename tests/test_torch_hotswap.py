@@ -22,14 +22,15 @@ than echoing):
   terminal engine refuses a swap; 16 clients across a rolling fleet swap
   lose nothing;
 - a published kernel is re-quantized into a resident int8 leaf, with the
-  JAX package's codes, and an unreconcilable one fails the swap only;
+  JAX package's codes, and an unreconcilable one fails the swap only; into
+  a resident NF4 leaf likewise (the JAX file's
+  ``test_swap_requantizes_into_resident_nf4``);
 - beyond the JAX file: the watcher's eval gate and fingerprint refusals,
   the canary that rejects a failing replica 0 before replica 1 swaps, the
   lineage records, the adapter registry's ``rebind``, host-tier entries of
   another generation missing, and the replaced leaves freed when the
   engine owned its Generator.
 
-The NF4 case of the JAX file has no counterpart: NF4 serving is not ported.
 A card-only case swaps and rolls back on the GPU: ``python -m pytest
 --noconftest -m cuda tests/test_torch_hotswap.py``.
 """
@@ -531,6 +532,35 @@ def test_swap_requantizes_into_resident_int8(port_gen):
                                       np.asarray(jwant["int8"]))
         np.testing.assert_allclose(engine.params[f"{name}_int8_scale"].numpy(),
                                    np.asarray(jwant["int8_scale"]), rtol=1e-6)
+    assert engine.submit(prompt, GREEDY)
+    _close(engine)
+
+
+def test_swap_requantizes_into_resident_nf4(port_gen):
+    """The same translation for an NF4-resident engine (``--quantize
+    nf4``): the published kernel lands as packed NF4 codes at the resident
+    block size, equal to the JAX package's quantizer's, and the engine
+    still serves."""
+    import jax.numpy as jnp
+
+    from llm_fine_tune_distributed_tpu.ops.nf4 import quantize_nf4 as jax_quantize_nf4
+
+    gen = Generator(maybe_quantize(dict(port_gen.params), "nf4"), port_gen.config,
+                    ByteChatMLTokenizer(), compute_dtype=torch.float32, eos_token_ids=[],
+                    device="cpu")
+    engine = _port_engine(gen, "continuous")
+    prompt = _prompt()
+    assert engine.submit(prompt, GREEDY)
+    geometry = _geometry(engine.params)
+    name = _layer0_kernels(port_gen)[0]
+    w = port_gen.params[name] * 1.5
+    res = engine.request_weight_swap({name: w}, fingerprint="fp-nf4", step=1, timeout=60)
+    assert res["weight_generation"] == 1
+    assert _geometry(engine.params) == geometry
+    jwant = jax_quantize_nf4(jnp.asarray(w.numpy()))
+    for suffix, want in jwant.items():
+        np.testing.assert_array_equal(engine.params[f"{name}_{suffix}"].numpy(),
+                                      np.asarray(want), err_msg=suffix)
     assert engine.submit(prompt, GREEDY)
     _close(engine)
 

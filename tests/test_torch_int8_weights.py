@@ -2,7 +2,9 @@
 ``tiny`` preset in f32: ``quantize_params_int8``'s leaves, ``int8_matmul`` on
 row-major and K-major codes, the forward and greedy generation over int8
 weights, the paged engine over int8 weights (and an int8 KV pool), the
-frozen trunk's w8a8 routing, and the errors.
+frozen trunk's w8a8 routing, and the errors; ``maybe_quantize(params,
+"nf4")`` against the JAX ``quantize_params_nf4``, leaf for leaf, and the
+forward and greedy tokens over NF4 weights.
 
 Tolerances: codes and scales bitwise; ``int8_matmul`` 1e-6 of the largest
 |output| (f32 products summed in another order); logits 1e-4 absolute;
@@ -224,8 +226,6 @@ def test_frozen_trunk_int8_leaves_stay_w8a8(models):
 
 def test_errors():
     params = tf.init_params(configs.get_preset("tiny"), seed=0)
-    with pytest.raises(NotImplementedError, match="quantize_params_nf4"):
-        int8.maybe_quantize(params, "nf4")
     with pytest.raises(ValueError, match="unknown quantize mode"):
         int8.maybe_quantize(params, "int4")
     with pytest.raises(ValueError, match="predicate matched"):
@@ -236,3 +236,45 @@ def test_errors():
     # nothing changed before the error
     assert not any(k.endswith("_int8") for k in params)
     assert int8.maybe_quantize(params, "none") is params
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maybe_quantize_nf4_equals_jax_leaf_for_leaf(dtype):
+    """``--quantize nf4``: the same leaf names and NF4 leaves bit for bit as
+    the JAX ``quantize_params_nf4``, from f32 and from bf16 weights; the
+    embedding and the norms untouched."""
+    from llm_fine_tune_distributed_tpu.ops.nf4 import quantize_params_nf4 as jax_nf4
+
+    jparams, _ = _jax_params(getattr(jnp, dtype))
+    mc = configs.get_preset("tiny")
+    port = int8.maybe_quantize(params_from_jax(_flat_np(jparams), mc, dtype=getattr(torch, dtype)),
+                               "nf4")
+    want = {k.replace("/", "."): np.asarray(v) for k, v in flatten_dict(jax_nf4(jparams)).items()}
+    assert set(port) == set(want)
+    for k, v in want.items():
+        got = port[k].float().numpy() if port[k].dtype == torch.bfloat16 else port[k].numpy()
+        assert got.shape == v.shape, k
+        np.testing.assert_array_equal(got, v.astype(got.dtype), err_msg=k)
+    assert not any(k.endswith(".kernel") and ".layers." in k for k in port)
+
+
+def test_nf4_weights_forward_and_tokens_equal_jax():
+    """Over NF4 weights the port's forward is within 1e-4 of the JAX
+    forward, and its greedy tokens are the JAX Generator's."""
+    from llm_fine_tune_distributed_tpu.ops.nf4 import quantize_params_nf4 as jax_nf4
+
+    jparams, jmc = _jax_params()
+    mc = configs.get_preset("tiny")
+    jq = jax_nf4(jparams)
+    params = int8.maybe_quantize(params_from_jax(_flat_np(jparams), mc), "nf4")
+    ids = np.random.RandomState(0).randint(0, mc.vocab_size, (2, 12))
+    want, _ = jax_tf.forward(jq, jnp.asarray(ids), jmc, compute_dtype=jnp.float32)
+    got, _ = tf.forward(params, torch.from_numpy(ids), mc, compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=LOGIT_TOL)
+    jgen = JaxGenerator(jq, jmc, JaxTokenizer(), compute_dtype=jnp.float32, eos_token_ids=[])
+    gen = Generator(params, mc, ByteChatMLTokenizer(), compute_dtype=torch.float32,
+                    eos_token_ids=[], device="cpu")
+    for prompt in PROMPTS[:2]:
+        ids = list(prompt.encode())
+        assert (list(gen.generate_ids(ids, GenerationConfig(**GREEDY)))
+                == list(jgen.generate_ids(ids, JaxGenerationConfig(**GREEDY))))

@@ -6,6 +6,9 @@ The JAX trainer runs on the CPU, where its ``attention_impl="flash"`` takes
 the XLA attention; the port's CPU path runs the flash kernels' plain
 versions. The two differ only on pad query rows, which carry no loss, so the
 histories agree to f32 rounding: 1e-4 relative over 6 steps and 3 evals.
+The fine-tuning recipes (packing, DPO, LoRA, QLoRA) train through the
+training entry point; their parity with the JAX trainer is in
+``tests/test_torch_{packing,dpo,lora_train,nf4}.py``.
 """
 
 import json
@@ -155,10 +158,6 @@ def test_cli_module_without_a_card_exits_non_zero(tmp_path):
 
 
 UNPORTED = {
-    "packing": dict(packing=True),
-    "dpo": dict(objective="dpo"),
-    "lora": dict(freeze_strategy="lora"),
-    "qlora": dict(freeze_strategy="qlora"),
     "loss_chunk_size": dict(loss_chunk_size=64),
     "loss_vocab_chunk": dict(loss_vocab_chunk=128),
     "adafactor": dict(optimizer="adafactor"),
@@ -170,6 +169,41 @@ UNPORTED = {
     "native_loader": dict(use_native_loader=True),
     "remat_mlp": dict(remat_policy="mlp"),
 }
+
+
+RECIPES = {
+    "packing": dict(packing=True, max_seq_length=512),  # rows of ~300 tokens pack at 512
+    "dpo": dict(objective="dpo"),
+    "lora": dict(freeze_strategy="lora", lora_rank=4),
+    "qlora": dict(freeze_strategy="qlora", lora_rank=4),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(RECIPES))
+def test_recipe_knobs_train_through_the_entry_point(workdir, knob, capsys):
+    """``train_main --config`` with each recipe's knob trains (DPO routed to
+    ``DPOTrainer`` as the JAX entry point routes it): finite losses at every
+    logged step, a finite final eval, and each recipe's own artifact."""
+    out = workdir / f"recipe_{knob}"
+    kw = _recipe(workdir, f"recipe_{knob}", dataset_file="qa.jsonl")
+    kw.update(epochs=1, eval_steps=0, save_steps=0)
+    kw.update(RECIPES[knob])
+    config = out.parent / f"recipe_{knob}.json"
+    TrainConfig(**kw).save(str(config))
+    assert cli.train_main(["--config", str(config), "--device", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    history = json.loads((out / "training_history.json").read_text())
+    assert history and all(np.isfinite(h["loss"]) for h in history)
+    summary = json.loads((out / "training_summary.json").read_text())
+    assert np.isfinite(summary["final_eval_loss"])
+    assert (out / "best_model" / "model.safetensors").exists()
+    if knob == "packing":
+        assert "token occupancy" in printed
+    if knob == "dpo":
+        assert printed.count("DPO on cpu") == 1 and "rewards_accuracy" in history[0]
+    if knob in ("lora", "qlora"):
+        assert (out / "adapter" / "adapter_model.safetensors").exists()
+        assert ("QLoRA: " in printed) == (knob == "qlora")
 
 
 @pytest.mark.parametrize("knob", sorted(UNPORTED))
