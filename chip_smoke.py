@@ -258,6 +258,23 @@ and stops with a non-zero exit at the first failure:
    twice the bf16 rounding of the f32 forward over the dequantized weights,
    and the same path with the nibbles swapped in pairs or each block's
    absmax read from the block before outside that bound.
+25. (after phase 24) data-parallel training across processes: (a) phase
+   8's recipe through ``python -m llm_fine_tune_distributed_tpu_torch.cli``
+   in a process of its own under a PyTorchJob's env for one worker
+   (``RANK=0``, ``WORLD_SIZE=1``, ``MASTER_ADDR``/``MASTER_PORT``), so the
+   trainer takes its data-parallel path over NCCL: the first loss bit for
+   bit phase 8's, the later ones within 0.5%, the step time, samples/s/card
+   and peak beside phase 8's, and the gradient all-reduce's ms per step by
+   CUDA events; (b) two ranks on the one card over gloo (a group this
+   script makes, which the trainer takes as it is), ``data=1, fsdp=2``, at
+   full width and 4 layers in f32, 2 steps, against one process at world 1
+   with the same global batch and peak lr run meanwhile: the losses within
+   1e-5 relative and the updated leaves within 1e-4 of each leaf's max, each
+   rank's AdamW moments (``memory_allocated``) half the world-1 run's for
+   the sharded leaves, the flash launches per rank as derived, every desync
+   check passed and a divergence planted on rank 1 caught on both ranks.
+   Gloo's all-reduce goes through the host: its seconds are printed as the
+   cost of a correctness phase, not of data parallelism.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -296,6 +313,10 @@ publish) and runs 23a-23c; its last line is a JSON summary.
 ``python3 chip_smoke.py --recipes-only`` runs phase 24 alone: it builds the
 flash and paged decode kernels, trains phase 8 (the record 24a-24c compare
 with) and runs 24a-24e; its last line is a JSON summary.
+
+``python3 chip_smoke.py --distributed-only`` runs phase 25 alone: it builds
+the flash kernels, trains phase 8 (the record 25a compares with) and runs
+25a-25b; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --capture-check N [PUSH]`` runs phase 20e's
 profile capture N times on one phase-20 server and prints, per capture,
@@ -6039,6 +6060,409 @@ def recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained, int8_bytes)
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: data-parallel training across processes
+# ---------------------------------------------------------------------------
+
+DP_LAYERS = 4  # 25b's depth, at full width
+DP_ROWS = 20  # -> 18 train rows, 2 validation rows: 2 steps of 8 (2 ranks x 2 rows x 2 microbatches)
+DP_LOSS_REL_TOL = 1e-5  # 25b: world 2 against world 1, f32
+DP_LEAF_REL_TOL = 1e-4  # 25b: each updated leaf, relative to its largest entry
+DP_CLI_LOSS_REL_TOL = 5e-3  # 25a: the losses after the first against phase 8's
+DP_CHILD_TIMEOUT_S = 600
+# 25b: a rank's moments by memory_allocated against world 1's less half the
+# sharded leaves' (the allocator rounds the slices' blocks: +14.7 MB of
+# 1.676 GB on the first run)
+DP_MOMENT_ALLOC_REL_TOL = 0.01
+
+
+def _data_rows(data_dir, n):
+    import os
+
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "final_qa_data_unique.jsonl")) as f:
+        lines = [next(f) for _ in range(n)]
+    with open(os.path.join(data_dir, "final_qa_data_unique.jsonl"), "w") as f:
+        f.writelines(lines)
+
+
+def _child_env(env):
+    import os
+
+    out = dict(os.environ)
+    out.update(env)
+    return out
+
+
+def dp_cli_child(config_path, out_path) -> int:
+    """25a's process: the training CLI module run as ``__main__`` under the
+    launcher's env, with the gradient all-reduce timed by CUDA events and
+    the trainer's step times, peak and backend kept; writes them to
+    ``out_path``."""
+    import runpy
+
+    import torch.distributed as dist
+
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+    from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
+    from llm_fine_tune_distributed_tpu_torch.train import step as step_mod
+    from llm_fine_tune_distributed_tpu_torch.train import trainer as trainer_mod
+
+    events, record = [], {}
+    counters = train_counters(fa, mm)
+    reduce = step_mod.all_reduce_grads
+
+    def timed(grads, extras, *a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = reduce(grads, extras, *a, **kw)
+        end.record()
+        events.append((start, end, sum(g.numel() * g.element_size() for g in grads)))
+        return out
+
+    step_mod.all_reduce_grads = timed
+    train = trainer_mod.SFTTrainer.train
+
+    def recording(self):
+        for fn in counters.values():
+            fn.launches = 0
+        summary = train(self)
+        record["launches"] = {name: fn.launches for name, fn in counters.items()}
+        meter = self.throughput
+        record.update(step_s=meter.step_s, step_real_tokens=meter.step_real_tokens,
+                      train_peak=self.metrics.history[-1].get("device_peak_bytes_in_use"),
+                      backend=dist.get_backend(), world=dist.get_world_size(),
+                      dp_size=self.dp_size, samples_per_step=(
+                          self.config.per_device_batch_size
+                          * self.config.gradient_accumulation_steps * self.dp_size))
+        return summary
+
+    trainer_mod.SFTTrainer.train = recording
+    sys.argv = ["llm_fine_tune_distributed_tpu_torch.cli", "--config", config_path]
+    try:
+        runpy.run_module("llm_fine_tune_distributed_tpu_torch.cli", run_name="__main__")
+        rc = 0
+    except SystemExit as e:
+        rc = e.code or 0
+    torch.cuda.synchronize()
+    record["allreduce_ms"] = [s.elapsed_time(e) for s, e, _ in events]
+    record["allreduce_bytes"] = [b for _, _, b in events]
+    record["rc"] = rc
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def dp_cli_phase(trained):
+    """25a: phase 8's recipe through ``python -m ...cli`` in a process of
+    its own, under a PyTorchJob's env for one worker (``RANK=0``,
+    ``WORLD_SIZE=1``, ``MASTER_ADDR``/``MASTER_PORT``), so the trainer runs
+    its data-parallel path over NCCL: the first loss bit for bit phase 8's,
+    the later ones within 0.5%; step time, samples/s/card and peak beside
+    phase 8's, and the gradient all-reduce's ms per step by CUDA events."""
+    import os
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port, rendezvous_env
+
+    t0 = time.monotonic()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    try:
+        _data_rows(os.path.join(workdir, "data"), TRAIN_ROWS)
+        config = train_config(workdir, publish=False)
+        cfg_path, out_path = os.path.join(workdir, "cfg.json"), os.path.join(workdir, "child.json")
+        config.save(cfg_path)
+        env = _child_env(rendezvous_env(0, 1, free_port(), local_rank=0))
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dp-cli-child", cfg_path,
+                               out_path], capture_output=True, text=True, env=env,
+                              timeout=DP_CHILD_TIMEOUT_S)
+        check(proc.returncode == 0, f"25a: the CLI exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                    f"{proc.stderr[-4000:]}")
+        with open(out_path) as f:
+            child = json.load(f)
+        with open(os.path.join(workdir, "out", "training_history.json")) as f:
+            history = json.load(f)
+        with open(os.path.join(workdir, "out", "training_summary.json")) as f:
+            summary = json.load(f)
+    finally:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(child["backend"] == "nccl" and child["world"] == 1 and summary["world_size"] == 1,
+          f"25a: backend {child['backend']} world {child['world']}, summary {summary['world_size']}")
+    check(proc.stdout.count("completed successfully") == 1, "25a: no completion banner")
+    losses = [h["loss"] for h in history]
+    check(losses[0] == trained["losses"][0],
+          f"25a: first loss {losses[0]!r} is not phase 8's {trained['losses'][0]!r} bit for bit")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[1:], trained["losses"][1:])]
+    check(len(losses) == len(trained["losses"]) and max(rel) <= DP_CLI_LOSS_REL_TOL,
+          f"25a: losses {losses} vs phase 8's {trained['losses']}")
+    check(child["launches"] == trained["launches"],
+          f"25a: launches {child['launches']} vs phase 8's {trained['launches']}")
+    steady = slice(1, None)
+    step_s = child["step_s"][steady]
+    step_ms = statistics.median(step_s) * 1e3
+    samples_per_s = child["samples_per_step"] * len(step_s) / sum(step_s)
+    reduce_ms = child["allreduce_ms"]
+    record = {"losses": losses, "loss_rel_to_phase8": rel, "step_ms_median_steps_2_3": step_ms,
+              "samples_per_s_per_card": samples_per_s, "train_peak_bytes": child["train_peak"],
+              "allreduce_ms": reduce_ms, "allreduce_ms_median_steps_2_3": statistics.median(
+                  reduce_ms[steady]), "allreduce_bytes": child["allreduce_bytes"][0],
+              "backend": child["backend"], "launches": child["launches"],
+              "seconds": time.monotonic() - t0}
+    phase(25, f"25a: python -m ...cli under RANK=0 WORLD_SIZE=1 MASTER_ADDR/PORT, backend "
+              f"{child['backend']}: losses {[round(x, 4) for x in losses]} (first bit-equal to phase "
+              f"8's, later rel {[f'{r:.2e}' for r in rel]}); launches {child['launches']} = phase 8's")
+    phase(25, f"25a: steps 2-3 median step {step_ms:.1f} ms vs phase 8's "
+              f"{trained['step_ms_median_steps_2_3']:.1f}, {samples_per_s:.2f} vs "
+              f"{trained['samples_per_s_per_card']:.2f} samples/s/card, peak at the last step "
+              f"{child['train_peak'] / 1e9:.2f} vs {trained['train_peak_bytes'] / 1e9:.2f} GB; gradient "
+              f"all-reduce (NCCL, world 1, {record['allreduce_bytes'] / 1e9:.3f} GB of f32) "
+              f"{[round(x, 3) for x in reduce_ms]} ms per step by CUDA events; "
+              f"{record['seconds']:.1f} s in all")
+    return record
+
+
+def dp_config(workdir, rank_batch, **kw):
+    """25b's ``TrainConfig``: the default mesh, ``data=1, fsdp=-1``, is
+    fsdp=2 over the two ranks and 1 in the world-1 run."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
+
+    return TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
+                       tokenizer_path="byte-chatml", data_dir=os.path.join(workdir, "data"),
+                       epochs=1, system_prompt=TRAIN_PROMPT, logging_steps=1,
+                       compute_dtype="float32", per_device_batch_size=rank_batch,
+                       gradient_accumulation_steps=2, scale_lr_by_data_parallel=False,
+                       checkpoint_trainable_only=True, **kw)
+
+
+def dp_model_config():
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+
+    return get_preset("smollm3_3b").replace(num_layers=DP_LAYERS)
+
+
+def _moment_bytes(trainer):
+    """(``memory_allocated`` growth, tensor bytes) of the trainer's AdamW
+    state, made again."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = trainer.optimizer.init(trainer.state.trainable, trainer.shards)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    exact = sum(v.numel() * v.element_size() for m in ("mu", "nu") for v in state[m].values())
+    del state
+    return grown, exact
+
+
+def dp_rank_child(rank, port, workdir) -> int:
+    """25b's rank: a gloo group of two made here, on the one card, which
+    ``initialize_distributed`` (and so the trainer) takes as it is; then
+    ``SFTTrainer`` at fsdp=2, its launches, moments and desync checks, a
+    divergence planted on rank 1, and the final leaves (rank 0)."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+    from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
+    from llm_fine_tune_distributed_tpu_torch.runtime import distributed
+    from llm_fine_tune_distributed_tpu_torch.runtime.desync import check_param_sync
+    from llm_fine_tune_distributed_tpu_torch.train import step as step_mod
+    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_CHILD_TIMEOUT_S))
+    torch.cuda.set_device(0)
+    distributed.initialize_distributed(device=DEVICE)  # the group above, as it is
+    _build.build_all(("flash_fwd", "flash_bwd"))  # built by the parent: loaded
+    trainer = SFTTrainer(dp_config(workdir, 2, output_dir=os.path.join(workdir, "dp_out"),
+                                   desync_check_steps=1),
+                         model_config=dp_model_config(), device=DEVICE)
+    moment_bytes = _moment_bytes(trainer)
+    reduce_s = []
+    reduce = step_mod.all_reduce_grads
+
+    def timed(grads, extras, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(grads, extras, *a, **kw)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+        return out
+
+    step_mod.all_reduce_grads = timed
+    counters = train_counters(fa, mm)
+    for fn in counters.values():
+        fn.launches = 0
+    summary = trainer.train()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    bad = {k: v.detach().clone() for k, v in trainer.state.trainable.items()}
+    if rank == 1:
+        bad[sorted(bad)[0]].view(-1)[0] += 1e-3
+    planted_ok, planted_sums = check_param_sync(bad)
+    record = {"rank": rank, "losses": [h["loss"] for h in trainer.metrics.history],
+              "eval_loss": summary["final_eval_loss"], "launches": launches,
+              "moment_bytes": moment_bytes,
+              "sharded": sorted(trainer.shards.dims) if trainer.shards else [],
+              "sharded_bytes": sum(trainer.state.trainable[k].numel() * 4
+                                   for k in (trainer.shards.dims if trainer.shards else ())),
+              "desync_checks": trainer.desync.checks, "desync_sums": trainer.desync.last_checksums,
+              "planted_caught": not planted_ok, "planted_sums": planted_sums,
+              "allreduce_s": reduce_s, "step_s": trainer.throughput.step_s,
+              "n_val": trainer.n_val, "summary_world": summary["world_size"]}
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in trainer.state.trainable.items()},
+                   os.path.join(workdir, "rank0_trainable.pt"))
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    distributed.barrier(DEVICE)
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_gloo_phase(fa, mm):
+    """25b: two ranks on the one card over gloo (data=1, fsdp=2) at full
+    width and 4 layers in f32, 2 steps, against one process at world 1 with
+    the same global batch and peak lr, run here meanwhile: losses, leaves,
+    moment bytes, flash launches per rank, desync checks, a planted
+    divergence."""
+    import os
+    import shutil
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port
+    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    t0 = time.monotonic()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_gloo_")
+    try:
+        _data_rows(os.path.join(workdir, "data"), DP_ROWS)
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank-child",
+                                   str(rank), str(port), workdir], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for rank in range(2)]
+        try:
+            solo = SFTTrainer(dp_config(workdir, 4, output_dir=os.path.join(workdir, "solo_out")),
+                              model_config=dp_model_config(), device=DEVICE)
+            solo_moments = _moment_bytes(solo)
+            counters = train_counters(fa, mm)
+            for fn in counters.values():
+                fn.launches = 0
+            solo_summary = solo.train()
+            solo_launches = {name: fn.launches for name, fn in counters.items()}
+            outs = [p.communicate(timeout=DP_CHILD_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        failed = [f"rank {rank} exited {p.returncode}:\n{o[-1500:]}\n{e[-3000:]}"
+                  for rank, (p, (o, e)) in enumerate(zip(procs, outs)) if p.returncode]
+        check(not failed, "25b: " + "\n".join(failed))
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(workdir, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        leaves = torch.load(os.path.join(workdir, "rank0_trainable.pt"))
+        solo_losses = [h["loss"] for h in solo.metrics.history]
+        worst = 0.0
+        for k, v in solo.state.trainable.items():
+            want = v.detach()
+            err = float((leaves[k].to(want.device) - want).abs().max() / want.abs().max())
+            worst = max(worst, err)
+        del leaves
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    mc = dp_model_config()
+    accum, steps = 2, len(ranks[0]["step_s"])
+    eval_batches = -(-ranks[0]["n_val"] // (2 * 2))
+    expected = {"flash_fwd": mc.num_layers * accum * steps * 2 + mc.num_layers * eval_batches,
+                "flash_bwd_dq": mc.num_layers * accum * steps,
+                "flash_bwd_dkv": mc.num_layers * accum * steps, "w8a8_matmul": 0}
+    for r in ranks:
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], solo_losses)]
+        check(len(r["losses"]) == len(solo_losses) == 2 and max(rel) <= DP_LOSS_REL_TOL,
+              f"25b rank {r['rank']}: losses {r['losses']} vs world 1's {solo_losses}")
+        check(abs(r["eval_loss"] - solo_summary["final_eval_loss"])
+              <= DP_LOSS_REL_TOL * abs(solo_summary["final_eval_loss"]),
+              f"25b rank {r['rank']}: eval {r['eval_loss']} vs {solo_summary['final_eval_loss']}")
+        check(r["launches"] == expected, f"25b rank {r['rank']}: launches {r['launches']} != {expected}")
+        want = solo_moments[1] - r["sharded_bytes"]  # half of each sharded leaf's two moments
+        check(r["moment_bytes"][1] == want
+              and abs(r["moment_bytes"][0] - want) <= DP_MOMENT_ALLOC_REL_TOL * want,
+              f"25b rank {r['rank']}: moments {r['moment_bytes']} (memory_allocated, tensor bytes) "
+              f"vs world 1's {solo_moments} less half the sharded leaves' ({want})")
+        check(r["desync_checks"] == 1 + steps and len(set(r["desync_sums"])) == 1,
+              f"25b rank {r['rank']}: desync checks {r['desync_checks']}, {r['desync_sums']}")
+        check(r["planted_caught"], f"25b rank {r['rank']}: the planted divergence passed the check")
+        check(r["summary_world"] == 2, "25b: summary world size")
+    check(worst <= DP_LEAF_REL_TOL, f"25b: updated leaves differ by {worst:.2e} of their max")
+    record = {"losses_world2": ranks[0]["losses"], "losses_world1": solo_losses,
+              "eval_world2": ranks[0]["eval_loss"], "eval_world1": solo_summary["final_eval_loss"],
+              "leaf_rel_err_max": worst, "launches_per_rank": ranks[0]["launches"],
+              "launches_world1": solo_launches, "expected_launches_per_rank": expected,
+              "moment_bytes_per_rank": ranks[0]["moment_bytes"], "moment_bytes_world1": solo_moments,
+              "sharded_leaves": len(ranks[0]["sharded"]),
+              "gloo_allreduce_s": [r["allreduce_s"] for r in ranks],
+              "step_s": [r["step_s"] for r in ranks], "seconds": time.monotonic() - t0}
+    phase(25, f"25b: 2 ranks over gloo on one card (fsdp=2, {DP_LAYERS} layers, f32) vs world 1: "
+              f"losses {[round(x, 6) for x in ranks[0]['losses']]} vs "
+              f"{[round(x, 6) for x in solo_losses]}, eval {ranks[0]['eval_loss']:.6f} vs "
+              f"{solo_summary['final_eval_loss']:.6f}, leaves within {worst:.2e} of their max")
+    phase(25, f"25b: AdamW moments by memory_allocated {ranks[0]['moment_bytes'][0] / 1e9:.4f} GB "
+              f"per rank ({ranks[0]['moment_bytes'][1] / 1e9:.4f} GB of tensors) vs "
+              f"{solo_moments[0] / 1e9:.4f} GB ({solo_moments[1] / 1e9:.4f}) at world 1 "
+              f"({len(ranks[0]['sharded'])} leaves sharded); "
+              f"flash launches per rank {ranks[0]['launches']} = derived; {ranks[0]['desync_checks']} "
+              f"desync checks passed on each rank, the planted divergence failed on both")
+    phase(25, f"25b: gloo all-reduce through the host (a correctness phase's cost, not data "
+              f"parallelism's): {[[round(x, 2) for x in r['allreduce_s']] for r in ranks]} s per step; "
+              f"{record['seconds']:.1f} s in all")
+    return record
+
+
+def distributed_phase(fa, mm, trained):
+    """Phase 25: 25a over NCCL through the CLI, 25b over gloo."""
+    return {"a_cli_nccl": dp_cli_phase(trained), "b_gloo_two_ranks": dp_gloo_phase(fa, mm)}
+
+
+def distributed_only() -> int:
+    """Phase 25 alone: the flash kernels built, phase 8 trained (the record
+    25a compares with), then 25a-25b; a JSON summary is the last line."""
+    import shutil
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+    from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
+
+    t_start = time.monotonic()
+    phase(1, card_info())
+    _build.build_all(("flash_fwd", "flash_bwd"))
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_train_")
+    try:
+        trained, trainer = train_phase(fa, mm, workdir)
+        del trainer
+        gc_cuda()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    dp = distributed_phase(fa, mm, trained)
+    total_s = time.monotonic() - t_start
+    phase(25, f"total_s {total_s:.1f}")
+    keys = ("losses", "step_ms_median_steps_2_3", "samples_per_s_per_card", "train_peak_bytes",
+            "launches")
+    print(json.dumps({"distributed": dp, "train": {k: trained[k] for k in keys},
+                      "total_s": total_s}, default=str), flush=True)
+    return 0
+
+
 def deploy_only() -> int:
     """Phase 23 alone: the flash and paged decode kernels built, phase 8
     trained (its final checkpoint and publish), then 23a-23c; a JSON
@@ -6245,6 +6669,12 @@ def main(argv=()) -> int:
         return deploy_only()
     if argv == ["--recipes-only"]:
         return recipes_only()
+    if argv == ["--distributed-only"]:
+        return distributed_only()
+    if argv[:1] == ["--dp-cli-child"] and len(argv) == 3:
+        return dp_cli_child(argv[1], argv[2])
+    if argv[:1] == ["--dp-rank-child"] and len(argv) == 4:
+        return dp_rank_child(int(argv[1]), int(argv[2]), argv[3])
     if argv[:1] == ["--capture-check"] and len(argv) in (2, 3):
         return capture_check(int(argv[1]), int(argv[2]) if len(argv) == 3 else None)
     if argv[:1] == ["--serve-ab"] and len(argv) > 1:
@@ -6403,6 +6833,8 @@ def main(argv=()) -> int:
     gc_cuda()
     recipes = recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained,
                             asked["int8"]["memory_allocated_bytes"])
+    gc_cuda()
+    dp = distributed_phase(fa, mm, trained)
 
     live_rec = kernels["live"]
     paged = kernel_entry("paged_decode_attention",
@@ -6461,7 +6893,10 @@ def main(argv=()) -> int:
                                  + ("forward" if name == "flash_fwd" else "backward (dq, dk, dv)"),
                       # phase 24: packing, LoRA, QLoRA and DPO training
                       "launches_recipes_24": {k: recipes[k]["launches"][name]
-                                              for k in ("a_packing", "b_lora", "c_qlora", "d_dpo")}})
+                                              for k in ("a_packing", "b_lora", "c_qlora", "d_dpo")},
+                      # phase 25b: each of the two data-parallel ranks
+                      "launches_dp_25b_per_rank":
+                          dp["b_gloo_two_ranks"]["launches_per_rank"][name]})
         entries.append(entry)
     w8a8_entry = kernel_entry("w8a8_matmul", "llm_fine_tune_distributed_tpu_torch/csrc/w8a8_matmul.cu",
                               "llm_fine_tune_distributed_tpu/ops/int8_matmul.py:89",
@@ -6488,7 +6923,8 @@ def main(argv=()) -> int:
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "golden": golden, "overload": overload, "supervision": supervision,
                "observability": observability, "fleet": fleet, "adapters": adapters,
-               "deploy": deploy, "recipes": recipes, "total_s": time.monotonic() - t_start}
+               "deploy": deploy, "recipes": recipes, "distributed": dp,
+               "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -27,8 +27,10 @@ import torch
 
 @dataclass
 class MeshConfig:
-    """Device mesh axis sizes; -1 absorbs the remaining devices. The port
-    trains on one device, so every axis must resolve to 1."""
+    """Device mesh axis sizes over the ranks of the process group (one
+    device each); -1 absorbs the remaining ranks. ``data`` and ``fsdp`` split
+    the batch (``fsdp`` also shards the AdamW state, ``runtime/mesh.py``);
+    the other axes must resolve to 1."""
 
     data: int = 1
     fsdp: int = -1
@@ -166,6 +168,14 @@ class TrainConfig:
     publish_require_clean: bool = False
     anomaly_window_steps: int = 100
     anomaly_band_sigma: float = 6.0
+
+    # multi-process runs (runtime/desync.py): a cross-rank checksum of the
+    # trainable leaves every N steps (0 = off); the heartbeat failure
+    # detector is not ported (True raises)
+    heartbeat: bool = False
+    heartbeat_port: int = 23457
+    heartbeat_timeout_ms: int = 30000
+    desync_check_steps: int = 0
 
     # not ported: setting it raises
     train_port: Optional[int] = None

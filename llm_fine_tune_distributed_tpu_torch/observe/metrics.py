@@ -35,12 +35,17 @@ def inject_perplexity(logs: Dict[str, float]) -> Dict[str, float]:
 
 
 class MetricLogger:
-    def __init__(self):
+    def __init__(self, echo: bool = True):
+        """``echo``: print each record (rank 0 of a multi-process run only;
+        every rank keeps the history)."""
         self.history: List[Dict[str, float]] = []
+        self.echo = echo
 
     def log(self, step: int, epoch: float, logs: Dict[str, float]) -> None:
         record = {"step": step, "epoch": round(epoch, 4), **inject_perplexity(logs)}
         self.history.append(record)
+        if not self.echo:
+            return
         rendered = ", ".join(
             f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in record.items()
         )

@@ -14,16 +14,26 @@ matches the JAX package to f32 rounding:
 
 Only the trainable leaves are passed in, so frozen leaves get no state.
 Parameters are updated in place (no second copy of the f32 masters).
+
+Over an ``fsdp`` axis larger than 1 (``FsdpShards``, ZeRO-1) each rank
+holds the moments of its slice of every leaf that the sharding rules split
+(``parallel/sharding.fsdp_dim``), updates that slice of the master from the
+full, already reduced gradient, and the slices are all-gathered back into
+the whole f32 leaf (one flat all-gather per step over the fsdp group). The
+arithmetic is elementwise, so every element gets the bits a whole-leaf
+update gives it; only where the state lives differs.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
+from llm_fine_tune_distributed_tpu_torch.parallel.sharding import fsdp_dim
+from llm_fine_tune_distributed_tpu_torch.runtime.distributed import all_gather_flat
 
 Schedule = Callable[[int], float]
 
@@ -74,6 +84,55 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+class FsdpShards:
+    """Which dim of each trainable leaf the ``fsdp`` axis splits (absent:
+    whole), and this rank's slice of it: index ``index`` of ``count`` equal
+    slices; ``group`` is the fsdp group (None: the world)."""
+
+    def __init__(self, dims: Dict[str, int], index: int, count: int, group=None):
+        self.dims, self.index, self.count, self.group = dims, index, count, group
+
+    @classmethod
+    def from_mesh(cls, mesh, params: Dict[str, torch.Tensor]) -> Optional["FsdpShards"]:
+        """None when the mesh's fsdp axis is 1 or splits no leaf."""
+        dims = {k: d for k, v in params.items()
+                if (d := fsdp_dim(k, tuple(v.shape), mesh.shape)) is not None}
+        if not dims:
+            return None
+        return cls(dims, mesh.fsdp_index, mesh.shape["fsdp"], mesh.fsdp_group)
+
+    def slice(self, name: str, t: torch.Tensor, index: Optional[int] = None) -> torch.Tensor:
+        """A view of slice ``index`` (this rank's by default) of leaf
+        ``name``; the tensor itself for a whole leaf."""
+        d = self.dims.get(name)
+        if d is None:
+            return t
+        n = t.shape[d] // self.count
+        return t.narrow(d, (self.index if index is None else index) * n, n)
+
+    def gather_into(self, slices: Dict[str, torch.Tensor], out: Dict[str, torch.Tensor]) -> None:
+        """Every rank's ``slices`` (one per sharded leaf, in the same order
+        on every rank) copied into their places in the whole ``out`` leaves."""
+        names = list(slices)
+        per_rank = all_gather_flat([slices[k] for k in names], self.group, self.count)
+        for r, parts in enumerate(per_rank):
+            for k, part in zip(names, parts):
+                self.slice(k, out[k], r).copy_(part)
+
+    def full(self, slices: Dict[str, torch.Tensor], like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole leaves (shaped as ``like``'s) from every rank's slices; a
+        whole leaf passes as it is."""
+        out = {k: (torch.empty(like[k].shape, dtype=v.dtype, device=v.device)
+                   if k in self.dims else v) for k, v in slices.items()}
+        self.gather_into({k: v for k, v in slices.items() if k in self.dims}, out)
+        return out
+
+    def local(self, whole: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's slices (contiguous copies) of whole leaves."""
+        return {k: (self.slice(k, v).contiguous().clone() if k in self.dims else v)
+                for k, v in whole.items()}
+
+
 class AdamW:
     """optax ``chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
     eps, weight_decay))`` over a flat dict of f32 trainable leaves."""
@@ -85,18 +144,21 @@ class AdamW:
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
 
-    def init(self, params: Dict[str, torch.Tensor]) -> dict:
-        return {
-            "count": 0,
-            "mu": {k: torch.zeros_like(v, dtype=torch.float32) for k, v in params.items()},
-            "nu": {k: torch.zeros_like(v, dtype=torch.float32) for k, v in params.items()},
-        }
+    def init(self, params: Dict[str, torch.Tensor], shards: Optional[FsdpShards] = None) -> dict:
+        """Zero moments, over this rank's slice of each sharded leaf."""
+        def zeros(k, v):
+            shape = v.shape if shards is None else shards.slice(k, v).shape
+            return torch.zeros(shape, dtype=torch.float32, device=v.device)
+        return {"count": 0, "mu": {k: zeros(k, v) for k, v in params.items()},
+                "nu": {k: zeros(k, v) for k, v in params.items()}}
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-             state: dict) -> torch.Tensor:
-        """Update ``params`` and ``state`` in place from ``grads``; returns
-        the global norm of ``grads`` before clipping."""
+             state: dict, shards: Optional[FsdpShards] = None) -> torch.Tensor:
+        """Update ``params`` and ``state`` in place from ``grads`` (whole,
+        already reduced across ranks); returns the global norm of ``grads``
+        before clipping. With ``shards``, a sharded leaf's slice is updated
+        here and the slices are all-gathered into the whole leaf."""
         norm = global_norm(grads.values())
         max_norm = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
         # optax keeps g when norm < max_norm, else g / norm * max_norm
@@ -107,16 +169,24 @@ class AdamW:
         bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32, device=dev) ** t
         bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32, device=dev) ** t
         lr = torch.tensor(self.schedule(count), dtype=torch.float32, device=dev)
+        updated = {}
         for name, p in params.items():
-            g = grads[name].float()
+            g, w = grads[name].float(), p
+            if shards is not None:
+                g, w = shards.slice(name, g), shards.slice(name, p)
             g = torch.where(clipped, (g / norm) * max_norm, g)
             mu, nu = state["mu"][name], state["nu"][name]
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * g.square() + self.b2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_((-lr) * u)
+                u = u + self.weight_decay * w
+            if w is p:
+                p.add_((-lr) * u)
+            else:  # the same sum as add_, into a new slice
+                updated[name] = w + (-lr) * u
+        if updated:
+            shards.gather_into(updated, params)
         state["count"] = t
         return norm
 

@@ -1,0 +1,269 @@
+"""Multi-process bootstrap and the collectives of data-parallel training
+(counterpart of the JAX ``runtime/distributed.py``).
+
+The JAX package starts ``jax.distributed`` from the reference's env names;
+the port starts ``torch.distributed`` from the same names, the ones
+``torchrun`` and the Kubeflow PyTorchJob operator set: ``WORLD_SIZE``,
+``RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` and ``LOCAL_RANK``. One process
+drives one device.
+
+- ``WORLD_SIZE`` 1 (or unset) is a no-op, as in the JAX package, unless the
+  environment also names a rendezvous (``MASTER_ADDR``), as a launcher does:
+  then a group of one is made, so that a one-worker job issues the
+  collectives a larger one does.
+- The backend follows the device: NCCL for ``cuda``, gloo for ``cpu``. There
+  is no switch between them and no fallback from one to the other.
+- A group that already exists is left alone (the JAX code's "already
+  initialized"): a caller may make its own first, and the trainer uses it.
+
+The helpers below are what the trainer calls; each is a no-op without a
+process group, so a one-process run issues no collective.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+# a finite wait for a peer in any collective: a rank that skipped one fails
+# the others after this, instead of hanging them
+PROCESS_GROUP_TIMEOUT_S = 900.0
+# the gradient all-reduce's flat buffers (leaves at least this large are
+# reduced in place, each on its own)
+BUCKET_BYTES = 256 << 20
+
+
+@dataclass
+class RuntimeInfo:
+    process_index: int
+    process_count: int
+    local_device_count: int
+    global_device_count: int
+    platform: str
+    hostname: str
+
+    @property
+    def is_primary(self) -> bool:
+        return self.process_index == 0
+
+
+def backend_for(device) -> str:
+    """The collective backend of ``device``: NCCL for CUDA, gloo for the CPU."""
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return "nccl"
+    if kind == "cpu":
+        return "gloo"
+    raise ValueError(f"no collective backend for device {device!r}")
+
+
+def initialize_distributed(environ=None, device=None,
+                           timeout_s: float = PROCESS_GROUP_TIMEOUT_S) -> RuntimeInfo:
+    """Join the process group the environment describes (see the module
+    docstring); ``device`` is the device this process trains on (``None``:
+    CUDA), and picks the backend."""
+    env = os.environ if environ is None else environ
+    if is_distributed():
+        return runtime_info(device)
+    world = int(env.get("WORLD_SIZE", "1"))
+    if world > 1 or (world == 1 and env.get("MASTER_ADDR")):
+        rank = int(env.get("RANK", "0"))
+        local_rank = int(env.get("LOCAL_RANK", "0"))
+        addr = env.get("MASTER_ADDR", "localhost")
+        port = env.get("MASTER_PORT", "23456")
+        dev = torch.device("cuda" if device is None else device)
+        backend = backend_for(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_device(local_rank)
+        # env:// from the process's own env (torchrun's workers then join its
+        # agent's store), tcp:// from an explicit mapping
+        init = "env://" if environ is None else f"tcp://{addr}:{port}"
+        dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
+                                timeout=datetime.timedelta(seconds=timeout_s))
+    return runtime_info(device)
+
+
+def is_distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_index() -> int:
+    return dist.get_rank() if is_distributed() else 0
+
+
+def process_count() -> int:
+    return dist.get_world_size() if is_distributed() else 1
+
+
+def runtime_info(device=None) -> RuntimeInfo:
+    dev = torch.device("cuda" if device is None else device)
+    gpu = dev.type == "cuda" and torch.cuda.is_available()
+    return RuntimeInfo(
+        process_index=process_index(),
+        process_count=process_count(),
+        local_device_count=torch.cuda.device_count() if gpu else 1,
+        global_device_count=process_count(),  # one device per process
+        platform="gpu" if gpu else "cpu",
+        hostname=socket.gethostname(),
+    )
+
+
+def is_primary_host() -> bool:
+    """Rank 0: the one process that prints, writes the artifacts and
+    publishes (the reference's rank-0 gating)."""
+    return process_index() == 0
+
+
+def print0(*args, **kwargs) -> None:
+    """``print`` on rank 0 only."""
+    if is_primary_host():
+        print(*args, **kwargs)
+
+
+def device_preflight(device=None, verbose: bool = True) -> dict:
+    """The process's device and memory, printed on rank 0. Does not fail on
+    the CPU (the tests' target)."""
+    info = runtime_info(device)
+    report = {"platform": info.platform, "process": f"{info.process_index}/{info.process_count}",
+              "local_devices": info.local_device_count,
+              "global_devices": info.global_device_count}
+    if info.platform == "gpu":
+        free, total = torch.cuda.mem_get_info()
+        report["bytes_in_use"] = total - free
+        report["bytes_limit"] = total
+        report["device"] = torch.cuda.get_device_name()
+    if verbose:
+        print0(f"[runtime] {report}", flush=True)
+    return report
+
+
+# ------------------------------------------------------------- collectives
+
+
+def all_reduce_(t: torch.Tensor) -> torch.Tensor:
+    """In-place sum over the world; a no-op without a process group."""
+    if is_distributed():
+        dist.all_reduce(t)
+    return t
+
+
+def agree(flags: Sequence[bool], device, *, every: bool = False) -> List[bool]:
+    """Per-rank decisions made common: each flag is set on every rank if it
+    is set on any (``every=True``: only if it is set on all). One small
+    all-reduce; without a process group the flags come back as they are."""
+    if not is_distributed():
+        return [bool(f) for f in flags]
+    t = torch.tensor([(0 if f else 1) if every else (1 if f else 0) for f in flags],
+                     dtype=torch.int32, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [(v == 0) if every else (v == 1) for v in t.tolist()]
+
+
+def broadcast_int(value: Optional[int], device) -> Optional[int]:
+    """Rank 0's ``value`` (an int >= 0, or None) on every rank, by a MAX
+    all-reduce in which the other ranks put -1."""
+    if not is_distributed():
+        return value
+    mine = -1 if (value is None or not is_primary_host()) else int(value)
+    t = torch.tensor([mine], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    out = int(t.item())
+    return None if out < 0 else out
+
+
+def barrier(device) -> None:
+    """Every rank waits for the others (an all-reduce of one element, which
+    every backend takes on every device)."""
+    if is_distributed():
+        t = torch.zeros(1, dtype=torch.int32, device=device)
+        dist.all_reduce(t)
+        t.item()  # the host waits too, on every backend
+
+
+def all_reduce_grads(grads: List[torch.Tensor], extras: torch.Tensor,
+                     bucket_bytes: int = BUCKET_BYTES) -> torch.Tensor:
+    """Sum ``grads`` (f32, contiguous) across the world in place, and
+    ``extras`` (a small f32 vector: the step's loss and scalars) with them;
+    returns the summed ``extras``. Leaves of at least ``bucket_bytes`` are
+    reduced in place one by one; the others go, ``extras`` first, through
+    flat f32 buffers of about ``bucket_bytes``: a few calls per step, not
+    one per leaf."""
+    if not is_distributed():
+        return extras
+    small = [g for g in grads if g.numel() * 4 < bucket_bytes]
+    for g in grads:
+        if g.numel() * 4 >= bucket_bytes:
+            dist.all_reduce(g)
+    buckets: List[List[torch.Tensor]] = [[extras]]
+    size = extras.numel() * 4
+    for g in small:
+        if size + g.numel() * 4 > bucket_bytes:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(g)
+        size += g.numel() * 4
+    for bucket in buckets:
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat)
+        offset = 0
+        for t in bucket:
+            n = t.numel()
+            t.copy_(flat[offset: offset + n].view_as(t))
+            offset += n
+    return extras
+
+
+def all_gather_flat(parts: List[torch.Tensor], group, count: int) -> List[List[torch.Tensor]]:
+    """All-gather the tensors ``parts`` (equal shapes on every rank of
+    ``group``, which has ``count`` ranks) as one flat buffer; returns, per
+    rank of the group in order, that rank's tensors."""
+    if not parts:
+        return [[] for _ in range(count)]
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    out = [torch.empty_like(flat) for _ in range(count)]
+    dist.all_gather(out, flat, group=group)
+    gathered = []
+    for buf in out:
+        offset, mine = 0, []
+        for p in parts:
+            mine.append(buf[offset: offset + p.numel()].view(p.shape))
+            offset += p.numel()
+        gathered.append(mine)
+    return gathered
+
+
+def all_gather_tensor(t: torch.Tensor) -> torch.Tensor:
+    """``[world, *t.shape]``: every rank's ``t`` (``t[None]`` without a
+    process group)."""
+    if not is_distributed():
+        return t[None]
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t.contiguous())
+    return torch.stack(out)
+
+
+def free_port() -> int:
+    """A free TCP port on localhost (bind to port 0): a rendezvous port for
+    a launch on this machine."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rendezvous_env(rank: int, world: int, port: int, local_rank: Optional[int] = None) -> Dict[str, str]:
+    """The env a launcher gives rank ``rank`` of ``world`` on this machine."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(
+        rank if local_rank is None else local_rank), "MASTER_ADDR": "127.0.0.1",
+        "MASTER_PORT": str(port)}
+
+
+def destroy() -> None:
+    """Leave the process group (the end of a run)."""
+    if is_distributed():
+        dist.destroy_process_group()

@@ -20,6 +20,11 @@ port writes its own format, one directory per step under
 ``latest.json`` beside the step directories names the newest committed
 step, as in the JAX manager.
 
+Under data parallelism the trainer gathers the fsdp-sharded moments whole
+on every rank (on its own thread, before any snapshot) and rank 0 alone
+saves, so the files are a one-device checkpoint's; every rank restores the
+whole files and keeps its slices, so any world size resumes any other.
+
 Trainable-only payload (``trainable_only=True``): the frozen leaves are
 rebuilt from the base checkpoint or the init seed at resume, so only the
 trainable masters, the optimizer moments and the step are written, with a

@@ -13,6 +13,10 @@ optional label smoothing.
   ``torch.utils.checkpoint``, so the ``[2B, S, vocab]`` f32 logits never
   exist at once; ``loss_vocab_chunk`` is refused, as in the JAX package.
 - Accumulation is the SFT step's Python loop (``train/step.py``).
+- Under data parallelism the loader, the mesh and the collectives are the
+  SFT trainer's; the pair mean over the global microbatch is the mean of
+  the ranks' means (every rank holds as many pairs), and the eval's three
+  sums are all-reduced.
 
 Not here: the pipeline builders (``make_pipeline_dpo_loss_fn`` and its
 train and eval steps), which wait for pipeline parallelism.
@@ -21,7 +25,7 @@ train and eval steps), which wait for pipeline parallelism.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -40,8 +44,10 @@ from llm_fine_tune_distributed_tpu_torch.data.preference import (
 from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
 from llm_fine_tune_distributed_tpu_torch.models.transformer import forward, unembed
 from llm_fine_tune_distributed_tpu_torch.ops.attention import attention
-from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import AdamW
+from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import AdamW, FsdpShards
+from llm_fine_tune_distributed_tpu_torch.runtime.distributed import all_reduce_, print0
 from llm_fine_tune_distributed_tpu_torch.train.state import TrainState
+from llm_fine_tune_distributed_tpu_torch.train.step import reduced_step
 from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
 from llm_fine_tune_distributed_tpu_torch.utils.tree import merge_flat
 
@@ -150,12 +156,18 @@ def make_dpo_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
 
 
 def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
-                         optimizer: AdamW) -> Callable:
+                         optimizer: AdamW, data_parallel_size: int = 1,
+                         shards: Optional[FsdpShards] = None) -> Callable:
     """train_step(state, ref_trainable, batch) -> (state, {"loss",
     "grad_norm", "rewards_*"}), batch arrays ``[grad_accum, pairs, seq]``
-    on the device; the state is updated in place."""
+    on the device; the state is updated in place. Under data parallelism
+    every rank holds the same number of pairs, so the pair mean over the
+    global microbatch is the mean of the ranks' means: each rank's loss and
+    aux are divided by ``data_parallel_size`` and summed across ranks with
+    the gradients (``train/step.reduced_step``)."""
     loss_fn = make_dpo_loss_fn(model_config, train_config)
     accum = train_config.gradient_accumulation_steps
+    dp = data_parallel_size
 
     def train_step(state: TrainState, ref_trainable, batch: Dict[str, torch.Tensor]):
         params = state.trainable
@@ -166,16 +178,16 @@ def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
         for i in range(accum):
             loss, aux = loss_fn(params, ref_trainable, state.frozen,
                                 {k: v[i] for k, v in batch.items()})
+            if dp > 1:
+                loss = loss / dp
+                aux = {k: aux[k] / dp for k in AUX_KEYS}
             loss.backward()  # sums each leaf's gradient over the microbatches
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             aux_sum = {k: aux_sum[k] + aux[k].detach() for k in AUX_KEYS}
-        grads = {k: p.grad / accum for k, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        grad_norm = optimizer.step(params, grads, state.opt_state)
-        state.step += 1
-        return state, {"loss": loss_sum / accum, "grad_norm": grad_norm,
-                       **{k: v / accum for k, v in aux_sum.items()}}
+        scalars = torch.stack([loss_sum] + [aux_sum[k] for k in AUX_KEYS]).float()
+        grad_norm, scalars = reduced_step(params, state, optimizer, accum, scalars, shards)
+        return state, {"loss": scalars[0] / accum, "grad_norm": grad_norm,
+                       **{k: scalars[1 + i] / accum for i, k in enumerate(AUX_KEYS)}}
 
     return train_step
 
@@ -208,7 +220,7 @@ class DPOTrainer(SFTTrainer):
         path = os.path.join(cfg.data_dir, cfg.dataset_file)
         rows = load_rows(path)
         schema = preference_schema(rows)
-        print(f"Total preference dataset size: {len(rows):,} pairs ({schema})")
+        print0(f"Total preference dataset size: {len(rows):,} pairs ({schema})")
         train_rows, val_rows = train_validation_split(
             rows, test_size=cfg.validation_fraction, seed=cfg.split_seed)
         if schema == "qa":
@@ -222,11 +234,7 @@ class DPOTrainer(SFTTrainer):
                                              **prompt_kw)
         self.val_arrays = build_dpo_arrays(val_rows, self.tokenizer, cfg.max_seq_length,
                                            **prompt_kw)
-        self.loader = SFTBatchLoader(
-            self.train_arrays, per_device_batch_size=cfg.per_device_batch_size,
-            grad_accum_steps=cfg.gradient_accumulation_steps, seed=cfg.seed,
-            drop_last=cfg.drop_last,
-        )
+        self.loader = SFTBatchLoader(self.train_arrays, **self._loader_kwargs())
         self.steps_per_epoch = self.loader.steps_per_epoch
         self.total_steps = self.steps_per_epoch * cfg.epochs
 
@@ -238,8 +246,10 @@ class DPOTrainer(SFTTrainer):
                               for k, v in self.state.trainable.items()}
 
     def _prepare_steps(self) -> None:
-        step = build_dpo_train_step(self.model_config, self.config, self.optimizer)
-        self.train_step = lambda state, batch: step(state, self.ref_trainable, batch)
+        step = build_dpo_train_step(self.model_config, self.config, self.optimizer,
+                                    self.dp_size, self.shards)
+        # the pair mean needs no token counts (tokens is None)
+        self.train_step = lambda state, batch, tokens=None: step(state, self.ref_trainable, batch)
         self._dpo_eval = build_dpo_eval_step(self.model_config, self.config)
 
     def _tokens_per_sample(self) -> int:
@@ -249,31 +259,34 @@ class DPOTrainer(SFTTrainer):
     def _real_tokens(batch: Dict[str, np.ndarray]) -> int:
         return int(batch["chosen_attention_mask"].sum() + batch["rejected_attention_mask"].sum())
 
+    @staticmethod
+    def _loss_tokens(batch: Dict[str, np.ndarray]) -> None:
+        return None
+
     def evaluate(self) -> float:
         """The mean DPO loss over the validation pairs; the reward accuracy
-        goes to ``extra_eval_logs``. The last batch is wrap-padded, its pad
-        rows masked out by ``pair_mask``."""
+        goes to ``extra_eval_logs``. Each rank takes its rows of every
+        global eval batch (SFT's split); rows past the end wrap around to
+        the start of the split, masked out by ``pair_mask``."""
         self._last_eval_answer = None
-        bs = self.config.eval_batch_size or self.config.per_device_batch_size
+        bs, first, stride = self._eval_rows()
         n = self.val_arrays["chosen_input_ids"].shape[0]
         if n == 0:
             return float("nan")
         loss_sum = acc_sum = count = 0.0
-        for lo in range(0, n, bs):
-            batch = {k: v[lo: lo + bs] for k, v in self.val_arrays.items()}
-            real = batch["chosen_input_ids"].shape[0]
-            pair_mask = np.ones((real,), np.float32)
-            if real < bs:
-                pad = bs - real
-                batch = {k: np.concatenate([v, v[:pad] if pad <= real else
-                                            np.repeat(v, -(-pad // real), 0)[:pad]])
-                         for k, v in batch.items()}
-                pair_mask = np.concatenate([pair_mask, np.zeros((pad,), np.float32)])
+        for g in range(0, n, stride):
+            rows = np.arange(g + first, g + first + bs)
+            batch = {k: v[rows % n] for k, v in self.val_arrays.items()}
+            pair_mask = (rows < n).astype(np.float32)
             dev = self._device_batch({**batch, "pair_mask": pair_mask})
             l, a, c = self._dpo_eval(self.state, self.ref_trainable, dev)
             loss_sum += float(l)
             acc_sum += float(a)
             count += float(c)
+        if self.distributed:
+            sums = all_reduce_(torch.tensor([loss_sum, acc_sum, count], dtype=torch.float64,
+                                            device=self.device))
+            loss_sum, acc_sum, count = sums.tolist()
         count = max(count, 1.0)
         self.extra_eval_logs = {"eval_rewards_accuracy": acc_sum / count}
         return loss_sum / count

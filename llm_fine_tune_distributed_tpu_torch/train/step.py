@@ -5,11 +5,21 @@ PyTorch runs eagerly, so the JAX package's one jitted program per optimizer
 step becomes a Python loop: for each microbatch of the accumulation axis a
 forward and a backward (gradients summed in ``.grad``), then the mean of the
 microbatch means, the global norm before clipping, clip and AdamW.
+
+Under data parallelism (a process group; ``runtime/distributed.py``) the
+loss is the JAX one: the token mean over the *global* microbatch. Each rank
+divides its cross-entropy sum by the global microbatch's token count, which
+the trainer counts on the host from the global batch (no collective, no
+device sync), so the ranks' losses and gradients sum to the global mean's.
+After the accumulation loop one bucketed all-reduce sums the gradients and
+the loss across ranks (``all_reduce_grads``), and AdamW runs on the reduced
+gradients (over this rank's fsdp slices, ``parallel/optimizer.FsdpShards``).
+Without a process group the step issues no collective.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +29,8 @@ from llm_fine_tune_distributed_tpu_torch.models.configs import ModelConfig
 from llm_fine_tune_distributed_tpu_torch.models.transformer import forward
 from llm_fine_tune_distributed_tpu_torch.ops.attention import attention
 from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import int8_w8a8_matmul
-from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import AdamW
+from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import AdamW, FsdpShards
+from llm_fine_tune_distributed_tpu_torch.runtime.distributed import all_reduce_grads
 from llm_fine_tune_distributed_tpu_torch.train.state import TrainState
 from llm_fine_tune_distributed_tpu_torch.utils.tree import merge_flat
 
@@ -52,7 +63,9 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
     compute_dtype = str_to_dtype(train_config.compute_dtype)
     remat_policy = train_config.resolved_remat_policy(model_config)
 
-    def loss_fn(trainable, frozen, batch):
+    def loss_fn(trainable, frozen, batch, tokens=None):
+        """``tokens``: the denominator of the token mean (the global
+        microbatch's count under data parallelism); None: this batch's."""
         params = merge_flat(trainable, frozen)
         ids = batch["input_ids"]
         logits, _ = forward(
@@ -78,7 +91,8 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
         ce = F.cross_entropy(logits.reshape(b * s, vocab), targets.reshape(-1),
                              reduction="none").reshape(b, s)[:, :-1]
         mask = batch["loss_mask"][:, 1:].float()
-        tokens = mask.sum().clamp_min(1.0)
+        if tokens is None:
+            tokens = mask.sum().clamp_min(1.0)
         loss = (ce * mask).sum() / tokens
         if "completion_mask" in batch:
             amask = batch["completion_mask"][:, 1:].float()
@@ -88,30 +102,51 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
     return loss_fn
 
 
+def reduced_step(params: Dict[str, torch.Tensor], state: TrainState, optimizer: AdamW,
+                 accum: int, scalars: torch.Tensor, shards: Optional[FsdpShards] = None):
+    """The end of a step, after the accumulation loop: the gradients (and
+    ``scalars``, the loop's summed loss and aux, f32) summed across ranks by
+    one bucketed all-reduce, the mean over the microbatches, AdamW. Returns
+    (grad_norm, the summed ``scalars``)."""
+    grads = [p.grad for p in params.values()]
+    scalars = all_reduce_grads(grads, scalars)
+    # mean over accumulation steps (HF: the mean of the microbatch means)
+    grads = {k: p.grad / accum for k, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    grad_norm = optimizer.step(params, grads, state.opt_state, shards)
+    state.step += 1
+    return grad_norm, scalars
+
+
 def build_train_step(model_config: ModelConfig, train_config: TrainConfig,
-                     optimizer: AdamW, frozen_layers: int = 0) -> Callable:
-    """train_step(state, batch) -> (state, {"loss", "grad_norm"}), batch
-    arrays ``[grad_accum, batch, seq]`` on the device. Updates the state in
-    place and returns it."""
+                     optimizer: AdamW, frozen_layers: int = 0,
+                     shards: Optional[FsdpShards] = None) -> Callable:
+    """train_step(state, batch, tokens=None) -> (state, {"loss",
+    "grad_norm"}), batch arrays ``[grad_accum, batch, seq]`` on the device;
+    ``tokens`` (``[grad_accum]`` floats, under data parallelism) the global
+    microbatches' token counts. Updates the state in place and returns it."""
     loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers)
     accum = train_config.gradient_accumulation_steps
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], tokens=None):
         params = state.trainable
         for p in params.values():
             p.grad = None
         loss_sum = None
+        if tokens is not None:
+            # on the device, so each division is tensor by tensor as in the
+            # one-process loss (a host scalar divisor is taken as its
+            # reciprocal, another rounding)
+            tokens = torch.as_tensor(tokens, dtype=torch.float32).to(batch["input_ids"].device)
         for i in range(accum):
-            loss, _ = loss_fn(params, state.frozen, {k: v[i] for k, v in batch.items()})
+            loss, _ = loss_fn(params, state.frozen, {k: v[i] for k, v in batch.items()},
+                              None if tokens is None else tokens[i])
             loss.backward()  # sums each leaf's gradient over the microbatches
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        # mean over accumulation steps (HF: the mean of the microbatch means)
-        grads = {k: p.grad / accum for k, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        grad_norm = optimizer.step(params, grads, state.opt_state)
-        state.step += 1
-        return state, {"loss": loss_sum / accum, "grad_norm": grad_norm}
+        grad_norm, loss_sum = reduced_step(params, state, optimizer, accum,
+                                           loss_sum.float().reshape(1), shards)
+        return state, {"loss": loss_sum[0] / accum, "grad_norm": grad_norm}
 
     return train_step
 
@@ -120,13 +155,15 @@ def build_eval_step(model_config: ModelConfig, train_config: TrainConfig,
                     frozen_layers: int = 0) -> Callable:
     """eval_step(state, batch [b, s]) -> (ce_sum, tokens) or (ce_sum,
     tokens, answer_ce_sum, answer_tokens): sums, so the caller weighs the
-    eval loss by tokens over the whole validation set."""
+    eval loss by tokens over the whole validation set. ``tokens`` is the
+    batch's count as it is (0 for a batch of pad rows); the loss's floor of
+    one token per batch is the caller's to add, per global batch."""
     loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         out = loss_fn(state.trainable, state.frozen, batch)
         loss, tokens = out[0], out[1]
-        return (loss * tokens, tokens, *out[2:])
+        return (loss * tokens, batch["loss_mask"][:, 1:].float().sum(), *out[2:])
 
     return eval_step

@@ -1,5 +1,5 @@
-"""SFT trainer on one device (counterpart of the core of the JAX
-``train/trainer.py`` ``SFTTrainer``).
+"""SFT trainer on one device or data-parallel over processes (counterpart
+of the core of the JAX ``train/trainer.py`` ``SFTTrainer``).
 
 Same recipe and cadence: model init (seeded random) or a local HF
 checkpoint, the ``last_n_and_head`` freezing policy, the 90/10 split, ChatML
@@ -40,9 +40,26 @@ trains only them, ``"qlora"`` also stores the frozen block linears in NF4
 and both export ``adapter/`` (PEFT) beside the merged ``best_model/``;
 ``objective="dpo"`` is ``train/dpo.DPOTrainer``, a subclass.
 
+Data parallelism over processes (``runtime/distributed.py``,
+``runtime/mesh.py``), as the JAX trainer shards over its mesh's (data,
+fsdp) axes: each rank takes its columns of every global batch
+(``_loader_kwargs``), the loss is the token mean over the global
+microbatch, one bucketed all-reduce per step sums the gradients
+(``train/step.py``), and AdamW runs on each rank's fsdp slice of the
+trainable leaves (``parallel/optimizer.FsdpShards``). The eval is split
+over the ranks and its sums all-reduced. Rank 0 alone prints, writes the
+history, the checkpoints, ``best_model/`` and the summary, and publishes;
+the other ranks join the collectives (the moments' gathers) and wait at a
+barrier at the end. The per-rank decisions that change the sequence of
+collectives (preemption, the watchdog's abort, best-model selection, the
+anomaly gate of a publish) are agreed by every rank with one small
+all-reduce (``runtime/distributed.agree``); ``desync_check_steps`` checks
+that the replicas of the trainable leaves stay equal.
+
 Not ported, and refused by ``check_supported``: SFT's chunked losses,
-Adafactor/Lion, sequence parallelism, meshes of more than one device, the
-control plane's HTTP server (``train_port``) and the C++ loader. A
+Adafactor/Lion, sequence parallelism, the mesh axes other than data and
+fsdp, the heartbeat failure detector, the control plane's HTTP server
+(``train_port``) and the C++ loader. A
 checkpoint of the JAX trainer's pipeline layout (``@stacked`` leaves) is
 refused at resume: the cross-layout resume waits for pipeline parallelism.
 """
@@ -54,6 +71,7 @@ import json
 import os
 import signal
 import statistics
+import sys
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -96,11 +114,26 @@ from llm_fine_tune_distributed_tpu_torch.parallel.lora import (
     merge_lora,
     save_lora_adapter,
 )
-from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import build_optimizer
+from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import FsdpShards, build_optimizer
 from llm_fine_tune_distributed_tpu_torch.parallel.qlora import (
     dequantize_frozen,
     quantize_frozen,
     quantized_fraction,
+)
+from llm_fine_tune_distributed_tpu_torch.runtime.desync import DesyncMonitor
+from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
+    agree,
+    all_reduce_,
+    barrier,
+    broadcast_int,
+    is_distributed,
+    is_primary_host,
+    print0,
+)
+from llm_fine_tune_distributed_tpu_torch.runtime.mesh import (
+    data_parallel_size,
+    describe_mesh,
+    make_mesh,
 )
 from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
 from llm_fine_tune_distributed_tpu_torch.train.checkpoints import (
@@ -140,27 +173,23 @@ def check_supported(config: TrainConfig) -> None:
             config.attention_impl in ("ring", "ulysses"), "ops/attention.attention"),
         "train_port": (config.train_port is not None, "observe/trainplane.TrainControlPlane"),
         "use_native_loader=True": (config.use_native_loader, "data/native_loader.NativeBatchLoader"),
+        "heartbeat=True": (config.heartbeat, "runtime/failure.FailureDetector"),
     }
     for knob, (on, where) in unported.items():
         if on:
             raise NotImplementedError(
                 f"{knob} is not ported to the PyTorch trainer ({_JAX_TRAINER}: {where})"
             )
-    try:
-        config.mesh.axis_sizes(1)
-    except ValueError:
-        raise NotImplementedError(
-            f"mesh {config.mesh} spans more than one device; the PyTorch trainer runs on "
-            f"one device ({_JAX_TRAINER} shards over a JAX mesh)"
-        ) from None
 
 
 class _Throughput:
-    """Samples and real (non-pad) tokens per second per card over the run,
-    and the median step time (every step ends in a device synchronize)."""
+    """Samples and real (non-pad) tokens per second, over the run and per
+    card of the ``n_chips`` that share the global batch, and the median step
+    time (every step ends in a device synchronize)."""
 
-    def __init__(self, tokens_per_sample: int):
+    def __init__(self, tokens_per_sample: int, n_chips: int = 1):
         self.tokens_per_sample = tokens_per_sample
+        self.n_chips = n_chips
         self.t0 = time.perf_counter()
         self.samples = 0
         self.real_tokens = 0
@@ -176,13 +205,14 @@ class _Throughput:
     def snapshot(self) -> Dict[str, float]:
         dt = max(time.perf_counter() - self.t0, 1e-9)
         sps = self.samples / dt
+        per_chip = sps / self.n_chips
         out = {
             "samples_per_second": sps,
-            "samples_per_second_per_chip": sps,
+            "samples_per_second_per_chip": per_chip,
             "steps_per_second": len(self.step_s) / dt,
             "elapsed_seconds": dt,
-            "tokens_per_second_per_chip": sps * self.tokens_per_sample,
-            "real_tokens_per_second_per_chip": self.real_tokens / dt,
+            "tokens_per_second_per_chip": per_chip * self.tokens_per_sample,
+            "real_tokens_per_second_per_chip": self.real_tokens / dt / self.n_chips,
         }
         if self.step_s:
             out["step_seconds_median"] = statistics.median(self.step_s)
@@ -195,9 +225,15 @@ class SFTTrainer:
         check_supported(config)
         self.config = config
         self.device = resolve_device(device)
+        # the ranks of the process group as the JAX mesh's devices (one
+        # device per process); without a group, a mesh of one
+        self.mesh = make_mesh(config.mesh)
+        self.dp_size = data_parallel_size(self.mesh)
+        self.distributed = is_distributed()
+        self.primary = is_primary_host()
         self.model_config = model_config or self._resolve_model_config(config)
         self.tokenizer = tokenizer or load_tokenizer(config.tokenizer_path or config.model_name)
-        self.metrics = MetricLogger()
+        self.metrics = MetricLogger(echo=self.primary)
         self.watchdog: Optional[StepWatchdog] = None  # the last train()'s
         # set by SIGTERM or request_preemption(): checkpoint at the next step
         # boundary and return
@@ -214,20 +250,28 @@ class SFTTrainer:
         # export's decoding and merging of the weights
         self.quantize_seconds: Optional[float] = None
         self.export_merge_seconds: Optional[float] = None
+        # set by the watchdog's abort under data parallelism, for every rank
+        # to agree on at the next step boundary
+        self._watchdog_abort = threading.Event()
+        self._saved_step: Optional[int] = None  # the last step a save was issued for
         # the run's telemetry: lineage, the anomaly sentinels that gate a
         # publish, the flight recorder (fed at log/eval/save boundaries)
         hparams = {k: (v if isinstance(v, (int, float, str, bool, type(None))) else str(v))
                    for k, v in config.to_dict().items()}
         self.telemetry = TrainTelemetry(hparams=hparams, band_sigma=config.anomaly_band_sigma,
                                         anomaly_window_steps=config.anomaly_window_steps)
-        os.makedirs(os.path.join(config.output_dir, "best_model"), exist_ok=True)
+        if self.primary:
+            os.makedirs(os.path.join(config.output_dir, "best_model"), exist_ok=True)
+        if self.dp_size > 1:
+            print0(f"Data parallel: {describe_mesh(self.mesh)}, rank {self.mesh.rank}")
         self._prepare_data()
         self._prepare_state()
         self._prepare_steps()
 
     def _prepare_steps(self) -> None:
         self.train_step = build_train_step(self.model_config, self.config, self.optimizer,
-                                           frozen_layers=self.frozen_boundary)
+                                           frozen_layers=self.frozen_boundary,
+                                           shards=self.shards)
         self.eval_step = build_eval_step(self.model_config, self.config,
                                          frozen_layers=self.frozen_boundary)
 
@@ -255,15 +299,32 @@ class SFTTrainer:
             return {"system_prompt": self.config.system_prompt}
         return {}
 
+    def _process_batch_rows(self) -> tuple:
+        """(row_start, row_count): this rank's contiguous rows of each
+        microbatch's global batch, which is split over (data, fsdp) in rank
+        order, one device per rank."""
+        bs = self.config.per_device_batch_size
+        return self.mesh.batch_block * bs, bs
+
+    def _loader_kwargs(self) -> Dict[str, Any]:
+        """Batch-loader kwargs (shared SFT/DPO, so the sharding cannot drift)."""
+        cfg = self.config
+        row_start, row_count = self._process_batch_rows()
+        return dict(per_device_batch_size=cfg.per_device_batch_size,
+                    grad_accum_steps=cfg.gradient_accumulation_steps,
+                    data_parallel_size=self.dp_size, process_index=self.mesh.rank,
+                    process_count=self.mesh.size, seed=cfg.seed, drop_last=cfg.drop_last,
+                    row_start=row_start, row_count=row_count)
+
     def _prepare_data(self) -> None:
         cfg = self.config
         rows = load_qa_dataset(os.path.join(cfg.data_dir, cfg.dataset_file))
-        print(f"Total dataset size: {len(rows):,} Q&A pairs")
+        print0(f"Total dataset size: {len(rows):,} Q&A pairs")
         train_rows, val_rows = train_validation_split(
             rows, test_size=cfg.validation_fraction, seed=cfg.split_seed)
         self.n_train, self.n_val = len(train_rows), len(val_rows)
-        print(f"Training samples: {self.n_train:,}")
-        print(f"Validation samples: {self.n_val:,}")
+        print0(f"Training samples: {self.n_train:,}")
+        print0(f"Validation samples: {self.n_val:,}")
         prompt_kw = self._prompt_kwargs()
         build = build_packed_sft_arrays if cfg.packing else build_sft_arrays
         self.train_arrays = build(
@@ -274,14 +335,10 @@ class SFTTrainer:
             # the counts and the steps are in packed rows (TRL's accounting)
             self.n_train = self.train_arrays["input_ids"].shape[0]
             self.n_val = self.val_arrays["input_ids"].shape[0]
-            print(f"Packing: {len(train_rows):,} examples -> {self.n_train:,} rows "
-                  f"({100 * packing_efficiency(self.train_arrays):.1f}% token occupancy)")
+            print0(f"Packing: {len(train_rows):,} examples -> {self.n_train:,} rows "
+                   f"({100 * packing_efficiency(self.train_arrays):.1f}% token occupancy)")
         self._attach_completion_mask(val_rows, prompt_kw)
-        self.loader = SFTBatchLoader(
-            self.train_arrays, per_device_batch_size=cfg.per_device_batch_size,
-            grad_accum_steps=cfg.gradient_accumulation_steps, seed=cfg.seed,
-            drop_last=cfg.drop_last,
-        )
+        self.loader = SFTBatchLoader(self.train_arrays, **self._loader_kwargs())
         self.steps_per_epoch = self.loader.steps_per_epoch
         self.total_steps = self.steps_per_epoch * cfg.epochs
 
@@ -302,7 +359,7 @@ class SFTTrainer:
                 "— the mask pass must tokenize/pack identically to the eval pass")
         self.val_arrays["completion_mask"] = masked["loss_mask"]
         if masked["loss_mask"].sum() == 0:
-            print(
+            print0(
                 "WARNING: every validation completion was truncated away "
                 f"(max_seq_length={cfg.max_seq_length} too small for the prompt) — the model "
                 "will never train on answer tokens. Raise MAX_SEQ_LENGTH or shorten the "
@@ -315,10 +372,10 @@ class SFTTrainer:
         cfg, mc = self.config, self.model_config
         source = cfg.model_name
         if source and (os.path.isdir(source) or source.endswith(".safetensors")):
-            print(f"Loading model weights from: {source}")
+            print0(f"Loading model weights from: {source}")
             return load_hf_checkpoint(source, mc, dtype=torch.float32, device=self.device)
-        print(f"No local checkpoint at {source!r}; random-initializing {mc.name} "
-              f"({mc.num_params:,} params)")
+        print0(f"No local checkpoint at {source!r}; random-initializing {mc.name} "
+               f"({mc.num_params:,} params)")
         # QLoRA keeps the f32 init: NF4 quantizes from full precision
         init_dtype = torch.float32
         if cfg.freeze_strategy != "qlora" and (
@@ -342,8 +399,8 @@ class SFTTrainer:
         mask = trainable_mask(params, mc, cfg)
         self.trainable_report = describe_trainable(params, mask)
         r = self.trainable_report
-        print(f"Trainable: {r['trainable_parameters']:,}/{r['total_parameters']:,} "
-              f"({r['trainable_percent']}%)")
+        print0(f"Trainable: {r['trainable_parameters']:,}/{r['total_parameters']:,} "
+               f"({r['trainable_percent']}%)")
         trainable, frozen = split_by_mask(params, mask)
         del params
         # the frozen trunk: layers below the first trainable one, quantized
@@ -357,12 +414,12 @@ class SFTTrainer:
             frozen = quantize_frozen(frozen, cfg.quant_block_size, cfg.quant_double_quant)
             self._sync()
             self.quantize_seconds = time.perf_counter() - t0
-            print(f"QLoRA: {100 * quantized_fraction(frozen):.1f}% of frozen bytes in NF4 "
-                  f"(block {cfg.quant_block_size}, double_quant={cfg.quant_double_quant})")
+            print0(f"QLoRA: {100 * quantized_fraction(frozen):.1f}% of frozen bytes in NF4 "
+                   f"(block {cfg.quant_block_size}, double_quant={cfg.quant_double_quant})")
         if self.frozen_boundary > 0:
             frozen, n_quant = quantize_trunk_int8(frozen, self.frozen_boundary)
-            print(f"Frozen trunk: layers [0, {self.frozen_boundary}) run w8a8 int8 "
-                  f"({n_quant} projections quantized)")
+            print0(f"Frozen trunk: layers [0, {self.frozen_boundary}) run w8a8 int8 "
+                   f"({n_quant} projections quantized)")
         param_dtype = str_to_dtype(cfg.param_dtype)
         compute_dtype = str_to_dtype(cfg.compute_dtype)
         # masters: trainable in param_dtype (f32), frozen in compute_dtype;
@@ -373,10 +430,13 @@ class SFTTrainer:
                   if v.is_floating_point() and "absmax" not in k
                   and not k.endswith("_int8_scale") else v
                   for k, v in frozen.items()}
-        self.optimizer = build_optimizer(cfg, total_steps=self.total_steps)
+        self.optimizer = build_optimizer(cfg, total_steps=self.total_steps,
+                                         data_parallel_size=self.dp_size)
         self.lr_schedule = self.optimizer.schedule
+        # the fsdp axis's slices of the AdamW state (None: whole)
+        self.shards = FsdpShards.from_mesh(self.mesh, trainable)
         self.state = TrainState(step=0, trainable=trainable, frozen=frozen,
-                                opt_state=self.optimizer.init(trainable))
+                                opt_state=self.optimizer.init(trainable, self.shards))
 
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -400,24 +460,39 @@ class SFTTrainer:
             pad_block[:] = 1
         return np.concatenate([arr, pad_block])
 
+    def _eval_rows(self):
+        """(bs, first, stride): this rank's eval batches are rows [first +
+        i * stride, + bs) of the validation split: a global batch of bs per
+        data-parallel rank, split like a training batch."""
+        bs = self.config.eval_batch_size or self.config.per_device_batch_size
+        return bs, self.mesh.batch_block * bs, bs * self.dp_size
+
     def evaluate(self) -> float:
         """Token-weighted eval loss over the validation split; the
         answer-only loss of the same forward is kept on
-        ``self._last_eval_answer``."""
-        cfg = self.config
-        bs = cfg.eval_batch_size or cfg.per_device_batch_size
+        ``self._last_eval_answer``. Under data parallelism each rank runs
+        its share of the batches and the sums are all-reduced, so the loss
+        is the one-device value (to the order of the sums)."""
+        bs, first, stride = self._eval_rows()
         n = self.val_arrays["input_ids"].shape[0]
         self._last_eval_answer = None
         if n == 0:
             return float("nan")
         sums = None
-        for lo in range(0, n, bs):
+        for g in range(0, n, stride):  # every rank runs as many batches
+            lo = g + first
             batch = {k: v[lo:lo + bs] for k, v in self.val_arrays.items() if k != "lengths"}
             short = bs - batch["input_ids"].shape[0]
             batch = {k: self._pad_eval_rows(k, v, short) for k, v in batch.items()}
             out = self.eval_step(self.state, self._device_batch(batch))
             sums = list(out) if sums is None else [a + b for a, b in zip(sums, out)]
+        if self.distributed:
+            sums = all_reduce_(torch.stack([x.float() for x in sums])).unbind()
         sums = [float(x) for x in sums]
+        # the loss's floor of one token, per global batch (the JAX eval's
+        # batches): one for each global batch without a loss token
+        mask = self.val_arrays["loss_mask"][:, 1:]
+        sums[1] += sum(int(mask[g:g + stride].sum() == 0) for g in range(0, n, stride))
         if len(sums) == 4 and sums[3] > 0:
             self._last_eval_answer = sums[2] / sums[3]
         return sums[0] / max(sums[1], 1.0)
@@ -446,7 +521,7 @@ class SFTTrainer:
                 "fresh metric — align the cadences or use best_model_tracking='per_eval'")
         if (mode == "checkpoint" and cfg.load_best_model_at_end and cfg.save_steps
                 and cfg.save_steps > self.total_steps):
-            print(
+            print0(
                 f"WARNING: best_model_tracking='checkpoint' with save_steps={cfg.save_steps} > "
                 f"total_steps={self.total_steps}: only the end-of-training checkpoint will "
                 "exist, so load_best_model_at_end degrades to final-weights-only — lower "
@@ -462,6 +537,12 @@ class SFTTrainer:
     def _real_tokens(batch: Dict[str, np.ndarray]) -> int:
         """Real (non-pad) tokens of a host batch."""
         return int(batch["attention_mask"].sum())
+
+    @staticmethod
+    def _loss_tokens(batch: Dict[str, np.ndarray]) -> Optional[np.ndarray]:
+        """``[accum]`` token counts of a global batch's microbatches, the
+        denominators of the loss's token mean under data parallelism."""
+        return np.maximum(batch["loss_mask"][:, :, 1:].sum(axis=(1, 2)), 1).astype(np.float32)
 
     def _better(self, a: float, b: float) -> bool:
         return a > b if self.config.greater_is_better else a < b
@@ -479,34 +560,73 @@ class SFTTrainer:
     def _metric(self, last_eval: Optional[float]) -> Optional[Dict[str, float]]:
         return {self.config.metric_for_best_model: last_eval} if last_eval is not None else None
 
+    def _full_opt_state(self) -> dict:
+        """The AdamW state with every sharded moment gathered whole over the
+        fsdp axis (a collective: every rank calls it), the layout of a
+        one-device run."""
+        opt = self.state.opt_state
+        if self.shards is None:
+            return opt
+        like = self.state.trainable
+        return {"count": opt["count"], "mu": self.shards.full(opt["mu"], like),
+                "nu": self.shards.full(opt["nu"], like)}
+
+    def _restore(self, ckpt: CheckpointManager, step: int, **kw) -> TrainState:
+        """``ckpt.restore`` on every rank: the whole files read, each rank
+        keeps its fsdp slices of the moments. So a checkpoint of any world
+        size resumes at any other."""
+        like = self.state
+        if self.shards is not None:
+            whole = {k: torch.empty(v.shape, dtype=torch.float32, device=v.device)
+                     if k in self.shards.dims else self.state.opt_state["mu"][k]
+                     for k, v in self.state.trainable.items()}
+            like = TrainState(step=like.step, trainable=like.trainable, frozen=like.frozen,
+                              opt_state={"count": like.opt_state["count"], "mu": whole, "nu": whole})
+        restored = ckpt.restore(step, like, **kw)
+        if self.shards is not None:
+            restored.opt_state = {"count": restored.opt_state["count"],
+                                  "mu": self.shards.local(restored.opt_state["mu"]),
+                                  "nu": self.shards.local(restored.opt_state["nu"])}
+        return restored
+
     def _ckpt_save(self, ckpt: CheckpointManager, step: int, metrics) -> None:
         """Save ``step`` (trainable-only with the frozen fingerprint when so
         configured, as a background snapshot when so configured), then
-        publish it."""
+        publish it. Every rank gathers the moments; rank 0 writes and
+        publishes. The gathers run here, on the calling thread: the
+        snapshot's writer thread issues no collective."""
+        state = self.state
+        if self.shards is not None:
+            state = TrainState(step=state.step, trainable=state.trainable, frozen=state.frozen,
+                               opt_state=self._full_opt_state())
+        # the anomaly gate of the publish, common to every rank
+        clean = agree([self.telemetry.publish_clean(step)], self.device, every=True)[0]
+        self._saved_step = step
+        if not self.primary:
+            return
         fp = None
         if ckpt.trainable_only or self.config.publish_dir:
             if self._frozen_fp is None:  # the frozen leaves never change
                 self._frozen_fp = frozen_fingerprint(self.state.frozen)
             fp = self._frozen_fp
-        ckpt.save(step, self.state, metrics=metrics,
+        ckpt.save(step, state, metrics=metrics,
                   fingerprint=fp if ckpt.trainable_only else None,
                   snapshot_async=self.config.checkpoint_async_snapshot)
-        self._publish(step, fp, metrics)
+        self._publish(step, fp, metrics, clean)
 
-    def _publish(self, step: int, fp, metrics) -> None:
+    def _publish(self, step: int, fp, metrics, clean: bool) -> None:
         """Drop the trainable weights and a manifest into ``publish_dir``
-        for a serving engine to hot-swap (one process, so it is process 0).
-        A publish whose trailing anomaly window is dirty is stamped so, or
+        for a serving engine to hot-swap (rank 0 only). A publish whose
+        trailing anomaly window is dirty (``clean`` False) is stamped so, or
         skipped under ``publish_require_clean``. A failure here is logged,
         never fatal: deployment lag must not kill the fine-tune."""
         cfg = self.config
-        if not cfg.publish_dir:
+        if not cfg.publish_dir or not self.primary:
             return
-        clean = self.telemetry.publish_clean(step)
         if not clean and cfg.publish_require_clean:
             self.telemetry.note_publish(step, clean=False, skipped=True)
-            print(f"[train] skipping publish for step {step}: anomaly window dirty and "
-                  "publish_require_clean is set", flush=True)
+            print0(f"[train] skipping publish for step {step}: anomaly window dirty and "
+                   "publish_require_clean is set", flush=True)
             return
         try:
             if self._publisher is None:
@@ -525,7 +645,7 @@ class SFTTrainer:
             self.telemetry.note_publish(step, clean=clean,
                                         fingerprint=manifest["weight_fingerprint"])
         except Exception as e:  # noqa: BLE001 — an advisory side channel
-            print(f"[train] checkpoint publish for step {step} failed: {e}", flush=True)
+            print0(f"[train] checkpoint publish for step {step} failed: {e}", flush=True)
 
     def _resume(self, ckpt: CheckpointManager) -> int:
         """Restore ``resume_from_checkpoint`` ("latest", or a step) into the
@@ -535,27 +655,27 @@ class SFTTrainer:
         target = str(self.config.resume_from_checkpoint)
         step = ckpt.latest_step if target in ("latest", "true", "1") else int(target)
         if step is None:
-            print("No checkpoint found to resume from; starting fresh")
+            print0("No checkpoint found to resume from; starting fresh")
             return 0
         lean = ckpt.trainable_only
         try:
-            self.state = ckpt.restore(step, self.state)
+            self.state = self._restore(ckpt, step)
         except (FingerprintMismatch, NotImplementedError):
             raise  # a wrong base or a pipeline layout: the other mode would not help
         except Exception as e:
             try:
-                self.state = ckpt.restore(step, self.state, trainable_only=not lean)
+                self.state = self._restore(ckpt, step, trainable_only=not lean)
             except FingerprintMismatch:
                 raise
             except Exception as e2:
                 raise RuntimeError(
                     f"failed to restore checkpoint step {step} in either payload mode "
                     f"({'trainable-only' if lean else 'full'}: {e}; the other: {e2})") from e2
-            print(f"Resumed {'FULL' if lean else 'trainable-only'} checkpoint step {step} into a "
-                  f"{'trainable-only' if lean else 'full-checkpoint'} run"
-                  + ("" if lean else " (frozen params re-derived and fingerprint-verified)"))
+            print0(f"Resumed {'FULL' if lean else 'trainable-only'} checkpoint step {step} into a "
+                   f"{'trainable-only' if lean else 'full-checkpoint'} run"
+                   + ("" if lean else " (frozen params re-derived and fingerprint-verified)"))
         self.telemetry.note_restore(self.state.step)
-        print(f"Resumed from checkpoint step {self.state.step}")
+        print0(f"Resumed from checkpoint step {self.state.step}")
         return self.state.step
 
     def request_preemption(self) -> None:
@@ -583,10 +703,38 @@ class SFTTrainer:
 
     # ------------------------------------------------------------------ train
 
+    def _on_watchdog_abort(self) -> None:
+        """The watchdog's abort under data parallelism: flag it for every
+        rank to agree on at the next step boundary, and end this process
+        after one more timeout if that boundary never comes (a wedged
+        device)."""
+        self._watchdog_abort.set()
+        timer = threading.Timer(self.config.watchdog_timeout_s, os._exit, args=(42,))
+        timer.daemon = True
+        timer.start()
+
+    def _step_boundary(self, step: int) -> bool:
+        """The decisions every rank takes together after each step (one
+        small all-reduce under data parallelism): an abort of the watchdog
+        on any rank ends every rank (exit 42, for the job manager to restart
+        the job); a preemption on any rank stops every rank here. Returns
+        whether to stop."""
+        preempt, abort = agree([self._preempt.is_set(), self._watchdog_abort.is_set()],
+                               self.device)
+        if abort:
+            print(f"[watchdog] rank {self.mesh.rank}: abort agreed at step {step}; exiting for a "
+                  "restart", file=sys.stderr, flush=True)
+            sys.stdout.flush()
+            os._exit(42)
+        if preempt and not self._preempt.is_set():
+            self.request_preemption()  # another rank's SIGTERM
+        return preempt
+
     def train(self) -> Dict[str, Any]:
         cfg = self.config
         ckpt = self._checkpoint_manager()
         resumed_step = self._resume(ckpt) if cfg.resume_from_checkpoint else 0
+        self._saved_step = resumed_step if resumed_step else None
         # a mid-epoch resume skips the batches its epoch already consumed
         # (the loader's epochs are deterministic), so no row trains twice
         start_epoch = resumed_step // self.steps_per_epoch
@@ -597,42 +745,58 @@ class SFTTrainer:
         last_eval: Optional[float] = None
         final_loss = None
         preempted = False
-        samples_per_step = cfg.per_device_batch_size * cfg.gradient_accumulation_steps
-        print(f"Starting {cfg.objective.upper()}: {cfg.epochs} epochs x {self.steps_per_epoch} "
-              f"steps, effective batch {samples_per_step}, device {self.device}")
+        samples_per_step = cfg.per_device_batch_size * cfg.gradient_accumulation_steps * self.dp_size
+        print0(f"Starting {cfg.objective.upper()}: {cfg.epochs} epochs x {self.steps_per_epoch} "
+               f"steps, effective batch {samples_per_step}, device {self.device}"
+               + (f", {describe_mesh(self.mesh)}" if self.distributed else ""))
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
-        meter = self.throughput = _Throughput(self._tokens_per_sample())
+        meter = self.throughput = _Throughput(self._tokens_per_sample(), self.mesh.size)
         # the wedged-device detector (runtime/watchdog.py), armed by the
         # first step's poke so that the first step's kernel builds cannot
-        # trip it
+        # trip it; under data parallelism an abort is agreed by every rank
+        on_trip = (self._on_watchdog_abort
+                   if self.distributed and cfg.watchdog_action == "abort" else None)
         watchdog = self.watchdog = (
-            StepWatchdog(cfg.watchdog_timeout_s, cfg.watchdog_action, start_paused=True)
+            StepWatchdog(cfg.watchdog_timeout_s, cfg.watchdog_action, on_trip=on_trip,
+                         start_paused=True)
             if cfg.watchdog_timeout_s > 0 else None)
+        # replicas that should be equal, checked every desync_check_steps
+        # (and once before the first step)
+        desync = self.desync = DesyncMonitor(cfg.desync_check_steps)
+        if self.distributed:
+            desync.maybe_check(resumed_step, self.state.trainable)
         prev_sigterm = self._install_sigterm()
         self.telemetry.update(total_steps=self.total_steps, epochs=cfg.epochs,
                               step=resumed_step, state="training")
         t_start = time.perf_counter()
         step = self.state.step
+        history_path = os.path.join(cfg.output_dir, "training_history.json")
         try:
             for epoch in range(start_epoch, cfg.epochs):
-                batches = self.loader.epoch(epoch)
+                batches = self.loader.global_epoch(epoch)
                 if epoch == start_epoch and skip_batches:
                     batches = itertools.islice(batches, skip_batches, None)
-                for batch in batches:
-                    dev_batch = self._device_batch(batch)
+                for full in batches:
+                    # this rank's columns; the global microbatches' token
+                    # counts are the loss's denominators under data parallelism
+                    dev_batch = self._device_batch(self.loader.local_rows(full))
+                    tokens = self._loss_tokens(full) if self.distributed else None
+                    args = (self.state, dev_batch) + (() if tokens is None else (tokens,))
                     t_step = time.perf_counter()
-                    self.state, metrics = self.train_step(self.state, dev_batch)
+                    self.state, metrics = self.train_step(*args)
                     self._sync()
                     step += 1
-                    meter.update(samples_per_step, self._real_tokens(batch),
+                    meter.update(samples_per_step, self._real_tokens(full),
                                  time.perf_counter() - t_step)
                     if watchdog is not None:
                         watchdog.poke(step)
-                    if self._preempt.is_set():
+                    if self._step_boundary(step):
                         # stop here, where (params, moments, step) agree
                         preempted = True
                         break
+                    if self.distributed:
+                        desync.maybe_check(step, self.state.trainable)
                     do_log = ((cfg.logging_first_step and step == 1)
                               or (cfg.logging_steps and step % cfg.logging_steps == 0))
                     do_eval = bool(cfg.eval_steps) and step % cfg.eval_steps == 0 and self.n_val > 0
@@ -643,7 +807,7 @@ class SFTTrainer:
                             # step's poke re-arms
                             watchdog.pause()
                         last_eval = self.evaluate()
-                        if self._better(last_eval, best_eval):
+                        if agree([self._better(last_eval, best_eval)], self.device)[0]:
                             best_eval = last_eval
                             if cfg.load_best_model_at_end and best_mode == "per_eval":
                                 best_trainable = {k: v.detach().clone()
@@ -675,9 +839,9 @@ class SFTTrainer:
                         t_ckpt = time.perf_counter()
                         self._ckpt_save(ckpt, step, self._metric(last_eval))
                         self.telemetry.note_checkpoint(step, time.perf_counter() - t_ckpt)
-                    if do_eval or do_save:
+                    if (do_eval or do_save) and self.primary:
                         # crash-safe history at every eval/checkpoint boundary
-                        self.metrics.save_history(os.path.join(cfg.output_dir, "training_history.json"))
+                        self.metrics.save_history(history_path)
                 if preempted:
                     break
         finally:
@@ -690,14 +854,16 @@ class SFTTrainer:
         if preempted:
             # the emergency checkpoint, then out: the restarted run resumes
             # from here and finishes the eval, the best model and the export
-            if ckpt.latest_step != step:
+            if self._saved_step != step:
                 self._ckpt_save(ckpt, step, self._metric(last_eval))
             ckpt.close()
-            print(f"[train] preempted at step {step}: emergency checkpoint saved; exiting "
-                  "cleanly for restart+resume", flush=True)
+            print0(f"[train] preempted at step {step}: emergency checkpoint saved; exiting "
+                   "cleanly for restart+resume", flush=True)
             self.telemetry.update(state="preempted", step=step)
             self.telemetry.recorder.record("emergency_checkpoint", step=step)
-            self.metrics.save_history(os.path.join(cfg.output_dir, "training_history.json"))
+            if self.primary:
+                self.metrics.save_history(history_path)
+            barrier(self.device)
             return {"preempted": True, "step": step, "final_train_loss": final_loss,
                     "final_eval_loss": last_eval,
                     "wall_clock_seconds": time.perf_counter() - t_start}
@@ -708,7 +874,8 @@ class SFTTrainer:
                             and cfg.eval_steps and step % cfg.eval_steps != 0)
         if (last_eval is None or final_eval_stale) and self.n_val > 0:
             last_eval = self.evaluate()
-            if cfg.load_best_model_at_end and self._better(last_eval, best_eval):
+            if cfg.load_best_model_at_end and agree([self._better(last_eval, best_eval)],
+                                                    self.device)[0]:
                 best_eval = last_eval
                 best_trainable = None  # the current weights are the best
         self._ckpt_save(ckpt, step, self._metric(last_eval))
@@ -718,28 +885,30 @@ class SFTTrainer:
                 for k, v in self.state.trainable.items():
                     v.copy_(best_trainable[k])
         elif cfg.load_best_model_at_end and best_mode == "checkpoint":
-            # the best saved checkpoint, read back only when it is not the
-            # final step's
-            bstep = ckpt.best_step
+            # the best saved checkpoint (rank 0's pick, once its saves are
+            # written), read back only when it is not the final step's
+            bstep = broadcast_int(ckpt.best_step if self.primary else None, self.device)
             if bstep is not None and bstep != step:
-                best = ckpt.restore(bstep, self.state)
+                best = self._restore(ckpt, bstep)
                 with torch.no_grad():
                     for k, v in self.state.trainable.items():
                         v.copy_(best.trainable[k])
-                print(f"Restored best checkpoint step {bstep} ({cfg.metric_for_best_model} "
-                      "tracking, best_model_tracking=checkpoint)")
+                print0(f"Restored best checkpoint step {bstep} ({cfg.metric_for_best_model} "
+                       "tracking, best_model_tracking=checkpoint)")
         ckpt.close()
         self.last_checkpoint = ckpt.last_save
         self._sync()
         wall = time.perf_counter() - t_start
         self.telemetry.update(state="completed", step=step)
-        return self._save_artifacts(final_loss, last_eval, wall, meter.snapshot())
+        summary = self._save_artifacts(final_loss, last_eval, wall, meter.snapshot())
+        barrier(self.device)  # every rank returns once rank 0 has written
+        return summary
 
     def _save_artifacts(self, final_loss, eval_loss, wall_seconds: float,
                         throughput: Dict[str, float]) -> Dict[str, Any]:
         """``best_model/`` (bf16 safetensors, tokenizer, config.json),
         ``training_history.json`` and ``training_summary.json`` with the
-        reference keys."""
+        reference keys, written by rank 0; every rank returns the summary."""
         cfg = self.config
         summary = {
             "model_name": cfg.model_name,
@@ -752,9 +921,10 @@ class SFTTrainer:
             "training_samples": self.n_train,
             "validation_samples": self.n_val,
             "final_train_loss": final_loss,
-            "world_size": 1,
-            "distributed_training": False,
+            "world_size": self.dp_size,
+            "distributed_training": self.dp_size > 1,
             "final_eval_loss": eval_loss,
+            "mesh": dict(self.mesh.shape),
             "wall_clock_seconds": round(wall_seconds, 2),
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu"),
@@ -762,6 +932,8 @@ class SFTTrainer:
         }
         if self.device.type == "cuda":
             summary["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
+        if not self.primary:
+            return summary
         best_dir = os.path.join(cfg.output_dir, "best_model")
         params = {k: v.detach() for k, v in merge_flat(self.state.trainable, self.state.frozen).items()}
         lora = cfg.freeze_strategy in ("lora", "qlora")
@@ -786,7 +958,7 @@ class SFTTrainer:
             self.tokenizer.save_pretrained(best_dir)
         with open(os.path.join(best_dir, "config.json"), "w") as f:
             json.dump(to_hf_dict(self.model_config), f, indent=2)
-        print(f"Best model saved to {best_dir}")
+        print0(f"Best model saved to {best_dir}")
         self.metrics.save_history(os.path.join(cfg.output_dir, "training_history.json"))
         with open(os.path.join(cfg.output_dir, "training_summary.json"), "w") as f:
             json.dump(summary, f, indent=2)

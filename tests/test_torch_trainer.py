@@ -164,7 +164,7 @@ UNPORTED = {
     "lion": dict(optimizer="lion"),
     "ring": dict(attention_impl="ring"),
     "ulysses": dict(attention_impl="ulysses"),
-    "mesh": dict(mesh=MeshConfig(data=2, fsdp=1)),
+    "mesh": dict(mesh=MeshConfig(data=1, fsdp=1, tensor=2)),
     "train_port": dict(train_port=0),
     "native_loader": dict(use_native_loader=True),
     "remat_mlp": dict(remat_policy="mlp"),
