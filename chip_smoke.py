@@ -251,9 +251,10 @@ and stops with a non-zero exit at the first failure:
    ``eval_rewards_accuracy``, launches 3 x 36 forwards per microbatch (the
    policy, its replay, the reference); (e) ``ask --quantize nf4`` on 24b's
    ``best_model/`` (load seconds, weight bytes below phase 14's int8), and a
-   paged int8 server over phase 4's weights in NF4 on phase 4's traffic,
-   tokens held by the margin rule to the same weights dequantized to bf16,
-   paged decode launches 36 x decode steps; the engine's own path (the
+   paged int8 server over phase 4's weights in NF4, cut to their first 4
+   layers (``NF4_SERVE_LAYERS``), on phase 4's traffic, tokens held by the
+   margin rule to the same weights dequantized to bf16, paged decode
+   launches 4 x decode steps; the engine's own path (the
    prefill and one paged step of the 4 prompts) within the int8 floor +
    twice the bf16 rounding of the f32 forward over the dequantized weights,
    and the same path with the nibbles swapped in pairs or each block's
@@ -275,6 +276,34 @@ and stops with a non-zero exit at the first failure:
    check passed and a divergence planted on rank 1 caught on both ranks.
    Gloo's all-reduce goes through the host: its seconds are printed as the
    cost of a correctness phase, not of data parallelism.
+26. (started right after phase 4, checked right after phase 15, on phase
+   4's weights) tensor-parallel serving: phase 4's weights written as a
+   checkpoint with the port's codec and both jobs started (they load while
+   phase 15 runs; each one's traffic runs while the other waits, its four
+   concurrent requests started in phase 4's admission order 50 ms apart),
+   then (a) ``llm_fine_tune_distributed_tpu_torch.infer.server``'s ``main`` with
+   ``--tp 1 --engine paged --quantize-kv int8`` at phase 4's geometry in a
+   process of its own under a PyTorchJob's env for one worker, so the
+   forward issues its collectives over NCCL at world 1: phase 4's traffic,
+   its tokens bit for bit phase 4's (by the margin rule if its requests
+   were admitted in another order), the tick and tokens/s beside phase 4's,
+   paged decode launches 36 x decode steps, 74 collectives per decode step
+   and their ms per step by CUDA events; (b) ``--tp 2`` in two ranks on the
+   one card over gloo (a group the ranks make first, which the server takes
+   as it is), bf16, phase 4's traffic: rank 0 serves, rank 1 follows;
+   tokens held to the solo runs by phase 15's margin rule plus twice the
+   int8 pool's logit error (an all-reduce changes the summation order),
+   rank 1's tokens equal to rank 0's, each rank's weights
+   (``memory_allocated``) half the matrices plus the whole norms, its pool
+   exactly half 26a's, launches 36 x decode steps on each rank, then a
+   fault planted in rank 1: it exits non-zero and rank 0's ``/healthz``
+   answers 503; before the server, the two ranks hold the logits of a
+   prefill and one paged int8 step of a 4-layer f32 model at full width to
+   one process's within ``TP_F32_LOGIT_REL_TOL``; (c) here, the paged decode
+   kernel against its plain version at the ranks' local head shapes (tp 2:
+   8 query heads over 2 kv heads; tp 4: 4 over 1), timed at tp 2's live
+   shape beside the bound. Gloo's collectives go through the host: 26b's
+   tick is a correctness phase's, never a cost of tensor parallelism.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
 kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
@@ -317,6 +346,11 @@ with) and runs 24a-24e; its last line is a JSON summary.
 ``python3 chip_smoke.py --distributed-only`` runs phase 25 alone: it builds
 the flash kernels, trains phase 8 (the record 25a compares with) and runs
 25a-25b; its last line is a JSON summary.
+
+``python3 chip_smoke.py --tp-only`` runs phase 26 alone: it builds the paged
+decode kernel, loads phase 4's weights, serves phase 4 (the record 26a
+compares with), makes phase 15's solo runs of its 4 questions and runs
+26a-26c; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --capture-check N [PUSH]`` runs phase 20e's
 profile capture N times on one phase-20 server and prints, per capture,
@@ -399,8 +433,11 @@ def _peaks(name: str):
     return H100_SXM_PEAKS
 
 
+_T0 = time.monotonic()
+
+
 def phase(n: int, msg: str) -> None:
-    print(f"[phase {n}] {msg}", flush=True)
+    print(f"[phase {n} +{time.monotonic() - _T0:.1f}s] {msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -548,9 +585,10 @@ def card_info():
     return line
 
 
-def check_close(name, kernel, plain, args, lens):
+def check_close(name, kernel, plain, args, lens, phase_no=3):
     """The kernel against its plain version on the same inputs, to
-    ``TOLERANCE``; returns the largest |difference| and the plain output."""
+    ``TOLERANCE``; returns the largest |difference| (printed under
+    ``phase_no``)."""
     out, ref, diff = compare(kernel, plain, args, lens)
     check(bool(torch.isfinite(out).all()), f"{name}: kernel output not finite")
     err = diff.max().item()
@@ -560,8 +598,8 @@ def check_close(name, kernel, plain, args, lens):
         over = (diff > BF16_ATOL + BF16_RTOL * ref.float().abs()).sum().item()
         check(over == 0, f"{name}: bf16 kernel vs plain: {over} elements beyond "
                          f"{BF16_ATOL} + 2**-7 x |plain| (max|d| {err:.3e})")
-    phase(3, f"{name} {out.dtype}: max|kernel-plain| {err:.3e}, max|plain| "
-             f"{ref.float().abs().max().item():.3e}")
+    phase(phase_no, f"{name} {out.dtype}: max|kernel-plain| {err:.3e}, max|plain| "
+                    f"{ref.float().abs().max().item():.3e}")
     return err
 
 
@@ -669,11 +707,23 @@ def _http(base, path, body=None, timeout=600):
 
 class _Serving:
     """``build_server`` on a thread, its engine's ``submit`` and ``stream``
-    recording each request's (prompt ids, generated ids); stopped on exit."""
+    recording each request's (prompt ids, generated ids), and the prompt
+    lengths in the order the paged engine finished their prefills (its
+    admission order: a freed int8 block keeps its scale, so the order
+    decides which request's K/V a stale scale quantizes); stopped on exit."""
 
     def __init__(self, server_mod, generator, **kw):
         self.httpd, self.engine = server_mod.build_server(generator, host="127.0.0.1", port=0, **kw)
         self.results = []
+        self.prefill_order = []
+        self._generator = generator
+        final = generator.paged_prefill_final
+
+        def recording_final(*args, **fkw):
+            self.prefill_order.append(int(args[5]))  # prompt_len
+            return final(*args, **fkw)
+
+        generator.paged_prefill_final = recording_final
         submit_full = self.engine.submit_full
 
         def recording_submit_full(prompt_ids, gen, seed=0, timeout=None, **kw):
@@ -712,6 +762,7 @@ class _Serving:
         self.httpd.server_close()
         self.engine.close()
         self.thread.join(30)
+        del self._generator.paged_prefill_final  # the class's method again
 
 
 def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged", spec=0):
@@ -772,6 +823,7 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged", spec=0):
         samples = _prometheus_samples(metrics_body.decode())
         hist = {k: _hist(eng, k) for k in ("ttft_s", "decode_tick_s")} if slot_engine else {}
         results = list(srv.results)
+        prefill_order = list(srv.prefill_order)
         if spec:
             rep = _http(base, "/v1/generate", {"question": REPETITIVE_QUESTION, "greedy": True,
                                                "max_new_tokens": MAX_NEW_TOKENS, **extra})
@@ -808,6 +860,7 @@ def serve_phase(server_mod, fa, generator, phase_no=4, engine="paged", spec=0):
         "request_s_concurrent": [o[2] for o in outs],
         "request_s_warmup": warm[2],
         "engine_bytes": engine_bytes,
+        "prefill_order": prefill_order,
     }
     layers = generator.config.num_layers
     if not slot_engine:
@@ -1119,7 +1172,7 @@ def int8_kv_noise(tf, generator, prompt):
     return (a - b).abs().max().item()
 
 
-def hold_to_solo(tf, generator, label, rec, solo, floor=0.0):
+def hold_to_solo(tf, generator, label, rec, solo, floor=0.0, phase_no=16):
     """Each of a run's 4 requests against its solo run by the margin rule;
     the agreeing counts go into ``rec``."""
     agree, first_diff = [], []
@@ -1130,12 +1183,12 @@ def hold_to_solo(tf, generator, label, rec, solo, floor=0.0):
         first_diff.append(at)
     rec["tokens_agreeing_with_solo"] = agree
     rec["first_difference"] = first_diff
-    phase(16, f"{label}: tokens equal to the solo run's, per request: {agree} of "
-              f"{[len(solo[tuple(p)][0]) for p, _ in rec['results'][1:]]}")
+    phase(phase_no, f"{label}: tokens equal to the solo run's, per request: {agree} of "
+                    f"{[len(solo[tuple(p)][0]) for p, _ in rec['results'][1:]]}")
     for i, at in enumerate(first_diff):
         if at:
-            phase(16, f"  {label} request {i}: token {at['token']} differs at a solo top-2 "
-                      f"margin {at['margin']:.3e} <= bound {at['bound']:.3e}")
+            phase(phase_no, f"  {label} request {i}: token {at['token']} differs at a solo top-2 "
+                            f"margin {at['margin']:.3e} <= bound {at['bound']:.3e}")
 
 
 def dense_slots(generator, prompts):
@@ -5248,7 +5301,7 @@ def serve_ab_times(tree: str) -> dict:
 # phase 23: live deployment, the train->serve loop
 # ---------------------------------------------------------------------------
 
-DEPLOY_STREAM_TOKENS = 128  # the stream in flight across the swap
+DEPLOY_STREAM_TOKENS = 64  # the stream in flight across the swap (128 before PR 19's cut)
 DEPLOY_CANARY_WINDOW_S = 3.0  # 23c's --canary-window-s
 DEPLOY_CANARY_MIN_REQUESTS = 2  # 23c's --canary-min-requests
 DEPLOY_FAILING_REQUESTS = 3  # 23c: the canary's requests, each failed by a prefill fault
@@ -5884,10 +5937,17 @@ def nf4_engine_logits(tf, gen_mod, generator, reference, prompts, floor_i8):
     return out
 
 
+# 24e's depth: SmolLM3-3B's width and its first 4 layers (cut from 36 when
+# phase 26 took the smoke toward its time limit; every 24e check holds the
+# engine to the same weights' own references, so none depends on the depth)
+NF4_SERVE_LAYERS = 4
+
+
 def nf4_serve_phase(tf, gen_mod, server_mod, fa, config, tokenizer):
-    """24e: phase 4's random weights stored as NF4 (``maybe_quantize``),
-    served from an int8 KV pool at phase 4's geometry on phase 4's traffic
-    (paged decode launches 36 x decode steps, checked by ``serve_phase``);
+    """24e: phase 4's random weights (at ``NF4_SERVE_LAYERS``) stored as NF4
+    (``maybe_quantize``), served from an int8 KV pool at phase 4's geometry
+    on phase 4's traffic (paged decode launches layers x decode steps,
+    checked by ``serve_phase``);
     the engine path's logits held to the f32 forward over the dequantized
     weights (``nf4_engine_logits``, with two planted faults refused), and
     each request held by the margin rule to the solo run of the same
@@ -6054,7 +6114,9 @@ def recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained, int8_bytes)
 
     # (e) NF4 serving on phase 4's weights
     config = get_preset("smollm3_3b")
-    out["e_serve"] = nf4_serve_phase(tf, gen_mod, server_mod, fa, config, ByteChatMLTokenizer())
+    out["e_serve"] = nf4_serve_phase(tf, gen_mod, server_mod, fa,
+                                     config.replace(num_layers=NF4_SERVE_LAYERS),
+                                     ByteChatMLTokenizer())
     out["seconds"] = time.monotonic() - t_phase
     phase(24, f"phase 24 took {out['seconds']:.1f} s on {out['card']}")
     return out
@@ -6651,6 +6713,681 @@ def capture_check(captures: int, push=None) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 26: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_CHILD_TIMEOUT_S = 600
+TP_F32_LAYERS = 4  # 26b's f32 logit check, at full width
+# 26b's f32 logits against one process's, relative to max|logit|: the
+# summation order of the row-parallel all-reduces (~1e-6), and an int8 K/V
+# code that a rank's f32 rounding may put one step from world 1's
+TP_F32_LOGIT_REL_TOL = 1e-3
+TP_WEIGHT_ALLOC_REL_TOL = 0.02  # 26a's memory_allocated growth against its weights' bytes
+TP_LOCAL_HEADS = {2: (8, 2), 4: (4, 1)}  # SmolLM3-3B's (query, kv) heads per rank
+
+
+def _tp_files(workdir, mode, rank):
+    import os
+
+    return os.path.join(workdir, f"tp_{mode}_rank{rank}.json")
+
+
+def tp_f32_logits(tf, params, config, cache_config, mesh, prompt):
+    """Logits of a prompt's prefill through a fresh int8 block pool and of
+    one paged decode step after it (the paged decode kernel), f32."""
+    L = KV_BLOCK_LEN
+    nblocks = -(-(len(prompt) + 1) // L)
+    pool = tf.init_paged_cache(cache_config, 1 + nblocks, L, dtype=torch.float32, kv_quant="int8",
+                               device=DEVICE)
+    table = torch.arange(1, 1 + nblocks, dtype=torch.int32, device=DEVICE)[None, :]
+    ids = torch.tensor([list(prompt)], device=DEVICE)
+    kw = dict(block_tables=table, compute_dtype=torch.float32, output_hidden=True, mesh=mesh)
+    with torch.no_grad():
+        hidden, _ = tf.forward(params, ids, config, cache=pool, cache_pos=0, **kw)
+        first = tf.unembed(params, hidden[:, -1], config, compute_dtype=torch.float32, mesh=mesh)
+        nxt = first.argmax(dim=-1)[:, None]
+        hidden, _ = tf.forward(params, nxt, config, cache=pool, cache_pos=len(prompt), **kw)
+        second = tf.unembed(params, hidden[:, -1], config, compute_dtype=torch.float32, mesh=mesh)
+    return torch.stack([first[0], second[0]]).cpu()
+
+
+def tp_f32_rank(tf, fa, workdir, rank):
+    """26b's f32 part on one rank: the 4-layer model's slice, then the
+    prefill and the paged step through the tensor group (both ranks call
+    the same functions in the same order: no bridge)."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer.generate import make_tp_mesh
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.parallel.sharding import (
+        local_model_config,
+        shard_params,
+    )
+
+    config = get_preset("smollm3_3b").replace(num_layers=TP_F32_LAYERS)
+    prompts, _ = live_lengths(ByteChatMLTokenizer, WILDERNESS_EXPERT_SYSTEM_PROMPT)
+    mesh = make_tp_mesh(2, config)
+    params = shard_params(tf.init_params(config, seed=0, device=DEVICE, dtype=torch.float32),
+                          mesh, config)
+    fa.paged_decode_attention.launches = 0
+    logits = tp_f32_logits(tf, params, config, local_model_config(config, 2), mesh, prompts[0])
+    launches = fa.paged_decode_attention.launches
+    if rank == 0:
+        torch.save(logits, os.path.join(workdir, "tp_f32_logits.pt"))
+    del params
+    gc_cuda()
+    return {"launches": launches}
+
+
+def tp_child(mode, rank, world, port, workdir, model_dir) -> int:
+    """26a (``mode`` "a", world 1 under the launcher's env, NCCL) or one of
+    26b's two ranks (``mode`` "b", a gloo group made here first): the
+    server's ``main`` with ``--tp world`` at phase 4's geometry, its
+    collectives timed by CUDA events and its tokens, launches, weights and
+    pool recorded; in 26b, rank 1 fails at its first decode step after the
+    parent creates ``workdir/fault``."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+
+    _build.build_all(("paged_decode",))  # built by the parent: loaded
+    record = {"mode": mode, "rank": rank, "world": world}
+    if mode == "b":
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=TP_CHILD_TIMEOUT_S))
+        torch.cuda.set_device(0)
+        record["f32"] = tp_f32_rank(tf, fa, workdir, rank)
+
+    # the decode step's collectives ([slots, 1, hidden] all-reduces, the
+    # [slots, vocab slice] gather), each between two CUDA events
+    events = []
+
+    def timed(fn):
+        def run(t, group, *rest):
+            if t.shape[0] != SLOTS or (t.dim() == 3 and t.shape[1] != 1):
+                return fn(t, group, *rest)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(t, group, *rest)
+            end.record()
+            events.append((start, end))
+            return out
+        return run
+
+    tf.tp_all_reduce_ = timed(tf.tp_all_reduce_)
+    tf.tp_all_gather_last = timed(tf.tp_all_gather_last)
+    log, pools, built, results = [], [], {}, []
+    step, final = gen_mod.Generator.paged_step, gen_mod.Generator.paged_prefill_final
+    init_paged = gen_mod.Generator.init_paged_state
+    fault = os.path.join(workdir, "fault")
+
+    def finish():
+        torch.cuda.synchronize()
+        record.update(launches=fa.paged_decode_attention.launches, log=log,
+                      decode_steps_here=sum(1 for e in log if e[0] == "step"),
+                      decode_collectives=len(events),
+                      collective_ms=sum(a.elapsed_time(b) for a, b in events),
+                      pool_bytes=pools[-1] if pools else None, results=results)
+        eng = built.get("engine")
+        if eng is not None:
+            record["stats"] = eng.stats_snapshot()
+            record["memory_breakdown"] = eng.memory_breakdown()
+        with open(_tp_files(workdir, mode, rank), "w") as f:
+            json.dump(record, f, default=str)
+
+    def logged_step(self, pool, state, live, tables):
+        if rank == 1 and os.path.exists(fault):
+            finish()
+            raise RuntimeError("planted follower fault")
+        toks = step(self, pool, state, live, tables)
+        log.append(("step", live.tolist(), toks.tolist()))
+        return toks
+
+    def logged_final(self, *args, **kw):
+        tok = final(self, *args, **kw)
+        log.append(("first", int(args[7]), int(args[5]), int(tok)))  # slot, prompt_len
+        return tok
+
+    def recorded_pool(self, *args, **kw):
+        pool, state = init_paged(self, *args, **kw)
+        pools.append(sum(t.nbytes for e in pool["layers"].values() for t in e.values()))
+        return pool, state
+
+    def weights(generator):
+        torch.cuda.synchronize()
+        record["weights_allocated"] = torch.cuda.memory_allocated() - base
+        record["weight_tensor_bytes"] = sum(t.nbytes for t in generator.params.values())
+
+    build, follow = server_mod.build_server, server_mod.follow_slots
+
+    def recording_build(generator, **kw):
+        weights(generator)
+        httpd, eng = build(generator, **kw)
+        submit_full = eng.submit_full
+
+        def recording_submit_full(prompt_ids, gen, seed=0, timeout=None, **skw):
+            req = submit_full(prompt_ids, gen, seed=seed, timeout=timeout, **skw)
+            results.append((list(prompt_ids), list(req.result)))
+            return req
+
+        eng.submit_full = recording_submit_full
+        built["engine"] = eng
+        return httpd, eng
+
+    def recording_follow(generator, *a, **kw):
+        weights(generator)
+        return follow(generator, *a, **kw)
+
+    gen_mod.Generator.paged_step = logged_step
+    gen_mod.Generator.paged_prefill_final = logged_final
+    gen_mod.Generator.init_paged_state = recorded_pool
+    server_mod.build_server, server_mod.follow_slots = recording_build, recording_follow
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    fa.paged_decode_attention.launches = 0
+    rc = server_mod.main(["--model-dir", model_dir, "--device", "cuda", "--tp", str(world),
+                          "--engine", "paged", "--quantize-kv", "int8", "--slots", str(SLOTS),
+                          "--kv-buf-len", str(KV_BUF_LEN), "--kv-block-len", str(KV_BLOCK_LEN),
+                          "--prefill-chunk", str(PREFILL_CHUNK), "--host", "127.0.0.1",
+                          "--port", "0", "--flight-dir", ""])
+    finish()
+    sys.stdout.flush()
+    if mode == "b":
+        os._exit(rc)  # the group lost rank 1: no teardown
+    return rc
+
+
+def _tp_spawn(mode, world, workdir, model_dir, env):
+    """The ranks of one 26 run; each one's stdout lines collected on a
+    thread."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port
+
+    port = free_port()
+    procs, lines = [], []
+    for rank in range(world):
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-child", mode,
+                              str(rank), str(world), str(port), workdir, model_dir],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             env=_child_env(env(rank)))
+        out = []
+        threading.Thread(target=lambda p=p, out=out: out.extend(iter(p.stdout.readline, "")),
+                         daemon=True).start()
+        procs.append(p)
+        lines.append(out)
+    return procs, lines
+
+
+def _tp_listening(procs, lines):
+    """Rank 0's base URL once it prints ``listening on``."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < TP_CHILD_TIMEOUT_S:
+        for line in list(lines[0]):
+            m = re.search(r"listening on (http://[0-9.]+:[0-9]+)", line)
+            if m:
+                return m.group(1)
+        for r, p in enumerate(procs):
+            check(p.poll() is None, f"26: rank {r} exited {p.returncode} before serving:\n"
+                                    + "".join(lines[r])[-4000:])
+        time.sleep(0.2)
+    raise RuntimeError("26: rank 0 did not start serving:\n" + "".join(lines[0])[-4000:])
+
+
+def _tp_stop(procs, lines, codes):
+    """SIGTERM to rank 0, then every rank's exit code checked."""
+    import signal
+
+    procs[0].send_signal(signal.SIGTERM)
+    try:
+        got = [p.wait(timeout=TP_CHILD_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (code, want) in enumerate(zip(got, codes)):
+        ok = code == want if want == 0 else code != 0
+        check(ok, f"26: rank {rank} exited {code}:\n" + "".join(lines[rank])[-4000:])
+
+
+TP_STAGGER_S = 0.05  # between 26's concurrent requests, in phase 4's admission order
+
+
+def tp_admission_order(served):
+    """The indices into QUESTIONS of phase 4's concurrent requests in the
+    order its paged engine admitted them (their prompt lengths differ)."""
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+
+    prompts, _ = live_lengths(ByteChatMLTokenizer, WILDERNESS_EXPERT_SYSTEM_PROMPT)
+    index = {len(p): i for i, p in enumerate(prompts)}
+    return [index[n] for n in served["prefill_order"][1:]]
+
+
+def tp_traffic(base, order):
+    """Phase 4's traffic over HTTP: one warm-up request, then the 4
+    concurrent ones, started in ``order`` ``TP_STAGGER_S`` apart; the
+    concurrent window's tokens/s and mean decode tick from ``/v1/stats``
+    before and after."""
+    warm = _http(base, "/v1/generate", {"question": WARMUP_QUESTION, "greedy": True,
+                                        "max_new_tokens": MAX_NEW_TOKENS})
+    check(warm[0] == 200, f"26 warm-up: HTTP {warm[0]}")
+    before = json.loads(_http(base, "/v1/stats")[1])
+    outs = [None] * len(QUESTIONS)
+
+    def post(i):
+        outs[i] = _http(base, "/v1/generate", {"question": QUESTIONS[i], "greedy": True,
+                                               "max_new_tokens": MAX_NEW_TOKENS})
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in order]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+        time.sleep(TP_STAGGER_S)
+    for t in threads:
+        t.join(TP_CHILD_TIMEOUT_S)
+    check(all(o is not None and o[0] == 200 for o in outs), f"26 requests: {outs}")
+    after = json.loads(_http(base, "/v1/stats")[1])
+    h0, h1 = before["histograms"]["decode_tick_s"], after["histograms"]["decode_tick_s"]
+    ticks = h1["count"] - h0["count"]
+    return {"tokens_per_s_concurrent": (after["tokens_served"] - before["tokens_served"])
+            / (max(o[3] for o in outs) - t0),
+            "decode_step_ms_mean_concurrent": 1e3 * (h1["mean"] * h1["count"]
+                                                     - h0["mean"] * h0["count"]) / ticks,
+            "decode_step_ms_mean": 1e3 * h1["mean"], "request_s_warmup": warm[2]}
+
+
+def _healthz(base):
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def tp_start(generator):
+    """Phase 26's start, right after phase 4: phase 4's weights written as a
+    checkpoint with the port's codec, then 26a's job (the server as a
+    one-worker launcher job: NCCL, world 1) and 26b's two ranks (gloo, the
+    4-layer f32 check first) started at once, so that their imports and
+    loads run while phase 15 does; every one is killed at exit if it is
+    still running."""
+    import atexit
+    import os
+    import tempfile
+
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.models import hf_io
+    from llm_fine_tune_distributed_tpu_torch.models.configs import to_hf_dict
+    from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port, rendezvous_env
+
+    jobs = {"t_start": time.monotonic(), "workdir": tempfile.mkdtemp(prefix="chip_smoke_tp_")}
+    model_dir = os.path.join(jobs["workdir"], "model")
+    hf_io.save_hf_checkpoint(generator.params, model_dir)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(to_hf_dict(generator.config), f)
+    ByteChatMLTokenizer().save_pretrained(model_dir)
+    jobs["checkpoint_write_s"] = time.monotonic() - jobs["t_start"]
+    port = free_port()
+    jobs["a"] = _tp_spawn("a", 1, jobs["workdir"], model_dir,
+                          lambda rank: rendezvous_env(0, 1, port, local_rank=0))
+    jobs["b"] = _tp_spawn("b", 2, jobs["workdir"], model_dir, lambda rank: {})
+
+    def kill():
+        for p in jobs["a"][0] + jobs["b"][0]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    jobs["kill"] = kill
+    atexit.register(kill)
+    return jobs
+
+
+def tp_serve(jobs, served):
+    """26a and 26b, each one's traffic while the other only waits (the
+    parent waits until both serve). 26a's and 26b's four concurrent
+    requests start in phase 4's admission order, 50 ms apart (a freed int8
+    block keeps its scale, so the order decides the pool's history). In
+    26b, after phase 4's traffic a fault is planted in rank 1 and rank 0's
+    /healthz must turn 503."""
+    import os
+
+    workdir = jobs["workdir"]
+    a_procs, a_lines = jobs["a"]
+    b_procs, b_lines = jobs["b"]
+    order = tp_admission_order(served)
+    try:
+        a_base = _tp_listening(a_procs, a_lines)
+        b_base = _tp_listening(b_procs, b_lines)
+        try:
+            a_traffic = tp_traffic(a_base, order)
+        finally:
+            _tp_stop(a_procs, a_lines, [0])
+        b_traffic = tp_traffic(b_base, order)
+        with open(os.path.join(workdir, "fault"), "w"):
+            pass
+        status = None
+        try:
+            status = _http(b_base, "/v1/generate", {"question": WARMUP_QUESTION, "greedy": True,
+                                                    "max_new_tokens": 4})[0]
+        except Exception as e:  # the request fails with the follower
+            status = getattr(e, "code", type(e).__name__)
+        t0 = time.monotonic()
+        health = _healthz(b_base)
+        while health[0] == 200 and time.monotonic() - t0 < 120:
+            time.sleep(0.1)
+            health = _healthz(b_base)
+        b_traffic.update(fault_request_status=status, healthz_after_fault=list(health),
+                         seconds_to_503=time.monotonic() - t0)
+        check(health[0] == 503 and "wedged" in health[1],
+              f"26b: /healthz after the planted fault: {health}")
+        check(b_procs[1].wait(timeout=120) != 0, "26b: rank 1 survived its planted fault")
+    finally:
+        for p in a_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        _tp_stop(b_procs, b_lines, [0, 1])
+    check(any("nccl" in line for line in a_lines[0]), "26a: the tensor group is not NCCL:\n"
+          + "".join(a_lines[0])[-2000:])
+    with open(_tp_files(workdir, "a", 0)) as f:
+        a = json.load(f)
+    b = []
+    for rank in range(2):
+        with open(_tp_files(workdir, "b", rank)) as f:
+            b.append(json.load(f))
+    return a, a_traffic, b, b_traffic
+
+
+def tp_kernel_phase(fa, peaks, live):
+    """26c: the paged decode kernel against its plain version at the
+    ranks' local head shapes, and its time at tp 2's live shape."""
+    kernel, plain = fa.paged_decode_attention, fa.paged_decode_attention_reference
+    errs = {}
+    for tp, (hq, hkv) in TP_LOCAL_HEADS.items():
+        for name, (lengths, nb, shared, dead) in paged_cases(live).items():
+            for dtype in (torch.float32, torch.bfloat16):
+                args, lens = make_case(lengths, nb, dtype, shared_prefix_blocks=shared,
+                                       dead_rows=dead, hq=hq, hkv=hkv, seed=3)
+                errs[f"tp{tp} {name} {dtype}"] = check_close(
+                    f"tp {tp} local heads hq={hq} hkv={hkv} {name}", kernel, plain, args, lens,
+                    phase_no=26)
+    lengths, nb, shared, dead = paged_cases(live)["live"]
+    hq, hkv = TP_LOCAL_HEADS[2]
+    args, lens = make_case(lengths, nb, torch.bfloat16, shared_prefix_blocks=shared,
+                           dead_rows=dead, hq=hq, hkv=hkv, seed=3)
+    ms = time_ms(lambda: kernel(*args, lengths=lens))
+    plain_ms = time_ms(lambda: plain(*args, lengths=lens))
+    bound_ms, bound_by, nbytes = bound(args, lens, peaks)
+    split = fa.paged_decode_split_len(len(lengths), hkv, nb, KV_BLOCK_LEN,
+                                      torch.cuda.get_device_properties(0).multi_processor_count)
+    phase(26, f"26c: tp 2 local live shape (hq {hq}, hkv {hkv}, nb {nb}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.2f} MB), "
+              f"{100 * bound_ms / ms:.1f}% of the bound, split {split} positions")
+    return {"max_abs_err": errs, "tp2_live": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                              "bound_by": bound_by, "bytes": nbytes,
+                                              "split_len": split, "hq": hq, "hkv": hkv}}
+
+
+def _tp_tokens(rec):
+    return {tuple(p): ids for p, ids in rec["results"]}
+
+
+def tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs):
+    """Phase 26 (docstring): 26a, 26b (started by ``tp_start``) and 26c
+    against phase 4's run and its solo runs, on phase 4's generator."""
+    import os
+    import shutil
+
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+
+    t_start = time.monotonic()
+    config = generator.config
+    layers = config.num_layers
+    out = {"c_kernel": tp_kernel_phase(fa, peaks, live),
+           "checkpoint_write_s": jobs["checkpoint_write_s"]}
+    try:
+        a, a_traffic, b, b_traffic = tp_serve(jobs, served)
+        f32 = torch.load(os.path.join(jobs["workdir"], "tp_f32_logits.pt"))
+    finally:
+        jobs["kill"]()
+        shutil.rmtree(jobs["workdir"], ignore_errors=True)
+
+    # 26a: world 1 over NCCL is phase 4, bit for bit, when its requests were
+    # admitted in phase 4's order (the int8 pool's freed blocks keep their
+    # scales, so another order is another pool history); otherwise each
+    # request is held to its solo run by the margin rule, as 26b's are
+    phase4 = {tuple(p): ids for p, ids in served["results"]}
+    got_a = _tp_tokens(a)
+    order_a = [e[2] for e in a["log"] if e[0] == "first"]
+    floor = 2 * max(int8_kv_noise(tf, generator, list(p)) for p in solo)
+    same_order = order_a == served["prefill_order"]
+    if same_order:
+        check(got_a == phase4, "26a: tokens differ from phase 4's: "
+              + str({k[-3:]: (v, phase4.get(k)) for k, v in got_a.items() if phase4.get(k) != v}))
+    else:
+        held = {"results": [([], [])] + [list(x) for x in a["results"] if tuple(x[0]) in solo]}
+        hold_to_solo(tf, generator, "26a --tp 1 (admitted in another order than phase 4)", held,
+                     solo, floor=floor, phase_no=26)
+    steps_a = a["stats"]["decode_steps"]
+    per_step = 2 * layers + 2  # two all-reduces a layer, the embedding's, the logits' gather
+    check(a["launches"] == layers * steps_a,
+          f"26a: {a['launches']} paged decode launches != {layers} x {steps_a} decode steps")
+    check(a["decode_collectives"] == per_step * steps_a,
+          f"26a: {a['decode_collectives']} decode collectives != {per_step} x {steps_a}")
+    rec_a = {"tokens_equal_phase4": got_a == phase4, "admission_order": order_a,
+             "admission_order_phase4": served["prefill_order"], "launches": a["launches"],
+             "decode_steps": steps_a,
+             "collectives_per_step": a["decode_collectives"] / steps_a,
+             "collective_ms_per_step": a["collective_ms"] / steps_a,
+             "weights_allocated": a["weights_allocated"], "pool_bytes": a["pool_bytes"],
+             **a_traffic}
+    held = ("bit-equal to phase 4's" if same_order else
+            f"held by the margin rule (admission order {order_a} vs phase 4's "
+            f"{served['prefill_order']}; equal to phase 4's: {got_a == phase4})")
+    phase(26, f"26a: python -m ...infer.server --tp 1 (PyTorchJob env, NCCL, world 1): tokens of "
+              f"{len(got_a)} requests {held}; paged decode launches {a['launches']} "
+              f"== {layers} x {steps_a} decode steps; {per_step} collectives per decode step, "
+              f"{rec_a['collective_ms_per_step']:.3f} ms of them per step by CUDA events")
+    phase(26, f"26a: {a_traffic['tokens_per_s_concurrent']:.1f} tokens/s, concurrent decode tick "
+              f"{a_traffic['decode_step_ms_mean_concurrent']:.2f} ms vs phase 4's "
+              f"{served['tokens_per_s_concurrent']:.1f} tokens/s, "
+              f"{served['decode_step_ms_mean_concurrent']:.2f} ms (this call); weights "
+              f"{a['weights_allocated'] / 1e9:.3f} GB, pool {a['pool_bytes'] / 1e9:.3f} GB")
+
+    # 26b: two ranks over gloo
+    r0, r1 = b
+    got_b = {"results": [([], [])] + [list(x) for x in r0["results"]
+                                      if tuple(x[0]) in solo]}
+    check(len(got_b["results"]) == 1 + len(QUESTIONS), f"26b: {len(r0['results'])} results")
+    hold_to_solo(tf, generator, "26b tp 2", got_b, solo, floor=floor, phase_no=26)
+    check(r1["log"] == r0["log"][: len(r1["log"])] and len(r1["log"]) == len(r0["log"]),
+          "26b: rank 1's first tokens and decode steps differ from rank 0's")
+    steps_b = r0["stats"]["decode_steps"]
+    check(r1["decode_steps_here"] == steps_b, f"26b: rank 1 ran {r1['decode_steps_here']} decode "
+                                              f"steps, rank 0 {steps_b}")
+    want_w = sum((2 if len(shape) == 1 else 1) * int(np.prod(shape))
+                 for shape in tf.param_shapes(config).values())  # bf16: 2 bytes, halved matrices
+    # what memory_allocated holds beyond the weights after a load at world 1
+    load_extra = a["weights_allocated"] - a["weight_tensor_bytes"]
+    check(0 <= load_extra <= TP_WEIGHT_ALLOC_REL_TOL * a["weight_tensor_bytes"],
+          f"26a: memory_allocated grew {a['weights_allocated']} for {a['weight_tensor_bytes']} "
+          "bytes of weights")
+    for r in (r0, r1):
+        check(r["launches"] == layers * steps_b,
+              f"26b rank {r['rank']}: {r['launches']} launches != {layers} x {steps_b}")
+        check(r["pool_bytes"] * 2 == a["pool_bytes"],
+              f"26b rank {r['rank']}: pool {r['pool_bytes']} bytes, 26a's {a['pool_bytes']}")
+        check(r["weight_tensor_bytes"] == want_w,
+              f"26b rank {r['rank']}: {r['weight_tensor_bytes']} weight bytes, want {want_w}")
+        check(want_w <= r["weights_allocated"] <= want_w + load_extra,
+              f"26b rank {r['rank']}: memory_allocated grew {r['weights_allocated']}, want "
+              f"{want_w} + at most 26a's loader overhead {load_extra}")
+        check(r["f32"]["launches"] == TP_F32_LAYERS, f"26b f32: {r['f32']} launches")
+    check(r0["decode_collectives"] == per_step * steps_b,
+          f"26b: {r0['decode_collectives']} decode collectives != {per_step} x {steps_b}")
+    # the f32 logits of the same prefill and paged step at world 1, here
+    f32_config = get_preset("smollm3_3b").replace(num_layers=TP_F32_LAYERS)
+    params32 = tf.init_params(f32_config, seed=0, device=DEVICE, dtype=torch.float32)
+    prompts, _ = live_lengths(ByteChatMLTokenizer, WILDERNESS_EXPERT_SYSTEM_PROMPT)
+    want32 = tp_f32_logits(tf, params32, f32_config, f32_config, None, prompts[0])
+    del params32
+    gc_cuda()
+    rel = [((f32[i] - want32[i]).abs().max() / want32[i].abs().max()).item() for i in range(2)]
+    check(max(rel) <= TP_F32_LOGIT_REL_TOL, f"26b f32 logits rel {rel} > {TP_F32_LOGIT_REL_TOL}")
+    rec_b = {"decode_steps": steps_b, "launches_per_rank": [r0["launches"], r1["launches"]],
+             "weights_allocated_per_rank": [r0["weights_allocated"], r1["weights_allocated"]],
+             "weight_tensor_bytes_per_rank": want_w, "pool_bytes_per_rank": r0["pool_bytes"],
+             "collective_ms_per_step_rank0": r0["collective_ms"] / steps_b,
+             "tokens_agreeing_with_solo": got_b["tokens_agreeing_with_solo"],
+             "first_difference": got_b["first_difference"], "int8_floor": floor,
+             "f32_logit_rel": rel, **b_traffic}
+    phase(26, f"26b: --tp 2 over gloo on one card: tokens vs solo (margin rule + twice the int8 "
+              f"error {floor:.3e}) {got_b['tokens_agreeing_with_solo']}; rank 1's first tokens and "
+              f"decode steps == rank 0's; launches {rec_b['launches_per_rank']} == {layers} x "
+              f"{steps_b} on each rank")
+    phase(26, f"26b: weights per rank {want_w / 1e9:.3f} GB of tensors (memory_allocated "
+              f"{r0['weights_allocated'] / 1e9:.3f} / {r1['weights_allocated'] / 1e9:.3f} GB) vs "
+              f"26a's {a['weights_allocated'] / 1e9:.3f}; pool per rank {r0['pool_bytes'] / 1e9:.3f} "
+              f"GB == half of 26a's {a['pool_bytes'] / 1e9:.3f}")
+    phase(26, f"26b: f32 {TP_F32_LAYERS}-layer prefill + paged step vs world 1: max|dlogits| / "
+              f"max|logit| {rel[0]:.2e}, {rel[1]:.2e} (<= {TP_F32_LOGIT_REL_TOL})")
+    phase(26, f"26b: gloo through the host (a correctness phase's cost): tick "
+              f"{b_traffic['decode_step_ms_mean_concurrent']:.1f} ms, "
+              f"{b_traffic['tokens_per_s_concurrent']:.2f} tokens/s, collectives "
+              f"{rec_b['collective_ms_per_step_rank0']:.1f} ms per step on rank 0; planted fault: "
+              f"rank 1 exited non-zero, /healthz {b_traffic['healthz_after_fault'][0]} "
+              f"{b_traffic['seconds_to_503']:.2f} s later")
+    out.update(a_world1_nccl=rec_a, b_gloo_two_ranks=rec_b,
+               seconds=time.monotonic() - t_start,
+               seconds_since_start=time.monotonic() - jobs["t_start"])
+    phase(26, f"{out['seconds']:.1f} s after phase 15 ({out['seconds_since_start']:.1f} s since "
+              f"the jobs' start after phase 4; checkpoint written in "
+              f"{out['checkpoint_write_s']:.1f} s)")
+    return out
+
+
+TP_COST_CALLS = 500  # --tp-collective-cost: calls timed per collective
+# --tp-collective-cost's variants of the launcher's env: the NCCL flight
+# recorder's per-collective trace buffer at PyTorch's default size, and the
+# port's default (runtime/distributed.initialize_distributed: off)
+TP_COST_ENVS = {"flight_recorder_2000": {"TORCH_NCCL_TRACE_BUFFER_SIZE": "2000",
+                                         "TORCH_FR_BUFFER_SIZE": "2000"},
+                "port_default": {}}
+
+
+def tp_cost_child() -> int:
+    """One world-1 NCCL process under the launcher's env: the host wall time
+    per call of the decode step's collectives at SmolLM3-3B's shapes (an
+    all-reduce of [8, 1, 2048] bf16, the gather of [8, 64128] f32 logits
+    at tp 2, here at world 1 the whole [8, 128256]), with and without a
+    CUDA event pair around each, as one JSON line."""
+    from llm_fine_tune_distributed_tpu_torch.runtime import distributed
+
+    distributed.initialize_distributed(device=DEVICE)
+    group = torch.distributed.group.WORLD
+    x = torch.randn(SLOTS, 1, 2048, device=DEVICE).to(torch.bfloat16)
+    logits = torch.randn(SLOTS, 128256, device=DEVICE)
+    out = {}
+    for name, call in (("all_reduce", lambda: distributed.tp_all_reduce_(x, group)),
+                       ("all_gather_last", lambda: distributed.tp_all_gather_last(logits, group,
+                                                                                  1, 0))):
+        for evented in (False, True):
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TP_COST_CALLS):
+                if evented:
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    a.record()
+                call()
+                if evented:
+                    b.record()
+            torch.cuda.synchronize()
+            out[f"{name}{'_evented' if evented else ''}_us"] = (
+                1e6 * (time.perf_counter() - t0) / TP_COST_CALLS)
+    t0 = time.perf_counter()
+    for _ in range(TP_COST_CALLS):
+        x.add_(0)
+    torch.cuda.synchronize()
+    out["elementwise_launch_us"] = 1e6 * (time.perf_counter() - t0) / TP_COST_CALLS
+    print(json.dumps(out), flush=True)
+    distributed.destroy()
+    return 0
+
+
+def tp_collective_cost() -> int:
+    """The decode step's collectives' host cost per call at world 1 over
+    NCCL, in a launcher's env and with the flight recorder's buffer off,
+    each in a process of its own; the last line lists both."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port, rendezvous_env
+
+    phase(1, card_info())
+    out = {}
+    for name, extra in TP_COST_ENVS.items():
+        env = _child_env({**rendezvous_env(0, 1, free_port(), local_rank=0), **extra})
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tp-cost-child"],
+                              capture_output=True, text=True, env=env, timeout=300)
+        check(proc.returncode == 0, f"cost child {name}: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        out[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        phase(26, f"collective cost, {name}: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                        out[name].items()))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def tp_only() -> int:
+    """Phase 26 alone: the paged decode kernel built, phase 4's generator and
+    serving run (what 26a compares with), phase 15's solo runs of its 4
+    questions, then 26a-26c; a JSON summary is the last line."""
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer import generate as gen_mod
+    from llm_fine_tune_distributed_tpu_torch.infer import server as server_mod
+    from llm_fine_tune_distributed_tpu_torch.models import transformer as tf
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.ops import _build
+    from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
+
+    t_start = time.monotonic()
+    card = card_info()
+    phase(1, card)
+    peaks = _peaks(torch.cuda.get_device_name(0))
+    _build.build_all(("paged_decode",))
+    _, live = live_lengths(ByteChatMLTokenizer, WILDERNESS_EXPERT_SYSTEM_PROMPT)
+    params = tf.init_params(get_preset("smollm3_3b"), seed=0, device=DEVICE, dtype=torch.bfloat16)
+    generator = gen_mod.Generator(params, get_preset("smollm3_3b"), ByteChatMLTokenizer(),
+                                  compute_dtype=torch.bfloat16, device=DEVICE)
+    served = serve_phase(server_mod, fa, generator)
+    jobs = tp_start(generator)
+    solo = {tuple(p): solo_decode(tf, gen_mod, generator, p, MAX_NEW_TOKENS)
+            for p, _ in served["results"][1:]}
+    tp = tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs)
+    served.pop("results")
+    print(json.dumps({"card": card, "serve": served, "tp": tp,
+                      "total_s": time.monotonic() - t_start}, default=str), flush=True)
+    return 0
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible to torch; this script needs an NVIDIA GPU",
@@ -6671,6 +7408,14 @@ def main(argv=()) -> int:
         return recipes_only()
     if argv == ["--distributed-only"]:
         return distributed_only()
+    if argv == ["--tp-only"]:
+        return tp_only()
+    if argv == ["--tp-collective-cost"]:
+        return tp_collective_cost()
+    if argv == ["--tp-cost-child"]:
+        return tp_cost_child()
+    if argv[:1] == ["--tp-child"] and len(argv) == 7:
+        return tp_child(argv[1], int(argv[2]), int(argv[3]), int(argv[4]), argv[5], argv[6])
     if argv[:1] == ["--dp-cli-child"] and len(argv) == 3:
         return dp_cli_child(argv[1], argv[2])
     if argv[:1] == ["--dp-rank-child"] and len(argv) == 4:
@@ -6754,8 +7499,10 @@ def main(argv=()) -> int:
              f"{served['ttft_s_concurrent_mean']:.3f} s, "
              f"int8 KV pool {served['kv_pool_bytes'] / 1e9:.3f} GB")
 
+    tp_jobs = tp_start(generator)  # phase 26's jobs load while phase 15 runs
     engines = engines_phase(tf, gen_mod, server_mod, fa, generator)
     phase4_solo = engines["solo"]  # phase 21 holds its fleets' tokens to them too
+    tp = tp_phase(tf, gen_mod, fa, generator, served, phase4_solo, peaks, live, tp_jobs)
     speculation = spec_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, engines, served,
                              prompts)
     overload = overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
@@ -6861,6 +7608,11 @@ def main(argv=()) -> int:
     paged["launches_deploy_23b"] = deploy["swap"]["launches"]
     # phase 24e: phase 4's traffic over NF4 weights
     paged["launches_nf4_weights_24e"] = recipes["e_serve"]["launches"]
+    # phase 26: the server at --tp 1 over NCCL (26a), each of 26b's two ranks
+    # on its 2 kv heads, and the kernel at tp 2's local live shape (26c)
+    paged["launches_tp_26a"] = tp["a_world1_nccl"]["launches"]
+    paged["launches_tp_26b_per_rank"] = tp["b_gloo_two_ranks"]["launches_per_rank"]
+    paged["tp2_local_live"] = tp["c_kernel"]["tp2_live"]
     paged.update({
         "kernel": "paged_decode_kernel",
         "design": PAGED_DESIGN,
@@ -6923,7 +7675,7 @@ def main(argv=()) -> int:
                "decode_profile_bf16_phase14": profiled_bf16, "speculation": speculation,
                "golden": golden, "overload": overload, "supervision": supervision,
                "observability": observability, "fleet": fleet, "adapters": adapters,
-               "deploy": deploy, "recipes": recipes, "distributed": dp,
+               "deploy": deploy, "recipes": recipes, "distributed": dp, "tensor_parallel": tp,
                "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
     print(json.dumps({"summary": summary}, default=str), flush=True)

@@ -53,8 +53,17 @@ releases nor the router's probes. The host copies are f32 CPU tensors.
 ride over by reference, so the resident adapters and their slots stay as
 they were.
 
-Not ported here: ``mesh``, ``on_write`` and ``apply_remote_write``
-(multi-host serving, which waits with the port's device meshes).
+Under tensor parallelism (``mesh``, ``model_config``: the serving mesh of
+``--tp N`` and the whole model's config) the view is over the rank's
+slices, so each pool holds its kernel's share: a column-parallel kernel's
+B by output columns, a row-parallel kernel's A by input rows
+(``parallel/sharding.shard_lora_factors``). Adapters are validated and
+padded at the whole model's shapes, kept whole on the host and sliced at
+each write. On rank 0 ``on_write`` (the engine sets it to
+``multihost.SlotBridge.adapter_write``) announces every slot write, with
+the whole factors, before any pool is touched; a follower rank's registry
+applies it with ``apply_remote_write`` (no disk, no name bookkeeping), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,7 +80,9 @@ from llm_fine_tune_distributed_tpu_torch.infer.errors import (
     AdapterPoolFullError,
     UnknownAdapterError,
 )
+from llm_fine_tune_distributed_tpu_torch.models.transformer import param_shapes
 from llm_fine_tune_distributed_tpu_torch.parallel.lora import peft_adapter_state
+from llm_fine_tune_distributed_tpu_torch.parallel.sharding import shard_lora_factors
 
 # Pools sit beside the reference's seven projection targets. An adapter
 # that targets anything else (the lm_head, say) is refused at load rather
@@ -92,7 +103,7 @@ class AdapterRegistry:
     delta), a larger one refused."""
 
     def __init__(self, base_params: Dict[str, torch.Tensor], adapter_dir: str, *,
-                 max_adapters: int = 8):
+                 max_adapters: int = 8, mesh=None, model_config=None):
         if max_adapters < 2:
             raise ValueError(
                 f"max_adapters must be >= 2 (slot 0 is the identity adapter), "
@@ -100,6 +111,20 @@ class AdapterRegistry:
             )
         self.adapter_dir = adapter_dir
         self.max_adapters = int(max_adapters)
+        self.mesh = mesh
+        self._tp = mesh.tensor_size if mesh is not None else 1
+        self._tp_index = mesh.tensor_index if mesh is not None else 0
+        if self._tp > 1 and model_config is None:
+            raise ValueError("an AdapterRegistry over a --tp > 1 mesh needs the whole model's "
+                             "model_config (its kv heads' mapping)")
+        self._config = model_config
+        # the whole model's kernel shapes (meta tensors), which adapters are
+        # validated and padded against when the view holds a rank's slices
+        self._whole = ({n: torch.empty(shape, device="meta")
+                        for n, shape in param_shapes(model_config).items()}
+                       if self._tp > 1 else None)
+        # rank 0's announcement of every slot write (the engine's bridge)
+        self.on_write = None
         self.stats = None  # the serving engine's ServingStats (attach_stats)
         self._lock = threading.RLock()
         self._names: List[Optional[str]] = [None] * self.max_adapters
@@ -230,7 +255,7 @@ class AdapterRegistry:
                 done = self._loading[name][1]
             done.wait()  # another request is loading it: pin it once loaded
         try:
-            entries, scale, _ = peft_adapter_state(self.params, path)
+            entries, scale, _ = peft_adapter_state(self._whole or self.params, path)
             padded = self._pad(name, entries)
             self._write_slot(slot, padded, scale)
         except BaseException:
@@ -311,10 +336,24 @@ class AdapterRegistry:
             "requests; retry when a tenant drains"
         )
 
+    def apply_remote_write(self, slot: int, padded: dict, scale: float) -> None:
+        """A follower rank's half of a slot write rank 0 announced
+        (``multihost.follow_slots``): the factors came over the bridge, so
+        the write is the one rank 0 makes, without the disk or the names."""
+        with self._lock:
+            self._write_slot(slot, padded, scale, announce=False)
+
+    def _whole_shape(self, module: str, pool_a: torch.Tensor, pool_b: torch.Tensor):
+        """(in, out) of ``module``'s whole kernel."""
+        if self._whole is None:
+            return pool_a.shape[1], pool_b.shape[2]
+        return tuple(self._whole[module + ".kernel"].shape)
+
     def _pad(self, name: str, entries: dict) -> dict:
         """Zero-pad (A, B) to the pool rank and zero-fill the sites the
-        adapter does not target. The padding columns of A and rows of B are
-        zero, so the padded delta is exactly the adapter's own."""
+        adapter does not target, at the whole kernels' shapes. The padding
+        columns of A and rows of B are zero, so the padded delta is exactly
+        the adapter's own."""
         for module in entries:
             if module not in self._sites:
                 raise ValueError(
@@ -324,8 +363,9 @@ class AdapterRegistry:
                 )
         out = {}
         for module, (pool_a, pool_b, _) in self._sites.items():
-            a = torch.zeros((pool_a.shape[1], self.rank), dtype=torch.float32)
-            b = torch.zeros((self.rank, pool_b.shape[2]), dtype=torch.float32)
+            d_in, d_out = self._whole_shape(module, pool_a, pool_b)
+            a = torch.zeros((d_in, self.rank), dtype=torch.float32)
+            b = torch.zeros((self.rank, d_out), dtype=torch.float32)
             if module in entries:
                 ea, eb = entries[module]
                 r = ea.shape[1]
@@ -341,11 +381,16 @@ class AdapterRegistry:
             out[module] = (a, b)
         return out
 
-    def _write_slot(self, slot: int, padded: dict, scale: float) -> None:
+    def _write_slot(self, slot: int, padded: dict, scale: float, announce: bool = True) -> None:
         """Write one slot's rows in place (see the module docstring for why
-        no forward can be reading them)."""
+        no forward can be reading them), the rank's slice of each factor;
+        on rank 0 of a tensor-parallel mesh the write is announced first,
+        so the follower ranks receive the factors before any pool moves."""
+        if announce and self.on_write is not None:
+            self.on_write(slot, padded, scale)
         for module, (pool_a, pool_b, pool_s) in self._sites.items():
-            a, b = padded[module]
+            a, b = shard_lora_factors(module, *padded[module], self._config, self._tp,
+                                      self._tp_index)
             pool_a[slot].copy_(a)
             pool_b[slot].copy_(b)
             pool_s[slot] = scale

@@ -16,6 +16,11 @@ HTTP server that without an async framework:
 - incompatible requests drained during a window wait on a deferred list
   that is served before the queue, so mixed traffic keeps FIFO order;
 - a request whose waiter timed out is shed before it reaches the device.
+
+Under a multi-process ``--tp`` mesh rank 0's engine runs over
+``infer/multihost.MultihostCoordinator`` in place of the Generator: each
+``generate_batch`` is broadcast to the follower ranks (``follow``) before it
+runs, and the server's ``/healthz`` reads the coordinator's ``wedged``.
 """
 
 from __future__ import annotations

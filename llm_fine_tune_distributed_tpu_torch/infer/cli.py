@@ -9,9 +9,15 @@ draft model of ``--draft-dir``); with ``--serve`` it sets the slot engine's
 draft depth, and requests opt in with ``"speculative": K``.
 
 ``--quantize int8|nf4`` stores the block linears as weight-only int8 or NF4
-(``ops/int8.maybe_quantize``). Every flag combination it refuses, and a flag
-whose feature is not ported (``--tp``), stops it before any weight is
-loaded.
+(``ops/int8.maybe_quantize``). Every flag combination it refuses stops it
+before any weight is loaded.
+
+``--tp N`` shards the model over N processes, one per device, started by a
+launcher (``torchrun --nproc-per-node N``): every rank runs the same command
+and generates the same tokens (the forward's collectives keep them in
+step), and rank 0 prints. With ``--serve`` the server takes it
+(``infer/server.py``). ``--tp N`` without a process group of N ranks is
+refused before loading.
 """
 
 from __future__ import annotations
@@ -63,7 +69,9 @@ def run_ask_cli(
                              "their bytes on the card, nf4 (4-bit codes, block 64, double "
                              "quant) cuts them to about 0.26")
     parser.add_argument("--tp", type=int, default=1, metavar="N",
-                        help="tensor-parallel inference (not ported: 1 only)")
+                        help="tensor-parallel inference over N processes, one per device "
+                             "(under torchrun --nproc-per-node N): each holds its shard of the "
+                             "weights and KV cache; with --serve rank 0 serves HTTP")
     parser.add_argument("--serve", action="store_true",
                         help="run the HTTP server (infer/server.py) instead of answering once")
     parser.add_argument("--engine", choices=("continuous", "paged", "window"), default="continuous",
@@ -76,8 +84,6 @@ def run_ask_cli(
     question = " ".join(args.question)
     if args.draft_dir and not args.speculative:
         parser.error("--draft-dir requires --speculative K")
-    if args.tp != 1:
-        parser.error(f"--tp {args.tp} is not ported ({_JAX}.infer.generate.make_tp_mesh has it)")
     if not args.model_dir or not os.path.isdir(args.model_dir):
         print(f"Error: model directory not found: {args.model_dir!r}")
         print(missing_dir_help)
@@ -90,11 +96,12 @@ def run_ask_cli(
         if ignored:
             parser.error(f"{' '.join(ignored)} have no effect with --serve: sampling options "
                          "are per-request fields of POST /v1/generate")
-        from llm_fine_tune_distributed_tpu_torch.infer.server import check_engine
+        from llm_fine_tune_distributed_tpu_torch.infer.server import check_engine, check_tp
 
         try:
             check_engine(args.engine, "none", args.speculative, args.draft_dir)
-        except ValueError as e:
+            check_tp(args.engine, args.tp, quantize=args.quantize)
+        except (ValueError, NotImplementedError) as e:
             parser.error(str(e))
     elif not question:
         parser.error("a question is required (or pass --serve)")
@@ -116,8 +123,29 @@ def run_ask_cli(
 
         serve(args.model_dir, device=device, host=args.host, port=args.port,
               quantize=args.quantize, engine=args.engine, template_kwargs=template_kwargs,
-              speculative_k=args.speculative, draft_dir=args.draft_dir)
+              speculative_k=args.speculative, draft_dir=args.draft_dir, tp=args.tp)
         return 0
+
+    from llm_fine_tune_distributed_tpu_torch.infer.generate import make_tp_mesh
+    from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
+        initialize_distributed,
+        is_distributed,
+        is_primary_host,
+    )
+
+    mesh = None
+    try:
+        if args.tp > 1 and args.quantize == "nf4":
+            raise ValueError("--quantize nf4 with --tp > 1 is not ported (stacked NF4 layouts: "
+                             f"{_JAX}.ops.nf4 has them)")
+        initialize_distributed(device=device)  # a no-op unless a launcher's env names a group
+        if args.tp > 1 or is_distributed():
+            from llm_fine_tune_distributed_tpu_torch.models.configs import load_model_config
+
+            mesh = make_tp_mesh(args.tp, load_model_config(args.model_dir))
+    except ValueError as e:
+        parser.error(str(e))
+    out = print if is_primary_host() else (lambda *a, **k: None)
 
     from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
     from llm_fine_tune_distributed_tpu_torch.infer import (
@@ -130,7 +158,7 @@ def run_ask_cli(
 
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     on_card = device.type == "cuda"
-    print(f"Loading model from {args.model_dir} ...")
+    out(f"Loading model from {args.model_dir} ...")
     t0 = time.monotonic()
     before = torch.cuda.memory_allocated(device) if on_card else 0
     params, model_config = load_model_dir(args.model_dir, device=device, dtype=compute_dtype)
@@ -141,16 +169,18 @@ def run_ask_cli(
                                                     dtype=compute_dtype)
         draft = {"draft_params": draft_params, "draft_config": draft_config}
     generator = Generator(params, model_config, load_tokenizer_dir(args.model_dir),
-                          compute_dtype=compute_dtype, device=device, **draft)
+                          compute_dtype=compute_dtype, device=device, mesh=mesh, **draft)
+    del params, draft  # under --tp a rank keeps only its slices
     if on_card:
         torch.cuda.synchronize(device)
-    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    weight_bytes = sum(t.numel() * t.element_size() for t in generator.params.values())
     allocated = (f", memory_allocated +{torch.cuda.memory_allocated(device) - before} bytes"
                  if on_card else "")
-    print(f"Loaded in {time.monotonic() - t0:.3f} s: {weight_bytes} bytes of weights on "
-          f"{device} ({compute_dtype}, quantize {args.quantize}{allocated})")
+    shard = f", rank 0 of tp {mesh.tensor_size}" if mesh is not None else ""
+    out(f"Loaded in {time.monotonic() - t0:.3f} s: {weight_bytes} bytes of weights on "
+        f"{device} ({compute_dtype}, quantize {args.quantize}{allocated}{shard})")
     if args.draft_dir:
-        print(f"Draft model for speculation: {args.draft_dir}")
+        out(f"Draft model for speculation: {args.draft_dir}")
 
     gen = GenerationConfig(
         max_new_tokens=args.max_new_tokens, do_sample=not args.greedy,
@@ -161,15 +191,15 @@ def run_ask_cli(
         {"role": "system", "content": WILDERNESS_EXPERT_SYSTEM_PROMPT},
         {"role": "user", "content": question},
     ]
-    print(f"\nQuestion: {question}\n")
+    out(f"\nQuestion: {question}\n")
     t0 = time.monotonic()
     ids = generator.generate_ids(generator.encode_chat(messages, **(template_kwargs or {})),
                                  gen, seed=args.seed)
     answer = generator.decode_reply(ids)
     seconds = time.monotonic() - t0
-    print(f"Answer: {answer}")
-    print(f"[ask] {len(ids)} tokens in {seconds:.3f} s ({len(ids) / seconds:.2f} tokens/s)")
+    out(f"Answer: {answer}")
+    out(f"[ask] {len(ids)} tokens in {seconds:.3f} s ({len(ids) / seconds:.2f} tokens/s)")
     if args.speculative and generator.last_acceptance_rate is not None:
-        print(f"[speculative] {generator.last_spec_steps} sequential forwards, "
+        out(f"[speculative] {generator.last_spec_steps} sequential forwards, "
               f"draft acceptance {100 * generator.last_acceptance_rate:.0f}%")
     return 0

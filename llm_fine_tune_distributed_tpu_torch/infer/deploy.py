@@ -391,9 +391,11 @@ class HotSwapManager:
 
     def _capture(self, weights: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Host copies of the values resident at ``weights``' leaves, read
-        off replica 0 (a completed roll leaves every replica equal)."""
-        params = self.engines[0].params
-        return {k: params[k].detach().to("cpu", copy=True) for k in weights}
+        off replica 0 (a completed roll leaves every replica equal), whole
+        (``resident_params``: under a multi-process ``--tp`` gathered from
+        every rank's slices)."""
+        resident = self.engines[0].resident_params(list(weights))
+        return {k: v.detach().to("cpu", copy=True) for k, v in resident.items()}
 
     # ------------------------------------------------------ auto-rollback
 

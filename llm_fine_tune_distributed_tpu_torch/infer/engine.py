@@ -146,8 +146,19 @@ pool's block scales too, so that the drained pool serves as a new one
 would (the JAX pool keeps stale scales). A failed apply leaves the old
 weights serving and raises to the caller; a retryable restart keeps the
 staged swap, a terminal failure fails it. Host-tier entries are stamped
-with the fingerprint, so an entry of another generation misses. Not
-ported: the multi-host swap bridge.
+with the fingerprint, so an entry of another generation misses.
+
+Tensor parallelism across processes (``infer/multihost.py``): a Generator
+whose mesh spans processes (``--tp N > 1``) serves only behind a
+``SlotBridge`` (``bridge=``); the engine announces each dispatch over it
+just before making it (``_startup``, the prefill, a paged chunk and final
+chunk, the decode step, the draft step, the spec step), and the other ranks
+mirror it (``follow_slots``); an adapter registry's pool writes go over it
+too (``AdapterRegistry.on_write``), and so does a hot-swap: rank 0 builds
+its new dict first, then broadcasts the raw leaves, which every rank
+re-quantizes and slices itself (``Generator.shard_leaf``);
+``resident_params`` gathers the whole leaves for the deploy manager. The
+host tier is refused under a bridge.
 """
 
 from __future__ import annotations
@@ -179,6 +190,7 @@ from llm_fine_tune_distributed_tpu_torch.infer.errors import (
     UnknownAdapterError,
     is_retryable_failure,
 )
+from llm_fine_tune_distributed_tpu_torch.infer.multihost import request_knobs
 from llm_fine_tune_distributed_tpu_torch.infer.paged import NULL_BLOCK, BlockAllocator, PrefixCache
 from llm_fine_tune_distributed_tpu_torch.infer.routing import REPLICA_ROLES
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
@@ -254,7 +266,7 @@ def _cow_swap_tree(params: dict, updates) -> Tuple[dict, int]:
     return out, len(updates)
 
 
-def _requantize_updates(params: dict, updates) -> list:
+def _requantize_updates(params: dict, updates, shard=None) -> list:
     """Published full-precision ``<module>.kernel`` leaves whose resident
     form is quantized (``--quantize int8``: ``kernel_int8`` +
     ``kernel_int8_scale``; ``--quantize nf4``: ``kernel_nf4`` and its absmax
@@ -262,13 +274,16 @@ def _requantize_updates(params: dict, updates) -> list:
     the resident block size (in-dim over the absmax rows) and double-quant
     setting; the shapes come out equal to the resident ones. A leaf that
     cannot be reconciled raises ``ServingError`` naming the mode. Updates of
-    plain resident leaves pass through."""
+    plain resident leaves pass through. ``shard(name, leaf)`` (a rank under
+    ``--tp``: ``Generator.shard_leaf``) takes the rank's slice of each
+    whole leaf, after the quantization, as the load does."""
+    shard = shard or (lambda name, t: t)
     out = []
     for name, value in updates:
         fmt = ("int8" if f"{name}_int8" in params
                else "nf4" if f"{name}_nf4" in params else None)
         if name in params or fmt is None:
-            out.append((name, value))  # plain leaf, or a bad name _cow_swap_tree reports
+            out.append((name, shard(name, value)))  # plain, or a bad name _cow_swap_tree reports
             continue
         codes = params[f"{name}_{fmt}"]
         try:
@@ -287,7 +302,8 @@ def _requantize_updates(params: dict, updates) -> list:
         for suffix in suffixes:
             if suffix not in q:
                 continue
-            sib, new = f"{name}_{suffix}", q[suffix]
+            sib = f"{name}_{suffix}"
+            new = shard(sib, q[suffix])
             if sib not in params or tuple(params[sib].shape) != tuple(new.shape):
                 have = tuple(params[sib].shape) if sib in params else "absent"
                 raise ServingError(
@@ -391,7 +407,7 @@ class ContinuousBatchingEngine:
                  flight_dir: Optional[str] = None, trace_log: Optional[str] = None,
                  trace_log_max_mb: float = 0.0, slo_policy: Optional[SloPolicy] = None,
                  slo_sample_interval_s: float = 1.0, role: str = "mixed", adapters=None,
-                 adapter_quota: int = 0):
+                 adapter_quota: int = 0, bridge=None):
         """The supervision settings are the JAX engine's: ``restart_backoff_s``
         (doubling per failure in the window, capped at
         ``restart_backoff_max_s``), ``circuit_threshold`` failures within
@@ -406,13 +422,30 @@ class ContinuousBatchingEngine:
         pool in a disaggregated fleet. ``adapters`` (an ``AdapterRegistry``
         over this generator's weights, owned by this engine) serves tenants'
         LoRA adapters; ``adapter_quota`` bounds each tenant's requests in
-        flight (0: unbounded). The first generation's device state is built
-        here, so the cache exists when the constructor returns."""
+        flight (0: unbounded). ``bridge`` (``infer/multihost.SlotBridge``)
+        announces every dispatch to the follower ranks of a tensor-parallel
+        mesh that spans processes; such a generator needs one. The first
+        generation's device state is built here, so the cache exists when
+        the constructor returns."""
         if role not in REPLICA_ROLES:
             raise ValueError(f"unknown replica role {role!r} (expected one of {REPLICA_ROLES})")
         if priority_default not in PRIORITY_TIERS:
             raise ValueError(f"unknown priority_default {priority_default!r} "
                              f"(expected one of {PRIORITY_TIERS})")
+        if getattr(generator, "_multihost", False) and bridge is None:
+            raise ValueError(
+                "process-spanning generator without a slot bridge: the continuous/paged "
+                "engines serve a multi-process --tp mesh only behind the sharded-engine tick "
+                "protocol: pass bridge=SlotBridge(generator) here (the server wires this for "
+                "--tp > 1 with --engine continuous|paged; followers run "
+                "infer.multihost.follow_slots)")
+        if bridge is not None and adapters is not None:
+            # every pool write (a load, a restart's rebuild) is announced with
+            # its factors before any rank touches its pool slice
+            adapters.on_write = bridge.adapter_write
+        # tensor parallelism across processes: every dispatch is announced
+        # first, so the followers enter the same forward in the same order
+        self._bridge = bridge
         self._generator = generator
         # the weights this engine serves: the generator's at first, a new
         # dict after each hot-swap (fleet siblings keep theirs until they
@@ -696,6 +729,16 @@ class ContinuousBatchingEngine:
         without the adapter pools)."""
         return self._params
 
+    def resident_params(self, names=None) -> dict:
+        """The whole resident leaves ``names`` (all of them by default): this
+        engine's own under one process; under a multi-process ``--tp``
+        gathered from every rank's slices over the bridge (a hot-swap's
+        capture and the publish's fingerprint need the whole leaves)."""
+        names = list(self._params) if names is None else list(names)
+        if self._bridge is None:
+            return {k: self._params[k] for k in names}
+        return self._bridge.gather(self._params, names)
+
     def request_weight_swap(self, weights: dict, *, fingerprint: Optional[str] = None,
                             step: Optional[int] = None, timeout: Optional[float] = None) -> dict:
         """Stage ``weights`` (``{leaf name: host tensor or array}``) for an
@@ -828,7 +871,7 @@ class ContinuousBatchingEngine:
         analysis of its decode program; zeros before the first tick."""
         sums = self._decode_work.sums  # one read: whole ticks
         itemsize, _, scale_itemsize = self._kv_geometry
-        flops, nbytes = decode_work_cost(self._generator.config, sums,
+        flops, nbytes = decode_work_cost(self._shard_config(), sums,
                                          weight_bytes=self._weight_bytes, kv_itemsize=itemsize,
                                          scale_itemsize=scale_itemsize,
                                          adapter_bytes=self._adapter_slot_bytes)
@@ -1207,6 +1250,8 @@ class ContinuousBatchingEngine:
         the card: the slot cache and state, the draft model's cache, and the
         slot bookkeeping. Any earlier cache is dropped first, so the card
         never holds two at once."""
+        if self._bridge is not None:
+            self._bridge.startup(**self._startup_geometry())
         self._drop_device_state()
         self._slot_req: List[Optional[Request]] = [None] * self._slots
         self._slot_tokens: List[List[int]] = [[] for _ in range(self._slots)]
@@ -1220,6 +1265,16 @@ class ContinuousBatchingEngine:
         if self._mt is not None:
             self._mt.rebuild()  # the resident adapters survive a restart
         self._startup_draft()
+
+    def _shard_config(self):
+        """The model config of this rank's slice (the whole model's without
+        tensor parallelism): the decode cost's geometry."""
+        return getattr(self._generator, "shard_config", self._generator.config)
+
+    def _startup_geometry(self) -> dict:
+        """What the followers rebuild at a startup (the bridge's header)."""
+        return {"kind": 0, "slots": self._slots, "buf_len": self._buf_len,
+                "spec_k": self._spec_k, "use_draft": self._use_draft}
 
     def _startup_draft(self) -> None:
         """The draft model's dense per-slot cache dies with the target's; a
@@ -1390,8 +1445,14 @@ class ContinuousBatchingEngine:
         cuda = device.type == "cuda"
         mem0 = torch.cuda.memory_allocated(device) if cuda else None
         try:
-            updates = _requantize_updates(self._params, swap.updates)
+            changed = swap.fingerprint is None or swap.fingerprint != self._weight_fingerprint
+            updates = _requantize_updates(self._params, swap.updates,
+                                          shard=getattr(self._generator, "shard_leaf", None))
             new_params, updated = _cow_swap_tree(self._params, updates)
+            if self._bridge is not None:
+                # the raw leaves, after rank 0's own build succeeded: every
+                # follower re-quantizes and slices them the same way
+                self._bridge.swap(swap.updates, cache_invalidated=changed)
             if cuda:
                 torch.cuda.synchronize(device)  # the copies are on the card before it is live
             old, self._params = self._params, new_params
@@ -1401,7 +1462,6 @@ class ContinuousBatchingEngine:
                 self._mt.rebind(new_params)
             self._state["params"] = self._mt.params if self._mt is not None else new_params
             del old, updates, new_params
-            changed = swap.fingerprint is None or swap.fingerprint != self._weight_fingerprint
             if changed:
                 self._invalidate_prefix_cache()
             self._weight_fingerprint = swap.fingerprint
@@ -1794,6 +1854,11 @@ class ContinuousBatchingEngine:
         self.recorder.record("admit", request=req.id, slot=slot, prompt_tokens=plen)
         padded = np.zeros((1, plan["bucket"]), np.int64)
         padded[0, :plen] = plan["prompt"]
+        draft = self._use_draft and req.gen.speculative_lookup > 0
+        if self._bridge is not None:
+            self._bridge.prefill(plan["bucket"], plen, slot, req.seed,
+                                 request_knobs(req.gen, req.adapter_idx), padded,
+                                 draft_padded=padded if draft else None)
         first = self._generator.slot_prefill(self._cache, self._state, padded, plen, slot,
                                              req.gen, req.seed, **self._adapter_kw(req))
         self._now = time.monotonic()  # slot_prefill read its token: synced
@@ -1802,7 +1867,7 @@ class ContinuousBatchingEngine:
             req.trace.mark("prefill", self._now)
         if self._watchdog is not None:
             self._watchdog.poke(self._decode_index)
-        if self._use_draft and req.gen.speculative_lookup > 0:
+        if draft:
             # the draft's row sees the prompt before the slot's first tick
             self._generator.draft_slot_prefill(self._dcache, padded, slot)
         self._slot_req[slot] = req
@@ -1899,7 +1964,10 @@ class ContinuousBatchingEngine:
         t0 = time.monotonic()
         self._next_decode()
         self._record_dispatch()
-        toks = self._generator.slot_step(self._cache, self._state, self._live.copy())
+        live = self._live.copy()
+        if self._bridge is not None:
+            self._bridge.step(live)
+        toks = self._generator.slot_step(self._cache, self._state, live)
         self._tick_done(t0)  # slot_step returns tokens on the host: synced
         self._emit_tokens(toks)
 
@@ -1947,6 +2015,8 @@ class ContinuousBatchingEngine:
                 start[slot] = s0
                 n_draft[slot] = want
         if n_draft.any():
+            if self._bridge is not None:
+                self._bridge.draft_step(window, start)
             return self._generator.draft_slot_step(self._dcache, self._state, window, start), n_draft
         return drafts, n_draft
 
@@ -1957,7 +2027,10 @@ class ContinuousBatchingEngine:
         self._next_decode()
         drafts, n_draft = self._propose_drafts()
         self._record_dispatch(n_draft)
-        toks, n_emit = self._generator.spec_slot_step(self._cache, self._state, self._live.copy(),
+        live = self._live.copy()
+        if self._bridge is not None:
+            self._bridge.spec_step(live, drafts, n_draft)
+        toks, n_emit = self._generator.spec_slot_step(self._cache, self._state, live,
                                                       drafts, n_draft)
         self._tick_done(t0)  # the step read its tokens back: synced
         self._emit_spec(toks, n_emit, n_draft)
@@ -2127,6 +2200,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         """``overload``: the base engine's admission, deadline, priority,
         brownout, supervision, observability and role settings."""
         slots = max(1, int(slots))
+        if host_tier is not None and overload.get("bridge") is not None:
+            raise ValueError(
+                "a host KV tier under a multi-process --tp: block contents live sharded across "
+                "the ranks, so a round trip through rank 0's host would be wrong (the JAX "
+                "server builds no tier with a slot bridge)")
         self._host_tier = host_tier
         self._block_len = max(1, int(block_len))
         self._prefill_chunk = max(1, int(prefill_chunk))
@@ -2165,6 +2243,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _init_state(self):
         return self._generator.init_paged_state(self._slots, self._num_blocks, self._block_len,
                                                 kv_quant=self._kv_quant)
+
+    def _startup_geometry(self) -> dict:
+        return {**super()._startup_geometry(), "kind": 1, "num_blocks": self._num_blocks,
+                "block_len": self._block_len, "table_blocks": self._table_blocks,
+                "kv_quant_int8": self._kv_quant == "int8"}
 
     def _kv_cost_geometry(self, cache: dict) -> tuple:
         entry = cache["layers"]["0"]
@@ -2334,6 +2417,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         table = self._table[task.slot: task.slot + 1]
         if remaining > C:
             chunk = np.asarray(prompt[task.next: task.next + C], np.int64)[None, :]
+            if self._bridge is not None:
+                self._bridge.paged_chunk(table, chunk, task.next, req.adapter_idx)
             gen.paged_prefill_chunk(self._cache, self._state, table, chunk, task.next,
                                     **self._adapter_kw(req))
             task.next += C
@@ -2355,6 +2440,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         padded[0, :remaining] = prompt[task.next:]
         seen_row = np.zeros((1, gen.config.vocab_size), bool)
         seen_row[0, np.asarray(prompt, np.intp)] = True
+        dpad = None
+        if self._use_draft and req.gen.speculative_lookup > 0:
+            # the draft keeps a dense row even here: mirror the whole prompt
+            dbucket = min(-(-task.plen // self._bucket) * self._bucket, self._buf_len)
+            dpad = np.zeros((1, dbucket), np.int64)
+            dpad[0, : task.plen] = prompt
+        if self._bridge is not None:
+            self._bridge.paged_final(bucket, task.next, task.plen, task.slot, req.seed,
+                                     request_knobs(req.gen, req.adapter_idx), table, padded,
+                                     seen_row, draft_padded=dpad)
         first = gen.paged_prefill_final(
             self._cache, self._state, table, padded, task.next, task.plen,
             seen_row, task.slot, req.gen, req.seed, **self._adapter_kw(req),
@@ -2368,11 +2463,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             req.trace.mark("prefill", self._now)
         if self._watchdog is not None:
             self._watchdog.poke(self._decode_index)
-        if self._use_draft and req.gen.speculative_lookup > 0:
-            # the draft keeps a dense row even here: mirror the whole prompt
-            dbucket = min(-(-task.plen // self._bucket) * self._bucket, self._buf_len)
-            dpad = np.zeros((1, dbucket), np.int64)
-            dpad[0, : task.plen] = prompt
+        if dpad is not None:
             gen.draft_slot_prefill(self._dcache, dpad, task.slot)
         # register the prompt's FULL blocks for reuse before emitting (the
         # first token may already finish the request and free the slot)
@@ -2411,7 +2502,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         t0 = time.monotonic()
         self._next_decode()
         self._record_dispatch()
-        toks = self._generator.paged_step(self._cache, self._state, self._live.copy(), tables)
+        live = self._live.copy()
+        if self._bridge is not None:
+            self._bridge.paged_step(live, tables)
+        toks = self._generator.paged_step(self._cache, self._state, live, tables)
         self._tick_done(t0)  # paged_step returns tokens on the host: synced
         self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)
         self._emit_tokens(toks)
@@ -2424,7 +2518,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._next_decode()
         drafts, n_draft = self._propose_drafts()
         self._record_dispatch(n_draft)
-        toks, n_emit = self._generator.spec_paged_step(self._cache, self._state, self._live.copy(),
+        live = self._live.copy()
+        if self._bridge is not None:
+            self._bridge.spec_paged_step(live, tables, drafts, n_draft)
+        toks, n_emit = self._generator.spec_paged_step(self._cache, self._state, live,
                                                        tables, drafts, n_draft)
         self._tick_done(t0)  # the step read its tokens back: synced
         self.stats.gauge_max("peak_blocks_in_use", self._allocator.used_count)

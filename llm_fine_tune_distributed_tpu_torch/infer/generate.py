@@ -71,8 +71,39 @@ from llm_fine_tune_distributed_tpu_torch.models.transformer import (
     insert_cache_row,
     unembed,
 )
+from llm_fine_tune_distributed_tpu_torch.parallel.sharding import (
+    kv_heads_of_rank,
+    local_model_config,
+    shard_leaf,
+    shard_params,
+)
+from llm_fine_tune_distributed_tpu_torch.runtime.mesh import make_serving_mesh
 
 _PROMPT_BUCKET = 256
+
+
+def make_tp_mesh(tp: int, model_config: Optional[ModelConfig] = None):
+    """The tensor-parallel serving mesh of ``--tp``: every rank of the
+    process group one shard (one process per device, so ``tp > 1`` always
+    spans processes). ``ValueError`` when ``tp`` is not the group's size, or
+    ``tp > 1`` without a group (the launcher's env names one). With
+    ``model_config``, a ``tp`` that does not divide the kv heads warns, as
+    in the JAX package: each rank then keeps the kv head(s) its query heads
+    read, so a kv head is held by ``tp / num_kv_heads`` ranks."""
+    import warnings
+
+    if model_config is not None and tp > 1:
+        kv_heads_of_rank(model_config, tp, 0)  # a geometry no rank can hold raises here
+        if model_config.num_kv_heads % tp != 0:
+            warnings.warn(
+                f"--tp {tp} does not divide num_kv_heads={model_config.num_kv_heads}: "
+                "KV-cache leaves fall back to head replication (each kv head is held by "
+                f"the {tp // model_config.num_kv_heads} ranks whose query heads read it; "
+                f"weights still shard {tp}-way). For a sharded cache pick a tp that "
+                f"divides {model_config.num_kv_heads}.",
+                stacklevel=2,
+            )
+    return make_serving_mesh(tp)
 
 
 def pool_leaves(pool: dict) -> List[torch.Tensor]:
@@ -119,7 +150,15 @@ class Generator:
         device=None,
         draft_params=None,
         draft_config: Optional[ModelConfig] = None,
+        mesh=None,
     ):
+        """``mesh`` (``make_tp_mesh``): serve this rank's slice of the
+        weights (``parallel/sharding.shard_params``; the draft model's too)
+        with a cache on its local kv heads; every forward issues the tensor
+        group's collectives and every rank gets the full logits, so each
+        samples the same tokens. ``_multihost`` is set when the mesh spans
+        processes (``tp > 1``): the slot engines then need a tick bridge
+        (``infer/multihost.py``)."""
         if (draft_params is None) != (draft_config is None):
             raise ValueError("draft_params and draft_config come together")
         if draft_config is not None and draft_config.vocab_size != model_config.vocab_size:
@@ -129,14 +168,27 @@ class Generator:
             )
         check_supported(model_config)
         self.device = resolve_device(device)
-        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.mesh = mesh
+        tp = mesh.tensor_size if mesh is not None else 1
+        self._multihost = tp > 1
+        own = shard_params(params, mesh, model_config) if mesh is not None else params
+        self.params = {k: v.to(self.device) for k, v in own.items()}
+        # the rank's slice: its heads, MLP width and vocab rows (the caches'
+        # shapes and the decode cost's)
+        self.shard_config = local_model_config(model_config, tp)
         self._draft_config = draft_config
+        self._draft_shard_config = None
         self._draft_params = None
         if draft_params is not None:
             check_supported(draft_config)
+            self._draft_shard_config = local_model_config(draft_config, tp)
             # a draft that is the target's own dict stays one copy
-            self._draft_params = (self.params if draft_params is params else
-                                  {k: v.to(self.device) for k, v in draft_params.items()})
+            if draft_params is params:
+                self._draft_params = self.params
+            else:
+                own = shard_params(draft_params, mesh, draft_config) if mesh is not None else draft_params
+                self._draft_params = {k: v.to(self.device) for k, v in own.items()}
+        del own
         self.config = model_config
         self.tokenizer = tokenizer
         self.compute_dtype = compute_dtype
@@ -168,6 +220,19 @@ class Generator:
         """True when a draft model is attached (speculation drafts with it)."""
         return self._draft_params is not None
 
+    def shard_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole leaf ``name`` (itself without a
+        mesh): a hot-swap's update, sliced as the load sliced the weights."""
+        if self.mesh is None:
+            return t
+        return shard_leaf(name, t, self.config, self.mesh.tensor_size, self.mesh.tensor_index)
+
+    def _forward(self, *args, **kwargs):
+        return forward(*args, mesh=self.mesh, **kwargs)
+
+    def _unembed(self, *args, **kwargs):
+        return unembed(*args, mesh=self.mesh, **kwargs)
+
     @property
     def draft_params(self):
         """The draft model's parameter dict, or None."""
@@ -177,10 +242,10 @@ class Generator:
 
     def _step_logits(self, token_ids: torch.Tensor, cache: dict, cache_pos) -> torch.Tensor:
         """Feed ``token_ids`` [b, s] at ``cache_pos``; the last position's logits."""
-        hidden, _ = forward(self.params, token_ids, self.config, cache=cache,
+        hidden, _ = self._forward(self.params, token_ids, self.config, cache=cache,
                             cache_pos=cache_pos, compute_dtype=self.compute_dtype,
                             output_hidden=True)
-        return unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
+        return self._unembed(self.params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
 
     def _prompt_prefill(self, prompts: List[List[int]], slack: int, gen: GenerationConfig,
                         rng: torch.Generator):
@@ -196,11 +261,11 @@ class Generator:
         ids = self._tensor(padded)
         lens = self._tensor(np.array([len(p) for p in prompts], np.int64))
         rows = torch.arange(b, device=self.device)
-        cache = init_cache(self.config, b, bucket + slack, dtype=self.compute_dtype,
+        cache = init_cache(self.shard_config, b, bucket + slack, dtype=self.compute_dtype,
                            device=self.device)
-        hidden, _ = forward(self.params, ids, self.config, cache=cache, cache_pos=0,
+        hidden, _ = self._forward(self.params, ids, self.config, cache=cache, cache_pos=0,
                             compute_dtype=self.compute_dtype, output_hidden=True)
-        logits = unembed(self.params, hidden[rows, lens - 1], self.config,
+        logits = self._unembed(self.params, hidden[rows, lens - 1], self.config,
                          compute_dtype=self.compute_dtype)
         valid = torch.arange(bucket, device=self.device)[None, :] < lens[:, None]
         safe_ids = torch.where(valid, ids, ids[:, :1])
@@ -296,18 +361,18 @@ class Generator:
         dmc, dparams, dtype = self._draft_config, self._draft_params, self.compute_dtype
         start = (pos - (K + 1)).clamp(min=0)
         win = torch.gather(ids_buf, 1, start[:, None] + torch.arange(K + 1, device=self.device))
-        dh, _ = forward(dparams, win, dmc, cache=dcache, cache_pos=start, compute_dtype=dtype,
+        dh, _ = self._forward(dparams, win, dmc, cache=dcache, cache_pos=start, compute_dtype=dtype,
                         output_hidden=True)
         cur_h = dh[rows, pos - 1 - start]
         spec_seen = seen.clone()
         penalty = gen.repetition_penalty
         dbuf = torch.zeros(b, K, dtype=torch.long, device=self.device)
-        dbuf[:, 0] = self._propose_greedy(unembed(dparams, cur_h, dmc, compute_dtype=dtype),
+        dbuf[:, 0] = self._propose_greedy(self._unembed(dparams, cur_h, dmc, compute_dtype=dtype),
                                           spec_seen, penalty)
         for i in range(1, K):
-            dh, _ = forward(dparams, dbuf[:, i - 1: i], dmc, cache=dcache, cache_pos=pos + i - 1,
+            dh, _ = self._forward(dparams, dbuf[:, i - 1: i], dmc, cache=dcache, cache_pos=pos + i - 1,
                             compute_dtype=dtype, output_hidden=True)
-            dbuf[:, i] = self._propose_greedy(unembed(dparams, dh[:, -1], dmc, compute_dtype=dtype),
+            dbuf[:, i] = self._propose_greedy(self._unembed(dparams, dh[:, -1], dmc, compute_dtype=dtype),
                                               spec_seen, penalty)
         return dbuf
 
@@ -334,9 +399,9 @@ class Generator:
         if self.has_draft:
             # the draft sees the whole prompt; the re-ingest window keeps it
             # in step with the accepted tokens
-            dcache = init_cache(self._draft_config, b, buf_len, dtype=self.compute_dtype,
+            dcache = init_cache(self._draft_shard_config, b, buf_len, dtype=self.compute_dtype,
                                 device=self.device)
-            forward(self._draft_params, ids, self._draft_config, cache=dcache, cache_pos=0,
+            self._forward(self._draft_params, ids, self._draft_config, cache=dcache, cache_pos=0,
                     compute_dtype=self.compute_dtype, output_hidden=True)
         valid = torch.arange(pb, device=self.device)[None, :] < lens[:, None]
         # each row's tokens, prompt and generated, at their positions
@@ -355,9 +420,9 @@ class Generator:
             else:
                 draft = self._lookup_draft(ids_buf, pos, K)
             inputs = torch.cat([ids_buf[rows, pos - 1][:, None], draft], dim=1)
-            hidden, _ = forward(self.params, inputs, self.config, cache=cache, cache_pos=pos - 1,
+            hidden, _ = self._forward(self.params, inputs, self.config, cache=cache, cache_pos=pos - 1,
                                 compute_dtype=self.compute_dtype, output_hidden=True)
-            logits_all = unembed(self.params, hidden, self.config, compute_dtype=self.compute_dtype)
+            logits_all = self._unembed(self.params, hidden, self.config, compute_dtype=self.compute_dtype)
             n_acc = torch.zeros(b, dtype=torch.long, device=self.device)
             active = alive
             for i in range(K + 1):
@@ -475,7 +540,7 @@ class Generator:
     def init_slot_state(self, slots: int, buf_len: int):
         """Fresh (cache, state) for a ``slots``-wide persistent decode over a
         dense ``[slots, buf_len]`` cache."""
-        cache = init_cache(self.config, slots, buf_len, dtype=self.compute_dtype,
+        cache = init_cache(self.shard_config, slots, buf_len, dtype=self.compute_dtype,
                            device=self.device)
         return cache, self._fresh_slot_state(slots)
 
@@ -526,12 +591,12 @@ class Generator:
         state's pooled view. Returns the first token."""
         ids = self._tensor(prompt_ids).long()
         params = self._view(state)
-        small = init_cache(self.config, 1, ids.shape[1], dtype=self.compute_dtype,
+        small = init_cache(self.shard_config, 1, ids.shape[1], dtype=self.compute_dtype,
                            device=self.device)
-        hidden, _ = forward(params, ids, self.config, cache=small, cache_pos=0,
+        hidden, _ = self._forward(params, ids, self.config, cache=small, cache_pos=0,
                             compute_dtype=self.compute_dtype, output_hidden=True,
                             adapter_idx=self._one_adapter(adapter_idx))
-        logits = unembed(params, hidden[:, prompt_len - 1], self.config,
+        logits = self._unembed(params, hidden[:, prompt_len - 1], self.config,
                          compute_dtype=self.compute_dtype)
         seen_row = torch.zeros(1, self.config.vocab_size, dtype=torch.bool, device=self.device)
         seen_row[0, ids[0, :prompt_len]] = True
@@ -573,10 +638,10 @@ class Generator:
         [slots] on the host."""
         pos = state["pos"]
         params = self._view(state)
-        hidden, _ = forward(params, state["last"][:, None], self.config, cache=cache,
+        hidden, _ = self._forward(params, state["last"][:, None], self.config, cache=cache,
                             cache_pos=pos, compute_dtype=self.compute_dtype, output_hidden=True,
                             adapter_idx=self._row_adapters(state, live))
-        logits = unembed(params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
+        logits = self._unembed(params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
         next_pos = (pos + 1).clamp(max=cache["layers"]["0"]["k"].shape[1] - 1)
         return self._advance_slots(logits, state, live, next_pos).cpu().numpy()
 
@@ -586,7 +651,7 @@ class Generator:
                          kv_quant: str = "none"):
         """Fresh (pool, state) for a ``slots``-wide persistent decode."""
         pool = init_paged_cache(
-            self.config, num_blocks, block_len, dtype=self.compute_dtype,
+            self.shard_config, num_blocks, block_len, dtype=self.compute_dtype,
             kv_quant=kv_quant, device=self.device,
         )
         return pool, self._fresh_slot_state(slots)
@@ -607,7 +672,7 @@ class Generator:
         """Ingest one prefill chunk [1, C] of one prompt through its block
         table [1, nb], starting at logical position ``chunk_start``, with
         adapter slot ``adapter_idx`` in the state's pooled view."""
-        forward(
+        self._forward(
             self._view(state), self._tensor(chunk_ids).long(), self.config, cache=pool,
             cache_pos=int(chunk_start), block_tables=self._tensor(table),
             compute_dtype=self.compute_dtype, output_hidden=True,
@@ -623,14 +688,14 @@ class Generator:
         ``seen_row`` [1, vocab] covers the whole prompt; ``adapter_idx`` is
         the request's adapter slot in the state's pooled view."""
         params = self._view(state)
-        hidden, _ = forward(
+        hidden, _ = self._forward(
             params, self._tensor(chunk_ids).long(), self.config, cache=pool,
             cache_pos=int(chunk_start), block_tables=self._tensor(table),
             compute_dtype=self.compute_dtype, output_hidden=True,
             adapter_idx=self._one_adapter(adapter_idx),
         )
         last_h = hidden[:, prompt_len - 1 - chunk_start]
-        logits = unembed(params, last_h, self.config, compute_dtype=self.compute_dtype)
+        logits = self._unembed(params, last_h, self.config, compute_dtype=self.compute_dtype)
         return self._first_token(logits, self._tensor(seen_row), state, slot, prompt_len, gen,
                                  seed, adapter_idx)
 
@@ -642,12 +707,12 @@ class Generator:
         [slots] on the host."""
         pos = state["pos"]
         params = self._view(state)
-        hidden, _ = forward(
+        hidden, _ = self._forward(
             params, state["last"][:, None], self.config, cache=pool, cache_pos=pos,
             block_tables=self._tensor(tables), compute_dtype=self.compute_dtype,
             output_hidden=True, adapter_idx=self._row_adapters(state, live),
         )
-        logits = unembed(params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
+        logits = self._unembed(params, hidden[:, -1], self.config, compute_dtype=self.compute_dtype)
         return self._advance_slots(logits, state, live, pos + 1).cpu().numpy()
 
     # ------------------------------------------------------- host KV tier
@@ -802,10 +867,10 @@ class Generator:
         drafts, n_draft_t, inputs = self._spec_inputs(state, drafts, n_draft)
         pos = state["pos"]
         params = self._view(state)
-        hidden, _ = forward(params, inputs, self.config, cache=cache, cache_pos=pos,
+        hidden, _ = self._forward(params, inputs, self.config, cache=cache, cache_pos=pos,
                             compute_dtype=self.compute_dtype, output_hidden=True,
                             adapter_idx=self._row_adapters(state, live))
-        logits_all = unembed(params, hidden, self.config, compute_dtype=self.compute_dtype)
+        logits_all = self._unembed(params, hidden, self.config, compute_dtype=self.compute_dtype)
         toks, n_emit, live_t = self._spec_verify(state, live, drafts, n_draft_t, logits_all)
         buf_len = cache["layers"]["0"]["k"].shape[1]
         state["pos"] = torch.where(live_t, (pos + n_emit).clamp(max=buf_len - 1), pos)
@@ -821,10 +886,10 @@ class Generator:
         drafts, n_draft_t, inputs = self._spec_inputs(state, drafts, n_draft)
         pos = state["pos"]
         params = self._view(state)
-        hidden, _ = forward(params, inputs, self.config, cache=pool, cache_pos=pos,
+        hidden, _ = self._forward(params, inputs, self.config, cache=pool, cache_pos=pos,
                             block_tables=self._h2d(tables), compute_dtype=self.compute_dtype,
                             output_hidden=True, adapter_idx=self._row_adapters(state, live))
-        logits_all = unembed(params, hidden, self.config, compute_dtype=self.compute_dtype)
+        logits_all = self._unembed(params, hidden, self.config, compute_dtype=self.compute_dtype)
         toks, n_emit, live_t = self._spec_verify(state, live, drafts, n_draft_t, logits_all)
         state["pos"] = torch.where(live_t, pos + n_emit, pos)
         return self._spec_readback(toks, n_emit)
@@ -838,16 +903,16 @@ class Generator:
         """A fresh dense ``[slots, buf_len]`` cache for the draft model."""
         if self._draft_config is None:
             raise ValueError("no draft model attached")
-        return init_cache(self._draft_config, slots, buf_len, dtype=self.compute_dtype,
+        return init_cache(self._draft_shard_config, slots, buf_len, dtype=self.compute_dtype,
                           device=self.device)
 
     def draft_slot_prefill(self, dcache, prompt_ids: np.ndarray, slot: int) -> None:
         """Ingest a right-padded prompt [1, bucket] into the draft model's
         row ``slot``."""
         ids = self._tensor(prompt_ids).long()
-        small = init_cache(self._draft_config, 1, ids.shape[1], dtype=self.compute_dtype,
+        small = init_cache(self._draft_shard_config, 1, ids.shape[1], dtype=self.compute_dtype,
                            device=self.device)
-        forward(self._draft_params, ids, self._draft_config, cache=small, cache_pos=0,
+        self._forward(self._draft_params, ids, self._draft_config, cache=small, cache_pos=0,
                 compute_dtype=self.compute_dtype, output_hidden=True)
         insert_cache_row(dcache, small, slot)
 
@@ -865,18 +930,18 @@ class Generator:
         start = self._h2d(start).long()
         pos = state["pos"]
         rows = torch.arange(window.shape[0], device=self.device)
-        dh, _ = forward(dparams, self._h2d(window).long(), dmc, cache=dcache, cache_pos=start,
+        dh, _ = self._forward(dparams, self._h2d(window).long(), dmc, cache=dcache, cache_pos=start,
                         compute_dtype=dtype, output_hidden=True)
         cur_h = dh[rows, (pos - start).clamp(0, K)]  # a dead row's stale pos: clamped
         spec_seen = state["seen"].clone()
         penalty = state["repetition_penalty"][:, None]
         dbuf = torch.zeros(window.shape[0], K, dtype=torch.long, device=self.device)
-        dbuf[:, 0] = self._propose_greedy(unembed(dparams, cur_h, dmc, compute_dtype=dtype),
+        dbuf[:, 0] = self._propose_greedy(self._unembed(dparams, cur_h, dmc, compute_dtype=dtype),
                                           spec_seen, penalty)
         for i in range(1, K):
-            dh, _ = forward(dparams, dbuf[:, i - 1: i], dmc, cache=dcache, cache_pos=pos + i,
+            dh, _ = self._forward(dparams, dbuf[:, i - 1: i], dmc, cache=dcache, cache_pos=pos + i,
                             compute_dtype=dtype, output_hidden=True)
-            dbuf[:, i] = self._propose_greedy(unembed(dparams, dh[:, -1], dmc, compute_dtype=dtype),
+            dbuf[:, i] = self._propose_greedy(self._unembed(dparams, dh[:, -1], dmc, compute_dtype=dtype),
                                               spec_seen, penalty)
         return dbuf
 

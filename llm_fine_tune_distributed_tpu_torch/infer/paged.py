@@ -7,6 +7,14 @@ behind the pool (``HostBlockTier``, shared by the replicas of a fleet).
 Pool layout contract (``models/transformer.init_paged_cache``): block id 0
 is the NULL block, never allocated, mapped into every unused block-table
 entry. Writes routed to it land in cells whose positions are always masked.
+
+Under tensor parallelism (``--tp``) every rank holds the same blocks, ids and
+tables, each block holding only the rank's kv heads (``Generator.
+shard_config``): the block count and this bookkeeping are rank 0's and the
+followers', while a block's bytes, the pool's and the engine's
+``memory_breakdown`` (which sums the leaves) are per rank. The host tier is
+not built then: a block's contents live split across the ranks (as in the
+JAX server).
 """
 
 from __future__ import annotations

@@ -152,8 +152,27 @@ when the error rate in that window after a swap reaches
 
 Run: ``python -m llm_fine_tune_distributed_tpu_torch.infer.server
 --model-dir DIR [--engine continuous|paged|window] [--quantize-kv int8]
-[--quantize int8|nf4] [--speculative K [--draft-dir DIR]]``. It serves on the
-GPU; ``--device cpu`` runs on the CPU.
+[--quantize int8|nf4] [--speculative K [--draft-dir DIR]] [--tp N]``. It
+serves on the GPU; ``--device cpu`` runs on the CPU.
+
+Tensor parallelism (``--tp N``, as in the JAX server): N processes, one per
+device, under ``torchrun --nproc-per-node N`` or a PyTorchJob's env; each
+rank holds its slice of the weights and of the KV cache or block pool
+(``infer/generate.make_tp_mesh``). Rank 0 binds HTTP and runs the engine;
+the other ranks never bind and mirror its dispatches (``infer/multihost.py``:
+``follow_slots`` behind the slot engines' ``SlotBridge``, ``follow`` behind
+the window engine's ``MultihostCoordinator``) until rank 0 stops them at
+shutdown. ``/healthz`` answers 503 once a follower is gone (the orchestrator
+restarts every rank; no rank restarts another). ``--adapter-dir`` serves
+tenants on every rank (each rank's registry holds its slices of the pools;
+rank 0 announces each pool write), and ``--publish-watch-dir`` swaps on
+every rank (rank 0 broadcasts the raw leaves; the fingerprint and the
+rollback capture read the leaves gathered whole). Refused with ``--tp > 1``
+(the JAX server's message): ``--replicas`` and an elastic fleet; and
+``--quantize nf4`` (not ported). The host tier is not built, as in the JAX
+server. A ``"speculative"`` request on a slot engine started without
+``--speculative`` answers 400: the window fallback is not part of the tick
+protocol.
 ``--quantize int8`` stores the block linears as weight-only int8, ``nf4`` as
 NF4 (``ops/int8.maybe_quantize``); adapter pools and a draft model stay in
 full precision. ``build_server`` serves a Generator that is
@@ -175,6 +194,7 @@ from typing import Optional
 from urllib.parse import parse_qs
 
 import torch
+import torch.distributed as dist
 
 from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
 from llm_fine_tune_distributed_tpu_torch.device import resolve_device
@@ -195,8 +215,16 @@ from llm_fine_tune_distributed_tpu_torch.infer.generate import (
     Generator,
     load_model_dir,
     load_tokenizer_dir,
+    make_tp_mesh,
+)
+from llm_fine_tune_distributed_tpu_torch.infer.multihost import (
+    MultihostCoordinator,
+    SlotBridge,
+    follow,
+    follow_slots,
 )
 from llm_fine_tune_distributed_tpu_torch.infer.paged import HostBlockTier
+from llm_fine_tune_distributed_tpu_torch.models.configs import load_model_config
 from llm_fine_tune_distributed_tpu_torch.infer.routing import REPLICA_ROLES, ROUTING_POLICIES
 from llm_fine_tune_distributed_tpu_torch.infer.sampling import GenerationConfig
 from llm_fine_tune_distributed_tpu_torch.observe.capacity import (
@@ -217,6 +245,10 @@ from llm_fine_tune_distributed_tpu_torch.ops.int8 import (
     QUANTIZE_MODES,
     check_quantize_mode,
     maybe_quantize,
+)
+from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
+    initialize_distributed,
+    is_distributed,
 )
 
 log = logging.getLogger(__name__)
@@ -322,6 +354,29 @@ def check_deploy(engine: str, publish_watch_dir: Optional[str]) -> None:
             "boundary, which the window batcher does not have; drop "
             "--publish-watch-dir or pick --engine continuous|paged"
         )
+
+
+def check_tp(engine: str, tp: int = 1, replicas: int = 1, max_replicas: int = 0,
+             quantize: str = "none") -> None:
+    """Refuse what ``--tp N > 1`` does not serve, before any weight loads:
+    the JAX server's refusal of a fleet, and NF4 weights (not ported under a
+    multi-process mesh)."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"--tp must be >= 1, got {tp}")
+    if tp == 1:
+        return
+    if engine != "window" and (int(replicas or 1) > 1 or int(max_replicas or 0) > int(replicas or 1)):
+        raise ValueError(
+            "--replicas/--max-replicas scale-out is per-host and "
+            "cannot share one slot bridge; multi-host --tp serving "
+            "runs ONE sharded engine per fleet — run one server per "
+            "slice behind an external balancer instead"
+        )
+    if quantize == "nf4":
+        raise NotImplementedError(
+            "--quantize nf4 with --tp > 1 is not ported (stacked NF4 layouts: "
+            "llm_fine_tune_distributed_tpu.ops.nf4 and parallel/sharding.py have them)")
 
 
 def check_fleet(engine: str, replicas: int = 1, routing: str = "prefix",
@@ -516,6 +571,8 @@ def build_server(
     canary_window_s: float = 0.0,
     canary_min_requests: int = 8,
     control: Optional[dict] = None,
+    bridge=None,
+    coordinator=None,
 ):
     """Start an ``engine`` over ``generator`` and bind an HTTP server to it.
     Returns ``(httpd, engine)``; the caller runs ``run_server(httpd,
@@ -541,7 +598,11 @@ def build_server(
     ``publish_watch_dir`` ... ``canary_min_requests`` are the live
     deployment settings: a ``HotSwapManager`` (``httpd.deploy_manager``,
     also ``control["deploy"]``) polls the directory, started once the
-    engines are up and stopped with the server."""
+    engines are up and stopped with the server. On rank 0 of a
+    multi-process ``--tp`` mesh, ``bridge`` (``multihost.SlotBridge``) goes
+    to the slot engine and ``coordinator`` (``multihost.
+    MultihostCoordinator``) is the window engine's generator; the server
+    releases the followers when it shuts down."""
     speculative_k = max(0, int(speculative_k or 0))
     check_engine(engine, quantize_kv, speculative_k)
     check_adapters(engine, adapter_dir)
@@ -556,7 +617,8 @@ def build_server(
     # the window engine always exists: under --engine window it serves
     # everything, beside a slot engine started without --speculative it
     # serves the speculative requests
-    window = BatchingEngine(generator, max_batch=max_batch, window_ms=batch_window_ms)
+    window = BatchingEngine(coordinator or generator, max_batch=max_batch,
+                            window_ms=batch_window_ms)
     overload = dict(max_queue_depth=max_queue_depth, queue_deadline_s=queue_deadline_s,
                     priority_default=priority_default, age_promote_s=age_promote_s,
                     brownout_queue_wait_s=brownout_queue_wait_s,
@@ -581,6 +643,7 @@ def build_server(
         ``replica_roles`` assigns by index and replicas past it are mixed.
         In a fleet each replica writes its flight dumps and traces apart."""
         kw = dict(overload, role=role or (roles[i] if i < len(roles) else "mixed"),
+                  bridge=bridge,
                   slo_policy=SloPolicy(ttft_p99_s=slo_ttft_p99_s,
                                        inter_token_p99_s=slo_inter_token_p99_s,
                                        error_rate=slo_error_rate, availability=slo_availability,
@@ -592,7 +655,8 @@ def build_server(
             # written in place, so a shared one would let one replica's
             # eviction pull a slot another decodes with
             kw["adapters"] = AdapterRegistry(generator.params, adapter_dir,
-                                             max_adapters=max_adapters)
+                                             max_adapters=max_adapters, mesh=generator.mesh,
+                                             model_config=generator.config)
             kw["adapter_quota"] = adapter_capacity
         if fleet:
             if kw["flight_dir"]:
@@ -649,7 +713,7 @@ def build_server(
         canary = (CanaryJudge(window_s=canary_window_s, min_requests=canary_min_requests)
                   if canary_window_s > 0 else None)
         deploy_mgr = HotSwapManager(
-            engine, CheckpointWatcher(publish_watch_dir, base_params=lambda: first.params),
+            engine, CheckpointWatcher(publish_watch_dir, base_params=lambda: first.resident_params()),
             poll_s=publish_poll_s, auto_rollback_window_s=auto_rollback_window_s,
             auto_rollback_error_rate=auto_rollback_error_rate, canary=canary)
         deploy_mgr.start()
@@ -697,7 +761,12 @@ def build_server(
         def do_GET(self):  # noqa: N802 (stdlib casing)
             path, _, query = self.path.partition("?")
             if path == "/healthz":
-                if drain_state["draining"]:
+                wedged = any(getattr(x, "wedged", False) for x in (bridge, coordinator))
+                if wedged:
+                    # a follower rank is gone: no rank serves again until the
+                    # orchestrator restarts every rank (multihost.py)
+                    self._send(503, {"error": "follower hosts wedged; restart fleet"})
+                elif drain_state["draining"]:
                     # SIGTERM: stop routing here while the work in flight ends
                     self._send(503, {"status": "draining"},
                                headers={"Retry-After": max(1, int(drain_timeout_s))})
@@ -883,6 +952,17 @@ def build_server(
                     "speculative requests fall back to the window "
                     "engine, which has no adapter pool); drop "
                     "'speculative' or restart with --speculative K"
+                )
+            if (bridge is not None and gen_kwargs.get("speculative_lookup", 0) > 0
+                    and not speculative_k):
+                # the window engine's fallback is not part of the slot
+                # bridge's tick protocol: the followers would never mirror it
+                raise ValueError(
+                    "'speculative' on a multi-host --tp slot engine needs "
+                    "the server started with --speculative K (the window "
+                    "fallback is single-host only); retry without "
+                    "'speculative' or restart with "
+                    "--engine continuous|paged --tp N --speculative K"
                 )
             priority, deadline_s = parse_overload_fields(req, kind)
             if ((priority is not None or deadline_s is not None)
@@ -1113,6 +1193,7 @@ def build_server(
     httpd.profiler_capture = capture
     httpd.autoscaler = autoscaler
     httpd.deploy_manager = deploy_mgr
+    httpd.release_followers = (bridge or coordinator).stop if (bridge or coordinator) else None
     if window is not engine:
         httpd.window_engine = window
 
@@ -1170,6 +1251,8 @@ def run_server(httpd, engine) -> None:
             signal.signal(signal.SIGTERM, prev)
         httpd.server_close()
         engine.close()
+        if getattr(httpd, "release_followers", None) is not None:
+            httpd.release_followers()  # the follower ranks return and exit
         if httpd.drain_state["draining"]:
             print("[serve] drained; exiting", flush=True)
 
@@ -1177,7 +1260,7 @@ def run_server(httpd, engine) -> None:
 def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 8080,
           quantize: str = "none", engine: str = "continuous", quantize_kv: str = "none",
           speculative_k: int = 0, draft_dir: Optional[str] = None,
-          adapter_dir: Optional[str] = None, **engine_kw) -> None:
+          adapter_dir: Optional[str] = None, tp: int = 1, **engine_kw) -> None:
     """Load ``model_dir`` onto ``device`` and serve it until interrupted or
     drained (SIGTERM). ``adapter_dir`` serves the LoRA adapters under it.
     Weights and compute are bf16 on the GPU and f32 on the CPU (which has no
@@ -1185,14 +1268,21 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     ``quantize="int8"`` or ``"nf4"`` then stores the block linears as int8
     or NF4 codes.
     ``draft_dir`` (with ``speculative_k``) loads a draft model of the same
-    vocabulary beside the target."""
+    vocabulary beside the target. ``tp`` > 1 shards the model over the
+    process group the launcher's env describes (module docstring): rank 0
+    serves, the others follow and return when rank 0 shuts down; under a
+    launcher's env ``tp`` 1 is a group of one, whose forward still issues
+    its collectives."""
     check_quantize_mode(quantize)  # before the model loads
     check_engine(engine, quantize_kv, speculative_k, draft_dir)
     check_adapters(engine, adapter_dir)
     check_deploy(engine, engine_kw.get("publish_watch_dir"))
     check_fleet(engine, **{k: engine_kw[k] for k in _FLEET_FLAGS if k in engine_kw})
+    check_tp(engine, tp, engine_kw.get("replicas", 1), engine_kw.get("max_replicas", 0), quantize)
     device = resolve_device(device)
+    initialize_distributed(device=device)  # a no-op unless a launcher's env names a group
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    mesh = make_tp_mesh(tp, load_model_config(model_dir)) if tp > 1 or is_distributed() else None
     params, model_config = load_model_dir(model_dir, device=device, dtype=compute_dtype)
     params = maybe_quantize(params, quantize)
     draft = {}
@@ -1201,11 +1291,40 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
         draft = {"draft_params": draft_params, "draft_config": draft_config}
     generator = Generator(
         params, model_config, load_tokenizer_dir(model_dir),
-        compute_dtype=compute_dtype, device=device, **draft,
+        compute_dtype=compute_dtype, device=device, mesh=mesh, **draft,
     )
+    del params, draft  # a rank keeps only its slices (the Generator's)
+    if mesh is not None:
+        print(f"[serve] rank {mesh.tensor_index} of {mesh.tensor_size}: tensor-parallel decode "
+              f"over {mesh.tensor_size} process(es), {dist.get_backend(mesh.tensor_group)}",
+              flush=True)
+    bridge = coordinator = None
+    if generator._multihost:
+        if engine == "window":
+            if mesh.tensor_index != 0:
+                # followers never serve HTTP: they mirror rank 0's batches
+                print(f"[serve] rank {mesh.tensor_index}: following rank 0", flush=True)
+                follow(generator)
+                return
+            coordinator = MultihostCoordinator(generator)
+        else:
+            if mesh.tensor_index != 0:
+                print(f"[serve] rank {mesh.tensor_index}: following rank 0's {engine} slot "
+                      "engine", flush=True)
+                follow_slots(generator, adapters=AdapterRegistry(
+                    generator.params, adapter_dir, max_adapters=engine_kw.get("max_adapters", 8),
+                    mesh=mesh, model_config=generator.config) if adapter_dir else None)
+                return
+            bridge = SlotBridge(generator)
+        if engine_kw.get("host_tier_mb"):
+            # the JAX server builds no tier beside a slot bridge: the blocks
+            # live sharded across the ranks
+            print("[serve] --host-tier-mb is off under a multi-process --tp", flush=True)
+            engine_kw["host_tier_mb"] = 0
     httpd, eng = build_server(generator, host=host, port=port, engine=engine,
                               quantize_kv=quantize_kv, speculative_k=speculative_k,
-                              adapter_dir=adapter_dir, **engine_kw)
+                              adapter_dir=adapter_dir, bridge=bridge, coordinator=coordinator,
+                              **engine_kw)
     spec = f", speculative {speculative_k}" + (f" drafting with {draft_dir}" if draft_dir else "")
     fleet = (f", {len(eng.replicas)} replicas ({eng.routing})"
              if isinstance(eng, EngineFleet) else "")
@@ -1409,6 +1528,10 @@ def main(argv: Optional[list] = None) -> int:
     parser.add_argument("--port", type=int, default=8080, help="0 picks a free port")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda (default) or cpu")
+    parser.add_argument("--tp", type=int, default=1, metavar="N",
+                        help="tensor-parallel inference over N processes, one per device (run "
+                             "under torchrun --nproc-per-node N or a PyTorchJob): each rank holds "
+                             "its shard of the weights and the KV cache; rank 0 serves HTTP")
     args = parser.parse_args(argv)
     fleet_kw = {k: getattr(args, k) for k in _FLEET_FLAGS}
     try:
@@ -1416,7 +1539,8 @@ def main(argv: Optional[list] = None) -> int:
         check_adapters(args.engine, args.adapter_dir)
         check_deploy(args.engine, args.publish_watch_dir)
         check_fleet(args.engine, **fleet_kw)
-    except ValueError as e:
+        check_tp(args.engine, args.tp, args.replicas, args.max_replicas, args.quantize)
+    except (ValueError, NotImplementedError) as e:
         parser.error(str(e))
     try:
         device = resolve_device(args.device)
@@ -1448,7 +1572,7 @@ def main(argv: Optional[list] = None) -> int:
         auto_rollback_window_s=args.auto_rollback_window_s,
         auto_rollback_error_rate=args.auto_rollback_error_rate,
         canary_window_s=args.canary_window_s, canary_min_requests=args.canary_min_requests,
-        **fleet_kw,
+        tp=args.tp, **fleet_kw,
     )
     return 0
 

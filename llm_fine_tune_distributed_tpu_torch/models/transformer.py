@@ -15,8 +15,22 @@ int8 kernels (inference), NF4 kernels (QLoRA's frozen base and ``--quantize
 nf4``), LoRA adapters (a single adapter's
 ``lora_*`` leaves, or the adapter registry's pools with a per-row
 ``adapter_idx``), the dense KV cache (``init_cache``) and the block-paged
-KV cache in bf16 or int8 (``init_paged_cache``). Other branches raise
-``NotImplementedError``.
+KV cache in bf16 or int8 (``init_paged_cache``), and tensor-parallel
+serving (``mesh``: each rank's slice of the weights from
+``parallel/sharding.shard_params``, the cache on its local kv heads). Other
+branches raise ``NotImplementedError``.
+
+Tensor parallelism (Megatron, as the JAX rules place it): q/k/v and
+gate/up are column-parallel, so a rank computes its own heads and MLP
+columns, and its head counts come from the sliced shapes; o_proj and
+down_proj are row-parallel, so their outputs are partial sums, all-reduced
+over the tensor group before the bias is added once. The embedding lookup
+is a gather from the rank's vocab rows, zero elsewhere, all-reduced (each
+element has one nonzero addend: exact); the unembed gives the rank's vocab
+slice of the logits, all-gathered into the full row. A step issues two
+all-reduces per layer, the embedding's all-reduce and the logits'
+all-gather (74 for SmolLM3-3B's 36 layers). Without a tensor group the
+forward issues none and is the one-device forward.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ import functools
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
@@ -41,6 +56,10 @@ from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import int8_w8a8_matmul
 from llm_fine_tune_distributed_tpu_torch.ops.nf4 import QUANT_SUFFIXES, nf4_matmul
 from llm_fine_tune_distributed_tpu_torch.ops.norms import rms_norm
 from llm_fine_tune_distributed_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
+    tp_all_gather_last,
+    tp_all_reduce_,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -130,7 +149,8 @@ def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
 
 
 def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
-            trunk_matmul=None, adapter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+            trunk_matmul=None, adapter_idx: Optional[torch.Tensor] = None,
+            tensor_group=None) -> torch.Tensor:
     """x @ kernel (+ LoRA) (+ bias) in ``compute_dtype``. The int8 siblings
     ``kernel_int8`` / ``kernel_int8_scale`` run through ``trunk_matmul``
     (w8a8) in the frozen trunk (``trunk_matmul`` given) and through
@@ -149,7 +169,9 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
     picked by ``adapter_idx [batch]`` with the same arithmetic (a gather,
     two batched products, the scale), so tenants co-batch in one forward.
     Pool row 0 is all zeros: its rows' delta is exactly zero. Both come
-    before the bias."""
+    before the bias. ``tensor_group`` (a row-parallel projection under
+    tensor parallelism) sums the partial products over the group before the
+    bias."""
     codes = params.get(name + ".kernel_int8")
     if codes is not None:
         q = {"int8": codes, "int8_scale": params[name + ".kernel_int8_scale"]}
@@ -173,6 +195,8 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
         b = params[name + ".lora_b_pool"].index_select(0, adapter_idx).to(compute_dtype)
         sc = params[name + ".lora_scale_pool"].index_select(0, adapter_idx).to(compute_dtype)
         y = y + torch.bmm(torch.bmm(x, a), b) * sc[:, None, None]
+    if tensor_group is not None:
+        tp_all_reduce_(y, tensor_group)
     bias = params.get(name + ".bias")
     if bias is not None:
         y = y + bias.to(compute_dtype)
@@ -199,10 +223,12 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
            block_tables, padding_mask, write_slots, segment_ids, *, config: ModelConfig,
            compute_dtype,
            decode_attention, attention_impl: str, attention_fn, trunk_matmul=None,
-           adapter_idx=None):
+           adapter_idx=None, tensor_group=None):
     """One transformer block; updates a cache ``entry`` (paged, or dense at
     ``write_slots``) in place. ``adapter_idx`` picks each row's pooled
-    adapter in the seven projections."""
+    adapter in the seven projections. The head counts are the weights' (a
+    rank's own under tensor parallelism); ``tensor_group`` all-reduces the
+    row-parallel o_proj and down_proj."""
     b, s, _ = x.shape
     d = config.resolved_head_dim
     eps = config.rms_norm_eps
@@ -210,10 +236,12 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
     linear = functools.partial(_linear, params=params, compute_dtype=compute_dtype,
                                trunk_matmul=trunk_matmul, adapter_idx=adapter_idx)
 
+    row_linear = functools.partial(linear, tensor_group=tensor_group)
+
     hid = rms_norm(x, params[p + "input_layernorm.weight"], eps)
-    q = linear(hid, name=p + "self_attn.q_proj").reshape(b, s, config.num_heads, d)
-    k = linear(hid, name=p + "self_attn.k_proj").reshape(b, s, config.num_kv_heads, d)
-    v = linear(hid, name=p + "self_attn.v_proj").reshape(b, s, config.num_kv_heads, d)
+    q = linear(hid, name=p + "self_attn.q_proj").reshape(b, s, -1, d)
+    k = linear(hid, name=p + "self_attn.k_proj").reshape(b, s, -1, d)
+    v = linear(hid, name=p + "self_attn.v_proj").reshape(b, s, -1, d)
     if config.uses_rope(i):
         q, k = apply_rope(q, k, cos, sin)
 
@@ -255,8 +283,8 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
             entry["k"][blk, off] = k.to(entry["k"].dtype)  # in place
             entry["v"][blk, off] = v.to(entry["v"].dtype)
             flat = block_tables.reshape(-1).long()
-            k = entry["k"][flat].reshape(b, nb * L, config.num_kv_heads, d)
-            v = entry["v"][flat].reshape(b, nb * L, config.num_kv_heads, d)
+            k = entry["k"][flat].reshape(b, nb * L, -1, d)
+            v = entry["v"][flat].reshape(b, nb * L, -1, d)
     if out is None:
         if explicit_mask is not None:
             out = xla_attention(q, k, v, mask=explicit_mask, causal=False)
@@ -264,12 +292,12 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
             out = attention_fn(q, k, v, impl=attention_impl, padding_mask=padding_mask,
                                segment_ids=segment_ids, causal=True)
 
-    out = out.reshape(b, s, config.num_heads * d)
-    x = x + linear(out, name=p + "self_attn.o_proj")
+    out = out.reshape(b, s, -1)
+    x = x + row_linear(out, name=p + "self_attn.o_proj")
     hid = rms_norm(x, params[p + "post_attention_layernorm.weight"], eps)
     gate = linear(hid, name=p + "mlp.gate_proj")
     up = linear(hid, name=p + "mlp.up_proj")
-    return x + linear(F.silu(gate) * up, name=p + "mlp.down_proj")
+    return x + row_linear(F.silu(gate) * up, name=p + "mlp.down_proj")
 
 
 def _dots_no_batch_policy(ctx, op, *args, **kwargs):
@@ -327,6 +355,7 @@ def forward(
     frozen_compute: str = "bf16",
     trunk_matmul=int8_w8a8_matmul,
     adapter_idx: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """Run the model.
 
@@ -376,6 +405,12 @@ def forward(
     the kernels' wrappers; a caller may pass another function of the same
     signature (a plain version, for a comparison).
 
+    ``mesh`` (a serving mesh, ``runtime/mesh.make_serving_mesh``) with a
+    tensor group: ``params`` are this rank's slices (``shard_params``), the
+    cache holds its local kv heads, and the forward issues the tensor-
+    parallel collectives (module docstring). The logits are the full row on
+    every rank.
+
     Returns ``(logits [batch, seq, vocab] in logits_dtype, cache)``, or the
     final-norm hidden states in ``compute_dtype`` with ``output_hidden``.
     The cache is updated in place and returned.
@@ -400,7 +435,8 @@ def forward(
         positions = (torch.arange(s, device=device)[None, :] + offset).expand(b, s)
     positions = positions.to(device=device, dtype=torch.long)
 
-    x = F.embedding(input_ids, params["model.embed_tokens.weight"]).to(compute_dtype)
+    group = mesh.tensor_group if mesh is not None else None
+    x = _embed(params, input_ids, compute_dtype, group)
     cos, sin = rope_cos_sin(positions, config.resolved_head_dim, config.rope_theta, config=config)
 
     explicit_mask = write_slots = None
@@ -433,7 +469,7 @@ def forward(
             _block, params, i, config=config, compute_dtype=compute_dtype,
             decode_attention=decode_attention, attention_impl=attention_impl,
             attention_fn=attention_fn, trunk_matmul=trunk_matmul if i < trunk else None,
-            adapter_idx=adapter_idx,
+            adapter_idx=adapter_idx, tensor_group=group,
         )
         args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask,
                 write_slots, segment_ids)
@@ -447,18 +483,40 @@ def forward(
     x = rms_norm(x, params["model.norm.weight"], config.rms_norm_eps)
     if output_hidden:
         return x.to(compute_dtype), cache
-    return unembed(params, x, config, compute_dtype=compute_dtype, logits_dtype=logits_dtype), cache
+    return unembed(params, x, config, compute_dtype=compute_dtype, logits_dtype=logits_dtype,
+                   mesh=mesh), cache
+
+
+def _embed(params: Params, input_ids: torch.Tensor, compute_dtype, group) -> torch.Tensor:
+    """The embedding rows of ``input_ids`` in ``compute_dtype``. Under a
+    tensor group the table is this rank's vocab rows: ids outside them give
+    zero rows, and the all-reduce sums the one rank's row that holds each."""
+    table = params["model.embed_tokens.weight"]
+    if group is None:
+        return F.embedding(input_ids, table).to(compute_dtype)
+    rows = table.shape[0]
+    local = input_ids - dist.get_rank(group) * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), table).to(compute_dtype)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=compute_dtype, device=x.device))
+    return tp_all_reduce_(x, group)
 
 
 def unembed(params: Params, hidden: torch.Tensor, config: ModelConfig, *,
-            compute_dtype=torch.bfloat16, logits_dtype=torch.float32) -> torch.Tensor:
-    """hidden [..., hidden] -> logits [..., vocab], tied or not."""
+            compute_dtype=torch.bfloat16, logits_dtype=torch.float32, mesh=None) -> torch.Tensor:
+    """hidden [..., hidden] -> logits [..., vocab], tied or not. Under a
+    ``mesh``'s tensor group the weights give this rank's vocab slice, and
+    one all-gather makes the full row on every rank."""
     h = hidden.to(compute_dtype)
     if config.tie_word_embeddings:
         logits = h @ params["model.embed_tokens.weight"].to(compute_dtype).T
     else:
         logits = h @ params["lm_head.kernel"].to(compute_dtype)
-    return logits.to(logits_dtype)
+    logits = logits.to(logits_dtype)
+    group = mesh.tensor_group if mesh is not None else None
+    if group is None:
+        return logits
+    return tp_all_gather_last(logits, group, mesh.tensor_size, mesh.tensor_index)
 
 
 def init_cache(config: ModelConfig, batch_size: int, max_len: int, *,

@@ -9,6 +9,13 @@ per-output-channel absmax/127). The frozen trunk's w8a8 matmul reads them
 loaded model, CLI flag ``--quantize int8``): the codes are dequantized in
 f32, cast once to the compute dtype and multiplied there. Embedding, lm_head
 and norms stay full precision.
+Under ``--tp`` (``parallel/sharding.shard_params``) a rank's codes are its
+kernel's slice, and the per-output-channel scale goes with the columns: it
+is sliced beside a column-parallel kernel (q/k/v, gate/up) and stays whole
+beside a row-parallel one (o, down), whose rows are the input channels. So
+quantizing then slicing gives the codes and scales of slicing then
+quantizing a column-parallel kernel, and the row-parallel partial products
+sum to the whole kernel's.
 
 KV pool: the pool keeps the bf16 layout's [num_blocks, block_len, kv_heads,
 head_dim] shape in int8, plus an absmax pool [num_blocks, kv_heads] f32

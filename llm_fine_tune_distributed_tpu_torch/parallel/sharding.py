@@ -15,14 +15,26 @@ A spec is a tuple with one entry per leading dim: an axis name, or None
 
 The trainer reads one thing from them: the dim of each trainable leaf that
 the ``fsdp`` axis splits, over which the AdamW state is sharded
-(``fsdp_dim``). The tensor-axis entries, the KV-cache rules and the batch
-specs are kept as data for tensor-parallel serving, which is not ported.
+(``fsdp_dim``). Tensor-parallel serving reads the ``tensor`` entries:
+``shard_params`` gives a rank its slice of every leaf (the JAX
+``shard_params``' addressable shard) and ``local_model_config`` the head
+counts and widths of that slice; ``kv_cache_spec`` is the KV rules'. The
+batch specs stay data (the port's trainer splits batches itself).
+
+Where the JAX package replicates a leaf whose tensor dim the axis does not
+divide (``_validate_spec``), the port refuses, with one exception: when
+``tp`` does not divide the kv heads, each rank keeps the kv head(s) its
+query heads read (the JAX cache's head replication, without the copies a
+rank does not read), so the paged kernel's ``q head -> kv head`` index
+stays ``i // G`` with the local G.
 """
 
 from __future__ import annotations
 
 import re
 from typing import Dict, Optional, Sequence, Tuple
+
+import torch
 
 Spec = Tuple[Optional[str], ...]
 
@@ -102,3 +114,148 @@ def fsdp_dim(name: str, shape: Sequence[int], mesh_shape: Dict[str, int]) -> Opt
         return None
     spec = leaf_spec(name, shape, mesh_shape)
     return spec.index("fsdp") if "fsdp" in spec else None
+
+
+# ------------------------------------------------------- tensor-parallel serving
+
+_JAX_SHARDING = "llm_fine_tune_distributed_tpu.parallel.sharding.shard_params"
+_KV_PROJ = (".self_attn.k_proj", ".self_attn.v_proj")
+
+
+def kv_cache_spec(name: str, shape: Sequence[int], mesh_shape: Dict[str, int]) -> Spec:
+    """The spec of a dense cache or paged pool leaf named ``name`` (its
+    last dotted part: ``k``, ``v``, ``k_scale``, ``v_scale``): kv heads over
+    ``tensor``, dropped when the axis does not divide them."""
+    dims = KV_LEAF_DIMS.get(name.rsplit(".", 1)[-1])
+    if dims is None or len(dims) != len(shape):
+        return ()
+    return _validate_spec(dims, shape, mesh_shape)
+
+
+def kv_heads_of_rank(config, tp: int, index: int) -> Tuple[int, int]:
+    """(first kv head, count) that rank ``index`` of ``tp`` keeps: its query
+    heads' kv heads. ``ValueError`` when ``tp`` does not divide the query
+    heads, or the ranks would need different kv head counts."""
+    hq, hkv = config.num_heads, config.num_kv_heads
+    if hq % tp:
+        raise ValueError(f"--tp {tp} does not divide the {hq} query heads of {config.name}")
+    group, per_rank = hq // hkv, hq // tp
+    if per_rank % group and group % per_rank:
+        raise ValueError(f"--tp {tp}: the {per_rank} query heads of a rank straddle kv heads "
+                         f"({hq} query heads over {hkv} kv heads)")
+    first = index * per_rank // group
+    return first, max(per_rank // group, 1)
+
+
+def local_model_config(config, tp: int):
+    """The model config of one rank's slice at ``tp``: its query and kv
+    heads, its MLP width and its vocab rows (the head width kept)."""
+    if tp == 1:
+        return config
+    for what, n in (("intermediate size", config.intermediate_size),
+                    ("vocab", config.vocab_size)):
+        if n % tp:
+            raise ValueError(f"--tp {tp} does not divide the {what} {n} of {config.name} (the "
+                             f"JAX {_JAX_SHARDING} replicates such a leaf; the port refuses)")
+    _, hkv = kv_heads_of_rank(config, tp, 0)
+    return config.replace(num_heads=config.num_heads // tp, num_kv_heads=hkv,
+                          intermediate_size=config.intermediate_size // tp,
+                          vocab_size=config.vocab_size // tp, head_dim=config.resolved_head_dim)
+
+
+def _tensor_range(module: str, dim: int, size: int, config, tp: int, index: int):
+    """[start, stop) of rank ``index``'s slice of a ``size``-long tensor dim
+    of ``module``'s kernel: kv heads for k/v, an even split otherwise."""
+    if module.endswith(_KV_PROJ) and dim == 1:
+        first, n = kv_heads_of_rank(config, tp, index)
+        d = config.resolved_head_dim
+        return first * d, (first + n) * d
+    if size % tp:
+        raise ValueError(f"--tp {tp} does not divide dim {dim} ({size}) of {module} (the JAX "
+                         f"{_JAX_SHARDING} replicates it; the port refuses)")
+    n = size // tp
+    return index * n, (index + 1) * n
+
+
+def shard_leaf(name: str, t: torch.Tensor, config, tp: int, index: int) -> torch.Tensor:
+    """Rank ``index`` of ``tp``'s slice of the leaf ``name`` (the rules of
+    ``shard_params``): a copy of its own where it is sliced, ``t`` itself
+    where the leaf stays whole."""
+    module, _, leaf = name.rpartition(".")
+    if tp > 1 and (leaf.startswith(("kernel_nf4", "kernel_absmax")) or "lora_" in leaf):
+        raise NotImplementedError(
+            f"{name}: NF4 and LoRA leaves under --tp {tp} are not ported (the JAX "
+            f"{_JAX_SHARDING} and ops/nf4.py's stacked layouts have them)")
+    spec = param_spec(module + ".kernel", 2) if t.dim() <= 1 else param_spec(name, t.dim())
+    if tp == 1 or "tensor" not in spec:
+        return t
+    dim = spec.index("tensor")
+    if t.dim() <= 1:
+        if dim == 0 or leaf not in ("bias", "kernel_int8_scale"):
+            return t  # beside a row-parallel kernel: whole
+        start, stop = _tensor_range(module, 1, t.shape[0], config, tp, index)
+        return t[start:stop].clone()
+    start, stop = _tensor_range(module, dim, t.shape[dim], config, tp, index)
+    return t.narrow(dim, start, stop - start).clone()
+
+
+def shard_params(params: Dict[str, torch.Tensor], mesh, config) -> Dict[str, torch.Tensor]:
+    """This rank's slice of every leaf on the serving ``mesh``, each a copy
+    of its own (so the whole leaves can be freed): q/k/v/gate/up and
+    ``lm_head`` columns, o/down rows, the embedding's vocab rows, int8 codes
+    like their kernel with the per-channel scales sliced beside a
+    column-parallel kernel and whole beside a row-parallel one, column-
+    parallel biases sliced; norms and the rest whole. ``config`` is the
+    whole model's (the kv heads' mapping). NF4 and LoRA leaves raise at
+    ``tp > 1``."""
+    tp, index = mesh.tensor_size, mesh.tensor_index
+    return {name: shard_leaf(name, t, config, tp, index) for name, t in params.items()}
+
+
+def shard_lora_factors(module: str, a: torch.Tensor, b: torch.Tensor, config, tp: int,
+                       index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank ``index``'s slice of one adapter's factors ``A [in, r]``,
+    ``B [r, out]`` of ``module``, by its kernel's rule: a column-parallel
+    kernel's B by output columns (A whole), a row-parallel kernel's A by
+    input rows (B whole), so that the rank's pooled delta is its share of
+    the whole delta (summed by the row-parallel all-reduce)."""
+    spec = param_spec(module + ".kernel", 2)
+    if tp == 1 or "tensor" not in spec:
+        return a, b
+    if spec.index("tensor") == 1:
+        start, stop = _tensor_range(module, 1, b.shape[1], config, tp, index)
+        return a, b[:, start:stop]
+    start, stop = _tensor_range(module, 0, a.shape[0], config, tp, index)
+    return a[start:stop], b
+
+
+def unshard_leaf(name: str, parts, config, tp: int) -> torch.Tensor:
+    """The whole leaf from every rank's slice (``parts``, in rank order):
+    the inverse of ``shard_leaf``. A kv head several ranks hold (the
+    fallback) is taken once."""
+    if tp == 1:
+        return parts[0]
+    module, _, leaf = name.rpartition(".")
+    t = parts[0]
+    spec = param_spec(module + ".kernel", 2) if t.dim() <= 1 else param_spec(name, t.dim())
+    if "tensor" not in spec:
+        return t
+    dim = spec.index("tensor")
+    if t.dim() <= 1:
+        if dim == 0 or leaf not in ("bias", "kernel_int8_scale"):
+            return t
+        dim = 0
+        kernel_dim = 1
+    else:
+        kernel_dim = dim
+    if module.endswith(_KV_PROJ) and kernel_dim == 1:
+        size = config.num_kv_heads * config.resolved_head_dim
+    else:
+        size = t.shape[dim] * tp
+    shape = list(t.shape)
+    shape[dim] = size
+    whole = torch.empty(shape, dtype=t.dtype, device=t.device)
+    for index, part in enumerate(parts):
+        start, stop = _tensor_range(module, kernel_dim, size, config, tp, index)
+        whole.narrow(dim, start, stop - start).copy_(part)
+    return whole

@@ -1,5 +1,5 @@
-"""Multi-process bootstrap and the collectives of data-parallel training
-(counterpart of the JAX ``runtime/distributed.py``).
+"""Multi-process bootstrap and the collectives of data-parallel training and
+tensor-parallel serving (counterpart of the JAX ``runtime/distributed.py``).
 
 The JAX package starts ``jax.distributed`` from the reference's env names;
 the port starts ``torch.distributed`` from the same names, the ones
@@ -15,9 +15,25 @@ drives one device.
   is no switch between them and no fallback from one to the other.
 - A group that already exists is left alone (the JAX code's "already
   initialized"): a caller may make its own first, and the trainer uses it.
+- NCCL's flight recorder (a per-collective record with its Python stack,
+  for post-mortems of hangs) is off unless the environment asks for it
+  (``TORCH_NCCL_TRACE_BUFFER_SIZE`` / ``TORCH_FR_BUFFER_SIZE``): its stack
+  capture costs ~130 us of host time per collective on the H100 machine
+  (``chip_smoke.py --tp-collective-cost``), and a tensor-parallel decode
+  step issues 74 of them.
 
 The helpers below are what the trainer calls; each is a no-op without a
-process group, so a one-process run issues no collective.
+process group, so a one-process run issues no collective. The tensor
+group's collectives (``tp_all_reduce_``, ``tp_all_gather_last``) are what a
+tensor-parallel forward issues, and ``broadcast_host`` carries the serving
+tick bridge's host arrays (``infer/multihost.py``) over a gloo group made
+beside the main one.
+
+Gloo takes only ``broadcast`` and ``all_reduce`` on CUDA tensors (and its
+``all_gather_into_tensor`` refuses this layout on the CPU), so on a gloo
+group the all-gather along the last dim is an all-reduce of a zeroed full
+buffer that holds each rank's slice in its place: every element has one
+nonzero addend, so the sum is exact.
 """
 
 from __future__ import annotations
@@ -37,6 +53,8 @@ PROCESS_GROUP_TIMEOUT_S = 900.0
 # the gradient all-reduce's flat buffers (leaves at least this large are
 # reduced in place, each on its own)
 BUCKET_BYTES = 256 << 20
+# the NCCL flight recorder's buffer size, under its old and new names
+_FLIGHT_RECORDER_ENV = ("TORCH_NCCL_TRACE_BUFFER_SIZE", "TORCH_FR_BUFFER_SIZE")
 
 
 @dataclass
@@ -81,6 +99,8 @@ def initialize_distributed(environ=None, device=None,
         backend = backend_for(dev)
         if dev.type == "cuda":
             torch.cuda.set_device(local_rank)
+            for name in _FLIGHT_RECORDER_ENV:
+                os.environ.setdefault(name, "0")
         # env:// from the process's own env (torchrun's workers then join its
         # agent's store), tcp:// from an explicit mapping
         init = "env://" if environ is None else f"tcp://{addr}:{port}"
@@ -246,6 +266,40 @@ def all_gather_tensor(t: torch.Tensor) -> torch.Tensor:
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(out, t.contiguous())
     return torch.stack(out)
+
+
+def tp_all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` in place over the tensor group ``group``."""
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def tp_all_gather_last(t: torch.Tensor, group, size: int, index: int) -> torch.Tensor:
+    """Every rank's ``t [..., n]`` side by side along the last dim, in rank
+    order: ``[..., size * n]``. ``index`` is this rank's place in the group."""
+    n = t.shape[-1]
+    if dist.get_backend(group) == "gloo":
+        full = torch.zeros(*t.shape[:-1], size * n, dtype=t.dtype, device=t.device)
+        full[..., index * n: (index + 1) * n] = t
+        dist.all_reduce(full, group=group)
+        return full
+    out = torch.empty((size, *t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out.movedim(0, -2).reshape(*t.shape[:-1], size * n)
+
+
+def broadcast_host(arr, is_source: bool, group):
+    """Rank 0's host array (numpy) on every rank of ``group`` (a gloo
+    group): the others pass an array of the same shape and dtype and get
+    rank 0's values back. Booleans travel as bytes."""
+    import numpy as np
+
+    arr = np.ascontiguousarray(arr)
+    wire = arr.view(np.uint8) if arr.dtype == np.bool_ else arr
+    t = torch.from_numpy(wire.copy() if not is_source else wire)
+    dist.broadcast(t, src=0, group=group)
+    out = t.numpy()
+    return out.view(np.bool_) if arr.dtype == np.bool_ else out
 
 
 def free_port() -> int:

@@ -1,5 +1,5 @@
-"""The device mesh of a data-parallel run (counterpart of the JAX
-``runtime/mesh.py``).
+"""The device mesh of a data-parallel run and of tensor-parallel serving
+(counterpart of the JAX ``runtime/mesh.py``).
 
 The JAX mesh lays every device out over six named axes and lets XLA emit the
 collectives. The port runs one process per device and names the same axes
@@ -12,8 +12,13 @@ ported, and both split the batch:
   master's update and the AdamW moments over the axis (ZeRO-1; the JAX axis
   also shards the leaves themselves, ZeRO-3).
 
-``tensor``, ``seq``, ``pipe`` and ``expert`` larger than 1 raise
-``NotImplementedError``. The JAX package's hybrid multi-slice mesh (the
+A training mesh with ``tensor``, ``seq``, ``pipe`` or ``expert`` larger
+than 1 raises ``NotImplementedError``. Serving shards over ``tensor``
+(``make_serving_mesh``, behind ``infer/generate.make_tp_mesh``): every rank
+of the process group is one tensor-parallel shard, the forward's
+collectives run on ``tensor_group`` (the main group: NCCL for cuda, gloo
+for cpu) and the serving tick bridge's host arrays on ``control_group``, a
+gloo group made beside it. The JAX package's hybrid multi-slice mesh (the
 data axis over DCN between TPU slices) is TPU topology and has no
 counterpart here.
 """
@@ -31,7 +36,7 @@ from llm_fine_tune_distributed_tpu_torch.runtime.distributed import is_distribut
 MESH_AXES = ("data", "pipe", "fsdp", "tensor", "seq", "expert")
 # the axes the port does not shard over, and the JAX code that has them
 UNPORTED_AXES = {
-    "tensor": "parallel/sharding.py's tensor rules and infer/multihost.py",
+    "tensor": "parallel/sharding.py's tensor rules under the trainer's pjit",
     "seq": "parallel/ring_attention.py and parallel/ulysses.py",
     "pipe": "parallel/pipeline.py",
     "expert": "ops/moe.py",
@@ -42,11 +47,15 @@ UNPORTED_AXES = {
 class DeviceMesh:
     """Axis sizes (``shape``, in ``MESH_AXES`` order) over ``size`` ranks,
     this process's ``rank``, and its ``fsdp`` group: the ranks that share
-    its data replica (None: the whole world, or no group at all)."""
+    its data replica (None: the whole world, or no group at all). A serving
+    mesh has ``tensor_group`` (None: no process group, so the forward
+    issues no collective) and, over more than one rank, ``control_group``."""
 
     shape: Dict[str, int]
     rank: int = 0
     fsdp_group: Optional[object] = field(default=None, repr=False)
+    tensor_group: Optional[object] = field(default=None, repr=False)
+    control_group: Optional[object] = field(default=None, repr=False)
 
     @property
     def size(self) -> int:
@@ -68,6 +77,14 @@ class DeviceMesh:
         return self.coords["fsdp"]
 
     @property
+    def tensor_size(self) -> int:
+        return self.shape["tensor"]
+
+    @property
+    def tensor_index(self) -> int:
+        return self.coords["tensor"]
+
+    @property
     def batch_block(self) -> int:
         """This rank's block of the batch, which is split over (data, fsdp)."""
         c = self.coords
@@ -80,9 +97,11 @@ def check_ported_axes(sizes) -> None:
     get = sizes.get if isinstance(sizes, dict) else lambda a: getattr(sizes, a)
     for axis, where in UNPORTED_AXES.items():
         if get(axis) > 1:
+            what = ("tensor-parallel training is not ported; tensor-parallel serving is "
+                    "--tp N" if axis == "tensor" else f"{axis} parallelism is not ported")
             raise NotImplementedError(
                 f"mesh axis {axis}={get(axis)}: the PyTorch trainer shards over data and fsdp "
-                f"only (the JAX package's {where} has it)")
+                f"only: {what} (the JAX package's {where} has it)")
 
 
 def make_mesh(config: Optional[MeshConfig] = None, world: Optional[int] = None,
@@ -110,6 +129,36 @@ def make_mesh(config: Optional[MeshConfig] = None, world: Optional[int] = None,
             if d == mesh.coords["data"]:
                 mesh.fsdp_group = group
     return mesh
+
+
+def make_serving_mesh(tp: int) -> DeviceMesh:
+    """The tensor-parallel serving mesh of ``tp`` ranks: the whole process
+    group, one rank per shard. ``tp > 1`` needs a process group of exactly
+    ``tp`` ranks (``initialize_distributed`` from the launcher's env);
+    ``tp == 1`` in a group of one gives a mesh whose forward still issues
+    its collectives (a one-worker launcher job), and without a group one
+    that issues none. Every rank must call this, in the same order: the
+    control group is made here."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"--tp must be >= 1, got {tp}")
+    grouped = is_distributed()
+    if not grouped:
+        if tp > 1:
+            raise ValueError(
+                f"--tp {tp} needs {tp} processes in a torch.distributed group, one per "
+                "device, and none was started: run under torchrun --nproc-per-node "
+                f"{tp} or a PyTorchJob (WORLD_SIZE/RANK/LOCAL_RANK, MASTER_ADDR/PORT)")
+        return DeviceMesh({a: 1 for a in MESH_AXES}, 0)
+    world = dist.get_world_size()
+    if tp != world:
+        raise ValueError(f"--tp {tp} must equal the process group's size ({world}): one "
+                         "process per tensor-parallel shard")
+    shape = {a: 1 for a in MESH_AXES}
+    shape["tensor"] = tp
+    control = dist.new_group(backend="gloo") if tp > 1 else None
+    return DeviceMesh(shape, dist.get_rank(), tensor_group=dist.group.WORLD,
+                      control_group=control)
 
 
 def data_parallel_size(mesh: DeviceMesh) -> int:

@@ -164,7 +164,7 @@ def no_load(monkeypatch):
      "--speculative K applies to the continuous/paged engines"),
     (["--serve", "--speculative", "2", "--draft-dir", "d", "--engine", "window"],
      "--speculative K applies to the continuous/paged engines"),
-    (["--tp", "2", QUESTION], "make_tp_mesh"),
+    (["--tp", "2", QUESTION], "--tp 2 needs 2 processes in a torch.distributed group"),
     (["--serve", QUESTION], "--serve takes no question"),
     (["--serve", "--greedy", "--top-k", "5"], "--top-k --greedy have no effect with --serve"),
     ([], "a question is required"),
