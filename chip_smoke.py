@@ -153,7 +153,8 @@ and stops with a non-zero exit at the first failure:
    the request decoding on after the stop, with the stop's hold of the
    tick lock and the request's largest inter-token gap printed; (f)
    ``/v1/lineage`` and the window engine's ``/v1/slo`` answer the JAX 404s;
-21. (right after phase 20, on phase 4's generator) the host KV tier, live
+21. (in a process of its own, ``--fleet-only``, beside phases 16-20, on
+   phase 4's weights made there again) the host KV tier, live
    migration and the engine fleet, on paged int8 replicas at phase 4's
    geometry: (a) the 5 full blocks of a ~1.43k-token prompt spilled to a
    1 GiB host tier (pinned) and restored into fresh rows 5 times, bitwise
@@ -177,7 +178,8 @@ and stops with a non-zero exit at the first failure:
    but ``compile``, ``/metrics`` a replica sample of every counter, and
    ``POST /v1/fleet/scale`` 3 -> 2 gives ``memory_allocated`` back within
    1 MiB, then -> 1 under a live stream, which completes.
-22. (right after phase 21, on phase 4's generator) multi-tenant LoRA
+22. (in a process of its own, ``--adapters-only``, beside phases 16-20, on
+   phase 4's weights made there again) multi-tenant LoRA
    serving: three PEFT adapters (r 16, alpha 8, the seven projections, B
    non-zero, from ``torch.Generator`` seeds) written by the port's
    ``save_lora_adapter``; (c) a registry of 3 slots: ``memory_allocated``
@@ -247,9 +249,9 @@ and stops with a non-zero exit at the first failure:
    bytes, the quantization's seconds, the peak below 24b's by at least half
    the block linears' bf16 less NF4 bytes, the first loss within 2% of
    24b's, the export's dequantize-and-merge seconds; (d) DPO on LoRA at 4
-   pairs per microbatch: the first loss ln 2, the ``rewards_*`` and
-   ``eval_rewards_accuracy``, launches 3 x 36 forwards per microbatch (the
-   policy, its replay, the reference); (e) ``ask --quantize nf4`` on 24b's
+   pairs per microbatch, SmolLM3-3B cut to ``RECIPE_DPO_LAYERS``: the first
+   loss ln 2, the ``rewards_*`` and ``eval_rewards_accuracy``, launches 3 x
+   layers forwards per microbatch (the policy, its replay, the reference); (e) ``ask --quantize nf4`` on 24b's
    ``best_model/`` (load seconds, weight bytes below phase 14's int8), and a
    paged int8 server over phase 4's weights in NF4, cut to their first 4
    layers (``NF4_SERVE_LAYERS``), on phase 4's traffic, tokens held by the
@@ -259,23 +261,36 @@ and stops with a non-zero exit at the first failure:
    twice the bf16 rounding of the f32 forward over the dequantized weights,
    and the same path with the nibbles swapped in pairs or each block's
    absmax read from the block before outside that bound.
-25. (after phase 24) data-parallel training across processes: (a) phase
-   8's recipe through ``python -m llm_fine_tune_distributed_tpu_torch.cli``
-   in a process of its own under a PyTorchJob's env for one worker
-   (``RANK=0``, ``WORLD_SIZE=1``, ``MASTER_ADDR``/``MASTER_PORT``), so the
-   trainer takes its data-parallel path over NCCL: the first loss bit for
-   bit phase 8's, the later ones within 0.5%, the step time, samples/s/card
-   and peak beside phase 8's, and the gradient all-reduce's ms per step by
-   CUDA events; (b) two ranks on the one card over gloo (a group this
-   script makes, which the trainer takes as it is), ``data=1, fsdp=2``, at
-   full width and 4 layers in f32, 2 steps, against one process at world 1
-   with the same global batch and peak lr run meanwhile: the losses within
-   1e-5 relative and the updated leaves within 1e-4 of each leaf's max, each
-   rank's AdamW moments (``memory_allocated``) half the world-1 run's for
-   the sharded leaves, the flash launches per rank as derived, every desync
-   check passed and a divergence planted on rank 1 caught on both ranks.
-   Gloo's all-reduce goes through the host: its seconds are printed as the
-   cost of a correctness phase, not of data parallelism.
+25. (checked after phase 24) data-parallel training across processes: (a)
+   phase 8's recipe through ``python -m llm_fine_tune_distributed_tpu_torch.cli``
+   in a process of its own (started before 24d, beside 24d-e and 25b's
+   world-1 run) under a PyTorchJob's env for one worker (``RANK=0``,
+   ``WORLD_SIZE=1``, ``MASTER_ADDR``/``MASTER_PORT``), so the trainer takes
+   its data-parallel path over NCCL: the first loss bit for bit phase 8's,
+   the later ones within 0.5%, the step time, samples/s/card and peak
+   beside phase 8's, and the gradient all-reduce's ms per step by CUDA
+   events; (b) two ranks on the one card over gloo (a group this script
+   makes, which the trainer takes as it is; started after phase 9, they run
+   beside phases 14-23), ``data=1, fsdp=2`` (ZeRO-3: every sharded leaf,
+   trainable and frozen, held as the rank's slice, a block's leaves
+   gathered as it runs, the gradients reduce-scattered), the heartbeat on,
+   at full width and 4 layers in f32, 2 steps, against one process at world
+   1 with the same global batch and peak lr: the losses within 1e-5
+   relative and the updated leaves within 1e-4 of each leaf's max, each
+   rank's leaves and AdamW moments half the world-1 run's for the sharded
+   leaves (tensor bytes exactly; ``memory_allocated`` after the trainer's
+   init within 1% of world 1's less what the rank does not hold, and its
+   peak up to the moments within its slices and one whole leaf: the model
+   is taken one leaf at a time), the flash launches per
+   rank as derived, every desync check passed and a divergence planted on
+   rank 1 caught on both ranks, then a silent rank 1 (its heartbeats
+   stopped) seen by rank 0's detector within its timeout and both ranks
+   stopped at the same step boundary. Gloo goes through the host: its
+   seconds are printed as the cost of a correctness phase, not of data
+   parallelism. Every child is waited for at most about 3x its measured
+   time (``CHILD_BOUND_S``, one table for every child of this script):
+   past it every child of the phase is killed, the tails of their output
+   printed and ``check failed: phase 25b: ...`` raised.
 26. (started right after phase 4, checked right after phase 15, on phase
    4's weights) tensor-parallel serving: phase 4's weights written as a
    checkpoint with the port's codec and both jobs started (they load while
@@ -303,12 +318,25 @@ and stops with a non-zero exit at the first failure:
    kernel against its plain version at the ranks' local head shapes (tp 2:
    8 query heads over 2 kv heads; tp 4: 4 over 1), timed at tp 2's live
    shape beside the bound. Gloo's collectives go through the host: 26b's
-   tick is a correctness phase's, never a cost of tensor parallelism.
+   tick is a correctness phase's, never a cost of tensor parallelism. Also
+   before the server, 26b's ranks serve 24e's weights as ``--quantize nf4
+   --tp 2`` does (quantized whole, then sliced): each rank's NF4 leaves
+   equal to the whole model's slice, 32 greedy tokens through an int8 pool
+   against one process's: the logits within ``TP_NF4_LOGIT_REL_TOL`` of
+   max|logit| at every step of the same context, the tokens by the margin
+   rule bounded by twice one process's distance from the f32 forward over
+   the dequantized weights (its int8 pool's error inside it); paged decode
+   launches 4 x 31.
 
 Times (``time_ms``) are CUDA-event medians after an L2 flush and a spin
-kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last three
-lines are JSON: a summary of the run, ``{"kernels": [...]}``
-(one entry per kernel of the paths) and ``{"ok": true, "device": {...}}``.
+kernel of ``SPIN_MS``, calibrated on the card in phase 1. Its last four
+lines are JSON: the seconds of each phase (``{"phase_seconds": {...},
+"phases_beside_children": {...}}``: the time up to each phase line goes to
+that line's phase; the second names, for each phase that shared the card
+with a child process of this script, those children: its timings are not a
+baseline), a summary of
+the run, ``{"kernels": [...]}`` (one entry per kernel of the paths) and
+``{"ok": true, "device": {...}}``.
 Without a GPU it exits non-zero before printing either.
 
 ``python3 chip_smoke.py --flash-ab DIR [DIR ...]`` times instead the paged
@@ -345,7 +373,7 @@ with) and runs 24a-24e; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --distributed-only`` runs phase 25 alone: it builds
 the flash kernels, trains phase 8 (the record 25a compares with) and runs
-25a-25b; its last line is a JSON summary.
+25b, then 25a beside 25b's world-1 run; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --tp-only`` runs phase 26 alone: it builds the paged
 decode kernel, loads phase 4's weights, serves phase 4 (the record 26a
@@ -369,6 +397,7 @@ them.
 
 from __future__ import annotations
 
+import atexit
 import json
 import re
 import statistics
@@ -434,10 +463,40 @@ def _peaks(name: str):
 
 
 _T0 = time.monotonic()
+# seconds per phase: the time up to each stamp goes to the stamp's phase (the
+# work a phase prints about comes before its line: model inits, loads and
+# kernel builds included)
+PHASE_SECONDS: dict = {}
+_LAST_STAMP = [_T0]
+PHASE_SPANS: list = []  # (phase, start, end) of the time each stamp took
+CHILD_SPANS: list = []  # [label, start, end or None] of each child process
 
 
 def phase(n: int, msg: str) -> None:
-    print(f"[phase {n} +{time.monotonic() - _T0:.1f}s] {msg}", flush=True)
+    now = time.monotonic()
+    PHASE_SECONDS[n] = PHASE_SECONDS.get(n, 0.0) + now - _LAST_STAMP[0]
+    PHASE_SPANS.append((n, _LAST_STAMP[0], now))
+    _LAST_STAMP[0] = now
+    print(f"[phase {n} +{now - _T0:.1f}s] {msg}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """{phase: seconds} so far, in phase order (they sum to the time of the
+    last stamp)."""
+    return {n: round(PHASE_SECONDS[n], 1) for n in sorted(PHASE_SECONDS)}
+
+
+def phases_beside_children() -> dict:
+    """{phase: the child processes (``spawn_child``) alive during any of
+    its time}: those phases' timings were taken on a card and a host that
+    another process shared, so no later run may take them as a baseline
+    (their checks hold all the same: none is a timing check)."""
+    out: dict = {}
+    for n, start, end in PHASE_SPANS:
+        for label, c_start, c_end in CHILD_SPANS:
+            if c_start < end and (c_end is None or c_end > start):
+                out.setdefault(n, set()).add(label)
+    return {n: sorted(out[n]) for n in sorted(out)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1610,7 +1669,9 @@ def profile_ticks(tick, steps):
         tick()
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: every number here is read from device
+    # events, and the host's op events only cost their processing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
             tick()
@@ -1883,14 +1944,16 @@ def int8_weights_serve_phase(tf, gen_mod, server_mod, fa, config, tokenizer, pro
 # phase 17: the golden eval; phase 18: overload control through HTTP
 # ---------------------------------------------------------------------------
 
-GOLDEN_MAX_NEW = 32
+# phase 17's new tokens per answer (cut from 32 to keep the smoke within its
+# time budget; every check compares runs at the same count)
+GOLDEN_MAX_NEW = 16
 OVERLOAD_SYSTEM_PROMPT = "Be brief."  # phase 18's short prompts: one KV block each
 OVERLOAD_SLOTS = 2
 
 
 def golden_phase(tf, gen_mod, tuned, best_model, config, tokenizer, recorded):
     """Phase 17: ``run_golden_eval`` over the reference's five questions
-    (greedy, 32 new tokens) on the random base that phase 8 started from
+    (greedy, ``GOLDEN_MAX_NEW`` new tokens) on the random base that phase 8 started from
     (the trainer's seed, made in memory; asked with ``enable_thinking=False``
     as the reference asks the original model) and on phase 8's
     ``best_model/`` (phase 14's bf16 generator), then ``compare_golden``;
@@ -4968,8 +5031,11 @@ def train_profile_phase(trainer, mm, phase_no=None):
     micro()
     torch.cuda.synchronize()
     mm.quantize_rows_int8 = ranged_quantize
+    # the host's activity only where the row quantizer's range is read (the
+    # int8 trunk); every other number is read from device events
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if trunk else [])
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.monotonic()
             micro()
             torch.cuda.synchronize()
@@ -5695,19 +5761,23 @@ def deploy_phase(tf, gen_mod, server_mod, fa, workdir, saved, trained, card):
 
 RECIPE_PACKED_ROWS = 480  # 432 train examples pack to ~110 rows at ~30%: 3 steps of 32
 RECIPE_DPO_ROWS = 54  # 48 train pairs: 3 steps of 4 microbatches of 4 pairs
+# 24d's depth at full width (cut from 36 to keep the smoke within its time
+# budget: its checks, the first loss ln 2, the rewards and the launches as
+# derived, hold at any depth)
+RECIPE_DPO_LAYERS = 4
 LORA_TRAINABLE = 30_228_480  # r 16 on the 7 projections of SmolLM3-3B's 36 layers
 LORA_FIRST_LOSS_REL = 1e-3  # 24b's first loss against phase 8's: B = 0, bf16 summation order
 QLORA_FIRST_LOSS_REL = 0.02  # 24c's first loss against 24b's: the NF4 base's rounding
 DPO_FIRST_LOSS_TOL = 1e-3  # 24d's first loss against ln 2: the reference is the policy
 
 
-def recipe_run(fa, mm, workdir, label, rows, **kw):
+def recipe_run(fa, mm, workdir, label, rows, layers=None, **kw):
     """One phase-24 training run through ``SFTTrainer`` (``DPOTrainer`` for
     ``objective="dpo"``) over the first ``rows`` rows of the repo's JSONL.
     Checks finite losses, 0 watchdog trips, the frozen leaves bit-unchanged
     (held on the host, so that the check adds nothing to the card's peak),
     every trainable leaf moved and the flash launches as derived; returns
-    (record, trainer)."""
+    (record, trainer). ``layers``: SmolLM3-3B cut to that depth."""
     import os
 
     from llm_fine_tune_distributed_tpu_torch.train.dpo import DPOTrainer
@@ -5722,7 +5792,10 @@ def recipe_run(fa, mm, workdir, label, rows, **kw):
     config = train_config(workdir, publish=False, **kw)  # phase 8's recipe, no publish
     dpo = config.objective == "dpo"
     t0 = time.monotonic()
-    trainer = (DPOTrainer if dpo else SFTTrainer)(config, device=DEVICE)
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+
+    mc = get_preset(config.model_preset).replace(num_layers=layers) if layers else None
+    trainer = (DPOTrainer if dpo else SFTTrainer)(config, model_config=mc, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     mc = trainer.model_config
@@ -5996,7 +6069,7 @@ def nf4_serve_phase(tf, gen_mod, server_mod, fa, config, tokenizer):
     return served
 
 
-def recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained, int8_bytes):
+def recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained, int8_bytes, before_d=None):
     """Phase 24, the fine-tuning recipes, each at phase 8's recipe beside
     phase 8's record ``trained``: (a) packing, (b) LoRA, (c) QLoRA, (d)
     DPO with LoRA, (e) NF4 weights: ``ask --quantize nf4`` on 24b's merged
@@ -6092,8 +6165,11 @@ def recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained, int8_bytes)
         shutil.rmtree(os.path.join(root, "c"), ignore_errors=True)
 
         # (d) DPO on LoRA, 4 pairs per microbatch (8 sequences per forward)
+        if before_d is not None:
+            before_d()
         rec, trainer = recipe_run(fa, mm, os.path.join(root, "d"), "24d DPO", RECIPE_DPO_ROWS,
-                                  objective="dpo", freeze_strategy="lora", per_device_batch_size=4)
+                                  layers=RECIPE_DPO_LAYERS, objective="dpo",
+                                  freeze_strategy="lora", per_device_batch_size=4)
         history = trainer.metrics.history
         check(abs(rec["losses"][0] - math.log(2.0)) <= DPO_FIRST_LOSS_TOL,
               f"24d: first loss {rec['losses'][0]} is not ln 2")
@@ -6131,11 +6207,93 @@ DP_ROWS = 20  # -> 18 train rows, 2 validation rows: 2 steps of 8 (2 ranks x 2 r
 DP_LOSS_REL_TOL = 1e-5  # 25b: world 2 against world 1, f32
 DP_LEAF_REL_TOL = 1e-4  # 25b: each updated leaf, relative to its largest entry
 DP_CLI_LOSS_REL_TOL = 5e-3  # 25a: the losses after the first against phase 8's
-DP_CHILD_TIMEOUT_S = 600
-# 25b: a rank's moments by memory_allocated against world 1's less half the
-# sharded leaves' (the allocator rounds the slices' blocks: +14.7 MB of
-# 1.676 GB on the first run)
+# Bounds (s) of the children this script spawns, from their start, about 3x
+# the slowest each took on the card (NVIDIA H100 80GB HBM3 at 700 W:
+# 25a's CLI process 28.5-63.4 s, 25b's ZeRO-3 ranks 50.5-83.0 s, the 21 and 22
+# processes 90.4 and 83.8 s; 26's ranks serving within 37.8-45.8 s, the last
+# one done 72.4-93.9 s after its start, a SIGTERM's drain and exit in 0.7-2.4
+# s, from then): past a bound every child of the job is killed, the tail of
+# each one's output printed and the phase fails by name. A rank's wait inside
+# a collective is bounded by its job's bound too.
+CHILD_BOUND_S = {"25a": 190, "25b": 240, "21": 270, "22": 240,
+                 "26 serving": 125, "26 done": 250, "26 stop": 8}
+# 25b: a rank's memory_allocated after the trainer's init against world 1's
+# less the bytes it does not hold, and its init's peak above its slices and
+# one whole leaf (the allocator rounds the slices' blocks: +14.7 MB of a
+# 1.676 GB state on the card)
 DP_MOMENT_ALLOC_REL_TOL = 0.01
+
+
+def spawn_child(args, env=None):
+    """This script in a child process with ``args``; its stdout and stderr
+    lines collected on a thread (so no pipe fills). Returns (proc, lines)."""
+    import os
+
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=env)
+    lines, span = [], [args[0].lstrip("-"), time.monotonic(), None]
+    CHILD_SPANS.append(span)
+
+    def read():
+        lines.extend(iter(p.stdout.readline, ""))
+        p.wait()
+        span[2] = time.monotonic()
+
+    threading.Thread(target=read, daemon=True).start()
+    return p, lines
+
+
+def kill_children(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def child_tails(label, procs, lines, n=40) -> str:
+    return "\n".join(f"--- {label} child {i} (exit {p.poll()}), its last lines:\n"
+                     + "".join(out[-n:]) for i, (p, out) in enumerate(zip(procs, lines)))
+
+
+def start_job(label, argvs, envs=None, **extra) -> dict:
+    """Children of this script, one per argv of ``argvs`` (with the env of
+    ``envs``, one each, or the parent's), started: a job (``label``, the
+    start, the processes and their output lines, and ``extra``); every one
+    still running at exit is killed."""
+    children = [spawn_child(a, env) for a, env in zip(argvs, envs or [None] * len(argvs))]
+    job = {"label": label, "t0": time.monotonic(), "procs": [c[0] for c in children],
+           "lines": [c[1] for c in children], **extra}
+    atexit.register(kill_children, job["procs"])
+    return job
+
+
+def join_job(job, bound_s) -> list:
+    """``join_children`` of the job within ``bound_s`` of its start; every
+    child of the job killed after, whatever happened."""
+    try:
+        return join_children(job["label"], job["procs"], job["lines"],
+                             bound_s - (time.monotonic() - job["t0"]))
+    finally:
+        kill_children(job["procs"])
+
+
+def join_children(label, procs, lines, timeout_s) -> list:
+    """Every child's exit code, waited for at most ``timeout_s`` in all; past
+    it every child is killed, the tail of each one's output printed, and
+    ``check failed: <label>`` raised (a hang fails its phase by name, well
+    inside the smoke's limit)."""
+    deadline = time.monotonic() + timeout_s
+    for i, p in enumerate(procs):
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            kill_children(procs)
+            time.sleep(0.5)  # the reader threads take the last lines
+            tails = child_tails(label, procs, lines)
+            print(tails, flush=True)
+            check(False, f"{label}: child {i} still running after {timeout_s:.0f} s; every child "
+                         f"of the phase killed\n{tails[-6000:]}")
+    return [p.returncode for p in procs]
 
 
 def _data_rows(data_dir, n):
@@ -6211,49 +6369,54 @@ def dp_cli_child(config_path, out_path) -> int:
     record["allreduce_ms"] = [s.elapsed_time(e) for s, e, _ in events]
     record["allreduce_bytes"] = [b for _, _, b in events]
     record["rc"] = rc
+    record["seconds"] = time.monotonic() - _T0  # the process's life
     with open(out_path, "w") as f:
         json.dump(record, f)
     return rc
 
 
-def dp_cli_phase(trained):
-    """25a: phase 8's recipe through ``python -m ...cli`` in a process of
-    its own, under a PyTorchJob's env for one worker (``RANK=0``,
-    ``WORLD_SIZE=1``, ``MASTER_ADDR``/``MASTER_PORT``), so the trainer runs
-    its data-parallel path over NCCL: the first loss bit for bit phase 8's,
-    the later ones within 0.5%; step time, samples/s/card and peak beside
-    phase 8's, and the gradient all-reduce's ms per step by CUDA events."""
+def dp_cli_start():
+    """25a's process, started: phase 8's recipe through ``python -m ...cli``
+    under a PyTorchJob's env for one worker (``RANK=0``, ``WORLD_SIZE=1``,
+    ``MASTER_ADDR``/``MASTER_PORT``), so the trainer runs its data-parallel
+    path over NCCL."""
     import os
     import tempfile
 
     from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port, rendezvous_env
 
-    t0 = time.monotonic()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    _data_rows(os.path.join(workdir, "data"), TRAIN_ROWS)
+    cfg, out = os.path.join(workdir, "cfg.json"), os.path.join(workdir, "child.json")
+    train_config(workdir, publish=False).save(cfg)
+    env = _child_env(rendezvous_env(0, 1, free_port(), local_rank=0))
+    return start_job("phase 25a", [["--dp-cli-child", cfg, out]], [env], workdir=workdir, out=out)
+
+
+def dp_cli_phase(job, trained):
+    """25a, joined (at most ``CHILD_BOUND_S["25a"]`` from its start): the first
+    loss bit for bit phase 8's, the later ones within 0.5%; step time,
+    samples/s/card and peak beside phase 8's, and the gradient all-reduce's
+    ms per step by CUDA events."""
+    import os
+    import shutil
+
+    workdir = job["workdir"]
     try:
-        _data_rows(os.path.join(workdir, "data"), TRAIN_ROWS)
-        config = train_config(workdir, publish=False)
-        cfg_path, out_path = os.path.join(workdir, "cfg.json"), os.path.join(workdir, "child.json")
-        config.save(cfg_path)
-        env = _child_env(rendezvous_env(0, 1, free_port(), local_rank=0))
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dp-cli-child", cfg_path,
-                               out_path], capture_output=True, text=True, env=env,
-                              timeout=DP_CHILD_TIMEOUT_S)
-        check(proc.returncode == 0, f"25a: the CLI exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                                    f"{proc.stderr[-4000:]}")
-        with open(out_path) as f:
+        code = join_job(job, CHILD_BOUND_S["25a"])[0]
+        stdout = "".join(job["lines"][0])
+        check(code == 0, f"phase 25a: the CLI exited {code}:\n{stdout[-6000:]}")
+        with open(job["out"]) as f:
             child = json.load(f)
         with open(os.path.join(workdir, "out", "training_history.json")) as f:
             history = json.load(f)
         with open(os.path.join(workdir, "out", "training_summary.json")) as f:
             summary = json.load(f)
     finally:
-        import shutil
-
         shutil.rmtree(workdir, ignore_errors=True)
     check(child["backend"] == "nccl" and child["world"] == 1 and summary["world_size"] == 1,
           f"25a: backend {child['backend']} world {child['world']}, summary {summary['world_size']}")
-    check(proc.stdout.count("completed successfully") == 1, "25a: no completion banner")
+    check(stdout.count("completed successfully") == 1, "25a: no completion banner")
     losses = [h["loss"] for h in history]
     check(losses[0] == trained["losses"][0],
           f"25a: first loss {losses[0]!r} is not phase 8's {trained['losses'][0]!r} bit for bit")
@@ -6272,17 +6435,19 @@ def dp_cli_phase(trained):
               "allreduce_ms": reduce_ms, "allreduce_ms_median_steps_2_3": statistics.median(
                   reduce_ms[steady]), "allreduce_bytes": child["allreduce_bytes"][0],
               "backend": child["backend"], "launches": child["launches"],
-              "seconds": time.monotonic() - t0}
+              "child_s": child["seconds"], "seconds": time.monotonic() - job["t0"]}
     phase(25, f"25a: python -m ...cli under RANK=0 WORLD_SIZE=1 MASTER_ADDR/PORT, backend "
               f"{child['backend']}: losses {[round(x, 4) for x in losses]} (first bit-equal to phase "
               f"8's, later rel {[f'{r:.2e}' for r in rel]}); launches {child['launches']} = phase 8's")
     phase(25, f"25a: steps 2-3 median step {step_ms:.1f} ms vs phase 8's "
               f"{trained['step_ms_median_steps_2_3']:.1f}, {samples_per_s:.2f} vs "
-              f"{trained['samples_per_s_per_card']:.2f} samples/s/card, peak at the last step "
-              f"{child['train_peak'] / 1e9:.2f} vs {trained['train_peak_bytes'] / 1e9:.2f} GB; gradient "
-              f"all-reduce (NCCL, world 1, {record['allreduce_bytes'] / 1e9:.3f} GB of f32) "
-              f"{[round(x, 3) for x in reduce_ms]} ms per step by CUDA events; "
-              f"{record['seconds']:.1f} s in all")
+              f"{trained['samples_per_s_per_card']:.2f} samples/s/card (beside other work), "
+              f"peak at the last step {child['train_peak'] / 1e9:.2f} vs "
+              f"{trained['train_peak_bytes'] / 1e9:.2f} GB; gradient all-reduce (NCCL, world 1, "
+              f"{record['allreduce_bytes'] / 1e9:.3f} GB of f32) "
+              f"{[round(x, 3) for x in reduce_ms]} ms per step by CUDA events; the process lived "
+              f"{child['seconds']:.1f} s (bound {CHILD_BOUND_S['25a']} s), joined "
+              f"{record['seconds']:.1f} s after its start")
     return record
 
 
@@ -6308,23 +6473,88 @@ def dp_model_config():
 
 
 def _moment_bytes(trainer):
-    """(``memory_allocated`` growth, tensor bytes) of the trainer's AdamW
-    state, made again."""
+    """Tensor bytes of the trainer's AdamW moments (this rank's slices under
+    ZeRO-3)."""
+    opt = trainer.state.opt_state
+    return sum(v.numel() * v.element_size() for m in ("mu", "nu") for v in opt[m].values())
+
+
+def _leaf_bytes(trainer):
+    """Tensor bytes of the leaves the trainer holds (trainable and frozen;
+    this rank's slices under ZeRO-3)."""
+    leaves = {**trainer.state.trainable, **trainer.state.frozen}
+    return sum(v.numel() * v.element_size() for v in leaves.values())
+
+
+def built_with_memory(make):
+    """``make()``'s trainer, and what its construction left on the card by
+    ``memory_allocated`` (``resident``: the leaves, the moments and the
+    rest), the leaves' share when AdamW's moments were made (``leaves``)
+    and the peak up to then (``leaves_peak``), each above the card's
+    memory before."""
+    from llm_fine_tune_distributed_tpu_torch.parallel import optimizer as opt_mod
+
+    seen, init = {}, opt_mod.AdamW.init
+
+    def recording(self, params):
+        torch.cuda.synchronize()
+        seen.update(leaves=torch.cuda.memory_allocated() - base,
+                    leaves_peak=torch.cuda.max_memory_allocated() - base)
+        return init(self, params)
+
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    state = trainer.optimizer.init(trainer.state.trainable, trainer.shards)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt_mod.AdamW.init = recording
+    try:
+        trainer = make()
+    finally:
+        opt_mod.AdamW.init = init
     torch.cuda.synchronize()
-    grown = torch.cuda.memory_allocated() - before
-    exact = sum(v.numel() * v.element_size() for m in ("mu", "nu") for v in state[m].values())
-    del state
-    return grown, exact
+    return trainer, {"resident": torch.cuda.memory_allocated() - base, **seen}
+
+
+DP_HEARTBEAT_TIMEOUT_MS = 1000  # 25b's planted silent rank: its detector's timeout
+DP_HEARTBEAT_INTERVAL_MS = 100
+
+
+def dp_heartbeat_plant(trainer, rank, steps):
+    """25b's heartbeat check after the run: a detector over the two ranks
+    (rank 0's coordinator on port 0), rank 1's heartbeats stopped; rank 0
+    must see rank 1 in ``dead_ranks()`` within the timeout (plus two
+    intervals), and the trainer's step boundary must stop both ranks at the
+    same step."""
+    from llm_fine_tune_distributed_tpu_torch.runtime import distributed
+    from llm_fine_tune_distributed_tpu_torch.runtime.failure import FailureDetector
+
+    det = FailureDetector.for_group(DEVICE, port=0, interval_ms=DP_HEARTBEAT_INTERVAL_MS,
+                                    timeout_ms=DP_HEARTBEAT_TIMEOUT_MS)
+    distributed.barrier(DEVICE)
+    out = {"port": det.port, "dead_before": det.dead_ranks()}
+    t0 = time.monotonic()
+    if rank == 1:
+        det.stop_worker()
+    else:
+        while det.dead_ranks() != [1] and time.monotonic() - t0 < 10:
+            time.sleep(0.01)
+        out.update(dead=det.dead_ranks(), seen_s=time.monotonic() - t0)
+    distributed.barrier(DEVICE)
+    trainer.detector = det
+    try:
+        trainer._step_boundary(steps + 1)
+        out["stopped"] = None
+    except RuntimeError as e:
+        out["stopped"] = str(e)
+    det.stop()
+    return out
 
 
 def dp_rank_child(rank, port, workdir) -> int:
     """25b's rank: a gloo group of two made here, on the one card, which
     ``initialize_distributed`` (and so the trainer) takes as it is; then
-    ``SFTTrainer`` at fsdp=2, its launches, moments and desync checks, a
-    divergence planted on rank 1, and the final leaves (rank 0)."""
+    ``SFTTrainer`` at fsdp=2 (ZeRO-3) with the heartbeat on, its launches,
+    leaves, moments, gathers and desync checks, a divergence planted on
+    rank 1, a silent rank planted, and the final leaves (rank 0)."""
     import datetime
     import os
 
@@ -6333,21 +6563,24 @@ def dp_rank_child(rank, port, workdir) -> int:
     from llm_fine_tune_distributed_tpu_torch.ops import _build
     from llm_fine_tune_distributed_tpu_torch.ops import flash_attention as fa
     from llm_fine_tune_distributed_tpu_torch.ops import int8_matmul as mm
+    from llm_fine_tune_distributed_tpu_torch.parallel import optimizer as opt_mod
     from llm_fine_tune_distributed_tpu_torch.runtime import distributed
     from llm_fine_tune_distributed_tpu_torch.runtime.desync import check_param_sync
     from llm_fine_tune_distributed_tpu_torch.train import step as step_mod
     from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
 
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
-                            timeout=datetime.timedelta(seconds=DP_CHILD_TIMEOUT_S))
+                            timeout=datetime.timedelta(seconds=CHILD_BOUND_S["25b"]))
     torch.cuda.set_device(0)
     distributed.initialize_distributed(device=DEVICE)  # the group above, as it is
     _build.build_all(("flash_fwd", "flash_bwd"))  # built by the parent: loaded
-    trainer = SFTTrainer(dp_config(workdir, 2, output_dir=os.path.join(workdir, "dp_out"),
-                                   desync_check_steps=1),
-                         model_config=dp_model_config(), device=DEVICE)
-    moment_bytes = _moment_bytes(trainer)
-    reduce_s = []
+    trainer, memory = built_with_memory(lambda: SFTTrainer(
+        dp_config(workdir, 2, output_dir=os.path.join(workdir, "dp_out"), desync_check_steps=1,
+                  heartbeat=True, heartbeat_port=0),
+        model_config=dp_model_config(), device=DEVICE))
+    moment_bytes, leaf_bytes = _moment_bytes(trainer), _leaf_bytes(trainer)
+    reduce_s, zero3 = [], {"gather_s": 0.0, "gather_bytes": 0, "gathers": 0,
+                           "scatter_s": 0.0, "scatter_bytes": 0, "scatters": 0}
     reduce = step_mod.all_reduce_grads
 
     def timed(grads, extras, *a, **kw):
@@ -6358,29 +6591,61 @@ def dp_rank_child(rank, port, workdir) -> int:
         reduce_s.append(time.perf_counter() - t0)
         return out
 
+    def zero3_timed(fn, what):
+        def run(t, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *a)
+            torch.cuda.synchronize()
+            zero3[f"{what}_s"] += time.perf_counter() - t0
+            zero3[f"{what}_bytes"] += t.numel() * t.element_size() * (2 if what == "gather" else 1)
+            zero3[f"{what}s"] += 1
+            return out
+        return run
+
     step_mod.all_reduce_grads = timed
+    opt_mod.all_gather_rows = zero3_timed(opt_mod.all_gather_rows, "gather")
+    opt_mod.reduce_scatter_rows = zero3_timed(opt_mod.reduce_scatter_rows, "scatter")
     counters = train_counters(fa, mm)
     for fn in counters.values():
         fn.launches = 0
     summary = trainer.train()
     launches = {name: fn.launches for name, fn in counters.items()}
+    heartbeat_ran = trainer.detector is not None
+    shards = trainer.shards
+    whole = [k for k in trainer.state.trainable if shards is None or k not in shards.dims]
     bad = {k: v.detach().clone() for k, v in trainer.state.trainable.items()}
     if rank == 1:
-        bad[sorted(bad)[0]].view(-1)[0] += 1e-3
-    planted_ok, planted_sums = check_param_sync(bad)
+        bad[sorted(whole)[0]].view(-1)[0] += 1e-3  # a leaf every rank holds whole
+    planted_ok, planted_sums = check_param_sync(bad, shards)
+    full = trainer._full_trainable()  # a collective
+    steps = len(trainer.throughput.step_s)
     record = {"rank": rank, "losses": [h["loss"] for h in trainer.metrics.history],
               "eval_loss": summary["final_eval_loss"], "launches": launches,
-              "moment_bytes": moment_bytes,
-              "sharded": sorted(trainer.shards.dims) if trainer.shards else [],
-              "sharded_bytes": sum(trainer.state.trainable[k].numel() * 4
-                                   for k in (trainer.shards.dims if trainer.shards else ())),
+              "moment_bytes": moment_bytes, "leaf_bytes": leaf_bytes, "memory": memory,
+              "sharded": sorted(shards.dims) if shards else [],
+              "largest_sharded_leaf_bytes": max(
+                  (shards.numel(k, v) * v.element_size()
+                   for k, v in {**trainer.state.trainable, **trainer.state.frozen}.items()
+                   if shards and k in shards.dims), default=0),
+              "sharded_trainable_bytes": sum(
+                  shards.numel(k, v) * 4 for k, v in trainer.state.trainable.items()
+                  if shards and k in shards.dims),
+              "sharded_leaf_bytes": sum(
+                  shards.numel(k, v) * v.element_size()
+                  for k, v in {**trainer.state.trainable, **trainer.state.frozen}.items()
+                  if shards and k in shards.dims),
               "desync_checks": trainer.desync.checks, "desync_sums": trainer.desync.last_checksums,
               "planted_caught": not planted_ok, "planted_sums": planted_sums,
-              "allreduce_s": reduce_s, "step_s": trainer.throughput.step_s,
-              "n_val": trainer.n_val, "summary_world": summary["world_size"]}
+              "allreduce_s": reduce_s, "zero3": zero3, "step_s": trainer.throughput.step_s,
+              "n_val": trainer.n_val, "summary_world": summary["world_size"],
+              "heartbeat_ran": heartbeat_ran,
+              "heartbeat": dp_heartbeat_plant(trainer, rank, steps)}
     if rank == 0:
-        torch.save({k: v.detach().cpu() for k, v in trainer.state.trainable.items()},
+        torch.save({k: v.detach().cpu() for k, v in full.items()},
                    os.path.join(workdir, "rank0_trainable.pt"))
+    del full
+    record["seconds"] = time.monotonic() - _T0  # the process's life so far
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
     distributed.barrier(DEVICE)
@@ -6388,51 +6653,66 @@ def dp_rank_child(rank, port, workdir) -> int:
     return 0
 
 
-def dp_gloo_phase(fa, mm):
-    """25b: two ranks on the one card over gloo (data=1, fsdp=2) at full
-    width and 4 layers in f32, 2 steps, against one process at world 1 with
-    the same global batch and peak lr, run here meanwhile: losses, leaves,
-    moment bytes, flash launches per rank, desync checks, a planted
-    divergence."""
+def dp_gloo_start():
+    """25b's two ranks, started (they run beside the phases after 9, which
+    leave the card's memory to them)."""
     import os
-    import shutil
     import tempfile
 
     from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_gloo_")
+    _data_rows(os.path.join(workdir, "data"), DP_ROWS)
+    port = free_port()
+    return start_job("phase 25b", [["--dp-rank-child", str(rank), str(port), workdir]
+                                   for rank in range(2)], workdir=workdir)
+
+
+def dp_gloo_join(job):
+    """25b's ranks, joined (at most ``CHILD_BOUND_S["25b"]`` from their start;
+    past it both are killed and the phase fails by name): their records
+    and rank 0's final leaves, gathered whole."""
+    import os
+
+    lines = job["lines"]
+    codes = join_job(job, CHILD_BOUND_S["25b"])
+    failed = [f"rank {rank} exited {code}:\n" + "".join(lines[rank])[-4000:]
+              for rank, code in enumerate(codes) if code]
+    check(not failed, "phase 25b: " + "\n".join(failed))
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(job["workdir"], f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    job["joined_s"] = time.monotonic() - job["t0"]
+    return ranks, torch.load(os.path.join(job["workdir"], "rank0_trainable.pt"))
+
+
+def dp_gloo_phase(job, ranks, leaves, fa, mm):
+    """25b: two ranks on the one card over gloo (data=1, fsdp=2: ZeRO-3) at
+    full width and 4 layers in f32, 2 steps (``dp_gloo_start``,
+    ``dp_gloo_join``), against one process at world 1 with the same global
+    batch and peak lr, run here: losses, leaves, leaf and moment bytes per
+    rank, flash launches per rank, the gathers' and reduce-scatters'
+    seconds, desync checks, a planted divergence, the heartbeat and a
+    planted silent rank."""
+    import os
+    import shutil
+
     from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
 
-    t0 = time.monotonic()
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_gloo_")
+    t0, workdir = job["t0"], job["workdir"]
     try:
-        _data_rows(os.path.join(workdir, "data"), DP_ROWS)
-        port = free_port()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank-child",
-                                   str(rank), str(port), workdir], stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for rank in range(2)]
-        try:
-            solo = SFTTrainer(dp_config(workdir, 4, output_dir=os.path.join(workdir, "solo_out")),
-                              model_config=dp_model_config(), device=DEVICE)
-            solo_moments = _moment_bytes(solo)
-            counters = train_counters(fa, mm)
-            for fn in counters.values():
-                fn.launches = 0
-            solo_summary = solo.train()
-            solo_launches = {name: fn.launches for name, fn in counters.items()}
-            outs = [p.communicate(timeout=DP_CHILD_TIMEOUT_S) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        failed = [f"rank {rank} exited {p.returncode}:\n{o[-1500:]}\n{e[-3000:]}"
-                  for rank, (p, (o, e)) in enumerate(zip(procs, outs)) if p.returncode]
-        check(not failed, "25b: " + "\n".join(failed))
-        ranks = []
-        for rank in range(2):
-            with open(os.path.join(workdir, f"rank{rank}.json")) as f:
-                ranks.append(json.load(f))
-        leaves = torch.load(os.path.join(workdir, "rank0_trainable.pt"))
+        t_solo = time.monotonic()
+        solo, solo_memory = built_with_memory(lambda: SFTTrainer(
+            dp_config(workdir, 4, output_dir=os.path.join(workdir, "solo_out")),
+            model_config=dp_model_config(), device=DEVICE))
+        solo_moments, solo_leaves = _moment_bytes(solo), _leaf_bytes(solo)
+        counters = train_counters(fa, mm)
+        for fn in counters.values():
+            fn.launches = 0
+        solo_summary = solo.train()
+        solo_launches = {name: fn.launches for name, fn in counters.items()}
+        solo_s = time.monotonic() - t_solo
         solo_losses = [h["loss"] for h in solo.metrics.history]
         worst = 0.0
         for k, v in solo.state.trainable.items():
@@ -6448,6 +6728,7 @@ def dp_gloo_phase(fa, mm):
     expected = {"flash_fwd": mc.num_layers * accum * steps * 2 + mc.num_layers * eval_batches,
                 "flash_bwd_dq": mc.num_layers * accum * steps,
                 "flash_bwd_dkv": mc.num_layers * accum * steps, "w8a8_matmul": 0}
+    limit_s = (DP_HEARTBEAT_TIMEOUT_MS + 2 * DP_HEARTBEAT_INTERVAL_MS) / 1e3 + 0.5
     for r in ranks:
         rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], solo_losses)]
         check(len(r["losses"]) == len(solo_losses) == 2 and max(rel) <= DP_LOSS_REL_TOL,
@@ -6456,43 +6737,99 @@ def dp_gloo_phase(fa, mm):
               <= DP_LOSS_REL_TOL * abs(solo_summary["final_eval_loss"]),
               f"25b rank {r['rank']}: eval {r['eval_loss']} vs {solo_summary['final_eval_loss']}")
         check(r["launches"] == expected, f"25b rank {r['rank']}: launches {r['launches']} != {expected}")
-        want = solo_moments[1] - r["sharded_bytes"]  # half of each sharded leaf's two moments
-        check(r["moment_bytes"][1] == want
-              and abs(r["moment_bytes"][0] - want) <= DP_MOMENT_ALLOC_REL_TOL * want,
-              f"25b rank {r['rank']}: moments {r['moment_bytes']} (memory_allocated, tensor bytes) "
-              f"vs world 1's {solo_moments} less half the sharded leaves' ({want})")
+        want = solo_moments - r["sharded_trainable_bytes"]  # half of each sharded leaf's moments
+        check(r["moment_bytes"] == want, f"25b rank {r['rank']}: moments {r['moment_bytes']} "
+                                         f"tensor bytes vs world 1's {solo_moments} less half the "
+                                         f"sharded leaves' ({want})")
+        want = solo_leaves - r["sharded_leaf_bytes"] // 2  # ZeRO-3: half of each sharded leaf
+        check(r["leaf_bytes"] == want, f"25b rank {r['rank']}: leaves {r['leaf_bytes']} tensor "
+                                       f"bytes vs world 1's {solo_leaves} less half the sharded "
+                                       f"leaves' ({want})")
+        # what the trainer's construction left on the card: world 1's less
+        # the bytes the rank does not hold; up to its moments, never more
+        # than its slices and one whole leaf
+        mem = r["memory"]
+        want = (solo_memory["resident"] - (solo_leaves - r["leaf_bytes"])
+                - (solo_moments - r["moment_bytes"]))
+        check(abs(mem["resident"] - want) <= DP_MOMENT_ALLOC_REL_TOL * want,
+              f"25b rank {r['rank']}: memory_allocated after init {mem['resident']} vs world 1's "
+              f"{solo_memory['resident']} less the bytes not held ({want})")
+        peak = mem["leaves"] * (1 + DP_MOMENT_ALLOC_REL_TOL) + r["largest_sharded_leaf_bytes"]
+        check(mem["leaves_peak"] <= peak,
+              f"25b rank {r['rank']}: init peaked at {mem['leaves_peak']} bytes before the "
+              f"moments, above its leaves {mem['leaves']} and one whole leaf "
+              f"{r['largest_sharded_leaf_bytes']} ({peak:.0f})")
         check(r["desync_checks"] == 1 + steps and len(set(r["desync_sums"])) == 1,
               f"25b rank {r['rank']}: desync checks {r['desync_checks']}, {r['desync_sums']}")
         check(r["planted_caught"], f"25b rank {r['rank']}: the planted divergence passed the check")
         check(r["summary_world"] == 2, "25b: summary world size")
+        hb = r["heartbeat"]
+        check(r["heartbeat_ran"] and hb["dead_before"] == [], f"25b rank {r['rank']}: heartbeat {hb}")
+        check(hb["stopped"] is not None and f"stopped heartbeating at step {steps + 1}" in hb["stopped"],
+              f"25b rank {r['rank']}: the silent rank did not stop the run at step {steps + 1}: {hb}")
+    hb0 = ranks[0]["heartbeat"]
+    check(hb0["dead"] == [1] and hb0["seen_s"] <= limit_s,
+          f"25b: rank 0's detector saw {hb0.get('dead')} after {hb0.get('seen_s')} s (limit "
+          f"{limit_s} s)")
     check(worst <= DP_LEAF_REL_TOL, f"25b: updated leaves differ by {worst:.2e} of their max")
+    z = ranks[0]["zero3"]
     record = {"losses_world2": ranks[0]["losses"], "losses_world1": solo_losses,
               "eval_world2": ranks[0]["eval_loss"], "eval_world1": solo_summary["final_eval_loss"],
               "leaf_rel_err_max": worst, "launches_per_rank": ranks[0]["launches"],
               "launches_world1": solo_launches, "expected_launches_per_rank": expected,
               "moment_bytes_per_rank": ranks[0]["moment_bytes"], "moment_bytes_world1": solo_moments,
-              "sharded_leaves": len(ranks[0]["sharded"]),
+              "leaf_bytes_per_rank": ranks[0]["leaf_bytes"], "leaf_bytes_world1": solo_leaves,
+              "init_memory_per_rank": [r["memory"] for r in ranks],
+              "init_memory_world1": solo_memory,
+              "largest_sharded_leaf_bytes": ranks[0]["largest_sharded_leaf_bytes"],
+              "sharded_leaves": len(ranks[0]["sharded"]), "zero3_per_rank": [r["zero3"] for r in ranks],
+              "heartbeat": [r["heartbeat"] for r in ranks],
               "gloo_allreduce_s": [r["allreduce_s"] for r in ranks],
-              "step_s": [r["step_s"] for r in ranks], "seconds": time.monotonic() - t0}
-    phase(25, f"25b: 2 ranks over gloo on one card (fsdp=2, {DP_LAYERS} layers, f32) vs world 1: "
-              f"losses {[round(x, 6) for x in ranks[0]['losses']]} vs "
+              "step_s": [r["step_s"] for r in ranks], "rank_seconds": [r["seconds"] for r in ranks],
+              "world1_s": solo_s, "seconds": time.monotonic() - t0}
+    phase(25, f"25b: 2 ranks over gloo on one card (fsdp=2 ZeRO-3, {DP_LAYERS} layers, f32) vs "
+              f"world 1: losses {[round(x, 6) for x in ranks[0]['losses']]} vs "
               f"{[round(x, 6) for x in solo_losses]}, eval {ranks[0]['eval_loss']:.6f} vs "
               f"{solo_summary['final_eval_loss']:.6f}, leaves within {worst:.2e} of their max")
-    phase(25, f"25b: AdamW moments by memory_allocated {ranks[0]['moment_bytes'][0] / 1e9:.4f} GB "
-              f"per rank ({ranks[0]['moment_bytes'][1] / 1e9:.4f} GB of tensors) vs "
-              f"{solo_moments[0] / 1e9:.4f} GB ({solo_moments[1] / 1e9:.4f}) at world 1 "
-              f"({len(ranks[0]['sharded'])} leaves sharded); "
-              f"flash launches per rank {ranks[0]['launches']} = derived; {ranks[0]['desync_checks']} "
-              f"desync checks passed on each rank, the planted divergence failed on both")
-    phase(25, f"25b: gloo all-reduce through the host (a correctness phase's cost, not data "
-              f"parallelism's): {[[round(x, 2) for x in r['allreduce_s']] for r in ranks]} s per step; "
-              f"{record['seconds']:.1f} s in all")
+    m0 = ranks[0]["memory"]
+    phase(25, f"25b: per rank {ranks[0]['leaf_bytes'] / 1e9:.4f} GB of leaves and "
+              f"{ranks[0]['moment_bytes'] / 1e9:.4f} GB of AdamW moments (tensors) vs world 1's "
+              f"{solo_leaves / 1e9:.4f} and {solo_moments / 1e9:.4f} ({len(ranks[0]['sharded'])} "
+              f"leaves sharded); memory_allocated after init {m0['resident'] / 1e9:.4f} vs "
+              f"{solo_memory['resident'] / 1e9:.4f} GB at world 1; init's peak before the moments "
+              f"{m0['leaves_peak'] / 1e9:.4f} GB over its slices' {m0['leaves'] / 1e9:.4f} (one "
+              f"whole leaf at most {ranks[0]['largest_sharded_leaf_bytes'] / 1e9:.4f}; world 1 "
+              f"{solo_memory['leaves_peak'] / 1e9:.4f}); flash launches per rank "
+              f"{ranks[0]['launches']} = derived; {ranks[0]['desync_checks']} desync checks passed "
+              f"on each rank, the planted divergence failed on both")
+    phase(25, f"25b: ZeRO-3 collectives on rank 0 over gloo through the host: "
+              f"{z['gathers']} all-gathers, {z['gather_bytes'] / 1e9:.2f} GB whole, "
+              f"{z['gather_s']:.2f} s; {z['scatters']} reduce-scatters, "
+              f"{z['scatter_bytes'] / 1e9:.2f} GB, {z['scatter_s']:.2f} s; steps "
+              f"{[round(x, 2) for x in ranks[0]['step_s']]} s; the whole leaves' all-reduce "
+              f"{[[round(x, 2) for x in r['allreduce_s']] for r in ranks]} s per step")
+    phase(25, f"25b: heartbeat on both ranks through the run; planted silent rank 1 seen dead by "
+              f"rank 0 after {hb0['seen_s']:.2f} s (timeout {DP_HEARTBEAT_TIMEOUT_MS} ms), both "
+              f"ranks stopped at step {steps + 1}; each rank's process lived "
+              f"{[round(r['seconds'], 1) for r in ranks]} s (bound {CHILD_BOUND_S['25b']} s), joined "
+              f"{job['joined_s']:.1f} s after their start; the world-1 run here {solo_s:.1f} s")
     return record
 
 
-def distributed_phase(fa, mm, trained):
-    """Phase 25: 25a over NCCL through the CLI, 25b over gloo."""
-    return {"a_cli_nccl": dp_cli_phase(trained), "b_gloo_two_ranks": dp_gloo_phase(fa, mm)}
+def distributed_phase(fa, mm, trained, gloo_job, cli_job=None, joined=None):
+    """Phase 25: 25b's ranks (started by ``dp_gloo_start``) joined (or
+    ``joined`` already: ``dp_gloo_join``'s), their world-1 run here and the
+    checks; 25a over NCCL through the CLI (started by ``dp_cli_start``: in a
+    full run before 24d, otherwise here, after the ranks: the card holds 25a
+    beside the world-1 run, not beside the ranks too) joined and checked."""
+    ranks, leaves = joined or dp_gloo_join(gloo_job)
+    cli_job = cli_job or dp_cli_start()
+    try:
+        gloo = dp_gloo_phase(gloo_job, ranks, leaves, fa, mm)
+    except BaseException:
+        kill_children(cli_job["procs"])
+        raise
+    return {"a_cli_nccl": dp_cli_phase(cli_job, trained), "b_gloo_two_ranks": gloo}
 
 
 def distributed_only() -> int:
@@ -6515,7 +6852,7 @@ def distributed_only() -> int:
         gc_cuda()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    dp = distributed_phase(fa, mm, trained)
+    dp = distributed_phase(fa, mm, trained, dp_gloo_start())
     total_s = time.monotonic() - t_start
     phase(25, f"total_s {total_s:.1f}")
     keys = ("losses", "step_ms_median_steps_2_3", "samples_per_s_per_card", "train_peak_bytes",
@@ -6594,6 +6931,40 @@ def recipes_only() -> int:
     print(json.dumps({"recipes": recipes, "train": {k: trained[k] for k in keys},
                       "total_s": total_s}, default=str), flush=True)
     return 0
+
+
+# Phases 21 and 22 run in processes of their own (``--fleet-only``,
+# ``--adapters-only``: each makes its own phase 4 weights, serving record and
+# solo runs) beside phases 16-20, and are joined before phase 5: the card's
+# kernel timings (phases 7 and 10) never share it.
+
+
+def phase_child_start(flag, phase_no):
+    """``python3 chip_smoke.py <flag>`` in a process of its own, started."""
+    return start_job(f"phase {phase_no}", [[flag]], flag=flag, phase_no=phase_no)
+
+
+def phase_child_join(job, key):
+    """The child's record (``key`` of its JSON summary, its last JSON line),
+    waited for at most its phase's ``CHILD_BOUND_S`` from its start; its
+    phase lines echoed here. A child that fails or hangs fails its phase by
+    name."""
+    label, phase_no = job["label"], job["phase_no"]
+    bound_s = CHILD_BOUND_S[str(phase_no)]
+    code = join_job(job, bound_s)[0]
+    time.sleep(0.2)  # the reader thread takes the last lines
+    lines = list(job["lines"][0])
+    check(code == 0, f"{label}: {job['flag']} exited {code}:\n" + "".join(lines)[-6000:])
+    for line in lines:
+        if line.startswith("[phase "):
+            print(f"  | {line.rstrip()}", flush=True)
+    summary = next(json.loads(line) for line in reversed(lines) if line.startswith("{"))
+    phase(phase_no, f"{job['flag']} in a process of its own beside phases 16-20: exit 0, its own "
+                    f"set-up included {summary['total_s']:.1f} s (bound {bound_s} s), joined "
+                    f"{time.monotonic() - job['t0']:.1f} s after its start")
+    rec = summary[key]
+    rec["child_s"] = summary["total_s"]
+    return rec
 
 
 def fleet_only() -> int:
@@ -6717,7 +7088,6 @@ def capture_check(captures: int, push=None) -> int:
 # phase 26: tensor-parallel serving
 # ---------------------------------------------------------------------------
 
-TP_CHILD_TIMEOUT_S = 600
 TP_F32_LAYERS = 4  # 26b's f32 logit check, at full width
 # 26b's f32 logits against one process's, relative to max|logit|: the
 # summation order of the row-parallel all-reduces (~1e-6), and an int8 K/V
@@ -6782,6 +7152,117 @@ def tp_f32_rank(tf, fa, workdir, rank):
     return {"launches": launches}
 
 
+TP_NF4_TOKENS = 32  # 26b's NF4 case: greedy tokens of one prompt (31 paged decode steps)
+# 26b's NF4 case: the tp run's logits against one process's at every step
+# up to the first token that differs (the same context), relative to the
+# largest. Both are bf16 over the same NF4 weights, each ~1.5e-2 of max|logit|
+# from the f32 forward over the dequantized weights (4 layers, this prompt,
+# on the CPU; 2.8e-2 with the int8 pool on the card); a rank dequantizing its
+# slice at origin 0 moves them 0.14 (0.156 on the card, NVIDIA H100 80GB
+# HBM3), the port's tp run 1.5e-2.
+TP_NF4_LOGIT_REL_TOL = 0.04
+
+
+def tp_nf4_greedy(tf, params, config, mesh, prompt, n_tokens):
+    """Greedy tokens and their logits (f32 copies of the bf16 ones) of a
+    prefill through a fresh int8 block pool and ``n_tokens - 1`` paged
+    decode steps (the paged decode kernel), in bf16, under ``mesh``'s
+    tensor group when it has one."""
+    from llm_fine_tune_distributed_tpu_torch.parallel.sharding import local_model_config
+
+    L = KV_BLOCK_LEN
+    nblocks = -(-(len(prompt) + n_tokens) // L)
+    cache_config = local_model_config(config, mesh.tensor_size) if mesh is not None else config
+    pool = tf.init_paged_cache(cache_config, 1 + nblocks, L, dtype=torch.bfloat16,
+                               kv_quant="int8", device=DEVICE)
+    table = torch.arange(1, 1 + nblocks, dtype=torch.int32, device=DEVICE)[None, :]
+    kw = dict(block_tables=table, compute_dtype=torch.bfloat16, output_hidden=True, mesh=mesh)
+    ids, tokens, logits = torch.tensor([list(prompt)], device=DEVICE), [], []
+    with torch.no_grad():
+        for t in range(n_tokens):
+            pos = 0 if t == 0 else len(prompt) + t - 1
+            hidden, _ = tf.forward(params, ids, config, cache=pool, cache_pos=pos, **kw)
+            row = tf.unembed(params, hidden[:, -1], config, compute_dtype=torch.bfloat16,
+                             mesh=mesh)[0].float()
+            tokens.append(int(row.argmax()))
+            logits.append(row.cpu())
+            ids = torch.tensor([[tokens[-1]]], device=DEVICE)
+    return tokens, torch.stack(logits)
+
+
+def tp_nf4_rank(tf, fa, gen_mod, workdir, rank):
+    """26b's NF4 case on one rank: phase 4's random weights at
+    ``NF4_SERVE_LAYERS`` (24e's), quantized whole by the server's
+    ``maybe_quantize`` and then sliced by ``Generator(mesh=...)``, as
+    ``--quantize nf4 --tp 2`` loads them: each NF4 leaf must equal its slice
+    of the whole model's (columns beside q/k/v/gate/up, rows beside o/down,
+    the double quantization's scale and offset whole); then greedy tokens
+    through the int8 pool at tp 2 and, on rank 0, one process's run of the
+    same weights and the no-cache f32 forward over the weights dequantized
+    in f32 at that run's context: each step's max|dlogits| between the two
+    (``solo_f32_dist``) is measured apart from the tp run, and bounds it in
+    the parent's margin rule."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.data.prompts import WILDERNESS_EXPERT_SYSTEM_PROMPT
+    from llm_fine_tune_distributed_tpu_torch.data.tokenizer import ByteChatMLTokenizer
+    from llm_fine_tune_distributed_tpu_torch.infer.generate import make_tp_mesh
+    from llm_fine_tune_distributed_tpu_torch.models.configs import get_preset
+    from llm_fine_tune_distributed_tpu_torch.ops.int8 import maybe_quantize
+    from llm_fine_tune_distributed_tpu_torch.runtime import distributed
+
+    t0 = time.monotonic()
+    config = get_preset("smollm3_3b").replace(num_layers=NF4_SERVE_LAYERS)
+    params = maybe_quantize(tf.init_params(config, seed=0, device=DEVICE, dtype=torch.bfloat16),
+                            "nf4")
+    gen = gen_mod.Generator(params, config, ByteChatMLTokenizer(), compute_dtype=torch.bfloat16,
+                            device=DEVICE, mesh=make_tp_mesh(2, config))
+    nf4 = [k for k in params if ".kernel_nf4" in k or ".kernel_absmax" in k]
+    wrong = []
+    for k in nf4:
+        whole = params[k]
+        if k.endswith(("_absmax_scale", "_absmax_offset")):
+            want = whole
+        else:
+            dim = 0 if (".o_proj." in k or ".down_proj." in k) else 1
+            n = whole.shape[dim] // 2
+            want = whole.narrow(dim, rank * n, n)
+        if gen.params[k].shape != want.shape or not torch.equal(gen.params[k], want):
+            wrong.append(k)
+    prompts, _ = live_lengths(ByteChatMLTokenizer, WILDERNESS_EXPERT_SYSTEM_PROMPT)
+    fa.paged_decode_attention.launches = 0
+    tokens, logits = tp_nf4_greedy(tf, gen.params, config, gen.mesh, prompts[0], TP_NF4_TOKENS)
+    launches = fa.paged_decode_attention.launches
+    out = {"leaves": len(nf4), "wrong_leaves": wrong, "launches": launches,
+           "decode_steps": TP_NF4_TOKENS - 1,
+           "nf4_bytes": sum(gen.params[k].nbytes for k in nf4),
+           "nf4_bytes_whole": sum(params[k].nbytes for k in nf4)}
+    del gen
+    if rank == 0:
+        from llm_fine_tune_distributed_tpu_torch.parallel.qlora import dequantize_frozen
+
+        solo_tokens, solo_logits = tp_nf4_greedy(tf, params, config, None, prompts[0],
+                                                 TP_NF4_TOKENS)
+        torch.backends.cuda.matmul.allow_tf32 = False  # full f32 products
+        exact = dequantize_frozen(params, torch.float32)
+        ids = torch.tensor([list(prompts[0]) + solo_tokens[:-1]], device=DEVICE)
+        with torch.no_grad():  # position len(prompt) - 1 + t gives step t's logits
+            hidden, _ = tf.forward(exact, ids, config, compute_dtype=torch.float32,
+                                   output_hidden=True)
+            truth = tf.unembed(exact, hidden[0, len(prompts[0]) - 1:], config,
+                               compute_dtype=torch.float32).float().cpu()
+        del exact, hidden
+        torch.save({"tokens": tokens, "logits": logits, "solo_tokens": solo_tokens,
+                    "solo_logits": solo_logits,
+                    "solo_f32_dist": (solo_logits - truth).abs().amax(dim=1),
+                    "f32_max_abs": truth.abs().amax(dim=1)}, os.path.join(workdir, "tp_nf4.pt"))
+    del params
+    distributed.barrier(DEVICE)
+    gc_cuda()
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def tp_child(mode, rank, world, port, workdir, model_dir) -> int:
     """26a (``mode`` "a", world 1 under the launcher's env, NCCL) or one of
     26b's two ranks (``mode`` "b", a gloo group made here first): the
@@ -6804,9 +7285,11 @@ def tp_child(mode, rank, world, port, workdir, model_dir) -> int:
     record = {"mode": mode, "rank": rank, "world": world}
     if mode == "b":
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                                rank=rank, timeout=datetime.timedelta(seconds=TP_CHILD_TIMEOUT_S))
+                                rank=rank,
+                                timeout=datetime.timedelta(seconds=CHILD_BOUND_S["26 done"]))
         torch.cuda.set_device(0)
         record["f32"] = tp_f32_rank(tf, fa, workdir, rank)
+        record["nf4"] = tp_nf4_rank(tf, fa, gen_mod, workdir, rank)
 
     # the decode step's collectives ([slots, 1, hidden] all-reduces, the
     # [slots, vocab slice] gather), each between two CUDA events
@@ -6908,57 +7391,52 @@ def tp_child(mode, rank, world, port, workdir, model_dir) -> int:
 
 
 def _tp_spawn(mode, world, workdir, model_dir, env):
-    """The ranks of one 26 run; each one's stdout lines collected on a
-    thread."""
-    import os
-
+    """The ranks of one 26 run, started (``start_job``): (their processes,
+    their output lines)."""
     from llm_fine_tune_distributed_tpu_torch.runtime.distributed import free_port
 
     port = free_port()
-    procs, lines = [], []
-    for rank in range(world):
-        p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-child", mode,
-                              str(rank), str(world), str(port), workdir, model_dir],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                             env=_child_env(env(rank)))
-        out = []
-        threading.Thread(target=lambda p=p, out=out: out.extend(iter(p.stdout.readline, "")),
-                         daemon=True).start()
-        procs.append(p)
-        lines.append(out)
-    return procs, lines
+    job = start_job(f"phase 26{mode}", [["--tp-child", mode, str(rank), str(world), str(port),
+                                         workdir, model_dir] for rank in range(world)],
+                    [_child_env(env(rank)) for rank in range(world)])
+    return job["procs"], job["lines"]
 
 
-def _tp_listening(procs, lines):
-    """Rank 0's base URL once it prints ``listening on``."""
-    t0 = time.monotonic()
-    while time.monotonic() - t0 < TP_CHILD_TIMEOUT_S:
+def _tp_listening(label, procs, lines, t_start):
+    """(rank 0's base URL once it prints ``listening on``, seconds since the
+    ranks' start), within ``CHILD_BOUND_S["26 serving"]`` of it; past that, or when a
+    rank exits first, every rank is killed and the phase fails by name."""
+    while time.monotonic() - t_start < CHILD_BOUND_S["26 serving"]:
         for line in list(lines[0]):
             m = re.search(r"listening on (http://[0-9.]+:[0-9]+)", line)
             if m:
-                return m.group(1)
+                return m.group(1), time.monotonic() - t_start
         for r, p in enumerate(procs):
-            check(p.poll() is None, f"26: rank {r} exited {p.returncode} before serving:\n"
-                                    + "".join(lines[r])[-4000:])
+            if p.poll() is not None:
+                kill_children(procs)
+                check(False, f"{label}: rank {r} exited {p.returncode} before serving:\n"
+                             + child_tails(label, procs, lines))
         time.sleep(0.2)
-    raise RuntimeError("26: rank 0 did not start serving:\n" + "".join(lines[0])[-4000:])
+    kill_children(procs)
+    tails = child_tails(label, procs, lines)
+    print(tails, flush=True)
+    check(False, f"{label}: rank 0 not serving {CHILD_BOUND_S['26 serving']} s after the ranks' "
+                 "start; "
+                 f"every rank killed\n{tails[-6000:]}")
 
 
-def _tp_stop(procs, lines, codes):
-    """SIGTERM to rank 0, then every rank's exit code checked."""
+def _tp_stop(label, procs, lines, codes):
+    """SIGTERM to rank 0, then every rank's exit (within
+    ``CHILD_BOUND_S["26 stop"]``) and exit code checked."""
     import signal
 
+    t0 = time.monotonic()
     procs[0].send_signal(signal.SIGTERM)
-    try:
-        got = [p.wait(timeout=TP_CHILD_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    got = join_children(label, procs, lines, CHILD_BOUND_S["26 stop"])
     for rank, (code, want) in enumerate(zip(got, codes)):
         ok = code == want if want == 0 else code != 0
-        check(ok, f"26: rank {rank} exited {code}:\n" + "".join(lines[rank])[-4000:])
+        check(ok, f"{label}: rank {rank} exited {code}:\n" + "".join(lines[rank])[-4000:])
+    return time.monotonic() - t0
 
 
 TP_STAGGER_S = 0.05  # between 26's concurrent requests, in phase 4's admission order
@@ -6975,11 +7453,11 @@ def tp_admission_order(served):
     return [index[n] for n in served["prefill_order"][1:]]
 
 
-def tp_traffic(base, order):
+def tp_traffic(label, base, order, deadline):
     """Phase 4's traffic over HTTP: one warm-up request, then the 4
     concurrent ones, started in ``order`` ``TP_STAGGER_S`` apart; the
     concurrent window's tokens/s and mean decode tick from ``/v1/stats``
-    before and after."""
+    before and after. The requests are waited for until ``deadline``."""
     warm = _http(base, "/v1/generate", {"question": WARMUP_QUESTION, "greedy": True,
                                         "max_new_tokens": MAX_NEW_TOKENS})
     check(warm[0] == 200, f"26 warm-up: HTTP {warm[0]}")
@@ -6996,8 +7474,10 @@ def tp_traffic(base, order):
         t.start()
         time.sleep(TP_STAGGER_S)
     for t in threads:
-        t.join(TP_CHILD_TIMEOUT_S)
-    check(all(o is not None and o[0] == 200 for o in outs), f"26 requests: {outs}")
+        t.join(max(deadline - time.monotonic(), 0.1))
+    check(all(o is not None and o[0] == 200 for o in outs),
+          f"{label}: requests {outs} (unanswered ones past {CHILD_BOUND_S['26 done']} s from the "
+          "ranks' start)")
     after = json.loads(_http(base, "/v1/stats")[1])
     h0, h1 = before["histograms"]["decode_tick_s"], after["histograms"]["decode_tick_s"]
     ticks = h1["count"] - h0["count"]
@@ -7025,7 +7505,6 @@ def tp_start(generator):
     4-layer f32 check first) started at once, so that their imports and
     loads run while phase 15 does; every one is killed at exit if it is
     still running."""
-    import atexit
     import os
     import tempfile
 
@@ -7045,15 +7524,7 @@ def tp_start(generator):
     jobs["a"] = _tp_spawn("a", 1, jobs["workdir"], model_dir,
                           lambda rank: rendezvous_env(0, 1, port, local_rank=0))
     jobs["b"] = _tp_spawn("b", 2, jobs["workdir"], model_dir, lambda rank: {})
-
-    def kill():
-        for p in jobs["a"][0] + jobs["b"][0]:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-
-    jobs["kill"] = kill
-    atexit.register(kill)
+    jobs["kill"] = lambda: kill_children(jobs["a"][0] + jobs["b"][0])
     return jobs
 
 
@@ -7070,14 +7541,16 @@ def tp_serve(jobs, served):
     a_procs, a_lines = jobs["a"]
     b_procs, b_lines = jobs["b"]
     order = tp_admission_order(served)
+    deadline = jobs["t_start"] + CHILD_BOUND_S["26 done"]
     try:
-        a_base = _tp_listening(a_procs, a_lines)
-        b_base = _tp_listening(b_procs, b_lines)
+        a_base, a_ready = _tp_listening("phase 26a", a_procs, a_lines, jobs["t_start"])
+        b_base, b_ready = _tp_listening("phase 26b", b_procs, b_lines, jobs["t_start"])
+        a_stop = None
         try:
-            a_traffic = tp_traffic(a_base, order)
+            a_traffic = tp_traffic("phase 26a", a_base, order, deadline)
         finally:
-            _tp_stop(a_procs, a_lines, [0])
-        b_traffic = tp_traffic(b_base, order)
+            a_stop = _tp_stop("phase 26a", a_procs, a_lines, [0])
+        b_traffic = tp_traffic("phase 26b", b_base, order, deadline)
         with open(os.path.join(workdir, "fault"), "w"):
             pass
         status = None
@@ -7092,16 +7565,16 @@ def tp_serve(jobs, served):
             time.sleep(0.1)
             health = _healthz(b_base)
         b_traffic.update(fault_request_status=status, healthz_after_fault=list(health),
-                         seconds_to_503=time.monotonic() - t0)
+                         seconds_to_503=time.monotonic() - t0, ready_s=b_ready)
+        a_traffic.update(ready_s=a_ready, stop_s=a_stop)
         check(health[0] == 503 and "wedged" in health[1],
               f"26b: /healthz after the planted fault: {health}")
-        check(b_procs[1].wait(timeout=120) != 0, "26b: rank 1 survived its planted fault")
+        code = join_children("phase 26b", b_procs[1:], b_lines[1:], CHILD_BOUND_S["26 stop"])[0]
+        check(code != 0, "26b: rank 1 survived its planted fault")
     finally:
-        for p in a_procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        _tp_stop(b_procs, b_lines, [0, 1])
+        kill_children(a_procs)
+        b_stop = _tp_stop("phase 26b", b_procs, b_lines, [0, 1])
+    b_traffic["stop_s"] = b_stop
     check(any("nccl" in line for line in a_lines[0]), "26a: the tensor group is not NCCL:\n"
           + "".join(a_lines[0])[-2000:])
     with open(_tp_files(workdir, "a", 0)) as f:
@@ -7165,6 +7638,7 @@ def tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs):
     try:
         a, a_traffic, b, b_traffic = tp_serve(jobs, served)
         f32 = torch.load(os.path.join(jobs["workdir"], "tp_f32_logits.pt"))
+        nf4 = torch.load(os.path.join(jobs["workdir"], "tp_nf4.pt"))
     finally:
         jobs["kill"]()
         shutil.rmtree(jobs["workdir"], ignore_errors=True)
@@ -7251,13 +7725,62 @@ def tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs):
     gc_cuda()
     rel = [((f32[i] - want32[i]).abs().max() / want32[i].abs().max()).item() for i in range(2)]
     check(max(rel) <= TP_F32_LOGIT_REL_TOL, f"26b f32 logits rel {rel} > {TP_F32_LOGIT_REL_TOL}")
+    # 26b's NF4 case: each rank's leaves, its launches; its logits against
+    # one process's at every step of the same context (TP_NF4_LOGIT_REL_TOL),
+    # and its greedy tokens by the margin rule: at the first differing step
+    # the solo top-2 margin within twice the solo run's distance from the
+    # f32 forward over the dequantized weights (measured apart from the tp
+    # run; its bf16 rounding and its int8 pool's error are both in it)
+    for r in (r0, r1):
+        q = r["nf4"]
+        check(q["leaves"] > 0 and not q["wrong_leaves"],
+              f"26b rank {r['rank']} NF4: leaves not the whole model's slice: {q['wrong_leaves'][:4]}")
+        check(q["launches"] == NF4_SERVE_LAYERS * q["decode_steps"],
+              f"26b rank {r['rank']} NF4: {q['launches']} paged decode launches != "
+              f"{NF4_SERVE_LAYERS} x {q['decode_steps']}")
+    check(len(nf4["tokens"]) == len(nf4["solo_tokens"]) == TP_NF4_TOKENS, "26b NF4: token count")
+    nf4_agree, nf4_at = len(nf4["tokens"]), None
+    for t, (a_tok, b_tok) in enumerate(zip(nf4["tokens"], nf4["solo_tokens"])):
+        if a_tok != b_tok:
+            nf4_agree = t
+            break
+    same_ctx = min(nf4_agree + 1, TP_NF4_TOKENS)  # steps whose logits share one context
+    nf4_rel = ((nf4["logits"][:same_ctx] - nf4["solo_logits"][:same_ctx]).abs().amax(dim=1)
+               / nf4["solo_logits"][:same_ctx].abs().amax(dim=1))
+    solo_rel = nf4["solo_f32_dist"] / nf4["f32_max_abs"]
+    check(float(nf4_rel.max()) <= TP_NF4_LOGIT_REL_TOL,
+          f"26b NF4: the tp run's logits {float(nf4_rel.max()):.3e} of max|logit| off one "
+          f"process's at step {int(nf4_rel.argmax())} (steps 0-{same_ctx - 1} share the context), "
+          f"> {TP_NF4_LOGIT_REL_TOL}; one process is {float(solo_rel.max()):.3e} off the f32 "
+          "forward over the dequantized weights")
+    if nf4_agree < TP_NF4_TOKENS:
+        t = nf4_agree
+        top2 = nf4["solo_logits"][t].topk(2).values
+        margin = float(top2[0] - top2[1])
+        bound = 2 * float(nf4["solo_f32_dist"][t])
+        nf4_at = {"token": t, "margin": margin, "bound": bound,
+                  "solo_f32_dist": float(nf4["solo_f32_dist"][t])}
+        check(margin <= bound, f"26b NF4: token {t} is {nf4['tokens'][t]}, one process's "
+                               f"{nf4['solo_tokens'][t]}, at a top-2 margin {margin:.3e} > "
+                               f"{bound:.3e} (twice one process's distance from the f32 "
+                               f"forward over the dequantized weights, "
+                               f"{nf4_at['solo_f32_dist']:.3e})")
+    rec_nf4 = {"layers": NF4_SERVE_LAYERS, "leaves_per_rank": r0["nf4"]["leaves"],
+               "nf4_bytes_per_rank": r0["nf4"]["nf4_bytes"],
+               "nf4_bytes_whole": r0["nf4"]["nf4_bytes_whole"],
+               "launches_per_rank": [r0["nf4"]["launches"], r1["nf4"]["launches"]],
+               "decode_steps": r0["nf4"]["decode_steps"], "tokens_agreeing_with_solo": nf4_agree,
+               "first_difference": nf4_at, "logit_rel_max": float(nf4_rel.max()),
+               "logit_rel_tol": TP_NF4_LOGIT_REL_TOL,
+               "solo_f32_rel_max": float(solo_rel.max()), "seconds_per_rank": [r0["nf4"]["seconds"],
+                                                                r1["nf4"]["seconds"]]}
     rec_b = {"decode_steps": steps_b, "launches_per_rank": [r0["launches"], r1["launches"]],
              "weights_allocated_per_rank": [r0["weights_allocated"], r1["weights_allocated"]],
              "weight_tensor_bytes_per_rank": want_w, "pool_bytes_per_rank": r0["pool_bytes"],
              "collective_ms_per_step_rank0": r0["collective_ms"] / steps_b,
              "tokens_agreeing_with_solo": got_b["tokens_agreeing_with_solo"],
              "first_difference": got_b["first_difference"], "int8_floor": floor,
-             "f32_logit_rel": rel, **b_traffic}
+             "f32_logit_rel": rel, "nf4": rec_nf4, **b_traffic}
     phase(26, f"26b: --tp 2 over gloo on one card: tokens vs solo (margin rule + twice the int8 "
               f"error {floor:.3e}) {got_b['tokens_agreeing_with_solo']}; rank 1's first tokens and "
               f"decode steps == rank 0's; launches {rec_b['launches_per_rank']} == {layers} x "
@@ -7266,6 +7789,17 @@ def tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs):
               f"{r0['weights_allocated'] / 1e9:.3f} / {r1['weights_allocated'] / 1e9:.3f} GB) vs "
               f"26a's {a['weights_allocated'] / 1e9:.3f}; pool per rank {r0['pool_bytes'] / 1e9:.3f} "
               f"GB == half of 26a's {a['pool_bytes'] / 1e9:.3f}")
+    phase(26, f"26b --quantize nf4 --tp 2 ({NF4_SERVE_LAYERS} layers, quantized whole, then "
+              f"sliced): {rec_nf4['leaves_per_rank']} NF4 leaves per rank equal to the whole "
+              f"model's slice ({rec_nf4['nf4_bytes_per_rank'] / 1e6:.1f} of "
+              f"{rec_nf4['nf4_bytes_whole'] / 1e6:.1f} MB); logits over steps 0-{same_ctx - 1} "
+              f"{rec_nf4['logit_rel_max']:.3e} of max|logit| off one process's (<= "
+              f"{TP_NF4_LOGIT_REL_TOL}; one process {rec_nf4['solo_f32_rel_max']:.3e} off the f32 "
+              f"forward); greedy tokens equal to one process's {nf4_agree} of {TP_NF4_TOKENS}"
+              + (f" (token {nf4_at['token']} at a top-2 margin {nf4_at['margin']:.3e} <= "
+                 f"{nf4_at['bound']:.3e})" if nf4_at else "")
+              + f"; paged decode launches {rec_nf4['launches_per_rank']} == {NF4_SERVE_LAYERS} x "
+              f"{rec_nf4['decode_steps']} on each rank; {r0['nf4']['seconds']:.1f} s in the ranks")
     phase(26, f"26b: f32 {TP_F32_LAYERS}-layer prefill + paged step vs world 1: max|dlogits| / "
               f"max|logit| {rel[0]:.2e}, {rel[1]:.2e} (<= {TP_F32_LOGIT_REL_TOL})")
     phase(26, f"26b: gloo through the host (a correctness phase's cost): tick "
@@ -7279,7 +7813,10 @@ def tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs):
                seconds_since_start=time.monotonic() - jobs["t_start"])
     phase(26, f"{out['seconds']:.1f} s after phase 15 ({out['seconds_since_start']:.1f} s since "
               f"the jobs' start after phase 4; checkpoint written in "
-              f"{out['checkpoint_write_s']:.1f} s)")
+              f"{out['checkpoint_write_s']:.1f} s); ranks serving by {a_traffic['ready_s']:.1f} / "
+              f"{b_traffic['ready_s']:.1f} s (bound {CHILD_BOUND_S['26 serving']} s), stopped in "
+              f"{a_traffic['stop_s']:.1f} / {b_traffic['stop_s']:.1f} s (bound "
+              f"{CHILD_BOUND_S['26 stop']} s)")
     return out
 
 
@@ -7503,13 +8040,17 @@ def main(argv=()) -> int:
     engines = engines_phase(tf, gen_mod, server_mod, fa, generator)
     phase4_solo = engines["solo"]  # phase 21 holds its fleets' tokens to them too
     tp = tp_phase(tf, gen_mod, fa, generator, served, phase4_solo, peaks, live, tp_jobs)
+    # phases 21 and 22 in processes of their own, beside 16-20 (phase 26's
+    # children are gone)
+    fleet_job = phase_child_start("--fleet-only", 21)
+    adapters_job = phase_child_start("--adapters-only", 22)
     speculation = spec_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, engines, served,
                              prompts)
     overload = overload_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     supervision = supervision_phase(tf, gen_mod, engine_mod, server_mod, fa, generator)
     observability = observability_phase(server_mod, fa, generator, peaks)
-    fleet = fleet_phase(tf, gen_mod, engine_mod, server_mod, fa, generator, served, phase4_solo)
-    adapters = adapter_phase(tf, gen_mod, server_mod, fa, generator, phase4_solo)
+    fleet = phase_child_join(fleet_job, "fleet")
+    adapters = phase_child_join(adapters_job, "adapters")
     step = f32_step_phase(tf, fa, params, config, prompts[0])
     profiled = profile_phase(generator, prompts)
     dense = dense_phase(tf, gen_mod, engine_mod, params, config, tokenizer, prompts[0])
@@ -7526,6 +8067,7 @@ def main(argv=()) -> int:
         microbatch = f32_microbatch_phase(trainer, fa, mm)
         del trainer  # free phase 8's state before asking and before the int8 trunk
         gc_cuda()
+        gloo_job = dp_gloo_start()  # 25b's ranks run beside phases 14-23
         best_model = os.path.join(workdir, "out", "best_model")
         recorded = []  # (prompt, token ids) of every generate_ids in the asks
         first = []  # the first ask's Generator, kept for 16d's solo run
@@ -7560,6 +8102,7 @@ def main(argv=()) -> int:
                   f"{100 * (profiled_i8['device_busy_share'] or 0):.1f}% vs "
                   f"{100 * (rec['device_busy_share'] or 0):.1f}%")
 
+    gloo_joined = dp_gloo_join(gloo_job)  # the kernel's timing below has the card alone
     w8a8 = w8a8_kernel_phase(mm, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_int8_") as workdir:
         trained_i8, trainer = train_phase(fa, mm, workdir, frozen_compute="int8")
@@ -7578,10 +8121,14 @@ def main(argv=()) -> int:
     microbatch_i8 = f32_microbatch_phase(trainer, fa, mm)
     del trainer
     gc_cuda()
+    # 25a's CLI process trains beside 24d (at 4 layers), 24e and 25b's world-1
+    # run (24c's trainer is gone: the card holds them; none has a timing check)
+    cli_job = {}
     recipes = recipes_phase(tf, gen_mod, server_mod, cli_mod, fa, mm, trained,
-                            asked["int8"]["memory_allocated_bytes"])
+                            asked["int8"]["memory_allocated_bytes"],
+                            before_d=lambda: cli_job.update(dp_cli_start()))
     gc_cuda()
-    dp = distributed_phase(fa, mm, trained)
+    dp = distributed_phase(fa, mm, trained, gloo_job, cli_job, gloo_joined)
 
     live_rec = kernels["live"]
     paged = kernel_entry("paged_decode_attention",
@@ -7612,6 +8159,7 @@ def main(argv=()) -> int:
     # on its 2 kv heads, and the kernel at tp 2's local live shape (26c)
     paged["launches_tp_26a"] = tp["a_world1_nccl"]["launches"]
     paged["launches_tp_26b_per_rank"] = tp["b_gloo_two_ranks"]["launches_per_rank"]
+    paged["launches_tp_26b_nf4_per_rank"] = tp["b_gloo_two_ranks"]["nf4"]["launches_per_rank"]
     paged["tp2_local_live"] = tp["c_kernel"]["tp2_live"]
     paged.update({
         "kernel": "paged_decode_kernel",
@@ -7678,6 +8226,10 @@ def main(argv=()) -> int:
                "deploy": deploy, "recipes": recipes, "distributed": dp, "tensor_parallel": tp,
                "total_s": time.monotonic() - t_start}
     phase(12, f"total_s {summary['total_s']:.1f}")
+    summary["phase_seconds"] = phase_seconds()
+    summary["phases_beside_children"] = phases_beside_children()
+    print(json.dumps({"phase_seconds": summary["phase_seconds"],
+                      "phases_beside_children": summary["phases_beside_children"]}), flush=True)
     print(json.dumps({"summary": summary}, default=str), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

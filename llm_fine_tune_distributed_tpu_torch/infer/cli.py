@@ -27,7 +27,6 @@ import os
 import time
 from typing import Optional
 
-_JAX = "llm_fine_tune_distributed_tpu"
 # sampling knobs are per-request fields of POST /v1/generate under --serve
 _SAMPLING_FLAGS = ("max_new_tokens", "temperature", "top_p", "top_k",
                    "repetition_penalty", "greedy", "seed")
@@ -100,7 +99,7 @@ def run_ask_cli(
 
         try:
             check_engine(args.engine, "none", args.speculative, args.draft_dir)
-            check_tp(args.engine, args.tp, quantize=args.quantize)
+            check_tp(args.engine, args.tp)
         except (ValueError, NotImplementedError) as e:
             parser.error(str(e))
     elif not question:
@@ -135,9 +134,6 @@ def run_ask_cli(
 
     mesh = None
     try:
-        if args.tp > 1 and args.quantize == "nf4":
-            raise ValueError("--quantize nf4 with --tp > 1 is not ported (stacked NF4 layouts: "
-                             f"{_JAX}.ops.nf4 has them)")
         initialize_distributed(device=device)  # a no-op unless a launcher's env names a group
         if args.tp > 1 or is_distributed():
             from llm_fine_tune_distributed_tpu_torch.models.configs import load_model_config

@@ -167,9 +167,11 @@ restarts every rank; no rank restarts another). ``--adapter-dir`` serves
 tenants on every rank (each rank's registry holds its slices of the pools;
 rank 0 announces each pool write), and ``--publish-watch-dir`` swaps on
 every rank (rank 0 broadcasts the raw leaves; the fingerprint and the
-rollback capture read the leaves gathered whole). Refused with ``--tp > 1``
-(the JAX server's message): ``--replicas`` and an elastic fleet; and
-``--quantize nf4`` (not ported). The host tier is not built, as in the JAX
+rollback capture read the leaves gathered whole). ``--quantize nf4``
+quantizes the whole model first and then shards the codes and absmax like
+their kernels (``parallel/sharding.py``), as the JAX server does. Refused
+with ``--tp > 1`` (the JAX server's message): ``--replicas`` and an elastic
+fleet. The host tier is not built, as in the JAX
 server. A ``"speculative"`` request on a slot engine started without
 ``--speculative`` answers 400: the window fallback is not part of the tick
 protocol.
@@ -356,11 +358,9 @@ def check_deploy(engine: str, publish_watch_dir: Optional[str]) -> None:
         )
 
 
-def check_tp(engine: str, tp: int = 1, replicas: int = 1, max_replicas: int = 0,
-             quantize: str = "none") -> None:
+def check_tp(engine: str, tp: int = 1, replicas: int = 1, max_replicas: int = 0) -> None:
     """Refuse what ``--tp N > 1`` does not serve, before any weight loads:
-    the JAX server's refusal of a fleet, and NF4 weights (not ported under a
-    multi-process mesh)."""
+    the JAX server's refusal of a fleet."""
     tp = int(tp)
     if tp < 1:
         raise ValueError(f"--tp must be >= 1, got {tp}")
@@ -373,10 +373,6 @@ def check_tp(engine: str, tp: int = 1, replicas: int = 1, max_replicas: int = 0,
             "runs ONE sharded engine per fleet — run one server per "
             "slice behind an external balancer instead"
         )
-    if quantize == "nf4":
-        raise NotImplementedError(
-            "--quantize nf4 with --tp > 1 is not ported (stacked NF4 layouts: "
-            "llm_fine_tune_distributed_tpu.ops.nf4 and parallel/sharding.py have them)")
 
 
 def check_fleet(engine: str, replicas: int = 1, routing: str = "prefix",
@@ -1278,7 +1274,7 @@ def serve(model_dir: str, *, device=None, host: str = "0.0.0.0", port: int = 808
     check_adapters(engine, adapter_dir)
     check_deploy(engine, engine_kw.get("publish_watch_dir"))
     check_fleet(engine, **{k: engine_kw[k] for k in _FLEET_FLAGS if k in engine_kw})
-    check_tp(engine, tp, engine_kw.get("replicas", 1), engine_kw.get("max_replicas", 0), quantize)
+    check_tp(engine, tp, engine_kw.get("replicas", 1), engine_kw.get("max_replicas", 0))
     device = resolve_device(device)
     initialize_distributed(device=device)  # a no-op unless a launcher's env names a group
     compute_dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -1539,7 +1535,7 @@ def main(argv: Optional[list] = None) -> int:
         check_adapters(args.engine, args.adapter_dir)
         check_deploy(args.engine, args.publish_watch_dir)
         check_fleet(args.engine, **fleet_kw)
-        check_tp(args.engine, args.tp, args.replicas, args.max_replicas, args.quantize)
+        check_tp(args.engine, args.tp, args.replicas, args.max_replicas)
     except (ValueError, NotImplementedError) as e:
         parser.error(str(e))
     try:

@@ -15,10 +15,12 @@ int8 kernels (inference), NF4 kernels (QLoRA's frozen base and ``--quantize
 nf4``), LoRA adapters (a single adapter's
 ``lora_*`` leaves, or the adapter registry's pools with a per-row
 ``adapter_idx``), the dense KV cache (``init_cache``) and the block-paged
-KV cache in bf16 or int8 (``init_paged_cache``), and tensor-parallel
-serving (``mesh``: each rank's slice of the weights from
-``parallel/sharding.shard_params``, the cache on its local kv heads). Other
-branches raise ``NotImplementedError``.
+KV cache in bf16 or int8 (``init_paged_cache``), tensor-parallel serving
+(``mesh``: each rank's slice of the weights from
+``parallel/sharding.shard_params``, NF4 ones included, the cache on its
+local kv heads) and ZeRO-3 training (``gather``: each block's fsdp slices
+made whole as the block runs). Other branches raise
+``NotImplementedError``.
 
 Tensor parallelism (Megatron, as the JAX rules place it): q/k/v and
 gate/up are column-parallel, so a rank computes its own heads and MLP
@@ -56,6 +58,7 @@ from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import int8_w8a8_matmul
 from llm_fine_tune_distributed_tpu_torch.ops.nf4 import QUANT_SUFFIXES, nf4_matmul
 from llm_fine_tune_distributed_tpu_torch.ops.norms import rms_norm
 from llm_fine_tune_distributed_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from llm_fine_tune_distributed_tpu_torch.parallel.sharding import nf4_slice_origin
 from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
     tp_all_gather_last,
     tp_all_reduce_,
@@ -126,21 +129,29 @@ def param_shapes(config: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def iter_init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
+                     dtype=torch.float32):
+    """``init_params`` one leaf at a time: (name, leaf) in its order, with
+    its values, so a caller can keep a slice of each leaf and drop the rest
+    before the next one is made."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, shape in param_shapes(config).items():
+        if name.endswith("norm.weight"):
+            leaf = torch.ones(shape, device=device, dtype=dtype)
+        elif name.endswith(".bias"):
+            leaf = torch.zeros(shape, device=device, dtype=dtype)
+        else:
+            leaf = torch.randn(shape, generator=gen, device=device,
+                               dtype=torch.float32).mul_(0.02).to(dtype)
+        yield name, leaf
+        del leaf  # before the next leaf is made
+
+
 def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
                 dtype=torch.float32) -> Params:
     """Random init (normal 0.02, HF convention) from an explicit generator
     seeded with ``seed``. Norm weights start at 1, biases at 0."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params: Params = {}
-    for name, shape in param_shapes(config).items():
-        if name.endswith("norm.weight"):
-            params[name] = torch.ones(shape, device=device, dtype=dtype)
-        elif name.endswith(".bias"):
-            params[name] = torch.zeros(shape, device=device, dtype=dtype)
-        else:
-            w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-            params[name] = w.mul_(0.02).to(dtype)
-    return params
+    return dict(iter_init_params(config, seed=seed, device=device, dtype=dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -150,13 +161,15 @@ def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
 
 def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
             trunk_matmul=None, adapter_idx: Optional[torch.Tensor] = None,
-            tensor_group=None) -> torch.Tensor:
+            tensor_group=None, nf4_origin=None) -> torch.Tensor:
     """x @ kernel (+ LoRA) (+ bias) in ``compute_dtype``. The int8 siblings
     ``kernel_int8`` / ``kernel_int8_scale`` run through ``trunk_matmul``
     (w8a8) in the frozen trunk (``trunk_matmul`` given) and through
     ``ops.int8.int8_matmul`` (weight-only) elsewhere. The NF4 siblings
     ``kernel_nf4`` / ``kernel_absmax*`` run through ``ops.nf4.nf4_matmul``,
-    which dequantizes per call and keeps only the codes for its backward.
+    which dequantizes per call and keeps only the codes for its backward;
+    under tensor parallelism ``nf4_origin(name, absmax_shape)`` places the
+    rank's slice in the whole double-quantized absmax.
 
     LoRA, as in the JAX ``_linear``, on either kernel: ``lora_a [in, r]`` /
     ``lora_b [r, out]`` / ``lora_scale`` leaves beside the kernel add
@@ -179,7 +192,9 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
     elif name + ".kernel_nf4" in params:
         q = {s: params[f"{name}.kernel_{s}"] for s in QUANT_SUFFIXES
              if f"{name}.kernel_{s}" in params}
-        y = nf4_matmul(x, q, compute_dtype=compute_dtype)
+        origin = (nf4_origin(name, q["absmax_q"].shape)
+                  if nf4_origin is not None and "absmax_q" in q else None)
+        y = nf4_matmul(x, q, compute_dtype=compute_dtype, origin=origin)
     else:
         y = x @ params[name + ".kernel"].to(compute_dtype)
     lora_a = params.get(name + ".lora_a")
@@ -223,18 +238,23 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
            block_tables, padding_mask, write_slots, segment_ids, *, config: ModelConfig,
            compute_dtype,
            decode_attention, attention_impl: str, attention_fn, trunk_matmul=None,
-           adapter_idx=None, tensor_group=None):
+           adapter_idx=None, tensor_group=None, nf4_origin=None, gather=None):
     """One transformer block; updates a cache ``entry`` (paged, or dense at
     ``write_slots``) in place. ``adapter_idx`` picks each row's pooled
     adapter in the seven projections. The head counts are the weights' (a
     rank's own under tensor parallelism); ``tensor_group`` all-reduces the
-    row-parallel o_proj and down_proj."""
+    row-parallel o_proj and down_proj. ``gather(params, i)`` (ZeRO-3) makes
+    the block's sharded leaves whole first, inside a rematerialized block,
+    so the backward's replay gathers them again."""
+    if gather is not None:
+        params = gather(params, i)
     b, s, _ = x.shape
     d = config.resolved_head_dim
     eps = config.rms_norm_eps
     p = f"model.layers.{i}."
     linear = functools.partial(_linear, params=params, compute_dtype=compute_dtype,
-                               trunk_matmul=trunk_matmul, adapter_idx=adapter_idx)
+                               trunk_matmul=trunk_matmul, adapter_idx=adapter_idx,
+                               nf4_origin=nf4_origin)
 
     row_linear = functools.partial(linear, tensor_group=tensor_group)
 
@@ -356,6 +376,7 @@ def forward(
     trunk_matmul=int8_w8a8_matmul,
     adapter_idx: Optional[torch.Tensor] = None,
     mesh=None,
+    gather=None,
 ):
     """Run the model.
 
@@ -411,6 +432,12 @@ def forward(
     parallel collectives (module docstring). The logits are the full row on
     every rank.
 
+    ``gather`` (``parallel/optimizer.FsdpShards.gather``, ZeRO-3 training):
+    ``params`` hold this rank's fsdp slices; ``gather(params, None)`` makes
+    the leaves outside the blocks whole once (the tied embedding serves the
+    lookup and the unembed), and each block gathers its own leaves as it
+    starts (``_block``), under its rematerialization.
+
     Returns ``(logits [batch, seq, vocab] in logits_dtype, cache)``, or the
     final-norm hidden states in ``compute_dtype`` with ``output_hidden``.
     The cache is updated in place and returned.
@@ -436,6 +463,12 @@ def forward(
     positions = positions.to(device=device, dtype=torch.long)
 
     group = mesh.tensor_group if mesh is not None else None
+    nf4_origin = None
+    if group is not None and mesh.tensor_size > 1:
+        nf4_origin = functools.partial(nf4_slice_origin, config=config, tp=mesh.tensor_size,
+                                       index=mesh.tensor_index)
+    if gather is not None:
+        params = gather(params, None)
     x = _embed(params, input_ids, compute_dtype, group)
     cos, sin = rope_cos_sin(positions, config.resolved_head_dim, config.rope_theta, config=config)
 
@@ -469,7 +502,8 @@ def forward(
             _block, params, i, config=config, compute_dtype=compute_dtype,
             decode_attention=decode_attention, attention_impl=attention_impl,
             attention_fn=attention_fn, trunk_matmul=trunk_matmul if i < trunk else None,
-            adapter_idx=adapter_idx, tensor_group=group,
+            adapter_idx=adapter_idx, tensor_group=group, nf4_origin=nf4_origin,
+            gather=gather,
         )
         args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask,
                 write_slots, segment_ids)

@@ -30,7 +30,7 @@ functions).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +67,8 @@ _MIDS = (NF4_CODEBOOK[1:] + NF4_CODEBOOK[:-1]) / 2.0
 
 DEFAULT_BLOCK_SIZE = 64
 ABSMAX_GROUP = 256  # double-quant group size (QLoRA paper)
+# a tensor-parallel slice's (first absmax row, first column, whole out)
+Origin = Tuple[int, int, int]
 
 # The sibling leaf names of a quantized ``kernel``; every consumer derives its
 # key lists from these two tuples
@@ -152,26 +154,41 @@ def quantize_nf4(w: torch.Tensor, block_size: int = DEFAULT_BLOCK_SIZE,
     return out
 
 
-def _dequant_absmax(q: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The f32 absmax [in/block, out] from either storage form."""
+def _dequant_absmax(q: Dict[str, torch.Tensor], origin: Optional[Origin] = None) -> torch.Tensor:
+    """The f32 absmax [in/block, out] from either storage form. ``origin``
+    (``parallel/sharding.nf4_slice_origin``: first row, first column, whole
+    out) places a tensor-parallel rank's slice in the whole absmax, whose
+    flat entries the scales group by 256: entry (r, c) reads group
+    ``((row0 + r) * out + col0 + c) // 256``, bit for bit the whole
+    dequantization's value there."""
     if "absmax" in q:
         return q["absmax"].float()
     shape = q["absmax_q"].shape
     flat = q["absmax_q"].float().reshape(-1)
+    if origin is not None:
+        row0, col0, out = origin
+        dev = flat.device
+        rows = torch.arange(row0, row0 + shape[0], device=dev)[:, None]
+        cols = torch.arange(col0, col0 + shape[1], device=dev)[None, :]
+        group = ((rows * out + cols) // ABSMAX_GROUP).reshape(-1)
+        deq = flat * q["absmax_scale"].float()[group]
+        return (deq + q["absmax_offset"].float()).reshape(shape)
     pad = (-flat.numel()) % ABSMAX_GROUP
     grouped = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, ABSMAX_GROUP)
     deq = grouped * q["absmax_scale"][:, None].float()
     return (deq.reshape(-1)[: flat.numel()] + q["absmax_offset"].float()).reshape(shape)
 
 
-def dequantize_nf4(q: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
+def dequantize_nf4(q: Dict[str, torch.Tensor], dtype=torch.bfloat16,
+                   origin: Optional[Origin] = None) -> torch.Tensor:
     """The weight [in, out] in ``dtype``: code points in f32 times the
-    block's absmax, cast once (the JAX arithmetic)."""
+    block's absmax, cast once (the JAX arithmetic). ``origin``: a
+    tensor-parallel slice's place in the whole absmax (``_dequant_absmax``)."""
     packed = q["nf4"]
     k = packed.shape[0] * 8
     codebook = torch.from_numpy(NF4_CODEBOOK).to(packed.device)
     w = codebook[unpack_codes(packed)]
-    absmax = _dequant_absmax(q)
+    absmax = _dequant_absmax(q, origin)
     block = k // absmax.shape[0]
     w = w.reshape(absmax.shape[0], block, -1) * absmax[:, None, :]
     return w.reshape(k, -1).to(dtype)
@@ -183,25 +200,25 @@ class _NF4Matmul(torch.autograd.Function):
     weight is saved between the forward and the backward."""
 
     @staticmethod
-    def forward(ctx, x, compute_dtype, keys, *leaves):
+    def forward(ctx, x, compute_dtype, keys, origin, *leaves):
         q = dict(zip(keys, leaves))
         ctx.save_for_backward(*leaves)
-        ctx.keys, ctx.compute_dtype, ctx.x_dtype = keys, compute_dtype, x.dtype
-        return x.to(compute_dtype) @ dequantize_nf4(q, compute_dtype)
+        ctx.keys, ctx.compute_dtype, ctx.x_dtype, ctx.origin = keys, compute_dtype, x.dtype, origin
+        return x.to(compute_dtype) @ dequantize_nf4(q, compute_dtype, origin)
 
     @staticmethod
     def backward(ctx, dy):
         q = dict(zip(ctx.keys, ctx.saved_tensors))
-        w = dequantize_nf4(q, ctx.compute_dtype)
-        return ((dy @ w.T).to(ctx.x_dtype), None, None) + (None,) * len(ctx.keys)
+        w = dequantize_nf4(q, ctx.compute_dtype, ctx.origin)
+        return ((dy @ w.T).to(ctx.x_dtype), None, None, None) + (None,) * len(ctx.keys)
 
 
 def nf4_matmul(x: torch.Tensor, q: Dict[str, torch.Tensor],
-               compute_dtype=torch.bfloat16) -> torch.Tensor:
+               compute_dtype=torch.bfloat16, origin: Optional[Origin] = None) -> torch.Tensor:
     """``x [..., in] @ dequant(q) [in, out]`` in ``compute_dtype``,
-    differentiable in ``x``."""
+    differentiable in ``x``; ``origin`` as in ``dequantize_nf4``."""
     keys = tuple(sorted(q))
-    return _NF4Matmul.apply(x, compute_dtype, keys, *(q[key] for key in keys))
+    return _NF4Matmul.apply(x, compute_dtype, keys, origin, *(q[key] for key in keys))
 
 
 def quantized_keys(prefix: str) -> tuple:

@@ -9,9 +9,12 @@ _linear`` dispatches on ``kernel_nf4``, so the forward, the eval and
 generation run off the quantized base. The embedding, the lm_head, the
 norms, biases and any MoE router stay in full precision.
 
-Not here: ``quantize_frozen_abstract`` (the shape-level planner of sharded
-init) and the stacked MoE and pipeline layouts, which wait for meshes, MoE
-and pipeline parallelism (``models/transformer.check_supported`` refuses MoE
+``quantize_frozen_abstract`` is the shape-level planner: the same leaves
+as ``quantize_frozen`` as meta tensors (shape and dtype, no memory), from
+which the trainer plans the fsdp axis's ZeRO-3 slices before it quantizes.
+
+Not here: the stacked MoE and pipeline layouts, which wait for MoE and
+pipeline parallelism (``models/transformer.check_supported`` refuses MoE
 models; ``ops/nf4.quantize_nf4`` raises on a 3-D leaf).
 """
 
@@ -27,6 +30,7 @@ from llm_fine_tune_distributed_tpu_torch.ops.nf4 import (
     DEQUANT_MARKERS,
     dequantize_nf4,
     quantize_nf4,
+    quantized_layout,
 )
 
 Params = Dict[str, torch.Tensor]
@@ -45,6 +49,23 @@ def quantize_frozen(frozen: Params, block_size: int = DEFAULT_BLOCK_SIZE,
         q = quantize_nf4(leaf, block_size, double_quant)
         for suffix, arr in q.items():
             out[f"{name}_{suffix}"] = arr
+    return out
+
+
+def quantize_frozen_abstract(frozen: Params, block_size: int = DEFAULT_BLOCK_SIZE,
+                             double_quant: bool = True) -> Params:
+    """Shape-level ``quantize_frozen`` (the JAX package's planner): leaves
+    with a ``shape`` and a ``dtype`` in, meta tensors out, the layout from
+    ``ops/nf4.quantized_layout``, the source the quantizer encodes, so the
+    two cannot drift."""
+    out: Params = {}
+    for name, leaf in frozen.items():
+        if not is_block_linear(name) or leaf.shape[0] % block_size:
+            out[name] = torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+            continue
+        for suffix, (shape, dtype) in quantized_layout(tuple(leaf.shape), block_size,
+                                                       double_quant).items():
+            out[f"{name}_{suffix}"] = torch.empty(shape, dtype=dtype, device="meta")
     return out
 
 

@@ -13,10 +13,11 @@ A spec is a tuple with one entry per leading dim: an axis name, or None
 - ``_validate_spec`` drops an axis that does not divide its dim (that dim is
   then replicated), and trailing Nones.
 
-The trainer reads one thing from them: the dim of each trainable leaf that
-the ``fsdp`` axis splits, over which the AdamW state is sharded
-(``fsdp_dim``). Tensor-parallel serving reads the ``tensor`` entries:
-``shard_params`` gives a rank its slice of every leaf (the JAX
+The trainer reads one thing from them: the dim of each leaf, trainable or
+frozen, that the ``fsdp`` axis splits (``fsdp_dim``), over which ZeRO-3
+slices the leaf and its AdamW state (``parallel/optimizer.FsdpShards``).
+Tensor-parallel serving reads the ``tensor`` entries: ``shard_params``
+gives a rank its slice of every leaf (the JAX
 ``shard_params``' addressable shard) and ``local_model_config`` the head
 counts and widths of that slice; ``kv_cache_spec`` is the KV rules'. The
 batch specs stay data (the port's trainer splits batches itself).
@@ -27,6 +28,19 @@ divide (``_validate_spec``), the port refuses, with one exception: when
 query heads read (the JAX cache's head replication, without the copies a
 rank does not read), so the paged kernel's ``q head -> kv head`` index
 stays ``i // G`` with the local G.
+
+NF4 leaves (``--quantize nf4``, quantized whole before the split, as the
+JAX server does) shard like their kernel: the packed codes ``[in/8, out]``
+and the absmax ``[in/block, out]`` by columns beside a column-parallel
+kernel and by rows beside a row-parallel one; the double quantization's
+``absmax_scale`` (one f32 per group of 256 *flat* absmax entries) and
+``absmax_offset`` stay whole, so a rank dequantizes its slice from its
+origin in the whole absmax (``nf4_slice_origin``). A row-parallel slice
+that would not start on a whole packed word and a whole absmax block is
+refused. A single adapter's ``lora_a [in, r]`` / ``lora_b [r, out]`` split
+by their kernel's rule, as the adapter registry's factors do
+(``shard_lora_factors``; the JAX rules give them no tensor axis: there each
+device computes the whole delta).
 """
 
 from __future__ import annotations
@@ -119,6 +133,7 @@ def fsdp_dim(name: str, shape: Sequence[int], mesh_shape: Dict[str, int]) -> Opt
 # ------------------------------------------------------- tensor-parallel serving
 
 _JAX_SHARDING = "llm_fine_tune_distributed_tpu.parallel.sharding.shard_params"
+_JAX_VALIDATE = "llm_fine_tune_distributed_tpu.parallel.sharding._validate_spec"
 _KV_PROJ = (".self_attn.k_proj", ".self_attn.v_proj")
 
 
@@ -177,26 +192,73 @@ def _tensor_range(module: str, dim: int, size: int, config, tp: int, index: int)
     return index * n, (index + 1) * n
 
 
+def _split_dims(name: str, ndim: int) -> Optional[Tuple[int, int]]:
+    """(dim of the leaf ``name``, dim of its module's kernel) that the
+    ``tensor`` axis splits, or None where the leaf stays whole: a matrix by
+    its own rule (NF4 codes and absmax like their kernel), a 1-D bias or
+    int8 scale beside a column-parallel kernel, ``lora_b``'s columns beside
+    a column-parallel kernel and ``lora_a``'s rows beside a row-parallel
+    one."""
+    module, _, leaf = name.rpartition(".")
+    if leaf in ("lora_a", "lora_b") or ndim <= 1:
+        kspec = param_spec(module + ".kernel", 2)
+        if "tensor" not in kspec:
+            return None
+        kdim = kspec.index("tensor")
+        if leaf in ("lora_a", "lora_b"):
+            return (kdim, kdim) if (kdim == 0) == (leaf == "lora_a") else None
+        if kdim == 1 and leaf in ("bias", "kernel_int8_scale"):
+            return 0, 1
+        return None  # beside a row-parallel kernel, or a scale of the whole: whole
+    spec = param_spec(name, ndim)
+    if "tensor" not in spec:
+        return None
+    dim = spec.index("tensor")
+    return dim, dim
+
+
 def shard_leaf(name: str, t: torch.Tensor, config, tp: int, index: int) -> torch.Tensor:
     """Rank ``index`` of ``tp``'s slice of the leaf ``name`` (the rules of
     ``shard_params``): a copy of its own where it is sliced, ``t`` itself
     where the leaf stays whole."""
-    module, _, leaf = name.rpartition(".")
-    if tp > 1 and (leaf.startswith(("kernel_nf4", "kernel_absmax")) or "lora_" in leaf):
-        raise NotImplementedError(
-            f"{name}: NF4 and LoRA leaves under --tp {tp} are not ported (the JAX "
-            f"{_JAX_SHARDING} and ops/nf4.py's stacked layouts have them)")
-    spec = param_spec(module + ".kernel", 2) if t.dim() <= 1 else param_spec(name, t.dim())
-    if tp == 1 or "tensor" not in spec:
+    if tp == 1:
         return t
-    dim = spec.index("tensor")
-    if t.dim() <= 1:
-        if dim == 0 or leaf not in ("bias", "kernel_int8_scale"):
-            return t  # beside a row-parallel kernel: whole
-        start, stop = _tensor_range(module, 1, t.shape[0], config, tp, index)
-        return t[start:stop].clone()
-    start, stop = _tensor_range(module, dim, t.shape[dim], config, tp, index)
+    module, _, leaf = name.rpartition(".")
+    if "lora_" in leaf and leaf not in ("lora_a", "lora_b", "lora_scale"):
+        raise NotImplementedError(
+            f"{name}: adapter pool leaves in the weights under --tp {tp} are not ported (the "
+            "adapter registry slices its pools itself, infer/adapters.py)")
+    dims = _split_dims(name, t.dim())
+    if dims is None:
+        return t
+    dim, kernel_dim = dims
+    if kernel_dim == 0 and leaf.startswith(("kernel_nf4", "kernel_absmax")) and t.shape[0] % tp:
+        what = "packed word" if leaf == "kernel_nf4" else "absmax block"
+        raise ValueError(
+            f"--tp {tp}: {name} {tuple(t.shape)} of a row-parallel kernel cannot start every "
+            f"rank's rows on a whole {what} (the JAX {_JAX_VALIDATE} replicates this leaf; "
+            "the port refuses)")
+    start, stop = _tensor_range(module, kernel_dim, t.shape[dim], config, tp, index)
     return t.narrow(dim, start, stop - start).clone()
+
+
+def nf4_slice_origin(module: str, absmax_shape: Sequence[int], config, tp: int,
+                     index: int) -> Tuple[int, int, int]:
+    """(first absmax row, first column, whole out) of rank ``index``'s NF4
+    slice of ``module`` in the whole ``[in/block, out]`` absmax, whose
+    flat row-major entries the double quantization groups by 256: the
+    rank's entry (r, c) is whole entry ``(row0 + r, col0 + c)``.
+    ``absmax_shape`` is the rank's own."""
+    rows, cols = absmax_shape
+    dims = _split_dims(module + ".kernel_absmax_q", 2) if tp > 1 else None
+    if dims is None:
+        return 0, 0, cols
+    if dims[0] == 0:
+        return index * rows, 0, cols
+    whole = (config.num_kv_heads * config.resolved_head_dim if module.endswith(_KV_PROJ)
+             else cols * tp)
+    start, _ = _tensor_range(module, 1, whole, config, tp, index)
+    return 0, start, whole
 
 
 def shard_params(params: Dict[str, torch.Tensor], mesh, config) -> Dict[str, torch.Tensor]:
@@ -205,9 +267,9 @@ def shard_params(params: Dict[str, torch.Tensor], mesh, config) -> Dict[str, tor
     ``lm_head`` columns, o/down rows, the embedding's vocab rows, int8 codes
     like their kernel with the per-channel scales sliced beside a
     column-parallel kernel and whole beside a row-parallel one, column-
-    parallel biases sliced; norms and the rest whole. ``config`` is the
-    whole model's (the kv heads' mapping). NF4 and LoRA leaves raise at
-    ``tp > 1``."""
+    parallel biases sliced, NF4 and single-adapter LoRA leaves as the module
+    docstring says; norms and the rest whole. ``config`` is the whole
+    model's (the kv heads' mapping)."""
     tp, index = mesh.tensor_size, mesh.tensor_index
     return {name: shard_leaf(name, t, config, tp, index) for name, t in params.items()}
 
@@ -215,18 +277,13 @@ def shard_params(params: Dict[str, torch.Tensor], mesh, config) -> Dict[str, tor
 def shard_lora_factors(module: str, a: torch.Tensor, b: torch.Tensor, config, tp: int,
                        index: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank ``index``'s slice of one adapter's factors ``A [in, r]``,
-    ``B [r, out]`` of ``module``, by its kernel's rule: a column-parallel
-    kernel's B by output columns (A whole), a row-parallel kernel's A by
-    input rows (B whole), so that the rank's pooled delta is its share of
-    the whole delta (summed by the row-parallel all-reduce)."""
-    spec = param_spec(module + ".kernel", 2)
-    if tp == 1 or "tensor" not in spec:
-        return a, b
-    if spec.index("tensor") == 1:
-        start, stop = _tensor_range(module, 1, b.shape[1], config, tp, index)
-        return a, b[:, start:stop]
-    start, stop = _tensor_range(module, 0, a.shape[0], config, tp, index)
-    return a[start:stop], b
+    ``B [r, out]`` of ``module``, by its kernel's rule (``shard_leaf``'s for
+    ``lora_a`` / ``lora_b``): a column-parallel kernel's B by output
+    columns (A whole), a row-parallel kernel's A by input rows (B whole), so
+    that the rank's delta is its share of the whole delta (summed by the
+    row-parallel all-reduce)."""
+    return (shard_leaf(module + ".lora_a", a, config, tp, index),
+            shard_leaf(module + ".lora_b", b, config, tp, index))
 
 
 def unshard_leaf(name: str, parts, config, tp: int) -> torch.Tensor:
@@ -235,19 +292,12 @@ def unshard_leaf(name: str, parts, config, tp: int) -> torch.Tensor:
     fallback) is taken once."""
     if tp == 1:
         return parts[0]
-    module, _, leaf = name.rpartition(".")
+    module = name.rpartition(".")[0]
     t = parts[0]
-    spec = param_spec(module + ".kernel", 2) if t.dim() <= 1 else param_spec(name, t.dim())
-    if "tensor" not in spec:
+    dims = _split_dims(name, t.dim())
+    if dims is None:
         return t
-    dim = spec.index("tensor")
-    if t.dim() <= 1:
-        if dim == 0 or leaf not in ("bias", "kernel_int8_scale"):
-            return t
-        dim = 0
-        kernel_dim = 1
-    else:
-        kernel_dim = dim
+    dim, kernel_dim = dims
     if module.endswith(_KV_PROJ) and kernel_dim == 1:
         size = config.num_kv_heads * config.resolved_head_dim
     else:

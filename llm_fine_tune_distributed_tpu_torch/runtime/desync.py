@@ -5,10 +5,13 @@ Every N steps each rank sums its trainable leaves in float64 into one
 checksum, and the ranks all-gather them (one small tensor). Two invariants:
 
 1. finiteness: a NaN or Inf in any rank's trainable leaves fails;
-2. replication agreement: every trainable leaf is whole and replicated on
-   every rank (the fsdp axis shards only the optimizer state), so every
-   rank's checksum must be bit-equal; a mismatch means that replicas which
-   should be identical diverged (input skew, a restore mixup, a bit flip).
+2. replication agreement: a trainable leaf that is whole on every rank
+   must be bit-equal everywhere, so the ranks' checksums of those leaves
+   must be; under ZeRO-3 (``parallel/optimizer.FsdpShards``) the fsdp
+   slices are checksummed apart, and must agree between the ranks that
+   hold the same slice (the replicas of a data axis beside fsdp). A
+   mismatch means that replicas which should be identical diverged (input
+   skew, a restore mixup, a bit flip).
 
 The verdict is taken from the gathered checksums, the same on every rank,
 so a fault on one rank fails every rank at the same step (the JAX check
@@ -42,13 +45,30 @@ def local_checksum(trainable: Dict[str, torch.Tensor]) -> torch.Tensor:
     return total.reshape(1)
 
 
-def check_param_sync(trainable: Dict[str, torch.Tensor], rtol: float = 0.0) -> Tuple[bool, List[float]]:
-    """(in_sync, every rank's checksum). A collective: every rank calls it."""
-    sums = all_gather_tensor(local_checksum(trainable)).reshape(-1).cpu().numpy()
+def _agree(sums: np.ndarray, rtol: float) -> bool:
+    return bool(np.all(np.abs(sums - sums[0]) <= abs(sums[0]) * rtol))
+
+
+def check_param_sync(trainable: Dict[str, torch.Tensor], shards=None,
+                     rtol: float = 0.0) -> Tuple[bool, List[float]]:
+    """(in_sync, every rank's checksum of its whole leaves). A collective:
+    every rank calls it. With ``shards`` the slices' checksums must agree
+    between the ranks of the same fsdp index."""
+    sliced = set(shards.dims) if shards is not None else set()
+    dev = next(iter(trainable.values())).device if trainable else torch.device("cpu")
+    mine = local_checksum({k: v for k, v in trainable.items() if k not in sliced}).to(dev)
+    if sliced:
+        part = local_checksum({k: v for k, v in trainable.items() if k in sliced})
+        mine = torch.cat([mine, part.to(dev)])
+    sums = all_gather_tensor(mine).cpu().numpy()  # [world, 1 or 2]
+    whole = sums[:, 0]
     if not np.isfinite(sums).all():
-        return False, sums.tolist()
-    ref = sums[0]
-    return bool(np.all(np.abs(sums - ref) <= abs(ref) * rtol)), sums.tolist()
+        return False, whole.tolist()
+    ok = _agree(whole, rtol)
+    if sliced:
+        count = shards.count
+        ok = ok and all(_agree(sums[f::count, 1], rtol) for f in range(count))
+    return ok, whole.tolist()
 
 
 class DesyncMonitor:
@@ -59,10 +79,10 @@ class DesyncMonitor:
         self.last_checksums: list = []
         self.checks = 0
 
-    def maybe_check(self, step: int, trainable: Dict[str, torch.Tensor]) -> bool:
+    def maybe_check(self, step: int, trainable: Dict[str, torch.Tensor], shards=None) -> bool:
         if not self.every or step % self.every:
             return True
-        ok, sums = check_param_sync(trainable)
+        ok, sums = check_param_sync(trainable, shards)
         self.last_checksums = sums
         self.checks += 1
         if not ok:

@@ -23,7 +23,10 @@ drives one device.
   step issues 74 of them.
 
 The helpers below are what the trainer calls; each is a no-op without a
-process group, so a one-process run issues no collective. The tensor
+process group, so a one-process run issues no collective. ZeRO-3 over the
+fsdp axis (``parallel/optimizer.FsdpShards``) moves slices with
+``all_gather_rows`` (every rank's flat slice, one row each) and
+``reduce_scatter_rows`` (the rows summed, this rank's row kept). The tensor
 group's collectives (``tp_all_reduce_``, ``tp_all_gather_last``) are what a
 tensor-parallel forward issues, and ``broadcast_host`` carries the serving
 tick bridge's host arrays (``infer/multihost.py``) over a gloo group made
@@ -31,9 +34,11 @@ beside the main one.
 
 Gloo takes only ``broadcast`` and ``all_reduce`` on CUDA tensors (and its
 ``all_gather_into_tensor`` refuses this layout on the CPU), so on a gloo
-group the all-gather along the last dim is an all-reduce of a zeroed full
-buffer that holds each rank's slice in its place: every element has one
-nonzero addend, so the sum is exact.
+group an all-gather is an all-reduce of a zeroed full buffer that holds
+each rank's slice in its place (every element has one nonzero addend, so
+the sum is exact), and a reduce-scatter is an all-reduce of the whole
+buffer of which each rank keeps its part. On NCCL both are the real
+collectives.
 """
 
 from __future__ import annotations
@@ -207,19 +212,19 @@ def barrier(device) -> None:
 
 
 def all_reduce_grads(grads: List[torch.Tensor], extras: torch.Tensor,
-                     bucket_bytes: int = BUCKET_BYTES) -> torch.Tensor:
-    """Sum ``grads`` (f32, contiguous) across the world in place, and
-    ``extras`` (a small f32 vector: the step's loss and scalars) with them;
-    returns the summed ``extras``. Leaves of at least ``bucket_bytes`` are
-    reduced in place one by one; the others go, ``extras`` first, through
-    flat f32 buffers of about ``bucket_bytes``: a few calls per step, not
-    one per leaf."""
+                     bucket_bytes: int = BUCKET_BYTES, group=None) -> torch.Tensor:
+    """Sum ``grads`` (f32, contiguous) across ``group`` (None: the world) in
+    place, and ``extras`` (a small f32 vector: the step's loss and scalars)
+    with them; returns the summed ``extras``. Leaves of at least
+    ``bucket_bytes`` are reduced in place one by one; the others go,
+    ``extras`` first, through flat f32 buffers of about ``bucket_bytes``: a
+    few calls per step, not one per leaf."""
     if not is_distributed():
         return extras
     small = [g for g in grads if g.numel() * 4 < bucket_bytes]
     for g in grads:
         if g.numel() * 4 >= bucket_bytes:
-            dist.all_reduce(g)
+            dist.all_reduce(g, group=group)
     buckets: List[List[torch.Tensor]] = [[extras]]
     size = extras.numel() * 4
     for g in small:
@@ -230,32 +235,13 @@ def all_reduce_grads(grads: List[torch.Tensor], extras: torch.Tensor,
         size += g.numel() * 4
     for bucket in buckets:
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         offset = 0
         for t in bucket:
             n = t.numel()
             t.copy_(flat[offset: offset + n].view_as(t))
             offset += n
     return extras
-
-
-def all_gather_flat(parts: List[torch.Tensor], group, count: int) -> List[List[torch.Tensor]]:
-    """All-gather the tensors ``parts`` (equal shapes on every rank of
-    ``group``, which has ``count`` ranks) as one flat buffer; returns, per
-    rank of the group in order, that rank's tensors."""
-    if not parts:
-        return [[] for _ in range(count)]
-    flat = torch.cat([p.reshape(-1) for p in parts])
-    out = [torch.empty_like(flat) for _ in range(count)]
-    dist.all_gather(out, flat, group=group)
-    gathered = []
-    for buf in out:
-        offset, mine = 0, []
-        for p in parts:
-            mine.append(buf[offset: offset + p.numel()].view(p.shape))
-            offset += p.numel()
-        gathered.append(mine)
-    return gathered
 
 
 def all_gather_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -266,6 +252,30 @@ def all_gather_tensor(t: torch.Tensor) -> torch.Tensor:
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(out, t.contiguous())
     return torch.stack(out)
+
+
+def all_gather_rows(flat: torch.Tensor, group, count: int, index: int) -> torch.Tensor:
+    """``[count, n]``: row ``r`` is rank ``r``'s ``flat [n]`` (``index`` is
+    this rank's place in ``group``, which has ``count`` ranks)."""
+    if dist.get_backend(group) == "gloo":
+        out = torch.zeros((count, flat.numel()), dtype=flat.dtype, device=flat.device)
+        out[index] = flat
+        dist.all_reduce(out, group=group)
+        return out
+    out = torch.empty((count, flat.numel()), dtype=flat.dtype, device=flat.device)
+    dist.all_gather_into_tensor(out, flat.contiguous(), group=group)
+    return out
+
+
+def reduce_scatter_rows(rows: torch.Tensor, group, index: int) -> torch.Tensor:
+    """Row ``index`` of ``rows [count, n]`` summed over ``group``: each
+    rank gets the sum of its own row."""
+    if dist.get_backend(group) == "gloo":
+        dist.all_reduce(rows, group=group)
+        return rows[index]
+    out = torch.empty(rows.shape[1], dtype=rows.dtype, device=rows.device)
+    dist.reduce_scatter_tensor(out, rows.contiguous(), group=group)
+    return out
 
 
 def tp_all_reduce_(t: torch.Tensor, group) -> torch.Tensor:

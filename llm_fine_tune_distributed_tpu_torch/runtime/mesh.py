@@ -8,9 +8,9 @@ rank's coordinates are the ones its device has in the JAX mesh. Two axes are
 ported, and both split the batch:
 
 - ``data``: pure data parallelism;
-- ``fsdp``: data parallelism that also shards, per trainable leaf, the f32
-  master's update and the AdamW moments over the axis (ZeRO-1; the JAX axis
-  also shards the leaves themselves, ZeRO-3).
+- ``fsdp``: data parallelism that also shards the leaves themselves,
+  trainable and frozen, and the AdamW moments over the axis (ZeRO-3, as the
+  JAX axis does; ``parallel/optimizer.FsdpShards``).
 
 A training mesh with ``tensor``, ``seq``, ``pipe`` or ``expert`` larger
 than 1 raises ``NotImplementedError``. Serving shards over ``tensor``
@@ -46,14 +46,17 @@ UNPORTED_AXES = {
 @dataclass
 class DeviceMesh:
     """Axis sizes (``shape``, in ``MESH_AXES`` order) over ``size`` ranks,
-    this process's ``rank``, and its ``fsdp`` group: the ranks that share
-    its data replica (None: the whole world, or no group at all). A serving
+    this process's ``rank``, its ``fsdp`` group: the ranks that share its
+    data replica (None: the whole world, or no group at all), and its
+    ``replica`` group beside a data axis: the ranks that hold the same fsdp
+    slices (None: there is no data axis beside fsdp). A serving
     mesh has ``tensor_group`` (None: no process group, so the forward
     issues no collective) and, over more than one rank, ``control_group``."""
 
     shape: Dict[str, int]
     rank: int = 0
     fsdp_group: Optional[object] = field(default=None, repr=False)
+    replica_group: Optional[object] = field(default=None, repr=False)
     tensor_group: Optional[object] = field(default=None, repr=False)
     control_group: Optional[object] = field(default=None, repr=False)
 
@@ -110,8 +113,9 @@ def make_mesh(config: Optional[MeshConfig] = None, world: Optional[int] = None,
     default, 1 without one). Sizes and their ``ValueError``s are
     ``MeshConfig.axis_sizes``'s; an unported axis larger than 1 raises
     ``NotImplementedError``. With a process group of that world, the fsdp
-    groups are made here, one per data replica (every rank makes every
-    group, in the same order)."""
+    groups are made here, one per data replica, and the replica groups,
+    one per fsdp slice (every rank makes every group, in the same
+    order)."""
     config = config or MeshConfig()
     check_ported_axes(config)
     grouped = is_distributed()
@@ -128,6 +132,10 @@ def make_mesh(config: Optional[MeshConfig] = None, world: Optional[int] = None,
             group = dist.new_group(list(range(d * per, (d + 1) * per)))
             if d == mesh.coords["data"]:
                 mesh.fsdp_group = group
+        for f in range(per):
+            group = dist.new_group(list(range(f, world, per)))
+            if f == mesh.coords["fsdp"]:
+                mesh.replica_group = group
     return mesh
 
 

@@ -346,15 +346,18 @@ class CheckpointManager:
             out[k] = t.to(device=cur.device, dtype=cur.dtype).requires_grad_(cur.requires_grad)
         return out
 
-    def restore(self, step: int, state: TrainState,
-                trainable_only: Optional[bool] = None) -> TrainState:
+    def restore(self, step: int, state: TrainState, trainable_only: Optional[bool] = None,
+                fingerprint=None) -> TrainState:
         """A new ``TrainState`` with ``step``'s saved leaves on ``state``'s
         devices and dtypes. ``trainable_only`` overrides the manager's mode
         for this restore (the trainer falls back to the other mode). In
         trainable-only mode ``state.frozen`` (the rebuilt frozen leaves) is
         carried over and verified against the saved fingerprint first; a
         full payload cannot restore in that mode (it has no fingerprint), nor
-        a trainable-only one in full mode (it has no frozen leaves)."""
+        a trainable-only one in full mode (it has no frozen leaves).
+        ``fingerprint``: the frozen leaves' own, when ``state.frozen`` holds
+        stand-ins of their shapes (ZeRO-3's trainer gathers it leaf by
+        leaf)."""
         self.join_snapshot()  # a background save may still be writing this step
         if trainable_only is None:
             trainable_only = self.trainable_only
@@ -363,7 +366,8 @@ class CheckpointManager:
             if not meta.get("trainable_only"):
                 raise ValueError(f"checkpoint step {step} holds a full payload, without a "
                                  "frozen fingerprint to verify a trainable-only restore")
-            verify_fingerprint(meta["frozen_fp"], frozen_fingerprint(state.frozen))
+            verify_fingerprint(meta["frozen_fp"], fingerprint if fingerprint is not None
+                               else frozen_fingerprint(state.frozen))
             frozen = state.frozen
         else:
             frozen = self._place(self._read(step, "frozen"), state.frozen, "frozen", step)

@@ -111,11 +111,13 @@ def _dpo_pair_loss(pi_c, pi_r, ref_c, ref_r, beta: float, eps: float):
 
 
 def make_dpo_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
-                     attention_fn=attention) -> Callable:
+                     attention_fn=attention, shards: Optional[FsdpShards] = None) -> Callable:
     """loss_fn(trainable, ref_trainable, frozen, batch) -> (loss, aux): the
     policy's forward over ``[chosen; rejected]`` with gradients, the
     reference's under ``no_grad``. ``attention_fn`` is the flash kernels'
-    wrapper unless a caller passes the plain version for a comparison."""
+    wrapper unless a caller passes the plain version for a comparison.
+    ``shards`` (ZeRO-3): the leaves are this rank's slices; the embedding is
+    gathered once for the forward and the logprobs' unembed."""
     if train_config.loss_vocab_chunk is not None:
         # DPO streams its logprobs by sequence (loss_chunk_size)
         raise ValueError("loss_vocab_chunk is not supported for objective='dpo'; use "
@@ -126,6 +128,8 @@ def make_dpo_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
     beta, eps = train_config.dpo_beta, train_config.dpo_label_smoothing
 
     def batch_logprobs(params, ids, attn, mask):
+        if shards is not None:
+            params = shards.gather(params, None)
         hidden, _ = forward(
             params, ids, model_config,
             padding_mask=attn,
@@ -135,6 +139,7 @@ def make_dpo_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
             remat_policy=remat_policy,
             output_hidden=True,
             attention_fn=attention_fn,
+            gather=shards.gather if shards is not None else None,
         )
         per_token = _target_logprobs(params, hidden[:, :-1], ids[:, 1:].long(), model_config,
                                      chunk, compute_dtype)
@@ -165,7 +170,7 @@ def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
     global microbatch is the mean of the ranks' means: each rank's loss and
     aux are divided by ``data_parallel_size`` and summed across ranks with
     the gradients (``train/step.reduced_step``)."""
-    loss_fn = make_dpo_loss_fn(model_config, train_config)
+    loss_fn = make_dpo_loss_fn(model_config, train_config, shards=shards)
     accum = train_config.gradient_accumulation_steps
     dp = data_parallel_size
 
@@ -192,10 +197,11 @@ def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
     return train_step
 
 
-def build_dpo_eval_step(model_config: ModelConfig, train_config: TrainConfig) -> Callable:
+def build_dpo_eval_step(model_config: ModelConfig, train_config: TrainConfig,
+                        shards: Optional[FsdpShards] = None) -> Callable:
     """eval_step(state, ref_trainable, batch) -> (loss_sum, acc_sum, n_real)
     over the rows whose ``batch["pair_mask"]`` is 1 (0 = wrap padding)."""
-    loss_fn = make_dpo_loss_fn(model_config, train_config)
+    loss_fn = make_dpo_loss_fn(model_config, train_config, shards=shards)
 
     @torch.no_grad()
     def eval_step(state: TrainState, ref_trainable, batch: Dict[str, torch.Tensor]):
@@ -250,7 +256,7 @@ class DPOTrainer(SFTTrainer):
                                     self.dp_size, self.shards)
         # the pair mean needs no token counts (tokens is None)
         self.train_step = lambda state, batch, tokens=None: step(state, self.ref_trainable, batch)
-        self._dpo_eval = build_dpo_eval_step(self.model_config, self.config)
+        self._dpo_eval = build_dpo_eval_step(self.model_config, self.config, self.shards)
 
     def _tokens_per_sample(self) -> int:
         return 2 * self.config.max_seq_length  # a pair is two sequences

@@ -11,10 +11,13 @@ loss is the JAX one: the token mean over the *global* microbatch. Each rank
 divides its cross-entropy sum by the global microbatch's token count, which
 the trainer counts on the host from the global batch (no collective, no
 device sync), so the ranks' losses and gradients sum to the global mean's.
-After the accumulation loop one bucketed all-reduce sums the gradients and
-the loss across ranks (``all_reduce_grads``), and AdamW runs on the reduced
-gradients (over this rank's fsdp slices, ``parallel/optimizer.FsdpShards``).
-Without a process group the step issues no collective.
+Under ZeRO-3 (``parallel/optimizer.FsdpShards``) the forward gathers each
+block's leaves and the backward reduce-scatters each sharded gradient onto
+this rank's slice. After the accumulation loop one bucketed all-reduce sums
+the whole leaves' gradients and the loss across ranks
+(``all_reduce_grads``), and AdamW runs on the reduced gradients (this
+rank's slices of the sharded leaves). Without a process group the step
+issues no collective.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ _JAX_LOSS = "llm_fine_tune_distributed_tpu.train.step.make_loss_fn"
 
 def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
                  attention_fn=attention, frozen_layers: int = 0,
-                 trunk_matmul=int8_w8a8_matmul) -> Callable:
+                 trunk_matmul=int8_w8a8_matmul, shards: Optional[FsdpShards] = None) -> Callable:
     """loss_fn(trainable, frozen, batch) -> (loss, tokens), or (loss,
     tokens, answer_ce_sum, answer_tokens) when the batch carries a
     ``completion_mask``: masked next-token cross-entropy, the token mean
@@ -50,7 +53,8 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
     (``parallel/freeze.frozen_trunk_boundary``); with
     ``frozen_compute="int8"`` those layers run the frozen trunk. A packed
     batch (``packing=True``) also carries ``segment_ids`` and ``positions``,
-    which go to the forward."""
+    which go to the forward. ``shards`` (ZeRO-3): the leaves are this
+    rank's slices, gathered by the forward block by block."""
     if train_config.loss_chunk_size is not None or train_config.loss_vocab_chunk is not None:
         raise NotImplementedError(
             f"loss_chunk_size / loss_vocab_chunk (chunked cross-entropy) are not ported "
@@ -82,6 +86,7 @@ def make_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
             frozen_layers=frozen_layers,
             frozen_compute=train_config.frozen_compute,
             trunk_matmul=trunk_matmul,
+            gather=shards.gather if shards is not None else None,
         )
         b, s, vocab = logits.shape
         # CE of every position against the next token; the last position's
@@ -107,9 +112,15 @@ def reduced_step(params: Dict[str, torch.Tensor], state: TrainState, optimizer: 
     """The end of a step, after the accumulation loop: the gradients (and
     ``scalars``, the loop's summed loss and aux, f32) summed across ranks by
     one bucketed all-reduce, the mean over the microbatches, AdamW. Returns
-    (grad_norm, the summed ``scalars``)."""
-    grads = [p.grad for p in params.values()]
-    scalars = all_reduce_grads(grads, scalars)
+    (grad_norm, the summed ``scalars``). Under ``shards`` a sharded leaf's
+    gradient is its slice, already summed over the fsdp group by the
+    backward's reduce-scatter: only a data axis beside fsdp sums it again,
+    over the replica group."""
+    sharded = shards.dims if shards is not None else {}
+    scalars = all_reduce_grads([p.grad for k, p in params.items() if k not in sharded], scalars)
+    if shards is not None and shards.replica_group is not None:
+        all_reduce_grads([p.grad for k, p in params.items() if k in sharded], scalars.new_zeros(0),
+                         group=shards.replica_group)
     # mean over accumulation steps (HF: the mean of the microbatch means)
     grads = {k: p.grad / accum for k, p in params.items()}
     for p in params.values():
@@ -126,7 +137,7 @@ def build_train_step(model_config: ModelConfig, train_config: TrainConfig,
     "grad_norm"}), batch arrays ``[grad_accum, batch, seq]`` on the device;
     ``tokens`` (``[grad_accum]`` floats, under data parallelism) the global
     microbatches' token counts. Updates the state in place and returns it."""
-    loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers)
+    loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers, shards=shards)
     accum = train_config.gradient_accumulation_steps
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], tokens=None):
@@ -152,13 +163,13 @@ def build_train_step(model_config: ModelConfig, train_config: TrainConfig,
 
 
 def build_eval_step(model_config: ModelConfig, train_config: TrainConfig,
-                    frozen_layers: int = 0) -> Callable:
+                    frozen_layers: int = 0, shards: Optional[FsdpShards] = None) -> Callable:
     """eval_step(state, batch [b, s]) -> (ce_sum, tokens) or (ce_sum,
     tokens, answer_ce_sum, answer_tokens): sums, so the caller weighs the
     eval loss by tokens over the whole validation set. ``tokens`` is the
     batch's count as it is (0 for a batch of pad rows); the loss's floor of
     one token per batch is the caller's to add, per global batch."""
-    loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers)
+    loss_fn = make_loss_fn(model_config, train_config, frozen_layers=frozen_layers, shards=shards)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):

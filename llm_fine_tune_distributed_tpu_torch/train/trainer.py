@@ -46,7 +46,12 @@ fsdp) axes: each rank takes its columns of every global batch
 (``_loader_kwargs``), the loss is the token mean over the global
 microbatch, one bucketed all-reduce per step sums the gradients
 (``train/step.py``), and AdamW runs on each rank's fsdp slice of the
-trainable leaves (``parallel/optimizer.FsdpShards``). The eval is split
+leaves (ZeRO-3, ``parallel/optimizer.FsdpShards``: each rank takes the
+model one leaf at a time and keeps its slices of the leaves the fsdp rules
+split, trainable and frozen, gathers a block's leaves as the block runs,
+and reduce-scatters their gradients; checkpoints, publishes and
+``best_model/`` get the leaves gathered whole one at a time, kept by rank 0
+alone, so a checkpoint resumes at any world size). The eval is split
 over the ranks and its sums all-reduced. Rank 0 alone prints, writes the
 history, the checkpoints, ``best_model/`` and the summary, and publishes;
 the other ranks join the collectives (the moments' gathers) and wait at a
@@ -56,10 +61,17 @@ anomaly gate of a publish) are agreed by every rank with one small
 all-reduce (``runtime/distributed.agree``); ``desync_check_steps`` checks
 that the replicas of the trainable leaves stay equal.
 
+The heartbeat failure detector (``runtime/failure.py`` over the port's
+own ``native/heartbeat.cc``) runs with ``heartbeat=True``, and by itself
+over processes, as in the JAX trainer: when it cannot start, an explicit
+``heartbeat=True`` raises and the automatic one prints why and goes on.
+Rank 0's coordinator's dead ranks, polled between steps, go into the step
+boundary's agreement, and every rank stops with ``RuntimeError`` at that
+step.
+
 Not ported, and refused by ``check_supported``: SFT's chunked losses,
 Adafactor/Lion, sequence parallelism, the mesh axes other than data and
-fsdp, the heartbeat failure detector, the control plane's HTTP server
-(``train_port``) and the C++ loader. A
+fsdp, the control plane's HTTP server (``train_port``) and the C++ loader. A
 checkpoint of the JAX trainer's pipeline layout (``@stacked`` leaves) is
 refused at resume: the cross-layout resume waits for pipeline parallelism.
 """
@@ -99,7 +111,7 @@ from llm_fine_tune_distributed_tpu_torch.models.configs import (
     to_hf_dict,
 )
 from llm_fine_tune_distributed_tpu_torch.models.hf_io import load_hf_checkpoint, save_hf_checkpoint
-from llm_fine_tune_distributed_tpu_torch.models.transformer import init_params
+from llm_fine_tune_distributed_tpu_torch.models.transformer import iter_init_params, param_shapes
 from llm_fine_tune_distributed_tpu_torch.observe.metrics import MetricLogger
 from llm_fine_tune_distributed_tpu_torch.observe.trainplane import TrainTelemetry
 from llm_fine_tune_distributed_tpu_torch.ops.int8 import dequantize_int8
@@ -118,9 +130,11 @@ from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import FsdpShards, b
 from llm_fine_tune_distributed_tpu_torch.parallel.qlora import (
     dequantize_frozen,
     quantize_frozen,
+    quantize_frozen_abstract,
     quantized_fraction,
 )
 from llm_fine_tune_distributed_tpu_torch.runtime.desync import DesyncMonitor
+from llm_fine_tune_distributed_tpu_torch.runtime.failure import FailureDetector
 from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
     agree,
     all_reduce_,
@@ -129,6 +143,7 @@ from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
     is_distributed,
     is_primary_host,
     print0,
+    process_count,
 )
 from llm_fine_tune_distributed_tpu_torch.runtime.mesh import (
     data_parallel_size,
@@ -173,7 +188,6 @@ def check_supported(config: TrainConfig) -> None:
             config.attention_impl in ("ring", "ulysses"), "ops/attention.attention"),
         "train_port": (config.train_port is not None, "observe/trainplane.TrainControlPlane"),
         "use_native_loader=True": (config.use_native_loader, "data/native_loader.NativeBatchLoader"),
-        "heartbeat=True": (config.heartbeat, "runtime/failure.FailureDetector"),
     }
     for knob, (on, where) in unported.items():
         if on:
@@ -253,6 +267,8 @@ class SFTTrainer:
         # set by the watchdog's abort under data parallelism, for every rank
         # to agree on at the next step boundary
         self._watchdog_abort = threading.Event()
+        # the heartbeat failure detector of the last train() (None: off)
+        self.detector: Optional[FailureDetector] = None
         self._saved_step: Optional[int] = None  # the last step a save was issued for
         # the run's telemetry: lineage, the anomaly sentinels that gate a
         # publish, the flight recorder (fed at log/eval/save boundaries)
@@ -273,7 +289,7 @@ class SFTTrainer:
                                            frozen_layers=self.frozen_boundary,
                                            shards=self.shards)
         self.eval_step = build_eval_step(self.model_config, self.config,
-                                         frozen_layers=self.frozen_boundary)
+                                         frozen_layers=self.frozen_boundary, shards=self.shards)
 
     @staticmethod
     def _resolve_model_config(config: TrainConfig) -> ModelConfig:
@@ -368,12 +384,24 @@ class SFTTrainer:
 
     # ----------------------------------------------------------------- state
 
-    def _load_or_init_params(self):
+    def _param_chunks(self):
+        """The model's weights, as dicts of leaves: all of them at once,
+        or, under ZeRO-3 (an fsdp axis above 1), one leaf at a time (a
+        checkpoint is read to the host, each leaf moved to the device in
+        turn), so a rank holds one whole leaf beside its slices."""
         cfg, mc = self.config, self.model_config
+        sharded = self.mesh.shape["fsdp"] > 1
         source = cfg.model_name
         if source and (os.path.isdir(source) or source.endswith(".safetensors")):
             print0(f"Loading model weights from: {source}")
-            return load_hf_checkpoint(source, mc, dtype=torch.float32, device=self.device)
+            if not sharded:
+                yield load_hf_checkpoint(source, mc, dtype=torch.float32, device=self.device)
+                return
+            params = load_hf_checkpoint(source, mc, dtype=torch.float32, device="cpu")
+            while params:
+                name = next(iter(params))
+                yield {name: params.pop(name).to(self.device)}
+            return
         print0(f"No local checkpoint at {source!r}; random-initializing {mc.name} "
                f"({mc.num_params:,} params)")
         # QLoRA keeps the f32 init: NF4 quantizes from full precision
@@ -381,7 +409,13 @@ class SFTTrainer:
         if cfg.freeze_strategy != "qlora" and (
                 str_to_dtype(cfg.param_dtype) is str_to_dtype(cfg.compute_dtype)):
             init_dtype = str_to_dtype(cfg.param_dtype)
-        return init_params(mc, seed=cfg.seed, device=self.device, dtype=init_dtype)
+        leaves = iter_init_params(mc, seed=cfg.seed, device=self.device, dtype=init_dtype)
+        if not sharded:
+            yield dict(leaves)
+            return
+        for name, leaf in leaves:
+            yield {name: leaf}
+            del leaf  # before the next leaf is made
 
     def _prepare_state(self) -> None:
         cfg, mc = self.config, self.model_config
@@ -391,52 +425,83 @@ class SFTTrainer:
                 f"remat_policy={remat_policy!r} is not ported "
                 "(llm_fine_tune_distributed_tpu.models.transformer.forward has it)"
             )
-        params = self._load_or_init_params()
-        if cfg.freeze_strategy in ("lora", "qlora"):
-            # A Kaiming, B zero: step 0 is the base model; only lora_a and
-            # lora_b train, so the optimizer state is the adapters'
-            params = add_lora_from_config(params, cfg.seed, cfg)
-        mask = trainable_mask(params, mc, cfg)
-        self.trainable_report = describe_trainable(params, mask)
-        r = self.trainable_report
-        print0(f"Trainable: {r['trainable_parameters']:,}/{r['total_parameters']:,} "
-               f"({r['trainable_percent']}%)")
-        trainable, frozen = split_by_mask(params, mask)
-        del params
+        lora = cfg.freeze_strategy in ("lora", "qlora")
         # the frozen trunk: layers below the first trainable one, quantized
-        # to int8 from the full-precision weights, before the cast below
+        # to int8 from the full-precision weights, before the cast below;
+        # from the leaves' names (LoRA's added on 1 x 1 stand-ins)
         self.frozen_boundary = 0
         if cfg.frozen_compute == "int8":
-            self.frozen_boundary = frozen_trunk_boundary(mask, mc.num_layers)
+            names = dict.fromkeys(param_shapes(mc), torch.empty(1, 1))
+            if lora:
+                names = add_lora_from_config(names, cfg.seed, cfg)
+            self.frozen_boundary = frozen_trunk_boundary(trainable_mask(names, mc, cfg),
+                                                         mc.num_layers)
+        param_dtype = str_to_dtype(cfg.param_dtype)
+        compute_dtype = str_to_dtype(cfg.compute_dtype)
+        # ZeRO-3 over the fsdp axis (None: every leaf whole): the leaves the
+        # rules split, trainable and frozen, kept as this rank's slices
+        self.shards = FsdpShards.for_mesh(self.mesh)
+        trainable, frozen, mask, shapes, n_quant = {}, {}, {}, {}, 0
         if cfg.freeze_strategy == "qlora":
-            # the frozen block linears to NF4, from full precision
-            t0 = time.perf_counter()
-            frozen = quantize_frozen(frozen, cfg.quant_block_size, cfg.quant_double_quant)
-            self._sync()
-            self.quantize_seconds = time.perf_counter() - t0
+            self.quantize_seconds = 0.0
+        for params in self._param_chunks():
+            if lora:
+                # A Kaiming, B zero: step 0 is the base model; only lora_a
+                # and lora_b train, so the optimizer state is the adapters'
+                params = add_lora_from_config(params, cfg.seed, cfg)
+            chunk_mask = trainable_mask(params, mc, cfg)
+            mask.update(chunk_mask)
+            shapes.update((k, torch.empty(v.shape, device="meta")) for k, v in params.items())
+            t, f = split_by_mask(params, chunk_mask)
+            del params
+            if cfg.freeze_strategy == "qlora":
+                # the leaves' shapes after quantization: the plan of the fsdp slices
+                plan = {k: v.shape for k, v in itertools.chain(t.items(), quantize_frozen_abstract(
+                    f, cfg.quant_block_size, cfg.quant_double_quant).items())}
+                # the frozen block linears to NF4, from full precision
+                t0 = time.perf_counter()
+                f = quantize_frozen(f, cfg.quant_block_size, cfg.quant_double_quant)
+                self._sync()
+                self.quantize_seconds += time.perf_counter() - t0
+            if self.frozen_boundary > 0:
+                f, n = quantize_trunk_int8(f, self.frozen_boundary)
+                n_quant += n
+            # masters: trainable in param_dtype (f32), frozen in compute_dtype;
+            # int8 and NF4 codes and their f32 scales keep their dtypes
+            t = {k: v.detach().to(param_dtype).requires_grad_(True) for k, v in t.items()}
+            f = {k: v.detach().to(compute_dtype)
+                 if v.is_floating_point() and "absmax" not in k
+                 and not k.endswith("_int8_scale") else v
+                 for k, v in f.items()}
+            if cfg.freeze_strategy == "qlora" and not self.frozen_boundary:
+                got = {k: v.shape for k, v in itertools.chain(t.items(), f.items())}
+                if got != plan:
+                    raise RuntimeError("the NF4 leaves differ from quantize_frozen_abstract's "
+                                       f"plan: {sorted(set(got.items()) ^ set(plan.items()))[:4]}")
+            if self.shards is not None:
+                t, f = self.shards.take(t), self.shards.take(f)
+            trainable.update(t)
+            frozen.update(f)
+            del t, f
+        if cfg.frozen_compute == "int8" and (
+                self.frozen_boundary != frozen_trunk_boundary(mask, mc.num_layers)):
+            raise RuntimeError("the loaded leaves' names move the frozen trunk's boundary")
+        if self.shards is not None and not self.shards.dims:
+            self.shards = None
+        self.trainable_report = r = describe_trainable(shapes, mask)
+        print0(f"Trainable: {r['trainable_parameters']:,}/{r['total_parameters']:,} "
+               f"({r['trainable_percent']}%)")
+        if cfg.freeze_strategy == "qlora":
             print0(f"QLoRA: {100 * quantized_fraction(frozen):.1f}% of frozen bytes in NF4 "
                    f"(block {cfg.quant_block_size}, double_quant={cfg.quant_double_quant})")
         if self.frozen_boundary > 0:
-            frozen, n_quant = quantize_trunk_int8(frozen, self.frozen_boundary)
             print0(f"Frozen trunk: layers [0, {self.frozen_boundary}) run w8a8 int8 "
                    f"({n_quant} projections quantized)")
-        param_dtype = str_to_dtype(cfg.param_dtype)
-        compute_dtype = str_to_dtype(cfg.compute_dtype)
-        # masters: trainable in param_dtype (f32), frozen in compute_dtype;
-        # int8 and NF4 codes and their f32 scales keep their dtypes
-        trainable = {k: v.detach().to(param_dtype).requires_grad_(True)
-                     for k, v in trainable.items()}
-        frozen = {k: v.detach().to(compute_dtype)
-                  if v.is_floating_point() and "absmax" not in k
-                  and not k.endswith("_int8_scale") else v
-                  for k, v in frozen.items()}
         self.optimizer = build_optimizer(cfg, total_steps=self.total_steps,
                                          data_parallel_size=self.dp_size)
         self.lr_schedule = self.optimizer.schedule
-        # the fsdp axis's slices of the AdamW state (None: whole)
-        self.shards = FsdpShards.from_mesh(self.mesh, trainable)
         self.state = TrainState(step=0, trainable=trainable, frozen=frozen,
-                                opt_state=self.optimizer.init(trainable, self.shards))
+                                opt_state=self.optimizer.init(trainable))
 
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -508,7 +573,8 @@ class SFTTrainer:
         cfg = self.config
         mode = cfg.best_model_tracking
         if mode == "auto":
-            trainable_bytes = sum(v.numel() * v.element_size() for v in self.state.trainable.values())
+            trainable_bytes = sum(self._numel(k, v) * v.element_size()
+                                  for k, v in self.state.trainable.items())
             mode = "per_eval" if trainable_bytes < 512 * 1024**2 else "checkpoint"
         elif mode not in ("per_eval", "checkpoint"):
             raise ValueError(f"unknown best_model_tracking {mode!r}")
@@ -560,62 +626,108 @@ class SFTTrainer:
     def _metric(self, last_eval: Optional[float]) -> Optional[Dict[str, float]]:
         return {self.config.metric_for_best_model: last_eval} if last_eval is not None else None
 
-    def _full_opt_state(self) -> dict:
+    def _numel(self, name: str, t: torch.Tensor) -> int:
+        """Elements of the whole leaf ``name`` (``t`` may be its slice)."""
+        return self.shards.numel(name, t) if self.shards is not None else t.numel()
+
+    def _whole(self, leaves: Dict[str, torch.Tensor], keep: bool = True) -> Dict[str, torch.Tensor]:
+        """``leaves`` with every fsdp slice gathered whole, one leaf at a
+        time (a collective under ZeRO-3: every rank calls it); the leaves
+        themselves without. With ``keep`` False this rank only takes part
+        and gets ``{}``: it never holds more than one whole leaf."""
+        if self.shards is None:
+            return leaves
+        out = {}
+        for k, v in self.shards.wholes(leaves):
+            if keep:
+                out[k] = v
+        return out
+
+    def _full_opt_state(self, keep: bool = True) -> dict:
         """The AdamW state with every sharded moment gathered whole over the
         fsdp axis (a collective: every rank calls it), the layout of a
-        one-device run."""
+        one-device run; ``keep`` as in ``_whole``."""
         opt = self.state.opt_state
+        return {"count": opt["count"], "mu": self._whole(opt["mu"], keep),
+                "nu": self._whole(opt["nu"], keep)}
+
+    def _full_trainable(self, keep: bool = True) -> Dict[str, torch.Tensor]:
+        """The trainable leaves whole (a collective under ZeRO-3)."""
+        return self._whole(self.state.trainable, keep)
+
+    def _frozen_fingerprint(self):
+        """``frozen_fingerprint`` of the whole frozen leaves: under ZeRO-3
+        each gathered in turn and dropped (a collective)."""
         if self.shards is None:
-            return opt
-        like = self.state.trainable
-        return {"count": opt["count"], "mu": self.shards.full(opt["mu"], like),
-                "nu": self.shards.full(opt["nu"], like)}
+            return frozen_fingerprint(self.state.frozen)
+        return {k: frozen_fingerprint({k: v})[k] for k, v in self.shards.wholes(self.state.frozen)}
 
     def _restore(self, ckpt: CheckpointManager, step: int, **kw) -> TrainState:
         """``ckpt.restore`` on every rank: the whole files read, each rank
-        keeps its fsdp slices of the moments. So a checkpoint of any world
-        size resumes at any other."""
-        like = self.state
-        if self.shards is not None:
-            whole = {k: torch.empty(v.shape, dtype=torch.float32, device=v.device)
-                     if k in self.shards.dims else self.state.opt_state["mu"][k]
-                     for k, v in self.state.trainable.items()}
-            like = TrainState(step=like.step, trainable=like.trainable, frozen=like.frozen,
-                              opt_state={"count": like.opt_state["count"], "mu": whole, "nu": whole})
-        restored = ckpt.restore(step, like, **kw)
-        if self.shards is not None:
-            restored.opt_state = {"count": restored.opt_state["count"],
-                                  "mu": self.shards.local(restored.opt_state["mu"]),
-                                  "nu": self.shards.local(restored.opt_state["nu"])}
-        return restored
+        keeps its fsdp slices of the leaves and the moments. So a checkpoint
+        of any world size resumes at any other. A trainable-only restore
+        keeps the frozen slices, checked against the saved fingerprint of
+        the whole leaves (gathered one at a time)."""
+        if self.shards is None:
+            return ckpt.restore(step, self.state, **kw)
+        trainable_only = kw.get("trainable_only")
+        if trainable_only is None:
+            trainable_only = ckpt.trainable_only
+
+        def like(leaves):  # whole shapes, one element of memory each
+            return {k: torch.zeros([1] * len(self.shards.shapes[k]), dtype=v.dtype,
+                                   device=v.device, requires_grad=v.requires_grad).expand(
+                                       self.shards.shapes[k]) if k in self.shards.dims else v
+                    for k, v in leaves.items()}
+
+        opt = self.state.opt_state
+        whole = TrainState(step=self.state.step, trainable=like(self.state.trainable),
+                           frozen=like(self.state.frozen),
+                           opt_state={"count": opt["count"], "mu": like(opt["mu"]),
+                                      "nu": like(opt["nu"])})
+        fp = self._frozen_fingerprint() if trainable_only else None
+        restored = ckpt.restore(step, whole, fingerprint=fp, **kw)
+        local = self.shards.local
+        return TrainState(step=restored.step, trainable=local(restored.trainable),
+                          frozen=self.state.frozen if trainable_only else local(restored.frozen),
+                          opt_state={"count": restored.opt_state["count"],
+                                     "mu": local(restored.opt_state["mu"]),
+                                     "nu": local(restored.opt_state["nu"])})
 
     def _ckpt_save(self, ckpt: CheckpointManager, step: int, metrics) -> None:
         """Save ``step`` (trainable-only with the frozen fingerprint when so
         configured, as a background snapshot when so configured), then
-        publish it. Every rank gathers the moments; rank 0 writes and
-        publishes. The gathers run here, on the calling thread: the
-        snapshot's writer thread issues no collective."""
+        publish it. Under ZeRO-3 every rank takes part in gathering the
+        sharded leaves and moments whole, one leaf at a time, and only rank
+        0, which writes and publishes, keeps them. The gathers run here, on
+        the calling thread: the snapshot's writer thread issues no
+        collective."""
         state = self.state
+        fp_needed = ckpt.trainable_only or self.config.publish_dir
         if self.shards is not None:
-            state = TrainState(step=state.step, trainable=state.trainable, frozen=state.frozen,
-                               opt_state=self._full_opt_state())
+            if fp_needed and self._frozen_fp is None:  # on every rank: same gathers next time
+                self._frozen_fp = self._frozen_fingerprint()
+            keep = self.primary
+            frozen = {} if ckpt.trainable_only else self._whole(state.frozen, keep)
+            state = TrainState(step=state.step, trainable=self._full_trainable(keep),
+                               frozen=frozen, opt_state=self._full_opt_state(keep))
         # the anomaly gate of the publish, common to every rank
         clean = agree([self.telemetry.publish_clean(step)], self.device, every=True)[0]
         self._saved_step = step
         if not self.primary:
             return
         fp = None
-        if ckpt.trainable_only or self.config.publish_dir:
+        if fp_needed:
             if self._frozen_fp is None:  # the frozen leaves never change
-                self._frozen_fp = frozen_fingerprint(self.state.frozen)
+                self._frozen_fp = self._frozen_fingerprint()
             fp = self._frozen_fp
         ckpt.save(step, state, metrics=metrics,
                   fingerprint=fp if ckpt.trainable_only else None,
                   snapshot_async=self.config.checkpoint_async_snapshot)
-        self._publish(step, fp, metrics, clean)
+        self._publish(step, state.trainable, fp, metrics, clean)
 
-    def _publish(self, step: int, fp, metrics, clean: bool) -> None:
-        """Drop the trainable weights and a manifest into ``publish_dir``
+    def _publish(self, step: int, trainable, fp, metrics, clean: bool) -> None:
+        """Drop the (whole) trainable weights and a manifest into ``publish_dir``
         for a serving engine to hot-swap (rank 0 only). A publish whose
         trailing anomaly window is dirty (``clean`` False) is stamped so, or
         skipped under ``publish_require_clean``. A failure here is logged,
@@ -634,7 +746,7 @@ class SFTTrainer:
                                                       keep_last=cfg.publish_keep_last)
             t0 = time.perf_counter()
             path = self._publisher.publish(
-                step, self.state.trainable, frozen_fp=fp, metrics=metrics,
+                step, trainable, frozen_fp=fp, metrics=metrics,
                 run_id=self.telemetry.run_id, hparams_digest=self.telemetry.hparams_digest,
                 anomaly_clean=clean)
             with open(os.path.join(path, "manifest.json")) as f:
@@ -713,14 +825,38 @@ class SFTTrainer:
         timer.daemon = True
         timer.start()
 
+    def _start_detector(self) -> Optional[FailureDetector]:
+        """The heartbeat failure detector on every rank (``heartbeat=True``,
+        or by itself over processes, as in the JAX trainer); a collective.
+        Where it cannot start, ``heartbeat=True`` raises, the automatic one
+        prints why and runs without."""
+        cfg = self.config
+        if not (cfg.heartbeat or process_count() > 1):
+            return None
+        try:
+            return FailureDetector.for_group(self.device, port=cfg.heartbeat_port,
+                                             timeout_ms=cfg.heartbeat_timeout_ms)
+        except RuntimeError as e:
+            if cfg.heartbeat:
+                raise
+            print0(f"[runtime] heartbeat unavailable: {e}")
+            return None
+
     def _step_boundary(self, step: int) -> bool:
         """The decisions every rank takes together after each step (one
         small all-reduce under data parallelism): an abort of the watchdog
         on any rank ends every rank (exit 42, for the job manager to restart
-        the job); a preemption on any rank stops every rank here. Returns
-        whether to stop."""
-        preempt, abort = agree([self._preempt.is_set(), self._watchdog_abort.is_set()],
-                               self.device)
+        the job); ranks that stopped heartbeating (rank 0's detector) stop
+        every rank with ``RuntimeError``, for a restart and a resume from the
+        last periodic checkpoint (no save: a save's gathers need every rank);
+        a preemption on any rank stops every rank here. Returns whether to
+        stop."""
+        dead = self.detector.dead_ranks() if self.detector is not None else []
+        preempt, abort, silent = agree([self._preempt.is_set(), self._watchdog_abort.is_set(),
+                                        bool(dead)], self.device)
+        if silent:
+            raise RuntimeError(f"ranks {dead or '(seen by rank 0)'} stopped heartbeating at step "
+                               f"{step}; aborting for restart+resume")
         if abort:
             print(f"[watchdog] rank {self.mesh.rank}: abort agreed at step {step}; exiting for a "
                   "restart", file=sys.stderr, flush=True)
@@ -765,7 +901,8 @@ class SFTTrainer:
         # (and once before the first step)
         desync = self.desync = DesyncMonitor(cfg.desync_check_steps)
         if self.distributed:
-            desync.maybe_check(resumed_step, self.state.trainable)
+            desync.maybe_check(resumed_step, self.state.trainable, self.shards)
+        self.detector = self._start_detector()
         prev_sigterm = self._install_sigterm()
         self.telemetry.update(total_steps=self.total_steps, epochs=cfg.epochs,
                               step=resumed_step, state="training")
@@ -796,7 +933,7 @@ class SFTTrainer:
                         preempted = True
                         break
                     if self.distributed:
-                        desync.maybe_check(step, self.state.trainable)
+                        desync.maybe_check(step, self.state.trainable, self.shards)
                     do_log = ((cfg.logging_first_step and step == 1)
                               or (cfg.logging_steps and step % cfg.logging_steps == 0))
                     do_eval = bool(cfg.eval_steps) and step % cfg.eval_steps == 0 and self.n_val > 0
@@ -848,6 +985,8 @@ class SFTTrainer:
             if watchdog is not None:
                 # the end of the run (final eval, saves) has no step pokes
                 watchdog.stop()
+            if self.detector is not None:
+                self.detector.stop()
             if prev_sigterm is not None:
                 signal.signal(signal.SIGTERM, prev_sigterm)
 
@@ -932,10 +1071,13 @@ class SFTTrainer:
         }
         if self.device.type == "cuda":
             summary["device_peak_bytes_in_use"] = torch.cuda.max_memory_allocated(self.device)
+        # gathered on every rank, kept by rank 0 only
+        trainable = self._full_trainable(self.primary)
+        frozen = self._whole(self.state.frozen, self.primary)
         if not self.primary:
             return summary
         best_dir = os.path.join(cfg.output_dir, "best_model")
-        params = {k: v.detach() for k, v in merge_flat(self.state.trainable, self.state.frozen).items()}
+        params = {k: v.detach() for k, v in merge_flat(trainable, frozen).items()}
         lora = cfg.freeze_strategy in ("lora", "qlora")
         if lora:
             # both forms: the PEFT adapter here, the merged model below

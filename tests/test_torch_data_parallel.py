@@ -11,8 +11,15 @@ preset in f32 with the same model directory and rows:
   (``scale_lr_by_data_parallel=False``): losses to 1e-6 relative, leaves to
   1e-5 of each leaf's max; the eval loss equal, each rank running its share
   of the eval forwards;
-- a checkpoint written at world 2 (fsdp-sharded moments, gathered whole)
-  resumes bit for bit at world 2 and at world 1;
+- ZeRO-3 at ``fsdp=2``: each rank holds, at init, exactly the JAX
+  trainer's fsdp addressable shard of every leaf (trainable and frozen),
+  and half the bytes of every sharded leaf; it takes the model one leaf at
+  a time, so no whole leaf it sliced before is alive when it takes the
+  next;
+- a checkpoint written at world 2 (fsdp-sharded leaves and moments,
+  gathered whole) resumes bit for bit at world 2 and at world 1, and so
+  does a trainable-only one at world 2 (the frozen leaves' fingerprint
+  gathered leaf by leaf, the frozen slices kept);
 - ``request_preemption`` on rank 1 alone stops both ranks at one step with
   one emergency checkpoint;
 - ``DPOTrainer`` at ``fsdp=2`` against the JAX one on 2 devices.
@@ -21,11 +28,13 @@ The two ranks run this file as a script (``_launch``), all their scenarios
 in one launch, while this process runs the JAX trainers.
 """
 
+import itertools
 import json
 import os
 import shutil
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -33,6 +42,7 @@ import torch
 
 from llm_fine_tune_distributed_tpu_torch.config import MeshConfig, TrainConfig
 from llm_fine_tune_distributed_tpu_torch.runtime import distributed
+from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import FsdpShards
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-4  # tests/test_torch_trainer.py's
@@ -85,10 +95,10 @@ def _counting(trainer_mod, counts):
 
 
 def _state(trainer):
-    """The trainable leaves and the whole moments (a collective)."""
+    """The whole trainable leaves and moments (a collective)."""
     opt = trainer._full_opt_state()
     return {"step": trainer.state.step, "count": opt["count"],
-            "trainable": {k: v.detach().clone() for k, v in trainer.state.trainable.items()},
+            "trainable": {k: v.detach().clone() for k, v in trainer._full_trainable().items()},
             "mu": {k: v.clone() for k, v in opt["mu"].items()},
             "nu": {k: v.clone() for k, v in opt["nu"].items()}}
 
@@ -103,6 +113,20 @@ def _rank_main(workdir):
     out = {}
     counts = {}
     _counting(trainer_mod, counts)
+    # every whole leaf ZeRO-3's init takes: how many it took at once, and
+    # how many of those it sliced before are still alive
+    sliced, takes = [], out.setdefault("takes", [])
+    take = FsdpShards.take
+
+    def tracking(self, whole):
+        if not whole:
+            return take(self, whole)
+        takes.append((len(whole), sum(ref() is not None for ref in sliced)))
+        local = take(self, whole)
+        sliced.extend(weakref.ref(v) for k, v in whole.items() if k in self.dims)
+        return local
+
+    FsdpShards.take = tracking
 
     def run(name, cls=trainer_mod.SFTTrainer, before=None, **kw):
         counts.clear()
@@ -131,6 +155,9 @@ def _rank_main(workdir):
     saves = {}
 
     def keep_state(trainer):
+        leaves = {**trainer.state.trainable, **trainer.state.frozen}
+        out.setdefault("init_leaves", {})[trainer.config.output_dir] = {
+            k: v.detach().clone() for k, v in leaves.items()}
         save = trainer._ckpt_save
 
         def saving(ckpt, step, metrics):
@@ -150,6 +177,27 @@ def _rank_main(workdir):
                              mesh=MeshConfig(data=1, fsdp=2),
                              resume_from_checkpoint=str(RESUME_STEP)))
 
+    # (i) trainable-only checkpoints at fsdp=2, resumed at world 2
+    tonly = {}
+
+    def keep_saves(trainer):
+        save = trainer._ckpt_save
+
+        def saving(ckpt, step, metrics):
+            save(ckpt, step, metrics)
+            tonly[(os.path.basename(trainer.config.output_dir), step)] = _state(trainer)
+        trainer._ckpt_save = saving
+
+    for name, resume in (("tonly", None), ("tonly_resume", str(RESUME_STEP))):
+        if resume and rank == 0:
+            shutil.copytree(workdir / "tonly" / "checkpoints",
+                            workdir / "tonly_resume" / "checkpoints")
+        distributed.barrier("cpu")
+        run(name, before=keep_saves, **_recipe(
+            workdir, name, scale_lr_by_data_parallel=False, mesh=MeshConfig(data=1, fsdp=2),
+            checkpoint_trainable_only=True, resume_from_checkpoint=resume))
+    out["tonly_saves"] = tonly
+
     # (j) a preemption requested on rank 1 alone, after step 3
     def preempt_on_rank1(trainer):
         step_fn = trainer.train_step
@@ -166,6 +214,7 @@ def _rank_main(workdir):
     # (k) DPO at fsdp=2
     run("dpo", cls=DPOTrainer, **_dpo_recipe(workdir, "dpo", mesh=MeshConfig(data=1, fsdp=2)))
     out["saves"] = {(os.path.basename(d), step): v for (d, step), v in saves.items()}
+    out["init_leaves"] = {os.path.basename(d): v for d, v in out["init_leaves"].items()}
     torch.save(out, workdir / f"rank{rank}.pt")
     distributed.destroy()
 
@@ -231,14 +280,29 @@ def runs(tmp_path_factory):
     (tmp / "model" / "config.json").write_text(json.dumps(jax_configs.to_hf_dict(mc)))
     procs = _launch(tmp)
     try:
+        def fsdp_shards(leaves, mesh):
+            """{name: [the addressable shard of fsdp coordinate 0, 1]} of
+            the JAX rules' placement on the trainer's mesh (only fsdp
+            splits: a shard's place in the leaf is its coordinate)."""
+            from llm_fine_tune_distributed_tpu.parallel.sharding import shard_params as jax_shard
+
+            out = {}
+            for k, v in jax_shard(leaves, mesh).items():
+                shards = sorted(v.addressable_shards,
+                                key=lambda s: tuple(sl.start or 0 for sl in s.index))
+                assert len(shards) == 2, k
+                out[k.replace("/", ".")] = [np.asarray(jax.device_get(s.data)) for s in shards]
+            return out
+
         def jax_run(cls, recipe, out, **kw):
             trainer = cls(JaxTrainConfig(**recipe(tmp, out, dataset_file="qa.parquet", **kw)))
             if cls is JaxDPOTrainer:  # tests/test_torch_dpo.py: unalias the f32 reference
                 trainer.ref_trainable = {k: jax.device_put(jnp.array(v, copy=True), v.sharding)
                                          for k, v in trainer.ref_trainable.items()}
+            init = fsdp_shards({**trainer.state.trainable, **trainer.state.frozen}, trainer.mesh)
             trainer.train()
             leaves = flatten_tree(jax.device_get(trainer.state.trainable))
-            return {"history": trainer.metrics.history,
+            return {"history": trainer.metrics.history, "init_shards": init,
                     "trainable": {k.replace("/", "."): np.asarray(v) for k, v in leaves.items()}}
 
         jax_runs = {
@@ -257,7 +321,9 @@ def runs(tmp_path_factory):
         solo.eval_step = lambda *a: (evals.append(1), eval_step(*a))[1]
         solo.train()
         solo_run = {"history": solo.metrics.history, "evals": len(evals),
-                    "trainable": {k: v.detach().clone() for k, v in solo.state.trainable.items()}}
+                    "trainable": {k: v.detach().clone() for k, v in solo.state.trainable.items()},
+                    "leaf_bytes": {k: v.numel() * v.element_size() for k, v in itertools.chain(
+                        solo.state.trainable.items(), solo.state.frozen.items())}}
         outs = _wait(procs)
     finally:
         for p in procs:
@@ -343,7 +409,7 @@ def test_fsdp_shards_the_moments_and_resumes_bit_for_bit(runs, tmp_path):
     fsdp, data = r0["fsdp"], r0["data"]
     assert fsdp["shards"] and not data["shards"]
     whole = sum(v.numel() for v in fsdp["state"]["mu"].values())
-    split = sum(fsdp["state"]["mu"][k].numel() for k in fsdp["shards"])
+    split = sum(v.numel() for k, v in fsdp["state"]["mu"].items() if k in fsdp["shards"])
     assert fsdp["moment_numel"] == whole - split // 2 and data["moment_numel"] == whole
     for rank in runs["ranks"]:
         assert sorted(rank["saves"]) == [("fsdp", 2), ("fsdp", 4), ("fsdp", 5), ("resume2", 5)]
@@ -364,6 +430,60 @@ def test_fsdp_shards_the_moments_and_resumes_bit_for_bit(runs, tmp_path):
     for part in ("mu", "nu"):
         for k, v in at[part].items():
             assert torch.equal(state.opt_state[part][k], v), (part, k)
+
+
+def test_zero3_rank_leaves_are_the_jax_fsdp_addressable_shards(runs):
+    """At init each rank holds, bit for bit, the shard of every leaf
+    (trainable and frozen) that the JAX trainer places on the device with
+    its fsdp coordinate: a sharded leaf's slice, a whole leaf whole."""
+    want = runs["jax"]["fsdp"]["init_shards"]
+    for rank, got in enumerate(r["init_leaves"]["fsdp"] for r in runs["ranks"]):
+        assert set(got) == set(want)
+        for k, parts in want.items():
+            assert tuple(got[k].shape) == parts[rank].shape, k
+            np.testing.assert_array_equal(got[k].float().numpy(), parts[rank].astype(np.float32),
+                                          err_msg=k)
+
+
+def test_zero3_halves_the_sharded_leaves_bytes_per_rank(runs):
+    """A rank's leaves take world 1's bytes less half of every sharded
+    leaf's, exactly; the embedding and the block kernels are among them."""
+    solo = runs["solo"]["leaf_bytes"]
+    sharded = set(runs["ranks"][0]["fsdp"]["shards"])
+    assert "model.embed_tokens.weight" in sharded
+    assert any(k.endswith("self_attn.q_proj.kernel") for k in sharded)
+    want = sum(solo.values()) - sum(solo[k] for k in sharded) // 2
+    for rank in runs["ranks"]:
+        leaves = rank["init_leaves"]["fsdp"]
+        assert sum(v.numel() * v.element_size() for v in leaves.values()) == want
+        for k in sharded:
+            assert leaves[k].numel() * leaves[k].element_size() * 2 == solo[k], k
+
+
+def test_zero3_takes_the_model_one_leaf_at_a_time(runs):
+    """ZeRO-3's init hands ``FsdpShards.take`` one whole leaf at a time,
+    and none of the whole leaves it sliced before is alive by then: a rank
+    never holds more of the model whole than one leaf (beside the small
+    ones that the fsdp rules keep whole)."""
+    for rank in runs["ranks"]:
+        takes = rank["takes"]
+        assert len(takes) >= len(rank["init_leaves"]["fsdp"])
+        assert {n for n, _ in takes} == {1}
+        assert max(alive for _, alive in takes) == 0
+
+
+def test_zero3_trainable_only_checkpoint_resumes_bit_for_bit(runs):
+    """Trainable-only checkpoints at fsdp=2 (the frozen fingerprint
+    gathered one leaf at a time) resume at world 2 to the uninterrupted
+    run's final state bit for bit."""
+    for rank in runs["ranks"]:
+        saves = rank["tonly_saves"]
+        assert sorted(saves) == [("tonly", 2), ("tonly", 4), ("tonly", 5), ("tonly_resume", 5)]
+        resumed, final = saves[("tonly_resume", 5)], saves[("tonly", 5)]
+        assert resumed["step"] == final["step"] == 5 and resumed["count"] == final["count"]
+        for part in ("trainable", "mu", "nu"):
+            for k, v in final[part].items():
+                assert torch.equal(resumed[part][k], v), (part, k)
 
 
 def test_preemption_on_one_rank_stops_both_at_one_step(runs):

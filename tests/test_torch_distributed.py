@@ -233,11 +233,26 @@ def test_unported_mesh_axes_raise(axis):
         make_mesh(MeshConfig(data=1, fsdp=1, **{axis: -1}), world=2, rank=0)
 
 
-def test_heartbeat_is_refused():
-    from llm_fine_tune_distributed_tpu_torch.train.trainer import check_supported
+def test_heartbeat_is_refused(monkeypatch):
+    """``heartbeat=True`` is ported (``check_supported`` takes it), and a
+    detector that cannot start refuses the run: an explicit ``heartbeat``
+    raises, the automatic one over processes prints and goes on."""
+    from llm_fine_tune_distributed_tpu_torch.runtime import native
+    from llm_fine_tune_distributed_tpu_torch.train import trainer as trainer_mod
 
-    with pytest.raises(NotImplementedError, match="runtime/failure"):
-        check_supported(TrainConfig(heartbeat=True))
+    trainer_mod.check_supported(TrainConfig(heartbeat=True))
+    monkeypatch.setattr(native, "load", lambda: None)
+    monkeypatch.setattr(native, "build_error", lambda: "no compiler")
+
+    class Stub:
+        distributed = False
+        device = torch.device("cpu")
+        config = TrainConfig(heartbeat=True)
+
+    with pytest.raises(RuntimeError, match="no compiler"):
+        trainer_mod.SFTTrainer._start_detector(Stub())
+    Stub.config = TrainConfig()
+    assert trainer_mod.SFTTrainer._start_detector(Stub()) is None  # one process: off
     cfg = TrainConfig(desync_check_steps=5, heartbeat_port=1, heartbeat_timeout_ms=2)
     back = TrainConfig.from_dict(json.loads(json.dumps(cfg.to_dict())))
     assert (back.desync_check_steps, back.heartbeat_port, back.heartbeat_timeout_ms,

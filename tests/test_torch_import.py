@@ -76,7 +76,8 @@ def test_guard_tells_the_port_from_the_jax_package():
                                     "observe.capacity", "observe.flops", "observe.profiler",
                                     "observe.tracing", "infer.routing", "infer.fleet",
                                     "infer.paged", "infer.adapters", "parallel.lora",
-                                    "infer.multihost", "parallel.sharding", "runtime.mesh"])
+                                    "infer.multihost", "parallel.sharding", "runtime.mesh",
+                                    "runtime.failure", "runtime.native"])
 def test_the_overload_and_golden_modules_are_covered(module):
     """The import check reaches the modules of the golden eval, of overload
     control, of serving observability and of the fleet and its host KV

@@ -1,7 +1,10 @@
 """Tensor-parallel decoding on the CPU (mirrors ``tests/test_tp_inference.py``):
 the port's ``Generator(mesh=make_tp_mesh(tp))`` at tp 2 and 4, each rank a
 gloo process, against the JAX ``Generator(mesh=make_tp_mesh(tp))`` on the
-forced 8-device CPU mesh and against the port's own one-process decode.
+forced 8-device CPU mesh and against the port's own one-process decode,
+and the same over NF4 weights with single-adapter LoRA leaves (quantized
+whole by the JAX package, then sharded, as its server does) on a wider
+``tiny`` whose row-parallel slices start on whole absmax blocks at tp 4.
 
 Each world size is launched once for the module (``_launch`` runs this file
 as a script, one process per rank; those processes import torch and the
@@ -39,6 +42,14 @@ TEXTS = ("hello world", "ab ab ab")
 SPEC = dict(max_new_tokens=10, do_sample=False, repetition_penalty=1.0, speculative_lookup=3)
 RAGGED = ("one", "two tokens here")
 RAGGED_CFG = dict(max_new_tokens=6, do_sample=False, repetition_penalty=1.0)
+# NF4 under --tp: o_proj's 256 and down_proj's 512 input rows split into
+# whole 64-row absmax blocks at tp 2 and 4 (tiny's 64 and 128 do not)
+NF4_CFG = CFG.replace(hidden_size=256, intermediate_size=512)
+NF4_WIDE = dict(hidden_size=256, intermediate_size=512)
+# (layer, module) -> LoRA leaves: column-parallel and row-parallel kernels
+LORA_AT = (("0", "self_attn", "q_proj"), ("0", "self_attn", "o_proj"), ("1", "mlp", "down_proj"),
+           ("1", "self_attn", "v_proj"))
+LORA_RANK = 4
 
 
 def _launch(scenario: str, outdir, world: int):
@@ -119,6 +130,14 @@ def _rank_main(outdir) -> None:
         out["solo_ragged"] = solo.generate_batch(prompts, GenerationConfig(**RAGGED_CFG))
     if tp == 2:
         out["window"] = _window(gen, rank)
+    nf4 = params_from_jax(dict(np.load(os.path.join(outdir, "nf4_params.npz"))), NF4_CFG)
+    nf4_solo = Generator(nf4, NF4_CFG, TOK, **kw)
+    nf4_gen = Generator(nf4, NF4_CFG, TOK, mesh=make_tp_mesh(tp, NF4_CFG), **kw)
+    out["nf4_greedy"] = [nf4_gen.generate_ids(TOK.encode(t), GenerationConfig(**GREEDY))
+                         for t in TEXTS]
+    out["nf4_solo_greedy"] = [nf4_solo.generate_ids(TOK.encode(t), GenerationConfig(**GREEDY))
+                              for t in TEXTS]
+    torch.save(nf4_gen.params, os.path.join(outdir, f"tp{tp}_rank{rank}_nf4.pt"))
     out["shard_config"] = [gen.shard_config.num_heads, gen.shard_config.num_kv_heads,
                            gen.shard_config.intermediate_size, gen.shard_config.vocab_size]
     torch.save(gen.params, os.path.join(outdir, f"tp{tp}_rank{rank}.pt"))
@@ -148,7 +167,37 @@ def jax_setup(tmp_path_factory):
     outdir = tmp_path_factory.mktemp("tp_inference")
     flat = {k: np.asarray(v) for k, v in flatten_tree(jax.device_get(params)).items()}
     np.savez(os.path.join(outdir, "params.npz"), **flat)
-    return mc, params, flat, outdir
+    nf4_mc, nf4_params = _jax_nf4_params()
+    nf4_flat = {k: np.asarray(v) for k, v in flatten_tree(jax.device_get(nf4_params)).items()}
+    np.savez(os.path.join(outdir, "nf4_params.npz"), **nf4_flat)
+    return mc, params, flat, outdir, (nf4_mc, nf4_params, nf4_flat)
+
+
+def _jax_nf4_params():
+    """The wider tiny's seed-1 JAX init (kernels x10), LoRA leaves on the
+    ``LORA_AT`` modules (B nonzero), then the JAX ``maybe_quantize(...,
+    "nf4")`` over the block linears, the adapters left in f32."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from llm_fine_tune_distributed_tpu.models.configs import get_preset as jax_preset
+    from llm_fine_tune_distributed_tpu.models.transformer import init_params
+    from llm_fine_tune_distributed_tpu.ops.int8 import maybe_quantize
+
+    mc = dataclasses.replace(jax_preset("tiny"), **NF4_WIDE)
+    params = init_params(jax.random.PRNGKey(1), mc, dtype=jnp.float32)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x * 10.0 if path[-1].key == "kernel" else x, params)
+    rng = np.random.default_rng(5)
+    for layer, block, module in LORA_AT:
+        leaf = params["model"]["layers"][layer][block][module]
+        n_in, n_out = leaf["kernel"].shape
+        leaf["lora_a"] = jnp.asarray(rng.normal(0, 0.3, (n_in, LORA_RANK)), jnp.float32)
+        leaf["lora_b"] = jnp.asarray(rng.normal(0, 0.3, (LORA_RANK, n_out)), jnp.float32)
+        leaf["lora_scale"] = jnp.asarray(2.0, jnp.float32)
+    return mc, maybe_quantize(params, "nf4")
 
 
 @pytest.fixture(scope="module")
@@ -181,13 +230,13 @@ def ranks(jax_setup):
     return out
 
 
-def _jax_generator(jax_setup, tp=None):
+def _jax_generator(jax_setup, tp=None, nf4=False):
     import jax.numpy as jnp
 
     from llm_fine_tune_distributed_tpu.infer import Generator as JaxGenerator
     from llm_fine_tune_distributed_tpu.infer.generate import make_tp_mesh as jax_tp_mesh
 
-    mc, params = jax_setup[0], jax_setup[1]
+    mc, params = jax_setup[4][:2] if nf4 else jax_setup[:2]
     mesh = jax_tp_mesh(tp, mc) if tp else None
     return JaxGenerator(params, mc, TOK, compute_dtype=jnp.float32, eos_token_ids=[], mesh=mesh)
 
@@ -239,6 +288,126 @@ def test_each_rank_holds_the_jax_addressable_shard(jax_setup, ranks, tp):
     hkv = max(CFG.num_kv_heads // tp, 1)
     assert ranks[tp][0]["shard_config"] == [CFG.num_heads // tp, hkv,
                                             CFG.intermediate_size // tp, CFG.vocab_size // tp]
+
+
+def _jax_shards(params, tp):
+    """{name: [the JAX addressable shard of each tensor coordinate]} of
+    ``shard_params(params)`` on the JAX tp mesh."""
+    import jax
+
+    from llm_fine_tune_distributed_tpu.infer.generate import make_tp_mesh as jax_tp_mesh
+    from llm_fine_tune_distributed_tpu.parallel.sharding import shard_params as jax_shard
+    from llm_fine_tune_distributed_tpu_torch.models.carry import flatten_tree
+
+    mesh = jax_tp_mesh(tp)
+    axis = list(mesh.axis_names).index("tensor")
+    coord = {d: int(np.argwhere(mesh.devices == d)[0][axis]) for d in mesh.devices.flat}
+    out = {}
+    for name, leaf in flatten_tree(jax_shard(params, mesh)).items():
+        shards = {coord[s.device]: np.asarray(jax.device_get(s.data)) for s in leaf.addressable_shards}
+        out[name] = [shards[r] for r in range(tp)]
+    return out
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_nf4_and_lora_leaves_are_the_jax_addressable_shards(jax_setup, ranks, tp):
+    """Over the JAX-quantized tree: every rank's NF4 codes and absmax equal
+    the JAX addressable shard of its tensor coordinate bit for bit (the
+    double quantization's scale and offset whole), as every other leaf
+    does; k/v at tp 4 keep the rank's kv head (the fallback). The JAX rules
+    give LoRA leaves no tensor axis (each device computes the whole
+    delta); the port's rank holds B's columns beside a column-parallel
+    kernel and A's rows beside a row-parallel one, A and B whole
+    otherwise."""
+    _, params, flat = jax_setup[4]
+    shards = _jax_shards(params, tp)
+    d = NF4_CFG.resolved_head_dim
+    assert any(k.endswith("kernel_absmax_q") for k in shards)
+
+    def columns(module, whole, rank):
+        if tp > NF4_CFG.num_kv_heads and module.endswith(("k_proj", "v_proj")):
+            first, n = kv_heads_of_rank(NF4_CFG, tp, rank)
+            return whole[:, first * d: (first + n) * d]
+        n = whole.shape[1] // tp
+        return whole[:, rank * n: (rank + 1) * n]
+
+    for rank in range(tp):
+        got = torch.load(os.path.join(jax_setup[3], f"tp{tp}_rank{rank}_nf4.pt"))
+        assert set(got) == set(flat)
+        for name, parts in shards.items():
+            module, _, leaf = name.rpartition(".")
+            mine = got[name].numpy()
+            if leaf in ("lora_a", "lora_b"):
+                row = module.endswith(("o_proj", "down_proj"))
+                want = flat[name]
+                if leaf == "lora_a" and row:
+                    n = want.shape[0] // tp
+                    want = want[rank * n: (rank + 1) * n]
+                elif leaf == "lora_b" and not row:
+                    want = columns(module, want, rank)
+                np.testing.assert_array_equal(mine, want, err_msg=name)
+                continue
+            if tp > NF4_CFG.num_kv_heads and module.endswith(("k_proj", "v_proj")) and mine.ndim == 2:
+                np.testing.assert_array_equal(mine, columns(module, flat[name], rank))
+                continue
+            assert mine.shape == parts[rank].shape, name
+            np.testing.assert_array_equal(mine, parts[rank], err_msg=name)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_nf4_lora_tp_greedy_matches_jax_tp_and_solo(jax_setup, ranks, tp):
+    """``--quantize nf4`` with LoRA leaves under --tp: greedy tokens equal
+    the JAX TP generator's over the same quantized tree, and one process's."""
+    jgen = _jax_generator(jax_setup, tp, nf4=True)
+    want = [jgen.generate_ids(TOK.encode(t), _jax_cfg(**GREEDY)) for t in TEXTS]
+    for rec in ranks[tp]:
+        assert rec["nf4_greedy"] == want == rec["nf4_solo_greedy"]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("module,shape", [
+    ("model.layers.0.self_attn.q_proj", (256, 256)),
+    ("model.layers.0.self_attn.k_proj", (256, 128)),
+    ("model.layers.0.self_attn.o_proj", (256, 256)),
+    ("model.layers.0.mlp.down_proj", (512, 256)),
+    ("model.layers.0.mlp.up_proj", (256, 512)),
+])
+def test_nf4_slice_origin_dequant_is_whole_then_slice(module, shape, tp):
+    """A rank's slice dequantized from its origin in the whole absmax is
+    bit for bit the whole weight dequantized, then sliced: the 256-entry
+    groups of the flat absmax straddle the column slices (k_proj's 64 or 32
+    columns a rank), and the row slices start on whole blocks."""
+    from llm_fine_tune_distributed_tpu_torch.ops.nf4 import dequantize_nf4, quantize_nf4
+    from llm_fine_tune_distributed_tpu_torch.parallel.sharding import (
+        nf4_slice_origin,
+        shard_leaf,
+    )
+
+    gen = torch.Generator().manual_seed(11)
+    w = torch.randn(shape, generator=gen)
+    q = quantize_nf4(w)
+    whole = dequantize_nf4(q, torch.float32)
+    for rank in range(tp):
+        part = {s: shard_leaf(f"{module}.kernel_{s}", t, NF4_CFG, tp, rank) for s, t in q.items()}
+        origin = nf4_slice_origin(module, part["absmax_q"].shape, NF4_CFG, tp, rank)
+        got = dequantize_nf4(part, torch.float32, origin)
+        want = shard_leaf(module + ".kernel", whole, NF4_CFG, tp, rank)
+        assert got.shape == want.shape != whole.shape
+        assert torch.equal(got, want), (module, rank)
+        assert torch.equal(part["absmax_scale"], q["absmax_scale"])
+
+
+def test_nf4_row_slice_off_a_block_is_refused():
+    """tiny's o_proj (64 input rows, one 64-row absmax block) cannot give
+    each of 2 ranks whole blocks: refused, naming the JAX rule."""
+    from llm_fine_tune_distributed_tpu_torch.ops.nf4 import quantize_nf4
+    from llm_fine_tune_distributed_tpu_torch.parallel.sharding import shard_leaf
+
+    q = quantize_nf4(torch.randn(64, 64))
+    name = "model.layers.0.self_attn.o_proj.kernel_absmax_q"
+    with pytest.raises(ValueError, match="_validate_spec"):
+        shard_leaf(name, q["absmax_q"], CFG, 2, 0)
+    assert shard_leaf(name.replace("o_proj", "q_proj"), q["absmax_q"], CFG, 2, 1).shape == (1, 32)
 
 
 def test_tp_sampled_deterministic_same_on_every_rank(ranks):
@@ -343,13 +512,12 @@ def test_kv_cache_spec_is_the_jax_rule(leaf, shape):
 @pytest.mark.parametrize("argv,message", [
     (["--tp", "2", "--replicas", "2"], "multi-host --tp serving runs ONE sharded engine"),
     (["--tp", "2", "--max-replicas", "3"], "multi-host --tp serving runs ONE sharded engine"),
-    (["--tp", "2", "--quantize", "nf4"], "--quantize nf4 with --tp > 1 is not ported"),
     (["--tp", "0"], "--tp must be >= 1"),
-], ids=["replicas", "max_replicas", "nf4", "zero"])
+], ids=["replicas", "max_replicas", "zero"])
 def test_server_refuses_before_loading(tmp_path, capsys, argv, message):
-    """The JAX server's fleet refusal under a multi-process --tp, and what
-    the port does not serve there, stop the server before any weight loads
-    (the model directory does not even exist)."""
+    """The JAX server's fleet refusal under a multi-process --tp stops the
+    server before any weight loads (the model directory does not even
+    exist)."""
     from llm_fine_tune_distributed_tpu_torch.infer import server
 
     with pytest.raises(SystemExit) as exc:
