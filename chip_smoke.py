@@ -29,7 +29,9 @@ and stops with a non-zero exit at the first failure:
    tensor and row by row, at d 128 and 64, ragged and packed segments; planted
    dq and dk/dv faults must fail the row rule), has the kernels count the
    tile pairs they compute against ``flash_tile_pairs``, and times them
-   beside SDPA at the training shapes, with and without pairs to skip;
+   beside SDPA at the training shapes, with and without pairs to skip; then
+   holds and times the bf16 kernels the same way at tensor=2's local heads
+   (hq 8 over hkv 2);
 8. trains SmolLM3-3B at full width (random weights from a seed) for 3
    optimizer steps through ``SFTTrainer`` with the reference recipe: every
    attention must go through the flash kernels, frozen leaves stay
@@ -44,6 +46,8 @@ and stops with a non-zero exit at the first failure:
    plain version at the frozen trunk's projection shapes (M = 8192) and
    ragged ones (K off the 128-byte step and off 16 included), and times it
    beside ``torch._int_mm`` on the same codes and a bf16 ``torch.matmul``;
+   then bitwise and timed at one trunk layer's tensor=2 local shapes (N / 2
+   column-parallel in bf16, K / 2 row-parallel in f32);
 11. trains SmolLM3-3B as in phase 8 with ``frozen_compute="int8"``: layers
    0-33 run every projection through the w8a8 kernel under no_grad, the
    last two layers through the flash kernels; launches as derived, the
@@ -285,9 +289,20 @@ and stops with a non-zero exit at the first failure:
    rank as derived, every desync check passed and a divergence planted on
    rank 1 caught on both ranks, then a silent rank 1 (its heartbeats
    stopped) seen by rank 0's detector within its timeout and both ranks
-   stopped at the same step boundary. Gloo goes through the host: its
-   seconds are printed as the cost of a correctness phase, not of data
-   parallelism. Every child is waited for at most about 3x its measured
+   stopped at the same step boundary; (c) then the same two ranks free that
+   trainer and train at ``tensor=2`` (Megatron: each rank its heads, MLP
+   columns and vocab rows, the flash kernels on hq 8 over hkv 2, the
+   vocab-parallel loss) on the same model, rows, global batch and peak lr
+   in f32, held to (b)'s world-1 run (losses 1e-5, leaves 1e-4), every
+   sliced leaf exactly half its whole's bytes and the norms whole, the
+   tensor group's collectives and the flash launches per rank as derived,
+   a desync planted on a norm on rank 1 caught, and an int8-trunk case at
+   ``tensor=2`` (bf16, trunk layers 0-1, w8a8 at local shapes, the row
+   scale max-reduced over the group) held to a world-1 run of its own here
+   within ``TP_INT8_LOSS_REL_TOL``, w8a8 launches 2 x 7 per forward. Gloo goes
+   through the host: its seconds are printed as the cost of a correctness
+   phase, not of data or tensor parallelism. Every child is waited for at
+   most about 3x its measured
    time (``CHILD_BOUND_S``, one table for every child of this script):
    past it every child of the phase is killed, the tails of their output
    printed and ``check failed: phase 25b: ...`` raised.
@@ -300,8 +315,9 @@ and stops with a non-zero exit at the first failure:
    ``--tp 1 --engine paged --quantize-kv int8`` at phase 4's geometry in a
    process of its own under a PyTorchJob's env for one worker, so the
    forward issues its collectives over NCCL at world 1: phase 4's traffic,
-   its tokens bit for bit phase 4's (by the margin rule if its requests
-   were admitted in another order), the tick and tokens/s beside phase 4's,
+   its tokens bit for bit phase 4's in whatever order its requests were
+   admitted (a block a request is given starts from K/V scale zero), the
+   tick and tokens/s beside phase 4's,
    paged decode launches 36 x decode steps, 74 collectives per decode step
    and their ms per step by CUDA events; (b) ``--tp 2`` in two ranks on the
    one card over gloo (a group the ranks make first, which the server takes
@@ -372,8 +388,9 @@ flash and paged decode kernels, trains phase 8 (the record 24a-24c compare
 with) and runs 24a-24e; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --distributed-only`` runs phase 25 alone: it builds
-the flash kernels, trains phase 8 (the record 25a compares with) and runs
-25b, then 25a beside 25b's world-1 run; its last line is a JSON summary.
+the flash and w8a8 kernels, trains phase 8 (the record 25a compares with)
+and runs 25b and 25c (in the same two ranks), then 25a beside 25b's world-1
+run and 25c's world-1 int8 run; its last line is a JSON summary.
 
 ``python3 chip_smoke.py --tp-only`` runs phase 26 alone: it builds the paged
 decode kernel, loads phase 4's weights, serves phase 4 (the record 26a
@@ -4305,8 +4322,9 @@ def flash_segments_case(kind, b, s):
     return seg.to(DEVICE)
 
 
-def flash_inputs(dtype, seed=0, b=None, d=None):
-    shape = dict(FLASH_SHAPE, **({"b": b} if b else {}), **({"d": d} if d else {}))
+def flash_inputs(dtype, seed=0, b=None, d=None, heads=None):
+    shape = dict(FLASH_SHAPE, **({"b": b} if b else {}), **({"d": d} if d else {}),
+                 **(dict(zip(("hq", "hkv"), heads)) if heads else {}))
     b, s, hq, hkv, d = (shape[k] for k in ("b", "s", "hq", "hkv", "d"))
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q = torch.randn(b, s, hq, d, generator=gen, device=DEVICE).to(dtype)
@@ -4447,17 +4465,19 @@ def planted_faults(fa, inputs32, seg, lse32, o32, truth, got, sdpa, label):
     return out
 
 
-def flash_check(fa, dtype, kind, d=None, faults=None):
+def flash_check(fa, dtype, kind, d=None, faults=None, heads=None):
     """The flash kernels on one case; returns {output: max|d|}. f32: each
     kernel against its plain version on the same inputs (the backward kernels
     get the plain forward's LSE and delta), within FLASH_F32_TOL. bf16: the
     chain the training path runs (the kernels' own LSE and delta), O, LSE,
     dq, dk and dv against the f32 truth by the SDPA-relative rule over the
     whole tensor and row by row; at the ragged d-128 case the planted faults
-    are added to ``faults`` ({kernel: [records]})."""
-    q, k, v, do = flash_inputs(dtype, seed=1 if kind == "packed" else 0, d=d)
+    are added to ``faults`` ({kernel: [records]}). ``heads``: (hq, hkv) in
+    place of FLASH_SHAPE's."""
+    q, k, v, do = flash_inputs(dtype, seed=1 if kind == "packed" else 0, d=d, heads=heads)
     seg = flash_segments_case(kind, q.shape[0], q.shape[1])
-    label = f"{kind} {str(dtype).split('.')[-1]} d={q.shape[-1]}"
+    label = f"{kind} {str(dtype).split('.')[-1]} d={q.shape[-1]}" + (
+        f" hq={heads[0]} hkv={heads[1]}" if heads else "")
     errs = {}
     if dtype == torch.float32:
         o, lse = fa.flash_fwd(q, k, v, seg)
@@ -4513,7 +4533,7 @@ def flash_check(fa, dtype, kind, d=None, faults=None):
         phase(7, f"{label} {name}: max|kernel - f32 truth| {err:.3e}, SDPA bf16 {ref_err:.3e} "
                  f"({err / ref_err:.2f}x; limit {limit:.3e}), max|truth| "
                  f"{truth[name].abs().max().item():.3e}; per row at most {worst:.2f}x the row limit")
-    if faults is not None and kind == "ragged" and q.shape[-1] == FLASH_SHAPE["d"]:
+    if faults is not None and kind == "ragged" and q.shape[-1] == FLASH_SHAPE["d"] and not heads:
         faults.update(planted_faults(fa, (q32, k32, v32, do32), seg, lse32, o32, truth, got, sdpa,
                                      label))
     return errs
@@ -4641,6 +4661,49 @@ def flash_kernel_phase(fa, peaks):
                  f"{'forward' if name == 'flash_fwd' else 'backward'} {library_ms:.3f} ms, bound "
                  f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
                  f"{ms / library_ms:.2f}x SDPA")
+    return record
+
+
+# one rank's heads of SmolLM3-3B at tensor=2 (25c's local shape)
+FLASH_TP_HEADS = (FLASH_SHAPE["hq"] // 2, FLASH_SHAPE["hkv"] // 2)
+
+
+def flash_tp_local_phase(fa, peaks):
+    """Phase 7 at tensor=2's local heads (b 8, s 1024, hq 8, hkv 2, d 128,
+    ragged): the bf16 tensor-core forward, dq and dk/dv held by phase 7's
+    SDPA-relative rule, whole and row by row, then timed beside their plain
+    versions, the bound and SDPA. Returns {kernel: record}."""
+    errs = flash_check(fa, torch.bfloat16, "ragged", heads=FLASH_TP_HEADS)
+    q, k, v, do = flash_inputs(torch.bfloat16, heads=FLASH_TP_HEADS)
+    seg = flash_segments_case("ragged", q.shape[0], q.shape[1])
+    o, lse = fa.flash_fwd(q, k, v, seg)
+    delta = fa.flash_delta(o, do)
+    timed = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, seg),
+                      lambda: fa.flash_attention_fwd_reference(q, k, v, seg)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, seg, lse, delta, do),
+                         lambda: fa.flash_bwd_dq_reference(q, k, v, seg, lse, delta, do)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, seg, lse, delta, do),
+                          lambda: fa.flash_bwd_dkv_reference(q, k, v, seg, lse, delta, do)),
+    }
+    bounds = flash_bounds(q, k, seg, peaks)
+    sdpa_fwd_ms, sdpa_bwd_ms = sdpa_times(q, k, v, do, seg)
+    record = {}
+    for name, (kernel, plain) in timed.items():
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        bound_ms, bound_by, flops, nbytes = bounds[name]
+        library_ms = sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms
+        outputs = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
+                   "flash_bwd_dkv": ("dk", "dv")}[name]
+        record[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "max_abs_err": max(errs[o] for o in outputs),
+                        "shape": {**FLASH_SHAPE, "hq": FLASH_TP_HEADS[0], "hkv": FLASH_TP_HEADS[1]},
+                        "fraction_of_bound": bound_ms / ms}
+        phase(7, f"{name} bf16 b=8 s=1024 hq={FLASH_TP_HEADS[0]} hkv={FLASH_TP_HEADS[1]} d=128 "
+                 f"ragged (tensor=2's local heads): kernel {ms:.3f} ms ({100 * bound_ms / ms:.1f}% "
+                 f"of the bound), plain {plain_ms:.3f} ms, SDPA "
+                 f"{'forward' if name == 'flash_fwd' else 'backward'} {library_ms:.3f} ms, bound "
+                 f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return record
 
 
@@ -5205,6 +5268,52 @@ def w8a8_kernel_phase(mm, peaks):
               f"quantization of the 7 inputs {layer['quantize_rows_ms']:.3f} ms")
     return {**layer, "bound_by": "operations", "max_abs_err": max(r["max_abs_err"] for r in per_shape),
             "shapes": per_shape}
+
+
+# one trunk layer's projections at tensor=2's local shapes (M, K, N, count,
+# output): q, k/v and gate/up column-parallel (N / 2, bf16 out), o_proj and
+# down_proj row-parallel (K / 2; f32 out, summed over the group before the cast)
+W8A8_TP_SHAPES = (("q_proj", 2048, 1024, 1, torch.bfloat16),
+                  ("k_proj/v_proj", 2048, 256, 2, torch.bfloat16),
+                  ("gate_proj/up_proj", 2048, 5504, 2, torch.bfloat16),
+                  ("o_proj", 1024, 2048, 1, torch.float32),
+                  ("down_proj", 5504, 2048, 1, torch.float32))
+
+
+def w8a8_tp_local_phase(mm, peaks):
+    """Phase 10 at one trunk layer's tensor=2 local shapes (M 8192): the
+    kernel bitwise against its plain version, then timed beside it, its
+    bound and ``torch._int_mm`` on the same codes. Returns the layer's sums
+    and each shape's record."""
+    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    rows = []
+    for i, (name, k, n, count, dt) in enumerate(W8A8_TP_SHAPES):
+        x, w, xq, xs, wq, ws = w8a8_inputs(W8A8_M, k, n, seed=100 + i)
+        out = mm.w8a8_matmul(xq, xs, wq, ws, dt)
+        torch.cuda.synchronize()
+        ref = mm.int8_w8a8_matmul_reference(xq, xs, wq, ws, dt)
+        err = (out.float() - ref.float()).abs().max().item()
+        check(torch.equal(out, ref), f"w8a8 tensor=2 local {name} ({W8A8_M}, {k}, {n}) {dt}: "
+                                     f"kernel differs from plain, max|d| {err:.3e}")
+        del out, ref
+        bound_ms, bound_by, nbytes = w8a8_bound(W8A8_M, k, n, torch.finfo(dt).bits // 8, peaks)
+        row = {"name": name, "m": W8A8_M, "k": k, "n": n, "dtype": str(dt).split(".")[-1],
+               "per_layer": count, "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": time_ms(lambda: mm.w8a8_matmul(xq, xs, wq, ws, dt)),
+               "plain_ms": time_ms(lambda: mm.int8_w8a8_matmul_reference(xq, xs, wq, ws, dt)),
+               "library_ms": int_mm_ms(xq, wq)}
+        for key in layer:
+            layer[key] = None if None in (layer[key], row[key]) else layer[key] + count * row[key]
+        phase(10, f"tensor=2 local {name} M={W8A8_M} K={k} N={n} {row['dtype']} out: kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, torch._int_mm "
+                  f"{row['library_ms']} ms, bound {bound_ms:.4f} ms ({bound_by}); bitwise equal")
+        rows.append(row)
+        del x, w, xq, xs, wq, ws
+    phase(10, f"one trunk layer at tensor=2's local shapes (one rank's 7 projections): kernel "
+              f"{layer['ms']:.3f} ms, plain {layer['plain_ms']:.3f} ms, torch._int_mm "
+              f"{layer['library_ms']} ms, bound {layer['bound_ms']:.3f} ms")
+    return {**layer, "bound_by": "operations", "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "shapes": rows}
 
 
 def kernel_entry(name, source, replaces, launches, rec):
@@ -6206,16 +6315,42 @@ DP_LAYERS = 4  # 25b's depth, at full width
 DP_ROWS = 20  # -> 18 train rows, 2 validation rows: 2 steps of 8 (2 ranks x 2 rows x 2 microbatches)
 DP_LOSS_REL_TOL = 1e-5  # 25b: world 2 against world 1, f32
 DP_LEAF_REL_TOL = 1e-4  # 25b: each updated leaf, relative to its largest entry
+# 25c's int8-trunk case (bf16 compute, trunk = layers 0-1 of the 4) at
+# tensor=2 against a world-1 run of the same configuration (PERF.md §6:
+# derived on the CPU before the first chip run): each step's loss within
+# 2e-4 relative (the CPU's worst gap 3.6e-5, at hidden 256, 5 steps); the
+# trunk's output on the first microbatch differing from world 1's in at
+# most half of its rows (the CPU: 5.2% at hidden 256: an f32 sum of two
+# partial products that crosses a bf16 rounding boundary spreads along its
+# row through the next row quantization). The row scale without its max
+# all-reduce (a rank's own row absmax) changes every row (100% on the CPU)
+# and must fail the second; on the CPU it did not move the losses further
+# than the right run's rounding does
+TP_INT8_LOSS_REL_TOL = 2e-4
+TP_INT8_TRUNK_ROWS_DIFFER = 0.5
+
+
+def tp_collectives_per_microbatch(layers):
+    """The tensor group's all-reduces per microbatch at ``layers`` layers
+    (PERF.md §6): forward the embedding, o_proj and down_proj per layer,
+    the cross-entropy's max and its sums; backward the attention and MLP
+    inputs per layer and the unembed's; under remat each layer's o_proj sum
+    replayed (the replay stops once the block's saved tensors are back:
+    nothing after down_proj's sum is saved)."""
+    return {"forward": 1 + 2 * layers + 2, "backward": 2 * layers + 1, "replays": layers}
+
+
 DP_CLI_LOSS_REL_TOL = 5e-3  # 25a: the losses after the first against phase 8's
 # Bounds (s) of the children this script spawns, from their start, about 3x
 # the slowest each took on the card (NVIDIA H100 80GB HBM3 at 700 W:
-# 25a's CLI process 28.5-63.4 s, 25b's ZeRO-3 ranks 50.5-83.0 s, the 21 and 22
+# 25a's CLI process 28.5-63.4 s, 25b's ranks 50.5-83.0 s with ZeRO-3 alone and
+# 118.8 s with 25c after it (--distributed-only), the 21 and 22
 # processes 90.4 and 83.8 s; 26's ranks serving within 37.8-45.8 s, the last
 # one done 72.4-93.9 s after its start, a SIGTERM's drain and exit in 0.7-2.4
 # s, from then): past a bound every child of the job is killed, the tail of
 # each one's output printed and the phase fails by name. A rank's wait inside
 # a collective is bounded by its job's bound too.
-CHILD_BOUND_S = {"25a": 190, "25b": 240, "21": 270, "22": 240,
+CHILD_BOUND_S = {"25a": 190, "25b": 360, "21": 270, "22": 240,
                  "26 serving": 125, "26 done": 250, "26 stop": 8}
 # 25b: a rank's memory_allocated after the trainer's init against world 1's
 # less the bytes it does not hold, and its init's peak above its slices and
@@ -6453,17 +6588,119 @@ def dp_cli_phase(job, trained):
 
 def dp_config(workdir, rank_batch, **kw):
     """25b's ``TrainConfig``: the default mesh, ``data=1, fsdp=-1``, is
-    fsdp=2 over the two ranks and 1 in the world-1 run."""
+    fsdp=2 over the two ranks and 1 in the world-1 run; ``kw`` overrides
+    (25c: the mesh, the int8 case's dtype and trunk)."""
     import os
 
     from llm_fine_tune_distributed_tpu_torch.config import TrainConfig
 
-    return TrainConfig(model_name="smollm3-3b-random", model_preset="smollm3_3b",
-                       tokenizer_path="byte-chatml", data_dir=os.path.join(workdir, "data"),
-                       epochs=1, system_prompt=TRAIN_PROMPT, logging_steps=1,
-                       compute_dtype="float32", per_device_batch_size=rank_batch,
-                       gradient_accumulation_steps=2, scale_lr_by_data_parallel=False,
-                       checkpoint_trainable_only=True, **kw)
+    return TrainConfig(**{**dict(
+        model_name="smollm3-3b-random", model_preset="smollm3_3b", tokenizer_path="byte-chatml",
+        data_dir=os.path.join(workdir, "data"), epochs=1, system_prompt=TRAIN_PROMPT,
+        logging_steps=1, compute_dtype="float32", per_device_batch_size=rank_batch,
+        gradient_accumulation_steps=2, scale_lr_by_data_parallel=False,
+        checkpoint_trainable_only=True), **kw})
+
+
+def tp_int8_config(workdir, out, **kw):
+    """25c's int8-trunk case: 25b's configuration in bf16 with
+    ``frozen_compute="int8"`` (the last 2 of the 4 layers train: the trunk
+    is layers 0-1), 4 rows a microbatch."""
+    import os
+
+    return dp_config(workdir, 4, output_dir=os.path.join(workdir, out), compute_dtype="bfloat16",
+                     frozen_compute="int8", **kw)
+
+
+def int8_trunk_hidden(trainer):
+    """The int8 trunk's output (its layers, then the final norm, bf16
+    ``[b, s, h]``) on the first microbatch of the first step, under the
+    trainer's tensor group if it has one."""
+    from llm_fine_tune_distributed_tpu_torch.models.transformer import forward
+
+    full = next(iter(trainer.loader.global_epoch(0)))
+    batch = trainer._device_batch(trainer.loader.local_rows(full))
+    trunk = trainer.frozen_boundary
+    with torch.no_grad():
+        hidden, _ = forward({**trainer.state.trainable, **trainer.state.frozen},
+                            batch["input_ids"][0], trainer.model_config.replace(num_layers=trunk),
+                            padding_mask=batch["attention_mask"][0],
+                            attention_impl=trainer.config.attention_impl,
+                            compute_dtype=torch.bfloat16, output_hidden=True, frozen_layers=trunk,
+                            frozen_compute="int8", tensor=trainer.tensor)
+    return hidden
+
+
+def dp_tp_rank(rank, workdir, fa, mm) -> dict:
+    """25c in one of 25b's ranks (25b's trainer freed): ``SFTTrainer`` at
+    tensor=2 on 25b's model, rows, global batch and peak lr in f32, then the
+    int8-trunk case at tensor=2 in bf16; launches, the tensor group's
+    collectives, each leaf's bytes against its whole, a desync planted on a
+    norm, rank 0's final leaves gathered whole to a file."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.config import MeshConfig
+    from llm_fine_tune_distributed_tpu_torch.runtime import distributed
+    from llm_fine_tune_distributed_tpu_torch.runtime.desync import check_param_sync
+    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    tp2 = MeshConfig(data=1, fsdp=1, tensor=2)
+    counters = train_counters(fa, mm)
+    coll = distributed.tensor_collectives
+    out = {}
+    for case in ("f32", "int8"):
+        t0 = time.monotonic()
+        if case == "f32":
+            cfg = dp_config(workdir, 4, output_dir=os.path.join(workdir, "tp_out"), mesh=tp2,
+                            desync_check_steps=1)
+        else:
+            cfg = tp_int8_config(workdir, "tp_int8_out", mesh=tp2)
+        trainer = SFTTrainer(cfg, model_config=dp_model_config(), device=DEVICE)
+        tensor = trainer.tensor
+        if case == "int8":
+            hidden = int8_trunk_hidden(trainer)
+            if rank == 0:
+                torch.save(hidden.cpu(), os.path.join(workdir, "rank0_tp_trunk.pt"))
+            del hidden
+        leaves = {**trainer.state.trainable, **trainer.state.frozen}
+        halves = {k: (v.numel() * v.element_size(), trainer._numel(k, v) * v.element_size())
+                  for k, v in leaves.items()}
+        for fn in counters.values():
+            fn.launches = 0
+        coll.reset()
+        summary = trainer.train()
+        rec = {"losses": [h["loss"] for h in trainer.metrics.history],
+               "eval_loss": summary["final_eval_loss"],
+               "launches": {name: fn.launches for name, fn in counters.items()},
+               "collectives": {"forward": coll.forward, "backward": coll.backward},
+               "steps": len(trainer.throughput.step_s), "step_s": trainer.throughput.step_s,
+               "n_val": trainer.n_val, "summary_world": summary["world_size"],
+               "sliced": sorted(tensor.shapes),
+               "sliced_half": all(2 * mine == whole for k, (mine, whole) in halves.items()
+                                  if tensor.sliced(k)),
+               "whole_norms": all(mine == whole for k, (mine, whole) in halves.items()
+                                  if k.endswith("norm.weight")) and not any(
+                                      tensor.sliced(k) for k in halves if k.endswith("norm.weight")),
+               "leaf_bytes": sum(mine for mine, _ in halves.values()),
+               "leaf_bytes_whole": sum(whole for _, whole in halves.values())}
+        if case == "f32":
+            rec["desync_checks"] = trainer.desync.checks
+            bad = {k: v.detach().clone() for k, v in trainer.state.trainable.items()}
+            norm = sorted(k for k in bad if k.endswith("norm.weight"))[0]
+            if rank == 1:
+                bad[norm].view(-1)[0] += 1e-3  # a leaf every rank holds whole
+            ok, sums = check_param_sync(bad, None, tensor=tensor, mesh=trainer.mesh)
+            rec.update(planted_leaf=norm, planted_caught=not ok, planted_sums=sums)
+            full = trainer._full_trainable()  # a collective
+            if rank == 0:
+                torch.save({k: v.detach().cpu() for k, v in full.items()},
+                           os.path.join(workdir, "rank0_tp_trainable.pt"))
+            del full, bad
+        rec["seconds"] = time.monotonic() - t0
+        out[case] = rec
+        del trainer, leaves
+        gc_cuda()
+    return out
 
 
 def dp_model_config():
@@ -6573,7 +6810,7 @@ def dp_rank_child(rank, port, workdir) -> int:
                             timeout=datetime.timedelta(seconds=CHILD_BOUND_S["25b"]))
     torch.cuda.set_device(0)
     distributed.initialize_distributed(device=DEVICE)  # the group above, as it is
-    _build.build_all(("flash_fwd", "flash_bwd"))  # built by the parent: loaded
+    _build.build_all(("flash_fwd", "flash_bwd", "w8a8_matmul"))  # built by the parent: loaded
     trainer, memory = built_with_memory(lambda: SFTTrainer(
         dp_config(workdir, 2, output_dir=os.path.join(workdir, "dp_out"), desync_check_steps=1,
                   heartbeat=True, heartbeat_port=0),
@@ -6617,7 +6854,7 @@ def dp_rank_child(rank, port, workdir) -> int:
     bad = {k: v.detach().clone() for k, v in trainer.state.trainable.items()}
     if rank == 1:
         bad[sorted(whole)[0]].view(-1)[0] += 1e-3  # a leaf every rank holds whole
-    planted_ok, planted_sums = check_param_sync(bad, shards)
+    planted_ok, planted_sums = check_param_sync(bad, shards, mesh=trainer.mesh)
     full = trainer._full_trainable()  # a collective
     steps = len(trainer.throughput.step_s)
     record = {"rank": rank, "losses": [h["loss"] for h in trainer.metrics.history],
@@ -6644,7 +6881,10 @@ def dp_rank_child(rank, port, workdir) -> int:
     if rank == 0:
         torch.save({k: v.detach().cpu() for k, v in full.items()},
                    os.path.join(workdir, "rank0_trainable.pt"))
-    del full
+    del full, trainer, bad
+    gc_cuda()
+    record["seconds_25b"] = time.monotonic() - _T0
+    record["tp"] = dp_tp_rank(rank, workdir, fa, mm)  # 25c
     record["seconds"] = time.monotonic() - _T0  # the process's life so far
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
@@ -6684,7 +6924,127 @@ def dp_gloo_join(job):
         with open(os.path.join(job["workdir"], f"rank{rank}.json")) as f:
             ranks.append(json.load(f))
     job["joined_s"] = time.monotonic() - job["t0"]
-    return ranks, torch.load(os.path.join(job["workdir"], "rank0_trainable.pt"))
+    return ranks, {name: torch.load(os.path.join(job["workdir"], f"rank0_{name}trainable.pt"))
+                   for name in ("", "tp_")}
+
+
+def _worst_leaf(leaves, trainer):
+    """The largest max|got - want| / max|want| over the trainer's updated
+    leaves."""
+    worst = 0.0
+    for k, v in trainer.state.trainable.items():
+        want = v.detach()
+        worst = max(worst, float((leaves[k].to(want.device) - want).abs().max()
+                                 / want.abs().max()))
+    return worst
+
+
+def dp_tp_phase(workdir, ranks, tp_leaves, solo, solo_summary, fa, mm):
+    """25c (docstring): the tensor=2 records of 25b's ranks against 25b's
+    world-1 run (``solo``), and the int8-trunk case against a world-1 run of
+    its own, made here."""
+    import os
+
+    from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
+
+    mc = dp_model_config()
+    layers = mc.num_layers
+    per = tp_collectives_per_microbatch(layers)
+    solo_losses = [h["loss"] for h in solo.metrics.history]
+    worst = _worst_leaf(tp_leaves, solo)
+    t0 = time.monotonic()
+    solo8 = SFTTrainer(tp_int8_config(workdir, "solo_int8_out"), model_config=mc, device=DEVICE)
+    want = int8_trunk_hidden(solo8).float()
+    got = torch.load(os.path.join(workdir, "rank0_tp_trunk.pt")).to(DEVICE).float()
+    diff = got - want
+    trunk = {"rows_differ": float((diff.abs().amax(-1) > 0).float().mean()),
+             "elements_differ": float((diff != 0).float().mean()),
+             "rms_ratio": float(diff.square().mean().sqrt() / want.square().mean().sqrt())}
+    del want, got, diff
+    phase(25, f"25c int8: the trunk's output on the first microbatch at tensor=2 differs from world "
+              f"1's in {100 * trunk['rows_differ']:.2f}% of its rows (bound "
+              f"{100 * TP_INT8_TRUNK_ROWS_DIFFER:.0f}%), {100 * trunk['elements_differ']:.3f}% of its "
+              f"elements, rms {trunk['rms_ratio']:.2e} of world 1's")
+    check(trunk["rows_differ"] <= TP_INT8_TRUNK_ROWS_DIFFER,
+          f"25c int8: the trunk's output at tensor=2 differs from world 1's in "
+          f"{100 * trunk['rows_differ']:.1f}% of its rows (bound "
+          f"{100 * TP_INT8_TRUNK_ROWS_DIFFER:.0f}%; rms {trunk['rms_ratio']:.2e} of world 1's)")
+    counters = train_counters(fa, mm)
+    for fn in counters.values():
+        fn.launches = 0
+    solo8.train()
+    solo8_launches = {name: fn.launches for name, fn in counters.items()}
+    solo8_losses = [h["loss"] for h in solo8.metrics.history]
+    solo8_s = time.monotonic() - t0
+    del solo8
+    gc_cuda()
+    for r in ranks:
+        tp, rank = r["tp"]["f32"], r["rank"]
+        accum, steps = 2, tp["steps"]
+        eval_batches = -(-tp["n_val"] // 4)
+        micro = accum * steps
+        rel = [abs(a - b) / abs(b) for a, b in zip(tp["losses"], solo_losses)]
+        check(len(tp["losses"]) == len(solo_losses) and max(rel) <= DP_LOSS_REL_TOL,
+              f"25c rank {rank}: losses {tp['losses']} vs world 1's {solo_losses}")
+        check(abs(tp["eval_loss"] - solo_summary["final_eval_loss"])
+              <= DP_LOSS_REL_TOL * abs(solo_summary["final_eval_loss"]),
+              f"25c rank {rank}: eval {tp['eval_loss']} vs {solo_summary['final_eval_loss']}")
+        want = {"flash_fwd": layers * micro * 2 + layers * eval_batches,
+                "flash_bwd_dq": layers * micro, "flash_bwd_dkv": layers * micro, "w8a8_matmul": 0}
+        check(tp["launches"] == want, f"25c rank {rank}: launches {tp['launches']} != {want}")
+        want_c = {"forward": micro * (per["forward"] + per["replays"])
+                  + eval_batches * per["forward"], "backward": micro * per["backward"]}
+        check(tp["collectives"] == want_c,
+              f"25c rank {rank}: tensor-group collectives {tp['collectives']} != {want_c} "
+              f"({per} per microbatch, {per['forward']} per eval batch)")
+        check(tp["sliced_half"] and tp["whole_norms"] and tp["sliced"],
+              f"25c rank {rank}: a sliced leaf is not half its whole's bytes, or a norm is sliced")
+        check(tp["desync_checks"] == 1 + steps, f"25c rank {rank}: {tp['desync_checks']} desync "
+                                                f"checks")
+        check(tp["planted_caught"], f"25c rank {rank}: the desync planted on {tp['planted_leaf']} "
+                                    "passed the check")
+        check(tp["summary_world"] == 2, "25c: summary world size")
+        i8 = r["tp"]["int8"]
+        rel8 = [abs(a - b) / abs(b) for a, b in zip(i8["losses"], solo8_losses)]
+        check(len(i8["losses"]) == len(solo8_losses) and max(rel8) <= TP_INT8_LOSS_REL_TOL,
+              f"25c int8 rank {rank}: losses {i8['losses']} vs world 1's {solo8_losses} "
+              f"(relative {rel8}, bound {TP_INT8_LOSS_REL_TOL})")
+        eval8 = -(-i8["n_val"] // 4)
+        want8 = 2 * 7 * (accum * i8["steps"] + eval8)  # trunk layers x projections x forwards
+        check(i8["launches"]["w8a8_matmul"] == want8 == solo8_launches["w8a8_matmul"],
+              f"25c int8 rank {rank}: w8a8 launches {i8['launches']['w8a8_matmul']} vs {want8} "
+              f"(world 1 {solo8_launches['w8a8_matmul']})")
+        check(i8["sliced_half"], f"25c int8 rank {rank}: a sliced leaf is not half its whole's")
+    check(worst <= DP_LEAF_REL_TOL, f"25c: updated leaves differ by {worst:.2e} of their max")
+    r0 = ranks[0]["tp"]
+    rel8 = max(abs(a - b) / abs(b) for a, b in zip(r0["int8"]["losses"], solo8_losses))
+    phase(25, f"25c: tensor=2 in 25b's ranks ({layers} layers, f32; local heads hq "
+              f"{mc.num_heads // 2} over hkv {mc.num_kv_heads // 2}) vs world 1: losses "
+              f"{[round(x, 6) for x in r0['f32']['losses']]} vs {[round(x, 6) for x in solo_losses]}, "
+              f"eval {r0['f32']['eval_loss']:.6f}, leaves within {worst:.2e} of their max; per rank "
+              f"{r0['f32']['leaf_bytes'] / 1e9:.4f} of {r0['f32']['leaf_bytes_whole'] / 1e9:.4f} GB "
+              f"of leaves ({len(r0['f32']['sliced'])} sliced exactly in half, the norms whole); "
+              f"collectives {r0['f32']['collectives']} = derived ({per} per microbatch); flash "
+              f"launches {r0['f32']['launches']}; the desync planted on {r0['f32']['planted_leaf']} "
+              f"caught on both ranks; steps {[round(x, 2) for x in r0['f32']['step_s']]} s")
+    phase(25, f"25c int8 trunk (bf16, layers 0-1) at tensor=2 vs world 1: losses "
+              f"{r0['int8']['losses']} vs {solo8_losses} (worst relative {rel8:.2e}, bound "
+              f"{TP_INT8_LOSS_REL_TOL}); w8a8 launches per rank {r0['int8']['launches']['w8a8_matmul']} "
+              f"= 2 x 7 x forwards; the ranks' cases {round(r0['f32']['seconds'], 1)} and "
+              f"{round(r0['int8']['seconds'], 1)} s, world 1's int8 run here {solo8_s:.1f} s")
+    return {"losses_tp2": r0["f32"]["losses"], "losses_world1": solo_losses,
+            "eval_tp2": r0["f32"]["eval_loss"], "leaf_rel_err_max": worst,
+            "launches_per_rank": r0["f32"]["launches"],
+            "collectives_per_rank": r0["f32"]["collectives"], "collectives_per_microbatch": per,
+            "leaf_bytes_per_rank": r0["f32"]["leaf_bytes"],
+            "leaf_bytes_whole": r0["f32"]["leaf_bytes_whole"],
+            "planted_caught": [r["tp"]["f32"]["planted_caught"] for r in ranks],
+            "step_s": [r["tp"]["f32"]["step_s"] for r in ranks],
+            "int8": {"losses_tp2": r0["int8"]["losses"], "losses_world1": solo8_losses,
+                     "loss_rel_max": rel8, "bound": TP_INT8_LOSS_REL_TOL, "trunk": trunk,
+                     "launches_per_rank": r0["int8"]["launches"],
+                     "launches_world1": solo8_launches, "world1_s": solo8_s},
+            "seconds_in_ranks": [[r["tp"][c]["seconds"] for c in ("f32", "int8")] for r in ranks]}
 
 
 def dp_gloo_phase(job, ranks, leaves, fa, mm):
@@ -6701,6 +7061,7 @@ def dp_gloo_phase(job, ranks, leaves, fa, mm):
     from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
 
     t0, workdir = job["t0"], job["workdir"]
+    leaves, tp_leaves = leaves[""], leaves["tp_"]
     try:
         t_solo = time.monotonic()
         solo, solo_memory = built_with_memory(lambda: SFTTrainer(
@@ -6714,12 +7075,10 @@ def dp_gloo_phase(job, ranks, leaves, fa, mm):
         solo_launches = {name: fn.launches for name, fn in counters.items()}
         solo_s = time.monotonic() - t_solo
         solo_losses = [h["loss"] for h in solo.metrics.history]
-        worst = 0.0
-        for k, v in solo.state.trainable.items():
-            want = v.detach()
-            err = float((leaves[k].to(want.device) - want).abs().max() / want.abs().max())
-            worst = max(worst, err)
+        worst = _worst_leaf(leaves, solo)
         del leaves
+        tp_record = dp_tp_phase(workdir, ranks, tp_leaves, solo, solo_summary, fa, mm)
+        del tp_leaves, solo
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     mc = dp_model_config()
@@ -6786,7 +7145,7 @@ def dp_gloo_phase(job, ranks, leaves, fa, mm):
               "heartbeat": [r["heartbeat"] for r in ranks],
               "gloo_allreduce_s": [r["allreduce_s"] for r in ranks],
               "step_s": [r["step_s"] for r in ranks], "rank_seconds": [r["seconds"] for r in ranks],
-              "world1_s": solo_s, "seconds": time.monotonic() - t0}
+              "world1_s": solo_s, "seconds": time.monotonic() - t0, "c_tensor_parallel": tp_record}
     phase(25, f"25b: 2 ranks over gloo on one card (fsdp=2 ZeRO-3, {DP_LAYERS} layers, f32) vs "
               f"world 1: losses {[round(x, 6) for x in ranks[0]['losses']]} vs "
               f"{[round(x, 6) for x in solo_losses]}, eval {ranks[0]['eval_loss']:.6f} vs "
@@ -6833,8 +7192,9 @@ def distributed_phase(fa, mm, trained, gloo_job, cli_job=None, joined=None):
 
 
 def distributed_only() -> int:
-    """Phase 25 alone: the flash kernels built, phase 8 trained (the record
-    25a compares with), then 25a-25b; a JSON summary is the last line."""
+    """Phase 25 alone: the flash and w8a8 kernels built, phase 8 trained
+    (the record 25a compares with), then 25a-25c; a JSON summary is the
+    last line."""
     import shutil
     import tempfile
 
@@ -6844,7 +7204,7 @@ def distributed_only() -> int:
 
     t_start = time.monotonic()
     phase(1, card_info())
-    _build.build_all(("flash_fwd", "flash_bwd"))
+    _build.build_all(("flash_fwd", "flash_bwd", "w8a8_matmul"))  # 25c's int8 case: w8a8
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_train_")
     try:
         trained, trainer = train_phase(fa, mm, workdir)
@@ -7643,22 +8003,17 @@ def tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs):
         jobs["kill"]()
         shutil.rmtree(jobs["workdir"], ignore_errors=True)
 
-    # 26a: world 1 over NCCL is phase 4, bit for bit, when its requests were
-    # admitted in phase 4's order (the int8 pool's freed blocks keep their
-    # scales, so another order is another pool history); otherwise each
-    # request is held to its solo run by the margin rule, as 26b's are
+    # 26a: world 1 over NCCL is phase 4, bit for bit, in whatever order its
+    # requests were admitted (a block a request is given starts from scale
+    # zero, so a request's K/V codes do not depend on the pool's history)
     phase4 = {tuple(p): ids for p, ids in served["results"]}
     got_a = _tp_tokens(a)
     order_a = [e[2] for e in a["log"] if e[0] == "first"]
     floor = 2 * max(int8_kv_noise(tf, generator, list(p)) for p in solo)
     same_order = order_a == served["prefill_order"]
-    if same_order:
-        check(got_a == phase4, "26a: tokens differ from phase 4's: "
-              + str({k[-3:]: (v, phase4.get(k)) for k, v in got_a.items() if phase4.get(k) != v}))
-    else:
-        held = {"results": [([], [])] + [list(x) for x in a["results"] if tuple(x[0]) in solo]}
-        hold_to_solo(tf, generator, "26a --tp 1 (admitted in another order than phase 4)", held,
-                     solo, floor=floor, phase_no=26)
+    check(got_a == phase4, f"26a: tokens differ from phase 4's (admission order {order_a} vs "
+          f"phase 4's {served['prefill_order']}): "
+          + str({k[-3:]: (v, phase4.get(k)) for k, v in got_a.items() if phase4.get(k) != v}))
     steps_a = a["stats"]["decode_steps"]
     per_step = 2 * layers + 2  # two all-reduces a layer, the embedding's, the logits' gather
     check(a["launches"] == layers * steps_a,
@@ -7672,9 +8027,9 @@ def tp_phase(tf, gen_mod, fa, generator, served, solo, peaks, live, jobs):
              "collective_ms_per_step": a["collective_ms"] / steps_a,
              "weights_allocated": a["weights_allocated"], "pool_bytes": a["pool_bytes"],
              **a_traffic}
-    held = ("bit-equal to phase 4's" if same_order else
-            f"held by the margin rule (admission order {order_a} vs phase 4's "
-            f"{served['prefill_order']}; equal to phase 4's: {got_a == phase4})")
+    held = "bit-equal to phase 4's, admitted in " + (
+        "phase 4's order" if same_order else
+        f"another order ({order_a} vs phase 4's {served['prefill_order']})")
     phase(26, f"26a: python -m ...infer.server --tp 1 (PyTorchJob env, NCCL, world 1): tokens of "
               f"{len(got_a)} requests {held}; paged decode launches {a['launches']} "
               f"== {layers} x {steps_a} decode steps; {per_step} collectives per decode step, "
@@ -8059,6 +8414,7 @@ def main(argv=()) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     flash = flash_kernel_phase(fa, peaks)
+    flash_tp = flash_tp_local_phase(fa, peaks)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:  # phase 14 asks the model phase 8 trains
         trained, trainer = train_phase(fa, mm, workdir)
@@ -8104,6 +8460,7 @@ def main(argv=()) -> int:
 
     gloo_joined = dp_gloo_join(gloo_job)  # the kernel's timing below has the card alone
     w8a8 = w8a8_kernel_phase(mm, peaks)
+    w8a8_tp = w8a8_tp_local_phase(mm, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_int8_") as workdir:
         trained_i8, trainer = train_phase(fa, mm, workdir, frozen_compute="int8")
     first, first_i8 = trained["losses"][0], trained_i8["losses"][0]
@@ -8196,7 +8553,12 @@ def main(argv=()) -> int:
                                               for k in ("a_packing", "b_lora", "c_qlora", "d_dpo")},
                       # phase 25b: each of the two data-parallel ranks
                       "launches_dp_25b_per_rank":
-                          dp["b_gloo_two_ranks"]["launches_per_rank"][name]})
+                          dp["b_gloo_two_ranks"]["launches_per_rank"][name],
+                      # phase 25c: each of the two tensor-parallel ranks (f32,
+                      # local heads), and phase 7 at their bf16 local shape
+                      "launches_tp_25c_per_rank":
+                          dp["b_gloo_two_ranks"]["c_tensor_parallel"]["launches_per_rank"][name],
+                      "tp2_local": flash_tp[name]})
         entries.append(entry)
     w8a8_entry = kernel_entry("w8a8_matmul", "llm_fine_tune_distributed_tpu_torch/csrc/w8a8_matmul.cu",
                               "llm_fine_tune_distributed_tpu/ops/int8_matmul.py:89",
@@ -8209,6 +8571,10 @@ def main(argv=()) -> int:
         "bf16_matmul_ms": w8a8["bf16_matmul_ms"],
         "quantize_rows_ms": w8a8["quantize_rows_ms"],
         "shapes": w8a8["shapes"],
+        # phase 25c's int8 case: each tensor=2 rank; phase 10 at its local shapes
+        "launches_tp_25c_per_rank":
+            dp["b_gloo_two_ranks"]["c_tensor_parallel"]["int8"]["launches_per_rank"]["w8a8_matmul"],
+        "tp2_local": w8a8_tp,
     })
     entries.append(w8a8_entry)
     for rec in (served, served_i8):

@@ -29,8 +29,9 @@ import torch
 class MeshConfig:
     """Device mesh axis sizes over the ranks of the process group (one
     device each); -1 absorbs the remaining ranks. ``data`` and ``fsdp`` split
-    the batch (``fsdp`` also shards the AdamW state, ``runtime/mesh.py``);
-    the other axes must resolve to 1."""
+    the batch (``fsdp`` also shards the leaves and the AdamW state), ``tensor``
+    the model's heads, MLP columns and vocab (``runtime/mesh.py``); the
+    other axes must resolve to 1."""
 
     data: int = 1
     fsdp: int = -1

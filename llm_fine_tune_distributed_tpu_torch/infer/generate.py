@@ -667,11 +667,33 @@ class Generator:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _fresh_block_scales(self, pool, table: np.ndarray, chunk_start: int) -> None:
+        """Zero the int8 K/V scales, in every layer, of the blocks of a
+        prefill chunk's table from the first one that starts at or after
+        ``chunk_start``: blocks the request was given at admission and has
+        not written yet (its prompt's rest, its decode and draft positions),
+        whose scales would otherwise start from their last owner's (a
+        block's scale only grows). Blocks shared from the prefix cache or
+        restored from the host tier sit before the first chunk's start and
+        keep theirs; a bf16 pool has no scales."""
+        entry = pool["layers"]["0"]
+        if "k_scale" not in entry:
+            return
+        first = -(-int(chunk_start) // entry["k"].shape[1])
+        ids = [int(b) for b in table[0, first:] if b != 0]
+        if not ids:
+            return
+        idx = torch.tensor(ids, dtype=torch.long, device=entry["k_scale"].device)
+        for layer in pool["layers"].values():
+            layer["k_scale"].index_fill_(0, idx, 0.0)
+            layer["v_scale"].index_fill_(0, idx, 0.0)
+
     def paged_prefill_chunk(self, pool, state, table: np.ndarray, chunk_ids: np.ndarray,
                             chunk_start: int, adapter_idx: int = 0) -> None:
         """Ingest one prefill chunk [1, C] of one prompt through its block
         table [1, nb], starting at logical position ``chunk_start``, with
         adapter slot ``adapter_idx`` in the state's pooled view."""
+        self._fresh_block_scales(pool, table, chunk_start)
         self._forward(
             self._view(state), self._tensor(chunk_ids).long(), self.config, cache=pool,
             cache_pos=int(chunk_start), block_tables=self._tensor(table),
@@ -687,6 +709,7 @@ class Generator:
         first token from the last prompt position, and set the slot's state.
         ``seen_row`` [1, vocab] covers the whole prompt; ``adapter_idx`` is
         the request's adapter slot in the state's pooled view."""
+        self._fresh_block_scales(pool, table, chunk_start)
         params = self._view(state)
         hidden, _ = self._forward(
             params, self._tensor(chunk_ids).long(), self.config, cache=pool,

@@ -33,6 +33,21 @@ slice of the logits, all-gathered into the full row. A step issues two
 all-reduces per layer, the embedding's all-reduce and the logits'
 all-gather (74 for SmolLM3-3B's 36 layers). Without a tensor group the
 forward issues none and is the one-device forward.
+
+Tensor-parallel training (``tensor``, a ``parallel/sharding.TensorShards``)
+places the same collectives under autograd (``runtime/distributed``):
+"copy to tensor" (identity forward, gradient all-reduce backward) on the
+normed input of q/k/v, of gate/up and of the unembed; "reduce from tensor"
+(all-reduce forward, identity backward, out of place) on the o_proj and
+down_proj partial sums and on the embedding lookup. The unembed gives the
+rank's vocab slice of the logits, which the vocab-parallel cross-entropy
+(``train/step.vocab_parallel_ce``) reads as it is: the full row is never
+formed. Under remat the checkpointed block replays its forward
+collectives. LoRA factors are whole on every rank: a column-parallel
+projection adds its columns of the delta, a row-parallel one its partial
+delta before the sum. The int8 trunk's row-parallel projections quantize
+their input with the row scale of the whole row (a max all-reduce of each
+rank's row absmax) and sum their f32 partial products before one cast.
 """
 
 from __future__ import annotations
@@ -60,6 +75,8 @@ from llm_fine_tune_distributed_tpu_torch.ops.norms import rms_norm
 from llm_fine_tune_distributed_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from llm_fine_tune_distributed_tpu_torch.parallel.sharding import nf4_slice_origin
 from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
+    copy_to_tensor,
+    reduce_from_tensor,
     tp_all_gather_last,
     tp_all_reduce_,
 )
@@ -161,7 +178,7 @@ def init_params(config: ModelConfig, *, seed: int = 0, device="cpu",
 
 def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
             trunk_matmul=None, adapter_idx: Optional[torch.Tensor] = None,
-            tensor_group=None, nf4_origin=None) -> torch.Tensor:
+            reduce=None, nf4_origin=None, lora_part=None, row_group=None) -> torch.Tensor:
     """x @ kernel (+ LoRA) (+ bias) in ``compute_dtype``. The int8 siblings
     ``kernel_int8`` / ``kernel_int8_scale`` run through ``trunk_matmul``
     (w8a8) in the frozen trunk (``trunk_matmul`` given) and through
@@ -182,13 +199,21 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
     picked by ``adapter_idx [batch]`` with the same arithmetic (a gather,
     two batched products, the scale), so tenants co-batch in one forward.
     Pool row 0 is all zeros: its rows' delta is exactly zero. Both come
-    before the bias. ``tensor_group`` (a row-parallel projection under
-    tensor parallelism) sums the partial products over the group before the
-    bias."""
+    before the bias. ``reduce`` (a row-parallel projection under tensor
+    parallelism) sums the partial products over the tensor group before the
+    bias; ``lora_part(name, A, B)`` gives the parts of whole LoRA factors
+    a rank uses (tensor-parallel training). ``row_group`` (a row-parallel
+    trunk projection under tensor-parallel training): the w8a8 product
+    takes the whole row's scale and comes back in f32, summed before the
+    one cast."""
     codes = params.get(name + ".kernel_int8")
     if codes is not None:
         q = {"int8": codes, "int8_scale": params[name + ".kernel_int8_scale"]}
-        y = (trunk_matmul or int8_matmul)(x, q, compute_dtype)
+        if trunk_matmul is not None and row_group is not None:
+            y = reduce(trunk_matmul(x, q, compute_dtype, row_group=row_group)).to(compute_dtype)
+            reduce = None
+        else:
+            y = (trunk_matmul or int8_matmul)(x, q, compute_dtype)
     elif name + ".kernel_nf4" in params:
         q = {s: params[f"{name}.kernel_{s}"] for s in QUANT_SUFFIXES
              if f"{name}.kernel_{s}" in params}
@@ -199,8 +224,10 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
         y = x @ params[name + ".kernel"].to(compute_dtype)
     lora_a = params.get(name + ".lora_a")
     if lora_a is not None:
-        a = lora_a.to(compute_dtype)
-        b = params[name + ".lora_b"].to(compute_dtype)
+        a, b = lora_a, params[name + ".lora_b"]
+        if lora_part is not None:
+            a, b = lora_part(name, a, b)
+        a, b = a.to(compute_dtype), b.to(compute_dtype)
         xa = (x @ a) * params[name + ".lora_scale"].to(compute_dtype)
         y = torch.addmm(y.flatten(0, -2), xa.flatten(0, -2), b).reshape(y.shape)
     pool_a = params.get(name + ".lora_a_pool") if adapter_idx is not None else None
@@ -210,8 +237,8 @@ def _linear(x: torch.Tensor, params: Params, name: str, compute_dtype,
         b = params[name + ".lora_b_pool"].index_select(0, adapter_idx).to(compute_dtype)
         sc = params[name + ".lora_scale_pool"].index_select(0, adapter_idx).to(compute_dtype)
         y = y + torch.bmm(torch.bmm(x, a), b) * sc[:, None, None]
-    if tensor_group is not None:
-        tp_all_reduce_(y, tensor_group)
+    if reduce is not None:
+        y = reduce(y)
     bias = params.get(name + ".bias")
     if bias is not None:
         y = y + bias.to(compute_dtype)
@@ -238,27 +265,39 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
            block_tables, padding_mask, write_slots, segment_ids, *, config: ModelConfig,
            compute_dtype,
            decode_attention, attention_impl: str, attention_fn, trunk_matmul=None,
-           adapter_idx=None, tensor_group=None, nf4_origin=None, gather=None):
+           adapter_idx=None, tensor_group=None, nf4_origin=None, gather=None, tensor=None):
     """One transformer block; updates a cache ``entry`` (paged, or dense at
     ``write_slots``) in place. ``adapter_idx`` picks each row's pooled
     adapter in the seven projections. The head counts are the weights' (a
     rank's own under tensor parallelism); ``tensor_group`` all-reduces the
-    row-parallel o_proj and down_proj. ``gather(params, i)`` (ZeRO-3) makes
-    the block's sharded leaves whole first, inside a rematerialized block,
-    so the backward's replay gathers them again."""
+    row-parallel o_proj and down_proj in place (serving); ``tensor``
+    (training) places the collectives under autograd (module docstring).
+    ``gather(params, i)`` (ZeRO-3) makes the block's sharded leaves whole
+    first, inside a rematerialized block, so the backward's replay gathers
+    them again."""
     if gather is not None:
         params = gather(params, i)
     b, s, _ = x.shape
     d = config.resolved_head_dim
     eps = config.rms_norm_eps
     p = f"model.layers.{i}."
+    copy = row_group = lora_part = reduce = None
+    if tensor is not None:
+        copy = functools.partial(copy_to_tensor, group=tensor.group)
+        reduce = functools.partial(reduce_from_tensor, group=tensor.group)
+        lora_part = tensor.lora
+        row_group = tensor.group if trunk_matmul is not None else None
+    elif tensor_group is not None:
+        reduce = functools.partial(tp_all_reduce_, group=tensor_group)
     linear = functools.partial(_linear, params=params, compute_dtype=compute_dtype,
                                trunk_matmul=trunk_matmul, adapter_idx=adapter_idx,
-                               nf4_origin=nf4_origin)
+                               nf4_origin=nf4_origin, lora_part=lora_part)
 
-    row_linear = functools.partial(linear, tensor_group=tensor_group)
+    row_linear = functools.partial(linear, reduce=reduce, row_group=row_group)
 
     hid = rms_norm(x, params[p + "input_layernorm.weight"], eps)
+    if copy is not None:
+        hid = copy(hid)
     q = linear(hid, name=p + "self_attn.q_proj").reshape(b, s, -1, d)
     k = linear(hid, name=p + "self_attn.k_proj").reshape(b, s, -1, d)
     v = linear(hid, name=p + "self_attn.v_proj").reshape(b, s, -1, d)
@@ -315,6 +354,8 @@ def _block(params: Params, i: int, x, cos, sin, explicit_mask, entry, positions,
     out = out.reshape(b, s, -1)
     x = x + row_linear(out, name=p + "self_attn.o_proj")
     hid = rms_norm(x, params[p + "post_attention_layernorm.weight"], eps)
+    if copy is not None:
+        hid = copy(hid)
     gate = linear(hid, name=p + "mlp.gate_proj")
     up = linear(hid, name=p + "mlp.up_proj")
     return x + row_linear(F.silu(gate) * up, name=p + "mlp.down_proj")
@@ -377,6 +418,7 @@ def forward(
     adapter_idx: Optional[torch.Tensor] = None,
     mesh=None,
     gather=None,
+    tensor=None,
 ):
     """Run the model.
 
@@ -438,10 +480,18 @@ def forward(
     lookup and the unembed), and each block gathers its own leaves as it
     starts (``_block``), under its rematerialization.
 
+    ``tensor`` (``parallel/sharding.TensorShards``, tensor-parallel
+    training; no cache): ``params`` are this rank's tensor slices (of which
+    ``gather`` makes the fsdp slices whole), the forward issues the
+    collectives under autograd, and the logits are this rank's vocab slice
+    ``[batch, seq, vocab / tp]``.
+
     Returns ``(logits [batch, seq, vocab] in logits_dtype, cache)``, or the
     final-norm hidden states in ``compute_dtype`` with ``output_hidden``.
     The cache is updated in place and returned.
     """
+    if tensor is not None and (cache is not None or mesh is not None):
+        raise ValueError("tensor (training) takes no cache and no serving mesh")
     if segment_ids is not None and config.sliding_window is not None:
         raise NotImplementedError(
             f"packed rows of a sliding-window model are not ported ({_JAX_FORWARD} builds their "
@@ -467,9 +517,17 @@ def forward(
     if group is not None and mesh.tensor_size > 1:
         nf4_origin = functools.partial(nf4_slice_origin, config=config, tp=mesh.tensor_size,
                                        index=mesh.tensor_index)
+    if tensor is not None:
+        nf4_origin = functools.partial(nf4_slice_origin, config=config, tp=tensor.size,
+                                       index=tensor.index)
     if gather is not None:
         params = gather(params, None)
-    x = _embed(params, input_ids, compute_dtype, group)
+    if tensor is not None:
+        x = _embed(params, input_ids, compute_dtype, tensor.group,
+                   reduce=functools.partial(reduce_from_tensor, group=tensor.group),
+                   index=tensor.index)
+    else:
+        x = _embed(params, input_ids, compute_dtype, group)
     cos, sin = rope_cos_sin(positions, config.resolved_head_dim, config.rope_theta, config=config)
 
     explicit_mask = write_slots = None
@@ -503,7 +561,7 @@ def forward(
             decode_attention=decode_attention, attention_impl=attention_impl,
             attention_fn=attention_fn, trunk_matmul=trunk_matmul if i < trunk else None,
             adapter_idx=adapter_idx, tensor_group=group, nf4_origin=nf4_origin,
-            gather=gather,
+            gather=gather, tensor=tensor,
         )
         args = (cos, sin, explicit_mask, entry, positions, block_tables, padding_mask,
                 write_slots, segment_ids)
@@ -518,29 +576,37 @@ def forward(
     if output_hidden:
         return x.to(compute_dtype), cache
     return unembed(params, x, config, compute_dtype=compute_dtype, logits_dtype=logits_dtype,
-                   mesh=mesh), cache
+                   mesh=mesh, tensor=tensor), cache
 
 
-def _embed(params: Params, input_ids: torch.Tensor, compute_dtype, group) -> torch.Tensor:
+def _embed(params: Params, input_ids: torch.Tensor, compute_dtype, group, reduce=None,
+           index=None) -> torch.Tensor:
     """The embedding rows of ``input_ids`` in ``compute_dtype``. Under a
-    tensor group the table is this rank's vocab rows: ids outside them give
-    zero rows, and the all-reduce sums the one rank's row that holds each."""
+    tensor group the table is this rank's vocab rows (rank ``index`` of the
+    group, by default its rank in it): ids outside them give zero rows, and
+    the all-reduce (``reduce``, by default serving's in place) sums the one
+    rank's row that holds each."""
     table = params["model.embed_tokens.weight"]
     if group is None:
         return F.embedding(input_ids, table).to(compute_dtype)
     rows = table.shape[0]
-    local = input_ids - dist.get_rank(group) * rows
+    local = input_ids - (dist.get_rank(group) if index is None else index) * rows
     mine = (local >= 0) & (local < rows)
     x = F.embedding(local.clamp(0, rows - 1), table).to(compute_dtype)
     x = torch.where(mine[..., None], x, torch.zeros((), dtype=compute_dtype, device=x.device))
-    return tp_all_reduce_(x, group)
+    return (reduce or functools.partial(tp_all_reduce_, group=group))(x)
 
 
 def unembed(params: Params, hidden: torch.Tensor, config: ModelConfig, *,
-            compute_dtype=torch.bfloat16, logits_dtype=torch.float32, mesh=None) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, logits_dtype=torch.float32, mesh=None,
+            tensor=None) -> torch.Tensor:
     """hidden [..., hidden] -> logits [..., vocab], tied or not. Under a
     ``mesh``'s tensor group the weights give this rank's vocab slice, and
-    one all-gather makes the full row on every rank."""
+    one all-gather makes the full row on every rank; under ``tensor``
+    (training) the hidden states pass "copy to tensor" and the logits stay
+    this rank's vocab slice."""
+    if tensor is not None:
+        hidden = copy_to_tensor(hidden, tensor.group)
     h = hidden.to(compute_dtype)
     if config.tie_word_embeddings:
         logits = h @ params["model.embed_tokens.weight"].to(compute_dtype).T

@@ -21,6 +21,13 @@ other path and no mode switch (the JAX package's ``TRUNK_MATMUL`` is not
 carried over): an input the kernel does not take raises. The int32 sum is
 exact in any order, so kernel and plain version agree bit for bit.
 
+Under tensor-parallel training a row-parallel trunk projection holds its
+slice of the input's features (K / tp) and of the codes' rows: its input's
+row scale is the whole row's (``row_group``: each rank's row absmax, max
+all-reduced over the tensor group, as the JAX row scale covers the whole
+row), and the kernel returns the f32 partial product, which the caller
+sums over the group before one cast.
+
 The op has no gradient, in the JAX package either: the trunk runs under
 ``torch.no_grad()`` (``models/transformer.forward``), and a call with grad
 enabled on an input that requires grad raises.
@@ -40,12 +47,18 @@ MAX_K = (2**31 - 1) // 127**2  # 133144
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def quantize_rows_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows_int8(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x [..., in]`` -> ``(codes int8 [..., in], scale f32 [...])``: absmax/127
     symmetric scales over the trailing dim. All-zero rows get scale 1/127 and
-    zero codes, so they dequantize to exact zeros."""
+    zero codes, so they dequantize to exact zeros. ``group``: ``x`` is this
+    rank's slice of the features, and the absmax is the whole row's (a max
+    all-reduce over the group)."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1)
+    if group is not None:
+        from llm_fine_tune_distributed_tpu_torch.runtime.distributed import all_reduce_max_
+
+        all_reduce_max_(absmax, group)
     scale = torch.where(absmax == 0.0, 1.0, absmax) / 127.0
     codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return codes, scale
@@ -152,27 +165,36 @@ def _library() -> ctypes.CDLL:
 
 
 def int8_w8a8_matmul(x: torch.Tensor, q: Dict[str, torch.Tensor],
-                     compute_dtype=torch.bfloat16) -> torch.Tensor:
+                     compute_dtype=torch.bfloat16, row_group=None) -> torch.Tensor:
     """``x [..., in]`` x int8 weight ``q`` (``{"int8" [in, out], "int8_scale"
     [out]}``) -> ``[..., out]`` in ``compute_dtype``: per-row activation
-    quantization, then one ``w8a8_matmul`` (the kernel on a CUDA tensor)."""
+    quantization, then one ``w8a8_matmul`` (the kernel on a CUDA tensor).
+    ``row_group`` (a row-parallel slice under tensor parallelism): the row
+    scale is the whole row's and the partial product comes back in f32
+    (module docstring)."""
     if torch.is_grad_enabled() and (x.requires_grad or q["int8_scale"].requires_grad):
         raise RuntimeError(
             "int8_w8a8_matmul has no gradient: call it under torch.no_grad() (the frozen "
             "trunk does) or on inputs that do not require grad"
         )
-    return _entry(w8a8_matmul, x, q, compute_dtype)
+    return _entry(w8a8_matmul, x, q, compute_dtype, row_group)
 
 
 def int8_w8a8_matmul_plain(x: torch.Tensor, q: Dict[str, torch.Tensor],
-                           compute_dtype=torch.bfloat16) -> torch.Tensor:
+                           compute_dtype=torch.bfloat16, row_group=None) -> torch.Tensor:
     """``int8_w8a8_matmul`` through the plain version on any device (the
     yardstick the kernel is held to)."""
-    return _entry(int8_w8a8_matmul_reference, x, q, compute_dtype)
+    return _entry(int8_w8a8_matmul_reference, x, q, compute_dtype, row_group)
 
 
-def _entry(matmul, x, q, compute_dtype):
+def _entry(matmul, x, q, compute_dtype, row_group=None):
     lead = x.shape[:-1]
-    xq, x_scale = quantize_rows_int8(x.reshape(-1, x.shape[-1]))
-    out = matmul(xq, x_scale, q["int8"], q["int8_scale"], compute_dtype)
+    rows = x.reshape(-1, x.shape[-1])
+    if row_group is None:
+        xq, x_scale = quantize_rows_int8(rows)
+        out_dtype = compute_dtype
+    else:
+        xq, x_scale = quantize_rows_int8(rows, row_group)
+        out_dtype = torch.float32
+    out = matmul(xq, x_scale, q["int8"], q["int8_scale"], out_dtype)
     return out.reshape(*lead, out.shape[-1])

@@ -27,6 +27,12 @@ The global norm sums the slices' squares over the fsdp group; AdamW then
 updates each slice in place. The arithmetic is elementwise, so every
 element gets the update a whole-leaf step gives it; only where it lives
 differs.
+
+Beside a ``tensor`` axis (``parallel/sharding.TensorShards``) a rank's
+leaves are its tensor slices, ``FsdpShards`` shards those slices in the
+fsdp group of its tensor index, and the global norm adds a tensor-sliced
+leaf's squares over the tensor group while a leaf every tensor rank holds
+whole (a norm, a LoRA factor) counts once (``layout_global_norm``).
 """
 
 from __future__ import annotations
@@ -266,6 +272,34 @@ class FsdpShards:
                                             dev))
 
 
+def _tensor_sliced(tensor, name: str) -> bool:
+    """Whether ``name`` is a tensor slice whose squares the tensor group
+    sums (a leaf every tensor rank holds whole counts once)."""
+    return tensor.sliced(name)
+
+
+def layout_global_norm(grads: Dict[str, torch.Tensor], shards: Optional[FsdpShards] = None,
+                       tensor=None) -> torch.Tensor:
+    """``global_norm`` of the whole gradients from this rank's slices: the
+    fsdp-sliced leaves' squares summed over the fsdp group, then the
+    tensor-sliced ones' (fsdp-sliced or not) over the tensor group, the
+    leaves whole on every rank added once."""
+    if tensor is None:
+        return shards.global_norm(grads) if shards is not None else global_norm(grads.values())
+    dev = next(iter(grads.values())).device
+    fs = shards.dims if shards is not None else {}
+    parts = {(f, t): _sum_squares([g for k, g in grads.items()
+                                   if (k in fs) == f and _tensor_sliced(tensor, k) == t], dev)
+             for f in (False, True) for t in (False, True)}
+    if shards is not None:
+        both = torch.stack([parts[(True, False)], parts[(True, True)]])
+        dist.all_reduce(both, group=shards.group)
+        parts[(True, False)], parts[(True, True)] = both.unbind()
+    sliced = parts[(False, True)] + parts[(True, True)]
+    dist.all_reduce(sliced, group=tensor.group)
+    return torch.sqrt(parts[(False, False)] + parts[(True, False)] + sliced)
+
+
 class AdamW:
     """optax ``chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2,
     eps, weight_decay))`` over a flat dict of f32 trainable leaves."""
@@ -287,12 +321,12 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-             state: dict, shards: Optional[FsdpShards] = None) -> torch.Tensor:
+             state: dict, shards: Optional[FsdpShards] = None, tensor=None) -> torch.Tensor:
         """Update ``params`` and ``state`` in place from ``grads`` (already
         reduced across ranks; a sharded leaf's slice of its gradient under
-        ``shards``); returns the global norm of the whole gradients before
-        clipping."""
-        norm = shards.global_norm(grads) if shards is not None else global_norm(grads.values())
+        ``shards`` and ``tensor``); returns the global norm of the whole
+        gradients before clipping."""
+        norm = layout_global_norm(grads, shards, tensor)
         max_norm = torch.tensor(self.max_grad_norm, dtype=torch.float32, device=norm.device)
         # optax keeps g when norm < max_norm, else g / norm * max_norm
         clipped = norm >= max_norm

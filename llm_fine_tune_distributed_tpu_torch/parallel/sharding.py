@@ -309,3 +309,116 @@ def unshard_leaf(name: str, parts, config, tp: int) -> torch.Tensor:
         start, stop = _tensor_range(module, kernel_dim, size, config, tp, index)
         whole.narrow(dim, start, stop - start).copy_(part)
     return whole
+
+
+# ------------------------------------------------------- tensor-parallel training
+
+_LORA = ("lora_a", "lora_b")
+
+
+def _training_split_dims(name: str, ndim: int) -> Optional[Tuple[int, int]]:
+    """``_split_dims`` under the training rules: the JAX rules give LoRA
+    factors no tensor axis, so ``lora_a`` / ``lora_b`` stay whole (each
+    rank uses its part of them, ``TensorShards.lora``)."""
+    if name.rpartition(".")[2] in _LORA:
+        return None
+    return _split_dims(name, ndim)
+
+
+class TensorShards:
+    """Training's ``tensor`` axis (Megatron, as the JAX rules place it under
+    the trainer's GSPMD): rank ``index`` of ``size`` holds its slice of
+    every leaf the rules split over ``tensor`` (q/k/v and gate/up columns,
+    o/down rows, the embedding's vocab rows, an untied ``lm_head``'s
+    columns, the column-parallel biases, NF4 codes and absmax and int8 codes
+    like their kernel), the JAX trainer's addressable shard; norms,
+    row-parallel biases, scalars and the LoRA factors stay whole. A 1-D
+    leaf beside a column-parallel kernel (a bias, an int8 column scale) is
+    sliced with its kernel's columns, the only ones the rank uses (the JAX
+    rules replicate 1-D leaves; none of SmolLM3's is such a bias). ``group``
+    is the rank's tensor group; ``shapes`` holds the whole shape of each
+    sliced leaf, filled by ``local``.
+
+    A ``size`` that does not divide a split dim (the kv heads, the query
+    heads, the MLP width or the vocab) raises: the JAX ``_validate_spec``
+    replicates such a leaf over ``tensor``, which the port's trainer does
+    not (yet)."""
+
+    def __init__(self, config, size: int, index: int, group=None):
+        for what, n in (("kv heads", config.num_kv_heads), ("query heads", config.num_heads),
+                        ("intermediate size", config.intermediate_size),
+                        ("vocab", config.vocab_size)):
+            if n % size:
+                raise NotImplementedError(
+                    f"mesh axis tensor={size} does not divide the {what} ({n}) of {config.name}: "
+                    f"the JAX {_JAX_VALIDATE} replicates such leaves over tensor; the PyTorch "
+                    "trainer does not")
+        self.config, self.size, self.index, self.group = config, size, index, group
+        self.shapes: Dict[str, torch.Size] = {}
+
+    @classmethod
+    def for_mesh(cls, mesh, config) -> Optional["TensorShards"]:
+        """None when the mesh's tensor axis is 1."""
+        if mesh.shape["tensor"] <= 1:
+            return None
+        return cls(config, mesh.shape["tensor"], mesh.tensor_index, mesh.tensor_group)
+
+    def range(self, module: str, kernel_dim: int, size: int) -> Tuple[int, int]:
+        """[start, stop) of this rank's slice of ``module``'s kernel dim of
+        ``size`` (whole)."""
+        return _tensor_range(module, kernel_dim, size, self.config, self.size, self.index)
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``name`` (a copy of its own,
+        trainable ones still requiring grad; int8 codes K-major, as the w8a8
+        kernel reads them); a leaf that stays whole is ``t`` itself."""
+        if _training_split_dims(name, t.dim()) is None:
+            return t
+        self.shapes[name] = t.shape
+        with torch.no_grad():
+            part = shard_leaf(name, t.detach(), self.config, self.size, self.index)
+            if name.endswith(".kernel_int8"):
+                from llm_fine_tune_distributed_tpu_torch.ops.int8_matmul import kmajor
+
+                part = kmajor(part)
+        return part.requires_grad_(True) if t.requires_grad else part
+
+    def local_all(self, leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: self.local(k, v) for k, v in leaves.items()}
+
+    def sliced(self, name: str) -> bool:
+        """Whether this rank holds a slice of ``name`` (not the whole)."""
+        return name in self.shapes
+
+    def partial(self, name: str) -> bool:
+        """A whole leaf whose gradient on a rank is its share of the whole
+        gradient, summed over the tensor group: the LoRA factors (each rank
+        uses its part of them). A norm's is whole on every rank already."""
+        return name.rpartition(".")[2] in _LORA
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's slice ``t`` (a collective over
+        the tensor group: every rank of it calls it for the same leaf);
+        ``t`` itself for a whole leaf."""
+        if name not in self.shapes:
+            return t
+        from llm_fine_tune_distributed_tpu_torch.runtime.distributed import all_gather_rows
+
+        flat = t.detach().contiguous().reshape(-1)
+        rows = all_gather_rows(flat, self.group, self.size, self.index)
+        parts = [rows[i].view(t.shape) for i in range(self.size)]
+        return unshard_leaf(name, parts, self.config, self.size)
+
+    def lora(self, module: str, a: torch.Tensor, b: torch.Tensor):
+        """The parts of a whole ``A [in, r]``, ``B [r, out]`` this rank
+        uses: B's local columns beside a column-parallel kernel, A's local
+        rows beside a row-parallel one (whose partial delta the row
+        all-reduce sums)."""
+        kspec = param_spec(module + ".kernel", 2)
+        if "tensor" not in kspec:
+            return a, b
+        if kspec.index("tensor") == 1:
+            start, stop = self.range(module, 1, b.shape[1])
+            return a, b.narrow(1, start, stop - start)
+        start, stop = self.range(module, 0, a.shape[0])
+        return a.narrow(0, start, stop - start), b

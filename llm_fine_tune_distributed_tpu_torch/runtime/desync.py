@@ -9,9 +9,13 @@ checksum, and the ranks all-gather them (one small tensor). Two invariants:
    must be bit-equal everywhere, so the ranks' checksums of those leaves
    must be; under ZeRO-3 (``parallel/optimizer.FsdpShards``) the fsdp
    slices are checksummed apart, and must agree between the ranks that
-   hold the same slice (the replicas of a data axis beside fsdp). A
-   mismatch means that replicas which should be identical diverged (input
-   skew, a restore mixup, a bit flip).
+   hold the same slice (the replicas of a data axis beside fsdp); under
+   tensor parallelism the tensor slices (fsdp-sliced or not) are a third
+   checksum, which must agree between the ranks of one (fsdp, tensor)
+   coordinate, while the leaves every rank holds whole (norms, LoRA
+   factors) must agree across every rank. A mismatch means that replicas
+   which should be identical diverged (input skew, a restore mixup, a bit
+   flip).
 
 The verdict is taken from the gathered checksums, the same on every rank,
 so a fault on one rank fails every rank at the same step (the JAX check
@@ -20,6 +24,7 @@ returns early on a non-finite local sum, before its gather).
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -50,25 +55,41 @@ def _agree(sums: np.ndarray, rtol: float) -> bool:
 
 
 def check_param_sync(trainable: Dict[str, torch.Tensor], shards=None,
-                     rtol: float = 0.0) -> Tuple[bool, List[float]]:
+                     rtol: float = 0.0, tensor=None, mesh=None) -> Tuple[bool, List[float]]:
     """(in_sync, every rank's checksum of its whole leaves). A collective:
-    every rank calls it. With ``shards`` the slices' checksums must agree
-    between the ranks of the same fsdp index."""
-    sliced = set(shards.dims) if shards is not None else set()
+    every rank calls it. With ``shards`` the fsdp slices' checksums must
+    agree between the ranks of the same fsdp index, with ``tensor`` the
+    tensor slices' between the ranks of the same fsdp and tensor indices:
+    the ranks' coordinates are ``mesh``'s."""
+    tsliced = set(tensor.shapes) if tensor is not None else set()
+    fsliced = (set(shards.dims) if shards is not None else set()) - tsliced
     dev = next(iter(trainable.values())).device if trainable else torch.device("cpu")
-    mine = local_checksum({k: v for k, v in trainable.items() if k not in sliced}).to(dev)
-    if sliced:
-        part = local_checksum({k: v for k, v in trainable.items() if k in sliced})
-        mine = torch.cat([mine, part.to(dev)])
-    sums = all_gather_tensor(mine).cpu().numpy()  # [world, 1 or 2]
+    parts = [local_checksum({k: v for k, v in trainable.items()
+                             if k not in fsliced and k not in tsliced}).to(dev)]
+    for keys in (fsliced, tsliced):
+        if keys:
+            parts.append(local_checksum({k: v for k, v in trainable.items() if k in keys}).to(dev))
+    sums = all_gather_tensor(torch.cat(parts)).cpu().numpy()  # [world, 1 to 3]
     whole = sums[:, 0]
     if not np.isfinite(sums).all():
         return False, whole.tolist()
     ok = _agree(whole, rtol)
-    if sliced:
-        count = shards.count
-        ok = ok and all(_agree(sums[f::count, 1], rtol) for f in range(count))
+    col = 1
+    if fsliced:
+        ok = ok and _agree_within(sums[:, col], mesh, ("fsdp",), rtol)
+        col += 1
+    if tsliced:
+        ok = ok and _agree_within(sums[:, col], mesh, ("fsdp", "tensor"), rtol)
     return ok, whole.tolist()
+
+
+def _agree_within(sums: np.ndarray, mesh, axes, rtol: float) -> bool:
+    """Every set of ranks that share their coordinates on ``axes`` agrees."""
+    keys: Dict[tuple, list] = {}
+    for r in range(len(sums)):
+        c = replace(mesh, rank=r).coords
+        keys.setdefault(tuple(c[a] for a in axes), []).append(sums[r])
+    return all(_agree(np.asarray(v), rtol) for v in keys.values())
 
 
 class DesyncMonitor:
@@ -79,10 +100,11 @@ class DesyncMonitor:
         self.last_checksums: list = []
         self.checks = 0
 
-    def maybe_check(self, step: int, trainable: Dict[str, torch.Tensor], shards=None) -> bool:
+    def maybe_check(self, step: int, trainable: Dict[str, torch.Tensor], shards=None,
+                    tensor=None, mesh=None) -> bool:
         if not self.every or step % self.every:
             return True
-        ok, sums = check_param_sync(trainable, shards)
+        ok, sums = check_param_sync(trainable, shards, tensor=tensor, mesh=mesh)
         self.last_checksums = sums
         self.checks += 1
         if not ok:

@@ -28,9 +28,13 @@ fsdp axis (``parallel/optimizer.FsdpShards``) moves slices with
 ``all_gather_rows`` (every rank's flat slice, one row each) and
 ``reduce_scatter_rows`` (the rows summed, this rank's row kept). The tensor
 group's collectives (``tp_all_reduce_``, ``tp_all_gather_last``) are what a
-tensor-parallel forward issues, and ``broadcast_host`` carries the serving
-tick bridge's host arrays (``infer/multihost.py``) over a gloo group made
-beside the main one.
+tensor-parallel serving forward issues under ``no_grad``; training's are
+autograd functions, Megatron's conjugate pair: ``copy_to_tensor`` (the
+identity, its gradient all-reduced) and ``reduce_from_tensor`` (an
+out-of-place all-reduce, its gradient passed through), counted in
+``tensor_collectives``. ``broadcast_host`` carries the serving tick
+bridge's host arrays (``infer/multihost.py``) over a gloo group made beside
+the main one.
 
 Gloo takes only ``broadcast`` and ``all_reduce`` on CUDA tensors (and its
 ``all_gather_into_tensor`` refuses this layout on the CPU), so on a gloo
@@ -171,10 +175,11 @@ def device_preflight(device=None, verbose: bool = True) -> dict:
 # ------------------------------------------------------------- collectives
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """In-place sum over the world; a no-op without a process group."""
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum over ``group`` (None: the world); a no-op without a
+    process group."""
     if is_distributed():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -279,9 +284,80 @@ def reduce_scatter_rows(rows: torch.Tensor, group, index: int) -> torch.Tensor:
 
 
 def tp_all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` in place over the tensor group ``group``."""
+    """Sum ``t`` in place over the tensor group ``group`` (serving's
+    forward, under ``no_grad``)."""
     dist.all_reduce(t, group=group)
     return t
+
+
+def all_reduce_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, in place (scales)."""
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+class _CopyToTensor(torch.autograd.Function):
+    """Megatron's f: the identity forward; the backward sums the gradient
+    over the tensor group (each rank's column-parallel products saw the
+    whole input, and each gives its share of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        tensor_collectives.backward += 1
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    """Megatron's g: the forward sums the partial products over the tensor
+    group, out of place (the input, an autograd input, is not rewritten);
+    the backward is the identity (every rank's partial product had the
+    whole sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        tensor_collectives.forward += 1
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a column-parallel group of products: ``x`` as it is;
+    its gradient all-reduced over ``group`` in the backward."""
+    return _CopyToTensor.apply(x, group)
+
+
+def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the partial products ``x`` over ``group`` (a new tensor);
+    the gradient passes through unchanged."""
+    return _ReduceFromTensor.apply(x, group)
+
+
+class _Collectives:
+    """Counts of the training tensor group's all-reduces: ``forward`` (the
+    row-parallel sums, the embedding's, and their replays under remat) and
+    ``backward`` (the column-parallel inputs' gradients). The vocab-parallel
+    cross-entropy's all-reduces count in ``forward`` too."""
+
+    def __init__(self):
+        self.forward = self.backward = 0
+
+    def reset(self) -> None:
+        self.forward = self.backward = 0
+
+
+tensor_collectives = _Collectives()
 
 
 def tp_all_gather_last(t: torch.Tensor, group, size: int, index: int) -> torch.Tensor:

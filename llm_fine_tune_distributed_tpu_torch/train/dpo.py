@@ -17,6 +17,10 @@ optional label smoothing.
   SFT trainer's; the pair mean over the global microbatch is the mean of
   the ranks' means (every rank holds as many pairs), and the eval's three
   sums are all-reduced.
+- Under tensor parallelism the policy's and the reference's forwards run
+  under the same tensor group, and each sequence's log-probability comes
+  from the vocab-parallel gold log-softmax (``train/step.vocab_parallel_ce``
+  over each rank's vocab slice of the logits).
 
 Not here: the pipeline builders (``make_pipeline_dpo_loss_fn`` and its
 train and eval steps), which wait for pipeline parallelism.
@@ -47,6 +51,7 @@ from llm_fine_tune_distributed_tpu_torch.ops.attention import attention
 from llm_fine_tune_distributed_tpu_torch.parallel.optimizer import AdamW, FsdpShards
 from llm_fine_tune_distributed_tpu_torch.runtime.distributed import all_reduce_, print0
 from llm_fine_tune_distributed_tpu_torch.train.state import TrainState
+from llm_fine_tune_distributed_tpu_torch.train import step as step_mod
 from llm_fine_tune_distributed_tpu_torch.train.step import reduced_step
 from llm_fine_tune_distributed_tpu_torch.train.trainer import SFTTrainer
 from llm_fine_tune_distributed_tpu_torch.utils.tree import merge_flat
@@ -61,13 +66,17 @@ def masked_sequence_logprob(per_token_logprob: torch.Tensor, loss_mask: torch.Te
     return (per_token_logprob * loss_mask[:, 1:]).sum(dim=-1)
 
 
-def _target_logprobs(params, hidden, targets, model_config: ModelConfig, chunk, compute_dtype):
+def _target_logprobs(params, hidden, targets, model_config: ModelConfig, chunk, compute_dtype,
+                     tensor=None):
     """Logprob [b, s-1] f32 of ``targets`` [b, s-1] given the final hidden
     states [b, s-1, h]. With ``chunk``, the sequence is unembedded ``chunk``
     positions at a time, each chunk recomputed in the backward, so one
-    [b, chunk, vocab] tile of logits lives at a time."""
+    [b, chunk, vocab] tile of logits lives at a time. Under ``tensor`` the
+    logits are this rank's vocab slice and the log-softmax vocab-parallel."""
     def logprobs(h, t):
-        logits = unembed(params, h, model_config, compute_dtype=compute_dtype)
+        logits = unembed(params, h, model_config, compute_dtype=compute_dtype, tensor=tensor)
+        if tensor is not None:
+            return -step_mod.vocab_parallel_ce(logits, t, tensor)
         return -F.cross_entropy(logits.reshape(-1, logits.shape[-1]), t.reshape(-1),
                                 reduction="none").reshape(t.shape)
 
@@ -111,13 +120,15 @@ def _dpo_pair_loss(pi_c, pi_r, ref_c, ref_r, beta: float, eps: float):
 
 
 def make_dpo_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
-                     attention_fn=attention, shards: Optional[FsdpShards] = None) -> Callable:
+                     attention_fn=attention, shards: Optional[FsdpShards] = None,
+                     tensor=None) -> Callable:
     """loss_fn(trainable, ref_trainable, frozen, batch) -> (loss, aux): the
     policy's forward over ``[chosen; rejected]`` with gradients, the
     reference's under ``no_grad``. ``attention_fn`` is the flash kernels'
     wrapper unless a caller passes the plain version for a comparison.
     ``shards`` (ZeRO-3): the leaves are this rank's slices; the embedding is
-    gathered once for the forward and the logprobs' unembed."""
+    gathered once for the forward and the logprobs' unembed. ``tensor``
+    (``TensorShards``): the leaves are this rank's tensor slices."""
     if train_config.loss_vocab_chunk is not None:
         # DPO streams its logprobs by sequence (loss_chunk_size)
         raise ValueError("loss_vocab_chunk is not supported for objective='dpo'; use "
@@ -140,9 +151,10 @@ def make_dpo_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
             output_hidden=True,
             attention_fn=attention_fn,
             gather=shards.gather if shards is not None else None,
+            tensor=tensor,
         )
         per_token = _target_logprobs(params, hidden[:, :-1], ids[:, 1:].long(), model_config,
-                                     chunk, compute_dtype)
+                                     chunk, compute_dtype, tensor)
         return masked_sequence_logprob(per_token, mask)
 
     def loss_fn(trainable, ref_trainable, frozen, batch):
@@ -162,7 +174,8 @@ def make_dpo_loss_fn(model_config: ModelConfig, train_config: TrainConfig, *,
 
 def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
                          optimizer: AdamW, data_parallel_size: int = 1,
-                         shards: Optional[FsdpShards] = None) -> Callable:
+                         shards: Optional[FsdpShards] = None, tensor=None,
+                         reduction=(True, None)) -> Callable:
     """train_step(state, ref_trainable, batch) -> (state, {"loss",
     "grad_norm", "rewards_*"}), batch arrays ``[grad_accum, pairs, seq]``
     on the device; the state is updated in place. Under data parallelism
@@ -170,7 +183,7 @@ def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
     global microbatch is the mean of the ranks' means: each rank's loss and
     aux are divided by ``data_parallel_size`` and summed across ranks with
     the gradients (``train/step.reduced_step``)."""
-    loss_fn = make_dpo_loss_fn(model_config, train_config, shards=shards)
+    loss_fn = make_dpo_loss_fn(model_config, train_config, shards=shards, tensor=tensor)
     accum = train_config.gradient_accumulation_steps
     dp = data_parallel_size
 
@@ -190,7 +203,8 @@ def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             aux_sum = {k: aux_sum[k] + aux[k].detach() for k in AUX_KEYS}
         scalars = torch.stack([loss_sum] + [aux_sum[k] for k in AUX_KEYS]).float()
-        grad_norm, scalars = reduced_step(params, state, optimizer, accum, scalars, shards)
+        grad_norm, scalars = reduced_step(params, state, optimizer, accum, scalars, shards,
+                                          tensor, reduction)
         return state, {"loss": scalars[0] / accum, "grad_norm": grad_norm,
                        **{k: scalars[1 + i] / accum for i, k in enumerate(AUX_KEYS)}}
 
@@ -198,10 +212,10 @@ def build_dpo_train_step(model_config: ModelConfig, train_config: TrainConfig,
 
 
 def build_dpo_eval_step(model_config: ModelConfig, train_config: TrainConfig,
-                        shards: Optional[FsdpShards] = None) -> Callable:
+                        shards: Optional[FsdpShards] = None, tensor=None) -> Callable:
     """eval_step(state, ref_trainable, batch) -> (loss_sum, acc_sum, n_real)
     over the rows whose ``batch["pair_mask"]`` is 1 (0 = wrap padding)."""
-    loss_fn = make_dpo_loss_fn(model_config, train_config, shards=shards)
+    loss_fn = make_dpo_loss_fn(model_config, train_config, shards=shards, tensor=tensor)
 
     @torch.no_grad()
     def eval_step(state: TrainState, ref_trainable, batch: Dict[str, torch.Tensor]):
@@ -253,10 +267,11 @@ class DPOTrainer(SFTTrainer):
 
     def _prepare_steps(self) -> None:
         step = build_dpo_train_step(self.model_config, self.config, self.optimizer,
-                                    self.dp_size, self.shards)
+                                    self.dp_size, self.shards, self.tensor, self.reduction)
         # the pair mean needs no token counts (tokens is None)
         self.train_step = lambda state, batch, tokens=None: step(state, self.ref_trainable, batch)
-        self._dpo_eval = build_dpo_eval_step(self.model_config, self.config, self.shards)
+        self._dpo_eval = build_dpo_eval_step(self.model_config, self.config, self.shards,
+                                             self.tensor)
 
     def _tokens_per_sample(self) -> int:
         return 2 * self.config.max_seq_length  # a pair is two sequences
@@ -289,9 +304,9 @@ class DPOTrainer(SFTTrainer):
             loss_sum += float(l)
             acc_sum += float(a)
             count += float(c)
-        if self.distributed:
+        if self.reduction[0]:
             sums = all_reduce_(torch.tensor([loss_sum, acc_sum, count], dtype=torch.float64,
-                                            device=self.device))
+                                            device=self.device), self.reduction[1])
             loss_sum, acc_sum, count = sums.tolist()
         count = max(count, 1.0)
         self.extra_eval_logs = {"eval_rewards_accuracy": acc_sum / count}

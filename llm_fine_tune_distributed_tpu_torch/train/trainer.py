@@ -61,6 +61,18 @@ anomaly gate of a publish) are agreed by every rank with one small
 all-reduce (``runtime/distributed.agree``); ``desync_check_steps`` checks
 that the replicas of the trainable leaves stay equal.
 
+Tensor parallelism (``MESH_TENSOR``, ``parallel/sharding.TensorShards``),
+as the JAX trainer shards over its mesh's tensor axis: the ranks of a
+tensor group read the same rows; each rank takes the model one leaf at a
+time, whole, and keeps its tensor slice of it, then its fsdp slice of that
+slice; the forward issues Megatron's collectives under autograd
+(``models/transformer``) and the loss is vocab-parallel
+(``train/step.vocab_parallel_ce``); the gradients and the loss are summed
+over the ranks of one tensor index; saves, publishes and ``best_model/``
+gather every leaf over fsdp, then over tensor, one leaf at a time, and a
+restore slices the whole files for the current layout, so a checkpoint of
+any layout resumes at any other.
+
 The heartbeat failure detector (``runtime/failure.py`` over the port's
 own ``native/heartbeat.cc``) runs with ``heartbeat=True``, and by itself
 over processes, as in the JAX trainer: when it cannot start, an explicit
@@ -70,8 +82,10 @@ boundary's agreement, and every rank stops with ``RuntimeError`` at that
 step.
 
 Not ported, and refused by ``check_supported``: SFT's chunked losses,
-Adafactor/Lion, sequence parallelism, the mesh axes other than data and
-fsdp, the control plane's HTTP server (``train_port``) and the C++ loader. A
+Adafactor/Lion, sequence parallelism, the mesh axes other than data, fsdp
+and tensor (``runtime/mesh``), a tensor axis that does not divide the kv
+heads (the JAX ``_validate_spec`` replicates those leaves), the control
+plane's HTTP server (``train_port``) and the C++ loader. A
 checkpoint of the JAX trainer's pipeline layout (``@stacked`` leaves) is
 refused at resume: the cross-layout resume waits for pipeline parallelism.
 """
@@ -133,6 +147,7 @@ from llm_fine_tune_distributed_tpu_torch.parallel.qlora import (
     quantize_frozen_abstract,
     quantized_fraction,
 )
+from llm_fine_tune_distributed_tpu_torch.parallel.sharding import TensorShards
 from llm_fine_tune_distributed_tpu_torch.runtime.desync import DesyncMonitor
 from llm_fine_tune_distributed_tpu_torch.runtime.failure import FailureDetector
 from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
@@ -148,6 +163,7 @@ from llm_fine_tune_distributed_tpu_torch.runtime.distributed import (
 from llm_fine_tune_distributed_tpu_torch.runtime.mesh import (
     data_parallel_size,
     describe_mesh,
+    grad_reduction,
     make_mesh,
 )
 from llm_fine_tune_distributed_tpu_torch.runtime.watchdog import StepWatchdog
@@ -201,9 +217,10 @@ class _Throughput:
     card of the ``n_chips`` that share the global batch, and the median step
     time (every step ends in a device synchronize)."""
 
-    def __init__(self, tokens_per_sample: int, n_chips: int = 1):
+    def __init__(self, tokens_per_sample: int, n_chips: int = 1, replicas: int = 1):
         self.tokens_per_sample = tokens_per_sample
         self.n_chips = n_chips
+        self.replicas = replicas  # the data-parallel size: the cards that split the samples
         self.t0 = time.perf_counter()
         self.samples = 0
         self.real_tokens = 0
@@ -219,13 +236,12 @@ class _Throughput:
     def snapshot(self) -> Dict[str, float]:
         dt = max(time.perf_counter() - self.t0, 1e-9)
         sps = self.samples / dt
-        per_chip = sps / self.n_chips
         out = {
             "samples_per_second": sps,
-            "samples_per_second_per_chip": per_chip,
+            "samples_per_second_per_chip": sps / self.replicas,
             "steps_per_second": len(self.step_s) / dt,
             "elapsed_seconds": dt,
-            "tokens_per_second_per_chip": per_chip * self.tokens_per_sample,
+            "tokens_per_second_per_chip": sps * self.tokens_per_sample / self.n_chips,
             "real_tokens_per_second_per_chip": self.real_tokens / dt / self.n_chips,
         }
         if self.step_s:
@@ -246,6 +262,9 @@ class SFTTrainer:
         self.distributed = is_distributed()
         self.primary = is_primary_host()
         self.model_config = model_config or self._resolve_model_config(config)
+        # the tensor axis (None: 1): this rank's slice of each leaf
+        self.tensor = TensorShards.for_mesh(self.mesh, self.model_config)
+        self.reduction = grad_reduction(self.mesh)
         self.tokenizer = tokenizer or load_tokenizer(config.tokenizer_path or config.model_name)
         self.metrics = MetricLogger(echo=self.primary)
         self.watchdog: Optional[StepWatchdog] = None  # the last train()'s
@@ -278,8 +297,9 @@ class SFTTrainer:
                                         anomaly_window_steps=config.anomaly_window_steps)
         if self.primary:
             os.makedirs(os.path.join(config.output_dir, "best_model"), exist_ok=True)
-        if self.dp_size > 1:
-            print0(f"Data parallel: {describe_mesh(self.mesh)}, rank {self.mesh.rank}")
+        if self.mesh.size > 1:
+            print0(f"{'Tensor and data' if self.tensor else 'Data'} parallel: "
+                   f"{describe_mesh(self.mesh)}, rank {self.mesh.rank}")
         self._prepare_data()
         self._prepare_state()
         self._prepare_steps()
@@ -287,9 +307,11 @@ class SFTTrainer:
     def _prepare_steps(self) -> None:
         self.train_step = build_train_step(self.model_config, self.config, self.optimizer,
                                            frozen_layers=self.frozen_boundary,
-                                           shards=self.shards)
+                                           shards=self.shards, tensor=self.tensor,
+                                           reduction=self.reduction)
         self.eval_step = build_eval_step(self.model_config, self.config,
-                                         frozen_layers=self.frozen_boundary, shards=self.shards)
+                                         frozen_layers=self.frozen_boundary, shards=self.shards,
+                                         tensor=self.tensor)
 
     @staticmethod
     def _resolve_model_config(config: TrainConfig) -> ModelConfig:
@@ -386,11 +408,11 @@ class SFTTrainer:
 
     def _param_chunks(self):
         """The model's weights, as dicts of leaves: all of them at once,
-        or, under ZeRO-3 (an fsdp axis above 1), one leaf at a time (a
-        checkpoint is read to the host, each leaf moved to the device in
-        turn), so a rank holds one whole leaf beside its slices."""
+        or, under ZeRO-3 or a tensor axis (either above 1), one leaf at a
+        time (a checkpoint is read to the host, each leaf moved to the
+        device in turn), so a rank holds one whole leaf beside its slices."""
         cfg, mc = self.config, self.model_config
-        sharded = self.mesh.shape["fsdp"] > 1
+        sharded = self.mesh.shape["fsdp"] > 1 or self.tensor is not None
         source = cfg.model_name
         if source and (os.path.isdir(source) or source.endswith(".safetensors")):
             print0(f"Loading model weights from: {source}")
@@ -478,6 +500,10 @@ class SFTTrainer:
                 if got != plan:
                     raise RuntimeError("the NF4 leaves differ from quantize_frozen_abstract's "
                                        f"plan: {sorted(set(got.items()) ^ set(plan.items()))[:4]}")
+            if self.tensor is not None:
+                # the tensor slice of each whole leaf (NF4 and int8 codes
+                # quantized whole above), then its fsdp slice below
+                t, f = self.tensor.local_all(t), self.tensor.local_all(f)
             if self.shards is not None:
                 t, f = self.shards.take(t), self.shards.take(f)
             trainable.update(t)
@@ -551,8 +577,8 @@ class SFTTrainer:
             batch = {k: self._pad_eval_rows(k, v, short) for k, v in batch.items()}
             out = self.eval_step(self.state, self._device_batch(batch))
             sums = list(out) if sums is None else [a + b for a, b in zip(sums, out)]
-        if self.distributed:
-            sums = all_reduce_(torch.stack([x.float() for x in sums])).unbind()
+        if self.reduction[0]:
+            sums = all_reduce_(torch.stack([x.float() for x in sums]), self.reduction[1]).unbind()
         sums = [float(x) for x in sums]
         # the loss's floor of one token, per global batch (the JAX eval's
         # batches): one for each global batch without a loss token
@@ -628,20 +654,43 @@ class SFTTrainer:
 
     def _numel(self, name: str, t: torch.Tensor) -> int:
         """Elements of the whole leaf ``name`` (``t`` may be its slice)."""
-        return self.shards.numel(name, t) if self.shards is not None else t.numel()
+        return self._whole_shape(name, t).numel()
+
+    @property
+    def _sliced(self) -> bool:
+        """Whether this rank holds slices of some leaves (ZeRO-3 or tensor)."""
+        return self.shards is not None or self.tensor is not None
+
+    def _wholes(self, leaves: Dict[str, torch.Tensor]):
+        """(name, whole leaf, detached) of ``leaves``, one at a time: its
+        fsdp slices gathered over the fsdp group, then its tensor slices
+        over the tensor group (a collective: every rank runs it to its
+        end); a whole leaf passes as it is."""
+        items = self.shards.wholes(leaves) if self.shards is not None else leaves.items()
+        for k, v in items:
+            if self.tensor is not None:
+                v = self.tensor.whole(k, v)
+            yield k, v
 
     def _whole(self, leaves: Dict[str, torch.Tensor], keep: bool = True) -> Dict[str, torch.Tensor]:
-        """``leaves`` with every fsdp slice gathered whole, one leaf at a
-        time (a collective under ZeRO-3: every rank calls it); the leaves
-        themselves without. With ``keep`` False this rank only takes part
-        and gets ``{}``: it never holds more than one whole leaf."""
-        if self.shards is None:
+        """``leaves`` with every slice gathered whole, one leaf at a time (a
+        collective under ZeRO-3 or a tensor axis: every rank calls it); the
+        leaves themselves without. With ``keep`` False this rank only takes
+        part and gets ``{}``: it never holds more than one whole leaf."""
+        if not self._sliced:
             return leaves
         out = {}
-        for k, v in self.shards.wholes(leaves):
+        for k, v in self._wholes(leaves):
             if keep:
                 out[k] = v
         return out
+
+    def _local(self, whole: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's slices of whole leaves: the tensor slice, then the
+        fsdp slice of it."""
+        if self.tensor is not None:
+            whole = self.tensor.local_all(whole)
+        return self.shards.local(whole) if self.shards is not None else whole
 
     def _full_opt_state(self, keep: bool = True) -> dict:
         """The AdamW state with every sharded moment gathered whole over the
@@ -652,33 +701,45 @@ class SFTTrainer:
                 "nu": self._whole(opt["nu"], keep)}
 
     def _full_trainable(self, keep: bool = True) -> Dict[str, torch.Tensor]:
-        """The trainable leaves whole (a collective under ZeRO-3)."""
+        """The trainable leaves whole (a collective under ZeRO-3 or a tensor
+        axis: gathered over fsdp, then over tensor)."""
         return self._whole(self.state.trainable, keep)
 
     def _frozen_fingerprint(self):
-        """``frozen_fingerprint`` of the whole frozen leaves: under ZeRO-3
-        each gathered in turn and dropped (a collective)."""
-        if self.shards is None:
+        """``frozen_fingerprint`` of the whole frozen leaves: under ZeRO-3 or
+        a tensor axis each gathered in turn and dropped (a collective)."""
+        if not self._sliced:
             return frozen_fingerprint(self.state.frozen)
-        return {k: frozen_fingerprint({k: v})[k] for k, v in self.shards.wholes(self.state.frozen)}
+        return {k: frozen_fingerprint({k: v})[k] for k, v in self._wholes(self.state.frozen)}
+
+    def _whole_shape(self, name: str, t: torch.Tensor):
+        """The whole shape of the leaf ``name`` of which ``t`` is a slice."""
+        if self.tensor is not None and self.tensor.sliced(name):
+            return self.tensor.shapes[name]
+        if self.shards is not None and name in self.shards.dims:
+            return self.shards.shapes[name]
+        return t.shape
 
     def _restore(self, ckpt: CheckpointManager, step: int, **kw) -> TrainState:
         """``ckpt.restore`` on every rank: the whole files read, each rank
-        keeps its fsdp slices of the leaves and the moments. So a checkpoint
-        of any world size resumes at any other. A trainable-only restore
-        keeps the frozen slices, checked against the saved fingerprint of
-        the whole leaves (gathered one at a time)."""
-        if self.shards is None:
+        keeps its tensor slices, then its fsdp slices, of the leaves and the
+        moments. So a checkpoint of any layout resumes at any other. A
+        trainable-only restore keeps the frozen slices, checked against the
+        saved fingerprint of the whole leaves (gathered one at a time)."""
+        if not self._sliced:
             return ckpt.restore(step, self.state, **kw)
         trainable_only = kw.get("trainable_only")
         if trainable_only is None:
             trainable_only = ckpt.trainable_only
 
         def like(leaves):  # whole shapes, one element of memory each
-            return {k: torch.zeros([1] * len(self.shards.shapes[k]), dtype=v.dtype,
-                                   device=v.device, requires_grad=v.requires_grad).expand(
-                                       self.shards.shapes[k]) if k in self.shards.dims else v
-                    for k, v in leaves.items()}
+            out = {}
+            for k, v in leaves.items():
+                shape = self._whole_shape(k, v)
+                out[k] = v if shape == v.shape else torch.zeros(
+                    [1] * len(shape), dtype=v.dtype, device=v.device,
+                    requires_grad=v.requires_grad).expand(shape)
+            return out
 
         opt = self.state.opt_state
         whole = TrainState(step=self.state.step, trainable=like(self.state.trainable),
@@ -687,7 +748,7 @@ class SFTTrainer:
                                       "nu": like(opt["nu"])})
         fp = self._frozen_fingerprint() if trainable_only else None
         restored = ckpt.restore(step, whole, fingerprint=fp, **kw)
-        local = self.shards.local
+        local = self._local
         return TrainState(step=restored.step, trainable=local(restored.trainable),
                           frozen=self.state.frozen if trainable_only else local(restored.frozen),
                           opt_state={"count": restored.opt_state["count"],
@@ -704,7 +765,7 @@ class SFTTrainer:
         collective."""
         state = self.state
         fp_needed = ckpt.trainable_only or self.config.publish_dir
-        if self.shards is not None:
+        if self._sliced:
             if fp_needed and self._frozen_fp is None:  # on every rank: same gathers next time
                 self._frozen_fp = self._frozen_fingerprint()
             keep = self.primary
@@ -887,7 +948,8 @@ class SFTTrainer:
                + (f", {describe_mesh(self.mesh)}" if self.distributed else ""))
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
-        meter = self.throughput = _Throughput(self._tokens_per_sample(), self.mesh.size)
+        meter = self.throughput = _Throughput(self._tokens_per_sample(), self.mesh.size,
+                                              self.dp_size)
         # the wedged-device detector (runtime/watchdog.py), armed by the
         # first step's poke so that the first step's kernel builds cannot
         # trip it; under data parallelism an abort is agreed by every rank
@@ -901,7 +963,8 @@ class SFTTrainer:
         # (and once before the first step)
         desync = self.desync = DesyncMonitor(cfg.desync_check_steps)
         if self.distributed:
-            desync.maybe_check(resumed_step, self.state.trainable, self.shards)
+            desync.maybe_check(resumed_step, self.state.trainable, self.shards, self.tensor,
+                               self.mesh)
         self.detector = self._start_detector()
         prev_sigterm = self._install_sigterm()
         self.telemetry.update(total_steps=self.total_steps, epochs=cfg.epochs,
@@ -933,7 +996,8 @@ class SFTTrainer:
                         preempted = True
                         break
                     if self.distributed:
-                        desync.maybe_check(step, self.state.trainable, self.shards)
+                        desync.maybe_check(step, self.state.trainable, self.shards, self.tensor,
+                                           self.mesh)
                     do_log = ((cfg.logging_first_step and step == 1)
                               or (cfg.logging_steps and step % cfg.logging_steps == 0))
                     do_eval = bool(cfg.eval_steps) and step % cfg.eval_steps == 0 and self.n_val > 0
@@ -1060,8 +1124,8 @@ class SFTTrainer:
             "training_samples": self.n_train,
             "validation_samples": self.n_val,
             "final_train_loss": final_loss,
-            "world_size": self.dp_size,
-            "distributed_training": self.dp_size > 1,
+            "world_size": self.mesh.size,
+            "distributed_training": self.mesh.size > 1,
             "final_eval_loss": eval_loss,
             "mesh": dict(self.mesh.shape),
             "wall_clock_seconds": round(wall_seconds, 2),

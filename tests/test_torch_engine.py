@@ -119,9 +119,22 @@ def test_prompt_longer_than_one_chunk(engines):
     _not_an_echo([prompt], [got])
 
 
-def test_shared_prefix_hits_the_prefix_cache(engines):
+def _jax_fresh_pool(jgen, prompt):
+    """The JAX engine's greedy tokens for ``prompt`` on a fresh pool: the
+    port's rule for a block the request was given (its scales start from
+    zero), which the JAX engine keeps only on a pool no request used
+    before."""
+    jeng = JaxPagedEngine(jgen, kv_quant="int8", **GEOMETRY)
+    return jeng.submit(prompt, JaxGenerationConfig(max_new_tokens=MAX_NEW, do_sample=False),
+                       timeout=TIMEOUT)
+
+
+def test_shared_prefix_hits_the_prefix_cache(generators, engines):
     """Two prompts sharing two full blocks: the second maps them from the
-    prefix cache in both engines, and the tokens still agree."""
+    prefix cache in both engines, and the port's tokens on its used pool
+    equal the JAX engine's on a fresh pool (the JAX engine's own pool hands
+    out freed blocks with their last owner's int8 scales)."""
+    jgen, _ = generators
     jeng, eng = engines
     common = "shared system preamble of two blocks!"
     assert len(common) >= 2 * GEOMETRY["block_len"]
@@ -131,8 +144,9 @@ def test_shared_prefix_hits_the_prefix_cache(engines):
     prompts, outs = [], []
     for suffix in (" first question?", " second, different question?"):
         prompt = _enc(common + suffix)
-        want = jeng.submit(prompt, JaxGenerationConfig(max_new_tokens=MAX_NEW, do_sample=False),
-                           timeout=TIMEOUT)
+        jeng.submit(prompt, JaxGenerationConfig(max_new_tokens=MAX_NEW, do_sample=False),
+                    timeout=TIMEOUT)
+        want = _jax_fresh_pool(jgen, prompt)
         got = eng.submit(prompt, GenerationConfig(max_new_tokens=MAX_NEW, do_sample=False),
                          timeout=TIMEOUT)
         assert got == want
@@ -148,10 +162,10 @@ def test_shared_prefix_hits_the_prefix_cache(engines):
 
 
 def test_sampled_requests_are_deterministic_in_seed(generators):
-    """The same request and seed on the same pool state (a fresh engine each
-    time) draws the same tokens; another seed draws others. A freed int8
-    block keeps its absmax scale, in the JAX engine too, so a repeat on a
-    pool that served other requests may quantize its prompt differently."""
+    """The same request and seed draws the same tokens on a fresh engine and
+    again on that engine's pool after another request used and freed its
+    blocks (a fresh int8 block starts from scale zero, whoever held it
+    before); another seed draws others."""
     _, gen = generators
     cfg = GenerationConfig(max_new_tokens=MAX_NEW, do_sample=True, temperature=1.0)
     prompt = _enc("sampled prompt")
@@ -160,10 +174,74 @@ def test_sampled_requests_are_deterministic_in_seed(generators):
         eng = PagedContinuousBatchingEngine(gen, kv_quant="int8", **GEOMETRY)
         try:
             outs.append(eng.submit(prompt, cfg, seed=seed, timeout=TIMEOUT))
+            if len(outs) == 1:
+                eng.submit(_enc(LOUD_PROMPT), cfg, seed=3, timeout=TIMEOUT)
+                outs.append(eng.submit(prompt, cfg, seed=seed, timeout=TIMEOUT))
         finally:
             eng.close()
-    assert outs[0] == outs[1] and len(outs[0]) == MAX_NEW
-    assert outs[2] != outs[0]
+    assert outs[0] == outs[1] == outs[2] and len(outs[0]) == MAX_NEW
+    assert outs[3] != outs[0]
+
+
+# a longer prompt whose K/V absmax exceeds the pinned prompt's in the blocks
+# the pinned request gets after it (checked in the test)
+LOUD_PROMPT = "~~~~ }}}} |||| {{{{ zzzz ~~~~ }}}} |||| {{{{ zzzz ~~~~ }}}}"
+
+
+def _pinned_run(gen, eng, prompt, cfg):
+    """The request's tokens, and per layer the K/V codes of the positions
+    it wrote and its blocks' scales (in table order), plus each of its
+    blocks' largest scale as its prefill found them."""
+    seen = {}
+    final = gen.paged_prefill_final
+
+    def recording(pool, state, table, *a, **kw):
+        ids = torch.as_tensor(np.asarray(table[0]), dtype=torch.long)
+        seen["table"] = ids.clone()
+        seen["before"] = max(float(pool["layers"][i]["k_scale"][ids].max())
+                             for i in pool["layers"])
+        return final(pool, state, table, *a, **kw)
+
+    gen.paged_prefill_final = recording
+    try:
+        tokens = eng.submit(prompt, cfg, timeout=TIMEOUT)
+    finally:
+        del gen.paged_prefill_final
+    ids, n = seen["table"], len(prompt) + MAX_NEW - 1
+    L = GEOMETRY["block_len"]
+    layers = {}
+    for i, entry in eng.pool["layers"].items():
+        layers[i] = {name: entry[name][ids].flatten(0, 1)[:n].clone() for name in ("k", "v")}
+        layers[i].update({name: entry[name][ids[: -(-n // L)]].clone()
+                          for name in ("k_scale", "v_scale")})
+    return tokens, layers, seen["before"]
+
+
+def test_fresh_int8_block_starts_from_scale_zero(generators):
+    """A greedy request on a fresh int8 pool, and the same request on a pool
+    whose blocks a request with larger activations used and freed: the codes
+    and scales of its blocks and its tokens are equal (a freshly allocated
+    block's K/V scales are zeroed before its first write)."""
+    _, gen = generators
+    cfg = GenerationConfig(max_new_tokens=MAX_NEW)
+    prompt = _enc("pinned request")
+    runs = []
+    for loud in (False, True):
+        eng = PagedContinuousBatchingEngine(gen, kv_quant="int8", **GEOMETRY)
+        try:
+            if loud:
+                eng.submit(_enc(LOUD_PROMPT), cfg, timeout=TIMEOUT)
+            runs.append(_pinned_run(gen, eng, prompt, cfg))
+        finally:
+            eng.close()
+    (fresh, fresh_layers, fresh_before), (used, used_layers, used_before) = runs
+    assert fresh_before == 0.0
+    # the freed blocks held larger scales than the pinned request's own
+    assert used_before > max(float(v["k_scale"].max()) for v in fresh_layers.values())
+    assert used == fresh and len(fresh) == MAX_NEW
+    for i, want in fresh_layers.items():
+        for name, t in want.items():
+            assert torch.equal(used_layers[i][name], t), (i, name)
 
 
 def test_close_serves_the_requests_already_queued(generators):

@@ -184,16 +184,19 @@ def test_paged_engine_over_int8_weights_equals_solo(int8_generator):
 def test_paged_engine_over_int8_weights_and_kv_equals_jax(models, int8_generator):
     """The whole quantized stack, int8 weights and an int8 KV pool, emits the
     JAX paged engine's greedy tokens over the same requests in the same
-    order. (Not solo ``generate_ids``'s: the pool's 8-bit rounding changes
+    order, each of the JAX engine's on a fresh pool: the port's rule for a
+    block a request is given (its K/V scales start from zero), which the
+    JAX engine's pool keeps only until a freed block is handed out again.
+    (Not solo ``generate_ids``'s: the pool's 8-bit rounding changes
     tokens of this non-echoing model, in the JAX package too; the JAX
     package's own solo comparison runs the echoing 0.02-init model.)"""
     jq, jmc, _, _ = models
     jgen = JaxGenerator(jq, jmc, JaxTokenizer(), compute_dtype=jnp.float32, eos_token_ids=[])
-    jeng = _paged(jgen, "int8", JaxPagedEngine)
     eng = _paged(int8_generator, "int8")
     try:
         for text in PROMPTS:
             prompt = list(text.encode())
+            jeng = _paged(jgen, "int8", JaxPagedEngine)
             want = jeng.submit(prompt, JaxGenerationConfig(**GREEDY), timeout=240)
             assert eng.submit(prompt, GenerationConfig(**GREEDY), timeout=240) == want
     finally:

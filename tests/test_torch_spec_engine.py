@@ -146,8 +146,27 @@ def _cfgs(cls):
             for i in range(len(PROMPTS))]
 
 
-def _served_one_by_one(engine, cls):
-    return [engine.submit_full(p, c, timeout=TIMEOUT) for p, c in zip(PROMPTS, _cfgs(cls))]
+def _served_one_by_one(engine, cls, between=None):
+    out = []
+    for p, c in zip(PROMPTS, _cfgs(cls)):
+        if between is not None:
+            between(engine)
+        out.append(engine.submit_full(p, c, timeout=TIMEOUT))
+    return out
+
+
+def _fresh_free_blocks(jax_engine):
+    """Zero the int8 K/V scales of the JAX engine's free blocks (between
+    requests, when its worker is idle): the port's rule, under which a block
+    a request is given starts from scale zero, where the JAX engine hands it
+    out with its last owner's."""
+    if jax_engine._cache is None:
+        return  # no pool yet: the first request's is new
+    free = np.asarray(jax_engine._allocator._free, np.int32)
+    if free.size:
+        jax_engine._cache = {"layers": {i: {**e, **{n: e[n].at[free].set(0.0)
+                                                  for n in ("k_scale", "v_scale")}}
+                                        for i, e in jax_engine._cache["layers"].items()}}
 
 
 def _counts(reqs):
@@ -159,12 +178,14 @@ def _counts(reqs):
                 ids=["continuous-lookup", "paged-lookup", "int8-lookup", "continuous-self_draft"])
 def jax_run(request, weights):
     """The JAX engine's run of the four requests, one after another: the
-    records, the stats and (int8) its pool."""
+    records, the stats and (int8) its pool, each request's fresh blocks
+    starting from scale zero as in the port (``_fresh_free_blocks``)."""
     from llm_fine_tune_distributed_tpu.infer import GenerationConfig as JaxGenerationConfig
 
     kind, draft = request.param
     engine = _jax_engine(_jax(weights, draft), kind)
-    reqs = _served_one_by_one(engine, JaxGenerationConfig)
+    reqs = _served_one_by_one(engine, JaxGenerationConfig,
+                              _fresh_free_blocks if kind == "int8" else None)
     snap = engine.stats_snapshot()
     pool = jax.device_get(engine._cache) if kind == "int8" else None
     return kind, draft, reqs, snap, pool

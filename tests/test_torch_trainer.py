@@ -164,7 +164,7 @@ UNPORTED = {
     "lion": dict(optimizer="lion"),
     "ring": dict(attention_impl="ring"),
     "ulysses": dict(attention_impl="ulysses"),
-    "mesh": dict(mesh=MeshConfig(data=1, fsdp=1, tensor=2)),
+    "mesh": dict(mesh=MeshConfig(data=1, fsdp=1, seq=2)),
     "train_port": dict(train_port=0),
     "native_loader": dict(use_native_loader=True),
     "remat_mlp": dict(remat_policy="mlp"),
@@ -212,6 +212,13 @@ def test_unported_knobs_raise(workdir, knob):
     kw.update(UNPORTED[knob])
     with pytest.raises(NotImplementedError):
         SFTTrainer(TrainConfig(**kw), device="cpu")
+
+
+def test_tensor_axis_without_a_process_group_raises(workdir):
+    """``tensor > 1`` trains over processes only: one process refuses it."""
+    kw = _recipe(workdir, "refused_tensor", dataset_file="qa.jsonl")
+    with pytest.raises(NotImplementedError, match="tensor=2 needs"):
+        SFTTrainer(TrainConfig(**kw, mesh=MeshConfig(data=1, fsdp=1, tensor=2)), device="cpu")
 
 
 def test_int8_trunk_refuses_dpo(workdir):
